@@ -1,0 +1,647 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA Hopper GPU, the
+CUDA toolkit (``nvcc``) and PyTorch built for CUDA:
+
+    python3 chip_smoke.py [--out results.json]
+
+It needs no network and no arguments, and exits non-zero — printing no
+result line — when there is no GPU, when the package is missing, or when
+any phase fails. Phases:
+
+1. device   — require CUDA; print the card's name and power limit as
+              ``nvidia-smi --query-gpu=name,power.limit`` gives them.
+2. build    — compile every kernel under ``src/repro_torch/kernels/csrc``
+              with ``nvcc`` (one process per source, in parallel).
+3. kernels  — call each kernel's wrapper on GPU tensors and hold the result
+              against its plain PyTorch version on the same inputs:
+              ``elemwise`` bit-equal (exhaustive width-8 square, > 1 M
+              width-16 pairs, zeros, ragged and 1-D shapes);
+              ``flash_attention`` within the stated tolerances (f32 / bf16,
+              d_head 64 / 128, causal / window / non-causal, ragged Sq != Skv
+              with q_offset and kv_len, exact and SIMDive divide) and its
+              finalize bit-equal on given (acc, l).
+4. serve    — the main path at the full width of smollm-360m: batch 4,
+              prompt 512, 32 greedy tokens, ``--approx simdive``, random
+              weights from a seed, through ``launch.serve.generate``. The
+              kernels' launch counters are zeroed just before and read just
+              after: 32 attention launches (one per layer of the prefill)
+              and 32 elemwise launches per decode step are required. The
+              same model is then run through the plain versions
+              (``backend="ref"``, on the GPU, fed the same tokens) and
+              logits and tokens are compared.
+5. times    — prefill, decode step, and each kernel at the main path's
+              shapes beside its bound, its plain version and — for
+              attention — one ``scaled_dot_product_attention`` call as the
+              yardstick (timed here; the port never calls it), and the
+              number of kernels one decode step puts on the card. A kernel's
+              ``ms`` (and ``library_ms``) is device time with the host taken
+              out (many launches replayed from one CUDA graph); the eager
+              per-call time, host included, is printed beside it.
+
+Output: progress lines, then the card line, one JSON line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+ARCH = "smollm-360m"
+BATCH, PROMPT, GEN = 4, 512, 32
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12        # CUDA-core rate; stands in for 32-bit integer ops
+
+# ---- tolerances, kernel vs plain version on the same inputs (on the GPU) --
+# float32, exact divide: online softmax over 64-wide kv tiles vs a dense
+# softmax — summation order only, a few ulps of O(1) values
+TOL_F32 = dict(atol=3e-5, rtol=3e-5)
+# bfloat16: p is rounded to bf16 (2^-9 relative per term) before the PV
+# product — in the kernel relative to the running maximum of its kv tile,
+# in the dense plain version relative to the final one — so the two sums
+# differ by up to 2^-8 of sum(p |v|) / l <= max|v| (< 6 here), whatever the
+# output's own size after cancellation: 2e-2 absolute; plus one bf16 ulp
+# (2^-8) of the output for the final rounding, which f32 round-off can flip
+TOL_BF16 = dict(atol=2e-2, rtol=8e-3)
+# SIMDive divide: f32 round-off in (acc, l) may move a rounded 16-bit
+# divider operand by one unit, i.e. the quotient by <= 2^-12 of the row's
+# scale (|v| < 6 here): 1.25e-3 absolute. Rarely (when that unit crosses
+# one of the 64 correction regions) the coefficient itself steps, a jump of
+# up to a few percent of the element: those may be at most 1e-4 of all
+# elements and must stay inside the loose bound.
+TOL_APPROX_EXTRA = 1.25e-3
+APPROX_OUTLIER_SHARE = 1e-4
+TOL_APPROX_LOOSE = dict(atol=2e-2, rtol=6e-2)
+# main path, kernels vs plain versions: activations and logits are bf16
+# (8 bits of mantissa), so a logit of magnitude 4..8 — the largest here are
+# about 5 — has an ulp of 2^-5 = 0.031. Attention outputs that differ by one
+# bf16 ulp between kernel and plain version pass through 32 layers; the
+# measured difference is 0.07 = 2.2 ulps (PERF.md). Bound: 6 ulps.
+LOGIT_TOL = 0.1875
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# --------------------------------------------------------------- helpers --
+def gpu_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of one call, CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def gpu_graph_time_ms(fn, iters: int) -> float:
+    """Mean device time of one call with the host taken out: ``iters`` calls
+    are captured into one CUDA graph and the replay is timed. At small
+    shapes an eager loop times Python and the launch queue, not the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()                                   # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def count_device_kernels(fn):
+    """Kernels, copies and memsets the card ran for one call of ``fn``, from
+    a ``torch.profiler`` trace; None when the trace holds no device event
+    (tracing not available on this machine)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def close(got, want, *, atol, rtol):
+    """(all within bound, max abs err, share outside bound), in float32."""
+    import torch
+
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = (g - w).abs()
+    bad = err > (atol + rtol * w.abs())
+    finite = bool(torch.isfinite(g).all())
+    return (finite and not bool(bad.any()), float(err.max()),
+            float(bad.float().mean()))
+
+
+# ------------------------------------------------------- phase 3: kernels --
+def check_elemwise(dev) -> float:
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0
+
+    def run(name, a, b, spec, **kw):
+        nonlocal worst
+        got = get_op("elemwise", spec, "cuda")(a, b, **kw)
+        want = get_op("elemwise", spec, "ref")(a, b, **kw)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.uint32 and got.shape == a.shape,
+                f"elemwise {name}: dtype/shape {got.dtype} {got.shape}")
+        diff = (got.view(torch.int32).to(torch.int64)
+                - want.view(torch.int32).to(torch.int64)).abs()
+        worst = max(worst, int(diff.max()))
+        require(int(diff.max()) == 0,
+                f"elemwise {name}: {int((diff != 0).sum())} lanes differ")
+
+    # exhaustive width-8 square, zeros included
+    a8 = torch.arange(256, device=dev).repeat_interleave(256)
+    b8 = torch.arange(256, device=dev).repeat(256)
+    m8 = torch.randint(0, 2, a8.shape, generator=gen, device=dev)
+    for cb in (0, 6):
+        spec = SimdiveSpec(width=8, coeff_bits=cb)
+        run(f"w8 cb{cb} mul", a8, b8, spec, op="mul")
+        run(f"w8 cb{cb} div", a8, b8, spec, op="div", frac_out=8)
+        run(f"w8 cb{cb} mixed", a8, b8, spec, op="mixed", mode=m8,
+            frac_out=8)
+    run("w8 mitchell (no rounding)", a8, b8,
+        SimdiveSpec(width=8, coeff_bits=0, round_output=False), op="div",
+        frac_out=8)
+    run("w8 ib4 mixed", a8, b8, SimdiveSpec(width=8, coeff_bits=6,
+                                            index_bits=4),
+        op="mixed", mode=m8, frac_out=8)
+
+    # width 16: > 1 M seeded pairs plus every zero / edge case
+    n = (1 << 20) + 3
+    a16 = torch.randint(0, 1 << 16, (n,), generator=gen, device=dev)
+    b16 = torch.randint(0, 1 << 16, (n,), generator=gen, device=dev)
+    edge = torch.tensor([0, 1, 2, 3, 0x7FFF, 0x8000, 0xFFFF], device=dev)
+    a16 = torch.cat([a16, edge.repeat_interleave(len(edge))])
+    b16 = torch.cat([b16, edge.repeat(len(edge))])
+    m16 = torch.randint(0, 2, a16.shape, generator=gen, device=dev)
+    s16 = SimdiveSpec(width=16, coeff_bits=8)
+    run("w16 cb8 div fo15", a16, b16, s16, op="div", frac_out=15)
+    run("w16 cb8 mul", a16, b16, s16, op="mul")
+    run("w16 cb8 mixed", a16, b16, s16, op="mixed", mode=m16, frac_out=8)
+    run("w16 cb6 div fo15 (serving config)", a16, b16,
+        SimdiveSpec(width=16, coeff_bits=6), op="div", frac_out=15)
+
+    # ragged, 1-D, unaligned views, uint32 operands, the decode shape
+    run("ragged (37,53)", a16[:37 * 53].reshape(37, 53),
+        b16[:37 * 53].reshape(37, 53), s16, op="div", frac_out=15)
+    run("1-D (1001,)", a16[:1001], b16[:1001], s16, op="mul")
+    a32 = a16.to(torch.int32).view(torch.uint32)
+    b32 = b16.to(torch.int32).view(torch.uint32)
+    run("unaligned uint32 views", a32[1:1000], b32[3:1002], s16, op="div",
+        frac_out=15)
+    run("one lane", a16[:1], b16[:1], s16, op="div", frac_out=15)
+    au = a16[:3840].to(torch.int32).view(torch.uint32).reshape(4, 5, 3, 64)
+    bu = b16[:3840].to(torch.int32).view(torch.uint32).reshape(4, 5, 3, 64)
+    run("decode finalize shape (4,5,3,64) uint32", au, bu,
+        SimdiveSpec(width=16, coeff_bits=6), op="div", frac_out=15)
+    return float(worst)
+
+
+def check_attention(dev):
+    """Returns (max abs err at the main path's shape, worst over all cases)."""
+    import torch
+    from repro_torch.core.error_lut import table_for
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import get_op
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = 0.0
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
+            spec=fa.DEFAULT_DIV_SPEC, **kw):
+        nonlocal worst
+        q = randn(BH, Sq, dh, dtype=dtype)
+        k = randn(BH // kv_group, Skv, dh, dtype=dtype)
+        v = randn(BH // kv_group, Skv, dh, dtype=dtype)
+        if kv_len is None:
+            got = get_op("attention", spec, "cuda")(q, k, v,
+                                                    kv_group=kv_group, **kw)
+            want = get_op("attention", spec, "ref")(q, k, v,
+                                                    kv_group=kv_group, **kw)
+        else:       # kv_len is the wrappers' own argument (not the op's)
+            got = fa.flash_attention_cuda(q, k, v, spec=spec, kv_len=kv_len,
+                                          kv_group=kv_group, **kw)
+            want = fa.flash_attention_ref(q, k, v, spec=spec, kv_len=kv_len,
+                                          kv_group=kv_group, **kw)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and got.shape == q.shape,
+                f"attention {name}: dtype/shape {got.dtype} {got.shape}")
+        tol = dict(TOL_F32 if dtype == torch.float32 else TOL_BF16)
+        if kw.get("approx_div", True):
+            tol["atol"] += TOL_APPROX_EXTRA
+            ok, err, share = close(got, want, **tol)
+            loose_ok, _, _ = close(got, want, **TOL_APPROX_LOOSE)
+            ok = loose_ok and share <= APPROX_OUTLIER_SHARE
+        else:
+            ok, err, share = close(got, want, **tol)
+        worst = max(worst, err)
+        log(f"  attention {name}: max_abs_err {err:.3e} "
+            f"outside-tight share {share:.2e}")
+        require(ok, f"attention {name}: max_abs_err {err:.3e}, share outside "
+                    f"the bound {share:.3e} (tolerance {tol})")
+        return err
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        for dh in (64, 128):
+            for approx in (False, True):
+                t = f"{tag} dh{dh} {'simdive' if approx else 'exact'}"
+                run(f"{t} causal", 6, 256, 256, dh, dtype, causal=True,
+                    approx_div=approx)
+                run(f"{t} window48", 4, 200, 200, dh, dtype, causal=True,
+                    window=48, approx_div=approx)
+                run(f"{t} non-causal ragged", 4, 100, 173, dh, dtype,
+                    causal=False, approx_div=approx)
+                run(f"{t} q_offset+kv_len", 4, 70, 300, dh, dtype,
+                    causal=True, q_offset=150, kv_len=260,
+                    approx_div=approx)
+    # the shape the prefill hands the kernel: q (B*15, S, 64), kv (B*5, S, 64)
+    main_err = run("bf16 dh64 GQA kv_group3, the main path's shape and "
+                   "serving config", BATCH * 15, PROMPT, PROMPT, 64, bf16,
+                   kv_group=3, causal=True, approx_div=True, frac_out=15,
+                   spec=SimdiveSpec(width=16, coeff_bits=6))
+    run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
+        q_offset=299, approx_div=True)
+    run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
+        approx_div=True, frac_out=8, spec=SimdiveSpec(width=8, coeff_bits=6))
+    run("f32 dh64 mitchell divider ib4", 4, 128, 128, 64, f32, causal=True,
+        approx_div=True, spec=SimdiveSpec(width=16, coeff_bits=0,
+                                          index_bits=4, round_output=False))
+
+    # the finalize alone, on given (acc, l): bit-equal floats and integers
+    rows, dh = BATCH * 15 * PROMPT, 64
+    acc = torch.randn(rows, dh, generator=gen, device=dev) * 4.0
+    l = torch.rand(rows, generator=gen, device=dev) * 300.0 + 1e-3
+    acc[0] = 0.0                                    # zero numerators
+    acc[1] *= 1e-20                                 # tiny row
+    acc[2] *= 1e20                                  # huge row
+    l[3] = 0.0                                      # clamps to 1e-30
+    acc[4, 0], l[4] = 2.0, 2.0                      # exact powers of two
+    acc[5, 0], l[5] = 1.9999999, 0.5
+    for spec, fo in ((fa.DEFAULT_DIV_SPEC, 15),
+                     (SimdiveSpec(width=16, coeff_bits=6), 15),
+                     (SimdiveSpec(width=8, coeff_bits=6), 8)):
+        out, quot = fa.softmax_div_cuda(acc, l, spec=spec, frac_out=fo)
+        tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
+                        device=dev)
+        kw = dict(width=spec.width, index_bits=spec.index_bits, frac_out=fo,
+                  round_out=spec.round_output)
+        want_q = fa.softmax_div_lanes(acc, l, tab, **kw)
+        want = fa.softmax_div(acc, l, tab, **kw)
+        torch.cuda.synchronize()
+        got_q = quot.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        nq = int((got_q != want_q).sum())
+        nf = int((out != want).sum())
+        log(f"  finalize w{spec.width} cb{spec.coeff_bits} fo{fo}: "
+            f"{nq} integer / {nf} float mismatches over {rows * dh} lanes")
+        require(nq == 0, f"finalize integers differ on {nq} lanes")
+        require(nf == 0, f"finalize floats differ on {nf} lanes")
+    return main_err, worst
+
+
+# --------------------------------------------------------- phase 4: serve --
+def serve_main_path(dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    cfg = serve.serving_config(ARCH, approx="simdive")
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+            == (32, 960, 15, 5, 64, 2560, 49152, "bfloat16"),
+            "not the full-width smollm-360m config")
+    lm = build(cfg)                                  # device defaults to cuda
+    require(lm.device.type == "cuda", "LM not on the GPU")
+    log(serve.render_plan(serve.resolve_serving_plan(cfg), cfg))
+    params = lm.init(SEED)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int64)).to(dev)
+    max_seq = PROMPT + GEN
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
+                                    return_logits=True)
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"  main path: {tuple(tokens.shape)} tokens in {first_run_s:.2f}s "
+        f"(first run, unwarmed); launches {counts}")
+    require(counts["attention"] == cfg.n_layers,
+            f"attention launches {counts['attention']}, expected "
+            f"{cfg.n_layers} (one per layer of the prefill)")
+    require(counts["elemwise"] == cfg.n_layers * (GEN - 1),
+            f"elemwise launches {counts['elemwise']}, expected "
+            f"{cfg.n_layers} per decode step x {GEN - 1} steps")
+    require(tokens.shape == (BATCH, GEN)
+            and logits.shape == (BATCH, GEN, cfg.vocab_size),
+            "generate returned the wrong shapes")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    require(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+            "token out of the vocabulary")
+
+    # the same model through the plain versions, fed the same tokens
+    ref_cfg = serve.serving_config(ARCH, approx="simdive", backend="ref")
+    ref_lm = build(ref_cfg)
+    ref_logits, cache = ref_lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(ref_lm.empty_cache(BATCH, max_seq), cache)
+    ref_all = [ref_logits]
+    for i in range(GEN - 1):
+        ref_logits, cache = ref_lm.decode_step(params, cache, tokens[:, i],
+                                               PROMPT + i)
+        ref_all.append(ref_logits)
+    ref_all = torch.stack(ref_all, dim=1).to(torch.float32)
+    torch.cuda.synchronize()
+    require(launch_counts() == counts,
+            "the plain-version run launched a kernel")
+    err = (logits - ref_all).abs()
+    prefill_err, decode_err = float(err[:, 0].max()), float(err[:, 1:].max())
+    top2 = ref_all.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL
+    agree = tokens == ref_all.argmax(-1)
+    log(f"  vs plain versions: prefill logits max_abs_err {prefill_err:.4f}, "
+        f"decode {decode_err:.4f} (|logit| max {float(ref_all.abs().max()):.2f}"
+        f"); tokens equal {int(agree.sum())}/{agree.numel()}, decided by "
+        f"margin {int(decided.sum())}, of those equal "
+        f"{int((agree & decided).sum())}")
+    require(max(prefill_err, decode_err) <= LOGIT_TOL,
+            f"logits differ from the plain-version run by "
+            f"{max(prefill_err, decode_err):.4f} > {LOGIT_TOL}")
+    require(bool((agree | ~decided).all()),
+            "a greedy token decided by more than twice the logit tolerance "
+            "differs from the plain-version run")
+    return dict(lm=lm, params=params, prompts=prompts, counts=counts,
+                first_run_s=first_run_s, prefill_logit_err=prefill_err,
+                decode_logit_err=decode_err,
+                tokens_equal=int(agree.sum()), tokens=agree.numel(),
+                tokens_decided=int(decided.sum()))
+
+
+# --------------------------------------------------------- phase 5: times --
+def measure(dev, served):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.approx import attention_div
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+
+    lm, params, prompts = served["lm"], served["params"], served["prompts"]
+    cfg = lm.cfg
+    spec, _, frac_out = cfg.approx.resolve_attention()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+
+    # attention at the prefill's shape: q (B*H, S, dh), kv (B*KV, S, dh)
+    q = torch.randn(BATCH * H, PROMPT, dh, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    k = torch.randn(BATCH * KV, PROMPT, dh, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    v = torch.randn(BATCH * KV, PROMPT, dh, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    kw = dict(causal=True, approx_div=True, frac_out=frac_out, kv_group=G)
+    att_kernel = lambda: get_op("attention", spec, "cuda")(q, k, v, **kw)
+    att_ms = gpu_graph_time_ms(att_kernel, iters=50)
+    att_eager_ms = gpu_time_ms(att_kernel, iters=50)
+    att_plain_ms = gpu_time_ms(lambda: get_op("attention", spec, "ref")(
+        q, k, v, **kw), iters=10)
+    q4 = q.reshape(BATCH, H, PROMPT, dh)
+    k4 = k.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    v4 = v.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    att_lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=50)
+    pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2       # causal (q, k) pairs
+    att_flops = 4 * pairs * dh                           # QK^T and PV
+    att_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o, k, v
+    att_ops_ms = att_flops / BF16_FLOPS * 1e3
+    att_bytes_ms = att_bytes / HBM_BYTES_PER_S * 1e3
+
+    # elemwise at the decode finalize's shape: (B, KVH, G, dh) lanes
+    shape = (BATCH, KV, G, dh)
+    a = torch.randint(0, 1 << 15, shape, generator=gen, device=dev
+                      ).to(torch.int32).view(torch.uint32)
+    b = torch.randint(1, 1 << 15, shape, generator=gen, device=dev
+                      ).to(torch.int32).view(torch.uint32)
+    ew_kernel = lambda: get_op("elemwise", spec, "cuda")(
+        a, b, op="div", frac_out=frac_out)
+    ew_ms = gpu_graph_time_ms(ew_kernel, iters=200)
+    ew_eager_ms = gpu_time_ms(ew_kernel, iters=500)
+    ew_plain_ms = gpu_time_ms(lambda: get_op("elemwise", spec, "ref")(
+        a, b, op="div", frac_out=frac_out), iters=50)
+    lanes = a.numel()
+    ew_bytes_ms = 12 * lanes / HBM_BYTES_PER_S * 1e3
+    ew_ops_ms = 64 * lanes / F32_FLOPS * 1e3             # ~64 int ops a lane
+    # the same kernel where it is memory bound: 16 M lanes
+    big = 1 << 24
+    ab = torch.randint(0, 1 << 16, (big,), generator=gen, device=dev
+                       ).to(torch.int32).view(torch.uint32)
+    bb = torch.randint(0, 1 << 16, (big,), generator=gen, device=dev
+                       ).to(torch.int32).view(torch.uint32)
+    ew_big_ms = gpu_time_ms(lambda: get_op("elemwise", spec, "cuda")(
+        ab, bb, op="div", frac_out=frac_out), iters=20)
+
+    # the whole decode finalize (quantize + kernel + fold back), per layer
+    acc = torch.randn(*shape, generator=gen, device=dev)
+    l = torch.rand(shape[:-1], generator=gen, device=dev) * 100 + 1
+    fin_ms = gpu_time_ms(lambda: attention_div(acc, l, cfg.approx), iters=200)
+    fin_exact_ms = gpu_time_ms(lambda: acc / l[..., None], iters=200)
+
+    # serving: prefill, steady-state decode step, end to end
+    max_seq = PROMPT + GEN
+    prefill_t = time_callable(lm.prefill, params, {"tokens": prompts},
+                              iters=5, items=BATCH * PROMPT)
+    logits, cache = lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), cache)
+    tok = logits.argmax(-1)
+    step_t = time_callable(lm.decode_step, params, cache, tok, PROMPT,
+                           iters=10, warmup=2, items=BATCH)
+    # the same step with the host taken out: what the card alone needs
+    step_graph_ms = gpu_graph_time_ms(
+        lambda: lm.decode_step(params, cache, tok, PROMPT), iters=3)
+    e2e_t = time_callable(
+        lambda: serve.generate(lm, params, prompts, max_seq, GEN),
+        iters=3, items=BATCH * GEN, device=lm.device)
+    step_launches = count_device_kernels(
+        lambda: lm.decode_step(params, cache, tok, PROMPT))
+    log(f"  decode step: {step_launches} device kernels and copies in one "
+        "step (profiler trace; None = the trace showed no device activity)")
+    served["decode_step_device_kernels"] = step_launches
+    times = {
+        "prefill_ms": prefill_t.best_s * 1e3,
+        "prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
+        "decode_step_ms": step_t.best_s * 1e3,
+        "decode_tok_per_s": BATCH / step_t.best_s,
+        "decode_step_device_ms": step_graph_ms,
+        "decode_step_host_share": 1.0 - step_graph_ms / (step_t.best_s * 1e3),
+        "generate_ms": e2e_t.best_s * 1e3,
+        "generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
+        "first_generate_s": served["first_run_s"],
+        "elemwise_eager_call_ms": ew_eager_ms,
+        "flash_attention_eager_call_ms": att_eager_ms,
+        "attention_div_ms": fin_ms,
+        "exact_div_ms": fin_exact_ms,
+        "elemwise_16M_lanes_ms": ew_big_ms,
+        "elemwise_16M_lanes_bound_ms": 12 * big / HBM_BYTES_PER_S * 1e3,
+        "attention_tflops": att_flops / (att_ms * 1e-3) / 1e12,
+    }
+    kernels = [
+        {"name": "elemwise", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/elemwise.cu",
+         "replaces": "src/repro/kernels/elemwise.py:33",
+         "shape": f"{shape} uint32 lanes, div, w{spec.width} "
+                  f"cb{spec.coeff_bits} fo{frac_out}",
+         "ms": ew_ms, "plain_ms": ew_plain_ms,
+         "bound_ms": max(ew_bytes_ms, ew_ops_ms),
+         "bound_by": "bytes" if ew_bytes_ms >= ew_ops_ms else "operations",
+         "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:145",
+         "shape": f"q ({BATCH * H},{PROMPT},{dh}) kv ({BATCH * KV},{PROMPT},"
+                  f"{dh}) bf16 causal simdive w{spec.width} "
+                  f"cb{spec.coeff_bits} fo{frac_out}",
+         "ms": att_ms, "plain_ms": att_plain_ms,
+         "bound_ms": max(att_ops_ms, att_bytes_ms),
+         "bound_by": "operations" if att_ops_ms >= att_bytes_ms else "bytes",
+         "library_ms": att_lib_ms},
+    ]
+    return kernels, times
+
+
+# ------------------------------------------------------------------- main --
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the results as JSON to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "needs one NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build        # fails outside the checkout
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[1/5] device: {card} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build.load()
+    build_s = time.perf_counter() - t0
+    log(f"[2/5] build: kernels compiled and loaded in {build_s:.1f}s")
+    for logf in sorted(build.build_dir().rglob("build.*.log")):
+        for line in logf.read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log("  ptxas: " + line.strip()[:200])
+
+    log("[3/5] kernels vs plain versions")
+    ew_err = check_elemwise(dev)
+    log("  elemwise: bit-equal on every case")
+    att_err, att_worst = check_attention(dev)
+
+    log("[4/5] main path: smollm-360m full width, batch "
+        f"{BATCH}, prompt {PROMPT}, gen {GEN}, --approx simdive")
+    served = serve_main_path(dev)
+
+    log("[5/5] times")
+    kernels, times = measure(dev, served)
+    counts = served["counts"]
+    for kern, name, err in ((kernels[0], "elemwise", ew_err),
+                            (kernels[1], "attention", att_err)):
+        kern["launches"] = counts[name]
+        kern["max_abs_err"] = err
+        require(kern["launches"] > 0, f"{name} never launched on the path")
+    # max_abs_err is taken at the main path's shape; the worst over every
+    # other case of phase 3 stands beside it
+    kernels[1]["max_abs_err_all_cases"] = att_worst
+    for key, val in times.items():
+        log(f"  {key}: {val:.4f}")
+    total_s = time.perf_counter() - t_start
+    log(f"  total {total_s:.1f}s")
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({
+            "card": card, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "build_s": build_s,
+            "total_s": total_s, "kernels": kernels, "times": times,
+            "main_path": {k: v for k, v in served.items()
+                          if k not in ("lm", "params", "prompts")},
+            "device": device}, indent=1))
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""repro_torch.kernels — hand-written CUDA kernels for the SIMDive hot spots.
+
+Layering:
+
+  datapath.py         composable stage library in plain PyTorch — the
+                      log -> correct -> antilog datapath, host side
+  csrc/simdive_datapath.cuh   the same stages, device side, included by
+                      every kernel
+  elemwise.py         fused elementwise mul/div/mixed: wrapper + plain
+                      version (kernel: csrc/elemwise.cu)
+  flash_attention.py  online-softmax attention whose finalize runs the
+                      SIMDive divider: wrapper + plain version
+                      (kernel: csrc/flash_attention.cu)
+  build.py            nvcc build at first launch + ctypes loader
+  registry.py         get_op()/register_op() — backend resolution
+  ops.py              built-in op registration + thin public wrappers
+
+Exports resolve lazily (PEP 562) so importing a leaf module never drags in
+the whole op surface.
+"""
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "simdive_elemwise": ".ops",
+    "simdive_attention": ".ops",
+    "get_op": ".registry",
+    "register_op": ".registry",
+    "resolve_backend": ".registry",
+    "launch_counts": ".registry",
+    "reset_launch_counts": ".registry",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(mod, __name__), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -1,0 +1,239 @@
+"""Flash attention with SIMDive divider normalization: kernel wrapper and
+plain version.
+
+Counterpart of ``repro.kernels.flash_attention``. The CUDA kernel is
+``csrc/flash_attention.cu`` (online softmax over kv tiles, QK^T and PV in
+the kernel's body, the divider in its finalize); the plain PyTorch version
+is :func:`flash_attention_ref` (dense softmax, q-chunked) with
+:func:`softmax_div`, composing the same datapath stages.
+
+Contract (the reference's): ``q (BH, Sq, dh)``, ``k, v (BH, Skv, dh)`` with
+heads flattened and matched, f32 or bf16, output ``(BH, Sq, dh)`` in
+``q.dtype``. One extension: ``kv_group = G`` lets ``k, v`` be
+``(BH / G, Skv, dh)`` — head ``bh`` reads kv head ``bh // G`` — so GQA
+callers need not materialise the repeat.
+
+``floor(log2 top)`` of the per-row quantizer is read from the float's
+exponent field (``torch.frexp`` here, the exponent bits in the kernel), so
+kernel and plain version agree exactly on the row scale; two ``log2``
+implementations may differ in the last place just below a power of two.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.error_lut import table_for
+from repro_torch.core.mitchell import (
+    check_width,
+    lane_max_float,
+)
+from repro_torch.core.simdive import SimdiveSpec
+from . import build
+from . import datapath as dp
+
+__all__ = ["DEFAULT_DIV_SPEC", "DEFAULT_FRAC_OUT",
+           "softmax_div_quantize", "softmax_div_lanes", "softmax_div",
+           "flash_attention_ref", "flash_attention_cuda", "softmax_div_cuda"]
+
+#: divider config the attention op resolves to when no policy overrides it:
+#: width 16 + frac_out 15 keeps every anti-log shift < 32
+DEFAULT_DIV_SPEC = SimdiveSpec(width=16, coeff_bits=8, index_bits=3)
+DEFAULT_FRAC_OUT = 15
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+# ---------------------------------------------------------------- divider --
+def softmax_div_quantize(acc: torch.Tensor, l: torch.Tensor, width: int):
+    """Per-row shared-exponent quantization of ``(|acc|, l)`` into lanes.
+
+    ``top = max(rowmax|acc|, l)`` anchors each row's scale
+    ``2^(width - 2 - floor(log2 top))``, so both operands use the full lane
+    and the result does not depend on how rows were blocked. Returns
+    ``(qn (..., dh), qd (..., 1))`` int64 carriers.
+    """
+    num = acc.abs()
+    den = l.clamp(min=1e-30)[..., None]
+    top = torch.maximum(num.amax(dim=-1, keepdim=True), den).clamp(min=1e-30)
+    _, e = torch.frexp(top)                      # top = m * 2^e, m in [.5, 1)
+    sc = torch.ldexp(torch.ones_like(top), (width - 1) - e)
+    lim = lane_max_float(width)
+    qn = torch.round(num * sc).clamp(0.0, lim).to(torch.int64)
+    qd = torch.round(den * sc).clamp(1.0, lim).to(torch.int64)
+    return qn, qd
+
+
+def softmax_div_lanes(acc, l, tab, *, width: int, index_bits: int = 3,
+                      frac_out: int = DEFAULT_FRAC_OUT,
+                      round_out: bool = True) -> torch.Tensor:
+    """The divider's raw quotient lanes (int64 carrier) for ``acc / l``."""
+    qn, qd = softmax_div_quantize(acc, l, width)
+    return dp.lane_op(qn, qd.expand_as(qn), tab, width=width,
+                      index_bits=index_bits, op="div", frac_out=frac_out,
+                      round_out=round_out)
+
+
+def softmax_div(acc, l, tab, *, width: int, index_bits: int = 3,
+                frac_out: int = DEFAULT_FRAC_OUT,
+                round_out: bool = True) -> torch.Tensor:
+    """Softmax normalization ``acc / l[..., None]`` on the SIMDive divider.
+
+    ``acc``: (..., dh) float32 signed accumulator rows; ``l``: (...,) > 0
+    denominators; ``tab``: the int64 'div' table on ``acc``'s device. The
+    quotient comes back at ``frac_out`` fraction bits and is folded back to
+    float32 with the sign re-applied.
+    """
+    quot = softmax_div_lanes(acc, l, tab, width=width, index_bits=index_bits,
+                             frac_out=frac_out, round_out=round_out)
+    out = quot.to(torch.float32) * (2.0 ** -frac_out)
+    return torch.where(acc < 0, -out, out)
+
+
+# ---------------------------------------------------------- plain version --
+def _kv_heads(x: torch.Tensor, kv_group: int) -> torch.Tensor:
+    return x if kv_group == 1 else x.repeat_interleave(kv_group, dim=0)
+
+
+def flash_attention_ref(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
+                        causal=True, window=0, approx_div=False,
+                        frac_out=DEFAULT_FRAC_OUT, q_offset=0, kv_len=None,
+                        kv_group: int = 1) -> torch.Tensor:
+    """Dense plain version on the kernel's (BH, S, dh) contract.
+
+    Exact softmax (not online), the kernel's masking semantics and — under
+    ``approx_div`` — the same divider stages. Products accumulate in f32;
+    ``p`` is rounded to ``v``'s dtype before the PV product. q is processed
+    in chunks of 512 rows, so a step materializes (BH, 512, Skv) scores.
+    """
+    BH, Sq, dh = q.shape
+    Skv = k.shape[1]
+    if kv_len is None:
+        kv_len = Skv
+    kf = _kv_heads(k, kv_group).to(torch.float32)
+    vf = _kv_heads(v, kv_group).to(torch.float32)
+    scale = dh ** -0.5
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
+                    device=q.device) if approx_div else None
+    outs = []
+    for lo in range(0, Sq, 512):
+        qi = q[:, lo:lo + 512].to(torch.float32)
+        s = torch.einsum("bqd,btd->bqt", qi, kf) * scale
+        qpos = q_offset + lo + torch.arange(qi.shape[1],
+                                            device=q.device)[:, None]
+        ok = kpos < kv_len
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok[None], s, torch.full_like(s, float("-inf")))
+        m = s.amax(dim=-1)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1).clamp(min=1e-30)
+        acc = torch.einsum("bqt,btd->bqd", p.to(v.dtype).to(torch.float32),
+                           vf)
+        if approx_div:
+            out = softmax_div(acc, l, tab, width=spec.width,
+                              index_bits=spec.index_bits, frac_out=frac_out,
+                              round_out=spec.round_output)
+        else:
+            out = acc / l[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------- kernel wrapper --
+def _check_cuda(name: str, **tensors) -> None:
+    for key, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} CUDA kernel: {key} lies on {t.device}, "
+                             "not on a CUDA device")
+
+
+def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
+                         causal=True, window=0, approx_div=False,
+                         frac_out=DEFAULT_FRAC_OUT, q_offset=0, kv_len=None,
+                         kv_group: int = 1) -> torch.Tensor:
+    """Launch the CUDA kernel. Same arguments as :func:`flash_attention_ref`.
+
+    The kernel is compiled for one tile (64 q rows per block, 64 kv rows per
+    step), so there is no launch shape to choose. Launches on the current stream and does not synchronise; the ragged
+    edges of Sq and Skv are masked in the kernel. Raises on CPU tensors, on
+    what the kernel does not take (dtype other than f32 / bf16, d_head other
+    than 64 / 128, width 32) and on a failed build or launch.
+    """
+    _check_cuda("flash_attention", q=q, k=k, v=v)
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
+        raise ValueError(f"expected q (BH,Sq,dh), k/v (BH/G,Skv,dh); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, Sq, dh = q.shape
+    Skv = k.shape[1]
+    if k.shape[0] * kv_group != BH or k.shape[2] != dh:
+        raise ValueError(f"k/v {tuple(k.shape)} with kv_group {kv_group} do "
+                         f"not match q {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes matching float32 or "
+                        f"bfloat16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel is compiled for d_head in "
+                         f"{_HEAD_DIMS}, got {dh}")
+    check_width(spec.width)
+    if not 0 <= frac_out <= 31:
+        raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
+    if kv_len is None:
+        kv_len = Skv
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
+                    device=q.device, dtype=torch.int32)
+    out = torch.empty_like(q)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        code = lib.simdive_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            tab.data_ptr(), tab.numel(), BH, Sq, Skv, dh, _DTYPES[q.dtype],
+            int(kv_group), int(kv_len), int(q_offset), int(bool(causal)),
+            int(window), int(bool(approx_div)), dh ** -0.5, spec.width,
+            spec.index_bits, int(frac_out), int(spec.round_output),
+            lane_max_float(spec.width), build.current_stream())
+    build.check(code, "simdive_flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+#: kernel launches made through the wrapper (read by chip_smoke.py)
+flash_attention_cuda.launches = 0
+
+
+def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,
+                     spec: SimdiveSpec = DEFAULT_DIV_SPEC,
+                     frac_out: int = DEFAULT_FRAC_OUT):
+    """The attention kernel's finalize alone, on given ``(acc, l)``.
+
+    Runs the same device function the flash kernel ends in. Returns
+    ``(out float32 (..., dh), quot uint32 (..., dh))`` — the hook that lets
+    the in-kernel divider be held bit-equal to :func:`softmax_div`.
+    """
+    _check_cuda("softmax_div", acc=acc, l=l)
+    if acc.dtype != torch.float32 or l.dtype != torch.float32 \
+            or acc.shape[:-1] != l.shape:
+        raise ValueError("softmax_div kernel takes float32 acc (..., dh) and "
+                         f"l (...,); got {acc.dtype} {tuple(acc.shape)}, "
+                         f"{l.dtype} {tuple(l.shape)}")
+    check_width(spec.width)
+    acc, l = acc.contiguous(), l.contiguous()
+    dh = acc.shape[-1]
+    tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
+                    device=acc.device, dtype=torch.int32)
+    out = torch.empty_like(acc)
+    quot = torch.empty(acc.shape, dtype=torch.uint32, device=acc.device)
+    lib = build.load()
+    with torch.cuda.device(acc.device):
+        code = lib.simdive_softmax_div(
+            acc.data_ptr(), l.data_ptr(), out.data_ptr(), quot.data_ptr(),
+            l.numel(), dh, tab.data_ptr(), tab.numel(), spec.width,
+            spec.index_bits, int(frac_out), int(spec.round_output),
+            lane_max_float(spec.width), build.current_stream())
+    build.check(code, "simdive_softmax_div")
+    return out, quot

@@ -1,0 +1,80 @@
+"""Bridge from the JAX reference's parameters to the port's.
+
+Both packages keep the same parameter tree (stacked ``(L, ...)`` leaves
+under ``params["stack"]["layers"]``, ``embed (1, V, D)``, ``final_norm``),
+so the bridge is a checked leaf-by-leaf copy: the tests hand both models
+the *same* random init this way and compare what they compute.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from .model import _dt
+
+__all__ = ["params_from_reference"]
+
+
+def _expected_shapes(cfg: ModelConfig) -> dict:
+    L, D, H, KV, dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.d_head, cfg.d_ff)
+    shapes = {
+        ("embed",): (1, cfg.vocab_size, D),
+        ("final_norm", "w"): (D,),
+    }
+    if L:
+        layer = {
+            ("ln_attn", "w"): (D,), ("ln_mlp", "w"): (D,),
+            ("wq",): (D, H * dh), ("wk",): (D, KV * dh),
+            ("wv",): (D, KV * dh), ("wo",): (H * dh, D),
+            ("mlp", "w1"): (D, F), ("mlp", "w2"): (F, D),
+            ("mlp", "w3"): (D, F),
+        }
+        shapes.update({("stack", "layers") + k: (L,) + v
+                       for k, v in layer.items()})
+    if not cfg.tie_embeddings:
+        shapes[("head",)] = (1, D, cfg.vocab_size)
+    return shapes
+
+
+def _flatten(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def params_from_reference(tree, cfg: ModelConfig,
+                          device: torch.device | str = "cpu") -> dict:
+    """Turn the reference's parameter pytree — a nested dict whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, params)``) — into the
+    port's parameters on ``device``, in ``cfg.param_dtype``.
+
+    Raises ``ValueError`` naming the leaf when the tree does not have
+    exactly the leaves and shapes the port's dense attention stack expects
+    (a quantized, MoE or biased tree is refused, not partly loaded).
+    """
+    want = _expected_shapes(cfg)
+    got = dict(_flatten(tree))
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, "
+                         f"unexpected {extra}")
+    pdt = _dt(cfg.param_dtype)
+    out: dict = {}
+    for path, leaf in got.items():
+        arr = np.asarray(leaf)
+        if tuple(arr.shape) != want[path]:
+            raise ValueError(f"leaf {'/'.join(path)}: shape {arr.shape}, "
+                             f"expected {want[path]}")
+        if arr.dtype not in (np.float32, np.float64, np.float16):
+            arr = arr.astype(np.float32)   # e.g. bfloat16 host arrays
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        # torch.tensor copies: host arrays handed over may be read-only
+        node[path[-1]] = torch.tensor(arr).to(device=device, dtype=pdt)
+    return out

@@ -1,0 +1,241 @@
+"""Model building blocks: norms, RoPE, attention, the MLP.
+
+Counterpart of ``repro.models.layers`` for the dense attention family.
+Tensor layouts are the reference's: ``q (B,Sq,KVH,G,dh)``,
+``k, v (B,Skv,KVH,dh)``, decode caches ``(B,Smax,KVH,dh)``.
+
+Attention has two routes, as in the reference. When the resolved backend
+of the logical ``'attention'`` op is ``cuda`` the whole attention is one
+launch of the flash kernel (divider included). Otherwise a chunked
+online-softmax path in plain tensor ops runs, with only the final
+``acc / l`` — the paper's division use-case — routed through
+:func:`repro_torch.core.approx.attention_div`.
+
+``QuantizedWeight``, the emulated approximate linears, ``layernorm`` and
+M-RoPE are not ported yet; ``dense`` raises where the reference would take
+one of those paths rather than silently serving a plain matmul.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.approx import ApproxConfig, attention_div
+from repro_torch.kernels.registry import get_op, resolve_backend
+
+EXACT = ApproxConfig()
+
+
+# ---------------------------------------------------------------- weights --
+def dense(x: torch.Tensor, w: torch.Tensor,
+          approx: ApproxConfig = EXACT) -> torch.Tensor:
+    """Matmul in the activation dtype against a float weight ``(K, N)``."""
+    if approx.enabled and approx.use_in_linear and approx.emulate \
+            and approx.active_for("matmul"):
+        raise NotImplementedError(
+            "emulated SIMDive linears (ApproxConfig.emulate) are not ported "
+            "yet; serve with emulate=False (divider-softmax only)")
+    return x @ w.to(x.dtype)
+
+
+# ------------------------------------------------------------------ norms --
+def rmsnorm(x, w, eps=1e-6):
+    xf = x.to(torch.float32)
+    inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * inv * w.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(x, p, kind, eps=1e-6, approx: ApproxConfig = EXACT):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if approx.enabled and approx.use_in_norm:
+        raise NotImplementedError(
+            "approx_rmsnorm (ApproxConfig.use_in_norm) is not ported yet")
+    return rmsnorm(x, p["w"], eps)
+
+
+# ------------------------------------------------------------------- rope --
+def rope_tables(positions: torch.Tensor, dh_rot: int, theta: float):
+    """cos/sin tables for plain RoPE. positions: (B,S) int -> (B,S,half)."""
+    if positions.ndim != 2:
+        raise NotImplementedError("M-RoPE positions (B,S,3) are not ported yet")
+    half = dh_rot // 2
+    inv = theta ** (-torch.arange(half, dtype=torch.float32,
+                                  device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin, rot_dims):
+    """Rotate the first ``rot_dims`` features of x (B,S,H,dh)."""
+    if rot_dims == 0:
+        return x
+    xr, xp = x[..., :rot_dims], x[..., rot_dims:]
+    half = rot_dims // 2
+    x1, x2 = xr[..., :half], xr[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([rot, xp], dim=-1) if xp.shape[-1] else rot
+
+
+# -------------------------------------------------------------- attention --
+def _pos4(pos):
+    """Broadcast a decode position to score shape (B,KVH,G,Smax): scalars
+    (Python ints) pass through, per-row (B,) tensors reshape to (B,1,1,1)."""
+    if torch.is_tensor(pos) and pos.ndim:
+        return pos.reshape(-1, 1, 1, 1)
+    return int(pos)
+
+
+def _finalize(acc, l, approx: ApproxConfig):
+    """acc / l — softmax normalization; SIMDive divider when enabled (the
+    logical ``'attention'`` op, policy-tunable per layer)."""
+    if approx.enabled and approx.use_in_softmax:
+        return attention_div(acc, l, approx)
+    return acc / l[..., None]
+
+
+def _flash_attention_kernel(q, k, v, *, causal, window, approx: ApproxConfig,
+                            q_offset, spec, backend):
+    """Serve attention from the registry's CUDA kernel.
+
+    GQA bookkeeping: q flattens to the kernel's (BH, S, dh) contract with
+    ``bh = (b * KVH + kvh) * G + g``; k, v flatten to (B * KVH, S, dh) and
+    the kernel reads kv head ``bh // G`` (``kv_group=G``) instead of a
+    materialised repeat.
+    """
+    B, Sq, KVH, G, dh = q.shape
+    Skv = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * KVH * G, Sq, dh)
+    kf = k.permute(0, 2, 1, 3).reshape(B * KVH, Skv, dh)
+    vf = v.permute(0, 2, 1, 3).reshape(B * KVH, Skv, dh)
+    _, _, frac_out = approx.resolve_attention()
+    out = get_op("attention", spec, backend)(
+        qf, kf, vf, causal=causal, window=window,
+        approx_div=(approx.enabled and approx.use_in_softmax
+                    and approx.active_for("attention")),
+        frac_out=frac_out, q_offset=q_offset, kv_group=G)
+    out = out.reshape(B, KVH, G, Sq, dh).permute(0, 3, 1, 2, 4)
+    return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
+                    kv_chunk=1024, approx: ApproxConfig = EXACT,
+                    q_offset=0):
+    """Online-softmax attention. q: (B,Sq,KVH,G,dh); k,v: (B,Skv,KVH,dh).
+
+    Returns (B,Sq,KVH,G,dh). ``window`` > 0 = sliding-window attention;
+    ``q_offset`` shifts absolute q positions.
+
+    Backend routing: ``approx.resolve('attention')`` (policy entry first,
+    then ``approx.backend``) decides who serves the whole attention — when
+    it resolves to ``cuda`` for these tensors the flash kernel does;
+    otherwise the chunked path below, with only the finalize divider
+    approximated.
+    """
+    spec, backend = approx.resolve("attention", approx.div_width)
+    if resolve_backend(backend, q, k, v) == "cuda":
+        return _flash_attention_kernel(
+            q, k, v, causal=causal, window=window, approx=approx,
+            q_offset=q_offset, spec=spec, backend=backend)
+    B, Sq, KVH, G, dh = q.shape
+    Skv = k.shape[1]
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Skv)
+    scale = dh ** -0.5
+    f32 = torch.float32
+    neg_inf = float("-inf")
+    outs = []
+    for q_lo in range(0, Sq, qc):
+        qb = q[:, q_lo:q_lo + qc].to(f32)              # (B,nq,KVH,G,dh)
+        nq = qb.shape[1]
+        qpos = q_lo + q_offset + torch.arange(nq, device=q.device)[:, None]
+        m = torch.full((B, KVH, G, nq), neg_inf, dtype=f32, device=q.device)
+        l = torch.zeros((B, KVH, G, nq), dtype=f32, device=q.device)
+        acc = torch.zeros((B, KVH, G, nq, dh), dtype=f32, device=q.device)
+        for k_lo in range(0, Skv, kc):
+            k_hi = min(k_lo + kc, Skv) - 1
+            # chunks no row of this q chunk can see leave the carry as is
+            if causal and k_lo > q_lo + q_offset + nq - 1:
+                continue
+            if window and k_hi <= q_lo + q_offset - window:
+                continue
+            kb = k[:, k_lo:k_lo + kc]
+            vb = v[:, k_lo:k_lo + kc]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qb, kb.to(f32)) * scale
+            kpos = k_lo + torch.arange(kb.shape[1], device=q.device)[None, :]
+            ok = torch.ones_like(qpos + kpos, dtype=torch.bool)
+            if causal:
+                ok &= kpos <= qpos
+            if window:
+                ok &= kpos > qpos - window
+            s = torch.where(ok, s, torch.full_like(s, neg_inf))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (no valid kv yet): keep m finite
+            m_new = torch.where(torch.isfinite(m_new), m_new,
+                                torch.zeros_like(m_new))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkd->bkgqd", p.to(vb.dtype).to(f32),
+                              vb.to(f32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = _finalize(acc, l.clamp(min=1e-30), approx)  # (B,KVH,G,nq,dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
+                            ring_full=False, window=0,
+                            approx: ApproxConfig = EXACT):
+    """Single-token attention over a *read-only* cache plus the new token.
+
+    The cache is not rewritten here — the caller writes only the
+    ``(B,1,KVH,dh)`` new-token slab into the stacked buffer — and the new
+    token's self-attention term is folded in analytically (online-softmax
+    combine).
+
+    q: (B,KVH,G,dh); caches: (B,Smax,KVH,dh); k_new/v_new: (B,1,KVH,dh);
+    ``pos``/``slot``: int scalar, or (B,) tensors for per-row positions
+    (continuous batching); ``slot`` is the slot the new token will occupy
+    (its stale cache entry is masked out of the past scores).
+    """
+    B, Smax, KVH, dh = k_cache.shape
+    scale = dh ** -0.5
+    f32 = torch.float32
+    dev = q.device
+    qf = q.to(f32)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.to(f32)) * scale
+    idx = torch.arange(Smax, device=dev)[None, None, None, :]
+    pos, slot = _pos4(pos), _pos4(slot)
+    if ring_full:
+        # ring not yet wrapped: history is [0, pos); wrapped: every slot
+        # except the one being replaced holds live history
+        if torch.is_tensor(pos):
+            valid = torch.where(pos < Smax, idx < pos, idx != slot)
+        else:
+            valid = idx < pos if pos < Smax else idx != slot
+    else:
+        valid = idx < pos
+        if window and Smax > window:
+            valid = valid & (idx > pos - window)
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].to(f32)) * scale
+    m = torch.maximum(s.amax(dim=-1), s_self)              # (B,KVH,G)
+    p = torch.exp(s - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p.sum(dim=-1) + p_self
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).to(f32),
+                       v_cache.to(f32))
+    acc = acc + p_self[..., None] * v_new[:, 0].to(f32)[:, :, None, :]
+    return _finalize(acc, l, approx).to(q.dtype)
+
+
+# -------------------------------------------------------------------- mlp --
+def mlp(x, p, act, approx: ApproxConfig = EXACT):
+    """Gated (swiglu) MLP."""
+    if act != "swiglu":
+        raise NotImplementedError(f"activation {act!r} is not ported yet")
+    h = F.silu(dense(x, p["w1"], approx)) * dense(x, p["w3"], approx)
+    return dense(h, p["w2"], approx)

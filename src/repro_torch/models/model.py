@@ -1,0 +1,135 @@
+"""Public model API: build(cfg, device) -> LM with init / prefill / decode.
+
+Counterpart of ``repro.models.model`` for serving (``train_loss`` and
+``logits`` wait for the training slice). Parameters are a plain nested
+dict of tensors with the reference's tree: ``embed (1,V,D)``,
+``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w``.
+
+Batch dict convention:
+  tokens      (B,S) int64
+  positions   (B,S) int; defaults to arange
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from .layers import apply_norm, dense
+from .transformer import (
+    empty_cache,
+    init_stack,
+    stack_decode,
+    stack_prefill,
+)
+
+
+def _dt(name):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names a CUDA device
+    and this host has none — the port never carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False: repro_torch runs on the GPU unless the caller asks "
+            "for device='cpu'")
+    return device
+
+
+@dataclass(frozen=True)
+class LM:
+    cfg: ModelConfig
+    device: torch.device
+
+    # ------------------------------------------------------------- params --
+    def init(self, seed_or_generator: int | torch.Generator = 0) -> dict:
+        """Random parameters on ``self.device``: embed normal * d^-0.5,
+        linears uniform(+-fan_in^-0.5), unit norms."""
+        cfg = self.cfg
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(gen))
+        pdt = _dt(cfg.param_dtype)
+        params: dict[str, Any] = {}
+        params["embed"] = torch.randn(
+            (1, cfg.vocab_size, cfg.d_model), generator=gen, dtype=pdt,
+            device=self.device) * cfg.d_model ** -0.5
+        params["stack"] = init_stack(gen, cfg, pdt, self.device)
+        params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
+                                                device=self.device)}
+        if not cfg.tie_embeddings:
+            lim = cfg.d_model ** -0.5
+            params["head"] = (torch.rand(
+                (1, cfg.d_model, cfg.vocab_size), generator=gen, dtype=pdt,
+                device=self.device) * 2 - 1) * lim
+        return params
+
+    # -------------------------------------------------------------- embed --
+    def _embed(self, params, batch):
+        return params["embed"][0][batch["tokens"]].to(_dt(self.cfg.dtype))
+
+    def _positions(self, batch, S, offset=0):
+        pos = batch.get("positions")
+        if pos is None:
+            B = batch["tokens"].shape[0]
+            pos = (torch.arange(S, device=self.device)[None] + offset
+                   ).expand(B, S)
+        return pos
+
+    def _head(self, params, x):
+        w = params["embed"][0].T if self.cfg.tie_embeddings \
+            else params["head"][0]
+        return dense(x, w)
+
+    # -------------------------------------------------------------- serve --
+    def empty_cache(self, batch_size: int, max_seq: int):
+        return empty_cache(self.cfg, batch_size, max_seq, _dt(self.cfg.dtype),
+                           self.device)
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Prompt forward pass; returns (last-token logits, decode cache).
+
+        The cache covers exactly the prompt length S; launch/serve.py embeds
+        it into a larger cache before decoding continues.
+        """
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = self._positions(batch, x.shape[1])
+        x, cache = stack_prefill(params["stack"], x, cfg, positions)
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return self._head(params, x[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens: (B,) int64; pos: the 0-based position of the token being
+        decoded — an int, or a (B,) tensor for per-row positions.
+
+        Returns (logits (B,V), cache): the cache is updated **in place**
+        (one token per layer) and returned.
+        """
+        cfg = self.cfg
+        B = tokens.shape[0]
+        if torch.is_tensor(pos) and pos.ndim:
+            pos = pos.to(self.device)
+            positions = pos[:, None]
+        else:
+            pos = int(pos)
+            positions = torch.full((B, 1), pos, device=self.device)
+        x = self._embed(params, {"tokens": tokens[:, None]})
+        x, cache = stack_decode(params["stack"], x, cfg, cache, pos,
+                                positions)
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return self._head(params, x)[:, 0], cache
+
+
+def build(cfg: ModelConfig, device: torch.device | str = "cuda") -> LM:
+    """The LM for ``cfg`` on ``device`` (default: the GPU; raises without
+    one unless ``device='cpu'`` is asked for)."""
+    return LM(cfg, require_device(device))

@@ -1,0 +1,247 @@
+"""Decoder assembly: blocks, the layer loop, KV caches (attention family).
+
+Counterpart of ``repro.models.transformer`` for dense attention stacks.
+Per-layer parameters stay stacked with a leading L axis, as the reference
+keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
+``lax.scan`` over that axis is a Python loop here, indexing views. Caches
+for decode are dicts of stacked ``(L, B, S, KV, dh)`` tensors.
+
+MoE, SSM and hybrid stacks, qk-norm and qkv biases are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.approx import serving_segments
+from .layers import (
+    apply_norm,
+    apply_rope,
+    decode_attention_append,
+    dense,
+    flash_attention,
+    mlp,
+    rope_tables,
+)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise for architecture features the port does not build yet."""
+    missing = [name for name, on in (
+        ("family " + cfg.family, cfg.family != "dense"),
+        ("n_experts", bool(cfg.n_experts)),
+        ("qk_norm", cfg.qk_norm), ("qkv_bias", cfg.qkv_bias),
+        ("mrope", cfg.mrope), ("pos_emb " + cfg.pos_emb, cfg.pos_emb != "rope"),
+        ("n_codebooks", bool(cfg.n_codebooks)),
+        ("vision_stub", cfg.vision_stub),
+    ) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {', '.join(missing)}")
+
+
+# ------------------------------------------------------------------- init --
+def _uniform(gen: torch.Generator, shape, dtype, fan_in, device):
+    lim = fan_in ** -0.5
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return u * (2 * lim) - lim
+
+
+def _init_norm(cfg, dtype, device, d=None):
+    return {"w": torch.ones((d or cfg.d_model,), dtype=dtype, device=device)}
+
+
+def init_attn_layer(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    """One layer's parameters: uniform(+-fan_in^-0.5) linears, unit norms
+    (the reference's distributions; the random streams differ)."""
+    H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    return {
+        "ln_attn": _init_norm(cfg, dtype, device),
+        "wq": _uniform(gen, (D, H * dh), dtype, D, device),
+        "wk": _uniform(gen, (D, KV * dh), dtype, D, device),
+        "wv": _uniform(gen, (D, KV * dh), dtype, D, device),
+        "wo": _uniform(gen, (H * dh, D), dtype, H * dh, device),
+        "ln_mlp": _init_norm(cfg, dtype, device),
+        "mlp": {
+            "w1": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
+            "w2": _uniform(gen, (cfg.d_ff, D), dtype, cfg.d_ff, device),
+            "w3": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
+        },
+    }
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    """Stacked per-layer params (leading L axis)."""
+    _check_ported(cfg)
+    if cfg.n_layers == 0:
+        return {"layers": {}}
+    layers = [init_attn_layer(gen, cfg, dtype, device)
+              for _ in range(cfg.n_layers)]
+    return {"layers": _stack_trees(layers)}
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s view of the stacked parameter tree."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# -------------------------------------------------------------- attention --
+def _rope_for(cfg: ModelConfig, positions):
+    rot = int(cfg.d_head * cfg.partial_rotary)
+    rot -= rot % 2
+    if cfg.pos_emb != "rope" or rot == 0:
+        return None, 0
+    return rope_tables(positions, rot, cfg.rope_theta), rot
+
+
+def _qkv(p, h, cfg: ModelConfig, rope, rot):
+    B, S, _ = h.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = dense(h, p["wq"], cfg.approx).reshape(B, S, H, dh)
+    k = dense(h, p["wk"], cfg.approx).reshape(B, S, KV, dh)
+    v = dense(h, p["wv"], cfg.approx).reshape(B, S, KV, dh)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin, rot)
+        k = apply_rope(k, cos, sin, rot)
+    return q, k, v
+
+
+def attn_block_train(p, x, cfg: ModelConfig, positions):
+    """Full-sequence block (prefill). Returns (x', (k, v))."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    rope, rot = _rope_for(cfg, positions)
+    h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
+    q, k, v = _qkv(p, h, cfg, rope, rot)
+    o = flash_attention(
+        q.reshape(B, S, KV, G, dh), k, v, causal=True,
+        window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
+        kv_chunk=cfg.attn_kv_chunk, approx=cfg.approx,
+    ).reshape(B, S, H * dh)
+    x = x + dense(o, p["wo"], cfg.approx)
+    h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
+    return x + mlp(h, p["mlp"], cfg.act, cfg.approx), (k, v)
+
+
+def decode_slot(cfg: ModelConfig, Smax: int, pos):
+    """Cache slot for the token at ``pos`` (ring for sliding-window)."""
+    if cfg.sliding_window and Smax <= cfg.sliding_window:
+        return pos % Smax
+    return pos
+
+
+def attn_block_decode(p, x, cfg: ModelConfig, cache, pos, positions):
+    """Single-token block against a *read-only* cache.
+
+    x: (B,1,D); cache {k,v}: (B,Smax,KV,dh). Returns (x', (k_new, v_new))
+    where k_new/v_new are the (B,1,KV,dh) slabs the caller writes into the
+    stacked cache buffer.
+    """
+    B = x.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    Smax = cache["k"].shape[1]
+    rope, rot = _rope_for(cfg, positions)
+    h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
+    q, k, v = _qkv(p, h, cfg, rope, rot)
+    ring_full = bool(cfg.sliding_window and Smax <= cfg.sliding_window)
+    slot = decode_slot(cfg, Smax, pos)
+    o = decode_attention_append(
+        q.reshape(B, KV, G, dh), cache["k"], cache["v"], k, v, pos, slot,
+        ring_full=ring_full, window=0 if ring_full else cfg.sliding_window,
+        approx=cfg.approx,
+    ).reshape(B, 1, H * dh)
+    x = x + dense(o, p["wo"], cfg.approx)
+    h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
+    y = mlp(h, p["mlp"], cfg.act, cfg.approx)
+    return x + y, (k.to(cache["k"].dtype), v.to(cache["v"].dtype))
+
+
+# ------------------------------------------------------------ layer stack --
+def _approx_segments(cfg: ModelConfig):
+    """Policy-resolved layer segments ``((lo, hi, seg_cfg), ...)``:
+    contiguous layer runs whose ``ApproxConfig`` resolves identically under
+    ``cfg.approx.policy``, each with a ``ModelConfig`` carrying that run's
+    layer-labelled approx config. No policy yields one segment with the
+    original ``cfg``."""
+    segs = serving_segments(cfg.approx, cfg.n_layers)
+    if len(segs) == 1 and segs[0][2] == cfg.approx:
+        return ((0, cfg.n_layers, cfg),)
+    # keep the layer label even for a single segment: a uniform
+    # layer-scoped policy still needs cfg.approx.layer set for lookup
+    return tuple((lo, hi, replace(cfg, approx=acfg))
+                 for lo, hi, acfg in segs)
+
+
+def _write_token(buf, i, slot, new):
+    """Write one decoded token's (B,1,KV,dh) slab into the stacked
+    (L,B,Smax,KV,dh) cache at layer ``i``, seq slot ``slot`` — **in place**
+    (where the reference updates a donated buffer). A scalar ``slot`` is
+    one strided write; a (B,) ``slot`` — per-row positions — scatters each
+    row at its own depth. Returns ``buf``.
+    """
+    if torch.is_tensor(slot) and slot.ndim:
+        rows = torch.arange(new.shape[0], device=buf.device)
+        buf[i, rows, slot] = new[:, 0]
+    else:
+        buf[i, :, int(slot)] = new[:, 0]
+    return buf
+
+
+def stack_prefill(params, x, cfg: ModelConfig, positions):
+    """Full-sequence forward that also returns the decode cache: per-layer
+    K/V stacked (L,B,S,KV,dh), cache seq length == S."""
+    _check_ported(cfg)
+    if cfg.n_layers == 0:
+        return x, empty_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
+    ks, vs = [], []
+    for lo, hi, seg_cfg in _approx_segments(cfg):
+        for i in range(lo, hi):
+            x, (k, v) = attn_block_train(layer_params(params["layers"], i),
+                                         x, seg_cfg, positions)
+            ks.append(k)
+            vs.append(v)
+    return x, {"k": torch.stack(ks).to(x.dtype),
+               "v": torch.stack(vs).to(x.dtype)}
+
+
+# ----------------------------------------------------------------- caches --
+def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
+    """Decode cache dict (stacked over layers)."""
+    _check_ported(cfg)
+    KV, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+    S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    return {
+        "k": torch.zeros((L, batch, S, KV, dh), dtype=dtype, device=device),
+        "v": torch.zeros((L, batch, S, KV, dh), dtype=dtype, device=device),
+    }
+
+
+def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
+    """One-token decode through the stack. x: (B,1,D). Writes one token
+    per layer into ``cache`` in place and returns it."""
+    _check_ported(cfg)
+    if cfg.n_layers == 0:
+        return x, cache
+    kc, vc = cache["k"], cache["v"]
+    slot = decode_slot(cfg, kc.shape[2], pos)
+    for lo, hi, seg_cfg in _approx_segments(cfg):
+        for i in range(lo, hi):
+            x, (k_new, v_new) = attn_block_decode(
+                layer_params(params["layers"], i), x, seg_cfg,
+                {"k": kc[i], "v": vc[i]}, pos, positions)
+            _write_token(kc, i, slot, k_new)
+            _write_token(vc, i, slot, v_new)
+    return x, cache
