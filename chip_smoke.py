@@ -21,24 +21,39 @@ any phase fails. Phases:
               ``flash_attention`` within the stated tolerances (f32 / bf16,
               d_head 64 / 128, causal / window / non-causal, ragged Sq != Skv
               with q_offset and kv_len, exact and SIMDive divide) and its
-              finalize bit-equal on given (acc, l).
+              finalize bit-equal on given (acc, l); ``logmatmul`` bit-equal
+              for every registered block (depth 0 and the cp.async ring) at
+              the four (K, N) of smollm-360m's linears at M = 2048 and 4,
+              plus ragged shapes, zeros, INT32_MIN, width-16 wrapping sums
+              and Mitchell; ``matmul_emul`` bit-equal to its int64 plain
+              version where int32 cannot overflow.
 4. serve    — the main path at the full width of smollm-360m: batch 4,
-              prompt 512, 32 greedy tokens, ``--approx simdive``, random
-              weights from a seed, through ``launch.serve.generate``. The
-              kernels' launch counters are zeroed just before and read just
-              after: 32 attention launches (one per layer of the prefill)
-              and 32 elemwise launches per decode step are required. The
-              same model is then run through the plain versions
+              prompt 512, 32 greedy tokens, random weights from a seed,
+              through ``launch.serve.generate``, twice:
+              (a) ``--approx simdive`` (divider only): the kernels' launch
+              counters are zeroed just before and read just after: 32
+              attention launches (one per layer of the prefill) and 32
+              elemwise launches per decode step are required. The same
+              model is then run through the plain versions
               (``backend="ref"``, on the GPU, fed the same tokens) and
               logits and tokens are compared.
-5. times    — prefill, decode step, and each kernel at the main path's
-              shapes beside its bound, its plain version and — for
-              attention — one ``scaled_dot_product_attention`` call as the
-              yardstick (timed here; the port never calls it), and the
-              number of kernels one decode step puts on the card. A kernel's
-              ``ms`` (and ``library_ms``) is device time with the host taken
-              out (many launches replayed from one CUDA graph); the eager
-              per-call time, host included, is printed beside it.
+              (b) ``--approx simdive --emulate`` with the block autotune on:
+              224 ``logmatmul`` launches (seven linears x 32 layers) per
+              prefill and per decode step besides (a)'s; logits and tokens
+              against the plain-version run at batch 4 x prompt 32 x 8
+              tokens; that short run served twice more with the autotune
+              cache pinned (``preload_autotune_cache``) to a depth-0 block
+              and to a pipelined block — bit-identical logits required; one
+              ``--emulate --quantize`` generate at full size.
+5. times    — prefill, decode step, generate for (a) and (b), and each
+              kernel at the main path's shapes beside its bound, its plain
+              version and — for attention — one
+              ``scaled_dot_product_attention`` call as the yardstick (timed
+              here; the port never calls it), and the number of kernels one
+              decode step puts on the card. A kernel's ``ms`` (and
+              ``library_ms``) is device time with the host taken out (many
+              launches replayed from one CUDA graph); the eager per-call
+              time, host included, is printed beside it.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -62,7 +77,34 @@ BATCH, PROMPT, GEN = 4, 512, 32
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12        # CUDA-core rate; stands in for 32-bit integer ops
+# 32-bit integer operations: 64 INT32 lanes per SM per clock on Hopper; the
+# rate is SM count x 64 x the maximum SM clock, both read on the card
+# (int32_ops_per_s). The work is the least number of integer operations the
+# function needs, counted from the datapath (csrc/simdive_datapath.cuh and
+# its plain version kernels/datapath.py), not the instructions a kernel
+# happens to issue. Table reads are shared-memory loads and not counted.
+# One signed SIMDive product at width 8 with rounding, its operands already
+# converted (log value, region-index half, zero flag, sign mask): OR of the
+# index halves and zero flags 1, index extract 1, ternary add la + lb + corr
+# 1, clip at 0 1, integer part ls >> F 1, mantissa (ls & (2^F - 1)) | 2^F 1,
+# anti-log mant << I 1, rounding add 2^(F-1) 1, >> F 1 (the two shifts give
+# the reference's round-half-up right shift and its exact left shift alike),
+# saturate to 2^16 - 1 1, zero select 1, product sign sx ^ sw 1, conditional
+# negate p ^ s 1, accumulate acc + (p ^ s) - s 1.
+LOGMATMUL_OPS_PER_PRODUCT = 14
+# Converting one operand element, once: sign mask v >> 31 1, |v| = (v ^ s) -
+# s 2, clamp to the lane 1, leading one (FLO) 1, fraction v ^ (1 << k) 2,
+# align frac << (F - k) 2, log value (k << F) | frac 1, zero flag 1.
+LOGMATMUL_OPS_PER_OPERAND = 11
+# One elemwise div lane (width 16, rounding; the quotient of the decode
+# finalize is below one, so the right-shift path): two LOD + log
+# conversions 2 x 6 (FLO, 1 << k, xor, F - k, shift, (k << F) | frac),
+# region index 5 (mask and shift per operand, shift-or join), zero tests 2,
+# coefficient select 1, ternary subtract la - lb + corr 1, ls >> F 1,
+# mantissa 1, shift amount I + frac_out - F 1, the right shift (direction
+# test, negate, clip at 31, 1 << (n - 1), rounding add, shift) 6, x / 0 and
+# 0 / x selects 2.
+ELEMWISE_OPS_PER_LANE = 32
 
 # ---- tolerances, kernel vs plain version on the same inputs (on the GPU) --
 # float32, exact divide: online softmax over 64-wide kv tiles vs a dense
@@ -90,6 +132,27 @@ TOL_APPROX_LOOSE = dict(atol=2e-2, rtol=6e-2)
 # bf16 ulp between kernel and plain version pass through 32 layers; the
 # measured difference is 0.07 = 2.2 ulps (PERF.md). Bound: 6 ulps.
 LOGIT_TOL = 0.1875
+# --emulate, kernels vs plain versions, at prompt 32: the integer matmuls
+# are bit-equal, and the prompt fits in one 64-wide kv tile, so the
+# attention kernel and the dense plain version differ only in f32
+# summation order. Where that round-off moves one rounded 8-bit activation
+# magnitude by one unit, a step of 1/255 of its row's scale, the later
+# layers carry it into the logits: 2.1e-2 in one logit row in the CPU test
+# (tests/test_torch_model.py), bound 5e-2 as there — under two bf16 ulps
+# (2^-5 each) of the largest logits (|logit| < 8 here), far under what a
+# wrong scale or a wrong linear does (O(1)). And most (batch, step) logit
+# rows must stay bit-equal (measured: all of them, PERF.md).
+EMULATE_LOGIT_TOL = 5e-2
+EMULATE_EQUAL_ROW_SHARE = 0.5
+# the plain-version comparison of the emulate path runs shorter: its int64
+# emulation of the 644 G products of a prompt-512 prefill would take many
+# minutes; prompt 32 is 40 G. The blocks the autotune serves at the main
+# path's shapes are held bit for bit against the plain version in phase 3.
+REF_PROMPT, REF_GEN = 32, 8
+# smollm-360m's linears per layer: (name, K, N)
+LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
+           ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
+           ("w2", 2560, 960))
 
 
 def log(msg: str) -> None:
@@ -106,6 +169,18 @@ def require(cond: bool, what: str) -> None:
 
 
 # --------------------------------------------------------------- helpers --
+def int32_ops_per_s(dev) -> float:
+    """SM count x 64 INT32 lanes x the maximum SM clock, read on the card."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    return sms * 64 * float(out) * 1e6
+
+
 def gpu_time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of one call, CUDA events around ``iters`` calls."""
     import torch
@@ -353,6 +428,87 @@ def check_attention(dev):
     return main_err, worst
 
 
+def check_logmatmul(dev):
+    """Every registered block vs ``logmatmul_ref``, bit for bit. Returns
+    (worst abs difference, {(M, K, N): plain-version ms})."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import logmatmul as lm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    blocks = get_op("matmul_int", SimdiveSpec()).entry.block_candidates
+    plain_ms = {}
+    worst = 0
+
+    def ints(shape, hi):
+        return torch.randint(-hi + 1, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def run(name, x, w, spec, timed=False):
+        nonlocal worst
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = lm.logmatmul_ref(x, w, spec)
+        end.record()
+        end.synchronize()
+        if timed:
+            plain_ms[(x.shape[0], x.shape[1], w.shape[1])] = \
+                start.elapsed_time(end)
+        for block in blocks:
+            got = lm.logmatmul_cuda(x, w, spec, block)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.int32 and got.shape == want.shape,
+                    f"logmatmul {name} block {block}: dtype/shape "
+                    f"{got.dtype} {tuple(got.shape)}")
+            diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+            worst = max(worst, int(diff.max()))
+            nbad = int((diff != 0).sum())
+            require(nbad == 0,
+                    f"logmatmul {name} block {block}: {nbad} of "
+                    f"{want.numel()} outputs differ from the plain version")
+        log(f"  logmatmul {name}: bit-equal for all {len(blocks)} blocks")
+
+    serving = SimdiveSpec(width=8, coeff_bits=6)
+    for M in (2048, 4):
+        for K, N in sorted({(k, n) for _, k, n in LINEARS}):
+            x, w = ints((M, K), 256), ints((K, N), 256)
+            run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True)
+    x, w = ints((37, 50), 256), ints((50, 17), 256)
+    x[0] = 0
+    w[:, 3] = 0
+    x[1, :5] = -(1 << 31)                       # INT32_MIN clamps to 255
+    w[2, :4] = (1 << 31) - 1
+    run("ragged (37,50)@(50,17), zeros, INT32_MIN", x, w, serving)
+    run("ragged (100,130)@(130,70) mitchell", ints((100, 130), 256),
+        ints((130, 70), 256),
+        SimdiveSpec(width=8, coeff_bits=0, round_output=False))
+    x, w = ints((64, 960), 1 << 16), ints((960, 96), 1 << 16)
+    x[:, :200], w[:200] = 65535, 65535          # sums past 2^31: they wrap
+    run("w16 cb8 ib4 (64,960)@(960,96), wrapping sums", x, w,
+        SimdiveSpec(width=16, coeff_bits=8, index_bits=4))
+
+    # matmul_emul: the kernel path vs the int64 plain version (width 8 at
+    # K <= 2560 cannot overflow int32: 2560 * 255^2 < 2^31)
+    for M, K, N in ((4, 2560, 960), (64, 960, 320)):
+        qx = torch.randint(0, 256, (M, K), generator=gen, device=dev)
+        qw = torch.randint(0, 256, (K, N), generator=gen, device=dev)
+        sx = torch.randint(0, 2, (M, K), generator=gen, device=dev) * 2 - 1
+        sw = torch.randint(0, 2, (K, N), generator=gen, device=dev) * 2 - 1
+        args = (qx.to(torch.int32), sx.to(torch.int32),
+                qw.to(torch.int32), sw.to(torch.int32))
+        got = get_op("matmul_emul", serving, "cuda")(*args, k_chunk=128)
+        want = get_op("matmul_emul", serving, "ref")(*args, k_chunk=128)
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max()))
+        require(got.dtype == torch.int64 and torch.equal(got, want),
+                f"matmul_emul ({M},{K})@({K},{N}): kernel path differs from "
+                "the int64 plain version")
+    log("  matmul_emul: kernel path bit-equal to the int64 plain version")
+    return float(worst), plain_ms
+
+
 # --------------------------------------------------------- phase 4: serve --
 def serve_main_path(dev):
     import numpy as np
@@ -434,8 +590,169 @@ def serve_main_path(dev):
                 tokens_decided=int(decided.sum()))
 
 
+def _matmul_launches(counts) -> int:
+    return counts["matmul"] + counts["matmul_pipelined"]
+
+
+def _pin_matmul_blocks(block) -> int:
+    """Point every cached matmul_emul entry at ``block``."""
+    from repro_torch.kernels import (clear_autotune_cache,
+                                     export_autotune_cache,
+                                     preload_autotune_cache)
+
+    records = [dict(r, block=list(block)) for r in export_autotune_cache()
+               if r["key"][0] == "matmul_emul"]
+    clear_autotune_cache()
+    return preload_autotune_cache(records)
+
+
+def serve_emulate_path(dev, params, prompts):
+    """--approx simdive --emulate at full width: launch counts, plain-version
+    comparison (shorter run), schedule pinning, --quantize."""
+    import torch
+    from repro_torch.kernels import (clear_autotune_cache,
+                                     export_autotune_cache, launch_counts,
+                                     preload_autotune_cache,
+                                     reset_launch_counts)
+    from repro_torch.kernels import logmatmul as lm
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    cfg = serve.serving_config(ARCH, approx="simdive", emulate=True)
+    require(cfg.approx.emulate and cfg.approx.width == 8,
+            "not the --emulate serving config")
+    lm_e = build(cfg)
+    n_lin = len(LINEARS) * cfg.n_layers                   # 224
+    max_seq = PROMPT + GEN
+
+    # first generate: builds nothing new, autotunes each (shape bucket) once
+    clear_autotune_cache()
+    t0 = time.perf_counter()
+    serve.generate(lm_e, params, prompts, max_seq, GEN)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    picks = {tuple(r["key"][2][0]) + tuple(r["key"][2][2]): r["block"]
+             for r in export_autotune_cache() if r["key"][0] == "matmul_emul"}
+    log(f"  emulate: first generate (autotune) {tune_s:.2f}s; picked "
+        + "; ".join(f"x{k[:2]} w{k[2:]} -> {tuple(v)}"
+                    for k, v in sorted(picks.items())))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, logits = serve.generate(lm_e, params, prompts, max_seq, GEN,
+                                    return_logits=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"  emulate main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
+        f"launches {counts}")
+    require(_matmul_launches(counts) == n_lin * GEN,
+            f"logmatmul launches {_matmul_launches(counts)}, expected "
+            f"{n_lin} per prefill and per decode step x {GEN}")
+    require(counts["attention"] == cfg.n_layers
+            and counts["elemwise"] == cfg.n_layers * (GEN - 1),
+            f"attention / elemwise launches {counts}")
+    require(bool(torch.isfinite(logits).all())
+            and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size, "bad emulate output")
+    reset_launch_counts()
+    lg, cache = lm_e.prefill(params, {"tokens": prompts})
+    prefill_counts = launch_counts()
+    cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), cache)
+    reset_launch_counts()
+    lm_e.decode_step(params, cache, lg.argmax(-1), PROMPT)
+    step_counts = launch_counts()
+    require(_matmul_launches(prefill_counts) == n_lin
+            and _matmul_launches(step_counts) == n_lin,
+            f"logmatmul launches per prefill {prefill_counts}, per decode "
+            f"step {step_counts}; expected {n_lin} each")
+
+    # plain-version comparison at batch 4 x prompt 32 x 8 tokens
+    short = prompts[:, :REF_PROMPT]
+    short_seq = REF_PROMPT + REF_GEN
+    tok_k, log_k = serve.generate(lm_e, params, short, short_seq, REF_GEN,
+                                  return_logits=True)
+    ref_lm = build(serve.serving_config(ARCH, approx="simdive", emulate=True,
+                                        backend="ref"))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ref_logits, cache = ref_lm.prefill(params, {"tokens": short})
+    cache = serve.merge_cache(ref_lm.empty_cache(BATCH, short_seq), cache)
+    ref_all = [ref_logits]
+    for i in range(REF_GEN - 1):
+        ref_logits, cache = ref_lm.decode_step(params, cache, tok_k[:, i],
+                                               REF_PROMPT + i)
+        ref_all.append(ref_logits)
+    ref_all = torch.stack(ref_all, dim=1).to(torch.float32)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    require(launch_counts() == before, "the plain-version run launched a "
+                                       "kernel")
+    err = float((log_k - ref_all).abs().max())
+    equal_rows = float((log_k == ref_all).all(dim=-1).float().mean())
+    top2 = ref_all.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * EMULATE_LOGIT_TOL
+    agree = tok_k == ref_all.argmax(-1)
+    log(f"  emulate vs plain versions (batch {BATCH} x prompt {REF_PROMPT} x "
+        f"{REF_GEN} tokens, plain run {ref_s:.1f}s): logits max_abs_err "
+        f"{err:.4f} (|logit| max {float(ref_all.abs().max()):.2f}), "
+        f"bit-equal rows {equal_rows:.3f}; tokens equal "
+        f"{int(agree.sum())}/{agree.numel()}, decided {int(decided.sum())}")
+    require(err <= EMULATE_LOGIT_TOL,
+            f"emulate logits differ from the plain-version run by {err:.4f} "
+            f"> {EMULATE_LOGIT_TOL}")
+    require(equal_rows >= EMULATE_EQUAL_ROW_SHARE,
+            f"only {equal_rows:.3f} of the emulate logit rows are bit-equal "
+            f"to the plain-version run's (at least "
+            f"{EMULATE_EQUAL_ROW_SHARE} required)")
+    require(bool((agree | ~decided).all()),
+            "an emulate greedy token decided by more than twice the logit "
+            "tolerance differs from the plain-version run")
+
+    # both schedules on the path: pin every shape bucket to one, then other
+    tuned = export_autotune_cache()
+    pinned = {}
+    for name, block in (("depth 0", lm.DEFAULT_BLOCK),
+                        ("pipelined", (64, 64, 32, 4, 2))):
+        require(_pin_matmul_blocks(block) > 0, "nothing to pin")
+        reset_launch_counts()
+        pinned[name] = serve.generate(lm_e, params, short, short_seq,
+                                      REF_GEN, return_logits=True)[1]
+        c = launch_counts()
+        want_key = "matmul" if block[4] == 0 else "matmul_pipelined"
+        require(c[want_key] == _matmul_launches(c) > 0,
+                f"pinned to {name} {block}, launches were {c}")
+        log(f"  pinned to {name} {block}: launches {c}")
+    require(torch.equal(pinned["depth 0"], pinned["pipelined"]),
+            "depth-0 and pipelined schedules gave different logits")
+    require(torch.equal(pinned["depth 0"], log_k),
+            "the pinned and the autotuned runs gave different logits")
+    log("  depth-0 and pipelined schedules: bit-identical logits")
+    clear_autotune_cache()
+    preload_autotune_cache(tuned)                # back to the tuned blocks
+
+    # --emulate --quantize: int8 weights through the same kernels
+    qparams = serve.quantize_params(params)
+    reset_launch_counts()
+    q_tok, q_logits = serve.generate(lm_e, qparams, prompts, max_seq, GEN,
+                                     return_logits=True)
+    q_counts = launch_counts()
+    require(bool(torch.isfinite(q_logits).all())
+            and int(q_tok.min()) >= 0 and int(q_tok.max()) < cfg.vocab_size,
+            "bad --emulate --quantize output")
+    require(q_counts == counts, f"--quantize launches {q_counts} != {counts}")
+    log(f"  --emulate --quantize: finite logits, launches {q_counts}")
+    return dict(lm=lm_e, counts=counts, first_run_s=run_s, tune_s=tune_s,
+                autotune_picks={f"{k}": v for k, v in picks.items()},
+                logit_err=err, equal_row_share=equal_rows,
+                tokens_equal=int(agree.sum()),
+                tokens=agree.numel(), tokens_decided=int(decided.sum()),
+                plain_run_s=ref_s)
+
+
 # --------------------------------------------------------- phase 5: times --
-def measure(dev, served):
+def measure(dev, served, int_rate):
     import torch
     import torch.nn.functional as F
     from repro_torch.core.approx import attention_div
@@ -489,7 +806,7 @@ def measure(dev, served):
         a, b, op="div", frac_out=frac_out), iters=50)
     lanes = a.numel()
     ew_bytes_ms = 12 * lanes / HBM_BYTES_PER_S * 1e3
-    ew_ops_ms = 64 * lanes / F32_FLOPS * 1e3             # ~64 int ops a lane
+    ew_ops_ms = ELEMWISE_OPS_PER_LANE * lanes / int_rate * 1e3
     # the same kernel where it is memory bound: 16 M lanes
     big = 1 << 24
     ab = torch.randint(0, 1 << 16, (big,), generator=gen, device=dev
@@ -567,6 +884,136 @@ def measure(dev, served):
     return kernels, times
 
 
+def measure_logmatmul(dev, plain_ms, int_rate):
+    """Both schedules at the main path's shapes. Per (M, K, N): every
+    registered block by graph replay, the fastest of each schedule kept,
+    its eager per-call time, the plain version's time (phase 3), the bound
+    and the exact bf16 ``torch.matmul`` of the same shape as context. The
+    kernel lines sum the seven linears of one layer at M = 2048."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import logmatmul as lm
+
+    spec = SimdiveSpec(width=8, coeff_bits=6)
+    blocks = get_op("matmul_int", spec).entry.block_candidates
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shapes = {}
+    for M in (2048, 4):
+        for K, N in sorted({(k, n) for _, k, n in LINEARS}):
+            x = torch.randint(-255, 256, (M, K), generator=gen, device=dev,
+                              dtype=torch.int32)
+            w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
+                              dtype=torch.int32)
+            iters = 3 if M * K * N > 1e8 else 50
+            by_block = {b: gpu_graph_time_ms(
+                lambda b=b: lm.logmatmul_cuda(x, w, spec, b), iters=iters)
+                for b in blocks}
+            row = {"by_block": {str(b): t for b, t in by_block.items()}}
+            for sched, depth0 in (("logmatmul", True),
+                                  ("logmatmul_pipelined", False)):
+                best = min((b for b in blocks if (b[4] == 0) == depth0),
+                           key=by_block.get)
+                row[sched] = {"block": best, "ms": by_block[best],
+                              "eager_ms": gpu_time_ms(
+                                  lambda b=best: lm.logmatmul_cuda(x, w, spec,
+                                                                   b),
+                                  iters=iters)}
+            xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            row["exact_linear_ms"] = gpu_graph_time_ms(lambda: xb @ wb,
+                                                       iters=20)
+            row["ops_ms"] = (M * K * N * LOGMATMUL_OPS_PER_PRODUCT
+                             + (M * K + K * N) * LOGMATMUL_OPS_PER_OPERAND
+                             ) / int_rate * 1e3
+            row["bytes_ms"] = (M * K + K * N + M * N) * 4 \
+                / HBM_BYTES_PER_S * 1e3
+            row["plain_ms"] = plain_ms[(M, K, N)]
+            shapes[(M, K, N)] = row
+            log(f"  logmatmul ({M},{K})@({K},{N}): depth 0 "
+                f"{row['logmatmul']['ms']:.4f} ms {row['logmatmul']['block']}"
+                f", pipelined {row['logmatmul_pipelined']['ms']:.4f} ms "
+                f"{row['logmatmul_pipelined']['block']}, bound "
+                f"{max(row['ops_ms'], row['bytes_ms']):.4f} ms, plain "
+                f"{row['plain_ms']:.1f} ms, exact bf16 "
+                f"{row['exact_linear_ms']:.4f} ms")
+
+    def layer(M, key):
+        return sum(shapes[(M, k, n)][key] for _, k, n in LINEARS)
+
+    def layer_sched(M, sched, key):
+        return sum(shapes[(M, k, n)][sched][key] for _, k, n in LINEARS)
+
+    kernels, times = [], {}
+    for sched, replaces in (
+            ("logmatmul", "src/repro/kernels/logmatmul.py:101"),
+            ("logmatmul_pipelined", "src/repro/kernels/logmatmul.py:113")):
+        ops, nbytes = layer(2048, "ops_ms"), layer(2048, "bytes_ms")
+        kernels.append({
+            "name": sched, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/logmatmul.cu",
+            "replaces": replaces,
+            "shape": "one layer's 7 linears, x (2048, K) int32 @ w (K, N) "
+                     "int32, (K, N) = 2x(960,960) 2x(960,320) 2x(960,2560) "
+                     "(2560,960), w8 cb6",
+            "ms": layer_sched(2048, sched, "ms"),
+            "plain_ms": layer(2048, "plain_ms"),
+            "bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "library_ms": None,
+            "eager_ms": layer_sched(2048, sched, "eager_ms"),
+            "decode_layer_ms": layer_sched(4, sched, "ms"),
+            "decode_layer_bound_ms": max(layer(4, "ops_ms"),
+                                         layer(4, "bytes_ms")),
+            "decode_layer_plain_ms": layer(4, "plain_ms"),
+            "blocks": {f"{M},{K},{N}": list(r[sched]["block"])
+                       for (M, K, N), r in shapes.items()},
+        })
+    times["exact_linear_layer_prefill_ms"] = layer(2048, "exact_linear_ms")
+    times["exact_linear_layer_decode_ms"] = layer(4, "exact_linear_ms")
+    times["int32_ops_per_s"] = int_rate
+    return kernels, times, {f"{k}": v for k, v in shapes.items()}
+
+
+def measure_emulate(served_e, params, prompts):
+    """Prefill, decode step (eager and graph-replayed) and generate of the
+    --emulate path."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+
+    lm_e = served_e["lm"]
+    max_seq = PROMPT + GEN
+    prefill_t = time_callable(lm_e.prefill, params, {"tokens": prompts},
+                              iters=2, items=BATCH * PROMPT)
+    logits, cache = lm_e.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), cache)
+    tok = logits.argmax(-1)
+    step_t = time_callable(lm_e.decode_step, params, cache, tok, PROMPT,
+                           iters=5, warmup=1, items=BATCH)
+    step_graph_ms = gpu_graph_time_ms(
+        lambda: lm_e.decode_step(params, cache, tok, PROMPT), iters=2)
+    e2e_t = time_callable(
+        lambda: serve.generate(lm_e, params, prompts, max_seq, GEN),
+        iters=1, items=BATCH * GEN, device=lm_e.device)
+    kernels = count_device_kernels(
+        lambda: lm_e.decode_step(params, cache, tok, PROMPT))
+    torch.cuda.synchronize()
+    return {
+        "emulate_prefill_ms": prefill_t.best_s * 1e3,
+        "emulate_prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
+        "emulate_decode_step_ms": step_t.best_s * 1e3,
+        "emulate_decode_tok_per_s": BATCH / step_t.best_s,
+        "emulate_decode_step_device_ms": step_graph_ms,
+        "emulate_decode_step_host_share":
+            1.0 - step_graph_ms / (step_t.best_s * 1e3),
+        "emulate_generate_ms": e2e_t.best_s * 1e3,
+        "emulate_generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
+        "emulate_first_generate_s": served_e["first_run_s"],
+        "emulate_autotune_generate_s": served_e["tune_s"],
+        "emulate_decode_step_device_kernels": kernels or 0,
+    }
+
+
 # ------------------------------------------------------------------- main --
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -604,19 +1051,42 @@ def main(argv=None) -> int:
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_err, att_worst = check_attention(dev)
+    mm_err, mm_plain_ms = check_logmatmul(dev)
 
     log("[4/5] main path: smollm-360m full width, batch "
-        f"{BATCH}, prompt {PROMPT}, gen {GEN}, --approx simdive")
+        f"{BATCH}, prompt {PROMPT}, gen {GEN}, (a) --approx simdive")
     served = serve_main_path(dev)
+    log("  (b) --approx simdive --emulate")
+    served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     log("[5/5] times")
-    kernels, times = measure(dev, served)
-    counts = served["counts"]
-    for kern, name, err in ((kernels[0], "elemwise", ew_err),
-                            (kernels[1], "attention", att_err)):
-        kern["launches"] = counts[name]
+    int_rate = int32_ops_per_s(dev)
+    log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
+        f"clock); integer operations the functions need: "
+        f"{LOGMATMUL_OPS_PER_PRODUCT} per logmatmul product + "
+        f"{LOGMATMUL_OPS_PER_OPERAND} per operand element, "
+        f"{ELEMWISE_OPS_PER_LANE} per elemwise div lane")
+    kernels, times = measure(dev, served, int_rate)
+    mm_kernels, mm_times, mm_shapes = measure_logmatmul(
+        dev, mm_plain_ms, int_rate)
+    kernels += mm_kernels
+    times.update(mm_times)
+    times.update(measure_emulate(served_e, served["params"],
+                                 served["prompts"]))
+    counts, counts_e = served["counts"], served_e["counts"]
+    for kern, name, n, err in (
+            (kernels[0], "elemwise", counts["elemwise"], ew_err),
+            (kernels[1], "attention", counts["attention"], att_err),
+            (kernels[2], "logmatmul", counts_e["matmul"], mm_err),
+            (kernels[3], "logmatmul_pipelined", counts_e["matmul_pipelined"],
+             mm_err)):
+        kern["launches"] = n
         kern["max_abs_err"] = err
-        require(kern["launches"] > 0, f"{name} never launched on the path")
+    for kern in kernels[:2]:
+        require(kern["launches"] > 0, f"{kern['name']} never launched on "
+                                      "the path")
+    require(kernels[2]["launches"] + kernels[3]["launches"]
+            == 7 * 32 * GEN, "logmatmul launches on the emulate path")
     # max_abs_err is taken at the main path's shape; the worst over every
     # other case of phase 3 stands beside it
     kernels[1]["max_abs_err_all_cases"] = att_worst
@@ -636,6 +1106,9 @@ def main(argv=None) -> int:
             "total_s": total_s, "kernels": kernels, "times": times,
             "main_path": {k: v for k, v in served.items()
                           if k not in ("lm", "params", "prompts")},
+            "emulate_path": {k: v for k, v in served_e.items()
+                             if k != "lm"},
+            "logmatmul_shapes": mm_shapes,
             "device": device}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

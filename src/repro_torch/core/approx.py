@@ -1,10 +1,12 @@
 """Model-facing approximate math: the SIMDive divider inside attention.
 
-Counterpart of ``repro.core.approx`` for the serving slice ported so far:
-:class:`ApproxConfig` with its policy resolution, the layer-segment helper
-and :func:`attention_div`. The approximate linears (``approx_matmul*``),
-``approx_softmax`` and ``approx_rmsnorm`` are not ported yet; with
-``emulate`` off — the serving default — the linears are plain matmuls.
+Counterpart of ``repro.core.approx`` for the serving slices ported so
+far: :class:`ApproxConfig` with its policy resolution, the layer-segment
+helper, :func:`attention_div`, and the emulated approximate linears —
+:func:`quantize_sign_magnitude`, :func:`approx_matmul` (straight-through
+exact gradients) and :func:`approx_matmul_int8` (pre-quantized int8
+weights). ``approx_softmax``, ``approx_rmsnorm`` and the approximate
+backward (``backward='approx'``, training) are not ported yet.
 
 Every approximate op dispatches through the kernel registry
 (:func:`repro_torch.kernels.registry.get_op`). ``ApproxConfig.backend``
@@ -33,6 +35,9 @@ from .simdive import SimdiveSpec
 
 __all__ = [
     "ApproxConfig",
+    "quantize_sign_magnitude",
+    "approx_matmul",
+    "approx_matmul_int8",
     "attention_div",
     "layer_label",
     "serving_segments",
@@ -175,3 +180,108 @@ def attention_div(acc: torch.Tensor, l: torch.Tensor,
                op="div", frac_out=frac_out)
     out = from_lanes(quot).to(torch.float32) * (2.0 ** -frac_out)
     return torch.where(acc < 0, -out, out)
+
+
+# ---------------------------------------------------- emulated linears --
+def quantize_sign_magnitude(x: torch.Tensor, width: int, axis=None):
+    """Symmetric sign-magnitude quantization to ``width``-bit magnitudes.
+
+    Returns (mag int32 in [0, 2^width - 1], sign int32 in {-1, +1},
+    scale). ``axis`` selects per-axis scales (kept dims); None = global.
+    The magnitudes are int32 rather than the reference's uint32 (PyTorch's
+    uint32 lacks the arithmetic; the values are the same). Dtypes follow
+    the reference: the scale stays in ``x``'s dtype (the reference's
+    weak-typed ``1e-30`` and ``qmax`` do not widen a bf16 ``x``), and
+    ``|x| / scale`` is rounded in it.
+    """
+    ax = x.abs()
+    amax = ax.amax() if axis is None else ax.amax(dim=axis, keepdim=True)
+    qmax = float(2 ** width - 1)
+    scale = amax.clamp(min=1e-30) / qmax
+    mag = (ax / scale).round().clamp(0, qmax).to(torch.int32)
+    sign = torch.where(x < 0, -1, 1).to(torch.int32)
+    return mag, sign, scale
+
+
+def _matmul_active(cfg: ApproxConfig) -> bool:
+    return cfg.enabled and cfg.use_in_linear and cfg.active_for("matmul")
+
+
+def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig):
+    if not _matmul_active(cfg):
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    spec, backend = cfg.resolve("matmul")
+    qx, sx, scx = quantize_sign_magnitude(x2, spec.width)
+    qw, sw, scw = quantize_sign_magnitude(w, spec.width, axis=0)
+    mm = get_op("matmul_emul", spec, backend=backend)
+    acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
+    out = acc.to(torch.float32) * (scx * scw)
+    return out.reshape(*lead, w.shape[1]).to(x.dtype)
+
+
+class _ApproxMatmul(torch.autograd.Function):
+    """SIMDive forward, straight-through exact backward (the reference's
+    ``custom_vjp`` pair ``_approx_matmul_fwd`` / ``_approx_matmul_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, w)
+        return _approx_matmul_fwd_impl(x, w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        if cfg.backward == "approx" and _matmul_active(cfg):
+            raise NotImplementedError(
+                "backward='approx' (approximate backward matmuls, training) "
+                "is not ported yet")
+        dt = torch.promote_types(g.dtype, w.dtype)
+        gx = torch.einsum("...n,kn->...k", g.to(dt), w.to(dt)).to(x.dtype)
+        dt = torch.promote_types(x.dtype, g.dtype)
+        gw = torch.einsum("...k,...n->kn", x.to(dt), g.to(dt)).to(w.dtype)
+        return gx, gw, None
+
+
+def approx_matmul(x: torch.Tensor, w: torch.Tensor,
+                  cfg: ApproxConfig) -> torch.Tensor:
+    """Float-in/out matmul with SIMDive products; exact grads (STE).
+
+    ``x`` (..., K) and ``w`` (K, N) are quantized per call (``x`` with one
+    global scale, ``w`` per output channel), multiplied on the
+    ``matmul_emul`` op and rescaled, as in the reference.
+    """
+    return _ApproxMatmul.apply(x, w, cfg)
+
+
+def approx_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                       cfg: ApproxConfig) -> torch.Tensor:
+    """SIMDive matmul against *pre-quantized* int8 weights ``q`` (K, N)
+    with per-output-channel ``scale`` (1, N): the stored magnitudes feed
+    the emulated matmul directly, the weight's own scale rides through.
+    Inference only (no gradient). Raises when the resolved lane is
+    narrower than the stored 8-bit magnitudes.
+    """
+    if not cfg.active_for("matmul"):
+        wf = q.to(torch.float32) * scale.to(torch.float32)
+        return (x.to(torch.float32) @ wf).to(x.dtype)
+    spec, backend = cfg.resolve("matmul")
+    if spec.width < 8:
+        raise ValueError(
+            f"approx+quantize: resolved matmul lane width {spec.width} "
+            "cannot hold int8 weight magnitudes (<=127 needs width >= 8); "
+            "widen the policy's matmul entry or serve unquantized")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    qx, sx, scx = quantize_sign_magnitude(x2, spec.width)
+    qi = q.to(torch.int32)
+    qw = qi.abs()
+    sw = torch.where(qi < 0, -1, 1).to(torch.int32)
+    mm = get_op("matmul_emul", spec, backend=backend)
+    acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
+    out = acc.to(torch.float32) * (scx * scale.to(torch.float32))
+    return out.reshape(*lead, q.shape[-1]).to(x.dtype)

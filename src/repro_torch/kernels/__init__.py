@@ -11,8 +11,12 @@ Layering:
   flash_attention.py  online-softmax attention whose finalize runs the
                       SIMDive divider: wrapper + plain version
                       (kernel: csrc/flash_attention.cu)
+  logmatmul.py        signed int32 matmul with SIMDive products, depth-0
+                      and cp.async-ring schedules: wrappers + plain version
+                      (kernel: csrc/logmatmul.cu)
   build.py            nvcc build at first launch + ctypes loader
-  registry.py         get_op()/register_op() — backend resolution
+  registry.py         get_op()/register_op() — backend resolution and the
+                      measure-and-cache block autotune
   ops.py              built-in op registration + thin public wrappers
 
 Exports resolve lazily (PEP 562) so importing a leaf module never drags in
@@ -25,11 +29,16 @@ import importlib
 _EXPORTS = {
     "simdive_elemwise": ".ops",
     "simdive_attention": ".ops",
+    "simdive_matmul_int": ".ops",
     "get_op": ".registry",
     "register_op": ".registry",
     "resolve_backend": ".registry",
     "launch_counts": ".registry",
     "reset_launch_counts": ".registry",
+    "autotune_cache": ".registry",
+    "clear_autotune_cache": ".registry",
+    "export_autotune_cache": ".registry",
+    "preload_autotune_cache": ".registry",
 }
 
 __all__ = list(_EXPORTS)

@@ -121,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_softmax_div.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i,
                                         f, p]
     lib.simdive_softmax_div.restype = i
+    lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 9 + [p]
+    lib.simdive_logmatmul.restype = i
 
 
 def load() -> ctypes.CDLL:

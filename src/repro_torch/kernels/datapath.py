@@ -20,8 +20,9 @@ Stage map (FPGA block -> function):
 
 All tensors are int64 carriers of unsigned 32-bit lane values (see
 :mod:`repro_torch.core.mitchell`); tables are int64 tensors on the
-operands' device. The sign network and the sub-word lane wiring
-(``sign_*``, ``lane_expand`` / ``lane_repack``) are not ported yet.
+operands' device. The sign network (``sign_split`` / ``sign_join``) carries
+signed int32 values on the same int64 carrier. The sub-word lane wiring
+(``lane_expand`` / ``lane_repack``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ __all__ = [
     "log_mul",
     "log_div",
     "lane_op",
+    "wrap_int32",
+    "sign_split",
+    "sign_join",
 ]
 
 
@@ -165,6 +169,33 @@ def log_div(la: torch.Tensor, lb: torch.Tensor, tab: torch.Tensor, width: int,
     return antilog_div(la, lb, width, corr=corr, frac_out=frac_out,
                        round_out=round_out, num_zero=num_zero,
                        den_zero=den_zero)
+
+
+# ------------------------------------------------------------------ signs --
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """Carrier values reduced to the int32 they wrap to (two's complement)."""
+    half = 1 << 31
+    return ((x + half) & BUS_MASK) - half
+
+
+def sign_split(x: torch.Tensor, width: int):
+    """Signed int32 values -> (magnitude clamped to the lane, sign {-1,+1}).
+
+    Both on the int64 carrier. ``|INT32_MIN|`` is 2^31 as in the
+    reference's uint32 cast, and clamps to the lane maximum like every
+    magnitude beyond the lane.
+    """
+    x = as_carrier(x)
+    sign = torch.where(x < 0, -1, 1)
+    mag = x.abs().clamp_(max=(1 << width) - 1)
+    return mag, sign
+
+
+def sign_join(mag: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """Reattach a sign product to an unsigned datapath result: the
+    reference casts the uint32 result to int32 (a product of 2^32 - 1 at
+    width 16 wraps to -1) and multiplies with int32 wrap-around."""
+    return wrap_int32(wrap_int32(as_carrier(mag)) * as_carrier(sign))
 
 
 # -------------------------------------------------------- composed SISD --

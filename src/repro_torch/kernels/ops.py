@@ -1,20 +1,24 @@
 """Built-in SIMDive ops: registration + thin public entry points.
 
-Counterpart of ``repro.kernels.ops`` for the ops ported so far: ``elemwise``
-and ``attention``. Each registers its plain PyTorch version and its CUDA
-kernel with :mod:`repro_torch.kernels.registry`. The kernels mask their
-ragged edges themselves, so there is no pad-to-block step: any shape goes
-straight in, and the results equal the reference's padded ones.
+Counterpart of ``repro.kernels.ops`` for the ops ported so far:
+``elemwise``, ``attention``, ``matmul_int`` and ``matmul_emul``. Each
+registers its plain PyTorch version and its CUDA kernel with
+:mod:`repro_torch.kernels.registry`. The kernels mask their ragged edges
+themselves, so there is no pad-to-block step: any shape goes straight in,
+and the results equal the reference's padded ones.
 """
 from __future__ import annotations
 
-from repro_torch.core.simdive import SimdiveSpec
+import torch
+
+from repro_torch.core.simdive import SimdiveSpec, simdive_mul
 from . import elemwise as _ew
 from . import flash_attention as _fa
+from . import logmatmul as _lm
 from .flash_attention import DEFAULT_DIV_SPEC, DEFAULT_FRAC_OUT
 from .registry import get_op, register_op
 
-__all__ = ["simdive_elemwise", "simdive_attention"]
+__all__ = ["simdive_elemwise", "simdive_attention", "simdive_matmul_int"]
 
 
 # --------------------------------------------------------------- elemwise --
@@ -45,10 +49,85 @@ def _attention_cuda(q, k, v, *, spec, causal=True, window=0,
         kv_group=kv_group)
 
 
+# ------------------------------------------------------------- matmul_int --
+def _matmul_int_ref(x, w, *, spec):
+    lead = x.shape[:-1]
+    out = _lm.logmatmul_ref(x.reshape(-1, x.shape[-1]), w, spec)
+    return out.reshape(*lead, w.shape[1])
+
+
+def _matmul_int_cuda(x, w, *, spec, block):
+    # block: (bm, bn, bk[, k_unroll[, depth]]) as in the reference; the
+    # tiles are the port's own (logmatmul.split_block / check_block)
+    lead = x.shape[:-1]
+    out = _lm.logmatmul_cuda(x.reshape(-1, x.shape[-1]), w, spec, block)
+    return out.reshape(*lead, w.shape[1])
+
+
+# ------------------------------------------------------------ matmul_emul --
+#: rows x K chunk x N products one step of the plain version holds
+_EMUL_BUDGET = 1 << 24
+
+
+def _matmul_emul_ref(qx, sx, qw, sw, *, spec, k_chunk=128):
+    """Integer core of the model-facing emulated matmul: (M,K) x (K,N) with
+    SIMDive scalar products over K chunks of ``k_chunk``, int64
+    accumulation (the reference's ``_matmul_emul_ref``).
+
+    Where ``2 * width <= 31`` the sign is joined into the int32 product
+    (exact: |product| < 2^30) and the chunk is summed into int64, as the
+    reference's fast path does; wider lanes multiply in int64. Rows are
+    chunked too, so one (rows, k_chunk, N) slab stays under
+    ``_EMUL_BUDGET`` elements — every addend and so every sum is the same.
+    """
+    M, K = qx.shape
+    N = qw.shape[1]
+    fast = 2 * spec.width <= 31
+    acc = torch.zeros((M, N), dtype=torch.int64, device=qx.device)
+    mb = max(1, min(M, _EMUL_BUDGET // max(k_chunk * N, 1)))
+    for m0 in range(0, M, mb):
+        for k0 in range(0, K, k_chunk):
+            xk, sxk = qx[m0:m0 + mb, k0:k0 + k_chunk], sx[m0:m0 + mb,
+                                                         k0:k0 + k_chunk]
+            wk, swk = qw[k0:k0 + k_chunk], sw[k0:k0 + k_chunk]
+            p = simdive_mul(xk[:, :, None], wk[None], spec)     # (m, kc, N)
+            s = sxk[:, :, None].to(torch.int64) * swk[None].to(torch.int64)
+            if fast:
+                sp = p.to(torch.int32) * s.to(torch.int32)
+                acc[m0:m0 + mb] += sp.sum(dim=1, dtype=torch.int64)
+            else:
+                acc[m0:m0 + mb] += (p * s).sum(dim=1)
+    return acc
+
+
+def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
+    """The kernel path of the emulated matmul: re-join the signs, run
+    ``logmatmul`` (int32 accumulation: exact for width 8 at K < 2^15, the
+    int64 plain version is the accuracy oracle), widen to int64."""
+    del k_chunk  # the kernel's K slabs replace the host-side chunking
+    x = qx.to(torch.int32) * sx.to(torch.int32)
+    w = qw.to(torch.int32) * sw.to(torch.int32)
+    return _matmul_int_cuda(x, w, spec=spec, block=block).to(torch.int64)
+
+
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
-            default_block=_ew.DEFAULT_BLOCK, kernel=_ew.elemwise_cuda)
+            default_block=_ew.DEFAULT_BLOCK,
+            kernels={"elemwise": _ew.elemwise_cuda})
 register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
-            kernel=_fa.flash_attention_cuda)
+            kernels={"attention": _fa.flash_attention_cuda})
+# matmul blocks carry k_unroll as a 4th and the pipeline depth as a 5th
+# component; each candidate is checked against the compiled tiles and the
+# shared-memory limit here, when it is registered
+_MATMUL_KERNELS = {"matmul": _lm.logmatmul_cuda,
+                   "matmul_pipelined": _lm.logmatmul_pipelined_cuda}
+for _block in (_lm.DEFAULT_BLOCK, *_lm.BLOCK_CANDIDATES):
+    _lm.check_block(_block)
+register_op("matmul_int", ref=_matmul_int_ref, cuda=_matmul_int_cuda,
+            default_block=_lm.DEFAULT_BLOCK,
+            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS)
+register_op("matmul_emul", ref=_matmul_emul_ref, cuda=_matmul_emul_cuda,
+            default_block=_lm.DEFAULT_BLOCK,
+            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS)
 
 
 # ------------------------------------------------------------- public API --
@@ -74,3 +153,9 @@ def simdive_attention(q, k, v, spec: SimdiveSpec | None = None, *,
     return get_op("attention", spec, backend)(
         q, k, v, causal=causal, window=window, approx_div=approx_div,
         frac_out=frac_out, q_offset=q_offset, kv_group=kv_group)
+
+
+def simdive_matmul_int(x, w, spec: SimdiveSpec, backend: str = "auto",
+                       blocks=None):
+    """Signed int32 (..., K) @ (K, N) with SIMDive products (int32 result)."""
+    return get_op("matmul_int", spec, backend, block=blocks)(x, w)

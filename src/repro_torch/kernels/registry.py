@@ -12,15 +12,30 @@ resolves an op to a callable bound to its spec and backend:
     go to ``'cuda'``, CPU tensors to ``'ref'``.
 
 An op whose kernel takes a launch shape registers its default
-(``default_block``) and an explicit ``block=`` wins over it; the reference's
-measure-and-cache block autotune loop is not ported yet. An op whose kernel
-is compiled for one tile registers none and takes no ``block=``.
-:func:`register_op` is the hook new ops plug into. The built-in ops (``elemwise``, ``attention``) are registered by
-:mod:`repro_torch.kernels.ops` on first use.
+(``default_block``) and may register ``block_candidates``; an explicit
+``block=`` wins over both. Otherwise the block is chosen per (op, width,
+shape buckets, backend, kwargs signature) by the reference's
+measure-and-cache autotune (:func:`_pick_block`): every candidate is timed
+once with CUDA events (:func:`repro_torch.metrics.timing.time_callable`)
+and the fastest is cached. Timing happens only on the ``cuda`` backend and
+never while a CUDA graph is being captured; ``SIMDIVE_AUTOTUNE=0`` (or
+``off``) caches the registered default untimed, as in the reference.
+:func:`export_autotune_cache` / :func:`preload_autotune_cache` round-trip
+the cache through JSON (``chip_smoke.py`` pins a schedule that way). An
+op whose kernel is compiled for one tile registers none and takes no
+``block=``. :func:`register_op` is the hook new ops plug into. The
+built-in ops (``elemwise``, ``attention``, ``matmul_int``,
+``matmul_emul``) are registered by :mod:`repro_torch.kernels.ops` on first
+use.
+
+Launch counts are kept by the kernel wrappers, one count per schedule;
+:func:`launch_counts` reports them under the names each op registered them
+with (``matmul`` and ``matmul_pipelined`` are shared by both matmul ops).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
@@ -35,6 +50,10 @@ __all__ = [
     "shape_bucket",
     "launch_counts",
     "reset_launch_counts",
+    "autotune_cache",
+    "clear_autotune_cache",
+    "export_autotune_cache",
+    "preload_autotune_cache",
 ]
 
 #: backends accepted by :func:`get_op`; 'auto' resolves per call
@@ -48,26 +67,34 @@ class OpImpl:
     ``ref(*tensors, spec=..., **kw)`` is the plain PyTorch entry;
     ``cuda(*tensors, spec=..., **kw)`` launches the kernel and is also
     handed ``block=`` when the op registered a ``default_block``.
-    ``kernel`` is the wrapper that carries the ``launches`` count.
+    ``kernels`` maps a count's name to the wrapper that carries its
+    ``launches`` count (one per schedule).
     """
     name: str
     ref: Callable[..., Any]
     cuda: Callable[..., Any] | None = None
     default_block: tuple | None = None
-    kernel: Callable[..., Any] | None = None
+    block_candidates: tuple = ()
+    kernels: dict = field(default_factory=dict)
 
 
 _REGISTRY: dict[str, OpImpl] = {}
+_AUTOTUNE_CACHE: dict[tuple, tuple] = {}
 
 
 def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
                 default_block: tuple | None = None,
-                kernel: Callable | None = None) -> OpImpl:
+                block_candidates: tuple = (),
+                kernels: dict | None = None) -> OpImpl:
     """Register a new op under ``name``."""
     if name in _REGISTRY:
         raise ValueError(f"op {name!r} already registered")
+    if block_candidates and default_block is None:
+        raise ValueError(f"op {name!r}: block candidates need a default_block")
     entry = OpImpl(name=name, ref=ref, cuda=cuda,
-                   default_block=default_block, kernel=kernel)
+                   default_block=default_block,
+                   block_candidates=tuple(tuple(b) for b in block_candidates),
+                   kernels=dict(kernels or {}))
     _REGISTRY[name] = entry
     return entry
 
@@ -86,22 +113,137 @@ def resolve_backend(backend: str, *tensors: torch.Tensor) -> str:
 
 
 def shape_bucket(shape: tuple) -> tuple:
-    """Pow-2 bucket of a shape (the reference's reporting bucket)."""
+    """Pow-2 bucket of a shape: one autotune entry serves nearby shapes."""
     return tuple(1 << max(int(d) - 1, 0).bit_length() for d in shape)
 
 
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per op since the last reset (wrapper counters)."""
+def _kernels() -> dict:
     _ensure_builtin_ops()
-    return {name: e.kernel.launches for name, e in sorted(_REGISTRY.items())
-            if e.kernel is not None}
+    out = {}
+    for e in _REGISTRY.values():
+        out.update(e.kernels)
+    return out
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per count name since the last reset."""
+    return {name: k.launches for name, k in sorted(_kernels().items())}
 
 
 def reset_launch_counts() -> None:
+    for k in _kernels().values():
+        k.launches = 0
+
+
+# ------------------------------------------------------------- autotune --
+def autotune_cache() -> dict:
+    """The live (op, width, shape-buckets, backend, kwargs-sig) -> block
+    cache."""
+    return _AUTOTUNE_CACHE
+
+
+def clear_autotune_cache() -> None:
+    _AUTOTUNE_CACHE.clear()
+
+
+def _kwargs_sig(kw: dict) -> tuple:
+    """Stable, hashable, JSON-round-trippable signature of the per-call
+    kwargs that can steer tuning (``op=``, ``frac_out=``, ``k_chunk=``...);
+    tensor-valued kwargs contribute their pow-2 shape bucket."""
+    sig = []
+    for k in sorted(kw):
+        v = kw[k]
+        if isinstance(v, (bool, int, float, str, type(None))):
+            sig.append((k, v))
+        elif hasattr(v, "shape"):
+            sig.append((k, "array", tuple(shape_bucket(v.shape))))
+        else:
+            sig.append((k, repr(v)))
+    return tuple(sig)
+
+
+def export_autotune_cache() -> list:
+    """The live cache as JSON-ready records ``[{"key": [...], "block":
+    [...]}, ...]``; :func:`preload_autotune_cache` re-tuples them, so
+    export -> json -> preload round-trips exactly."""
+    def jsonable(x):
+        if isinstance(x, tuple):
+            return [jsonable(i) for i in x]
+        return x
+
+    return [{"key": jsonable(k), "block": list(v)}
+            for k, v in sorted(_AUTOTUNE_CACHE.items(),
+                               key=lambda kv: repr(kv[0]))]
+
+
+def preload_autotune_cache(records: list) -> int:
+    """Seed the cache from :func:`export_autotune_cache` output. Returns
+    how many entries were loaded; malformed records, records of
+    unregistered ops and blocks outside the op's current candidates (plus
+    its default) are skipped."""
+    def tupleize(x):
+        if isinstance(x, list):
+            return tuple(tupleize(i) for i in x)
+        return x
+
     _ensure_builtin_ops()
-    for e in _REGISTRY.values():
-        if e.kernel is not None:
-            e.kernel.launches = 0
+    loaded = 0
+    for rec in records or []:
+        try:
+            key = tupleize(rec["key"])
+            block = tuple(int(d) for d in rec["block"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        entry = _REGISTRY.get(key[0]) if isinstance(key, tuple) and key \
+            else None
+        if entry is None:
+            continue
+        allowed = set(entry.block_candidates)
+        if entry.default_block is not None:
+            allowed.add(entry.default_block)
+        if block not in allowed:
+            continue
+        _AUTOTUNE_CACHE[key] = block
+        loaded += 1
+    return loaded
+
+
+def _autotune_mode() -> str:
+    """'off' (``SIMDIVE_AUTOTUNE`` = 0 / off / empty) or 'on'. The
+    reference's 'force' (time under its interpreter) means 'on' here: the
+    port times only real kernel launches."""
+    v = os.environ.get("SIMDIVE_AUTOTUNE", "1")
+    return "off" if v in ("0", "off", "") else "on"
+
+
+def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
+    """Cached per-(op, width, shape-buckets, backend, kwargs-sig) block
+    choice, measured once: each candidate's call timed by CUDA events, the
+    fastest kept. Nothing is timed or cached while a CUDA graph is being
+    captured (the counterpart of the reference's tracer check)."""
+    key = (entry.name, spec.width,
+           tuple(shape_bucket(t.shape) for t in tensors), backend,
+           _kwargs_sig(kw))
+    cached = _AUTOTUNE_CACHE.get(key)
+    if cached is not None:
+        return cached
+    candidates = entry.block_candidates or (entry.default_block,)
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    if len(candidates) < 2 or _autotune_mode() == "off" or capturing:
+        if not capturing:
+            _AUTOTUNE_CACHE[key] = entry.default_block
+        return entry.default_block
+    from repro_torch.metrics.timing import time_callable
+
+    best, best_s = None, None
+    for cand in candidates:
+        t = time_callable(entry.cuda, *tensors, spec=spec, block=cand,
+                          iters=2, warmup=1, **kw)
+        if best_s is None or t.best_s < best_s:
+            best, best_s = cand, t.best_s
+    _AUTOTUNE_CACHE[key] = best
+    return best
 
 
 @dataclass(frozen=True)
@@ -110,7 +252,7 @@ class BoundOp:
     entry: OpImpl
     spec: Any
     backend: str            # 'auto' | 'ref' | 'cuda'
-    block: tuple | None     # None => the op's registered default, if any
+    block: tuple | None     # None => autotuned / the registered default
 
     def __call__(self, *tensors, **kw):
         backend = resolve_backend(self.backend, *tensors)
@@ -128,8 +270,9 @@ class BoundOp:
                 "tensors on the card; ask for backend 'ref' explicitly")
         if self.entry.default_block is None:
             return self.entry.cuda(*tensors, spec=self.spec, **kw)
-        block = self.block if self.block is not None \
-            else self.entry.default_block
+        block = self.block
+        if block is None:
+            block = _pick_block(self.entry, self.spec, backend, tensors, kw)
         return self.entry.cuda(*tensors, spec=self.spec, block=block, **kw)
 
 
@@ -138,7 +281,7 @@ def get_op(op: str, spec, backend: str = "auto", *,
     """Resolve ``op`` to a callable bound to ``spec``/``backend``/``block``.
 
     The returned :class:`BoundOp` takes the op's tensors plus per-call
-    keywords (``op=``, ``mode=``, ``frac_out=``, ...).
+    keywords (``op=``, ``mode=``, ``frac_out=``, ``k_chunk=``, ...).
     """
     _ensure_builtin_ops()
     entry = _REGISTRY.get(op)
@@ -151,4 +294,5 @@ def get_op(op: str, spec, backend: str = "auto", *,
     if block is not None and entry.default_block is None:
         raise ValueError(f"op {op!r} takes no block=: its kernel is compiled "
                          "for one tile")
-    return BoundOp(entry=entry, spec=spec, backend=backend, block=block)
+    return BoundOp(entry=entry, spec=spec, backend=backend,
+                   block=None if block is None else tuple(block))

@@ -5,7 +5,11 @@ batched prefill, the prompt cache merged into a ``max_seq`` serving cache,
 then a greedy per-token decode loop. ``--approx simdive`` serves the
 divider-softmax (the linears stay plain matmuls): on the GPU the prefill
 attention runs in the hand-written flash kernel and every decode step's
-softmax normalization in the elemwise kernel.
+softmax normalization in the elemwise kernel. ``--emulate`` adds the
+bit-exact SIMDive linears: every linear of every layer (seven a layer, in
+the prefill and in each decode step) runs the ``logmatmul`` kernel.
+``--quantize`` swaps the linear weights for int8 ``QuantizedWeight``s;
+with ``--emulate`` their magnitudes feed the emulated matmul directly.
 
 Entry points run on the GPU unless asked otherwise: ``device`` defaults to
 ``'cuda'`` and a host without one gets an error, not a CPU run.
@@ -15,11 +19,12 @@ Throughput is measured, not guessed: everything reported goes through
 device-synchronised repetitions).
 
 Not ported yet, and therefore not accepted on the command line:
-``--quantize``, ``--emulate``, ``--policy``, ``--scheduler``, ``--chaos``.
+``--policy``, ``--scheduler``, ``--chaos``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
-      --approx simdive --batch 4 --prompt-len 512 --gen 32
+      --approx simdive [--emulate [--quantize]] --batch 4 --prompt-len 512 \
+      --gen 32
   (CPU smoke: add --smoke --device cpu)
 """
 from __future__ import annotations
@@ -34,6 +39,36 @@ from repro_torch.configs import get_config
 from repro_torch.core.approx import ApproxConfig, serving_segments
 from repro_torch.metrics.timing import time_callable
 from repro_torch.models import build
+from repro_torch.models.layers import quantize_weight
+
+# matmul-weight leaf names (stacked (L,K,N) / MoE (L,E,K,N) / flat (K,N));
+# norms, embeddings (gather tables), convs and per-head vectors stay float.
+_MATMUL_WEIGHTS = frozenset(
+    "wq wk wv wo w1 w2 w3 head router wr wg wz wx wdt cm_wk cm_wr cm_wv "
+    "out_proj".split())
+
+
+def quantize_params(params: dict) -> dict:
+    """Swap every linear weight for an int8 QuantizedWeight (per-out-channel
+    scale). Stacked per-layer weights keep their leading L axis, so the
+    layer loop still indexes them. Weights narrower than 64 on either of
+    their last two axes stay float, as in the reference."""
+    def q(path, leaf):
+        name = path[-1] if path else ""
+        if "moe" in path:
+            return leaf        # expert weights stay float, as in the reference
+        if (name in _MATMUL_WEIGHTS and leaf.ndim >= 2
+                and leaf.shape[-1] >= 64 and leaf.shape[-2] >= 64
+                and leaf.dtype in (torch.float32, torch.bfloat16)):
+            return quantize_weight(leaf)
+        return leaf
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return q(path, tree)
+
+    return walk(params)
 
 
 # ---------------------------------------------------------------- caches --
@@ -179,13 +214,14 @@ def render_plan(plan, cfg) -> str:
 
 # --------------------------------------------------------------------- cli --
 def serving_config(arch: str, *, smoke: bool = False, approx: str = "exact",
-                   backend: str = "auto"):
+                   backend: str = "auto", emulate: bool = False):
     """The ModelConfig the CLI serves: ``approx`` other than 'exact' turns
-    on the divider-softmax only (``emulate=False``: linears stay plain)."""
+    on the divider-softmax; ``emulate`` adds the SIMDive linears."""
     cfg = get_config(arch, smoke=smoke)
     if approx != "exact":
         cfg = cfg.with_approx(ApproxConfig(
-            mode=approx, emulate=False, use_in_softmax=True, backend=backend))
+            mode=approx, emulate=emulate, use_in_softmax=True,
+            backend=backend))
     return cfg
 
 
@@ -199,6 +235,11 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--approx", default="exact",
                     choices=["exact", "mitchell", "simdive"])
+    ap.add_argument("--emulate", action="store_true",
+                    help="bit-exact SIMDive linears (with --approx); "
+                         "composes with --quantize")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 linear weights (QuantizedWeight)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; an error without a GPU) or 'cpu'")
@@ -210,10 +251,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = serving_config(args.arch, smoke=args.smoke, approx=args.approx,
-                         backend=args.backend)
+                         backend=args.backend, emulate=args.emulate)
     lm = build(cfg, device=args.device)
     print(render_plan(resolve_serving_plan(cfg), cfg))
     params = lm.init(args.seed)
+    if args.quantize:
+        params = quantize_params(params)
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len),

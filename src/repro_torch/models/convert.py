@@ -3,7 +3,11 @@
 Both packages keep the same parameter tree (stacked ``(L, ...)`` leaves
 under ``params["stack"]["layers"]``, ``embed (1, V, D)``, ``final_norm``),
 so the bridge is a checked leaf-by-leaf copy: the tests hand both models
-the *same* random init this way and compare what they compute.
+the *same* random init this way and compare what they compute. A linear
+the reference quantized (``quantize_params``: a ``QuantizedWeight`` leaf
+with int8 ``q`` and float32 ``scale``) becomes the port's
+:class:`~repro_torch.models.layers.QuantizedWeight`, so both packages can
+serve the same quantized weights.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from .layers import QuantizedWeight
 from .model import _dt
 
 __all__ = ["params_from_reference"]
@@ -52,9 +57,11 @@ def params_from_reference(tree, cfg: ModelConfig,
     are numpy arrays (``jax.tree.map(np.asarray, params)``) — into the
     port's parameters on ``device``, in ``cfg.param_dtype``.
 
-    Raises ``ValueError`` naming the leaf when the tree does not have
-    exactly the leaves and shapes the port's dense attention stack expects
-    (a quantized, MoE or biased tree is refused, not partly loaded).
+    A leaf with ``q`` and ``scale`` (the reference's ``QuantizedWeight``)
+    is carried over as int8 ``q`` and float32 ``scale``, not cast. Raises
+    ``ValueError`` naming the leaf when the tree does not have exactly the
+    leaves and shapes the port's dense attention stack expects (an MoE or
+    biased tree is refused, not partly loaded).
     """
     want = _expected_shapes(cfg)
     got = dict(_flatten(tree))
@@ -66,15 +73,31 @@ def params_from_reference(tree, cfg: ModelConfig,
     pdt = _dt(cfg.param_dtype)
     out: dict = {}
     for path, leaf in got.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+            node[path[-1]] = _quantized(leaf, want[path], path, device)
+            continue
         arr = np.asarray(leaf)
         if tuple(arr.shape) != want[path]:
             raise ValueError(f"leaf {'/'.join(path)}: shape {arr.shape}, "
                              f"expected {want[path]}")
         if arr.dtype not in (np.float32, np.float64, np.float16):
             arr = arr.astype(np.float32)   # e.g. bfloat16 host arrays
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
         # torch.tensor copies: host arrays handed over may be read-only
         node[path[-1]] = torch.tensor(arr).to(device=device, dtype=pdt)
     return out
+
+
+def _quantized(leaf, shape, path, device) -> QuantizedWeight:
+    q, scale = np.asarray(leaf.q), np.asarray(leaf.scale)
+    want_scale = tuple(shape[:-2]) + (1, shape[-1])
+    if tuple(q.shape) != shape or tuple(scale.shape) != want_scale \
+            or q.dtype != np.int8:
+        raise ValueError(f"leaf {'/'.join(path)}: quantized q {q.dtype} "
+                         f"{q.shape}, scale {scale.shape}; expected int8 "
+                         f"{shape} and {want_scale}")
+    return QuantizedWeight(
+        q=torch.tensor(q).to(device),
+        scale=torch.tensor(scale.astype(np.float32)).to(device))

@@ -11,30 +11,73 @@ online-softmax path in plain tensor ops runs, with only the final
 ``acc / l`` — the paper's division use-case — routed through
 :func:`repro_torch.core.approx.attention_div`.
 
-``QuantizedWeight``, the emulated approximate linears, ``layernorm`` and
-M-RoPE are not ported yet; ``dense`` raises where the reference would take
-one of those paths rather than silently serving a plain matmul.
+Every matmul goes through :func:`dense`, which understands plain float
+weights, :class:`QuantizedWeight` (int8 + per-output-channel scale) and
+the SIMDive emulation of ``ApproxConfig.emulate`` — on the card, every
+emulated linear is one launch of the ``logmatmul`` kernel. ``layernorm``
+and M-RoPE are not ported yet and raise.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx import ApproxConfig, attention_div
+from repro_torch.core.approx import (
+    ApproxConfig,
+    approx_matmul,
+    approx_matmul_int8,
+    attention_div,
+)
 from repro_torch.kernels.registry import get_op, resolve_backend
 
 EXACT = ApproxConfig()
 
 
 # ---------------------------------------------------------------- weights --
-def dense(x: torch.Tensor, w: torch.Tensor,
-          approx: ApproxConfig = EXACT) -> torch.Tensor:
-    """Matmul in the activation dtype against a float weight ``(K, N)``."""
-    if approx.enabled and approx.use_in_linear and approx.emulate \
-            and approx.active_for("matmul"):
-        raise NotImplementedError(
-            "emulated SIMDive linears (ApproxConfig.emulate) are not ported "
-            "yet; serve with emulate=False (divider-softmax only)")
+@dataclass
+class QuantizedWeight:
+    """int8 sign-magnitude-compatible weight + per-output-channel scale."""
+    q: torch.Tensor          # (..., K, N) int8
+    scale: torch.Tensor      # (..., 1, N) float32
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def __getitem__(self, idx):
+        """Slice the leading (stacked layer) axis of both fields."""
+        return QuantizedWeight(q=self.q[idx], scale=self.scale[idx])
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
+    """Per-output-channel int8. The reduction is over the input
+    (second-to-last) dim, so stacked (L, K, N) weights keep their layer
+    axis."""
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    scale = amax.clamp(min=1e-30) / 127.0
+    q = (w / scale).round().clamp(-127, 127).to(torch.int8)
+    return QuantizedWeight(q=q, scale=scale.to(torch.float32))
+
+
+def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT) -> torch.Tensor:
+    """Matmul with quantized-weight and SIMDive-emulation support.
+
+    A :class:`QuantizedWeight` under active emulation feeds its int8
+    magnitudes straight into the emulated matmul
+    (:func:`approx_matmul_int8`); inactive, it is dequantized. A float
+    weight under active emulation runs :func:`approx_matmul`; otherwise
+    the plain matmul in the activation dtype.
+    """
+    active = approx.enabled and approx.use_in_linear and approx.emulate \
+        and approx.active_for("matmul")
+    if isinstance(w, QuantizedWeight):
+        if active:
+            return approx_matmul_int8(x, w.q, w.scale, approx)
+        return x @ (w.q.to(x.dtype) * w.scale.to(x.dtype))
+    if active:
+        return approx_matmul(x, w.to(torch.float32), approx).to(x.dtype)
     return x @ w.to(x.dtype)
 
 

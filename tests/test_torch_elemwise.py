@@ -98,19 +98,24 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="backend 'cuda' was given a tensor"):
         get_op("elemwise", spec, "cuda")(a, a, op="mul")
     # nothing on this host launched a kernel
-    assert launch_counts() == {"attention": 0, "elemwise": 0}
+    assert launch_counts() == {"attention": 0, "elemwise": 0, "matmul": 0,
+                               "matmul_pipelined": 0}
 
 
 def test_registry_surface():
-    assert sorted(launch_counts()) == ["attention", "elemwise"]
+    # one count per kernel schedule; both matmul ops share the logmatmul ones
+    assert sorted(launch_counts()) == ["attention", "elemwise", "matmul",
+                                       "matmul_pipelined"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
     # the attention kernel is compiled for one tile: no launch shape to pass
     assert get_op("attention", TSpec()).entry.default_block is None
     with pytest.raises(ValueError, match="takes no block="):
         get_op("attention", TSpec(), block=(32, 32))
     assert shape_bucket((3, 100, 64)) == (4, 128, 64)
+    assert get_op("matmul_emul", TSpec()).entry.default_block == \
+        (64, 64, 32, 4, 0)
     with pytest.raises(KeyError, match="unknown op"):
-        get_op("matmul_emul", TSpec())
+        get_op("packed", TSpec())
     with pytest.raises(NotImplementedError, match="width 32"):
         get_op("elemwise", TSpec(width=32), "ref")(
             torch.tensor([1]), torch.tensor([1]), op="mul")

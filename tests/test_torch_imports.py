@@ -44,6 +44,7 @@ def test_every_package_module_is_covered():
     for needed in ("core/mitchell.py", "core/error_lut.py", "core/simdive.py",
                    "core/approx.py", "kernels/datapath.py",
                    "kernels/build.py", "kernels/elemwise.py",
+                   "kernels/logmatmul.py",
                    "kernels/flash_attention.py", "kernels/registry.py",
                    "kernels/ops.py", "configs/base.py",
                    "configs/smollm_360m.py", "models/layers.py",
@@ -53,7 +54,7 @@ def test_every_package_module_is_covered():
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu",
-            "flash_attention.cu"} <= csrc
+            "flash_attention.cu", "logmatmul.cu"} <= csrc
 
 
 def _run(code: str, **env):
@@ -109,8 +110,18 @@ def test_cuda_entry_points_raise_without_a_gpu():
         build(cfg)                                   # device defaults to cuda
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         serve.main(["--arch", "smollm-360m", "--smoke"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        serve.main(["--arch", "smollm-360m", "--smoke", "--approx", "simdive",
+                    "--emulate", "--quantize"])
     lm = build(cfg, device="cpu")
     assert lm.device.type == "cpu"
+    # a kernel wrapper handed CPU tensors raises instead of computing
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels.logmatmul import logmatmul_cuda
+
+    x = torch.ones(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        logmatmul_cuda(x, x.T.contiguous(), SimdiveSpec())
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():

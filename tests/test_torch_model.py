@@ -40,19 +40,30 @@ EXACT_LOGIT_TOL = 1e-4
 # test_torch_flash_attention.APPROX_TOL), which two layers and the head
 # carry into the logits; measured 6e-5, bound 8x that
 SIMDIVE_LOGIT_TOL = 5e-4
+# emulated SIMDive linears (ApproxConfig.emulate): the integer core is
+# bit-equal, so logits agree to float32 round-off (measured <= 2e-6) —
+# except where that round-off moves one rounded 8-bit activation magnitude
+# by one unit, a step of 1/255 of the row's scale that the later layers
+# carry into the logits: measured 2.1e-2 (one step in one logit row), bound
+# 2.5x that. Most (b, step) logit rows must still agree to round-off.
+EMULATE_LOGIT_TOL = 5e-2
+EMULATE_ROUNDOFF_TOL = 1e-5
 
 
 @lru_cache(maxsize=None)
-def _pair(mode):
-    """Both models and their (shared, never mutated) parameters for ``mode``;
-    built once per mode for the whole module."""
+def _pair(mode, emulate=False, quantize=False):
+    """Both models and their (shared, never mutated) parameters for ``mode``
+    (with the emulated linears and the reference's int8 weights when
+    asked); built once per case for the whole module."""
     r_cfg = replace(r_get_config(ARCH, smoke=True), dtype="float32")
     t_cfg = replace(t_get_config(ARCH, smoke=True), dtype="float32")
     if mode != "exact":
-        r_cfg = r_cfg.with_approx(RApprox(mode=mode, emulate=False))
-        t_cfg = t_cfg.with_approx(TApprox(mode=mode, emulate=False))
+        r_cfg = r_cfg.with_approx(RApprox(mode=mode, emulate=emulate))
+        t_cfg = t_cfg.with_approx(TApprox(mode=mode, emulate=emulate))
     r_lm = r_build(r_cfg)
     r_params = r_lm.init(jax.random.PRNGKey(0))
+    if quantize:
+        r_params = r_serve.quantize_params(r_params)
     t_lm = t_build(t_cfg, device="cpu")
     t_params = params_from_reference(jax.tree.map(np.asarray, r_params),
                                      t_cfg, device="cpu")
@@ -82,7 +93,24 @@ def _reference_logits(r_lm, r_params, prompts, gen):
                                       ("simdive", SIMDIVE_LOGIT_TOL),
                                       ("mitchell", SIMDIVE_LOGIT_TOL)])
 def test_smoke_generate_matches_reference(mode, tol):
-    r_cfg, r_lm, r_params, t_cfg, t_lm, t_params = _pair(mode)
+    _check_generate(mode, tol)
+
+
+@pytest.mark.parametrize("mode,quantize", [("simdive", False),
+                                           ("mitchell", False),
+                                           ("simdive", True)])
+def test_smoke_generate_emulated_matches_reference(mode, quantize):
+    """--emulate [--quantize]: every linear through the SIMDive matmul; with
+    the reference's int8 weights carried over by params_from_reference."""
+    _check_generate(mode, EMULATE_LOGIT_TOL, emulate=True, quantize=quantize)
+
+
+def _check_generate(mode, tol, emulate=False, quantize=False):
+    r_cfg, r_lm, r_params, t_cfg, t_lm, t_params = _pair(mode, emulate,
+                                                         quantize)
+    if quantize:
+        w = t_params["stack"]["layers"]["wq"]
+        assert w.q.dtype == torch.int8 and w.scale.dtype == torch.float32
     prompts = _prompts(r_cfg.vocab_size)
     want_tok = np.asarray(r_serve.generate(
         r_lm, r_params, jnp.asarray(prompts, jnp.int32), P + GEN, GEN))
@@ -109,12 +137,18 @@ def test_smoke_generate_matches_reference(mode, tol):
                 break                                    # prefixes diverged
     # the margin rule must not have emptied the token check
     assert decided.mean() > 0.5
+    if emulate:
+        rows = np.abs(got_logits - want_logits).max(-1)   # (B, gen)
+        assert (rows <= EMULATE_ROUNDOFF_TOL).mean() >= 0.5
     if mode != "exact":
-        exact = _pair("exact")
-        exact_logits = t_serve.generate(
-            exact[4], exact[5], torch.from_numpy(prompts), P + GEN, GEN,
+        # the approximation takes effect: against exact serving, and the
+        # emulated linears against the divider-only run of the same mode
+        base = _pair(mode) if emulate else _pair("exact")
+        base_logits = t_serve.generate(
+            base[4], base[5], torch.from_numpy(prompts), P + GEN, GEN,
             return_logits=True)[1].numpy()
-        assert np.abs(exact_logits[:, 0] - got_logits[:, 0]).max() > 10 * tol
+        assert np.abs(base_logits[:, 0] - got_logits[:, 0]).max() > \
+            10 * (SIMDIVE_LOGIT_TOL if emulate else tol)
 
 
 def test_init_distributions_and_tree_match_reference():
@@ -230,9 +264,17 @@ def test_serving_plan_and_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "serving plan: 1 layer segment(s)" in out
     assert "generated (2, 3) on cpu" in out
+    # --emulate --quantize serve too: every linear emulated, int8 weights
+    t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--approx",
+                  "simdive", "--emulate", "--quantize", "--batch", "2",
+                  "--prompt-len", "8", "--gen", "3"])
+    assert "generated (2, 3) on cpu" in capsys.readouterr().out
+    assert t_serve.serving_config(ARCH, approx="simdive",
+                                  emulate=True).approx.emulate
     # on the CPU nothing launched a kernel
-    assert launch_counts() == {"attention": 0, "elemwise": 0}
-    for flag in ("--quantize", "--emulate", "--scheduler", "--chaos"):
+    assert launch_counts() == {"attention": 0, "elemwise": 0, "matmul": 0,
+                               "matmul_pipelined": 0}
+    for flag in ("--scheduler", "--chaos"):
         with pytest.raises(SystemExit):
             t_serve.main(["--arch", ARCH, "--device", "cpu", flag])
     with pytest.raises(SystemExit):
@@ -240,10 +282,25 @@ def test_serving_plan_and_cli_on_cpu(capsys):
 
 
 def test_unported_paths_raise_instead_of_serving_something_else():
-    from repro_torch.models.layers import dense
+    from repro_torch.core.approx import approx_matmul, approx_matmul_int8
+    from repro_torch.models.layers import QuantizedWeight, dense
 
-    with pytest.raises(NotImplementedError, match="emulate"):
-        dense(torch.ones(2, 4), torch.ones(4, 4), TApprox(mode="simdive"))
+    # dense with emulate no longer raises: it serves the SIMDive linear
+    # (within the multiplier's ~1 % error here), float and int8 weights
+    # alike, and the plain matmul when inactive
+    x, w = torch.ones(2, 4), torch.full((4, 4), 0.5)
+    cfg = TApprox(mode="simdive")
+    assert torch.equal(dense(x, w, cfg), approx_matmul(x, w, cfg))
+    assert torch.allclose(dense(x, w, cfg), x @ w, rtol=2e-2)
+    q = QuantizedWeight(q=torch.full((4, 4), 127, dtype=torch.int8),
+                        scale=torch.full((1, 4), 0.5 / 127))
+    assert torch.equal(dense(x, q, cfg),
+                       approx_matmul_int8(x, q.q, q.scale, cfg))
+    assert torch.allclose(dense(x, q, cfg), x @ w, rtol=2e-2)
+    assert torch.allclose(dense(x, q), x @ w)
+    with pytest.raises(NotImplementedError, match="approx"):
+        dense(x.requires_grad_(), w,
+              TApprox(mode="simdive", backward="approx")).sum().backward()
     with pytest.raises(KeyError, match="ported so far"):
         t_get_config("mixtral-8x7b")
     cfg = replace(t_get_config(ARCH, smoke=True), qk_norm=True)
