@@ -20,7 +20,11 @@ any phase fails. Phases:
               width-16 pairs, zeros, ragged and 1-D shapes);
               ``flash_attention`` within the stated tolerances (f32 / bf16,
               d_head 64 / 128, causal / window / non-causal, ragged Sq != Skv
-              with q_offset and kv_len, exact and SIMDive divide) and its
+              with q_offset and kv_len, an empty kv loop, exact and SIMDive
+              divide), its ``cp.async``-ring schedule at every depth the
+              wrapper accepts for each case bit-equal to the depth-0 kernel
+              (and so within the same tolerances), a depth whose ring does
+              not fit and a misaligned k refused before any launch, and its
               finalize bit-equal on given (acc, l); ``logmatmul`` bit-equal
               for every registered block (depth 0 and the cp.async ring) at
               the four (K, N) of smollm-360m's linears at M = 2048 and 4,
@@ -30,13 +34,20 @@ any phase fails. Phases:
 4. serve    — the main path at the full width of smollm-360m: batch 4,
               prompt 512, 32 greedy tokens, random weights from a seed,
               through ``launch.serve.generate``, twice:
-              (a) ``--approx simdive`` (divider only): the kernels' launch
-              counters are zeroed just before and read just after: 32
-              attention launches (one per layer of the prefill) and 32
-              elemwise launches per decode step are required. The same
-              model is then run through the plain versions
+              (a) ``--approx simdive`` (divider only), after one generate
+              that lets the attention autotune time its candidates: the
+              kernels' launch counters are zeroed just before and read just
+              after: 32 attention launches (one per layer of the prefill,
+              depth-0 and ring schedules together, as the autotune chose)
+              and 32 elemwise launches per decode step are required. The
+              same model is then run through the plain versions
               (``backend="ref"``, on the GPU, fed the same tokens) and
-              logits and tokens are compared.
+              logits and tokens are compared. Then served twice more at
+              full width with the attention autotune cache pinned
+              (``preload_autotune_cache``) to the depth-0 block and to the
+              ring block: each run must launch only its own schedule, and
+              the two must give bit-identical logits and tokens, equal to
+              the autotuned run's.
               (b) ``--approx simdive --emulate`` with the block autotune on:
               224 ``logmatmul`` launches (seven linears x 32 layers) per
               prefill and per decode step besides (a)'s; logits and tokens
@@ -45,11 +56,13 @@ any phase fails. Phases:
               cache pinned (``preload_autotune_cache``) to a depth-0 block
               and to a pipelined block — bit-identical logits required; one
               ``--emulate --quantize`` generate at full size.
-5. times    — prefill, decode step, generate for (a) and (b), and each
+5. times    — prefill (also with each attention schedule pinned, in
+              turns), decode step, generate for (a) and (b), and each
               kernel at the main path's shapes beside its bound, its plain
               version and — for attention — one
               ``scaled_dot_product_attention`` call as the yardstick (timed
-              here; the port never calls it), and the number of kernels one
+              here; the port never calls it) — attention for each
+              schedule and ring depth —, and the number of kernels one
               decode step puts on the card. A kernel's ``ms`` (and
               ``library_ms``) is device time with the host taken out (many
               launches replayed from one CUDA graph); the eager per-call
@@ -149,6 +162,9 @@ EMULATE_EQUAL_ROW_SHARE = 0.5
 # minutes; prompt 32 is 40 G. The blocks the autotune serves at the main
 # path's shapes are held bit for bit against the plain version in phase 3.
 REF_PROMPT, REF_GEN = 32, 8
+# the registered attention ring block: the pinned full-width run and the
+# flash_attention_pipelined row of the kernels line use it
+ATTENTION_RING_BLOCK = (64, 64, 2)
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
            ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
@@ -322,52 +338,87 @@ def check_elemwise(dev) -> float:
 
 
 def check_attention(dev):
-    """Returns (max abs err at the main path's shape, worst over all cases)."""
+    """Both schedules vs the plain version. Returns a dict: max abs err at
+    the main path's shape and the worst over all cases, for the depth-0
+    kernel and for the registered ring block (64, 64, 2)."""
     import torch
     from repro_torch.core.error_lut import table_for
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import get_op
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst = 0.0
+    errs = {"main": 0.0, "all": 0.0, "pipe_main": 0.0, "pipe_all": 0.0,
+            "ring_runs": 0}
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
 
-    def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
-            spec=fa.DEFAULT_DIV_SPEC, **kw):
-        nonlocal worst
-        q = randn(BH, Sq, dh, dtype=dtype)
-        k = randn(BH // kv_group, Skv, dh, dtype=dtype)
-        v = randn(BH // kv_group, Skv, dh, dtype=dtype)
-        if kv_len is None:
-            got = get_op("attention", spec, "cuda")(q, k, v,
-                                                    kv_group=kv_group, **kw)
-            want = get_op("attention", spec, "ref")(q, k, v,
-                                                    kv_group=kv_group, **kw)
-        else:       # kv_len is the wrappers' own argument (not the op's)
-            got = fa.flash_attention_cuda(q, k, v, spec=spec, kv_len=kv_len,
-                                          kv_group=kv_group, **kw)
-            want = fa.flash_attention_ref(q, k, v, spec=spec, kv_len=kv_len,
-                                          kv_group=kv_group, **kw)
-        torch.cuda.synchronize()
-        require(got.dtype == dtype and got.shape == q.shape,
-                f"attention {name}: dtype/shape {got.dtype} {got.shape}")
+    def judge(name, got, want, dtype, approx):
         tol = dict(TOL_F32 if dtype == torch.float32 else TOL_BF16)
-        if kw.get("approx_div", True):
+        if approx:
             tol["atol"] += TOL_APPROX_EXTRA
             ok, err, share = close(got, want, **tol)
             loose_ok, _, _ = close(got, want, **TOL_APPROX_LOOSE)
             ok = loose_ok and share <= APPROX_OUTLIER_SHARE
         else:
             ok, err, share = close(got, want, **tol)
-        worst = max(worst, err)
-        log(f"  attention {name}: max_abs_err {err:.3e} "
-            f"outside-tight share {share:.2e}")
         require(ok, f"attention {name}: max_abs_err {err:.3e}, share outside "
                     f"the bound {share:.3e} (tolerance {tol})")
+        return err, share
+
+    def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
+            spec=fa.DEFAULT_DIV_SPEC, main=False, **kw):
+        q = randn(BH, Sq, dh, dtype=dtype)
+        k = randn(BH // kv_group, Skv, dh, dtype=dtype)
+        v = randn(BH // kv_group, Skv, dh, dtype=dtype)
+        args = dict(spec=spec, kv_len=kv_len, kv_group=kv_group, **kw)
+        got = fa.flash_attention_cuda(q, k, v, block=fa.DEFAULT_BLOCK, **args)
+        want = fa.flash_attention_ref(q, k, v, **args)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and got.shape == q.shape,
+                f"attention {name}: dtype/shape {got.dtype} {got.shape}")
+        approx = kw.get("approx_div", False)
+        err, share = judge(name, got, want, dtype, approx)
+        errs["all"] = max(errs["all"], err)
+        if main:
+            errs["main"] = err
+        # the ring at every depth the wrapper takes for this dtype / d_head:
+        # bit-equal to depth 0, and so within the same tolerance
+        depths = []
+        for depth in range(1, fa._MAX_DEPTH + 1):
+            block = (*fa.DEFAULT_BLOCK, depth)
+            try:
+                fa.check_block(block, dtype, dh)
+            except ValueError:
+                n0 = fa.flash_attention_pipelined_cuda.launches
+                try:
+                    fa.flash_attention_cuda(q, k, v, block=block, **args)
+                except ValueError:
+                    pass
+                else:
+                    raise SmokeFailure(f"attention {name}: ring depth "
+                                       f"{depth} does not fit, yet launched")
+                require(fa.flash_attention_pipelined_cuda.launches == n0,
+                        "a refused block was counted as a launch")
+                continue
+            ring = fa.flash_attention_pipelined_cuda(q, k, v, block=block,
+                                                     **args)
+            torch.cuda.synchronize()
+            nbad = int((ring != got).sum())
+            require(torch.equal(ring, got),
+                    f"attention {name}: ring depth {depth} differs from the "
+                    f"depth-0 kernel on {nbad} of {got.numel()} outputs")
+            perr, _ = judge(f"{name} ring depth {depth}", ring, want, dtype,
+                            approx)
+            if depth == 2:
+                errs["pipe_all"] = max(errs["pipe_all"], perr)
+                if main:
+                    errs["pipe_main"] = perr
+            errs["ring_runs"] += 1
+            depths.append(depth)
+        log(f"  attention {name}: max_abs_err {err:.3e} outside-tight share "
+            f"{share:.2e}; ring depths {depths} bit-equal to depth 0")
         return err
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -384,11 +435,17 @@ def check_attention(dev):
                 run(f"{t} q_offset+kv_len", 4, 70, 300, dh, dtype,
                     causal=True, q_offset=150, kv_len=260,
                     approx_div=approx)
+    # an empty kv loop: every key masked by kv_len 0 (zero output)
+    for dtype, tag, dh in ((f32, "f32", 64), (bf16, "bf16", 128)):
+        for approx in (False, True):
+            run(f"{tag} dh{dh} kv_len 0 (empty kv loop) "
+                f"{'simdive' if approx else 'exact'}", 2, 70, 130, dh, dtype,
+                causal=False, kv_len=0, approx_div=approx)
     # the shape the prefill hands the kernel: q (B*15, S, 64), kv (B*5, S, 64)
-    main_err = run("bf16 dh64 GQA kv_group3, the main path's shape and "
-                   "serving config", BATCH * 15, PROMPT, PROMPT, 64, bf16,
-                   kv_group=3, causal=True, approx_div=True, frac_out=15,
-                   spec=SimdiveSpec(width=16, coeff_bits=6))
+    run("bf16 dh64 GQA kv_group3, the main path's shape and serving config",
+        BATCH * 15, PROMPT, PROMPT, 64, bf16, kv_group=3, causal=True,
+        approx_div=True, frac_out=15,
+        spec=SimdiveSpec(width=16, coeff_bits=6), main=True)
     run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
         q_offset=299, approx_div=True)
     run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
@@ -396,6 +453,24 @@ def check_attention(dev):
     run("f32 dh64 mitchell divider ib4", 4, 128, 128, 64, f32, causal=True,
         approx_div=True, spec=SimdiveSpec(width=16, coeff_bits=0,
                                           index_bits=4, round_output=False))
+    # the ring's 4-byte copies need 4-byte aligned k / v: a bf16 view one
+    # element into its storage is refused before any launch
+    flat = randn(4 * 128 * 64 + 1, dtype=bf16)
+    k_odd = flat[1:].view(4, 128, 64)
+    require(k_odd.is_contiguous() and k_odd.data_ptr() % 4 == 2,
+            "the misaligned view is not what the check needs")
+    q = randn(4, 128, 64, dtype=bf16)
+    n0 = fa.flash_attention_pipelined_cuda.launches
+    try:
+        fa.flash_attention_cuda(q, k_odd, k_odd, block=(64, 64, 2))
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("a misaligned k was handed to the ring")
+    require(fa.flash_attention_pipelined_cuda.launches == n0,
+            "a refused call was counted as a launch")
+    log("  attention: a depth whose ring does not fit and a misaligned k are "
+        "refused before any launch")
 
     # the finalize alone, on given (acc, l): bit-equal floats and integers
     rows, dh = BATCH * 15 * PROMPT, 64
@@ -425,7 +500,9 @@ def check_attention(dev):
             f"{nq} integer / {nf} float mismatches over {rows * dh} lanes")
         require(nq == 0, f"finalize integers differ on {nq} lanes")
         require(nf == 0, f"finalize floats differ on {nf} lanes")
-    return main_err, worst
+    log(f"  attention ring: {errs['ring_runs']} (case, depth) runs bit-equal "
+        "to the depth-0 kernel")
+    return errs
 
 
 def check_logmatmul(dev):
@@ -513,7 +590,11 @@ def check_logmatmul(dev):
 def serve_main_path(dev):
     import numpy as np
     import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (clear_autotune_cache,
+                                     export_autotune_cache, launch_counts,
+                                     preload_autotune_cache,
+                                     reset_launch_counts)
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.models import build
 
@@ -530,19 +611,31 @@ def serve_main_path(dev):
         0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int64)).to(dev)
     max_seq = PROMPT + GEN
 
+    # first generate: the attention autotune times its candidates once for
+    # the prefill's shape bucket (those launches are not the path's)
+    clear_autotune_cache()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.generate(lm, params, prompts, max_seq, GEN)
+    torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
+    picks = [tuple(r["block"]) for r in export_autotune_cache()
+             if r["key"][0] == "attention"]
+    log(f"  first generate (autotune) {first_run_s:.2f}s; attention picked "
+        f"{picks}")
+
     reset_launch_counts()
     t0 = time.perf_counter()
     tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
                                     return_logits=True)
     torch.cuda.synchronize()
-    first_run_s = time.perf_counter() - t0
+    run_s = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"  main path: {tuple(tokens.shape)} tokens in {first_run_s:.2f}s "
-        f"(first run, unwarmed); launches {counts}")
-    require(counts["attention"] == cfg.n_layers,
-            f"attention launches {counts['attention']}, expected "
-            f"{cfg.n_layers} (one per layer of the prefill)")
+    log(f"  main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
+        f"launches {counts}")
+    require(_attention_launches(counts) == cfg.n_layers,
+            f"attention launches {counts}, expected {cfg.n_layers} (one per "
+            "layer of the prefill, both schedules together)")
     require(counts["elemwise"] == cfg.n_layers * (GEN - 1),
             f"elemwise launches {counts['elemwise']}, expected "
             f"{cfg.n_layers} per decode step x {GEN - 1} steps")
@@ -583,8 +676,42 @@ def serve_main_path(dev):
     require(bool((agree | ~decided).all()),
             "a greedy token decided by more than twice the logit tolerance "
             "differs from the plain-version run")
+
+    # both attention schedules on the path, at full width: pin the prefill's
+    # cached entry to one block, then to the other
+    tuned = export_autotune_cache()
+    pinned = {}
+    for block, own, other in (
+            (fa.DEFAULT_BLOCK, "attention", "attention_pipelined"),
+            (ATTENTION_RING_BLOCK, "attention_pipelined", "attention")):
+        require(_pin_blocks("attention", block) > 0, "nothing to pin")
+        reset_launch_counts()
+        tok_p, log_p = serve.generate(lm, params, prompts, max_seq, GEN,
+                                      return_logits=True)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        log(f"  pinned to attention block {block}: launches {c}")
+        require(c[own] == cfg.n_layers and c[other] == 0,
+                f"pinned to {block}, launches were {c}")
+        pinned[own] = (tok_p, log_p, c)
+    (tok_0, log_0, c_0), (tok_r, log_r, c_r) = (pinned["attention"],
+                                                pinned["attention_pipelined"])
+    require(torch.equal(log_0, log_r) and torch.equal(tok_0, tok_r),
+            "depth-0 and ring attention schedules gave different logits or "
+            "tokens")
+    require(torch.equal(log_0, logits) and torch.equal(tok_0, tokens),
+            "the pinned and the autotuned runs gave different logits or "
+            "tokens")
+    log("  depth-0 and ring attention schedules: bit-identical logits and "
+        "tokens, equal to the autotuned run's")
+    clear_autotune_cache()
+    preload_autotune_cache(tuned)                # back to the tuned blocks
     return dict(lm=lm, params=params, prompts=prompts, counts=counts,
-                first_run_s=first_run_s, prefill_logit_err=prefill_err,
+                pinned_counts={"attention": c_0,
+                               "attention_pipelined": c_r},
+                attention_picks=[list(b) for b in picks],
+                first_run_s=first_run_s, run_s=run_s,
+                prefill_logit_err=prefill_err,
                 decode_logit_err=decode_err,
                 tokens_equal=int(agree.sum()), tokens=agree.numel(),
                 tokens_decided=int(decided.sum()))
@@ -594,16 +721,23 @@ def _matmul_launches(counts) -> int:
     return counts["matmul"] + counts["matmul_pipelined"]
 
 
-def _pin_matmul_blocks(block) -> int:
-    """Point every cached matmul_emul entry at ``block``."""
-    from repro_torch.kernels import (clear_autotune_cache,
+def _attention_launches(counts) -> int:
+    return counts["attention"] + counts["attention_pipelined"]
+
+
+def _pin_blocks(op: str, block) -> int:
+    """Point every cached entry of ``op`` at ``block``, keeping the other
+    ops' entries; returns how many entries of ``op`` were pinned."""
+    from repro_torch.kernels import (autotune_cache, clear_autotune_cache,
                                      export_autotune_cache,
                                      preload_autotune_cache)
 
-    records = [dict(r, block=list(block)) for r in export_autotune_cache()
-               if r["key"][0] == "matmul_emul"]
+    records = [dict(r, block=list(block)) if r["key"][0] == op else r
+               for r in export_autotune_cache()]
     clear_autotune_cache()
-    return preload_autotune_cache(records)
+    preload_autotune_cache(records)
+    return sum(1 for key, got in autotune_cache().items()
+               if key[0] == op and got == tuple(block))
 
 
 def serve_emulate_path(dev, params, prompts):
@@ -650,7 +784,7 @@ def serve_emulate_path(dev, params, prompts):
     require(_matmul_launches(counts) == n_lin * GEN,
             f"logmatmul launches {_matmul_launches(counts)}, expected "
             f"{n_lin} per prefill and per decode step x {GEN}")
-    require(counts["attention"] == cfg.n_layers
+    require(_attention_launches(counts) == cfg.n_layers
             and counts["elemwise"] == cfg.n_layers * (GEN - 1),
             f"attention / elemwise launches {counts}")
     require(bool(torch.isfinite(logits).all())
@@ -715,7 +849,7 @@ def serve_emulate_path(dev, params, prompts):
     pinned = {}
     for name, block in (("depth 0", lm.DEFAULT_BLOCK),
                         ("pipelined", (64, 64, 32, 4, 2))):
-        require(_pin_matmul_blocks(block) > 0, "nothing to pin")
+        require(_pin_blocks("matmul_emul", block) > 0, "nothing to pin")
         reset_launch_counts()
         pinned[name] = serve.generate(lm_e, params, short, short_seq,
                                       REF_GEN, return_logits=True)[1]
@@ -756,8 +890,10 @@ def measure(dev, served, int_rate):
     import torch
     import torch.nn.functional as F
     from repro_torch.core.approx import attention_div
-    from repro_torch.core.simdive import SimdiveSpec
-    from repro_torch.kernels import get_op
+    from repro_torch.kernels import (clear_autotune_cache,
+                                     export_autotune_cache, get_op,
+                                     preload_autotune_cache)
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.metrics.timing import time_callable
 
@@ -776,9 +912,24 @@ def measure(dev, served, int_rate):
     v = torch.randn(BATCH * KV, PROMPT, dh, generator=gen, device=dev
                     ).to(torch.bfloat16)
     kw = dict(causal=True, approx_div=True, frac_out=frac_out, kv_group=G)
-    att_kernel = lambda: get_op("attention", spec, "cuda")(q, k, v, **kw)
-    att_ms = gpu_graph_time_ms(att_kernel, iters=50)
-    att_eager_ms = gpu_time_ms(att_kernel, iters=50)
+    # each schedule, and the ring at every depth it takes at this shape
+    att_blocks = [fa.DEFAULT_BLOCK]
+    for depth in range(1, fa._MAX_DEPTH + 1):
+        try:
+            fa.check_block((*fa.DEFAULT_BLOCK, depth), q.dtype, dh)
+        except ValueError:
+            continue
+        att_blocks.append((*fa.DEFAULT_BLOCK, depth))
+    att_ms_by, att_eager_by = {}, {}
+    for block in att_blocks:
+        att_kernel = lambda b=block: get_op("attention", spec, "cuda",
+                                            block=b)(q, k, v, **kw)
+        att_ms_by[block] = gpu_graph_time_ms(att_kernel, iters=50)
+        att_eager_by[block] = gpu_time_ms(att_kernel, iters=50)
+        log(f"  attention block {block}: {att_ms_by[block]:.5f} ms (graph), "
+            f"{att_eager_by[block]:.5f} ms (eager)")
+    att_ms = att_ms_by[fa.DEFAULT_BLOCK]
+    ring_ms = att_ms_by[ATTENTION_RING_BLOCK]
     att_plain_ms = gpu_time_ms(lambda: get_op("attention", spec, "ref")(
         q, k, v, **kw), iters=10)
     q4 = q.reshape(BATCH, H, PROMPT, dh)
@@ -826,6 +977,18 @@ def measure(dev, served, int_rate):
     max_seq = PROMPT + GEN
     prefill_t = time_callable(lm.prefill, params, {"tokens": prompts},
                               iters=5, items=BATCH * PROMPT)
+    # the prefill with each attention schedule pinned, in turns (depth 0,
+    # ring, ring, depth 0), best of each: what the schedule moves end to end
+    tuned = export_autotune_cache()
+    pinned_prefill = {}
+    for block in (fa.DEFAULT_BLOCK, ATTENTION_RING_BLOCK,
+                  ATTENTION_RING_BLOCK, fa.DEFAULT_BLOCK):
+        _pin_blocks("attention", block)
+        t = time_callable(lm.prefill, params, {"tokens": prompts}, iters=5)
+        pinned_prefill[block] = min(pinned_prefill.get(block, t.best_s),
+                                    t.best_s)
+    clear_autotune_cache()
+    preload_autotune_cache(tuned)
     logits, cache = lm.prefill(params, {"tokens": prompts})
     cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), cache)
     tok = logits.argmax(-1)
@@ -845,6 +1008,10 @@ def measure(dev, served, int_rate):
     times = {
         "prefill_ms": prefill_t.best_s * 1e3,
         "prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
+        "prefill_ms_attention_depth0":
+            pinned_prefill[fa.DEFAULT_BLOCK] * 1e3,
+        "prefill_ms_attention_ring":
+            pinned_prefill[ATTENTION_RING_BLOCK] * 1e3,
         "decode_step_ms": step_t.best_s * 1e3,
         "decode_tok_per_s": BATCH / step_t.best_s,
         "decode_step_device_ms": step_graph_ms,
@@ -853,12 +1020,15 @@ def measure(dev, served, int_rate):
         "generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
         "first_generate_s": served["first_run_s"],
         "elemwise_eager_call_ms": ew_eager_ms,
-        "flash_attention_eager_call_ms": att_eager_ms,
+        "flash_attention_eager_call_ms": att_eager_by[fa.DEFAULT_BLOCK],
+        "flash_attention_pipelined_eager_call_ms":
+            att_eager_by[ATTENTION_RING_BLOCK],
         "attention_div_ms": fin_ms,
         "exact_div_ms": fin_exact_ms,
         "elemwise_16M_lanes_ms": ew_big_ms,
         "elemwise_16M_lanes_bound_ms": 12 * big / HBM_BYTES_PER_S * 1e3,
         "attention_tflops": att_flops / (att_ms * 1e-3) / 1e12,
+        "attention_pipelined_tflops": att_flops / (ring_ms * 1e-3) / 1e12,
     }
     kernels = [
         {"name": "elemwise", "route": "cuda",
@@ -876,10 +1046,24 @@ def measure(dev, served, int_rate):
          "shape": f"q ({BATCH * H},{PROMPT},{dh}) kv ({BATCH * KV},{PROMPT},"
                   f"{dh}) bf16 causal simdive w{spec.width} "
                   f"cb{spec.coeff_bits} fo{frac_out}",
+         "block": list(fa.DEFAULT_BLOCK),
          "ms": att_ms, "plain_ms": att_plain_ms,
          "bound_ms": max(att_ops_ms, att_bytes_ms),
          "bound_by": "operations" if att_ops_ms >= att_bytes_ms else "bytes",
          "library_ms": att_lib_ms},
+        {"name": "flash_attention_pipelined", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:175",
+         "shape": f"q ({BATCH * H},{PROMPT},{dh}) kv ({BATCH * KV},{PROMPT},"
+                  f"{dh}) bf16 causal simdive w{spec.width} "
+                  f"cb{spec.coeff_bits} fo{frac_out}",
+         "block": list(ATTENTION_RING_BLOCK),
+         "ms": ring_ms, "plain_ms": att_plain_ms,
+         "bound_ms": max(att_ops_ms, att_bytes_ms),
+         "bound_by": "operations" if att_ops_ms >= att_bytes_ms else "bytes",
+         "library_ms": att_lib_ms,
+         "ms_by_depth": {str(b[2]): t for b, t in att_ms_by.items()
+                         if len(b) == 3}},
     ]
     return kernels, times
 
@@ -1050,7 +1234,7 @@ def main(argv=None) -> int:
     log("[3/5] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
-    att_err, att_worst = check_attention(dev)
+    att_errs = check_attention(dev)
     mm_err, mm_plain_ms = check_logmatmul(dev)
 
     log("[4/5] main path: smollm-360m full width, batch "
@@ -1074,22 +1258,30 @@ def main(argv=None) -> int:
     times.update(measure_emulate(served_e, served["params"],
                                  served["prompts"]))
     counts, counts_e = served["counts"], served_e["counts"]
-    for kern, name, n, err in (
-            (kernels[0], "elemwise", counts["elemwise"], ew_err),
-            (kernels[1], "attention", counts["attention"], att_err),
-            (kernels[2], "logmatmul", counts_e["matmul"], mm_err),
-            (kernels[3], "logmatmul_pipelined", counts_e["matmul_pipelined"],
-             mm_err)):
+    pinned = served["pinned_counts"]
+    for kern, n, err in (
+            (kernels[0], counts["elemwise"], ew_err),
+            (kernels[3], counts_e["matmul"], mm_err),
+            (kernels[4], counts_e["matmul_pipelined"], mm_err)):
         kern["launches"] = n
         kern["max_abs_err"] = err
-    for kern in kernels[:2]:
+    # attention: the autotuned divider-only run plus the full-width run
+    # pinned to the row's schedule, each zeroed just before and read just
+    # after, so that a schedule the autotune did not pick still shows on
+    # the path. max_abs_err is taken at the main path's shape; the worst
+    # over every other case of phase 3 stands beside it.
+    for kern, name, tag in ((kernels[1], "attention", ""),
+                            (kernels[2], "attention_pipelined", "pipe_")):
+        kern["launches_autotuned"] = counts[name]
+        kern["launches_pinned"] = pinned[name][name]
+        kern["launches"] = counts[name] + pinned[name][name]
+        kern["max_abs_err"] = att_errs[tag + "main"]
+        kern["max_abs_err_all_cases"] = att_errs[tag + "all"]
+    for kern in kernels[:3]:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
-    require(kernels[2]["launches"] + kernels[3]["launches"]
+    require(kernels[3]["launches"] + kernels[4]["launches"]
             == 7 * 32 * GEN, "logmatmul launches on the emulate path")
-    # max_abs_err is taken at the main path's shape; the worst over every
-    # other case of phase 3 stands beside it
-    kernels[1]["max_abs_err_all_cases"] = att_worst
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
     total_s = time.perf_counter() - t_start

@@ -6,10 +6,13 @@ Layering:
                       log -> correct -> antilog datapath, host side
   csrc/simdive_datapath.cuh   the same stages, device side, included by
                       every kernel
+  csrc/cp_async.cuh   cp.async copy / commit / wait helpers shared by the
+                      ring schedules
   elemwise.py         fused elementwise mul/div/mixed: wrapper + plain
                       version (kernel: csrc/elemwise.cu)
   flash_attention.py  online-softmax attention whose finalize runs the
-                      SIMDive divider: wrapper + plain version
+                      SIMDive divider, depth-0 and cp.async kv-ring
+                      schedules: wrappers + plain version
                       (kernel: csrc/flash_attention.cu)
   logmatmul.py        signed int32 matmul with SIMDive products, depth-0
                       and cp.async-ring schedules: wrappers + plain version

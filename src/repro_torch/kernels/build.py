@@ -118,6 +118,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_flash_attention.argtypes = (
         [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, p])
     lib.simdive_flash_attention.restype = i
+    lib.simdive_flash_attention_pipelined.argtypes = (
+        [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, i, p])
+    lib.simdive_flash_attention_pipelined.restype = i
     lib.simdive_softmax_div.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i,
                                         f, p]
     lib.simdive_softmax_div.restype = i

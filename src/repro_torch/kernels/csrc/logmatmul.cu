@@ -55,9 +55,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "simdive_datapath.cuh"
 
 namespace {
+
+using simdive::cp_async4;
+using simdive::cp_async_commit;
+using simdive::cp_async_wait;
 
 // Encoded operand word:
 //   bits  0..19  log value L = (k << F) | frac  (< 2^19 at width 16)
@@ -121,29 +126,6 @@ __device__ __forceinline__ void slab_products(const uint32_t* xs,
         for (int j = 0; j < TN; ++j)
           acc[i][j] += signed_product<W>(a[i], b[j], tab, round_out);
     }
-  }
-}
-
-// ---- cp.async (sm_80+), 4-byte copies with zero fill ----
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait_group takes an immediate: the ring depth is at most 4
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
 

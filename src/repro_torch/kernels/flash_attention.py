@@ -17,6 +17,23 @@ callers need not materialise the repeat.
 exponent field (``torch.frexp`` here, the exponent bits in the kernel), so
 kernel and plain version agree exactly on the row scale; two ``log2``
 implementations may differ in the last place just below a power of two.
+
+**Blocks.** A launch shape is ``(q_chunk, kv_chunk)`` or ``(q_chunk,
+kv_chunk, depth)`` as in the reference: ``depth`` 0 loads each kv tile
+synchronously, ``D >= 1`` streams k/v tiles through a ``D``-slot
+``cp.async`` ring (the reference's ``_kernel_pipelined``); every depth is
+bit-identical to depth 0. The kernel is compiled for one tile, 64 q rows x
+64 kv rows (:data:`TILES`). The reference's TPU blocks (256..1024 rows) are
+not carried over: one 512 x 512 f32 score tile alone is 1 MB, against the
+227 KB of shared memory an H100 block may have. The ring's shared memory
+grows with the depth, the dtype and d_head (:func:`smem_bytes`); a block is
+checked against the compiled tile, the depth limit and that memory for the
+call's dtype and d_head before any launch (:func:`check_block`), and the
+registry's candidates are checked for the worst case, f32 at d_head 128.
+
+Each schedule's wrapper counts its own launches
+(``flash_attention_cuda`` for depth 0, ``flash_attention_pipelined_cuda``
+for the ring), so a run's launch counts show which schedule served it.
 """
 from __future__ import annotations
 
@@ -31,9 +48,11 @@ from repro_torch.core.simdive import SimdiveSpec
 from . import build
 from . import datapath as dp
 
-__all__ = ["DEFAULT_DIV_SPEC", "DEFAULT_FRAC_OUT",
+__all__ = ["DEFAULT_DIV_SPEC", "DEFAULT_FRAC_OUT", "TILES", "DEFAULT_BLOCK",
+           "BLOCK_CANDIDATES", "split_block", "smem_bytes", "check_block",
            "softmax_div_quantize", "softmax_div_lanes", "softmax_div",
-           "flash_attention_ref", "flash_attention_cuda", "softmax_div_cuda"]
+           "flash_attention_ref", "flash_attention_cuda",
+           "flash_attention_pipelined_cuda", "softmax_div_cuda"]
 
 #: divider config the attention op resolves to when no policy overrides it:
 #: width 16 + frac_out 15 keeps every anti-log shift < 32
@@ -41,6 +60,64 @@ DEFAULT_DIV_SPEC = SimdiveSpec(width=16, coeff_bits=8, index_bits=3)
 DEFAULT_FRAC_OUT = 15
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+
+#: (q_chunk, kv_chunk) tiles compiled into csrc/flash_attention.cu (its BQ,
+#: BK): 256 threads, a 4 x 4 score micro-tile each
+TILES = frozenset({(64, 64)})
+DEFAULT_BLOCK = (64, 64)
+#: the autotune's choices: depth 0 and the 2-slot ring. A deeper ring does
+#: not fit the worst case the wrapper takes (f32, d_head 128: depth 3 needs
+#: 247,808 bytes); the wrapper still runs depths up to 4 where they fit.
+BLOCK_CANDIDATES = ((64, 64), (64, 64, 2))
+#: shared memory a block may use on Hopper, less the kernel's static
+#: divider table (256 ints)
+_SMEM_LIMIT = 232448 - 256 * 4
+_MAX_DEPTH = 4                 # cp.async.wait_group takes an immediate
+_COPY_BYTES = 4                # the ring's cp.async copy size
+
+
+def split_block(block) -> tuple[tuple[int, int], int]:
+    """``((q_chunk, kv_chunk), depth)`` of a 2- or 3-tuple block; the
+    2-tuple means the depth-0 schedule."""
+    if len(block) not in (2, 3):
+        raise ValueError(f"an attention block has 2 or 3 components, got "
+                         f"{block}")
+    depth = int(block[2]) if len(block) == 3 else 0
+    return (int(block[0]), int(block[1])), depth
+
+
+def smem_bytes(block, dtype=torch.float32, dh: int = 128) -> int:
+    """Dynamic shared memory of one CUDA block (csrc/flash_attention.cu's
+    ``smem_bytes`` / ``smem_bytes_pipe``). Depth 0: f32 q, k (rows padded
+    by one word), v and p tiles. Depth D: f32 q and p tiles plus D ring
+    slots of raw k and v rows in ``dtype``, each row padded by one 4-byte
+    word."""
+    (bq, bk), depth = split_block(block)
+    if not depth:
+        return 4 * (bq * (dh + 1) + bk * (dh + 1) + bk * dh + bq * (bk + 1))
+    item = torch.finfo(dtype).bits // 8
+    stride = dh + _COPY_BYTES // item
+    return 4 * (bq * (dh + 1) + bq * (bk + 1)) + depth * 2 * bk * stride * item
+
+
+def check_block(block, dtype=torch.float32, dh: int = 128):
+    """Raise ``ValueError`` unless the kernel can run ``block`` on
+    ``dtype`` q/k/v of head size ``dh`` (by default the worst case the
+    wrapper takes). Returns ``((q_chunk, kv_chunk), depth)``."""
+    tile, depth = split_block(block)
+    if tile not in TILES:
+        raise ValueError(f"attention block {tuple(block)}: (q_chunk, "
+                         f"kv_chunk) = {tile} is not a compiled tile "
+                         f"{sorted(TILES)}")
+    if not 0 <= depth <= _MAX_DEPTH:
+        raise ValueError(f"attention block {tuple(block)}: depth must be in "
+                         f"[0, {_MAX_DEPTH}]")
+    need = smem_bytes(block, dtype, dh)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"attention block {tuple(block)} needs {need} bytes "
+                         f"of shared memory for {dtype} at d_head {dh}, more "
+                         f"than the {_SMEM_LIMIT} an H100 block can have")
+    return tile, depth
 
 
 # ---------------------------------------------------------------- divider --
@@ -151,18 +228,8 @@ def _check_cuda(name: str, **tensors) -> None:
                              "not on a CUDA device")
 
 
-def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
-                         causal=True, window=0, approx_div=False,
-                         frac_out=DEFAULT_FRAC_OUT, q_offset=0, kv_len=None,
-                         kv_group: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel. Same arguments as :func:`flash_attention_ref`.
-
-    The kernel is compiled for one tile (64 q rows per block, 64 kv rows per
-    step), so there is no launch shape to choose. Launches on the current stream and does not synchronise; the ragged
-    edges of Sq and Skv are masked in the kernel. Raises on CPU tensors, on
-    what the kernel does not take (dtype other than f32 / bf16, d_head other
-    than 64 / 128, width 32) and on a failed build or launch.
-    """
+def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
+            q_offset, kv_len, kv_group, block) -> torch.Tensor:
     _check_cuda("flash_attention", q=q, k=k, v=v)
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
         raise ValueError(f"expected q (BH,Sq,dh), k/v (BH/G,Skv,dh); got "
@@ -179,31 +246,93 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
     if dh not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel is compiled for d_head in "
                          f"{_HEAD_DIMS}, got {dh}")
+    _, depth = check_block(block, q.dtype, dh)
     check_width(spec.width)
     if not 0 <= frac_out <= 31:
         raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
     if kv_len is None:
         kv_len = Skv
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if depth:
+        for name, t in (("k", k), ("v", v)):
+            if t.data_ptr() % _COPY_BYTES:
+                raise ValueError(
+                    f"flash_attention ring: {name} starts at address "
+                    f"{t.data_ptr():#x}, not {_COPY_BYTES}-byte aligned as "
+                    "its cp.async copies need")
     tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
                     device=q.device, dtype=torch.int32)
     out = torch.empty_like(q)
     lib = build.load()
-    with torch.cuda.device(q.device):
-        code = lib.simdive_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             tab.data_ptr(), tab.numel(), BH, Sq, Skv, dh, _DTYPES[q.dtype],
             int(kv_group), int(kv_len), int(q_offset), int(bool(causal)),
             int(window), int(bool(approx_div)), dh ** -0.5, spec.width,
             spec.index_bits, int(frac_out), int(spec.round_output),
-            lane_max_float(spec.width), build.current_stream())
-    build.check(code, "simdive_flash_attention")
+            lane_max_float(spec.width))
+    with torch.cuda.device(q.device):
+        if depth:
+            entry = "simdive_flash_attention_pipelined"
+            code = lib.simdive_flash_attention_pipelined(
+                *args, depth, build.current_stream())
+        else:
+            entry = "simdive_flash_attention"
+            code = lib.simdive_flash_attention(*args, build.current_stream())
+    build.check(code, entry)
+    return out
+
+
+def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
+                         causal=True, window=0, approx_div=False,
+                         frac_out=DEFAULT_FRAC_OUT, q_offset=0, kv_len=None,
+                         kv_group: int = 1,
+                         block=DEFAULT_BLOCK) -> torch.Tensor:
+    """Launch the CUDA kernel. Same arguments as :func:`flash_attention_ref`
+    plus ``block``, ``(64, 64)`` or ``(64, 64, depth)``: depth 0 runs (and
+    counts) here, ``>= 1`` goes to :func:`flash_attention_pipelined_cuda`.
+
+    Launches on the current stream and does not synchronise; the ragged
+    edges of Sq and Skv are masked in the kernel. Raises on CPU tensors, on
+    what the kernel does not take (dtype other than f32 / bf16, d_head other
+    than 64 / 128, width 32, a block that is not compiled or whose ring does
+    not fit for this dtype and d_head) and on a failed build or launch — it
+    never gives way to another schedule or to the plain version.
+    """
+    if split_block(block)[1]:
+        return flash_attention_pipelined_cuda(
+            q, k, v, spec=spec, causal=causal, window=window,
+            approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
+            kv_len=kv_len, kv_group=kv_group, block=block)
+    out = _launch(q, k, v, spec=spec, causal=causal, window=window,
+                  approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
+                  kv_len=kv_len, kv_group=kv_group, block=block)
     flash_attention_cuda.launches += 1
     return out
 
 
-#: kernel launches made through the wrapper (read by chip_smoke.py)
+def flash_attention_pipelined_cuda(q, k, v, *, block,
+                                   spec: SimdiveSpec = DEFAULT_DIV_SPEC,
+                                   causal=True, window=0, approx_div=False,
+                                   frac_out=DEFAULT_FRAC_OUT, q_offset=0,
+                                   kv_len=None,
+                                   kv_group: int = 1) -> torch.Tensor:
+    """The ``cp.async`` kv-ring schedule (``block`` depth >= 1);
+    bit-identical to the depth-0 schedule at every depth. k and v must be
+    4-byte aligned once contiguous."""
+    if not split_block(block)[1]:
+        raise ValueError(f"block {tuple(block)} has depth 0: that is "
+                         "flash_attention_cuda's schedule")
+    out = _launch(q, k, v, spec=spec, causal=causal, window=window,
+                  approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
+                  kv_len=kv_len, kv_group=kv_group, block=block)
+    flash_attention_pipelined_cuda.launches += 1
+    return out
+
+
+#: kernel launches made through each schedule's wrapper (read by
+#: chip_smoke.py)
 flash_attention_cuda.launches = 0
+flash_attention_pipelined_cuda.launches = 0
 
 
 def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,

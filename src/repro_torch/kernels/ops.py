@@ -40,13 +40,15 @@ def _attention_ref(q, k, v, *, spec, causal=True, window=0, approx_div=True,
         kv_group=kv_group)
 
 
-def _attention_cuda(q, k, v, *, spec, causal=True, window=0,
+def _attention_cuda(q, k, v, *, spec, block, causal=True, window=0,
                     approx_div=True, frac_out=DEFAULT_FRAC_OUT, q_offset=0,
                     kv_group=1):
+    # block: (q_chunk, kv_chunk[, depth]) as in the reference; the tile is
+    # the port's own (flash_attention.check_block)
     return _fa.flash_attention_cuda(
         q, k, v, spec=spec, causal=causal, window=window,
         approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
-        kv_group=kv_group)
+        kv_group=kv_group, block=block)
 
 
 # ------------------------------------------------------------- matmul_int --
@@ -113,8 +115,17 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
             default_block=_ew.DEFAULT_BLOCK,
             kernels={"elemwise": _ew.elemwise_cuda})
+# attention blocks are (q_chunk, kv_chunk[, depth]); depth >= 1 runs the
+# cp.async kv ring (bit-identical output). Each candidate is checked for the
+# worst case the kernel takes (f32, d_head 128) when it is registered.
+for _block in (_fa.DEFAULT_BLOCK, *_fa.BLOCK_CANDIDATES):
+    _fa.check_block(_block)
 register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
-            kernels={"attention": _fa.flash_attention_cuda})
+            default_block=_fa.DEFAULT_BLOCK,
+            block_candidates=_fa.BLOCK_CANDIDATES,
+            kernels={"attention": _fa.flash_attention_cuda,
+                     "attention_pipelined":
+                         _fa.flash_attention_pipelined_cuda})
 # matmul blocks carry k_unroll as a 4th and the pipeline depth as a 5th
 # component; each candidate is checked against the compiled tiles and the
 # shared-memory limit here, when it is registered
@@ -142,15 +153,17 @@ def simdive_attention(q, k, v, spec: SimdiveSpec | None = None, *,
                       causal: bool = True, window: int = 0,
                       approx_div: bool = True,
                       frac_out: int = DEFAULT_FRAC_OUT, q_offset: int = 0,
-                      kv_group: int = 1, backend: str = "auto"):
+                      kv_group: int = 1, backend: str = "auto", block=None):
     """Flash attention with the SIMDive softmax divider.
 
     q: (BH, Sq, dh); k, v: (BH / kv_group, Skv, dh) — heads flattened.
     ``spec`` picks the divider config (defaults to the width-16 attention
-    divider).
+    divider). ``block`` ``(q_chunk, kv_chunk[, depth])`` picks the kernel's
+    schedule; None autotunes over the registered candidates. The plain
+    version (CPU tensors) ignores it.
     """
     spec = DEFAULT_DIV_SPEC if spec is None else spec
-    return get_op("attention", spec, backend)(
+    return get_op("attention", spec, backend, block=block)(
         q, k, v, causal=causal, window=window, approx_div=approx_div,
         frac_out=frac_out, q_offset=q_offset, kv_group=kv_group)
 

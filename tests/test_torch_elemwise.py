@@ -22,6 +22,7 @@ from repro_torch.kernels import (
     resolve_backend,
     simdive_elemwise,
 )
+from repro_torch.kernels import registry
 from repro_torch.kernels.registry import shape_bucket
 
 torch.set_num_threads(1)
@@ -98,19 +99,28 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="backend 'cuda' was given a tensor"):
         get_op("elemwise", spec, "cuda")(a, a, op="mul")
     # nothing on this host launched a kernel
-    assert launch_counts() == {"attention": 0, "elemwise": 0, "matmul": 0,
+    assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0}
 
 
 def test_registry_surface():
     # one count per kernel schedule; both matmul ops share the logmatmul ones
-    assert sorted(launch_counts()) == ["attention", "elemwise", "matmul",
+    assert sorted(launch_counts()) == ["attention", "attention_pipelined",
+                                       "elemwise", "matmul",
                                        "matmul_pipelined"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
-    # the attention kernel is compiled for one tile: no launch shape to pass
-    assert get_op("attention", TSpec()).entry.default_block is None
-    with pytest.raises(ValueError, match="takes no block="):
-        get_op("attention", TSpec(), block=(32, 32))
+    # attention takes (q_chunk, kv_chunk[, depth]) blocks
+    assert get_op("attention", TSpec()).entry.default_block == (64, 64)
+    assert get_op("attention", TSpec(), block=(64, 64, 2)).block == \
+        (64, 64, 2)
+    # an op registered without a default block takes no launch shape
+    registry.register_op("one_tile", ref=lambda x, *, spec: x)
+    try:
+        with pytest.raises(ValueError, match="takes no block="):
+            get_op("one_tile", TSpec(), block=(32, 32))
+    finally:
+        del registry._REGISTRY["one_tile"]
     assert shape_bucket((3, 100, 64)) == (4, 128, 64)
     assert get_op("matmul_emul", TSpec()).entry.default_block == \
         (64, 64, 32, 4, 0)

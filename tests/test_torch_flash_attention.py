@@ -212,6 +212,95 @@ def test_attention_div_matches_reference(policy_only):
         assert np.abs(got.numpy() - acc / l[..., None]).max() > 1e-4
 
 
+# ------------------------------------------------ the pipelined schedule --
+RING_CASES = {
+    # Sq, Skv not multiples of the reference's 32-row chunks (padded inside)
+    "ragged": (dict(causal=False, window=0, q_offset=0), (1, 72, 88, 16)),
+    "masked": (dict(causal=True, window=24, q_offset=8), (1, 64, 72, 16)),
+}
+
+
+@pytest.mark.parametrize("approx_div", [False, True])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_ring_blocks_match_reference_pipelined_kernel(depth, case,
+                                                      approx_div):
+    """The reference's ``_kernel_pipelined`` (block (32, 32, depth), Pallas
+    interpret mode) against the port's op and ``simdive_attention`` given
+    the port's ring block (64, 64, depth): on CPU tensors the block is
+    ignored and the plain version runs, which the reference's pipelined
+    kernel must match within the file's tolerances."""
+    mask, (BH, Sq, Skv, dh) = RING_CASES[case]
+    q, k, v = _qkv(BH, Sq, Skv, dh, seed=20 + depth)
+    tol = APPROX_TOL if approx_div else EXACT_TOL
+    want = np.asarray(r_get_op("attention", r_fa.DEFAULT_DIV_SPEC, "pallas",
+                               block=(32, 32, depth))(
+        *_j(q, k, v), approx_div=approx_div, **mask))
+    block = (64, 64, depth)
+    via_op = get_op("attention", t_fa.DEFAULT_DIV_SPEC, "ref", block=block)(
+        *_t(q, k, v), approx_div=approx_div, **mask)
+    via_shim = simdive_attention(*_t(q, k, v), approx_div=approx_div,
+                                 block=block, **mask)
+    np.testing.assert_allclose(via_op.numpy(), want, **tol)
+    assert torch.equal(via_shim, via_op)
+    assert torch.equal(via_op, simdive_attention(
+        *_t(q, k, v), approx_div=approx_div, **mask))
+
+
+def test_attention_op_registers_blocks_and_check_block_refuses():
+    """Default (64, 64) plus the candidates the autotune times; each passes
+    ``check_block`` for the worst case the wrapper takes (f32, d_head 128);
+    a tile that is not compiled, a depth above 4 and a ring that does not
+    fit are refused."""
+    entry = get_op("attention", t_fa.DEFAULT_DIV_SPEC).entry
+    assert entry.default_block == t_fa.DEFAULT_BLOCK == (64, 64)
+    assert entry.block_candidates == ((64, 64), (64, 64, 2))
+    assert set(entry.kernels) == {"attention", "attention_pipelined"}
+    assert entry.kernels["attention_pipelined"] is \
+        t_fa.flash_attention_pipelined_cuda
+    for block in (entry.default_block, *entry.block_candidates):
+        assert t_fa.check_block(block) == ((64, 64), len(block) == 3 and 2)
+    assert get_op("attention", t_fa.DEFAULT_DIV_SPEC, "cuda",
+                  block=(64, 64, 2)).block == (64, 64, 2)
+    # the reference's TPU blocks are not compiled tiles
+    for block in ((32, 32), (512, 512), (512, 512, 2), (1024, 512, 2)):
+        with pytest.raises(ValueError, match="not a compiled tile"):
+            t_fa.check_block(block)
+    with pytest.raises(ValueError, match="depth must be in"):
+        t_fa.check_block((64, 64, 5), torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="2 or 3 components"):
+        t_fa.check_block((64,))
+    # the ring's shared memory: f32 at d_head 128 fits depth 2, not 3
+    assert t_fa.smem_bytes((64, 64, 2)) == 181760
+    assert t_fa.smem_bytes((64, 64, 3)) == 247808
+    with pytest.raises(ValueError, match="shared memory"):
+        t_fa.check_block((64, 64, 3))
+    with pytest.raises(ValueError, match="shared memory"):
+        t_fa.check_block((64, 64, 4), torch.float32, 128)
+    # ... while bf16 at d_head 64 (the serving shape) fits every depth
+    for depth in range(1, 5):
+        t_fa.check_block((64, 64, depth), torch.bfloat16, 64)
+    assert t_fa.smem_bytes((64, 64, 2), torch.bfloat16, 64) == 67072
+    assert t_fa.smem_bytes((64, 64), torch.bfloat16, 64) == 66304
+
+
+def test_pipelined_wrapper_refuses_cpu_tensors_and_depth0_blocks():
+    q, k, v = _t(*_qkv(2, 8, 8, 64, seed=18))
+    t_fa.flash_attention_cuda.launches = 0
+    t_fa.flash_attention_pipelined_cuda.launches = 0
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        t_fa.flash_attention_pipelined_cuda(q, k, v, block=(64, 64, 2))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        t_fa.flash_attention_cuda(q, k, v, block=(64, 64, 2))
+    with pytest.raises(ValueError, match="has depth 0"):
+        t_fa.flash_attention_pipelined_cuda(q, k, v, block=(64, 64))
+    with pytest.raises(ValueError, match="backend 'cuda' was given"):
+        get_op("attention", TSpec(width=16, coeff_bits=8), "cuda",
+               block=(64, 64, 2))(q, k, v)
+    assert t_fa.flash_attention_pipelined_cuda.launches == 0
+    assert t_fa.flash_attention_cuda.launches == 0
+
+
 def test_attention_wrappers_refuse_cpu_tensors_and_bad_shapes():
     q, k, v = _t(*_qkv(2, 8, 8, 64, seed=16))
     with pytest.raises(ValueError, match="not on a CUDA device"):

@@ -57,6 +57,30 @@ def test_every_package_module_is_covered():
             "flash_attention.cu", "logmatmul.cu"} <= csrc
 
 
+def test_launch_counts_name_every_schedule():
+    """One count per kernel schedule: both attention schedules beside the
+    elemwise and the two matmul ones."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "elemwise": 0, "matmul": 0,
+                               "matmul_pipelined": 0}
+
+
+def test_ring_kernels_share_the_cp_async_header():
+    """Both ring schedules include one cp.async header; neither keeps a
+    copy of its helpers."""
+    csrc = PKG / "kernels" / "csrc"
+    header = (csrc / "cp_async.cuh").read_text()
+    for helper in ("cp_async4", "cp_async_commit", "cp_async_wait"):
+        assert f"void {helper}(" in header
+    for name in ("logmatmul.cu", "flash_attention.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "cp_async.cuh"' in text, name
+        assert "asm volatile(\"cp.async" not in text, name
+
+
 def _run(code: str, **env):
     full_env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), **env}
     return subprocess.run([sys.executable, "-c", code], env=full_env,

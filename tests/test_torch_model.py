@@ -272,7 +272,8 @@ def test_serving_plan_and_cli_on_cpu(capsys):
     assert t_serve.serving_config(ARCH, approx="simdive",
                                   emulate=True).approx.emulate
     # on the CPU nothing launched a kernel
-    assert launch_counts() == {"attention": 0, "elemwise": 0, "matmul": 0,
+    assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0}
     for flag in ("--scheduler", "--chaos"):
         with pytest.raises(SystemExit):
