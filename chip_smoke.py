@@ -30,8 +30,30 @@ any phase fails. Phases:
               the four (K, N) of smollm-360m's linears at M = 2048 and 4,
               plus ragged shapes, zeros, INT32_MIN, width-16 wrapping sums
               and Mitchell; ``matmul_emul`` bit-equal to its int64 plain
-              version where int32 cannot overflow.
-4. serve    — the main path at the full width of smollm-360m: batch 4,
+              version where int32 cannot overflow; ``packed`` (4 x 8-bit /
+              2 x 16-bit lanes a word) ``torch.equal`` to ``packed_ref`` for
+              its registered block: the exhaustive 8-bit square (zeros
+              included) at each of the four lane positions for mul, div
+              (frac_out 0 / 4 / 8) and mixed, > 1 M stratified width-16
+              pairs, the error sweep's (64, 64) words, ragged, 1-D, one-word
+              and unaligned word tensors with mode lanes nonzero only in
+              their high bits; its lanes equal to the elemwise kernel's
+              masked to 16 bits; frac_out 9 at width 8 and a CPU tensor
+              refused before any launch.
+4. paths    — the packed path through the port's entry points, with the
+              launch counts zeroed just before and read just after:
+              ``tuning.frontier.measure_error(kernel="packed")`` on the card
+              for mul and div at width 8, coeff_bits 0 and 6, and the BENCH
+              grid's mixed rows (``benchmarks/run.py`` ``_run_packed``,
+              mirrored here with the port's ``pack`` / ``sample_uints`` /
+              ``error_stats``): all six error objects must equal the
+              committed ``BENCH_simdive.json`` packed rows to 1e-12
+              relative; then ``simdive_packed`` at Table 3's size (256, 1024)
+              words and at (17280, 960) words — eight 3840 x 2160 8-bit
+              frames — for mul, div and mixed: the ``packed`` count must
+              move by exactly the calls made, and every result, at both
+              sizes, must equal the plain version's on the same operands.
+              Then the serving path at the full width of smollm-360m: batch 4,
               prompt 512, 32 greedy tokens, random weights from a seed,
               through ``launch.serve.generate``, twice:
               (a) ``--approx simdive`` (divider only), after one generate
@@ -59,7 +81,10 @@ any phase fails. Phases:
 5. times    — prefill (also with each attention schedule pinned, in
               turns), decode step, generate for (a) and (b), and each
               kernel at the main path's shapes beside its bound, its plain
-              version and — for attention — one
+              version (``packed``: at both sizes of phase 4, for each op,
+              at 128, 256 and 512 threads a block, beside the elemwise
+              kernel and an exact ``torch.mul`` on the same lanes unpacked)
+              and — for attention — one
               ``scaled_dot_product_attention`` call as the yardstick (timed
               here; the port never calls it) — attention for each
               schedule and ring depth —, and the number of kernels one
@@ -118,6 +143,41 @@ LOGMATMUL_OPS_PER_OPERAND = 11
 # test, negate, clip at 31, 1 << (n - 1), rounding add, shift) 6, x / 0 and
 # 0 / x selects 2.
 ELEMWISE_OPS_PER_LANE = 32
+# One packed lane at width 8 with rounding, per op: lane expand, a and b,
+# one byte extract each (one PRMT, __byte_perm(w, 0, 0x444i), gives the
+# zero-extended byte) 2 (3 with a mode word); two LOD + log conversions
+# 2 x 6; region index 5; zero tests 2; coefficient select 1; then
+#   mul:   ternary add la + lb + corr 1 (IADD3), clip at 0 1, ls >> F 1,
+#          mantissa 1, saturation test 1, the anti-log shift (direction
+#          test, shift amount, shift) 3 — products of uniform 8-bit
+#          operands mostly shift left, with no rounding add —, zero
+#          select 1;
+#   div:   ternary subtract 1, ls >> F 1, mantissa 1, shift amount
+#          I + frac_out - F 1, the shift (direction test, clip at 31,
+#          shift) 3 — at frac_out 8, 3/4 of uniform quotients shift left —,
+#          x / 0 and 0 / x selects 2;
+#   mixed: the mode test 1 and one of the two tails (9 either way);
+# and the repack onto the 16-bit output lanes: one PRMT
+# (__byte_perm(r0, r1, 0x5410)) masks and merges two results into an output
+# word, 0.5 a lane.
+PACKED_OPS_PER_LANE = {"mul": 2 + 12 + 5 + 2 + 1 + 9 + 0.5,         # 31.5
+                       "div": 2 + 12 + 5 + 2 + 1 + 9 + 0.5,         # 31.5
+                       "mixed": 3 + 12 + 5 + 2 + 1 + 1 + 9 + 0.5}   # 33.5
+# device-memory bytes a 4-lane word at width 8 must move: a, b and two
+# output words; a mode word adds 4
+PACKED_BYTES_PER_WORD = {"mul": 16, "div": 16, "mixed": 20}
+# the packed path's sizes in uint32 words: Table 3's own
+# (benchmarks/table3_simd.py: 1 M 8-bit lanes) and a full-card one, eight
+# 3840 x 2160 8-bit frames (66.4 M lanes) — the paper's Fig. 3 per-pixel
+# blending at UHD video size
+PACKED_SIZES = {"table3": (256, 1024), "full": (17280, 960)}
+# threads per block timed at both sizes (the op registers 256 alone)
+PACKED_BLOCK_SWEEP = ((128,), (256,), (512,))
+# the committed BENCH packed rows are held to the kernel path's error
+# objects: bit-equal lanes give the same float64 statistics, so exact
+# equality is expected; 1e-12 relative allows only a float64 summation
+# order the numpy version might change
+BENCH_REL_TOL = 1e-12
 
 # ---- tolerances, kernel vs plain version on the same inputs (on the GPU) --
 # float32, exact divide: online softmax over 64-wide kv tiles vs a dense
@@ -584,6 +644,337 @@ def check_logmatmul(dev):
                 "the int64 plain version")
     log("  matmul_emul: kernel path bit-equal to the int64 plain version")
     return float(worst), plain_ms
+
+
+def _packed_hi_mode(gen, dev, shape, width):
+    """Packed mode words whose nonzero lanes are nonzero only in their high
+    bit (0x80 / 0x8000): a kernel that tested bit 0 would divide there."""
+    import torch
+    from repro_torch.core.simd_pack import pack
+
+    lpw = 32 // width
+    sel = torch.randint(0, 2, (*shape, lpw), generator=gen, device=dev)
+    return pack((sel << (width - 1)).reshape(*shape[:-1], -1), width)
+
+
+def _packed_err(got, want, width) -> tuple[int, int]:
+    """(uint32 words that differ, largest |kernel lane - plain lane|) of two
+    packed outputs; their lanes are 2 * width bits (16 two to a word at
+    width 8, one 32-bit lane a word at width 16)."""
+    import torch
+    from repro_torch.core.mitchell import from_lanes
+    from repro_torch.core.simd_pack import unpack
+
+    require(got.dtype == torch.uint32 and got.shape == want.shape,
+            f"packed: dtype/shape {got.dtype} {tuple(got.shape)}, expected "
+            f"uint32 {tuple(want.shape)}")
+    nbad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if width == 8:
+        got, want = unpack(got, 16), unpack(want, 16)
+    diff = (from_lanes(got) - from_lanes(want)).abs()
+    return nbad, int(diff.max()) if diff.numel() else 0
+
+
+def check_packed(dev) -> tuple[int, int]:
+    """The packed kernel vs ``packed_ref``, ``torch.equal`` for every
+    registered block. Returns the number of (case, block) runs and the
+    largest |kernel lane - plain lane| found (0 when all are equal)."""
+    import torch
+    from repro_torch.core.mitchell import from_lanes
+    from repro_torch.core.simd_pack import pack, unpack
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import elemwise as ew
+    from repro_torch.kernels import packed_simd as ps
+    from repro_torch.metrics import (PACKED_DIV_FRAC_OUT, grid8,
+                                     sample_uints, stratified_pairs)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    entry = get_op("packed", SimdiveSpec()).entry
+    blocks = entry.block_candidates or (entry.default_block,)
+    runs, worst = 0, 0
+
+    def run(name, aw, bw, spec, **kw):
+        nonlocal runs, worst
+        want = ps.packed_ref(aw, bw, spec, **kw)
+        for block in blocks:
+            got = ps.packed_cuda(aw, bw, spec, block=block, **kw)
+            torch.cuda.synchronize()
+            nbad, err = _packed_err(got, want, spec.width)
+            worst = max(worst, err)
+            require(nbad == 0, f"packed {name} block {block}: {nbad} of "
+                               f"{want.numel()} words differ from packed_ref "
+                               f"(largest lane error {err})")
+            runs += 1
+
+    def words(lanes, width):
+        return pack(lanes.to(dev), width)
+
+    # every 8-bit pair, zeros included, as (64, 256) words, rotated so each
+    # pair sits at every lane position across the four shifts
+    A, B = (torch.from_numpy(x) for x in grid8(include_zero=True))
+    s8 = SimdiveSpec(width=8, coeff_bits=6)
+    for shift in range(4):
+        aw = words(A.roll(shift).reshape(64, -1), 8)
+        bw = words(B.roll(shift).reshape(64, -1), 8)
+        mw = _packed_hi_mode(gen, dev, tuple(aw.shape), 8)
+        run(f"w8 square shift {shift} mul", aw, bw, s8, op="mul")
+        for fo in (0, 4, 8):
+            run(f"w8 square shift {shift} div fo{fo}", aw, bw, s8, op="div",
+                frac_out=fo)
+        run(f"w8 square shift {shift} mixed", aw, bw, s8, op="mixed",
+            mode=mw, frac_out=8)
+    aw, bw = words(A.reshape(64, -1), 8), words(B.reshape(64, -1), 8)
+    s8m = SimdiveSpec(width=8, coeff_bits=0, round_output=False)
+    run("w8 square mitchell mul", aw, bw, s8m, op="mul")
+    run("w8 square mitchell div fo8", aw, bw, s8m, op="div", frac_out=8)
+    log(f"  packed: exhaustive 8-bit square at four lane positions "
+        f"bit-equal ({runs} runs over {len(blocks)} blocks)")
+
+    # packed lanes = the elemwise kernel's lanes masked to 16 bits
+    a8, b8 = A.to(dev), B.to(dev)
+    for op, fo in (("mul", 0), ("div", 8)):
+        lanes = unpack(ps.packed_cuda(aw, bw, s8, op=op, frac_out=fo), 16)
+        elem = ew.elemwise_cuda(a8, b8, s8, op=op, frac_out=fo)
+        torch.cuda.synchronize()
+        require(torch.equal(from_lanes(lanes).reshape(-1),
+                            from_lanes(elem) & 0xFFFF),
+                f"packed {op} lanes differ from the elemwise kernel's")
+
+    # width 16: > 1 M stratified pairs plus every zero / edge pair
+    sa, sb = (torch.from_numpy(x) for x in stratified_pairs(
+        16, SEED, per_stratum=4096))
+    edge = torch.tensor([0, 1, 2, 3, 0x7FFF, 0x8000, 0xFFFE, 0xFFFF])
+    a16 = torch.cat([sa.to(torch.int64), edge.repeat_interleave(len(edge))])
+    b16 = torch.cat([sb.to(torch.int64), edge.repeat(len(edge))])
+    aw, bw = words(a16, 16), words(b16, 16)
+    mw = _packed_hi_mode(gen, dev, tuple(aw.shape), 16)
+    s16 = SimdiveSpec(width=16, coeff_bits=6)
+    run(f"w16 {a16.numel()} pairs mul", aw, bw, s16, op="mul")
+    run(f"w16 {a16.numel()} pairs div fo15", aw, bw, s16, op="div",
+        frac_out=15)
+    run(f"w16 {a16.numel()} pairs mixed", aw, bw, s16, op="mixed", mode=mw,
+        frac_out=8)
+    run(f"w16 {a16.numel()} pairs div fo0 cb8", aw, bw,
+        SimdiveSpec(width=16, coeff_bits=8), op="div", frac_out=0)
+
+    # the error sweep's own words: (64, 64), seed 0, divisors >= 1
+    sa, sb = (torch.from_numpy(x.reshape(64, -1))
+              for x in sample_uints(8, 16_384, SEED, b_lo=1))
+    aw, bw = words(sa, 8), words(sb, 8)
+    for cb in (0, 6):
+        spec = SimdiveSpec(width=8, coeff_bits=cb)
+        run(f"sweep (64,64) cb{cb} mul", aw, bw, spec, op="mul")
+        run(f"sweep (64,64) cb{cb} div", aw, bw, spec, op="div",
+            frac_out=PACKED_DIV_FRAC_OUT)
+        run(f"sweep (64,64) cb{cb} mixed", aw, bw, spec, op="mixed",
+            mode=_packed_hi_mode(gen, dev, (64, 64), 8),
+            frac_out=PACKED_DIV_FRAC_OUT)
+
+    # ragged, 1-D, one-word, rank-3 and unaligned word tensors
+    def rand_words(n):
+        return torch.randint(0, 1 << 32, (n,), generator=gen, device=dev
+                             ).to(torch.int32).view(torch.uint32)
+
+    for width, fo in ((8, 8), (16, 15)):
+        spec = SimdiveSpec(width=width, coeff_bits=6)
+        for shape in ((9, 30), (7,), (1,), (2, 3, 5)):
+            n = 1
+            for d in shape:
+                n *= d
+            aw, bw = rand_words(n).reshape(shape), rand_words(n).reshape(shape)
+            mw = _packed_hi_mode(gen, dev, shape, width)
+            for op in ("mul", "div", "mixed"):
+                run(f"w{width} {shape} {op}", aw, bw, spec, op=op,
+                    mode=mw if op == "mixed" else None,
+                    frac_out=0 if op == "mul" else fo)
+        aw, bw = rand_words(1001), rand_words(1003)
+        run(f"w{width} unaligned views", aw[1:1000], bw[3:1002], spec,
+            op="div", frac_out=fo)
+
+    # refused before any launch: frac_out 9 at width 8, a CPU tensor
+    n0 = ps.packed_cuda.launches
+    w = rand_words(8)
+    for args, kw, what in (((w, w, s8), dict(op="div", frac_out=9),
+                            "frac_out 9 at width 8"),
+                           ((w.cpu(), w.cpu(), s8), {}, "a CPU tensor")):
+        try:
+            ps.packed_cuda(*args, **kw)
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"packed: {what} was not refused")
+    require(ps.packed_cuda.launches == n0,
+            "a refused packed call was counted as a launch")
+    log(f"  packed: bit-equal to packed_ref in {runs} (case, block) runs; "
+        "lanes equal to the elemwise kernel's; frac_out 9 at width 8 and a "
+        "CPU tensor refused before any launch")
+    return runs, worst
+
+
+# --------------------------------------------------------- phase 4: paths --
+def _bench_packed_rows() -> dict:
+    """The committed BENCH_simdive.json packed error rows: (op, coeff_bits)
+    -> error object, from the latest run that holds them."""
+    doc = json.loads((ROOT / "BENCH_simdive.json").read_text())
+    for run in reversed(doc["runs"]):
+        rows = {(r["op"], r["coeff_bits"]): r["error"]
+                for r in run.get("grid") or []
+                if r.get("kernel") == "packed" and r.get("backend") == "ref"
+                and r.get("width") == 8 and r.get("index_bits") == 3
+                and r.get("status") == "ok"}
+        if rows:
+            return rows
+    raise SmokeFailure("BENCH_simdive.json holds no packed rows")
+
+
+def _bench_mixed_error(dev, coeff_bits: int) -> dict:
+    """The BENCH grid's packed mixed row (``benchmarks/run.py``
+    ``_run_packed``), through the port: 16,384 lanes in 64 rows, seed 0,
+    divisors >= 1, a seed-1 mode draw; products at integer scale,
+    quotients at 2^PACKED_DIV_FRAC_OUT."""
+    import numpy as np
+    import torch
+    from repro_torch.core.simd_pack import pack, unpack
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import simdive_packed
+    from repro_torch.metrics import (PACKED_DIV_FRAC_OUT, error_stats,
+                                     sample_uints)
+
+    n, rows = 16_384, 64
+    a_np, b_np = sample_uints(8, n, SEED, b_lo=1)
+    a_l = torch.from_numpy(a_np.reshape(rows, -1)).to(dev)
+    b_l = torch.from_numpy(b_np.reshape(rows, -1)).to(dev)
+    mode_np = np.random.default_rng(SEED + 1).integers(
+        0, 2, tuple(a_l.shape)).astype(np.uint32)
+    mw = pack(torch.from_numpy(mode_np).to(dev), 8)
+    out = simdive_packed(pack(a_l, 8), pack(b_l, 8),
+                         SimdiveSpec(width=8, coeff_bits=coeff_bits),
+                         op="mixed", mode=mw, frac_out=PACKED_DIV_FRAC_OUT)
+    lanes = unpack(out, 16).cpu().numpy().astype(np.float64)
+    af = a_np.reshape(rows, -1).astype(np.float64)
+    bf = b_np.reshape(rows, -1).astype(np.float64)
+    sel = mode_np.astype(bool)
+    approx = np.where(sel, lanes, lanes / 2.0 ** PACKED_DIV_FRAC_OUT)
+    exact = np.where(sel, af * bf, af / bf)
+    return error_stats(approx, exact).as_dict()
+
+
+def packed_operands(dev, size: str):
+    """Packed (a, b, mode) words at one of PACKED_SIZES: Table 3's own
+    draws (numpy seed 0: a in [0, 256), b in [1, 256), mode 0 / 1) at its
+    size, seeded device draws of the same ranges at the full size."""
+    import numpy as np
+    import torch
+    from repro_torch.core.simd_pack import pack
+
+    M, Nw = PACKED_SIZES[size]
+    lanes = (M, Nw * 4)
+    if size == "table3":
+        rng = np.random.default_rng(0)
+        a = torch.from_numpy(rng.integers(0, 256, lanes, dtype=np.uint32))
+        b = torch.from_numpy(rng.integers(1, 256, lanes, dtype=np.uint32))
+        m = torch.from_numpy(rng.integers(0, 2, lanes, dtype=np.uint32))
+    else:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        a = torch.randint(0, 256, lanes, generator=gen, device=dev)
+        b = torch.randint(1, 256, lanes, generator=gen, device=dev)
+        m = torch.randint(0, 2, lanes, generator=gen, device=dev)
+    return tuple(pack(x.to(dev), 8) for x in (a, b, m))
+
+
+def packed_path(dev):
+    """The packed slice's path through the port's entry points: the
+    frontier's error sweep and the BENCH mixed rows, held to the committed
+    BENCH packed rows, then ``simdive_packed`` at both sizes."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     simdive_packed)
+    from repro_torch.kernels import packed_simd as ps
+    from repro_torch.metrics import PACKED_DIV_FRAC_OUT
+    from repro_torch.tuning import measure_error
+
+    bench = _bench_packed_rows()
+    require(sorted(bench) == [(op, cb) for op in ("div", "mixed", "mul")
+                              for cb in (0, 6)],
+            f"BENCH_simdive.json packed rows {sorted(bench)}")
+    reset_launch_counts()
+    errors = {}
+    for op in ("mul", "div"):
+        for cb in (0, 6):
+            stats, source = measure_error(op, 8, cb, kernel="packed",
+                                          device=dev)
+            require(source == "sampled", f"measure_error source {source}")
+            errors[(op, cb)] = dict(stats)
+    for cb in (0, 6):
+        errors[("mixed", cb)] = _bench_mixed_error(dev, cb)
+    torch.cuda.synchronize()
+    sweep_counts = launch_counts()
+    require(sweep_counts["packed"] == len(errors)
+            and sum(sweep_counts.values()) == sweep_counts["packed"],
+            f"error sweeps: launches {sweep_counts}, expected {len(errors)} "
+            "packed, one per sweep")
+    for key in sorted(bench):
+        want, got = bench[key], errors[key]
+        for stat in ("are_pct", "mred", "nmed", "pre_pct", "wce",
+                     "error_rate", "n"):
+            w, g = float(want[stat]), float(got[stat])
+            require(abs(g - w) <= BENCH_REL_TOL * abs(w),
+                    f"packed {key[0]} cb{key[1]} {stat}: {g!r} through the "
+                    f"kernel, BENCH_simdive.json {w!r}")
+        log(f"  packed {key[0]} cb{key[1]}: ARE {got['are_pct']!r} % NMED "
+            f"{got['nmed']!r} WCE {got['wce']!r} = BENCH_simdive.json")
+    log(f"  error sweeps: launches {sweep_counts}")
+
+    # simdive_packed at both sizes: one warm call each, then count exactly
+    # the calls made
+    spec = SimdiveSpec(width=8, coeff_bits=6)
+    operands = {size: packed_operands(dev, size) for size in PACKED_SIZES}
+    kw = {"mul": {}, "div": dict(frac_out=PACKED_DIV_FRAC_OUT),
+          "mixed": dict(frac_out=PACKED_DIV_FRAC_OUT)}
+
+    def call(size, op):
+        aw, bw, mw = operands[size]
+        return simdive_packed(aw, bw, spec, op=op,
+                              mode=mw if op == "mixed" else None, **kw[op])
+
+    for size in PACKED_SIZES:
+        for op in kw:
+            call(size, op)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, calls = {}, 0
+    for size in PACKED_SIZES:
+        for op in kw:
+            outs[(size, op)] = call(size, op)
+            calls += 1
+    torch.cuda.synchronize()
+    api_counts = launch_counts()
+    require(api_counts["packed"] == calls
+            and sum(api_counts.values()) == calls,
+            f"simdive_packed: launches {api_counts}, expected {calls} packed")
+    worst = 0
+    for (size, op), out in outs.items():
+        aw, bw, mw = operands[size]
+        require(tuple(out.shape) == (aw.shape[0], 2 * aw.shape[1]),
+                f"simdive_packed {size} {op}: shape {tuple(out.shape)}")
+        want = ps.packed_ref(aw, bw, spec, op=op,
+                             mode=mw if op == "mixed" else None, **kw[op])
+        nbad, err = _packed_err(out, want, spec.width)
+        worst = max(worst, err)
+        require(nbad == 0, f"simdive_packed {size} {op}: {nbad} words differ "
+                           f"from packed_ref (largest lane error {err})")
+        del want
+    outs.clear()
+    torch.cuda.empty_cache()
+    log(f"  simdive_packed: {calls} calls at {sorted(PACKED_SIZES.values())}"
+        f" words, launches {api_counts}; every output bit-equal to "
+        f"packed_ref (largest lane error {worst})")
+    return dict(operands=operands, kw=kw, spec=spec,
+                sweep_launches=sweep_counts["packed"],
+                api_launches=api_counts["packed"], max_abs_err=worst,
+                errors={f"{op} cb{cb}": e for (op, cb), e in errors.items()})
 
 
 # --------------------------------------------------------- phase 4: serve --
@@ -1158,6 +1549,93 @@ def measure_logmatmul(dev, plain_ms, int_rate):
     return kernels, times, {f"{k}": v for k, v in shapes.items()}
 
 
+def measure_packed(packed, int_rate):
+    """The packed kernel at both sizes of phase 4, for each op: device time
+    by graph replay, the eager per-call time, the plain version's time and
+    the bound; the kernel alone at each of PACKED_BLOCK_SWEEP's threads per
+    block (graph replay, mul); at the full size also the elemwise kernel and
+    an exact ``torch.mul`` on the same lanes unpacked (yardsticks: no
+    PyTorch call computes a SIMDive product). Returns the kernels-line
+    row."""
+    import torch
+    from repro_torch.core.simd_pack import unpack
+    from repro_torch.kernels import get_op, simdive_packed
+    from repro_torch.kernels.packed_simd import packed_cuda
+
+    spec, kw, operands = packed["spec"], packed["kw"], packed["operands"]
+    by = {}
+    for size, (M, Nw) in PACKED_SIZES.items():
+        aw, bw, mw = operands[size]
+        words = M * Nw
+        big = size == "full"
+        for op in kw:
+            fn = (lambda aw=aw, bw=bw, op=op: simdive_packed(
+                aw, bw, spec, op=op, mode=mw if op == "mixed" else None,
+                **kw[op]))
+            plain = (lambda aw=aw, bw=bw, op=op: get_op(
+                "packed", spec, "ref")(aw, bw, op=op,
+                                       mode=mw if op == "mixed" else None,
+                                       **kw[op]))
+            bytes_ms = PACKED_BYTES_PER_WORD[op] * words / HBM_BYTES_PER_S \
+                * 1e3
+            ops_ms = PACKED_OPS_PER_LANE[op] * 4 * words / int_rate * 1e3
+            row = {"ms": gpu_graph_time_ms(fn, iters=20 if big else 200),
+                   "eager_ms": gpu_time_ms(fn, iters=20 if big else 200),
+                   "plain_ms": gpu_time_ms(plain, iters=2 if big else 5,
+                                           warmup=1),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                               else "operations",
+                   "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+            torch.cuda.empty_cache()
+            by[f"{size} {op}"] = row
+            log(f"  packed {size} ({M},{Nw}) words {op}: {row['ms']:.5f} ms "
+                f"(graph), {row['eager_ms']:.5f} ms (eager), bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+                f"{row['plain_ms']:.3f} ms")
+        # threads per block, in turns: 256, 128, 512, 256
+        sweep = {}
+        for block in ((256,), *(b for b in PACKED_BLOCK_SWEEP
+                                if b != (256,)), (256,)):
+            sweep.setdefault(str(block[0]), []).append(gpu_graph_time_ms(
+                lambda aw=aw, bw=bw, block=block: packed_cuda(
+                    aw, bw, spec, op="mul", block=block),
+                iters=20 if big else 200))
+        by[f"{size} mul"]["block_sweep_ms"] = sweep
+        log(f"  packed {size} mul by threads per block (ms, graph): "
+            + ", ".join(f"{k}: {v}" for k, v in sweep.items()))
+    # yardsticks on the full size's lanes, unpacked: 12 bytes a lane
+    aw, bw, _ = operands["full"]
+    a_l, b_l = unpack(aw, 8), unpack(bw, 8)
+    lanes = a_l.numel()
+    ew_ms = gpu_graph_time_ms(lambda: get_op("elemwise", spec, "cuda")(
+        a_l, b_l, op="mul"), iters=20)
+    a32, b32 = a_l.view(torch.int32), b_l.view(torch.int32)
+    exact_ms = gpu_graph_time_ms(lambda: a32 * b32, iters=20)
+    ew_bound_ms = max(12 * lanes / HBM_BYTES_PER_S * 1e3,
+                      (ELEMWISE_OPS_PER_LANE * lanes) / int_rate * 1e3)
+    log(f"  yardsticks on the same {lanes} lanes unpacked: elemwise kernel "
+        f"mul {ew_ms:.5f} ms (its bytes bound "
+        f"{12 * lanes / HBM_BYTES_PER_S * 1e3:.5f} ms), exact torch.mul "
+        f"{exact_ms:.5f} ms")
+    main = by["full mul"]
+    return {
+        "name": "packed", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/packed_simd.cu",
+        "replaces": "src/repro/kernels/packed_simd.py:62",
+        "shape": f"{PACKED_SIZES['full']} uint32 words = "
+                 f"{4 * PACKED_SIZES['full'][0] * PACKED_SIZES['full'][1]} "
+                 f"8-bit lanes, mul, w{spec.width} cb{spec.coeff_bits}",
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "eager_ms": main["eager_ms"],
+        "by_size_op": by,
+        "elemwise_same_lanes_ms": ew_ms,
+        "elemwise_same_lanes_bound_ms": ew_bound_ms,
+        "exact_torch_mul_same_lanes_ms": exact_ms,
+    }
+
+
 def measure_emulate(served_e, params, prompts):
     """Prefill, decode step (eager and graph-replayed) and generate of the
     --emulate path."""
@@ -1236,9 +1714,13 @@ def main(argv=None) -> int:
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
     mm_err, mm_plain_ms = check_logmatmul(dev)
+    packed_runs, packed_err = check_packed(dev)
 
-    log("[4/5] main path: smollm-360m full width, batch "
-        f"{BATCH}, prompt {PROMPT}, gen {GEN}, (a) --approx simdive")
+    log("[4/5] paths: (p) the packed path, tuning.frontier.measure_error("
+        "kernel='packed') and simdive_packed")
+    packed = packed_path(dev)
+    log("  (a) serving: smollm-360m full width, batch "
+        f"{BATCH}, prompt {PROMPT}, gen {GEN}, --approx simdive")
     served = serve_main_path(dev)
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
@@ -1249,7 +1731,8 @@ def main(argv=None) -> int:
         f"clock); integer operations the functions need: "
         f"{LOGMATMUL_OPS_PER_PRODUCT} per logmatmul product + "
         f"{LOGMATMUL_OPS_PER_OPERAND} per operand element, "
-        f"{ELEMWISE_OPS_PER_LANE} per elemwise div lane")
+        f"{ELEMWISE_OPS_PER_LANE} per elemwise div lane, "
+        f"{PACKED_OPS_PER_LANE} per packed width-8 lane")
     kernels, times = measure(dev, served, int_rate)
     mm_kernels, mm_times, mm_shapes = measure_logmatmul(
         dev, mm_plain_ms, int_rate)
@@ -1257,6 +1740,19 @@ def main(argv=None) -> int:
     times.update(mm_times)
     times.update(measure_emulate(served_e, served["params"],
                                  served["prompts"]))
+    packed_row = measure_packed(packed, int_rate)
+    # launches: the error sweeps and the simdive_packed calls of phase 4,
+    # each window zeroed just before and read just after; max_abs_err is
+    # the largest lane error over phase 4's outputs at both sizes, the
+    # worst over phase 3's cases stands beside it
+    packed_row["launches_measure_error"] = packed["sweep_launches"]
+    packed_row["launches_simdive_packed"] = packed["api_launches"]
+    packed_row["launches"] = packed["sweep_launches"] + packed["api_launches"]
+    packed_row["max_abs_err"] = packed["max_abs_err"]
+    packed_row["max_abs_err_all_cases"] = packed_err
+    packed_row["bit_equal_runs"] = packed_runs
+    packed_row["bench_errors"] = packed["errors"]
+    kernels.append(packed_row)
     counts, counts_e = served["counts"], served_e["counts"]
     pinned = served["pinned_counts"]
     for kern, n, err in (
@@ -1277,7 +1773,7 @@ def main(argv=None) -> int:
         kern["launches"] = counts[name] + pinned[name][name]
         kern["max_abs_err"] = att_errs[tag + "main"]
         kern["max_abs_err_all_cases"] = att_errs[tag + "all"]
-    for kern in kernels[:3]:
+    for kern in kernels[:3] + kernels[5:]:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
     require(kernels[3]["launches"] + kernels[4]["launches"]
@@ -1301,6 +1797,7 @@ def main(argv=None) -> int:
             "emulate_path": {k: v for k, v in served_e.items()
                              if k != "lm"},
             "logmatmul_shapes": mm_shapes,
+            "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """repro_torch.core — SIMDive arithmetic: Mitchell log datapath, correction
-tables, specs, and the model-facing approximate math."""
+tables, specs, sub-word SIMD packing, and the model-facing approximate
+math."""
 from .mitchell import (
     SUPPORTED_WIDTHS,
     frac_bits,
@@ -11,6 +12,14 @@ from .mitchell import (
 )
 from .error_lut import build_table, build_table_clean, region_index
 from .simdive import SimdiveSpec, simdive_div, simdive_mul
+from .simd_pack import (
+    lanes_per_word,
+    pack,
+    packed_div,
+    packed_mixed,
+    packed_mul,
+    unpack,
+)
 from .approx import ApproxConfig, attention_div, layer_label, serving_segments
 
 __all__ = [
@@ -18,5 +27,7 @@ __all__ = [
     "mitchell_div", "mitchell_log", "mitchell_mul",
     "build_table", "build_table_clean", "region_index",
     "SimdiveSpec", "simdive_div", "simdive_mul",
+    "lanes_per_word", "pack", "packed_div", "packed_mixed", "packed_mul",
+    "unpack",
     "ApproxConfig", "attention_div", "layer_label", "serving_segments",
 ]

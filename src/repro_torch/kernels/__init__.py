@@ -10,6 +10,10 @@ Layering:
                       ring schedules
   elemwise.py         fused elementwise mul/div/mixed: wrapper + plain
                       version (kernel: csrc/elemwise.cu)
+  packed_simd.py      packed sub-word lanes (4x8-bit / 2x16-bit a uint32
+                      word) through the same SISD unit, repacked onto the
+                      doubled bus: wrapper + plain versions
+                      (kernel: csrc/packed_simd.cu)
   flash_attention.py  online-softmax attention whose finalize runs the
                       SIMDive divider, depth-0 and cp.async kv-ring
                       schedules: wrappers + plain version
@@ -31,6 +35,7 @@ import importlib
 
 _EXPORTS = {
     "simdive_elemwise": ".ops",
+    "simdive_packed": ".ops",
     "simdive_attention": ".ops",
     "simdive_matmul_int": ".ops",
     "get_op": ".registry",

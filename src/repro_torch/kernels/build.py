@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.c_longlong)
     lib.simdive_elemwise.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, i, i, p]
     lib.simdive_elemwise.restype = i
+    lib.simdive_packed.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, i, i, p]
+    lib.simdive_packed.restype = i
     lib.simdive_flash_attention.argtypes = (
         [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, p])
     lib.simdive_flash_attention.restype = i

@@ -25,14 +25,7 @@
 namespace {
 
 using simdive::LaneCfg;
-
-template <int OP>
-__device__ __forceinline__ uint32_t lane(uint32_t a, uint32_t b, uint32_t mode,
-                                         const int* tab, const LaneCfg& c) {
-  if (OP == simdive::kOpMul) return simdive::lane_mul(a, b, tab, c);
-  if (OP == simdive::kOpDiv) return simdive::lane_div(a, b, tab, c);
-  return simdive::lane_mixed(a, b, mode, tab, c);
-}
+using simdive::lane_op;
 
 template <int OP>
 __global__ void elemwise_kernel(const uint32_t* __restrict__ a,
@@ -55,15 +48,15 @@ __global__ void elemwise_kernel(const uint32_t* __restrict__ a,
     if (OP == simdive::kOpMixed)
       vm = *reinterpret_cast<const uint4*>(mode + i0);
     uint4 vo;
-    vo.x = lane<OP>(va.x, vb.x, vm.x, s_tab, cfg);
-    vo.y = lane<OP>(va.y, vb.y, vm.y, s_tab, cfg);
-    vo.z = lane<OP>(va.z, vb.z, vm.z, s_tab, cfg);
-    vo.w = lane<OP>(va.w, vb.w, vm.w, s_tab, cfg);
+    vo.x = lane_op<OP>(va.x, vb.x, vm.x, s_tab, cfg);
+    vo.y = lane_op<OP>(va.y, vb.y, vm.y, s_tab, cfg);
+    vo.z = lane_op<OP>(va.z, vb.z, vm.z, s_tab, cfg);
+    vo.w = lane_op<OP>(va.w, vb.w, vm.w, s_tab, cfg);
     *reinterpret_cast<uint4*>(out + i0) = vo;
   } else {
     for (long long i = i0; i < n; ++i) {
       const uint32_t m = (OP == simdive::kOpMixed) ? mode[i] : 0u;
-      out[i] = lane<OP>(a[i], b[i], m, s_tab, cfg);
+      out[i] = lane_op<OP>(a[i], b[i], m, s_tab, cfg);
     }
   }
 }

@@ -131,6 +131,17 @@ __device__ __forceinline__ uint32_t lane_mixed(uint32_t a, uint32_t b,
   return q;
 }
 
+// One SISD unit of a compile-time op: the elementwise and the packed
+// kernels both run their lanes through this.
+template <int OP>
+__device__ __forceinline__ uint32_t lane_op(uint32_t a, uint32_t b,
+                                            uint32_t mode, const int* tab,
+                                            const LaneCfg& c) {
+  if (OP == kOpMul) return lane_mul(a, b, tab, c);
+  if (OP == kOpDiv) return lane_div(a, b, tab, c);
+  return lane_mixed(a, b, mode, tab, c);
+}
+
 // ---- softmax divider: per-row shared-exponent quantization + lane_div ----
 
 struct RowQuant {

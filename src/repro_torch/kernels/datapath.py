@@ -21,8 +21,9 @@ Stage map (FPGA block -> function):
 All tensors are int64 carriers of unsigned 32-bit lane values (see
 :mod:`repro_torch.core.mitchell`); tables are int64 tensors on the
 operands' device. The sign network (``sign_split`` / ``sign_join``) carries
-signed int32 values on the same int64 carrier. The sub-word lane wiring
-(``lane_expand`` / ``lane_repack``) is not ported yet.
+signed int32 values on the same int64 carrier, and the sub-word lane wiring
+of the packed kernel (``lane_expand`` / ``lane_repack``) splits uint32
+words into lanes and repacks results onto the doubled output bus on it.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.core.mitchell import (
     as_carrier,
     check_width,
     frac_bits,
+    from_lanes,
     mitchell_antilog_div,
     mitchell_antilog_mul,
     mitchell_log,
@@ -57,6 +59,8 @@ __all__ = [
     "wrap_int32",
     "sign_split",
     "sign_join",
+    "lane_expand",
+    "lane_repack",
 ]
 
 
@@ -196,6 +200,45 @@ def sign_join(mag: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
     reference casts the uint32 result to int32 (a product of 2^32 - 1 at
     width 16 wraps to -1) and multiplies with int32 wrap-around."""
     return wrap_int32(wrap_int32(as_carrier(mag)) * as_carrier(sign))
+
+
+# ------------------------------------------------------------ lane wiring --
+def lane_expand(words: torch.Tensor, width: int) -> list[torch.Tensor]:
+    """Split packed uint32 words into their sub-word lanes (little-endian).
+
+    ``words`` is any integer tensor of word values (``uint32`` included);
+    returns ``32 // width`` carrier tensors of the words' shape, lane 0
+    from the least-significant bits — the software rendition of the FPGA's
+    shared nibble LODs.
+    """
+    w = from_lanes(words)
+    mask = (1 << width) - 1
+    return [(w >> (width * i)) & mask for i in range(32 // width)]
+
+
+def lane_repack(lanes: list[torch.Tensor], owidth: int) -> torch.Tensor:
+    """Repack 2w-bit lane results into uint32 words on the doubled bus.
+
+    Little-endian lane order, interleaved along the last axis: for 8-bit
+    inputs, lanes (0, 1) -> output word 2k and lanes (2, 3) -> word 2k+1.
+    ``owidth >= 32`` degenerates to one result per output word (mask
+    ``2^32 - 1``). Returns the words on the int64 carrier.
+
+    Fault seam: site='pack' upsets land on the packed output bus words
+    (:func:`repro_torch.core.error_lut.apply_lane_faults`, a no-op until
+    the fault subsystem is ported).
+    """
+    olpw = max(32 // owidth, 1)
+    omask = (1 << min(owidth, 32)) - 1
+    words = []
+    for j in range(len(lanes) // olpw):
+        w = torch.zeros_like(lanes[0])
+        for i in range(olpw):
+            w |= (lanes[j * olpw + i] & omask) << (owidth * i)
+        words.append(w)
+    lead = lanes[0].shape[:-1]
+    out = torch.stack(words, dim=-1).reshape(*lead, -1)
+    return apply_lane_faults(out, site="pack", width=owidth)
 
 
 # -------------------------------------------------------- composed SISD --

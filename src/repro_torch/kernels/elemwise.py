@@ -44,12 +44,16 @@ def elemwise_ref(a: torch.Tensor, b: torch.Tensor, spec: SimdiveSpec,
     return to_lanes(out)
 
 
-def _operand(x: torch.Tensor, name: str, like: torch.Tensor | None = None):
+def cuda_operand(x: torch.Tensor, name: str,
+                 like: torch.Tensor | None = None, *,
+                 kernel: str = "elemwise") -> torch.Tensor:
+    """A lane / word operand as the lane kernels take it: on the card,
+    ``uint32``, contiguous and 16-byte aligned, shaped like ``like``."""
     if not x.is_cuda:
-        raise ValueError(f"elemwise CUDA kernel: {name} lies on {x.device}, "
+        raise ValueError(f"{kernel} CUDA kernel: {name} lies on {x.device}, "
                          "not on a CUDA device")
     if like is not None and (x.shape != like.shape or x.device != like.device):
-        raise ValueError(f"elemwise: {name} {tuple(x.shape)} on {x.device} "
+        raise ValueError(f"{kernel}: {name} {tuple(x.shape)} on {x.device} "
                          f"does not match a {tuple(like.shape)} on "
                          f"{like.device}")
     x = to_lanes(x).contiguous()
@@ -74,9 +78,9 @@ def elemwise_cuda(a: torch.Tensor, b: torch.Tensor, spec: SimdiveSpec,
         raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
     if op == "mixed" and mode is None:
         raise ValueError("op='mixed' needs a per-element mode tensor")
-    au = _operand(a, "a")
-    bu = _operand(b, "b", au)
-    mu = _operand(mode, "mode", au) if op == "mixed" else None
+    au = cuda_operand(a, "a")
+    bu = cuda_operand(b, "b", au)
+    mu = cuda_operand(mode, "mode", au) if op == "mixed" else None
     tab = dp.op_table(op, spec.width, spec.coeff_bits, spec.index_bits,
                       device=au.device, dtype=torch.int32)
     out = torch.empty_like(au)

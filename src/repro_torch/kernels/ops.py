@@ -1,11 +1,12 @@
 """Built-in SIMDive ops: registration + thin public entry points.
 
 Counterpart of ``repro.kernels.ops`` for the ops ported so far:
-``elemwise``, ``attention``, ``matmul_int`` and ``matmul_emul``. Each
-registers its plain PyTorch version and its CUDA kernel with
-:mod:`repro_torch.kernels.registry`. The kernels mask their ragged edges
-themselves, so there is no pad-to-block step: any shape goes straight in,
-and the results equal the reference's padded ones.
+``elemwise``, ``packed``, ``attention``, ``matmul_int`` and
+``matmul_emul`` (``sqrt`` is not ported). Each registers its plain PyTorch
+version and its CUDA kernel with :mod:`repro_torch.kernels.registry`. The
+kernels mask their ragged edges themselves, so there is no pad-to-block
+step: any shape goes straight in, and the results equal the reference's
+padded ones.
 """
 from __future__ import annotations
 
@@ -15,10 +16,12 @@ from repro_torch.core.simdive import SimdiveSpec, simdive_mul
 from . import elemwise as _ew
 from . import flash_attention as _fa
 from . import logmatmul as _lm
+from . import packed_simd as _ps
 from .flash_attention import DEFAULT_DIV_SPEC, DEFAULT_FRAC_OUT
 from .registry import get_op, register_op
 
-__all__ = ["simdive_elemwise", "simdive_attention", "simdive_matmul_int"]
+__all__ = ["simdive_elemwise", "simdive_packed", "simdive_attention",
+           "simdive_matmul_int"]
 
 
 # --------------------------------------------------------------- elemwise --
@@ -115,6 +118,13 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
             default_block=_ew.DEFAULT_BLOCK,
             kernels={"elemwise": _ew.elemwise_cuda})
+# packed: both versions take any rank and return (..., 2 * Nw) words, the
+# shape the reference gets through its 2-D view and pad-to-block step (the
+# kernel's word mapping is flat and masks its tail), so they register as
+# they are
+register_op("packed", ref=_ps.packed_ref, cuda=_ps.packed_cuda,
+            default_block=_ps.DEFAULT_BLOCK,
+            kernels={"packed": _ps.packed_cuda})
 # attention blocks are (q_chunk, kv_chunk[, depth]); depth >= 1 runs the
 # cp.async kv ring (bit-identical output). Each candidate is checked for the
 # worst case the kernel takes (f32, d_head 128) when it is registered.
@@ -147,6 +157,16 @@ def simdive_elemwise(a, b, spec: SimdiveSpec, op: str = "mul", mode=None,
     """Elementwise SIMDive mul/div/mixed over same-shape lane tensors."""
     return get_op("elemwise", spec, backend, block=block)(
         a, b, op=op, mode=mode, frac_out=frac_out)
+
+
+def simdive_packed(aw, bw, spec: SimdiveSpec, op: str = "mul", mode=None,
+                   frac_out: int = 0, backend: str = "auto", block=None):
+    """Packed-lane SIMDive over uint32 word tensors (last dim = words):
+    4 x 8-bit or 2 x 16-bit lanes a word in, ``(..., 2 * Nw)`` words of
+    2*width-bit results out. ``mode`` (mixed): packed per-lane mode words,
+    a nonzero lane field multiplies."""
+    return get_op("packed", spec, backend, block=block)(
+        aw, bw, op=op, mode=mode, frac_out=frac_out)
 
 
 def simdive_attention(q, k, v, spec: SimdiveSpec | None = None, *,

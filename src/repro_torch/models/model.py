@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import require_device
 from .layers import apply_norm, dense
 from .transformer import (
     empty_cache,
@@ -28,18 +29,6 @@ from .transformer import (
 
 def _dt(name):
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def require_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises when it names a CUDA device
-    and this host has none — the port never carries on on the CPU unasked."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but torch.cuda.is_available() "
-            "is False: repro_torch runs on the GPU unless the caller asks "
-            "for device='cpu'")
-    return device
 
 
 @dataclass(frozen=True)

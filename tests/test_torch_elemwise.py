@@ -101,15 +101,16 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
     # nothing on this host launched a kernel
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
                                "elemwise": 0, "matmul": 0,
-                               "matmul_pipelined": 0}
+                               "matmul_pipelined": 0, "packed": 0}
 
 
 def test_registry_surface():
     # one count per kernel schedule; both matmul ops share the logmatmul ones
     assert sorted(launch_counts()) == ["attention", "attention_pipelined",
                                        "elemwise", "matmul",
-                                       "matmul_pipelined"]
+                                       "matmul_pipelined", "packed"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
+    assert get_op("packed", TSpec()).entry.default_block == (256,)
     # attention takes (q_chunk, kv_chunk[, depth]) blocks
     assert get_op("attention", TSpec()).entry.default_block == (64, 64)
     assert get_op("attention", TSpec(), block=(64, 64, 2)).block == \
@@ -125,7 +126,7 @@ def test_registry_surface():
     assert get_op("matmul_emul", TSpec()).entry.default_block == \
         (64, 64, 32, 4, 0)
     with pytest.raises(KeyError, match="unknown op"):
-        get_op("packed", TSpec())
+        get_op("sqrt", TSpec())             # not ported
     with pytest.raises(NotImplementedError, match="width 32"):
         get_op("elemwise", TSpec(width=32), "ref")(
             torch.tensor([1]), torch.tensor([1]), op="mul")

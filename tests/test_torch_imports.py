@@ -42,30 +42,36 @@ def test_source_imports_neither_jax_nor_reference(path):
 def test_every_package_module_is_covered():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES[:-1]}
     for needed in ("core/mitchell.py", "core/error_lut.py", "core/simdive.py",
+                   "core/device.py",
                    "core/approx.py", "kernels/datapath.py",
+                   "core/simd_pack.py",
                    "kernels/build.py", "kernels/elemwise.py",
-                   "kernels/logmatmul.py",
+                   "kernels/logmatmul.py", "kernels/packed_simd.py",
                    "kernels/flash_attention.py", "kernels/registry.py",
                    "kernels/ops.py", "configs/base.py",
                    "configs/smollm_360m.py", "models/layers.py",
                    "models/transformer.py", "models/model.py",
                    "models/convert.py", "launch/serve.py",
-                   "metrics/timing.py"):
+                   "metrics/timing.py", "metrics/errors.py",
+                   "metrics/operands.py", "tuning/frontier.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu",
-            "flash_attention.cu", "logmatmul.cu"} <= csrc
+            "flash_attention.cu", "logmatmul.cu", "packed_simd.cu"} <= csrc
 
 
 def test_launch_counts_name_every_schedule():
     """One count per kernel schedule: both attention schedules beside the
-    elemwise and the two matmul ones."""
+    elemwise, the packed and the two matmul ones."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.packed_simd import packed_cuda
 
+    packed_cuda.launches = 3
     reset_launch_counts()
+    assert packed_cuda.launches == 0
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
                                "elemwise": 0, "matmul": 0,
-                               "matmul_pipelined": 0}
+                               "matmul_pipelined": 0, "packed": 0}
 
 
 def test_ring_kernels_share_the_cp_async_header():
@@ -146,6 +152,17 @@ def test_cuda_entry_points_raise_without_a_gpu():
     x = torch.ones(2, 3, dtype=torch.int32)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         logmatmul_cuda(x, x.T.contiguous(), SimdiveSpec())
+    # the packed op asked for its kernel, and the error sweep, which runs on
+    # the card by default, raise instead of computing on the CPU
+    from repro_torch.kernels import simdive_packed
+    from repro_torch.tuning import measure_error
+
+    words = torch.ones(2, 4, dtype=torch.uint32)
+    with pytest.raises(ValueError, match="backend 'cuda'"):
+        simdive_packed(words, words, SimdiveSpec(), backend="cuda")
+    for kernel in ("packed", "elemwise"):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            measure_error("mul", 8, 6, kernel=kernel)
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
