@@ -64,12 +64,14 @@ class ApproxConfig:
     # sites whose lookup misses run exact
     policy_only: bool = False
     backward: str = "exact"        # exact | approx (training; not ported)
-    guard: bool = False            # guarded dispatch (not ported)
+    guard: bool = False            # guarded dispatch (not ported: raises)
 
     def __post_init__(self):
         if self.backward not in ("exact", "approx"):
             raise ValueError(f"backward must be 'exact' or 'approx', "
                              f"got {self.backward!r}")
+        if self.guard:
+            raise NotImplementedError("guarded dispatch is not ported yet")
 
     @property
     def enabled(self) -> bool:

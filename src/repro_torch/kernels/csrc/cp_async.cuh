@@ -1,6 +1,7 @@
 // cp.async helpers (sm_80+) shared by the kernels that stream operands
-// through a shared-memory ring: 4-byte copies with zero fill, commit, and a
-// wait whose depth is dispatched to the immediate the instruction takes.
+// through a shared-memory ring: 4- and 16-byte copies with zero fill,
+// commit, and a wait whose depth is dispatched to the immediate the
+// instruction takes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,6 +16,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Copy 16 bytes (dst and src 16-byte aligned), bypassing L1; src_bytes 0
+// writes zeros and reads nothing, as cp_async4.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -14,42 +14,68 @@
 //
 // What the TPU kernel carries from one sequential grid step to the next in
 // scratch memory (m, l, acc) lives here in registers across a loop over kv
-// tiles inside the block; one block owns one (bh, 64-row q tile). The QK^T
-// and PV products are computed in this kernel's body with FMA loops over
-// shared-memory tiles read as f32 (a bf16 x bf16 product is exact in f32, so
-// this equals tensor-core accumulation up to summation order); p is rounded
-// to v's type before the PV product as the reference does. kv tiles that the
-// causal / window / kv_len masks exclude whole are skipped: for those the
-// reference's step leaves (m, l, acc) unchanged up to its masked-row guard.
-// GQA: kv is read at head bh / kv_group; no repeated copy is materialised.
-//
-// Schedules. Depth 0 loads each kv tile synchronously (global -> f32 ->
-// shared memory) between two barriers. Depth D >= 1 issues k/v tiles with
-// 4-byte cp.async into a D-slot ring of raw T rows (zero fill past Skv,
-// never an out-of-bounds address) and converts them to f32 when read: the
-// warm-up issues tiles 0..D-2, step c issues tile c+D-1 into the slot tile
-// c-1 vacated, waits for tile c, computes — the reference's DMA order. Both
-// visit the same kv tiles in the same order and run the same float ops on
-// the same values (bf16 -> f32 is exact), so every depth is bit-identical
-// to depth 0, as the reference requires of its schedules.
-//
-// Blocks. The tile is compiled: 64 q rows x 64 kv rows, 256 threads, each
-// holding a 4 x 4 score micro-tile. The reference's TPU blocks (256..1024
-// rows, VMEM of many MB) do not fit an SM: one 512 x 512 f32 score tile
-// alone is 1 MB against 227 KB of shared memory. A block is (64, 64) or
-// (64, 64, D) with D <= 4 (cp.async.wait_group takes an immediate); the
-// ring's shared memory grows with D, dtype and d_head
-// (kernels/flash_attention.py smem_bytes mirrors smem_bytes_pipe below):
-// f32 at d_head 128 fits D <= 2 only.
+// tiles inside the block; one block owns one (bh, 64-row q tile) and walks
+// 64-row kv tiles. kv tiles that the causal / window / kv_len masks exclude
+// whole are skipped: for those the reference's step leaves (m, l, acc)
+// unchanged up to its masked-row guard. GQA: kv is read at head
+// bh / kv_group; no repeated copy is materialised. The heaviest (latest)
+// causal q tiles are scheduled first.
 //
 // Bound on an H100: bytes, narrowly. At the serving shape (q BH 60, kv heads
 // 20, S 512, dh 64, bf16, causal) the kernel needs 4*dh per causal (q, k)
 // pair = 2.0 GFLOP, 0.0020 ms at the bf16 tensor-core peak, against 10.5 MB
 // of q/k/v/o traffic (kv read once per kv head, not per q head), 0.0031 ms
-// at the HBM rate. This version is far from either: it runs the products as
-// f32 FMAs on the CUDA cores from padded (conflict-free) shared-memory
-// tiles, 4x4 register micro-tiles per thread; mma/wgmma on the tensor cores
-// is a later performance step.
+// at the HBM rate. What holds the kernel above both (PERF.md): the
+// heaviest causal block walks 8 kv tiles one after another, so the blocks
+// are scheduled heaviest first across all heads; and the SIMDive finalize,
+// run at the end of every block, takes about a third of the time.
+//
+// Design, bf16 (flash_kernel_mma): the reference's two products are
+// dot_generals on bf16 operands with f32 accumulation — the tensor-core
+// contract — so both run as mma.sync.m16n8k16 (bf16 x bf16 -> f32). Four
+// warps (128 threads) a block; each warp owns 16 q rows, loaded once as
+// ldmatrix.x4 A fragments kept in registers for the whole kv loop.
+// S = Q K^T is one m16n8 f32 C fragment per 8 kv columns (B fragments of
+// k by ldmatrix.x4); masking, scaling, the row max (a quad shuffle: the 4
+// lanes of a quad hold one row) and expf run on those fragments. p is
+// rounded to bf16 (__float2bfloat16_rn, as the reference casts p to v's
+// type) straight into the A fragments of the PV product, and l sums the
+// unrounded f32 p; acc stays as m16n8 C fragments over dh (dh / 8 of them),
+// rescaled by exp(m - m_new) before V's B fragments (ldmatrix.x4.trans) are
+// multiplied in. A bf16 x bf16 product is exact in f32, so this differs
+// from the reference only in f32 summation order. k, v and q tiles stay
+// bf16 in shared memory, rows padded by 16 bytes so that the eight row
+// addresses of an ldmatrix hit distinct banks. The finalize takes each
+// row's max |acc| over the quad, then the shared datapath's
+// softmax_row_quant / softmax_div_elem unchanged, and stores bf16 pairs.
+//
+// Design, f32 (flash_kernel): no products on the tensor cores — TF32 would
+// keep 10 mantissa bits of each operand, far outside what the f32 path
+// promises. 256 threads, a 4 x 4 score micro-tile each, FMA loops over
+// shared-memory tiles read as f32 (padded rows, conflict-free), p through
+// a shared tile. No served path runs f32 attention.
+//
+// Schedules. Depth 0 loads each kv tile synchronously between two barriers
+// (bf16: 16-byte loads into the padded bf16 tiles; f32: element loads into
+// f32 tiles). Depth D >= 1 issues k/v tiles with cp.async into a D-slot
+// ring (bf16: 16-byte copies; f32: 4-byte copies), zero-filled past Skv
+// from the base address (a stale word there would give p = 0 times Inf /
+// NaN): the warm-up issues tiles 0..D-2, step c issues tile c+D-1 into the
+// slot tile c-1 vacated, waits for tile c, computes — the reference's DMA
+// order. Both schedules visit the same kv tiles in the same order, see the
+// same shared-memory values and run the same instructions on them, so every
+// depth is bit-identical to depth 0, as the reference requires of its
+// schedules. The bf16 kernel's 16-byte loads need q, k and v 16-byte
+// aligned; the f32 ring's copies need 4 (the wrapper checks both).
+//
+// Blocks. The tile is compiled: 64 q rows x 64 kv rows. The reference's TPU
+// blocks (256..1024 rows, VMEM of many MB) do not fit an SM: one 512 x 512
+// f32 score tile alone is 1 MB against 227 KB of shared memory. A block is
+// (64, 64) or (64, 64, D) with D <= 4 (cp.async.wait_group takes an
+// immediate); shared memory grows with D, dtype and d_head
+// (kernels/flash_attention.py smem_bytes mirrors smem_bytes_mma /
+// smem_bytes / smem_bytes_pipe below): every depth fits for bf16, f32 at
+// d_head 128 fits D <= 2 only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,6 +92,7 @@ using simdive::LaneCfg;
 
 constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // kv rows per tile
+// the f32 body's thread layout (the bf16 body's is MMA_WARPS below)
 constexpr int TX = 16;        // threads across a tile's columns
 constexpr int TY = 16;        // threads across a tile's rows
 constexpr int NT = TX * TY;   // 256 threads
@@ -81,20 +108,14 @@ struct AttnParams {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
+// ---------------------------------------------------- f32: CUDA-core body --
 // max / sum over the 16 threads (consecutive lanes) that share a q row
 __device__ __forceinline__ float row_max16(float v) {
 #pragma unroll
@@ -365,12 +386,370 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ------------------------------------------------- bf16: tensor-core body --
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_WARPS = 4;            // 16 q rows each
+constexpr int MMA_NT = 32 * MMA_WARPS;  // 128 threads
+static_assert(BQ == 16 * MMA_WARPS && BQ == BK, "one 64-row tile shape");
+
+// Row stride of every bf16 tile (q, k, v), in elements: one 16-byte pad
+// puts the eight 16-byte rows an ldmatrix reads in distinct banks.
+template <int DH>
+__host__ __device__ constexpr int mma_stride() {
+  return DH + 8;
+}
+
+// the q tile, then depth 0: one k and one v tile; depth D: D slots of them
+template <int DH>
+size_t smem_bytes_mma(int depth) {
+  const int tiles = 1 + 2 * (depth > 0 ? depth : 1);
+  return sizeof(bf16) * static_cast<size_t>(tiles) * BQ * mma_stride<DH>();
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// d += a (16 x 16 bf16, row) . b (16 x 8 bf16, col), accumulated in f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 in one instruction (round to nearest even, as
+// the reference casts p and o), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Rows r0..r0+63 of a (rows, DH) bf16 matrix into a padded tile by 16-byte
+// loads, zeros past `rows`; every load is issued before the first store.
+template <int DH>
+__device__ __forceinline__ void load_tile(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          int r0, int rows, int tid) {
+  constexpr int CPR = DH / 8;             // 16-byte chunks a row
+  constexpr int PER = BQ * CPR / MMA_NT;  // chunks a thread
+  uint4 val[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = tid + i * MMA_NT, r = c / CPR;
+    val[i] = r0 + r < rows
+                 ? *reinterpret_cast<const uint4*>(
+                       src + static_cast<long long>(r0 + r) * DH +
+                       (c % CPR) * 8)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = tid + i * MMA_NT;
+    *reinterpret_cast<uint4*>(dst + (c / CPR) * mma_stride<DH>() +
+                              (c % CPR) * 8) = val[i];
+  }
+}
+
+// Issue one kv tile's k and v rows into a ring slot by 16-byte cp.async,
+// zero-filled past Skv from the base address (as issue_kv).
+template <int DH>
+__device__ __forceinline__ void issue_kv16(bf16* slot,
+                                           const bf16* __restrict__ kb,
+                                           const bf16* __restrict__ vb,
+                                           int k0, int Skv, int tid) {
+  constexpr int CPR = DH / 8;
+  constexpr int S = mma_stride<DH>();
+#pragma unroll
+  for (int i = 0; i < BK * CPR / MMA_NT; ++i) {
+    const int c = tid + i * MMA_NT, r = c / CPR, cc = (c % CPR) * 8;
+    const bool in = k0 + r < Skv;
+    const long long g = static_cast<long long>(k0 + r) * DH + cc;
+    simdive::cp_async16(slot + r * S + cc, in ? kb + g : kb, in ? 16 : 0);
+    simdive::cp_async16(slot + (BK + r) * S + cc, in ? vb + g : vb,
+                        in ? 16 : 0);
+  }
+}
+
+template <int DH, bool PIPE>
+__global__ void __launch_bounds__(MMA_NT)
+    flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     const int* __restrict__ tab, int tab_len, AttnParams p,
+                     int depth) {
+  constexpr int S = mma_stride<DH>();
+  constexpr int TILE = BK * S;     // one k or v tile, in elements
+  constexpr int KSTEPS = DH / 16;  // k-steps of Q K^T
+  constexpr int NS = BK / 8;       // n8 tiles of the scores
+  constexpr int NO = DH / 8;       // n8 tiles of acc
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* kv_tiles = sQ + BQ * S;  // depth 0: k, v; depth D: D (k, v) slots
+  __shared__ int s_tab[kDivTable];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;  // fragment row, column pair
+  // heaviest (latest) causal q tiles are scheduled first, of every head:
+  // the blocks that run last are the shortest
+  const int BH = static_cast<int>(gridDim.x) / p.nq;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int qi = p.nq - 1 - static_cast<int>(blockIdx.x) / BH;
+  const int q0 = qi * BQ;
+  const long long kvh = bh / p.kv_group;
+  const bf16* qb = q + static_cast<long long>(bh) * p.Sq * DH;
+  const bf16* kb = k + kvh * p.Skv * DH;
+  const bf16* vb = v + kvh * p.Skv * DH;
+
+  if (p.approx_div)
+    for (int i = tid; i < tab_len; i += MMA_NT) s_tab[i] = tab[i];
+
+  // kv range any row of this q tile can see
+  const int q_lo = q0 + p.q_offset, q_hi = q_lo + BQ - 1;
+  const int k_lim = min(p.Skv, p.kv_len);
+  int k_end = k_lim;
+  if (p.causal) k_end = min(k_end, q_hi + 1);
+  int k_begin = 0;
+  if (p.window) k_begin = max(0, q_lo - p.window + 1);
+  const int kj_lo = k_begin / BK;
+  const int kj_hi = (k_end + BK - 1) / BK;  // exclusive; <= kj_lo when empty
+  const int n = kj_hi - kj_lo;              // kv tiles visited, both schedules
+
+  if constexpr (PIPE) {
+    // warm-up: tiles 0..D-2, one commit group each (empty past the end, so
+    // that tile c is always group c); an empty loop issues nothing
+    if (n > 0)
+      for (int c = 0; c < depth - 1; ++c) {
+        if (c < n)
+          issue_kv16<DH>(kv_tiles + (c % depth) * 2 * TILE, kb, vb,
+                         (kj_lo + c) * BK, p.Skv, tid);
+        simdive::cp_async_commit();
+      }
+  }
+  load_tile<DH>(sQ, qb, q0, p.Sq, tid);
+  __syncthreads();
+
+  // this warp's 16 q rows as A fragments, one per k-step, for the whole loop
+  uint32_t qf[KSTEPS][4];
+  {
+    const bf16* src = sQ + (16 * warp + lane % 8 + (lane / 8 % 2) * 8) * S +
+                      (lane / 16) * 8;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      ldmatrix_x4(qf[ks], smem_addr(src + 16 * ks));
+  }
+
+  // a thread's two rows: r = 0 is the warp's row g, r = 1 row g + 8
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};  // this thread's share, summed over the quad last
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  const int qpos0 = q_lo + 16 * warp + g;
+
+  for (int step = 0; step < n; ++step) {
+    const int k0 = (kj_lo + step) * BK;
+    const bf16* sK;
+    if constexpr (PIPE) {
+      // tile step-1 fully consumed: its slot, where tile step+D-1 goes, is
+      // free
+      __syncthreads();
+      const int nxt = step + depth - 1;
+      if (nxt < n)
+        issue_kv16<DH>(kv_tiles + (nxt % depth) * 2 * TILE, kb, vb,
+                       (kj_lo + nxt) * BK, p.Skv, tid);
+      simdive::cp_async_commit();
+      simdive::cp_async_wait(depth - 1);  // this thread's copies landed
+      __syncthreads();                    // ... and every thread's
+      sK = kv_tiles + (step % depth) * 2 * TILE;
+    } else {
+      __syncthreads();  // previous tile fully consumed
+      load_tile<DH>(kv_tiles, kb, k0, p.Skv, tid);
+      load_tile<DH>(kv_tiles + TILE, vb, k0, p.Skv, tid);
+      __syncthreads();
+      sK = kv_tiles;
+    }
+    const bf16* sV = sK + TILE;
+
+    // s = q . k on the tensor cores; n8 tile j holds kv columns 8j..8j+7
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    {
+      const bf16* src =
+          sK + (lane % 8 + (lane / 16) * 8) * S + (lane / 8 % 2) * 8;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(src + 16 * jp * S + 16 * ks));
+          mma_bf16(s[2 * jp], qf[ks], b[0], b[1]);
+          mma_bf16(s[2 * jp + 1], qf[ks], b[2], b[3]);
+        }
+    }
+
+    // scale and mask (a tile that no mask reaches skips the tests), row max
+    const bool whole = k0 + BK <= k_lim &&
+                       (!p.causal || k0 + BK - 1 <= q_lo) &&
+                       (!p.window || k0 > q_hi - p.window);
+    float rmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        bool ok = true;
+        if (!whole) {
+          const int kpos = k0 + 8 * j + 2 * t4 + e % 2;
+          const int qpos = qpos0 + 8 * r;
+          ok = kpos < k_lim;
+          if (p.causal) ok = ok && (kpos <= qpos);
+          if (p.window) ok = ok && (kpos > qpos - p.window);
+        }
+        s[j][e] = ok ? s[j][e] * p.scale : -INFINITY;
+        rmax[r] = fmaxf(rmax[r], s[j][e]);
+      }
+    float m_new[2], cfac[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four lanes of a quad hold one row
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+      m_new[r] = fmaxf(m[r], rmax[r]);
+      if (!isfinite(m_new[r])) m_new[r] = 0.0f;  // fully-masked-row guard
+      cfac[r] = expf(m[r] - m_new[r]);
+      m[r] = m_new[r];
+    }
+
+    // p = exp(s - m_new): l sums it in f32; rounded to bf16 it becomes the
+    // A fragment of the PV product (k-step kk: kv columns 16kk..16kk+15)
+    float psum[2] = {0.0f, 0.0f};
+    uint32_t pa[NS / 2][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float pe[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pe[e] = expf(s[j][e] - m_new[e / 2]);
+        psum[e / 2] += pe[e];
+      }
+      pa[j / 2][(j % 2) * 2] = pack_bf16(pe[0], pe[1]);      // row g
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);  // row g + 8
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * cfac[r] + psum[r];
+
+    // acc = acc * c + p @ v
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= cfac[0];
+      acc[j][1] *= cfac[0];
+      acc[j][2] *= cfac[1];
+      acc[j][3] *= cfac[1];
+    }
+    {
+      const bf16* src =
+          sV + (lane % 8 + (lane / 8 % 2) * 8) * S + (lane / 16) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < NO / 2; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, smem_addr(src + 16 * kk * S + 16 * jp));
+          mma_bf16(acc[2 * jp], pa[kk], b[0], b[1]);
+          mma_bf16(acc[2 * jp + 1], pa[kk], b[2], b[3]);
+        }
+    }
+  }
+  __syncthreads();  // s_tab visible even when the kv loop was empty
+
+  // finalize: exact divide, or the SIMDive divider on a per-row exponent
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float li = fmaxf(l[r], 1e-30f);
+    float outv[NO][2];
+    if (p.approx_div) {
+      float amax = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        amax = fmaxf(amax, fmaxf(fabsf(acc[j][2 * r]),
+                                 fabsf(acc[j][2 * r + 1])));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      const simdive::RowQuant rq =
+          simdive::softmax_row_quant(amax, li, p.cfg.width, p.lim);
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          outv[j][e] = simdive::softmax_div_elem(acc[j][2 * r + e], rq, s_tab,
+                                                 p.cfg, p.lim, nullptr);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) outv[j][e] = acc[j][2 * r + e] / li;
+    }
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row < p.Sq) {
+      bf16* orow =
+          o + (static_cast<long long>(bh) * p.Sq + row) * DH + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(outv[j][0], outv[j][1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- launching --
 template <typename T, int DH, bool PIPE>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  const void* tab, int tab_len, int BH, const AttnParams& p,
                  int depth, cudaStream_t stream) {
-  auto kern = flash_kernel<T, DH, PIPE>;
-  const size_t smem = PIPE ? smem_bytes_pipe<T, DH>(depth) : smem_bytes<DH>();
+  constexpr bool MMA = std::is_same_v<T, bf16>;
+  void (*kern)(const T*, const T*, const T*, T*, const int*, int, AttnParams,
+               int);
+  size_t smem;
+  int threads;
+  if constexpr (MMA) {
+    kern = flash_kernel_mma<DH, PIPE>;
+    smem = smem_bytes_mma<DH>(depth);
+    threads = MMA_NT;
+  } else {
+    kern = flash_kernel<T, DH, PIPE>;
+    smem = PIPE ? smem_bytes_pipe<T, DH>(depth) : smem_bytes<DH>();
+    threads = NT;
+  }
   // opt in to > 48 KB of dynamic shared memory, up to the largest size this
   // instantiation has launched with (the ring grows with the depth)
   static size_t opted_in = 48 * 1024;
@@ -382,7 +761,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
     opted_in = smem;
   }
   const unsigned blocks = static_cast<unsigned>(BH) * p.nq;
-  kern<<<blocks, NT, smem, stream>>>(
+  kern<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<const int*>(tab), tab_len, p, depth);
@@ -473,8 +852,9 @@ int attention(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. dh must be 64 or 128. All tensors
-// contiguous. Returns cudaGetLastError() of the launch (or the error of the
-// shared-memory opt-in). The depth-0 schedule.
+// contiguous; bf16 q, k and v 16-byte aligned. Returns cudaGetLastError()
+// of the launch (or the error of the shared-memory opt-in). The depth-0
+// schedule.
 extern "C" int simdive_flash_attention(
     const void* q, const void* k, const void* v, void* o, const void* tab,
     int tab_len, int BH, int Sq, int Skv, int dh, int dtype, int kv_group,
@@ -488,7 +868,8 @@ extern "C" int simdive_flash_attention(
 }
 
 // The same arguments, plus the ring depth 1..4: the cp.async kv-ring
-// schedule. k and v must be 4-byte aligned (the wrapper checks).
+// schedule. bf16 q, k and v must be 16-byte aligned, f32 k and v 4-byte
+// aligned (the wrapper checks; bf16 depth 0 needs the same).
 extern "C" int simdive_flash_attention_pipelined(
     const void* q, const void* k, const void* v, void* o, const void* tab,
     int tab_len, int BH, int Sq, int Skv, int dh, int dtype, int kv_group,

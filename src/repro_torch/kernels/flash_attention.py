@@ -18,18 +18,28 @@ exponent field (``torch.frexp`` here, the exponent bits in the kernel), so
 kernel and plain version agree exactly on the row scale; two ``log2``
 implementations may differ in the last place just below a power of two.
 
+**Products.** bf16 q/k/v run both products on the tensor cores
+(``mma.sync`` m16n8k16, bf16 operands, f32 accumulation — the reference's
+``dot_general`` contract): 4 warps a block, 16 q rows each, operands read
+from bf16 shared-memory tiles by ``ldmatrix``, ``p`` rounded to bf16 in
+registers. f32 q/k/v keep FMA loops on the CUDA cores (256 threads a
+block): TF32 would round each operand to 10 mantissa bits.
+
 **Blocks.** A launch shape is ``(q_chunk, kv_chunk)`` or ``(q_chunk,
 kv_chunk, depth)`` as in the reference: ``depth`` 0 loads each kv tile
 synchronously, ``D >= 1`` streams k/v tiles through a ``D``-slot
-``cp.async`` ring (the reference's ``_kernel_pipelined``); every depth is
-bit-identical to depth 0. The kernel is compiled for one tile, 64 q rows x
-64 kv rows (:data:`TILES`). The reference's TPU blocks (256..1024 rows) are
-not carried over: one 512 x 512 f32 score tile alone is 1 MB, against the
-227 KB of shared memory an H100 block may have. The ring's shared memory
-grows with the depth, the dtype and d_head (:func:`smem_bytes`); a block is
-checked against the compiled tile, the depth limit and that memory for the
-call's dtype and d_head before any launch (:func:`check_block`), and the
-registry's candidates are checked for the worst case, f32 at d_head 128.
+``cp.async`` ring (the reference's ``_kernel_pipelined``; 16-byte copies
+for bf16, 4-byte for f32); every depth is bit-identical to depth 0. The
+kernel is compiled for one tile, 64 q rows x 64 kv rows (:data:`TILES`).
+The reference's TPU blocks (256..1024 rows) are not carried over: one
+512 x 512 f32 score tile alone is 1 MB, against the 227 KB of shared
+memory an H100 block may have. Shared memory grows with the depth, the
+dtype and d_head (:func:`smem_bytes`): every depth fits for bf16, f32 at
+d_head 128 takes depth <= 2. A block is checked against the compiled tile,
+the depth limit and that memory for the call's dtype and d_head before any
+launch (:func:`check_block`), and the registry's candidates are checked
+for the worst case, f32 at d_head 128. bf16 q, k and v must start 16-byte
+aligned (both schedules load 16 bytes at a time; :func:`check_aligned`).
 
 Each schedule's wrapper counts its own launches
 (``flash_attention_cuda`` for depth 0, ``flash_attention_pipelined_cuda``
@@ -50,8 +60,8 @@ from . import datapath as dp
 
 __all__ = ["DEFAULT_DIV_SPEC", "DEFAULT_FRAC_OUT", "TILES", "DEFAULT_BLOCK",
            "BLOCK_CANDIDATES", "split_block", "smem_bytes", "check_block",
-           "softmax_div_quantize", "softmax_div_lanes", "softmax_div",
-           "flash_attention_ref", "flash_attention_cuda",
+           "check_aligned", "softmax_div_quantize", "softmax_div_lanes",
+           "softmax_div", "flash_attention_ref", "flash_attention_cuda",
            "flash_attention_pipelined_cuda", "softmax_div_cuda"]
 
 #: divider config the attention op resolves to when no policy overrides it:
@@ -62,7 +72,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 #: (q_chunk, kv_chunk) tiles compiled into csrc/flash_attention.cu (its BQ,
-#: BK): 256 threads, a 4 x 4 score micro-tile each
+#: BK): for bf16 4 warps of 16 q rows on the tensor cores, for f32 256
+#: threads with a 4 x 4 score micro-tile each
 TILES = frozenset({(64, 64)})
 DEFAULT_BLOCK = (64, 64)
 #: the autotune's choices: depth 0 and the 2-slot ring. A deeper ring does
@@ -73,7 +84,9 @@ BLOCK_CANDIDATES = ((64, 64), (64, 64, 2))
 #: divider table (256 ints)
 _SMEM_LIMIT = 232448 - 256 * 4
 _MAX_DEPTH = 4                 # cp.async.wait_group takes an immediate
-_COPY_BYTES = 4                # the ring's cp.async copy size
+#: the bf16 kernel loads and copies q, k and v 16 bytes at a time (both
+#: schedules)
+_BF16_ALIGN = 16
 
 
 def split_block(block) -> tuple[tuple[int, int], int]:
@@ -88,16 +101,17 @@ def split_block(block) -> tuple[tuple[int, int], int]:
 
 def smem_bytes(block, dtype=torch.float32, dh: int = 128) -> int:
     """Dynamic shared memory of one CUDA block (csrc/flash_attention.cu's
-    ``smem_bytes`` / ``smem_bytes_pipe``). Depth 0: f32 q, k (rows padded
-    by one word), v and p tiles. Depth D: f32 q and p tiles plus D ring
-    slots of raw k and v rows in ``dtype``, each row padded by one 4-byte
-    word."""
+    ``smem_bytes_mma`` for bf16, ``smem_bytes`` / ``smem_bytes_pipe`` for
+    f32). bf16: a q tile and, at depth 0, one k and one v tile, at depth D,
+    D ring slots of them, all bf16 with rows padded by 16 bytes. f32 depth
+    0: q, k (rows padded by one word), v and p tiles. f32 depth D: q and p
+    tiles plus D ring slots of k and v rows, each padded by one word."""
     (bq, bk), depth = split_block(block)
+    if dtype == torch.bfloat16:
+        return 2 * (bq + 2 * max(depth, 1) * bk) * (dh + 8)
     if not depth:
         return 4 * (bq * (dh + 1) + bk * (dh + 1) + bk * dh + bq * (bk + 1))
-    item = torch.finfo(dtype).bits // 8
-    stride = dh + _COPY_BYTES // item
-    return 4 * (bq * (dh + 1) + bq * (bk + 1)) + depth * 2 * bk * stride * item
+    return 4 * (bq * (dh + 1) + bq * (bk + 1)) + depth * 2 * bk * (dh + 1) * 4
 
 
 def check_block(block, dtype=torch.float32, dh: int = 128):
@@ -118,6 +132,22 @@ def check_block(block, dtype=torch.float32, dh: int = 128):
                          f"of shared memory for {dtype} at d_head {dh}, more "
                          f"than the {_SMEM_LIMIT} an H100 block can have")
     return tile, depth
+
+
+def check_aligned(q, k, v) -> None:
+    """Raise ``ValueError`` unless bf16 q, k and v start 16-byte aligned, as
+    the kernel's 16-byte loads and copies need (rows are whole multiples of
+    16 bytes at d_head 64 / 128, so only the start can be off). f32 needs
+    nothing more than its elements' own 4-byte alignment, which is all its
+    ring's copies take."""
+    if q.dtype != torch.bfloat16:
+        return
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % _BF16_ALIGN:
+            raise ValueError(
+                f"flash_attention: {name} starts at address "
+                f"{t.data_ptr():#x}, not {_BF16_ALIGN}-byte aligned as the "
+                f"bf16 kernel's {_BF16_ALIGN}-byte loads need")
 
 
 # ---------------------------------------------------------------- divider --
@@ -253,13 +283,7 @@ def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
     if kv_len is None:
         kv_len = Skv
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if depth:
-        for name, t in (("k", k), ("v", v)):
-            if t.data_ptr() % _COPY_BYTES:
-                raise ValueError(
-                    f"flash_attention ring: {name} starts at address "
-                    f"{t.data_ptr():#x}, not {_COPY_BYTES}-byte aligned as "
-                    "its cp.async copies need")
+    check_aligned(q, k, v)
     tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
                     device=q.device, dtype=torch.int32)
     out = torch.empty_like(q)
@@ -291,12 +315,15 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
     plus ``block``, ``(64, 64)`` or ``(64, 64, depth)``: depth 0 runs (and
     counts) here, ``>= 1`` goes to :func:`flash_attention_pipelined_cuda`.
 
-    Launches on the current stream and does not synchronise; the ragged
-    edges of Sq and Skv are masked in the kernel. Raises on CPU tensors, on
-    what the kernel does not take (dtype other than f32 / bf16, d_head other
-    than 64 / 128, width 32, a block that is not compiled or whose ring does
-    not fit for this dtype and d_head) and on a failed build or launch — it
-    never gives way to another schedule or to the plain version.
+    bf16 runs QK^T and PV on the tensor cores (``mma.sync``, f32
+    accumulation), f32 on the CUDA cores (FMA, no TF32). Launches on the
+    current stream and does not synchronise; the ragged edges of Sq and Skv
+    are masked in the kernel. Raises on CPU tensors, on what the kernel does
+    not take (dtype other than f32 / bf16, d_head other than 64 / 128,
+    width 32, a block that is not compiled or whose ring does not fit for
+    this dtype and d_head, bf16 q / k / v not 16-byte aligned) and on a
+    failed build or launch — it never gives way to another schedule or to
+    the plain version.
     """
     if split_block(block)[1]:
         return flash_attention_pipelined_cuda(
@@ -317,8 +344,9 @@ def flash_attention_pipelined_cuda(q, k, v, *, block,
                                    kv_len=None,
                                    kv_group: int = 1) -> torch.Tensor:
     """The ``cp.async`` kv-ring schedule (``block`` depth >= 1);
-    bit-identical to the depth-0 schedule at every depth. k and v must be
-    4-byte aligned once contiguous."""
+    bit-identical to the depth-0 schedule at every depth. Its copies are 16
+    bytes for bf16 (q, k and v 16-byte aligned once contiguous, as depth 0
+    needs too) and 4 bytes for f32."""
     if not split_block(block)[1]:
         raise ValueError(f"block {tuple(block)} has depth 0: that is "
                          "flash_attention_cuda's schedule")

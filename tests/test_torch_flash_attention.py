@@ -277,11 +277,32 @@ def test_attention_op_registers_blocks_and_check_block_refuses():
         t_fa.check_block((64, 64, 3))
     with pytest.raises(ValueError, match="shared memory"):
         t_fa.check_block((64, 64, 4), torch.float32, 128)
-    # ... while bf16 at d_head 64 (the serving shape) fits every depth
-    for depth in range(1, 5):
-        t_fa.check_block((64, 64, depth), torch.bfloat16, 64)
-    assert t_fa.smem_bytes((64, 64, 2), torch.bfloat16, 64) == 67072
-    assert t_fa.smem_bytes((64, 64), torch.bfloat16, 64) == 66304
+    # ... while bf16 (the tensor-core body: bf16 q, k, v tiles, rows padded
+    # by 16 bytes) fits every depth at both head sizes
+    for dh in (64, 128):
+        for depth in range(1, 5):
+            t_fa.check_block((64, 64, depth), torch.bfloat16, dh)
+    assert t_fa.smem_bytes((64, 64, 2), torch.bfloat16, 64) == 46080
+    assert t_fa.smem_bytes((64, 64), torch.bfloat16, 64) == 27648
+    assert t_fa.smem_bytes((64, 64, 4), torch.bfloat16, 128) == 156672
+
+
+def test_check_aligned_refuses_bf16_views_off_16_bytes():
+    """Both bf16 schedules load q / k / v 16 bytes at a time: a bf16 k that
+    is 4-byte but not 16-byte aligned is refused by the check ``_launch``
+    runs before any launch; f32 needs only its 4-byte element alignment."""
+    flat = torch.zeros(4 * 16 * 64 + 8, dtype=torch.bfloat16)
+    assert flat.data_ptr() % 16 == 0
+    q = flat[:4 * 16 * 64].view(4, 16, 64)
+    k_off = flat[2:2 + 4 * 16 * 64].view(4, 16, 64)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 == 4
+    t_fa.check_aligned(q, q, q)
+    with pytest.raises(ValueError, match="k starts at .* not 16-byte"):
+        t_fa.check_aligned(q, k_off, q)
+    with pytest.raises(ValueError, match="v starts at .* not 16-byte"):
+        t_fa.check_aligned(q, q, k_off)
+    f = torch.zeros(4 * 16 * 64 + 1)
+    t_fa.check_aligned(*(f[1:].view(4, 16, 64),) * 3)
 
 
 def test_pipelined_wrapper_refuses_cpu_tensors_and_depth0_blocks():

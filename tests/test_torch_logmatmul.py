@@ -269,6 +269,14 @@ def test_approx_matmul_inactive_and_approx_backward():
         out.sum().backward()
 
 
+def test_approx_config_guard_raises():
+    """Guarded dispatch (the reference's ``GuardTripped``) is not ported: the
+    config refuses it instead of ignoring it."""
+    with pytest.raises(NotImplementedError, match="guarded dispatch"):
+        t_approx.ApproxConfig(mode="simdive", guard=True)
+    assert not t_approx.ApproxConfig(mode="simdive").guard
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_approx_matmul_int8_matches_reference(dtype):
     rng = np.random.default_rng(4)
