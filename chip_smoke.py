@@ -29,10 +29,18 @@ any phase fails. Phases:
               whose ring does not fit and a bf16 k off 16-byte alignment
               refused before any launch (both schedules), and its
               finalize bit-equal on given (acc, l); ``logmatmul`` bit-equal
-              for every registered block (depth 0 and the cp.async ring) at
-              the four (K, N) of smollm-360m's linears at M = 2048 and 4,
-              plus ragged shapes, zeros, INT32_MIN, width-16 wrapping sums
-              and Mitchell; ``matmul_emul`` bit-equal to its int64 plain
+              for every registered block (the skinny tiles, depth 0 and the
+              cp.async ring) and every square block (compiled, no longer
+              registered) at the four (K, N) of smollm-360m's linears at
+              M = 2048 and 4, plus ragged shapes, zeros, INT32_MIN,
+              width-16 wrapping sums and Mitchell, and decode edges around
+              the skinny tile's rows (M = 1, 3, 4, 5, 8, 9; N not a
+              multiple of 4; K not a multiple of the split; w and x 4 bytes
+              off a 16-byte boundary; (9, 2560) @ (2560, 960), which needs
+              the launch to opt in to more than 48 KB of shared memory;
+              width-16 wrapping sums at M = 4), where every ring
+              depth 1..4 of each skinny tile must also be ``torch.equal`` to
+              its depth 0; ``matmul_emul`` bit-equal to its int64 plain
               version where int32 cannot overflow; ``packed`` (4 x 8-bit /
               2 x 16-bit lanes a word) ``torch.equal`` to ``packed_ref`` for
               its registered block: the exhaustive 8-bit square (zeros
@@ -79,10 +87,12 @@ any phase fails. Phases:
               prompt 32 x 8 tokens, logits bit-equal (most rows) to a run
               whose matmuls are the plain versions and whose attention op
               runs on the same kernels, and logits and tokens within
-              the bound against the all-plain-version run; that short run
-              served twice more with the autotune
-              cache pinned (``preload_autotune_cache``) to a depth-0 block
-              and to a pipelined block — bit-identical logits required; one
+              the bound against the all-plain-version run; then served
+              twice more at full size with the autotune cache pinned
+              (``preload_autotune_cache``) to the default depth-0 block and
+              to a ring block: each run must launch only its own schedule,
+              224 a prefill and a decode step, with logits and tokens
+              bit-identical to the autotuned run's; one
               ``--emulate --quantize`` generate at full size.
 5. times    — prefill (also with each attention schedule pinned, in
               turns), decode step, generate for (a) and (b), and each
@@ -129,19 +139,36 @@ BF16_FLOPS = 989e12
 # function needs, counted from the datapath (csrc/simdive_datapath.cuh and
 # its plain version kernels/datapath.py), not the instructions a kernel
 # happens to issue. Table reads are shared-memory loads and not counted.
+# Integer multiply-adds (IMAD, which also gives an add or a constant left
+# shift) issue on the FMA pipe, 64 lanes an SM a clock beside the INT32
+# lanes; an SM issues at most 4 warp instructions a clock, 128 lanes. So
+# logmatmul's bound is the larger of its operations over 128 lanes and the
+# operations that only the INT32 lanes take over 64 (logmatmul_ops_ms); the
+# elemwise and packed counts are all taken on the INT32 lanes.
 # One signed SIMDive product at width 8 with rounding, its operands already
-# converted (log value, region-index half, zero flag, sign mask): OR of the
-# index halves and zero flags 1, index extract 1, ternary add la + lb + corr
-# 1, clip at 0 1, integer part ls >> F 1, mantissa (ls & (2^F - 1)) | 2^F 1,
-# anti-log mant << I 1, rounding add 2^(F-1) 1, >> F 1 (the two shifts give
-# the reference's round-half-up right shift and its exact left shift alike),
-# saturate to 2^16 - 1 1, zero select 1, product sign sx ^ sw 1, conditional
-# negate p ^ s 1, accumulate acc + (p ^ s) - s 1.
-LOGMATMUL_OPS_PER_PRODUCT = 14
-# Converting one operand element, once: sign mask v >> 31 1, |v| = (v ^ s) -
-# s 2, clamp to the lane 1, leading one (FLO) 1, fraction v ^ (1 << k) 2,
-# align frac << (F - k) 2, log value (k << F) | frac 1, zero flag 1.
-LOGMATMUL_OPS_PER_OPERAND = 11
+# converted (log value, region-index half as a table byte offset, sign as
+# -1 / 0 / +1, a zero magnitude having sign 0), one instruction each
+# (three-input forms such as IADD3 and LOP3 count once):
+#   INT32 lanes only: ternary add la + lb + corr 1, clip at 0 1, integer
+#   part ls >> F 1, mantissa (ls & (2^F - 1)) | 2^F 1, anti-log mant << I 1,
+#   >> F 1 (the two shifts give the reference's round-half-up right shift
+#   and its exact left shift alike), saturate to 2^16 - 1 1: 7;
+#   either pipe: table offset hx + hw (the OR of the index halves) 1,
+#   rounding add 2^(F-1) 1, product sign sx * sw 1, signed accumulate
+#   acc + p * (sx * sw) 1 (the zero select, sign join and accumulate in one
+#   multiply-add): 4.
+LOGMATMUL_OPS_PER_PRODUCT = 11
+LOGMATMUL_INT_ONLY_PER_PRODUCT = 7
+# Converting one operand element, once: INT32 lanes only: sign test 1, |v|
+# 1, clamp to the lane 1, leading one (FLO) 1, 1 << k 1, fraction
+# v ^ (1 << k) 1, align frac << (F - k) 1, zero flag 1: 8; either pipe:
+# F - k 1, log value (k << F) + frac 1: 2.
+LOGMATMUL_OPS_PER_OPERAND = 10
+LOGMATMUL_INT_ONLY_PER_OPERAND = 8
+# the earlier count, all on the INT32 lanes — 14 a product, 11 an operand —
+# which the skinny tile beats at M = 2048; reported beside the new bound
+# as superseded
+LOGMATMUL_SUPERSEDED_OPS = (14, 11)
 # One elemwise div lane (width 16, rounding; the quotient of the decode
 # finalize is below one, so the right-shift path): two LOD + log
 # conversions 2 x 6 (FLO, 1 << k, xor, F - k, shift, (k << F) | frac),
@@ -236,6 +263,14 @@ REF_PROMPT, REF_GEN = 32, 8
 # the registered attention ring block: the pinned full-width run and the
 # flash_attention_pipelined row of the kernels line use it
 ATTENTION_RING_BLOCK = (64, 64, 2)
+# the registered logmatmul ring block the full-size --emulate run is pinned
+# to (the depth-0 pin is the default block)
+MATMUL_RING_BLOCK = (4, 128, 256, 4, 2)
+# the square logmatmul blocks: compiled and callable with block=, no longer
+# registered; held against the plain version and timed beside the
+# registered blocks
+SQUARE_BLOCKS = ((64, 64, 32, 4, 0), (64, 64, 32, 4, 2), (64, 64, 32, 4, 4),
+                 (16, 64, 64, 4, 0), (16, 64, 64, 4, 3))
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
            ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
@@ -266,6 +301,18 @@ def int32_ops_per_s(dev) -> float:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60, check=True).stdout.split()[0]
     return sms * 64 * float(out) * 1e6
+
+
+def logmatmul_ops_ms(M: int, K: int, N: int, int_rate: float) -> float:
+    """Least time of (M, K) @ (K, N)'s integer operations: all of them over
+    the INT32 lanes and the FMA pipe together (2 x ``int_rate``), or those
+    only the INT32 lanes take over ``int_rate``, whichever is longer."""
+    products, operands = M * K * N, M * K + K * N
+    total = (products * LOGMATMUL_OPS_PER_PRODUCT
+             + operands * LOGMATMUL_OPS_PER_OPERAND)
+    int_only = (products * LOGMATMUL_INT_ONLY_PER_PRODUCT
+                + operands * LOGMATMUL_INT_ONLY_PER_OPERAND)
+    return max(total / (2 * int_rate), int_only / int_rate) * 1e3
 
 
 def gpu_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -339,6 +386,36 @@ def count_device_kernels(fn):
     event (tracing not available on this machine)."""
     prof = device_time_by_kernel(fn)
     return None if prof is None else sum(n for n, _ in prof[1].values())
+
+
+def skinny_ptxas(text: str) -> list:
+    """Registers and spill bytes of each skinny logmatmul instantiation,
+    from ``nvcc -Xptxas -v`` output."""
+    import re
+
+    entry = re.compile(r"Compiling entry function '\S*logmatmul_skinny_kernel"
+                       r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])")
+    found, cur = [], None
+    for line in text.splitlines():
+        m = entry.search(line)
+        if m:
+            w, mr, ku, pipe, vec = (int(g) for g in m.groups())
+            cur = {"tile": f"w{w} MR {mr} k_unroll {ku} "
+                           f"{'ring' if pipe else 'depth 0'} "
+                           f"{'16-byte' if vec else 'scalar'} loads"}
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            cur["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used.group(1))
+            found.append(cur)
+            cur = None
+    return found
 
 
 def close(got, want, *, atol, rtol):
@@ -617,8 +694,9 @@ def check_attention(dev):
 
 
 def check_logmatmul(dev):
-    """Every registered block vs ``logmatmul_ref``, bit for bit. Returns
-    (worst abs difference, {(M, K, N): plain-version ms})."""
+    """Every registered block vs ``logmatmul_ref``, bit for bit; at decode
+    shapes also every ring depth of each skinny tile against its depth 0.
+    Returns (worst abs difference, {(M, K, N): plain-version ms})."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import get_op
@@ -626,15 +704,21 @@ def check_logmatmul(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     blocks = get_op("matmul_int", SimdiveSpec()).entry.block_candidates
+    # each skinny tile's registered depth-0 block, to be held against its
+    # ring at every depth the kernel takes
+    skinny0 = [b for b in blocks if lm.is_skinny(b) and b[4] == 0]
+    blocks = (*blocks, *SQUARE_BLOCKS)
+    require(bool(skinny0), "no skinny depth-0 block is registered")
     plain_ms = {}
     worst = 0
+    ring_runs = 0
 
     def ints(shape, hi):
         return torch.randint(-hi + 1, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def run(name, x, w, spec, timed=False):
-        nonlocal worst
+    def run(name, x, w, spec, timed=False, depths=False):
+        nonlocal worst, ring_runs
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -644,8 +728,9 @@ def check_logmatmul(dev):
         if timed:
             plain_ms[(x.shape[0], x.shape[1], w.shape[1])] = \
                 start.elapsed_time(end)
+        got_by = {}
         for block in blocks:
-            got = lm.logmatmul_cuda(x, w, spec, block)
+            got = got_by[block] = lm.logmatmul_cuda(x, w, spec, block)
             torch.cuda.synchronize()
             require(got.dtype == torch.int32 and got.shape == want.shape,
                     f"logmatmul {name} block {block}: dtype/shape "
@@ -656,13 +741,55 @@ def check_logmatmul(dev):
             require(nbad == 0,
                     f"logmatmul {name} block {block}: {nbad} of "
                     f"{want.numel()} outputs differ from the plain version")
-        log(f"  logmatmul {name}: bit-equal for all {len(blocks)} blocks")
+        if depths:
+            for b0 in skinny0:
+                for depth in range(1, lm._MAX_DEPTH + 1):
+                    ring = (*b0[:4], depth)
+                    got = lm.logmatmul_cuda(x, w, spec, ring)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got, got_by[b0]),
+                            f"logmatmul {name}: skinny ring {ring} differs "
+                            f"from its depth 0 {b0}")
+                    ring_runs += 1
+        log(f"  logmatmul {name}: bit-equal for all {len(blocks)} blocks "
+            "(registered and square)"
+            + (f"; skinny rings at depths 1..{lm._MAX_DEPTH} equal to "
+               "depth 0" if depths else ""))
 
     serving = SimdiveSpec(width=8, coeff_bits=6)
     for M in (2048, 4):
         for K, N in sorted({(k, n) for _, k, n in LINEARS}):
             x, w = ints((M, K), 256), ints((K, N), 256)
-            run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True)
+            run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True,
+                depths=M == 4)
+    # decode edges: rows around the skinny tiles' 4 and 8; N = 388 takes
+    # the 16-byte weight loads, N = 131 the scalar ones; K = 777 and 1001
+    # are multiples of no split; zeros and INT32_MIN in both operands
+    for M in (1, 3, 4, 5, 8, 9):
+        for K, N in ((777, 388), (1001, 131)):
+            x, w = ints((M, K), 256), ints((K, N), 256)
+            x[0, :7] = 0
+            w[:, 2] = 0
+            x[-1, 9] = -(1 << 31)
+            w[5, :3] = -(1 << 31)
+            run(f"decode edge ({M},{K})@({K},{N}), zeros, INT32_MIN", x, w,
+                serving, depths=True)
+    # 47,360 bytes of dynamic shared memory for the 8-row tile: with the
+    # static table over the 48 KB a launch gets without opting in
+    run("decode edge (9,2560)@(2560,960)", ints((9, 2560), 256),
+        ints((2560, 960), 256), serving, depths=True)
+    # operands 4 bytes off a 16-byte boundary (contiguous views into a
+    # larger buffer): the skinny tile must take its scalar loads
+    for M, K, N in ((4, 960, 960), (5, 960, 388)):
+        xb = torch.empty(M * K + 1, dtype=torch.int32, device=dev)
+        wb = torch.empty(K * N + 1, dtype=torch.int32, device=dev)
+        x, w = xb[1:].view(M, K), wb[1:].view(K, N)
+        x.copy_(ints((M, K), 256))
+        w.copy_(ints((K, N), 256))
+        require(w.data_ptr() % 16 == 4 and w.is_contiguous(),
+                "the offset view is not 4 bytes off a 16-byte boundary")
+        run(f"4-byte-offset views ({M},{K})@({K},{N})", x, w, serving,
+            depths=True)
     x, w = ints((37, 50), 256), ints((50, 17), 256)
     x[0] = 0
     w[:, 3] = 0
@@ -672,10 +799,12 @@ def check_logmatmul(dev):
     run("ragged (100,130)@(130,70) mitchell", ints((100, 130), 256),
         ints((130, 70), 256),
         SimdiveSpec(width=8, coeff_bits=0, round_output=False))
-    x, w = ints((64, 960), 1 << 16), ints((960, 96), 1 << 16)
-    x[:, :200], w[:200] = 65535, 65535          # sums past 2^31: they wrap
-    run("w16 cb8 ib4 (64,960)@(960,96), wrapping sums", x, w,
-        SimdiveSpec(width=16, coeff_bits=8, index_bits=4))
+    for M in (64, 4):
+        x, w = ints((M, 960), 1 << 16), ints((960, 96), 1 << 16)
+        x[:, :200], w[:200] = 65535, 65535      # sums past 2^31: they wrap
+        run(f"w16 cb8 ib4 ({M},960)@(960,96), wrapping sums", x, w,
+            SimdiveSpec(width=16, coeff_bits=8, index_bits=4),
+            depths=M == 4)
 
     # matmul_emul: the kernel path vs the int64 plain version (width 8 at
     # K <= 2560 cannot overflow int32: 2560 * 255^2 < 2^31)
@@ -694,6 +823,8 @@ def check_logmatmul(dev):
                 f"matmul_emul ({M},{K})@({K},{N}): kernel path differs from "
                 "the int64 plain version")
     log("  matmul_emul: kernel path bit-equal to the int64 plain version")
+    log(f"  logmatmul skinny rings: {ring_runs} (case, tile, depth) runs "
+        "equal to their depth 0")
     return float(worst), plain_ms
 
 
@@ -1322,25 +1453,29 @@ def serve_emulate_path(dev, params, prompts):
             "an emulate greedy token decided by more than twice the logit "
             "tolerance differs from the plain-version run")
 
-    # both schedules on the path: pin every shape bucket to one, then other
+    # both schedules on the path, at full size: pin every shape bucket to
+    # the default (depth-0) block, then to the ring block
     tuned = export_autotune_cache()
-    pinned = {}
-    for name, block in (("depth 0", lm.DEFAULT_BLOCK),
-                        ("pipelined", (64, 64, 32, 4, 2))):
+    pinned, pinned_counts = {}, {}
+    for block, own, other in (
+            (lm.DEFAULT_BLOCK, "matmul", "matmul_pipelined"),
+            (MATMUL_RING_BLOCK, "matmul_pipelined", "matmul")):
         require(_pin_blocks("matmul_emul", block) > 0, "nothing to pin")
         reset_launch_counts()
-        pinned[name] = serve.generate(lm_e, params, short, short_seq,
-                                      REF_GEN, return_logits=True)[1]
+        pinned[own] = serve.generate(lm_e, params, prompts, max_seq, GEN,
+                                     return_logits=True)
+        torch.cuda.synchronize()
         c = launch_counts()
-        want_key = "matmul" if block[4] == 0 else "matmul_pipelined"
-        require(c[want_key] == _matmul_launches(c) > 0,
-                f"pinned to {name} {block}, launches were {c}")
-        log(f"  pinned to {name} {block}: launches {c}")
-    require(torch.equal(pinned["depth 0"], pinned["pipelined"]),
-            "depth-0 and pipelined schedules gave different logits")
-    require(torch.equal(pinned["depth 0"], log_k),
-            "the pinned and the autotuned runs gave different logits")
-    log("  depth-0 and pipelined schedules: bit-identical logits")
+        log(f"  emulate pinned to matmul block {block}: launches {c}")
+        require(c[own] == n_lin * GEN and c[other] == 0,
+                f"pinned to {block}, launches were {c}")
+        pinned_counts[own] = c[own]
+    for own, (tok_p, log_p) in pinned.items():
+        require(torch.equal(tok_p, tokens) and torch.equal(log_p, logits),
+                f"emulate pinned to the {own} schedule: tokens or logits "
+                "differ from the autotuned run's")
+    log("  emulate, depth-0 and ring matmul schedules: bit-identical logits "
+        "and tokens, equal to the autotuned run's")
     clear_autotune_cache()
     preload_autotune_cache(tuned)                # back to the tuned blocks
 
@@ -1355,7 +1490,8 @@ def serve_emulate_path(dev, params, prompts):
             "bad --emulate --quantize output")
     require(q_counts == counts, f"--quantize launches {q_counts} != {counts}")
     log(f"  --emulate --quantize: finite logits, launches {q_counts}")
-    return dict(lm=lm_e, counts=counts, first_run_s=run_s, tune_s=tune_s,
+    return dict(lm=lm_e, counts=counts, pinned_counts=pinned_counts,
+                first_run_s=run_s, tune_s=tune_s,
                 autotune_picks={f"{k}": v for k, v in picks.items()},
                 logit_err=err, equal_row_share=equal_rows,
                 tokens_equal=int(agree.sum()),
@@ -1582,7 +1718,8 @@ def measure(dev, served, int_rate):
 
 def measure_logmatmul(dev, plain_ms, int_rate):
     """Both schedules at the main path's shapes. Per (M, K, N): every
-    registered block by graph replay, the fastest of each schedule kept,
+    registered block and every square block by graph replay, the fastest
+    registered block of each schedule kept,
     its eager per-call time, the plain version's time (phase 3), the bound
     and the exact bf16 ``torch.matmul`` of the same shape as context. The
     kernel lines sum the seven linears of one layer at M = 2048."""
@@ -1592,7 +1729,8 @@ def measure_logmatmul(dev, plain_ms, int_rate):
     from repro_torch.kernels import logmatmul as lm
 
     spec = SimdiveSpec(width=8, coeff_bits=6)
-    blocks = get_op("matmul_int", spec).entry.block_candidates
+    registered = get_op("matmul_int", spec).entry.block_candidates
+    blocks = (*registered, *SQUARE_BLOCKS)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     shapes = {}
     for M in (2048, 4):
@@ -1608,7 +1746,7 @@ def measure_logmatmul(dev, plain_ms, int_rate):
             row = {"by_block": {str(b): t for b, t in by_block.items()}}
             for sched, depth0 in (("logmatmul", True),
                                   ("logmatmul_pipelined", False)):
-                best = min((b for b in blocks if (b[4] == 0) == depth0),
+                best = min((b for b in registered if (b[4] == 0) == depth0),
                            key=by_block.get)
                 row[sched] = {"block": best, "ms": by_block[best],
                               "eager_ms": gpu_time_ms(
@@ -1618,9 +1756,16 @@ def measure_logmatmul(dev, plain_ms, int_rate):
             xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
             row["exact_linear_ms"] = gpu_graph_time_ms(lambda: xb @ wb,
                                                        iters=20)
-            row["ops_ms"] = (M * K * N * LOGMATMUL_OPS_PER_PRODUCT
-                             + (M * K + K * N) * LOGMATMUL_OPS_PER_OPERAND
-                             ) / int_rate * 1e3
+            # what zeroing the (M, N) output costs alone, as a split of K
+            # needs before its atomics (a PyTorch fill kernel standing in
+            # for the launch's cudaMemsetAsync)
+            zeros = torch.empty((M, N), dtype=torch.int32, device=dev)
+            row["zero_out_ms"] = gpu_graph_time_ms(zeros.zero_, iters=50)
+            row["ops_ms"] = logmatmul_ops_ms(M, K, N, int_rate)
+            per_product, per_operand = LOGMATMUL_SUPERSEDED_OPS
+            row["ops_ms_superseded"] = (M * K * N * per_product
+                                        + (M * K + K * N) * per_operand
+                                        ) / int_rate * 1e3
             row["bytes_ms"] = (M * K + K * N + M * N) * 4 \
                 / HBM_BYTES_PER_S * 1e3
             row["plain_ms"] = plain_ms[(M, K, N)]
@@ -1639,6 +1784,15 @@ def measure_logmatmul(dev, plain_ms, int_rate):
     def layer_sched(M, sched, key):
         return sum(shapes[(M, k, n)][sched][key] for _, k, n in LINEARS)
 
+    def layer_by_block(M):
+        return {str(b): sum(shapes[(M, k, n)]["by_block"][str(b)]
+                            for _, k, n in LINEARS) for b in blocks}
+
+    for M in (4, 2048):
+        log(f"  logmatmul, one layer's 7 linears at M = {M}, by block: "
+            + "; ".join(f"{b} {t:.5f} ms"
+                        for b, t in layer_by_block(M).items()))
+
     kernels, times = [], {}
     for sched, replaces in (
             ("logmatmul", "src/repro/kernels/logmatmul.py:101"),
@@ -1655,17 +1809,26 @@ def measure_logmatmul(dev, plain_ms, int_rate):
             "plain_ms": layer(2048, "plain_ms"),
             "bound_ms": max(ops, nbytes),
             "bound_by": "operations" if ops >= nbytes else "bytes",
+            "bound_ms_superseded": max(layer(2048, "ops_ms_superseded"),
+                                       nbytes),
             "library_ms": None,
             "eager_ms": layer_sched(2048, sched, "eager_ms"),
             "decode_layer_ms": layer_sched(4, sched, "ms"),
             "decode_layer_bound_ms": max(layer(4, "ops_ms"),
                                          layer(4, "bytes_ms")),
+            "decode_layer_bound_ms_superseded": max(
+                layer(4, "ops_ms_superseded"), layer(4, "bytes_ms")),
             "decode_layer_plain_ms": layer(4, "plain_ms"),
             "blocks": {f"{M},{K},{N}": list(r[sched]["block"])
                        for (M, K, N), r in shapes.items()},
+            "decode_blocks": {f"{K},{N}": list(r[sched]["block"])
+                              for (M, K, N), r in shapes.items() if M == 4},
+            "decode_layer_ms_by_block": layer_by_block(4),
+            "prefill_layer_ms_by_block": layer_by_block(2048),
         })
     times["exact_linear_layer_prefill_ms"] = layer(2048, "exact_linear_ms")
     times["exact_linear_layer_decode_ms"] = layer(4, "exact_linear_ms")
+    times["zero_out_layer_decode_ms"] = layer(4, "zero_out_ms")
     times["int32_ops_per_s"] = int_rate
     return kernels, times, {f"{k}": v for k, v in shapes.items()}
 
@@ -1825,11 +1988,18 @@ def main(argv=None) -> int:
     build.load()
     build_s = time.perf_counter() - t0
     log(f"[2/5] build: kernels compiled and loaded in {build_s:.1f}s")
+    skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
-        for line in logf.read_text().splitlines():
+        text = logf.read_text()
+        for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line
                     or ("Compiling entry" in line and "flash" in line)):
                 log("  ptxas: " + line.strip()[:200])
+        skinny_regs += skinny_ptxas(text)
+    for r in skinny_regs:
+        log(f"  ptxas, skinny logmatmul tile {r['tile']}: {r['registers']} "
+            f"registers, {r['spill_bytes']} bytes spilled")
+    require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
 
     log("[3/5] kernels vs plain versions")
     ew_err = check_elemwise(dev)
@@ -1850,9 +2020,12 @@ def main(argv=None) -> int:
     log("[5/5] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
-        f"clock); integer operations the functions need: "
-        f"{LOGMATMUL_OPS_PER_PRODUCT} per logmatmul product + "
-        f"{LOGMATMUL_OPS_PER_OPERAND} per operand element, "
+        f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
+        f"integer operations the functions need: "
+        f"{LOGMATMUL_OPS_PER_PRODUCT} per logmatmul product "
+        f"({LOGMATMUL_INT_ONLY_PER_PRODUCT} on the INT32 lanes only) + "
+        f"{LOGMATMUL_OPS_PER_OPERAND} per operand element "
+        f"({LOGMATMUL_INT_ONLY_PER_OPERAND}), "
         f"{ELEMWISE_OPS_PER_LANE} per elemwise div lane, "
         f"{PACKED_OPS_PER_LANE} per packed width-8 lane")
     kernels, times = measure(dev, served, int_rate)
@@ -1877,12 +2050,17 @@ def main(argv=None) -> int:
     kernels.append(packed_row)
     counts, counts_e = served["counts"], served_e["counts"]
     pinned = served["pinned_counts"]
-    for kern, n, err in (
-            (kernels[0], counts["elemwise"], ew_err),
-            (kernels[3], counts_e["matmul"], mm_err),
-            (kernels[4], counts_e["matmul_pipelined"], mm_err)):
-        kern["launches"] = n
-        kern["max_abs_err"] = err
+    kernels[0]["launches"] = counts["elemwise"]
+    kernels[0]["max_abs_err"] = ew_err
+    # logmatmul: the autotuned full-size --emulate run plus the full-size
+    # run pinned to the row's schedule, each zeroed just before and read
+    # just after, as for attention below
+    for kern, name in ((kernels[3], "matmul"),
+                       (kernels[4], "matmul_pipelined")):
+        kern["launches_autotuned"] = counts_e[name]
+        kern["launches_pinned"] = served_e["pinned_counts"][name]
+        kern["launches"] = counts_e[name] + served_e["pinned_counts"][name]
+        kern["max_abs_err"] = mm_err
     # attention: the autotuned divider-only run plus the full-width run
     # pinned to the row's schedule, each zeroed just before and read just
     # after, so that a schedule the autotune did not pick still shows on
@@ -1895,11 +2073,12 @@ def main(argv=None) -> int:
         kern["launches"] = counts[name] + pinned[name][name]
         kern["max_abs_err"] = att_errs[tag + "main"]
         kern["max_abs_err_all_cases"] = att_errs[tag + "all"]
-    for kern in kernels[:3] + kernels[5:]:
+    for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
-    require(kernels[3]["launches"] + kernels[4]["launches"]
-            == 7 * 32 * GEN, "logmatmul launches on the emulate path")
+    require(kernels[3]["launches_autotuned"]
+            + kernels[4]["launches_autotuned"] == 7 * 32 * GEN,
+            "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
     total_s = time.perf_counter() - t_start

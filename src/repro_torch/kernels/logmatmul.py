@@ -26,6 +26,15 @@ own tiles (:data:`TILES`) are compiled into the kernel; every block the
 registry offers is checked against them and against the shared-memory
 limit when it is registered (:func:`check_block`).
 
+A **skinny** block (``bn`` = :data:`SKINNY_BN`, ``bm`` = 4 or 8 rows) has
+all ``bm`` rows in registers, 128 columns across a warp's lanes and 8 warps
+splitting K; it is the default and the only kind the autotune times. Its
+``bk`` is the most K rows one CUDA block covers — the kernel splits K
+across blocks in ranges of at most ``bk`` (fewer when that fills the card)
+and stages x for that range in shared memory; the weights do not pass
+through shared memory at depth 0, and at depth ``D >= 1`` each warp
+streams ``k_unroll`` weight rows a step through a ``D``-slot ring.
+
 Each schedule's wrapper counts its own launches (``logmatmul_cuda`` for
 depth 0, ``logmatmul_pipelined_cuda`` for the ring), so a run's launch
 counts show which schedule served it.
@@ -39,23 +48,31 @@ from repro_torch.core.simdive import SimdiveSpec
 from . import build
 from . import datapath as dp
 
-__all__ = ["TILES", "DEFAULT_K_UNROLL", "DEFAULT_BLOCK", "BLOCK_CANDIDATES",
-           "split_block", "smem_bytes", "check_block", "logmatmul_ref",
+__all__ = ["TILES", "SKINNY_BN", "DEFAULT_K_UNROLL", "DEFAULT_BLOCK",
+           "BLOCK_CANDIDATES", "split_block", "is_skinny", "smem_bytes",
+           "check_block", "logmatmul_ref",
            "logmatmul_cuda", "logmatmul_pipelined_cuda"]
 
-#: (bm, bn, k_unroll) tiles compiled into csrc/logmatmul.cu (its
-#: LOGMATMUL_TILES list): 64 x 64 for the prefill's M = 2048, 16 x 64 for
-#: the decode step's M = 4; 256 threads, a 4 x 4 or 1 x 4 register tile each
-TILES = frozenset({(64, 64, 4), (16, 64, 4)})
+#: columns of a skinny tile: 32 lanes x 4 adjacent columns
+SKINNY_BN = 128
+_SKINNY_WARPS = 8
+#: (bm, bn, k_unroll) tiles compiled into csrc/logmatmul.cu: skinny tiles
+#: (LOGMATMUL_SKINNY_TILES: bm = 4 or 8 rows x 128 columns, 8 warps, bm x 4
+#: accumulators a thread), which serve the decode step's M = 4 and the
+#: prefill's M = 2048 alike, and the earlier square tiles (LOGMATMUL_TILES,
+#: 256 threads, a 4 x 4 or 1 x 4 register tile each: 64 x 64 and 16 x 64),
+#: still compiled and callable with ``block=`` but no longer offered to the
+#: autotune: on an H100 a skinny block beat them at every (M, K, N) of the
+#: serving path
+TILES = frozenset({(64, 64, 4), (16, 64, 4),
+                   (4, SKINNY_BN, 4), (8, SKINNY_BN, 4)})
 DEFAULT_K_UNROLL = 4
 #: (bm, bn, bk, k_unroll, depth)
-DEFAULT_BLOCK = (64, 64, 32, 4, 0)
+DEFAULT_BLOCK = (8, SKINNY_BN, 256, 4, 0)
 BLOCK_CANDIDATES = (
-    (64, 64, 32, 4, 0),
-    (64, 64, 32, 4, 2),
-    (64, 64, 32, 4, 4),
-    (16, 64, 64, 4, 0),
-    (16, 64, 64, 4, 3),
+    (8, SKINNY_BN, 256, 4, 0),
+    (4, SKINNY_BN, 256, 4, 0),
+    (4, SKINNY_BN, 256, 4, 2),
 )
 #: shared memory a block may use on Hopper, less the static coefficient
 #: table (kMaxTable ints) the kernel keeps beside the dynamic slab ring
@@ -78,11 +95,25 @@ def split_block(block) -> tuple[tuple[int, int, int], int, int]:
     raise ValueError(f"a matmul block has 3, 4 or 5 components, got {block}")
 
 
+def is_skinny(block) -> bool:
+    """Whether ``block`` names a skinny-M tile (``bn`` = :data:`SKINNY_BN`)."""
+    return split_block(block)[0][1] == SKINNY_BN
+
+
 def smem_bytes(block) -> int:
-    """Dynamic shared memory of one CUDA block: ``max(depth, 1)`` slab
-    slots of an x slab (bm rows of bk + 1 words: the pad keeps the column
-    reads conflict-free) and a w slab (bk x bn words)."""
-    (bm, bn, bk), _, depth = split_block(block)
+    """Dynamic shared memory of one CUDA block, at most.
+
+    Square tiles: ``max(depth, 1)`` slab slots of an x slab (bm rows of
+    bk + 1 words: the pad keeps the column reads conflict-free) and a w
+    slab (bk x bn words). Skinny tiles: three words per x element of the
+    block's K range (bm x bk), the 8 warps' partial sums (8 x bm x 128
+    words) and, at depth ``D >= 1``, the weight ring (8 warps x D slots x
+    k_unroll rows x 128 words); no w slab at depth 0.
+    """
+    (bm, bn, bk), ku, depth = split_block(block)
+    if bn == SKINNY_BN:
+        return (3 * bm * bk + _SKINNY_WARPS * bm * bn
+                + _SKINNY_WARPS * depth * ku * bn) * 4
     return max(depth, 1) * (bm * (bk + 1) + bk * bn) * 4
 
 

@@ -124,7 +124,7 @@ def test_registry_surface():
         del registry._REGISTRY["one_tile"]
     assert shape_bucket((3, 100, 64)) == (4, 128, 64)
     assert get_op("matmul_emul", TSpec()).entry.default_block == \
-        (64, 64, 32, 4, 0)
+        (8, 128, 256, 4, 0)
     with pytest.raises(KeyError, match="unknown op"):
         get_op("sqrt", TSpec())             # not ported
     with pytest.raises(NotImplementedError, match="width 32"):

@@ -8,9 +8,10 @@ interpret mode — depth 0 and the pipelined schedule at every depth x
 reference's int64 oracle in its fast and faithful forms. Float stages:
 ``quantize_sign_magnitude`` equal, ``approx_matmul`` /
 ``approx_matmul_int8`` within the tolerance stated below, straight-through
-gradients against ``jax.grad``. Also the dispatch and the block autotune
-(timed here with CPU callables standing in for kernels: no kernel runs on
-this host).
+gradients against ``jax.grad``. Also the dispatch, the registered blocks
+— the skinny-M tiles' shared-memory formula and refusals among them — and
+the block autotune (timed here with CPU callables standing in for kernels:
+no kernel runs on this host).
 """
 import numpy as np
 import jax
@@ -93,6 +94,11 @@ SPECS = [dict(width=8, coeff_bits=6),
     ((20, 72, 33), (16, 16, 24)),     # padding every axis
     ((8, 8, 8), (8, 8, 8)),
     ((33, 50, 17), (16, 32, 32)),
+    # decode shapes around the skinny tiles' 4 and 8 rows, ragged N and K
+    ((1, 50, 17), (8, 16, 16)),
+    ((4, 50, 17), (8, 16, 16)),
+    ((5, 50, 17), (8, 16, 16)),
+    ((9, 50, 17), (8, 16, 16)),
 ])
 def test_matmul_int_ref_matches_reference(spec, mkn, blocks):
     M, K, N = mkn
@@ -101,6 +107,7 @@ def test_matmul_int_ref_matches_reference(spec, mkn, blocks):
     w = _ints((K, N), hi, seed=N).astype(np.int32)
     x[0, :3] = 0                                       # zero magnitudes
     w[1, :2] = 0
+    x[-1, -1], w[-1, -1] = INT32_MIN, INT32_MAX        # clamp to the lane
     rs = RSpec(**spec)
     want_ref = np.asarray(r_get_op("matmul_int", rs, "ref")(
         jnp.asarray(x), jnp.asarray(w)))
@@ -364,6 +371,60 @@ def test_matmul_dispatch_and_blocks_on_cpu():
     assert lm.split_block((64, 64, 32, 8)) == ((64, 64, 32), 8, 0)
 
 
+SKINNY = [b for b in lm.BLOCK_CANDIDATES if lm.is_skinny(b)]
+
+
+@pytest.mark.parametrize("block", SKINNY, ids=str)
+def test_skinny_blocks_are_compiled_and_fit(block):
+    """Every registered skinny-M block is a compiled tile, passes
+    check_block and fits an H100 block's shared memory."""
+    (bm, bn, bk), ku, depth = lm.check_block(block)
+    assert bn == lm.SKINNY_BN and (bm, bn, ku) in lm.TILES
+    assert bm in (4, 8)
+    assert lm.smem_bytes(block) <= 227 * 1024
+
+
+def test_skinny_smem_formula_and_refusals():
+    """The skinny tile's shared memory: 3 words per staged x element, the 8
+    warps' partial sums, and the per-lane weight ring at depth >= 1 — no w
+    slab at depth 0."""
+    # 3 x 4 x 256 x-words + 8 warps x 4 rows x 128 sums, 4 bytes each
+    assert lm.smem_bytes((4, 128, 256, 4, 0)) == (3072 + 4096) * 4 == 28672
+    # + 8 warps x 2 slots x 4 rows x 32 lanes x 16 bytes
+    assert lm.smem_bytes((4, 128, 256, 4, 2)) == 28672 + 32768
+    assert lm.smem_bytes((8, 128, 64, 4, 0)) == (3 * 8 * 64 + 8 * 8 * 128) * 4
+    # a ring that does not fit an SM's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        lm.check_block((4, 128, 4096, 4, 4))
+    lm.check_block((4, 128, 4096, 4, 0))               # depth 0 still fits
+    # skinny row counts that are not compiled
+    for bm in (2, 16):
+        with pytest.raises(ValueError, match="not a compiled tile"):
+            lm.check_block((bm, 128, 256, 4, 0))
+    with pytest.raises(ValueError, match="not a compiled tile"):
+        lm.check_block((4, 128, 256, 8, 2))              # k_unroll 8
+    with pytest.raises(ValueError, match="depth"):
+        lm.check_block((4, 128, 256, 4, 5))
+    assert lm.is_skinny(lm.DEFAULT_BLOCK)
+    assert lm.is_skinny((8, 128, 64))
+    assert not lm.is_skinny((64, 64, 32, 4, 0))
+
+
+def test_block_candidates_hold_skinny_blocks_of_both_schedules():
+    """The autotune can pick the skinny tile in either schedule, and only
+    the skinny tile; the square tiles stay compiled and callable."""
+    depths = {b[4] > 0 for b in SKINNY}
+    assert depths == {False, True}
+    assert {(b[0], b[1]) for b in lm.BLOCK_CANDIDATES} == {(4, 128), (8, 128)}
+    assert SKINNY == list(lm.BLOCK_CANDIDATES)
+    entry = get_op("matmul_emul", TSpec(width=8, coeff_bits=6)).entry
+    assert set(SKINNY) == set(entry.block_candidates)
+    assert entry.default_block == lm.DEFAULT_BLOCK == (8, 128, 256, 4, 0)
+    for square in ((64, 64, 32, 4, 0), (64, 64, 32, 4, 2), (64, 64, 32, 4, 4),
+                   (16, 64, 64, 4, 0), (16, 64, 64, 4, 3)):
+        lm.check_block(square)
+
+
 def test_autotune_measures_once_caches_and_round_trips(monkeypatch):
     """The measure-and-cache loop, driven with CPU callables in place of a
     kernel: the fastest candidate wins and is cached under the reference's
@@ -403,8 +464,8 @@ def test_autotune_measures_once_caches_and_round_trips(monkeypatch):
         clear_autotune_cache()
         real = registry._REGISTRY["matmul_emul"]
         pinned = [{"key": records[0]["key"], "block": list(blk)}
-                  for blk in (real.block_candidates[3], (128, 128, 128))]
+                  for blk in (real.block_candidates[-1], (128, 128, 128))]
         assert preload_autotune_cache(pinned) == 1   # the TPU block is refused
-        assert list(autotune_cache().values()) == [real.block_candidates[3]]
+        assert list(autotune_cache().values()) == [real.block_candidates[-1]]
     finally:
         clear_autotune_cache()
