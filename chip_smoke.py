@@ -28,7 +28,14 @@ any phase fails. Phases:
               depth-0 kernel (and so within the same tolerances), a depth
               whose ring does not fit and a bf16 k off 16-byte alignment
               refused before any launch (both schedules), and its
-              finalize bit-equal on given (acc, l); ``logmatmul`` bit-equal
+              finalize bit-equal on given (acc, l); ``decode_attention``
+              (one decode step's attention and its finalize) within the
+              same tolerances (f32 / bf16, d_head 64 / 128, exact and
+              SIMDive divide, scalar and per-row positions, pos 0 and
+              Smax - 1, ``ring_full`` before and after the wrap, a
+              window, G 1 / 3 / 8, a history longer than one chunk, the
+              main path's shape), and G 9 and a position tensor left on
+              the CPU refused before any launch; ``logmatmul`` bit-equal
               for every registered block (the skinny tiles, depth 0 and the
               cp.async ring) and every square block (compiled, no longer
               registered) at the four (K, N) of smollm-360m's linears at
@@ -64,6 +71,10 @@ any phase fails. Phases:
               frames — for mul, div and mixed: the ``packed`` count must
               move by exactly the calls made, and every result, at both
               sizes, must equal the plain version's on the same operands.
+              (e) ``measure_error(kernel="elemwise")`` on the card for mul
+              and div at width 8, coeff_bits 6: its error objects must
+              equal the same call's on the plain version, with exactly
+              two ``elemwise`` launches.
               Then the serving path at the full width of smollm-360m: batch 4,
               prompt 512, 32 greedy tokens, random weights from a seed,
               through ``launch.serve.generate``, twice:
@@ -72,7 +83,9 @@ any phase fails. Phases:
               kernels' launch counters are zeroed just before and read just
               after: 32 attention launches (one per layer of the prefill,
               depth-0 and ring schedules together, as the autotune chose)
-              and 32 elemwise launches per decode step are required. The
+              and 32 decode_attention launches per decode step (and no
+              elemwise launch) are required; one decode step alone must
+              launch 32 decode_attention kernels and nothing else. The
               same model is then run through the plain versions
               (``backend="ref"``, on the GPU, fed the same tokens) and
               logits and tokens are compared. Then served twice more at
@@ -83,7 +96,8 @@ any phase fails. Phases:
               the autotuned run's.
               (b) ``--approx simdive --emulate`` with the block autotune on:
               224 ``logmatmul`` launches (seven linears x 32 layers) per
-              prefill and per decode step besides (a)'s; at batch 4 x
+              prefill and per decode step besides (a)'s (32
+              decode_attention a step, no elemwise); at batch 4 x
               prompt 32 x 8 tokens, logits bit-equal (most rows) to a run
               whose matmuls are the plain versions and whose attention op
               runs on the same kernels, and logits and tokens within
@@ -99,11 +113,14 @@ any phase fails. Phases:
               kernel at the main path's shapes beside its bound, its plain
               version (``packed``: at both sizes of phase 4, for each op,
               at 128, 256 and 512 threads a block, beside the elemwise
-              kernel and an exact ``torch.mul`` on the same lanes unpacked)
-              and — for attention — one
+              kernel and an exact ``torch.mul`` on the same lanes unpacked;
+              ``elemwise``: at measure_error's 8-bit square) and — for
+              attention and decode_attention — one
               ``scaled_dot_product_attention`` call as the yardstick (timed
               here; the port never calls it) — attention for each
-              schedule and ring depth —, and the number of kernels one
+              schedule and ring depth; decode_attention at the decode
+              step's shape, its SDPA over the cache plus the new token
+              with a boolean mask —, and the number of kernels one
               decode step puts on the card. A kernel's ``ms`` (and
               ``library_ms``) is device time with the host taken out (many
               launches replayed from one CUDA graph); the eager per-call
@@ -500,6 +517,26 @@ def check_elemwise(dev) -> float:
     return float(worst)
 
 
+def judge_attention(name, got, want, dtype, approx):
+    """Hold an attention kernel's output to its plain version's: TOL_F32 /
+    TOL_BF16, and with the SIMDive divide TOL_APPROX_EXTRA more, at most
+    APPROX_OUTLIER_SHARE of the elements outside that and none outside
+    TOL_APPROX_LOOSE. Returns (max abs err, share outside the bound)."""
+    import torch
+
+    tol = dict(TOL_F32 if dtype == torch.float32 else TOL_BF16)
+    if approx:
+        tol["atol"] += TOL_APPROX_EXTRA
+        ok, err, share = close(got, want, **tol)
+        loose_ok, _, _ = close(got, want, **TOL_APPROX_LOOSE)
+        ok = loose_ok and share <= APPROX_OUTLIER_SHARE
+    else:
+        ok, err, share = close(got, want, **tol)
+    require(ok, f"attention {name}: max_abs_err {err:.3e}, share outside "
+                f"the bound {share:.3e} (tolerance {tol})")
+    return err, share
+
+
 def check_attention(dev):
     """Both schedules vs the plain version. Returns a dict: max abs err at
     the main path's shape and the worst over all cases, for the depth-0
@@ -512,23 +549,11 @@ def check_attention(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs = {"main": 0.0, "all": 0.0, "pipe_main": 0.0, "pipe_all": 0.0,
             "ring_runs": 0}
+    judge = judge_attention
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(dtype)
-
-    def judge(name, got, want, dtype, approx):
-        tol = dict(TOL_F32 if dtype == torch.float32 else TOL_BF16)
-        if approx:
-            tol["atol"] += TOL_APPROX_EXTRA
-            ok, err, share = close(got, want, **tol)
-            loose_ok, _, _ = close(got, want, **TOL_APPROX_LOOSE)
-            ok = loose_ok and share <= APPROX_OUTLIER_SHARE
-        else:
-            ok, err, share = close(got, want, **tol)
-        require(ok, f"attention {name}: max_abs_err {err:.3e}, share outside "
-                    f"the bound {share:.3e} (tolerance {tol})")
-        return err, share
 
     def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
             spec=fa.DEFAULT_DIV_SPEC, main=False, qk_gain=1.0, **kw):
@@ -690,6 +715,121 @@ def check_attention(dev):
         require(nf == 0, f"finalize floats differ on {nf} lanes")
     log(f"  attention ring: {errs['ring_runs']} (case, depth) runs bit-equal "
         "to the depth-0 kernel")
+    return errs
+
+
+def check_decode_attention(dev):
+    """The decode-step kernel vs its plain version (``decode_attention_ref``)
+    on the same inputs, at the attention tolerances. Every case but the
+    main path's shape has >= 10,240 outputs a draw, and the main path's
+    shape (3,840 outputs) is judged over three draws pooled, so that one
+    SIMDive outlier stays under APPROX_OUTLIER_SHARE, as the constant
+    means it. Returns {"main": max abs err at the main path's shape,
+    "all": the worst over every case, "runs": kernel calls checked}."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    serving = SimdiveSpec(width=16, coeff_bits=6)
+    errs = {"main": 0.0, "all": 0.0, "runs": 0}
+
+    def randn(*shape, dtype, gain=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * gain
+                ).to(dtype)
+
+    def run(name, B, Smax, KVH, G, dh, dtype, pos, *, ring_full=False,
+            window=0, approx=False, draws=1, main=False, qk_gain=1.0):
+        if isinstance(pos, list):
+            pos = torch.tensor(pos, device=dev)
+        slot = pos % Smax if ring_full else pos
+        kw = dict(pos=pos, slot=slot, spec=serving, ring_full=ring_full,
+                  window=window, approx_div=approx, frac_out=15)
+        gots, wants = [], []
+        for _ in range(draws):
+            q = randn(B, KVH, G, dh, dtype=dtype, gain=qk_gain)
+            kc = randn(B, Smax, KVH, dh, dtype=dtype, gain=qk_gain)
+            vc = randn(B, Smax, KVH, dh, dtype=dtype)
+            kn = randn(B, 1, KVH, dh, dtype=dtype, gain=qk_gain)
+            vn = randn(B, 1, KVH, dh, dtype=dtype)
+            got = da.decode_attention_cuda(q, kc, vc, kn, vn, **kw)
+            want = da.decode_attention_ref(q, kc, vc, kn, vn, **kw)
+            torch.cuda.synchronize()
+            require(got.dtype == dtype and got.shape == q.shape,
+                    f"decode attention {name}: dtype/shape {got.dtype} "
+                    f"{tuple(got.shape)}")
+            gots.append(got.flatten())
+            wants.append(want.flatten())
+            errs["runs"] += 1
+        err, share = judge_attention(f"decode {name}", torch.cat(gots),
+                                     torch.cat(wants), dtype, approx)
+        errs["all"] = max(errs["all"], err)
+        if main:
+            errs["main"] = err
+        log(f"  decode attention {name}: max_abs_err {err:.3e} "
+            f"outside-tight share {share:.2e}")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    spread = [0, 1, 9, 31, 32, 50, 62, 63]           # 0 and Smax - 1
+    ring = [5, 63, 64, 65, 127, 200, 10, 64]         # before and after wrap
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        for dh in (64, 128):
+            for approx in (False, True):
+                t = f"{tag} dh{dh} {'simdive' if approx else 'exact'}"
+                base = (8, 64, 8, 3, dh, dtype)
+                run(f"{t} pos 0 (empty history)", *base, 0, approx=approx)
+                run(f"{t} pos Smax-1", *base, 63, approx=approx)
+                run(f"{t} per-row pos {spread}", *base, spread,
+                    approx=approx)
+                run(f"{t} ring per-row pos {ring}", *base, ring,
+                    ring_full=True, approx=approx)
+                run(f"{t} ring scalar pos 30 (not wrapped)", *base, 30,
+                    ring_full=True, approx=approx)
+                run(f"{t} ring scalar pos 100 (wrapped)", *base, 100,
+                    ring_full=True, approx=approx)
+                run(f"{t} window 16 per-row pos {spread}", *base, spread,
+                    window=16, approx=approx)
+    for approx in (False, True):
+        t = "simdive" if approx else "exact"
+        run(f"bf16 dh64 G1 {t}", 8, 64, 20, 1, 64, bf16, spread,
+            approx=approx)
+        run(f"bf16 dh64 G8 {t}", 8, 64, 3, 8, 64, bf16, spread,
+            approx=approx)
+        run(f"f32 dh128 G8 {t}", 8, 64, 3, 8, 128, f32, 40, approx=approx)
+    # more history than one chunk (8192 // G slots: 1,024 at G 8): the
+    # online rescale across chunks
+    chunks = [0, 1023, 1024, 1025, 2047, 2599, 1500, 2100]
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        run(f"{tag} dh64 G8 three chunks per-row pos {chunks}", 8, 2600, 3,
+            8, 64, dtype, chunks, approx=True)
+    run("bf16 dh64 large scores (q, k x 4) per-row", 8, 64, 8, 3, 64, bf16,
+        spread, approx=True, qk_gain=4.0)
+    # the main path's shape: batch 4, cache PROMPT + GEN, 5 kv heads x 3,
+    # bf16, the serving divider, a mid-generation position
+    run(f"main path's shape (4, {PROMPT + GEN}, 5, 3, 64) bf16 simdive "
+        f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
+        bf16, PROMPT + 15, approx=True, draws=3, main=True)
+
+    # refused before any launch: 9 q heads a kv head, a position tensor
+    # left on the CPU
+    q = randn(2, 2, 9, 64, dtype=bf16)
+    kc = randn(2, 16, 2, 64, dtype=bf16)
+    kn = randn(2, 1, 2, 64, dtype=bf16)
+    n0 = da.decode_attention_cuda.launches
+    for what, args, pos in (
+            ("G 9", (q, kc, kc, kn, kn), 3),
+            ("a CPU pos tensor", (q[:, :, :3], kc, kc, kn, kn),
+             torch.tensor([3, 4]))):
+        try:
+            da.decode_attention_cuda(*args, pos=pos, slot=pos)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise SmokeFailure(f"decode attention: {what} was launched")
+    require(da.decode_attention_cuda.launches == n0,
+            "a refused decode attention call was counted as a launch")
+    log(f"  decode attention: {errs['runs']} kernel calls within the "
+        "tolerances; G 9 and a CPU pos tensor refused before any launch")
     return errs
 
 
@@ -1159,6 +1299,40 @@ def packed_path(dev):
                 errors={f"{op} cb{cb}": e for (op, cb), e in errors.items()})
 
 
+def elemwise_path(dev):
+    """The elemwise kernel's path since the decode step's divider moved into
+    decode_attention: ``tuning.frontier.measure_error(kernel="elemwise")``
+    on the card for mul and div, width 8, coeff_bits 6 (the exhaustive
+    8-bit square), each error object equal to the same call's on the plain
+    version (``device="cpu"``); the launch counts zeroed just before and
+    read just after."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tuning import measure_error
+
+    reset_launch_counts()
+    card = {op: measure_error(op, 8, 6, kernel="elemwise", device=dev)
+            for op in ("mul", "div")}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts["elemwise"] == len(card)
+            and sum(counts.values()) == len(card),
+            f"measure_error(kernel='elemwise'): launches {counts}, expected "
+            f"{len(card)} elemwise")
+    errors = {}
+    for op, (stats, source) in card.items():
+        plain = measure_error(op, 8, 6, kernel="elemwise", device="cpu")
+        require((stats, source) == plain and source == "exhaustive",
+                f"measure_error elemwise {op} w8 cb6: {dict(stats)} "
+                f"({source}) on the card, {dict(plain[0])} ({plain[1]}) "
+                "on the plain version")
+        errors[op] = dict(stats)
+        log(f"  elemwise {op} w8 cb6 (measure_error, {source}): ARE "
+            f"{errors[op]['are_pct']!r} % = the plain version's")
+    log(f"  measure_error(kernel='elemwise'): launches {counts}")
+    return dict(launches=counts["elemwise"], errors=errors)
+
+
 # --------------------------------------------------------- phase 4: serve --
 def serve_main_path(dev):
     import numpy as np
@@ -1209,15 +1383,30 @@ def serve_main_path(dev):
     require(_attention_launches(counts) == cfg.n_layers,
             f"attention launches {counts}, expected {cfg.n_layers} (one per "
             "layer of the prefill, both schedules together)")
-    require(counts["elemwise"] == cfg.n_layers * (GEN - 1),
-            f"elemwise launches {counts['elemwise']}, expected "
-            f"{cfg.n_layers} per decode step x {GEN - 1} steps")
+    require(counts["decode_attention"] == cfg.n_layers * (GEN - 1)
+            and counts["elemwise"] == 0,
+            f"decode_attention / elemwise launches {counts}, expected "
+            f"{cfg.n_layers} decode_attention per decode step x {GEN - 1} "
+            "steps and no elemwise")
     require(tokens.shape == (BATCH, GEN)
             and logits.shape == (BATCH, GEN, cfg.vocab_size),
             "generate returned the wrong shapes")
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     require(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
             "token out of the vocabulary")
+    # one decode step alone: one decode_attention launch a layer
+    lg, cache = lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), cache)
+    reset_launch_counts()
+    lm.decode_step(params, cache, lg.argmax(-1), PROMPT)
+    torch.cuda.synchronize()
+    step_counts = launch_counts()
+    require(step_counts["decode_attention"] == cfg.n_layers
+            and sum(step_counts.values()) == cfg.n_layers,
+            f"one decode step launched {step_counts}, expected "
+            f"{cfg.n_layers} decode_attention and nothing else")
+    del lg, cache
+    reset_launch_counts()
 
     # the same model through the plain versions, fed the same tokens
     ref_cfg = serve.serving_config(ARCH, approx="simdive", backend="ref")
@@ -1231,7 +1420,7 @@ def serve_main_path(dev):
         ref_all.append(ref_logits)
     ref_all = torch.stack(ref_all, dim=1).to(torch.float32)
     torch.cuda.synchronize()
-    require(launch_counts() == counts,
+    require(not any(launch_counts().values()),
             "the plain-version run launched a kernel")
     err = (logits - ref_all).abs()
     prefill_err, decode_err = float(err[:, 0].max()), float(err[:, 1:].max())
@@ -1280,6 +1469,7 @@ def serve_main_path(dev):
     clear_autotune_cache()
     preload_autotune_cache(tuned)                # back to the tuned blocks
     return dict(lm=lm, params=params, prompts=prompts, counts=counts,
+                step_counts=step_counts,
                 pinned_counts={"attention": c_0,
                                "attention_pipelined": c_r},
                 attention_picks=[list(b) for b in picks],
@@ -1358,8 +1548,9 @@ def serve_emulate_path(dev, params, prompts):
             f"logmatmul launches {_matmul_launches(counts)}, expected "
             f"{n_lin} per prefill and per decode step x {GEN}")
     require(_attention_launches(counts) == cfg.n_layers
-            and counts["elemwise"] == cfg.n_layers * (GEN - 1),
-            f"attention / elemwise launches {counts}")
+            and counts["decode_attention"] == cfg.n_layers * (GEN - 1)
+            and counts["elemwise"] == 0,
+            f"attention / decode_attention / elemwise launches {counts}")
     require(bool(torch.isfinite(logits).all())
             and int(tokens.min()) >= 0
             and int(tokens.max()) < cfg.vocab_size, "bad emulate output")
@@ -1374,6 +1565,10 @@ def serve_emulate_path(dev, params, prompts):
             and _matmul_launches(step_counts) == n_lin,
             f"logmatmul launches per prefill {prefill_counts}, per decode "
             f"step {step_counts}; expected {n_lin} each")
+    require(step_counts["decode_attention"] == cfg.n_layers
+            and step_counts["elemwise"] == 0,
+            f"emulate decode step launched {step_counts}, expected "
+            f"{cfg.n_layers} decode_attention and no elemwise")
 
     # plain-version comparisons at batch 4 x prompt 32 x 8 tokens
     short = prompts[:, :REF_PROMPT]
@@ -1384,9 +1579,9 @@ def serve_emulate_path(dev, params, prompts):
 
     class AttentionOnKernel:
         """A serving policy that keeps the attention op (the prefill's
-        flash kernel, the decode step's elemwise divider) on its CUDA
-        kernels, same divider config, and leaves every other op to the
-        config."""
+        flash kernel, the decode step's decode_attention kernel) on its
+        CUDA kernels, same divider config, and leaves every other op to
+        the config."""
         entry = SimpleNamespace(width=spec.width, coeff_bits=spec.coeff_bits,
                                 index_bits=spec.index_bits, backend="cuda",
                                 frac_out=frac_out)
@@ -1414,12 +1609,13 @@ def serve_emulate_path(dev, params, prompts):
         launched = {k: after[k] - before[k] for k in after}
         return ref_all, time.perf_counter() - t0, launched
 
-    # (1) plain matmuls, the attention op (prefill kernel and decode
-    # divider) on its kernels: bit-equal rows
+    # (1) plain matmuls, the attention op (prefill and decode attention
+    # kernels) on its kernels: bit-equal rows
     ref_att, ref_s, launched = plain_run(AttentionOnKernel())
     require(_matmul_launches(launched) == 0 and launched["packed"] == 0
             and _attention_launches(launched) == cfg.n_layers
-            and launched["elemwise"] == cfg.n_layers * (REF_GEN - 1),
+            and launched["decode_attention"] == cfg.n_layers * (REF_GEN - 1)
+            and launched["elemwise"] == 0,
             f"the plain-matmul run launched {launched}, expected the "
             f"attention op's kernels only")
     equal_rows = float((log_k == ref_att).all(dim=-1).float().mean())
@@ -1490,7 +1686,8 @@ def serve_emulate_path(dev, params, prompts):
             "bad --emulate --quantize output")
     require(q_counts == counts, f"--quantize launches {q_counts} != {counts}")
     log(f"  --emulate --quantize: finite logits, launches {q_counts}")
-    return dict(lm=lm_e, counts=counts, pinned_counts=pinned_counts,
+    return dict(lm=lm_e, counts=counts, step_counts=step_counts,
+                pinned_counts=pinned_counts,
                 first_run_s=run_s, tune_s=tune_s,
                 autotune_picks={f"{k}": v for k, v in picks.items()},
                 logit_err=err, equal_row_share=equal_rows,
@@ -1503,12 +1700,13 @@ def serve_emulate_path(dev, params, prompts):
 def measure(dev, served, int_rate):
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.approx import attention_div
+    from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import (clear_autotune_cache,
                                      export_autotune_cache, get_op,
                                      preload_autotune_cache)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
+    from repro_torch.metrics import DIV_FRAC_OUT, grid8
     from repro_torch.metrics.timing import time_callable
 
     lm, params, prompts = served["lm"], served["params"], served["prompts"]
@@ -1570,18 +1768,18 @@ def measure(dev, served, int_rate):
             f"({att_lib_ms:.5f} ms), {t / max(att_ops_ms, att_bytes_ms):.2f}x "
             "the bound")
 
-    # elemwise at the decode finalize's shape: (B, KVH, G, dh) lanes
-    shape = (BATCH, KV, G, dh)
-    a = torch.randint(0, 1 << 15, shape, generator=gen, device=dev
-                      ).to(torch.int32).view(torch.uint32)
-    b = torch.randint(1, 1 << 15, shape, generator=gen, device=dev
-                      ).to(torch.int32).view(torch.uint32)
-    ew_kernel = lambda: get_op("elemwise", spec, "cuda")(
-        a, b, op="div", frac_out=frac_out)
+    # elemwise at its path's shape: measure_error's exhaustive 8-bit
+    # square, div at DIV_FRAC_OUT, w8 cb6
+    a_np, b_np = grid8()
+    a = torch.from_numpy(a_np).to(dev)
+    b = torch.from_numpy(b_np).to(dev)
+    ew_spec = SimdiveSpec(width=8, coeff_bits=6)
+    ew_kernel = lambda: get_op("elemwise", ew_spec, "cuda")(
+        a, b, op="div", frac_out=DIV_FRAC_OUT)
     ew_ms = gpu_graph_time_ms(ew_kernel, iters=200)
     ew_eager_ms = gpu_time_ms(ew_kernel, iters=500)
-    ew_plain_ms = gpu_time_ms(lambda: get_op("elemwise", spec, "ref")(
-        a, b, op="div", frac_out=frac_out), iters=50)
+    ew_plain_ms = gpu_time_ms(lambda: get_op("elemwise", ew_spec, "ref")(
+        a, b, op="div", frac_out=DIV_FRAC_OUT), iters=50)
     lanes = a.numel()
     ew_bytes_ms = 12 * lanes / HBM_BYTES_PER_S * 1e3
     ew_ops_ms = ELEMWISE_OPS_PER_LANE * lanes / int_rate * 1e3
@@ -1594,11 +1792,58 @@ def measure(dev, served, int_rate):
     ew_big_ms = gpu_time_ms(lambda: get_op("elemwise", spec, "cuda")(
         ab, bb, op="div", frac_out=frac_out), iters=20)
 
-    # the whole decode finalize (quantize + kernel + fold back), per layer
-    acc = torch.randn(*shape, generator=gen, device=dev)
-    l = torch.rand(shape[:-1], generator=gen, device=dev) * 100 + 1
-    fin_ms = gpu_time_ms(lambda: attention_div(acc, l, cfg.approx), iters=200)
-    fin_exact_ms = gpu_time_ms(lambda: acc / l[..., None], iters=200)
+    # decode_attention at the decode step's shape: batch 4, cache
+    # PROMPT + GEN, a mid-generation position, the serving divider
+    Smax, pos = PROMPT + GEN, PROMPT + 15
+    bf16 = torch.bfloat16
+    dq = torch.randn(BATCH, KV, G, dh, generator=gen, device=dev).to(bf16)
+    kc, vc = (torch.randn(BATCH, Smax, KV, dh, generator=gen, device=dev
+                          ).to(bf16) for _ in range(2))
+    kn, vn = (torch.randn(BATCH, 1, KV, dh, generator=gen, device=dev
+                          ).to(bf16) for _ in range(2))
+    dkw = dict(pos=pos, slot=pos, approx_div=True, frac_out=frac_out)
+    da_kernel = lambda: get_op("decode_attention", spec, "cuda")(
+        dq, kc, vc, kn, vn, **dkw)
+    da_ms = gpu_graph_time_ms(da_kernel, iters=200)
+    da_eager_ms = gpu_time_ms(da_kernel, iters=200)
+    da_exact_ms = gpu_graph_time_ms(
+        lambda: get_op("decode_attention", spec, "cuda")(
+            dq, kc, vc, kn, vn, **dict(dkw, approx_div=False)), iters=200)
+    # an empty history (pos 0): what a launch costs before any cache slot
+    da_pos0_ms = gpu_graph_time_ms(
+        lambda: get_op("decode_attention", spec, "cuda")(
+            dq, kc, vc, kn, vn, **dict(dkw, pos=0, slot=0)), iters=200)
+    da_plain_ms = gpu_time_ms(lambda: get_op("decode_attention", spec, "ref")(
+        dq, kc, vc, kn, vn, **dkw), iters=50)
+    # the library yardstick: the same function with the exact divide, one
+    # scaled_dot_product_attention call over the cache plus the new token
+    # (appended as the last key) with a boolean mask; the GQA repeat and
+    # the layout are made outside the timed call
+    kf = torch.cat([kc, kn], dim=1).permute(0, 2, 1, 3
+                                             ).repeat_interleave(G, dim=1)
+    vf = torch.cat([vc, vn], dim=1).permute(0, 2, 1, 3
+                                             ).repeat_interleave(G, dim=1)
+    qf = dq.reshape(BATCH, H, 1, dh)
+    mask = torch.arange(Smax + 1, device=dev) < pos
+    mask[Smax] = True
+    mask = mask.expand(BATCH, 1, 1, Smax + 1)
+    da_lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, attn_mask=mask), iters=200)
+    # bound: the valid slots' k and v rows, q, the new token, the output and
+    # the div table moved once; QK^T and PV at the bf16 tensor-core peak;
+    # the finalize's divider lanes on the INT32 lanes
+    da_bytes = (2 * BATCH * pos * KV * dh * 2 + 2 * dq.numel() * 2
+                + 2 * kn.numel() * 2 + 256 * 4)
+    da_bytes_ms = da_bytes / HBM_BYTES_PER_S * 1e3
+    da_flops_ms = 4 * BATCH * H * (pos + 1) * dh / BF16_FLOPS * 1e3
+    da_int_ms = ELEMWISE_OPS_PER_LANE * dq.numel() / int_rate * 1e3
+    da_bound = max(da_bytes_ms, da_flops_ms, da_int_ms)
+    log(f"  decode_attention ({BATCH},{Smax},{KV},{dh}) G {G} bf16 pos {pos}:"
+        f" {da_ms:.5f} ms (graph; exact divide {da_exact_ms:.5f}; pos 0 "
+        f"{da_pos0_ms:.5f}), "
+        f"{da_eager_ms:.5f} ms (eager), plain {da_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {da_lib_ms:.5f} ms, bound "
+        f"{da_bound:.6f} ms")
 
     # serving: prefill, steady-state decode step, end to end
     max_seq = PROMPT + GEN
@@ -1662,11 +1907,12 @@ def measure(dev, served, int_rate):
         "generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
         "first_generate_s": served["first_run_s"],
         "elemwise_eager_call_ms": ew_eager_ms,
+        "decode_attention_eager_call_ms": da_eager_ms,
+        "decode_attention_exact_div_ms": da_exact_ms,
+        "decode_attention_pos0_ms": da_pos0_ms,
         "flash_attention_eager_call_ms": att_eager_by[fa.DEFAULT_BLOCK],
         "flash_attention_pipelined_eager_call_ms":
             att_eager_by[ATTENTION_RING_BLOCK],
-        "attention_div_ms": fin_ms,
-        "exact_div_ms": fin_exact_ms,
         "elemwise_16M_lanes_ms": ew_big_ms,
         "elemwise_16M_lanes_bound_ms": 12 * big / HBM_BYTES_PER_S * 1e3,
         "attention_tflops": att_flops / (att_ms * 1e-3) / 1e12,
@@ -1682,8 +1928,8 @@ def measure(dev, served, int_rate):
         {"name": "elemwise", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/elemwise.cu",
          "replaces": "src/repro/kernels/elemwise.py:33",
-         "shape": f"{shape} uint32 lanes, div, w{spec.width} "
-                  f"cb{spec.coeff_bits} fo{frac_out}",
+         "shape": f"({lanes},) uint32 lanes (measure_error's 8-bit square), "
+                  f"div, w8 cb6 fo{DIV_FRAC_OUT}",
          "ms": ew_ms, "plain_ms": ew_plain_ms,
          "bound_ms": max(ew_bytes_ms, ew_ops_ms),
          "bound_by": "bytes" if ew_bytes_ms >= ew_ops_ms else "operations",
@@ -1712,6 +1958,18 @@ def measure(dev, served, int_rate):
          "library_ms": att_lib_ms,
          "ms_by_depth": {str(b[2]): t for b, t in att_ms_by.items()
                          if len(b) == 3}},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/models/layers.py:351",
+         "note": "no TPU kernel: the reference's jnp decode_attention_append "
+                 "around elemwise_pallas (src/repro/kernels/elemwise.py:67)",
+         "shape": f"q ({BATCH},{KV},{G},{dh}) caches ({BATCH},{Smax},{KV},"
+                  f"{dh}) bf16 pos {pos} simdive w{spec.width} "
+                  f"cb{spec.coeff_bits} fo{frac_out}",
+         "ms": da_ms, "plain_ms": da_plain_ms, "bound_ms": da_bound,
+         "bound_by": "bytes" if da_bytes_ms >= max(da_flops_ms, da_int_ms)
+                     else "operations",
+         "library_ms": da_lib_ms, "eager_ms": da_eager_ms},
     ]
     return kernels, times
 
@@ -1993,7 +2251,8 @@ def main(argv=None) -> int:
         text = logf.read_text()
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line
-                    or ("Compiling entry" in line and "flash" in line)):
+                    or ("Compiling entry" in line
+                        and ("flash" in line or "decode_attention" in line))):
                 log("  ptxas: " + line.strip()[:200])
         skinny_regs += skinny_ptxas(text)
     for r in skinny_regs:
@@ -2005,12 +2264,16 @@ def main(argv=None) -> int:
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
+    da_errs = check_decode_attention(dev)
     mm_err, mm_plain_ms = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
     log("[4/5] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
+    log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
+        "kernel='elemwise')")
+    ew_path = elemwise_path(dev)
     log("  (a) serving: smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, --approx simdive")
     served = serve_main_path(dev)
@@ -2050,13 +2313,23 @@ def main(argv=None) -> int:
     kernels.append(packed_row)
     counts, counts_e = served["counts"], served_e["counts"]
     pinned = served["pinned_counts"]
-    kernels[0]["launches"] = counts["elemwise"]
-    kernels[0]["max_abs_err"] = ew_err
+    by_name = {kern["name"]: kern for kern in kernels}
+    # elemwise: measure_error's two calls on the card (phase 4 (e))
+    by_name["elemwise"]["launches"] = ew_path["launches"]
+    by_name["elemwise"]["max_abs_err"] = ew_err
+    by_name["elemwise"]["measure_error"] = ew_path["errors"]
+    # decode_attention: the divider-only main path's run; max_abs_err at
+    # the main path's shape, the worst over every phase-3 case beside it
+    by_name["decode_attention"]["launches"] = counts["decode_attention"]
+    by_name["decode_attention"]["launches_emulate"] = \
+        counts_e["decode_attention"]
+    by_name["decode_attention"]["max_abs_err"] = da_errs["main"]
+    by_name["decode_attention"]["max_abs_err_all_cases"] = da_errs["all"]
     # logmatmul: the autotuned full-size --emulate run plus the full-size
     # run pinned to the row's schedule, each zeroed just before and read
     # just after, as for attention below
-    for kern, name in ((kernels[3], "matmul"),
-                       (kernels[4], "matmul_pipelined")):
+    for kern, name in ((by_name["logmatmul"], "matmul"),
+                       (by_name["logmatmul_pipelined"], "matmul_pipelined")):
         kern["launches_autotuned"] = counts_e[name]
         kern["launches_pinned"] = served_e["pinned_counts"][name]
         kern["launches"] = counts_e[name] + served_e["pinned_counts"][name]
@@ -2066,8 +2339,9 @@ def main(argv=None) -> int:
     # after, so that a schedule the autotune did not pick still shows on
     # the path. max_abs_err is taken at the main path's shape; the worst
     # over every other case of phase 3 stands beside it.
-    for kern, name, tag in ((kernels[1], "attention", ""),
-                            (kernels[2], "attention_pipelined", "pipe_")):
+    for kern, name, tag in ((by_name["flash_attention"], "attention", ""),
+                            (by_name["flash_attention_pipelined"],
+                             "attention_pipelined", "pipe_")):
         kern["launches_autotuned"] = counts[name]
         kern["launches_pinned"] = pinned[name][name]
         kern["launches"] = counts[name] + pinned[name][name]
@@ -2076,8 +2350,9 @@ def main(argv=None) -> int:
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
-    require(kernels[3]["launches_autotuned"]
-            + kernels[4]["launches_autotuned"] == 7 * 32 * GEN,
+    require(by_name["logmatmul"]["launches_autotuned"]
+            + by_name["logmatmul_pipelined"]["launches_autotuned"]
+            == 7 * 32 * GEN,
             "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")

@@ -18,6 +18,10 @@ Layering:
                       SIMDive divider, depth-0 and cp.async kv-ring
                       schedules: wrappers + plain version
                       (kernel: csrc/flash_attention.cu)
+  decode_attention.py one decode step's attention over a read-only cache
+                      plus the new token, finalize (exact or SIMDive
+                      divider) included, in one launch: wrapper + plain
+                      version (kernel: csrc/decode_attention.cu)
   logmatmul.py        signed int32 matmul with SIMDive products, depth-0
                       and cp.async-ring schedules: wrappers + plain version
                       (kernel: csrc/logmatmul.cu)

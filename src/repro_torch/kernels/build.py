@@ -126,6 +126,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_softmax_div.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i,
                                         f, p]
     lib.simdive_softmax_div.restype = i
+    lib.simdive_decode_attention.argtypes = (
+        [p] * 7 + [i] * 7 + [ll, p, i, ll] * 2 + [i] * 3 + [f] + [i] * 4
+        + [f, p])
+    lib.simdive_decode_attention.restype = i
     lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 9 + [p]
     lib.simdive_logmatmul.restype = i
 

@@ -6,10 +6,11 @@
 //
 // Bound on an H100: memory. Each lane moves 12 bytes of device memory (two
 // uint32 reads, one uint32 write; 16 with a mode operand) against a few
-// dozen integer operations, so the least time is bytes / 3.35 TB/s. At the
-// decode finalize's shape (3840 lanes = 46 KB) that is ~14 ns, far under
-// the few microseconds any launch costs: there the kernel is launch-latency
-// bound and only fusing it into its neighbours would help.
+// dozen integer operations, so the least time is bytes / 3.35 TB/s. At
+// small shapes (the decode finalize's 3840 lanes = 46 KB: ~14 ns) the
+// kernel is launch-latency bound; so the decode step's divider now runs
+// fused into decode_attention.cu, and this kernel serves the error sweeps
+// (tuning.frontier.measure_error) and simdive_elemwise.
 //
 // Design: one thread per four consecutive lanes with 16-byte loads and
 // stores (the wrapper guarantees 16-byte aligned, contiguous operands), a

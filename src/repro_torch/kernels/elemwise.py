@@ -13,7 +13,9 @@ x / 0 reads back as 4294967295 like the reference's. The kernel works in
 native ``uint32``; the plain version converts to the int64 carrier and back.
 
 Bound on an H100 (see the note in the source): 12 bytes of device memory
-per lane over 3.35 TB/s; launch latency at the decode finalize's 3840 lanes.
+per lane over 3.35 TB/s; launch latency at small shapes. On the served
+path the decode step's divider runs fused into ``decode_attention``; this
+kernel serves ``measure_error`` and ``simdive_elemwise``.
 """
 from __future__ import annotations
 

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.kernels.ops`` for the ops ported so far:
 ``elemwise``, ``packed``, ``attention``, ``matmul_int`` and
-``matmul_emul`` (``sqrt`` is not ported). Each registers its plain PyTorch
-version and its CUDA kernel with :mod:`repro_torch.kernels.registry`. The
+``matmul_emul`` (``sqrt`` is not ported), plus one op of the port's own,
+``decode_attention`` (a decode step's attention and its divider; the
+reference runs that function as jnp around ``elemwise``). Each registers
+its plain PyTorch version and its CUDA kernel with
+:mod:`repro_torch.kernels.registry`. The
 kernels mask their ragged edges themselves, so there is no pad-to-block
 step: any shape goes straight in, and the results equal the reference's
 padded ones.
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.simdive import SimdiveSpec, simdive_mul
+from . import decode_attention as _da
 from . import elemwise as _ew
 from . import flash_attention as _fa
 from . import logmatmul as _lm
@@ -136,6 +140,12 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
             kernels={"attention": _fa.flash_attention_cuda,
                      "attention_pipelined":
                          _fa.flash_attention_pipelined_cuda})
+# decode_attention: its one launch shape (a block of 8 warps per (b, kv
+# head)) is compiled in, so it registers no block and nothing is autotuned;
+# pos / slot are keywords (ints or (B,) tensors), not positional tensors
+register_op("decode_attention", ref=_da.decode_attention_ref,
+            cuda=_da.decode_attention_cuda,
+            kernels={"decode_attention": _da.decode_attention_cuda})
 # matmul blocks carry k_unroll as a 4th and the pipeline depth as a 5th
 # component; each candidate is checked against the compiled tiles and the
 # shared-memory limit here, when it is registered

@@ -24,16 +24,19 @@ never while a CUDA graph is being captured; ``SIMDIVE_AUTOTUNE=0`` (or
 the cache through JSON (``chip_smoke.py`` pins a schedule that way). An
 op registered without a default block takes no ``block=``.
 :func:`register_op` is the hook new ops plug into. The built-in ops
-(``elemwise``, ``packed``, ``attention``, ``matmul_int``, ``matmul_emul``)
-are registered by :mod:`repro_torch.kernels.ops` on first use; ``packed``
-takes ``block=(threads,)`` and registers no candidates; ``attention`` takes
+(``elemwise``, ``packed``, ``attention``, ``decode_attention``,
+``matmul_int``, ``matmul_emul``) are registered by
+:mod:`repro_torch.kernels.ops` on first use; ``packed`` takes
+``block=(threads,)`` and registers no candidates; ``decode_attention``
+takes no ``block=`` (its launch shape is compiled in); ``attention`` takes
 ``block=(q_chunk, kv_chunk[, depth])`` and, like the matmul ops, autotunes
 between its depth-0 and ``cp.async``-ring schedules.
 
 Launch counts are kept by the kernel wrappers, one count per schedule;
 :func:`launch_counts` reports them under the names each op registered them
 with (``elemwise``; ``packed``; ``attention`` and ``attention_pipelined``;
-``matmul`` and ``matmul_pipelined``, shared by both matmul ops).
+``decode_attention``; ``matmul`` and ``matmul_pipelined``, shared by both
+matmul ops).
 """
 from __future__ import annotations
 

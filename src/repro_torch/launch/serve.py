@@ -4,8 +4,9 @@ Counterpart of ``repro.launch.serve`` for the slice ported so far: one
 batched prefill, the prompt cache merged into a ``max_seq`` serving cache,
 then a greedy per-token decode loop. ``--approx simdive`` serves the
 divider-softmax (the linears stay plain matmuls): on the GPU the prefill
-attention runs in the hand-written flash kernel and every decode step's
-softmax normalization in the elemwise kernel. ``--emulate`` adds the
+attention runs in the hand-written flash kernel and each decode step's
+attention, its softmax normalization included, in the decode_attention
+kernel, one launch a layer. ``--emulate`` adds the
 bit-exact SIMDive linears: every linear of every layer (seven a layer, in
 the prefill and in each decode step) runs the ``logmatmul`` kernel.
 ``--quantize`` swaps the linear weights for int8 ``QuantizedWeight``s;

@@ -6,8 +6,9 @@ Tensor layouts are the reference's: ``q (B,Sq,KVH,G,dh)``,
 
 Attention has two routes, as in the reference. When the resolved backend
 of the logical ``'attention'`` op is ``cuda`` the whole attention is one
-launch of the flash kernel (divider included). Otherwise a chunked
-online-softmax path in plain tensor ops runs, with only the final
+launch of a kernel, divider included: the flash kernel for the prefill,
+the ``decode_attention`` kernel for a decode step. Otherwise plain tensor
+ops run (chunked online softmax for the prefill), with only the final
 ``acc / l`` — the paper's division use-case — routed through
 :func:`repro_torch.core.approx.attention_div`.
 
@@ -30,6 +31,7 @@ from repro_torch.core.approx import (
     approx_matmul_int8,
     attention_div,
 )
+from repro_torch.kernels.decode_attention import decode_attention_acc
 from repro_torch.kernels.registry import get_op, resolve_backend
 
 EXACT = ApproxConfig()
@@ -123,12 +125,10 @@ def apply_rope(x, cos, sin, rot_dims):
 
 
 # -------------------------------------------------------------- attention --
-def _pos4(pos):
-    """Broadcast a decode position to score shape (B,KVH,G,Smax): scalars
-    (Python ints) pass through, per-row (B,) tensors reshape to (B,1,1,1)."""
-    if torch.is_tensor(pos) and pos.ndim:
-        return pos.reshape(-1, 1, 1, 1)
-    return int(pos)
+def _divider_on(approx: ApproxConfig) -> bool:
+    """Whether an attention kernel's finalize runs the SIMDive divider."""
+    return (approx.enabled and approx.use_in_softmax
+            and approx.active_for("attention"))
 
 
 def _finalize(acc, l, approx: ApproxConfig):
@@ -156,9 +156,8 @@ def _flash_attention_kernel(q, k, v, *, causal, window, approx: ApproxConfig,
     _, _, frac_out = approx.resolve_attention()
     out = get_op("attention", spec, backend)(
         qf, kf, vf, causal=causal, window=window,
-        approx_div=(approx.enabled and approx.use_in_softmax
-                    and approx.active_for("attention")),
-        frac_out=frac_out, q_offset=q_offset, kv_group=G)
+        approx_div=_divider_on(approx), frac_out=frac_out,
+        q_offset=q_offset, kv_group=G)
     out = out.reshape(B, KVH, G, Sq, dh).permute(0, 3, 1, 2, 4)
     return out.to(q.dtype)
 
@@ -243,35 +242,21 @@ def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
     ``pos``/``slot``: int scalar, or (B,) tensors for per-row positions
     (continuous batching); ``slot`` is the slot the new token will occupy
     (its stale cache entry is masked out of the past scores).
+
+    Backend routing, as in :func:`flash_attention`: when
+    ``approx.resolve('attention')`` resolves to ``cuda`` for these tensors
+    one launch of the ``decode_attention`` kernel serves the whole
+    function, finalize included; otherwise the plain body below, with the
+    finalize routed through :func:`attention_div`.
     """
-    B, Smax, KVH, dh = k_cache.shape
-    scale = dh ** -0.5
-    f32 = torch.float32
-    dev = q.device
-    qf = q.to(f32)
-    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.to(f32)) * scale
-    idx = torch.arange(Smax, device=dev)[None, None, None, :]
-    pos, slot = _pos4(pos), _pos4(slot)
-    if ring_full:
-        # ring not yet wrapped: history is [0, pos); wrapped: every slot
-        # except the one being replaced holds live history
-        if torch.is_tensor(pos):
-            valid = torch.where(pos < Smax, idx < pos, idx != slot)
-        else:
-            valid = idx < pos if pos < Smax else idx != slot
-    else:
-        valid = idx < pos
-        if window and Smax > window:
-            valid = valid & (idx > pos - window)
-    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
-    s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].to(f32)) * scale
-    m = torch.maximum(s.amax(dim=-1), s_self)              # (B,KVH,G)
-    p = torch.exp(s - m[..., None])
-    p_self = torch.exp(s_self - m)
-    l = p.sum(dim=-1) + p_self
-    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).to(f32),
-                       v_cache.to(f32))
-    acc = acc + p_self[..., None] * v_new[:, 0].to(f32)[:, :, None, :]
+    spec, backend, frac_out = approx.resolve_attention()
+    if resolve_backend(backend, q, k_cache, v_cache, k_new, v_new) == "cuda":
+        return get_op("decode_attention", spec, backend)(
+            q, k_cache, v_cache, k_new, v_new, pos=pos, slot=slot,
+            ring_full=ring_full, window=window,
+            approx_div=_divider_on(approx), frac_out=frac_out)
+    acc, l = decode_attention_acc(q, k_cache, v_cache, k_new, v_new, pos,
+                                  slot, ring_full=ring_full, window=window)
     return _finalize(acc, l, approx).to(q.dtype)
 
 

@@ -100,6 +100,7 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
         get_op("elemwise", spec, "cuda")(a, a, op="mul")
     # nothing on this host launched a kernel
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0}
 
@@ -107,8 +108,9 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
 def test_registry_surface():
     # one count per kernel schedule; both matmul ops share the logmatmul ones
     assert sorted(launch_counts()) == ["attention", "attention_pipelined",
-                                       "elemwise", "matmul",
-                                       "matmul_pipelined", "packed"]
+                                       "decode_attention", "elemwise",
+                                       "matmul", "matmul_pipelined",
+                                       "packed"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
     assert get_op("packed", TSpec()).entry.default_block == (256,)
     # attention takes (q_chunk, kv_chunk[, depth]) blocks

@@ -48,6 +48,7 @@ def test_every_package_module_is_covered():
                    "kernels/build.py", "kernels/elemwise.py",
                    "kernels/logmatmul.py", "kernels/packed_simd.py",
                    "kernels/flash_attention.py", "kernels/registry.py",
+                   "kernels/decode_attention.py",
                    "kernels/ops.py", "configs/base.py",
                    "configs/smollm_360m.py", "models/layers.py",
                    "models/transformer.py", "models/model.py",
@@ -56,7 +57,7 @@ def test_every_package_module_is_covered():
                    "metrics/operands.py", "tuning/frontier.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
-    assert {"simdive_datapath.cuh", "elemwise.cu",
+    assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",
             "flash_attention.cu", "logmatmul.cu", "packed_simd.cu"} <= csrc
 
 
@@ -70,6 +71,7 @@ def test_launch_counts_name_every_schedule():
     reset_launch_counts()
     assert packed_cuda.launches == 0
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0}
 

@@ -273,6 +273,7 @@ def test_serving_plan_and_cli_on_cpu(capsys):
                                   emulate=True).approx.emulate
     # on the CPU nothing launched a kernel
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
+                               "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0}
     for flag in ("--scheduler", "--chaos"):
