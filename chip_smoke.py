@@ -29,13 +29,21 @@ any phase fails. Phases:
               whose ring does not fit and a bf16 k off 16-byte alignment
               refused before any launch (both schedules), and its
               finalize bit-equal on given (acc, l); ``decode_attention``
-              (one decode step's attention and its finalize) within the
-              same tolerances (f32 / bf16, d_head 64 / 128, exact and
-              SIMDive divide, scalar and per-row positions, pos 0 and
-              Smax - 1, ``ring_full`` before and after the wrap, a
-              window, G 1 / 3 / 8, a history longer than one chunk, the
-              main path's shape), and G 9 and a position tensor left on
-              the CPU refused before any launch; ``logmatmul`` bit-equal
+              (one decode step's attention and its finalize, a cluster
+              of blocks per (b, kv head)) within the same tolerances at
+              the planner's cluster size and pinned at every size 1..8,
+              two calls bit-identical and a CUDA-graph replay bit-equal
+              to the eager call at each (f32 / bf16, d_head 64 / 128,
+              exact and SIMDive divide, scalar and per-row positions,
+              pos 0 and Smax - 1, ``ring_full`` before and after the
+              wrap, the masked slot on rank boundaries, a window across
+              ranks, fewer slots than ranks, G 1 / 3 / 8, a history of
+              several rounds, 160 (b, kv head) rows where the planner
+              takes one block a row, the main path's shape), the main
+              path's clusters resident in one wave
+              (``cudaOccupancyMaxActiveClusters``), and G 9, a position
+              tensor left on the CPU and clusters of 0, 9 and 2.5 blocks
+              refused before any launch; ``logmatmul`` bit-equal
               for every registered block (the skinny tiles, depth 0 and the
               cp.async ring) and every square block (compiled, no longer
               registered) at the four (K, N) of smollm-360m's linears at
@@ -119,8 +127,9 @@ any phase fails. Phases:
               ``scaled_dot_product_attention`` call as the yardstick (timed
               here; the port never calls it) — attention for each
               schedule and ring depth; decode_attention at the decode
-              step's shape, its SDPA over the cache plus the new token
-              with a boolean mask —, and the number of kernels one
+              step's shape at the planner's and every cluster size, and
+              at cache 2048 / pos 2047, its SDPA over the cache plus the
+              new token with a boolean mask —, and the number of kernels one
               decode step puts on the card. A kernel's ``ms`` (and
               ``library_ms``) is device time with the host taken out (many
               launches replayed from one CUDA graph); the eager per-call
@@ -718,20 +727,41 @@ def check_attention(dev):
     return errs
 
 
+def graph_output(fn):
+    """What ``fn()`` returns when it is captured into a CUDA graph and the
+    graph is replayed once (call ``fn`` eagerly first: the capture must
+    not be its first call)."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
 def check_decode_attention(dev):
     """The decode-step kernel vs its plain version (``decode_attention_ref``)
-    on the same inputs, at the attention tolerances. Every case but the
+    on the same inputs, at the attention tolerances, every case at the
+    planner's cluster size (``cluster=None``) and pinned at every legal
+    size 1..8: each size within the tolerances, two calls bit-identical and
+    a CUDA-graph replay bit-equal to the eager call. Every case but the
     main path's shape has >= 10,240 outputs a draw, and the main path's
     shape (3,840 outputs) is judged over three draws pooled, so that one
     SIMDive outlier stays under APPROX_OUTLIER_SHARE, as the constant
-    means it. Returns {"main": max abs err at the main path's shape,
-    "all": the worst over every case, "runs": kernel calls checked}."""
+    means it. Returns {"main": max abs err at the main path's shape at the
+    planner's size, "all": the worst over every case and size, "runs":
+    kernel calls checked, "clusters": the planner's size at the main
+    path's shape}."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import decode_attention as da
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     serving = SimdiveSpec(width=16, coeff_bits=6)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = (None, *range(1, da.MAX_CLUSTER + 1))   # None: the planner's
     errs = {"main": 0.0, "all": 0.0, "runs": 0}
 
     def randn(*shape, dtype, gain=1.0):
@@ -745,29 +775,46 @@ def check_decode_attention(dev):
         slot = pos % Smax if ring_full else pos
         kw = dict(pos=pos, slot=slot, spec=serving, ring_full=ring_full,
                   window=window, approx_div=approx, frac_out=15)
-        gots, wants = [], []
+        gots, wants = {c: [] for c in sizes}, []
         for _ in range(draws):
             q = randn(B, KVH, G, dh, dtype=dtype, gain=qk_gain)
             kc = randn(B, Smax, KVH, dh, dtype=dtype, gain=qk_gain)
             vc = randn(B, Smax, KVH, dh, dtype=dtype)
             kn = randn(B, 1, KVH, dh, dtype=dtype, gain=qk_gain)
             vn = randn(B, 1, KVH, dh, dtype=dtype)
-            got = da.decode_attention_cuda(q, kc, vc, kn, vn, **kw)
-            want = da.decode_attention_ref(q, kc, vc, kn, vn, **kw)
-            torch.cuda.synchronize()
-            require(got.dtype == dtype and got.shape == q.shape,
-                    f"decode attention {name}: dtype/shape {got.dtype} "
-                    f"{tuple(got.shape)}")
-            gots.append(got.flatten())
-            wants.append(want.flatten())
-            errs["runs"] += 1
-        err, share = judge_attention(f"decode {name}", torch.cat(gots),
-                                     torch.cat(wants), dtype, approx)
-        errs["all"] = max(errs["all"], err)
-        if main:
-            errs["main"] = err
-        log(f"  decode attention {name}: max_abs_err {err:.3e} "
-            f"outside-tight share {share:.2e}")
+            wants.append(da.decode_attention_ref(q, kc, vc, kn, vn, **kw
+                                                 ).flatten())
+            for c in sizes:
+                call = (lambda c=c: da.decode_attention_cuda(
+                    q, kc, vc, kn, vn, cluster=c, **kw))
+                got, again = call(), call()
+                replay = graph_output(call)
+                require(got.dtype == dtype and got.shape == q.shape,
+                        f"decode attention {name} cluster {c}: dtype/shape "
+                        f"{got.dtype} {tuple(got.shape)}")
+                require(torch.equal(got, again),
+                        f"decode attention {name} cluster {c}: two calls "
+                        f"differ on {int((got != again).sum())} outputs")
+                require(torch.equal(got, replay),
+                        f"decode attention {name} cluster {c}: the graph "
+                        f"replay differs from the eager call on "
+                        f"{int((got != replay).sum())} outputs")
+                gots[c].append(got.flatten())
+                errs["runs"] += 1
+        want = torch.cat(wants)
+        worst = 0.0
+        for c in sizes:
+            err, share = judge_attention(f"decode {name} cluster {c}",
+                                         torch.cat(gots[c]), want, dtype,
+                                         approx)
+            worst = max(worst, err)
+            if main and c is None:
+                errs["main"] = err
+        errs["all"] = max(errs["all"], worst)
+        log(f"  decode attention {name}: planner's cluster "
+            f"{da.cluster_size(B, KVH, sm_count)}; max_abs_err over sizes "
+            f"None, 1..{da.MAX_CLUSTER} {worst:.3e}; deterministic, graph "
+            "replay bit-equal")
 
     f32, bf16 = torch.float32, torch.bfloat16
     spread = [0, 1, 9, 31, 32, 50, 62, 63]           # 0 and Smax - 1
@@ -787,6 +834,7 @@ def check_decode_attention(dev):
                     ring_full=True, approx=approx)
                 run(f"{t} ring scalar pos 100 (wrapped)", *base, 100,
                     ring_full=True, approx=approx)
+                # [35, 50), [17, 32), ...: a window across ranks
                 run(f"{t} window 16 per-row pos {spread}", *base, spread,
                     window=16, approx=approx)
     for approx in (False, True):
@@ -796,40 +844,74 @@ def check_decode_attention(dev):
         run(f"bf16 dh64 G8 {t}", 8, 64, 3, 8, 64, bf16, spread,
             approx=approx)
         run(f"f32 dh128 G8 {t}", 8, 64, 3, 8, 128, f32, 40, approx=approx)
-    # more history than one chunk (8192 // G slots: 1,024 at G 8): the
-    # online rescale across chunks
+        # fewer valid slots than ranks: empty shares at C > hi - lo
+        run(f"bf16 dh64 fewer slots than ranks {t}", 8, 64, 8, 3, 64, bf16,
+            [1, 2, 3, 4, 5, 6, 7, 0], approx=approx)
+        # the wrapped ring's masked slot on a rank's first slot, 64 * r // C:
+        # 8 (C 8), 21 (C 3), 12 (C 5), 9 (C 7), 10 (C 6), 32 (C 2), 0 (any
+        # C), 16 (C 4)
+        run(f"bf16 dh64 ring, masked slot on rank boundaries {t}", 8, 64, 8,
+            3, 64, bf16, [64 + s for s in (8, 21, 12, 9, 10, 32, 0, 16)],
+            ring_full=True, approx=approx)
+    # more history than one round (C x 8192 // G slots: 1,024 a block at G
+    # 8): three rounds at C 1, two at C 2, one from C 3
     chunks = [0, 1023, 1024, 1025, 2047, 2599, 1500, 2100]
     for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
-        run(f"{tag} dh64 G8 three chunks per-row pos {chunks}", 8, 2600, 3,
+        run(f"{tag} dh64 G8 rounds per-row pos {chunks}", 8, 2600, 3,
             8, 64, dtype, chunks, approx=True)
     run("bf16 dh64 large scores (q, k x 4) per-row", 8, 64, 8, 3, 64, bf16,
         spread, approx=True, qk_gain=4.0)
+    # B x KVH >= the SM count: the planner takes one block a row
+    wide = 32 * 5
+    require(wide >= sm_count and da.cluster_size(32, 5, sm_count) == 1,
+            f"{wide} rows do not make the planner take C = 1 on "
+            f"{sm_count} SMs")
+    run(f"bf16 dh64 B 32 x KVH 5 = {wide} rows (planner's C 1) simdive", 32,
+        PROMPT + GEN, 5, 3, 64, bf16,
+        [PROMPT + 15 - i for i in range(32)], approx=True)
     # the main path's shape: batch 4, cache PROMPT + GEN, 5 kv heads x 3,
     # bf16, the serving divider, a mid-generation position
     run(f"main path's shape (4, {PROMPT + GEN}, 5, 3, 64) bf16 simdive "
         f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
         bf16, PROMPT + 15, approx=True, draws=3, main=True)
+    errs["clusters"] = da.cluster_size(BATCH, 5, sm_count)
 
     # refused before any launch: 9 q heads a kv head, a position tensor
-    # left on the CPU
+    # left on the CPU, and clusters of 0, 9 and 2.5 blocks
     q = randn(2, 2, 9, 64, dtype=bf16)
     kc = randn(2, 16, 2, 64, dtype=bf16)
     kn = randn(2, 1, 2, 64, dtype=bf16)
     n0 = da.decode_attention_cuda.launches
-    for what, args, pos in (
-            ("G 9", (q, kc, kc, kn, kn), 3),
+    for what, args, pos, cluster in (
+            ("G 9", (q, kc, kc, kn, kn), 3, None),
             ("a CPU pos tensor", (q[:, :, :3], kc, kc, kn, kn),
-             torch.tensor([3, 4]))):
+             torch.tensor([3, 4]), None),
+            ("cluster 0", (q[:, :, :3], kc, kc, kn, kn), 3, 0),
+            ("cluster 9", (q[:, :, :3], kc, kc, kn, kn), 3, 9),
+            ("cluster 2.5", (q[:, :, :3], kc, kc, kn, kn), 3, 2.5)):
         try:
-            da.decode_attention_cuda(*args, pos=pos, slot=pos)
+            da.decode_attention_cuda(*args, pos=pos, slot=pos,
+                                     cluster=cluster)
         except (ValueError, TypeError):
             pass
         else:
             raise SmokeFailure(f"decode attention: {what} was launched")
     require(da.decode_attention_cuda.launches == n0,
             "a refused decode attention call was counted as a launch")
+    # one wave: every (b, kv head) cluster of the main path's shape
+    # resident at once, at the planner's size
+    resident = {c: da.max_active_clusters(PROMPT + GEN, 3, 64, bf16, c)
+                for c in range(1, da.MAX_CLUSTER + 1)}
+    log(f"  decode attention: clusters the card holds at once at the main "
+        f"path's shape, by size: {resident} (cudaOccupancyMaxActiveClusters)")
+    require(resident[errs["clusters"]] >= BATCH * 5,
+            f"{BATCH * 5} clusters of {errs['clusters']} do not fit in one "
+            f"wave ({resident[errs['clusters']]})")
+    errs["resident_clusters"] = resident
     log(f"  decode attention: {errs['runs']} kernel calls within the "
-        "tolerances; G 9 and a CPU pos tensor refused before any launch")
+        "tolerances, each deterministic and equal to its graph replay; G 9, "
+        "a CPU pos tensor and clusters 0 / 9 / 2.5 refused before any "
+        "launch")
     return errs
 
 
@@ -1697,6 +1779,77 @@ def serve_emulate_path(dev, params, prompts):
 
 
 # --------------------------------------------------------- phase 5: times --
+def decode_attention_bound(B, KVH, G, dh, valid, int_rate):
+    """(least ms, "bytes" or "operations") of one bf16 decode attention
+    call with ``valid`` history slots: their k and v rows, q, the output,
+    the new token and the div table moved once; QK^T and PV (and the self
+    term) at the bf16 tensor-core peak; the finalize's divider lanes on the
+    INT32 lanes."""
+    q_elems = B * KVH * G * dh
+    moved = (2 * B * valid * KVH * dh * 2 + 2 * q_elems * 2
+             + 2 * B * KVH * dh * 2 + 256 * 4)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = 4 * B * KVH * G * (valid + 1) * dh / BF16_FLOPS * 1e3
+    int_ms = ELEMWISE_OPS_PER_LANE * q_elems / int_rate * 1e3
+    if bytes_ms >= max(flops_ms, int_ms):
+        return bytes_ms, "bytes"
+    return max(flops_ms, int_ms), "operations"
+
+
+def time_decode_attention(dev, gen, B, Smax, KVH, G, dh, pos, spec,
+                          frac_out, int_rate, clusters=()):
+    """The decode_attention op on the card at one bf16 shape, a scalar
+    ``pos`` (``pos`` valid slots), the SIMDive finalize: graph-replayed ms
+    at the planner's launch (``get_op``, as the model calls it) and, where
+    the wrapper takes ``cluster=``, pinned at each size in ``clusters``;
+    one ``scaled_dot_product_attention`` over the cache plus the new token
+    (appended as the last key) with a boolean mask, the exact-divide
+    yardstick (the GQA repeat and the layout made outside the timed call);
+    the bound. Returns a dict; "inputs" holds (q, k_cache, v_cache, k_new,
+    v_new)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import get_op
+
+    bf16 = torch.bfloat16
+    # (a wrapper without cluster= is timed at its own launch shape alone)
+    dq = torch.randn(B, KVH, G, dh, generator=gen, device=dev).to(bf16)
+    kc, vc = (torch.randn(B, Smax, KVH, dh, generator=gen, device=dev
+                          ).to(bf16) for _ in range(2))
+    kn, vn = (torch.randn(B, 1, KVH, dh, generator=gen, device=dev
+                          ).to(bf16) for _ in range(2))
+    kw = dict(pos=pos, slot=pos, approx_div=True, frac_out=frac_out)
+    ms = gpu_graph_time_ms(lambda: get_op("decode_attention", spec, "cuda")(
+        dq, kc, vc, kn, vn, **kw), iters=200)
+    by_cluster = {}
+    if hasattr(da, "cluster_size"):
+        for c in clusters:
+            by_cluster[c] = gpu_graph_time_ms(
+                lambda c=c: da.decode_attention_cuda(
+                    dq, kc, vc, kn, vn, spec=spec, cluster=c, **kw),
+                iters=200)
+    H = KVH * G
+    kf = torch.cat([kc, kn], dim=1).permute(0, 2, 1, 3
+                                             ).repeat_interleave(G, dim=1)
+    vf = torch.cat([vc, vn], dim=1).permute(0, 2, 1, 3
+                                             ).repeat_interleave(G, dim=1)
+    qf = dq.reshape(B, H, 1, dh)
+    mask = torch.arange(Smax + 1, device=dev) < pos
+    mask[Smax] = True
+    mask = mask.expand(B, 1, 1, Smax + 1)
+    lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, attn_mask=mask), iters=200)
+    bound, by = decode_attention_bound(B, KVH, G, dh, min(pos, Smax),
+                                       int_rate)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"ms": ms, "ms_by_cluster": by_cluster, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by,
+            "cluster": (da.cluster_size(B, KVH, sm_count)
+                        if hasattr(da, "cluster_size") else None),
+            "inputs": (dq, kc, vc, kn, vn)}
+
+
 def measure(dev, served, int_rate):
     import torch
     import torch.nn.functional as F
@@ -1793,18 +1946,17 @@ def measure(dev, served, int_rate):
         ab, bb, op="div", frac_out=frac_out), iters=20)
 
     # decode_attention at the decode step's shape: batch 4, cache
-    # PROMPT + GEN, a mid-generation position, the serving divider
+    # PROMPT + GEN, a mid-generation position, the serving divider; the
+    # planner's cluster size and every pinned size
     Smax, pos = PROMPT + GEN, PROMPT + 15
-    bf16 = torch.bfloat16
-    dq = torch.randn(BATCH, KV, G, dh, generator=gen, device=dev).to(bf16)
-    kc, vc = (torch.randn(BATCH, Smax, KV, dh, generator=gen, device=dev
-                          ).to(bf16) for _ in range(2))
-    kn, vn = (torch.randn(BATCH, 1, KV, dh, generator=gen, device=dev
-                          ).to(bf16) for _ in range(2))
+    sizes = tuple(range(1, 9))
+    da_t = time_decode_attention(dev, gen, BATCH, Smax, KV, G, dh, pos, spec,
+                                 frac_out, int_rate, clusters=sizes)
+    dq, kc, vc, kn, vn = da_t["inputs"]
     dkw = dict(pos=pos, slot=pos, approx_div=True, frac_out=frac_out)
     da_kernel = lambda: get_op("decode_attention", spec, "cuda")(
         dq, kc, vc, kn, vn, **dkw)
-    da_ms = gpu_graph_time_ms(da_kernel, iters=200)
+    da_ms = da_t["ms"]
     da_eager_ms = gpu_time_ms(da_kernel, iters=200)
     da_exact_ms = gpu_graph_time_ms(
         lambda: get_op("decode_attention", spec, "cuda")(
@@ -1815,35 +1967,24 @@ def measure(dev, served, int_rate):
             dq, kc, vc, kn, vn, **dict(dkw, pos=0, slot=0)), iters=200)
     da_plain_ms = gpu_time_ms(lambda: get_op("decode_attention", spec, "ref")(
         dq, kc, vc, kn, vn, **dkw), iters=50)
-    # the library yardstick: the same function with the exact divide, one
-    # scaled_dot_product_attention call over the cache plus the new token
-    # (appended as the last key) with a boolean mask; the GQA repeat and
-    # the layout are made outside the timed call
-    kf = torch.cat([kc, kn], dim=1).permute(0, 2, 1, 3
-                                             ).repeat_interleave(G, dim=1)
-    vf = torch.cat([vc, vn], dim=1).permute(0, 2, 1, 3
-                                             ).repeat_interleave(G, dim=1)
-    qf = dq.reshape(BATCH, H, 1, dh)
-    mask = torch.arange(Smax + 1, device=dev) < pos
-    mask[Smax] = True
-    mask = mask.expand(BATCH, 1, 1, Smax + 1)
-    da_lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
-        qf, kf, vf, attn_mask=mask), iters=200)
-    # bound: the valid slots' k and v rows, q, the new token, the output and
-    # the div table moved once; QK^T and PV at the bf16 tensor-core peak;
-    # the finalize's divider lanes on the INT32 lanes
-    da_bytes = (2 * BATCH * pos * KV * dh * 2 + 2 * dq.numel() * 2
-                + 2 * kn.numel() * 2 + 256 * 4)
-    da_bytes_ms = da_bytes / HBM_BYTES_PER_S * 1e3
-    da_flops_ms = 4 * BATCH * H * (pos + 1) * dh / BF16_FLOPS * 1e3
-    da_int_ms = ELEMWISE_OPS_PER_LANE * dq.numel() / int_rate * 1e3
-    da_bound = max(da_bytes_ms, da_flops_ms, da_int_ms)
+    da_lib_ms, da_bound, da_by = (da_t["library_ms"], da_t["bound_ms"],
+                                  da_t["bound_by"])
     log(f"  decode_attention ({BATCH},{Smax},{KV},{dh}) G {G} bf16 pos {pos}:"
-        f" {da_ms:.5f} ms (graph; exact divide {da_exact_ms:.5f}; pos 0 "
-        f"{da_pos0_ms:.5f}), "
+        f" {da_ms:.5f} ms (graph, planner's cluster {da_t['cluster']}; "
+        f"exact divide {da_exact_ms:.5f}; pos 0 {da_pos0_ms:.5f}), "
         f"{da_eager_ms:.5f} ms (eager), plain {da_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {da_lib_ms:.5f} ms, bound "
-        f"{da_bound:.6f} ms")
+        f"{da_bound:.6f} ms; by cluster size "
+        + ", ".join(f"{c}: {t:.5f}" for c, t in da_t["ms_by_cluster"].items()))
+    # a history near smollm-360m's context length: cache 2048, pos 2047
+    long_t = time_decode_attention(dev, gen, BATCH, 2048, KV, G, dh, 2047,
+                                   spec, frac_out, int_rate, clusters=sizes)
+    log(f"  decode_attention ({BATCH},2048,{KV},{dh}) G {G} bf16 pos 2047: "
+        f"{long_t['ms']:.5f} ms (graph, planner's cluster "
+        f"{long_t['cluster']}), scaled_dot_product_attention "
+        f"{long_t['library_ms']:.5f} ms, bound {long_t['bound_ms']:.6f} ms; "
+        "by cluster size " + ", ".join(
+            f"{c}: {t:.5f}" for c, t in long_t["ms_by_cluster"].items()))
 
     # serving: prefill, steady-state decode step, end to end
     max_seq = PROMPT + GEN
@@ -1910,6 +2051,9 @@ def measure(dev, served, int_rate):
         "decode_attention_eager_call_ms": da_eager_ms,
         "decode_attention_exact_div_ms": da_exact_ms,
         "decode_attention_pos0_ms": da_pos0_ms,
+        "decode_attention_cache2048_ms": long_t["ms"],
+        "decode_attention_cache2048_sdpa_ms": long_t["library_ms"],
+        "decode_attention_cache2048_bound_ms": long_t["bound_ms"],
         "flash_attention_eager_call_ms": att_eager_by[fa.DEFAULT_BLOCK],
         "flash_attention_pipelined_eager_call_ms":
             att_eager_by[ATTENTION_RING_BLOCK],
@@ -1966,10 +2110,15 @@ def measure(dev, served, int_rate):
          "shape": f"q ({BATCH},{KV},{G},{dh}) caches ({BATCH},{Smax},{KV},"
                   f"{dh}) bf16 pos {pos} simdive w{spec.width} "
                   f"cb{spec.coeff_bits} fo{frac_out}",
+         "cluster": da_t["cluster"],
          "ms": da_ms, "plain_ms": da_plain_ms, "bound_ms": da_bound,
-         "bound_by": "bytes" if da_bytes_ms >= max(da_flops_ms, da_int_ms)
-                     else "operations",
-         "library_ms": da_lib_ms, "eager_ms": da_eager_ms},
+         "bound_by": da_by, "library_ms": da_lib_ms, "eager_ms": da_eager_ms,
+         "ms_by_cluster": {str(c): t
+                           for c, t in da_t["ms_by_cluster"].items()},
+         "cache2048": {k: long_t[k] for k in (
+             "cluster", "ms", "library_ms", "bound_ms", "bound_by")}
+         | {"ms_by_cluster": {str(c): t for c, t in
+                              long_t["ms_by_cluster"].items()}}},
     ]
     return kernels, times
 
@@ -2325,6 +2474,8 @@ def main(argv=None) -> int:
         counts_e["decode_attention"]
     by_name["decode_attention"]["max_abs_err"] = da_errs["main"]
     by_name["decode_attention"]["max_abs_err_all_cases"] = da_errs["all"]
+    by_name["decode_attention"]["resident_clusters"] = \
+        da_errs["resident_clusters"]
     # logmatmul: the autotuned full-size --emulate run plus the full-size
     # run pinned to the row's schedule, each zeroed just before and read
     # just after, as for attention below

@@ -127,9 +127,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                         f, p]
     lib.simdive_softmax_div.restype = i
     lib.simdive_decode_attention.argtypes = (
-        [p] * 7 + [i] * 7 + [ll, p, i, ll] * 2 + [i] * 3 + [f] + [i] * 4
+        [p] * 7 + [i] * 8 + [ll, p, i, ll] * 2 + [i] * 3 + [f] + [i] * 4
         + [f, p])
     lib.simdive_decode_attention.restype = i
+    lib.simdive_decode_attention_max_clusters.argtypes = [i] * 5
+    lib.simdive_decode_attention_max_clusters.restype = i
     lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 9 + [p]
     lib.simdive_logmatmul.restype = i
 

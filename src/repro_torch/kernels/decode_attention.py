@@ -8,7 +8,13 @@ whose self term is folded in analytically, then ``acc / l`` — exact, or on
 the SIMDive divider with a per-row shared exponent. The reference has no
 TPU kernel of its own for it: there it is jnp (one XLA fusion) around the
 elemwise divider. On the card it is one launch of ``csrc/decode_attention.cu``
-(:func:`decode_attention_cuda`) instead of ~55 small ones a layer.
+(:func:`decode_attention_cuda`) instead of ~55 small ones a layer: one
+thread-block cluster of ``C`` blocks per (b, kv head), each block a
+contiguous share of that row's history (:func:`rank_range`), the blocks of a
+cluster meeting through distributed shared memory. ``C`` (1 to
+:data:`MAX_CLUSTER`) is planned from the shape and the card's SM count alone
+(:func:`cluster_size`), never from ``pos``, so a captured step replays at
+any position; ``cluster=`` pins it.
 
 The plain version is :func:`decode_attention_ref`: :func:`decode_attention_acc`
 (the masks, the softmax and ``p . V``, as ``layers.decode_attention_append``
@@ -23,15 +29,19 @@ needs and refuses anything else before a launch: all tensors f32 or all
 bf16, d_head 64 or 128, ``1 <= G <=`` :data:`MAX_G`, caches contiguous and
 16-byte aligned (the kernel reads their rows as 16-byte vectors).
 
-Float order: with one chunk of history (up to ``8192 // G`` valid slots:
-2,730 at G = 3) the kernel takes every ``p`` relative to the global max
-and rounds it to the cache's type before ``p . V``, as the plain version
-does; the two then differ in f32 summation order alone. A longer history
-is walked in chunks with an online-softmax rescale, which rounds ``p``
-relative to a running max.
+Float order: with one round of history (up to ``C`` x
+:func:`chunk_slots` valid slots: ``C x 2,730`` at G = 3) the blocks of a
+cluster take the cluster-wide max before any ``p``, so every ``p`` is
+relative to the global max and rounded to the cache's type before ``p . V``
+as in the plain version; the ranks' partial sums are combined in rank
+order, so the output is deterministic, and kernel and plain version differ
+in f32 summation order alone. A longer history is walked in rounds with an
+online-softmax rescale, which rounds ``p`` relative to each round's
+cluster-wide max.
 """
 from __future__ import annotations
 
+import functools
 import numbers
 
 import torch
@@ -42,11 +52,16 @@ from repro_torch.core.simdive import SimdiveSpec
 from . import build
 from .flash_attention import DEFAULT_DIV_SPEC, DEFAULT_FRAC_OUT, softmax_div
 
-__all__ = ["MAX_G", "decode_attention_acc", "decode_attention_ref",
-           "check_args", "decode_attention_cuda"]
+__all__ = ["MAX_G", "MAX_CLUSTER", "decode_attention_acc",
+           "decode_attention_ref", "cluster_size", "rank_range", "chunk_slots",
+           "check_args", "check_cluster", "decode_attention_cuda",
+           "max_active_clusters"]
 
 #: most q heads a kv head the kernel takes (csrc/decode_attention.cu kMaxG)
 MAX_G = 8
+#: most blocks a cluster: the portable cluster size (kMaxCluster)
+MAX_CLUSTER = 8
+_SCORE_FLOATS = 8192           # a block's scores a round (kScoreFloats)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
@@ -125,6 +140,48 @@ def decode_attention_ref(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
     return out.to(q.dtype)
 
 
+# ------------------------------------------------------------- the plan --
+def cluster_size(B: int, KVH: int, sm_count: int) -> int:
+    """Blocks a cluster (1 to :data:`MAX_CLUSTER`): the fewest that put at
+    least ``sm_count`` blocks on the card, ``ceil(sm_count / (B * KVH))``;
+    1 when the ``B * KVH`` rows alone fill it. So ``B * KVH * C`` stays
+    under two blocks an SM, one wave where the card holds two (checked on
+    the card with :func:`max_active_clusters`). Depends on the shape and
+    the card, never on ``pos``."""
+    rows = B * KVH
+    if rows >= sm_count:
+        return 1
+    return min(MAX_CLUSTER, -(-sm_count // rows))
+
+
+def rank_range(lo: int, hi: int, rank: int, C: int) -> tuple[int, int]:
+    """The share ``[a, b)`` of ``[lo, hi)`` that block ``rank`` of a
+    cluster of ``C`` takes, the kernel's integer formula: contiguous,
+    in rank order, sizes differing by at most one, empty when
+    ``hi - lo < C`` leaves a rank nothing."""
+    n = hi - lo
+    return lo + n * rank // C, lo + n * (rank + 1) // C
+
+
+def chunk_slots(Smax: int, G: int, C: int) -> int:
+    """Slots a block takes a round: ``min(8192 // G, ceil(Smax / C))``. A
+    history of up to ``C`` times this is one round."""
+    return min(_SCORE_FLOATS // G, -(-Smax // C))
+
+
+def check_cluster(cluster) -> None:
+    """Raise unless ``cluster`` is None (the planner's choice) or an int in
+    1..:data:`MAX_CLUSTER`."""
+    if cluster is None:
+        return
+    if isinstance(cluster, bool) or not isinstance(cluster, numbers.Integral):
+        raise TypeError(f"decode_attention: cluster must be an int or None, "
+                        f"got {type(cluster).__name__}")
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"decode_attention: cluster must be in 1.."
+                         f"{MAX_CLUSTER} blocks, got {cluster}")
+
+
 # ---------------------------------------------------------- kernel wrapper --
 def _index_arg(x, name: str, B: int, device) -> tuple:
     """``(scalar, tensor or None)`` of a position argument: a Python int,
@@ -148,9 +205,10 @@ def _index_arg(x, name: str, B: int, device) -> tuple:
 
 
 def check_args(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
-               ring_full=False, window=0) -> tuple:
+               ring_full=False, window=0, cluster=None) -> tuple:
     """Raise unless the kernel takes these arguments; pure Python, so it
     runs on any device. Returns ``(B, Smax, KVH, G, dh)``."""
+    check_cluster(cluster)
     if q.ndim != 4 or k_cache.ndim != 4:
         raise ValueError(f"decode_attention: expected q (B,KVH,G,dh) and "
                          f"caches (B,Smax,KVH,dh), got {tuple(q.shape)}, "
@@ -197,17 +255,21 @@ def check_args(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
 def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
                           spec: SimdiveSpec = DEFAULT_DIV_SPEC,
                           ring_full=False, window=0, approx_div=False,
-                          frac_out=DEFAULT_FRAC_OUT) -> torch.Tensor:
-    """Launch the CUDA kernel: one launch for the whole function, one CUDA
-    block of 8 warps per (b, kv head). Same arguments as
-    :func:`decode_attention_ref`.
+                          frac_out=DEFAULT_FRAC_OUT,
+                          cluster=None) -> torch.Tensor:
+    """Launch the CUDA kernel: one launch for the whole function, one
+    cluster of ``cluster`` blocks of 4 warps per (b, kv head); None takes
+    :func:`cluster_size` for the card, an int in 1..:data:`MAX_CLUSTER`
+    pins it. Otherwise the same arguments as :func:`decode_attention_ref`.
 
     Launches on the current stream and does not synchronise. Raises on CPU
     tensors, on what :func:`check_args` refuses, on width 32 and on a
-    failed build or launch — it never gives way to the plain version.
+    failed build or launch — a cluster launch that fails is never retried
+    at another size, and nothing gives way to the plain version.
     """
     B, Smax, KVH, G, dh = check_args(q, k_cache, v_cache, k_new, v_new, pos,
-                                     slot, ring_full=ring_full, window=window)
+                                     slot, ring_full=ring_full, window=window,
+                                     cluster=cluster)
     if not q.is_cuda:
         raise ValueError(f"decode_attention CUDA kernel: q lies on "
                          f"{q.device}, not on a CUDA device")
@@ -217,6 +279,8 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
     if not 1 <= spec.index_bits <= _MAX_INDEX_BITS:
         raise ValueError(f"the kernel stages a div table of index_bits <= "
                          f"{_MAX_INDEX_BITS}, got {spec.index_bits}")
+    if cluster is None:
+        cluster = cluster_size(B, KVH, _sm_count(q.device))
     pos_s, pos_t = _index_arg(pos, "pos", B, q.device)
     slot_s, slot_t = _index_arg(slot, "slot", B, q.device)
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
@@ -235,7 +299,8 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
             tab.data_ptr(), tab.numel(), B, Smax, KVH, G, dh,
-            _DTYPES[q.dtype], pos_s, *index(pos_t), slot_s, *index(slot_t),
+            _DTYPES[q.dtype], int(cluster), pos_s, *index(pos_t), slot_s,
+            *index(slot_t),
             int(bool(ring_full)), int(window), int(bool(approx_div)),
             dh ** -0.5, spec.width, spec.index_bits, int(frac_out),
             int(spec.round_output), lane_max_float(spec.width),
@@ -247,3 +312,22 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
 
 #: kernel launches made through the wrapper (read by chip_smoke.py)
 decode_attention_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def max_active_clusters(Smax: int, G: int, dh: int, dtype: torch.dtype,
+                        cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks the card holds at once for
+    the kernel serving (dtype, dh, G) at cache length ``Smax``
+    (``cudaOccupancyMaxActiveClusters``): ``B * KVH`` at most this many
+    run in one wave. Raises on a CUDA error."""
+    check_cluster(cluster)
+    n = build.load().simdive_decode_attention_max_clusters(
+        Smax, G, dh, _DTYPES[dtype], int(cluster))
+    if n < 0:
+        build.check(-n, "simdive_decode_attention_max_clusters")
+    return n

@@ -140,9 +140,11 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
             kernels={"attention": _fa.flash_attention_cuda,
                      "attention_pipelined":
                          _fa.flash_attention_pipelined_cuda})
-# decode_attention: its one launch shape (a block of 8 warps per (b, kv
-# head)) is compiled in, so it registers no block and nothing is autotuned;
-# pos / slot are keywords (ints or (B,) tensors), not positional tensors
+# decode_attention: its launch shape (a cluster of C blocks of 4 warps per
+# (b, kv head)) is planned by the wrapper from the shape and the card
+# (decode_attention.cluster_size; cluster= pins it), so it registers no
+# block and nothing is autotuned; pos / slot are keywords (ints or (B,)
+# tensors), not positional tensors
 register_op("decode_attention", ref=_da.decode_attention_ref,
             cuda=_da.decode_attention_cuda,
             kernels={"decode_attention": _da.decode_attention_cuda})

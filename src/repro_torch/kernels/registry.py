@@ -28,7 +28,8 @@ op registered without a default block takes no ``block=``.
 ``matmul_int``, ``matmul_emul``) are registered by
 :mod:`repro_torch.kernels.ops` on first use; ``packed`` takes
 ``block=(threads,)`` and registers no candidates; ``decode_attention``
-takes no ``block=`` (its launch shape is compiled in); ``attention`` takes
+takes no ``block=`` (its wrapper plans its cluster size from the shape and
+the card, ``cluster=`` pins it); ``attention`` takes
 ``block=(q_chunk, kv_chunk[, depth])`` and, like the matmul ops, autotunes
 between its depth-0 and ``cp.async``-ring schedules.
 
