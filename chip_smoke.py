@@ -85,39 +85,55 @@ any phase fails. Phases:
               two ``elemwise`` launches.
               Then the serving path at the full width of smollm-360m: batch 4,
               prompt 512, 32 greedy tokens, random weights from a seed,
-              through ``launch.serve.generate``, twice:
+              through ``launch.serve.generate``, whose decode step is one
+              CUDA graph (``make_decode_step``) replayed per token, twice:
               (a) ``--approx simdive`` (divider only), after one generate
-              that lets the attention autotune time its candidates: the
-              kernels' launch counters are zeroed just before and read just
-              after: 32 attention launches (one per layer of the prefill,
-              depth-0 and ring schedules together, as the autotune chose)
-              and 32 decode_attention launches per decode step (and no
-              elemwise launch) are required; one decode step alone must
-              launch 32 decode_attention kernels and nothing else. The
+              that lets the attention autotune time its candidates and
+              captures the decode step: the kernels' launch counters (a
+              replay adds the launches its graph holds) are zeroed just
+              before and read just after: 32 attention launches (one per
+              layer of the prefill, depth-0 and ring schedules together,
+              as the autotune chose) and 32 decode_attention launches per
+              decode step (and no elemwise launch) are required, and no
+              second capture; the eager loop (``decode_fn=
+              lm.decode_step``) must give the same launches and
+              ``torch.equal`` tokens and logits; one decode step alone,
+              eager and one replay, must launch 32 decode_attention
+              kernels and nothing else. The
               same model is then run through the plain versions
               (``backend="ref"``, on the GPU, fed the same tokens) and
               logits and tokens are compared. Then served twice more at
               full width with the attention autotune cache pinned
               (``preload_autotune_cache``) to the depth-0 block and to the
-              ring block: each run must launch only its own schedule, and
+              ring block: each pin makes the decode step capture once
+              more, each run must launch only its own schedule, and
               the two must give bit-identical logits and tokens, equal to
               the autotuned run's.
               (b) ``--approx simdive --emulate`` with the block autotune on:
               224 ``logmatmul`` launches (seven linears x 32 layers) per
               prefill and per decode step besides (a)'s (32
-              decode_attention a step, no elemwise); at batch 4 x
+              decode_attention a step, no elemwise), one capture across
+              two generates, the eager loop's launches, tokens and logits
+              equal, one step alone eager and replayed; at batch 4 x
               prompt 32 x 8 tokens, logits bit-equal (most rows) to a run
               whose matmuls are the plain versions and whose attention op
               runs on the same kernels, and logits and tokens within
               the bound against the all-plain-version run; then served
               twice more at full size with the autotune cache pinned
               (``preload_autotune_cache``) to the default depth-0 block and
-              to a ring block: each run must launch only its own schedule,
-              224 a prefill and a decode step, with logits and tokens
-              bit-identical to the autotuned run's; one
-              ``--emulate --quantize`` generate at full size.
+              to a ring block: each pin captures the decode step once
+              more (its warm step's 224 launches counted), then each run
+              must launch only its own schedule, 224 a prefill and a
+              decode step, with logits and tokens bit-identical to the
+              autotuned run's; one ``--emulate --quantize`` generate at
+              full size, captured for its params, ``torch.equal`` to its
+              eager loop.
 5. times    — prefill (also with each attention schedule pinned, in
-              turns), decode step, generate for (a) and (b), and each
+              turns); decode step eager and captured (a replay, host work
+              included), its card time, the host share of each, the
+              capture's time, the device kernels of an eager step and of
+              a replay; generate eager and captured with the peak memory
+              the card reports for each; for (a) and (b); and each
               kernel at the main path's shapes beside its bound, its plain
               version (``packed``: at both sizes of phase 4, for each op,
               at 128, 256 and 512 threads a block, beside the elemwise
@@ -379,6 +395,31 @@ def gpu_graph_time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Best host time of one call of ``fn``, the card drained before each
+    and no synchronise inside: what the host spends issuing the work."""
+    import torch
+
+    best = float("inf")
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3
+
+
+def reserved_bytes() -> int:
+    """Card memory the caching allocator holds once its unused blocks are
+    released: live tensors, and the private pools of live CUDA graphs."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
 
 
 def device_time_by_kernel(fn):
@@ -1441,18 +1482,27 @@ def serve_main_path(dev):
     max_seq = PROMPT + GEN
 
     # first generate: the attention autotune times its candidates once for
-    # the prefill's shape bucket (those launches are not the path's)
+    # the prefill's shape bucket, and the decode step is captured (those
+    # launches are not the path's)
+    step = serve.make_decode_step(lm)
     clear_autotune_cache()
-    torch.cuda.synchronize()
+    reserved = reserved_bytes()
     t0 = time.perf_counter()
     serve.generate(lm, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
+    held_bytes = reserved_bytes() - reserved
+    first_capture_s = step.capture_s
     picks = [tuple(r["block"]) for r in export_autotune_cache()
              if r["key"][0] == "attention"]
-    log(f"  first generate (autotune) {first_run_s:.2f}s; attention picked "
+    log(f"  first generate (autotune, capture of the decode step "
+        f"{first_capture_s:.2f}s) {first_run_s:.2f}s; attention picked "
         f"{picks}")
+    require(step.captures == 1, f"the first generate captured {step.captures}"
+                                " decode steps, expected 1")
 
+    # the main path: the second generate replays the captured step (launch
+    # counts through the replay accounting)
     reset_launch_counts()
     t0 = time.perf_counter()
     tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
@@ -1462,6 +1512,8 @@ def serve_main_path(dev):
     counts = launch_counts()
     log(f"  main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
         f"launches {counts}")
+    require(step.captures == 1, "two generate calls in a row captured "
+                                f"{step.captures} decode steps, expected 1")
     require(_attention_launches(counts) == cfg.n_layers,
             f"attention launches {counts}, expected {cfg.n_layers} (one per "
             "layer of the prefill, both schedules together)")
@@ -1476,9 +1528,26 @@ def serve_main_path(dev):
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     require(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
             "token out of the vocabulary")
-    # one decode step alone: one decode_attention launch a layer
-    lg, cache = lm.prefill(params, {"tokens": prompts})
-    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), cache)
+    # the eager loop: the same launches, the same tokens and logits
+    reset_launch_counts()
+    eager_tok, eager_logits = serve.generate(
+        lm, params, prompts, max_seq, GEN, decode_fn=lm.decode_step,
+        return_logits=True)
+    torch.cuda.synchronize()
+    eager_counts = launch_counts()
+    require(eager_counts == counts,
+            f"the eager generate launched {eager_counts}, the captured one "
+            f"{counts}")
+    require(torch.equal(eager_tok, tokens) and torch.equal(eager_logits,
+                                                           logits),
+            "the captured and the eager generate gave different tokens or "
+            "logits")
+    log("  captured vs eager generate: tokens and logits torch.equal, the "
+        "same launches")
+    # one decode step alone, eager and one replay of the captured step: one
+    # decode_attention launch a layer
+    lg, pre = lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), pre)
     reset_launch_counts()
     lm.decode_step(params, cache, lg.argmax(-1), PROMPT)
     torch.cuda.synchronize()
@@ -1487,7 +1556,14 @@ def serve_main_path(dev):
             and sum(step_counts.values()) == cfg.n_layers,
             f"one decode step launched {step_counts}, expected "
             f"{cfg.n_layers} decode_attention and nothing else")
-    del lg, cache
+    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    reset_launch_counts()
+    step(params, own, lg.argmax(-1), PROMPT)
+    torch.cuda.synchronize()
+    require(launch_counts() == step_counts and step.captures == 1,
+            f"one replay of the captured step counted {launch_counts()} "
+            f"(captures {step.captures}), the eager step {step_counts}")
+    del lg, pre, cache, own
     reset_launch_counts()
 
     # the same model through the plain versions, fed the same tokens
@@ -1522,21 +1598,27 @@ def serve_main_path(dev):
             "differs from the plain-version run")
 
     # both attention schedules on the path, at full width: pin the prefill's
-    # cached entry to one block, then to the other
+    # cached entry to one block, then to the other; each pin makes the
+    # decode step capture again (its warm step adds one step's launches)
     tuned = export_autotune_cache()
     pinned = {}
     for block, own, other in (
             (fa.DEFAULT_BLOCK, "attention", "attention_pipelined"),
             (ATTENTION_RING_BLOCK, "attention_pipelined", "attention")):
         require(_pin_blocks("attention", block) > 0, "nothing to pin")
+        captures = step.captures
         reset_launch_counts()
         tok_p, log_p = serve.generate(lm, params, prompts, max_seq, GEN,
                                       return_logits=True)
         torch.cuda.synchronize()
         c = launch_counts()
         log(f"  pinned to attention block {block}: launches {c}")
-        require(c[own] == cfg.n_layers and c[other] == 0,
+        require(c[own] == cfg.n_layers and c[other] == 0
+                and c["decode_attention"] == cfg.n_layers * GEN,
                 f"pinned to {block}, launches were {c}")
+        require(step.captures == captures + 1,
+                f"pinned to {block}, the decode step captured "
+                f"{step.captures - captures} times, expected once")
         pinned[own] = (tok_p, log_p, c)
     (tok_0, log_0, c_0), (tok_r, log_r, c_r) = (pinned["attention"],
                                                 pinned["attention_pipelined"])
@@ -1551,7 +1633,8 @@ def serve_main_path(dev):
     clear_autotune_cache()
     preload_autotune_cache(tuned)                # back to the tuned blocks
     return dict(lm=lm, params=params, prompts=prompts, counts=counts,
-                step_counts=step_counts,
+                step_counts=step_counts, first_capture_s=first_capture_s,
+                held_bytes=held_bytes,
                 pinned_counts={"attention": c_0,
                                "attention_pipelined": c_r},
                 attention_picks=[list(b) for b in picks],
@@ -1604,12 +1687,19 @@ def serve_emulate_path(dev, params, prompts):
     n_lin = len(LINEARS) * cfg.n_layers                   # 224
     max_seq = PROMPT + GEN
 
-    # first generate: builds nothing new, autotunes each (shape bucket) once
+    # first generate: builds nothing new, autotunes each (shape bucket)
+    # once, captures the decode step
+    step = serve.make_decode_step(lm_e)
     clear_autotune_cache()
+    reserved = reserved_bytes()
     t0 = time.perf_counter()
     serve.generate(lm_e, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
     tune_s = time.perf_counter() - t0
+    held_bytes = reserved_bytes() - reserved
+    first_capture_s = step.capture_s
+    require(step.captures == 1, f"the first emulate generate captured "
+                                f"{step.captures} decode steps, expected 1")
     picks = {tuple(r["key"][2][0]) + tuple(r["key"][2][2]): r["block"]
              for r in export_autotune_cache() if r["key"][0] == "matmul_emul"}
     log(f"  emulate: first generate (autotune) {tune_s:.2f}s; picked "
@@ -1626,6 +1716,8 @@ def serve_emulate_path(dev, params, prompts):
     counts = launch_counts()
     log(f"  emulate main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
         f"launches {counts}")
+    require(step.captures == 1, "two emulate generate calls in a row "
+                                f"captured {step.captures} decode steps")
     require(_matmul_launches(counts) == n_lin * GEN,
             f"logmatmul launches {_matmul_launches(counts)}, expected "
             f"{n_lin} per prefill and per decode step x {GEN}")
@@ -1637,12 +1729,35 @@ def serve_emulate_path(dev, params, prompts):
             and int(tokens.min()) >= 0
             and int(tokens.max()) < cfg.vocab_size, "bad emulate output")
     reset_launch_counts()
-    lg, cache = lm_e.prefill(params, {"tokens": prompts})
+    eager_tok, eager_logits = serve.generate(
+        lm_e, params, prompts, max_seq, GEN, decode_fn=lm_e.decode_step,
+        return_logits=True)
+    torch.cuda.synchronize()
+    require(launch_counts() == counts,
+            f"the eager emulate generate launched {launch_counts()}, the "
+            f"captured one {counts}")
+    require(torch.equal(eager_tok, tokens) and torch.equal(eager_logits,
+                                                           logits),
+            "the captured and the eager emulate generate gave different "
+            "tokens or logits")
+    log("  emulate, captured vs eager generate: tokens and logits "
+        "torch.equal, the same launches")
+    reset_launch_counts()
+    lg, pre = lm_e.prefill(params, {"tokens": prompts})
     prefill_counts = launch_counts()
-    cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), cache)
+    cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), pre)
     reset_launch_counts()
     lm_e.decode_step(params, cache, lg.argmax(-1), PROMPT)
     step_counts = launch_counts()
+    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    reset_launch_counts()
+    step(params, own, lg.argmax(-1), PROMPT)
+    torch.cuda.synchronize()
+    require(launch_counts() == step_counts and step.captures == 1,
+            f"one replay of the captured emulate step counted "
+            f"{launch_counts()} (captures {step.captures}), the eager step "
+            f"{step_counts}")
+    del lg, pre, cache, own
     require(_matmul_launches(prefill_counts) == n_lin
             and _matmul_launches(step_counts) == n_lin,
             f"logmatmul launches per prefill {prefill_counts}, per decode "
@@ -1732,21 +1847,29 @@ def serve_emulate_path(dev, params, prompts):
             "tolerance differs from the plain-version run")
 
     # both schedules on the path, at full size: pin every shape bucket to
-    # the default (depth-0) block, then to the ring block
+    # the default (depth-0) block, then to the ring block. Each pin makes
+    # the decode step capture again: the first pinned generate captures
+    # (its warm step adds one step's launches), the second replays
     tuned = export_autotune_cache()
     pinned, pinned_counts = {}, {}
     for block, own, other in (
             (lm.DEFAULT_BLOCK, "matmul", "matmul_pipelined"),
             (MATMUL_RING_BLOCK, "matmul_pipelined", "matmul")):
         require(_pin_blocks("matmul_emul", block) > 0, "nothing to pin")
-        reset_launch_counts()
-        pinned[own] = serve.generate(lm_e, params, prompts, max_seq, GEN,
-                                     return_logits=True)
-        torch.cuda.synchronize()
-        c = launch_counts()
-        log(f"  emulate pinned to matmul block {block}: launches {c}")
-        require(c[own] == n_lin * GEN and c[other] == 0,
-                f"pinned to {block}, launches were {c}")
+        captures = step.captures
+        for extra in (n_lin, 0):
+            reset_launch_counts()
+            pinned[own] = serve.generate(lm_e, params, prompts, max_seq, GEN,
+                                         return_logits=True)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            log(f"  emulate pinned to matmul block {block}: launches {c}, "
+                f"captures {step.captures - captures}")
+            require(c[own] == n_lin * GEN + extra and c[other] == 0,
+                    f"pinned to {block}, launches were {c}")
+            require(step.captures == captures + 1,
+                    f"pinned to {block}, the decode step captured "
+                    f"{step.captures - captures} times, expected once")
         pinned_counts[own] = c[own]
     for own, (tok_p, log_p) in pinned.items():
         require(torch.equal(tok_p, tokens) and torch.equal(log_p, logits),
@@ -1757,8 +1880,11 @@ def serve_emulate_path(dev, params, prompts):
     clear_autotune_cache()
     preload_autotune_cache(tuned)                # back to the tuned blocks
 
-    # --emulate --quantize: int8 weights through the same kernels
+    # --emulate --quantize: int8 weights through the same kernels. New
+    # params: the step captures again (its warm step adds one step's
+    # launches); the eager loop launches what the autotuned run did
     qparams = serve.quantize_params(params)
+    captures = step.captures
     reset_launch_counts()
     q_tok, q_logits = serve.generate(lm_e, qparams, prompts, max_seq, GEN,
                                      return_logits=True)
@@ -1766,9 +1892,27 @@ def serve_emulate_path(dev, params, prompts):
     require(bool(torch.isfinite(q_logits).all())
             and int(q_tok.min()) >= 0 and int(q_tok.max()) < cfg.vocab_size,
             "bad --emulate --quantize output")
-    require(q_counts == counts, f"--quantize launches {q_counts} != {counts}")
-    log(f"  --emulate --quantize: finite logits, launches {q_counts}")
+    require(step.captures == captures + 1,
+            "--quantize: the decode step did not capture again for the new "
+            "params")
+    with_warm = {k: counts[k] + step_counts[k] for k in counts}
+    require(q_counts == with_warm,
+            f"--quantize launches {q_counts} != {with_warm}")
+    reset_launch_counts()
+    qe_tok, qe_logits = serve.generate(lm_e, qparams, prompts, max_seq, GEN,
+                                       decode_fn=lm_e.decode_step,
+                                       return_logits=True)
+    torch.cuda.synchronize()
+    require(launch_counts() == counts,
+            f"--quantize eager launches {launch_counts()} != {counts}")
+    require(torch.equal(qe_tok, q_tok) and torch.equal(qe_logits, q_logits),
+            "--quantize: the captured and the eager generate gave different "
+            "tokens or logits")
+    log(f"  --emulate --quantize: finite logits, launches {q_counts} "
+        "(capture's warm step included); captured vs eager generate: tokens "
+        "and logits torch.equal")
     return dict(lm=lm_e, counts=counts, step_counts=step_counts,
+                first_capture_s=first_capture_s, held_bytes=held_bytes,
                 pinned_counts=pinned_counts,
                 first_run_s=run_s, tune_s=tune_s,
                 autotune_picks={f"{k}": v for k, v in picks.items()},
@@ -1858,7 +2002,6 @@ def measure(dev, served, int_rate):
                                      export_autotune_cache, get_op,
                                      preload_autotune_cache)
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve
     from repro_torch.metrics import DIV_FRAC_OUT, grid8
     from repro_torch.metrics.timing import time_callable
 
@@ -1987,7 +2130,6 @@ def measure(dev, served, int_rate):
             f"{c}: {t:.5f}" for c, t in long_t["ms_by_cluster"].items()))
 
     # serving: prefill, steady-state decode step, end to end
-    max_seq = PROMPT + GEN
     prefill_t = time_callable(lm.prefill, params, {"tokens": prompts},
                               iters=5, items=BATCH * PROMPT)
     # where the prefill's card time goes: kernels by name, from a trace
@@ -2017,22 +2159,10 @@ def measure(dev, served, int_rate):
                                     t.best_s)
     clear_autotune_cache()
     preload_autotune_cache(tuned)
-    logits, cache = lm.prefill(params, {"tokens": prompts})
-    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), cache)
-    tok = logits.argmax(-1)
-    step_t = time_callable(lm.decode_step, params, cache, tok, PROMPT,
-                           iters=10, warmup=2, items=BATCH)
-    # the same step with the host taken out: what the card alone needs
-    step_graph_ms = gpu_graph_time_ms(
-        lambda: lm.decode_step(params, cache, tok, PROMPT), iters=3)
-    e2e_t = time_callable(
-        lambda: serve.generate(lm, params, prompts, max_seq, GEN),
-        iters=3, items=BATCH * GEN, device=lm.device)
-    step_launches = count_device_kernels(
-        lambda: lm.decode_step(params, cache, tok, PROMPT))
-    log(f"  decode step: {step_launches} device kernels and copies in one "
-        "step (profiler trace; None = the trace showed no device activity)")
-    served["decode_step_device_kernels"] = step_launches
+    # the decode step, eager and captured, and generate with each
+    step_times = time_decode_step(lm, params, prompts, served)
+    served["decode_step_device_kernels"] = \
+        step_times["decode_step_device_kernels"]
     times = {
         "prefill_ms": prefill_t.best_s * 1e3,
         "prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
@@ -2040,12 +2170,7 @@ def measure(dev, served, int_rate):
             pinned_prefill[fa.DEFAULT_BLOCK] * 1e3,
         "prefill_ms_attention_ring":
             pinned_prefill[ATTENTION_RING_BLOCK] * 1e3,
-        "decode_step_ms": step_t.best_s * 1e3,
-        "decode_tok_per_s": BATCH / step_t.best_s,
-        "decode_step_device_ms": step_graph_ms,
-        "decode_step_host_share": 1.0 - step_graph_ms / (step_t.best_s * 1e3),
-        "generate_ms": e2e_t.best_s * 1e3,
-        "generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
+        **step_times,
         "first_generate_s": served["first_run_s"],
         "elemwise_eager_call_ms": ew_eager_ms,
         "decode_attention_eager_call_ms": da_eager_ms,
@@ -2327,43 +2452,130 @@ def measure_packed(packed, int_rate):
     }
 
 
-def measure_emulate(served_e, params, prompts):
-    """Prefill, decode step (eager and graph-replayed) and generate of the
-    --emulate path."""
+def time_decode_step(lm, params, prompts, served, *, prefix="",
+                     step_iters=10, graph_iters=3, gen_iters=3):
+    """The decode step and generate of one path, eager (``*_eager_*``,
+    ``lm.decode_step`` / ``decode_fn=lm.decode_step``) and captured
+    (``*_captured_*``, the served step, one CUDA-graph replay a token),
+    timed by ``time_callable`` (CUDA events around each call, host work
+    included); the card alone (``decode_step_device_ms``: many eager steps
+    replayed from one graph; ``decode_step_replay_ms``: captured steps
+    back to back, the host running ahead); the host share of each (one
+    less the card's time over the step's, each against its own) and the
+    host's own time a call (``*_host_ms``, no synchronise inside); the
+    time of the
+    first capture (phase 4) and of one on a warm process; the device
+    kernels of one eager step and of one replay (profiler trace); the peak
+    memory the card reports for each generate (``max_memory_allocated``,
+    which a graph's private pool does not enter once its capture is over)
+    and the memory the captured step holds after its first generate
+    (phase 4: reserved memory after ``empty_cache``, before and after: its
+    cache buffers, its graph's pool, its stream's cuBLAS workspace)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.metrics.timing import time_callable
 
-    lm_e = served_e["lm"]
     max_seq = PROMPT + GEN
+    step = serve.make_decode_step(lm)
+    logits, pre = lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq), pre)
+    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    tok = logits.argmax(-1)
+    del pre
+    # the autotune cache was cleared and preloaded since the last capture:
+    # the next call captures again, kernels built and blocks settled
+    captures = step.captures
+    step(params, own, tok, PROMPT)
+    torch.cuda.synchronize()
+    require(step.captures == captures + 1,
+            f"{prefix}decode step: no capture after the autotune cache was "
+            "preloaded")
+    capture_s = step.capture_s
+    eager_t = time_callable(lm.decode_step, params, cache, tok, PROMPT,
+                            iters=step_iters, warmup=1, items=BATCH)
+    captured_t = time_callable(step, params, own, tok, PROMPT,
+                               iters=step_iters, warmup=1, items=BATCH)
+    # back-to-back replays: the host runs ahead, the card sets the pace
+    replay_ms = gpu_time_ms(lambda: step(params, own, tok, PROMPT),
+                            iters=2 * step_iters)
+    eager_host_ms = host_ms(lambda: lm.decode_step(params, cache, tok, PROMPT),
+                            step_iters)
+    captured_host_ms = host_ms(lambda: step(params, own, tok, PROMPT),
+                               step_iters)
+    # the same step with the host taken out: what the card alone needs
+    device_ms = gpu_graph_time_ms(
+        lambda: lm.decode_step(params, cache, tok, PROMPT), iters=graph_iters)
+    eager_kernels = count_device_kernels(
+        lambda: lm.decode_step(params, cache, tok, PROMPT))
+    replay_kernels = count_device_kernels(
+        lambda: step(params, own, tok, PROMPT))
+    log(f"  {prefix}decode step: {eager_kernels} device kernels and copies "
+        f"in one eager step, {replay_kernels} in one replay of the captured "
+        "step (profiler trace; None = the trace showed no device activity)")
+    require(step.captures == captures + 1,
+            f"{prefix}decode step: captured again while timed")
+
+    def generate_run(**kw):
+        return lambda: serve.generate(lm, params, prompts, max_seq, GEN, **kw)
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    gen_captured = time_callable(generate_run(), iters=gen_iters,
+                                 items=BATCH * GEN, device=lm.device)
+    gen_eager = time_callable(generate_run(decode_fn=lm.decode_step),
+                              iters=gen_iters, items=BATCH * GEN,
+                              device=lm.device)
+    peak_captured = peak_bytes(generate_run())
+    peak_eager = peak_bytes(generate_run(decode_fn=lm.decode_step))
+    eager_ms, captured_ms = eager_t.best_s * 1e3, captured_t.best_s * 1e3
+    return {
+        f"{prefix}decode_step_eager_ms": eager_ms,
+        f"{prefix}decode_eager_tok_per_s": BATCH / eager_t.best_s,
+        f"{prefix}decode_step_captured_ms": captured_ms,
+        f"{prefix}decode_captured_tok_per_s": BATCH / captured_t.best_s,
+        f"{prefix}decode_step_device_ms": device_ms,
+        f"{prefix}decode_step_eager_host_share": 1.0 - device_ms / eager_ms,
+        f"{prefix}decode_step_replay_ms": replay_ms,
+        f"{prefix}decode_step_captured_host_share":
+            1.0 - replay_ms / captured_ms,
+        f"{prefix}decode_step_eager_host_ms": eager_host_ms,
+        f"{prefix}decode_step_captured_host_ms": captured_host_ms,
+        f"{prefix}decode_step_first_capture_s": served["first_capture_s"],
+        f"{prefix}decode_step_capture_s": capture_s,
+        f"{prefix}decode_step_device_kernels": eager_kernels or 0,
+        f"{prefix}decode_step_replay_device_kernels": replay_kernels or 0,
+        f"{prefix}generate_eager_ms": gen_eager.best_s * 1e3,
+        f"{prefix}generate_eager_tok_per_s": BATCH * GEN / gen_eager.best_s,
+        f"{prefix}generate_captured_ms": gen_captured.best_s * 1e3,
+        f"{prefix}generate_captured_tok_per_s":
+            BATCH * GEN / gen_captured.best_s,
+        f"{prefix}generate_eager_peak_bytes": peak_eager,
+        f"{prefix}generate_captured_peak_bytes": peak_captured,
+        f"{prefix}decode_step_held_bytes": served["held_bytes"],
+    }
+
+
+def measure_emulate(served_e, params, prompts):
+    """Prefill, decode step (eager, captured, card) and generate (eager and
+    captured) of the --emulate path."""
+    from repro_torch.metrics.timing import time_callable
+
+    lm_e = served_e["lm"]
     prefill_t = time_callable(lm_e.prefill, params, {"tokens": prompts},
                               iters=2, items=BATCH * PROMPT)
-    logits, cache = lm_e.prefill(params, {"tokens": prompts})
-    cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), cache)
-    tok = logits.argmax(-1)
-    step_t = time_callable(lm_e.decode_step, params, cache, tok, PROMPT,
-                           iters=5, warmup=1, items=BATCH)
-    step_graph_ms = gpu_graph_time_ms(
-        lambda: lm_e.decode_step(params, cache, tok, PROMPT), iters=2)
-    e2e_t = time_callable(
-        lambda: serve.generate(lm_e, params, prompts, max_seq, GEN),
-        iters=1, items=BATCH * GEN, device=lm_e.device)
-    kernels = count_device_kernels(
-        lambda: lm_e.decode_step(params, cache, tok, PROMPT))
-    torch.cuda.synchronize()
     return {
         "emulate_prefill_ms": prefill_t.best_s * 1e3,
         "emulate_prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
-        "emulate_decode_step_ms": step_t.best_s * 1e3,
-        "emulate_decode_tok_per_s": BATCH / step_t.best_s,
-        "emulate_decode_step_device_ms": step_graph_ms,
-        "emulate_decode_step_host_share":
-            1.0 - step_graph_ms / (step_t.best_s * 1e3),
-        "emulate_generate_ms": e2e_t.best_s * 1e3,
-        "emulate_generate_tok_per_s": BATCH * GEN / e2e_t.best_s,
+        **time_decode_step(lm_e, params, prompts, served_e,
+                           prefix="emulate_", step_iters=5, graph_iters=2,
+                           gen_iters=2),
         "emulate_first_generate_s": served_e["first_run_s"],
         "emulate_autotune_generate_s": served_e["tune_s"],
-        "emulate_decode_step_device_kernels": kernels or 0,
     }
 
 

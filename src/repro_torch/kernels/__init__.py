@@ -47,7 +47,10 @@ _EXPORTS = {
     "resolve_backend": ".registry",
     "launch_counts": ".registry",
     "reset_launch_counts": ".registry",
+    "launches_between": ".registry",
+    "add_launches": ".registry",
     "autotune_cache": ".registry",
+    "autotune_generation": ".registry",
     "clear_autotune_cache": ".registry",
     "export_autotune_cache": ".registry",
     "preload_autotune_cache": ".registry",

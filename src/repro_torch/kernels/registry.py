@@ -18,11 +18,17 @@ shape buckets, backend, kwargs signature) by the reference's
 measure-and-cache autotune (:func:`_pick_block`): every candidate is timed
 once with CUDA events (:func:`repro_torch.metrics.timing.time_callable`)
 and the fastest is cached. Timing happens only on the ``cuda`` backend and
-never while a CUDA graph is being captured; ``SIMDIVE_AUTOTUNE=0`` (or
-``off``) caches the registered default untimed, as in the reference.
-:func:`export_autotune_cache` / :func:`preload_autotune_cache` round-trip
-the cache through JSON (``chip_smoke.py`` pins a schedule that way). An
-op registered without a default block takes no ``block=``.
+never while a CUDA graph is being captured: a capture that meets a shape
+whose block is still to be timed raises, so a graph never holds a block
+the eager call would not have picked (run the call once eagerly first, as
+the captured decode step of :mod:`repro_torch.launch.serve` does).
+``SIMDIVE_AUTOTUNE=0`` (or ``off``) caches the registered default untimed,
+as in the reference. :func:`export_autotune_cache` /
+:func:`preload_autotune_cache` round-trip the cache through JSON
+(``chip_smoke.py`` pins a schedule that way); they and
+:func:`clear_autotune_cache` advance :func:`autotune_generation`, and a
+graph captured under an older generation is not replayed. An op
+registered without a default block takes no ``block=``.
 :func:`register_op` is the hook new ops plug into. The built-in ops
 (``elemwise``, ``packed``, ``attention``, ``decode_attention``,
 ``matmul_int``, ``matmul_emul``) are registered by
@@ -37,7 +43,10 @@ Launch counts are kept by the kernel wrappers, one count per schedule;
 :func:`launch_counts` reports them under the names each op registered them
 with (``elemwise``; ``packed``; ``attention`` and ``attention_pipelined``;
 ``decode_attention``; ``matmul`` and ``matmul_pipelined``, shared by both
-matmul ops).
+matmul ops). A launch captured into a CUDA graph is not a launch: whoever
+captures takes the captured launches back out of the counts
+(:func:`launches_between`, :func:`add_launches` with ``times=-1``) and adds
+them once per replay.
 """
 from __future__ import annotations
 
@@ -57,7 +66,10 @@ __all__ = [
     "shape_bucket",
     "launch_counts",
     "reset_launch_counts",
+    "launches_between",
+    "add_launches",
     "autotune_cache",
+    "autotune_generation",
     "clear_autotune_cache",
     "export_autotune_cache",
     "preload_autotune_cache",
@@ -87,6 +99,7 @@ class OpImpl:
 
 _REGISTRY: dict[str, OpImpl] = {}
 _AUTOTUNE_CACHE: dict[tuple, tuple] = {}
+_AUTOTUNE_GENERATION = 0
 
 
 def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
@@ -142,6 +155,22 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def launches_between(before: dict, after: dict) -> dict[str, int]:
+    """Launches per count name from one :func:`launch_counts` snapshot to
+    a later one; names that did not move are left out."""
+    return {name: n - before.get(name, 0) for name, n in after.items()
+            if n != before.get(name, 0)}
+
+
+def add_launches(launches: dict, times: int = 1) -> None:
+    """Add ``times`` x ``launches`` (a :func:`launches_between` result) to
+    the counts: once per replay of a CUDA graph that holds them, and
+    ``times=-1`` to take back what a capture counted."""
+    kernels = _kernels()
+    for name, n in launches.items():
+        kernels[name].launches += n * times
+
+
 # ------------------------------------------------------------- autotune --
 def autotune_cache() -> dict:
     """The live (op, width, shape-buckets, backend, kwargs-sig) -> block
@@ -149,8 +178,22 @@ def autotune_cache() -> dict:
     return _AUTOTUNE_CACHE
 
 
+def autotune_generation() -> int:
+    """How many times :func:`clear_autotune_cache` and
+    :func:`preload_autotune_cache` have changed the cache's blocks. A block
+    first timed for a new shape adds an entry and leaves it as it is: no
+    entry a graph was captured with changes then."""
+    return _AUTOTUNE_GENERATION
+
+
+def _advance_generation() -> None:
+    global _AUTOTUNE_GENERATION
+    _AUTOTUNE_GENERATION += 1
+
+
 def clear_autotune_cache() -> None:
     _AUTOTUNE_CACHE.clear()
+    _advance_generation()
 
 
 def _kwargs_sig(kw: dict) -> tuple:
@@ -187,13 +230,14 @@ def preload_autotune_cache(records: list) -> int:
     """Seed the cache from :func:`export_autotune_cache` output. Returns
     how many entries were loaded; malformed records, records of
     unregistered ops and blocks outside the op's current candidates (plus
-    its default) are skipped."""
+    its default) are skipped. Advances :func:`autotune_generation`."""
     def tupleize(x):
         if isinstance(x, list):
             return tuple(tupleize(i) for i in x)
         return x
 
     _ensure_builtin_ops()
+    _advance_generation()
     loaded = 0
     for rec in records or []:
         try:
@@ -227,7 +271,9 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     """Cached per-(op, width, shape-buckets, backend, kwargs-sig) block
     choice, measured once: each candidate's call timed by CUDA events, the
     fastest kept. Nothing is timed or cached while a CUDA graph is being
-    captured (the counterpart of the reference's tracer check)."""
+    captured (the counterpart of the reference's tracer check): there a
+    block that would still have to be timed raises, since the default the
+    capture could serve instead may not be the block the eager call picks."""
     key = (entry.name, spec.width,
            tuple(shape_bucket(t.shape) for t in tensors), backend,
            _kwargs_sig(kw))
@@ -237,10 +283,15 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     candidates = entry.block_candidates or (entry.default_block,)
     capturing = (torch.cuda.is_available()
                  and torch.cuda.is_current_stream_capturing())
-    if len(candidates) < 2 or _autotune_mode() == "off" or capturing:
+    if len(candidates) < 2 or _autotune_mode() == "off":
         if not capturing:
             _AUTOTUNE_CACHE[key] = entry.default_block
         return entry.default_block
+    if capturing:
+        raise RuntimeError(
+            f"op {entry.name!r}: no block is settled for {key} and a CUDA "
+            "graph is being captured, where nothing is timed; call it once "
+            "eagerly at these shapes before the capture")
     from repro_torch.metrics.timing import time_callable
 
     best, best_s = None, None

@@ -12,6 +12,12 @@ the prefill and in each decode step) runs the ``logmatmul`` kernel.
 ``--quantize`` swaps the linear weights for int8 ``QuantizedWeight``s;
 with ``--emulate`` their magnitudes feed the emulated matmul directly.
 
+Every token is served through one step (:func:`make_decode_step`, the
+reference's jitted step): on the GPU one decode step is captured into a
+CUDA graph on first use and replayed per token, so the ~2,000 (``--emulate``
+~9,500) kernels of a step are one launch from the host; on the CPU the
+step runs eagerly. The prefill runs eagerly on both.
+
 Entry points run on the GPU unless asked otherwise: ``device`` defaults to
 ``'cuda'`` and a host without one gets an error, not a CPU run.
 
@@ -31,16 +37,20 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import time
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.approx import ApproxConfig, serving_segments
+from repro_torch.kernels.registry import (add_launches, autotune_generation,
+                                          launch_counts, launches_between)
 from repro_torch.metrics.timing import time_callable
 from repro_torch.models import build
-from repro_torch.models.layers import quantize_weight
+from repro_torch.models.layers import QuantizedWeight, quantize_weight
 
 # matmul-weight leaf names (stacked (L,K,N) / MoE (L,E,K,N) / flat (K,N));
 # norms, embeddings (gather tables), convs and per-head vectors stay float.
@@ -76,9 +86,11 @@ def quantize_params(params: dict) -> dict:
 def merge_cache(full: dict, cache: dict) -> dict:
     """Embed a prompt-length prefill cache into a max_seq serving cache.
 
-    Equal-shape leaves pass through; longer-seq destination leaves take the
-    prefill slab at the front of axis 2 (the stacked caches' seq axis),
-    written **in place** into ``full``'s buffers. Anything else raises with
+    Every leaf is written **in place** into ``full``'s buffers, which come
+    back as the merged cache: an equal-shape leaf is copied whole, a
+    longer-seq destination leaf takes the prefill slab at the front of axis
+    2 (the stacked caches' seq axis). So a captured decode step that owns
+    ``full``'s buffers serves the merged cache. Anything else raises with
     the leaf path — a cache-layout drift must fail loudly, not serve an
     empty cache and generate garbage.
     """
@@ -89,7 +101,7 @@ def merge_cache(full: dict, cache: dict) -> dict:
     for key, dst in full.items():
         src = cache[key]
         if src.shape == dst.shape:
-            out[key] = src.to(dst.dtype)
+            out[key] = dst.copy_(src)
         elif (dst.ndim >= 3 and src.ndim == dst.ndim
                 and dst.shape[:2] == src.shape[:2]
                 and dst.shape[2] >= src.shape[2]
@@ -105,24 +117,192 @@ def merge_cache(full: dict, cache: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ decode step --
+def decode_body(lm, params, cache, tok, pos):
+    """One greedy decode step as the captured graph runs it: ``pos`` is a
+    ``(B,)`` integer tensor on ``lm.device``, so nothing is read on the
+    host (``LM.decode_step`` turns a scalar position into a Python int,
+    which a capture cannot do). It runs eagerly as it is. Returns
+    ``(logits (B, V), cache)``; the cache is written in place."""
+    if not (torch.is_tensor(pos) and pos.shape == tok.shape
+            and not pos.is_floating_point() and pos.device == tok.device):
+        raise ValueError(
+            f"decode_body takes pos as a ({tok.shape[0]},) integer tensor on "
+            f"{tok.device}, got {pos!r:.80}")
+    return lm.decode_step(params, cache, tok, pos)
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree, in a fixed order."""
+    if torch.is_tensor(tree):
+        return (tree,)
+    if isinstance(tree, QuantizedWeight):
+        return (tree.q, tree.scale)
+    if isinstance(tree, dict):
+        return tuple(t for k in sorted(tree) for t in _leaves(tree[k]))
+    raise TypeError(f"unexpected parameter leaf {type(tree).__name__}")
+
+
+class _Slot:
+    """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache, token and
+    position buffers it owns, and the graph captured on them with what it
+    was captured under."""
+
+    def __init__(self, lm, batch_size: int, max_seq: int):
+        self.cache = lm.empty_cache(batch_size, max_seq)
+        self.tok = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+        self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+        self.graph = None
+        self.logits = None
+        self.params = None
+        self.leaves = ()
+        self.generation = None
+        self.launches = {}
+
+    def owns(self, cache: dict) -> bool:
+        return cache.keys() == self.cache.keys() and all(
+            cache[k] is buf for k, buf in self.cache.items())
+
+    def captured_for(self, params) -> bool:
+        """Whether the graph holds these params' addresses and blocks the
+        autotune cache still serves."""
+        if (self.graph is None or params is not self.params
+                or self.generation != autotune_generation()):
+            return False
+        leaves = _leaves(params)
+        return len(leaves) == len(self.leaves) and all(
+            a is b for a, b in zip(leaves, self.leaves))
+
+
+class DecodeStep:
+    """The served decode step: ``step(params, cache, tok, pos) -> (logits,
+    cache)``, the call signature of the reference's jitted step.
+
+    On a CUDA device it captures one decode step (:func:`decode_body`) into
+    a CUDA graph on first use and replays it on every later call. The
+    graph holds addresses, so the step owns its buffers per ``(B,
+    max_seq)``: the cache (:meth:`empty_cache`; :func:`generate` merges the
+    prefill into it), the token and position the call's ``tok`` and
+    ``pos`` are copied into, and the logits the replay writes. The logits
+    returned are that buffer, rewritten by the next call: clone them to
+    keep them. A cache other than the step's own raises. The graph is
+    captured again when the params object or one of its leaves is not the
+    one it was captured with (a strong reference is kept), or when the
+    block autotune cache was cleared or preloaded since
+    (:func:`~repro_torch.kernels.registry.autotune_generation`). A capture
+    first runs the step once eagerly at the same shapes, which builds the
+    kernels, times the blocks, uploads the tables and counts its launches;
+    then the capture, whose launches the counts give back, and the replay,
+    which adds them (:func:`~repro_torch.kernels.registry.add_launches`).
+    A capture that fails raises; the step never runs eagerly instead.
+
+    On the CPU, which has no CUDA graph, it is ``lm.decode_step``, eager:
+    the counterpart of the reference's jit without donation there.
+
+    The reference's ``donate`` has no counterpart: the port always writes
+    the step's one cache slot in place, so running a step again at the
+    same ``pos`` rewrites the same values.
+    """
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.captures = 0            # graphs captured so far
+        self.capture_s = None        # seconds of the latest, warm step included
+        self._slots: dict[tuple[int, int], _Slot] = {}
+
+    def empty_cache(self, batch_size: int, max_seq: int) -> dict:
+        """A zeroed serving cache: on the GPU the step's own buffers for
+        ``(batch_size, max_seq)``, on the CPU a new one."""
+        if self.lm.device.type != "cuda":
+            return self.lm.empty_cache(batch_size, max_seq)
+        slot = self._slots.get((batch_size, max_seq))
+        if slot is None:
+            slot = self._slots[batch_size, max_seq] = _Slot(
+                self.lm, batch_size, max_seq)
+        else:
+            for buf in slot.cache.values():
+                buf.zero_()
+        return dict(slot.cache)
+
+    def __call__(self, params, cache, tok, pos):
+        if self.lm.device.type != "cuda":
+            return self.lm.decode_step(params, cache, tok, pos)
+        slot = next((s for s in self._slots.values() if s.owns(cache)), None)
+        if slot is None:
+            raise ValueError(
+                "the captured decode step serves only its own cache buffers: "
+                "merge the prefill cache into step.empty_cache(B, max_seq) "
+                "(generate does)")
+        slot.tok.copy_(tok)
+        if torch.is_tensor(pos):
+            slot.pos.copy_(pos)
+        else:
+            slot.pos.fill_(pos)
+        if not slot.captured_for(params):
+            self._capture(slot, params)
+        slot.graph.replay()
+        add_launches(slot.launches)
+        return slot.logits, slot.cache
+
+    def _capture(self, slot: _Slot, params) -> None:
+        lm = self.lm
+        slot.graph = slot.logits = None        # free the stale graph's pool
+        t0 = time.perf_counter()
+        # the eager step at the same shapes does every first-use job outside
+        # the capture: nvcc, the block autotune, table uploads, launch setup
+        decode_body(lm, params, slot.cache, slot.tok, slot.pos)
+        generation = autotune_generation()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                logits, _ = decode_body(lm, params, slot.cache, slot.tok,
+                                        slot.pos)
+        finally:
+            captured = launches_between(before, launch_counts())
+            add_launches(captured, -1)          # a capture launches nothing
+        torch.cuda.synchronize(lm.device)
+        slot.graph, slot.logits, slot.launches = graph, logits, captured
+        slot.params, slot.leaves = params, _leaves(params)
+        slot.generation = generation
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0
+
+
+@lru_cache(maxsize=64)
+def make_decode_step(lm) -> DecodeStep:
+    """The decode step bound to ``lm`` (:class:`DecodeStep`), memoized per
+    ``lm`` as the reference's is: repeated :func:`generate` calls replay one
+    captured graph instead of capturing one per call."""
+    return DecodeStep(lm)
+
+
 # ------------------------------------------------------------ decode loop --
 def generate(lm, params, prompts: torch.Tensor, max_seq: int, gen: int, *,
-             return_logits: bool = False):
+             decode_fn=None, return_logits: bool = False):
     """prompts: (B, P) int64 on ``lm.device``. Greedy decode ``gen`` tokens.
 
-    Returns the tokens ``(B, gen)``; with ``return_logits`` also the logits
-    each token was picked from, ``(B, gen, V)`` float32.
+    The per-token loop runs one step function, :func:`make_decode_step`
+    unless ``decode_fn`` overrides it (``decode_fn=lm.decode_step`` is the
+    eager loop), against the merged serving cache. Returns the tokens
+    ``(B, gen)``; with ``return_logits`` also the logits each token was
+    picked from, ``(B, gen, V)`` float32.
     """
     B, P = prompts.shape
+    step = decode_fn if decode_fn is not None else make_decode_step(lm)
+    empty = step.empty_cache if isinstance(step, DecodeStep) \
+        else lm.empty_cache
     logits, cache = lm.prefill(params, {"tokens": prompts})
-    cache = merge_cache(lm.empty_cache(B, max_seq), cache)
+    cache = merge_cache(empty(B, max_seq), cache)
     tok = torch.argmax(logits, -1)
     toks, all_logits = [tok], [logits]
     for i in range(gen - 1):
-        logits, cache = lm.decode_step(params, cache, tok, P + i)
+        logits, cache = step(params, cache, tok, P + i)
         tok = torch.argmax(logits, -1)
         toks.append(tok)
-        all_logits.append(logits)
+        if return_logits:
+            # a captured step's logits are its buffer, rewritten next call
+            all_logits.append(logits.clone())
     tokens = torch.stack(toks, dim=1)
     if return_logits:
         return tokens, torch.stack(all_logits, dim=1).to(torch.float32)
@@ -133,20 +313,23 @@ def measure_generate(lm, params, prompts, max_seq: int, gen: int, *,
                      iters: int = 3):
     """Measured serving numbers: (tokens, end-to-end stats, step stats).
 
-    One warm pass (which also builds the kernels), then the full
-    ``generate`` timed ``iters`` times, and the steady-state decode step
-    timed separately against the post-prompt cache — end-to-end tok/s
-    amortizes prefill, the step timing is the per-token latency.
+    One warm pass (which also builds the kernels, times the blocks and
+    captures the decode step), then the full ``generate`` timed ``iters``
+    times, and the steady-state decode step — on the GPU one replay of the
+    captured step, its host work included — timed separately against the
+    post-prompt cache: end-to-end tok/s amortizes prefill, the step timing
+    is the per-token latency.
     """
     B, P = prompts.shape
-    run = lambda: generate(lm, params, prompts, max_seq, gen)
+    step = make_decode_step(lm)
+    run = lambda: generate(lm, params, prompts, max_seq, gen, decode_fn=step)
     tokens = run()
     e2e = time_callable(run, iters=iters, items=B * gen, device=lm.device)
     logits, cache = lm.prefill(params, {"tokens": prompts})
-    cache = merge_cache(lm.empty_cache(B, max_seq), cache)
+    cache = merge_cache(step.empty_cache(B, max_seq), cache)
     tok = torch.argmax(logits, -1)
     # the step rewrites slot P with the same values: re-runnable as is
-    step_t = time_callable(lm.decode_step, params, cache, tok, P,
+    step_t = time_callable(step, params, cache, tok, P,
                            iters=max(iters, 5), items=B, device=lm.device)
     return tokens, e2e, step_t
 
@@ -265,11 +448,12 @@ def main(argv=None):
     max_seq = args.prompt_len + args.gen
     toks, e2e, step_t = measure_generate(lm, params, prompts, max_seq,
                                          args.gen)
+    how = "a CUDA-graph replay" if lm.device.type == "cuda" else "eager"
     print(f"generated {tuple(toks.shape)} on {e2e.device}: "
           f"{args.batch * args.gen / e2e.best_s:.1f} tok/s end-to-end "
           f"(best of {e2e.iters} post-warmup, synced); "
-          f"decode step {step_t.best_s * 1e6:.0f}us "
-          f"({step_t.items_per_s:.1f} tok/s steady-state)")
+          f"decode step {step_t.best_s * 1e6:.0f}us ({how}, "
+          f"{step_t.items_per_s:.1f} tok/s steady-state)")
     print(toks[:2].cpu().numpy())
 
 

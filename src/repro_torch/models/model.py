@@ -98,7 +98,11 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B,) int64; pos: the 0-based position of the token being
-        decoded — an int, or a (B,) tensor for per-row positions.
+        decoded — an int, or a (B,) tensor for per-row positions. A (B,)
+        tensor on the card is read there and never on the host, which is
+        what lets a CUDA graph capture the step
+        (:func:`repro_torch.launch.serve.decode_body`); an int is one host
+        value the step is built around.
 
         Returns (logits (B,V), cache): the cache is updated **in place**
         (one token per layer) and returned.

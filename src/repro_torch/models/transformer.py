@@ -185,18 +185,27 @@ def _approx_segments(cfg: ModelConfig):
                  for lo, hi, acfg in segs)
 
 
-def _write_token(buf, i, slot, new):
-    """Write one decoded token's (B,1,KV,dh) slab into the stacked
-    (L,B,Smax,KV,dh) cache at layer ``i``, seq slot ``slot`` — **in place**
-    (where the reference updates a donated buffer). A scalar ``slot`` is
-    one strided write; a (B,) ``slot`` — per-row positions — scatters each
-    row at its own depth. Returns ``buf``.
-    """
+def _token_index(slot, batch: int, device):
+    """Where :func:`_write_token` writes the decoded token: a scalar
+    ``slot`` as an int (one strided write), a (B,) ``slot`` — per-row
+    positions, read on the card — as ``(rows, slot)``, built once a step
+    for every layer's writes."""
     if torch.is_tensor(slot) and slot.ndim:
-        rows = torch.arange(new.shape[0], device=buf.device)
+        return torch.arange(batch, device=device), slot
+    return int(slot)
+
+
+def _write_token(buf, i, at, new):
+    """Write one decoded token's (B,1,KV,dh) slab into the stacked
+    (L,B,Smax,KV,dh) cache at layer ``i``, at ``at`` (:func:`_token_index`)
+    — **in place** (where the reference updates a donated buffer): a seq
+    slot, or each row at its own depth. Returns ``buf``.
+    """
+    if isinstance(at, tuple):
+        rows, slot = at
         buf[i, rows, slot] = new[:, 0]
     else:
-        buf[i, :, int(slot)] = new[:, 0]
+        buf[i, :, at] = new[:, 0]
     return buf
 
 
@@ -236,12 +245,13 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
     if cfg.n_layers == 0:
         return x, cache
     kc, vc = cache["k"], cache["v"]
-    slot = decode_slot(cfg, kc.shape[2], pos)
+    at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
+                      kc.device)
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
             x, (k_new, v_new) = attn_block_decode(
                 layer_params(params["layers"], i), x, seg_cfg,
                 {"k": kc[i], "v": vc[i]}, pos, positions)
-            _write_token(kc, i, slot, k_new)
-            _write_token(vc, i, slot, v_new)
+            _write_token(kc, i, at, k_new)
+            _write_token(vc, i, at, v_new)
     return x, cache
