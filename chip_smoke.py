@@ -85,19 +85,26 @@ any phase fails. Phases:
               two ``elemwise`` launches.
               Then the serving path at the full width of smollm-360m: batch 4,
               prompt 512, 32 greedy tokens, random weights from a seed,
-              through ``launch.serve.generate``, whose decode step is one
-              CUDA graph (``make_decode_step``) replayed per token, twice:
-              (a) ``--approx simdive`` (divider only), after one generate
-              that lets the attention autotune time its candidates and
+              through ``launch.serve.generate``, whose prefill is one CUDA
+              graph per prompt shape (``make_prefill``) and whose decode
+              step is one CUDA graph (``make_decode_step``) replayed per
+              token, twice:
+              (a) ``--approx simdive`` (divider only), after one served
+              prefill that lets the attention autotune time its
+              candidates and captures the prefill, and one generate that
               captures the decode step: the kernels' launch counters (a
               replay adds the launches its graph holds) are zeroed just
               before and read just after: 32 attention launches (one per
               layer of the prefill, depth-0 and ring schedules together,
               as the autotune chose) and 32 decode_attention launches per
               decode step (and no elemwise launch) are required, and no
-              second capture; the eager loop (``decode_fn=
-              lm.decode_step``) must give the same launches and
-              ``torch.equal`` tokens and logits; one decode step alone,
+              second capture of either; the eager prefill and loop
+              (``prefill_fn=lm.prefill, decode_fn=lm.decode_step``) must
+              give the same launches and ``torch.equal`` tokens and
+              logits; one replay of the captured prefill must give the
+              eager ``lm.prefill``'s logits and k / v caches
+              ``torch.equal`` and launch exactly what one eager prefill
+              does; one decode step alone,
               eager and one replay, must launch 32 decode_attention
               kernels and nothing else. The
               same model is then run through the plain versions
@@ -105,35 +112,46 @@ any phase fails. Phases:
               logits and tokens are compared. Then served twice more at
               full width with the attention autotune cache pinned
               (``preload_autotune_cache``) to the depth-0 block and to the
-              ring block: each pin makes the decode step capture once
-              more, each run must launch only its own schedule, and
+              ring block: each pin makes the prefill and the decode step
+              capture once more (two generates a pin: the first captures,
+              its warm runs counted, the second replays), each run must
+              launch only its own schedule, and
               the two must give bit-identical logits and tokens, equal to
               the autotuned run's.
               (b) ``--approx simdive --emulate`` with the block autotune on:
               224 ``logmatmul`` launches (seven linears x 32 layers) per
               prefill and per decode step besides (a)'s (32
-              decode_attention a step, no elemwise), one capture across
-              two generates, the eager loop's launches, tokens and logits
-              equal, one step alone eager and replayed; at batch 4 x
+              decode_attention a step, no elemwise), one capture of the
+              prefill and one of the step across two generates, the eager
+              prefill and loop's launches, tokens and logits equal, one
+              replayed prefill equal to the eager one (logits, k, v,
+              launches), one step alone eager and replayed; at batch 4 x
               prompt 32 x 8 tokens, logits bit-equal (most rows) to a run
               whose matmuls are the plain versions and whose attention op
               runs on the same kernels, and logits and tokens within
               the bound against the all-plain-version run; then served
               twice more at full size with the autotune cache pinned
               (``preload_autotune_cache``) to the default depth-0 block and
-              to a ring block: each pin captures the decode step once
-              more (its warm step's 224 launches counted), then each run
+              to a ring block: each pin captures the prefill and the
+              decode step once more (their warm runs' 224 launches each
+              counted), then each run
               must launch only its own schedule, 224 a prefill and a
               decode step, with logits and tokens bit-identical to the
               autotuned run's; one ``--emulate --quantize`` generate at
               full size, captured for its params, ``torch.equal`` to its
-              eager loop.
-5. times    — prefill (also with each attention schedule pinned, in
-              turns); decode step eager and captured (a replay, host work
+              eager prefill and loop, and its replayed prefill equal to
+              the eager one.
+5. times    — prefill eager (also with each attention schedule pinned, in
+              turns) and captured (a replay, host work included), its
+              replays back to back, the host's time a call, the capture's
+              time, the device kernels of an eager prefill and of a
+              replay, the memory the captured prefill holds; decode step
+              eager and captured (a replay, host work
               included), its card time, the host share of each, the
               capture's time, the device kernels of an eager step and of
-              a replay; generate eager and captured with the peak memory
-              the card reports for each; for (a) and (b); and each
+              a replay; generate captured (prefill and step), eager, and
+              with the eager prefill before the captured step, with the
+              peak memory the card reports; for (a) and (b); and each
               kernel at the main path's shapes beside its bound, its plain
               version (``packed``: at both sizes of phase 4, for each op,
               at 128, 256 and 512 threads a block, beside the elemwise
@@ -1481,28 +1499,38 @@ def serve_main_path(dev):
         0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int64)).to(dev)
     max_seq = PROMPT + GEN
 
-    # first generate: the attention autotune times its candidates once for
-    # the prefill's shape bucket, and the decode step is captured (those
-    # launches are not the path's)
-    step = serve.make_decode_step(lm)
+    # first use: the served prefill, called alone, runs once eagerly (the
+    # attention autotune times its candidates once for the prefill's shape
+    # bucket) and captures; then the first generate replays it and captures
+    # the decode step (those launches are not the path's). Reserved memory
+    # before and after each: what each graph holds
+    step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     clear_autotune_cache()
     reserved = reserved_bytes()
     t0 = time.perf_counter()
+    pstep(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_held_bytes = reserved_bytes() - reserved
+    reserved = reserved_bytes()
     serve.generate(lm, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
     held_bytes = reserved_bytes() - reserved
     first_capture_s = step.capture_s
+    prefill_first_capture_s = pstep.capture_s
     picks = [tuple(r["block"]) for r in export_autotune_cache()
              if r["key"][0] == "attention"]
-    log(f"  first generate (autotune, capture of the decode step "
-        f"{first_capture_s:.2f}s) {first_run_s:.2f}s; attention picked "
-        f"{picks}")
+    log(f"  first prefill and generate (autotune, capture of the prefill "
+        f"{prefill_first_capture_s:.2f}s, holding {prefill_held_bytes} "
+        f"bytes, and of the decode step {first_capture_s:.2f}s, holding "
+        f"{held_bytes}) {first_run_s:.2f}s; attention picked {picks}")
     require(step.captures == 1, f"the first generate captured {step.captures}"
                                 " decode steps, expected 1")
+    require(pstep.captures == 1, f"the first prefill and generate captured "
+                                 f"{pstep.captures} prefills, expected 1")
 
-    # the main path: the second generate replays the captured step (launch
-    # counts through the replay accounting)
+    # the main path: the second generate replays the captured prefill and
+    # step (launch counts through the replay accounting)
     reset_launch_counts()
     t0 = time.perf_counter()
     tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
@@ -1514,6 +1542,8 @@ def serve_main_path(dev):
         f"launches {counts}")
     require(step.captures == 1, "two generate calls in a row captured "
                                 f"{step.captures} decode steps, expected 1")
+    require(pstep.captures == 1, "two generate calls in a row captured "
+                                 f"{pstep.captures} prefills, expected 1")
     require(_attention_launches(counts) == cfg.n_layers,
             f"attention launches {counts}, expected {cfg.n_layers} (one per "
             "layer of the prefill, both schedules together)")
@@ -1528,11 +1558,11 @@ def serve_main_path(dev):
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     require(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
             "token out of the vocabulary")
-    # the eager loop: the same launches, the same tokens and logits
+    # the eager prefill and loop: the same launches, tokens and logits
     reset_launch_counts()
     eager_tok, eager_logits = serve.generate(
-        lm, params, prompts, max_seq, GEN, decode_fn=lm.decode_step,
-        return_logits=True)
+        lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
+        decode_fn=lm.decode_step, return_logits=True)
     torch.cuda.synchronize()
     eager_counts = launch_counts()
     require(eager_counts == counts,
@@ -1542,8 +1572,9 @@ def serve_main_path(dev):
                                                            logits),
             "the captured and the eager generate gave different tokens or "
             "logits")
-    log("  captured vs eager generate: tokens and logits torch.equal, the "
-        "same launches")
+    log("  captured (prefill and step) vs eager generate: tokens and logits "
+        "torch.equal, the same launches")
+    prefill_counts = check_prefill_replay(lm, params, prompts, "divider-only")
     # one decode step alone, eager and one replay of the captured step: one
     # decode_attention launch a layer
     lg, pre = lm.prefill(params, {"tokens": prompts})
@@ -1598,27 +1629,35 @@ def serve_main_path(dev):
             "differs from the plain-version run")
 
     # both attention schedules on the path, at full width: pin the prefill's
-    # cached entry to one block, then to the other; each pin makes the
-    # decode step capture again (its warm step adds one step's launches)
+    # cached entry to one block, then to the other. Each pin makes the
+    # prefill and the decode step capture again: the first pinned generate
+    # captures (each warm run adds one prefill's or one step's launches),
+    # the second replays
     tuned = export_autotune_cache()
     pinned = {}
     for block, own, other in (
             (fa.DEFAULT_BLOCK, "attention", "attention_pipelined"),
             (ATTENTION_RING_BLOCK, "attention_pipelined", "attention")):
         require(_pin_blocks("attention", block) > 0, "nothing to pin")
-        captures = step.captures
-        reset_launch_counts()
-        tok_p, log_p = serve.generate(lm, params, prompts, max_seq, GEN,
-                                      return_logits=True)
-        torch.cuda.synchronize()
-        c = launch_counts()
-        log(f"  pinned to attention block {block}: launches {c}")
-        require(c[own] == cfg.n_layers and c[other] == 0
-                and c["decode_attention"] == cfg.n_layers * GEN,
-                f"pinned to {block}, launches were {c}")
-        require(step.captures == captures + 1,
-                f"pinned to {block}, the decode step captured "
-                f"{step.captures - captures} times, expected once")
+        captures, prefill_captures = step.captures, pstep.captures
+        for warm in (1, 0):
+            reset_launch_counts()
+            tok_p, log_p = serve.generate(lm, params, prompts, max_seq, GEN,
+                                          return_logits=True)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            log(f"  pinned to attention block {block}: launches {c}, "
+                f"captures {step.captures - captures} (step) / "
+                f"{pstep.captures - prefill_captures} (prefill)")
+            require(c[own] == cfg.n_layers * (1 + warm) and c[other] == 0
+                    and c["decode_attention"]
+                    == cfg.n_layers * (GEN - 1 + warm),
+                    f"pinned to {block}, launches were {c}")
+            require(step.captures == captures + 1
+                    and pstep.captures == prefill_captures + 1,
+                    f"pinned to {block}, the decode step captured "
+                    f"{step.captures - captures} times and the prefill "
+                    f"{pstep.captures - prefill_captures}, expected once each")
         pinned[own] = (tok_p, log_p, c)
     (tok_0, log_0, c_0), (tok_r, log_r, c_r) = (pinned["attention"],
                                                 pinned["attention_pipelined"])
@@ -1634,7 +1673,9 @@ def serve_main_path(dev):
     preload_autotune_cache(tuned)                # back to the tuned blocks
     return dict(lm=lm, params=params, prompts=prompts, counts=counts,
                 step_counts=step_counts, first_capture_s=first_capture_s,
-                held_bytes=held_bytes,
+                held_bytes=held_bytes, prefill_counts=prefill_counts,
+                prefill_first_capture_s=prefill_first_capture_s,
+                prefill_held_bytes=prefill_held_bytes,
                 pinned_counts={"attention": c_0,
                                "attention_pipelined": c_r},
                 attention_picks=[list(b) for b in picks],
@@ -1643,6 +1684,43 @@ def serve_main_path(dev):
                 decode_logit_err=decode_err,
                 tokens_equal=int(agree.sum()), tokens=agree.numel(),
                 tokens_decided=int(decided.sum()))
+
+
+def check_prefill_replay(lm, params, prompts, what: str) -> dict:
+    """One replay of the served prefill (captured before, for ``params``)
+    against the eager ``lm.prefill`` on the same prompts: logits and both
+    cache leaves ``torch.equal``, no new capture, and the replay's launches
+    exactly one eager prefill's. Returns those launches."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    pstep = serve.make_prefill(lm)
+    captures = pstep.captures
+    batch = {"tokens": prompts}
+    reset_launch_counts()
+    want_logits, want = lm.prefill(params, batch)
+    torch.cuda.synchronize()
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    got_logits, got = pstep(params, batch)
+    torch.cuda.synchronize()
+    replay_counts = launch_counts()
+    reset_launch_counts()
+    require(pstep.captures == captures,
+            f"{what}: the served prefill captured again for the same params")
+    require(replay_counts == eager_counts,
+            f"{what}: one replayed prefill counted {replay_counts}, one eager "
+            f"prefill {eager_counts}")
+    require(torch.equal(got_logits, want_logits)
+            and got.keys() == want.keys() == {"k", "v"}
+            and all(torch.equal(got[k], want[k]) for k in want),
+            f"{what}: the captured prefill's logits or cache differ from the "
+            "eager lm.prefill's")
+    log(f"  {what}: captured prefill vs eager lm.prefill: logits, k and v "
+        f"torch.equal; one replay launched {replay_counts}, as one eager "
+        "prefill")
+    return eager_counts
 
 
 def _matmul_launches(counts) -> int:
@@ -1687,19 +1765,28 @@ def serve_emulate_path(dev, params, prompts):
     n_lin = len(LINEARS) * cfg.n_layers                   # 224
     max_seq = PROMPT + GEN
 
-    # first generate: builds nothing new, autotunes each (shape bucket)
-    # once, captures the decode step
-    step = serve.make_decode_step(lm_e)
+    # first use, as in (a): the served prefill alone (autotunes each of its
+    # shape buckets once, captures), then the first generate (autotunes
+    # the decode buckets, captures the decode step); builds nothing new
+    step, pstep = serve.make_decode_step(lm_e), serve.make_prefill(lm_e)
     clear_autotune_cache()
     reserved = reserved_bytes()
     t0 = time.perf_counter()
+    pstep(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_held_bytes = reserved_bytes() - reserved
+    reserved = reserved_bytes()
     serve.generate(lm_e, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
     tune_s = time.perf_counter() - t0
     held_bytes = reserved_bytes() - reserved
     first_capture_s = step.capture_s
+    prefill_first_capture_s = pstep.capture_s
     require(step.captures == 1, f"the first emulate generate captured "
                                 f"{step.captures} decode steps, expected 1")
+    require(pstep.captures == 1, f"the first emulate prefill and generate "
+                                 f"captured {pstep.captures} prefills, "
+                                 "expected 1")
     picks = {tuple(r["key"][2][0]) + tuple(r["key"][2][2]): r["block"]
              for r in export_autotune_cache() if r["key"][0] == "matmul_emul"}
     log(f"  emulate: first generate (autotune) {tune_s:.2f}s; picked "
@@ -1718,6 +1805,8 @@ def serve_emulate_path(dev, params, prompts):
         f"launches {counts}")
     require(step.captures == 1, "two emulate generate calls in a row "
                                 f"captured {step.captures} decode steps")
+    require(pstep.captures == 1, "two emulate generate calls in a row "
+                                 f"captured {pstep.captures} prefills")
     require(_matmul_launches(counts) == n_lin * GEN,
             f"logmatmul launches {_matmul_launches(counts)}, expected "
             f"{n_lin} per prefill and per decode step x {GEN}")
@@ -1730,8 +1819,8 @@ def serve_emulate_path(dev, params, prompts):
             and int(tokens.max()) < cfg.vocab_size, "bad emulate output")
     reset_launch_counts()
     eager_tok, eager_logits = serve.generate(
-        lm_e, params, prompts, max_seq, GEN, decode_fn=lm_e.decode_step,
-        return_logits=True)
+        lm_e, params, prompts, max_seq, GEN, prefill_fn=lm_e.prefill,
+        decode_fn=lm_e.decode_step, return_logits=True)
     torch.cuda.synchronize()
     require(launch_counts() == counts,
             f"the eager emulate generate launched {launch_counts()}, the "
@@ -1740,11 +1829,11 @@ def serve_emulate_path(dev, params, prompts):
                                                            logits),
             "the captured and the eager emulate generate gave different "
             "tokens or logits")
-    log("  emulate, captured vs eager generate: tokens and logits "
-        "torch.equal, the same launches")
+    log("  emulate, captured (prefill and step) vs eager generate: tokens "
+        "and logits torch.equal, the same launches")
+    prefill_counts = check_prefill_replay(lm_e, params, prompts, "emulate")
     reset_launch_counts()
     lg, pre = lm_e.prefill(params, {"tokens": prompts})
-    prefill_counts = launch_counts()
     cache = serve.merge_cache(lm_e.empty_cache(BATCH, max_seq), pre)
     reset_launch_counts()
     lm_e.decode_step(params, cache, lg.argmax(-1), PROMPT)
@@ -1848,28 +1937,32 @@ def serve_emulate_path(dev, params, prompts):
 
     # both schedules on the path, at full size: pin every shape bucket to
     # the default (depth-0) block, then to the ring block. Each pin makes
-    # the decode step capture again: the first pinned generate captures
-    # (its warm step adds one step's launches), the second replays
+    # the prefill and the decode step capture again: the first pinned
+    # generate captures (the prefill's warm run and the step's warm step
+    # add 224 launches each), the second replays
     tuned = export_autotune_cache()
     pinned, pinned_counts = {}, {}
     for block, own, other in (
             (lm.DEFAULT_BLOCK, "matmul", "matmul_pipelined"),
             (MATMUL_RING_BLOCK, "matmul_pipelined", "matmul")):
         require(_pin_blocks("matmul_emul", block) > 0, "nothing to pin")
-        captures = step.captures
-        for extra in (n_lin, 0):
+        captures, prefill_captures = step.captures, pstep.captures
+        for extra in (2 * n_lin, 0):
             reset_launch_counts()
             pinned[own] = serve.generate(lm_e, params, prompts, max_seq, GEN,
                                          return_logits=True)
             torch.cuda.synchronize()
             c = launch_counts()
             log(f"  emulate pinned to matmul block {block}: launches {c}, "
-                f"captures {step.captures - captures}")
+                f"captures {step.captures - captures} (step) / "
+                f"{pstep.captures - prefill_captures} (prefill)")
             require(c[own] == n_lin * GEN + extra and c[other] == 0,
                     f"pinned to {block}, launches were {c}")
-            require(step.captures == captures + 1,
+            require(step.captures == captures + 1
+                    and pstep.captures == prefill_captures + 1,
                     f"pinned to {block}, the decode step captured "
-                    f"{step.captures - captures} times, expected once")
+                    f"{step.captures - captures} times and the prefill "
+                    f"{pstep.captures - prefill_captures}, expected once each")
         pinned_counts[own] = c[own]
     for own, (tok_p, log_p) in pinned.items():
         require(torch.equal(tok_p, tokens) and torch.equal(log_p, logits),
@@ -1881,10 +1974,11 @@ def serve_emulate_path(dev, params, prompts):
     preload_autotune_cache(tuned)                # back to the tuned blocks
 
     # --emulate --quantize: int8 weights through the same kernels. New
-    # params: the step captures again (its warm step adds one step's
-    # launches); the eager loop launches what the autotuned run did
+    # params: the prefill and the step capture again (their warm runs add
+    # one prefill's and one step's launches); the eager prefill and loop
+    # launch what the autotuned run did
     qparams = serve.quantize_params(params)
-    captures = step.captures
+    captures, prefill_captures = step.captures, pstep.captures
     reset_launch_counts()
     q_tok, q_logits = serve.generate(lm_e, qparams, prompts, max_seq, GEN,
                                      return_logits=True)
@@ -1892,14 +1986,18 @@ def serve_emulate_path(dev, params, prompts):
     require(bool(torch.isfinite(q_logits).all())
             and int(q_tok.min()) >= 0 and int(q_tok.max()) < cfg.vocab_size,
             "bad --emulate --quantize output")
-    require(step.captures == captures + 1,
-            "--quantize: the decode step did not capture again for the new "
-            "params")
-    with_warm = {k: counts[k] + step_counts[k] for k in counts}
+    require(step.captures == captures + 1
+            and pstep.captures == prefill_captures + 1,
+            "--quantize: the decode step or the prefill did not capture "
+            "again for the new params")
+    with_warm = {k: counts[k] + step_counts[k] + prefill_counts[k]
+                 for k in counts}
     require(q_counts == with_warm,
             f"--quantize launches {q_counts} != {with_warm}")
+    check_prefill_replay(lm_e, qparams, prompts, "--emulate --quantize")
     reset_launch_counts()
     qe_tok, qe_logits = serve.generate(lm_e, qparams, prompts, max_seq, GEN,
+                                       prefill_fn=lm_e.prefill,
                                        decode_fn=lm_e.decode_step,
                                        return_logits=True)
     torch.cuda.synchronize()
@@ -1909,10 +2007,13 @@ def serve_emulate_path(dev, params, prompts):
             "--quantize: the captured and the eager generate gave different "
             "tokens or logits")
     log(f"  --emulate --quantize: finite logits, launches {q_counts} "
-        "(capture's warm step included); captured vs eager generate: tokens "
-        "and logits torch.equal")
+        "(the captures' warm runs included); captured vs eager generate: "
+        "tokens and logits torch.equal")
     return dict(lm=lm_e, counts=counts, step_counts=step_counts,
                 first_capture_s=first_capture_s, held_bytes=held_bytes,
+                prefill_counts=prefill_counts,
+                prefill_first_capture_s=prefill_first_capture_s,
+                prefill_held_bytes=prefill_held_bytes,
                 pinned_counts=pinned_counts,
                 first_run_s=run_s, tune_s=tune_s,
                 autotune_picks={f"{k}": v for k, v in picks.items()},
@@ -2130,8 +2231,6 @@ def measure(dev, served, int_rate):
             f"{c}: {t:.5f}" for c, t in long_t["ms_by_cluster"].items()))
 
     # serving: prefill, steady-state decode step, end to end
-    prefill_t = time_callable(lm.prefill, params, {"tokens": prompts},
-                              iters=5, items=BATCH * PROMPT)
     # where the prefill's card time goes: kernels by name, from a trace
     prefill_dev = device_time_by_kernel(
         lambda: lm.prefill(params, {"tokens": prompts}))
@@ -2159,16 +2258,16 @@ def measure(dev, served, int_rate):
                                     t.best_s)
     clear_autotune_cache()
     preload_autotune_cache(tuned)
-    # the decode step, eager and captured, and generate with each
+    # the prefill and the decode step, eager and captured, and generate
+    prefill_times = time_prefill(lm, params, prompts, served)
     step_times = time_decode_step(lm, params, prompts, served)
     served["decode_step_device_kernels"] = \
         step_times["decode_step_device_kernels"]
     times = {
-        "prefill_ms": prefill_t.best_s * 1e3,
-        "prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
-        "prefill_ms_attention_depth0":
+        **prefill_times,
+        "prefill_eager_ms_attention_depth0":
             pinned_prefill[fa.DEFAULT_BLOCK] * 1e3,
-        "prefill_ms_attention_ring":
+        "prefill_eager_ms_attention_ring":
             pinned_prefill[ATTENTION_RING_BLOCK] * 1e3,
         **step_times,
         "first_generate_s": served["first_run_s"],
@@ -2452,11 +2551,77 @@ def measure_packed(packed, int_rate):
     }
 
 
+def time_prefill(lm, params, prompts, served, *, prefix="", iters=5):
+    """The prefill of one path, eager (``prefill_eager_*``, ``lm.prefill``)
+    and captured (``prefill_captured_*``, the served prefill, one
+    CUDA-graph replay), each timed by ``time_callable`` (CUDA events around
+    a call, host work included); captured prefills back to back
+    (``prefill_replay_ms``: the host runs ahead, the card sets the pace);
+    the host's own time a call, no synchronise inside (``prefill_host_ms``
+    captured, ``prefill_eager_host_ms``); the first capture (phase 4) and
+    one on a warm process (``prefill_capture_s``, warm run included); the
+    device kernels of one eager prefill and of one replay (profiler trace);
+    and the reserved memory the captured prefill holds (phase 4: its
+    prompt buffer and its graph's pool, which keeps the prefill's
+    activations, logits and cache)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+
+    pstep = serve.make_prefill(lm)
+    batch = {"tokens": prompts}
+    # the autotune cache was preloaded, or the params changed, since the
+    # last capture: the next call captures again, kernels built and blocks
+    # settled
+    captures = pstep.captures
+    pstep(params, batch)
+    torch.cuda.synchronize()
+    require(pstep.captures == captures + 1,
+            f"{prefix}prefill: no capture after the autotune cache was "
+            "preloaded")
+    capture_s = pstep.capture_s
+    eager_t = time_callable(lm.prefill, params, batch, iters=iters,
+                            items=BATCH * PROMPT)
+    captured_t = time_callable(pstep, params, batch, iters=iters,
+                               items=BATCH * PROMPT)
+    replay_ms = gpu_time_ms(lambda: pstep(params, batch), iters=2 * iters)
+    eager_host_ms = host_ms(lambda: lm.prefill(params, batch), iters)
+    captured_host_ms = host_ms(lambda: pstep(params, batch), iters)
+    eager_kernels = count_device_kernels(lambda: lm.prefill(params, batch))
+    replay_kernels = count_device_kernels(lambda: pstep(params, batch))
+    log(f"  {prefix}prefill: {eager_kernels} device kernels and copies in "
+        f"one eager prefill, {replay_kernels} in one replay of the captured "
+        "prefill (profiler trace; None = the trace showed no device "
+        "activity)")
+    require(pstep.captures == captures + 1,
+            f"{prefix}prefill: captured again while timed")
+    eager_ms, captured_ms = eager_t.best_s * 1e3, captured_t.best_s * 1e3
+    return {
+        f"{prefix}prefill_eager_ms": eager_ms,
+        f"{prefix}prefill_eager_tok_per_s": BATCH * PROMPT / eager_t.best_s,
+        f"{prefix}prefill_captured_ms": captured_ms,
+        f"{prefix}prefill_captured_tok_per_s":
+            BATCH * PROMPT / captured_t.best_s,
+        f"{prefix}prefill_replay_ms": replay_ms,
+        f"{prefix}prefill_captured_host_share": 1.0 - replay_ms / captured_ms,
+        f"{prefix}prefill_eager_host_ms": eager_host_ms,
+        f"{prefix}prefill_host_ms": captured_host_ms,
+        f"{prefix}prefill_first_capture_s": served["prefill_first_capture_s"],
+        f"{prefix}prefill_capture_s": capture_s,
+        f"{prefix}prefill_device_kernels": eager_kernels or 0,
+        f"{prefix}prefill_replay_device_kernels": replay_kernels or 0,
+        f"{prefix}prefill_held_bytes": served["prefill_held_bytes"],
+    }
+
+
 def time_decode_step(lm, params, prompts, served, *, prefix="",
                      step_iters=10, graph_iters=3, gen_iters=3):
     """The decode step and generate of one path, eager (``*_eager_*``,
-    ``lm.decode_step`` / ``decode_fn=lm.decode_step``) and captured
-    (``*_captured_*``, the served step, one CUDA-graph replay a token),
+    ``lm.decode_step`` / ``prefill_fn=lm.prefill, decode_fn=
+    lm.decode_step``) and captured (``*_captured_*``, the served step, one
+    CUDA-graph replay a token, behind the served prefill; and
+    ``generate_prefill_eager_ms``, the served step behind the eager
+    prefill),
     timed by ``time_callable`` (CUDA events around each call, host work
     included); the card alone (``decode_step_device_ms``: many eager steps
     replayed from one graph; ``decode_step_replay_ms``: captured steps
@@ -2525,13 +2690,17 @@ def time_decode_step(lm, params, prompts, served, *, prefix="",
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated()
 
+    eager = dict(prefill_fn=lm.prefill, decode_fn=lm.decode_step)
     gen_captured = time_callable(generate_run(), iters=gen_iters,
                                  items=BATCH * GEN, device=lm.device)
-    gen_eager = time_callable(generate_run(decode_fn=lm.decode_step),
-                              iters=gen_iters, items=BATCH * GEN,
-                              device=lm.device)
+    gen_eager = time_callable(generate_run(**eager), iters=gen_iters,
+                              items=BATCH * GEN, device=lm.device)
+    # the captured step behind the eager prefill: PR 21's served generate
+    gen_prefill_eager = time_callable(generate_run(prefill_fn=lm.prefill),
+                                      iters=gen_iters, items=BATCH * GEN,
+                                      device=lm.device)
     peak_captured = peak_bytes(generate_run())
-    peak_eager = peak_bytes(generate_run(decode_fn=lm.decode_step))
+    peak_eager = peak_bytes(generate_run(**eager))
     eager_ms, captured_ms = eager_t.best_s * 1e3, captured_t.best_s * 1e3
     return {
         f"{prefix}decode_step_eager_ms": eager_ms,
@@ -2554,6 +2723,7 @@ def time_decode_step(lm, params, prompts, served, *, prefix="",
         f"{prefix}generate_captured_ms": gen_captured.best_s * 1e3,
         f"{prefix}generate_captured_tok_per_s":
             BATCH * GEN / gen_captured.best_s,
+        f"{prefix}generate_prefill_eager_ms": gen_prefill_eager.best_s * 1e3,
         f"{prefix}generate_eager_peak_bytes": peak_eager,
         f"{prefix}generate_captured_peak_bytes": peak_captured,
         f"{prefix}decode_step_held_bytes": served["held_bytes"],
@@ -2561,16 +2731,12 @@ def time_decode_step(lm, params, prompts, served, *, prefix="",
 
 
 def measure_emulate(served_e, params, prompts):
-    """Prefill, decode step (eager, captured, card) and generate (eager and
-    captured) of the --emulate path."""
-    from repro_torch.metrics.timing import time_callable
-
+    """Prefill and decode step (eager, captured, card) and generate (eager
+    and captured) of the --emulate path."""
     lm_e = served_e["lm"]
-    prefill_t = time_callable(lm_e.prefill, params, {"tokens": prompts},
-                              iters=2, items=BATCH * PROMPT)
     return {
-        "emulate_prefill_ms": prefill_t.best_s * 1e3,
-        "emulate_prefill_tok_per_s": BATCH * PROMPT / prefill_t.best_s,
+        **time_prefill(lm_e, params, prompts, served_e, prefix="emulate_",
+                       iters=2),
         **time_decode_step(lm_e, params, prompts, served_e,
                            prefix="emulate_", step_iters=5, graph_iters=2,
                            gen_iters=2),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time one checkout's served decode step on the card, both paths.
+"""Time one checkout's served prefill and decode step on the card, both
+paths.
 
     python3 scripts/decode_step_times.py [--root DIR] [--out FILE]
 
@@ -7,15 +8,23 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 its kernels there, and prints one JSON line: the card as ``nvidia-smi
 --query-gpu=name,power.limit`` gives it, and for smollm-360m at full width
 (random weights, seed 0, batch 4, prompt 512, 32 tokens), divider-only
-(``--approx simdive``) and ``--emulate``: the prefill; the eager decode
-step (``lm.decode_step``), its card time (eager steps replayed from one
-CUDA graph) and the kernels it puts on the card; the eager generate; and,
+(``--approx simdive``) and ``--emulate``: the eager prefill
+(``lm.prefill``) and its host time a call; where the checkout serves a
+captured prefill (``serve.make_prefill``), the captured prefill (one
+call, host work included, back-to-back replays, the host time a call,
+the capture's time); the eager decode step (``lm.decode_step``), its
+card time (eager steps replayed from one CUDA graph) and the kernels it
+puts on the card; the eager generate (eager prefill and loop); and,
 where the checkout serves a captured step (``serve.make_decode_step``),
 the captured step (one call, host work included, and back-to-back
-replays) and generate, and the eager step's card time again while the
-step's graph lives and once it is released; then the kernels of an eager
-step (divider-only: the costliest by name) from a profiler trace, and the
-card time once more after the trace. Each path first serves one eager
+replays) and the served generate (``generate_captured_ms``: whatever the
+checkout serves by default; where it serves a captured prefill, also
+``generate_prefill_eager_ms``, its captured step behind the eager
+prefill), and the eager step's card time again while the graphs live
+and once they are released; then the kernels of an eager step
+(divider-only: the costliest by name) from a profiler trace, and the card
+time once more after the trace. Each timed call is recorded (``*_all``,
+ms, in order) beside the best. Each path first serves one eager
 generate, which times the block autotune's candidates (its picks are
 printed). The
 timing code is ``chip_smoke.py``'s from this script's checkout, so two
@@ -47,6 +56,31 @@ def _top_kernels(fn, n=8):
     return {"busy_ms": busy, "top": {name[:90]: rec for name, rec in top}}
 
 
+def _times_ms(fn, iters):
+    """Each of ``iters`` calls of ``fn`` after one warm call, host work
+    included: CUDA events around each, synchronised (``time_callable``'s
+    discipline), in ms and in order."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _record(out, key, times):
+    out[key] = min(times)
+    out[key + "_all"] = times
+
+
 def time_path(lm, params, prompts, *, step_iters, graph_iters, gen_iters,
               trace):
     """One path's numbers, in this order: eager; then, where the checkout
@@ -63,15 +97,32 @@ def time_path(lm, params, prompts, *, step_iters, graph_iters, gen_iters,
 
     max_seq = cs.PROMPT + cs.GEN
     captured = getattr(serve, "make_decode_step", None)
+    captured_prefill = getattr(serve, "make_prefill", None)
     kw = {} if captured is None else {"decode_fn": lm.decode_step}
+    if captured_prefill is not None:
+        kw["prefill_fn"] = lm.prefill
     eager_gen = lambda: serve.generate(lm, params, prompts, max_seq, cs.GEN,
                                        **kw)
     eager_gen()                                    # autotune, first use
     out = {"picks": {repr(r["key"][2]): r["block"]
                      for r in export_autotune_cache()}}
-    out["prefill_ms"] = time_callable(
-        lm.prefill, params, {"tokens": prompts}, iters=3).best_s * 1e3
-    logits, pre = lm.prefill(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    _record(out, "prefill_ms", _times_ms(lambda: lm.prefill(params, batch),
+                                         2 * gen_iters + 1))
+    out["prefill_host_ms"] = cs.host_ms(lambda: lm.prefill(params, batch),
+                                        gen_iters)
+    if captured_prefill is not None:
+        pstep = captured_prefill(lm)
+        call = lambda: pstep(params, batch)
+        _record(out, "prefill_captured_ms", _times_ms(call,
+                                                      2 * gen_iters + 1))
+        out["prefill_capture_s"] = pstep.capture_s
+        out["prefill_captured_host_ms"] = cs.host_ms(call, gen_iters)
+        out["prefill_replay_ms"] = cs.gpu_time_ms(call, iters=10)
+        cs.require(pstep.captures == 1,
+                   f"the prefill captured {pstep.captures} times, expected 1")
+        del pstep, call
+    logits, pre = lm.prefill(params, batch)
     cache = serve.merge_cache(lm.empty_cache(cs.BATCH, max_seq), pre)
     tok = logits.argmax(-1)
     step = lambda: lm.decode_step(params, cache, tok, cs.PROMPT)
@@ -80,8 +131,7 @@ def time_path(lm, params, prompts, *, step_iters, graph_iters, gen_iters,
         lm.decode_step, params, cache, tok, cs.PROMPT, iters=step_iters,
         warmup=1).best_s * 1e3
     out["decode_step_device_ms"] = card_ms()
-    out["generate_eager_ms"] = time_callable(
-        eager_gen, iters=gen_iters, device=lm.device).best_s * 1e3
+    _record(out, "generate_eager_ms", _times_ms(eager_gen, gen_iters))
     if captured is not None:
         dstep = captured(lm)
         serve.generate(lm, params, prompts, max_seq, cs.GEN)   # captures
@@ -91,11 +141,18 @@ def time_path(lm, params, prompts, *, step_iters, graph_iters, gen_iters,
             call, iters=step_iters, warmup=1, device=lm.device).best_s * 1e3
         # back-to-back replays: the host runs ahead, the card sets the pace
         out["decode_step_replay_ms"] = cs.gpu_time_ms(call, iters=20)
-        out["generate_captured_ms"] = time_callable(
+        _record(out, "generate_captured_ms", _times_ms(
             lambda: serve.generate(lm, params, prompts, max_seq, cs.GEN),
-            iters=gen_iters, device=lm.device).best_s * 1e3
+            2 * gen_iters + 1))
+        if captured_prefill is not None:
+            _record(out, "generate_prefill_eager_ms", _times_ms(
+                lambda: serve.generate(lm, params, prompts, max_seq, cs.GEN,
+                                       prefill_fn=lm.prefill),
+                2 * gen_iters + 1))
         out["decode_step_device_ms_graph_alive"] = card_ms()
         captured.cache_clear()
+        if captured_prefill is not None:
+            captured_prefill.cache_clear()
         del dstep, own, call
         gc.collect()
         out["decode_step_device_ms_graph_released"] = card_ms()

@@ -12,11 +12,13 @@ the prefill and in each decode step) runs the ``logmatmul`` kernel.
 ``--quantize`` swaps the linear weights for int8 ``QuantizedWeight``s;
 with ``--emulate`` their magnitudes feed the emulated matmul directly.
 
-Every token is served through one step (:func:`make_decode_step`, the
-reference's jitted step): on the GPU one decode step is captured into a
-CUDA graph on first use and replayed per token, so the ~2,000 (``--emulate``
-~9,500) kernels of a step are one launch from the host; on the CPU the
-step runs eagerly. The prefill runs eagerly on both.
+The prompt is served through one prefill (:func:`make_prefill`, the
+reference's jitted ``LM.prefill``) and every token through one step
+(:func:`make_decode_step`, the reference's jitted step): on the GPU each
+is captured into a CUDA graph on first use — the prefill once per prompt
+shape ``(B, P)``, the step once per ``(B, max_seq)`` — and replayed, so
+the ~2,100 kernels of a prefill and the ~2,000 (``--emulate`` ~9,500) of a
+step are one launch each from the host; on the CPU both run eagerly.
 
 Entry points run on the GPU unless asked otherwise: ``device`` defaults to
 ``'cuda'`` and a host without one gets an error, not a CPU run.
@@ -48,7 +50,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.approx import ApproxConfig, serving_segments
 from repro_torch.kernels.registry import (add_launches, autotune_generation,
                                           launch_counts, launches_between)
-from repro_torch.metrics.timing import time_callable
+from repro_torch.metrics.timing import TimingStats, time_callable
 from repro_torch.models import build
 from repro_torch.models.layers import QuantizedWeight, quantize_weight
 
@@ -143,25 +145,18 @@ def _leaves(tree):
     raise TypeError(f"unexpected parameter leaf {type(tree).__name__}")
 
 
-class _Slot:
-    """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache, token and
-    position buffers it owns, and the graph captured on them with what it
-    was captured under."""
+class _Captured:
+    """One CUDA graph of a call on buffers its owner keeps, and what it was
+    captured under: the params object and its leaves (strong references,
+    checked by ``is``) and the block autotune generation."""
 
-    def __init__(self, lm, batch_size: int, max_seq: int):
-        self.cache = lm.empty_cache(batch_size, max_seq)
-        self.tok = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
-        self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+    def __init__(self):
         self.graph = None
-        self.logits = None
+        self.out = None
         self.params = None
         self.leaves = ()
         self.generation = None
         self.launches = {}
-
-    def owns(self, cache: dict) -> bool:
-        return cache.keys() == self.cache.keys() and all(
-            cache[k] is buf for k, buf in self.cache.items())
 
     def captured_for(self, params) -> bool:
         """Whether the graph holds these params' addresses and blocks the
@@ -173,8 +168,74 @@ class _Slot:
         return len(leaves) == len(self.leaves) and all(
             a is b for a, b in zip(leaves, self.leaves))
 
+    def capture(self, body, params, device) -> None:
+        """Run ``body()`` once eagerly, then capture it on PyTorch's own
+        capture stream. The eager run does every first-use job outside the
+        capture (nvcc, the block autotune, table uploads, launch setup) and
+        counts its launches; the capture's launches are taken back, since a
+        capture launches nothing. A capture that fails raises."""
+        self.graph = self.out = None           # free the stale graph's pool
+        body()
+        generation = autotune_generation()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                out = body()
+        finally:
+            captured = launches_between(before, launch_counts())
+            add_launches(captured, -1)
+        torch.cuda.synchronize(device)
+        self.graph, self.out, self.launches = graph, out, captured
+        self.params, self.leaves = params, _leaves(params)
+        self.generation = generation
 
-class DecodeStep:
+    def replay(self):
+        """Replay the graph and add its launches; returns what the captured
+        call returned (its buffers, rewritten by the next replay)."""
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+
+class _Slot(_Captured):
+    """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache, token and
+    position buffers it owns, and the graph captured on them."""
+
+    def __init__(self, lm, batch_size: int, max_seq: int):
+        super().__init__()
+        self.cache = lm.empty_cache(batch_size, max_seq)
+        self.tok = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+        self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+
+    def owns(self, cache: dict) -> bool:
+        return cache.keys() == self.cache.keys() and all(
+            cache[k] is buf for k, buf in self.cache.items())
+
+
+class _GraphFn:
+    """What the served decode step and prefill share: their slots, one
+    captured graph each, and how many captures they made and how long the
+    latest took (its eager warm run included)."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.captures = 0            # graphs captured so far
+        self.capture_s = None        # seconds of the latest, warm run included
+        self._slots = {}
+
+    def _replay(self, slot: _Captured, params, body):
+        """Replay ``slot``'s graph, capturing ``body`` into it first when it
+        holds none or one stale for ``params``."""
+        if not slot.captured_for(params):
+            t0 = time.perf_counter()
+            slot.capture(body, params, self.lm.device)
+            self.captures += 1
+            self.capture_s = time.perf_counter() - t0
+        return slot.replay()
+
+
+class DecodeStep(_GraphFn):
     """The served decode step: ``step(params, cache, tok, pos) -> (logits,
     cache)``, the call signature of the reference's jitted step.
 
@@ -204,12 +265,6 @@ class DecodeStep:
     same ``pos`` rewrites the same values.
     """
 
-    def __init__(self, lm):
-        self.lm = lm
-        self.captures = 0            # graphs captured so far
-        self.capture_s = None        # seconds of the latest, warm step included
-        self._slots: dict[tuple[int, int], _Slot] = {}
-
     def empty_cache(self, batch_size: int, max_seq: int) -> dict:
         """A zeroed serving cache: on the GPU the step's own buffers for
         ``(batch_size, max_seq)``, on the CPU a new one."""
@@ -225,8 +280,9 @@ class DecodeStep:
         return dict(slot.cache)
 
     def __call__(self, params, cache, tok, pos):
-        if self.lm.device.type != "cuda":
-            return self.lm.decode_step(params, cache, tok, pos)
+        lm = self.lm
+        if lm.device.type != "cuda":
+            return lm.decode_step(params, cache, tok, pos)
         slot = next((s for s in self._slots.values() if s.owns(cache)), None)
         if slot is None:
             raise ValueError(
@@ -238,35 +294,9 @@ class DecodeStep:
             slot.pos.copy_(pos)
         else:
             slot.pos.fill_(pos)
-        if not slot.captured_for(params):
-            self._capture(slot, params)
-        slot.graph.replay()
-        add_launches(slot.launches)
-        return slot.logits, slot.cache
-
-    def _capture(self, slot: _Slot, params) -> None:
-        lm = self.lm
-        slot.graph = slot.logits = None        # free the stale graph's pool
-        t0 = time.perf_counter()
-        # the eager step at the same shapes does every first-use job outside
-        # the capture: nvcc, the block autotune, table uploads, launch setup
-        decode_body(lm, params, slot.cache, slot.tok, slot.pos)
-        generation = autotune_generation()
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        try:
-            with torch.cuda.graph(graph):
-                logits, _ = decode_body(lm, params, slot.cache, slot.tok,
-                                        slot.pos)
-        finally:
-            captured = launches_between(before, launch_counts())
-            add_launches(captured, -1)          # a capture launches nothing
-        torch.cuda.synchronize(lm.device)
-        slot.graph, slot.logits, slot.launches = graph, logits, captured
-        slot.params, slot.leaves = params, _leaves(params)
-        slot.generation = generation
-        self.captures += 1
-        self.capture_s = time.perf_counter() - t0
+        logits, _ = self._replay(slot, params, lambda: decode_body(
+            lm, params, slot.cache, slot.tok, slot.pos))
+        return logits, slot.cache
 
 
 @lru_cache(maxsize=64)
@@ -277,22 +307,88 @@ def make_decode_step(lm) -> DecodeStep:
     return DecodeStep(lm)
 
 
+# ---------------------------------------------------------------- prefill --
+class _PrefillSlot(_Captured):
+    """One ``(B, P)`` of a :class:`PrefillStep`: the prompt buffer it owns
+    and the graph captured on it."""
+
+    def __init__(self, lm, batch_size: int, prompt_len: int):
+        super().__init__()
+        self.tokens = torch.zeros((batch_size, prompt_len), dtype=torch.int64,
+                                  device=lm.device)
+
+
+class PrefillStep(_GraphFn):
+    """The served prefill: ``prefill(params, {"tokens": (B, P)}) ->
+    (logits (B, V), cache)``, the reference's jitted ``LM.prefill``, one
+    executable per prompt shape.
+
+    On a CUDA device it captures ``lm.prefill`` into a CUDA graph per ``(B,
+    P)`` on first use and replays it on every later call at that shape. It
+    owns a prompt buffer per ``(B, P)``, which the call's tokens are copied
+    into. The logits and the cache returned are the graph's own buffers,
+    rewritten by the next call at the same shape: merge the cache
+    (:func:`merge_cache`, which copies) and clone the logits to keep them.
+    It captures again, as :class:`DecodeStep` does, for another params
+    object or leaf and after the block autotune cache was cleared or
+    preloaded; a capture first runs the prefill once eagerly at the same
+    shapes (kernels built, blocks timed, tables uploaded, its launches
+    counted), and each replay adds the captured launches. A capture that
+    fails raises; the prefill never runs eagerly instead. The graph's
+    private memory pool keeps the prefill's activations for as long as the
+    step holds the graph.
+
+    On the CPU it is ``lm.prefill``, eager.
+    """
+
+    def __call__(self, params, batch):
+        lm = self.lm
+        if lm.device.type != "cuda":
+            return lm.prefill(params, batch)
+        if batch.keys() != {"tokens"} or batch["tokens"].ndim != 2:
+            raise ValueError(
+                "the captured prefill takes {'tokens': (B, P)} alone, got "
+                f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+        tokens = batch["tokens"]
+        slot = self._slots.get(tuple(tokens.shape))
+        if slot is None:
+            slot = self._slots[tuple(tokens.shape)] = _PrefillSlot(
+                lm, *tokens.shape)
+        slot.tokens.copy_(tokens)
+        return self._replay(slot, params, lambda: lm.prefill(
+            params, {"tokens": slot.tokens}))
+
+
+@lru_cache(maxsize=64)
+def make_prefill(lm) -> PrefillStep:
+    """The prefill bound to ``lm`` (:class:`PrefillStep`), memoized per
+    ``lm`` as :func:`make_decode_step` is: repeated :func:`generate` calls at
+    one prompt shape replay one captured graph."""
+    return PrefillStep(lm)
+
+
 # ------------------------------------------------------------ decode loop --
 def generate(lm, params, prompts: torch.Tensor, max_seq: int, gen: int, *,
-             decode_fn=None, return_logits: bool = False):
+             prefill_fn=None, decode_fn=None, return_logits: bool = False):
     """prompts: (B, P) int64 on ``lm.device``. Greedy decode ``gen`` tokens.
 
-    The per-token loop runs one step function, :func:`make_decode_step`
-    unless ``decode_fn`` overrides it (``decode_fn=lm.decode_step`` is the
-    eager loop), against the merged serving cache. Returns the tokens
-    ``(B, gen)``; with ``return_logits`` also the logits each token was
-    picked from, ``(B, gen, V)`` float32.
+    The prompt goes through one prefill, :func:`make_prefill` unless
+    ``prefill_fn`` overrides it (``prefill_fn=lm.prefill`` is the eager
+    prefill), and the per-token loop runs one step function,
+    :func:`make_decode_step` unless ``decode_fn`` overrides it
+    (``decode_fn=lm.decode_step`` is the eager loop), against the merged
+    serving cache. Returns the tokens ``(B, gen)``; with ``return_logits``
+    also the logits each token was picked from, ``(B, gen, V)`` float32.
     """
     B, P = prompts.shape
+    prefill = prefill_fn if prefill_fn is not None else make_prefill(lm)
     step = decode_fn if decode_fn is not None else make_decode_step(lm)
     empty = step.empty_cache if isinstance(step, DecodeStep) \
         else lm.empty_cache
-    logits, cache = lm.prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"tokens": prompts})
+    # both graphs hold addresses: the prefill's cache buffers are copied
+    # into the step's own cache here, before either graph replays again;
+    # the prefill's logits buffer is not rewritten within this call
     cache = merge_cache(empty(B, max_seq), cache)
     tok = torch.argmax(logits, -1)
     toks, all_logits = [tok], [logits]
@@ -314,24 +410,57 @@ def measure_generate(lm, params, prompts, max_seq: int, gen: int, *,
     """Measured serving numbers: (tokens, end-to-end stats, step stats).
 
     One warm pass (which also builds the kernels, times the blocks and
-    captures the decode step), then the full ``generate`` timed ``iters``
-    times, and the steady-state decode step — on the GPU one replay of the
-    captured step, its host work included — timed separately against the
-    post-prompt cache: end-to-end tok/s amortizes prefill, the step timing
-    is the per-token latency.
+    captures the prefill and the decode step), then the full ``generate``
+    timed ``iters`` times, and the steady-state decode step — on the GPU
+    one replay of the captured step, its host work included — timed
+    separately against the post-prompt cache: end-to-end tok/s amortizes
+    prefill, the step timing is the per-token latency. The served prefill
+    is timed by :func:`measure_prefill`.
     """
     B, P = prompts.shape
-    step = make_decode_step(lm)
-    run = lambda: generate(lm, params, prompts, max_seq, gen, decode_fn=step)
+    prefill, step = make_prefill(lm), make_decode_step(lm)
+    run = lambda: generate(lm, params, prompts, max_seq, gen,
+                           prefill_fn=prefill, decode_fn=step)
     tokens = run()
     e2e = time_callable(run, iters=iters, items=B * gen, device=lm.device)
-    logits, cache = lm.prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"tokens": prompts})
     cache = merge_cache(step.empty_cache(B, max_seq), cache)
     tok = torch.argmax(logits, -1)
     # the step rewrites slot P with the same values: re-runnable as is
     step_t = time_callable(step, params, cache, tok, P,
                            iters=max(iters, 5), items=B, device=lm.device)
     return tokens, e2e, step_t
+
+
+@dataclass(frozen=True)
+class PrefillTimes:
+    """The served prefill's numbers (:func:`measure_prefill`)."""
+    stats: TimingStats           # one call, host work included, synced
+    host_s: float                # best host time of a call, no sync inside
+    capture_s: float | None      # the latest capture, warm run included;
+                                 # None where nothing is captured (CPU)
+
+
+def measure_prefill(lm, params, prompts, *, iters: int = 3) -> PrefillTimes:
+    """The served prefill (:func:`make_prefill`; on the GPU one replay of
+    the captured prefill) at ``prompts``' shape: warmed (the first call at
+    a shape captures), then timed ``iters`` times device-synchronised, and
+    the host's own time a call with the device drained before each and no
+    synchronise inside."""
+    prefill = make_prefill(lm)
+    batch = {"tokens": prompts}
+    stats = time_callable(prefill, params, batch, iters=iters,
+                          items=prompts.numel(), device=lm.device)
+    sync = (lambda: torch.cuda.synchronize(lm.device)) \
+        if lm.device.type == "cuda" else (lambda: None)
+    host_s = float("inf")
+    for _ in range(max(iters, 1)):
+        sync()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        host_s = min(host_s, time.perf_counter() - t0)
+    sync()
+    return PrefillTimes(stats, host_s, prefill.capture_s)
 
 
 # ------------------------------------------------------------ serving plan --
@@ -448,10 +577,15 @@ def main(argv=None):
     max_seq = args.prompt_len + args.gen
     toks, e2e, step_t = measure_generate(lm, params, prompts, max_seq,
                                          args.gen)
+    pre = measure_prefill(lm, params, prompts)
     how = "a CUDA-graph replay" if lm.device.type == "cuda" else "eager"
+    captured = "" if pre.capture_s is None \
+        else f", captured in {pre.capture_s:.2f}s"
     print(f"generated {tuple(toks.shape)} on {e2e.device}: "
           f"{args.batch * args.gen / e2e.best_s:.1f} tok/s end-to-end "
           f"(best of {e2e.iters} post-warmup, synced); "
+          f"prefill {pre.stats.best_s * 1e3:.2f}ms ({how}, host "
+          f"{pre.host_s * 1e3:.2f}ms{captured}); "
           f"decode step {step_t.best_s * 1e6:.0f}us ({how}, "
           f"{step_t.items_per_s:.1f} tok/s steady-state)")
     print(toks[:2].cpu().numpy())

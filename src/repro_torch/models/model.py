@@ -86,7 +86,10 @@ class LM:
         """Prompt forward pass; returns (last-token logits, decode cache).
 
         The cache covers exactly the prompt length S; launch/serve.py embeds
-        it into a larger cache before decoding continues.
+        it into a larger cache before decoding continues. Nothing here reads
+        a tensor on the host, which is what lets the served prefill
+        (:func:`repro_torch.launch.serve.make_prefill`) capture this call
+        into a CUDA graph per prompt shape; called directly it runs eagerly.
         """
         cfg = self.cfg
         x = self._embed(params, batch)

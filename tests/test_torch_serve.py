@@ -1,13 +1,19 @@
-"""The served decode step (``launch.serve.make_decode_step``) on the CPU.
+"""The served decode step and prefill (``launch.serve.make_decode_step``,
+``make_prefill``) on the CPU.
 
 On the GPU the step is a CUDA graph of ``serve.decode_body``, captured once
-and replayed per token; ``chip_smoke.py`` holds its tokens and logits equal
-to the eager loop's there. A CPU has no CUDA graph: here the step is the
-eager ``lm.decode_step``, and the body the graph captures runs eagerly with
-its position as a (B,) tensor. The registry's bookkeeping that a capture
-needs (the autotune generation, the launch accounting, no timing under
-capture) is plain Python and is checked directly.
+and replayed per token, and the prefill a CUDA graph of ``lm.prefill`` per
+prompt shape; ``chip_smoke.py`` holds their tokens, logits and caches equal
+to the eager ones there. A CPU has no CUDA graph: here the step is the
+eager ``lm.decode_step``, the prefill the eager ``lm.prefill``, and the
+body the step's graph captures runs eagerly with its position as a (B,)
+tensor. The registry's bookkeeping that a capture needs (the autotune
+generation, the launch accounting, no timing under capture) is plain
+Python and is checked directly, and the capture machinery both share is
+driven with a stand-in for the CUDA graph.
 """
+import contextlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,6 +23,7 @@ from repro.launch import serve as r_serve
 from repro_torch.core.simdive import SimdiveSpec
 from repro_torch.kernels import registry
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.launch import serve
 from repro_torch.models import build
 from test_torch_model import (B, EMULATE_LOGIT_TOL, GEN, P, SIMDIVE_LOGIT_TOL,
@@ -236,3 +243,183 @@ def test_measure_generate_on_cpu_is_warm_synced_and_positive():
         assert t.device == "cpu"
     assert step_t.items_per_s > 0
     assert serve.make_decode_step(lm).captures == 0    # no graph on a CPU
+
+
+# ---------------------------------------------------------------- prefill --
+def test_prefill_is_memoized_and_eager_on_cpu():
+    """One prefill per lm, as the decode step; on the CPU it is
+    ``lm.prefill``, bit for bit, and captures nothing."""
+    lm, params, prompts = _smoke(emulate=False)
+    prefill = serve.make_prefill(lm)
+    assert prefill is serve.make_prefill(lm)
+    assert isinstance(prefill, serve.PrefillStep)
+    assert serve.make_prefill(build(lm.cfg, device="cpu")) is prefill
+    got_logits, got = prefill(params, {"tokens": prompts})
+    want_logits, want = lm.prefill(params, {"tokens": prompts})
+    assert torch.equal(got_logits, want_logits)
+    assert got.keys() == want.keys() == {"k", "v"}
+    for key in want:
+        assert torch.equal(got[key], want[key])
+    assert prefill.captures == 0
+
+
+@pytest.mark.parametrize("emulate", [False, True],
+                         ids=["divider", "emulate"])
+def test_generate_default_prefill_equals_eager_prefill(emulate):
+    """The default prefill (eager on the CPU) gives the all-eager
+    generate's tokens and logits; that default generate gives the
+    reference's tokens by the margin rule in
+    test_generate_default_step_equals_eager_and_reference."""
+    lm, params, prompts = _smoke(emulate)
+    got = serve.generate(lm, params, prompts, P + GEN, GEN,
+                         return_logits=True)
+    want = serve.generate(lm, params, prompts, P + GEN, GEN,
+                          prefill_fn=lm.prefill, decode_fn=lm.decode_step,
+                          return_logits=True)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+class _FakeGraph:
+    """Stands in for ``torch.cuda.CUDAGraph`` on a host without a GPU: the
+    capture runs the body as a real capture runs its Python, a replay
+    only counts."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """The capture calls of ``serve._Captured`` made to run on the CPU;
+    yields a flag that reads True while a capture is open."""
+    state = {"capturing": False}
+
+    @contextlib.contextmanager
+    def graph(g):
+        assert isinstance(g, _FakeGraph)
+        state["capturing"] = True
+        try:
+            yield
+        finally:
+            state["capturing"] = False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: state["capturing"])
+    tuned = registry.export_autotune_cache()
+    registry.reset_launch_counts()
+    try:
+        yield state
+    finally:
+        registry.reset_launch_counts()
+        registry.clear_autotune_cache()
+        registry.preload_autotune_cache(tuned)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_shared_slot_recaptures_only_when_stale(fake_capture, kind):
+    """The capture machinery both steps share, driven on the CPU: a slot
+    captures on first use (one warm run, then the capture), replays while
+    the params object, its leaves and the autotune generation stay, and
+    captures again for a new params object, a swapped leaf or a new
+    generation — and for nothing else."""
+    lm, params, _ = _smoke(emulate=False)
+    fn = serve._GraphFn(lm)
+    slot = serve._Slot(lm, B, P + GEN) if kind == "decode" \
+        else serve._PrefillSlot(lm, B, P)
+    runs = []
+    body = lambda: runs.append(fake_capture["capturing"]) or ("out", kind)
+
+    def call(p, captures, bodies):
+        assert fn._replay(slot, p, body) == ("out", kind)
+        assert fn.captures == captures and len(runs) == bodies
+        assert fn.capture_s is not None and fn.capture_s >= 0
+
+    call(params, 1, 2)
+    assert runs == [False, True]              # the warm run, then the capture
+    call(params, 1, 2)
+    assert slot.graph.replays == 2
+    other = dict(params)
+    call(other, 2, 4)
+    call(other, 2, 4)
+    call(params, 3, 6)
+    old = params["final_norm"]["w"]
+    params["final_norm"]["w"] = old.clone()
+    try:
+        call(params, 4, 8)
+    finally:
+        params["final_norm"]["w"] = old
+    call(params, 5, 10)
+    registry.preload_autotune_cache(registry.export_autotune_cache())
+    call(params, 6, 12)
+    registry.clear_autotune_cache()
+    call(params, 7, 14)
+    for _ in range(3):
+        call(params, 7, 14)
+
+
+def test_launch_accounting_across_prefill_capture_and_replay(fake_capture):
+    """A prefill's capture counts its warm run's launches and gives back
+    the capture's; each replay adds one eager prefill's launches: a
+    2-layer prefill captured once and replayed 5 times counts 6 prefills'
+    attention launches."""
+    lm, params, _ = _smoke(emulate=False)
+    fn = serve._GraphFn(lm)
+    slot = serve._PrefillSlot(lm, B, P)
+
+    def body():                     # what a 2-layer prefill's kernels count
+        flash_attention_cuda.launches += 2
+        return "out"
+
+    fn._replay(slot, params, body)
+    assert slot.launches == {"attention": 2}
+    assert registry.launch_counts()["attention"] == 4   # warm run + replay
+    for _ in range(4):
+        fn._replay(slot, params, body)
+    assert registry.launch_counts()["attention"] == 2 * 6
+    assert sum(registry.launch_counts().values()) == 2 * 6
+    assert fn.captures == 1 and slot.graph.replays == 5
+
+
+def test_untimed_block_under_prefill_capture_raises(fake_capture):
+    """A capture that meets a block still to be timed raises out of the
+    served prefill: nothing is captured, no eager run takes its place, and
+    the capture's launches are given back."""
+    lm, params, _ = _smoke(emulate=False)
+    spec = SimdiveSpec(width=8, coeff_bits=6)
+    entry = registry.get_op("matmul_emul", spec).entry
+    x = torch.ones((4, 64), dtype=torch.int32)
+    w = torch.ones((64, 32), dtype=torch.int32)
+    fn = serve._GraphFn(lm)
+    slot = serve._PrefillSlot(lm, B, P)
+    registry.clear_autotune_cache()
+
+    def body():
+        flash_attention_cuda.launches += 2
+        if fake_capture["capturing"]:        # a bucket the warm run missed
+            registry._pick_block(entry, spec, "cuda", (x, x, w, w),
+                                 {"k_chunk": 0})
+        return "out"
+
+    with pytest.raises(RuntimeError, match="CUDA graph is being captured"):
+        fn._replay(slot, params, body)
+    assert slot.graph is None and fn.captures == 0
+    assert registry.launch_counts()["attention"] == 2     # the warm run's
+    assert not registry.autotune_cache()
+
+
+def test_measure_prefill_on_cpu_is_warm_synced_and_positive():
+    lm, params, prompts = _smoke(emulate=False)
+    t = serve.measure_prefill(lm, params, prompts, iters=2)
+    assert t.stats.warmup >= 1 and t.stats.iters == 2
+    assert 0 < t.stats.best_s <= t.stats.mean_s
+    assert t.stats.device == "cpu" and t.stats.items == B * P
+    assert t.host_s > 0
+    assert t.capture_s is None                 # no graph on a CPU
