@@ -21,7 +21,10 @@ any phase fails. Phases:
               ``flash_attention`` within the stated tolerances (f32 / bf16,
               d_head 64 / 128, causal / window / non-causal, ragged Sq != Skv
               with q_offset and kv_len, an empty kv loop, exact and SIMDive
-              divide; bf16 at the tensor-core fragments' edges: Sq and Skv
+              divide — at the main path's shape also the scheduler's shed
+              rung's Mitchell divider (coeff_bits 0, no rounding) and its
+              recovery rung's exact divide; bf16 at the tensor-core
+              fragments' edges: Sq and Skv
               not multiples of 16 or 8, one q row at a q_offset, scores
               of large magnitude), its ``cp.async``-ring schedule at every
               depth the wrapper accepts for each case bit-equal to the
@@ -39,7 +42,10 @@ any phase fails. Phases:
               wrap, the masked slot on rank boundaries, a window across
               ranks, fewer slots than ranks, G 1 / 3 / 8, a history of
               several rounds, 160 (b, kv head) rows where the planner
-              takes one block a row, the main path's shape), the main
+              takes one block a row, the main path's shape, and the
+              scheduler drill's per-row positions with an idle row at 0
+              at the shed rung's Mitchell divider and the recovery rung's
+              exact divide), the main
               path's clusters resident in one wave
               (``cudaOccupancyMaxActiveClusters``), and G 9, a position
               tensor left on the CPU and clusters of 0, 9 and 2.5 blocks
@@ -168,6 +174,33 @@ any phase fails. Phases:
               ``library_ms``) is device time with the host taken out (many
               launches replayed from one CUDA graph); the eager per-call
               time, host included, is printed beside it.
+6. drill    — ``serve --scheduler``'s continuous-batching drill through
+              ``launch.scheduler.Scheduler``: smollm-360m full width,
+              random weights from seed 0, ``--approx simdive``, batch 4,
+              prompt 512, 32 tokens a request, max_seq 544, 12 requests,
+              shed_depth 4, recover_depth 1, ladder fine / shed (Mitchell)
+              / recovery (exact). ``warmup()`` must warm 6 executables,
+              capturing each rung's prefill and decode step, and ``run()``
+              must capture nothing; every rung's step must serve the
+              scheduler's one cache (``data_ptr``s equal); all 12 requests
+              complete, none fails, at least one shed before a recover,
+              both fine and shed serve tokens and the tokens attributed to
+              the rungs sum to the tokens served; the launch counts,
+              zeroed just before ``run()`` and read just after, must be 32
+              attention launches per admission and 32 decode_attention
+              launches per tick. Then the same drill eager (``lm.prefill``,
+              ``lm.decode_step``) and guarded (``ApproxConfig(guard=
+              True)``: each capture's warm run checked, no trip) must give
+              the captured drill's events and tokens ``torch.equal``; four
+              requests admitted together must give ``generate``'s tokens on
+              the same prompts; and the drill with ``--emulate`` (8
+              requests) must pass the same gates with 224 ``logmatmul``
+              launches per prefill and per step. Printed: the drill's wall
+              ms, ticks and tokens/s, each rung's ``measure_decode`` (one
+              replay, every row mid-generation), an admission (prefill
+              replay + insert), the warmup, the memory the six graphs
+              hold, and the drill's launches per kernel (also in the
+              kernels line, ``launches_drill``).
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -320,6 +353,16 @@ EMULATE_EQUAL_ROW_SHARE = 0.5
 # minutes; prompt 32 is 40 G. The blocks the autotune serves at the main
 # path's shapes are held bit for bit against the plain version in phase 3.
 REF_PROMPT, REF_GEN = 32, 8
+# the scheduler's shed rung (coarse_step): the divider's Mitchell spec, no
+# correction, no rounding
+MITCHELL_DIV = dict(width=16, coeff_bits=0, index_bits=3,
+                    round_output=False)
+# the scheduler drill (launch/scheduler.py, serve --scheduler): the
+# reference's drill settings (launch/serve.py defaults); the --emulate
+# drill floods fewer requests (each of its admissions is a ~0.6 s prefill)
+# but still sheds (8 >= 4) and recovers
+DRILL_REQUESTS, DRILL_SHED, DRILL_RECOVER = 12, 4, 1
+DRILL_EMULATE_REQUESTS = 8
 # the registered attention ring block: the pinned full-width run and the
 # flash_attention_pipelined row of the kernels line use it
 ATTENTION_RING_BLOCK = (64, 64, 2)
@@ -721,6 +764,16 @@ def check_attention(dev):
         BATCH * 15, PROMPT, PROMPT, 64, bf16, kv_group=3, causal=True,
         approx_div=True, frac_out=15,
         spec=SimdiveSpec(width=16, coeff_bits=6), main=True)
+    # the scheduler's other rungs at the same shape: the shed rung's
+    # Mitchell divider (coeff_bits 0, no rounding) and the recovery rung's
+    # exact divide
+    run("bf16 dh64 GQA kv_group3, the main path's shape, the shed rung's "
+        "Mitchell divider", BATCH * 15, PROMPT, PROMPT, 64, bf16,
+        kv_group=3, causal=True, approx_div=True, frac_out=15,
+        spec=SimdiveSpec(**MITCHELL_DIV))
+    run("bf16 dh64 GQA kv_group3, the main path's shape, the recovery "
+        "rung's exact divide", BATCH * 15, PROMPT, PROMPT, 64, bf16,
+        kv_group=3, causal=True, approx_div=False)
     run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
         q_offset=299, approx_div=True)
     run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
@@ -828,11 +881,12 @@ def check_decode_attention(dev):
                 ).to(dtype)
 
     def run(name, B, Smax, KVH, G, dh, dtype, pos, *, ring_full=False,
-            window=0, approx=False, draws=1, main=False, qk_gain=1.0):
+            window=0, approx=False, draws=1, main=False, qk_gain=1.0,
+            spec=serving):
         if isinstance(pos, list):
             pos = torch.tensor(pos, device=dev)
         slot = pos % Smax if ring_full else pos
-        kw = dict(pos=pos, slot=slot, spec=serving, ring_full=ring_full,
+        kw = dict(pos=pos, slot=slot, spec=spec, ring_full=ring_full,
                   window=window, approx_div=approx, frac_out=15)
         gots, wants = {c: [] for c in sizes}, []
         for _ in range(draws):
@@ -934,6 +988,17 @@ def check_decode_attention(dev):
         f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
         bf16, PROMPT + 15, approx=True, draws=3, main=True)
     errs["clusters"] = da.cluster_size(BATCH, 5, sm_count)
+    # the scheduler drill's shape: per-row positions with idle rows at 0,
+    # at the shed rung's Mitchell divider and the recovery rung's exact
+    # divide
+    drill_pos = [PROMPT + 15, 0, PROMPT + GEN - 1, PROMPT]
+    run(f"main path's shape, per-row pos {drill_pos}, the shed rung's "
+        "Mitchell divider, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
+        bf16, drill_pos, approx=True, draws=3,
+        spec=SimdiveSpec(**MITCHELL_DIV))
+    run(f"main path's shape, per-row pos {drill_pos}, the recovery rung's "
+        "exact divide", BATCH, PROMPT + GEN, 5, 3, 64, bf16, drill_pos,
+        approx=False)
 
     # refused before any launch: 9 q heads a kv head, a position tensor
     # left on the CPU, and clusters of 0, 9 and 2.5 blocks
@@ -2745,6 +2810,249 @@ def measure_emulate(served_e, params, prompts):
     }
 
 
+# --------------------------------------------------------- phase 6: drill --
+def _drill_scheduler(cfg, requests, *, params=None, eager=False,
+                     shed_depth=DRILL_SHED):
+    """The ``serve --scheduler`` drill's scheduler at full width, its
+    queue filled with ``requests`` prompts drawn from seed 0 (the same
+    prompts for every drill of this phase)."""
+    import numpy as np
+    from repro_torch.launch.scheduler import Scheduler, default_ladder
+
+    sched = Scheduler(cfg, params, levels=default_ladder(cfg.approx),
+                      batch=BATCH, prompt_len=PROMPT, max_seq=PROMPT + GEN,
+                      shed_depth=shed_depth, recover_depth=DRILL_RECOVER,
+                      seed=SEED, eager=eager)
+    rng = np.random.default_rng(SEED)
+    for _ in range(requests):
+        sched.submit(rng.integers(0, cfg.vocab_size, PROMPT), max_new=GEN)
+    return sched
+
+
+def _captures(sched) -> list:
+    """Each rung's prefill and step captures (none for an eager drill)."""
+    if sched.eager:
+        return []
+    return [f.captures for f in sched.prefills + sched.steps]
+
+
+def _drill_tokens(sched) -> dict:
+    return {r.rid: list(r.tokens) for r in sched.done}
+
+
+def run_drill(name, sched, requests):
+    """Warm ``sched`` (one capture of each rung's prefill and step), run
+    its drill with the launch counts zeroed just before and read just
+    after, and hold it to the drill's gates. Returns its numbers."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    warmed = sched.warmup()
+    warm_s = time.perf_counter() - t0
+    levels = [lv.name for lv in sched.levels]
+    require(levels == ["fine", "shed", "recovery"],
+            f"drill {name}: ladder {levels}")
+    require(warmed == 2 * len(levels),
+            f"drill {name}: warmup warmed {warmed}, expected 6")
+    caps = _captures(sched)
+    if not sched.eager:
+        require(all(c >= 1 for c in caps),
+                f"drill {name}: captures after warmup {caps}")
+        for lvl, step in zip(levels, sched.steps):
+            own = step.slot_cache(BATCH, PROMPT + GEN)
+            require(own is not None and all(
+                own[k].data_ptr() == sched.cache[k].data_ptr()
+                for k in sched.cache),
+                f"drill {name}: the {lvl} rung's step does not serve the "
+                "scheduler's cache buffers")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = sched.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require(_captures(sched) == caps,
+            f"drill {name}: captures {caps} -> {_captures(sched)} during "
+            "run()")
+    require(stats["completed"] == requests and stats["failed"] == 0,
+            f"drill {name}: {stats['completed']} of {requests} completed, "
+            f"{stats['failed']} failed")
+    kinds = [k for _, k, _ in stats["events"]]
+    require(stats["sheds"] >= 1 and stats["recovers"] >= 1
+            and kinds.index("shed") < kinds.index("recover"),
+            f"drill {name}: sheds {stats['sheds']}, recovers "
+            f"{stats['recovers']}, events {kinds}")
+    per = stats["tokens_per_level"]
+    served = sum(len(r.tokens) for r in sched.done)
+    require(per["fine"] > 0 and per["shed"] > 0,
+            f"drill {name}: tokens per rung {per}")
+    require(sum(per.values()) == served == stats["tokens"]
+            == requests * GEN,
+            f"drill {name}: tokens per rung {per} vs {served} served")
+    require(all(len(r.tokens) == GEN and 0 <= min(r.tokens)
+                and max(r.tokens) < sched.cfg.vocab_size
+                for r in sched.done),
+            f"drill {name}: a request's tokens are out of shape or range")
+    admissions = len({t for t, k, _ in stats["events"] if k == "admit"})
+    n_layers = sched.cfg.n_layers
+    require(_attention_launches(counts) == n_layers * admissions
+            and counts["decode_attention"] == n_layers * stats["ticks"]
+            and counts["elemwise"] == 0,
+            f"drill {name}: launches {counts}, expected {n_layers} "
+            f"attention per admission x {admissions} and {n_layers} "
+            f"decode_attention per tick x {stats['ticks']} (every tick of "
+            "the drill decodes)")
+    log(f"  drill {name}: {stats['completed']} requests, {stats['ticks']} "
+        f"ticks, {admissions} admissions, {stats['tokens']} tokens "
+        f"{per}, sheds {stats['sheds']}, recovers {stats['recovers']}, "
+        f"in {wall_s * 1e3:.1f} ms ({stats['tokens'] / wall_s:.1f} tok/s); "
+        f"warmup {warm_s:.2f}s, captures {caps} (none during run()); "
+        f"launches {counts}")
+    return dict(stats=stats, wall_ms=wall_s * 1e3, warm_s=warm_s,
+                tok_per_s=stats["tokens"] / wall_s, counts=counts,
+                admissions=admissions)
+
+
+def scheduler_drill(dev):
+    """Phase 6: ``serve --scheduler``'s drill at full width, through the
+    port's entry points (``launch.scheduler.Scheduler``), with its gates;
+    then the same drill eager, guarded and with ``--emulate``."""
+    import gc
+    from dataclasses import replace as dc_replace
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+
+    # the earlier phases' memoized prefills and steps (and their graphs)
+    # go, so that the memory this phase reads is its own graphs'
+    serve.make_prefill.cache_clear()
+    serve.make_decode_step.cache_clear()
+    gc.collect()
+    cfg = serve.serving_config(ARCH, approx="simdive")
+    out = {}
+
+    # (a) the captured drill: 2 graphs a rung at warmup, none in run()
+    sched = _drill_scheduler(cfg, DRILL_REQUESTS)
+    params = sched.params
+    reserved = reserved_bytes()
+    drill = run_drill("captured", sched, DRILL_REQUESTS)
+    # held after the drill: the six graphs' pools, the prefills' prompt
+    # buffers, the steps' token / position buffers (the params and the
+    # shared cache were allocated before the reading)
+    held = reserved_bytes() - reserved
+    out.update(drill_ms=drill["wall_ms"], drill_ticks=drill["stats"]["ticks"],
+               drill_tok_per_s=drill["tok_per_s"],
+               drill_warmup_s=drill["warm_s"], drill_graphs_held_bytes=held,
+               drill_admissions=drill["admissions"])
+    out["drill_launches"] = drill["counts"]
+    # one replay of each rung's captured step, every row mid-generation
+    for i, lv in enumerate(sched.levels):
+        sched.level = i
+        sched.pos[:] = PROMPT + GEN // 2
+        t = sched.measure_decode(iters=20)
+        out[f"drill_decode_step_ms_{lv.name}"] = t.best_s * 1e3
+    sched.level = 0
+    sched.pos[:] = 0
+    # an admission: one replay of the fine rung's prefill and the insert
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT))).to(dev)
+    slots = np.arange(BATCH)
+    admit = lambda: serve.insert_cache(
+        sched.cache, sched.prefills[0](params, {"tokens": prompts})[1], slots)
+    out["drill_admission_ms"] = time_callable(
+        admit, iters=10, device=dev).best_s * 1e3
+    log("  drill: decode step, one replay a rung "
+        + ", ".join(f"{lv.name} {out[f'drill_decode_step_ms_{lv.name}']:.3f}"
+                    for lv in sched.levels)
+        + f" ms; an admission (prefill replay + insert) "
+        f"{out['drill_admission_ms']:.3f} ms; the six graphs hold {held} "
+        "bytes")
+    tokens = _drill_tokens(sched)
+    events = drill["stats"]["events"]
+
+    # (b) the same drill eager (lm.prefill, lm.decode_step): the captured
+    # drill's events and tokens, bit for bit
+    eager = _drill_scheduler(cfg, DRILL_REQUESTS, params=params, eager=True)
+    e = run_drill("eager", eager, DRILL_REQUESTS)
+    require(e["stats"]["events"] == events,
+            "drill: captured and eager events differ")
+    require(_drill_tokens(eager) == tokens,
+            "drill: captured and eager tokens differ")
+    out["drill_eager_ms"] = e["wall_ms"]
+    del eager
+
+    # (c) guarded (ApproxConfig(guard=True)) on every rung: each capture's
+    # eager warm run is checked, the captures pass unchecked, replays are
+    # not calls; no trip, the unguarded drill's events and tokens
+    seen = {"checked": 0, "under_capture": 0}
+    real_check = registry._guard_check
+
+    def counting(*args, **kw):
+        seen["under_capture" if registry._capturing() else "checked"] += 1
+        return real_check(*args, **kw)
+
+    registry._guard_check = counting
+    try:
+        cfg_g = cfg.with_approx(dc_replace(cfg.approx, guard=True))
+        guarded = _drill_scheduler(cfg_g, DRILL_REQUESTS, params=params)
+        g = run_drill("guarded", guarded, DRILL_REQUESTS)
+    finally:
+        registry._guard_check = real_check
+    require(g["stats"]["guard_trips"] == 0,
+            f"drill: guarded drill tripped {g['stats']['guard_trips']} times")
+    require(g["stats"]["events"] == events and
+            _drill_tokens(guarded) == tokens,
+            "drill: the guarded drill differs from the unguarded one")
+    require(seen["checked"] > 0 and seen["under_capture"] > 0,
+            f"drill: guard checks {seen}")
+    log(f"  drill guarded: {seen['checked']} outputs checked (the warm "
+        f"runs), {seen['under_capture']} passed under capture, no trip; "
+        "events and tokens equal to the unguarded drill")
+    out["drill_guard_checks"] = seen
+    del guarded
+
+    # (d) one admission fills all four slots: each row's tokens equal
+    # generate's at the fine rung on the same prompts
+    four = _drill_scheduler(cfg, BATCH, params=params,
+                            shed_depth=BATCH + 1)
+    four.warmup()
+    reqs = list(four.queue)
+    four.run()
+    want = serve.generate(four.lms[0], params, torch.from_numpy(
+        np.stack([r.prompt for r in reqs])).to(dev), PROMPT + GEN, GEN)
+    require(torch.equal(torch.tensor([r.tokens for r in reqs]), want.cpu()),
+            "drill: four requests admitted together differ from generate")
+    require(all(set(r.levels) == {"fine"} for r in reqs),
+            "drill: the four-request drill left the fine rung")
+    log("  drill: four requests in one admission == generate on the same "
+        "prompts (torch.equal)")
+    del four
+
+    # (e) --emulate: every linear through logmatmul on the fine and shed
+    # rungs (the shed rung at Mitchell), fewer requests
+    cfg_e = serve.serving_config(ARCH, approx="simdive", emulate=True)
+    emu = _drill_scheduler(cfg_e, DRILL_EMULATE_REQUESTS, params=params)
+    em = run_drill("--emulate", emu, DRILL_EMULATE_REQUESTS)
+    linears = 7 * cfg_e.n_layers
+    require(_matmul_launches(em["counts"]) == linears * (
+        em["stats"]["ticks"] + em["admissions"]),
+        f"drill --emulate: logmatmul launches {em['counts']}, expected "
+        f"{linears} per prefill and per decode step (no tick ran the "
+        "recovery rung's plain linears)")
+    out.update(drill_emulate_ms=em["wall_ms"],
+               drill_emulate_ticks=em["stats"]["ticks"],
+               drill_emulate_tok_per_s=em["tok_per_s"],
+               drill_emulate_warmup_s=em["warm_s"])
+    out["drill_emulate_launches"] = em["counts"]
+    del emu, sched
+    gc.collect()
+    return out
+
+
 # ------------------------------------------------------------------- main --
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2766,13 +3074,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/5] device: {card} | torch {torch.__version__} "
+    log(f"[1/6] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/5] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/6] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -2787,7 +3095,7 @@ def main(argv=None) -> int:
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
 
-    log("[3/5] kernels vs plain versions")
+    log("[3/6] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -2795,7 +3103,7 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/5] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/6] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -2807,7 +3115,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/5] times")
+    log("[5/6] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -2826,6 +3134,11 @@ def main(argv=None) -> int:
     times.update(measure_emulate(served_e, served["params"],
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
+
+    log("[6/6] drill: serve --scheduler, smollm-360m full width, batch "
+        f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
+        f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
+    drill = scheduler_drill(dev)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -2876,6 +3189,19 @@ def main(argv=None) -> int:
         kern["launches"] = counts[name] + pinned[name][name]
         kern["max_abs_err"] = att_errs[tag + "main"]
         kern["max_abs_err_all_cases"] = att_errs[tag + "all"]
+    # the drill (phase 6): its own counts, zeroed just before each drill
+    # and read just after, beside the earlier paths' launches
+    for kern, names in ((by_name["flash_attention"], ("attention",)),
+                        (by_name["flash_attention_pipelined"],
+                         ("attention_pipelined",)),
+                        (by_name["decode_attention"], ("decode_attention",)),
+                        (by_name["logmatmul"], ("matmul",)),
+                        (by_name["logmatmul_pipelined"],
+                         ("matmul_pipelined",))):
+        kern["launches_drill"] = sum(drill["drill_launches"][n]
+                                     for n in names)
+        kern["launches_drill_emulate"] = sum(
+            drill["drill_emulate_launches"][n] for n in names)
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -2885,6 +3211,8 @@ def main(argv=None) -> int:
             "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
+    for key, val in drill.items():
+        log(f"  {key}: {val if isinstance(val, dict) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     log(f"  total {total_s:.1f}s")
 
@@ -2901,7 +3229,7 @@ def main(argv=None) -> int:
                           if k not in ("lm", "params", "prompts")},
             "emulate_path": {k: v for k, v in served_e.items()
                              if k != "lm"},
-            "logmatmul_shapes": mm_shapes,
+            "logmatmul_shapes": mm_shapes, "drill": drill,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -64,14 +64,16 @@ class ApproxConfig:
     # sites whose lookup misses run exact
     policy_only: bool = False
     backward: str = "exact"        # exact | approx (training; not ported)
-    guard: bool = False            # guarded dispatch (not ported: raises)
+    # guarded dispatch: every get_op of this config checks its outputs
+    # and raises registry.GuardTripped on a violation. Off by default: a
+    # guard reads outputs back to the host, and a CUDA graph's replays are
+    # never checked (the scheduler's watchdog covers served graphs)
+    guard: bool = False
 
     def __post_init__(self):
         if self.backward not in ("exact", "approx"):
             raise ValueError(f"backward must be 'exact' or 'approx', "
                              f"got {self.backward!r}")
-        if self.guard:
-            raise NotImplementedError("guarded dispatch is not ported yet")
 
     @property
     def enabled(self) -> bool:
@@ -175,7 +177,7 @@ def attention_div(acc: torch.Tensor, l: torch.Tensor,
     spec, backend, frac_out = cfg.resolve_attention()
     check_width(spec.width)
     qn, qd = softmax_div_quantize(acc, l, spec.width)
-    div = get_op("elemwise", spec, backend=backend)
+    div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
     # width <= 16: the operands fit int32, whose bits are the uint32 lanes
     quot = div(qn.to(torch.int32).view(torch.uint32),
                qd.expand_as(qn).to(torch.int32).view(torch.uint32),
@@ -218,7 +220,7 @@ def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig):
     spec, backend = cfg.resolve("matmul")
     qx, sx, scx = quantize_sign_magnitude(x2, spec.width)
     qw, sw, scw = quantize_sign_magnitude(w, spec.width, axis=0)
-    mm = get_op("matmul_emul", spec, backend=backend)
+    mm = get_op("matmul_emul", spec, backend=backend, guard=cfg.guard)
     acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
     out = acc.to(torch.float32) * (scx * scw)
     return out.reshape(*lead, w.shape[1]).to(x.dtype)
@@ -283,7 +285,7 @@ def approx_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     qi = q.to(torch.int32)
     qw = qi.abs()
     sw = torch.where(qi < 0, -1, 1).to(torch.int32)
-    mm = get_op("matmul_emul", spec, backend=backend)
+    mm = get_op("matmul_emul", spec, backend=backend, guard=cfg.guard)
     acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
     out = acc.to(torch.float32) * (scx * scale.to(torch.float32))
     return out.reshape(*lead, q.shape[-1]).to(x.dtype)

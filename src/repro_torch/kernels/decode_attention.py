@@ -79,6 +79,26 @@ def _pos4(pos):
     return int(pos)
 
 
+def history_valid(Smax: int, pos, slot, *, ring_full=False, window=0,
+                  device=None) -> torch.Tensor:
+    """The cache slots a decode step reads, as a bool mask broadcastable
+    to score shape (B, KVH, G, Smax): ``[0, pos)``, cut to the window when
+    ``Smax > window``; under ``ring_full`` every slot but ``slot`` once
+    the ring has wrapped."""
+    idx = torch.arange(Smax, device=device)[None, None, None, :]
+    pos, slot = _pos4(pos), _pos4(slot)
+    if ring_full:
+        # ring not yet wrapped: history is [0, pos); wrapped: every slot
+        # except the one being replaced holds live history
+        if torch.is_tensor(pos):
+            return torch.where(pos < Smax, idx < pos, idx != slot)
+        return idx < pos if pos < Smax else idx != slot
+    valid = idx < pos
+    if window and Smax > window:
+        valid = valid & (idx > pos - window)
+    return valid
+
+
 def decode_attention_acc(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
                          ring_full=False, window=0):
     """``(acc (B,KVH,G,dh), l (B,KVH,G))`` in float32: everything of the
@@ -92,22 +112,10 @@ def decode_attention_acc(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
     B, Smax, KVH, dh = k_cache.shape
     scale = dh ** -0.5
     f32 = torch.float32
-    dev = q.device
     qf = q.to(f32)
     s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.to(f32)) * scale
-    idx = torch.arange(Smax, device=dev)[None, None, None, :]
-    pos, slot = _pos4(pos), _pos4(slot)
-    if ring_full:
-        # ring not yet wrapped: history is [0, pos); wrapped: every slot
-        # except the one being replaced holds live history
-        if torch.is_tensor(pos):
-            valid = torch.where(pos < Smax, idx < pos, idx != slot)
-        else:
-            valid = idx < pos if pos < Smax else idx != slot
-    else:
-        valid = idx < pos
-        if window and Smax > window:
-            valid = valid & (idx > pos - window)
+    valid = history_valid(Smax, pos, slot, ring_full=ring_full,
+                          window=window, device=q.device)
     s = torch.where(valid, s, torch.full_like(s, float("-inf")))
     s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].to(f32)) * scale
     m = torch.maximum(s.amax(dim=-1), s_self)              # (B,KVH,G)

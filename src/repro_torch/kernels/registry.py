@@ -47,6 +47,20 @@ matmul ops). A launch captured into a CUDA graph is not a launch: whoever
 captures takes the captured launches back out of the counts
 (:func:`launches_between`, :func:`add_launches` with ``times=-1``) and adds
 them once per replay.
+
+Guarded dispatch (``get_op(..., guard=True)``, the reference's): every
+output is checked against its op's invariant — finite floats; attention
+rows under 4x max |v|; elemwise results inside their lane range, no
+saturated quotient over a nonzero denominator and no quotient under the
+floor at ``frac_out >= 4``; matmul accumulators under K (2^w - 1)^2 — and
+a violation raises :class:`GuardTripped`. The check reads the output back
+to the host. A call made while a CUDA graph is being captured passes
+unchecked, as a traced call passes in the reference: it has no values
+yet, and its replays are never checked, so guarded serving on the card
+checks each graph's eager warm run and relies on the scheduler's
+watchdog after that. ``decode_attention``, which exists only in the
+port, takes the attention rule with v the cache rows the call reads plus
+the new token.
 """
 from __future__ import annotations
 
@@ -58,6 +72,7 @@ import torch
 
 __all__ = [
     "BACKENDS",
+    "GuardTripped",
     "OpImpl",
     "BoundOp",
     "register_op",
@@ -77,6 +92,27 @@ __all__ = [
 
 #: backends accepted by :func:`get_op`; 'auto' resolves per call
 BACKENDS = ("auto", "ref", "cuda")
+
+
+class GuardTripped(RuntimeError):
+    """An output guard rejected a kernel result — loud and structured.
+
+    Raised by guarded dispatch (``get_op(..., guard=True)``) when an op's
+    output violates its invariant (see :func:`_guard_check`). Carries the
+    dispatch identity, so the serving watchdog can attribute and retry;
+    the fields and the message are the reference's."""
+
+    def __init__(self, *, op: str, backend: str, width: int, reason: str,
+                 bad: int, total: int):
+        self.op = op
+        self.backend = backend
+        self.width = width
+        self.reason = reason
+        self.bad = int(bad)
+        self.total = int(total)
+        super().__init__(
+            f"output guard tripped on op {op!r} (backend {backend}, "
+            f"width {width}): {reason} [{self.bad}/{self.total} elements]")
 
 
 @dataclass(frozen=True)
@@ -267,6 +303,12 @@ def _autotune_mode() -> str:
     return "off" if v in ("0", "off", "") else "on"
 
 
+def _capturing() -> bool:
+    """Whether a CUDA graph is being captured on the current stream."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     """Cached per-(op, width, shape-buckets, backend, kwargs-sig) block
     choice, measured once: each candidate's call timed by CUDA events, the
@@ -281,8 +323,7 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     if cached is not None:
         return cached
     candidates = entry.block_candidates or (entry.default_block,)
-    capturing = (torch.cuda.is_available()
-                 and torch.cuda.is_current_stream_capturing())
+    capturing = _capturing()
     if len(candidates) < 2 or _autotune_mode() == "off":
         if not capturing:
             _AUTOTUNE_CACHE[key] = entry.default_block
@@ -304,6 +345,107 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     return best
 
 
+# ---------------------------------------------------------- output guard --
+def _int_values(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(``t`` as int64 values, its dtype's largest value): ``uint32`` lanes
+    through their int32 bit pattern, the one view every device has."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, 0xFFFFFFFF
+    return t.to(torch.int64), int(torch.iinfo(t.dtype).max)
+
+
+def _attention_vmax(name: str, tensors, kw) -> float:
+    """max |v| over what the attention call reads: ``attention``'s whole v;
+    ``decode_attention``'s valid cache rows and its new token."""
+    if name == "attention":
+        return float(tensors[2].abs().max())
+    from .decode_attention import history_valid
+
+    q, _, v_cache, _, v_new = tensors
+    Smax = v_cache.shape[1]
+    valid = history_valid(Smax, kw["pos"], kw["slot"],
+                          ring_full=kw.get("ring_full", False),
+                          window=kw.get("window", 0), device=q.device)
+    valid = valid.reshape(-1, Smax)[:, :, None, None]
+    rows = v_cache.abs().masked_fill(~valid, 0)
+    return max(float(rows.max()), float(v_new.abs().max()))
+
+
+def _guard_check(name: str, spec, backend: str, tensors, kw, out) -> None:
+    """Check one op output, the reference's rules, counts and reasons:
+    finite floats, integers inside the lane-derived range. The bounds are
+    loose by design — legitimate approximation error never approaches
+    them; only an upset datapath (or a real kernel bug) does. A call made
+    while a CUDA graph is being captured passes unchecked: its output has
+    no values yet."""
+    if _capturing():
+        return
+    total = out.numel()
+    w = int(spec.width)
+    frac = int(kw.get("frac_out", 0) or 0)
+
+    def trip(reason, bad):
+        raise GuardTripped(op=name, backend=backend, width=w,
+                           reason=reason, bad=bad, total=total)
+
+    def count(mask) -> int:
+        return int(mask.sum().item())
+
+    if out.is_floating_point():
+        nbad = total - count(torch.isfinite(out))
+        if nbad:
+            trip("non-finite output", nbad)
+    if name in ("attention", "decode_attention"):
+        # softmax-weighted rows are near-convex combinations of v; even
+        # with Mitchell's worst-case divider error they stay well under a
+        # few times max |v| — far under what a saturated quotient does
+        lim = 4.0 * max(_attention_vmax(name, tensors, kw), 1e-30)
+        nbad = count(out.abs().to(torch.float32) > lim)
+        if nbad:
+            trip(f"|output| exceeds {lim:.3g} (4x max |v|)", nbad)
+    elif name == "elemwise":
+        kind = kw.get("op", "mul")
+        o, sat = _int_values(out)        # sat: the divider's x/0 word
+        mul_lim = (1 << (2 * w)) - 1
+        div_lim = 1 << (w + frac)
+        if kind == "mul":
+            ok = o <= mul_lim
+        elif kind == "div":
+            ok = (o <= div_lim) | (o == sat)
+        else:                            # mixed: either bound + saturation
+            ok = (o <= max(mul_lim, div_lim)) | (o == sat)
+        nbad = total - count(ok)
+        if nbad:
+            trip(f"{kind} result outside the width-{w} lane range", nbad)
+        if kind in ("div", "mixed"):
+            # the datapath saturates to all-ones only on a zero
+            # denominator; a saturated quotient anywhere else is the
+            # signature of an upset correction table or log stage
+            den = _int_values(tensors[1])[0]
+            nbad = count((o == sat) & (den != 0))
+            if nbad:
+                trip("saturated quotient with nonzero denominator", nbad)
+            if kind == "div" and frac >= 4:
+                # a >= b > 0: the quotient is >= ~0.97 * 2^frac on every
+                # shipped config; 2^(frac-2) keeps a 4x margin, and an
+                # upset correction term collapses exactly these quotients
+                floor = 1 << (frac - 2)
+                num = _int_values(tensors[0])[0]
+                nbad = count((num >= den) & (den != 0) & (o < floor))
+                if nbad:
+                    trip(f"quotient below 2^{frac - 2} with ratio >= 1",
+                         nbad)
+    elif name in ("matmul_int", "matmul_emul"):
+        K = int(tensors[0].shape[-1])
+        lim = K * ((1 << w) - 1) ** 2
+        if lim < (1 << 63) - 1:
+            nbad = count(out.to(torch.int64).abs() > lim)
+            if nbad:
+                trip(f"|accumulator| exceeds K * (2^{w}-1)^2", nbad)
+    # 'packed': output words span the full uint32 range — the range check
+    # is vacuous, as in the reference
+
+
 @dataclass(frozen=True)
 class BoundOp:
     """An op bound to (spec, backend, launch shape) — callable."""
@@ -311,9 +453,17 @@ class BoundOp:
     spec: Any
     backend: str            # 'auto' | 'ref' | 'cuda'
     block: tuple | None     # None => autotuned / the registered default
+    guard: bool = False     # check every output (GuardTripped)
 
     def __call__(self, *tensors, **kw):
         backend = resolve_backend(self.backend, *tensors)
+        out = self._run(backend, tensors, kw)
+        if self.guard:
+            _guard_check(self.entry.name, self.spec, backend, tensors, kw,
+                         out)
+        return out
+
+    def _run(self, backend: str, tensors, kw):
         if backend == "ref":
             return self.entry.ref(*tensors, spec=self.spec, **kw)
         for t in tensors:
@@ -335,11 +485,13 @@ class BoundOp:
 
 
 def get_op(op: str, spec, backend: str = "auto", *,
-           block: tuple | None = None) -> BoundOp:
+           block: tuple | None = None, guard: bool = False) -> BoundOp:
     """Resolve ``op`` to a callable bound to ``spec``/``backend``/``block``.
 
     The returned :class:`BoundOp` takes the op's tensors plus per-call
     keywords (``op=``, ``mode=``, ``frac_out=``, ``k_chunk=``, ...).
+    ``guard=True`` checks every output and raises :class:`GuardTripped` on
+    a violation; a call under CUDA-graph capture passes unchecked.
     """
     _ensure_builtin_ops()
     entry = _REGISTRY.get(op)
@@ -353,4 +505,5 @@ def get_op(op: str, spec, backend: str = "auto", *,
         raise ValueError(f"op {op!r} takes no block=: its kernel is compiled "
                          "for one tile")
     return BoundOp(entry=entry, spec=spec, backend=backend,
-                   block=None if block is None else tuple(block))
+                   block=None if block is None else tuple(block),
+                   guard=guard)

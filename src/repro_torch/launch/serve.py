@@ -27,13 +27,19 @@ Throughput is measured, not guessed: everything reported goes through
 :func:`repro_torch.metrics.timing.time_callable` (warm-up, then
 device-synchronised repetitions).
 
+``--scheduler`` runs the continuous-batching load-shed drill instead
+(:mod:`repro_torch.launch.scheduler`): ``--requests`` prompts flood the
+queue, the ladder sheds to the Mitchell rung and recovers, and every rung's
+prefill and decode step are captured once at warmup on one shared serving
+cache (:meth:`DecodeStep.adopt_cache`, :func:`insert_cache`).
+
 Not ported yet, and therefore not accepted on the command line:
-``--policy``, ``--scheduler``, ``--chaos``.
+``--policy``, ``--chaos``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --approx simdive [--emulate [--quantize]] --batch 4 --prompt-len 512 \
-      --gen 32
+      --gen 32 [--scheduler [--requests 12]]
   (CPU smoke: add --smoke --device cpu)
 """
 from __future__ import annotations
@@ -119,6 +125,38 @@ def merge_cache(full: dict, cache: dict) -> dict:
     return out
 
 
+def insert_cache(full: dict, pre: dict, slots) -> dict:
+    """Scatter a ``(B, P)`` prefill cache into the serving cache at per-row
+    slot indices, **in place** (the reference's ``Scheduler._insert_impl``):
+    row ``j`` of every leaf of ``pre`` goes to row ``slots[j]`` of
+    ``full``'s, seq positions ``[0, P)``; a row whose index lies outside
+    ``[0, full's rows)`` (a padding row) is dropped. It runs eagerly,
+    outside any graph, so the captured decode steps that serve ``full``'s
+    buffers see the admission. A leaf that does not embed raises with its
+    path. Returns ``full``."""
+    if set(full) != set(pre):
+        raise ValueError(f"unmergeable cache: leaves {sorted(pre)} do not "
+                         f"match the serving cache's {sorted(full)}")
+    slots = [int(s) for s in np.asarray(slots).reshape(-1)]
+    for key, dst in full.items():
+        src = pre[key]
+        P = src.shape[2] if src.ndim >= 3 else 0
+        if not (dst.ndim >= 3 and src.ndim == dst.ndim
+                and dst.shape[0] == src.shape[0]
+                and src.shape[1] == len(slots) and dst.shape[2] >= P
+                and dst.shape[3:] == src.shape[3:]):
+            raise ValueError(
+                f"unmergeable cache leaf ['{key}']: prefill "
+                f"{tuple(src.shape)} at {len(slots)} slot index(es) vs "
+                f"serving cache {tuple(dst.shape)}")
+        rows = [(j, s) for j, s in enumerate(slots) if 0 <= s < dst.shape[1]]
+        if rows:
+            take = torch.tensor([j for j, _ in rows], device=src.device)
+            put = torch.tensor([s for _, s in rows], device=dst.device)
+            dst[:, put, :P] = src[:, take].to(dst.dtype)
+    return full
+
+
 # ------------------------------------------------------------ decode step --
 def decode_body(lm, params, cache, tok, pos):
     """One greedy decode step as the captured graph runs it: ``pos`` is a
@@ -199,12 +237,15 @@ class _Captured:
 
 
 class _Slot(_Captured):
-    """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache, token and
-    position buffers it owns, and the graph captured on them."""
+    """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache it serves
+    (its own, or one it adopted), the token and position buffers it owns,
+    and the graph captured on them."""
 
-    def __init__(self, lm, batch_size: int, max_seq: int):
+    def __init__(self, lm, batch_size: int, max_seq: int,
+                 cache: dict | None = None):
         super().__init__()
-        self.cache = lm.empty_cache(batch_size, max_seq)
+        self.cache = lm.empty_cache(batch_size, max_seq) if cache is None \
+            else cache
         self.tok = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
         self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
 
@@ -256,6 +297,9 @@ class DecodeStep(_GraphFn):
     then the capture, whose launches the counts give back, and the replay,
     which adds them (:func:`~repro_torch.kernels.registry.add_launches`).
     A capture that fails raises; the step never runs eagerly instead.
+    :meth:`adopt_cache` makes the step serve a cache it did not make (the
+    scheduler's one cache, shared by every rung's step) in place of its
+    own.
 
     On the CPU, which has no CUDA graph, it is ``lm.decode_step``, eager:
     the counterpart of the reference's jit without donation there.
@@ -278,6 +322,52 @@ class DecodeStep(_GraphFn):
             for buf in slot.cache.values():
                 buf.zero_()
         return dict(slot.cache)
+
+    def adopt_cache(self, cache: dict) -> dict:
+        """Serve ``cache``'s own buffers from now on: on the GPU the step's
+        slot for their ``(B, max_seq)`` takes them, with no copy, in place
+        of the buffers it held, and the next call captures its graph on
+        them (a slot that already serves them keeps its graph). So several
+        models' steps — the scheduler's rungs — replay on one cache, which
+        the caller writes between calls (:func:`insert_cache`). A cache
+        whose leaves are not this model's serving cache on its device
+        raises. On the CPU a step takes any cache, and this does nothing.
+        Returns ``cache``."""
+        lm = self.lm
+        if lm.device.type != "cuda":
+            return cache
+        k = cache.get("k")
+        if k is None or k.ndim < 3:
+            shapes = {n: tuple(v.shape) for n, v in cache.items()}
+            raise ValueError("adopt_cache takes a serving cache "
+                             f"(lm.empty_cache), got leaves {shapes}")
+        key = (k.shape[1], k.shape[2])
+        like = type(lm)(lm.cfg, torch.device("meta")).empty_cache(*key)
+        dev = lm.device
+
+        def fits(t, want):
+            return (t.shape == want.shape and t.dtype == want.dtype
+                    and t.device.type == dev.type and t.is_contiguous()
+                    and dev.index in (None, t.device.index))
+
+        if cache.keys() != like.keys() or not all(
+                fits(cache[n], t) for n, t in like.items()):
+            raise ValueError(
+                "adopt_cache: the cache is not this model's serving cache "
+                f"for (B, max_seq) = {key} on {lm.device}")
+        slot = self._slots.get(key)
+        if slot is None:
+            self._slots[key] = _Slot(lm, *key, cache=dict(cache))
+        elif not slot.owns(cache):
+            slot.cache = dict(cache)
+            slot.graph = slot.out = None       # captured on other buffers
+        return cache
+
+    def slot_cache(self, batch_size: int, max_seq: int) -> dict | None:
+        """The cache buffers the step's ``(batch_size, max_seq)`` slot
+        serves (None on the CPU or before the slot exists)."""
+        slot = self._slots.get((batch_size, max_seq))
+        return None if slot is None else dict(slot.cache)
 
     def __call__(self, params, cache, tok, pos):
         lm = self.lm
@@ -538,6 +628,45 @@ def serving_config(arch: str, *, smoke: bool = False, approx: str = "exact",
     return cfg
 
 
+def run_drill(cfg, params, args, rng) -> dict:
+    """``--scheduler``: the reference's load-shed drill, its lines printed
+    as the reference prints them. Returns the drill's stats."""
+    from repro_torch.launch.scheduler import Scheduler, default_ladder
+
+    sched = Scheduler(
+        cfg, params=params, levels=default_ladder(cfg.approx),
+        batch=args.batch, prompt_len=args.prompt_len,
+        max_seq=args.prompt_len + args.gen, shed_depth=args.shed_depth,
+        recover_depth=args.recover_depth, device=args.device)
+    warmed = sched.warmup()
+    captured = sum(f.captures for f in sched.prefills + sched.steps)
+    print(f"# scheduler: warmed {warmed} executable(s) across "
+          f"{len(sched.levels)} level(s), {captured} CUDA graph(s) "
+          "captured")
+    for _ in range(args.requests):
+        sched.submit(rng.integers(0, cfg.vocab_size, args.prompt_len,
+                                  dtype=np.int64), max_new=args.gen)
+    t0 = time.perf_counter()
+    stats = sched.run()
+    wall_s = time.perf_counter() - t0
+    during = sum(f.captures for f in sched.prefills + sched.steps) - captured
+    step_t = sched.measure_decode()
+    print(f"# drill: {stats['completed']} request(s) in "
+          f"{stats['ticks']} tick(s); tokens/level="
+          f"{stats['tokens_per_level']}; sheds={stats['sheds']} "
+          f"recovers={stats['recovers']}; "
+          f"{stats['tokens'] / wall_s:.1f} tok/s over {wall_s * 1e3:.1f}ms; "
+          f"{during} CUDA graph(s) captured during the drill")
+    print(f"# watchdog: guard_trips={stats['guard_trips']} "
+          f"quarantines={stats['quarantines']} "
+          f"retries={stats['retries']} "
+          f"timeouts={stats['timeouts']} failed={stats['failed']}")
+    print(f"decode step {step_t.best_s * 1e6:.0f}us best "
+          f"({step_t.items_per_s:.1f} tok/s steady-state, "
+          f"iters={step_t.iters}, synced)")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="batched prefill + greedy decode on the PyTorch/CUDA port")
@@ -561,6 +690,13 @@ def main(argv=None):
                     help="kernel backend of the approximate ops: 'auto' = "
                          "CUDA kernels for tensors on the GPU, plain "
                          "versions on the CPU")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="run the continuous-batching load-shed drill "
+                         "instead of a single batched generate")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="scheduler drill: how many requests to flood")
+    ap.add_argument("--shed-depth", type=int, default=4)
+    ap.add_argument("--recover-depth", type=int, default=1)
     args = ap.parse_args(argv)
 
     cfg = serving_config(args.arch, smoke=args.smoke, approx=args.approx,
@@ -571,6 +707,9 @@ def main(argv=None):
     if args.quantize:
         params = quantize_params(params)
     rng = np.random.default_rng(args.seed)
+    if args.scheduler:
+        run_drill(cfg, params, args, rng)
+        return
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len),
         dtype=np.int64)).to(lm.device)

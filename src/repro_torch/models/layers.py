@@ -154,7 +154,7 @@ def _flash_attention_kernel(q, k, v, *, causal, window, approx: ApproxConfig,
     kf = k.permute(0, 2, 1, 3).reshape(B * KVH, Skv, dh)
     vf = v.permute(0, 2, 1, 3).reshape(B * KVH, Skv, dh)
     _, _, frac_out = approx.resolve_attention()
-    out = get_op("attention", spec, backend)(
+    out = get_op("attention", spec, backend, guard=approx.guard)(
         qf, kf, vf, causal=causal, window=window,
         approx_div=_divider_on(approx), frac_out=frac_out,
         q_offset=q_offset, kv_group=G)
@@ -251,7 +251,8 @@ def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
     """
     spec, backend, frac_out = approx.resolve_attention()
     if resolve_backend(backend, q, k_cache, v_cache, k_new, v_new) == "cuda":
-        return get_op("decode_attention", spec, backend)(
+        op = get_op("decode_attention", spec, backend, guard=approx.guard)
+        return op(
             q, k_cache, v_cache, k_new, v_new, pos=pos, slot=slot,
             ring_full=ring_full, window=window,
             approx_div=_divider_on(approx), frac_out=frac_out)

@@ -13,6 +13,8 @@ gradients against ``jax.grad``. Also the dispatch, the registered blocks
 the block autotune (timed here with CPU callables standing in for kernels:
 no kernel runs on this host).
 """
+from dataclasses import replace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -276,12 +278,34 @@ def test_approx_matmul_inactive_and_approx_backward():
         out.sum().backward()
 
 
-def test_approx_config_guard_raises():
-    """Guarded dispatch (the reference's ``GuardTripped``) is not ported: the
-    config refuses it instead of ignoring it."""
-    with pytest.raises(NotImplementedError, match="guarded dispatch"):
-        t_approx.ApproxConfig(mode="simdive", guard=True)
+def test_approx_config_guard_raises(monkeypatch):
+    """Guarded dispatch (the reference's ``GuardTripped``): the config takes
+    ``guard=True``, a guarded linear equals the unguarded one on a clean
+    output, and raises ``GuardTripped`` when its matmul's accumulator
+    leaves the bound K (2^w - 1)^2 — here a plain version patched to
+    return one."""
     assert not t_approx.ApproxConfig(mode="simdive").guard
+    cfg = t_approx.ApproxConfig(mode="simdive", guard=True, backend="ref")
+    assert cfg.guard
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(3, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(32, 5)).astype(np.float32))
+    plain = t_approx.approx_matmul(x, w, replace(cfg, guard=False))
+    assert torch.equal(t_approx.approx_matmul(x, w, cfg), plain)
+    entry = get_op("matmul_emul", cfg.spec(), "ref").entry
+
+    def upset(qx, sx, qw, sw, *, spec, k_chunk):
+        acc = entry.ref(qx, sx, qw, sw, spec=spec, k_chunk=k_chunk)
+        acc[1, 2] = 32 * 255 ** 2 + 1
+        return acc
+
+    monkeypatch.setitem(registry._REGISTRY, "matmul_emul",
+                        replace(entry, ref=upset))
+    with pytest.raises(registry.GuardTripped, match="accumulator") as ei:
+        t_approx.approx_matmul(x, w, cfg)
+    assert (ei.value.op, ei.value.backend, ei.value.bad, ei.value.total) == \
+        ("matmul_emul", "ref", 1, 15)
+    t_approx.approx_matmul(x, w, replace(cfg, guard=False))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
