@@ -201,6 +201,42 @@ any phase fails. Phases:
               replay + insert), the warmup, the memory the six graphs
               hold, and the drill's launches per kernel (also in the
               kernels line, ``launches_drill``).
+7. faults   — the fault subsystem (``repro_torch.faults``) on the card,
+              after phase 6. (a) Every kernel against its plain version
+              under the same arming, for each of the campaign's
+              ``default_sites(op, width, full=True)`` for mul and div at
+              widths 8 and 16, a table flip at bits 30 and 31 and a log
+              flip at bit 31 for each, and the pack site
+              ``FaultSpec(site="pack", bit=7, width=16)``: ``elemwise``,
+              ``packed`` (against ``packed_word_op``) and ``logmatmul``
+              (the three registered blocks, both schedules, and a square
+              tile, which must refuse a log fault above bit 19 before
+              launching) ``torch.equal``; ``flash_attention`` (depth 0 and
+              ring), ``decode_attention`` and the finalize (bit for bit)
+              at the divider's serving spec within ``judge_attention``'s
+              tolerances, on inputs whose softmax sums are exact; every
+              output moved from its disarmed one exactly where the plain
+              version's did. (b) The fine and the shed rung's prefill and
+              decode step, captured disarmed: under the chaos fault, a
+              width-16 div table flip and a width-16 log fault, one replay
+              equals the eager call bit for bit and moves exactly where
+              the fault reaches the rung; disarmed, pristine again; no
+              capture; the tables keep their ``data_ptr``. (c)
+              ``faults.campaign.smoke(device="cuda")`` passes and
+              ``run_campaign`` on the card equals it on the CPU site for
+              site. (d) ``serve --chaos`` at full width: the scheduler
+              drill, scrub every tick, the chaos fault armed after the
+              first tick, 12 requests (8 with ``--emulate``): all
+              complete, none fails, at least one quarantine and one
+              retry, recovery tokens, a ``scrub-dirty`` event naming a
+              div table, no capture during the drill, captured equal to
+              eager event for event and token for token; printed: the
+              chaos drill's ms, ticks and tok/s, one scrub of the
+              ladder's tables (read-back included), ``set_faults`` arm and
+              disarm, and the drill's launches (also in the kernels line,
+              ``launches_chaos``). Last: nothing armed, and every kernel
+              at phase 3's main-path shapes bit-equal to its output
+              before phase 7.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -2812,7 +2848,7 @@ def measure_emulate(served_e, params, prompts):
 
 # --------------------------------------------------------- phase 6: drill --
 def _drill_scheduler(cfg, requests, *, params=None, eager=False,
-                     shed_depth=DRILL_SHED):
+                     shed_depth=DRILL_SHED, scrub_every=0):
     """The ``serve --scheduler`` drill's scheduler at full width, its
     queue filled with ``requests`` prompts drawn from seed 0 (the same
     prompts for every drill of this phase)."""
@@ -2822,7 +2858,7 @@ def _drill_scheduler(cfg, requests, *, params=None, eager=False,
     sched = Scheduler(cfg, params, levels=default_ladder(cfg.approx),
                       batch=BATCH, prompt_len=PROMPT, max_seq=PROMPT + GEN,
                       shed_depth=shed_depth, recover_depth=DRILL_RECOVER,
-                      seed=SEED, eager=eager)
+                      seed=SEED, eager=eager, scrub_every=scrub_every)
     rng = np.random.default_rng(SEED)
     for _ in range(requests):
         sched.submit(rng.integers(0, cfg.vocab_size, PROMPT), max_new=GEN)
@@ -3053,6 +3089,582 @@ def scheduler_drill(dev):
     return out
 
 
+# ------------------------------------------------------- phase 7: faults --
+def bits_equal(a, b) -> bool:
+    """``torch.equal`` on the bit patterns: NaN equals the same NaN (an
+    upset divider can drive later layers' floats out of range)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def fault_sites():
+    """Phase 7 (a)'s sites as (op, width, FaultSpec): the campaign's
+    ``default_sites(op, width, full=True)`` for mul and div at widths 8
+    and 16, a table flip at bits 30 and 31 and a log flip at bit 31 for
+    each (where the wrapping int32 sums of the anti-log differ from an
+    int64 carrier's), and the campaign's pack site."""
+    from repro_torch.faults.campaign import default_sites
+    from repro_torch.faults.inject import FaultSpec
+
+    out = []
+    for w in (8, 16):
+        for op in ("mul", "div"):
+            specs = list(default_sites(op, w, full=True))
+            for extra in (
+                    FaultSpec(site="table", bit=30, kind="flip", op=op,
+                              width=w),
+                    FaultSpec(site="table", bit=31, kind="flip", op=op,
+                              width=w),
+                    FaultSpec(site="log", bit=31, kind="flip", width=w)):
+                if extra not in specs:
+                    specs.append(extra)
+            out += [(op, w, s) for s in specs]
+    out.append(("mul", 8, FaultSpec(site="pack", bit=7, kind="flip",
+                                    width=16)))
+    return out
+
+
+def _fault_operands(dev):
+    """Seeded operands of phase 7 (a), made once: lanes and packed words at
+    widths 8 (the exhaustive square, zeros included) and 16 (65,536 pairs,
+    a divisor below 2^8 for div, zeros spliced in); logmatmul's signed
+    int32 (12, 512) @ (512, 384) at each width; attention inputs whose
+    softmax sums are exact (q = 0, so every score is 0 and p = 1; v small
+    integers), so that the kernels' (acc, l) equal the plain versions' and
+    the divider — the one stage a fault reaches — decides every
+    difference: with random inputs f32 summation order moves a quantized
+    divider operand by one unit on ~0.1 % of the elements, which an upset
+    coefficient turns into an arbitrary jump; and random (acc, l) for the
+    finalize alone, held bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core.simd_pack import pack
+    from repro_torch.metrics import grid8, sample_uints
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    ops = {}
+    a8, b8 = grid8(include_zero=True)
+    for w in (8, 16):
+        for op in ("mul", "div"):
+            if w == 8:
+                a, b = a8, b8
+            else:
+                a, b = sample_uints(16, 65536, SEED,
+                                    b_width=8 if op == "div" else 16)
+                a, b = a.copy(), b.copy()
+                a[:3], b[:3] = (0, 7, 0), (5, 0, 0)
+            at = torch.from_numpy(a.astype(np.int64)).to(dev)
+            bt = torch.from_numpy(b.astype(np.int64)).to(dev)
+            ops[op, w] = dict(a=at, b=bt, aw=pack(at, w), bw=pack(bt, w))
+    for w in (8, 16):
+        hi = (1 << w) - 1
+        ops["mm", w] = dict(
+            x=torch.randint(-hi, hi + 1, (12, 512), generator=gen,
+                            device=dev, dtype=torch.int32),
+            w=torch.randint(-hi, hi + 1, (512, 384), generator=gen,
+                            device=dev, dtype=torch.int32))
+    bf16 = torch.bfloat16
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen,
+                             device=dev).to(bf16)
+
+    ops["flash"] = dict(
+        q=torch.zeros(6, 128, 64, device=dev, dtype=bf16),
+        k=torch.randn(2, 128, 64, generator=gen, device=dev).to(bf16),
+        v=ints(2, 128, 64))
+    ops["decode"] = dict(
+        q=torch.zeros(4, 2, 3, 64, device=dev, dtype=bf16),
+        kc=torch.randn(4, 128, 2, 64, generator=gen, device=dev).to(bf16),
+        vc=ints(4, 128, 2, 64),
+        kn=torch.randn(4, 1, 2, 64, generator=gen, device=dev).to(bf16),
+        vn=ints(4, 1, 2, 64),
+        pos=torch.tensor([0, 37, 64, 127], device=dev))
+    ops["finalize"] = dict(
+        acc=torch.randn(768, 64, generator=gen, device=dev) * 3,
+        l=torch.rand(768, generator=gen, device=dev) * 40 + 0.5)
+    return ops
+
+
+def fault_kernels(dev) -> dict:
+    """Phase 7 (a): every kernel against its plain version under each of
+    :func:`fault_sites`, the same arming for both. ``elemwise`` and
+    ``packed`` (against ``packed_word_op``, the kernel body as a plain
+    function, which fires the pack hook) run every site at its op and
+    width; ``logmatmul`` (the three registered blocks, both schedules, and
+    the 64 x 64 square tile) every site listed under mul; the attention
+    kernels (``flash_attention`` depth 0 and ring, ``decode_attention``,
+    the finalize alone) every width-16 site listed under div, at the
+    divider's serving spec. Integers ``torch.equal``; attention within
+    ``judge_attention``'s tolerances, the finalize bit for bit. Each
+    kernel's output must have moved from its disarmed output exactly
+    where the plain version's did. A square tile under a log fault above
+    its operand word's bits must refuse before launching. Returns the
+    counts."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.faults.inject import fault_injection
+    from repro_torch.kernels import datapath as dp
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import elemwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import logmatmul as lm_k
+    from repro_torch.kernels import packed_simd as ps
+    from repro_torch.metrics import DIV_FRAC_OUT, PACKED_DIV_FRAC_OUT
+
+    ops = _fault_operands(dev)
+    serving = SimdiveSpec(width=16, coeff_bits=6)
+    square = SQUARE_BLOCKS[0]
+
+    def cb(w):
+        return 6 if w == 8 else 8
+
+    def run_elemwise(op, w):
+        spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops[op, w]
+        fo = DIV_FRAC_OUT if op == "div" else 0
+        return (ew.elemwise_cuda(o["a"], o["b"], spec, op=op, frac_out=fo),
+                ew.elemwise_ref(o["a"], o["b"], spec, op=op, frac_out=fo))
+
+    def run_packed(op, w):
+        spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops[op, w]
+        fo = (PACKED_DIV_FRAC_OUT if w == 8 else DIV_FRAC_OUT) \
+            if op == "div" else 0
+        tab = dp.op_table(op, w, spec.coeff_bits, spec.index_bits,
+                          device=dev)
+        return (ps.packed_cuda(o["aw"], o["bw"], spec, op=op, frac_out=fo),
+                ps.packed_word_op(o["aw"], o["bw"], tab, spec=spec, op=op,
+                                  frac_out=fo))
+
+    def run_matmul(w, block):
+        spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops["mm", w]
+        return lm_k.logmatmul_cuda(o["x"], o["w"], spec, block=block)
+
+    def matmul_ref(w):
+        spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops["mm", w]
+        return lm_k.logmatmul_ref(o["x"], o["w"], spec)
+
+    def run_attention():
+        f, d, z = ops["flash"], ops["decode"], ops["finalize"]
+        kw = dict(spec=serving, approx_div=True, causal=True, kv_group=3)
+        dkw = dict(pos=d["pos"], slot=d["pos"], spec=serving,
+                   approx_div=True, frac_out=15)
+        tab = dp.op_table("div", 16, serving.coeff_bits, serving.index_bits,
+                          device=dev)
+        got = {"flash": fa.flash_attention_cuda(f["q"], f["k"], f["v"],
+                                                block=fa.DEFAULT_BLOCK, **kw),
+               "flash_ring": fa.flash_attention_cuda(
+                   f["q"], f["k"], f["v"], block=ATTENTION_RING_BLOCK, **kw),
+               "decode": da.decode_attention_cuda(
+                   d["q"], d["kc"], d["vc"], d["kn"], d["vn"], **dkw),
+               "finalize": fa.softmax_div_cuda(
+                   z["acc"], z["l"], spec=serving, frac_out=15)[0]}
+        flash_want = fa.flash_attention_ref(f["q"], f["k"], f["v"], **kw)
+        want = {"flash": flash_want, "flash_ring": flash_want,
+                "decode": da.decode_attention_ref(
+                    d["q"], d["kc"], d["vc"], d["kn"], d["vn"], **dkw),
+                "finalize": fa.softmax_div(
+                    z["acc"], z["l"], tab, width=16,
+                    index_bits=serving.index_bits, frac_out=15,
+                    round_out=serving.round_output)}
+        return got, want
+
+    base = {}
+    for op in ("mul", "div"):
+        for w in (8, 16):
+            base["elemwise", op, w] = run_elemwise(op, w)
+            base["packed", op, w] = run_packed(op, w)
+    for w in (8, 16):
+        base["matmul_ref", w] = matmul_ref(w)
+        for block in (*lm_k.BLOCK_CANDIDATES, square):
+            base["matmul", w, block] = run_matmul(w, block)
+    base["attention"] = run_attention()
+    torch.cuda.synchronize()
+
+    stats = {"sites": 0, "checks": 0, "changed": {}, "refused": 0}
+
+    def held(name, got, want, got0, want0, *, approx=False):
+        if approx:
+            judge_attention(f"{name} under {spec}", got, want,
+                            torch.bfloat16, True)
+        else:
+            require(bits_equal(got, want),
+                    f"{name} under {spec}: the kernel differs from its plain "
+                    f"version on {int((got != want).sum())} outputs")
+        moved = not bits_equal(want, want0)
+        require(moved == (not bits_equal(got, got0)),
+                f"{name} under {spec}: the plain version's output "
+                f"{'moved' if moved else 'stayed'} from its disarmed one, "
+                "the kernel's did not")
+        stats["checks"] += 1
+        stats["changed"][name] = stats["changed"].get(name, 0) + int(moved)
+
+    for op, w, spec in fault_sites():
+        stats["sites"] += 1
+        with fault_injection(spec):
+            got, want = run_elemwise(op, w)
+            held("elemwise", got, want, *base["elemwise", op, w])
+            got, want = run_packed(op, w)
+            held("packed", got, want, *base["packed", op, w])
+            if op == "mul":
+                want = matmul_ref(w)
+                for block in (*lm_k.BLOCK_CANDIDATES, square):
+                    try:
+                        got = run_matmul(w, block)
+                    except ValueError:
+                        require(block == square and spec.site == "log"
+                                and spec.bit >= 20,
+                                f"logmatmul {block} refused {spec}")
+                        stats["refused"] += 1
+                        continue
+                    name = ("logmatmul" if not lm_k.split_block(block)[2]
+                            else "logmatmul_pipelined")
+                    if block == square:
+                        name = "logmatmul_square"
+                    held(name, got, want, base["matmul", w, block],
+                         base["matmul_ref", w])
+            if op == "div" and w == 16:
+                got, want = run_attention()
+                got0, want0 = base["attention"]
+                for name in got:
+                    held(name, got[name], want[name], got0[name],
+                         want0[name], approx=name != "finalize")
+        torch.cuda.synchronize()
+    require(stats["refused"] > 0, "no square logmatmul tile refused a log "
+                                  "fault above bit 19")
+    log(f"  (a) {stats['sites']} sites, {stats['checks']} kernel-vs-plain "
+        f"checks under the same arming, all held; outputs moved at "
+        f"{stats['changed']} sites; the square tile refused "
+        f"{stats['refused']} log fault(s) above its 20-bit log field")
+    return stats
+
+
+def _serve_outputs(fn, *args):
+    """The logits a served call returns, cloned (a graph's buffer is
+    rewritten by its next replay)."""
+    return fn(*args)[0].clone()
+
+
+def fault_graphs(dev, params) -> dict:
+    """Phase 7 (b): captured graphs see an arming without a capture. For
+    the divider-only path's fine rung (coeff_bits 6) and the scheduler's
+    shed rung (Mitchell, coeff_bits 0), the prefill and the decode step
+    are captured disarmed; then, for the chaos drill's table fault, the
+    campaign's width-16 div table flip at bit 20 and a persistent
+    width-16 log fault in turn, one replay of each under the arming
+    equals the eager call bit for bit, and moves from the pristine replay
+    exactly where the fault reaches what the graph reads: a log fault
+    always, a table fault when the scrub finds the rung's div table
+    upset (the chaos fault, a stuck-1 at bit 20, leaves every
+    coefficient-6 entry as it is — all are negative, bit 20 already set —
+    and upsets all 64 zero entries of Mitchell's). After the disarm every
+    replay equals the pristine one bit for bit; no graph captures again
+    and the div tables keep their ``data_ptr``."""
+    import torch
+    from repro_torch.core.error_lut import table_for
+    from repro_torch.faults.inject import FaultSpec, set_faults
+    from repro_torch.faults.scrub import scrub_tables
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import coarse_step
+    from repro_torch.models import build
+
+    cfg = serve.serving_config(ARCH, approx="simdive")
+    max_seq = PROMPT + GEN
+    gen = torch.Generator().manual_seed(SEED + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                     generator=gen).to(dev)}
+    specs = (("chaos", FaultSpec(site="table", bit=20, kind="stuck1",
+                                 op="div")),
+             ("table flip", FaultSpec(site="table", bit=20, kind="flip",
+                                      op="div", width=16)),
+             ("log", FaultSpec(site="log", bit=8, kind="stuck1", width=16)))
+    out = {}
+    for rung, approx in (("fine", cfg.approx),
+                         ("shed", coarse_step(cfg.approx))):
+        lm = build(cfg.with_approx(approx))
+        div = approx.resolve_attention()[0]
+        ident = ("div", div.width, div.coeff_bits, div.index_bits)
+        tab = table_for(*ident, device=dev, dtype=torch.int32)
+        ptr = tab.data_ptr()
+        step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
+        lg, pre = pstep(params, batch)
+        pre0 = {k: v.clone() for k, v in pre.items()}
+        tok = lg.argmax(-1)
+        own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre0)
+        step(params, own, tok, PROMPT)
+        torch.cuda.synchronize()
+        caps = (pstep.captures, step.captures)
+
+        def replay():
+            return (_serve_outputs(pstep, params, batch),
+                    _serve_outputs(step, params, own, tok, PROMPT))
+
+        pristine = replay()
+        for name, spec in specs:
+            set_faults([spec])
+            try:
+                reached = spec.site != "table" or bool(scrub_tables([ident]))
+                got = replay()
+                cache = serve.merge_cache(lm.empty_cache(BATCH, max_seq),
+                                          pre0)
+                eager = (lm.prefill(params, batch)[0],
+                         lm.decode_step(params, cache, tok, PROMPT)[0])
+                torch.cuda.synchronize()
+            finally:
+                set_faults([])
+            again = replay()
+            torch.cuda.synchronize()
+            for i, what in enumerate(("prefill", "decode step")):
+                require(bits_equal(got[i], eager[i]),
+                        f"(b) {rung} rung, {name} fault: the captured "
+                        f"{what}'s replay differs from the eager call under "
+                        "the same arming")
+                require((not bits_equal(got[i], pristine[i])) == reached,
+                        f"(b) {rung} rung, {name} fault: the captured "
+                        f"{what}'s replay {'did not move' if reached else 'moved'}"
+                        f" from the pristine one, yet the fault "
+                        f"{'reaches' if reached else 'does not reach'} it")
+                require(bits_equal(again[i], pristine[i]),
+                        f"(b) {rung} rung, {name} fault: after the disarm the "
+                        f"captured {what} is not pristine again")
+            out[f"{rung} {name}"] = int((got[1] != pristine[1]).sum())
+        require((pstep.captures, step.captures) == caps,
+                f"(b) {rung} rung: captures {caps} -> "
+                f"{(pstep.captures, step.captures)}: an arming made a graph "
+                "capture again")
+        require(table_for(*ident, device=dev, dtype=torch.int32).data_ptr()
+                == ptr == tab.data_ptr(),
+                f"(b) {rung} rung: the div table's tensor moved")
+        del lm, step, pstep, pre, pre0, own
+    log(f"  (b) captured prefill and decode step of the fine and the shed "
+        f"rung: under each arming one replay equals the eager call bit for "
+        f"bit and moves exactly where the fault reaches the rung (step "
+        f"logits moved: {out}); disarmed, bit-equal to pristine; no "
+        "capture; the div tables' data_ptr unchanged")
+    return out
+
+
+def fault_campaign(dev) -> dict:
+    """Phase 7 (c): ``faults.campaign.smoke`` on the card passes, and
+    ``run_campaign`` gives on the card, site for site, the ``SiteResult``s
+    it gives on the CPU."""
+    from repro_torch.faults import campaign
+
+    lines = []
+    require(campaign.smoke(report=lines.append, device="cuda"),
+            "(c) the campaign smoke failed on the card: " + "; ".join(lines))
+    card = campaign.run_campaign(device="cuda", report=lambda _: None)
+    host = campaign.run_campaign(device="cpu", report=lambda _: None)
+    require(card["sites"] == host["sites"],
+            "(c) the campaign's sites differ between the card and the CPU: "
+            + "; ".join(f"{a} != {b}" for a, b in
+                        zip(card["sites"], host["sites"]) if a != b))
+    s = card["summary"]
+    log(f"  (c) campaign smoke PASS on the card; run_campaign on the card "
+        f"== on the CPU at all {s['n_sites']} sites ({s['guard_trips']} "
+        f"guard trips, {s['table_scrub_detected']} of {s['table_sites']} "
+        "table sites scrubbed)")
+    return s
+
+
+def run_chaos(name, sched, requests) -> dict:
+    """Warm ``sched`` (scrub every tick), take one tick, arm the chaos
+    drill's fault, run to the end, disarm — the launch counts zeroed just
+    before and read just after — and hold it to the drill's gates: the
+    reference's four rules, a retry, a ``scrub-dirty`` event naming a div
+    table, no capture during the drill."""
+    import torch
+    from repro_torch.faults.inject import FaultSpec, set_faults
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import CHAOS_SPEC, chaos_violations
+
+    sched.warmup()
+    caps = _captures(sched)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.step()
+    set_faults([FaultSpec(**CHAOS_SPEC)])
+    try:
+        stats = sched.run()
+    finally:
+        set_faults([])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require(_captures(sched) == caps,
+            f"chaos {name}: captures {caps} -> {_captures(sched)} during "
+            "the drill")
+    bad = chaos_violations(stats, requests)
+    require(not bad, f"chaos {name}: " + "; ".join(bad))
+    require(stats["retries"] >= 1, f"chaos {name}: no retry")
+    dirty = [v for _, k, v in stats["events"] if k == "scrub-dirty"]
+    require(bool(dirty) and dirty[0].startswith("div"),
+            f"chaos {name}: scrub-dirty events {dirty}")
+    log(f"  chaos {name}: {stats['completed']} requests, {stats['ticks']} "
+        f"ticks, quarantines {stats['quarantines']}, retries "
+        f"{stats['retries']}, tokens {stats['tokens_per_level']}, in "
+        f"{wall_s * 1e3:.1f} ms ({stats['tokens'] / wall_s:.1f} tok/s); "
+        f"scrub-dirty: {dirty[0]}; launches {counts}")
+    return dict(stats=stats, wall_ms=wall_s * 1e3, counts=counts,
+                tok_per_s=stats["tokens"] / wall_s)
+
+
+def chaos_drill(dev, params) -> dict:
+    """Phase 7 (d): ``serve --chaos`` at full width — the scheduler drill
+    with the table scrub every tick and the chaos fault armed after the
+    first tick — captured and eager (events and tokens equal), divider
+    only (12 requests) and ``--emulate`` (8); then the cost of one scrub
+    of the ladder's tables (read-back included) and of arming and
+    disarming."""
+    import gc
+    import torch
+    from repro_torch.faults.inject import FaultSpec, set_faults
+    from repro_torch.faults.scrub import scrub_tables
+    from repro_torch.launch import serve
+
+    serve.make_prefill.cache_clear()
+    serve.make_decode_step.cache_clear()
+    gc.collect()
+    out = {}
+    for tag, emulate, requests in (("", False, DRILL_REQUESTS),
+                                   ("emulate_", True,
+                                    DRILL_EMULATE_REQUESTS)):
+        cfg = serve.serving_config(ARCH, approx="simdive", emulate=emulate)
+        sched = _drill_scheduler(cfg, requests, params=params, scrub_every=1)
+        c = run_chaos(f"{tag}captured", sched, requests)
+        eager = _drill_scheduler(cfg, requests, params=params, eager=True,
+                                 scrub_every=1)
+        e = run_chaos(f"{tag}eager", eager, requests)
+        require(e["stats"]["events"] == c["stats"]["events"]
+                and _drill_tokens(eager) == _drill_tokens(sched),
+                f"chaos {tag}: the captured drill's events or tokens differ "
+                "from the eager drill's")
+        log(f"  chaos {tag or 'divider'}: captured == eager, event for event "
+            "and token for token")
+        out.update({f"chaos_{tag}ms": c["wall_ms"],
+                    f"chaos_{tag}ticks": c["stats"]["ticks"],
+                    f"chaos_{tag}tok_per_s": c["tok_per_s"],
+                    f"chaos_{tag}eager_ms": e["wall_ms"],
+                    f"chaos_{tag}quarantines": c["stats"]["quarantines"],
+                    f"chaos_{tag}retries": c["stats"]["retries"]})
+        out[f"launches_chaos{'_' + tag[:-1] if tag else ''}"] = c["counts"]
+        if not emulate:
+            idents = sched._scrub_idents
+            scrub_tables(idents)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                scrub_tables(idents)
+            out["scrub_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            spec = FaultSpec(**serve.CHAOS_SPEC)
+            arm, disarm = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                set_faults([spec])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                set_faults([])
+                torch.cuda.synchronize()
+                arm.append(t1 - t0)
+                disarm.append(time.perf_counter() - t1)
+            out["set_faults_arm_ms"] = min(arm) * 1e3
+            out["set_faults_disarm_ms"] = min(disarm) * 1e3
+            log(f"  one scrub of the ladder's {len(idents)} table "
+                f"identities ({idents}), read-back included: "
+                f"{out['scrub_ms']:.3f} ms; set_faults arm "
+                f"{out['set_faults_arm_ms']:.3f} ms, disarm "
+                f"{out['set_faults_disarm_ms']:.3f} ms (best of 5, "
+                "synchronised)")
+        del sched, eager
+        gc.collect()
+    return out
+
+
+def main_shape_outputs(dev) -> dict:
+    """Each kernel once at phase 3's main-path shapes on seeded inputs
+    (elemwise: measure_error's 8-bit square, div; attention: the prefill's
+    q (60, 512, 64), kv (20, 512, 64) bf16, both schedules;
+    decode_attention: q (4, 5, 3, 64), caches (4, 544, 5, 64), pos 527;
+    logmatmul: wq's (960, 960) at M = 4 and 2048, both schedules; packed:
+    (17280, 960) words, mul), for phase 7's closing check."""
+    import numpy as np
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import elemwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import logmatmul as lm_k
+    from repro_torch.kernels import packed_simd as ps
+    from repro_torch.metrics import DIV_FRAC_OUT, grid8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    serving = SimdiveSpec(width=16, coeff_bits=6)
+    w8 = SimdiveSpec(width=8, coeff_bits=6)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    a, b = (torch.from_numpy(x.astype(np.int64)).to(dev) for x in grid8())
+    out = {"elemwise": ew.elemwise_cuda(a, b, w8, op="div",
+                                        frac_out=DIV_FRAC_OUT)}
+    q, k, v = randn(60, 512, 64), randn(20, 512, 64), randn(20, 512, 64)
+    for name, block in (("attention", fa.DEFAULT_BLOCK),
+                        ("attention_ring", ATTENTION_RING_BLOCK)):
+        out[name] = fa.flash_attention_cuda(
+            q, k, v, spec=serving, approx_div=True, causal=True, kv_group=3,
+            block=block)
+    out["decode_attention"] = da.decode_attention_cuda(
+        randn(4, 5, 3, 64), randn(4, 544, 5, 64), randn(4, 544, 5, 64),
+        randn(4, 1, 5, 64), randn(4, 1, 5, 64), pos=527, slot=527,
+        spec=serving, approx_div=True, frac_out=15)
+    wq = torch.randint(-255, 256, (960, 960), generator=gen, device=dev,
+                       dtype=torch.int32)
+    for M in (4, 2048):
+        x = torch.randint(-255, 256, (M, 960), generator=gen, device=dev,
+                          dtype=torch.int32)
+        for name, block in (("logmatmul", lm_k.DEFAULT_BLOCK),
+                            ("logmatmul_ring", MATMUL_RING_BLOCK)):
+            out[f"{name}_M{M}"] = lm_k.logmatmul_cuda(x, wq, w8, block=block)
+    words = torch.randint(0, 1 << 32, PACKED_SIZES["full"], generator=gen,
+                          device=dev, dtype=torch.int64)
+    out["packed"] = ps.packed_cuda(words, words.flip(-1), w8, op="mul")
+    torch.cuda.synchronize()
+    return out
+
+
+def fault_phase(dev, params) -> dict:
+    """Phase 7: the fault subsystem on the card — (a) every kernel against
+    its plain version under each armed site, (b) captured graphs seeing
+    an arming without a capture, (c) the campaign on the card against the
+    CPU, (d) the chaos drill at full width — closed by a check that
+    nothing is armed and that phase 3's main-path shapes give their
+    disarmed outputs again, bit for bit."""
+    from repro_torch.faults.inject import active_faults
+
+    before = main_shape_outputs(dev)
+    out = {"fault_kernel_checks": fault_kernels(dev)["checks"]}
+    out["fault_graph_step_moved"] = fault_graphs(dev, params)
+    out["campaign"] = fault_campaign(dev)
+    out.update(chaos_drill(dev, params))
+    require(active_faults() == (), f"phase 7 left {active_faults()} armed")
+    after = main_shape_outputs(dev)
+    moved = [k for k in before if not bits_equal(before[k], after[k])]
+    require(not moved, f"after phase 7 disarmed, {moved} differ from their "
+                       "outputs before it")
+    log(f"  disarmed: {len(before)} main-path kernel outputs bit-equal to "
+        "theirs before phase 7")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3074,13 +3686,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/6] device: {card} | torch {torch.__version__} "
+    log(f"[1/7] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/6] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/7] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -3095,7 +3707,7 @@ def main(argv=None) -> int:
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
 
-    log("[3/6] kernels vs plain versions")
+    log("[3/7] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -3103,7 +3715,7 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/6] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/7] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -3115,7 +3727,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/6] times")
+    log("[5/7] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -3135,10 +3747,14 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/6] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/7] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
+
+    log("[7/7] faults: every kernel under each armed site, captured graphs, "
+        "the campaign on the card, serve --chaos at full width")
+    faults = fault_phase(dev, served["params"])
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -3202,6 +3818,11 @@ def main(argv=None) -> int:
                                      for n in names)
         kern["launches_drill_emulate"] = sum(
             drill["drill_emulate_launches"][n] for n in names)
+        # the chaos drills (phase 7 (d)), likewise zeroed and read
+        kern["launches_chaos"] = sum(faults["launches_chaos"][n]
+                                     for n in names)
+        kern["launches_chaos_emulate"] = sum(
+            faults["launches_chaos_emulate"][n] for n in names)
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -3211,7 +3832,7 @@ def main(argv=None) -> int:
             "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
-    for key, val in drill.items():
+    for key, val in (*drill.items(), *faults.items()):
         log(f"  {key}: {val if isinstance(val, dict) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     log(f"  total {total_s:.1f}s")
@@ -3230,6 +3851,7 @@ def main(argv=None) -> int:
             "emulate_path": {k: v for k, v in served_e.items()
                              if k != "lm"},
             "logmatmul_shapes": mm_shapes, "drill": drill,
+            "faults": faults,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

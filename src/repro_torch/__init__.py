@@ -10,4 +10,5 @@ This package imports ``torch`` and ``numpy`` only: never ``jax``, and
 nothing from ``repro``.
 """
 
-__all__ = ["core", "kernels", "configs", "models", "launch", "metrics"]
+__all__ = ["core", "kernels", "configs", "models", "launch", "metrics",
+           "faults"]

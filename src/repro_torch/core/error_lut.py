@@ -23,6 +23,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.faults.inject import (
+    apply_lane_faults,
+    apply_table_faults,
+    faults_enabled,
+)
+
 from .mitchell import frac_bits
 
 __all__ = [
@@ -32,6 +38,8 @@ __all__ = [
     "build_table_clean",
     "table_for",
     "region_index",
+    "refresh_tables",
+    "materialized_tables",
     "apply_table_faults",
     "apply_lane_faults",
 ]
@@ -87,19 +95,6 @@ def build_table_clean(op: str, width: int, coeff_bits: int,
     return _build_table_impl(op, width, coeff_bits, index_bits)
 
 
-def apply_table_faults(tab: np.ndarray, *, op: str, width: int) -> np.ndarray:
-    """Seam for the fault-injection subsystem (not ported yet): table
-    upsets will corrupt a copy here. Disarmed, the table passes through."""
-    return tab
-
-
-def apply_lane_faults(x: torch.Tensor, *, site: str,
-                      width: int) -> torch.Tensor:
-    """Seam for the fault-injection subsystem (not ported yet): lane
-    upsets on a stage's output register. Disarmed, a no-op."""
-    return x
-
-
 def build_table(op: str, width: int, coeff_bits: int,
                 index_bits: int = 3) -> np.ndarray:
     """Region-mean correction table as int32 in units of 2^-F.
@@ -112,30 +107,64 @@ def build_table(op: str, width: int, coeff_bits: int,
     index_bits  : MSBs of each fraction used for the region index (3 = the
                   paper's 64 regions, 4 = the 256-region variant)
 
-    The single point every consumer reads tables through.
+    The single point every consumer reads tables through, so it is also
+    where :mod:`repro_torch.faults` upsets configuration memory: armed
+    table faults corrupt a *copy* after the cached pristine build.
+    Disarmed, the cached array is returned as it is.
     """
     tab = _build_table_impl(op, width, coeff_bits, index_bits)
-    return apply_table_faults(tab, op=op, width=width)
+    if faults_enabled():
+        tab = apply_table_faults(tab, op=op, width=width)
+    return tab
 
 
-@lru_cache(maxsize=None)
-def _table_on(op: str, width: int, coeff_bits: int, index_bits: int,
-              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+# (op, width, coeff_bits, index_bits, device, dtype) -> the one tensor every
+# consumer on that device reads: the registry refresh_tables rewrites
+_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def _materialize(key: tuple) -> torch.Tensor:
+    op, width, coeff_bits, index_bits, _, dtype = key
     return torch.from_numpy(
-        build_table(op, width, coeff_bits, index_bits).copy()
-    ).to(device=device, dtype=dtype)
+        build_table(op, width, coeff_bits, index_bits).astype(np.int64)
+    ).to(dtype)
 
 
 def table_for(op: str, width: int, coeff_bits: int, index_bits: int = 3, *,
               device: torch.device | str = "cpu",
               dtype: torch.dtype = torch.int64) -> torch.Tensor:
-    """Tensor copy of :func:`build_table` on ``device`` (cached per device).
+    """Tensor copy of :func:`build_table` on ``device``, one per (table,
+    device, dtype), materialized at first use and the same tensor object
+    — the same ``data_ptr`` — for as long as the process lives: an arming
+    rewrites it in place (:func:`refresh_tables`), so the kernels and the
+    CUDA graphs that hold its address read the armed table.
 
     The plain datapath gathers from an ``int64`` table (the carrier's
     dtype); the CUDA kernels read an ``int32`` one.
     """
-    return _table_on(op, width, coeff_bits, index_bits,
-                     torch.device(device), dtype)
+    key = (op, width, coeff_bits, index_bits, torch.device(device), dtype)
+    tab = _TABLES.get(key)
+    if tab is None:
+        tab = _TABLES[key] = _materialize(key).to(key[4])
+    return tab
+
+
+def materialized_tables() -> dict[tuple, torch.Tensor]:
+    """Every table tensor :func:`table_for` has handed out, by (op, width,
+    coeff_bits, index_bits, device, dtype): the memory the plain versions
+    and the kernels read, which the scrub reads back."""
+    return dict(_TABLES)
+
+
+def refresh_tables() -> None:
+    """Rewrite every materialized table from :func:`build_table` under the
+    current arming, in place (``copy_`` on the current stream). All new
+    contents are built before the first write, so a fault that cannot
+    reach a table (an ``index`` past its end) raises with every table
+    unchanged."""
+    new = [(t, _materialize(key)) for key, t in _TABLES.items()]
+    for t, src in new:
+        t.copy_(src)
 
 
 def region_index(x1_fp: torch.Tensor, x2_fp: torch.Tensor, width: int,

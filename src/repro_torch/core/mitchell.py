@@ -36,6 +36,7 @@ __all__ = [
     "as_carrier",
     "to_lanes",
     "from_lanes",
+    "wrap_int32",
     "leading_one",
     "mitchell_log",
     "mitchell_antilog_mul",
@@ -106,6 +107,13 @@ def to_lanes(x: torch.Tensor) -> torch.Tensor:
     return (((x + half) & BUS_MASK) - half).to(torch.int32).view(torch.uint32)
 
 
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """Carrier values reduced to the int32 they wrap to (two's complement):
+    the reference's int32 arithmetic, which wraps mod 2^32."""
+    half = 1 << 31
+    return ((x + half) & BUS_MASK) - half
+
+
 def leading_one(a: torch.Tensor) -> torch.Tensor:
     """Position of the leading one bit (floor(log2 a)); 0 for a == 0.
 
@@ -150,10 +158,17 @@ def mitchell_antilog_mul(l1: torch.Tensor, l2: torch.Tensor, width: int,
                          corr: torch.Tensor | None = None,
                          round_out: bool = False) -> torch.Tensor:
     """Product anti-log of two log values (+ optional signed correction,
-    added in the same ternary add and clipped at zero)."""
+    added in the same ternary add and clipped at zero).
+
+    The sums wrap as the reference's do: ``l1 + l2`` mod 2^32 (uint32),
+    then the correction added in int32 and clipped at zero. In-range
+    operands never wrap; an upset log value or table entry
+    (:mod:`repro_torch.faults`) can."""
     ls = l1 + l2
     if corr is not None:
-        ls = (ls + corr.to(torch.int64)).clamp_(min=0)
+        ls = wrap_int32(ls + corr.to(torch.int64)).clamp_(min=0)
+    else:
+        ls = ls & BUS_MASK
     return _antilog_floor(ls, width, round_out=round_out)
 
 
@@ -162,12 +177,14 @@ def mitchell_antilog_div(l1: torch.Tensor, l2: torch.Tensor, width: int,
                          frac_out: int = 0,
                          round_out: bool = False) -> torch.Tensor:
     """Quotient anti-log ``round_down(Q * 2^frac_out)``. The signed
-    subtraction realizes the borrow case; both shift directions are
+    subtraction realizes the borrow case, in the reference's int32, which
+    wraps (only upset operands reach that far); both shift directions are
     clipped to 31 like the reference's 32-bit barrel shifter."""
     F = frac_bits(width)
     ls = l1 - l2
     if corr is not None:
         ls = ls + corr.to(torch.int64)
+    ls = wrap_int32(ls)
     I = ls >> F                                # arithmetic: floors
     mant = (ls & ((1 << F) - 1)) + (1 << F)    # 1.Xs, always positive
     sh = I + (frac_out - F)                    # total shift of the mantissa

@@ -16,6 +16,16 @@ compiler's output; nothing falls back to the plain versions.
 Each C entry launches on the stream it is given, returns
 ``cudaGetLastError()`` and never synchronises; :func:`check` turns a
 non-zero code into an exception.
+
+**The fault register.** Every kernel reads the armed lane faults
+(:mod:`repro_torch.faults.inject`) from ``simdive::g_fault_register``, a
+``__constant__`` defined in ``csrc/simdive_datapath.cuh``. Each source is
+compiled on its own (``-c``, no relocatable device code), so each holds
+its own copy, and each exports a setter, ``simdive_faults_<source
+stem>``. :func:`write_fault_register` calls every setter on the current
+stream of every device the library has launched on (``load(device)``
+records them), and a device seen for the first time while faults are
+armed gets the register before its first launch.
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ import threading
 from pathlib import Path
 
 __all__ = ["KernelCompileError", "KernelLaunchError", "CSRC", "NVCC_FLAGS",
-           "build_dir", "load", "check", "current_stream"]
+           "build_dir", "load", "check", "current_stream",
+           "write_fault_register"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,6 +48,8 @@ _LIB_NAME = "libsimdive_kernels.so"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# CUDA device indices whose copies of the fault register the library owns
+_devices: set[int] = set()
 
 
 class KernelCompileError(RuntimeError):
@@ -134,10 +147,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_decode_attention_max_clusters.restype = i
     lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 9 + [p]
     lib.simdive_logmatmul.restype = i
+    for name in _fault_setters():
+        setter = getattr(lib, name)
+        setter.argtypes = [p, p]
+        setter.restype = i
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+def _fault_setters() -> list[str]:
+    """One fault-register setter per source: ``simdive_faults_<stem>``."""
+    return [f"simdive_faults_{src.stem}" for src in sorted(CSRC.glob("*.cu"))]
+
+
+def load(device=None) -> ctypes.CDLL:
+    """The kernels' shared library, built on first use.
+
+    ``device`` (a CUDA ``torch.device``, given by every launcher) is the
+    device the caller is about to launch on: the first time a device is
+    seen while lane faults are armed, the register is written there, so
+    that a kernel built or first launched after an arming starts from
+    it."""
     global _lib
     with _lock:
         if _lib is None:
@@ -148,7 +176,49 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _declare(lib)
             _lib = lib
+        if device is not None:
+            index = device.index
+            if index is None:
+                import torch
+
+                index = torch.cuda.current_device()
+            if index not in _devices:
+                _devices.add(index)
+                # a register never written reads zero: disarmed
+                if _armed_lanes():
+                    _write_register(_lib, index)
         return _lib
+
+
+def _armed_lanes() -> bool:
+    from repro_torch.faults.inject import active_faults
+
+    return any(s.site != "table" for s in active_faults())
+
+
+def _write_register(lib: ctypes.CDLL, index: int) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.faults.inject import lane_register
+
+    reg = np.ascontiguousarray(lane_register())
+    with torch.cuda.device(index):
+        stream = current_stream()
+        for name in _fault_setters():
+            check(getattr(lib, name)(reg.ctypes.data, stream), name)
+
+
+def write_fault_register() -> None:
+    """Write the armed lane faults into every kernel source's fault
+    register, on the current stream of each device the library has
+    launched on. Before the library is loaded there is nothing to write:
+    :func:`load` writes it at the first launch on each device."""
+    with _lock:
+        if _lib is None:
+            return
+        for index in sorted(_devices):
+            _write_register(_lib, index)
 
 
 def check(code: int, what: str) -> None:

@@ -203,6 +203,8 @@ __global__ void __launch_bounds__(NT)
   __shared__ float sM[GM], sC[GM], sSelf[GM];
   __shared__ float sPart[NW][GM];
   __shared__ int s_tab[kDivTable];
+  // read at the start: the load of the register overlaps the kernel
+  const bool faults = simdive::lane_faults_armed();
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.C;
@@ -561,10 +563,17 @@ __global__ void __launch_bounds__(NT)
       for (int i = 0; i < DPL; ++i) amax = fmaxf(amax, fabsf(x[i]));
       const simdive::RowQuant rq =
           simdive::softmax_row_quant(warp_max(amax), l, p.cfg.width, p.lim);
+      if (faults) {
 #pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem(
-            x[i], rq, s_tab, p.cfg, p.lim, nullptr));
+        for (int i = 0; i < DPL; ++i)
+          orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem<true>(
+              x[i], rq, s_tab, p.cfg, p.lim, nullptr));
+      } else {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem<false>(
+              x[i], rq, s_tab, p.cfg, p.lim, nullptr));
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = from_f32<T>(x[i] / l);
@@ -647,6 +656,9 @@ cudaLaunchConfig_t cluster_config(unsigned blocks, int C, size_t smem,
 }
 
 }  // namespace
+
+// This source's copy of the fault register (simdive_datapath.cuh).
+SIMDIVE_FAULT_SETTER(simdive_faults_decode_attention)
 
 // dtype: 0 = float32, 1 = bfloat16; dh 64 or 128; 1 <= G <= 8; 1 <= cluster
 // <= 8 blocks per (b, kv head). q, k_new, v_new and o contiguous; the caches

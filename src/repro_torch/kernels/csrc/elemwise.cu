@@ -28,6 +28,41 @@ namespace {
 using simdive::LaneCfg;
 using simdive::lane_op;
 
+// This thread's four lanes from i0 on (a scalar tail past n - 4).
+template <int OP, bool FAULTS>
+__device__ __forceinline__ void elemwise_lanes(
+    const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+    const uint32_t* __restrict__ mode, uint32_t* __restrict__ out,
+    long long n, long long i0, const int* tab, const LaneCfg& cfg) {
+  if (i0 + 4 <= n) {
+    const uint4 va = *reinterpret_cast<const uint4*>(a + i0);
+    const uint4 vb = *reinterpret_cast<const uint4*>(b + i0);
+    uint4 vm = make_uint4(0u, 0u, 0u, 0u);
+    if (OP == simdive::kOpMixed)
+      vm = *reinterpret_cast<const uint4*>(mode + i0);
+    uint4 vo;
+    vo.x = lane_op<OP, FAULTS>(va.x, vb.x, vm.x, tab, cfg);
+    vo.y = lane_op<OP, FAULTS>(va.y, vb.y, vm.y, tab, cfg);
+    vo.z = lane_op<OP, FAULTS>(va.z, vb.z, vm.z, tab, cfg);
+    vo.w = lane_op<OP, FAULTS>(va.w, vb.w, vm.w, tab, cfg);
+    *reinterpret_cast<uint4*>(out + i0) = vo;
+  } else {
+    for (long long i = i0; i < n; ++i) {
+      const uint32_t m = (OP == simdive::kOpMixed) ? mode[i] : 0u;
+      out[i] = lane_op<OP, FAULTS>(a[i], b[i], m, tab, cfg);
+    }
+  }
+}
+
+// The armed path out of line: its calls leave the disarmed path's code and
+// registers as they are.
+template <int OP>
+__device__ __noinline__ void elemwise_lanes_armed(
+    const uint32_t* a, const uint32_t* b, const uint32_t* mode, uint32_t* out,
+    long long n, long long i0, const int* tab, LaneCfg cfg) {
+  elemwise_lanes<OP, true>(a, b, mode, out, n, i0, tab, cfg);
+}
+
 template <int OP>
 __global__ void elemwise_kernel(const uint32_t* __restrict__ a,
                                 const uint32_t* __restrict__ b,
@@ -36,33 +71,23 @@ __global__ void elemwise_kernel(const uint32_t* __restrict__ a,
                                 const int* __restrict__ tab, int tab_len,
                                 LaneCfg cfg) {
   __shared__ int s_tab[simdive::kMaxTable];
+  const bool faults = simdive::lane_faults_armed();  // overlaps the staging
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) s_tab[i] = tab[i];
   __syncthreads();
 
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (i0 >= n) return;
-  if (i0 + 4 <= n) {
-    const uint4 va = *reinterpret_cast<const uint4*>(a + i0);
-    const uint4 vb = *reinterpret_cast<const uint4*>(b + i0);
-    uint4 vm = make_uint4(0u, 0u, 0u, 0u);
-    if (OP == simdive::kOpMixed)
-      vm = *reinterpret_cast<const uint4*>(mode + i0);
-    uint4 vo;
-    vo.x = lane_op<OP>(va.x, vb.x, vm.x, s_tab, cfg);
-    vo.y = lane_op<OP>(va.y, vb.y, vm.y, s_tab, cfg);
-    vo.z = lane_op<OP>(va.z, vb.z, vm.z, s_tab, cfg);
-    vo.w = lane_op<OP>(va.w, vb.w, vm.w, s_tab, cfg);
-    *reinterpret_cast<uint4*>(out + i0) = vo;
-  } else {
-    for (long long i = i0; i < n; ++i) {
-      const uint32_t m = (OP == simdive::kOpMixed) ? mode[i] : 0u;
-      out[i] = lane_op<OP>(a[i], b[i], m, s_tab, cfg);
-    }
-  }
+  if (faults)
+    elemwise_lanes_armed<OP>(a, b, mode, out, n, i0, s_tab, cfg);
+  else
+    elemwise_lanes<OP, false>(a, b, mode, out, n, i0, s_tab, cfg);
 }
 
 }  // namespace
+
+// This source's copy of the fault register (simdive_datapath.cuh).
+SIMDIVE_FAULT_SETTER(simdive_faults_elemwise)
 
 // a, b, out (and mode for op 2): n contiguous uint32 lanes, 16-byte aligned;
 // tab: tab_len int32 coefficients. Returns cudaGetLastError() of the launch.

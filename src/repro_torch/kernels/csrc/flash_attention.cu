@@ -197,6 +197,8 @@ __global__ void __launch_bounds__(NT)
   float* sP = PIPE ? sQ + BQ * QS : sVf + BK * DH;
   T* ring = reinterpret_cast<T*>(sP + BQ * PS);
   __shared__ int s_tab[kDivTable];
+  // read at the start: the load of the register overlaps the kernel
+  const bool faults = simdive::lane_faults_armed();
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -370,10 +372,17 @@ __global__ void __launch_bounds__(NT)
       amax = row_max16(amax);
       const simdive::RowQuant rq =
           simdive::softmax_row_quant(amax, li, p.cfg.width, p.lim);
+      if (faults) {
 #pragma unroll
-      for (int c = 0; c < DPT; ++c)
-        outv[c] = simdive::softmax_div_elem(acc[i][c], rq, s_tab, p.cfg, p.lim,
-                                            nullptr);
+        for (int c = 0; c < DPT; ++c)
+          outv[c] = simdive::softmax_div_elem<true>(acc[i][c], rq, s_tab,
+                                                    p.cfg, p.lim, nullptr);
+      } else {
+#pragma unroll
+        for (int c = 0; c < DPT; ++c)
+          outv[c] = simdive::softmax_div_elem<false>(acc[i][c], rq, s_tab,
+                                                     p.cfg, p.lim, nullptr);
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < DPT; ++c) outv[c] = acc[i][c] / li;
@@ -508,6 +517,8 @@ __global__ void __launch_bounds__(MMA_NT)
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
   bf16* kv_tiles = sQ + BQ * S;  // depth 0: k, v; depth D: D (k, v) slots
   __shared__ int s_tab[kDivTable];
+  // read at the start: the load of the register overlaps the kernel
+  const bool faults = simdive::lane_faults_armed();
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -707,12 +718,21 @@ __global__ void __launch_bounds__(MMA_NT)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
       const simdive::RowQuant rq =
           simdive::softmax_row_quant(amax, li, p.cfg.width, p.lim);
+      if (faults) {
 #pragma unroll
-      for (int j = 0; j < NO; ++j)
+        for (int j = 0; j < NO; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          outv[j][e] = simdive::softmax_div_elem(acc[j][2 * r + e], rq, s_tab,
-                                                 p.cfg, p.lim, nullptr);
+          for (int e = 0; e < 2; ++e)
+            outv[j][e] = simdive::softmax_div_elem<true>(
+                acc[j][2 * r + e], rq, s_tab, p.cfg, p.lim, nullptr);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            outv[j][e] = simdive::softmax_div_elem<false>(
+                acc[j][2 * r + e], rq, s_tab, p.cfg, p.lim, nullptr);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < NO; ++j)
@@ -796,6 +816,7 @@ __global__ void softmax_div_kernel(const float* __restrict__ acc,
                                    int dh, const int* __restrict__ tab,
                                    int tab_len, LaneCfg cfg, float lim) {
   __shared__ int s_tab[kDivTable];
+  const bool faults = simdive::lane_faults_armed();
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) s_tab[i] = tab[i];
   __syncthreads();
   const int lane = threadIdx.x % 32;
@@ -812,7 +833,10 @@ __global__ void softmax_div_kernel(const float* __restrict__ acc,
   for (int c = lane; c < dh; c += 32) {
     uint32_t qq;
     out[static_cast<long long>(row) * dh + c] =
-        simdive::softmax_div_elem(arow[c], rq, s_tab, cfg, lim, &qq);
+        faults ? simdive::softmax_div_elem<true>(arow[c], rq, s_tab, cfg, lim,
+                                                 &qq)
+               : simdive::softmax_div_elem<false>(arow[c], rq, s_tab, cfg,
+                                                  lim, &qq);
     quot[static_cast<long long>(row) * dh + c] = qq;
   }
 }
@@ -850,6 +874,9 @@ int attention(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
+
+// This source's copy of the fault register (simdive_datapath.cuh).
+SIMDIVE_FAULT_SETTER(simdive_faults_flash_attention)
 
 // dtype: 0 = float32, 1 = bfloat16. dh must be 64 or 128. All tensors
 // contiguous; bf16 q, k and v 16-byte aligned. Returns cudaGetLastError()

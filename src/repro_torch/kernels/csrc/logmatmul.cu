@@ -106,7 +106,9 @@ constexpr uint32_t kLogMask = 0xFFFFFu;
 constexpr int kIdxShift = 20;
 constexpr uint32_t kZero = 1u << 30;
 
-// sign_split (|INT32_MIN| included, clamped to the lane) + LOD/log.
+// sign_split (|INT32_MIN| included, clamped to the lane) + LOD/log. The
+// square tiles read the fault register for each element (they serve no
+// path; the wrapper refuses a log fault above the 20-bit field).
 template <int W, bool IS_X>
 __device__ __forceinline__ uint32_t encode(int32_t v, int ib) {
   constexpr int F = W - 1;
@@ -114,7 +116,9 @@ __device__ __forceinline__ uint32_t encode(int32_t v, int ib) {
   uint32_t mag = neg ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
   mag = min(mag, (1u << W) - 1u);
   if (mag == 0u) return kZero;
-  const uint32_t L = simdive::lod_log(mag, F);
+  const uint32_t L = simdive::lane_faults_armed()
+                         ? simdive::lod_log<true>(mag, F)
+                         : simdive::lod_log<false>(mag, F);
   uint32_t half = (L & ((1u << F) - 1u)) >> (F - ib);
   if (IS_X) half <<= ib;
   return (neg << 31) | (half << kIdxShift) | L;
@@ -315,14 +319,14 @@ constexpr int kSkinnyBN = 32 * kSkinnyTN;     // columns a block owns
 // operand's half of the region index as a byte offset into the table (x's
 // half shifted up by index_bits, as encode() does), and sign / zero as
 // -1, 0 or +1.
-template <int W, bool IS_X>
+template <int W, bool IS_X, bool FAULTS>
 __device__ __forceinline__ void split_operand(int32_t v, int ib, int& l,
                                               int& h4, int& c) {
   constexpr int F = W - 1;
   const bool neg = v < 0;
   uint32_t mag = neg ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
   mag = min(mag, (1u << W) - 1u);
-  const uint32_t L = simdive::lod_log(mag, F);
+  const uint32_t L = simdive::lod_log<FAULTS>(mag, F);
   uint32_t half = (L & ((1u << F) - 1u)) >> (F - ib);
   if (IS_X) half <<= ib;
   l = static_cast<int>(L);
@@ -336,14 +340,16 @@ __device__ __forceinline__ void split_operand(int32_t v, int ib, int& l,
 // and its round-half-up right shift (I < F) alike; the clamp is its
 // saturation at I >= 16 (below that the product is < 2^16). The tables
 // keep |corr| < 2^(F-1) (core/error_lut.py), so I <= 16 and mant << I <
-// 2^24. Width 16 takes the datapath's own anti-log.
-template <int W>
+// 2^24. Width 16, and width 8 under an upset table entry or an armed lane
+// fault (GENERAL: the block found one, see the kernel), take the
+// datapath's own anti-log, which holds for any operands.
+template <int W, bool GENERAL>
 __device__ __forceinline__ uint32_t split_product(int la, int hx4, int lb,
                                                   int hw4, const int* tab,
                                                   uint32_t bias, bool rnd) {
   const int corr = *reinterpret_cast<const int*>(
       reinterpret_cast<const char*>(tab) + (hx4 + hw4));
-  if constexpr (W == 8) {
+  if constexpr (W == 8 && !GENERAL) {
     constexpr int F = W - 1;
     const int ls = max(la + lb + corr, 0);
     const uint32_t mant =
@@ -357,16 +363,16 @@ __device__ __forceinline__ uint32_t split_product(int la, int hx4, int lb,
 
 // The MR x 4 products of one weight row slice (4 raw int32 weights) with
 // the staged x words of that row; rows past M (live) are skipped.
-template <int W, int MR>
+template <int W, int MR, bool GENERAL>
 __device__ __forceinline__ void skinny_row(const int4 raw, const int* xs_row,
                                            int live, int ib, const int* tab,
                                            uint32_t bias, bool rnd,
                                            uint32_t (&acc)[MR][kSkinnyTN]) {
   int lb[kSkinnyTN], hw4[kSkinnyTN], cw[kSkinnyTN];
-  split_operand<W, false>(raw.x, ib, lb[0], hw4[0], cw[0]);
-  split_operand<W, false>(raw.y, ib, lb[1], hw4[1], cw[1]);
-  split_operand<W, false>(raw.z, ib, lb[2], hw4[2], cw[2]);
-  split_operand<W, false>(raw.w, ib, lb[3], hw4[3], cw[3]);
+  split_operand<W, false, GENERAL>(raw.x, ib, lb[0], hw4[0], cw[0]);
+  split_operand<W, false, GENERAL>(raw.y, ib, lb[1], hw4[1], cw[1]);
+  split_operand<W, false, GENERAL>(raw.z, ib, lb[2], hw4[2], cw[2]);
+  split_operand<W, false, GENERAL>(raw.w, ib, lb[3], hw4[3], cw[3]);
   // [log value x MR | index half x MR | sign x MR], 16-byte aligned
   int xv[3 * MR];
   const int4* x4 = reinterpret_cast<const int4*>(xs_row);
@@ -383,8 +389,8 @@ __device__ __forceinline__ void skinny_row(const int4 raw, const int* xs_row,
     if (i < live) {
 #pragma unroll
       for (int j = 0; j < kSkinnyTN; ++j) {
-        const uint32_t p = split_product<W>(xv[i], xv[MR + i], lb[j], hw4[j],
-                                            tab, bias, rnd);
+        const uint32_t p = split_product<W, GENERAL>(
+            xv[i], xv[MR + i], lb[j], hw4[j], tab, bias, rnd);
         acc[i][j] += p * static_cast<uint32_t>(xv[2 * MR + i] * cw[j]);
       }
     }
@@ -425,6 +431,71 @@ __device__ __forceinline__ void issue_w4(int4* dst, const int32_t* w, int k,
   }
 }
 
+// x's MR x per elements of the block, converted once into shared memory
+// as [k][log value | index half | sign][MR] words (0 past M and K).
+template <int W, int MR, bool FAULTS>
+__device__ __forceinline__ void skinny_stage_x(const int32_t* __restrict__ x,
+                                               int* xs, int M, int K, int m0,
+                                               int kb0, int kb1, int per,
+                                               int ib, int tid) {
+  constexpr int NT = kSkinnyWarps * 32;
+  for (int e = tid; e < MR * per; e += NT) {
+    const int i = e / per, kl = e - i * per;
+    const int gm = m0 + i, gk = kb0 + kl;
+    int l = 0, h4 = 0, c = 0;
+    if (gm < M && gk < kb1)
+      split_operand<W, true, FAULTS>(x[static_cast<size_t>(gm) * K + gk], ib,
+                                     l, h4, c);
+    int* p = xs + kl * 3 * MR + i;
+    p[0] = l;
+    p[MR] = h4;
+    p[2 * MR] = c;
+  }
+}
+
+// The warp's K steps: weight rows (straight to registers at depth 0,
+// through the lane's cp.async ring slots at depth >= 1) times the staged
+// x words, into acc.
+template <int W, int MR, int KU, bool PIPE, bool VEC, bool GENERAL>
+__device__ __forceinline__ void skinny_steps(
+    const int32_t* __restrict__ w, int N, int col, int kw0, int kw1, int kb0,
+    int steps, int depth, int4* my_ring, const int* xs, int live, int ib,
+    const int* tab, uint32_t bias, bool rnd,
+    uint32_t (&acc)[MR][kSkinnyTN]) {
+  for (int c = 0; c < steps; ++c) {
+    int4 raw[KU];
+    if (!PIPE) {
+#pragma unroll
+      for (int u = 0; u < KU; ++u) {
+        const int k = kw0 + c * KU + u;
+        raw[u] = k < kw1 ? load_w4<VEC>(w, k, col, N) : make_int4(0, 0, 0, 0);
+      }
+    } else {
+      __syncwarp();  // this lane's reads of the slot reused below are done
+      const int nxt = c + depth - 1;  // into the slot step c-1 vacated
+      if (nxt < steps)
+#pragma unroll
+        for (int u = 0; u < KU; ++u) {
+          const int k = kw0 + nxt * KU + u;
+          issue_w4<VEC>(my_ring + ((nxt % depth) * KU + u) * 32, w, k, col,
+                        N, k < kw1);
+        }
+      cp_async_commit();
+      cp_async_wait(depth - 1);  // every group up to step c has landed
+#pragma unroll
+      for (int u = 0; u < KU; ++u)
+        raw[u] = my_ring[((c % depth) * KU + u) * 32];
+    }
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      const int k = kw0 + c * KU + u;
+      if (k < kw1)
+        skinny_row<W, MR, GENERAL>(raw[u], xs + (k - kb0) * 3 * MR, live,
+                                   ib, tab, bias, rnd, acc);
+    }
+  }
+}
+
 // Dynamic shared memory: x words [per][3][MR] ints, the warps' partial
 // sums [warps][MR][128] uint32, then (ring) [warps][depth][KU][32 lanes]
 // int4 — each lane copies and reads back only its own 16 bytes of a slot.
@@ -455,6 +526,10 @@ __global__ void __launch_bounds__(kSkinnyWarps * 32, 2)
   const bool rnd = round_out != 0;
   const uint32_t bias = rnd ? 1u << (W - 2) : 0u;    // 2^(F-1)
   int4* my_ring = ring + warp * depth * KU * 32 + lane;
+  // the general form (see split_product) under an armed lane fault, or
+  // at width 8 under an entry outside the clean tables' |c| < 2^(F-1); a
+  // uniform choice, which gives the short form's bits where that holds
+  const bool faults = simdive::lane_faults_armed();
 
   // ring warm-up first: its copies fly while x is converted
   if (PIPE) {
@@ -469,20 +544,18 @@ __global__ void __launch_bounds__(kSkinnyWarps * 32, 2)
       cp_async_commit();
     }
   }
-  for (int i = tid; i < tab_len; i += NT) s_tab[i] = tab[i];
-  for (int e = tid; e < MR * per; e += NT) {
-    const int i = e / per, kl = e - i * per;
-    const int gm = m0 + i, gk = kb0 + kl;
-    int l = 0, h4 = 0, c = 0;
-    if (gm < M && gk < kb1)
-      split_operand<W, true>(x[static_cast<size_t>(gm) * K + gk], ib, l, h4,
-                             c);
-    int* p = xs + kl * 3 * MR + i;
-    p[0] = l;
-    p[MR] = h4;
-    p[2 * MR] = c;
+  bool odd = false;
+  for (int i = tid; i < tab_len; i += NT) {
+    const int v = tab[i];
+    s_tab[i] = v;
+    odd |= W == 8 && (v <= -(1 << (W - 2)) || v >= (1 << (W - 2)));
   }
-  __syncthreads();  // table and x words in place
+  if (faults)
+    skinny_stage_x<W, MR, true>(x, xs, M, K, m0, kb0, kb1, per, ib, tid);
+  else
+    skinny_stage_x<W, MR, false>(x, xs, M, K, m0, kb0, kb1, per, ib, tid);
+  // table and x words in place
+  const bool general = __syncthreads_or(odd) != 0 || faults;
 
   uint32_t acc[MR][TN];
 #pragma unroll
@@ -490,38 +563,14 @@ __global__ void __launch_bounds__(kSkinnyWarps * 32, 2)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0u;
 
-  for (int c = 0; c < steps; ++c) {
-    int4 raw[KU];
-    if (!PIPE) {
-#pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        const int k = kw0 + c * KU + u;
-        raw[u] = k < kw1 ? load_w4<VEC>(w, k, col, N) : make_int4(0, 0, 0, 0);
-      }
-    } else {
-      __syncwarp();  // this lane's reads of the slot reused below are done
-      const int nxt = c + depth - 1;  // into the slot step c-1 vacated
-      if (nxt < steps)
-#pragma unroll
-        for (int u = 0; u < KU; ++u) {
-          const int k = kw0 + nxt * KU + u;
-          issue_w4<VEC>(my_ring + ((nxt % depth) * KU + u) * 32, w, k, col,
-                        N, k < kw1);
-        }
-      cp_async_commit();
-      cp_async_wait(depth - 1);  // every group up to step c has landed
-#pragma unroll
-      for (int u = 0; u < KU; ++u)
-        raw[u] = my_ring[((c % depth) * KU + u) * 32];
-    }
-#pragma unroll
-    for (int u = 0; u < KU; ++u) {
-      const int k = kw0 + c * KU + u;
-      if (k < kw1)
-        skinny_row<W, MR>(raw[u], xs + (k - kb0) * 3 * MR, live, ib, s_tab,
-                          bias, rnd, acc);
-    }
-  }
+  if (general)
+    skinny_steps<W, MR, KU, PIPE, VEC, true>(w, N, col, kw0, kw1, kb0, steps,
+                                             depth, my_ring, xs, live, ib,
+                                             s_tab, bias, rnd, acc);
+  else
+    skinny_steps<W, MR, KU, PIPE, VEC, false>(w, N, col, kw0, kw1, kb0,
+                                              steps, depth, my_ring, xs, live,
+                                              ib, s_tab, bias, rnd, acc);
   if (PIPE) cp_async_wait(0);
 
   // the warps' partial sums meet in shared memory (uint32: order-free)
@@ -665,6 +714,9 @@ cudaError_t dispatch_skinny(const Args& a, cudaStream_t s) {
 }
 
 }  // namespace
+
+// This source's copy of the fault register (simdive_datapath.cuh).
+SIMDIVE_FAULT_SETTER(simdive_faults_logmatmul)
 
 // The compiled tiles: (BM, BN, TM, TN, k_unroll). Keep in step with
 // TILES in kernels/logmatmul.py.

@@ -10,12 +10,101 @@
 // Lanes are native uint32 (widths 8 and 16: every intermediate fits 32 bits;
 // width 32 would need a 64-bit bus and is refused by the wrappers). A shift
 // by >= 32 is undefined in CUDA, so every data-dependent shift is clipped
-// first, exactly where the reference clips its barrel shifter.
+// first, exactly where the reference clips its barrel shifter. The ternary
+// adds are taken in uint32 and read as int32: the reference's wrapping
+// uint32 / int32 sums, which only upset operands (below) ever wrap.
+//
+// Fault injection (repro_torch/faults/inject.py): the armed lane faults
+// live in g_fault_register, which set_faults writes on the stream through
+// the setter every source exports (simdive_faults_<source>, defined with
+// SIMDIVE_FAULT_SETTER below; each source compiled alone holds its own
+// copy of this __constant__). lod_log applies the 'log' specs to its
+// output, packed_simd.cu the 'pack' specs to its output words, in arming
+// order, as repro_torch.faults.inject.apply_lane_faults does on the host.
+// The lane functions take FAULTS as a template argument: a kernel reads
+// lane_faults_armed() once (a uniform branch on a zero count) and runs
+// the FAULTS = false instantiation, with no fault code at all, when the
+// register is empty. Table faults need nothing here: the kernels read the
+// tables set_faults rewrites in place.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace simdive {
+
+// ---- the fault register (faults/inject.py lane_register) -----------------
+constexpr int kMaxLaneFaults = 8;  // faults.inject.MAX_LANE_FAULTS
+constexpr uint32_t kSiteLog = 1, kSitePack = 2;
+constexpr uint32_t kKindFlip = 0, kKindStuck0 = 1, kKindStuck1 = 2;
+
+struct LaneFault {
+  uint32_t site;       // kSiteLog | kSitePack
+  uint32_t width;      // lane width it strikes; 0 = any
+  uint32_t kind;       // kKindFlip | kKindStuck0 | kKindStuck1
+  uint32_t mask;       // 1 << bit
+  uint32_t transient;  // 0: every element; 1: where the strike hash fires
+  uint32_t thresh;     // min(int(rate * 2^32), 2^32 - 1)
+  uint32_t seed;       // (seed * 0x9E3779B9 + 0x6A09E667) mod 2^32
+  uint32_t pad;
+};
+
+struct FaultRegister {
+  uint32_t n, pad[3];  // lane specs armed
+  LaneFault f[kMaxLaneFaults];
+};
+
+static __constant__ FaultRegister g_fault_register;
+
+// The armed specs of one site and width applied to x, in arming order;
+// a transient spec strikes where the reference's murmur-style hash of the
+// current lane value falls under its threshold. Out of line: the disarmed
+// callers keep only the branch on the count.
+static __device__ __noinline__ uint32_t apply_lane_faults(uint32_t x,
+                                                          uint32_t site,
+                                                          uint32_t width) {
+  const uint32_t n = g_fault_register.n;
+  for (uint32_t i = 0; i < n; ++i) {
+    const LaneFault f = g_fault_register.f[i];
+    if (f.site != site || (f.width != 0u && f.width != width)) continue;
+    const uint32_t y = f.kind == kKindFlip     ? (x ^ f.mask)
+                       : f.kind == kKindStuck1 ? (x | f.mask)
+                                               : (x & ~f.mask);
+    if (f.transient) {
+      uint32_t h = x ^ f.seed;
+      h *= 0x85EBCA6Bu;
+      h = (h ^ (h >> 13)) * 0xC2B2AE35u;
+      h ^= h >> 16;
+      x = h < f.thresh ? y : x;
+    } else {
+      x = y;
+    }
+  }
+  return x;
+}
+
+// Whether any lane fault is armed: the one branch a disarmed kernel pays.
+__device__ __forceinline__ bool lane_faults_armed() {
+  return g_fault_register.n != 0u;
+}
+
+// Host side: copy a register (the words of faults.inject.lane_register)
+// into this source's copy, ordered on stream s.
+static inline cudaError_t write_fault_register(const void* reg,
+                                              cudaStream_t s) {
+  return cudaMemcpyToSymbolAsync(g_fault_register, reg,
+                                 sizeof(FaultRegister), 0,
+                                 cudaMemcpyHostToDevice, s);
+}
+
+// Every source defines its setter with this, named simdive_faults_<stem>
+// (kernels/build.py derives the names from the file names).
+#define SIMDIVE_FAULT_SETTER(name)                                      \
+  extern "C" int name(const void* reg, void* stream) {                  \
+    return static_cast<int>(simdive::write_fault_register(              \
+        reg, static_cast<cudaStream_t>(stream)));                       \
+  }
 
 struct LaneCfg {
   int width;       // lane width: 8 or 16
@@ -32,11 +121,16 @@ constexpr int kMaxTable = 512;
 
 // Stage 1: LOD + log conversion, L = (k << F) | ((a ^ 2^k) << (F - k)).
 // a must be < 2^width. a == 0 yields the same don't-care value as the
-// plain version (k = 0); callers bypass it with their zero flags.
+// plain version (k = 0); callers bypass it with their zero flags. With
+// FAULTS, the armed 'log' faults of width F + 1 strike L (false: the
+// caller found the register empty).
+template <bool FAULTS>
 __device__ __forceinline__ uint32_t lod_log(uint32_t a, int F) {
   const int k = a ? 31 - __clz(a) : 0;
   const uint32_t frac = a ^ (1u << k);
-  return (static_cast<uint32_t>(k) << F) | (frac << (F - k));
+  const uint32_t L = (static_cast<uint32_t>(k) << F) | (frac << (F - k));
+  if constexpr (FAULTS) return apply_lane_faults(L, kSiteLog, F + 1);
+  return L;
 }
 
 // Stage 2: region index from the index_bits MSBs of both fractions.
@@ -53,7 +147,7 @@ __device__ __forceinline__ uint32_t antilog_mul(uint32_t la, uint32_t lb,
                                                 int corr, int width,
                                                 bool round_out) {
   const int F = width - 1;
-  int lsi = static_cast<int>(la + lb) + corr;
+  int lsi = static_cast<int>(la + lb + static_cast<uint32_t>(corr));
   if (lsi < 0) lsi = 0;
   const uint32_t ls = static_cast<uint32_t>(lsi);
   const int I = static_cast<int>(ls >> F);
@@ -72,7 +166,7 @@ __device__ __forceinline__ uint32_t antilog_div(uint32_t la, uint32_t lb,
                                                 int corr, int width,
                                                 int frac_out, bool round_out) {
   const int F = width - 1;
-  const int ls = static_cast<int>(la) - static_cast<int>(lb) + corr;
+  const int ls = static_cast<int>(la - lb + static_cast<uint32_t>(corr));
   const int I = ls >> F;  // arithmetic shift: floors
   uint32_t mant = (static_cast<uint32_t>(ls) & ((1u << F) - 1u)) + (1u << F);
   const int sh = I + frac_out - F;
@@ -83,11 +177,12 @@ __device__ __forceinline__ uint32_t antilog_div(uint32_t la, uint32_t lb,
 }
 
 // Whole SISD unit, multiplier half: x * 0 = 0.
+template <bool FAULTS>
 __device__ __forceinline__ uint32_t lane_mul(uint32_t a, uint32_t b,
                                              const int* tab,
                                              const LaneCfg& c) {
   const int F = c.width - 1;
-  const uint32_t la = lod_log(a, F), lb = lod_log(b, F);
+  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
   const bool nz = (a != 0u) && (b != 0u);
   const int corr = nz ? tab[region_index(la, lb, F, c.index_bits)] : 0;
   const uint32_t p = antilog_mul(la, lb, corr, c.width, c.round_out != 0);
@@ -95,11 +190,12 @@ __device__ __forceinline__ uint32_t lane_mul(uint32_t a, uint32_t b,
 }
 
 // Whole SISD unit, divider half: x / 0 = all-ones, then 0 / x = 0.
+template <bool FAULTS>
 __device__ __forceinline__ uint32_t lane_div(uint32_t a, uint32_t b,
                                              const int* tab,
                                              const LaneCfg& c) {
   const int F = c.width - 1;
-  const uint32_t la = lod_log(a, F), lb = lod_log(b, F);
+  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
   const bool nz = (a != 0u) && (b != 0u);
   const int corr = nz ? tab[region_index(la, lb, F, c.index_bits)] : 0;
   uint32_t q = antilog_div(la, lb, corr, c.width, c.frac_out,
@@ -111,12 +207,13 @@ __device__ __forceinline__ uint32_t lane_div(uint32_t a, uint32_t b,
 
 // Mixed mode: tab is [mul | div]; mode != 0 selects the product. Both
 // halves share the LOD + log front end and the region index.
+template <bool FAULTS>
 __device__ __forceinline__ uint32_t lane_mixed(uint32_t a, uint32_t b,
                                                uint32_t mode, const int* tab,
                                                const LaneCfg& c) {
   const int F = c.width - 1;
   const int T = 1 << (2 * c.index_bits);
-  const uint32_t la = lod_log(a, F), lb = lod_log(b, F);
+  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
   const bool nz = (a != 0u) && (b != 0u);
   const int idx = region_index(la, lb, F, c.index_bits);
   if (mode != 0u) {
@@ -133,13 +230,13 @@ __device__ __forceinline__ uint32_t lane_mixed(uint32_t a, uint32_t b,
 
 // One SISD unit of a compile-time op: the elementwise and the packed
 // kernels both run their lanes through this.
-template <int OP>
+template <int OP, bool FAULTS>
 __device__ __forceinline__ uint32_t lane_op(uint32_t a, uint32_t b,
                                             uint32_t mode, const int* tab,
                                             const LaneCfg& c) {
-  if (OP == kOpMul) return lane_mul(a, b, tab, c);
-  if (OP == kOpDiv) return lane_div(a, b, tab, c);
-  return lane_mixed(a, b, mode, tab, c);
+  if (OP == kOpMul) return lane_mul<FAULTS>(a, b, tab, c);
+  if (OP == kOpDiv) return lane_div<FAULTS>(a, b, tab, c);
+  return lane_mixed<FAULTS>(a, b, mode, tab, c);
 }
 
 // ---- softmax divider: per-row shared-exponent quantization + lane_div ----
@@ -173,13 +270,14 @@ __device__ __forceinline__ RowQuant softmax_row_quant(float rowmax_abs,
 
 // One element of acc / l on the divider: quantize |acc|, divide, fold the
 // quotient back to float and re-apply the sign. *quot gets the raw lane.
+template <bool FAULTS>
 __device__ __forceinline__ float softmax_div_elem(float acc,
                                                   const RowQuant& rq,
                                                   const int* tab,
                                                   const LaneCfg& c, float lim,
                                                   uint32_t* quot) {
   const uint32_t qn = quantize_lane(fabsf(acc), rq.sc, 0.0f, lim);
-  const uint32_t qq = lane_div(qn, rq.qd, tab, c);
+  const uint32_t qq = lane_div<FAULTS>(qn, rq.qd, tab, c);
   if (quot) *quot = qq;
   const float out = scalbnf(__uint2float_rn(qq), -c.frac_out);
   return acc < 0.0f ? -out : out;

@@ -29,11 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.error_lut import (
-    apply_lane_faults,
-    region_index,
-    table_for,
-)
+from repro_torch.core.error_lut import region_index, table_for
 from repro_torch.core.mitchell import (
     BUS_MASK,
     as_carrier,
@@ -43,7 +39,9 @@ from repro_torch.core.mitchell import (
     mitchell_antilog_div,
     mitchell_antilog_mul,
     mitchell_log,
+    wrap_int32,
 )
+from repro_torch.faults.inject import apply_lane_faults, faults_enabled
 
 __all__ = [
     "fraction_mask",
@@ -73,9 +71,13 @@ def fraction_mask(width: int) -> int:
 def lod_log(a: torch.Tensor, width: int) -> torch.Tensor:
     """Stage 1: LOD + log conversion, ``L = (k << F) | x_fp``.
 
-    The fault subsystem's ``site='log'`` seam sits on this stage's output.
+    Fault hook: site='log' upsets land on this stage's output register
+    ``L`` (:mod:`repro_torch.faults.inject`); disarmed the hook is a no-op.
     """
-    return apply_lane_faults(mitchell_log(a, width), site="log", width=width)
+    L = mitchell_log(a, width)
+    if faults_enabled():
+        L = apply_lane_faults(L, site="log", width=width)
+    return L
 
 
 # ------------------------------------------------------------ correction --
@@ -176,12 +178,6 @@ def log_div(la: torch.Tensor, lb: torch.Tensor, tab: torch.Tensor, width: int,
 
 
 # ------------------------------------------------------------------ signs --
-def wrap_int32(x: torch.Tensor) -> torch.Tensor:
-    """Carrier values reduced to the int32 they wrap to (two's complement)."""
-    half = 1 << 31
-    return ((x + half) & BUS_MASK) - half
-
-
 def sign_split(x: torch.Tensor, width: int):
     """Signed int32 values -> (magnitude clamped to the lane, sign {-1,+1}).
 
@@ -224,9 +220,11 @@ def lane_repack(lanes: list[torch.Tensor], owidth: int) -> torch.Tensor:
     ``owidth >= 32`` degenerates to one result per output word (mask
     ``2^32 - 1``). Returns the words on the int64 carrier.
 
-    Fault seam: site='pack' upsets land on the packed output bus words
-    (:func:`repro_torch.core.error_lut.apply_lane_faults`, a no-op until
-    the fault subsystem is ported).
+    Fault hook: site='pack' upsets land on the packed output bus words
+    (:mod:`repro_torch.faults.inject`); disarmed the hook is a no-op. Only
+    the packed kernel's body (``packed_simd.packed_word_op``) repacks
+    here; ``packed_ref`` repacks through ``simd_pack.pack``, as the
+    reference's does, and so never fires it.
     """
     olpw = max(32 // owidth, 1)
     omask = (1 << min(owidth, 32)) - 1
@@ -238,7 +236,9 @@ def lane_repack(lanes: list[torch.Tensor], owidth: int) -> torch.Tensor:
         words.append(w)
     lead = lanes[0].shape[:-1]
     out = torch.stack(words, dim=-1).reshape(*lead, -1)
-    return apply_lane_faults(out, site="pack", width=owidth)
+    if faults_enabled():
+        out = apply_lane_faults(out, site="pack", width=owidth)
+    return out
 
 
 # -------------------------------------------------------- composed SISD --

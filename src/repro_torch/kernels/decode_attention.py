@@ -295,7 +295,7 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
     tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
                     device=q.device, dtype=torch.int32)
     out = torch.empty_like(q)
-    lib = build.load()
+    lib = build.load(q.device)
 
     def index(t):
         if t is None:

@@ -86,7 +86,7 @@ def elemwise_cuda(a: torch.Tensor, b: torch.Tensor, spec: SimdiveSpec,
     tab = dp.op_table(op, spec.width, spec.coeff_bits, spec.index_bits,
                       device=au.device, dtype=torch.int32)
     out = torch.empty_like(au)
-    lib = build.load()
+    lib = build.load(au.device)
     with torch.cuda.device(au.device):
         code = lib.simdive_elemwise(
             au.data_ptr(), bu.data_ptr(),

@@ -287,7 +287,7 @@ def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
     tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
                     device=q.device, dtype=torch.int32)
     out = torch.empty_like(q)
-    lib = build.load()
+    lib = build.load(q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             tab.data_ptr(), tab.numel(), BH, Sq, Skv, dh, _DTYPES[q.dtype],
             int(kv_group), int(kv_len), int(q_offset), int(bool(causal)),
@@ -385,7 +385,7 @@ def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,
                     device=acc.device, dtype=torch.int32)
     out = torch.empty_like(acc)
     quot = torch.empty(acc.shape, dtype=torch.uint32, device=acc.device)
-    lib = build.load()
+    lib = build.load(acc.device)
     with torch.cuda.device(acc.device):
         code = lib.simdive_softmax_div(
             acc.data_ptr(), l.data_ptr(), out.data_ptr(), quot.data_ptr(),

@@ -45,12 +45,13 @@ import torch
 
 from repro_torch.core.mitchell import check_width
 from repro_torch.core.simdive import SimdiveSpec
+from repro_torch.faults.inject import active_faults
 from . import build
 from . import datapath as dp
 
 __all__ = ["TILES", "SKINNY_BN", "DEFAULT_K_UNROLL", "DEFAULT_BLOCK",
            "BLOCK_CANDIDATES", "split_block", "is_skinny", "smem_bytes",
-           "check_block", "logmatmul_ref",
+           "check_block", "check_faults", "logmatmul_ref",
            "logmatmul_cuda", "logmatmul_pipelined_cuda"]
 
 #: columns of a skinny tile: 32 lanes x 4 adjacent columns
@@ -79,6 +80,8 @@ BLOCK_CANDIDATES = (
 _SMEM_LIMIT = 232448 - 512 * 4
 _MAX_DEPTH = 4                 # cp.async.wait_group takes an immediate
 _MAX_INDEX_BITS = 4            # the kernel packs both region halves in 8 bits
+#: bits of a log value a square tile's encoded operand word holds
+_SQUARE_LOG_BITS = 20
 #: elements of one (rows, K chunk, N) product slab in the plain version
 _REF_BUDGET = 1 << 24
 
@@ -183,6 +186,25 @@ def logmatmul_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------- kernels --
+def check_faults(block, width: int) -> None:
+    """Raise ``ValueError`` when an armed log fault could set a bit of the
+    log value that ``block``'s kernel cannot hold. A square tile packs a
+    log value in the low 20 bits of its operand word (bits 20..31 hold
+    the region index, the zero flag and the sign); a skinny tile keeps a
+    whole 32-bit word and takes every fault."""
+    if is_skinny(block):
+        return
+    for s in active_faults():
+        if (s.site == "log" and s.kind != "stuck0"
+                and s.bit >= _SQUARE_LOG_BITS
+                and s.width in (None, width)):
+            raise ValueError(
+                f"matmul block {tuple(block)}: the armed {s} sets bit "
+                f"{s.bit} of the log value, which a square tile's operand "
+                f"word does not hold (bits 0..{_SQUARE_LOG_BITS - 1}); "
+                "use a skinny block")
+
+
 def _operand(t: torch.Tensor, name: str) -> torch.Tensor:
     if not t.is_cuda:
         raise ValueError(f"logmatmul CUDA kernel: {name} lies on {t.device}, "
@@ -196,6 +218,7 @@ def _operand(t: torch.Tensor, name: str) -> torch.Tensor:
 def _launch(x, w, spec: SimdiveSpec, block) -> torch.Tensor:
     (bm, bn, bk), ku, depth = check_block(block)
     check_width(spec.width)
+    check_faults(block, spec.width)
     if not 1 <= spec.index_bits <= _MAX_INDEX_BITS:
         raise ValueError(f"logmatmul kernel takes index_bits 1..4, got "
                          f"{spec.index_bits}")
@@ -208,7 +231,7 @@ def _launch(x, w, spec: SimdiveSpec, block) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
     tab = dp.op_table("mul", spec.width, spec.coeff_bits, spec.index_bits,
                       device=x.device, dtype=torch.int32)
-    lib = build.load()
+    lib = build.load(x.device)
     with torch.cuda.device(x.device):
         code = lib.simdive_logmatmul(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
@@ -227,7 +250,8 @@ def logmatmul_cuda(x: torch.Tensor, w: torch.Tensor, spec: SimdiveSpec,
     goes to :func:`logmatmul_pipelined_cuda`. Launches on the current
     stream and does not synchronise. Raises on CPU tensors, on a block the
     kernel was not compiled for, on width 32 and on a failed build or
-    launch — it never gives way to the plain version.
+    launch — it never gives way to the plain version. A square block
+    refuses an armed log fault it cannot hold (:func:`check_faults`).
     """
     if split_block(block)[2]:
         return logmatmul_pipelined_cuda(x, w, spec, block)

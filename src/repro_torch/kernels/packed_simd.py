@@ -126,7 +126,7 @@ def packed_cuda(aw: torch.Tensor, bw: torch.Tensor, spec: SimdiveSpec,
                       device=au.device, dtype=torch.int32)
     out = torch.empty((*au.shape[:-1], 2 * au.shape[-1]), dtype=torch.uint32,
                       device=au.device)
-    lib = build.load()
+    lib = build.load(au.device)
     with torch.cuda.device(au.device):
         code = lib.simdive_packed(
             au.data_ptr(), bu.data_ptr(),

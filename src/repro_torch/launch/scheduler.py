@@ -28,18 +28,22 @@ counterpart of ``generate(..., decode_fn=lm.decode_step)``), for holding
 the captured drill to the eager one. On the CPU both are eager.
 
 Self-healing (``self_heal=True``, the default): the ladder grows one
-**recovery rung**, the base config forced exact, and a per-tick watchdog
-feeds it. It detects poisoned work by per-row non-finite logits at
-prefill and decode (``watch_logits``), by a tick budget
-(``tick_budget``), and by :class:`~repro_torch.kernels.registry.
-GuardTripped` escaping a guarded eager dispatch (a capture's warm run
-included; replays are never checked). Detected work is **quarantined**:
-the slot is freed, the request's partial tokens are discarded, and it
-re-enters the queue pinned to the recovery rung after an exponential
-backoff, up to ``max_retries`` — then it fails loudly
-(``stats()['failed']``). The reference's correction-table scrub
-(``scrub_every``) needs the fault subsystem, which is not ported:
-``scrub_every > 0`` raises.
+**recovery rung**, the base config forced exact, touching no correction
+tables, and a per-tick watchdog feeds it. It detects poisoned work by
+per-row non-finite logits at prefill and decode (``watch_logits``), by a
+correction-table integrity scrub every ``scrub_every`` ticks
+(:mod:`repro_torch.faults.scrub`: it reads back every materialized copy
+of the tables, those the kernels and the captured graphs read included —
+the only deterministic detector for persistent table upsets, which
+corrupt results while staying finite, and the only one that sees into a
+replayed graph), by a tick budget (``tick_budget``), and by
+:class:`~repro_torch.kernels.registry.GuardTripped` escaping a guarded
+eager dispatch (a capture's warm run included; replays are never
+checked). Detected work is **quarantined**: the slot is freed, the
+request's partial tokens are discarded, and it re-enters the queue
+pinned to the recovery rung after an exponential backoff, up to
+``max_retries`` — then it fails loudly (``stats()['failed']``). While
+the scrub reads dirty, every tick dispatches at the recovery rung.
 """
 from __future__ import annotations
 
@@ -149,15 +153,12 @@ class Scheduler:
                 f"({shed_depth}) — equal thresholds oscillate every tick")
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
-        if scrub_every > 0:
-            raise NotImplementedError(
-                "scrub_every > 0: the correction-table scrub needs the fault "
-                "subsystem (faults/), which is not ported yet (ROADMAP A-6)")
         self.cfg = cfg
         self.self_heal = bool(self_heal)
         self.max_retries = int(max_retries)
         self.retry_backoff = max(int(retry_backoff), 1)
         self.tick_budget = tick_budget
+        self.scrub_every = int(scrub_every)
         self.watch_logits = bool(watch_logits)
         # the load-shed ladder spans [0, _ladder_n); the recovery rung
         # (base config forced exact) sits past it, reachable only through
@@ -205,6 +206,18 @@ class Scheduler:
         self._next_rid = 0
         self.counters = {"guard_trips": 0, "quarantines": 0,
                          "retries": 0, "timeouts": 0}
+        self._poisoned = False               # last scrub found corruption
+        if self.scrub_every > 0:
+            from repro_torch.faults.scrub import config_table_identities
+            idents: list = []
+            for lv in self.levels:
+                for t in config_table_identities(
+                        lv.approx, n_layers=getattr(cfg, "n_layers", 0)):
+                    if t not in idents:
+                        idents.append(t)
+            self._scrub_idents = tuple(idents)
+        else:
+            self._scrub_idents = ()
 
     # ------------------------------------------------------------ intake --
     def submit(self, prompt, max_new: int) -> Request:
@@ -262,14 +275,13 @@ class Scheduler:
     # ---------------------------------------------------------- watchdog --
     def _effective_level(self, admitting=()) -> int:
         """The level this tick actually dispatches at: the recovery rung
-        while any live or admitting request is pinned there (exact is the
-        finest rung, so forcing the shared batch up never serves anyone
-        coarser than their ladder level); otherwise the shed ladder's
-        current level. (The reference also pins it while its table scrub
-        reads dirty: A-6.)"""
-        if self.self_heal and any(
+        while the tables scrub dirty or any live or admitting request is
+        pinned there (exact is the finest rung, so forcing the shared
+        batch up never serves anyone coarser than their ladder level);
+        otherwise the shed ladder's current level."""
+        if self.self_heal and (self._poisoned or any(
                 r is not None and r.pinned_exact
-                for r in list(self.slots) + list(admitting)):
+                for r in list(self.slots) + list(admitting))):
             return len(self.levels) - 1
         return self.level
 
@@ -312,9 +324,29 @@ class Scheduler:
         self._bounce(req, reason)
 
     def _watchdog(self):
-        """Per-tick health pass: tick budgets, due retries. Runs before
-        admit / decode, so a request found overdue is quarantined before
-        another token is computed for it."""
+        """Per-tick health pass: table scrub, tick budgets, due retries.
+
+        Runs before admit / decode, so corruption found here quarantines
+        in-flight work *before* another token is computed through it.
+        """
+        if self.scrub_every > 0 and self.tick_no % self.scrub_every == 0:
+            from repro_torch.faults.scrub import scrub_tables
+
+            findings = scrub_tables(self._scrub_idents)
+            if findings and not self._poisoned:
+                self._poisoned = True
+                self.events.append((self.tick_no, "scrub-dirty",
+                                    "; ".join(str(f) for f in findings)))
+                # every unpinned in-flight token went through the
+                # corrupted tables — discard and retry on the exact rung
+                for s, req in enumerate(self.slots):
+                    if req is not None and not req.pinned_exact:
+                        self._quarantine(s, req,
+                                         f"table scrub: {findings[0]}")
+            elif not findings and self._poisoned:
+                # upset cleared / table repaired: lift the pin
+                self._poisoned = False
+                self.events.append((self.tick_no, "scrub-clean", ""))
         if self.tick_budget is not None:
             for s, req in enumerate(self.slots):
                 if req is not None and req.started >= 0 and \
@@ -462,7 +494,7 @@ class Scheduler:
             "quarantines": self.counters["quarantines"],
             "retries": self.counters["retries"],
             "timeouts": self.counters["timeouts"],
-            "poisoned": False,           # the table scrub's verdict (A-6)
+            "poisoned": self._poisoned,
             "events": list(self.events),
         }
 

@@ -32,19 +32,25 @@ device-synchronised repetitions).
 queue, the ladder sheds to the Mitchell rung and recovers, and every rung's
 prefill and decode step are captured once at warmup on one shared serving
 cache (:meth:`DecodeStep.adopt_cache`, :func:`insert_cache`).
+``--chaos`` runs that drill under a persistent correction-table fault
+(:mod:`repro_torch.faults`), armed after the first tick: the scheduler's
+table scrub must find it — on the card in the tables the captured graphs
+read —, quarantine the work in flight, retry it on the exact recovery
+rung, and complete every request; the process exits 1 on any violation.
 
 Not ported yet, and therefore not accepted on the command line:
-``--policy``, ``--chaos``.
+``--policy``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --approx simdive [--emulate [--quantize]] --batch 4 --prompt-len 512 \
-      --gen 32 [--scheduler [--requests 12]]
+      --gen 32 [--scheduler [--requests 12] | --chaos]
   (CPU smoke: add --smoke --device cpu)
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -628,16 +634,39 @@ def serving_config(arch: str, *, smoke: bool = False, approx: str = "exact",
     return cfg
 
 
+#: the chaos drill's fault (the reference's): bit 20 of every div table
+#: stuck at 1 — every divider the ladder reads, the attention's included
+CHAOS_SPEC = dict(site="table", bit=20, kind="stuck1", op="div")
+
+
+def chaos_violations(stats: dict, requests: int) -> list[str]:
+    """The reference's four rules of the chaos drill; empty = PASS."""
+    violations = []
+    if stats["completed"] != requests:
+        violations.append(f"completed {stats['completed']}/{requests}")
+    if stats["failed"]:
+        violations.append(f"{stats['failed']} request(s) failed")
+    if stats["quarantines"] < 1:
+        violations.append("watchdog never quarantined — the armed fault "
+                          "went unnoticed")
+    if stats["tokens_per_level"].get("recovery", 0) < 1:
+        violations.append("no tokens attributed to the recovery rung")
+    return violations
+
+
 def run_drill(cfg, params, args, rng) -> dict:
     """``--scheduler``: the reference's load-shed drill, its lines printed
-    as the reference prints them. Returns the drill's stats."""
+    as the reference prints them; ``--chaos``: the same drill with the
+    table scrub on every tick and :data:`CHAOS_SPEC` armed after the first
+    tick (disarmed however the drill ends). Returns the drill's stats."""
     from repro_torch.launch.scheduler import Scheduler, default_ladder
 
     sched = Scheduler(
         cfg, params=params, levels=default_ladder(cfg.approx),
         batch=args.batch, prompt_len=args.prompt_len,
         max_seq=args.prompt_len + args.gen, shed_depth=args.shed_depth,
-        recover_depth=args.recover_depth, device=args.device)
+        recover_depth=args.recover_depth,
+        scrub_every=1 if args.chaos else 0, device=args.device)
     warmed = sched.warmup()
     captured = sum(f.captures for f in sched.prefills + sched.steps)
     print(f"# scheduler: warmed {warmed} executable(s) across "
@@ -647,7 +676,21 @@ def run_drill(cfg, params, args, rng) -> dict:
         sched.submit(rng.integers(0, cfg.vocab_size, args.prompt_len,
                                   dtype=np.int64), max_new=args.gen)
     t0 = time.perf_counter()
-    stats = sched.run()
+    if args.chaos:
+        from repro_torch.faults.inject import FaultSpec, set_faults
+
+        # armed mid-flight, after the first admission tick, so that the
+        # scrub catches requests already in their decode loop
+        sched.step()
+        spec = FaultSpec(**CHAOS_SPEC)
+        set_faults([spec])
+        print(f"# chaos: armed {spec} at tick {sched.tick_no}")
+        try:
+            stats = sched.run()
+        finally:
+            set_faults([])
+    else:
+        stats = sched.run()
     wall_s = time.perf_counter() - t0
     during = sum(f.captures for f in sched.prefills + sched.steps) - captured
     step_t = sched.measure_decode()
@@ -664,6 +707,14 @@ def run_drill(cfg, params, args, rng) -> dict:
     print(f"decode step {step_t.best_s * 1e6:.0f}us best "
           f"({step_t.items_per_s:.1f} tok/s steady-state, "
           f"iters={step_t.iters}, synced)")
+    if args.chaos:
+        violations = chaos_violations(stats, args.requests)
+        if violations:
+            print("# chaos: FAIL — " + "; ".join(violations))
+            sys.exit(1)
+        print(f"# chaos: PASS — every admitted request completed; "
+              f"{stats['tokens_per_level']['recovery']} token(s) re-served "
+              "on the recovery rung")
     return stats
 
 
@@ -693,6 +744,12 @@ def main(argv=None):
     ap.add_argument("--scheduler", action="store_true",
                     help="run the continuous-batching load-shed drill "
                          "instead of a single batched generate")
+    ap.add_argument("--chaos", action="store_true",
+                    help="scheduler drill under a seeded persistent "
+                         "correction-table fault: the watchdog must "
+                         "quarantine, retry on the recovery rung, and "
+                         "complete every admitted request (exit 1 on "
+                         "any violation); implies --scheduler")
     ap.add_argument("--requests", type=int, default=12,
                     help="scheduler drill: how many requests to flood")
     ap.add_argument("--shed-depth", type=int, default=4)
@@ -707,7 +764,7 @@ def main(argv=None):
     if args.quantize:
         params = quantize_params(params)
     rng = np.random.default_rng(args.seed)
-    if args.scheduler:
+    if args.scheduler or args.chaos:
         run_drill(cfg, params, args, rng)
         return
     prompts = torch.from_numpy(rng.integers(

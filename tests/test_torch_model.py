@@ -277,8 +277,9 @@ def test_serving_plan_and_cli_on_cpu(capsys):
                                "elemwise": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0}
     # --scheduler runs the load-shed drill (launch.scheduler) and prints
-    # the reference's drill lines; --chaos (faults/) and --policy
-    # (tuning/select.py) are not ported and stay refused by argparse
+    # the reference's drill lines; --chaos (faults/) runs it under the
+    # armed table fault; --policy (tuning/select.py) is not ported and
+    # stays refused by argparse
     t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--approx",
                   "simdive", "--batch", "2", "--prompt-len", "8", "--gen",
                   "3", "--scheduler", "--requests", "5", "--shed-depth",
@@ -290,8 +291,16 @@ def test_serving_plan_and_cli_on_cpu(capsys):
     assert "# watchdog: guard_trips=0 quarantines=0" in out
     assert "decode step" in out
     assert launch_counts()["decode_attention"] == 0
-    with pytest.raises(SystemExit):
-        t_serve.main(["--arch", ARCH, "--device", "cpu", "--chaos"])
+    t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--approx",
+                  "simdive", "--batch", "2", "--prompt-len", "8", "--gen",
+                  "3", "--chaos", "--requests", "4", "--shed-depth", "100"])
+    out = capsys.readouterr().out
+    assert "# chaos: armed FaultSpec(site='table', bit=20, kind='stuck1'" \
+        in out
+    assert "# drill: 4 request(s) in" in out
+    assert "# chaos: PASS" in out
+    assert "quarantines=0" not in out
+    assert launch_counts()["decode_attention"] == 0
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", ARCH, "--device", "cpu", "--policy", "p.json"])
 

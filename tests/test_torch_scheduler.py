@@ -6,11 +6,13 @@ each, shed_depth 3, recover_depth 1) without a policy, both models on the
 same parameters (``params_from_reference``) in float32, where the point is
 the algorithm and not bf16 rounding (as in ``test_torch_model.py``): the
 event lists, the tokens each rung served and every request's tokens must
-be equal. Then the reference's non-chaos scheduler tests, ported (the
-chaos drills arm table faults, which wait for the fault subsystem), the
-watchdog's handling of ``GuardTripped`` from a rung's prefill or step, a
-guarded drill, and the one-cache pieces (``insert_cache`` against the
-reference's ``_insert_impl``; ``adopt_cache``). On a GPU each rung's
+be equal. Then the reference's scheduler tests, ported — its chaos drills
+(a table fault armed mid-flight, found by the table scrub) held to the
+reference's drill event for event and token for token, each package
+armed through its own ``faults.inject`` —, the watchdog's handling of
+``GuardTripped`` from a rung's prefill or step, a guarded drill, and the
+one-cache pieces (``insert_cache`` against the reference's
+``_insert_impl``; ``adopt_cache``). On a GPU each rung's
 prefill and step are CUDA graphs captured at warmup; ``chip_smoke.py``
 holds that drill to the eager one there. Here both run eagerly.
 """
@@ -25,9 +27,11 @@ import torch
 
 from repro.configs import get_config as r_get_config
 from repro.core.approx import ApproxConfig as RApprox
+from repro.faults import inject as r_inject
 from repro.launch import scheduler as r_sched
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core.approx import ApproxConfig as TApprox
+from repro_torch.faults.inject import FaultSpec, set_faults
 from repro_torch.kernels.registry import GuardTripped
 from repro_torch.launch import serve
 from repro_torch.launch.scheduler import (Scheduler, ServeLevel, coarse_step,
@@ -197,12 +201,25 @@ def test_scheduler_refuses_zero_length_prompt_loudly():
 
 
 def test_scheduler_scrub_is_not_ported():
-    """The table scrub needs the fault subsystem: asking for it raises
-    instead of serving without it."""
-    cfg, _ = _scheduler()
-    with pytest.raises(NotImplementedError, match="A-6"):
-        Scheduler(cfg, batch=2, prompt_len=P, shed_depth=3,
-                  recover_depth=1, scrub_every=1, device="cpu")
+    """The table scrub is ported (A-6): ``scrub_every=1`` is accepted, it
+    watches the reference's table identities, and with nothing armed it
+    scrubs clean every tick — the drill is the unscrubbed one, event for
+    event."""
+    _, plain = _scheduler(batch=2, requests=4, shed_depth=3)
+    _, scrubbed = _scheduler(batch=2, requests=4, shed_depth=3,
+                             scrub_every=1)
+    r_approx = RApprox(mode="simdive", use_in_softmax=True)
+    rs = r_sched.Scheduler(
+        r_get_config(ARCH, smoke=True).with_approx(r_approx),
+        levels=r_sched.default_ladder(r_approx), batch=2, prompt_len=P,
+        max_seq=P + 6, shed_depth=3, recover_depth=1, scrub_every=1)
+    assert scrubbed._scrub_idents == rs._scrub_idents != ()
+    plain.params = scrubbed.params
+    plain.warmup()
+    scrubbed.warmup()
+    a, b = plain.run(), scrubbed.run()
+    assert a == b and not b["poisoned"]
+    assert not any(k.startswith("scrub") for _, k, _ in b["events"])
 
 
 def test_scheduler_runs_on_the_card_unless_asked():
@@ -399,6 +416,119 @@ def test_guarded_drill_equals_unguarded():
     assert b["guard_trips"] == 0 and b["sheds"] >= 1
     assert a == b
     assert [r.tokens for r in plain.done] == [r.tokens for r in guarded.done]
+
+
+# ------------------------------------------------------------- chaos --
+CHAOS = dict(site="table", bit=20, kind="stuck1", op="div")
+
+
+def _both_chaos(requests, *, gen=4, **kw):
+    """The reference's scheduler and the port's on the same parameters
+    and prompts (float32, no policy), table scrub every tick: returns both
+    after warmup and one tick (the first admission in flight)."""
+    r_approx = RApprox(mode="simdive", use_in_softmax=True)
+    t_approx = TApprox(mode="simdive", use_in_softmax=True)
+    r_cfg = replace(r_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(r_approx)
+    t_cfg = replace(t_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(t_approx)
+    args = dict(batch=2, prompt_len=P, max_seq=P + gen + 2, shed_depth=100,
+                recover_depth=1, scrub_every=1, **kw)
+    rs = r_sched.Scheduler(r_cfg, levels=r_sched.default_ladder(r_approx),
+                           seed=0, **args)
+    params = params_from_reference(jax.tree.map(np.asarray, rs.params),
+                                   t_cfg)
+    ts = Scheduler(t_cfg, params, levels=default_ladder(t_approx),
+                   device="cpu", **args)
+    rng = np.random.default_rng(7)
+    for _ in range(requests):
+        prompt = rng.integers(0, r_cfg.vocab_size, P, dtype=np.int32)
+        rs.submit(prompt, max_new=gen)
+        ts.submit(prompt, max_new=gen)
+    rs.warmup()
+    ts.warmup()
+    rs.step()
+    ts.step()
+    return rs, ts
+
+
+def _arm_both(on: bool):
+    r_inject.set_faults([r_inject.FaultSpec(**CHAOS)] if on else [])
+    set_faults([FaultSpec(**CHAOS)] if on else [])
+
+
+def _same_drill(rs, r_stats, ts, t_stats):
+    assert t_stats["events"] == r_stats["events"]
+    assert t_stats == r_stats
+    assert {r.rid: r.tokens for r in ts.done} == \
+        {r.rid: r.tokens for r in rs.done}
+    assert {r.rid: r.levels for r in ts.done} == \
+        {r.rid: r.levels for r in rs.done}
+    assert [(r.rid, r.fail_reason) for r in ts.failed] == \
+        [(r.rid, r.fail_reason) for r in rs.failed]
+
+
+def test_scheduler_chaos_drill_self_heals():
+    """The reference's chaos drill: a persistent correction-table fault
+    lands mid-flight; the scrub quarantines poisoned work, retries it on
+    the exact recovery rung, and every admitted request completes — the
+    port's drill equal to the reference's event for event and token for
+    token."""
+    rs, ts = _both_chaos(6)
+    assert ts.levels[-1].name == "recovery"
+    _arm_both(True)
+    try:
+        r_stats, t_stats = rs.run(), ts.run()
+    finally:
+        _arm_both(False)
+    _same_drill(rs, r_stats, ts, t_stats)
+    assert t_stats["completed"] == 6 and t_stats["failed"] == 0
+    assert t_stats["quarantines"] >= 1 and t_stats["retries"] >= 1
+    assert t_stats["tokens_per_level"]["recovery"] > 0
+    for req in ts.done:
+        assert len(req.tokens) == req.max_new
+        if req.retries:
+            assert set(req.levels) == {"recovery"}
+    dirty = [v for _, k, v in t_stats["events"] if k == "scrub-dirty"]
+    assert dirty and "div" in dirty[0]
+
+
+def test_scheduler_scrub_clears_after_repair():
+    """Disarming the fault (configuration memory repaired) lifts the
+    recovery pin: the scrub logs a clean pass and later admissions run
+    the ladder again — as in the reference, event for event."""
+    rs, ts = _both_chaos(2)
+    _arm_both(True)
+    try:
+        rs.step()
+        ts.step()                    # scrub-dirty + quarantine
+        assert ts._poisoned and rs._poisoned
+    finally:
+        _arm_both(False)
+    r_stats, t_stats = rs.run(), ts.run()
+    _same_drill(rs, r_stats, ts, t_stats)
+    assert not t_stats["poisoned"]
+    kinds = [k for _, k, _ in t_stats["events"]]
+    assert kinds.index("scrub-dirty") < kinds.index("scrub-clean")
+    assert t_stats["completed"] == 2 and t_stats["failed"] == 0
+
+
+def test_scheduler_exhausted_retries_fail_loudly():
+    """max_retries=0: the first quarantine fails the request outright,
+    with a reason, never in done — as in the reference."""
+    rs, ts = _both_chaos(2, max_retries=0)
+    _arm_both(True)
+    try:
+        r_stats, t_stats = rs.run(), ts.run()
+    finally:
+        _arm_both(False)
+    _same_drill(rs, r_stats, ts, t_stats)
+    assert t_stats["failed"] == 2 and t_stats["completed"] == 0
+    assert t_stats["quarantines"] == 2 and t_stats["retries"] == 0
+    for req in ts.failed:
+        assert req.failed and req.fail_reason.startswith("table scrub: ")
+        assert req.tokens == []
+    assert [k for _, k, _ in t_stats["events"]].count("fail") == 2
 
 
 # -------------------------------------------------------- one cache --
