@@ -237,6 +237,41 @@ any phase fails. Phases:
               ``launches_chaos``). Last: nothing armed, and every kernel
               at phase 3's main-path shapes bit-equal to its output
               before phase 7.
+8. policy   — the tuner's selection layer and ``serve --policy`` on the
+              card. (a) ``tuning.build_policy(("mul", "div"), width=8)``
+              and a width-16 ``select_config`` with their error sweeps
+              on the card: one ``elemwise`` launch per (op, width,
+              coeff_bits) measured, every entry (stats included) equal
+              to the same calls on the plain versions to 1e-12 relative,
+              the policy saved and loaded again unchanged. (b) A
+              ``simdive-policy/v1`` file of three layer segments
+              (``POLICY_SEGMENTS``: attention dividers w16 cb6 q15, cb4
+              q12 and cb5 with frac_out unset; backends ``pallas`` and
+              ``auto``) loaded as ``serve --policy`` loads it and served
+              at full width, batch 4, prompt 512, 32 tokens: the plan's
+              rows equal the file's; ``flash_attention`` (both schedules)
+              and ``decode_attention`` within phase 3's tolerances of
+              their plain versions at every divider spec of the policy,
+              at the serving shapes; the last segment's table made by
+              the prefill's warm run, before the capture, and never made
+              again; the captured generate ``torch.equal`` to the eager
+              one with 32 attention launches a prefill, 32
+              decode_attention a step and one capture of each; within
+              phase 4's tolerances of the same file with every backend
+              rewritten to ``ref`` (the plain versions on the card); and
+              a policy pinning the config's own divider ``torch.equal``
+              to the policy-free run. (c) ``--emulate`` with per-segment
+              matmul entries (w8 cb6 / cb2 / cb8): 224 ``logmatmul``
+              launches a prefill and a step, captured equal to eager.
+              (d) ``serve --scheduler --policy`` with phase 6's gates
+              (the fine rung carries the policy, the shed and recovery
+              rungs drop it; captured == eager == guarded; four requests
+              == ``generate``) and ``serve --chaos --policy`` with phase
+              7 (d)'s, the scrub's table identities covering every
+              segment's tables. Printed: the build's seconds, the plans,
+              the policy generate captured and eager, the prefill and
+              step replays, the drills' ms and tok/s, and the launches of
+              each path (also in the kernels line, ``launches_policy*``).
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -410,6 +445,28 @@ MATMUL_RING_BLOCK = (4, 128, 256, 4, 2)
 # registered blocks
 SQUARE_BLOCKS = ((64, 64, 32, 4, 0), (64, 64, 32, 4, 2), (64, 64, 32, 4, 4),
                  (16, 64, 64, 4, 0), (16, 64, 64, 4, 3))
+# phase 8: the served policy's layer segments [lo, hi) of smollm-360m's 32
+# layers, each with its attention divider entry and, on --emulate, its
+# matmul entry. The first is the config's own divider written out with
+# the policy files' name of the kernel, 'pallas'; the second its own
+# coeff_bits and frac_out, backend 'auto'; the third coeff_bits 5 — a
+# table no earlier phase reads — and no frac_out (the config's 15 stands).
+# The dividers keep 16-bit lanes: phase 4's tolerances against the plain
+# versions are derived for 16-bit divider operands (an 8-bit operand's
+# unit is 2^-7 of its row's scale, which bf16 round-off moves). The
+# matmul entries keep 8-bit lanes (16-bit magnitudes overflow the int32
+# sums of a 960-long dot product)
+POLICY_SEGMENTS = (
+    (0, 10, dict(width=16, coeff_bits=6, frac_out=15, backend="pallas"),
+     dict(width=8, coeff_bits=6, backend="pallas")),
+    (10, 21, dict(width=16, coeff_bits=4, frac_out=12, backend="auto"),
+     dict(width=8, coeff_bits=2, backend="auto")),
+    (21, 32, dict(width=16, coeff_bits=5, backend="pallas"),
+     dict(width=8, coeff_bits=8, backend="pallas")),
+)
+# phase 8 (a): the error budget (ARE %) the policies are built for
+POLICY_BUDGET = 1.2
+
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
            ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
@@ -1699,19 +1756,9 @@ def serve_main_path(dev):
     reset_launch_counts()
 
     # the same model through the plain versions, fed the same tokens
-    ref_cfg = serve.serving_config(ARCH, approx="simdive", backend="ref")
-    ref_lm = build(ref_cfg)
-    ref_logits, cache = ref_lm.prefill(params, {"tokens": prompts})
-    cache = serve.merge_cache(ref_lm.empty_cache(BATCH, max_seq), cache)
-    ref_all = [ref_logits]
-    for i in range(GEN - 1):
-        ref_logits, cache = ref_lm.decode_step(params, cache, tokens[:, i],
-                                               PROMPT + i)
-        ref_all.append(ref_logits)
-    ref_all = torch.stack(ref_all, dim=1).to(torch.float32)
-    torch.cuda.synchronize()
-    require(not any(launch_counts().values()),
-            "the plain-version run launched a kernel")
+    ref_lm = build(serve.serving_config(ARCH, approx="simdive",
+                                        backend="ref"))
+    ref_all = plain_logits(ref_lm, params, prompts, tokens)
     err = (logits - ref_all).abs()
     prefill_err, decode_err = float(err[:, 0].max()), float(err[:, 1:].max())
     top2 = ref_all.topk(2, dim=-1).values
@@ -1968,9 +2015,10 @@ def serve_emulate_path(dev, params, prompts):
         """A serving policy that keeps the attention op (the prefill's
         flash kernel, the decode step's decode_attention kernel) on its
         CUDA kernels, same divider config, and leaves every other op to
-        the config."""
+        the config. Its backend is the policy files' name of the kernel,
+        'pallas', which the port serves as 'cuda'."""
         entry = SimpleNamespace(width=spec.width, coeff_bits=spec.coeff_bits,
-                                index_bits=spec.index_bits, backend="cuda",
+                                index_bits=spec.index_bits, backend="pallas",
                                 frac_out=frac_out)
 
         def lookup(self, op, layer):
@@ -2951,15 +2999,82 @@ def run_drill(name, sched, requests):
                 admissions=admissions)
 
 
+def drill_equivalents(dev, cfg, params, tokens, events, tag) -> tuple:
+    """The drill's other forms against its captured run's ``events`` and
+    ``tokens``: (b) the same drill eager (``lm.prefill``,
+    ``lm.decode_step``), bit for bit; (c) guarded (``ApproxConfig(guard=
+    True)``) on every rung — each capture's eager warm run is checked, the
+    captures pass unchecked, replays are not calls — with no trip and the
+    same events and tokens; (d) one admission filling all four slots,
+    each row's tokens equal to ``generate``'s at the fine rung on the
+    same prompts. Returns the eager drill's numbers and the guard's
+    counts."""
+    from dataclasses import replace as dc_replace
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+
+    who = f"drill {tag}".rstrip()
+    eager = _drill_scheduler(cfg, DRILL_REQUESTS, params=params, eager=True)
+    e = run_drill(f"{tag}eager", eager, DRILL_REQUESTS)
+    require(e["stats"]["events"] == events,
+            f"{who}: captured and eager events differ")
+    require(_drill_tokens(eager) == tokens,
+            f"{who}: captured and eager tokens differ")
+    del eager
+
+    seen = {"checked": 0, "under_capture": 0}
+    real_check = registry._guard_check
+
+    def counting(*args, **kw):
+        seen["under_capture" if registry._capturing() else "checked"] += 1
+        return real_check(*args, **kw)
+
+    registry._guard_check = counting
+    try:
+        cfg_g = cfg.with_approx(dc_replace(cfg.approx, guard=True))
+        guarded = _drill_scheduler(cfg_g, DRILL_REQUESTS, params=params)
+        g = run_drill(f"{tag}guarded", guarded, DRILL_REQUESTS)
+    finally:
+        registry._guard_check = real_check
+    require(g["stats"]["guard_trips"] == 0,
+            f"{who}: guarded drill tripped {g['stats']['guard_trips']} "
+            "times")
+    require(g["stats"]["events"] == events and
+            _drill_tokens(guarded) == tokens,
+            f"{who}: the guarded drill differs from the unguarded one")
+    require(seen["checked"] > 0 and seen["under_capture"] > 0,
+            f"{who}: guard checks {seen}")
+    log(f"  drill {tag}guarded: {seen['checked']} outputs checked (the warm "
+        f"runs), {seen['under_capture']} passed under capture, no trip; "
+        "events and tokens equal to the unguarded drill")
+    del guarded
+
+    four = _drill_scheduler(cfg, BATCH, params=params,
+                            shed_depth=BATCH + 1)
+    four.warmup()
+    reqs = list(four.queue)
+    four.run()
+    want = serve.generate(four.lms[0], params, torch.from_numpy(
+        np.stack([r.prompt for r in reqs])).to(dev), PROMPT + GEN, GEN)
+    require(torch.equal(torch.tensor([r.tokens for r in reqs]), want.cpu()),
+            f"{who}: four requests admitted together differ from "
+            "generate")
+    require(all(set(r.levels) == {"fine"} for r in reqs),
+            f"{who}: the four-request drill left the fine rung")
+    log(f"  {who}: four requests in one admission == generate on the "
+        "same prompts (torch.equal)")
+    return e, seen
+
+
 def scheduler_drill(dev):
     """Phase 6: ``serve --scheduler``'s drill at full width, through the
     port's entry points (``launch.scheduler.Scheduler``), with its gates;
     then the same drill eager, guarded and with ``--emulate``."""
     import gc
-    from dataclasses import replace as dc_replace
     import numpy as np
     import torch
-    from repro_torch.kernels import registry
     from repro_torch.launch import serve
     from repro_torch.metrics.timing import time_callable
 
@@ -3010,63 +3125,9 @@ def scheduler_drill(dev):
     tokens = _drill_tokens(sched)
     events = drill["stats"]["events"]
 
-    # (b) the same drill eager (lm.prefill, lm.decode_step): the captured
-    # drill's events and tokens, bit for bit
-    eager = _drill_scheduler(cfg, DRILL_REQUESTS, params=params, eager=True)
-    e = run_drill("eager", eager, DRILL_REQUESTS)
-    require(e["stats"]["events"] == events,
-            "drill: captured and eager events differ")
-    require(_drill_tokens(eager) == tokens,
-            "drill: captured and eager tokens differ")
+    e, seen = drill_equivalents(dev, cfg, params, tokens, events, "")
     out["drill_eager_ms"] = e["wall_ms"]
-    del eager
-
-    # (c) guarded (ApproxConfig(guard=True)) on every rung: each capture's
-    # eager warm run is checked, the captures pass unchecked, replays are
-    # not calls; no trip, the unguarded drill's events and tokens
-    seen = {"checked": 0, "under_capture": 0}
-    real_check = registry._guard_check
-
-    def counting(*args, **kw):
-        seen["under_capture" if registry._capturing() else "checked"] += 1
-        return real_check(*args, **kw)
-
-    registry._guard_check = counting
-    try:
-        cfg_g = cfg.with_approx(dc_replace(cfg.approx, guard=True))
-        guarded = _drill_scheduler(cfg_g, DRILL_REQUESTS, params=params)
-        g = run_drill("guarded", guarded, DRILL_REQUESTS)
-    finally:
-        registry._guard_check = real_check
-    require(g["stats"]["guard_trips"] == 0,
-            f"drill: guarded drill tripped {g['stats']['guard_trips']} times")
-    require(g["stats"]["events"] == events and
-            _drill_tokens(guarded) == tokens,
-            "drill: the guarded drill differs from the unguarded one")
-    require(seen["checked"] > 0 and seen["under_capture"] > 0,
-            f"drill: guard checks {seen}")
-    log(f"  drill guarded: {seen['checked']} outputs checked (the warm "
-        f"runs), {seen['under_capture']} passed under capture, no trip; "
-        "events and tokens equal to the unguarded drill")
     out["drill_guard_checks"] = seen
-    del guarded
-
-    # (d) one admission fills all four slots: each row's tokens equal
-    # generate's at the fine rung on the same prompts
-    four = _drill_scheduler(cfg, BATCH, params=params,
-                            shed_depth=BATCH + 1)
-    four.warmup()
-    reqs = list(four.queue)
-    four.run()
-    want = serve.generate(four.lms[0], params, torch.from_numpy(
-        np.stack([r.prompt for r in reqs])).to(dev), PROMPT + GEN, GEN)
-    require(torch.equal(torch.tensor([r.tokens for r in reqs]), want.cpu()),
-            "drill: four requests admitted together differ from generate")
-    require(all(set(r.levels) == {"fine"} for r in reqs),
-            "drill: the four-request drill left the fine rung")
-    log("  drill: four requests in one admission == generate on the same "
-        "prompts (torch.equal)")
-    del four
 
     # (e) --emulate: every linear through logmatmul on the fine and shed
     # rungs (the shed rung at Mitchell), fewer requests
@@ -3517,6 +3578,25 @@ def run_chaos(name, sched, requests) -> dict:
                 tok_per_s=stats["tokens"] / wall_s)
 
 
+def chaos_pair(cfg, params, requests, tag) -> tuple:
+    """``serve --chaos`` for ``cfg``, captured and eager (scrub every tick,
+    the chaos fault armed after the first tick), each with
+    :func:`run_chaos`'s gates and equal event for event and token for
+    token. Returns both drills' numbers and the scrub's identities."""
+    sched = _drill_scheduler(cfg, requests, params=params, scrub_every=1)
+    c = run_chaos(f"{tag}captured", sched, requests)
+    eager = _drill_scheduler(cfg, requests, params=params, eager=True,
+                             scrub_every=1)
+    e = run_chaos(f"{tag}eager", eager, requests)
+    require(e["stats"]["events"] == c["stats"]["events"]
+            and _drill_tokens(eager) == _drill_tokens(sched),
+            f"chaos {tag}: the captured drill's events or tokens differ "
+            "from the eager drill's")
+    log(f"  chaos {tag.rstrip(' _') or 'divider'}: captured == eager, event "
+        "for event and token for token")
+    return c, e, sched._scrub_idents
+
+
 def chaos_drill(dev, params) -> dict:
     """Phase 7 (d): ``serve --chaos`` at full width — the scheduler drill
     with the table scrub every tick and the chaos fault armed after the
@@ -3538,17 +3618,7 @@ def chaos_drill(dev, params) -> dict:
                                    ("emulate_", True,
                                     DRILL_EMULATE_REQUESTS)):
         cfg = serve.serving_config(ARCH, approx="simdive", emulate=emulate)
-        sched = _drill_scheduler(cfg, requests, params=params, scrub_every=1)
-        c = run_chaos(f"{tag}captured", sched, requests)
-        eager = _drill_scheduler(cfg, requests, params=params, eager=True,
-                                 scrub_every=1)
-        e = run_chaos(f"{tag}eager", eager, requests)
-        require(e["stats"]["events"] == c["stats"]["events"]
-                and _drill_tokens(eager) == _drill_tokens(sched),
-                f"chaos {tag}: the captured drill's events or tokens differ "
-                "from the eager drill's")
-        log(f"  chaos {tag or 'divider'}: captured == eager, event for event "
-            "and token for token")
+        c, e, idents = chaos_pair(cfg, params, requests, tag)
         out.update({f"chaos_{tag}ms": c["wall_ms"],
                     f"chaos_{tag}ticks": c["stats"]["ticks"],
                     f"chaos_{tag}tok_per_s": c["tok_per_s"],
@@ -3557,7 +3627,6 @@ def chaos_drill(dev, params) -> dict:
                     f"chaos_{tag}retries": c["stats"]["retries"]})
         out[f"launches_chaos{'_' + tag[:-1] if tag else ''}"] = c["counts"]
         if not emulate:
-            idents = sched._scrub_idents
             scrub_tables(idents)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3583,7 +3652,6 @@ def chaos_drill(dev, params) -> dict:
                 f"{out['set_faults_arm_ms']:.3f} ms, disarm "
                 f"{out['set_faults_disarm_ms']:.3f} ms (best of 5, "
                 "synchronised)")
-        del sched, eager
         gc.collect()
     return out
 
@@ -3665,6 +3733,506 @@ def fault_phase(dev, params) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 8: policy --
+def segment_policy(*, matmul: bool, backend: str | None = None):
+    """The layer-segmented policy phase 8 serves (POLICY_SEGMENTS): each
+    segment's attention divider entry and, with ``matmul``, its matmul
+    entry; the first segment's entries are the op defaults, the others
+    one entry a layer. ``backend`` rewrites every entry's backend."""
+    from repro_torch.core.approx import layer_label
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    entries = []
+    for i, (lo, hi, att, mm) in enumerate(POLICY_SEGMENTS):
+        ops = [("attention", att)]
+        if matmul:
+            ops.append(("matmul", dict(mm, kernel="matmul")))
+        layers = [None] if i == 0 else [layer_label(j) for j in range(lo, hi)]
+        for op, kw in ops:
+            kw = dict(kw, backend=backend or kw["backend"])
+            entries += [PolicyEntry(op=op, layer=layer, **kw)
+                        for layer in layers]
+    return TuningPolicy(entries=tuple(entries),
+                        meta=(("source", "chip_smoke.py phase 8"),))
+
+
+def _saved_and_loaded(policy):
+    """``policy`` through a simdive-policy/v1 file, as ``serve --policy``
+    reads one; the loaded policy must equal it, JSON and all."""
+    import os
+    import tempfile
+    from repro_torch.tuning import TuningPolicy
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "policy.json")
+        policy.save(path)
+        loaded = TuningPolicy.load(path)
+    require(loaded == policy and loaded.to_json() == policy.to_json()
+            and hash(loaded) == hash(policy),
+            "a policy saved and loaded again differs from itself")
+    return loaded
+
+
+def policy_build(dev) -> dict:
+    """Phase 8 (a): ``build_policy(("mul", "div"), width=8)`` and a width-16
+    ``select_config`` on the card, each error sweep through the elemwise
+    kernel (one launch per (op, width, coeff_bits) measured), held to the
+    same calls on the plain versions (``device="cpu"``) to BENCH_REL_TOL;
+    the policy saved and loaded again unchanged."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tuning import build_policy, default_bench_path
+    from repro_torch.tuning import frontier, select_config
+
+    # phase 4 (e) measured two of these configs on the card already: the
+    # memo goes, so that every (op, width, coeff_bits) runs here once
+    frontier._ERROR_CACHE.clear()
+    sweep = frontier.DEFAULT_COEFF_SWEEP
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pol = build_policy(("mul", "div"), error_budget=POLICY_BUDGET, width=8,
+                       device=dev)
+    e16 = select_config("div", error_budget=POLICY_BUDGET, width=16,
+                        device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = launch_counts()
+    measured = 3 * len(sweep)                # mul w8, div w8, div w16
+    require(counts["elemwise"] == measured
+            and sum(counts.values()) == measured,
+            f"policy build: launches {counts}, expected {measured} elemwise, "
+            "one per (op, width, coeff_bits) measured")
+    cpu = build_policy(("mul", "div"), error_budget=POLICY_BUDGET, width=8,
+                       device="cpu").entries + (select_config(
+                           "div", error_budget=POLICY_BUDGET, width=16,
+                           device="cpu"),)
+    for got, want in zip(pol.entries + (e16,), cpu):
+        g, w = got.as_dict(), want.as_dict()
+        gs, ws = g.pop("stats"), w.pop("stats")
+        require(g == w and gs.keys() == ws.keys(),
+                f"policy build: {got.label()} on the card, {want.label()} "
+                "on the plain versions")
+        for k, v in ws.items():
+            ok = gs[k] == v if isinstance(v, str) else \
+                abs(gs[k] - v) <= BENCH_REL_TOL * abs(v)
+            require(ok, f"policy build {got.label()} {k}: {gs[k]!r} on the "
+                        f"card, {v!r} on the plain versions")
+        require(got.backend == "auto" and gs["are_pct"] <= POLICY_BUDGET,
+                f"policy build: {got.label()} {gs}")
+    policy = pol.with_entries(e16)
+    _saved_and_loaded(policy)
+    log(f"  (a) policy built on the card in {build_s:.2f}s ({measured} error "
+        f"sweeps, launches {counts}; timings joined from "
+        f"{default_bench_path() or 'no file: no BENCH_simdive_torch.json'}"
+        "), entries equal to the plain versions' "
+        f"to {BENCH_REL_TOL:g} relative:")
+    log("\n".join(f"    {line}" for line in policy.render().splitlines()))
+    return dict(policy_build_s=build_s, policy_build_launches=counts,
+                policy_entries=[e.label() for e in policy.entries])
+
+
+def check_policy_plan(cfg, policy, segments) -> None:
+    """The serving plan's rows against the policy file: the expected layer
+    segments, and each row's width / coeff_bits / index_bits / frac_out /
+    backend the entry's that every layer of the row looks up (the
+    backend mapped: 'pallas' serves as 'cuda'), or the config's own where
+    no entry exists."""
+    from repro_torch.core.approx import layer_label, serving_segments
+    from repro_torch.launch import serve
+    from repro_torch.tuning.select import port_backend
+
+    approx = cfg.approx
+    got = [(lo, hi) for lo, hi, _ in serving_segments(approx, cfg.n_layers)]
+    require(got == list(segments), f"policy segments {got}, expected "
+                                   f"{list(segments)}")
+    plan = serve.resolve_serving_plan(cfg)
+    require(len(plan) == 3 * len(segments), f"plan has {len(plan)} rows")
+    for row in plan:
+        entries = {policy.lookup(row.op, layer_label(i))
+                   for i in range(row.layer_lo, row.layer_hi)}
+        entries = {e and replace(e, layer=None) for e in entries}
+        require(len(entries) == 1, f"plan row {row.label()}: its layers "
+                                   "look up different configs")
+        entry = entries.pop()
+        if entry is None:
+            spec, backend = approx.resolve(
+                row.op, approx.div_width if row.op == "div" else None)
+            want = (spec.width, spec.coeff_bits, spec.index_bits, backend,
+                    approx.frac_out if row.op == "div" else None, "config")
+        else:
+            frac = None if row.op == "matmul" else approx.frac_out
+            if row.op == "attention" and entry.frac_out:
+                frac = entry.frac_out
+            want = (entry.width, entry.coeff_bits, entry.index_bits,
+                    port_backend(entry.backend), frac, "policy")
+        have = (row.width, row.coeff_bits, row.index_bits, row.backend,
+                row.frac_out, row.source)
+        require(have == want, f"plan row {row.label()}: {have}, the file "
+                              f"says {want}")
+
+
+def policy_kernels(dev, cfg) -> dict:
+    """``flash_attention`` (both registered schedules) and
+    ``decode_attention`` against their plain versions at every attention
+    divider spec the served policy resolves to, at the serving shapes:
+    the prefill's q (60, 512, 64), kv (20, 512, 64) bf16, causal, and the
+    decode step's q (4, 5, 3, 64), caches (4, 544, 5, 64), pos 527 (three
+    draws pooled, as phase 3 judges that shape). Returns the worst error
+    per kernel."""
+    import torch
+    from repro_torch.core.approx import serving_segments
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    specs = []
+    for _, _, acfg in serving_segments(cfg.approx, cfg.n_layers):
+        spec, _, frac = acfg.resolve_attention()
+        if (spec, frac) not in specs:
+            specs.append((spec, frac))
+    errs = {"attention": 0.0, "decode_attention": 0.0}
+    for spec, frac in specs:
+        name = (f"w{spec.width} cb{spec.coeff_bits} ib{spec.index_bits} "
+                f"q{frac}")
+        q, k, v = (randn(BATCH * 15, PROMPT, 64),
+                   randn(BATCH * 5, PROMPT, 64), randn(BATCH * 5, PROMPT, 64))
+        args = dict(spec=spec, approx_div=True, frac_out=frac, causal=True,
+                    kv_group=3)
+        want = fa.flash_attention_ref(q, k, v, **args)
+        got = fa.flash_attention_cuda(q, k, v, block=fa.DEFAULT_BLOCK, **args)
+        ring = fa.flash_attention_cuda(q, k, v, block=ATTENTION_RING_BLOCK,
+                                       **args)
+        torch.cuda.synchronize()
+        require(torch.equal(ring, got), f"attention {name}: the ring differs "
+                                        "from the depth-0 kernel")
+        err, _ = judge_attention(f"policy {name}", got, want, bf16, True)
+        errs["attention"] = max(errs["attention"], err)
+        gots, wants = [], []
+        for _ in range(3):
+            dq, kc, vc = (randn(BATCH, 5, 3, 64),
+                          randn(BATCH, PROMPT + GEN, 5, 64),
+                          randn(BATCH, PROMPT + GEN, 5, 64))
+            kn, vn = randn(BATCH, 1, 5, 64), randn(BATCH, 1, 5, 64)
+            kw = dict(pos=PROMPT + 15, slot=PROMPT + 15, spec=spec,
+                      approx_div=True, frac_out=frac)
+            wants.append(da.decode_attention_ref(dq, kc, vc, kn, vn, **kw
+                                                 ).flatten())
+            gots.append(da.decode_attention_cuda(dq, kc, vc, kn, vn, **kw
+                                                 ).flatten())
+        derr, _ = judge_attention(f"policy decode {name}", torch.cat(gots),
+                                  torch.cat(wants), bf16, True)
+        errs["decode_attention"] = max(errs["decode_attention"], derr)
+        log(f"  policy spec {name}: flash_attention (depth 0 = ring) "
+            f"max_abs_err {err:.3e}, decode_attention {derr:.3e}")
+    return errs
+
+
+def plain_logits(ref_lm, params, prompts, tokens):
+    """``ref_lm`` (every op on its plain version) fed ``tokens``: the
+    prefill's and each decode step's logits, float32 (batch, gen,
+    vocab); no kernel may launch."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    reset_launch_counts()
+    gen = tokens.shape[1]
+    logits, cache = ref_lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(
+        ref_lm.empty_cache(prompts.shape[0], prompts.shape[1] + gen), cache)
+    out = [logits]
+    for i in range(gen - 1):
+        logits, cache = ref_lm.decode_step(params, cache, tokens[:, i],
+                                           prompts.shape[1] + i)
+        out.append(logits)
+    out = torch.stack(out, dim=1).to(torch.float32)
+    torch.cuda.synchronize()
+    require(not any(launch_counts().values()),
+            "the plain-version run launched a kernel")
+    return out
+
+
+def judge_logits(what, logits, tokens, ref_all, tol) -> dict:
+    """Logits within ``tol`` of the plain-version run's, and every greedy
+    token whose top-2 margin there exceeds twice ``tol`` equal."""
+    err = float((logits - ref_all).abs().max())
+    top2 = ref_all.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    agree = tokens == ref_all.argmax(-1)
+    log(f"  {what} vs plain versions: logits max_abs_err {err:.4f}; tokens "
+        f"equal {int(agree.sum())}/{agree.numel()}, decided by margin "
+        f"{int(decided.sum())}")
+    require(err <= tol, f"{what}: logits differ from the plain-version run "
+                        f"by {err:.4f} > {tol}")
+    require(bool((agree | ~decided).all()),
+            f"{what}: a greedy token decided by more than twice the logit "
+            "tolerance differs from the plain-version run")
+    return dict(logit_err=err, tokens_equal=int(agree.sum()),
+                tokens_decided=int(decided.sum()))
+
+
+def policy_generate(dev, lm, params, prompts, what, *, linears=0) -> dict:
+    """The captured generate of a policy's ``lm``: the first call captures
+    the prefill and the step once each, the second replays them with the
+    launch counts zeroed just before and read just after (32 attention a
+    prefill, 32 decode_attention a step, ``linears`` logmatmul each, no
+    elemwise), equal to the eager prefill and loop (the same launches,
+    tokens and logits ``torch.equal``), and one replayed prefill equal to
+    the eager ``lm.prefill``."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    n = lm.cfg.n_layers
+    max_seq = PROMPT + GEN
+    step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
+    t0 = time.perf_counter()
+    serve.generate(lm, params, prompts, max_seq, GEN)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(step.captures == 1 and pstep.captures == 1,
+            f"{what}: the first generate captured {pstep.captures} prefills "
+            f"and {step.captures} steps, expected one each")
+    reset_launch_counts()
+    tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
+                                    return_logits=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(step.captures == 1 and pstep.captures == 1,
+            f"{what}: the second generate captured again")
+    require(_attention_launches(counts) == n
+            and counts["decode_attention"] == n * (GEN - 1)
+            and _matmul_launches(counts) == linears * GEN
+            and counts["elemwise"] == 0 and counts["packed"] == 0,
+            f"{what}: launches {counts}, expected {n} attention, {n} "
+            f"decode_attention per step x {GEN - 1} and {linears} logmatmul "
+            f"per prefill and step")
+    require(bool(torch.isfinite(logits).all())
+            and int(tokens.min()) >= 0
+            and int(tokens.max()) < lm.cfg.vocab_size, f"{what}: bad output")
+    reset_launch_counts()
+    eager_tok, eager_logits = serve.generate(
+        lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
+        decode_fn=lm.decode_step, return_logits=True)
+    torch.cuda.synchronize()
+    require(launch_counts() == counts,
+            f"{what}: the eager generate launched {launch_counts()}, the "
+            f"captured one {counts}")
+    require(torch.equal(eager_tok, tokens)
+            and torch.equal(eager_logits, logits),
+            f"{what}: the captured and the eager generate differ")
+    log(f"  {what}: captured (prefill and step) vs eager generate: tokens "
+        f"and logits torch.equal; launches {counts}")
+    prefill_counts = check_prefill_replay(lm, params, prompts, what)
+    require(_matmul_launches(prefill_counts) == linears,
+            f"{what}: one prefill launched {prefill_counts}")
+    return dict(tokens=tokens, logits=logits, counts=counts,
+                first_generate_s=first_s)
+
+
+def policy_times(dev, lm, params, prompts) -> dict:
+    """The policy's generate, captured and eager (``time_callable``, best
+    of 3 / 2), and its prefill and decode step replayed back to back (the
+    card's pace)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+
+    max_seq = PROMPT + GEN
+    step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
+    batch = {"tokens": prompts}
+    captured = time_callable(lambda: serve.generate(
+        lm, params, prompts, max_seq, GEN), iters=3, device=dev)
+    eager = time_callable(lambda: serve.generate(
+        lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
+        decode_fn=lm.decode_step), iters=2, device=dev)
+    prefill_ms = gpu_time_ms(lambda: pstep(params, batch), iters=10)
+    lg, pre = pstep(params, batch)
+    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    tok = lg.argmax(-1)
+    step_ms = gpu_time_ms(lambda: step(params, own, tok, PROMPT), iters=20)
+    torch.cuda.synchronize()
+    return dict(policy_generate_captured_ms=captured.best_s * 1e3,
+                policy_generate_eager_ms=eager.best_s * 1e3,
+                policy_prefill_replay_ms=prefill_ms,
+                policy_decode_step_replay_ms=step_ms)
+
+
+def policy_serve(dev, params, prompts) -> dict:
+    """Phase 8 (b) and (c): the layer-segmented policy file served at full
+    width, divider only and ``--emulate``, captured equal to eager, held
+    to the all-plain run of the same file and, for a policy that pins the
+    config's own divider, to the policy-free run."""
+    import torch
+    from repro_torch.core.error_lut import materialized_tables
+    from repro_torch.launch import serve
+    from repro_torch.metrics.timing import time_callable
+    from repro_torch.models import build
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    segments = [(lo, hi) for lo, hi, _, _ in POLICY_SEGMENTS]
+    policy = _saved_and_loaded(segment_policy(matmul=False))
+    log(f"  (b) policy file: {len(policy.entries)} entries, "
+        f"{len(policy.distinct_configs())} distinct dispatch config(s)")
+    cfg = serve.serving_config(ARCH, policy=policy)   # serve --policy PATH
+    require(cfg.approx.mode == "simdive" and cfg.approx.policy is policy,
+            "--policy did not make the config simdive")
+    log(serve.render_plan(serve.resolve_serving_plan(cfg), cfg))
+    check_policy_plan(cfg, policy, segments)
+
+    # the last segment's divider table: read by no earlier phase, made by
+    # the prefill's warm run before its capture, the same tensor after
+    last = POLICY_SEGMENTS[-1][2]
+    key = ("div", last["width"], last["coeff_bits"], 3)
+
+    def table_ptrs():
+        return {k: t.data_ptr() for k, t in materialized_tables().items()
+                if k[:4] == key and k[4].type == "cuda"}
+
+    require(not table_ptrs(), f"table {key} was read before phase 8")
+    lm = build(cfg)
+    run = policy_generate(dev, lm, params, prompts, "policy")
+    ptrs = table_ptrs()
+    require(len(ptrs) == 1, f"table {key} on the card: {ptrs}")
+    out = policy_times(dev, lm, params, prompts)
+    errs = policy_kernels(dev, cfg)     # adds the plain versions' copy
+    require(all(table_ptrs()[k] == p for k, p in ptrs.items()),
+            f"table {key} was made anew")
+
+    # the same file, every backend rewritten to 'ref': the plain versions
+    # on the card, fed the same tokens
+    ref_policy = segment_policy(matmul=False, backend="ref")
+    ref_lm = build(serve.serving_config(ARCH, backend="ref",
+                                        policy=ref_policy))
+    require({row.backend for row in serve.resolve_serving_plan(ref_lm.cfg)}
+            == {"ref"}, "the rewritten policy's plan is not all 'ref'")
+    ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
+    out.update({f"policy_{k}": v for k, v in judge_logits(
+        "policy", run["logits"], run["tokens"], ref_all, LOGIT_TOL).items()})
+    del ref_lm, ref_all
+
+    # a policy pinning exactly the config's own divider serves the
+    # policy-free tokens and logits, bit for bit
+    base = serve.serving_config(ARCH, approx="simdive")
+    spec, _, frac = base.approx.resolve_attention()
+    same = TuningPolicy(entries=(PolicyEntry(
+        op="attention", width=spec.width, coeff_bits=spec.coeff_bits,
+        index_bits=spec.index_bits, frac_out=frac),))
+    toks = {}
+    for name, c in (("policy-free", base),
+                    ("defaults-policy", serve.serving_config(
+                        ARCH, approx="simdive", policy=same))):
+        toks[name] = serve.generate(build(c), params, prompts, PROMPT + GEN,
+                                    GEN, return_logits=True)
+    (t0, l0), (t1, l1) = toks.values()
+    require(torch.equal(t0, t1) and torch.equal(l0, l1),
+            "a policy pinning the config's own divider serves other tokens "
+            "or logits than no policy")
+    log("  a policy pinning the config's own divider: tokens and logits "
+        "torch.equal to the policy-free run's")
+    del toks
+
+    # (c) --emulate: per-segment matmul entries besides the dividers
+    policy_e = _saved_and_loaded(segment_policy(matmul=True))
+    cfg_e = serve.serving_config(ARCH, emulate=True, policy=policy_e)
+    log(serve.render_plan(serve.resolve_serving_plan(cfg_e), cfg_e))
+    check_policy_plan(cfg_e, policy_e, segments)
+    lm_e = build(cfg_e)
+    linears = len(LINEARS) * cfg_e.n_layers                  # 224
+    run_e = policy_generate(dev, lm_e, params, prompts, "policy --emulate",
+                            linears=linears)
+    out["policy_emulate_generate_captured_ms"] = time_callable(
+        lambda: serve.generate(lm_e, params, prompts, PROMPT + GEN, GEN),
+        iters=2, device=dev).best_s * 1e3
+    out.update(policy_emulate_first_generate_s=run_e["first_generate_s"],
+               policy_first_generate_s=run["first_generate_s"],
+               policy_attention_max_abs_err=errs["attention"],
+               policy_decode_attention_max_abs_err=errs["decode_attention"])
+    out["launches_policy"] = run["counts"]
+    out["launches_policy_emulate"] = run_e["counts"]
+    log(f"  policy generate: captured {out['policy_generate_captured_ms']:.2f}"
+        f" ms, eager {out['policy_generate_eager_ms']:.2f} ms; prefill "
+        f"replay {out['policy_prefill_replay_ms']:.3f} ms, decode step "
+        f"replay {out['policy_decode_step_replay_ms']:.3f} ms; --emulate "
+        f"generate captured {out['policy_emulate_generate_captured_ms']:.1f}"
+        " ms")
+    return out, cfg
+
+
+def policy_drills(dev, cfg, params) -> dict:
+    """Phase 8 (d): ``serve --scheduler --policy`` with phase 6's gates
+    (captured, eager and guarded drills equal, four requests ==
+    ``generate``) and ``serve --chaos --policy`` with phase 7 (d)'s
+    (captured == eager), the scrub's table identities covering every
+    layer segment's tables."""
+    import gc
+    from repro_torch.faults.scrub import config_table_identities
+
+    policy = cfg.approx.policy
+    out = {}
+    sched = _drill_scheduler(cfg, DRILL_REQUESTS, params=params)
+    require(sched.levels[0].approx.policy is policy
+            and all(lv.approx.policy is None for lv in sched.levels[1:]),
+            "the ladder: the fine rung must carry the policy, the shed and "
+            "recovery rungs drop it")
+    d = run_drill("policy captured", sched, DRILL_REQUESTS)
+    e, _ = drill_equivalents(dev, cfg, params, _drill_tokens(sched),
+                             d["stats"]["events"], "policy ")
+    out.update(policy_drill_ms=d["wall_ms"],
+               policy_drill_tok_per_s=d["tok_per_s"],
+               policy_drill_ticks=d["stats"]["ticks"],
+               policy_drill_eager_ms=e["wall_ms"])
+    out["launches_policy_drill"] = d["counts"]
+    del sched
+    gc.collect()
+
+    idents = set(config_table_identities(cfg.approx, cfg.n_layers))
+    seg_tables = {("div", att["width"], att["coeff_bits"], 3)
+                  for _, _, att, _ in POLICY_SEGMENTS}
+    c, ce, scrubbed = chaos_pair(cfg, params, DRILL_REQUESTS, "policy ")
+    require(seg_tables <= idents <= set(scrubbed),
+            f"chaos --policy: scrub identities {scrubbed} miss a segment's "
+            f"tables {sorted(seg_tables | idents)}")
+    log(f"  chaos --policy: the scrub covers {len(scrubbed)} table "
+        f"identities, the segments' {sorted(seg_tables)} among them")
+    out.update(policy_chaos_ms=c["wall_ms"],
+               policy_chaos_tok_per_s=c["tok_per_s"],
+               policy_chaos_ticks=c["stats"]["ticks"],
+               policy_chaos_eager_ms=ce["wall_ms"])
+    out["launches_policy_chaos"] = c["counts"]
+    log(f"  policy drill {out['policy_drill_ms']:.1f} ms, "
+        f"{out['policy_drill_tok_per_s']:.1f} tok/s; chaos --policy "
+        f"{out['policy_chaos_ms']:.1f} ms, "
+        f"{out['policy_chaos_tok_per_s']:.1f} tok/s")
+    return out
+
+
+def policy_phase(dev, params, prompts) -> dict:
+    """Phase 8: the tuner's policies built on the card and served."""
+    import gc
+    from repro_torch.faults.inject import active_faults
+    from repro_torch.launch import serve
+
+    serve.make_prefill.cache_clear()
+    serve.make_decode_step.cache_clear()
+    gc.collect()
+    out = policy_build(dev)
+    served, cfg = policy_serve(dev, params, prompts)
+    out.update(served)
+    serve.make_prefill.cache_clear()
+    serve.make_decode_step.cache_clear()
+    gc.collect()
+    out.update(policy_drills(dev, cfg, params))
+    require(active_faults() == (), f"phase 8 left {active_faults()} armed")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3686,13 +4254,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/7] device: {card} | torch {torch.__version__} "
+    log(f"[1/8] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/7] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/8] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -3707,7 +4275,7 @@ def main(argv=None) -> int:
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
 
-    log("[3/7] kernels vs plain versions")
+    log("[3/8] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -3715,7 +4283,7 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/7] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/8] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -3727,7 +4295,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/7] times")
+    log("[5/8] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -3747,14 +4315,19 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/7] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/8] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    log("[7/7] faults: every kernel under each armed site, captured graphs, "
+    log("[7/8] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
+
+    log("[8/8] policy: build_policy / select_config on the card, a "
+        "layer-segmented policy file served at full width (captured, "
+        "--emulate, --scheduler, --chaos)")
+    policy = policy_phase(dev, served["params"], served["prompts"])
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -3774,6 +4347,9 @@ def main(argv=None) -> int:
     by_name["elemwise"]["launches"] = ew_path["launches"]
     by_name["elemwise"]["max_abs_err"] = ew_err
     by_name["elemwise"]["measure_error"] = ew_path["errors"]
+    # ... and phase 8 (a)'s policy build: one per (op, width, coeff_bits)
+    by_name["elemwise"]["launches_policy_build"] = \
+        policy["policy_build_launches"]["elemwise"]
     # decode_attention: the divider-only main path's run; max_abs_err at
     # the main path's shape, the worst over every phase-3 case beside it
     by_name["decode_attention"]["launches"] = counts["decode_attention"]
@@ -3823,6 +4399,11 @@ def main(argv=None) -> int:
                                      for n in names)
         kern["launches_chaos_emulate"] = sum(
             faults["launches_chaos_emulate"][n] for n in names)
+        # phase 8: the policy's generate, --emulate, drill and chaos
+        # drill, each zeroed just before and read just after
+        for key in ("launches_policy", "launches_policy_emulate",
+                    "launches_policy_drill", "launches_policy_chaos"):
+            kern[key] = sum(policy[key][n] for n in names)
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -3832,8 +4413,9 @@ def main(argv=None) -> int:
             "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
-    for key, val in (*drill.items(), *faults.items()):
-        log(f"  {key}: {val if isinstance(val, dict) else f'{val:.4f}'}")
+    for key, val in (*drill.items(), *faults.items(), *policy.items()):
+        log(f"  {key}: "
+            f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     log(f"  total {total_s:.1f}s")
 
@@ -3851,7 +4433,7 @@ def main(argv=None) -> int:
             "emulate_path": {k: v for k, v in served_e.items()
                              if k != "lm"},
             "logmatmul_shapes": mm_shapes, "drill": drill,
-            "faults": faults,
+            "faults": faults, "policy": policy,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

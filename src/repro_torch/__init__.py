@@ -11,4 +11,4 @@ nothing from ``repro``.
 """
 
 __all__ = ["core", "kernels", "configs", "models", "launch", "metrics",
-           "faults"]
+           "faults", "tuning"]

@@ -21,7 +21,12 @@ plain versions.
 
 ``ApproxConfig.policy`` is any hashable object with ``.lookup(op, layer)``
 returning ``width / coeff_bits / index_bits / backend`` (and optionally
-``frac_out``) attributes, or None; layer-scoped entries resolve first.
+``frac_out``) attributes, or None — a
+:class:`repro_torch.tuning.TuningPolicy` loaded from a
+``simdive-policy/v1`` file is one; layer-scoped entries resolve first. An
+entry's backend is an interchange name (the reference's: ``auto``,
+``ref``, ``pallas``...), mapped to the port's registry backend by
+:func:`repro_torch.tuning.select.port_backend` (``pallas`` -> ``cuda``).
 """
 from __future__ import annotations
 
@@ -99,14 +104,18 @@ class ApproxConfig:
     def resolve(self, op: str, width: int | None = None
                 ) -> tuple[SimdiveSpec, str]:
         """(spec, backend) serving logical ``op`` on this config's layer:
-        a matching policy entry overrides the config's own knobs wholesale."""
+        a matching policy entry overrides the config's own knobs wholesale,
+        its backend name mapped onto the port's registry backend."""
         entry = self.policy.lookup(op, self.layer) \
             if self.policy is not None else None
         if entry is None:
             return self.spec(width), self.backend
+        from repro_torch.tuning.select import port_backend
+
         spec = SimdiveSpec(width=entry.width, coeff_bits=entry.coeff_bits,
                            index_bits=entry.index_bits)
-        return spec, (getattr(entry, "backend", None) or self.backend)
+        backend = getattr(entry, "backend", None)
+        return spec, (port_backend(backend) if backend else self.backend)
 
     def resolve_attention(self) -> tuple[SimdiveSpec, str, int]:
         """(spec, backend, frac_out) serving the attention softmax divider."""

@@ -38,13 +38,25 @@ table scrub must find it — on the card in the tables the captured graphs
 read —, quarantine the work in flight, retry it on the exact recovery
 rung, and complete every request; the process exits 1 on any violation.
 
-Not ported yet, and therefore not accepted on the command line:
-``--policy``.
+``--policy PATH`` serves a ``simdive-policy/v1`` JSON (a
+:class:`repro_torch.tuning.TuningPolicy`, written by either package): it
+rides into ``ApproxConfig(policy=...)``, so every layer's matmul /
+divider / attention dispatch config — width, coeff_bits, index_bits,
+backend and the attention divider's ``frac_out`` — is resolved at load
+time and printed as the serving plan, each row with the port's backend
+(``pallas`` in the file serves as ``cuda``). Layer-scoped entries
+(``layer='L3'``) split the layer loop into segments
+(:func:`repro_torch.core.approx.serving_segments`); the captured prefill
+and step hold every segment's kernels at that segment's spec. A policy
+turns ``--approx exact`` into ``simdive``; it serves on every path
+(generate, ``--scheduler``, ``--chaos``, ``--emulate [--quantize]``), the
+shed and recovery rungs dropping it as in the reference.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
-      --approx simdive [--emulate [--quantize]] --batch 4 --prompt-len 512 \
-      --gen 32 [--scheduler [--requests 12] | --chaos]
+      --approx simdive [--emulate [--quantize]] [--policy policy.json] \
+      --batch 4 --prompt-len 512 --gen 32 [--scheduler [--requests 12] |
+      --chaos]
   (CPU smoke: add --smoke --device cpu)
 """
 from __future__ import annotations
@@ -623,14 +635,19 @@ def render_plan(plan, cfg) -> str:
 
 # --------------------------------------------------------------------- cli --
 def serving_config(arch: str, *, smoke: bool = False, approx: str = "exact",
-                   backend: str = "auto", emulate: bool = False):
+                   backend: str = "auto", emulate: bool = False,
+                   policy=None):
     """The ModelConfig the CLI serves: ``approx`` other than 'exact' turns
-    on the divider-softmax; ``emulate`` adds the SIMDive linears."""
+    on the divider-softmax; ``emulate`` adds the SIMDive linears;
+    ``policy`` (a ``TuningPolicy``) resolves per-layer dispatch configs
+    and, as in the reference, makes an 'exact' ``approx`` 'simdive'."""
     cfg = get_config(arch, smoke=smoke)
+    if policy is not None and approx == "exact":
+        approx = "simdive"     # shipping a policy means approximate serving
     if approx != "exact":
         cfg = cfg.with_approx(ApproxConfig(
             mode=approx, emulate=emulate, use_in_softmax=True,
-            backend=backend))
+            backend=backend, policy=policy))
     return cfg
 
 
@@ -741,6 +758,10 @@ def main(argv=None):
                     help="kernel backend of the approximate ops: 'auto' = "
                          "CUDA kernels for tensors on the GPU, plain "
                          "versions on the CPU")
+    ap.add_argument("--policy", default=None, metavar="PATH",
+                    help="a simdive-policy/v1 JSON; resolves per-layer/"
+                         "per-op dispatch configs at load time (implies "
+                         "--approx simdive unless set)")
     ap.add_argument("--scheduler", action="store_true",
                     help="run the continuous-batching load-shed drill "
                          "instead of a single batched generate")
@@ -756,8 +777,17 @@ def main(argv=None):
     ap.add_argument("--recover-depth", type=int, default=1)
     args = ap.parse_args(argv)
 
+    policy = None
+    if args.policy:
+        from repro_torch.tuning import TuningPolicy
+
+        policy = TuningPolicy.load(args.policy)
+        print(f"# policy: {args.policy} ({len(policy.entries)} entries, "
+              f"{len(policy.distinct_configs())} distinct dispatch "
+              "config(s))")
     cfg = serving_config(args.arch, smoke=args.smoke, approx=args.approx,
-                         backend=args.backend, emulate=args.emulate)
+                         backend=args.backend, emulate=args.emulate,
+                         policy=policy)
     lm = build(cfg, device=args.device)
     print(render_plan(resolve_serving_plan(cfg), cfg))
     params = lm.init(args.seed)

@@ -9,10 +9,12 @@ Counterpart of ``repro.metrics`` for what the port uses so far:
   PACKED_DIV_FRAC_OUT        shared operand sets and the divider's
                              fixed-point conventions of every sweep
   time_callable / TimingStats  warmup + device-synchronised timing
+  trajectory                 the BENCH document's schema + migration +
+                             the regression gate (diff_runs); pure stdlib
 
-``errors`` and ``operands`` are pure numpy, copied rather than imported
-(the port imports nothing of ``repro``). Image metrics, the BENCH
-trajectory and the training-divergence metrics are not ported yet.
+``errors`` and ``operands`` are pure numpy and ``trajectory`` pure stdlib,
+copied rather than imported (the port imports nothing of ``repro``). Image
+metrics and the training-divergence metrics are not ported yet.
 """
 from .errors import (
     ErrorStats,
@@ -28,6 +30,13 @@ from .operands import (
     stratified_pairs,
 )
 from .timing import TimingStats, time_callable
+from .trajectory import (
+    GateReport,
+    Thresholds,
+    TrajectoryError,
+    diff_runs,
+    load_trajectory,
+)
 
 __all__ = [
     "ErrorStats",
@@ -41,4 +50,9 @@ __all__ = [
     "stratified_pairs",
     "TimingStats",
     "time_callable",
+    "GateReport",
+    "Thresholds",
+    "TrajectoryError",
+    "diff_runs",
+    "load_trajectory",
 ]

@@ -1,15 +1,54 @@
-"""repro_torch.tuning — the accuracy side of the accuracy-budget autotuner.
+"""repro_torch.tuning — the accuracy-budget autotuner.
 
 Counterpart of ``repro.tuning`` for what is ported so far:
 
-  frontier.py     measure_error: the analytic error stats of one registry
-                  config (elemwise / packed / matmul_int / matmul_emul),
-                  run through the port's kernels on the card by default
+  frontier.py     per-(op, width) accuracy/throughput frontier points:
+                  analytic error stats (measure_error: exhaustive at width
+                  8, exponent-pair stratified at 16), run through the
+                  port's kernels on the card by default, joined with
+                  measured best_us from the port's BENCH trajectory
+                  (BENCH_simdive_torch.json, never the reference's file)
+  select.py       select_config(op, error_budget=...) -> the cheapest
+                  budget-meeting registry dispatch config; TuningPolicy,
+                  the simdive-policy/v1 per-(op, layer) config set a
+                  deployment ships with (ApproxConfig(policy=...),
+                  ``launch.serve --policy``), read and written alike by
+                  both packages
 
-``FrontierPoint``, ``build_frontier``, ``pareto``, ``bench_timings``,
-``frontier_table``, ``select.py`` and ``sensitivity.py`` are not ported
-yet.
+Not ported yet: ``sensitivity.py`` (per-layer end-metric profiling and the
+greedy assignment), and the reference's ``benchmarks/tune.py`` CLI, which
+stays with the reference's benchmark folder.
 """
-from .frontier import measure_error
+from .frontier import (
+    FrontierPoint,
+    bench_timings,
+    build_frontier,
+    default_bench_path,
+    frontier_table,
+    measure_error,
+    pareto,
+)
+from .select import (
+    POLICY_SCHEMA,
+    BudgetError,
+    PolicyEntry,
+    TuningPolicy,
+    build_policy,
+    select_config,
+)
 
-__all__ = ["measure_error"]
+__all__ = [
+    "FrontierPoint",
+    "bench_timings",
+    "build_frontier",
+    "default_bench_path",
+    "frontier_table",
+    "measure_error",
+    "pareto",
+    "POLICY_SCHEMA",
+    "BudgetError",
+    "PolicyEntry",
+    "TuningPolicy",
+    "build_policy",
+    "select_config",
+]

@@ -1,32 +1,52 @@
-"""Accuracy frontiers: the error half of the facts the autotuner selects
-from.
+"""Accuracy/throughput frontiers: the facts the autotuner selects from.
 
-Counterpart of ``repro.tuning.frontier`` for :func:`measure_error` and its
-operand conventions. One call gives the analytic error stats of one
-``(kernel, op, width, coeff_bits, index_bits)`` registry config, computed
-through the same ``get_op`` entry the port's users call:
+Counterpart of ``repro.tuning.frontier``. One :class:`FrontierPoint` per
+``(kernel, op, width, coeff_bits, index_bits, backend)`` config joins
 
-  * ``'elemwise'`` — exhaustive over the full operand square at width 8,
-    exponent-pair *stratified* samples at width 16
-    (:func:`repro_torch.metrics.stratified_pairs`);
-  * ``'packed'`` — the same per-lane stats *through* the SIMD pack ->
-    packed kernel -> unpack word path;
-  * ``'matmul_int'`` / ``'matmul_emul'`` — accumulate-level stats against
-    the exact int64 matmul.
+  * **analytic error stats** — :func:`measure_error`, computed through the
+    same ``get_op`` entry the port's users call: ``'elemwise'`` exhaustive
+    over the full operand square at width 8, exponent-pair *stratified*
+    samples at width 16 (:func:`repro_torch.metrics.stratified_pairs`);
+    ``'packed'`` the same per-lane stats *through* the SIMD pack -> packed
+    kernel -> unpack word path; ``'matmul_int'`` / ``'matmul_emul'``
+    accumulate-level stats against the exact int64 matmul; and
+  * **measured throughput** — ``best_us`` joined from a BENCH trajectory by
+    the gate's own :func:`repro_torch.metrics.trajectory.grid_key`
+    (:func:`bench_timings`). Timing is *joined*, never measured here:
+    selection must be deterministic given a frozen BENCH file.
 
-It runs on the card by default: the operands are made with numpy from the
-reference's seeds, moved to ``device`` and dispatched with
-``backend='auto'``, so CUDA tensors reach the hand-written kernels
+:func:`measure_error` runs on the card by default: the operands are made
+with numpy from the reference's seeds, moved to ``device`` and dispatched
+with ``backend='auto'``, so CUDA tensors reach the hand-written kernels
 (``device='cpu'`` runs the plain versions, as the tests do; the reference
 hard-codes its ``'ref'`` backend because it runs on a CPU). Integer
 outputs that are bit-equal give the reference's float64 statistics
-exactly. Width 32 raises ``NotImplementedError`` as everywhere in the
-port.
+exactly. Its cache is keyed per device, so CPU and card results never mix.
+Width 32 raises ``NotImplementedError`` as everywhere in the port.
 
-``FrontierPoint``, ``build_frontier``, ``pareto``, ``bench_timings``,
-``frontier_table`` and ``default_bench_path`` are not ported yet.
+Where the timings come from: :func:`default_bench_path` reads
+``SIMDIVE_BENCH`` as the reference does, then looks only for
+``BENCH_simdive_torch.json``, in the working directory and then at the
+repo root. It never falls back to the reference's ``BENCH_simdive.json``:
+its ``best_us`` are the JAX package's timings on a CPU, and a policy built
+on the card must not carry them in its ``stats``. Without a port BENCH
+file the join is empty and selection falls back to the static cost order.
+An explicit ``bench=`` path, document or run record is read exactly as the
+reference reads it. The join keys on the point's ``backend`` as written (a
+``simdive-policy/v1`` interchange name: ``auto``, ``ref``, ``pallas``...).
+
+A config the trajectory has never timed still yields a frontier point —
+its ``best_us`` is ``None`` and selection falls back to the static cost
+order (fewer ``coeff_bits``, narrower lane). ``us_per_item`` (best_us /
+items) is the cross-width comparable statistic: different widths sweep
+different operand counts, so raw ``best_us`` only ranks points within one
+width. :func:`pareto` reduces a point set to its non-dominated
+accuracy/throughput subset — the frontier proper.
 """
 from __future__ import annotations
+
+import os
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -36,13 +56,90 @@ from repro_torch.core.mitchell import check_width
 
 __all__ = [
     "FRONTIER_SEED",
+    "DEFAULT_COEFF_SWEEP",
     "DEFAULT_MATMUL_SHAPE",
     "SUPPORTED_WIDTHS",
+    "FrontierPoint",
+    "default_bench_path",
     "measure_error",
+    "bench_timings",
+    "build_frontier",
+    "pareto",
+    "frontier_table",
 ]
+
+#: the trajectory grid's coeff_bits sweep — frontier points line up with
+#: the BENCH grid's keys so the timing join actually hits
+DEFAULT_COEFF_SWEEP = (0, 2, 4, 6, 8)
 
 #: widths the datapath defines; the port computes 8 and 16 (32 raises)
 SUPPORTED_WIDTHS = (8, 16, 32)
+
+#: the port's BENCH trajectory; the reference's BENCH_simdive.json is never
+#: read by default (its timings are the JAX package's, on a CPU)
+BENCH_FILE = "BENCH_simdive_torch.json"
+
+
+@dataclass(frozen=True)
+class FrontierPoint:
+    """One measured config: a concrete registry dispatch + its stats.
+
+    ``error`` is a sorted tuple of ``(stat, value)`` pairs (hashable;
+    see :meth:`error_dict`); ``error_source`` records how it was computed
+    ('exhaustive', 'stratified' or 'sampled'); ``best_us``/``items``/
+    ``us_per_item`` come from the BENCH join and are ``None`` when the
+    trajectory has no timing for the config.
+    """
+    kernel: str
+    op: str
+    width: int
+    coeff_bits: int
+    index_bits: int
+    backend: str
+    error: tuple
+    error_source: str
+    best_us: float | None = None
+    items: int | None = None
+
+    @property
+    def us_per_item(self) -> float | None:
+        if self.best_us is None or not self.items:
+            return None
+        return self.best_us / self.items
+
+    def error_dict(self) -> dict:
+        return dict(self.error)
+
+    def stat(self, metric: str) -> float | None:
+        return self.error_dict().get(metric)
+
+    def label(self) -> str:
+        return (f"{self.kernel}/{self.op}/{self.width}b/cb{self.coeff_bits}/"
+                f"ib{self.index_bits}/{self.backend}")
+
+
+def default_bench_path() -> str | None:
+    """The port's BENCH trajectory to join timings from, best effort.
+
+    ``SIMDIVE_BENCH`` env var, then ``BENCH_simdive_torch.json`` in the
+    current directory, then at the repo root relative to this source tree.
+    ``None`` when neither exists — frontiers still build, just without
+    timings. ``BENCH_simdive.json`` (the reference's CPU timings) is never
+    a fallback.
+    """
+    env = os.environ.get("SIMDIVE_BENCH")
+    if env:
+        return env
+    here = os.path.dirname(os.path.abspath(__file__))
+    candidates = [
+        os.path.join(os.getcwd(), BENCH_FILE),
+        os.path.normpath(os.path.join(here, "..", "..", "..", BENCH_FILE)),
+    ]
+    for c in candidates:
+        if os.path.exists(c):
+            return c
+    return None
+
 
 # (kernel, op, width, coeff_bits, index_bits, shape, device) -> error tuple;
 # every sweep is deterministic, so per-process memoization is free. The
@@ -215,3 +312,142 @@ def _measure_matmul_error(kernel: str, width: int, spec, shape,
                           for t in (qx, sx, qw, sw))
         exact = (qx * sx) @ (qw * sw)
     return appr, exact, "sampled"
+
+
+# ------------------------------------------------------------- timings ---
+# path -> ((mtime_ns, size), timings): the trajectory is an append-only
+# history file that build_policy would otherwise re-parse once per
+# (op, width); the (mtime, size) stamp invalidates on any append
+_TIMINGS_CACHE: dict = {}
+
+
+def bench_timings(bench) -> dict:
+    """``(kernel, op, width, coeff_bits, index_bits, backend) ->
+    (best_us, items)`` from a BENCH trajectory.
+
+    ``bench`` is a path, a loaded trajectory document, or a single run
+    record; the latest grid-bearing run is indexed with the gate's own
+    :func:`~repro_torch.metrics.trajectory.grid_key` and the shape-bucket
+    component is then folded away (a frontier cares *that* a config was
+    timed, not at which operand shape). Failed entries and entries without
+    a positive ``best_us`` are skipped. Returns ``{}`` for ``bench=None``
+    or an unreadable path: timing is an optional join, never a hard input.
+    """
+    from repro_torch.metrics.trajectory import (
+        grid_key,
+        latest_grid_run,
+        load_trajectory,
+    )
+
+    if bench is None:
+        return {}
+    if isinstance(bench, str):
+        try:
+            st = os.stat(bench)
+            stamp = (st.st_mtime_ns, st.st_size)
+            hit = _TIMINGS_CACHE.get(bench)
+            if hit is not None and hit[0] == stamp:
+                return hit[1]
+            doc = load_trajectory(bench, missing_ok=False)
+        except Exception:  # noqa: BLE001 — optional join, degrade quietly
+            return {}
+        run = latest_grid_run(doc)
+    elif isinstance(bench, dict) and "runs" in bench:
+        run = latest_grid_run(bench)
+    else:
+        run = bench                      # a single run record
+    out: dict = {}
+    for entry in (run or {}).get("grid", []):
+        if entry.get("status") != "ok":
+            continue
+        tp = entry.get("throughput") or {}
+        best = tp.get("best_us", tp.get("mean_us"))
+        if not isinstance(best, (int, float)) or best <= 0:
+            continue
+        cfg = grid_key(entry)[:6]        # drop the shape-bucket component
+        prev = out.get(cfg)
+        if prev is None or best < prev[0]:
+            out[cfg] = (float(best), tp.get("items"))
+    if isinstance(bench, str):
+        _TIMINGS_CACHE[bench] = (stamp, out)
+    return out
+
+
+# ------------------------------------------------------------ frontier ---
+def build_frontier(op: str, *, width: int, coeff_sweep=DEFAULT_COEFF_SWEEP,
+                   index_bits: int = 3, backend: str = "auto",
+                   bench="auto", error_fn=None,
+                   kernel: str = "elemwise",
+                   shape: tuple | None = None,
+                   device: torch.device | str = "cuda") -> tuple:
+    """All frontier points of one ``(kernel, op, width)`` sweep.
+
+    ``bench`` joins measured ``best_us``: 'auto' resolves via
+    :func:`default_bench_path`, ``None`` skips the join, anything else is
+    passed to :func:`bench_timings`. ``kernel`` picks the measurement
+    level (see :func:`measure_error`; ``shape`` is the matmul ``(M, K,
+    N)``) and is part of the timing-join identity, as is ``backend`` (the
+    interchange name the points carry; the port's default is ``'auto'``,
+    the reference's ``'ref'``). ``device`` is where :func:`measure_error`
+    runs (default the card). ``error_fn(op, width, coeff_bits,
+    index_bits) -> (stats_pairs, source)`` overrides the analytic
+    measurement (fixture injection for unit tests — production callers
+    never pass it; it bypasses the kernel/shape/device dimensions).
+    """
+    if bench == "auto":
+        bench = default_bench_path()
+    timings = bench_timings(bench)
+    points = []
+    for cb in coeff_sweep:
+        if error_fn is not None:
+            stats, source = error_fn(op, width, cb, index_bits)
+        else:
+            stats, source = measure_error(op, width, cb, index_bits,
+                                          kernel=kernel, shape=shape,
+                                          device=device)
+        point = FrontierPoint(kernel=kernel, op=op, width=width,
+                              coeff_bits=cb, index_bits=index_bits,
+                              backend=backend, error=tuple(stats),
+                              error_source=source)
+        timed = timings.get((kernel, op, width, cb, index_bits, backend))
+        if timed is not None:
+            point = replace(point, best_us=timed[0], items=timed[1])
+        points.append(point)
+    return tuple(points)
+
+
+def pareto(points, metric: str = "are_pct") -> tuple:
+    """The non-dominated subset: no other point is at least as accurate
+    *and* strictly cheaper (by ``us_per_item``, falling back to
+    ``coeff_bits`` as the static cost proxy when timings are absent)."""
+    def cost(p):
+        c = p.us_per_item
+        return (0, c) if c is not None else (1, p.coeff_bits)
+
+    kept = []
+    for p in points:
+        e = p.stat(metric)
+        if e is None:
+            continue
+        dominated = any(
+            q is not p and q.stat(metric) is not None
+            and q.stat(metric) <= e and cost(q) <= cost(p)
+            and (q.stat(metric) < e or cost(q) < cost(p))
+            for q in points)
+        if not dominated:
+            kept.append(p)
+    return tuple(sorted(kept, key=lambda p: (p.stat(metric), cost(p))))
+
+
+def frontier_table(points, metric: str = "are_pct") -> str:
+    """Human-readable frontier rendering, the reference's table."""
+    lines = [f"{'config':38s} {metric:>10s} {'best_us':>10s} "
+             f"{'us/item':>10s}  source"]
+    for p in sorted(points, key=lambda p: (p.width, p.coeff_bits)):
+        e = p.stat(metric)
+        err = f"{e:.4f}" if e is not None else "-"   # unknown metric name
+        us = f"{p.best_us:.0f}" if p.best_us is not None else "-"
+        upi = f"{p.us_per_item:.2e}" if p.us_per_item is not None else "-"
+        lines.append(f"{p.label():38s} {err:>10s} {us:>10s} {upi:>10s}  "
+                     f"{p.error_source}")
+    return "\n".join(lines)

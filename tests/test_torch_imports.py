@@ -54,7 +54,8 @@ def test_every_package_module_is_covered():
                    "models/transformer.py", "models/model.py",
                    "models/convert.py", "launch/serve.py",
                    "metrics/timing.py", "metrics/errors.py",
-                   "metrics/operands.py", "tuning/frontier.py",
+                   "metrics/operands.py", "metrics/trajectory.py",
+                   "tuning/frontier.py", "tuning/select.py",
                    "faults/inject.py", "faults/scrub.py",
                    "faults/campaign.py", "launch/scheduler.py"):
         assert needed in names, needed

@@ -244,7 +244,7 @@ def test_scalar_and_per_row_decode_positions_agree(mode):
                                rtol=0, atol=EXACT_LOGIT_TOL)
 
 
-def test_serving_plan_and_cli_on_cpu(capsys):
+def test_serving_plan_and_cli_on_cpu(capsys, tmp_path):
     cfg = t_serve.serving_config(ARCH, smoke=True, approx="simdive")
     plan = t_serve.resolve_serving_plan(cfg)
     assert [(r.op, r.width, r.coeff_bits, r.frac_out, r.backend)
@@ -278,8 +278,9 @@ def test_serving_plan_and_cli_on_cpu(capsys):
                                "matmul_pipelined": 0, "packed": 0}
     # --scheduler runs the load-shed drill (launch.scheduler) and prints
     # the reference's drill lines; --chaos (faults/) runs it under the
-    # armed table fault; --policy (tuning/select.py) is not ported and
-    # stays refused by argparse
+    # armed table fault; --policy (tuning/select.py) serves a
+    # simdive-policy/v1 file, turning the default --approx exact into
+    # simdive
     t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--approx",
                   "simdive", "--batch", "2", "--prompt-len", "8", "--gen",
                   "3", "--scheduler", "--requests", "5", "--shed-depth",
@@ -301,8 +302,26 @@ def test_serving_plan_and_cli_on_cpu(capsys):
     assert "# chaos: PASS" in out
     assert "quarantines=0" not in out
     assert launch_counts()["decode_attention"] == 0
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    policy = tmp_path / "p.json"
+    TuningPolicy(entries=(
+        PolicyEntry(op="attention", width=16, coeff_bits=8, frac_out=15),
+        PolicyEntry(op="attention", width=8, coeff_bits=2, frac_out=12,
+                    backend="ref", layer="L1"))).save(str(policy))
+    t_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--policy",
+                  str(policy), "--batch", "2", "--prompt-len", "8", "--gen",
+                  "3"])
+    out = capsys.readouterr().out
+    assert f"# policy: {policy} (2 entries, 2 distinct dispatch config(s))" \
+        in out
+    assert "serving plan: 2 layer segment(s), 6 resolved op config(s)" in out
+    assert "L0 attention 16b/cb8/ib3/q15 auto [policy]" in out
+    assert "L1 attention 8b/cb2/ib3/q12 ref [policy]" in out
+    assert "generated (2, 3) on cpu" in out
+    assert launch_counts()["decode_attention"] == 0
     with pytest.raises(SystemExit):
-        t_serve.main(["--arch", ARCH, "--device", "cpu", "--policy", "p.json"])
+        t_serve.main(["--arch", ARCH, "--device", "cpu", "--policy"])
 
 
 def test_unported_paths_raise_instead_of_serving_something_else():

@@ -31,6 +31,7 @@ from repro.faults import inject as r_inject
 from repro.launch import scheduler as r_sched
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core.approx import ApproxConfig as TApprox
+from repro_torch.core.approx import serving_segments
 from repro_torch.faults.inject import FaultSpec, set_faults
 from repro_torch.kernels.registry import GuardTripped
 from repro_torch.launch import serve
@@ -617,3 +618,119 @@ def test_levels_accept_a_custom_ladder():
     assert [lv.name for lv in sched.levels] == ["fine", "coarse",
                                                 "recovery"]
     assert sched.max_seq == 2 * P
+
+
+# ------------------------------------------------------------ --policy --
+#: a layer-segmented policy for the smoke model's two layers, the one file
+#: both packages' drills serve: each layer its own attention divider, the
+#: divider op pinned, a matmul entry (unused without --emulate)
+POLICY_ENTRIES = (
+    dict(op="attention", width=16, coeff_bits=8, frac_out=15,
+         backend="auto"),
+    dict(op="attention", width=16, coeff_bits=2, frac_out=12, backend="ref",
+         layer="L1"),
+    dict(op="div", width=16, coeff_bits=4, backend="auto"),
+    dict(op="matmul", width=8, coeff_bits=6, backend="auto",
+         kernel="matmul"),
+)
+
+
+def _policy_file(tmp_path):
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    path = str(tmp_path / "policy.json")
+    TuningPolicy(entries=tuple(PolicyEntry(**e) for e in POLICY_ENTRIES),
+                 meta=(("source", "drill"),)).save(path)
+    return path
+
+
+def _policy_approx(path):
+    from repro.tuning.select import TuningPolicy as RPolicy
+    from repro_torch.tuning import TuningPolicy
+
+    return (RApprox(mode="simdive", use_in_softmax=True,
+                    policy=RPolicy.load(path)),
+            TApprox(mode="simdive", use_in_softmax=True,
+                    policy=TuningPolicy.load(path)))
+
+
+def test_policy_drill_equals_reference(tmp_path):
+    """``serve --scheduler --policy``: the reference's drill (batch 2, 8
+    requests from ``default_rng(7)``, shed_depth 3) in both packages under
+    the same policy file, on the same parameters (float32): the fine rung
+    serves the policy's layer segments, the shed and recovery rungs drop
+    it, and the events, the tokens each rung served and every request's
+    tokens are the reference's."""
+    r_approx, t_approx = _policy_approx(_policy_file(tmp_path))
+    r_cfg = replace(r_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(r_approx)
+    t_cfg = replace(t_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(t_approx)
+    kw = dict(batch=2, prompt_len=P, max_seq=P + 4 + 2, shed_depth=3,
+              recover_depth=1)
+    rs = r_sched.Scheduler(r_cfg, levels=r_sched.default_ladder(r_approx),
+                           seed=0, **kw)
+    params = params_from_reference(jax.tree.map(np.asarray, rs.params),
+                                   t_cfg)
+    ts = Scheduler(t_cfg, params, levels=default_ladder(t_approx),
+                   device="cpu", **kw)
+    assert ts.levels[0].approx.policy is t_approx.policy
+    assert [lv.approx.policy for lv in ts.levels[1:]] == [None, None]
+    assert len(serving_segments(t_approx, t_cfg.n_layers)) == 2
+    rng = np.random.default_rng(7)
+    for _ in range(8):
+        prompt = rng.integers(0, r_cfg.vocab_size, P, dtype=np.int32)
+        rs.submit(prompt, max_new=4)
+        ts.submit(prompt, max_new=4)
+    assert rs.warmup() == ts.warmup() == 6
+    r_stats, t_stats = rs.run(), ts.run()
+    assert t_stats["events"] == r_stats["events"]
+    assert t_stats == r_stats
+    assert {r.rid: r.tokens for r in ts.done} == \
+        {r.rid: r.tokens for r in rs.done}
+    assert t_stats["sheds"] >= 1 and t_stats["tokens_per_level"]["fine"] > 0
+
+
+def test_policy_scrub_covers_every_segment_table(tmp_path):
+    """``serve --chaos --policy``: the scrub's table identities take every
+    layer segment's tables, as the reference's do, and a chaos drill
+    under the policy heals as the reference's does."""
+    from repro.faults.scrub import config_table_identities as r_idents
+    from repro_torch.faults.scrub import config_table_identities
+
+    r_approx, t_approx = _policy_approx(_policy_file(tmp_path))
+    t_ids = config_table_identities(t_approx, n_layers=2)
+    assert t_ids == r_idents(r_approx, n_layers=2)
+    assert {("div", 16, 8, 3), ("div", 16, 2, 3), ("div", 16, 4, 3),
+            ("mul", 8, 6, 3)} <= set(t_ids)
+    r_cfg = replace(r_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(r_approx)
+    t_cfg = replace(t_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(t_approx)
+    args = dict(batch=2, prompt_len=P, max_seq=P + 4 + 2, shed_depth=100,
+                recover_depth=1, scrub_every=1)
+    rs = r_sched.Scheduler(r_cfg, levels=r_sched.default_ladder(r_approx),
+                           seed=0, **args)
+    params = params_from_reference(jax.tree.map(np.asarray, rs.params),
+                                   t_cfg)
+    ts = Scheduler(t_cfg, params, levels=default_ladder(t_approx),
+                   device="cpu", **args)
+    assert ts._scrub_idents == rs._scrub_idents
+    assert set(t_ids) <= set(ts._scrub_idents)
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        prompt = rng.integers(0, r_cfg.vocab_size, P, dtype=np.int32)
+        rs.submit(prompt, max_new=4)
+        ts.submit(prompt, max_new=4)
+    rs.warmup()
+    ts.warmup()
+    rs.step()
+    ts.step()
+    _arm_both(True)
+    try:
+        r_stats, t_stats = rs.run(), ts.run()
+    finally:
+        _arm_both(False)
+    _same_drill(rs, r_stats, ts, t_stats)
+    assert t_stats["completed"] == 4 and t_stats["failed"] == 0
+    assert t_stats["quarantines"] >= 1

@@ -13,6 +13,7 @@ Python and is checked directly, and the capture machinery both share is
 driven with a stand-in for the CUDA graph.
 """
 import contextlib
+from dataclasses import replace
 
 import numpy as np
 import jax.numpy as jnp
@@ -423,3 +424,261 @@ def test_measure_prefill_on_cpu_is_warm_synced_and_positive():
     assert t.stats.device == "cpu" and t.stats.items == B * P
     assert t.host_s > 0
     assert t.capture_s is None                 # no graph on a CPU
+
+
+# ----------------------------------------------------------------- policy --
+def _policy_entries(mod):
+    """The reference's ``tests/test_serve.py`` policy, in either package."""
+    return (mod.PolicyEntry(op="matmul", width=16, coeff_bits=8,
+                            kernel="matmul"),
+            mod.PolicyEntry(op="div", width=16, coeff_bits=8),
+            mod.PolicyEntry(op="attention", width=16, coeff_bits=8,
+                            frac_out=15))
+
+
+#: a layer-scoped policy that splits the smoke model's two layers: layer 1
+#: at the Mitchell divider with its own frac_out, the default entry leaving
+#: frac_out unset (the config's 15 stands). 16-bit lanes: the logit
+#: tolerance is the 16-bit divider's (an 8-bit operand moved by one unit
+#: is a 2^-6 step, which round-off can take; the 8-bit divider itself is
+#: held bit-equal in test_policy_divider_equals_reference)
+SPLIT_ENTRIES = (
+    dict(op="attention", width=16, coeff_bits=8, backend="auto"),
+    dict(op="attention", width=16, coeff_bits=0, frac_out=12, backend="ref",
+         layer="L1"),
+)
+
+
+def test_policy_roundtrip_into_serving_plan(tmp_path):
+    """A policy file saved by the port resolves into the load-time plan
+    in both packages: the same rows (ops, segments, widths, coeff_bits,
+    index_bits, frac_out, source), each backend the port's own name."""
+    from repro.configs import get_config as r_get_config
+    from repro.core.approx import ApproxConfig as RApprox
+    from repro.tuning.select import TuningPolicy as RPolicy
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.core.approx import ApproxConfig as TApprox
+    from repro_torch.tuning import select as t_select
+
+    mm, div, att = _policy_entries(t_select)
+    pol = t_select.TuningPolicy(
+        entries=(mm, replace(div, backend="pallas"), att)
+        + tuple(t_select.PolicyEntry(**e) for e in SPLIT_ENTRIES[1:]),
+        meta=(("source", "test"),))
+    path = tmp_path / "policy.json"
+    pol.save(str(path))
+    loaded = t_select.TuningPolicy.load(str(path))
+    assert loaded == pol and len(loaded.distinct_configs()) == 4
+    t_cfg = t_get_config(ARCH, smoke=True).with_approx(
+        TApprox(mode="simdive", use_in_softmax=True, policy=loaded))
+    r_cfg = r_get_config(ARCH, smoke=True).with_approx(
+        RApprox(mode="simdive", use_in_softmax=True,
+                policy=RPolicy.load(str(path))))
+    plan, r_plan = (serve.resolve_serving_plan(t_cfg),
+                    r_serve.resolve_serving_plan(r_cfg))
+
+    def row(r):
+        return (r.op, r.layer_lo, r.layer_hi, r.width, r.coeff_bits,
+                r.index_bits, r.frac_out, r.source)
+
+    assert [row(r) for r in plan] == [row(r) for r in r_plan]
+    assert len(plan) == 6 and all(r.source == "policy" for r in plan)
+    att = [r for r in plan if r.op == "attention"]
+    assert [(r.width, r.coeff_bits, r.frac_out) for r in att] \
+        == [(16, 8, 15), (16, 0, 12)]
+    # the port's plan names its own backends: 'pallas' serves as 'cuda'
+    assert [(r.op, r.backend) for r in plan] == [
+        ("matmul", "auto"), ("div", "cuda"), ("attention", "auto"),
+        ("matmul", "auto"), ("div", "cuda"), ("attention", "ref")]
+    assert [r.backend for r in r_plan] == [
+        "auto", "pallas", "auto", "auto", "pallas", "ref"]
+    assert serve.render_plan(plan, t_cfg).splitlines()[0] == \
+        "# serving plan: 2 layer segment(s), 6 resolved op config(s)"
+
+
+def test_policy_matching_defaults_token_parity():
+    """A policy pinning exactly the config's own defaults serves the
+    policy-free tokens and logits, bit for bit: resolution, not
+    behavior."""
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    lm0, params, prompts = _smoke(emulate=False)
+    spec, _, frac = lm0.cfg.approx.resolve_attention()
+    pol = TuningPolicy(entries=(PolicyEntry(
+        op="attention", width=spec.width, coeff_bits=spec.coeff_bits,
+        index_bits=spec.index_bits, frac_out=frac),))
+    cfg1 = serve.serving_config(ARCH, smoke=True, policy=pol)
+    assert cfg1.approx.mode == "simdive" and cfg1.approx.policy is pol
+    lm1 = build(cfg1, device="cpu")
+    got = serve.generate(lm1, params, prompts, P + GEN, GEN,
+                         return_logits=True)
+    want = serve.generate(lm0, params, prompts, P + GEN, GEN,
+                          return_logits=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_layer_scoped_policy_splits_segments_and_matches_reference(tmp_path):
+    """One JSON file served by both packages on the same parameters
+    (float32): two layer segments, the port's logits within the divider's
+    logit tolerance of the reference's and its greedy tokens equal where
+    the reference's margin decides them; the split serves other logits
+    than the uniform policy."""
+    from dataclasses import replace
+
+    import jax
+    from repro.configs import get_config as r_get_config
+    from repro.core.approx import ApproxConfig as RApprox
+    from repro.core.approx import serving_segments as r_segments
+    from repro.models import build as r_build
+    from repro.tuning.select import TuningPolicy as RPolicy
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.core.approx import ApproxConfig as TApprox
+    from repro_torch.core.approx import serving_segments
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    path = str(tmp_path / "split.json")
+    TuningPolicy(entries=tuple(PolicyEntry(**e)
+                               for e in SPLIT_ENTRIES)).save(path)
+    r_approx = RApprox(mode="simdive", use_in_softmax=True,
+                       policy=RPolicy.load(path))
+    t_approx = TApprox(mode="simdive", use_in_softmax=True,
+                       policy=TuningPolicy.load(path))
+    r_cfg = replace(r_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(r_approx)
+    t_cfg = replace(t_get_config(ARCH, smoke=True),
+                    dtype="float32").with_approx(t_approx)
+    segs = serving_segments(t_approx, t_cfg.n_layers)
+    assert [(lo, hi) for lo, hi, _ in segs] == [(0, 1), (1, t_cfg.n_layers)]
+    assert [(lo, hi) for lo, hi, _ in segs] == \
+        [(lo, hi) for lo, hi, _ in r_segments(r_approx, r_cfg.n_layers)]
+    r_lm = r_build(r_cfg)
+    r_params = r_lm.init(jax.random.PRNGKey(0))
+    t_lm = build(t_cfg, device="cpu")
+    t_params = params_from_reference(jax.tree.map(np.asarray, r_params),
+                                     t_cfg, device="cpu")
+    prompts = _prompts(r_cfg.vocab_size)
+    want_tok = np.asarray(r_serve.generate(
+        r_lm, r_params, jnp.asarray(prompts, jnp.int32), P + GEN, GEN))
+    want_logits = _reference_logits(r_lm, r_params, prompts, GEN)
+    got_tok, got_logits = serve.generate(
+        t_lm, t_params, torch.from_numpy(prompts), P + GEN, GEN,
+        return_logits=True)
+    got_tok, got_logits = got_tok.numpy(), got_logits.numpy()
+    top2 = np.sort(want_logits, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 2 * SIMDIVE_LOGIT_TOL
+    for b in range(B):
+        for i in range(GEN):
+            np.testing.assert_allclose(got_logits[b, i], want_logits[b, i],
+                                       rtol=0, atol=SIMDIVE_LOGIT_TOL)
+            if decided[b, i]:
+                assert got_tok[b, i] == want_tok[b, i], (b, i)
+            if got_tok[b, i] != want_tok[b, i]:
+                break
+    assert decided.mean() > 0.5
+    uniform = build(t_cfg.with_approx(replace(t_approx, policy=TuningPolicy(
+        entries=(PolicyEntry(**SPLIT_ENTRIES[0]),)))), device="cpu")
+    other = serve.generate(uniform, t_params, torch.from_numpy(prompts),
+                           P + GEN, GEN, return_logits=True)[1]
+    assert not np.array_equal(other.numpy(), got_logits)
+
+
+def test_segment_tables_exist_before_the_capture(fake_capture):
+    """Each segment's correction tables are made by the served prefill's
+    warm run, never under its capture: a policy whose last segment reads
+    a table nothing else has touched still finds it materialized when the
+    capture starts (a graph holds table addresses), and the capture makes
+    none."""
+    from repro_torch.core.error_lut import materialized_tables
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    own = ("div", 16, 7, 4)                    # read by layer 1 alone
+    pol = TuningPolicy(entries=(PolicyEntry(
+        op="attention", width=16, coeff_bits=7, index_bits=4, layer="L1"),))
+    lm0, params, prompts = _smoke(emulate=False)
+    lm = build(serve.serving_config(ARCH, smoke=True, approx="simdive",
+                                    policy=pol), device="cpu")
+
+    def tables():
+        return {k[:4] for k in materialized_tables()}
+
+    assert own not in tables()
+    seen = []
+
+    def body():
+        seen.append((fake_capture["capturing"], tables()))
+        return lm.prefill(params, {"tokens": prompts})
+
+    fn = serve._GraphFn(lm)
+    fn._replay(serve._PrefillSlot(lm, B, P), params, body)
+    (warm, before), (capturing, at_capture) = seen
+    assert (warm, capturing) == (False, True)
+    assert own not in before and own in at_capture
+    assert tables() == at_capture and fn.captures == 1
+
+
+def test_quantize_survives_policy_resolved_dispatch():
+    """--quantize x --approx simdive --emulate under a policy: the int8
+    weights feed the policy's 16-bit matmul lanes; finite logits, a
+    plausible decode, and close to the quantized exact path."""
+    from repro_torch.models.layers import QuantizedWeight
+    from repro_torch.tuning import select as t_select
+
+    pol = t_select.TuningPolicy(entries=_policy_entries(t_select))
+    cfg = serve.serving_config(ARCH, smoke=True, emulate=True, policy=pol)
+    lm = build(cfg, device="cpu")
+    _, params, prompts = _smoke(emulate=False)
+    qparams = serve.quantize_params(params)
+    assert isinstance(qparams["stack"]["layers"]["wq"], QuantizedWeight)
+    logits, _ = lm.prefill(qparams, {"tokens": prompts})
+    assert bool(torch.isfinite(logits).all())
+    toks = serve.generate(lm, qparams, prompts, P + GEN, GEN)
+    assert toks.shape == (B, GEN)
+    exact = build(serve.serving_config(ARCH, smoke=True), device="cpu")
+    logits_e, _ = exact.prefill(qparams, {"tokens": prompts})
+    rel = float((logits.float() - logits_e.float()).abs().mean()
+                / (logits_e.float().abs().mean() + 1e-9))
+    assert rel < 0.2
+
+
+def test_quantize_refuses_narrow_lane_loudly():
+    """A policy whose matmul lane cannot hold int8 magnitudes raises, with
+    the reference's message, instead of truncating the weights."""
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    pol = TuningPolicy(entries=(PolicyEntry(op="matmul", width=4,
+                                            coeff_bits=2, kernel="matmul"),))
+    lm = build(serve.serving_config(ARCH, smoke=True, emulate=True,
+                                    policy=pol), device="cpu")
+    _, params, prompts = _smoke(emulate=False)
+    with pytest.raises(ValueError, match="cannot hold int8"):
+        lm.prefill(serve.quantize_params(params), {"tokens": prompts})
+
+
+@pytest.mark.parametrize("width,coeff_bits,frac_out",
+                         [(8, 0, 12), (8, 4, None), (16, 2, 12), (16, 6, 0)])
+def test_policy_divider_equals_reference(width, coeff_bits, frac_out):
+    """The attention divider at a policy entry's spec, on the same floats
+    in both packages: the same quantized operands, the same integer
+    divider, equal outputs (an unset or zero frac_out leaves the
+    config's 15)."""
+    from repro.core.approx import ApproxConfig as RApprox
+    from repro.core.approx import attention_div as r_attention_div
+    from repro.tuning import select as r_select
+    from repro_torch.core.approx import ApproxConfig as TApprox
+    from repro_torch.core.approx import attention_div
+    from repro_torch.tuning import select as t_select
+
+    rng = np.random.default_rng(width + coeff_bits)
+    acc = (rng.standard_normal((2, 3, 50, 64)) * 3).astype(np.float32)
+    l = rng.uniform(0.5, 40.0, (2, 3, 50)).astype(np.float32)
+    kw = dict(op="attention", width=width, coeff_bits=coeff_bits,
+              frac_out=frac_out, backend="ref", layer="L0")
+    t_cfg = TApprox(mode="simdive", layer="L0", policy=t_select.TuningPolicy(
+        entries=(t_select.PolicyEntry(**kw),)))
+    r_cfg = RApprox(mode="simdive", layer="L0", policy=r_select.TuningPolicy(
+        entries=(r_select.PolicyEntry(**kw),)))
+    got = attention_div(torch.from_numpy(acc), torch.from_numpy(l), t_cfg)
+    want = r_attention_div(jnp.asarray(acc), jnp.asarray(l), r_cfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert t_cfg.resolve_attention()[2] == (frac_out or 15)
