@@ -272,6 +272,37 @@ any phase fails. Phases:
               the policy generate captured and eager, the prefill and
               step replays, the drills' ms and tok/s, and the launches of
               each path (also in the kernels line, ``launches_policy*``).
+9. arithmetic — the rest of the arithmetic on the card. (c)
+              ``approx_rmsnorm`` on (4, 512, 960) bf16 activations (rows of
+              scales 10^-4..10) with smollm-360m's eps: ``backend="cuda"``
+              (one ``sqrt`` and one ``elemwise`` launch) ``torch.equal`` to
+              ``backend="ref"``; the rsqrt's out-of-lane numerator 2^31 at
+              width 16 through the elemwise kernel equal to its plain
+              version for every r in 1..256, with four of the
+              reference's words (``RSQRT_WORDS``). (b)
+              ``_fixed_point_div`` and ``approx_softmax``
+              on smollm-360m's prefill scores, (60, 512, 512) float32
+              causal: ``cuda`` (one ``elemwise`` launch a call)
+              ``torch.equal`` to ``ref``. (a) The ``sqrt`` kernel
+              (``csrc/elemwise.cu``) ``torch.equal`` to its plain version on
+              every 8- and 16-bit operand at frac_out 0, 8 and 16 and on the
+              norms' operands (the embeddings of (d)'s prompts and (c)'s
+              rows), disarmed, under each of the campaign's log sites and
+              a log flip at bit 31 at widths 8 and 16 (outputs moved) and
+              disarmed again (as before). (d) smollm-360m at full width with
+              ``ApproxConfig(mode="simdive", use_in_norm=True)``, batch 4,
+              prompt 512, 32 tokens, through ``generate`` with both served
+              graphs: 64 ``sqrt`` and 64 ``elemwise`` launches a prefill
+              and a step (2,048 each a generate) beside 32 attention a
+              prefill and 32 ``decode_attention`` a step, one capture of
+              each, captured == eager, one replayed prefill == the eager
+              one; logits within 6 bf16 ulps of the largest logit of the
+              same config on the plain versions, decided tokens equal.
+              Printed: the sqrt kernel at the norms' shapes beside its
+              bound, the softmax times, and the generate, prefill and step
+              replays against the same process's use_in_norm-free path, in
+              turns (the kernels line's ``sqrt`` row; ``elemwise``'s
+              ``launches_use_in_norm``).
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -466,6 +497,31 @@ POLICY_SEGMENTS = (
 )
 # phase 8 (a): the error budget (ARE %) the policies are built for
 POLICY_BUDGET = 1.2
+
+# phase 9: the arithmetic. The softmax operand is smollm-360m's prefill
+# scores, (batch x heads, prompt, prompt) float32, causal; the norm operand
+# its activations, (batch, prompt, d_model) bf16, rows of scales 10^-4..10
+# (under 2^-8 rms the rsqrt's qm is no longer clipped to the lane)
+SOFTMAX_SHAPE = (BATCH * 15, PROMPT, PROMPT)
+NORM_SHAPE = (BATCH, PROMPT, 960)
+SQRT_FRAC_OUTS = (0, 8, 16)
+# four of the reference's quotient words of the rsqrt's out-of-lane
+# numerator 2^31 at width 16, frac_out 16, coeff_bits 6: r -> div(2^31, r)
+RSQRT_WORDS = {255: 3221225472, 256: 3221225472, 1: 0, 181: 2147483648}
+# one sqrt lane, counted as ELEMWISE_OPS_PER_LANE is: LOD + log conversion
+# 6, the halving shift 1, ls >> F 1, mantissa 1, shift amount I + frac_out
+# - F 1, the shift (direction test, clip at 31, shift) 3, the zero select 1
+SQRT_OPS_PER_LANE = 14
+# phase 9 (d), use_in_norm served at full width, kernels vs plain versions:
+# at the 16-bit divider every block norm's qm is clipped to the lane (the
+# activations' mean square is far above 2^-16, R-4), so sqrt and divide
+# give one constant in both versions and the norms are bit-equal; the
+# logits then differ only as phase 4's do — attention outputs one bf16 ulp
+# apart here and there, carried through 32 layers — and the final norm is
+# exact. Phase 4's bound, LOGIT_TOL (6 bf16 ulps of the largest logits),
+# holds as it is; it is derived for a largest logit of 4..8, so the plain
+# run's largest logit must lie in NORM_LOGIT_RANGE for it to apply.
+NORM_LOGIT_RANGE = (4.0, 8.0)
 
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
@@ -3977,14 +4033,16 @@ def judge_logits(what, logits, tokens, ref_all, tol) -> dict:
                 tokens_decided=int(decided.sum()))
 
 
-def policy_generate(dev, lm, params, prompts, what, *, linears=0) -> dict:
+def policy_generate(dev, lm, params, prompts, what, *, linears=0,
+                    norms=0) -> dict:
     """The captured generate of a policy's ``lm``: the first call captures
     the prefill and the step once each, the second replays them with the
     launch counts zeroed just before and read just after (32 attention a
-    prefill, 32 decode_attention a step, ``linears`` logmatmul each, no
-    elemwise), equal to the eager prefill and loop (the same launches,
-    tokens and logits ``torch.equal``), and one replayed prefill equal to
-    the eager ``lm.prefill``."""
+    prefill, 32 decode_attention a step, ``linears`` logmatmul each,
+    ``norms`` sqrt and as many elemwise each — the approximate norms of
+    phase 9 (d) —, nothing else), equal to the eager prefill and loop (the
+    same launches, tokens and logits ``torch.equal``), and one replayed
+    prefill equal to the eager ``lm.prefill``."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
@@ -4009,10 +4067,11 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0) -> dict:
     require(_attention_launches(counts) == n
             and counts["decode_attention"] == n * (GEN - 1)
             and _matmul_launches(counts) == linears * GEN
-            and counts["elemwise"] == 0 and counts["packed"] == 0,
+            and counts["elemwise"] == counts["sqrt"] == norms * GEN
+            and counts["packed"] == 0,
             f"{what}: launches {counts}, expected {n} attention, {n} "
-            f"decode_attention per step x {GEN - 1} and {linears} logmatmul "
-            f"per prefill and step")
+            f"decode_attention per step x {GEN - 1}, {linears} logmatmul "
+            f"and {norms} sqrt and elemwise per prefill and step")
     require(bool(torch.isfinite(logits).all())
             and int(tokens.min()) >= 0
             and int(tokens.max()) < lm.cfg.vocab_size, f"{what}: bad output")
@@ -4030,16 +4089,18 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0) -> dict:
     log(f"  {what}: captured (prefill and step) vs eager generate: tokens "
         f"and logits torch.equal; launches {counts}")
     prefill_counts = check_prefill_replay(lm, params, prompts, what)
-    require(_matmul_launches(prefill_counts) == linears,
+    require(_matmul_launches(prefill_counts) == linears
+            and prefill_counts["sqrt"] == norms,
             f"{what}: one prefill launched {prefill_counts}")
     return dict(tokens=tokens, logits=logits, counts=counts,
                 first_generate_s=first_s)
 
 
-def policy_times(dev, lm, params, prompts) -> dict:
-    """The policy's generate, captured and eager (``time_callable``, best
-    of 3 / 2), and its prefill and decode step replayed back to back (the
-    card's pace)."""
+def policy_times(dev, lm, params, prompts, prefix="policy_") -> dict:
+    """The generate of ``lm`` (a policy's; phase 9: with and without
+    use_in_norm), captured and eager (``time_callable``, best of 3 / 2),
+    and its prefill and decode step replayed back to back (the card's
+    pace)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.metrics.timing import time_callable
@@ -4058,10 +4119,10 @@ def policy_times(dev, lm, params, prompts) -> dict:
     tok = lg.argmax(-1)
     step_ms = gpu_time_ms(lambda: step(params, own, tok, PROMPT), iters=20)
     torch.cuda.synchronize()
-    return dict(policy_generate_captured_ms=captured.best_s * 1e3,
-                policy_generate_eager_ms=eager.best_s * 1e3,
-                policy_prefill_replay_ms=prefill_ms,
-                policy_decode_step_replay_ms=step_ms)
+    return {f"{prefix}generate_captured_ms": captured.best_s * 1e3,
+            f"{prefix}generate_eager_ms": eager.best_s * 1e3,
+            f"{prefix}prefill_replay_ms": prefill_ms,
+            f"{prefix}decode_step_replay_ms": step_ms}
 
 
 def policy_serve(dev, params, prompts) -> dict:
@@ -4234,6 +4295,301 @@ def policy_phase(dev, params, prompts) -> dict:
 
 
 # ------------------------------------------------------------------- main --
+# ---------------------------------------------------- phase 9: arithmetic --
+def rsqrt_operands(x, eps: float):
+    """The sqrt operands ``approx_rmsnorm`` makes of activations ``x`` at
+    the 16-bit divider, one a row (``core.approx.rsqrt_operand``)."""
+    import torch
+    from repro_torch.core.approx import rsqrt_operand
+
+    return rsqrt_operand(x.to(torch.float32).square().mean(dim=-1,
+                                                           keepdim=True),
+                         eps, 16)
+
+
+def check_sqrt(dev, norm_operands) -> dict:
+    """Phase 9 (a): the sqrt kernel against its plain version, bit for bit,
+    on every 8- and 16-bit operand at each of SQRT_FRAC_OUTS and on the
+    norms' own operands; disarmed, then under each of the campaign's log
+    sites (a stuck-1 at bit w/2, a transient flip at bit w-1) and a log
+    flip at bit 31 (both versions armed alike), where the output must
+    move; disarmed again, every output as before the arming."""
+    import torch
+    from repro_torch.core.mitchell import from_lanes
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.faults.campaign import default_sites
+    from repro_torch.faults.inject import (FaultSpec, active_faults,
+                                           fault_injection)
+    from repro_torch.kernels import get_op
+
+    lanes = {w: torch.arange(1 << w, device=dev, dtype=torch.int32
+                             ).view(torch.uint32) for w in (8, 16)}
+    worst = [0]
+
+    def both(a, w, fo, what):
+        spec = SimdiveSpec(width=w)
+        got = get_op("sqrt", spec, "cuda")(a, frac_out=fo)
+        want = get_op("sqrt", spec, "ref")(a, frac_out=fo)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.uint32 and got.shape == a.shape,
+                f"sqrt {what} w{w} fo{fo}: {got.dtype} {tuple(got.shape)}")
+        err = int((from_lanes(got) - from_lanes(want)).abs().max())
+        worst[0] = max(worst[0], err)
+        require(err == 0 and torch.equal(got, want),
+                f"sqrt {what} w{w} fo{fo}: "
+                f"{int((got != want).sum())} lanes differ from the plain "
+                f"version, by up to {err}")
+        return got
+
+    def sweep(what):
+        out = {(w, fo): both(a, w, fo, what) for w, a in lanes.items()
+               for fo in SQRT_FRAC_OUTS}
+        for i, qm in enumerate(norm_operands):
+            out["norm", i] = both(qm, 16, 0, f"{what} norm operands {i}")
+        return out
+
+    before = sweep("disarmed")
+    sites = [s for w in (8, 16) for s in default_sites("div", w)
+             if s.site == "log"]
+    sites += [FaultSpec(site="log", bit=31, kind="flip", width=w)
+              for w in (8, 16)]
+    for site in sites:
+        with fault_injection(site):
+            armed = sweep(f"armed {site}")
+        moved = [k for k in armed if k[0] == site.width
+                 and not torch.equal(armed[k], before[k])]
+        require(bool(moved), f"sqrt: {site} moved no output")
+    require(active_faults() == (), "phase 9 (a) left a fault armed")
+    after = sweep("disarmed again")
+    require(all(torch.equal(after[k], before[k]) for k in before),
+            "sqrt: after the disarm an output differs from before it")
+    n = sum(t.numel() for t in before.values())
+    log(f"  (a) sqrt: {n} lanes a sweep (every 8- and 16-bit operand at "
+        f"frac_out {SQRT_FRAC_OUTS}, the norms' operands) torch.equal to "
+        f"the plain version disarmed, under {len(sites)} log sites (each "
+        "moved its width's outputs) and disarmed again (as before)")
+    return {"sqrt_lanes_a_sweep": n, "sqrt_armed_sites": len(sites),
+            "sqrt_max_abs_err": worst[0]}
+
+
+def check_softmax(dev) -> dict:
+    """Phase 9 (b): ``_fixed_point_div`` and ``approx_softmax`` on
+    smollm-360m's prefill scores, SOFTMAX_SHAPE float32 causal:
+    ``backend='cuda'`` (one elemwise launch a call) ``torch.equal`` to
+    ``backend='ref'`` (no launch) on the same tensors."""
+    import torch
+    from repro_torch.core.approx import (ApproxConfig, _fixed_point_div,
+                                         approx_softmax)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    x = torch.randn(SOFTMAX_SHAPE, generator=gen, device=dev) * 2.0
+    causal = torch.ones(SOFTMAX_SHAPE[1:], dtype=torch.bool,
+                        device=dev).tril()
+    x = x.masked_fill(~causal, float("-inf"))
+    cuda = ApproxConfig(mode="simdive", backend="cuda")
+    ref = replace(cuda, backend="ref")
+    e = (x - x.amax(dim=-1, keepdim=True)).exp()
+    s = e.sum(dim=-1, keepdim=True).expand_as(e)
+    out = {}
+    for name, fn in (("fixed_point_div", lambda c: _fixed_point_div(e, s, c)),
+                     ("approx_softmax", lambda c: approx_softmax(x, -1, c))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = fn(cuda)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = fn(ref)
+        torch.cuda.synchronize()
+        require(counts["elemwise"] == 1 and sum(counts.values()) == 1,
+                f"{name}: launches {counts}, expected one elemwise")
+        require(launch_counts() == counts,
+                f"{name}: the plain version launched a kernel")
+        require(torch.equal(got, want), f"{name} {SOFTMAX_SHAPE}: cuda and "
+                f"ref differ on {int((got != want).sum())} elements")
+        out[f"{name}_launches"] = counts["elemwise"]
+    exact = torch.softmax(x, dim=-1)
+    p = approx_softmax(x, -1, cuda)
+    err = float((p - exact).abs().max())
+    ms = gpu_time_ms(lambda: approx_softmax(x, -1, cuda), iters=5)
+    plain_ms = gpu_time_ms(lambda: approx_softmax(x, -1, ref), iters=2)
+    exact_ms = gpu_time_ms(lambda: torch.softmax(x, dim=-1), iters=5)
+    log(f"  (b) _fixed_point_div and approx_softmax {SOFTMAX_SHAPE} float32 "
+        "causal: cuda torch.equal to ref, one elemwise launch a call; "
+        f"approx_softmax {ms:.4f} ms (eager), on the plain versions "
+        f"{plain_ms:.4f} ms, torch.softmax {exact_ms:.4f} ms; max |approx - "
+        f"exact| {err:.3g}")
+    return dict(out, approx_softmax_ms=ms, approx_softmax_plain_ms=plain_ms,
+                softmax_exact_ms=exact_ms, approx_softmax_err=err)
+
+
+def check_rmsnorm(dev, eps: float) -> dict:
+    """Phase 9 (c): ``approx_rmsnorm`` on NORM_SHAPE bf16 activations with
+    smollm-360m's eps, ``backend='cuda'`` (one sqrt and one elemwise
+    launch) ``torch.equal`` to ``backend='ref'``; and the rsqrt's
+    out-of-lane numerator 2^31 at width 16 through the elemwise kernel
+    against its plain version for every r in 1..256, ``RSQRT_WORDS``
+    among them. Returns the norm's sqrt operands for (a)."""
+    import torch
+    from repro_torch.core.approx import ApproxConfig, approx_rmsnorm
+    from repro_torch.core.mitchell import from_lanes
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op, launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    scale = 10.0 ** (torch.rand(*NORM_SHAPE[:2], 1, generator=gen,
+                                device=dev) * 5 - 4)
+    x = (torch.randn(NORM_SHAPE, generator=gen, device=dev) * scale
+         ).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(NORM_SHAPE[-1], generator=gen, device=dev)
+    cuda = ApproxConfig(mode="simdive", use_in_norm=True, backend="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = approx_rmsnorm(x, gamma, eps, cuda)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = approx_rmsnorm(x, gamma, eps, replace(cuda, backend="ref"))
+    torch.cuda.synchronize()
+    require(counts["sqrt"] == 1 and counts["elemwise"] == 1
+            and sum(counts.values()) == 2 and launch_counts() == counts,
+            f"approx_rmsnorm: launches {counts}, expected one sqrt and one "
+            "elemwise (and none from the plain version)")
+    require(got.dtype == torch.bfloat16 and torch.equal(got, want),
+            f"approx_rmsnorm {NORM_SHAPE}: cuda and ref differ on "
+            f"{int((got != want).sum())} elements")
+    qm = rsqrt_operands(x, eps)
+    distinct = int(from_lanes(qm).unique().numel())
+    spec = SimdiveSpec(width=16, coeff_bits=6)
+    r = torch.arange(1, 257, device=dev)
+    one = torch.full_like(r, 1 << 31)
+    q = get_op("elemwise", spec, "cuda")(one, r, op="div", frac_out=16)
+    q_ref = get_op("elemwise", spec, "ref")(one, r, op="div", frac_out=16)
+    require(torch.equal(q, q_ref), "the rsqrt's 2^31 numerator: the elemwise "
+            f"kernel differs from its plain version on "
+            f"{int((q != q_ref).sum())} of 256 divisors")
+    words = {k: int(from_lanes(q)[k - 1]) for k in RSQRT_WORDS}
+    require(words == RSQRT_WORDS, f"the rsqrt's 2^31 quotient words {words}, "
+            f"expected {RSQRT_WORDS}")
+    log(f"  (c) approx_rmsnorm {NORM_SHAPE} bf16 eps {eps:g} ({distinct} "
+        "distinct sqrt operands): cuda torch.equal to ref, one sqrt and "
+        "one elemwise launch; div(2^31, r) at w16 fo16 for r in 1..256 "
+        f"bit-equal, RSQRT_WORDS {words}")
+    return dict(qm=qm, norm_sqrt_operands=distinct)
+
+
+def norm_generate(dev, served) -> dict:
+    """Phase 9 (d): smollm-360m at full width with ``ApproxConfig(mode=
+    'simdive', use_in_norm=True)``, phase 4's params and prompts, through
+    ``generate`` with both served graphs: captured ``torch.equal`` to eager,
+    one sqrt and one elemwise launch a block norm (64 a prefill and a
+    step) besides phase 4's attention and decode_attention counts; logits
+    within LOGIT_TOL of the same config on the plain versions (whose
+    largest logit must lie in NORM_LOGIT_RANGE, where LOGIT_TOL is derived); times
+    against the same process's use_in_norm-free path, in turns."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    base = serve.serving_config(ARCH, approx="simdive")
+    cfg = base.with_approx(replace(base.approx, use_in_norm=True))
+    lm = build(cfg)
+    params, prompts = served["params"], served["prompts"]
+    norms = 2 * cfg.n_layers
+    run = policy_generate(dev, lm, params, prompts, "use_in_norm",
+                          norms=norms)
+    counts = run["counts"]
+    ref_lm = build(serve.serving_config(ARCH, approx="simdive", backend="ref")
+                   .with_approx(replace(cfg.approx, backend="ref")))
+    ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
+    top = float(ref_all.abs().max())
+    lo, hi = NORM_LOGIT_RANGE
+    require(lo <= top < hi, f"use_in_norm: largest |logit| {top:.3f} lies "
+            f"outside [{lo:g}, {hi:g}), where LOGIT_TOL is derived")
+    tol = LOGIT_TOL
+    log(f"  use_in_norm: largest |logit| {top:.3f} (in [{lo:g}, {hi:g})), "
+        f"bound LOGIT_TOL = {tol:g}")
+    judged = judge_logits("use_in_norm", run["logits"], run["tokens"],
+                          ref_all, tol)
+    # the served path in turns with the same process's use_in_norm-free
+    # one: free, norm, norm, free; best of each
+    times = {}
+    for name, this in (("free", served["lm"]), ("norm", lm), ("norm", lm),
+                       ("free", served["lm"])):
+        t = policy_times(dev, this, params, prompts, prefix=f"{name}_")
+        for k, v in t.items():
+            times[k] = min(times.get(k, v), v)
+    log("  (d) use_in_norm generate, captured / eager: "
+        f"{times['norm_generate_captured_ms']:.2f} / "
+        f"{times['norm_generate_eager_ms']:.1f} ms (use_in_norm-free "
+        f"{times['free_generate_captured_ms']:.2f} / "
+        f"{times['free_generate_eager_ms']:.1f}); prefill replay "
+        f"{times['norm_prefill_replay_ms']:.3f} "
+        f"({times['free_prefill_replay_ms']:.3f}), step replay "
+        f"{times['norm_decode_step_replay_ms']:.3f} "
+        f"({times['free_decode_step_replay_ms']:.3f}) ms; largest logit "
+        f"{top:.2f}")
+    return dict(counts=counts, first_generate_s=run["first_generate_s"],
+                logit_max=top, logit_tol=tol, **judged, **times)
+
+
+def time_sqrt(dev, int_rate) -> tuple[dict, dict]:
+    """The sqrt kernel at the norms' shapes on the served path: a prefill's
+    (BATCH x PROMPT lanes, one a row) and a decode step's (BATCH lanes);
+    graph-replayed, beside its bound and its plain version."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    spec = SimdiveSpec(width=16, coeff_bits=6)
+    out = {}
+    for name, n in (("prefill", BATCH * PROMPT), ("step", BATCH)):
+        a = torch.randint(1, 1 << 16, (BATCH, n // BATCH, 1), generator=gen,
+                          device=dev, dtype=torch.int32).view(torch.uint32)
+        kernel = lambda a=a: get_op("sqrt", spec, "cuda")(a)
+        ms = gpu_graph_time_ms(kernel, iters=200)
+        plain_ms = gpu_time_ms(lambda a=a: get_op("sqrt", spec, "ref")(a),
+                               iters=50)
+        bytes_ms = 8 * n / HBM_BYTES_PER_S * 1e3
+        ops_ms = SQRT_OPS_PER_LANE * n / int_rate * 1e3
+        out[name] = dict(lanes=n, ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations")
+        log(f"  sqrt kernel, the {name}'s norm shape ({n} lanes): {ms:.5f} ms "
+            f"(graph), plain {plain_ms:.4f} ms, bound "
+            f"{out[name]['bound_ms']:.3g} ms ({out[name]['bound_by']})")
+    p = out["prefill"]
+    row = {"name": "sqrt", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/elemwise.cu",
+           "replaces": "src/repro/core/simdive.py:68",
+           "note": "no TPU kernel: the reference's jnp simdive_sqrt, "
+                   "registered for its oracle alone "
+                   "(src/repro/kernels/ops.py:472)",
+           "shape": f"({BATCH},{PROMPT},1) uint32 lanes, w16 fo0 (a "
+                    "prefill's block norm; a decode step's: "
+                    f"({BATCH},1,1))",
+           "ms": p["ms"], "plain_ms": p["plain_ms"],
+           "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+           "library_ms": None, "step_shape": out["step"]}
+    return row, out
+
+
+def arithmetic_phase(dev, served) -> dict:
+    """Phase 9: the rest of the arithmetic on the card — (c) and (b)
+    first, whose operands (a) reuses, then (a), then (d) the full-width
+    use_in_norm generate."""
+    import torch
+
+    eps = served["lm"].cfg.norm_eps
+    norm = check_rmsnorm(dev, eps)
+    soft = check_softmax(dev)
+    embed = served["params"]["embed"][0][served["prompts"]].to(torch.bfloat16)
+    sq = check_sqrt(dev, [rsqrt_operands(embed, eps), norm.pop("qm")])
+    gen = norm_generate(dev, served)
+    return dict(**norm, **soft, **sq, use_in_norm=gen)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4254,13 +4610,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/8] device: {card} | torch {torch.__version__} "
+    log(f"[1/9] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/8] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/9] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -4275,7 +4631,7 @@ def main(argv=None) -> int:
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
 
-    log("[3/8] kernels vs plain versions")
+    log("[3/9] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -4283,7 +4639,7 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/8] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/9] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -4295,7 +4651,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/8] times")
+    log("[5/9] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -4315,19 +4671,32 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/8] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/9] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    log("[7/8] faults: every kernel under each armed site, captured graphs, "
+    log("[7/9] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
-    log("[8/8] policy: build_policy / select_config on the card, a "
+    log("[8/9] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
+
+    log("[9/9] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+        "on the card; smollm-360m full width with use_in_norm (captured, "
+        "eager, plain versions)")
+    arith = arithmetic_phase(dev, served)
+    sqrt_row, sqrt_times = time_sqrt(dev, int_rate)
+    norm_counts = arith["use_in_norm"]["counts"]
+    sqrt_row["launches"] = norm_counts["sqrt"]
+    sqrt_row["max_abs_err"] = arith["sqrt_max_abs_err"]
+    require(norm_counts["sqrt"] == norm_counts["elemwise"]
+            == 2 * served["lm"].cfg.n_layers * GEN,
+            f"use_in_norm generate: launches {norm_counts}")
+    kernels.append(sqrt_row)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -4350,6 +4719,8 @@ def main(argv=None) -> int:
     # ... and phase 8 (a)'s policy build: one per (op, width, coeff_bits)
     by_name["elemwise"]["launches_policy_build"] = \
         policy["policy_build_launches"]["elemwise"]
+    # ... and phase 9 (d)'s use_in_norm generate: one a block norm
+    by_name["elemwise"]["launches_use_in_norm"] = norm_counts["elemwise"]
     # decode_attention: the divider-only main path's run; max_abs_err at
     # the main path's shape, the worst over every phase-3 case beside it
     by_name["decode_attention"]["launches"] = counts["decode_attention"]
@@ -4413,7 +4784,8 @@ def main(argv=None) -> int:
             "logmatmul launches on the emulate path")
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
-    for key, val in (*drill.items(), *faults.items(), *policy.items()):
+    for key, val in (*drill.items(), *faults.items(), *policy.items(),
+                     *arith.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
@@ -4434,6 +4806,7 @@ def main(argv=None) -> int:
                              if k != "lm"},
             "logmatmul_shapes": mm_shapes, "drill": drill,
             "faults": faults, "policy": policy,
+            "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -1,12 +1,14 @@
-"""Model-facing approximate math: the SIMDive divider inside attention.
+"""Model-facing approximate math: the SIMDive divider inside attention,
+softmax and the norm, and the emulated SIMDive linears.
 
-Counterpart of ``repro.core.approx`` for the serving slices ported so
-far: :class:`ApproxConfig` with its policy resolution, the layer-segment
-helper, :func:`attention_div`, and the emulated approximate linears —
-:func:`quantize_sign_magnitude`, :func:`approx_matmul` (straight-through
-exact gradients) and :func:`approx_matmul_int8` (pre-quantized int8
-weights). ``approx_softmax``, ``approx_rmsnorm`` and the approximate
-backward (``backward='approx'``, training) are not ported yet.
+Counterpart of ``repro.core.approx``: :class:`ApproxConfig` with its
+policy resolution, the layer-segment helper, :func:`attention_div`, the
+emulated approximate linears — :func:`quantize_sign_magnitude`,
+:func:`approx_matmul` (straight-through exact gradients) and
+:func:`approx_matmul_int8` (pre-quantized int8 weights) — and the
+divider's other uses, :func:`approx_softmax` and :func:`approx_rmsnorm`
+(straight-through exact gradients). The approximate backward
+(``backward='approx'``, training) is not ported yet.
 
 Every approximate op dispatches through the kernel registry
 (:func:`repro_torch.kernels.registry.get_op`). ``ApproxConfig.backend``
@@ -35,7 +37,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch.kernels.registry import get_op
-from .mitchell import check_width, from_lanes
+from .mitchell import check_width, from_lanes, lane_max_float
 from .simdive import SimdiveSpec
 
 __all__ = [
@@ -43,6 +45,9 @@ __all__ = [
     "quantize_sign_magnitude",
     "approx_matmul",
     "approx_matmul_int8",
+    "approx_softmax",
+    "approx_rmsnorm",
+    "rsqrt_operand",
     "attention_div",
     "layer_label",
     "serving_segments",
@@ -193,6 +198,153 @@ def attention_div(acc: torch.Tensor, l: torch.Tensor,
                op="div", frac_out=frac_out)
     out = from_lanes(quot).to(torch.float32) * (2.0 ** -frac_out)
     return torch.where(acc < 0, -out, out)
+
+
+def _fixed_point_operands(num: torch.Tensor, den: torch.Tensor,
+                          width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-scale float32 ``num >= 0`` and ``den > 0`` into ``width``-bit
+    lanes: one power of two shared by the whole call,
+    ``2^(width - 2 - floor(log2 top))`` with ``top`` the larger of both
+    maxima, so the larger side fills the lane. Returns int32 ``(qn, qd)``.
+
+    ``floor(log2 top)`` is read from ``top``'s exponent field on the
+    device, exactly (no host read: the call can be captured in a CUDA
+    graph). The reference takes the floor of a float32 ``log2``, which can
+    land on the other side of ``k`` for ``top`` at or next to ``2^k``;
+    there the two scales differ by a factor of two.
+    """
+    check_width(width)
+    top = torch.maximum(num.amax(), den.amax()).clamp(min=1e-30)
+    _, e = torch.frexp(top)                      # top = m * 2^e, m in [.5, 1)
+    sc = torch.ldexp(torch.ones_like(top), (width - 1) - e)
+    lim = lane_max_float(width)
+    # width <= 16: the operands fit int32, whose bits are the uint32 lanes
+    qn = torch.round(num * sc).clamp(0.0, lim).to(torch.int32)
+    qd = torch.round(den * sc).clamp(1.0, lim).to(torch.int32)
+    return qn, qd
+
+
+def _fixed_point_div(num: torch.Tensor, den: torch.Tensor,
+                     cfg: ApproxConfig) -> torch.Tensor:
+    """Approximate ``num / den`` (float32, both >= 0, den > 0) on the
+    SIMDive divider, resolved as the logical ``'div'`` op at ``div_width``:
+    both operands block-scaled into the lane by
+    :func:`_fixed_point_operands` (the scale cancels in the quotient), one
+    elemwise 'div' dispatch. Width 32 raises.
+    """
+    spec, backend = cfg.resolve("div", cfg.div_width)
+    qn, qd = _fixed_point_operands(num, den, spec.width)
+    div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
+    q = div(qn.view(torch.uint32), qd.view(torch.uint32), op="div",
+            frac_out=cfg.frac_out)
+    return from_lanes(q).to(torch.float32) / float(2 ** cfg.frac_out)
+
+
+def _approx_softmax_impl(x, axis, cfg: ApproxConfig):
+    if not cfg.enabled or not cfg.use_in_softmax \
+            or not cfg.active_for("div"):
+        return torch.softmax(x, dim=axis)
+    m = x.amax(dim=axis, keepdim=True).detach()
+    e = (x - m).to(torch.float32).exp()
+    s = e.sum(dim=axis, keepdim=True)
+    return _fixed_point_div(e, s.expand_as(e), cfg).to(x.dtype)
+
+
+class _ApproxSoftmax(torch.autograd.Function):
+    """SIMDive forward, straight-through backward: the exact softmax
+    Jacobian at the approximate output (the reference's ``custom_vjp``
+    pair ``_approx_softmax_fwd`` / ``_approx_softmax_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, cfg):
+        p = _approx_softmax_impl(x, axis, cfg)
+        ctx.axis = axis
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, = ctx.saved_tensors
+        pg = p.to(torch.float32) * g.to(torch.float32)
+        gx = pg - p * pg.sum(dim=ctx.axis, keepdim=True)
+        return gx.to(g.dtype), None, None
+
+
+def approx_softmax(x: torch.Tensor, axis: int,
+                   cfg: ApproxConfig) -> torch.Tensor:
+    """Softmax whose normalization division is a SIMDive divider
+    (:func:`_fixed_point_div`: one elemwise 'div' dispatch, on the card
+    one launch of the elemwise kernel); exact where ``cfg`` does not
+    approximate the softmax. Exact gradients (STE)."""
+    return _ApproxSoftmax.apply(x, axis, cfg)
+
+
+def rsqrt_operand(ms: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+    """The sqrt operand of :func:`approx_rmsnorm`'s rsqrt, as uint32 lanes:
+    ``qm = clip(round((ms + eps) * 2^32), 1, lane max)`` for the float32
+    mean squares ``ms``."""
+    check_width(width)
+    qm = torch.round((ms + eps) * 2.0 ** 32).clamp(1.0, lane_max_float(width))
+    return qm.to(torch.int32).view(torch.uint32)
+
+
+def _approx_rmsnorm_impl(x, gamma, eps, cfg: ApproxConfig):
+    ms = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    if not cfg.enabled or not cfg.use_in_norm or not cfg.active_for("div"):
+        inv = torch.rsqrt(ms + eps)
+    else:
+        # rsqrt in the log domain: sqrt is L >> 1, then one SIMDive divide
+        #   qm = m * 2^32, clipped to the lane;  r = sqrt(qm) = sqrt(m) * 2^16
+        #   q  = (2^31 / r) * 2^16 = rsqrt(m) * 2^31
+        spec, backend = cfg.resolve("div", cfg.div_width)
+        qm = rsqrt_operand(ms, eps, spec.width)
+        sqrt = get_op("sqrt", spec, backend=backend, guard=cfg.guard)
+        r = from_lanes(sqrt(qm)).clamp(min=1)
+        div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
+        q = div(torch.full_like(r, 1 << 31), r, op="div", frac_out=16)
+        inv = from_lanes(q).to(torch.float32) * 2.0 ** -31
+    return (x.to(torch.float32) * inv * gamma.to(torch.float32)).to(x.dtype)
+
+
+class _ApproxRMSNorm(torch.autograd.Function):
+    """Log-domain forward, straight-through backward: the exact RMSNorm
+    gradient (the reference's ``_approx_rmsnorm_fwd`` /
+    ``_approx_rmsnorm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, cfg):
+        ctx.eps = eps
+        ctx.save_for_backward(x, gamma)
+        return _approx_rmsnorm_impl(x, gamma, eps, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        xf, gf, gg = (t.to(torch.float32) for t in (x, g, gamma))
+        d = x.shape[-1]
+        inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xn = xf * inv
+        gxn = gf * gg
+        gx = inv * (gxn - xn * (gxn * xn).mean(dim=-1, keepdim=True))
+        ggamma = (gf * xn).reshape(-1, d).sum(dim=0)
+        return gx.to(x.dtype), ggamma.to(gamma.dtype), None, None
+
+
+def approx_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                   cfg: ApproxConfig) -> torch.Tensor:
+    """RMSNorm with a log-domain rsqrt + divide denominator (beyond the
+    paper): one ``sqrt`` and one elemwise 'div' dispatch a call, on the
+    card one launch of each kernel (``csrc/elemwise.cu``). Exact where
+    ``cfg`` does not approximate the norm. Exact gradients (STE).
+
+    Mirrors the reference bit for bit, its defect included (ROADMAP R-4):
+    ``qm`` is clipped to ``lane_max_float(div_width)``, so at the default
+    16-bit lane any mean square above 2^-16 gives the same ``qm`` and the
+    "rsqrt" is a constant (1.5 for unit-scale rows); and the numerator
+    ``2^31`` lies outside a 16-bit lane. The port does not fix either on
+    its own side.
+    """
+    return _ApproxRMSNorm.apply(x, gamma, eps, cfg)
 
 
 # ---------------------------------------------------- emulated linears --

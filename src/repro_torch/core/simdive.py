@@ -3,9 +3,9 @@
 Counterpart of ``repro.core.simdive``: Mitchell's log-domain datapath plus
 the region error-reduction coefficient added in the same add step.
 ``coeff_bits`` is the accuracy knob (0 = plain Mitchell); ``index_bits``
-widens the table. Both functions compose the stage library in
-:mod:`repro_torch.kernels.datapath`, which the CUDA kernels mirror.
-``simdive_sqrt`` is not ported yet.
+widens the table. All three functions compose the stage library in
+:mod:`repro_torch.kernels.datapath`, which the CUDA kernels mirror;
+``simdive_sqrt`` (beyond the paper) halves the Mitchell log.
 """
 from __future__ import annotations
 
@@ -13,7 +13,9 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["SimdiveSpec", "simdive_mul", "simdive_div"]
+from .mitchell import BUS_MASK, check_width, from_lanes
+
+__all__ = ["SimdiveSpec", "simdive_mul", "simdive_div", "simdive_sqrt"]
 
 
 @dataclass(frozen=True)
@@ -46,3 +48,19 @@ def simdive_div(a: torch.Tensor, b: torch.Tensor, spec: SimdiveSpec,
                 frac_out: int = 0) -> torch.Tensor:
     """Corrected approximate quotient ``round_down(a/b * 2^frac_out)``."""
     return _lane_op(a, b, spec, "div", frac_out=frac_out)
+
+
+def simdive_sqrt(a: torch.Tensor, width: int, frac_out: int = 0) -> torch.Tensor:
+    """Log-domain square root ``round_down(sqrt(a) * 2^frac_out)``: halve
+    the Mitchell log, then the quotient anti-log with a zero divisor log,
+    no correction and no output rounding (0 -> 0). ``a`` is any integer
+    tensor of values < 2^width, taken as uint32 lanes as the reference
+    casts them; returns the int64 carrier. The log stage's fault hook
+    applies, as in the reference."""
+    from repro_torch.kernels import datapath as dp
+
+    check_width(width)
+    au = from_lanes(a) & BUS_MASK
+    half = dp.lod_log(au, width) >> 1
+    return dp.antilog_div(half, torch.zeros_like(half), width,
+                          frac_out=frac_out, num_zero=au == 0)

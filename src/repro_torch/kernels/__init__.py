@@ -8,8 +8,9 @@ Layering:
                       every kernel
   csrc/cp_async.cuh   cp.async copy / commit / wait helpers shared by the
                       ring schedules
-  elemwise.py         fused elementwise mul/div/mixed: wrapper + plain
-                      version (kernel: csrc/elemwise.cu)
+  elemwise.py         fused elementwise mul/div/mixed and the log-domain
+                      sqrt: wrappers + plain versions
+                      (kernels: csrc/elemwise.cu)
   packed_simd.py      packed sub-word lanes (4x8-bit / 2x16-bit a uint32
                       word) through the same SISD unit, repacked onto the
                       doubled bus: wrapper + plain versions

@@ -128,6 +128,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.c_longlong)
     lib.simdive_elemwise.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, i, i, p]
     lib.simdive_elemwise.restype = i
+    lib.simdive_sqrt.argtypes = [p, p, ll, i, i, p]
+    lib.simdive_sqrt.restype = i
     lib.simdive_packed.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, i, i, p]
     lib.simdive_packed.restype = i
     lib.simdive_flash_attention.argtypes = (

@@ -17,6 +17,17 @@
 // scalar path for the ragged tail masked in-kernel (no pad-to-block copies
 // as on the TPU), and the 64..512-entry coefficient table staged once per
 // block into shared memory.
+//
+// sqrt_kernel, below, replaces no TPU kernel: the reference computes its
+// log-domain square root (repro/core/simdive.py simdive_sqrt) in jnp and
+// registers the op for its oracle alone. It is here so that the approximate
+// RMSNorm's sqrt (core/approx.py approx_rmsnorm) has a kernel on the card:
+// LOD -> log -> L >> 1 -> quotient anti-log with a zero divisor log, no
+// correction, no rounding. Bound on an H100: memory, 8 bytes a lane (one
+// uint32 read, one written) over 3.35 TB/s; at the norm's shapes (one lane
+// a row: 2,048 a prefill, 4 a decode step) launch latency. The same layout
+// as the lane ops, with no table; it shares this source, so the build adds
+// no compile unit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +95,53 @@ __global__ void elemwise_kernel(const uint32_t* __restrict__ a,
     elemwise_lanes<OP, false>(a, b, mode, out, n, i0, s_tab, cfg);
 }
 
+// The square root unit: halve the Mitchell log, then the quotient anti-log
+// against a zero divisor log (no correction, no rounding); 0 -> 0, the
+// numerator-zero flag. Operands < 2^width.
+template <bool FAULTS>
+__device__ __forceinline__ uint32_t lane_sqrt(uint32_t a, const LaneCfg& c) {
+  const uint32_t half = simdive::lod_log<FAULTS>(a, c.width - 1) >> 1;
+  const uint32_t q =
+      simdive::antilog_div(half, 0u, 0, c.width, c.frac_out, false);
+  return a ? q : 0u;
+}
+
+template <bool FAULTS>
+__device__ __forceinline__ void sqrt_lanes(const uint32_t* __restrict__ a,
+                                           uint32_t* __restrict__ out,
+                                           long long n, long long i0,
+                                           const LaneCfg& cfg) {
+  if (i0 + 4 <= n) {
+    const uint4 va = *reinterpret_cast<const uint4*>(a + i0);
+    uint4 vo;
+    vo.x = lane_sqrt<FAULTS>(va.x, cfg);
+    vo.y = lane_sqrt<FAULTS>(va.y, cfg);
+    vo.z = lane_sqrt<FAULTS>(va.z, cfg);
+    vo.w = lane_sqrt<FAULTS>(va.w, cfg);
+    *reinterpret_cast<uint4*>(out + i0) = vo;
+  } else {
+    for (long long i = i0; i < n; ++i) out[i] = lane_sqrt<FAULTS>(a[i], cfg);
+  }
+}
+
+__device__ __noinline__ void sqrt_lanes_armed(const uint32_t* a,
+                                              uint32_t* out, long long n,
+                                              long long i0, LaneCfg cfg) {
+  sqrt_lanes<true>(a, out, n, i0, cfg);
+}
+
+__global__ void sqrt_kernel(const uint32_t* __restrict__ a,
+                            uint32_t* __restrict__ out, long long n,
+                            LaneCfg cfg) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i0 >= n) return;
+  if (simdive::lane_faults_armed())
+    sqrt_lanes_armed(a, out, n, i0, cfg);
+  else
+    sqrt_lanes<false>(a, out, n, i0, cfg);
+}
+
 }  // namespace
 
 // This source's copy of the fault register (simdive_datapath.cuh).
@@ -124,5 +182,20 @@ extern "C" int simdive_elemwise(const void* a, const void* b, const void* mode,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, out: n contiguous uint32 lanes, 16-byte aligned; launched at a fixed
+// 256 threads a block, 4 lanes a thread. Returns cudaGetLastError() of the
+// launch.
+extern "C" int simdive_sqrt(const void* a, void* out, long long n, int width,
+                            int frac_out, void* stream) {
+  constexpr int kThreads = 256;
+  if (n <= 0) return 0;
+  const LaneCfg cfg{width, 0, frac_out, 0};
+  const long long per_block = 4LL * kThreads;
+  const unsigned blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
+  sqrt_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out), n, cfg);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,18 +15,26 @@ native ``uint32``; the plain version converts to the int64 carrier and back.
 Bound on an H100 (see the note in the source): 12 bytes of device memory
 per lane over 3.35 TB/s; launch latency at small shapes. On the served
 path the decode step's divider runs fused into ``decode_attention``; this
-kernel serves ``measure_error`` and ``simdive_elemwise``.
+kernel serves ``measure_error``, ``simdive_elemwise`` and the divides of
+``approx_softmax`` / ``approx_rmsnorm``.
+
+The same source holds the log-domain square root, :func:`sqrt_cuda` (plain
+version :func:`sqrt_ref`, which composes
+:func:`repro_torch.core.simdive.simdive_sqrt`): a kernel of the port's own
+(the reference runs its sqrt from its oracle only) behind the op ``sqrt``,
+for ``approx_rmsnorm``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.mitchell import check_width, from_lanes, to_lanes
-from repro_torch.core.simdive import SimdiveSpec
+from repro_torch.core.simdive import SimdiveSpec, simdive_sqrt
 from . import build
 from . import datapath as dp
 
-__all__ = ["DEFAULT_BLOCK", "elemwise_ref", "elemwise_cuda"]
+__all__ = ["DEFAULT_BLOCK", "elemwise_ref", "elemwise_cuda", "sqrt_ref",
+           "sqrt_cuda"]
 
 #: launch shape the op registers: (threads per block,); 4 lanes per thread
 DEFAULT_BLOCK = (256,)
@@ -101,3 +109,37 @@ def elemwise_cuda(a: torch.Tensor, b: torch.Tensor, spec: SimdiveSpec,
 
 #: kernel launches made through the wrapper (read by chip_smoke.py)
 elemwise_cuda.launches = 0
+
+
+def sqrt_ref(a: torch.Tensor, spec: SimdiveSpec,
+             frac_out: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: ``simdive_sqrt`` over lanes -> uint32."""
+    return to_lanes(simdive_sqrt(a, spec.width, frac_out=frac_out))
+
+
+def sqrt_cuda(a: torch.Tensor, spec: SimdiveSpec,
+              frac_out: int = 0) -> torch.Tensor:
+    """Launch the square-root kernel on lane tensors of any rank
+    (``round_down(sqrt(a) * 2^frac_out)``, values < 2^width; only
+    ``spec.width`` matters: the unit has no correction and no rounding).
+
+    Launches on the current stream and does not synchronise. Raises on CPU
+    tensors, on width 32 and on a failed build or launch.
+    """
+    check_width(spec.width)
+    if not 0 <= frac_out <= 31:
+        raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
+    au = cuda_operand(a, "a", kernel="sqrt")
+    out = torch.empty_like(au)
+    lib = build.load(au.device)
+    with torch.cuda.device(au.device):
+        code = lib.simdive_sqrt(au.data_ptr(), out.data_ptr(), au.numel(),
+                                spec.width, frac_out,
+                                build.current_stream())
+    build.check(code, "simdive_sqrt")
+    sqrt_cuda.launches += 1
+    return out
+
+
+#: kernel launches made through the wrapper (read by chip_smoke.py)
+sqrt_cuda.launches = 0

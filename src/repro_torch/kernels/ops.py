@@ -1,8 +1,9 @@
 """Built-in SIMDive ops: registration + thin public entry points.
 
-Counterpart of ``repro.kernels.ops`` for the ops ported so far:
-``elemwise``, ``packed``, ``attention``, ``matmul_int`` and
-``matmul_emul`` (``sqrt`` is not ported), plus one op of the port's own,
+Counterpart of ``repro.kernels.ops``: ``elemwise``, ``packed``,
+``attention``, ``matmul_int``, ``matmul_emul`` and ``sqrt`` (which the
+reference registers for its oracle alone; here it has a kernel too, in
+``csrc/elemwise.cu``), plus one op of the port's own,
 ``decode_attention`` (a decode step's attention and its divider; the
 reference runs that function as jnp around ``elemwise``). Each registers
 its plain PyTorch version and its CUDA kernel with
@@ -122,6 +123,10 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
             default_block=_ew.DEFAULT_BLOCK,
             kernels={"elemwise": _ew.elemwise_cuda})
+# sqrt: one launch shape, fixed in the C entry (256 threads of 4 lanes);
+# both versions take (a, spec, frac_out) as they are
+register_op("sqrt", ref=_ew.sqrt_ref, cuda=_ew.sqrt_cuda,
+            kernels={"sqrt": _ew.sqrt_cuda})
 # packed: both versions take any rank and return (..., 2 * Nw) words, the
 # shape the reference gets through its 2-D view and pad-to-block step (the
 # kernel's word mapping is flat and masks its tail), so they register as

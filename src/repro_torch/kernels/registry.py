@@ -442,6 +442,11 @@ def _guard_check(name: str, spec, backend: str, tensors, kw, out) -> None:
             nbad = count(out.to(torch.int64).abs() > lim)
             if nbad:
                 trip(f"|accumulator| exceeds K * (2^{w}-1)^2", nbad)
+    elif name == "sqrt":
+        lim = 1 << ((w + 1) // 2 + frac + 1)
+        nbad = count(_int_values(out)[0] > lim)
+        if nbad:
+            trip(f"sqrt result exceeds 2^{(w + 1) // 2 + frac + 1}", nbad)
     # 'packed': output words span the full uint32 range — the range check
     # is vacuous, as in the reference
 

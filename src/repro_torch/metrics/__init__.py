@@ -5,6 +5,7 @@ Counterpart of ``repro.metrics`` for what the port uses so far:
   error_stats / ErrorStats   ARE%/MRED/NMED/PRE%/WCE/error-rate
   relative_error             per-lane relative error distances
   classification_accuracy    top-1 %
+  psnr / ssim                image quality (Fig. 3/4)
   grid8 / sample_uints / stratified_pairs / DIV_FRAC_OUT /
   PACKED_DIV_FRAC_OUT        shared operand sets and the divider's
                              fixed-point conventions of every sweep
@@ -12,9 +13,9 @@ Counterpart of ``repro.metrics`` for what the port uses so far:
   trajectory                 the BENCH document's schema + migration +
                              the regression gate (diff_runs); pure stdlib
 
-``errors`` and ``operands`` are pure numpy and ``trajectory`` pure stdlib,
-copied rather than imported (the port imports nothing of ``repro``). Image
-metrics and the training-divergence metrics are not ported yet.
+``errors``, ``image`` and ``operands`` are pure numpy and ``trajectory``
+pure stdlib, copied rather than imported (the port imports nothing of
+``repro``). The training-divergence metrics are not ported yet.
 """
 from .errors import (
     ErrorStats,
@@ -22,6 +23,7 @@ from .errors import (
     error_stats,
     relative_error,
 )
+from .image import psnr, ssim
 from .operands import (
     DIV_FRAC_OUT,
     PACKED_DIV_FRAC_OUT,
@@ -43,6 +45,8 @@ __all__ = [
     "error_stats",
     "relative_error",
     "classification_accuracy",
+    "psnr",
+    "ssim",
     "DIV_FRAC_OUT",
     "PACKED_DIV_FRAC_OUT",
     "grid8",

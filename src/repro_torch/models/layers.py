@@ -15,8 +15,11 @@ ops run (chunked online softmax for the prefill), with only the final
 Every matmul goes through :func:`dense`, which understands plain float
 weights, :class:`QuantizedWeight` (int8 + per-output-channel scale) and
 the SIMDive emulation of ``ApproxConfig.emulate`` — on the card, every
-emulated linear is one launch of the ``logmatmul`` kernel. ``layernorm``
-and M-RoPE are not ported yet and raise.
+emulated linear is one launch of the ``logmatmul`` kernel. RMSNorm is
+exact, or with ``ApproxConfig.use_in_norm`` the log-domain
+:func:`repro_torch.core.approx.approx_rmsnorm` (on the card one ``sqrt``
+and one ``elemwise`` launch a norm). ``layernorm`` and M-RoPE are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.approx import (
     ApproxConfig,
     approx_matmul,
     approx_matmul_int8,
+    approx_rmsnorm,
     attention_div,
 )
 from repro_torch.kernels.decode_attention import decode_attention_acc
@@ -94,8 +98,7 @@ def apply_norm(x, p, kind, eps=1e-6, approx: ApproxConfig = EXACT):
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
     if approx.enabled and approx.use_in_norm:
-        raise NotImplementedError(
-            "approx_rmsnorm (ApproxConfig.use_in_norm) is not ported yet")
+        return approx_rmsnorm(x, p["w"], eps, approx)
     return rmsnorm(x, p["w"], eps)
 
 

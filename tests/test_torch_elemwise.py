@@ -102,7 +102,8 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
                                "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
-                               "matmul_pipelined": 0, "packed": 0}
+                               "matmul_pipelined": 0, "packed": 0,
+                               "sqrt": 0}
 
 
 def test_registry_surface():
@@ -110,7 +111,7 @@ def test_registry_surface():
     assert sorted(launch_counts()) == ["attention", "attention_pipelined",
                                        "decode_attention", "elemwise",
                                        "matmul", "matmul_pipelined",
-                                       "packed"]
+                                       "packed", "sqrt"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
     assert get_op("packed", TSpec()).entry.default_block == (256,)
     # attention takes (q_chunk, kv_chunk[, depth]) blocks
@@ -127,8 +128,18 @@ def test_registry_surface():
     assert shape_bucket((3, 100, 64)) == (4, 128, 64)
     assert get_op("matmul_emul", TSpec()).entry.default_block == \
         (8, 128, 256, 4, 0)
+    # sqrt: 'auto' serves a CPU tensor from the plain version, 'cuda'
+    # refuses it; one launch shape, no block
+    lanes = torch.tensor([65535, 256, 1, 0]).to(torch.int32).view(
+        torch.uint32)
+    assert get_op("sqrt", TSpec(width=16)).backend == "auto"
+    assert resolve_backend("auto", lanes) == "ref"
+    assert get_op("sqrt", TSpec(width=16))(lanes).tolist() == [255, 16, 1, 0]
+    with pytest.raises(ValueError, match="backend 'cuda'"):
+        get_op("sqrt", TSpec(width=16), "cuda")(lanes)
+    assert get_op("sqrt", TSpec()).entry.default_block is None
     with pytest.raises(KeyError, match="unknown op"):
-        get_op("sqrt", TSpec())             # not ported
+        get_op("rsqrt", TSpec())
     with pytest.raises(NotImplementedError, match="width 32"):
         get_op("elemwise", TSpec(width=32), "ref")(
             torch.tensor([1]), torch.tensor([1]), op="mul")

@@ -57,7 +57,8 @@ def test_every_package_module_is_covered():
                    "metrics/operands.py", "metrics/trajectory.py",
                    "tuning/frontier.py", "tuning/select.py",
                    "faults/inject.py", "faults/scrub.py",
-                   "faults/campaign.py", "launch/scheduler.py"):
+                   "faults/campaign.py", "launch/scheduler.py",
+                   "core/lod.py", "core/baselines.py", "metrics/image.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",
@@ -76,7 +77,8 @@ def test_launch_counts_name_every_schedule():
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
                                "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
-                               "matmul_pipelined": 0, "packed": 0}
+                               "matmul_pipelined": 0, "packed": 0,
+                               "sqrt": 0}
 
 
 def test_ring_kernels_share_the_cp_async_header():

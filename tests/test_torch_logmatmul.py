@@ -376,7 +376,8 @@ def test_matmul_dispatch_and_blocks_on_cpu():
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
                                "decode_attention": 0,
                                "elemwise": 0, "matmul": 0,
-                               "matmul_pipelined": 0, "packed": 0}
+                               "matmul_pipelined": 0, "packed": 0,
+                               "sqrt": 0}
     # every registered block fits an SM's shared memory and is compiled
     entry = get_op("matmul_emul", spec).entry
     assert entry.default_block == lm.DEFAULT_BLOCK
