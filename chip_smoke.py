@@ -23,8 +23,10 @@ any phase fails. Phases:
               with q_offset and kv_len, an empty kv loop, exact and SIMDive
               divide — at the main path's shape also the scheduler's shed
               rung's Mitchell divider (coeff_bits 0, no rounding) and its
-              recovery rung's exact divide; bf16 at the tensor-core
-              fragments' edges: Sq and Skv
+              recovery rung's exact divide; the dense family's prefill
+              shapes, q (128,512,128) / kv (32,512,128) G 4, (128,512,64)
+              G 1, (160,512,128) / (32,512,128) G 5; bf16 at the
+              tensor-core fragments' edges: Sq and Skv
               not multiples of 16 or 8, one q row at a q_offset, scores
               of large magnitude), its ``cp.async``-ring schedule at every
               depth the wrapper accepts for each case bit-equal to the
@@ -36,24 +38,28 @@ any phase fails. Phases:
               of blocks per (b, kv head)) within the same tolerances at
               the planner's cluster size and pinned at every size 1..8,
               two calls bit-identical and a CUDA-graph replay bit-equal
-              to the eager call at each (f32 / bf16, d_head 64 / 128,
+              to the eager call at each, the planner's launch equal to
+              the one pinned at its size (f32 / bf16, d_head 64 / 128,
               exact and SIMDive divide, scalar and per-row positions,
               pos 0 and Smax - 1, ``ring_full`` before and after the
               wrap, the masked slot on rank boundaries, a window across
               ranks, fewer slots than ranks, G 1 / 3 / 8, a history of
               several rounds, 160 (b, kv head) rows where the planner
-              takes one block a row, the main path's shape, and the
+              takes one block a row, the main path's shape, the dense
+              family's step shapes (G 4 / 1 / 5 over a 544-slot cache),
+              and the
               scheduler drill's per-row positions with an idle row at 0
               at the shed rung's Mitchell divider and the recovery rung's
               exact divide), the main
-              path's clusters resident in one wave
+              path's and the dense family's clusters resident in one wave
               (``cudaOccupancyMaxActiveClusters``), and G 9, a position
               tensor left on the CPU and clusters of 0, 9 and 2.5 blocks
               refused before any launch; ``logmatmul`` bit-equal
               for every registered block (the skinny tiles, depth 0 and the
               cp.async ring) and every square block (compiled, no longer
               registered) at the four (K, N) of smollm-360m's linears at
-              M = 2048 and 4, plus ragged shapes, zeros, INT32_MIN,
+              M = 2048 and 4 and qwen3-4b's seven at M = 4 and 64, plus
+              ragged shapes, zeros, INT32_MIN,
               width-16 wrapping sums and Mitchell, and decode edges around
               the skinny tile's rows (M = 1, 3, 4, 5, 8, 9; N not a
               multiple of 4; K not a multiple of the split; w and x 4 bytes
@@ -303,6 +309,28 @@ any phase fails. Phases:
               replays against the same process's use_in_norm-free path, in
               turns (the kernels line's ``sqrt`` row; ``elemwise``'s
               ``launches_use_in_norm``).
+10. dense family — the three other dense configurations at full width
+              (random weights from seed 0, batch 4, prompt 512,
+              ``--approx simdive``), each model's graphs dropped before
+              the next. (k) The kernels' times at qwen3-4b's shapes
+              beside their bounds and ``scaled_dot_product_attention``
+              (attention at its prefill, decode attention at its step),
+              the seven linears at M = 4 and 2048, and the sqrt kernel at
+              16.8 M lanes; phase 3 holds the kernels at the three
+              configurations' shapes against their plain versions. (a)
+              qwen3-4b (qk-norm, d_head 128, G 4, untied), 32 tokens: the
+              captured prefill and step alone (memory each holds), then
+              the captured generate ``torch.equal`` to the eager one with
+              36 attention launches a prefill and 36 decode_attention a
+              step (31 steps), a replayed prefill equal to the eager one;
+              logits within 6 bf16 ulps of the largest logit (which must
+              lie in [2, 4)) of the plain versions, decided tokens equal;
+              peak memory and times. (b)
+              qwen3-4b ``--emulate``, 4 tokens: 252 ``logmatmul`` a
+              prefill and a step, captured == eager. (c) stablelm-1.6b
+              (LayerNorm, qkv bias, rotary on 16 of 64 features, G 1) and
+              (d) qwen2.5-14b (qkv bias, G 5) at 8 of its 48 layers, each
+              as (a).
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -311,6 +339,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -429,12 +458,22 @@ TOL_BF16 = dict(atol=2e-2, rtol=8e-3)
 TOL_APPROX_EXTRA = 1.25e-3
 APPROX_OUTLIER_SHARE = 1e-4
 TOL_APPROX_LOOSE = dict(atol=2e-2, rtol=6e-2)
-# main path, kernels vs plain versions: activations and logits are bf16
-# (8 bits of mantissa), so a logit of magnitude 4..8 — the largest here are
-# about 5 — has an ulp of 2^-5 = 0.031. Attention outputs that differ by one
-# bf16 ulp between kernel and plain version pass through 32 layers; the
-# measured difference is 0.07 = 2.2 ulps (PERF.md). Bound: 6 ulps.
-LOGIT_TOL = 0.1875
+# served logits, kernels vs plain versions: activations and logits are bf16
+# (8 bits of mantissa), so a logit of magnitude in [2^e, 2^(e+1)) has an ulp
+# of 2^(e-7). Attention outputs that differ by one bf16 ulp between kernel
+# and plain version pass through every layer; the measured difference on
+# smollm-360m is 0.07 = 2.2 ulps of its largest logits (PERF.md). Bound:
+# LOGIT_ULPS ulps of the plain run's largest |logit| (ulp_logit_tol),
+# derived for the largest logits each head gives at the main path's size,
+# which must lie in the range named for it: smollm-360m's tied head about
+# 5, in TIED_LOGIT_RANGE (ulp 2^-5, bound 0.1875); the dense family's
+# untied heads, uniform(+-d^-0.5) over the final norm's unit-rms rows, a
+# standard deviation of 1/sqrt(3), the largest of B x GEN x V (19.4 M for
+# qwen3-4b) ~5.8 of them, ~3.4, in UNTIED_LOGIT_RANGE (ulp 2^-6, bound
+# 0.09375)
+LOGIT_ULPS = 6
+TIED_LOGIT_RANGE = (4.0, 8.0)
+UNTIED_LOGIT_RANGE = (2.0, 4.0)
 # --emulate, kernels vs plain versions, at prompt 32, two comparisons:
 # (1) against a run whose matmuls are the plain versions but whose
 # attention op runs on the same kernels: the integer matmuls are
@@ -445,10 +484,9 @@ LOGIT_TOL = 0.1875
 # to share, so the two used to agree bit for bit at one kv tile). Attention
 # outputs then differ by one bf16 ulp here and there, as on the
 # divider-only path, and 8-bit re-quantization of the activations carries
-# them through 32 layers: the divider-only path's bound, 6 ulps of the
-# largest logits, far under what a wrong scale or a wrong linear does
+# them through 32 layers: the divider-only path's bound, LOGIT_ULPS ulps of
+# the largest logits, far under what a wrong scale or a wrong linear does
 # (O(1)).
-EMULATE_LOGIT_TOL = LOGIT_TOL
 EMULATE_EQUAL_ROW_SHARE = 0.5
 # the plain-version comparison of the emulate path runs shorter: its int64
 # emulation of the 644 G products of a prompt-512 prefill would take many
@@ -518,15 +556,58 @@ SQRT_OPS_PER_LANE = 14
 # give one constant in both versions and the norms are bit-equal; the
 # logits then differ only as phase 4's do — attention outputs one bf16 ulp
 # apart here and there, carried through 32 layers — and the final norm is
-# exact. Phase 4's bound, LOGIT_TOL (6 bf16 ulps of the largest logits),
-# holds as it is; it is derived for a largest logit of 4..8, so the plain
-# run's largest logit must lie in NORM_LOGIT_RANGE for it to apply.
-NORM_LOGIT_RANGE = (4.0, 8.0)
+# exact. Phase 4's bound, ulp_logit_tol over TIED_LOGIT_RANGE, holds as
+# it is.
 
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
            ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
            ("w2", 2560, 960))
+
+# phase 10: the dense family's other configurations at full width
+# (src/repro_torch/configs/qwen3_4b.py, stablelm_1_6b.py, qwen2_5_14b.py),
+# served divider-only as phase 4 (a) serves smollm-360m. Their attention
+# shapes: (arch, q heads, kv heads, d_head)
+DENSE_ATTENTION = (("qwen3-4b", 32, 8, 128), ("stablelm-1.6b", 32, 32, 64),
+                   ("qwen2.5-14b", 40, 8, 128))
+# qwen3-4b's linears per layer: (name, K, N)
+QWEN3_LINEARS = (("wq", 2560, 4096), ("wk", 2560, 1024),
+                 ("wv", 2560, 1024), ("wo", 4096, 2560),
+                 ("w1", 2560, 9728), ("w3", 2560, 9728),
+                 ("w2", 9728, 2560))
+# (b) qwen3-4b --emulate generates 4 tokens, not 32: its prefill is 36
+# layers of ~10x smollm-360m's 16.8 ms of logmatmul a layer, ~6 s, and the
+# check runs five prefills (the capture's warm run, two replays, the eager
+# prefill and the eager lm.prefill the replay is held to)
+QWEN3_EMULATE_GEN = 4
+# its logmatmul bit-equality rows: a decode step's 4, and 64 rows standing
+# for the prefill's 2,048 (the int64 plain version of a full prefill
+# layer's seven linears takes ~46 s)
+QWEN3_CHECK_ROWS = (4, 64)
+# 8-bit magnitudes: a product is at most 255^2 = 65,025, so the int32 sum of
+# the longest dot product, K = 9,728 (w2), stays under 2^31
+INT32_SUM_BOUND = 255 * 255 * 9728
+# (d) qwen2.5-14b's depth cut: its 48 layers are 59 GB of f32 parameters;
+# 8 layers and the two untied 152,064 x 5,120 tables are ~15 GB
+QWEN25_LAYERS = 8
+# the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
+# 16.8 M lanes, where it is no longer launch-bound
+SQRT_WORK_LANES = 1 << 24
+
+
+def ulp_logit_tol(what: str, ref_all, logit_range) -> tuple[float, float]:
+    """(bound, largest |logit|) for served logits held to the plain run's
+    ``ref_all``: LOGIT_ULPS bf16 ulps of its largest |logit|, which must
+    lie in ``logit_range`` [lo, hi), where the bound is derived."""
+    top = float(ref_all.abs().max())
+    lo, hi = logit_range
+    require(lo <= top < hi, f"{what}: largest |logit| of the plain run "
+            f"{top:.3f} lies outside [{lo:g}, {hi:g}), where the bound is "
+            "derived")
+    tol = LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    log(f"  {what}: largest |logit| of the plain run {top:.3f} (in "
+        f"[{lo:g}, {hi:g})), bound {LOGIT_ULPS} bf16 ulps = {tol:g}")
+    return tol, top
 
 
 def log(msg: str) -> None:
@@ -800,7 +881,8 @@ def judge_attention(name, got, want, dtype, approx):
 def check_attention(dev):
     """Both schedules vs the plain version. Returns a dict: max abs err at
     the main path's shape and the worst over all cases, for the depth-0
-    kernel and for the registered ring block (64, 64, 2)."""
+    kernel and for the registered ring block (64, 64, 2), and under
+    "dense" each dense-family prefill shape's row (DENSE_ATTENTION)."""
     import torch
     from repro_torch.core.error_lut import table_for
     from repro_torch.core.simdive import SimdiveSpec
@@ -808,7 +890,7 @@ def check_attention(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs = {"main": 0.0, "all": 0.0, "pipe_main": 0.0, "pipe_all": 0.0,
-            "ring_runs": 0}
+            "ring_runs": 0, "dense": {}}
     judge = judge_attention
 
     def randn(*shape, dtype):
@@ -816,7 +898,8 @@ def check_attention(dev):
                            dtype=torch.float32).to(dtype)
 
     def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
-            spec=fa.DEFAULT_DIV_SPEC, main=False, qk_gain=1.0, **kw):
+            spec=fa.DEFAULT_DIV_SPEC, main=False, dense=None, qk_gain=1.0,
+            **kw):
         # qk_gain (a power of two: exact in bf16) scales q and k, so the
         # scores grow by its square
         q = randn(BH, Sq, dh, dtype=dtype) * qk_gain
@@ -833,6 +916,11 @@ def check_attention(dev):
         errs["all"] = max(errs["all"], err)
         if main:
             errs["main"] = err
+        if dense:
+            errs["dense"][dense] = {
+                "shape": f"q ({BH},{Sq},{dh}) kv ({BH // kv_group},{Skv},"
+                         f"{dh}) G {kv_group}",
+                "max_abs_err": err, "outside_tight_share": share}
         # the ring at every depth the wrapper takes for this dtype / d_head:
         # bit-equal to depth 0, and so within the same tolerance
         depths = []
@@ -923,6 +1011,13 @@ def check_attention(dev):
     run("bf16 dh64 GQA kv_group3, the main path's shape, the recovery "
         "rung's exact divide", BATCH * 15, PROMPT, PROMPT, 64, bf16,
         kv_group=3, causal=True, approx_div=False)
+    # the dense family's prefill shapes (phase 10's models): d_head 128 at
+    # G 4 and 5, d_head 64 at G 1, the serving divider
+    for arch, H, KV, dh in DENSE_ATTENTION:
+        run(f"bf16 dh{dh} kv_group{H // KV}, {arch}'s prefill shape and "
+            "serving config", BATCH * H, PROMPT, PROMPT, dh, bf16,
+            kv_group=H // KV, causal=True, approx_div=True, frac_out=15,
+            spec=SimdiveSpec(width=16, coeff_bits=6), dense=arch)
     run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
         q_offset=299, approx_div=True)
     run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
@@ -1007,14 +1102,16 @@ def check_decode_attention(dev):
     on the same inputs, at the attention tolerances, every case at the
     planner's cluster size (``cluster=None``) and pinned at every legal
     size 1..8: each size within the tolerances, two calls bit-identical and
-    a CUDA-graph replay bit-equal to the eager call. Every case but the
-    main path's shape has >= 10,240 outputs a draw, and the main path's
-    shape (3,840 outputs) is judged over three draws pooled, so that one
-    SIMDive outlier stays under APPROX_OUTLIER_SHARE, as the constant
-    means it. Returns {"main": max abs err at the main path's shape at the
-    planner's size, "all": the worst over every case and size, "runs":
-    kernel calls checked, "clusters": the planner's size at the main
-    path's shape}."""
+    a CUDA-graph replay bit-equal to the eager call, and the planner's
+    launch equal to the one pinned at its size. Every case but the main
+    path's and the dense family's shapes has >= 10,240 outputs a draw; the
+    main path's shape (3,840 outputs) is judged over three draws pooled and
+    the dense family's (8,192 to 20,480) over two, so that one SIMDive
+    outlier stays under APPROX_OUTLIER_SHARE, as the constant means it.
+    Returns {"main": max abs err at the main path's shape at the planner's
+    size, "all": the worst over every case and size, "runs": kernel calls
+    checked, "clusters": the planner's size at the main path's shape,
+    "dense": each dense-family step shape's row (DENSE_ATTENTION)}."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import decode_attention as da
@@ -1023,20 +1120,21 @@ def check_decode_attention(dev):
     serving = SimdiveSpec(width=16, coeff_bits=6)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     sizes = (None, *range(1, da.MAX_CLUSTER + 1))   # None: the planner's
-    errs = {"main": 0.0, "all": 0.0, "runs": 0}
+    errs = {"main": 0.0, "all": 0.0, "runs": 0, "dense": {}}
 
     def randn(*shape, dtype, gain=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * gain
                 ).to(dtype)
 
     def run(name, B, Smax, KVH, G, dh, dtype, pos, *, ring_full=False,
-            window=0, approx=False, draws=1, main=False, qk_gain=1.0,
-            spec=serving):
+            window=0, approx=False, draws=1, main=False, dense=None,
+            qk_gain=1.0, spec=serving):
         if isinstance(pos, list):
             pos = torch.tensor(pos, device=dev)
         slot = pos % Smax if ring_full else pos
         kw = dict(pos=pos, slot=slot, spec=spec, ring_full=ring_full,
                   window=window, approx_div=approx, frac_out=15)
+        planned = da.cluster_size(B, KVH, sm_count)
         gots, wants = {c: [] for c in sizes}, []
         for _ in range(draws):
             q = randn(B, KVH, G, dh, dtype=dtype, gain=qk_gain)
@@ -1063,6 +1161,9 @@ def check_decode_attention(dev):
                         f"{int((got != replay).sum())} outputs")
                 gots[c].append(got.flatten())
                 errs["runs"] += 1
+            require(torch.equal(gots[None][-1], gots[planned][-1]),
+                    f"decode attention {name}: the planner's launch differs "
+                    f"from cluster {planned}'s")
         want = torch.cat(wants)
         worst = 0.0
         for c in sizes:
@@ -1070,11 +1171,18 @@ def check_decode_attention(dev):
                                          torch.cat(gots[c]), want, dtype,
                                          approx)
             worst = max(worst, err)
-            if main and c is None:
-                errs["main"] = err
+            if c is None:
+                planner_err = err
+        if main:
+            errs["main"] = planner_err
+        if dense:
+            errs["dense"][dense] = {
+                "shape": f"q ({B},{KVH},{G},{dh}) caches ({B},{Smax},{KVH},"
+                         f"{dh}) pos {pos}", "cluster": planned,
+                "max_abs_err": planner_err, "max_abs_err_all_sizes": worst}
         errs["all"] = max(errs["all"], worst)
-        log(f"  decode attention {name}: planner's cluster "
-            f"{da.cluster_size(B, KVH, sm_count)}; max_abs_err over sizes "
+        log(f"  decode attention {name}: planner's cluster {planned} (its "
+            f"launch equal to cluster {planned}'s); max_abs_err over sizes "
             f"None, 1..{da.MAX_CLUSTER} {worst:.3e}; deterministic, graph "
             "replay bit-equal")
 
@@ -1137,6 +1245,13 @@ def check_decode_attention(dev):
         f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
         bf16, PROMPT + 15, approx=True, draws=3, main=True)
     errs["clusters"] = da.cluster_size(BATCH, 5, sm_count)
+    # the dense family's decode steps (phase 10's models): G 4 / 1 / 5 at
+    # d_head 128 / 64 / 128, two draws pooled
+    for arch, H, KV, dh in DENSE_ATTENTION:
+        run(f"{arch}'s step shape ({BATCH}, {PROMPT + GEN}, {KV}, {H // KV}, "
+            f"{dh}) bf16 simdive pos {PROMPT + 15}, two draws", BATCH,
+            PROMPT + GEN, KV, H // KV, dh, bf16, PROMPT + 15, approx=True,
+            draws=2, dense=arch)
     # the scheduler drill's shape: per-row positions with idle rows at 0,
     # at the shed rung's Mitchell divider and the recovery rung's exact
     # divide
@@ -1181,6 +1296,17 @@ def check_decode_attention(dev):
             f"{BATCH * 5} clusters of {errs['clusters']} do not fit in one "
             f"wave ({resident[errs['clusters']]})")
     errs["resident_clusters"] = resident
+    # ... and the dense family's, at each one's planner's size
+    for arch, H, KV, dh in DENSE_ATTENTION:
+        row = errs["dense"][arch]
+        row["resident_clusters"] = da.max_active_clusters(
+            PROMPT + GEN, H // KV, dh, bf16, row["cluster"])
+        require(row["resident_clusters"] >= BATCH * KV,
+                f"decode attention {arch}: {BATCH * KV} clusters of "
+                f"{row['cluster']} do not fit in one wave "
+                f"({row['resident_clusters']})")
+        log(f"  decode attention, {arch}'s step: {row['resident_clusters']} "
+            f"clusters of {row['cluster']} resident at once")
     log(f"  decode attention: {errs['runs']} kernel calls within the "
         "tolerances, each deterministic and equal to its graph replay; G 9, "
         "a CPU pos tensor and clusters 0 / 9 / 2.5 refused before any "
@@ -1191,7 +1317,8 @@ def check_decode_attention(dev):
 def check_logmatmul(dev):
     """Every registered block vs ``logmatmul_ref``, bit for bit; at decode
     shapes also every ring depth of each skinny tile against its depth 0.
-    Returns (worst abs difference, {(M, K, N): plain-version ms})."""
+    Returns (worst abs difference, {(M, K, N): plain-version ms},
+    bit-equal (shape, block) runs at qwen3-4b's seven linears)."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import get_op
@@ -1257,6 +1384,20 @@ def check_logmatmul(dev):
             x, w = ints((M, K), 256), ints((K, N), 256)
             run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True,
                 depths=M == 4)
+    # qwen3-4b's seven linears (phase 10): a decode step's 4 rows, and 64
+    # standing for the prefill's 2,048 (the int64 plain version of a full
+    # prefill layer's seven linears takes ~46 s). 8-bit magnitudes: the
+    # int32 sum of the longest dot product, K = 9,728 (w2), stays under 2^31
+    require(max(k for _, k, _ in QWEN3_LINEARS) * 255 * 255
+            == INT32_SUM_BOUND < 2 ** 31, "int32 headroom at qwen3-4b's K")
+    qwen3_runs = 0
+    for M in QWEN3_CHECK_ROWS:
+        for K, N in sorted({(k, n) for _, k, n in QWEN3_LINEARS}):
+            run(f"qwen3-4b ({M},{K})@({K},{N}) w8 cb6", ints((M, K), 256),
+                ints((K, N), 256), serving, depths=M == 4)
+            qwen3_runs += len(blocks)
+    log(f"  logmatmul at qwen3-4b's seven linears: int32 sums bounded by "
+        f"255^2 x 9,728 = {INT32_SUM_BOUND:,} < 2^31")
     # decode edges: rows around the skinny tiles' 4 and 8; N = 388 takes
     # the 16-byte weight loads, N = 131 the scalar ones; K = 777 and 1001
     # are multiples of no split; zeros and INT32_MIN in both operands
@@ -1320,7 +1461,7 @@ def check_logmatmul(dev):
     log("  matmul_emul: kernel path bit-equal to the int64 plain version")
     log(f"  logmatmul skinny rings: {ring_runs} (case, tile, depth) runs "
         "equal to their depth 0")
-    return float(worst), plain_ms
+    return float(worst), plain_ms, qwen3_runs
 
 
 def _packed_hi_mode(gen, dev, shape, width):
@@ -1815,19 +1956,19 @@ def serve_main_path(dev):
     ref_lm = build(serve.serving_config(ARCH, approx="simdive",
                                         backend="ref"))
     ref_all = plain_logits(ref_lm, params, prompts, tokens)
+    tol, _ = ulp_logit_tol("divider-only", ref_all, TIED_LOGIT_RANGE)
     err = (logits - ref_all).abs()
     prefill_err, decode_err = float(err[:, 0].max()), float(err[:, 1:].max())
     top2 = ref_all.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
     agree = tokens == ref_all.argmax(-1)
     log(f"  vs plain versions: prefill logits max_abs_err {prefill_err:.4f}, "
-        f"decode {decode_err:.4f} (|logit| max {float(ref_all.abs().max()):.2f}"
-        f"); tokens equal {int(agree.sum())}/{agree.numel()}, decided by "
-        f"margin {int(decided.sum())}, of those equal "
-        f"{int((agree & decided).sum())}")
-    require(max(prefill_err, decode_err) <= LOGIT_TOL,
+        f"decode {decode_err:.4f}; tokens equal {int(agree.sum())}/"
+        f"{agree.numel()}, decided by margin {int(decided.sum())}, of those "
+        f"equal {int((agree & decided).sum())}")
+    require(max(prefill_err, decode_err) <= tol,
             f"logits differ from the plain-version run by "
-            f"{max(prefill_err, decode_err):.4f} > {LOGIT_TOL}")
+            f"{max(prefill_err, decode_err):.4f} > {tol}")
     require(bool((agree | ~decided).all()),
             "a greedy token decided by more than twice the logit tolerance "
             "differs from the plain-version run")
@@ -2122,20 +2263,20 @@ def serve_emulate_path(dev, params, prompts):
     ref_all, ref_s, launched = plain_run(None)
     require(not any(launched.values()),
             f"the plain-version run launched {launched}")
+    tol, _ = ulp_logit_tol("emulate", ref_all, TIED_LOGIT_RANGE)
     err = float((log_k - ref_all).abs().max())
     top2 = ref_all.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * EMULATE_LOGIT_TOL
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
     agree = tok_k == ref_all.argmax(-1)
     log(f"  emulate vs plain versions (batch {BATCH} x prompt {REF_PROMPT} x "
         f"{REF_GEN} tokens, plain run {ref_s:.1f}s): logits max_abs_err "
-        f"{err:.4f} (|logit| max {float(ref_all.abs().max()):.2f}), "
-        f"bit-equal rows "
+        f"{err:.4f}, bit-equal rows "
         f"{float((log_k == ref_all).all(dim=-1).float().mean()):.3f}; tokens "
         f"equal {int(agree.sum())}/{agree.numel()}, decided "
         f"{int(decided.sum())}")
-    require(err <= EMULATE_LOGIT_TOL,
+    require(err <= tol,
             f"emulate logits differ from the plain-version run by {err:.4f} "
-            f"> {EMULATE_LOGIT_TOL}")
+            f"> {tol}")
     require(bool((agree | ~decided).all()),
             "an emulate greedy token decided by more than twice the logit "
             "tolerance differs from the plain-version run")
@@ -4034,7 +4175,7 @@ def judge_logits(what, logits, tokens, ref_all, tol) -> dict:
 
 
 def policy_generate(dev, lm, params, prompts, what, *, linears=0,
-                    norms=0) -> dict:
+                    norms=0, gen=GEN) -> dict:
     """The captured generate of a policy's ``lm``: the first call captures
     the prefill and the step once each, the second replays them with the
     launch counts zeroed just before and read just after (32 attention a
@@ -4042,42 +4183,46 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
     ``norms`` sqrt and as many elemwise each — the approximate norms of
     phase 9 (d) —, nothing else), equal to the eager prefill and loop (the
     same launches, tokens and logits ``torch.equal``), and one replayed
-    prefill equal to the eager ``lm.prefill``."""
+    prefill equal to the eager ``lm.prefill``. ``gen`` tokens a generate
+    (phase 10 (b) cuts it); the counted generate's seconds are returned
+    beside the tokens, logits and launches."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
     n = lm.cfg.n_layers
-    max_seq = PROMPT + GEN
+    max_seq = PROMPT + gen
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     t0 = time.perf_counter()
-    serve.generate(lm, params, prompts, max_seq, GEN)
+    serve.generate(lm, params, prompts, max_seq, gen)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     require(step.captures == 1 and pstep.captures == 1,
             f"{what}: the first generate captured {pstep.captures} prefills "
             f"and {step.captures} steps, expected one each")
     reset_launch_counts()
-    tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
+    t0 = time.perf_counter()
+    tokens, logits = serve.generate(lm, params, prompts, max_seq, gen,
                                     return_logits=True)
     torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
     counts = launch_counts()
     require(step.captures == 1 and pstep.captures == 1,
             f"{what}: the second generate captured again")
     require(_attention_launches(counts) == n
-            and counts["decode_attention"] == n * (GEN - 1)
-            and _matmul_launches(counts) == linears * GEN
-            and counts["elemwise"] == counts["sqrt"] == norms * GEN
+            and counts["decode_attention"] == n * (gen - 1)
+            and _matmul_launches(counts) == linears * gen
+            and counts["elemwise"] == counts["sqrt"] == norms * gen
             and counts["packed"] == 0,
             f"{what}: launches {counts}, expected {n} attention, {n} "
-            f"decode_attention per step x {GEN - 1}, {linears} logmatmul "
+            f"decode_attention per step x {gen - 1}, {linears} logmatmul "
             f"and {norms} sqrt and elemwise per prefill and step")
     require(bool(torch.isfinite(logits).all())
             and int(tokens.min()) >= 0
             and int(tokens.max()) < lm.cfg.vocab_size, f"{what}: bad output")
     reset_launch_counts()
     eager_tok, eager_logits = serve.generate(
-        lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
+        lm, params, prompts, max_seq, gen, prefill_fn=lm.prefill,
         decode_fn=lm.decode_step, return_logits=True)
     torch.cuda.synchronize()
     require(launch_counts() == counts,
@@ -4093,7 +4238,7 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
             and prefill_counts["sqrt"] == norms,
             f"{what}: one prefill launched {prefill_counts}")
     return dict(tokens=tokens, logits=logits, counts=counts,
-                first_generate_s=first_s)
+                first_generate_s=first_s, generate_s=generate_s)
 
 
 def policy_times(dev, lm, params, prompts, prefix="policy_") -> dict:
@@ -4174,8 +4319,9 @@ def policy_serve(dev, params, prompts) -> dict:
     require({row.backend for row in serve.resolve_serving_plan(ref_lm.cfg)}
             == {"ref"}, "the rewritten policy's plan is not all 'ref'")
     ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
+    tol, _ = ulp_logit_tol("policy", ref_all, TIED_LOGIT_RANGE)
     out.update({f"policy_{k}": v for k, v in judge_logits(
-        "policy", run["logits"], run["tokens"], ref_all, LOGIT_TOL).items()})
+        "policy", run["logits"], run["tokens"], ref_all, tol).items()})
     del ref_lm, ref_all
 
     # a policy pinning exactly the config's own divider serves the
@@ -4483,8 +4629,8 @@ def norm_generate(dev, served) -> dict:
     ``generate`` with both served graphs: captured ``torch.equal`` to eager,
     one sqrt and one elemwise launch a block norm (64 a prefill and a
     step) besides phase 4's attention and decode_attention counts; logits
-    within LOGIT_TOL of the same config on the plain versions (whose
-    largest logit must lie in NORM_LOGIT_RANGE, where LOGIT_TOL is derived); times
+    within :func:`ulp_logit_tol` over TIED_LOGIT_RANGE of the same config on
+    the plain versions; times
     against the same process's use_in_norm-free path, in turns."""
     import torch
     from repro_torch.launch import serve
@@ -4501,13 +4647,7 @@ def norm_generate(dev, served) -> dict:
     ref_lm = build(serve.serving_config(ARCH, approx="simdive", backend="ref")
                    .with_approx(replace(cfg.approx, backend="ref")))
     ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
-    top = float(ref_all.abs().max())
-    lo, hi = NORM_LOGIT_RANGE
-    require(lo <= top < hi, f"use_in_norm: largest |logit| {top:.3f} lies "
-            f"outside [{lo:g}, {hi:g}), where LOGIT_TOL is derived")
-    tol = LOGIT_TOL
-    log(f"  use_in_norm: largest |logit| {top:.3f} (in [{lo:g}, {hi:g})), "
-        f"bound LOGIT_TOL = {tol:g}")
+    tol, top = ulp_logit_tol("use_in_norm", ref_all, TIED_LOGIT_RANGE)
     judged = judge_logits("use_in_norm", run["logits"], run["tokens"],
                           ref_all, tol)
     # the served path in turns with the same process's use_in_norm-free
@@ -4590,6 +4730,308 @@ def arithmetic_phase(dev, served) -> dict:
     return dict(**norm, **soft, **sq, use_in_norm=gen)
 
 
+
+# ------------------------------------------- phase 10: the dense family --
+def dense_kernel_times(dev, int_rate) -> dict:
+    """Phase 10 (k): the kernels' times at qwen3-4b's serving shapes, each
+    beside its bound (phase 3 holds them at the three configurations'
+    shapes against their plain versions): ``flash_attention`` at its
+    prefill (depth 0 and the ring) beside ``scaled_dot_product_attention``
+    and its plain version, ``decode_attention`` at its step likewise, the
+    seven linears at M = 4 and 2048 (the fastest registered block each)
+    beside an exact bf16 ``torch.matmul``, and the sqrt kernel at
+    SQRT_WORK_LANES lanes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import logmatmul as lmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf16 = torch.bfloat16
+    serving, frac_out = SimdiveSpec(width=16, coeff_bits=6), 15
+    (_, H, KV, dh), = (a for a in DENSE_ATTENTION if a[0] == "qwen3-4b")
+    G = H // KV
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q = randn(BATCH * H, PROMPT, dh)
+    k, v = randn(BATCH * KV, PROMPT, dh), randn(BATCH * KV, PROMPT, dh)
+    kw = dict(causal=True, approx_div=True, frac_out=frac_out, kv_group=G)
+    by_block = {block: gpu_graph_time_ms(
+        lambda b=block: get_op("attention", serving, "cuda", block=b)(
+            q, k, v, **kw), iters=20)
+        for block in (fa.DEFAULT_BLOCK, ATTENTION_RING_BLOCK)}
+    plain_ms = gpu_time_ms(lambda: get_op("attention", serving, "ref")(
+        q, k, v, **kw), iters=3)
+    q4 = q.reshape(BATCH, H, PROMPT, dh)
+    k4 = k.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    v4 = v.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=20)
+    pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2
+    flops_ms = 4 * pairs * dh / BF16_FLOPS * 1e3
+    bytes_ms = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    row = out["attention qwen3-4b"] = dict(
+        ms=by_block[fa.DEFAULT_BLOCK], ring_ms=by_block[ATTENTION_RING_BLOCK],
+        plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=max(flops_ms, bytes_ms),
+        bound_by="operations" if flops_ms >= bytes_ms else "bytes")
+    log(f"  attention, qwen3-4b's prefill: depth 0 {row['ms']:.5f} ms, ring "
+        f"{ATTENTION_RING_BLOCK} {row['ring_ms']:.5f} ms (graph), plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.5f} ms "
+        f"({row['ms'] / lib_ms:.2f}x), bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    del q, k, v, q4, k4, v4
+
+    Smax, pos = PROMPT + GEN, PROMPT + 15
+    t = time_decode_attention(dev, gen, BATCH, Smax, KV, G, dh, pos, serving,
+                              frac_out, int_rate,
+                              clusters=range(1, da.MAX_CLUSTER + 1))
+    dq, kc, vc, kn, vn = t["inputs"]
+    plain_ms = gpu_time_ms(lambda: get_op("decode_attention", serving, "ref")(
+        dq, kc, vc, kn, vn, pos=pos, slot=pos, approx_div=True,
+        frac_out=frac_out), iters=20)
+    out["decode_attention qwen3-4b"] = dict(
+        {key: t[key] for key in ("ms", "library_ms", "bound_ms", "bound_by",
+                                 "cluster")},
+        plain_ms=plain_ms,
+        ms_by_cluster={str(c): ms for c, ms in t["ms_by_cluster"].items()})
+    log(f"  decode attention, qwen3-4b's step: {t['ms']:.5f} ms (graph, "
+        f"cluster {t['cluster']}), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {t['library_ms']:.5f} ms "
+        f"({t['ms'] / t['library_ms']:.2f}x), bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}); by cluster size "
+        + ", ".join(f"{c}: {ms:.5f}" for c, ms in t["ms_by_cluster"].items()))
+    del t, dq, kc, vc, kn, vn
+
+    # logmatmul at qwen3-4b's (K, N), timed at a step's 4 rows and a
+    # prefill's 2,048
+    spec8 = SimdiveSpec(width=8, coeff_bits=6)
+    registered = get_op("matmul_int", spec8).entry.block_candidates
+    shapes = sorted({(k, n) for _, k, n in QWEN3_LINEARS})
+    rows = {}
+    for M in (4, 2048):
+        for K, N in shapes:
+            x = torch.randint(-255, 256, (M, K), generator=gen, device=dev,
+                              dtype=torch.int32)
+            w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
+                              dtype=torch.int32)
+            iters = 2 if M > 4 else 50
+            by_block = {b: gpu_graph_time_ms(
+                lambda b=b: lmm.logmatmul_cuda(x, w, spec8, b), iters=iters)
+                for b in registered}
+            best = min(registered, key=by_block.get)
+            xb, wb = x.to(bf16), w.to(bf16)
+            rows[(M, K, N)] = {
+                "ms": by_block[best], "block": list(best),
+                "ops_ms": logmatmul_ops_ms(M, K, N, int_rate),
+                "bytes_ms": (M * K + K * N + M * N) * 4
+                / HBM_BYTES_PER_S * 1e3,
+                "exact_ms": gpu_graph_time_ms(lambda: xb @ wb, iters=10)}
+
+    def layer_sum(M, key):
+        return sum(rows[(M, k, n)][key] for _, k, n in QWEN3_LINEARS)
+
+    layer = {}
+    for M in (4, 2048):
+        ops, nbytes = layer_sum(M, "ops_ms"), layer_sum(M, "bytes_ms")
+        layer[M] = {"ms": layer_sum(M, "ms"),
+                    "exact_bf16_ms": layer_sum(M, "exact_ms"),
+                    "bound_ms": max(ops, nbytes),
+                    "bound_by": "operations" if ops >= nbytes else "bytes",
+                    "blocks": {f"{K},{N}": rows[(M, K, N)]["block"]
+                               for K, N in shapes}}
+        log(f"  logmatmul, qwen3-4b's seven linears at M = {M} (the fastest "
+            f"registered block each): {layer[M]['ms']:.4f} ms, bound "
+            f"{layer[M]['bound_ms']:.4f} ms ({layer[M]['bound_by']}), exact "
+            f"bf16 torch.matmul {layer[M]['exact_bf16_ms']:.4f} ms")
+    out["logmatmul qwen3-4b"] = {
+        "shape": "one layer's 7 linears, (K, N) = (2560,4096) "
+                 "2x(2560,1024) (4096,2560) 2x(2560,9728) (9728,2560), w8 "
+                 "cb6", "check_rows": list(QWEN3_CHECK_ROWS),
+        "int32_sum_bound": INT32_SUM_BOUND,
+        "step": layer[4], "prefill": layer[2048]}
+
+    # the sqrt kernel at a working size, beside its bound
+    a = torch.randint(1, 1 << 16, (SQRT_WORK_LANES,), generator=gen,
+                      device=dev, dtype=torch.int32).view(torch.uint32)
+    sq_ms = gpu_graph_time_ms(lambda: get_op("sqrt", serving, "cuda")(a),
+                              iters=20)
+    bytes_ms = 8 * SQRT_WORK_LANES / HBM_BYTES_PER_S * 1e3
+    ops_ms = SQRT_OPS_PER_LANE * SQRT_WORK_LANES / int_rate * 1e3
+    out["sqrt working size"] = {
+        "lanes": SQRT_WORK_LANES, "ms": sq_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    log(f"  sqrt kernel at {SQRT_WORK_LANES:,} lanes: {sq_ms:.5f} ms "
+        f"(graph), bound {max(bytes_ms, ops_ms):.5f} ms "
+        f"({out['sqrt working size']['bound_by']}): "
+        f"{max(bytes_ms, ops_ms) / sq_ms:.0%} of it")
+    return out
+
+
+def _drop_served_graphs() -> None:
+    """Free every memoized served prefill and decode step (their graphs,
+    pools and the params they hold) before the next model."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve
+
+    serve.make_prefill.cache_clear()
+    serve.make_decode_step.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_generate(dev, arch, *, n_layers=None) -> dict:
+    """Phase 10 (a), (c), (d): ``arch`` at its published widths (depth cut
+    to ``n_layers`` when given), random weights from SEED, batch 4, prompt
+    512, 32 greedy tokens, ``--approx simdive``: the served prefill and
+    decode step captured first, each alone, for the memory they hold;
+    then :func:`policy_generate` (one attention launch a layer a prefill,
+    one decode_attention a layer a step, nothing else; captured
+    ``torch.equal`` to eager; a replayed prefill equal to the eager one);
+    logits within :func:`ulp_logit_tol` over UNTIED_LOGIT_RANGE of the same
+    config on the plain versions, and the decided tokens equal; the peak memory of a captured and an eager
+    generate; :func:`policy_times`. Returns the results and, under
+    "params" / "prompts", what (b) reuses."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    cfg = serve.serving_config(arch, approx="simdive")
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
+    lm = build(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in serve._leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int64)).to(dev)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = cfg.n_heads // cfg.n_kv_heads
+    C = da.cluster_size(BATCH, cfg.n_kv_heads, sm_count)
+    log(f"  {arch}: {cfg.n_layers} of {full_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads (G "
+        f"{G}), d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, norm {cfg.norm}, qk_norm {cfg.qk_norm}, "
+        f"qkv_bias {cfg.qkv_bias}, partial_rotary {cfg.partial_rotary}, "
+        f"tied {cfg.tie_embeddings}; {param_bytes:,} bytes of f32 "
+        f"parameters made in {init_s:.1f}s; decode cluster {C}")
+    max_seq = PROMPT + GEN
+    step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
+    reserved = reserved_bytes()
+    lg, pre = pstep(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_held = reserved_bytes() - reserved
+    reserved = reserved_bytes()
+    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    step(params, own, lg.argmax(-1), PROMPT)
+    torch.cuda.synchronize()
+    step_held = reserved_bytes() - reserved
+    del lg, pre, own
+    log(f"  {arch}: the captured prefill holds {prefill_held:,} bytes "
+        f"(captured in {pstep.capture_s:.2f}s), the captured decode step "
+        f"{step_held:,} (its cache included; {step.capture_s:.2f}s)")
+    run = policy_generate(dev, lm, params, prompts, arch)
+    ref_cfg = replace(cfg, approx=replace(cfg.approx, backend="ref"))
+    ref_all = plain_logits(build(ref_cfg), params, prompts, run["tokens"])
+    tol, top = ulp_logit_tol(arch, ref_all, UNTIED_LOGIT_RANGE)
+    judged = judge_logits(arch, run["logits"], run["tokens"], ref_all, tol)
+    del ref_all
+    peaks = {}
+    for name, kw in (("captured", {}), ("eager", dict(
+            prefill_fn=lm.prefill, decode_fn=lm.decode_step))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.generate(lm, params, prompts, max_seq, GEN, **kw)
+        torch.cuda.synchronize()
+        peaks[f"generate_{name}_peak_bytes"] = \
+            torch.cuda.max_memory_allocated(dev)
+    times = policy_times(dev, lm, params, prompts, prefix="")
+    log(f"  {arch}: generate captured {times['generate_captured_ms']:.2f} "
+        f"ms, eager {times['generate_eager_ms']:.2f} ms; prefill replay "
+        f"{times['prefill_replay_ms']:.3f} ms, decode step replay "
+        f"{times['decode_step_replay_ms']:.3f} ms; peak "
+        f"{peaks['generate_captured_peak_bytes']:,} / "
+        f"{peaks['generate_eager_peak_bytes']:,} bytes (captured / eager)")
+    return dict(params=params, prompts=prompts, layers=cfg.n_layers,
+                full_layers=full_layers, G=G, cluster=C,
+                param_bytes=param_bytes, init_s=init_s,
+                counts=run["counts"], first_generate_s=run["first_generate_s"],
+                prefill_held_bytes=prefill_held,
+                decode_step_held_bytes=step_held,
+                prefill_capture_s=pstep.capture_s,
+                decode_step_capture_s=step.capture_s,
+                logit_max=top, logit_tol=tol, **judged, **peaks,
+                **times)
+
+
+def qwen3_emulate(dev, params, prompts) -> dict:
+    """Phase 10 (b): qwen3-4b at full width with ``--emulate``, QWEN3_EMULATE_GEN
+    tokens, (a)'s params and prompts: 7 x 36 logmatmul launches a prefill
+    and a step besides (a)'s, captured ``torch.equal`` to eager, a replayed
+    prefill equal to the eager one (:func:`policy_generate`)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    cfg = serve.serving_config("qwen3-4b", approx="simdive", emulate=True)
+    require(cfg.approx.emulate and cfg.approx.width == 8,
+            "not the --emulate serving config")
+    run = policy_generate(dev, build(cfg), params, prompts,
+                          "qwen3-4b --emulate",
+                          linears=len(QWEN3_LINEARS) * cfg.n_layers,
+                          gen=QWEN3_EMULATE_GEN)
+    log(f"  qwen3-4b --emulate: first generate (autotune, captures) "
+        f"{run['first_generate_s']:.1f}s, captured generate of "
+        f"{QWEN3_EMULATE_GEN} tokens {run['generate_s'] * 1e3:.1f} ms")
+    return dict(counts=run["counts"], gen=QWEN3_EMULATE_GEN,
+                first_generate_s=run["first_generate_s"],
+                generate_captured_ms=run["generate_s"] * 1e3)
+
+
+def dense_family_phase(dev, int_rate) -> dict:
+    """Phase 10: (k) the kernels' times at qwen3-4b's shapes, then (a) qwen3-4b
+    divider-only, (b) qwen3-4b --emulate, (c) stablelm-1.6b, (d)
+    qwen2.5-14b cut to QWEN25_LAYERS layers, each at full width; every
+    earlier model's graphs are dropped first and each model's after it."""
+    _drop_served_graphs()
+    out = {"kernels": dense_kernel_times(dev, int_rate)}
+    log("  (a) qwen3-4b at full width, --approx simdive")
+    a = dense_generate(dev, "qwen3-4b")
+    log(f"  (b) qwen3-4b at full width, --approx simdive --emulate, "
+        f"{QWEN3_EMULATE_GEN} tokens")
+    out["qwen3-4b --emulate"] = qwen3_emulate(dev, a.pop("params"),
+                                              a.pop("prompts"))
+    out["qwen3-4b"] = a
+    _drop_served_graphs()
+    log("  (c) stablelm-1.6b at full width, --approx simdive")
+    c = dense_generate(dev, "stablelm-1.6b")
+    del c["params"], c["prompts"]
+    out["stablelm-1.6b"] = c
+    _drop_served_graphs()
+    log(f"  (d) qwen2.5-14b at full widths, {QWEN25_LAYERS} of 48 layers, "
+        "--approx simdive")
+    d = dense_generate(dev, "qwen2.5-14b", n_layers=QWEN25_LAYERS)
+    del d["params"], d["prompts"]
+    out["qwen2.5-14b"] = d
+    _drop_served_graphs()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4610,13 +5052,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/9] device: {card} | torch {torch.__version__} "
+    log(f"[1/10] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/9] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/10] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -4630,16 +5072,17 @@ def main(argv=None) -> int:
         log(f"  ptxas, skinny logmatmul tile {r['tile']}: {r['registers']} "
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
-
-    log("[3/9] kernels vs plain versions")
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    log("[3/10] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
     da_errs = check_decode_attention(dev)
-    mm_err, mm_plain_ms = check_logmatmul(dev)
+    mm_err, mm_plain_ms, mm_qwen3_runs = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/9] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/10] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -4651,7 +5094,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/9] times")
+    log("[5/10] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -4671,21 +5114,21 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/9] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/10] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    log("[7/9] faults: every kernel under each armed site, captured graphs, "
+    log("[7/10] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
-    log("[8/9] policy: build_policy / select_config on the card, a "
+    log("[8/10] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
-    log("[9/9] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/10] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -4697,6 +5140,11 @@ def main(argv=None) -> int:
             == 2 * served["lm"].cfg.n_layers * GEN,
             f"use_in_norm generate: launches {norm_counts}")
     kernels.append(sqrt_row)
+
+    log("[10/10] the dense family at full width: (k) the kernels' times "
+        "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
+        "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
+    dense = dense_family_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -4775,6 +5223,33 @@ def main(argv=None) -> int:
         for key in ("launches_policy", "launches_policy_emulate",
                     "launches_policy_drill", "launches_policy_chaos"):
             kern[key] = sum(policy[key][n] for n in names)
+    # phase 10: the launches of (a)-(d) together, zeroed just before each
+    # counted generate and read just after; the kernels at the new shapes:
+    # phase 3's errors at each configuration's, phase 10's times at
+    # qwen3-4b's
+    dense_runs = ("qwen3-4b", "qwen3-4b --emulate", "stablelm-1.6b",
+                  "qwen2.5-14b")
+    dense_rows = dict(dense["kernels"])
+    for arch, *_ in DENSE_ATTENTION:
+        for key, errs in ((f"attention {arch}", att_errs),
+                          (f"decode_attention {arch}", da_errs)):
+            dense_rows[key] = {**errs["dense"][arch],
+                               **dense_rows.get(key, {})}
+    dense_rows["logmatmul qwen3-4b"]["bit_equal_runs"] = mm_qwen3_runs
+    for kern, names, keys in (
+            (by_name["flash_attention"], ("attention",),
+             [f"attention {a}" for a, *_ in DENSE_ATTENTION]),
+            (by_name["flash_attention_pipelined"], ("attention_pipelined",),
+             []),
+            (by_name["decode_attention"], ("decode_attention",),
+             [f"decode_attention {a}" for a, *_ in DENSE_ATTENTION]),
+            (by_name["logmatmul"], ("matmul",), ["logmatmul qwen3-4b"]),
+            (by_name["logmatmul_pipelined"], ("matmul_pipelined",), []),
+            (by_name["sqrt"], (), ["sqrt working size"])):
+        kern["launches_dense_family"] = sum(
+            dense[r]["counts"][n] for r in dense_runs for n in names)
+        for key in keys:
+            kern[key] = dense_rows[key]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -4785,14 +5260,11 @@ def main(argv=None) -> int:
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
-                     *arith.items()):
+                     *arith.items(), *dense.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     log(f"  total {total_s:.1f}s")
-
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -4807,6 +5279,7 @@ def main(argv=None) -> int:
             "logmatmul_shapes": mm_shapes, "drill": drill,
             "faults": faults, "policy": policy,
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
+            "dense_family": dense,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

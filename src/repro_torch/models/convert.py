@@ -24,18 +24,23 @@ __all__ = ["params_from_reference"]
 def _expected_shapes(cfg: ModelConfig) -> dict:
     L, D, H, KV, dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, cfg.d_head, cfg.d_ff)
-    shapes = {
-        ("embed",): (1, cfg.vocab_size, D),
-        ("final_norm", "w"): (D,),
-    }
+    norm = (("w",), ("b",)) if cfg.norm == "layernorm" else (("w",),)
+    shapes = {("embed",): (1, cfg.vocab_size, D)}
+    shapes.update({("final_norm",) + k: (D,) for k in norm})
     if L:
         layer = {
-            ("ln_attn", "w"): (D,), ("ln_mlp", "w"): (D,),
             ("wq",): (D, H * dh), ("wk",): (D, KV * dh),
             ("wv",): (D, KV * dh), ("wo",): (H * dh, D),
             ("mlp", "w1"): (D, F), ("mlp", "w2"): (F, D),
             ("mlp", "w3"): (D, F),
         }
+        layer.update({(ln,) + k: (D,) for ln in ("ln_attn", "ln_mlp")
+                      for k in norm})
+        if cfg.qkv_bias:
+            layer.update({("bq",): (H * dh,), ("bk",): (KV * dh,),
+                          ("bv",): (KV * dh,)})
+        if cfg.qk_norm:
+            layer.update({("q_norm", "w"): (dh,), ("k_norm", "w"): (dh,)})
         shapes.update({("stack", "layers") + k: (L,) + v
                        for k, v in layer.items()})
     if not cfg.tie_embeddings:
@@ -60,8 +65,9 @@ def params_from_reference(tree, cfg: ModelConfig,
     A leaf with ``q`` and ``scale`` (the reference's ``QuantizedWeight``)
     is carried over as int8 ``q`` and float32 ``scale``, not cast. Raises
     ``ValueError`` naming the leaf when the tree does not have exactly the
-    leaves and shapes the port's dense attention stack expects (an MoE or
-    biased tree is refused, not partly loaded).
+    leaves and shapes the port's dense attention stack expects for ``cfg``
+    (an MoE tree, or a bias or norm leaf ``cfg`` does not have, is
+    refused, not partly loaded).
     """
     want = _expected_shapes(cfg)
     got = dict(_flatten(tree))

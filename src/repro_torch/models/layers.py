@@ -18,8 +18,9 @@ the SIMDive emulation of ``ApproxConfig.emulate`` — on the card, every
 emulated linear is one launch of the ``logmatmul`` kernel. RMSNorm is
 exact, or with ``ApproxConfig.use_in_norm`` the log-domain
 :func:`repro_torch.core.approx.approx_rmsnorm` (on the card one ``sqrt``
-and one ``elemwise`` launch a norm). ``layernorm`` and M-RoPE are not
-ported yet and raise.
+and one ``elemwise`` launch a norm); LayerNorm (with bias) is always
+exact, as in the reference. M-RoPE and gelu MLPs are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -94,7 +95,17 @@ def rmsnorm(x, w, eps=1e-6):
     return (xf * inv * w.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x, w, b, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
 def apply_norm(x, p, kind, eps=1e-6, approx: ApproxConfig = EXACT):
+    if kind == "layernorm":
+        return layernorm(x, p["w"], p["b"], eps)
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
     if approx.enabled and approx.use_in_norm:

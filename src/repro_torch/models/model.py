@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.model`` for serving (``train_loss`` and
 ``logits`` wait for the training slice). Parameters are a plain nested
 dict of tensors with the reference's tree: ``embed (1,V,D)``,
-``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w``.
+``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w`` (and ``.b``
+under LayerNorm), ``head (1,D,V)`` when the embeddings are not tied.
 
 Batch dict convention:
   tokens      (B,S) int64
@@ -39,7 +40,7 @@ class LM:
     # ------------------------------------------------------------- params --
     def init(self, seed_or_generator: int | torch.Generator = 0) -> dict:
         """Random parameters on ``self.device``: embed normal * d^-0.5,
-        linears uniform(+-fan_in^-0.5), unit norms."""
+        linears uniform(+-fan_in^-0.5), unit norms, zero biases."""
         cfg = self.cfg
         gen = seed_or_generator
         if not isinstance(gen, torch.Generator):
@@ -52,6 +53,9 @@ class LM:
         params["stack"] = init_stack(gen, cfg, pdt, self.device)
         params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
                                                 device=self.device)}
+        if cfg.norm == "layernorm":
+            params["final_norm"]["b"] = torch.zeros(
+                (cfg.d_model,), dtype=pdt, device=self.device)
         if not cfg.tie_embeddings:
             lim = cfg.d_model ** -0.5
             params["head"] = (torch.rand(

@@ -6,7 +6,10 @@ keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
 ``lax.scan`` over that axis is a Python loop here, indexing views. Caches
 for decode are dicts of stacked ``(L, B, S, KV, dh)`` tensors.
 
-MoE, SSM and hybrid stacks, qk-norm and qkv biases are not ported yet.
+The dense family's features are built: qk-norm (qwen3), qkv biases
+(qwen2.5, stablelm), LayerNorm and partial rotary (stablelm). MoE, SSM
+and hybrid stacks, M-RoPE, gelu MLPs, sinusoidal positions, codebooks and
+the vision stub are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from .layers import (
     dense,
     flash_attention,
     mlp,
+    rmsnorm,
     rope_tables,
 )
 
@@ -32,8 +36,8 @@ def _check_ported(cfg: ModelConfig) -> None:
     missing = [name for name, on in (
         ("family " + cfg.family, cfg.family != "dense"),
         ("n_experts", bool(cfg.n_experts)),
-        ("qk_norm", cfg.qk_norm), ("qkv_bias", cfg.qkv_bias),
-        ("mrope", cfg.mrope), ("pos_emb " + cfg.pos_emb, cfg.pos_emb != "rope"),
+        ("mrope", cfg.mrope), ("act " + cfg.act, cfg.act != "swiglu"),
+        ("pos_emb " + cfg.pos_emb, cfg.pos_emb != "rope"),
         ("n_codebooks", bool(cfg.n_codebooks)),
         ("vision_stub", cfg.vision_stub),
     ) if on]
@@ -50,26 +54,39 @@ def _uniform(gen: torch.Generator, shape, dtype, fan_in, device):
 
 
 def _init_norm(cfg, dtype, device, d=None):
-    return {"w": torch.ones((d or cfg.d_model,), dtype=dtype, device=device)}
+    d = d or cfg.d_model
+    p = {"w": torch.ones((d,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def init_attn_layer(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    """One layer's parameters: uniform(+-fan_in^-0.5) linears, unit norms
-    (the reference's distributions; the random streams differ)."""
+    """One layer's parameters: uniform(+-fan_in^-0.5) linears, unit norms,
+    zero biases (the reference's distributions and key names; the random
+    streams differ)."""
     H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
-    return {
+    p = {
         "ln_attn": _init_norm(cfg, dtype, device),
         "wq": _uniform(gen, (D, H * dh), dtype, D, device),
         "wk": _uniform(gen, (D, KV * dh), dtype, D, device),
         "wv": _uniform(gen, (D, KV * dh), dtype, D, device),
         "wo": _uniform(gen, (H * dh, D), dtype, H * dh, device),
         "ln_mlp": _init_norm(cfg, dtype, device),
-        "mlp": {
-            "w1": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
-            "w2": _uniform(gen, (cfg.d_ff, D), dtype, cfg.d_ff, device),
-            "w3": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
-        },
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((KV * dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((KV * dh,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = {"w": torch.ones((dh,), dtype=dtype, device=device)}
+        p["k_norm"] = {"w": torch.ones((dh,), dtype=dtype, device=device)}
+    p["mlp"] = {
+        "w1": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
+        "w2": _uniform(gen, (cfg.d_ff, D), dtype, cfg.d_ff, device),
+        "w3": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
+    }
+    return p
 
 
 def _stack_trees(trees):
@@ -105,11 +122,24 @@ def _rope_for(cfg: ModelConfig, positions):
 
 
 def _qkv(p, h, cfg: ModelConfig, rope, rot):
+    """q, k, v of one block: the linears, the biases (in the activation
+    dtype), then qk-norm over d_head — always the exact ``rmsnorm``, as in
+    the reference, whatever ``use_in_norm`` says —, then RoPE."""
     B, S, _ = h.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = dense(h, p["wq"], cfg.approx).reshape(B, S, H, dh)
-    k = dense(h, p["wk"], cfg.approx).reshape(B, S, KV, dh)
-    v = dense(h, p["wv"], cfg.approx).reshape(B, S, KV, dh)
+    q = dense(h, p["wq"], cfg.approx)
+    k = dense(h, p["wk"], cfg.approx)
+    v = dense(h, p["wv"], cfg.approx)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, KV, dh)
+    v = v.reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"]["w"], cfg.norm_eps)
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin, rot)
