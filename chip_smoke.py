@@ -25,7 +25,9 @@ any phase fails. Phases:
               rung's Mitchell divider (coeff_bits 0, no rounding) and its
               recovery rung's exact divide; the dense family's prefill
               shapes, q (128,512,128) / kv (32,512,128) G 4, (128,512,64)
-              G 1, (160,512,128) / (32,512,128) G 5; bf16 at the
+              G 1, (160,512,128) / (32,512,128) G 5, and the MoE
+              family's, mixtral's G 4 with its 4096 window and
+              llama4-scout's G 5; bf16 at the
               tensor-core fragments' edges: Sq and Skv
               not multiples of 16 or 8, one q row at a q_offset, scores
               of large magnitude), its ``cp.async``-ring schedule at every
@@ -46,7 +48,9 @@ any phase fails. Phases:
               ranks, fewer slots than ranks, G 1 / 3 / 8, a history of
               several rounds, 160 (b, kv head) rows where the planner
               takes one block a row, the main path's shape, the dense
-              family's step shapes (G 4 / 1 / 5 over a 544-slot cache),
+              family's step shapes (G 4 / 1 / 5 over a 544-slot cache)
+              and the MoE family's (mixtral's ``ring_full`` over its
+              544-slot ring, also at per-row positions past the wrap),
               and the
               scheduler drill's per-row positions with an idle row at 0
               at the shed rung's Mitchell divider and the recovery rung's
@@ -330,7 +334,35 @@ any phase fails. Phases:
               prefill and a step, captured == eager. (c) stablelm-1.6b
               (LayerNorm, qkv bias, rotary on 16 of 64 features, G 1) and
               (d) qwen2.5-14b (qkv bias, G 5) at 8 of its 48 layers, each
-              as (a).
+              as (a). Each model also: ``LM.init``'s peak under
+              INIT_PEAK_RATIO of its parameters' bytes and one eager
+              step's device time by kernel, as phase 11 has them.
+11. MoE family — after phase 10's graphs are dropped, random weights
+              from seed 0, batch 4, prompt 512, 32 tokens, ``--approx
+              simdive``, each model dropped before the next: (a)
+              mixtral-8x7b (top-2 of 8 experts, window 4096: a 544-slot
+              ring cache, every decode step ``ring_full``) at 8 of its
+              32 layers and (b) llama4-scout-17b-a16e (top-1 of 16 and a
+              shared expert, vocab 202,048) at 4 of its 48 (MOE_LAYERS):
+              the parameters' bytes and ``LM.init``'s peak, under
+              INIT_PEAK_RATIO of them; the captured prefill and step
+              alone (memory each holds); the captured generate
+              ``torch.equal`` to the eager one with one attention launch a
+              layer a prefill and one decode_attention a layer a step and
+              nothing else; a replayed prefill equal to the eager one; the
+              eager run and the plain versions fed its tokens, every
+              ``_dispatch`` call recorded in both: the share of routes
+              that agree at each layer over ROUTE_AGREE_FLOOR, the logits
+              within 6 bf16 ulps of the largest on every row whose own
+              routes agree at every layer, at least ROUTE_CHECKED_FLOOR of
+              the rows checked, decided tokens equal (and the same gate
+              fails on the logits moved by twice its bound); the entries
+              each layer dropped past capacity in the prefill and the
+              decode steps; peak memory, times and one eager step's
+              device time by kernel. (c) llama4-scout ``--emulate``, 4
+              tokens: 7 ``logmatmul`` a layer a prefill and a step (the
+              attention's four linears and the shared expert's three),
+              captured == eager.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -570,6 +602,15 @@ LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
 # shapes: (arch, q heads, kv heads, d_head)
 DENSE_ATTENTION = (("qwen3-4b", 32, 8, 128), ("stablelm-1.6b", 32, 32, 64),
                    ("qwen2.5-14b", 40, 8, 128))
+# phase 11: the MoE family's attention shapes (src/repro_torch/configs/
+# mixtral_8x7b.py, llama4_scout.py): (arch, q heads, kv heads, d_head,
+# sliding window). Mixtral's window (4096) reaches the prefill kernel, and
+# its 544-slot serving cache (min(max_seq, window) slots) makes every
+# decode step ring_full
+MOE_ATTENTION = (("mixtral-8x7b", 32, 8, 128, 4096),
+                 ("llama4-scout-17b-a16e", 40, 8, 128, 0))
+# every configuration phase 3 holds the attention kernels at, window last
+ARCH_ATTENTION = tuple((*a, 0) for a in DENSE_ATTENTION) + MOE_ATTENTION
 # qwen3-4b's linears per layer: (name, K, N)
 QWEN3_LINEARS = (("wq", 2560, 4096), ("wk", 2560, 1024),
                  ("wv", 2560, 1024), ("wo", 4096, 2560),
@@ -593,6 +634,41 @@ QWEN25_LAYERS = 8
 # the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
 # 16.8 M lanes, where it is no longer launch-bound
 SQRT_WORK_LANES = 1 << 24
+
+# phase 11: the MoE family at full width, depth cut to fit one card in
+# float32: mixtral-8x7b's 32 layers are 186 GB (8 layers and its two
+# 32,000 x 4,096 tables ~47.5 GB), llama4-scout's 48 are ~431 GB (4 layers
+# and its two 202,048 x 5,120 tables ~43.5 GB). Widths are never cut.
+MOE_LAYERS = {"mixtral-8x7b": 8, "llama4-scout-17b-a16e": 4}
+# LM.init allocates each leaf once: its peak is the parameters' bytes and
+# at most one layer's leaf filled in place; a stack-then-copy init would
+# be 2x
+INIT_PEAK_RATIO = 1.1
+# (c) llama4-scout --emulate: 4 tokens, and per layer the seven linears
+# dense() serves (wq, wk, wv, wo and the shared expert's w1, w3, w2; the
+# router and the routed experts are plain matmuls, as in the reference)
+LLAMA4_EMULATE_GEN = 4
+LLAMA4_EMULATED_LINEARS = 7
+# MoE logits, kernels vs plain versions: routing is discontinuous, and the
+# attention kernels' bf16 round-off (phase 4's one-ulp differences) can
+# flip a top-k pick or a capacity slot, after which a row's logits differ
+# by far more than round-off though both runs are right. So the eager
+# kernel run and the plain run (fed the same tokens) record every
+# _dispatch call's picks and kept slots, and (1) the share of routes — a
+# (token, pick) entry: its expert and whether it was kept — that agree
+# must reach ROUTE_AGREE_FLOOR at every layer; (2) every (b, step) logit
+# row whose own token's routes agree at every layer is held to
+# ulp_logit_tol over UNTIED_LOGIT_RANGE, and those rows must be at least
+# ROUTE_CHECKED_FLOOR of all. A wrong attention kernel moves every
+# router input far past its ties: (1) fails, or (2) on the rows it keeps.
+# Measured on a correct kernel (PERF.md, phase 11): 96.5-99.3 % of mixtral's
+# routes agree by layer, 97.7-99.5 % of llama4's; 1-3.6 % of a layer's
+# tokens part there first (bf16 router logits a rounding apart), the rest
+# are their later layers and the capacity slots they shift (random-init
+# routing drops a quarter to over half of a prefill's entries, so every
+# expert sits at its capacity); 89 % and 94 % of the rows are checked
+ROUTE_AGREE_FLOOR = 0.95
+ROUTE_CHECKED_FLOOR = 0.75
 
 
 def ulp_logit_tol(what: str, ref_all, logit_range) -> tuple[float, float]:
@@ -882,7 +958,7 @@ def check_attention(dev):
     """Both schedules vs the plain version. Returns a dict: max abs err at
     the main path's shape and the worst over all cases, for the depth-0
     kernel and for the registered ring block (64, 64, 2), and under
-    "dense" each dense-family prefill shape's row (DENSE_ATTENTION)."""
+    "archs" each configuration's prefill shape's row (ARCH_ATTENTION)."""
     import torch
     from repro_torch.core.error_lut import table_for
     from repro_torch.core.simdive import SimdiveSpec
@@ -890,7 +966,7 @@ def check_attention(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs = {"main": 0.0, "all": 0.0, "pipe_main": 0.0, "pipe_all": 0.0,
-            "ring_runs": 0, "dense": {}}
+            "ring_runs": 0, "archs": {}}
     judge = judge_attention
 
     def randn(*shape, dtype):
@@ -898,7 +974,7 @@ def check_attention(dev):
                            dtype=torch.float32).to(dtype)
 
     def run(name, BH, Sq, Skv, dh, dtype, *, kv_group=1, kv_len=None,
-            spec=fa.DEFAULT_DIV_SPEC, main=False, dense=None, qk_gain=1.0,
+            spec=fa.DEFAULT_DIV_SPEC, main=False, arch=None, qk_gain=1.0,
             **kw):
         # qk_gain (a power of two: exact in bf16) scales q and k, so the
         # scores grow by its square
@@ -916,10 +992,10 @@ def check_attention(dev):
         errs["all"] = max(errs["all"], err)
         if main:
             errs["main"] = err
-        if dense:
-            errs["dense"][dense] = {
+        if arch:
+            errs["archs"][arch] = {
                 "shape": f"q ({BH},{Sq},{dh}) kv ({BH // kv_group},{Skv},"
-                         f"{dh}) G {kv_group}",
+                         f"{dh}) G {kv_group} window {kw.get('window', 0)}",
                 "max_abs_err": err, "outside_tight_share": share}
         # the ring at every depth the wrapper takes for this dtype / d_head:
         # bit-equal to depth 0, and so within the same tolerance
@@ -1011,13 +1087,15 @@ def check_attention(dev):
     run("bf16 dh64 GQA kv_group3, the main path's shape, the recovery "
         "rung's exact divide", BATCH * 15, PROMPT, PROMPT, 64, bf16,
         kv_group=3, causal=True, approx_div=False)
-    # the dense family's prefill shapes (phase 10's models): d_head 128 at
-    # G 4 and 5, d_head 64 at G 1, the serving divider
-    for arch, H, KV, dh in DENSE_ATTENTION:
-        run(f"bf16 dh{dh} kv_group{H // KV}, {arch}'s prefill shape and "
-            "serving config", BATCH * H, PROMPT, PROMPT, dh, bf16,
-            kv_group=H // KV, causal=True, approx_div=True, frac_out=15,
-            spec=SimdiveSpec(width=16, coeff_bits=6), dense=arch)
+    # the dense family's and the MoE family's prefill shapes (phases 10
+    # and 11): d_head 128 at G 4 and 5, d_head 64 at G 1, mixtral's window,
+    # the serving divider
+    for arch, H, KV, dh, window in ARCH_ATTENTION:
+        run(f"bf16 dh{dh} kv_group{H // KV} window {window}, {arch}'s "
+            "prefill shape and serving config", BATCH * H, PROMPT, PROMPT,
+            dh, bf16, kv_group=H // KV, causal=True, window=window,
+            approx_div=True, frac_out=15,
+            spec=SimdiveSpec(width=16, coeff_bits=6), arch=arch)
     run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
         q_offset=299, approx_div=True)
     run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
@@ -1104,14 +1182,15 @@ def check_decode_attention(dev):
     size 1..8: each size within the tolerances, two calls bit-identical and
     a CUDA-graph replay bit-equal to the eager call, and the planner's
     launch equal to the one pinned at its size. Every case but the main
-    path's and the dense family's shapes has >= 10,240 outputs a draw; the
-    main path's shape (3,840 outputs) is judged over three draws pooled and
-    the dense family's (8,192 to 20,480) over two, so that one SIMDive
+    path's and the served configurations' shapes has >= 10,240 outputs a
+    draw; the main path's shape (3,840 outputs) is judged over three draws
+    pooled and the other configurations' (8,192 to 20,480) over two, so
+    that one SIMDive
     outlier stays under APPROX_OUTLIER_SHARE, as the constant means it.
     Returns {"main": max abs err at the main path's shape at the planner's
     size, "all": the worst over every case and size, "runs": kernel calls
     checked, "clusters": the planner's size at the main path's shape,
-    "dense": each dense-family step shape's row (DENSE_ATTENTION)}."""
+    "archs": each configuration's step shape's row (ARCH_ATTENTION)}."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import decode_attention as da
@@ -1120,14 +1199,14 @@ def check_decode_attention(dev):
     serving = SimdiveSpec(width=16, coeff_bits=6)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     sizes = (None, *range(1, da.MAX_CLUSTER + 1))   # None: the planner's
-    errs = {"main": 0.0, "all": 0.0, "runs": 0, "dense": {}}
+    errs = {"main": 0.0, "all": 0.0, "runs": 0, "archs": {}}
 
     def randn(*shape, dtype, gain=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * gain
                 ).to(dtype)
 
     def run(name, B, Smax, KVH, G, dh, dtype, pos, *, ring_full=False,
-            window=0, approx=False, draws=1, main=False, dense=None,
+            window=0, approx=False, draws=1, main=False, arch=None,
             qk_gain=1.0, spec=serving):
         if isinstance(pos, list):
             pos = torch.tensor(pos, device=dev)
@@ -1175,10 +1254,11 @@ def check_decode_attention(dev):
                 planner_err = err
         if main:
             errs["main"] = planner_err
-        if dense:
-            errs["dense"][dense] = {
+        if arch:
+            errs["archs"][arch] = {
                 "shape": f"q ({B},{KVH},{G},{dh}) caches ({B},{Smax},{KVH},"
-                         f"{dh}) pos {pos}", "cluster": planned,
+                         f"{dh}) pos {pos} ring_full {ring_full}",
+                "cluster": planned,
                 "max_abs_err": planner_err, "max_abs_err_all_sizes": worst}
         errs["all"] = max(errs["all"], worst)
         log(f"  decode attention {name}: planner's cluster {planned} (its "
@@ -1245,13 +1325,22 @@ def check_decode_attention(dev):
         f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
         bf16, PROMPT + 15, approx=True, draws=3, main=True)
     errs["clusters"] = da.cluster_size(BATCH, 5, sm_count)
-    # the dense family's decode steps (phase 10's models): G 4 / 1 / 5 at
-    # d_head 128 / 64 / 128, two draws pooled
-    for arch, H, KV, dh in DENSE_ATTENTION:
+    # the dense and the MoE family's decode steps (phases 10 and 11): G 4 /
+    # 1 / 5 at d_head 128 / 64 / 128, two draws pooled; mixtral's serving
+    # cache is its ring (544 slots under a 4096 window: ring_full, no
+    # window mask), held also past the wrap at per-row positions
+    for arch, H, KV, dh, window in ARCH_ATTENTION:
+        ring = bool(window) and PROMPT + GEN <= window
         run(f"{arch}'s step shape ({BATCH}, {PROMPT + GEN}, {KV}, {H // KV}, "
-            f"{dh}) bf16 simdive pos {PROMPT + 15}, two draws", BATCH,
-            PROMPT + GEN, KV, H // KV, dh, bf16, PROMPT + 15, approx=True,
-            draws=2, dense=arch)
+            f"{dh}) bf16 simdive pos {PROMPT + 15} ring_full {ring}, two "
+            "draws", BATCH, PROMPT + GEN, KV, H // KV, dh, bf16, PROMPT + 15,
+            ring_full=ring, approx=True, draws=2, arch=arch)
+        if ring:
+            wrap = [PROMPT + GEN, PROMPT + GEN - 1, 2 * (PROMPT + GEN) - 1,
+                    PROMPT + GEN + 100]
+            run(f"{arch}'s step shape, ring_full, per-row pos {wrap} (past "
+                "the wrap)", BATCH, PROMPT + GEN, KV, H // KV, dh, bf16, wrap,
+                ring_full=True, approx=True)
     # the scheduler drill's shape: per-row positions with idle rows at 0,
     # at the shed rung's Mitchell divider and the recovery rung's exact
     # divide
@@ -1296,9 +1385,9 @@ def check_decode_attention(dev):
             f"{BATCH * 5} clusters of {errs['clusters']} do not fit in one "
             f"wave ({resident[errs['clusters']]})")
     errs["resident_clusters"] = resident
-    # ... and the dense family's, at each one's planner's size
-    for arch, H, KV, dh in DENSE_ATTENTION:
-        row = errs["dense"][arch]
+    # ... and the other configurations', at each one's planner's size
+    for arch, H, KV, dh, _ in ARCH_ATTENTION:
+        row = errs["archs"][arch]
         row["resident_clusters"] = da.max_active_clusters(
             PROMPT + GEN, H // KV, dh, bf16, row["cluster"])
         require(row["resident_clusters"] >= BATCH * KV,
@@ -4890,18 +4979,21 @@ def _drop_served_graphs() -> None:
     torch.cuda.empty_cache()
 
 
-def dense_generate(dev, arch, *, n_layers=None) -> dict:
-    """Phase 10 (a), (c), (d): ``arch`` at its published widths (depth cut
-    to ``n_layers`` when given), random weights from SEED, batch 4, prompt
-    512, 32 greedy tokens, ``--approx simdive``: the served prefill and
-    decode step captured first, each alone, for the memory they hold;
-    then :func:`policy_generate` (one attention launch a layer a prefill,
-    one decode_attention a layer a step, nothing else; captured
-    ``torch.equal`` to eager; a replayed prefill equal to the eager one);
-    logits within :func:`ulp_logit_tol` over UNTIED_LOGIT_RANGE of the same
-    config on the plain versions, and the decided tokens equal; the peak memory of a captured and an eager
-    generate; :func:`policy_times`. Returns the results and, under
-    "params" / "prompts", what (b) reuses."""
+def served_generate(dev, arch, *, n_layers=None) -> dict:
+    """Phases 10 (a), (c), (d) and 11 (a), (b): ``arch`` at its published
+    widths (depth cut to ``n_layers`` when given), random weights from
+    SEED, batch 4, prompt 512, 32 greedy tokens, ``--approx simdive``: the
+    parameters' bytes and ``LM.init``'s peak (under INIT_PEAK_RATIO of
+    them); the served prefill and decode step captured first, each alone
+    (:func:`graphs_held`); then :func:`policy_generate` (one attention
+    launch a layer a prefill, one decode_attention a layer a step,
+    nothing else; captured ``torch.equal`` to eager; a replayed prefill
+    equal to the eager one); the logits against the same config on the
+    plain versions — within :func:`ulp_logit_tol` over UNTIED_LOGIT_RANGE
+    with the decided tokens equal, or for an MoE config
+    :func:`routed_logits`; :func:`peaks_and_times`; where one step's card
+    time goes (:func:`step_breakdown`). Returns the results and, under
+    "params" / "prompts", what an ``--emulate`` run reuses."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as da
@@ -4913,10 +5005,14 @@ def dense_generate(dev, arch, *, n_layers=None) -> dict:
     if n_layers is not None:
         cfg = replace(cfg, n_layers=n_layers)
     lm = build(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) - base
     param_bytes = sum(t.numel() * t.element_size()
                       for t in serve._leaves(params))
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
@@ -4924,60 +5020,95 @@ def dense_generate(dev, arch, *, n_layers=None) -> dict:
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     G = cfg.n_heads // cfg.n_kv_heads
     C = da.cluster_size(BATCH, cfg.n_kv_heads, sm_count)
+    experts = (f"{cfg.n_experts} experts top-{cfg.n_experts_active}, "
+               f"{cfg.n_shared_experts} shared, capacity factor "
+               f"{cfg.moe_capacity_factor} (prefill) / 4.0 (decode), "
+               if cfg.n_experts else "")
     log(f"  {arch}: {cfg.n_layers} of {full_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads (G "
-        f"{G}), d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, norm {cfg.norm}, qk_norm {cfg.qk_norm}, "
-        f"qkv_bias {cfg.qkv_bias}, partial_rotary {cfg.partial_rotary}, "
-        f"tied {cfg.tie_embeddings}; {param_bytes:,} bytes of f32 "
-        f"parameters made in {init_s:.1f}s; decode cluster {C}")
-    max_seq = PROMPT + GEN
+        f"{G}), d_head {cfg.d_head}, d_ff {cfg.d_ff}, {experts}window "
+        f"{cfg.sliding_window}, vocab {cfg.vocab_size}, norm {cfg.norm}, "
+        f"qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, partial_rotary "
+        f"{cfg.partial_rotary}, tied {cfg.tie_embeddings}; "
+        f"{param_bytes:,} bytes of f32 parameters made in {init_s:.1f}s, "
+        f"init peak {init_peak:,} ({init_peak / param_bytes:.4f}x); decode "
+        f"cluster {C}")
+    require(init_peak < INIT_PEAK_RATIO * param_bytes,
+            f"{arch}: LM.init peaked at {init_peak:,} bytes, over "
+            f"{INIT_PEAK_RATIO}x the parameters' {param_bytes:,}")
+    held = graphs_held(lm, params, prompts)
+    run = policy_generate(dev, lm, params, prompts, arch)
+    ref_lm = build(replace(cfg, approx=replace(cfg.approx, backend="ref")))
+    if cfg.n_experts:
+        judged = routed_logits(lm, ref_lm, params, prompts, run)
+    else:
+        ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
+        tol, top = ulp_logit_tol(arch, ref_all, UNTIED_LOGIT_RANGE)
+        judged = dict(logit_max=top, logit_tol=tol, **judge_logits(
+            arch, run["logits"], run["tokens"], ref_all, tol))
+        del ref_all
+    return dict(params=params, prompts=prompts, layers=cfg.n_layers,
+                full_layers=full_layers, G=G, cluster=C,
+                param_bytes=param_bytes, init_s=init_s,
+                init_peak_bytes=init_peak, counts=run["counts"],
+                first_generate_s=run["first_generate_s"], **held, **judged,
+                **peaks_and_times(dev, lm, params, prompts),
+                step_kernels=step_breakdown(lm, params, prompts))
+
+
+def graphs_held(lm, params, prompts) -> dict:
+    """The served prefill and decode step of ``lm`` captured first, each
+    alone: the card memory each holds (its graph's pool; the step's cache
+    included) and its capture's seconds."""
+    import torch
+    from repro_torch.launch import serve
+
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     reserved = reserved_bytes()
     lg, pre = pstep(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_held = reserved_bytes() - reserved
     reserved = reserved_bytes()
-    own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
+    own = serve.merge_cache(step.empty_cache(BATCH, PROMPT + GEN), pre)
+    require(own["k"].shape[2] == min(PROMPT + GEN, lm.cfg.sliding_window
+                                     or PROMPT + GEN),
+            f"{lm.cfg.name}: a serving cache of {own['k'].shape[2]} slots")
     step(params, own, lg.argmax(-1), PROMPT)
     torch.cuda.synchronize()
     step_held = reserved_bytes() - reserved
-    del lg, pre, own
-    log(f"  {arch}: the captured prefill holds {prefill_held:,} bytes "
+    log(f"  {lm.cfg.name}: the captured prefill holds {prefill_held:,} bytes "
         f"(captured in {pstep.capture_s:.2f}s), the captured decode step "
         f"{step_held:,} (its cache included; {step.capture_s:.2f}s)")
-    run = policy_generate(dev, lm, params, prompts, arch)
-    ref_cfg = replace(cfg, approx=replace(cfg.approx, backend="ref"))
-    ref_all = plain_logits(build(ref_cfg), params, prompts, run["tokens"])
-    tol, top = ulp_logit_tol(arch, ref_all, UNTIED_LOGIT_RANGE)
-    judged = judge_logits(arch, run["logits"], run["tokens"], ref_all, tol)
-    del ref_all
+    return dict(prefill_held_bytes=prefill_held,
+                decode_step_held_bytes=step_held,
+                prefill_capture_s=pstep.capture_s,
+                decode_step_capture_s=step.capture_s)
+
+
+def peaks_and_times(dev, lm, params, prompts) -> dict:
+    """The peak memory of a captured and of an eager generate of ``lm``,
+    and :func:`policy_times`."""
+    import torch
+    from repro_torch.launch import serve
+
     peaks = {}
     for name, kw in (("captured", {}), ("eager", dict(
             prefill_fn=lm.prefill, decode_fn=lm.decode_step))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        serve.generate(lm, params, prompts, max_seq, GEN, **kw)
+        serve.generate(lm, params, prompts, PROMPT + GEN, GEN, **kw)
         torch.cuda.synchronize()
         peaks[f"generate_{name}_peak_bytes"] = \
             torch.cuda.max_memory_allocated(dev)
     times = policy_times(dev, lm, params, prompts, prefix="")
-    log(f"  {arch}: generate captured {times['generate_captured_ms']:.2f} "
-        f"ms, eager {times['generate_eager_ms']:.2f} ms; prefill replay "
+    log(f"  {lm.cfg.name}: generate captured "
+        f"{times['generate_captured_ms']:.2f} ms, eager "
+        f"{times['generate_eager_ms']:.2f} ms; prefill replay "
         f"{times['prefill_replay_ms']:.3f} ms, decode step replay "
         f"{times['decode_step_replay_ms']:.3f} ms; peak "
         f"{peaks['generate_captured_peak_bytes']:,} / "
         f"{peaks['generate_eager_peak_bytes']:,} bytes (captured / eager)")
-    return dict(params=params, prompts=prompts, layers=cfg.n_layers,
-                full_layers=full_layers, G=G, cluster=C,
-                param_bytes=param_bytes, init_s=init_s,
-                counts=run["counts"], first_generate_s=run["first_generate_s"],
-                prefill_held_bytes=prefill_held,
-                decode_step_held_bytes=step_held,
-                prefill_capture_s=pstep.capture_s,
-                decode_step_capture_s=step.capture_s,
-                logit_max=top, logit_tol=tol, **judged, **peaks,
-                **times)
+    return {**peaks, **times}
 
 
 def qwen3_emulate(dev, params, prompts) -> dict:
@@ -5011,7 +5142,7 @@ def dense_family_phase(dev, int_rate) -> dict:
     _drop_served_graphs()
     out = {"kernels": dense_kernel_times(dev, int_rate)}
     log("  (a) qwen3-4b at full width, --approx simdive")
-    a = dense_generate(dev, "qwen3-4b")
+    a = served_generate(dev, "qwen3-4b")
     log(f"  (b) qwen3-4b at full width, --approx simdive --emulate, "
         f"{QWEN3_EMULATE_GEN} tokens")
     out["qwen3-4b --emulate"] = qwen3_emulate(dev, a.pop("params"),
@@ -5019,15 +5150,236 @@ def dense_family_phase(dev, int_rate) -> dict:
     out["qwen3-4b"] = a
     _drop_served_graphs()
     log("  (c) stablelm-1.6b at full width, --approx simdive")
-    c = dense_generate(dev, "stablelm-1.6b")
+    c = served_generate(dev, "stablelm-1.6b")
     del c["params"], c["prompts"]
     out["stablelm-1.6b"] = c
     _drop_served_graphs()
     log(f"  (d) qwen2.5-14b at full widths, {QWEN25_LAYERS} of 48 layers, "
         "--approx simdive")
-    d = dense_generate(dev, "qwen2.5-14b", n_layers=QWEN25_LAYERS)
+    d = served_generate(dev, "qwen2.5-14b", n_layers=QWEN25_LAYERS)
     del d["params"], d["prompts"]
     out["qwen2.5-14b"] = d
+    _drop_served_graphs()
+    return out
+
+
+# -------------------------------------------- phase 11: the MoE family --
+class _RecordedRoutes:
+    """Every ``repro_torch.models.moe._dispatch`` call while installed: its
+    picks ``gate_idx (G,Tg,K)``, its kept entries ``dst < E*C``
+    ``(G,Tg,K)`` and its overflow count. The package has no hook; this
+    wraps the module's function for eager runs only."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = orig = moe._dispatch
+
+        def record(xt, probs, top_k, capacity_factor):
+            out = orig(xt, probs, top_k, capacity_factor)
+            buf, dst, _, _, gate_idx = out
+            overflow = buf.shape[1] * buf.shape[2]
+            self.calls.append((gate_idx.clone(),
+                               (dst < overflow).reshape(gate_idx.shape)))
+            return out
+
+        moe._dispatch = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._dispatch = self._orig
+
+
+def judge_routed_logits(what, n_layers, kern_calls, plain_calls, logits,
+                        tokens, ref_all, tol) -> dict:
+    """The routing-aware gate (ROUTE_AGREE_FLOOR, ROUTE_CHECKED_FLOOR):
+    ``*_calls`` are one generate's dispatch calls in order — the prefill's
+    one a layer (G = B groups of the prompt), then each step's one a layer
+    (one group of the B rows)."""
+    import torch
+
+    gen = tokens.shape[1]
+    B = tokens.shape[0]
+    require(len(kern_calls) == len(plain_calls) == n_layers * gen,
+            f"{what}: {len(kern_calls)} / {len(plain_calls)} dispatch calls, "
+            f"expected {n_layers * gen}")
+    agree = [[0, 0] for _ in range(n_layers)]     # (routes equal, routes)
+    # tokens whose routes first part at a layer (all equal below it)
+    fresh = [0] * n_layers
+    row_ok = torch.ones((B, gen), dtype=torch.bool, device=tokens.device)
+    for j, ((gk, kk), (gp, kp)) in enumerate(zip(kern_calls, plain_calls)):
+        layer, step = j % n_layers, j // n_layers
+        same = (gk == gp) & (kk == kp)                 # (G, Tg, K)
+        agree[layer][0] += int(same.sum())
+        agree[layer][1] += same.numel()
+        own = same.all(-1)                             # (G, Tg)
+        if layer == 0:
+            equal_below = torch.ones_like(own)
+        fresh[layer] += int((equal_below & ~own).sum())
+        equal_below &= own
+        # the row's own token: the prompt's last (prefill) or the step's
+        row_ok[:, step] &= own[:, -1] if step == 0 else own[0]
+    shares = [a / n for a, n in agree]
+    checked = float(row_ok.float().mean())
+    row_err = (logits - ref_all).abs().amax(-1)
+    err = float(row_err[row_ok].max()) if bool(row_ok.any()) \
+        else float("inf")
+    top2 = ref_all.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > 2 * tol) & row_ok
+    token_ok = (tokens == ref_all.argmax(-1)) | ~decided
+    log(f"  {what} vs plain versions: routes agreeing by layer "
+        + ", ".join(f"{x:.5f}" for x in shares)
+        + f" (floor {ROUTE_AGREE_FLOOR}); tokens whose routes first part "
+        f"there {fresh}; {int(row_ok.sum())} of {B * gen} "
+        f"logit rows with every own route equal (floor "
+        f"{ROUTE_CHECKED_FLOOR:.0%}): max_abs_err {err:.4f} (bound {tol}); "
+        f"decided tokens {int(decided.sum())}, all equal: "
+        f"{bool(token_ok.all())}")
+    require(min(shares) >= ROUTE_AGREE_FLOOR,
+            f"{what}: routes agree on {min(shares):.5f} of a layer's, under "
+            f"{ROUTE_AGREE_FLOOR}")
+    require(checked >= ROUTE_CHECKED_FLOOR,
+            f"{what}: only {checked:.3f} of the logit rows have every own "
+            f"route equal, under {ROUTE_CHECKED_FLOOR}")
+    require(err <= tol, f"{what}: logits differ from the plain-version run "
+                        f"by {err:.4f} > {tol} on a row whose routes agree")
+    require(bool(token_ok.all()),
+            f"{what}: a greedy token decided by more than twice the logit "
+            "tolerance differs from the plain-version run")
+    flips = [n - a for a, n in agree]
+    return dict(route_agree_by_layer=shares, route_flips_by_layer=flips,
+                first_parting_tokens_by_layer=fresh,
+                rows_checked=int(row_ok.sum()), rows=B * gen,
+                logit_err_checked=err, tokens_decided=int(decided.sum()))
+
+
+def _dropped(calls, n_layers) -> dict:
+    """Entries sent to the overflow slot by layer: the prefill's, and the
+    decode steps' summed."""
+    pre = [int((~kept).sum()) for _, kept in calls[:n_layers]]
+    dec = [0] * n_layers
+    for j, (_, kept) in enumerate(calls[n_layers:]):
+        dec[j % n_layers] += int((~kept).sum())
+    return {"prefill": pre, "decode": dec}
+
+
+def step_breakdown(lm, params, prompts) -> list:
+    """Where one eager decode step's card time goes (the captured step
+    runs the same kernels): ``[name, count, ms]`` by kernel, largest
+    first; empty when the trace holds no device event."""
+    from repro_torch.launch import serve
+
+    lg, cache = lm.prefill(params, {"tokens": prompts})
+    cache = serve.merge_cache(lm.empty_cache(BATCH, PROMPT + GEN), cache)
+    tok = lg.argmax(-1)
+    prof = device_time_by_kernel(
+        lambda: lm.decode_step(params, cache, tok, PROMPT))
+    if prof is None:
+        return []
+    busy, by = prof
+    rows = sorted(([name, n, ms] for name, (n, ms) in by.items()),
+                  key=lambda r: -r[2])
+    log(f"  {lm.cfg.name}: one eager decode step keeps the card busy "
+        f"{busy:.3f} ms; by kernel: "
+        + "; ".join(f"{name[:60]} x{n} {ms:.3f}" for name, n, ms in rows[:6]))
+    return rows[:12]
+
+
+def routed_logits(lm, ref_lm, params, prompts, run) -> dict:
+    """An MoE config's logits against the plain versions: an eager
+    generate (``torch.equal`` to ``run``'s captured one) and the plain
+    versions fed its tokens, every ``_dispatch`` call of both recorded,
+    held by :func:`judge_routed_logits` — which must also fail on the
+    same logits moved by twice its bound —, and the entries each layer
+    dropped past capacity."""
+    import torch
+    from repro_torch.launch import serve
+
+    arch, n = lm.cfg.name, lm.cfg.n_layers
+    with _RecordedRoutes() as kern:
+        tokens, logits = serve.generate(
+            lm, params, prompts, PROMPT + GEN, GEN, prefill_fn=lm.prefill,
+            decode_fn=lm.decode_step, return_logits=True)
+    require(torch.equal(tokens, run["tokens"])
+            and torch.equal(logits, run["logits"]),
+            f"{arch}: the recorded eager generate differs from the captured")
+    with _RecordedRoutes() as plain:
+        ref_all = plain_logits(ref_lm, params, prompts, tokens)
+    tol, top = ulp_logit_tol(arch, ref_all, UNTIED_LOGIT_RANGE)
+    judged = judge_routed_logits(arch, n, kern.calls, plain.calls, logits,
+                                 tokens, ref_all, tol)
+    try:
+        judge_routed_logits(f"{arch} (logits moved by {2 * tol:g}, must "
+                            "fail)", n, kern.calls, plain.calls,
+                            logits + 2 * tol, tokens, ref_all, tol)
+    except SmokeFailure:
+        pass
+    else:
+        raise SmokeFailure(f"{arch}: the routed logit gate passed logits "
+                           "moved past its bound")
+    dropped = _dropped(kern.calls, n)
+    k = lm.cfg.n_experts_active
+    log(f"  {arch}: entries dropped past capacity by layer: prefill "
+        f"{dropped['prefill']} of {BATCH * PROMPT * k} a layer, decode "
+        f"{dropped['decode']} of {(GEN - 1) * BATCH * k} a layer ({GEN - 1} "
+        f"steps); the plain run's {_dropped(plain.calls, n)}")
+    return dict(logit_max=top, logit_tol=tol, dropped=dropped, **judged)
+
+
+def llama4_emulate(dev, params, prompts) -> dict:
+    """Phase 11 (c): llama4-scout (MOE_LAYERS) with ``--emulate``,
+    LLAMA4_EMULATE_GEN tokens, (b)'s params and prompts: 7 logmatmul
+    launches a layer a prefill and a step (the attention's four linears
+    and the shared expert's three) besides (b)'s, captured ``torch.equal``
+    to eager, a replayed prefill equal to the eager one."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    arch = "llama4-scout-17b-a16e"
+    cfg = replace(serve.serving_config(arch, approx="simdive", emulate=True),
+                  n_layers=MOE_LAYERS[arch])
+    require(cfg.approx.emulate and cfg.approx.width == 8,
+            "not the --emulate serving config")
+    run = policy_generate(dev, build(cfg), params, prompts,
+                          f"{arch} --emulate",
+                          linears=LLAMA4_EMULATED_LINEARS * cfg.n_layers,
+                          gen=LLAMA4_EMULATE_GEN)
+    log(f"  {arch} --emulate: first generate (autotune, captures) "
+        f"{run['first_generate_s']:.1f}s, captured generate of "
+        f"{LLAMA4_EMULATE_GEN} tokens {run['generate_s'] * 1e3:.1f} ms")
+    return dict(counts=run["counts"], gen=LLAMA4_EMULATE_GEN,
+                first_generate_s=run["first_generate_s"],
+                generate_captured_ms=run["generate_s"] * 1e3)
+
+
+def moe_family_phase(dev) -> dict:
+    """Phase 11: (a) mixtral-8x7b, (b) llama4-scout and (c) llama4-scout
+    ``--emulate`` at full width, depth cut to MOE_LAYERS; every earlier
+    model's graphs are dropped first and each model's after it."""
+    _drop_served_graphs()
+    out = {}
+    log("  (a) mixtral-8x7b at full width, "
+        f"{MOE_LAYERS['mixtral-8x7b']} of 32 layers, --approx simdive")
+    a = served_generate(dev, "mixtral-8x7b",
+                        n_layers=MOE_LAYERS["mixtral-8x7b"])
+    del a["params"], a["prompts"]
+    out["mixtral-8x7b"] = a
+    _drop_served_graphs()
+    arch = "llama4-scout-17b-a16e"
+    log(f"  (b) {arch} at full width, {MOE_LAYERS[arch]} of 48 layers, "
+        "--approx simdive")
+    b = served_generate(dev, arch, n_layers=MOE_LAYERS[arch])
+    params, prompts = b.pop("params"), b.pop("prompts")
+    out[arch] = b
+    _drop_served_graphs()
+    log(f"  (c) {arch} --emulate, {LLAMA4_EMULATE_GEN} tokens")
+    out[f"{arch} --emulate"] = llama4_emulate(dev, params, prompts)
+    del params, prompts
     _drop_served_graphs()
     return out
 
@@ -5052,13 +5404,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/10] device: {card} | torch {torch.__version__} "
+    log(f"[1/11] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/10] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/11] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -5074,7 +5426,7 @@ def main(argv=None) -> int:
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    log("[3/10] kernels vs plain versions")
+    log("[3/11] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -5082,7 +5434,7 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms, mm_qwen3_runs = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/10] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/11] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -5094,7 +5446,7 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/10] times")
+    log("[5/11] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -5114,21 +5466,21 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/10] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/11] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    log("[7/10] faults: every kernel under each armed site, captured graphs, "
+    log("[7/11] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
-    log("[8/10] policy: build_policy / select_config on the card, a "
+    log("[8/11] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
-    log("[9/10] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/11] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -5141,10 +5493,15 @@ def main(argv=None) -> int:
             f"use_in_norm generate: launches {norm_counts}")
     kernels.append(sqrt_row)
 
-    log("[10/10] the dense family at full width: (k) the kernels' times "
+    log("[10/11] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
     dense = dense_family_phase(dev, int_rate)
+
+    log("[11/11] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
+        "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
+        "llama4-scout --emulate")
+    moe = moe_family_phase(dev)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -5233,7 +5590,7 @@ def main(argv=None) -> int:
     for arch, *_ in DENSE_ATTENTION:
         for key, errs in ((f"attention {arch}", att_errs),
                           (f"decode_attention {arch}", da_errs)):
-            dense_rows[key] = {**errs["dense"][arch],
+            dense_rows[key] = {**errs["archs"][arch],
                                **dense_rows.get(key, {})}
     dense_rows["logmatmul qwen3-4b"]["bit_equal_runs"] = mm_qwen3_runs
     for kern, names, keys in (
@@ -5250,6 +5607,21 @@ def main(argv=None) -> int:
             dense[r]["counts"][n] for r in dense_runs for n in names)
         for key in keys:
             kern[key] = dense_rows[key]
+    # phase 11: the launches of (a)-(c) together, zeroed just before each
+    # counted generate and read just after; phase 3's errors at the MoE
+    # configurations' attention shapes
+    moe_runs = ("mixtral-8x7b", "llama4-scout-17b-a16e",
+                "llama4-scout-17b-a16e --emulate")
+    for kern, name, errs in (
+            (by_name["flash_attention"], "attention", att_errs),
+            (by_name["flash_attention_pipelined"], "attention_pipelined",
+             None),
+            (by_name["decode_attention"], "decode_attention", da_errs),
+            (by_name["logmatmul"], "matmul", None),
+            (by_name["logmatmul_pipelined"], "matmul_pipelined", None)):
+        kern["launches_moe"] = sum(moe[r]["counts"][name] for r in moe_runs)
+        for arch, *_ in (MOE_ATTENTION if errs is not None else ()):
+            kern[f"{name} {arch}"] = errs["archs"][arch]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -5260,7 +5632,7 @@ def main(argv=None) -> int:
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
-                     *arith.items(), *dense.items()):
+                     *arith.items(), *dense.items(), *moe.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
@@ -5279,7 +5651,7 @@ def main(argv=None) -> int:
             "logmatmul_shapes": mm_shapes, "drill": drill,
             "faults": faults, "policy": policy,
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
-            "dense_family": dense,
+            "dense_family": dense, "moe_family": moe,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -2,8 +2,10 @@
 
 The dense family is ported: ``smollm-360m``, ``qwen3-4b`` (qk-norm),
 ``qwen2.5-14b`` (qkv bias) and ``stablelm-1.6b`` (LayerNorm, qkv bias,
-partial rotary). The reference's other six architectures need blocks
-(MoE, SSM, M-RoPE, gelu, codebooks) that wait.
+partial rotary); and the MoE family: ``mixtral-8x7b`` (top-2 of 8,
+sliding window) and ``llama4-scout-17b-a16e`` (top-1 of 16 and a shared
+expert). The reference's other four architectures need blocks (SSM,
+M-RoPE, gelu, codebooks) that wait.
 """
 from importlib import import_module
 
@@ -14,6 +16,8 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "stablelm-1.6b": "stablelm_1_6b",
     "qwen2.5-14b": "qwen2_5_14b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llama4-scout-17b-a16e": "llama4_scout",
 }
 
 ARCHS = tuple(_MODULES)

@@ -3,7 +3,8 @@
 Counterpart of ``repro.configs.base`` (``ModelConfig``; the shape and mesh
 tables of the reference are not ported yet). All of the reference's fields
 are kept so configs compare field by field, but the port so far builds
-only the dense attention family: plain RoPE, rmsnorm, swiglu, no biases.
+only the attention stacks of the dense and MoE families (plain RoPE,
+swiglu).
 """
 from __future__ import annotations
 

@@ -625,11 +625,16 @@ def resolve_serving_plan(cfg) -> tuple[ResolvedOp, ...]:
 
 def render_plan(plan, cfg) -> str:
     if not plan:
-        return "# serving plan: exact (no approximate dispatch)"
-    segs = serving_segments(cfg.approx, cfg.n_layers)
-    lines = [f"# serving plan: {len(segs)} layer segment(s), "
-             f"{len(plan)} resolved op config(s)"]
-    lines += [f"#   {row.label()}" for row in plan]
+        lines = ["# serving plan: exact (no approximate dispatch)"]
+    else:
+        segs = serving_segments(cfg.approx, cfg.n_layers)
+        lines = [f"# serving plan: {len(segs)} layer segment(s), "
+                 f"{len(plan)} resolved op config(s)"]
+        lines += [f"#   {row.label()}" for row in plan]
+    if cfg.n_experts and cfg.family == "moe":
+        # the reference's routed experts are exact einsums, emulated or not
+        lines.append("# routed experts: exact batched matmuls in the "
+                     "activation dtype (no SIMDive dispatch)")
     return "\n".join(lines)
 
 

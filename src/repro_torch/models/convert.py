@@ -17,32 +17,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from .layers import QuantizedWeight
 from .model import _dt
+from .transformer import _layer_leaves
 
 __all__ = ["params_from_reference"]
 
 
 def _expected_shapes(cfg: ModelConfig) -> dict:
-    L, D, H, KV, dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                          cfg.n_kv_heads, cfg.d_head, cfg.d_ff)
+    """Every leaf's path and shape: the tree ``LM.init`` makes for ``cfg``
+    (an MoE config has ``moe/*`` leaves in place of ``mlp/*``)."""
+    D = cfg.d_model
     norm = (("w",), ("b",)) if cfg.norm == "layernorm" else (("w",),)
     shapes = {("embed",): (1, cfg.vocab_size, D)}
     shapes.update({("final_norm",) + k: (D,) for k in norm})
-    if L:
-        layer = {
-            ("wq",): (D, H * dh), ("wk",): (D, KV * dh),
-            ("wv",): (D, KV * dh), ("wo",): (H * dh, D),
-            ("mlp", "w1"): (D, F), ("mlp", "w2"): (F, D),
-            ("mlp", "w3"): (D, F),
-        }
-        layer.update({(ln,) + k: (D,) for ln in ("ln_attn", "ln_mlp")
-                      for k in norm})
-        if cfg.qkv_bias:
-            layer.update({("bq",): (H * dh,), ("bk",): (KV * dh,),
-                          ("bv",): (KV * dh,)})
-        if cfg.qk_norm:
-            layer.update({("q_norm", "w"): (dh,), ("k_norm", "w"): (dh,)})
-        shapes.update({("stack", "layers") + k: (L,) + v
-                       for k, v in layer.items()})
+    if cfg.n_layers:
+        shapes.update({("stack", "layers") + path: (cfg.n_layers,) + shape
+                       for path, shape, _ in _layer_leaves(cfg)})
     if not cfg.tie_embeddings:
         shapes[("head",)] = (1, D, cfg.vocab_size)
     return shapes
@@ -65,9 +54,10 @@ def params_from_reference(tree, cfg: ModelConfig,
     A leaf with ``q`` and ``scale`` (the reference's ``QuantizedWeight``)
     is carried over as int8 ``q`` and float32 ``scale``, not cast. Raises
     ``ValueError`` naming the leaf when the tree does not have exactly the
-    leaves and shapes the port's dense attention stack expects for ``cfg``
-    (an MoE tree, or a bias or norm leaf ``cfg`` does not have, is
-    refused, not partly loaded).
+    leaves and shapes the port's attention stack expects for ``cfg`` (an
+    MoE tree for a dense config, a shared expert ``cfg`` does not have, or
+    a bias or norm leaf it does not have, is refused, not partly
+    loaded).
     """
     want = _expected_shapes(cfg)
     got = dict(_flatten(tree))

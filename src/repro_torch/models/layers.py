@@ -58,6 +58,24 @@ class QuantizedWeight:
         return QuantizedWeight(q=self.q[idx], scale=self.scale[idx])
 
 
+def uniform_(t: torch.Tensor, fan_in, gen: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` in place with uniform(+-fan_in^-0.5) from ``gen``: the
+    values of ``torch.rand(t.shape) * (2 * lim) - lim``, with no copy."""
+    lim = fan_in ** -0.5
+    return t.uniform_(0, 1, generator=gen).mul_(2 * lim).sub_(lim)
+
+
+def nest(flat: dict) -> dict:
+    """``{path tuple: leaf}`` -> the nested parameter dict."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
     """Per-output-channel int8. The reduction is over the input
     (second-to-last) dim, so stacked (L, K, N) weights keep their layer

@@ -40,7 +40,9 @@ class LM:
     # ------------------------------------------------------------- params --
     def init(self, seed_or_generator: int | torch.Generator = 0) -> dict:
         """Random parameters on ``self.device``: embed normal * d^-0.5,
-        linears uniform(+-fan_in^-0.5), unit norms, zero biases."""
+        linears uniform(+-fan_in^-0.5), unit norms, zero biases. Each leaf
+        is allocated once, so the peak memory of a call is the
+        parameters' bytes and one layer's leaf at most."""
         cfg = self.cfg
         gen = seed_or_generator
         if not isinstance(gen, torch.Generator):
@@ -49,7 +51,7 @@ class LM:
         params: dict[str, Any] = {}
         params["embed"] = torch.randn(
             (1, cfg.vocab_size, cfg.d_model), generator=gen, dtype=pdt,
-            device=self.device) * cfg.d_model ** -0.5
+            device=self.device).mul_(cfg.d_model ** -0.5)
         params["stack"] = init_stack(gen, cfg, pdt, self.device)
         params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
                                                 device=self.device)}
@@ -58,9 +60,9 @@ class LM:
                 (cfg.d_model,), dtype=pdt, device=self.device)
         if not cfg.tie_embeddings:
             lim = cfg.d_model ** -0.5
-            params["head"] = (torch.rand(
+            params["head"] = torch.rand(
                 (1, cfg.d_model, cfg.vocab_size), generator=gen, dtype=pdt,
-                device=self.device) * 2 - 1) * lim
+                device=self.device).mul_(2).sub_(1).mul_(lim)
         return params
 
     # -------------------------------------------------------------- embed --

@@ -7,9 +7,10 @@ keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
 for decode are dicts of stacked ``(L, B, S, KV, dh)`` tensors.
 
 The dense family's features are built: qk-norm (qwen3), qkv biases
-(qwen2.5, stablelm), LayerNorm and partial rotary (stablelm). MoE, SSM
-and hybrid stacks, M-RoPE, gelu MLPs, sinusoidal positions, codebooks and
-the vision stub are not ported yet.
+(qwen2.5, stablelm), LayerNorm and partial rotary (stablelm); and the MoE
+family's block (:mod:`repro_torch.models.moe`, mixtral and llama4-scout),
+which takes the MLP's place. SSM and hybrid stacks, M-RoPE, gelu MLPs,
+sinusoidal positions, codebooks and the vision stub are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,16 +27,19 @@ from .layers import (
     dense,
     flash_attention,
     mlp,
+    nest,
     rmsnorm,
     rope_tables,
+    uniform_,
 )
+from .moe import moe_ffn, moe_leaves
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for architecture features the port does not build yet."""
     missing = [name for name, on in (
-        ("family " + cfg.family, cfg.family != "dense"),
-        ("n_experts", bool(cfg.n_experts)),
+        ("family " + cfg.family, cfg.family not in ("dense", "moe")),
+        ("n_experts", bool(cfg.n_experts) and cfg.family != "moe"),
         ("mrope", cfg.mrope), ("act " + cfg.act, cfg.act != "swiglu"),
         ("pos_emb " + cfg.pos_emb, cfg.pos_emb != "rope"),
         ("n_codebooks", bool(cfg.n_codebooks)),
@@ -47,63 +51,63 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------- init --
-def _uniform(gen: torch.Generator, shape, dtype, fan_in, device):
-    lim = fan_in ** -0.5
-    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
-    return u * (2 * lim) - lim
-
-
-def _init_norm(cfg, dtype, device, d=None):
-    d = d or cfg.d_model
-    p = {"w": torch.ones((d,), dtype=dtype, device=device)}
-    if cfg.norm == "layernorm":
-        p["b"] = torch.zeros((d,), dtype=dtype, device=device)
-    return p
-
-
-def init_attn_layer(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    """One layer's parameters: uniform(+-fan_in^-0.5) linears, unit norms,
-    zero biases (the reference's distributions and key names; the random
-    streams differ)."""
+def _layer_leaves(cfg: ModelConfig):
+    """One layer's leaves ``(path, shape, init)`` in the reference's tree
+    and in the order their random draws are made; ``init`` is a fan-in
+    (uniform(+-fan_in^-0.5)), ``"ones"`` (norm gains) or ``"zeros"``
+    (biases)."""
     H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
-    p = {
-        "ln_attn": _init_norm(cfg, dtype, device),
-        "wq": _uniform(gen, (D, H * dh), dtype, D, device),
-        "wk": _uniform(gen, (D, KV * dh), dtype, D, device),
-        "wv": _uniform(gen, (D, KV * dh), dtype, D, device),
-        "wo": _uniform(gen, (H * dh, D), dtype, H * dh, device),
-        "ln_mlp": _init_norm(cfg, dtype, device),
-    }
+    norm = [("w", "ones")] + ([("b", "zeros")] if cfg.norm == "layernorm"
+                              else [])
+    leaves = [(("ln_attn", k), (D,), how) for k, how in norm]
+    leaves += [(("wq",), (D, H * dh), D), (("wk",), (D, KV * dh), D),
+               (("wv",), (D, KV * dh), D), (("wo",), (H * dh, D), H * dh)]
+    leaves += [(("ln_mlp", k), (D,), how) for k, how in norm]
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H * dh,), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((KV * dh,), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((KV * dh,), dtype=dtype, device=device)
+        leaves += [(("bq",), (H * dh,), "zeros"),
+                   (("bk",), (KV * dh,), "zeros"),
+                   (("bv",), (KV * dh,), "zeros")]
     if cfg.qk_norm:
-        p["q_norm"] = {"w": torch.ones((dh,), dtype=dtype, device=device)}
-        p["k_norm"] = {"w": torch.ones((dh,), dtype=dtype, device=device)}
-    p["mlp"] = {
-        "w1": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
-        "w2": _uniform(gen, (cfg.d_ff, D), dtype, cfg.d_ff, device),
-        "w3": _uniform(gen, (D, cfg.d_ff), dtype, D, device),
-    }
-    return p
+        leaves += [(("q_norm", "w"), (dh,), "ones"),
+                   (("k_norm", "w"), (dh,), "ones")]
+    if cfg.n_experts and cfg.family == "moe":
+        leaves += [(("moe",) + path, shape, fan_in) for path, shape, fan_in
+                   in moe_leaves(D, cfg.d_ff, cfg.n_experts,
+                                 cfg.n_shared_experts)]
+    else:
+        leaves += [(("mlp", "w1"), (D, cfg.d_ff), D),
+                   (("mlp", "w2"), (cfg.d_ff, D), cfg.d_ff),
+                   (("mlp", "w3"), (D, cfg.d_ff), D)]
+    return leaves
 
 
-def _stack_trees(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _fill(t: torch.Tensor, init, gen: torch.Generator) -> torch.Tensor:
+    if init == "ones":
+        return t.fill_(1)
+    if init == "zeros":
+        return t.zero_()
+    return uniform_(t, init, gen)
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    """Stacked per-layer params (leading L axis)."""
+    """Stacked per-layer params (leading L axis): uniform(+-fan_in^-0.5)
+    linears (an MoE block's experts and router too), unit norms, zero
+    biases — the reference's distributions and tree; the random streams
+    differ. Each stacked leaf is allocated once and filled layer by layer
+    in :func:`_layer_leaves`' order: the values a ``torch.stack`` of
+    whole per-layer draws gives, without a second copy of the
+    parameters."""
     _check_ported(cfg)
-    if cfg.n_layers == 0:
+    L = cfg.n_layers
+    if L == 0:
         return {"layers": {}}
-    layers = [init_attn_layer(gen, cfg, dtype, device)
-              for _ in range(cfg.n_layers)]
-    return {"layers": _stack_trees(layers)}
+    leaves = _layer_leaves(cfg)
+    flat = {path: torch.empty((L,) + shape, dtype=dtype, device=device)
+            for path, shape, _ in leaves}
+    for i in range(L):
+        for path, _, init in leaves:
+            _fill(flat[path][i], init, gen)
+    return {"layers": nest(flat)}
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -148,7 +152,8 @@ def _qkv(p, h, cfg: ModelConfig, rope, rot):
 
 
 def attn_block_train(p, x, cfg: ModelConfig, positions):
-    """Full-sequence block (prefill). Returns (x', (k, v))."""
+    """Full-sequence block (prefill). Returns (x', (k, v)); an MoE block
+    dispatches at ``cfg.moe_capacity_factor``."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // KV
@@ -162,7 +167,16 @@ def attn_block_train(p, x, cfg: ModelConfig, positions):
     ).reshape(B, S, H * dh)
     x = x + dense(o, p["wo"], cfg.approx)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
-    return x + mlp(h, p["mlp"], cfg.act, cfg.approx), (k, v)
+    return x + _ffn(p, h, cfg, cfg.moe_capacity_factor), (k, v)
+
+
+def _ffn(p, h, cfg: ModelConfig, capacity_factor: float):
+    """The block's MLP, or its MoE (the aux loss dropped, as the
+    reference's serving drops it)."""
+    if "moe" in p:
+        return moe_ffn(h, p["moe"], top_k=cfg.n_experts_active,
+                       capacity_factor=capacity_factor, approx=cfg.approx)[0]
+    return mlp(h, p["mlp"], cfg.act, cfg.approx)
 
 
 def decode_slot(cfg: ModelConfig, Smax: int, pos):
@@ -195,7 +209,8 @@ def attn_block_decode(p, x, cfg: ModelConfig, cache, pos, positions):
     ).reshape(B, 1, H * dh)
     x = x + dense(o, p["wo"], cfg.approx)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
-    y = mlp(h, p["mlp"], cfg.act, cfg.approx)
+    # the reference's decode step fixes the MoE capacity factor at 4.0
+    y = _ffn(p, h, cfg, 4.0)
     return x + y, (k.to(cache["k"].dtype), v.to(cache["v"].dtype))
 
 

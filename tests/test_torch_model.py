@@ -243,18 +243,30 @@ def _check_generate(mode, tol, emulate=False, quantize=False, arch=ARCH,
             10 * (SIMDIVE_LOGIT_TOL if emulate else tol)
 
 
+def _dense_linears(layers):
+    """The linears a layer sends through ``dense``: the attention's four
+    and the MLP's three — an MoE block's shared expert's, or none (its
+    routed experts and router are plain matmuls)."""
+    ffn = layers["mlp"] if "mlp" in layers \
+        else layers["moe"].get("shared", {})
+    return {**{name: layers[name] for name in ("wq", "wk", "wv", "wo")},
+            **{name: ffn[name] for name in ("w1", "w3", "w2") if name in ffn}}
+
+
 def _check_linears(r_cfg, r_params, t_cfg, t_params):
-    """Each layer's seven linears through both packages' ``dense`` under
-    the configs' approximation, on the same numpy-seeded activations
-    (float or int8 weights alike), equal to EMULATE_ROUNDOFF_TOL."""
+    """Each layer's linears (:func:`_dense_linears`) through both packages'
+    ``dense`` under the configs' approximation, on the same numpy-seeded
+    activations (float or int8 weights alike), equal to
+    EMULATE_ROUNDOFF_TOL."""
     from repro.models.layers import dense as r_dense
     from repro_torch.models.layers import dense as t_dense
 
     rng = np.random.default_rng(5)
-    r_layers, t_layers = (p["stack"]["layers"] for p in (r_params, t_params))
-    for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2"):
-        r_w, t_w = (ls[name] if name in ls else ls["mlp"][name]
-                    for ls in (r_layers, t_layers))
+    r_lin, t_lin = (_dense_linears(p["stack"]["layers"])
+                    for p in (r_params, t_params))
+    assert list(r_lin) == list(t_lin)
+    for name in t_lin:
+        r_w, t_w = r_lin[name], t_lin[name]
         for i in range(r_cfg.n_layers):
             r_wi = jax.tree.map(lambda a: a[i], r_w)
             x = rng.standard_normal((B * P, t_w.shape[-2])).astype(np.float32)
@@ -504,10 +516,14 @@ def test_unported_paths_raise_instead_of_serving_something_else():
         dense(x.requires_grad_(), w,
               TApprox(mode="simdive", backward="approx")).sum().backward()
     with pytest.raises(KeyError, match="ported so far"):
-        t_get_config("mixtral-8x7b")
-    # a feature still unported raises before any parameter is made
+        t_get_config("rwkv6-1.6b")
+    # a feature still unported raises before any parameter is made: the
+    # recurrent families among them (the MoE family is ported)
     for kw, name in ((dict(mrope=True), "mrope"), (dict(act="gelu"),
-                                                   "act gelu")):
+                                                   "act gelu"),
+                     (dict(family="ssm"), "family ssm"),
+                     (dict(family="hybrid"), "family hybrid"),
+                     (dict(family="ssm", n_experts=4), "n_experts")):
         cfg = replace(t_get_config(ARCH, smoke=True), **kw)
         with pytest.raises(NotImplementedError, match=name):
             t_build(cfg, device="cpu").init(0)
