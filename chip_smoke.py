@@ -25,9 +25,11 @@ any phase fails. Phases:
               rung's Mitchell divider (coeff_bits 0, no rounding) and its
               recovery rung's exact divide; the dense family's prefill
               shapes, q (128,512,128) / kv (32,512,128) G 4, (128,512,64)
-              G 1, (160,512,128) / (32,512,128) G 5, and the MoE
+              G 1, (160,512,128) / (32,512,128) G 5, the MoE
               family's, mixtral's G 4 with its 4096 window and
-              llama4-scout's G 5; bf16 at the
+              llama4-scout's G 5, and the modality-stub families',
+              qwen2-vl-2b's (48,512,128) / (8,512,128) G 6 and
+              musicgen-medium's (96,512,64) G 1; bf16 at the
               tensor-core fragments' edges: Sq and Skv
               not multiples of 16 or 8, one q row at a q_offset, scores
               of large magnitude), its ``cp.async``-ring schedule at every
@@ -48,9 +50,11 @@ any phase fails. Phases:
               ranks, fewer slots than ranks, G 1 / 3 / 8, a history of
               several rounds, 160 (b, kv head) rows where the planner
               takes one block a row, the main path's shape, the dense
-              family's step shapes (G 4 / 1 / 5 over a 544-slot cache)
-              and the MoE family's (mixtral's ``ring_full`` over its
-              544-slot ring, also at per-row positions past the wrap),
+              family's step shapes (G 4 / 1 / 5 over a 544-slot cache),
+              the MoE family's (mixtral's ``ring_full`` over its
+              544-slot ring, also at per-row positions past the wrap)
+              and the modality-stub families' (qwen2-vl's G 6 at cluster
+              8, musicgen's 24 kv heads at cluster 2),
               and the
               scheduler drill's per-row positions with an idle row at 0
               at the shed rung's Mitchell divider and the recovery rung's
@@ -363,6 +367,30 @@ any phase fails. Phases:
               tokens: 7 ``logmatmul`` a layer a prefill and a step (the
               attention's four linears and the shared expert's three),
               captured == eager.
+12. modality-stub families — after phase 11's models are dropped, whole
+              (nothing cut), random weights from seed 0, batch 4, prompt
+              512, 32 tokens, ``--approx simdive``, each model dropped
+              before the next. (k) The attention kernels' times at both
+              configurations' shapes beside their bounds and
+              ``scaled_dot_product_attention``. (a) qwen2-vl-2b (M-RoPE
+              sections (16, 24, 24), qkv bias, G 6, vocab 151,936), as
+              phase 10 (a): 28 attention launches a prefill and 28
+              decode_attention a step; then the vision stub: 256 patch
+              embeddings (a 16 x 16 grid) at slots 0-255 with Qwen2-VL's
+              M-RoPE positions (image t 0, h row, w col; the text after
+              at 16 + j), the prefill through the eager ``lm.prefill``
+              and 31 steps through the captured step, logits within 6
+              bf16 ulps of the plain versions, decided tokens equal, and
+              the same prefill with (B, P) positions moving the logits
+              past twice that bound. (b) musicgen-medium (gelu, LayerNorm,
+              sinusoidal positions, 4 codebooks of 2,048), prompts (4,
+              512, 4): 48 attention a prefill and 48 decode_attention a
+              step, ``(B, C, V)`` logits as (a). (c) musicgen-medium
+              ``--emulate``, 4 tokens: 6 ``logmatmul`` a layer a prefill
+              and a step (q, k, v, o, w1, w2; the heads exact), captured
+              == eager. Each model also: parameters' bytes and
+              ``LM.init``'s peak, peak and held memory, the prefill and
+              step replays, one eager step's device time by kernel.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -609,8 +637,15 @@ DENSE_ATTENTION = (("qwen3-4b", 32, 8, 128), ("stablelm-1.6b", 32, 32, 64),
 # decode step ring_full
 MOE_ATTENTION = (("mixtral-8x7b", 32, 8, 128, 4096),
                  ("llama4-scout-17b-a16e", 40, 8, 128, 0))
+# phase 12: the modality-stub families' attention shapes (src/repro_torch/
+# configs/qwen2_vl_2b.py, musicgen_medium.py), as MOE_ATTENTION: qwen2-vl's
+# G 6 (its 8 (b, kv head) rows cap the decode cluster at 8), musicgen's 24
+# kv heads at d_head 64
+MODALITY_ATTENTION = (("qwen2-vl-2b", 12, 2, 128, 0),
+                      ("musicgen-medium", 24, 24, 64, 0))
 # every configuration phase 3 holds the attention kernels at, window last
-ARCH_ATTENTION = tuple((*a, 0) for a in DENSE_ATTENTION) + MOE_ATTENTION
+ARCH_ATTENTION = (tuple((*a, 0) for a in DENSE_ATTENTION) + MOE_ATTENTION
+                  + MODALITY_ATTENTION)
 # qwen3-4b's linears per layer: (name, K, N)
 QWEN3_LINEARS = (("wq", 2560, 4096), ("wk", 2560, 1024),
                  ("wv", 2560, 1024), ("wo", 4096, 2560),
@@ -669,6 +704,14 @@ LLAMA4_EMULATED_LINEARS = 7
 # expert sits at its capacity); 89 % and 94 % of the rows are checked
 ROUTE_AGREE_FLOOR = 0.95
 ROUTE_CHECKED_FLOOR = 0.75
+# phase 12 (a): qwen2-vl's vision-stub prompt, a 16 x 16 grid of merged
+# patch embeddings at slots 0-255 of the 512 (Qwen2-VL's M-RoPE positions:
+# image t 0, h row, w col; the text after it at 16 + j on all three)
+VISION_GRID = 16
+# (c) musicgen --emulate: 4 tokens, 6 logmatmul a layer (q, k, v, o and
+# the gelu MLP's w1, w2; the codebook heads stay exact)
+MUSICGEN_EMULATE_GEN = 4
+MUSICGEN_EMULATED_LINEARS = 6
 
 
 def ulp_logit_tol(what: str, ref_all, logit_range) -> tuple[float, float]:
@@ -1087,9 +1130,9 @@ def check_attention(dev):
     run("bf16 dh64 GQA kv_group3, the main path's shape, the recovery "
         "rung's exact divide", BATCH * 15, PROMPT, PROMPT, 64, bf16,
         kv_group=3, causal=True, approx_div=False)
-    # the dense family's and the MoE family's prefill shapes (phases 10
-    # and 11): d_head 128 at G 4 and 5, d_head 64 at G 1, mixtral's window,
-    # the serving divider
+    # the dense, the MoE and the modality-stub families' prefill shapes
+    # (phases 10-12): d_head 128 at G 4, 5 and 6, d_head 64 at G 1,
+    # mixtral's window, the serving divider
     for arch, H, KV, dh, window in ARCH_ATTENTION:
         run(f"bf16 dh{dh} kv_group{H // KV} window {window}, {arch}'s "
             "prefill shape and serving config", BATCH * H, PROMPT, PROMPT,
@@ -1325,8 +1368,9 @@ def check_decode_attention(dev):
         f"pos {PROMPT + 15}, three draws", BATCH, PROMPT + GEN, 5, 3, 64,
         bf16, PROMPT + 15, approx=True, draws=3, main=True)
     errs["clusters"] = da.cluster_size(BATCH, 5, sm_count)
-    # the dense and the MoE family's decode steps (phases 10 and 11): G 4 /
-    # 1 / 5 at d_head 128 / 64 / 128, two draws pooled; mixtral's serving
+    # the dense, the MoE and the modality-stub families' decode steps
+    # (phases 10-12): G 4 / 1 / 5 / 6 at d_head 128 / 64 / 128 / 128, two
+    # draws pooled; mixtral's serving
     # cache is its ring (544 slots under a 4096 window: ring_full, no
     # window mask), held also past the wrap at per-row positions
     for arch, H, KV, dh, window in ARCH_ATTENTION:
@@ -4219,17 +4263,19 @@ def policy_kernels(dev, cfg) -> dict:
     return errs
 
 
-def plain_logits(ref_lm, params, prompts, tokens):
+def plain_logits(ref_lm, params, prompts, tokens, extra=None):
     """``ref_lm`` (every op on its plain version) fed ``tokens``: the
-    prefill's and each decode step's logits, float32 (batch, gen,
-    vocab); no kernel may launch."""
+    prefill's (its batch ``prompts`` and ``extra``'s fields) and each
+    decode step's logits, float32 (batch, gen, [codebooks,] vocab); no
+    kernel may launch."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
     reset_launch_counts()
     gen = tokens.shape[1]
-    logits, cache = ref_lm.prefill(params, {"tokens": prompts})
+    logits, cache = ref_lm.prefill(params, {"tokens": prompts,
+                                            **(extra or {})})
     cache = serve.merge_cache(
         ref_lm.empty_cache(prompts.shape[0], prompts.shape[1] + gen), cache)
     out = [logits]
@@ -4821,27 +4867,24 @@ def arithmetic_phase(dev, served) -> dict:
 
 
 # ------------------------------------------- phase 10: the dense family --
-def dense_kernel_times(dev, int_rate) -> dict:
-    """Phase 10 (k): the kernels' times at qwen3-4b's serving shapes, each
-    beside its bound (phase 3 holds them at the three configurations'
-    shapes against their plain versions): ``flash_attention`` at its
-    prefill (depth 0 and the ring) beside ``scaled_dot_product_attention``
-    and its plain version, ``decode_attention`` at its step likewise, the
-    seven linears at M = 4 and 2048 (the fastest registered block each)
-    beside an exact bf16 ``torch.matmul``, and the sqrt kernel at
-    SQRT_WORK_LANES lanes."""
+def attention_times(dev, gen, arch, H, KV, dh, int_rate) -> dict:
+    """The attention kernels at ``arch``'s serving shapes (batch 4, prompt
+    512, the serving divider), each beside its bound: ``flash_attention``
+    at its prefill (depth 0 and the ring) beside
+    ``scaled_dot_product_attention`` and its plain version, and
+    ``decode_attention`` at its step (at the planner's cluster size and
+    pinned at each) likewise. Returns the ``attention {arch}`` and
+    ``decode_attention {arch}`` rows; phase 3 holds the same shapes
+    against their plain versions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import get_op
-    from repro_torch.kernels import logmatmul as lmm
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     bf16 = torch.bfloat16
     serving, frac_out = SimdiveSpec(width=16, coeff_bits=6), 15
-    (_, H, KV, dh), = (a for a in DENSE_ATTENTION if a[0] == "qwen3-4b")
     G = H // KV
     out = {}
 
@@ -4866,12 +4909,12 @@ def dense_kernel_times(dev, int_rate) -> dict:
     flops_ms = 4 * pairs * dh / BF16_FLOPS * 1e3
     bytes_ms = 2 * (2 * q.numel() + k.numel() + v.numel()) \
         / HBM_BYTES_PER_S * 1e3
-    row = out["attention qwen3-4b"] = dict(
+    row = out[f"attention {arch}"] = dict(
         ms=by_block[fa.DEFAULT_BLOCK], ring_ms=by_block[ATTENTION_RING_BLOCK],
         plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=max(flops_ms, bytes_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes")
-    log(f"  attention, qwen3-4b's prefill: depth 0 {row['ms']:.5f} ms, ring "
+    log(f"  attention, {arch}'s prefill: depth 0 {row['ms']:.5f} ms, ring "
         f"{ATTENTION_RING_BLOCK} {row['ring_ms']:.5f} ms (graph), plain "
         f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.5f} ms "
         f"({row['ms'] / lib_ms:.2f}x), bound {row['bound_ms']:.5f} ms "
@@ -4886,18 +4929,40 @@ def dense_kernel_times(dev, int_rate) -> dict:
     plain_ms = gpu_time_ms(lambda: get_op("decode_attention", serving, "ref")(
         dq, kc, vc, kn, vn, pos=pos, slot=pos, approx_div=True,
         frac_out=frac_out), iters=20)
-    out["decode_attention qwen3-4b"] = dict(
+    out[f"decode_attention {arch}"] = dict(
         {key: t[key] for key in ("ms", "library_ms", "bound_ms", "bound_by",
                                  "cluster")},
         plain_ms=plain_ms,
         ms_by_cluster={str(c): ms for c, ms in t["ms_by_cluster"].items()})
-    log(f"  decode attention, qwen3-4b's step: {t['ms']:.5f} ms (graph, "
+    log(f"  decode attention, {arch}'s step: {t['ms']:.5f} ms (graph, "
         f"cluster {t['cluster']}), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {t['library_ms']:.5f} ms "
         f"({t['ms'] / t['library_ms']:.2f}x), bound {t['bound_ms']:.6f} ms "
         f"({t['bound_by']}); by cluster size "
         + ", ".join(f"{c}: {ms:.5f}" for c, ms in t["ms_by_cluster"].items()))
     del t, dq, kc, vc, kn, vn
+    return out
+
+
+def dense_kernel_times(dev, int_rate) -> dict:
+    """Phase 10 (k): the kernels' times at qwen3-4b's serving shapes, each
+    beside its bound (phase 3 holds them at the three configurations'
+    shapes against their plain versions): ``flash_attention`` at its
+    prefill (depth 0 and the ring) beside ``scaled_dot_product_attention``
+    and its plain version, ``decode_attention`` at its step likewise, the
+    seven linears at M = 4 and 2048 (the fastest registered block each)
+    beside an exact bf16 ``torch.matmul``, and the sqrt kernel at
+    SQRT_WORK_LANES lanes."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import logmatmul as lmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf16 = torch.bfloat16
+    serving = SimdiveSpec(width=16, coeff_bits=6)
+    (_, H, KV, dh), = (a for a in DENSE_ATTENTION if a[0] == "qwen3-4b")
+    out = attention_times(dev, gen, "qwen3-4b", H, KV, dh, int_rate)
 
     # logmatmul at qwen3-4b's (K, N), timed at a step's 4 rows and a
     # prefill's 2,048
@@ -4980,9 +5045,10 @@ def _drop_served_graphs() -> None:
 
 
 def served_generate(dev, arch, *, n_layers=None) -> dict:
-    """Phases 10 (a), (c), (d) and 11 (a), (b): ``arch`` at its published
-    widths (depth cut to ``n_layers`` when given), random weights from
-    SEED, batch 4, prompt 512, 32 greedy tokens, ``--approx simdive``: the
+    """Phases 10 (a), (c), (d), 11 (a), (b) and 12 (a), (b): ``arch`` at
+    its published widths (depth cut to ``n_layers`` when given), random
+    weights from SEED, batch 4, prompt 512 (a codebook config's prompts
+    (4, 512, C)), 32 greedy tokens, ``--approx simdive``: the
     parameters' bytes and ``LM.init``'s peak (under INIT_PEAK_RATIO of
     them); the served prefill and decode step captured first, each alone
     (:func:`graphs_held`); then :func:`policy_generate` (one attention
@@ -5015,11 +5081,13 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
     init_peak = torch.cuda.max_memory_allocated(dev) - base
     param_bytes = sum(t.numel() * t.element_size()
                       for t in serve._leaves(params))
+    C = cfg.n_codebooks
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int64)).to(dev)
+        0, cfg.vocab_size, (BATCH, PROMPT, C) if C else (BATCH, PROMPT),
+        dtype=np.int64)).to(dev)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     G = cfg.n_heads // cfg.n_kv_heads
-    C = da.cluster_size(BATCH, cfg.n_kv_heads, sm_count)
+    cluster = da.cluster_size(BATCH, cfg.n_kv_heads, sm_count)
     experts = (f"{cfg.n_experts} experts top-{cfg.n_experts_active}, "
                f"{cfg.n_shared_experts} shared, capacity factor "
                f"{cfg.moe_capacity_factor} (prefill) / 4.0 (decode), "
@@ -5029,10 +5097,12 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
         f"{G}), d_head {cfg.d_head}, d_ff {cfg.d_ff}, {experts}window "
         f"{cfg.sliding_window}, vocab {cfg.vocab_size}, norm {cfg.norm}, "
         f"qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, partial_rotary "
-        f"{cfg.partial_rotary}, tied {cfg.tie_embeddings}; "
+        f"{cfg.partial_rotary}, act {cfg.act}, pos_emb {cfg.pos_emb}, mrope "
+        f"{cfg.mrope_sections if cfg.mrope else False}, codebooks {C}, "
+        f"tied {cfg.tie_embeddings}; "
         f"{param_bytes:,} bytes of f32 parameters made in {init_s:.1f}s, "
         f"init peak {init_peak:,} ({init_peak / param_bytes:.4f}x); decode "
-        f"cluster {C}")
+        f"cluster {cluster}")
     require(init_peak < INIT_PEAK_RATIO * param_bytes,
             f"{arch}: LM.init peaked at {init_peak:,} bytes, over "
             f"{INIT_PEAK_RATIO}x the parameters' {param_bytes:,}")
@@ -5048,7 +5118,7 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
             arch, run["logits"], run["tokens"], ref_all, tol))
         del ref_all
     return dict(params=params, prompts=prompts, layers=cfg.n_layers,
-                full_layers=full_layers, G=G, cluster=C,
+                full_layers=full_layers, G=G, cluster=cluster,
                 param_bytes=param_bytes, init_s=init_s,
                 init_peak_bytes=init_peak, counts=run["counts"],
                 first_generate_s=run["first_generate_s"], **held, **judged,
@@ -5384,6 +5454,160 @@ def moe_family_phase(dev) -> dict:
     return out
 
 
+# ------------------------------ phase 12: the modality-stub families --
+def modality_kernel_times(dev, int_rate) -> dict:
+    """Phase 12 (k): :func:`attention_times` at each MODALITY_ATTENTION
+    configuration's shapes: qwen2-vl-2b's prefill q (48, 512, 128) / kv
+    (8, 512, 128) G 6 and step (4, 2, 6, 128) over 544 slots, cluster 8;
+    musicgen-medium's (96, 512, 64) G 1 and (4, 24, 1, 64), cluster 2."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    out = {}
+    for arch, H, KV, dh, _ in MODALITY_ATTENTION:
+        out.update(attention_times(dev, gen, arch, H, KV, dh, int_rate))
+    return out
+
+
+def vision_batch(dev, d_model) -> dict:
+    """Phase 12 (a)'s vision-stub fields for a (BATCH, PROMPT) prompt:
+    VISION_GRID ** 2 patch embeddings (normal at the token embeddings'
+    scale, d_model ** -0.5, seed SEED + 12) masked in at slots 0 to n - 1,
+    and Qwen2-VL's M-RoPE positions (BATCH, PROMPT, 3): image slot ``r *
+    grid + c`` at (0, r, c), the text after it at ``grid + j`` on all
+    three coordinates."""
+    import torch
+
+    n = VISION_GRID ** 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    patches = torch.randn((BATCH, n, d_model), generator=gen,
+                          device=dev) * d_model ** -0.5
+    mask = torch.zeros((BATCH, PROMPT), dtype=torch.bool, device=dev)
+    mask[:, :n] = True
+    idx = torch.arange(n, device=dev)
+    pos = torch.empty((PROMPT, 3), dtype=torch.int64, device=dev)
+    pos[:n, 0] = 0
+    pos[:n, 1] = idx // VISION_GRID
+    pos[:n, 2] = idx % VISION_GRID
+    pos[n:] = (VISION_GRID + torch.arange(PROMPT - n, device=dev))[:, None]
+    return {"patch_embeds": patches, "patch_mask": mask,
+            "positions": pos.expand(BATCH, PROMPT, 3)}
+
+
+def vision_generate(dev, params, prompts) -> dict:
+    """Phase 12 (a), the vision stub: qwen2-vl-2b's prompts with
+    :func:`vision_batch` merged in, the prefill through the eager
+    ``lm.prefill`` (the captured prefill takes tokens alone, as the
+    reference's serving path passes them), then GEN - 1 steps through the
+    captured decode step (a replay of (a)'s graph: no capture) from the
+    merged cache, at ``PROMPT + i`` on all three coordinates as the
+    reference's ``decode_step`` continues. One attention launch a layer
+    for the prefill and one decode_attention a layer a step, nothing
+    else; the logits within :func:`ulp_logit_tol` of the plain versions
+    fed the same batch and tokens, decided tokens equal. The gate: the
+    same prefill with (B, P) arange positions (plain RoPE) must move the
+    logits past twice that bound, or the sections were ignored."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    arch = "qwen2-vl-2b"
+    cfg = serve.serving_config(arch, approx="simdive")
+    lm = build(cfg)
+    ref_lm = build(replace(cfg, approx=replace(cfg.approx, backend="ref")))
+    extra = vision_batch(dev, cfg.d_model)
+    step = serve.make_decode_step(lm)
+    captures = step.captures
+    n = cfg.n_layers
+    reset_launch_counts()
+    tokens, logits = serve.generate(
+        lm, params, prompts, PROMPT + GEN, GEN, return_logits=True,
+        prefill_fn=lambda p, batch: lm.prefill(p, {**batch, **extra}))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(step.captures == captures,
+            f"{arch} vision stub: the decode step captured again")
+    require(_attention_launches(counts) == n
+            and counts["decode_attention"] == n * (GEN - 1)
+            and _matmul_launches(counts) == 0
+            and counts["elemwise"] == counts["sqrt"] == counts["packed"] == 0,
+            f"{arch} vision stub: launches {counts}, expected {n} attention "
+            f"and {n} decode_attention per step x {GEN - 1}")
+    require(bool(torch.isfinite(logits).all()) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size,
+            f"{arch} vision stub: bad output")
+    what = f"{arch} vision stub"
+    ref_all = plain_logits(ref_lm, params, prompts, tokens, extra)
+    tol, top = ulp_logit_tol(what, ref_all, UNTIED_LOGIT_RANGE)
+    judged = judge_logits(what, logits, tokens, ref_all, tol)
+    del ref_all
+    flat, _ = lm.prefill(params, {"tokens": prompts, **{
+        k: v for k, v in extra.items() if k != "positions"}})
+    moved = float((flat.float() - logits[:, 0]).abs().max())
+    log(f"  {what}: {VISION_GRID ** 2} patches at slots 0-"
+        f"{VISION_GRID ** 2 - 1}, M-RoPE sections {cfg.mrope_sections}; "
+        f"launches {counts}; the same prefill with (B, P) positions moves "
+        f"the logits by {moved:.4f} (gate: > {2 * tol:g})")
+    require(moved > 2 * tol, f"{what}: the M-RoPE positions moved the "
+            f"prefill's logits by {moved:.4f} only: sections ignored?")
+    return dict(counts=counts, logit_max=top, logit_tol=tol,
+                moved_by_plain_positions=moved, **judged)
+
+
+def musicgen_emulate(dev, params, prompts) -> dict:
+    """Phase 12 (c): musicgen-medium with ``--emulate``,
+    MUSICGEN_EMULATE_GEN tokens, (b)'s params and (4, 512, 4) prompts: 6
+    logmatmul launches a layer a prefill and a step (the attention's four
+    linears and the gelu MLP's two; the codebook heads exact) besides
+    (b)'s, captured ``torch.equal`` to eager, a replayed prefill equal to
+    the eager one."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    arch = "musicgen-medium"
+    cfg = serve.serving_config(arch, approx="simdive", emulate=True)
+    require(cfg.approx.emulate and cfg.approx.width == 8,
+            "not the --emulate serving config")
+    run = policy_generate(dev, build(cfg), params, prompts,
+                          f"{arch} --emulate",
+                          linears=MUSICGEN_EMULATED_LINEARS * cfg.n_layers,
+                          gen=MUSICGEN_EMULATE_GEN)
+    log(f"  {arch} --emulate: first generate (autotune, captures) "
+        f"{run['first_generate_s']:.1f}s, captured generate of "
+        f"{MUSICGEN_EMULATE_GEN} tokens {run['generate_s'] * 1e3:.1f} ms")
+    return dict(counts=run["counts"], gen=MUSICGEN_EMULATE_GEN,
+                first_generate_s=run["first_generate_s"],
+                generate_captured_ms=run["generate_s"] * 1e3)
+
+
+def modality_family_phase(dev, int_rate) -> dict:
+    """Phase 12: (k) the attention kernels' times at both configurations'
+    shapes, then (a) qwen2-vl-2b whole (text, then the vision stub), (b)
+    musicgen-medium whole and (c) musicgen-medium ``--emulate``; every
+    earlier model's graphs are dropped first and each model's after it."""
+    _drop_served_graphs()
+    out = {"kernels": modality_kernel_times(dev, int_rate)}
+    log("  (a) qwen2-vl-2b whole (28 layers), --approx simdive")
+    a = served_generate(dev, "qwen2-vl-2b")
+    log(f"  (a) qwen2-vl-2b with the vision stub: a {VISION_GRID} x "
+        f"{VISION_GRID} patch grid, M-RoPE positions")
+    a["vision"] = vision_generate(dev, a.pop("params"), a.pop("prompts"))
+    out["qwen2-vl-2b"] = a
+    _drop_served_graphs()
+    log("  (b) musicgen-medium whole (48 layers, 4 codebooks), --approx "
+        "simdive")
+    b = served_generate(dev, "musicgen-medium")
+    params, prompts = b.pop("params"), b.pop("prompts")
+    out["musicgen-medium"] = b
+    _drop_served_graphs()
+    log(f"  (c) musicgen-medium --emulate, {MUSICGEN_EMULATE_GEN} tokens")
+    out["musicgen-medium --emulate"] = musicgen_emulate(dev, params, prompts)
+    del params, prompts
+    _drop_served_graphs()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5399,18 +5623,19 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build        # fails outside the checkout
 
     t_start = time.perf_counter()
+    starts = {}              # phase -> seconds since the start, when it began
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/11] device: {card} | torch {torch.__version__} "
+    log(f"[1/12] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/11] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/12] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -5426,7 +5651,8 @@ def main(argv=None) -> int:
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    log("[3/11] kernels vs plain versions")
+    starts[3] = time.perf_counter() - t_start
+    log("[3/12] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -5434,7 +5660,8 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms, mm_qwen3_runs = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    log("[4/11] paths: (p) the packed path, tuning.frontier.measure_error("
+    starts[4] = time.perf_counter() - t_start
+    log("[4/12] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -5446,7 +5673,8 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    log("[5/11] times")
+    starts[5] = time.perf_counter() - t_start
+    log("[5/12] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -5466,21 +5694,25 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    log("[6/11] drill: serve --scheduler, smollm-360m full width, batch "
+    starts[6] = time.perf_counter() - t_start
+    log("[6/12] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    log("[7/11] faults: every kernel under each armed site, captured graphs, "
+    starts[7] = time.perf_counter() - t_start
+    log("[7/12] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
-    log("[8/11] policy: build_policy / select_config on the card, a "
+    starts[8] = time.perf_counter() - t_start
+    log("[8/12] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
-    log("[9/11] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    starts[9] = time.perf_counter() - t_start
+    log("[9/12] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -5493,15 +5725,24 @@ def main(argv=None) -> int:
             f"use_in_norm generate: launches {norm_counts}")
     kernels.append(sqrt_row)
 
-    log("[10/11] the dense family at full width: (k) the kernels' times "
+    starts[10] = time.perf_counter() - t_start
+    log("[10/12] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
     dense = dense_family_phase(dev, int_rate)
 
-    log("[11/11] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
+    starts[11] = time.perf_counter() - t_start
+    log("[11/12] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
         "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
+
+    starts[12] = time.perf_counter() - t_start
+    log("[12/12] the modality-stub families at full width, nothing cut: (k) "
+        "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
+        "(text and the vision stub), (b) musicgen-medium, (c) "
+        "musicgen-medium --emulate")
+    modality = modality_family_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -5622,6 +5863,25 @@ def main(argv=None) -> int:
         kern["launches_moe"] = sum(moe[r]["counts"][name] for r in moe_runs)
         for arch, *_ in (MOE_ATTENTION if errs is not None else ()):
             kern[f"{name} {arch}"] = errs["archs"][arch]
+    # phase 12: the launches of (a)-(c) and of (a)'s vision stub together,
+    # zeroed just before each counted generate and read just after; the
+    # attention kernels at the new shapes: phase 3's errors and phase 12's
+    # times at each configuration's
+    modality_counts = [modality[r]["counts"] for r in (
+        "qwen2-vl-2b", "musicgen-medium", "musicgen-medium --emulate")]
+    modality_counts.append(modality["qwen2-vl-2b"]["vision"]["counts"])
+    modality_rows = dict(modality["kernels"])
+    for kern, name, errs in (
+            (by_name["flash_attention"], "attention", att_errs),
+            (by_name["flash_attention_pipelined"], "attention_pipelined",
+             None),
+            (by_name["decode_attention"], "decode_attention", da_errs),
+            (by_name["logmatmul"], "matmul", None),
+            (by_name["logmatmul_pipelined"], "matmul_pipelined", None)):
+        kern["launches_modality"] = sum(c[name] for c in modality_counts)
+        for arch, *_ in (MODALITY_ATTENTION if errs is not None else ()):
+            key = f"{name} {arch}"
+            kern[key] = {**errs["archs"][arch], **modality_rows[key]}
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -5632,18 +5892,23 @@ def main(argv=None) -> int:
     for key, val in times.items():
         log(f"  {key}: {val:.4f}")
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
-                     *arith.items(), *dense.items(), *moe.items()):
+                     *arith.items(), *dense.items(), *moe.items(),
+                     *modality.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
-    log(f"  total {total_s:.1f}s")
+    ends = [*list(starts.values())[1:], total_s]
+    phase_s = {k: round(end - begin, 1)
+               for (k, begin), end in zip(starts.items(), ends)}
+    log(f"  total {total_s:.1f}s; seconds by phase (3-12) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({
             "card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
-            "total_s": total_s, "kernels": kernels, "times": times,
+            "total_s": total_s, "phase_s": phase_s, "kernels": kernels,
+            "times": times,
             "main_path": {k: v for k, v in served.items()
                           if k not in ("lm", "params", "prompts")},
             "emulate_path": {k: v for k, v in served_e.items()
@@ -5652,6 +5917,7 @@ def main(argv=None) -> int:
             "faults": faults, "policy": policy,
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "dense_family": dense, "moe_family": moe,
+            "modality_family": modality,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -4,8 +4,10 @@ The dense family is ported: ``smollm-360m``, ``qwen3-4b`` (qk-norm),
 ``qwen2.5-14b`` (qkv bias) and ``stablelm-1.6b`` (LayerNorm, qkv bias,
 partial rotary); and the MoE family: ``mixtral-8x7b`` (top-2 of 8,
 sliding window) and ``llama4-scout-17b-a16e`` (top-1 of 16 and a shared
-expert). The reference's other four architectures need blocks (SSM,
-M-RoPE, gelu, codebooks) that wait.
+expert); and the two modality-stub families: ``qwen2-vl-2b`` (M-RoPE and
+a vision stub of precomputed patch embeddings) and ``musicgen-medium``
+(gelu MLP, sinusoidal positions, 4 EnCodec codebooks). The reference's
+recurrent architectures (rwkv6, zamba2) need the SSM blocks, which wait.
 """
 from importlib import import_module
 
@@ -18,6 +20,8 @@ _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "mixtral-8x7b": "mixtral_8x7b",
     "llama4-scout-17b-a16e": "llama4_scout",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 ARCHS = tuple(_MODULES)

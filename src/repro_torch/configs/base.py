@@ -3,8 +3,7 @@
 Counterpart of ``repro.configs.base`` (``ModelConfig``; the shape and mesh
 tables of the reference are not ported yet). All of the reference's fields
 are kept so configs compare field by field, but the port so far builds
-only the attention stacks of the dense and MoE families (plain RoPE,
-swiglu).
+only the attention stacks: the dense, MoE, vlm and audio families.
 """
 from __future__ import annotations
 

@@ -139,6 +139,11 @@ class Scheduler:
             raise ValueError(
                 f"Scheduler needs an attention-family cache, got family "
                 f"{cfg.family!r} (recurrent state has no per-slot seq axis)")
+        if cfg.n_codebooks:
+            # the reference's scheduler flattens every prompt to (P,)
+            raise NotImplementedError(
+                f"{cfg.name}: the scheduler admits (P,) prompts; a codebook "
+                "config's are (P, C)")
         if prompt_len <= 0:
             raise ValueError(
                 f"prompt_len must be positive, got {prompt_len} — a "

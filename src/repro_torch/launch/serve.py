@@ -181,8 +181,9 @@ def decode_body(lm, params, cache, tok, pos):
     ``(B,)`` integer tensor on ``lm.device``, so nothing is read on the
     host (``LM.decode_step`` turns a scalar position into a Python int,
     which a capture cannot do). It runs eagerly as it is. Returns
-    ``(logits (B, V), cache)``; the cache is written in place."""
-    if not (torch.is_tensor(pos) and pos.shape == tok.shape
+    ``(logits (B, V) [(B, C, V)], cache)``; the cache is written in
+    place."""
+    if not (torch.is_tensor(pos) and pos.shape == tok.shape[:1]
             and not pos.is_floating_point() and pos.device == tok.device):
         raise ValueError(
             f"decode_body takes pos as a ({tok.shape[0]},) integer tensor on "
@@ -257,14 +258,17 @@ class _Captured:
 class _Slot(_Captured):
     """One ``(B, max_seq)`` of a :class:`DecodeStep`: the cache it serves
     (its own, or one it adopted), the token and position buffers it owns,
-    and the graph captured on them."""
+    and the graph captured on them. The token buffer has the shape of a
+    step's tokens: ``(B,)``, or ``(B, C)`` for codebooks."""
 
     def __init__(self, lm, batch_size: int, max_seq: int,
                  cache: dict | None = None):
         super().__init__()
         self.cache = lm.empty_cache(batch_size, max_seq) if cache is None \
             else cache
-        self.tok = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
+        C = lm.cfg.n_codebooks
+        self.tok = torch.zeros((batch_size, C) if C else (batch_size,),
+                               dtype=torch.int64, device=lm.device)
         self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
 
     def owns(self, cache: dict) -> bool:
@@ -397,6 +401,9 @@ class DecodeStep(_GraphFn):
                 "the captured decode step serves only its own cache buffers: "
                 "merge the prefill cache into step.empty_cache(B, max_seq) "
                 "(generate does)")
+        if tok.shape != slot.tok.shape:
+            raise ValueError(f"the decode step takes tokens of shape "
+                             f"{tuple(slot.tok.shape)}, got {tuple(tok.shape)}")
         slot.tok.copy_(tok)
         if torch.is_tensor(pos):
             slot.pos.copy_(pos)
@@ -417,26 +424,29 @@ def make_decode_step(lm) -> DecodeStep:
 
 # ---------------------------------------------------------------- prefill --
 class _PrefillSlot(_Captured):
-    """One ``(B, P)`` of a :class:`PrefillStep`: the prompt buffer it owns
-    and the graph captured on it."""
+    """One prompt shape of a :class:`PrefillStep`, ``(B, P)`` or ``(B, P,
+    C)``: the prompt buffer it owns and the graph captured on it."""
 
-    def __init__(self, lm, batch_size: int, prompt_len: int):
+    def __init__(self, lm, *shape: int):
         super().__init__()
-        self.tokens = torch.zeros((batch_size, prompt_len), dtype=torch.int64,
-                                  device=lm.device)
+        self.tokens = torch.zeros(shape, dtype=torch.int64, device=lm.device)
 
 
 class PrefillStep(_GraphFn):
     """The served prefill: ``prefill(params, {"tokens": (B, P)}) ->
     (logits (B, V), cache)``, the reference's jitted ``LM.prefill``, one
-    executable per prompt shape.
+    executable per prompt shape (``(B, P, C)`` tokens and ``(B, C, V)``
+    logits for codebooks).
 
-    On a CUDA device it captures ``lm.prefill`` into a CUDA graph per ``(B,
-    P)`` on first use and replays it on every later call at that shape. It
-    owns a prompt buffer per ``(B, P)``, which the call's tokens are copied
-    into. The logits and the cache returned are the graph's own buffers,
-    rewritten by the next call at the same shape: merge the cache
-    (:func:`merge_cache`, which copies) and clone the logits to keep them.
+    On a CUDA device it captures ``lm.prefill`` into a CUDA graph per
+    prompt shape on first use and replays it on every later call at that
+    shape. It takes tokens alone, as the reference's serving path passes
+    them: a batch with positions or the vision stub's patches goes through
+    ``lm.prefill``, eager. It owns a prompt buffer per shape, which the
+    call's tokens are copied into. The logits and the cache returned are
+    the graph's own buffers, rewritten by the next call at the same
+    shape: merge the cache (:func:`merge_cache`, which copies) and clone
+    the logits to keep them.
     It captures again, as :class:`DecodeStep` does, for another params
     object or leaf and after the block autotune cache was cleared or
     preloaded; a capture first runs the prefill once eagerly at the same
@@ -453,9 +463,11 @@ class PrefillStep(_GraphFn):
         lm = self.lm
         if lm.device.type != "cuda":
             return lm.prefill(params, batch)
-        if batch.keys() != {"tokens"} or batch["tokens"].ndim != 2:
+        ndim = 3 if lm.cfg.n_codebooks else 2
+        if batch.keys() != {"tokens"} or batch["tokens"].ndim != ndim:
+            want = "(B, P, C)" if ndim == 3 else "(B, P)"
             raise ValueError(
-                "the captured prefill takes {'tokens': (B, P)} alone, got "
+                f"the captured prefill takes {{'tokens': {want}}} alone, got "
                 f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
         tokens = batch["tokens"]
         slot = self._slots.get(tuple(tokens.shape))
@@ -478,17 +490,21 @@ def make_prefill(lm) -> PrefillStep:
 # ------------------------------------------------------------ decode loop --
 def generate(lm, params, prompts: torch.Tensor, max_seq: int, gen: int, *,
              prefill_fn=None, decode_fn=None, return_logits: bool = False):
-    """prompts: (B, P) int64 on ``lm.device``. Greedy decode ``gen`` tokens.
+    """prompts: (B, P) int64 on ``lm.device`` — (B, P, C) for codebooks.
+    Greedy decode ``gen`` tokens.
 
     The prompt goes through one prefill, :func:`make_prefill` unless
     ``prefill_fn`` overrides it (``prefill_fn=lm.prefill`` is the eager
     prefill), and the per-token loop runs one step function,
     :func:`make_decode_step` unless ``decode_fn`` overrides it
     (``decode_fn=lm.decode_step`` is the eager loop), against the merged
-    serving cache. Returns the tokens ``(B, gen)``; with ``return_logits``
-    also the logits each token was picked from, ``(B, gen, V)`` float32.
+    serving cache. Returns the tokens ``(B, gen)`` [(B, gen, C)]; with
+    ``return_logits`` also the logits each token was picked from, ``(B,
+    gen, V)`` [(B, gen, C, V)] float32. The reference's ``generate`` takes
+    ``(B, P)`` prompts alone; a codebook prompt is greedy per codebook,
+    as its ``decode_step`` takes ``(B, C)`` tokens.
     """
-    B, P = prompts.shape
+    B, P = prompts.shape[:2]
     prefill = prefill_fn if prefill_fn is not None else make_prefill(lm)
     step = decode_fn if decode_fn is not None else make_decode_step(lm)
     empty = step.empty_cache if isinstance(step, DecodeStep) \
@@ -525,7 +541,7 @@ def measure_generate(lm, params, prompts, max_seq: int, gen: int, *,
     prefill, the step timing is the per-token latency. The served prefill
     is timed by :func:`measure_prefill`.
     """
-    B, P = prompts.shape
+    B, P = prompts.shape[:2]
     prefill, step = make_prefill(lm), make_decode_step(lm)
     run = lambda: generate(lm, params, prompts, max_seq, gen,
                            prefill_fn=prefill, decode_fn=step)
@@ -558,7 +574,8 @@ def measure_prefill(lm, params, prompts, *, iters: int = 3) -> PrefillTimes:
     prefill = make_prefill(lm)
     batch = {"tokens": prompts}
     stats = time_callable(prefill, params, batch, iters=iters,
-                          items=prompts.numel(), device=lm.device)
+                          items=prompts.shape[0] * prompts.shape[1],
+                          device=lm.device)
     sync = (lambda: torch.cuda.synchronize(lm.device)) \
         if lm.device.type == "cuda" else (lambda: None)
     host_s = float("inf")
@@ -793,6 +810,12 @@ def main(argv=None):
     cfg = serving_config(args.arch, smoke=args.smoke, approx=args.approx,
                          backend=args.backend, emulate=args.emulate,
                          policy=policy)
+    if cfg.n_codebooks:
+        # the reference's CLI draws (B, P) prompts, which a codebook
+        # config's embedding cannot take: serve it through generate
+        raise NotImplementedError(
+            f"{cfg.name}: the serve CLI draws (B, P) prompts; a codebook "
+            "config takes (B, P, C) — call generate with them")
     lm = build(cfg, device=args.device)
     print(render_plan(resolve_serving_plan(cfg), cfg))
     params = lm.init(args.seed)

@@ -1,7 +1,7 @@
 """Bridge from the JAX reference's parameters to the port's.
 
 Both packages keep the same parameter tree (stacked ``(L, ...)`` leaves
-under ``params["stack"]["layers"]``, ``embed (1, V, D)``, ``final_norm``),
+under ``params["stack"]["layers"]``, ``embed (C, V, D)``, ``final_norm``),
 so the bridge is a checked leaf-by-leaf copy: the tests hand both models
 the *same* random init this way and compare what they compute. A linear
 the reference quantized (``quantize_params``: a ``QuantizedWeight`` leaf
@@ -24,16 +24,17 @@ __all__ = ["params_from_reference"]
 
 def _expected_shapes(cfg: ModelConfig) -> dict:
     """Every leaf's path and shape: the tree ``LM.init`` makes for ``cfg``
-    (an MoE config has ``moe/*`` leaves in place of ``mlp/*``)."""
-    D = cfg.d_model
+    (an MoE config has ``moe/*`` leaves in place of ``mlp/*``, a gelu MLP
+    no ``w3``; ``C = max(n_codebooks, 1)`` embedding tables and heads)."""
+    D, C = cfg.d_model, max(cfg.n_codebooks, 1)
     norm = (("w",), ("b",)) if cfg.norm == "layernorm" else (("w",),)
-    shapes = {("embed",): (1, cfg.vocab_size, D)}
+    shapes = {("embed",): (C, cfg.vocab_size, D)}
     shapes.update({("final_norm",) + k: (D,) for k in norm})
     if cfg.n_layers:
         shapes.update({("stack", "layers") + path: (cfg.n_layers,) + shape
                        for path, shape, _ in _layer_leaves(cfg)})
     if not cfg.tie_embeddings:
-        shapes[("head",)] = (1, D, cfg.vocab_size)
+        shapes[("head",)] = (C, D, cfg.vocab_size)
     return shapes
 
 

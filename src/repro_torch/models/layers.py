@@ -19,8 +19,8 @@ emulated linear is one launch of the ``logmatmul`` kernel. RMSNorm is
 exact, or with ``ApproxConfig.use_in_norm`` the log-domain
 :func:`repro_torch.core.approx.approx_rmsnorm` (on the card one ``sqrt``
 and one ``elemwise`` launch a norm); LayerNorm (with bias) is always
-exact, as in the reference. M-RoPE and gelu MLPs are not ported yet and
-raise.
+exact, as in the reference. RoPE takes ``(B,S)`` positions, or ``(B,S,3)``
+(t, h, w) for M-RoPE; the MLP is swiglu or gelu (tanh form).
 """
 from __future__ import annotations
 
@@ -132,14 +132,37 @@ def apply_norm(x, p, kind, eps=1e-6, approx: ApproxConfig = EXACT):
 
 
 # ------------------------------------------------------------------- rope --
-def rope_tables(positions: torch.Tensor, dh_rot: int, theta: float):
-    """cos/sin tables for plain RoPE. positions: (B,S) int -> (B,S,half)."""
-    if positions.ndim != 2:
-        raise NotImplementedError("M-RoPE positions (B,S,3) are not ported yet")
+def rope_tables(positions: torch.Tensor, dh_rot: int, theta: float,
+                mrope_sections=None):
+    """cos/sin tables, each (B,S,half). positions: (B,S) int, or (B,S,3)
+    for M-RoPE (t, h, w).
+
+    M-RoPE (Qwen2-VL): the ``dh_rot/2`` frequency slots are split into
+    ``mrope_sections`` groups in order, each driven by its own position
+    coordinate; without sections the split is ``(half//3 + half%3,
+    half//3, half//3)``. Sections that do not add up to ``half``, or more
+    sections than coordinates, raise ``ValueError``. The coordinates are
+    picked with slices, so no host data reaches the card (the captured
+    decode step builds its tables this way)."""
     half = dh_rot // 2
     inv = theta ** (-torch.arange(half, dtype=torch.float32,
                                   device=positions.device) / half)
-    ang = positions.to(torch.float32)[..., None] * inv
+    pos = positions.to(torch.float32)
+    if positions.ndim == 3:
+        secs = tuple(mrope_sections or (half // 3 + half % 3, half // 3,
+                                        half // 3))
+        if sum(secs) != half or len(secs) > positions.shape[-1]:
+            raise ValueError(f"M-RoPE sections {secs} do not split {half} "
+                             f"frequency slots over {positions.shape[-1]} "
+                             "position coordinates")
+        pos = torch.cat([pos[..., i:i + 1].expand(*pos.shape[:2], n)
+                         for i, n in enumerate(secs)], dim=-1)  # (B,S,half)
+        ang = pos * inv
+    elif positions.ndim == 2:
+        ang = pos[..., None] * inv
+    else:
+        raise ValueError(f"positions must be (B,S) or (B,S,3), got "
+                         f"{tuple(positions.shape)}")
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -295,8 +318,26 @@ def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
 
 # -------------------------------------------------------------------- mlp --
 def mlp(x, p, act, approx: ApproxConfig = EXACT):
-    """Gated (swiglu) MLP."""
-    if act != "swiglu":
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
-    h = F.silu(dense(x, p["w1"], approx)) * dense(x, p["w3"], approx)
+    """Gated (swiglu) or plain-gelu MLP; weights may be QuantizedWeight.
+
+    gelu is the tanh form, as ``jax.nn.gelu``'s default
+    (``approximate=True``), taken on the ``dense`` output in the
+    activation dtype, as the reference takes it. In float32 the two agree
+    to round-off. In bfloat16 they round differently: torch evaluates the
+    formula in float32 with float32 constants and rounds once, while JAX
+    rounds each of its eight ops to bfloat16 with its constants rounded
+    too (sqrt(2/pi) to 0.796875, 0.044715 to 0.044677734375), and XLA on
+    the CPU flushes subnormal results to zero. Over every normal bfloat16
+    input below 1e4 in magnitude, 1,012 of 35,644 results differ: by one
+    bfloat16 ulp of the result above x = -0.57 (the largest difference,
+    0.0156, is one ulp at x = 2.08), by up to 0.003 in the negative tail
+    below it, where ``1 + tanh`` cancels, and where the result is
+    subnormal.
+    """
+    if act == "swiglu":
+        h = F.silu(dense(x, p["w1"], approx)) * dense(x, p["w3"], approx)
+    elif act == "gelu":
+        h = F.gelu(dense(x, p["w1"], approx), approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
     return dense(h, p["w2"], approx)

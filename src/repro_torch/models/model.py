@@ -2,13 +2,16 @@
 
 Counterpart of ``repro.models.model`` for serving (``train_loss`` and
 ``logits`` wait for the training slice). Parameters are a plain nested
-dict of tensors with the reference's tree: ``embed (1,V,D)``,
+dict of tensors with the reference's tree: ``embed (C,V,D)``,
 ``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w`` (and ``.b``
-under LayerNorm), ``head (1,D,V)`` when the embeddings are not tied.
+under LayerNorm), ``head (C,D,V)`` when the embeddings are not tied, where
+``C = max(n_codebooks, 1)``.
 
-Batch dict convention:
-  tokens      (B,S) int64
-  positions   (B,S) int; defaults to arange
+Batch dict convention (fields past ``tokens`` optional):
+  tokens       (B,S) int64               [(B,S,C) for codebooks]
+  positions    (B,S) int, or (B,S,3) for M-RoPE; defaults to arange
+  patch_embeds (B,Np,D)                  vision stub: patch embeddings
+  patch_mask   (B,S) bool                True where a slot is a patch
 """
 from __future__ import annotations
 
@@ -40,17 +43,19 @@ class LM:
     # ------------------------------------------------------------- params --
     def init(self, seed_or_generator: int | torch.Generator = 0) -> dict:
         """Random parameters on ``self.device``: embed normal * d^-0.5,
-        linears uniform(+-fan_in^-0.5), unit norms, zero biases. Each leaf
-        is allocated once, so the peak memory of a call is the
-        parameters' bytes and one layer's leaf at most."""
+        linears uniform(+-fan_in^-0.5), unit norms, zero biases; one
+        embedding table and one head a codebook. Each leaf is allocated
+        once, so the peak memory of a call is the parameters' bytes and
+        one layer's leaf at most."""
         cfg = self.cfg
         gen = seed_or_generator
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(gen))
         pdt = _dt(cfg.param_dtype)
+        n_emb = max(cfg.n_codebooks, 1)
         params: dict[str, Any] = {}
         params["embed"] = torch.randn(
-            (1, cfg.vocab_size, cfg.d_model), generator=gen, dtype=pdt,
+            (n_emb, cfg.vocab_size, cfg.d_model), generator=gen, dtype=pdt,
             device=self.device).mul_(cfg.d_model ** -0.5)
         params["stack"] = init_stack(gen, cfg, pdt, self.device)
         params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
@@ -61,13 +66,48 @@ class LM:
         if not cfg.tie_embeddings:
             lim = cfg.d_model ** -0.5
             params["head"] = torch.rand(
-                (1, cfg.d_model, cfg.vocab_size), generator=gen, dtype=pdt,
-                device=self.device).mul_(2).sub_(1).mul_(lim)
+                (n_emb, cfg.d_model, cfg.vocab_size), generator=gen,
+                dtype=pdt, device=self.device).mul_(2).sub_(1).mul_(lim)
         return params
 
     # -------------------------------------------------------------- embed --
     def _embed(self, params, batch):
-        return params["embed"][0][batch["tokens"]].to(_dt(self.cfg.dtype))
+        """Token embeddings in the activation dtype, in the reference's
+        order: the codebooks' embeddings summed (``c = 0..C-1`` in turn,
+        as Python's ``sum`` adds them), the vision stub's patch
+        embeddings merged, then the sinusoidal table added.
+
+        The merge is position-aligned, as the reference's ``where``: patch
+        ``s`` lands at slot ``s`` where ``patch_mask`` is set there, and
+        slots past the patches take zeros where the mask is set. The
+        sinusoidal table is ``concat(sin, cos)`` over ``d_model/2``
+        frequencies of the positions, in float32, cast before it is
+        added."""
+        cfg = self.cfg
+        adt = _dt(cfg.dtype)
+        tokens, emb = batch["tokens"], params["embed"]
+        if cfg.n_codebooks:
+            x = emb[0][tokens[..., 0]].to(adt)
+            for c in range(1, cfg.n_codebooks):
+                x = x + emb[c][tokens[..., c]].to(adt)
+        else:
+            x = emb[0][tokens].to(adt)
+        if cfg.vision_stub and "patch_embeds" in batch:
+            B, S, D = x.shape
+            pe = batch["patch_embeds"].to(adt)
+            pe_full = torch.cat([pe, pe.new_zeros((B, S - pe.shape[1], D))],
+                                dim=1)
+            x = torch.where(batch["patch_mask"][..., None], pe_full, x)
+        if cfg.pos_emb == "sin":
+            pos = batch.get("positions")
+            if pos is None:
+                pos = torch.arange(x.shape[1], device=x.device)[None]
+            half = cfg.d_model // 2
+            inv = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                            device=x.device) / half)
+            ang = pos.to(torch.float32)[..., None] * inv
+            x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(adt)
+        return x
 
     def _positions(self, batch, S, offset=0):
         pos = batch.get("positions")
@@ -78,9 +118,13 @@ class LM:
         return pos
 
     def _head(self, params, x):
-        w = params["embed"][0].T if self.cfg.tie_embeddings \
-            else params["head"][0]
-        return dense(x, w)
+        """Logits (B,S,V), or (B,S,C,V) for codebooks: one exact
+        ``dense`` a codebook, stacked at axis -2."""
+        cfg = self.cfg
+        w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
+            else params["head"]
+        outs = [dense(x, w[c]) for c in range(max(cfg.n_codebooks, 1))]
+        return torch.stack(outs, dim=-2) if cfg.n_codebooks else outs[0]
 
     # -------------------------------------------------------------- serve --
     def empty_cache(self, batch_size: int, max_seq: int):
@@ -106,15 +150,16 @@ class LM:
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos):
-        """tokens: (B,) int64; pos: the 0-based position of the token being
-        decoded — an int, or a (B,) tensor for per-row positions. A (B,)
-        tensor on the card is read there and never on the host, which is
-        what lets a CUDA graph capture the step
-        (:func:`repro_torch.launch.serve.decode_body`); an int is one host
-        value the step is built around.
+        """tokens: (B,) int64 [(B,C) for codebooks]; pos: the 0-based
+        position of the token being decoded — an int, or a (B,) tensor for
+        per-row positions. A (B,) tensor on the card is read there and
+        never on the host, which is what lets a CUDA graph capture the
+        step (:func:`repro_torch.launch.serve.decode_body`); an int is one
+        host value the step is built around. Under M-RoPE the position
+        drives all three coordinates, as in the reference.
 
-        Returns (logits (B,V), cache): the cache is updated **in place**
-        (one token per layer) and returned.
+        Returns (logits (B,V) [(B,C,V)], cache): the cache is updated **in
+        place** (one token per layer) and returned.
         """
         cfg = self.cfg
         B = tokens.shape[0]
@@ -124,7 +169,10 @@ class LM:
         else:
             pos = int(pos)
             positions = torch.full((B, 1), pos, device=self.device)
-        x = self._embed(params, {"tokens": tokens[:, None]})
+        if cfg.mrope:
+            positions = positions[..., None].expand(B, 1, 3)
+        x = self._embed(params, {"tokens": tokens[:, None],
+                                 "positions": positions})
         x, cache = stack_decode(params["stack"], x, cfg, cache, pos,
                                 positions)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)

@@ -7,10 +7,12 @@ keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
 for decode are dicts of stacked ``(L, B, S, KV, dh)`` tensors.
 
 The dense family's features are built: qk-norm (qwen3), qkv biases
-(qwen2.5, stablelm), LayerNorm and partial rotary (stablelm); and the MoE
+(qwen2.5, stablelm), LayerNorm and partial rotary (stablelm); the MoE
 family's block (:mod:`repro_torch.models.moe`, mixtral and llama4-scout),
-which takes the MLP's place. SSM and hybrid stacks, M-RoPE, gelu MLPs,
-sinusoidal positions, codebooks and the vision stub are not ported yet.
+which takes the MLP's place; and the modality-stub families' (qwen2-vl's
+M-RoPE, musicgen's gelu MLP; their sinusoidal positions, codebooks and
+vision stub live in :mod:`repro_torch.models.model`). SSM and hybrid
+stacks are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,14 +38,15 @@ from .moe import moe_ffn, moe_leaves
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for architecture features the port does not build yet."""
+    """Raise for architecture features the port does not build yet: the
+    recurrent families, experts outside an MoE stack, and activations or
+    position embeddings the reference does not have either."""
     missing = [name for name, on in (
-        ("family " + cfg.family, cfg.family not in ("dense", "moe")),
+        ("family " + cfg.family,
+         cfg.family not in ("dense", "moe", "vlm", "audio")),
         ("n_experts", bool(cfg.n_experts) and cfg.family != "moe"),
-        ("mrope", cfg.mrope), ("act " + cfg.act, cfg.act != "swiglu"),
-        ("pos_emb " + cfg.pos_emb, cfg.pos_emb != "rope"),
-        ("n_codebooks", bool(cfg.n_codebooks)),
-        ("vision_stub", cfg.vision_stub),
+        ("act " + cfg.act, cfg.act not in ("swiglu", "gelu")),
+        ("pos_emb " + cfg.pos_emb, cfg.pos_emb not in ("rope", "sin")),
     ) if on]
     if missing:
         raise NotImplementedError(
@@ -75,9 +78,11 @@ def _layer_leaves(cfg: ModelConfig):
                    in moe_leaves(D, cfg.d_ff, cfg.n_experts,
                                  cfg.n_shared_experts)]
     else:
+        # a gelu MLP has no gate: w1 and w2 alone, as init_attn_layer
         leaves += [(("mlp", "w1"), (D, cfg.d_ff), D),
-                   (("mlp", "w2"), (cfg.d_ff, D), cfg.d_ff),
-                   (("mlp", "w3"), (D, cfg.d_ff), D)]
+                   (("mlp", "w2"), (cfg.d_ff, D), cfg.d_ff)]
+        if cfg.act == "swiglu":
+            leaves.append((("mlp", "w3"), (D, cfg.d_ff), D))
     return leaves
 
 
@@ -118,11 +123,15 @@ def layer_params(layers: dict, i: int) -> dict:
 
 # -------------------------------------------------------------- attention --
 def _rope_for(cfg: ModelConfig, positions):
+    """RoPE tables and rotated width for ``positions``: M-RoPE sections
+    under ``cfg.mrope`` ((B,S,3) positions; (B,S) ones take plain RoPE),
+    none under sinusoidal positions (added at the embedding)."""
     rot = int(cfg.d_head * cfg.partial_rotary)
     rot -= rot % 2
     if cfg.pos_emb != "rope" or rot == 0:
         return None, 0
-    return rope_tables(positions, rot, cfg.rope_theta), rot
+    return rope_tables(positions, rot, cfg.rope_theta,
+                       cfg.mrope_sections if cfg.mrope else None), rot
 
 
 def _qkv(p, h, cfg: ModelConfig, rope, rot):

@@ -517,13 +517,21 @@ def test_unported_paths_raise_instead_of_serving_something_else():
               TApprox(mode="simdive", backward="approx")).sum().backward()
     with pytest.raises(KeyError, match="ported so far"):
         t_get_config("rwkv6-1.6b")
+    # M-RoPE and the gelu MLP are ported (the modality-stub families):
+    # those configs build, with the tree their features need
+    for kw in (dict(mrope=True), dict(act="gelu")):
+        cfg = replace(t_get_config(ARCH, smoke=True), **kw)
+        params = t_build(cfg, device="cpu").init(0)
+        assert ("w3" in params["stack"]["layers"]["mlp"]) == \
+            (cfg.act == "swiglu")
     # a feature still unported raises before any parameter is made: the
-    # recurrent families among them (the MoE family is ported)
-    for kw, name in ((dict(mrope=True), "mrope"), (dict(act="gelu"),
-                                                   "act gelu"),
-                     (dict(family="ssm"), "family ssm"),
+    # recurrent families, experts outside the MoE family, and an
+    # activation or position embedding the reference does not have
+    for kw, name in ((dict(family="ssm"), "family ssm"),
                      (dict(family="hybrid"), "family hybrid"),
-                     (dict(family="ssm", n_experts=4), "n_experts")):
+                     (dict(family="ssm", n_experts=4), "n_experts"),
+                     (dict(act="relu"), "act relu"),
+                     (dict(pos_emb="alibi"), "pos_emb alibi")):
         cfg = replace(t_get_config(ARCH, smoke=True), **kw)
         with pytest.raises(NotImplementedError, match=name):
             t_build(cfg, device="cpu").init(0)
