@@ -391,6 +391,30 @@ any phase fails. Phases:
               == eager. Each model also: parameters' bytes and
               ``LM.init``'s peak, peak and held memory, the prefill and
               step replays, one eager step's device time by kernel.
+13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b whole (24
+              layers, d_model 2,048, 32 heads of 64, d_ff 7,168, vocab
+              65,536, untied), random weights from seed 0, batch 4, prompt
+              512, 32 tokens, ``--approx simdive``; float32 matmuls at
+              full precision (no TF32). (k) ``logmatmul`` at its eight
+              linears' (K, N) — (2048, 2048) x 6, (2048, 7168), (7168,
+              2048) — timed at M 4 and 2048 beside their bound and an
+              exact float32 ``torch.matmul`` (phase 3 holds them bit for
+              bit at M 4 and 64, every block, both schedules). (a)
+              divider-only: no SIMDive kernel launches (no softmax), the
+              captured prefill and step alone (memory each holds, the
+              recurrent cache included), the captured generate
+              ``torch.equal`` to the eager one, a replayed prefill's
+              logits, att_x, ffn_x and state ``torch.equal`` to
+              ``lm.prefill``'s, ``LM.init``'s peak, peak memory, times,
+              one eager step's device time by kernel; the prefill over
+              64 tokens against the same tokens one decode step at a time
+              (float32 activations: CHUNK_VS_STEP_F32_REL_TOL; the served
+              bf16: closer than the bf16 prefill is to the float32 one),
+              and
+              ``_wkv_chunk`` at (B 4, Tc 64, H 32, dk 64) against itself
+              in float64 (WKV_F64_REL_TOL). (c) ``--emulate``, 4 tokens:
+              8 ``logmatmul`` a layer a prefill and a step (192 a
+              prefill; the head exact), captured == eager.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -669,6 +693,32 @@ QWEN25_LAYERS = 8
 # the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
 # 16.8 M lanes, where it is no longer launch-bound
 SQRT_WORK_LANES = 1 << 24
+# phase 13: rwkv6-1.6b (src/repro_torch/configs/rwkv6_1_6b.py) served
+# whole. Its linears per layer through dense(): the time mix's r / k / v /
+# g / output and the channel mix's three, (name, K, N); all but wo take
+# float32 activations, and phase 3 holds them at QWEN3_CHECK_ROWS rows
+RWKV6 = "rwkv6-1.6b"
+RWKV6_LINEARS = (("wr", 2048, 2048), ("wk", 2048, 2048),
+                 ("wv", 2048, 2048), ("wg", 2048, 2048),
+                 ("wo", 2048, 2048), ("cm_wk", 2048, 7168),
+                 ("cm_wr", 2048, 2048), ("cm_wv", 7168, 2048))
+# (c) --emulate: 4 tokens (a prefill is ~24 x 100 ms of logmatmul), the 8
+# linears of each layer emulated, the head exact
+RWKV6_EMULATE_GEN = 4
+# (a) the chunked prefill against the decode step one token at a time over
+# a prefix of one whole chunk (the config's ssm_chunk), and _wkv_chunk at
+# full width (B 4, Tc 64, H 32, dk 64) against itself in float64
+RWKV6_PREFIX = 64
+# _wkv_chunk's float32 against float64: the same log / cumsum / exp and
+# sums of 64 products; on the CPU the port and the reference, both float32,
+# part by <= 1.5e-6 of the largest output (tests/test_torch_ssm.py,
+# WKV_REL_TOL 1e-5); the same bound here
+WKV_F64_REL_TOL = 1e-5
+# the chunked prefill against the stepwise decode at float32 activations,
+# relative to each leaf's largest value: only the recurrence's and the
+# GEMMs' grouping of float32 sums differs; measured <= 1.9e-5 on the H100
+# (24 layers), bound ~5x
+CHUNK_VS_STEP_F32_REL_TOL = 1e-4
 
 # phase 11: the MoE family at full width, depth cut to fit one card in
 # float32: mixtral-8x7b's 32 layers are 186 GB (8 layers and its two
@@ -1451,7 +1501,8 @@ def check_logmatmul(dev):
     """Every registered block vs ``logmatmul_ref``, bit for bit; at decode
     shapes also every ring depth of each skinny tile against its depth 0.
     Returns (worst abs difference, {(M, K, N): plain-version ms},
-    bit-equal (shape, block) runs at qwen3-4b's seven linears)."""
+    {arch: bit-equal (shape, block) runs} at qwen3-4b's seven linears and
+    rwkv6-1.6b's eight)."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import get_op
@@ -1517,20 +1568,24 @@ def check_logmatmul(dev):
             x, w = ints((M, K), 256), ints((K, N), 256)
             run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True,
                 depths=M == 4)
-    # qwen3-4b's seven linears (phase 10): a decode step's 4 rows, and 64
-    # standing for the prefill's 2,048 (the int64 plain version of a full
-    # prefill layer's seven linears takes ~46 s). 8-bit magnitudes: the
-    # int32 sum of the longest dot product, K = 9,728 (w2), stays under 2^31
-    require(max(k for _, k, _ in QWEN3_LINEARS) * 255 * 255
-            == INT32_SUM_BOUND < 2 ** 31, "int32 headroom at qwen3-4b's K")
-    qwen3_runs = 0
-    for M in QWEN3_CHECK_ROWS:
-        for K, N in sorted({(k, n) for _, k, n in QWEN3_LINEARS}):
-            run(f"qwen3-4b ({M},{K})@({K},{N}) w8 cb6", ints((M, K), 256),
-                ints((K, N), 256), serving, depths=M == 4)
-            qwen3_runs += len(blocks)
-    log(f"  logmatmul at qwen3-4b's seven linears: int32 sums bounded by "
-        f"255^2 x 9,728 = {INT32_SUM_BOUND:,} < 2^31")
+    # qwen3-4b's seven linears (phase 10) and rwkv6-1.6b's eight (phase
+    # 13): a decode step's 4 rows, and 64 standing for the prefill's 2,048
+    # (the int64 plain version of a full prefill layer's seven linears
+    # takes ~46 s). 8-bit magnitudes: the int32 sum of the longest dot
+    # product, K = 9,728 (qwen3-4b's w2), stays under 2^31
+    require(max(k for _, k, _ in QWEN3_LINEARS + RWKV6_LINEARS) * 255 * 255
+            == INT32_SUM_BOUND < 2 ** 31, "int32 headroom at the configs' K")
+    arch_runs = {}
+    for arch, linears in (("qwen3-4b", QWEN3_LINEARS),
+                          (RWKV6, RWKV6_LINEARS)):
+        arch_runs[arch] = 0
+        for M in QWEN3_CHECK_ROWS:
+            for K, N in sorted({(k, n) for _, k, n in linears}):
+                run(f"{arch} ({M},{K})@({K},{N}) w8 cb6", ints((M, K), 256),
+                    ints((K, N), 256), serving, depths=M == 4)
+                arch_runs[arch] += len(blocks)
+    log(f"  logmatmul at qwen3-4b's seven linears and rwkv6-1.6b's eight: "
+        f"int32 sums bounded by 255^2 x 9,728 = {INT32_SUM_BOUND:,} < 2^31")
     # decode edges: rows around the skinny tiles' 4 and 8; N = 388 takes
     # the 16-byte weight loads, N = 131 the scalar ones; K = 777 and 1001
     # are multiples of no split; zeros and INT32_MIN in both operands
@@ -1594,7 +1649,7 @@ def check_logmatmul(dev):
     log("  matmul_emul: kernel path bit-equal to the int64 plain version")
     log(f"  logmatmul skinny rings: {ring_runs} (case, tile, depth) runs "
         "equal to their depth 0")
-    return float(worst), plain_ms, qwen3_runs
+    return float(worst), plain_ms, arch_runs
 
 
 def _packed_hi_mode(gen, dev, shape, width):
@@ -2166,9 +2221,10 @@ def serve_main_path(dev):
 
 def check_prefill_replay(lm, params, prompts, what: str) -> dict:
     """One replay of the served prefill (captured before, for ``params``)
-    against the eager ``lm.prefill`` on the same prompts: logits and both
-    cache leaves ``torch.equal``, no new capture, and the replay's launches
-    exactly one eager prefill's. Returns those launches."""
+    against the eager ``lm.prefill`` on the same prompts: logits and every
+    cache leaf (k and v; the rwkv6 stack's att_x, ffn_x and state)
+    ``torch.equal``, no new capture, and the replay's launches exactly one
+    eager prefill's. Returns those launches."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
@@ -2190,14 +2246,17 @@ def check_prefill_replay(lm, params, prompts, what: str) -> dict:
     require(replay_counts == eager_counts,
             f"{what}: one replayed prefill counted {replay_counts}, one eager "
             f"prefill {eager_counts}")
+    paths = [p for p, _ in serve.cache_leaves(
+        type(lm)(lm.cfg, torch.device("meta")).empty_cache(1, 1))]
+    got, want = dict(serve.cache_leaves(got)), dict(serve.cache_leaves(want))
     require(torch.equal(got_logits, want_logits)
-            and got.keys() == want.keys() == {"k", "v"}
-            and all(torch.equal(got[k], want[k]) for k in want),
+            and list(got) == list(want) == paths
+            and all(torch.equal(got[p], want[p]) for p in want),
             f"{what}: the captured prefill's logits or cache differ from the "
             "eager lm.prefill's")
-    log(f"  {what}: captured prefill vs eager lm.prefill: logits, k and v "
-        f"torch.equal; one replay launched {replay_counts}, as one eager "
-        "prefill")
+    log(f"  {what}: captured prefill vs eager lm.prefill: logits and "
+        f"{', '.join('/'.join(p) for p in paths)} torch.equal; one replay "
+        f"launched {replay_counts}, as one eager prefill")
     return eager_counts
 
 
@@ -4325,7 +4384,8 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
-    n = lm.cfg.n_layers
+    # an attention-free stack (rwkv6) launches no attention kernel
+    n = 0 if lm.cfg.attn_free else lm.cfg.n_layers
     max_seq = PROMPT + gen
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     t0 = time.perf_counter()
@@ -4944,31 +5004,22 @@ def attention_times(dev, gen, arch, H, KV, dh, int_rate) -> dict:
     return out
 
 
-def dense_kernel_times(dev, int_rate) -> dict:
-    """Phase 10 (k): the kernels' times at qwen3-4b's serving shapes, each
-    beside its bound (phase 3 holds them at the three configurations'
-    shapes against their plain versions): ``flash_attention`` at its
-    prefill (depth 0 and the ring) beside ``scaled_dot_product_attention``
-    and its plain version, ``decode_attention`` at its step likewise, the
-    seven linears at M = 4 and 2048 (the fastest registered block each)
-    beside an exact bf16 ``torch.matmul``, and the sqrt kernel at
-    SQRT_WORK_LANES lanes."""
+def linear_times(dev, gen, arch, linears, int_rate, exact_dtype) -> dict:
+    """``logmatmul`` at one layer's ``linears`` ((name, K, N)) of ``arch``,
+    w8 cb6, timed at a step's 4 rows and a prefill's 2,048, the fastest
+    registered block each, summed over the layer beside its bound and an
+    exact ``torch.matmul`` of the same shapes in ``exact_dtype`` (what
+    the divider-only path multiplies in). Phase 3 holds the same shapes
+    bit for bit against the plain version."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import get_op
     from repro_torch.kernels import logmatmul as lmm
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    bf16 = torch.bfloat16
-    serving = SimdiveSpec(width=16, coeff_bits=6)
-    (_, H, KV, dh), = (a for a in DENSE_ATTENTION if a[0] == "qwen3-4b")
-    out = attention_times(dev, gen, "qwen3-4b", H, KV, dh, int_rate)
-
-    # logmatmul at qwen3-4b's (K, N), timed at a step's 4 rows and a
-    # prefill's 2,048
     spec8 = SimdiveSpec(width=8, coeff_bits=6)
     registered = get_op("matmul_int", spec8).entry.block_candidates
-    shapes = sorted({(k, n) for _, k, n in QWEN3_LINEARS})
+    shapes = sorted({(k, n) for _, k, n in linears})
+    exact = str(exact_dtype).split(".")[-1].replace("float", "f")
     rows = {}
     for M in (4, 2048):
         for K, N in shapes:
@@ -4981,36 +5032,58 @@ def dense_kernel_times(dev, int_rate) -> dict:
                 lambda b=b: lmm.logmatmul_cuda(x, w, spec8, b), iters=iters)
                 for b in registered}
             best = min(registered, key=by_block.get)
-            xb, wb = x.to(bf16), w.to(bf16)
+            xe, we = x.to(exact_dtype), w.to(exact_dtype)
             rows[(M, K, N)] = {
                 "ms": by_block[best], "block": list(best),
                 "ops_ms": logmatmul_ops_ms(M, K, N, int_rate),
                 "bytes_ms": (M * K + K * N + M * N) * 4
                 / HBM_BYTES_PER_S * 1e3,
-                "exact_ms": gpu_graph_time_ms(lambda: xb @ wb, iters=10)}
+                "exact_ms": gpu_graph_time_ms(lambda: xe @ we, iters=10)}
 
     def layer_sum(M, key):
-        return sum(rows[(M, k, n)][key] for _, k, n in QWEN3_LINEARS)
+        return sum(rows[(M, k, n)][key] for _, k, n in linears)
 
     layer = {}
     for M in (4, 2048):
         ops, nbytes = layer_sum(M, "ops_ms"), layer_sum(M, "bytes_ms")
         layer[M] = {"ms": layer_sum(M, "ms"),
-                    "exact_bf16_ms": layer_sum(M, "exact_ms"),
+                    f"exact_{exact}_ms": layer_sum(M, "exact_ms"),
                     "bound_ms": max(ops, nbytes),
                     "bound_by": "operations" if ops >= nbytes else "bytes",
                     "blocks": {f"{K},{N}": rows[(M, K, N)]["block"]
                                for K, N in shapes}}
-        log(f"  logmatmul, qwen3-4b's seven linears at M = {M} (the fastest "
-            f"registered block each): {layer[M]['ms']:.4f} ms, bound "
-            f"{layer[M]['bound_ms']:.4f} ms ({layer[M]['bound_by']}), exact "
-            f"bf16 torch.matmul {layer[M]['exact_bf16_ms']:.4f} ms")
-    out["logmatmul qwen3-4b"] = {
-        "shape": "one layer's 7 linears, (K, N) = (2560,4096) "
-                 "2x(2560,1024) (4096,2560) 2x(2560,9728) (9728,2560), w8 "
-                 "cb6", "check_rows": list(QWEN3_CHECK_ROWS),
-        "int32_sum_bound": INT32_SUM_BOUND,
-        "step": layer[4], "prefill": layer[2048]}
+        log(f"  logmatmul, {arch}'s {len(linears)} linears at M = {M} (the "
+            f"fastest registered block each): {layer[M]['ms']:.4f} ms, "
+            f"bound {layer[M]['bound_ms']:.4f} ms ({layer[M]['bound_by']}), "
+            f"exact {exact} torch.matmul "
+            f"{layer[M][f'exact_{exact}_ms']:.4f} ms")
+    return {"shape": f"one layer's {len(linears)} linears, (K, N) = "
+                     + " ".join(f"({k},{n})" for _, k, n in linears)
+                     + ", w8 cb6",
+            "check_rows": list(QWEN3_CHECK_ROWS),
+            "int32_sum_bound": INT32_SUM_BOUND,
+            "step": layer[4], "prefill": layer[2048]}
+
+
+def dense_kernel_times(dev, int_rate) -> dict:
+    """Phase 10 (k): the kernels' times at qwen3-4b's serving shapes, each
+    beside its bound (phase 3 holds them at the three configurations'
+    shapes against their plain versions): ``flash_attention`` at its
+    prefill (depth 0 and the ring) beside ``scaled_dot_product_attention``
+    and its plain version, ``decode_attention`` at its step likewise, the
+    seven linears at M = 4 and 2048 (the fastest registered block each)
+    beside an exact bf16 ``torch.matmul``, and the sqrt kernel at
+    SQRT_WORK_LANES lanes."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    serving = SimdiveSpec(width=16, coeff_bits=6)
+    (_, H, KV, dh), = (a for a in DENSE_ATTENTION if a[0] == "qwen3-4b")
+    out = attention_times(dev, gen, "qwen3-4b", H, KV, dh, int_rate)
+    out["logmatmul qwen3-4b"] = linear_times(
+        dev, gen, "qwen3-4b", QWEN3_LINEARS, int_rate, torch.bfloat16)
 
     # the sqrt kernel at a working size, beside its bound
     a = torch.randint(1, 1 << 16, (SQRT_WORK_LANES,), generator=gen,
@@ -5045,7 +5118,7 @@ def _drop_served_graphs() -> None:
 
 
 def served_generate(dev, arch, *, n_layers=None) -> dict:
-    """Phases 10 (a), (c), (d), 11 (a), (b) and 12 (a), (b): ``arch`` at
+    """Phases 10 (a), (c), (d), 11 (a), (b), 12 (a), (b) and 13 (a): ``arch`` at
     its published widths (depth cut to ``n_layers`` when given), random
     weights from SEED, batch 4, prompt 512 (a codebook config's prompts
     (4, 512, C)), 32 greedy tokens, ``--approx simdive``: the
@@ -5057,7 +5130,9 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
     equal to the eager one); the logits against the same config on the
     plain versions — within :func:`ulp_logit_tol` over UNTIED_LOGIT_RANGE
     with the decided tokens equal, or for an MoE config
-    :func:`routed_logits`; :func:`peaks_and_times`; where one step's card
+    :func:`routed_logits` (an attention-free config launches no kernel
+    here, so its plain versions run the same computation: none);
+    :func:`peaks_and_times`; where one step's card
     time goes (:func:`step_breakdown`). Returns the results and, under
     "params" / "prompts", what an ``--emulate`` run reuses."""
     import numpy as np
@@ -5111,6 +5186,8 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
     ref_lm = build(replace(cfg, approx=replace(cfg.approx, backend="ref")))
     if cfg.n_experts:
         judged = routed_logits(lm, ref_lm, params, prompts, run)
+    elif cfg.attn_free:
+        judged = {}
     else:
         ref_all = plain_logits(ref_lm, params, prompts, run["tokens"])
         tol, top = ulp_logit_tol(arch, ref_all, UNTIED_LOGIT_RANGE)
@@ -5140,9 +5217,11 @@ def graphs_held(lm, params, prompts) -> dict:
     prefill_held = reserved_bytes() - reserved
     reserved = reserved_bytes()
     own = serve.merge_cache(step.empty_cache(BATCH, PROMPT + GEN), pre)
-    require(own["k"].shape[2] == min(PROMPT + GEN, lm.cfg.sliding_window
-                                     or PROMPT + GEN),
-            f"{lm.cfg.name}: a serving cache of {own['k'].shape[2]} slots")
+    if "k" in own:             # a K/V cache (the rwkv6 stack's has no seq)
+        require(own["k"].shape[2] == min(PROMPT + GEN, lm.cfg.sliding_window
+                                         or PROMPT + GEN),
+                f"{lm.cfg.name}: a serving cache of {own['k'].shape[2]} "
+                "slots")
     step(params, own, lg.argmax(-1), PROMPT)
     torch.cuda.synchronize()
     step_held = reserved_bytes() - reserved
@@ -5608,6 +5687,154 @@ def modality_family_phase(dev, int_rate) -> dict:
     return out
 
 
+# ------------------------------------------- phase 13: the rwkv6 stack --
+def wkv_against_f64(dev, gen) -> dict:
+    """Phase 13 (a): ``_wkv_chunk`` at full width (B 4, Tc RWKV6_PREFIX,
+    H 32, dk 64) from a nonzero state, decays ``exp(-exp(u))`` with u in
+    (-6, 0.5) (0.19-0.9975, as the CPU test draws them), against itself on
+    the same inputs in float64: the largest |difference| of the outputs
+    and of the new state over the largest |float64 value|, under
+    WKV_F64_REL_TOL."""
+    import torch
+    from repro_torch.models import ssm
+
+    B, Tc, H, dk = BATCH, RWKV6_PREFIX, 32, 64
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    state = torch.randn((B, H, dk, dk), generator=gen, device=dev)
+    r, k, v = (torch.randn((B, Tc, H, dk), generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(uniform((B, Tc, H, dk), -6.0, 0.5)))
+    u = uniform((H, dk), -0.5, 0.5)
+    args = (state, r, k, v, w, u)
+    got = ssm._wkv_chunk(*args)
+    want = ssm._wkv_chunk(*(t.double() for t in args))
+    rel = {name: float((g.double() - ww).abs().max() / ww.abs().max())
+           for name, g, ww in zip(("state", "y"), got, want)}
+    log(f"  _wkv_chunk (B {B}, Tc {Tc}, H {H}, dk {dk}) float32 vs float64 "
+        f"on the card: largest |difference| over the largest |value| "
+        f"{rel} (bound {WKV_F64_REL_TOL:g})")
+    require(all(got[i].dtype == torch.float32 for i in (0, 1))
+            and max(rel.values()) <= WKV_F64_REL_TOL,
+            f"_wkv_chunk float32 parts from float64 by {rel}")
+    return rel
+
+
+def chunk_vs_step(dev, params, prompts) -> dict:
+    """Phase 13 (a): the eager prefill of rwkv6-1.6b over the prompts'
+    first RWKV6_PREFIX tokens (one whole chunk) against the same tokens
+    fed one at a time through the eager decode step from a zero cache: for
+    each cache leaf and the last logits, the largest |difference| over the
+    largest |prefill value|. At float32 activations only the grouping of
+    float32 sums differs: under CHUNK_VS_STEP_F32_REL_TOL. At the served
+    bf16 activations both round the residual stream, the token shifts and
+    the output projection's inputs to bf16, and 24 layers carry each
+    rounding on: the two must stay closer to each other than the bf16
+    prefill is to the float32 one (the served dtype's own distance from
+    float32 serving, measured alongside)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    toks = prompts[:, :RWKV6_PREFIX]
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        lm = build(replace(serve.serving_config(RWKV6, approx="simdive"),
+                           dtype=dtype))
+        logits, cache = lm.prefill(params, {"tokens": toks})
+        stepped = lm.empty_cache(BATCH, RWKV6_PREFIX)
+        for i in range(RWKV6_PREFIX):
+            step_logits, _ = lm.decode_step(params, stepped, toks[:, i], i)
+        runs[dtype] = [{"/".join(p): t.float() for p, t in
+                        serve.cache_leaves({**c, "logits": lg})}
+                       for c, lg in ((cache, logits),
+                                     (stepped, step_logits))]
+
+    def rel(want, got):
+        return {k: float((got[k] - a).abs().max() / a.abs().max())
+                for k, a in want.items()}
+
+    out = {"float32": rel(*runs["float32"]),
+           "bfloat16": rel(*runs["bfloat16"]),
+           "bfloat16_prefill_vs_float32": rel(runs["float32"][0],
+                                              runs["bfloat16"][0])}
+    for key, val in out.items():
+        what = "the bf16 prefill vs the float32 one" if "prefill" in key \
+            else (f"{key}: the prefill over {RWKV6_PREFIX} tokens vs the "
+                  "same tokens one decode step at a time")
+        log(f"  {RWKV6} {what}, largest |difference| over the largest "
+            f"|value|: {val}")
+    noise = max(out["bfloat16_prefill_vs_float32"].values())
+    require(max(out["float32"].values()) <= CHUNK_VS_STEP_F32_REL_TOL,
+            f"{RWKV6} float32: chunked prefill and stepwise decode part by "
+            f"{out['float32']} > {CHUNK_VS_STEP_F32_REL_TOL}")
+    require(max(out["bfloat16"].values()) <= noise,
+            f"{RWKV6} bfloat16: chunked prefill and stepwise decode part by "
+            f"{out['bfloat16']}, more than the bf16 prefill from the float32 "
+            f"one ({noise})")
+    return out
+
+
+def rwkv6_phase(dev, int_rate) -> dict:
+    """Phase 13: rwkv6-1.6b whole, after every earlier model's graphs are
+    dropped. (k) ``logmatmul`` at its eight linears' shapes beside their
+    bound and an exact float32 ``torch.matmul`` (phase 3 holds them bit
+    for bit); (a) divider-only (:func:`served_generate`: no SIMDive kernel
+    launches), the chunked prefill against the stepwise decode
+    (:func:`chunk_vs_step`) and the WKV chunk against float64
+    (:func:`wkv_against_f64`); (c) ``--emulate``, RWKV6_EMULATE_GEN
+    tokens: 8 ``logmatmul`` a layer a prefill and a step, the head exact,
+    captured == eager. Float32 matmuls must run at full precision (no
+    TF32): seven of the eight linears multiply float32 activations."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.model import LM
+
+    _drop_served_graphs()
+    require(torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "float32 matmuls are not at full precision (TF32 is on)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {"kernels": {f"logmatmul {RWKV6}": linear_times(
+        dev, gen, RWKV6, RWKV6_LINEARS, int_rate, torch.float32)}}
+    cfg = serve.serving_config(RWKV6, approx="simdive")
+    cache_bytes = {"/".join(p): t.numel() * t.element_size()
+                   for p, t in serve.cache_leaves(LM(
+                       cfg, torch.device("meta")).empty_cache(BATCH, 1))}
+    log(f"  (a) {RWKV6} whole ({cfg.n_layers} layers), --approx simdive; "
+        f"its serving cache {cache_bytes} bytes, no seq axis")
+    a = served_generate(dev, RWKV6)
+    require(not any(a["counts"].values()),
+            f"{RWKV6} divider-only launched {a['counts']}")
+    log(f"  {RWKV6}: no SIMDive kernel launched ({a['counts']})")
+    a["cache_bytes"] = cache_bytes
+    a["chunk_vs_step"] = chunk_vs_step(dev, a["params"], a["prompts"])
+    a["wkv_f64"] = wkv_against_f64(dev, gen)
+    params, prompts = a.pop("params"), a.pop("prompts")
+    out[RWKV6] = a
+    _drop_served_graphs()
+    log(f"  (c) {RWKV6} --emulate, {RWKV6_EMULATE_GEN} tokens")
+    ecfg = serve.serving_config(RWKV6, approx="simdive", emulate=True)
+    require(ecfg.approx.emulate and ecfg.approx.width == 8,
+            "not the --emulate serving config")
+    run = policy_generate(dev, build(ecfg), params, prompts,
+                          f"{RWKV6} --emulate",
+                          linears=len(RWKV6_LINEARS) * ecfg.n_layers,
+                          gen=RWKV6_EMULATE_GEN)
+    log(f"  {RWKV6} --emulate: first generate (autotune, captures) "
+        f"{run['first_generate_s']:.1f}s, captured generate of "
+        f"{RWKV6_EMULATE_GEN} tokens {run['generate_s'] * 1e3:.1f} ms")
+    out[f"{RWKV6} --emulate"] = dict(
+        counts=run["counts"], gen=RWKV6_EMULATE_GEN,
+        first_generate_s=run["first_generate_s"],
+        generate_captured_ms=run["generate_s"] * 1e3)
+    del params, prompts, run
+    _drop_served_graphs()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5629,13 +5856,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/12] device: {card} | torch {torch.__version__} "
+    log(f"[1/13] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/12] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/13] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -5652,16 +5879,16 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/12] kernels vs plain versions")
+    log("[3/13] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
     da_errs = check_decode_attention(dev)
-    mm_err, mm_plain_ms, mm_qwen3_runs = check_logmatmul(dev)
+    mm_err, mm_plain_ms, mm_arch_runs = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/12] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/13] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -5674,7 +5901,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/12] times")
+    log("[5/13] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -5695,24 +5922,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/12] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/13] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/12] faults: every kernel under each armed site, captured graphs, "
+    log("[7/13] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/12] policy: build_policy / select_config on the card, a "
+    log("[8/13] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/12] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/13] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -5726,23 +5953,29 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/12] the dense family at full width: (k) the kernels' times "
+    log("[10/13] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/12] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
+    log("[11/13] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
         "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/12] the modality-stub families at full width, nothing cut: (k) "
+    log("[12/13] the modality-stub families at full width, nothing cut: (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
+
+    starts[13] = time.perf_counter() - t_start
+    log("[13/13] rwkv6-1.6b whole at full width: (k) logmatmul at its "
+        "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
+        "the recurrent cache through both graphs), (c) --emulate")
+    rwkv6 = rwkv6_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -5833,7 +6066,8 @@ def main(argv=None) -> int:
                           (f"decode_attention {arch}", da_errs)):
             dense_rows[key] = {**errs["archs"][arch],
                                **dense_rows.get(key, {})}
-    dense_rows["logmatmul qwen3-4b"]["bit_equal_runs"] = mm_qwen3_runs
+    dense_rows["logmatmul qwen3-4b"]["bit_equal_runs"] = \
+        mm_arch_runs["qwen3-4b"]
     for kern, names, keys in (
             (by_name["flash_attention"], ("attention",),
              [f"attention {a}" for a, *_ in DENSE_ATTENTION]),
@@ -5882,6 +6116,27 @@ def main(argv=None) -> int:
         for arch, *_ in (MODALITY_ATTENTION if errs is not None else ()):
             key = f"{name} {arch}"
             kern[key] = {**errs["archs"][arch], **modality_rows[key]}
+    # phase 13: the launches of (a) and (c) together, zeroed just before
+    # each counted generate and read just after (none but (c)'s
+    # logmatmul); logmatmul at rwkv6-1.6b's linears: phase 3's bit-equal
+    # runs and phase 13's times
+    rwkv6_counts = [rwkv6[r]["counts"] for r in (RWKV6, f"{RWKV6} --emulate")]
+    rwkv6_rows = rwkv6["kernels"]
+    rwkv6_rows[f"logmatmul {RWKV6}"]["bit_equal_runs"] = mm_arch_runs[RWKV6]
+    for kern, names, keys in (
+            (by_name["flash_attention"], ("attention",), []),
+            (by_name["flash_attention_pipelined"], ("attention_pipelined",),
+             []),
+            (by_name["decode_attention"], ("decode_attention",), []),
+            (by_name["logmatmul"], ("matmul",), [f"logmatmul {RWKV6}"]),
+            (by_name["logmatmul_pipelined"], ("matmul_pipelined",), []),
+            (by_name["elemwise"], ("elemwise",), []),
+            (by_name["packed"], ("packed",), []),
+            (by_name["sqrt"], ("sqrt",), [])):
+        kern["launches_rwkv6"] = sum(c[n] for c in rwkv6_counts
+                                     for n in names)
+        for key in keys:
+            kern[key] = rwkv6_rows[key]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -5893,14 +6148,14 @@ def main(argv=None) -> int:
         log(f"  {key}: {val:.4f}")
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
                      *arith.items(), *dense.items(), *moe.items(),
-                     *modality.items()):
+                     *modality.items(), *rwkv6.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-12) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-13) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5917,7 +6172,7 @@ def main(argv=None) -> int:
             "faults": faults, "policy": policy,
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "dense_family": dense, "moe_family": moe,
-            "modality_family": modality,
+            "modality_family": modality, "rwkv6": rwkv6,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -11,6 +11,10 @@ bit-exact SIMDive linears: every linear of every layer (seven a layer, in
 the prefill and in each decode step) runs the ``logmatmul`` kernel.
 ``--quantize`` swaps the linear weights for int8 ``QuantizedWeight``s;
 with ``--emulate`` their magnitudes feed the emulated matmul directly.
+rwkv6-1.6b (family ``ssm``) has no attention: divider-only it runs no
+SIMDive kernel, ``--emulate`` sends its eight linears a layer through
+``logmatmul``, and its serving cache is the recurrent carry (a nested
+dict, :func:`cache_leaves`) that both graphs update in place.
 
 The prompt is served through one prefill (:func:`make_prefill`, the
 reference's jitted ``LM.prefill``) and every token through one step
@@ -109,24 +113,54 @@ def quantize_params(params: dict) -> dict:
 
 
 # ---------------------------------------------------------------- caches --
+def cache_leaves(cache: dict, path: tuple = ()):
+    """``(path, tensor)`` for every leaf of a (nested) cache dict, in key
+    order: ``(('k',), ...)`` for an attention stack's, ``(('ssm',
+    'state'), ...)`` for the rwkv6 stack's."""
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            yield from cache_leaves(val, path + (key,))
+        else:
+            yield path + (key,), val
+
+
+def _keystr(path: tuple) -> str:
+    return "".join(f"['{k}']" for k in path)
+
+
+def _recurrent(cache: dict) -> bool:
+    return any(isinstance(v, dict) for v in cache.values())
+
+
 def merge_cache(full: dict, cache: dict) -> dict:
     """Embed a prompt-length prefill cache into a max_seq serving cache.
 
-    Every leaf is written **in place** into ``full``'s buffers, which come
-    back as the merged cache: an equal-shape leaf is copied whole, a
-    longer-seq destination leaf takes the prefill slab at the front of axis
-    2 (the stacked caches' seq axis). So a captured decode step that owns
+    Every leaf of the (nested) tree is written **in place** into ``full``'s
+    buffers, which come back as the merged cache: an equal-shape leaf is
+    copied whole (the rwkv6 stack's token shifts and state), a longer-seq
+    destination leaf takes the prefill slab at the front of axis 2 (the
+    stacked K/V caches' seq axis). So a captured decode step that owns
     ``full``'s buffers serves the merged cache. Anything else raises with
-    the leaf path — a cache-layout drift must fail loudly, not serve an
-    empty cache and generate garbage.
+    the leaf path (``['k']``, ``['ssm']['state']``) — a cache-layout drift
+    must fail loudly, not serve an empty cache and generate garbage.
     """
-    if set(full) != set(cache):
-        raise ValueError(f"unmergeable cache: leaves {sorted(cache)} do not "
-                         f"match the serving cache's {sorted(full)}")
+    return _merge(full, cache, ())
+
+
+def _merge(full: dict, cache: dict, path: tuple) -> dict:
+    if set(full) != set(cache) or any(
+            isinstance(full[k], dict) != isinstance(cache[k], dict)
+            for k in full):
+        raise ValueError(
+            f"unmergeable cache{' at ' + _keystr(path) if path else ''}: "
+            f"leaves {sorted(cache)} do not match the serving cache's "
+            f"{sorted(full)}")
     out = {}
     for key, dst in full.items():
         src = cache[key]
-        if src.shape == dst.shape:
+        if isinstance(dst, dict):
+            out[key] = _merge(dst, src, path + (key,))
+        elif src.shape == dst.shape:
             out[key] = dst.copy_(src)
         elif (dst.ndim >= 3 and src.ndim == dst.ndim
                 and dst.shape[:2] == src.shape[:2]
@@ -136,11 +170,17 @@ def merge_cache(full: dict, cache: dict) -> dict:
             out[key] = dst
         else:
             raise ValueError(
-                f"unmergeable cache leaf ['{key}']: prefill "
+                f"unmergeable cache leaf {_keystr(path + (key,))}: prefill "
                 f"{tuple(src.shape)} does not embed into serving cache "
                 f"{tuple(dst.shape)} (cache layout drift between prefill "
                 "and empty_cache?)")
     return out
+
+
+def _copy_tree(cache: dict) -> dict:
+    """A new (nested) dict holding ``cache``'s own tensors."""
+    return {k: _copy_tree(v) if isinstance(v, dict) else v
+            for k, v in cache.items()}
 
 
 def insert_cache(full: dict, pre: dict, slots) -> dict:
@@ -151,7 +191,12 @@ def insert_cache(full: dict, pre: dict, slots) -> dict:
     ``[0, full's rows)`` (a padding row) is dropped. It runs eagerly,
     outside any graph, so the captured decode steps that serve ``full``'s
     buffers see the admission. A leaf that does not embed raises with its
-    path. Returns ``full``."""
+    path; a recurrent cache (the rwkv6 stack's, which has no seq axis and
+    which the reference's scheduler refuses) raises. Returns ``full``."""
+    if _recurrent(full) or _recurrent(pre):
+        raise ValueError(
+            "insert_cache serves the attention family's (L, B, S, ...) "
+            "caches; a recurrent cache has no per-slot seq axis")
     if set(full) != set(pre):
         raise ValueError(f"unmergeable cache: leaves {sorted(pre)} do not "
                          f"match the serving cache's {sorted(full)}")
@@ -230,9 +275,16 @@ class _Captured:
         capture stream. The eager run does every first-use job outside the
         capture (nvcc, the block autotune, table uploads, launch setup) and
         counts its launches; the capture's launches are taken back, since a
-        capture launches nothing. A capture that fails raises."""
+        capture launches nothing. A capture that fails raises. The tensors
+        of :meth:`advanced` are put back as they were before the eager run,
+        so that the replay which follows the capture is the call's one
+        run."""
         self.graph = self.out = None           # free the stale graph's pool
+        saved = [(t, t.clone()) for t in self.advanced()]
         body()
+        for t, before in saved:
+            t.copy_(before)
+        del saved
         generation = autotune_generation()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
@@ -246,6 +298,11 @@ class _Captured:
         self.graph, self.out, self.launches = graph, out, captured
         self.params, self.leaves = params, _leaves(params)
         self.generation = generation
+
+    def advanced(self) -> list:
+        """The buffers a run of the body moves on, which a second run does
+        not write again with the same values: none here."""
+        return []
 
     def replay(self):
         """Replay the graph and add its launches; returns what the captured
@@ -271,9 +328,19 @@ class _Slot(_Captured):
                                dtype=torch.int64, device=lm.device)
         self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
 
+    def advanced(self) -> list:
+        """A recurrent cache's leaves (the rwkv6 token shifts and state):
+        a step moves them on from what it read, where a K/V step rewrites
+        its slot with the same values."""
+        if not _recurrent(self.cache):
+            return []
+        return [buf for _, buf in cache_leaves(self.cache)]
+
     def owns(self, cache: dict) -> bool:
-        return cache.keys() == self.cache.keys() and all(
-            cache[k] is buf for k, buf in self.cache.items())
+        """Whether every leaf of ``cache`` is this slot's own buffer."""
+        mine, theirs = (list(cache_leaves(c)) for c in (self.cache, cache))
+        return len(mine) == len(theirs) and all(
+            p == q and a is b for (p, a), (q, b) in zip(mine, theirs))
 
 
 class _GraphFn:
@@ -315,7 +382,8 @@ class DecodeStep(_GraphFn):
     block autotune cache was cleared or preloaded since
     (:func:`~repro_torch.kernels.registry.autotune_generation`). A capture
     first runs the step once eagerly at the same shapes, which builds the
-    kernels, times the blocks, uploads the tables and counts its launches;
+    kernels, times the blocks, uploads the tables and counts its launches
+    (a recurrent cache, which that run moves on, is put back after it);
     then the capture, whose launches the counts give back, and the replay,
     which adds them (:func:`~repro_torch.kernels.registry.add_launches`).
     A capture that fails raises; the step never runs eagerly instead.
@@ -341,9 +409,9 @@ class DecodeStep(_GraphFn):
             slot = self._slots[batch_size, max_seq] = _Slot(
                 self.lm, batch_size, max_seq)
         else:
-            for buf in slot.cache.values():
+            for _, buf in cache_leaves(slot.cache):
                 buf.zero_()
-        return dict(slot.cache)
+        return _copy_tree(slot.cache)
 
     def adopt_cache(self, cache: dict) -> dict:
         """Serve ``cache``'s own buffers from now on: on the GPU the step's
@@ -353,9 +421,15 @@ class DecodeStep(_GraphFn):
         models' steps — the scheduler's rungs — replay on one cache, which
         the caller writes between calls (:func:`insert_cache`). A cache
         whose leaves are not this model's serving cache on its device
-        raises. On the CPU a step takes any cache, and this does nothing.
+        raises, and so does a recurrent cache (the rwkv6 stack's: the
+        scheduler serves the attention family alone), on either device.
+        On the CPU a step takes any other cache, and this does nothing.
         Returns ``cache``."""
         lm = self.lm
+        if _recurrent(cache):
+            raise ValueError(
+                "adopt_cache serves the scheduler's attention-family cache; "
+                "a recurrent cache has no per-slot seq axis")
         if lm.device.type != "cuda":
             return cache
         k = cache.get("k")
@@ -389,7 +463,7 @@ class DecodeStep(_GraphFn):
         """The cache buffers the step's ``(batch_size, max_seq)`` slot
         serves (None on the CPU or before the slot exists)."""
         slot = self._slots.get((batch_size, max_seq))
-        return None if slot is None else dict(slot.cache)
+        return None if slot is None else _copy_tree(slot.cache)
 
     def __call__(self, params, cache, tok, pos):
         lm = self.lm
@@ -550,7 +624,8 @@ def measure_generate(lm, params, prompts, max_seq: int, gen: int, *,
     logits, cache = prefill(params, {"tokens": prompts})
     cache = merge_cache(step.empty_cache(B, max_seq), cache)
     tok = torch.argmax(logits, -1)
-    # the step rewrites slot P with the same values: re-runnable as is
+    # the step rewrites slot P with the same values (a recurrent state
+    # moves on each call, through the same work): re-runnable as is
     step_t = time_callable(step, params, cache, tok, P,
                            iters=max(iters, 5), items=B, device=lm.device)
     return tokens, e2e, step_t

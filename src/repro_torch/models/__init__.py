@@ -1,4 +1,4 @@
-"""repro_torch.models — the decoder (dense attention family so far)."""
+"""repro_torch.models — the decoder: attention stacks and the rwkv6 stack."""
 from .model import LM, build
 
 __all__ = ["LM", "build"]

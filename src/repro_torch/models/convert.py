@@ -25,7 +25,8 @@ __all__ = ["params_from_reference"]
 def _expected_shapes(cfg: ModelConfig) -> dict:
     """Every leaf's path and shape: the tree ``LM.init`` makes for ``cfg``
     (an MoE config has ``moe/*`` leaves in place of ``mlp/*``, a gelu MLP
-    no ``w3``; ``C = max(n_codebooks, 1)`` embedding tables and heads)."""
+    no ``w3``, an rwkv6 config the RWKV6 layer's leaves;
+    ``C = max(n_codebooks, 1)`` embedding tables and heads)."""
     D, C = cfg.d_model, max(cfg.n_codebooks, 1)
     norm = (("w",), ("b",)) if cfg.norm == "layernorm" else (("w",),)
     shapes = {("embed",): (C, cfg.vocab_size, D)}
@@ -55,7 +56,7 @@ def params_from_reference(tree, cfg: ModelConfig,
     A leaf with ``q`` and ``scale`` (the reference's ``QuantizedWeight``)
     is carried over as int8 ``q`` and float32 ``scale``, not cast. Raises
     ``ValueError`` naming the leaf when the tree does not have exactly the
-    leaves and shapes the port's attention stack expects for ``cfg`` (an
+    leaves and shapes the port's stack expects for ``cfg`` (an
     MoE tree for a dense config, a shared expert ``cfg`` does not have, or
     a bias or norm leaf it does not have, is refused, not partly
     loaded).

@@ -5,7 +5,9 @@ Counterpart of ``repro.models.model`` for serving (``train_loss`` and
 dict of tensors with the reference's tree: ``embed (C,V,D)``,
 ``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w`` (and ``.b``
 under LayerNorm), ``head (C,D,V)`` when the embeddings are not tied, where
-``C = max(n_codebooks, 1)``.
+``C = max(n_codebooks, 1)``. The decode cache is an attention stack's
+stacked K/V (``{"k", "v"}``, ``(L,B,S,KV,dh)``) or the rwkv6 stack's
+recurrent carry (``{"ssm": {"att_x", "ffn_x", "state"}}``, no seq axis).
 
 Batch dict convention (fields past ``tokens`` optional):
   tokens       (B,S) int64               [(B,S,C) for codebooks]
@@ -159,7 +161,8 @@ class LM:
         drives all three coordinates, as in the reference.
 
         Returns (logits (B,V) [(B,C,V)], cache): the cache is updated **in
-        place** (one token per layer) and returned.
+        place** (one token per layer; the rwkv6 stack's token shifts and
+        state overwritten in their buffers) and returned.
         """
         cfg = self.cfg
         B = tokens.shape[0]

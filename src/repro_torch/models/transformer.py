@@ -1,18 +1,23 @@
-"""Decoder assembly: blocks, the layer loop, KV caches (attention family).
+"""Decoder assembly: blocks, the layer loop, decode caches.
 
-Counterpart of ``repro.models.transformer`` for dense attention stacks.
-Per-layer parameters stay stacked with a leading L axis, as the reference
-keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
-``lax.scan`` over that axis is a Python loop here, indexing views. Caches
-for decode are dicts of stacked ``(L, B, S, KV, dh)`` tensors.
+Counterpart of ``repro.models.transformer`` for attention stacks and the
+rwkv6 stack. Per-layer parameters stay stacked with a leading L axis, as
+the reference keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``);
+the reference's ``lax.scan`` over that axis is a Python loop here, indexing
+views. An attention stack's decode cache is a dict of stacked ``(L, B, S,
+KV, dh)`` tensors; the rwkv6 stack's is the recurrent carry stacked over
+layers, ``{"ssm": {"att_x" (L,B,D), "ffn_x" (L,B,D), "state" (L,B,H,dk,dk)
+float32}}``, with no seq axis.
 
 The dense family's features are built: qk-norm (qwen3), qkv biases
 (qwen2.5, stablelm), LayerNorm and partial rotary (stablelm); the MoE
 family's block (:mod:`repro_torch.models.moe`, mixtral and llama4-scout),
 which takes the MLP's place; and the modality-stub families' (qwen2-vl's
 M-RoPE, musicgen's gelu MLP; their sinusoidal positions, codebooks and
-vision stub live in :mod:`repro_torch.models.model`). SSM and hybrid
-stacks are not ported yet.
+vision stub live in :mod:`repro_torch.models.model`); and the family
+``ssm`` stack of RWKV6 blocks (:mod:`repro_torch.models.ssm`, rwkv6-1.6b).
+The hybrid stack (zamba2: Mamba2 blocks and a shared attention block) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -35,15 +40,16 @@ from .layers import (
     uniform_,
 )
 from .moe import moe_ffn, moe_leaves
+from .ssm import rwkv6_block, rwkv6_empty_carry, rwkv6_leaves
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for architecture features the port does not build yet: the
-    recurrent families, experts outside an MoE stack, and activations or
+    hybrid family, experts outside an MoE stack, and activations or
     position embeddings the reference does not have either."""
     missing = [name for name, on in (
         ("family " + cfg.family,
-         cfg.family not in ("dense", "moe", "vlm", "audio")),
+         cfg.family not in ("dense", "moe", "vlm", "audio", "ssm")),
         ("n_experts", bool(cfg.n_experts) and cfg.family != "moe"),
         ("act " + cfg.act, cfg.act not in ("swiglu", "gelu")),
         ("pos_emb " + cfg.pos_emb, cfg.pos_emb not in ("rope", "sin")),
@@ -53,13 +59,21 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
+def _rwkv6_heads(cfg: ModelConfig) -> int:
+    """The rwkv6 stack's heads: the reference sizes them by d_head."""
+    return cfg.d_model // cfg.d_head
+
+
 # ------------------------------------------------------------------- init --
 def _layer_leaves(cfg: ModelConfig):
     """One layer's leaves ``(path, shape, init)`` in the reference's tree
     and in the order their random draws are made; ``init`` is a fan-in
-    (uniform(+-fan_in^-0.5)), ``"ones"`` (norm gains) or ``"zeros"``
-    (biases)."""
+    (uniform(+-fan_in^-0.5)), ``"ones"`` (norm gains), ``"zeros"``
+    (biases), or for the rwkv6 layer ``("limit", lim)`` (uniform(+-lim))
+    and ``("full", value)`` (a constant)."""
     H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    if cfg.family == "ssm":
+        return rwkv6_leaves(D, _rwkv6_heads(cfg), cfg.d_ff)
     norm = [("w", "ones")] + ([("b", "zeros")] if cfg.norm == "layernorm"
                               else [])
     leaves = [(("ln_attn", k), (D,), how) for k, how in norm]
@@ -91,13 +105,18 @@ def _fill(t: torch.Tensor, init, gen: torch.Generator) -> torch.Tensor:
         return t.fill_(1)
     if init == "zeros":
         return t.zero_()
+    if isinstance(init, tuple):
+        how, val = init
+        # ("limit", lim) is uniform(+-lim): the fan-in lim^-2
+        return t.fill_(val) if how == "full" else uniform_(t, val ** -2, gen)
     return uniform_(t, init, gen)
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     """Stacked per-layer params (leading L axis): uniform(+-fan_in^-0.5)
     linears (an MoE block's experts and router too), unit norms, zero
-    biases — the reference's distributions and tree; the random streams
+    biases, and the rwkv6 layer's own limits and constants — the
+    reference's distributions and tree; the random streams
     differ. Each stacked leaf is allocated once and filled layer by layer
     in :func:`_layer_leaves`' order: the values a ``torch.stack`` of
     whole per-layer draws gives, without a second copy of the
@@ -265,10 +284,24 @@ def _write_token(buf, i, at, new):
 
 def stack_prefill(params, x, cfg: ModelConfig, positions):
     """Full-sequence forward that also returns the decode cache: per-layer
-    K/V stacked (L,B,S,KV,dh), cache seq length == S."""
+    K/V stacked (L,B,S,KV,dh), cache seq length == S; for the rwkv6 stack
+    each layer's final recurrent carry, stacked (each layer starts from a
+    zero carry, and runs ``cfg.approx`` whole: no policy segments, as in
+    the reference)."""
     _check_ported(cfg)
     if cfg.n_layers == 0:
         return x, empty_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
+    if cfg.family == "ssm":
+        H = _rwkv6_heads(cfg)
+        carry0 = rwkv6_empty_carry(x.shape[0], cfg.d_model, H, x.dtype,
+                                   x.device)
+        carries = []
+        for i in range(cfg.n_layers):
+            x, c = rwkv6_block(layer_params(params["layers"], i), x, carry0,
+                               H, cfg.ssm_chunk, cfg.approx)
+            carries.append(c)
+        return x, {"ssm": {k: torch.stack([c[k] for c in carries])
+                           for k in carry0}}
     ks, vs = [], []
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
@@ -282,9 +315,14 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
 
 # ----------------------------------------------------------------- caches --
 def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
-    """Decode cache dict (stacked over layers)."""
+    """Decode cache dict (stacked over layers); zeros, each leaf its own
+    buffer (the decode step writes them in place)."""
     _check_ported(cfg)
     KV, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+    if cfg.family == "ssm":
+        c = rwkv6_empty_carry(batch, cfg.d_model, _rwkv6_heads(cfg), dtype,
+                              device)
+        return {"ssm": {k: a.new_zeros((L,) + a.shape) for k, a in c.items()}}
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     return {
         "k": torch.zeros((L, batch, S, KV, dh), dtype=dtype, device=device),
@@ -294,9 +332,20 @@ def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
 
 def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
     """One-token decode through the stack. x: (B,1,D). Writes one token
-    per layer into ``cache`` in place and returns it."""
+    per layer into ``cache`` in place and returns it: a K/V slot, or the
+    rwkv6 layer's new carry (a chunk of one token, as the reference's
+    step), copied over the old one after the layer has read it."""
     _check_ported(cfg)
     if cfg.n_layers == 0:
+        return x, cache
+    if cfg.family == "ssm":
+        H, st = _rwkv6_heads(cfg), cache["ssm"]
+        for i in range(cfg.n_layers):
+            x, c = rwkv6_block(layer_params(params["layers"], i), x,
+                               {k: a[i] for k, a in st.items()}, H, 1,
+                               cfg.approx)
+            for k, a in st.items():
+                a[i].copy_(c[k])
         return x, cache
     kc, vc = cache["k"], cache["v"]
     at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
