@@ -29,8 +29,10 @@ any phase fails. Phases:
               family's, mixtral's G 4 with its 4096 window and
               llama4-scout's G 5, and the modality-stub families',
               qwen2-vl-2b's (48,512,128) / (8,512,128) G 6 and
-              musicgen-medium's (96,512,64) G 1; bf16 at the
-              tensor-core fragments' edges: Sq and Skv
+              musicgen-medium's (96,512,64) G 1, and the hybrid
+              family's, zamba2-2.7b's (128,512,80) G 1 in bf16 and f32
+              (d_head 80; the general cases at d_head 64, 80 and 128);
+              bf16 at the tensor-core fragments' edges: Sq and Skv
               not multiples of 16 or 8, one q row at a q_offset, scores
               of large magnitude), its ``cp.async``-ring schedule at every
               depth the wrapper accepts for each case bit-equal to the
@@ -54,7 +56,10 @@ any phase fails. Phases:
               the MoE family's (mixtral's ``ring_full`` over its
               544-slot ring, also at per-row positions past the wrap)
               and the modality-stub families' (qwen2-vl's G 6 at cluster
-              8, musicgen's 24 kv heads at cluster 2),
+              8, musicgen's 24 kv heads at cluster 2), zamba2-2.7b's
+              (4, 32, 1, 80) over 544 slots at pos 527 with and without
+              the SIMDive divide and over 2,048 slots at pos 2047 (d_head
+              80: a row's 16-byte pieces on 10 or 20 of a warp's lanes),
               and the
               scheduler drill's per-row positions with an idle row at 0
               at the shed rung's Mitchell divider and the recovery rung's
@@ -73,7 +78,9 @@ any phase fails. Phases:
               multiple of 4; K not a multiple of the split; w and x 4 bytes
               off a 16-byte boundary; (9, 2560) @ (2560, 960), which needs
               the launch to opt in to more than 48 KB of shared memory;
-              width-16 wrapping sums at M = 4), where every ring
+              width-16 wrapping sums at M = 4), zamba2-2.7b's seven
+              (K, N) — its Mamba2 layer's and its shared block's
+              linears — at M = 4 and 2048, where every ring
               depth 1..4 of each skinny tile must also be ``torch.equal`` to
               its depth 0; ``matmul_emul`` bit-equal to its int64 plain
               version where int32 cannot overflow; ``packed`` (4 x 8-bit /
@@ -415,6 +422,32 @@ any phase fails. Phases:
               in float64 (WKV_F64_REL_TOL). (c) ``--emulate``, 4 tokens:
               8 ``logmatmul`` a layer a prefill and a step (192 a
               prefill; the head exact), captured == eager.
+14. zamba2 — after phase 13's models are dropped, zamba2-2.7b whole (54
+              Mamba2 layers, d_model 2,560, d_inner 5,120 in 80 heads of
+              64, state 64, and a shared attention + gelu MLP block after
+              every 9th layer: 6 invocations, 32 heads of d_head 80, each
+              with its own rank-64 LoRA on ``wq``, merged every call;
+              vocab 32,000, untied; 9.59 GB of f32 parameters), random
+              weights from seed 0 and ``lora_b`` a seeded non-zero draw
+              (the init's zeros would add nothing to ``wq``), batch 4,
+              prompt 512, 32 tokens, ``--approx simdive``. (k) The
+              attention kernels at its shapes (prefill q / kv (128, 512,
+              80), step (4, 32, 1, 80) over 544 and 2,048 slots) beside
+              their bounds, their plain versions and
+              ``scaled_dot_product_attention``, ``logmatmul`` at its
+              linears at M 4 and 2048 beside an exact bf16 matmul, and
+              one LoRA merge. (a) divider-only: 6 attention a prefill
+              and 6 ``decode_attention`` a step and nothing else, the
+              captured generate ``torch.equal`` to the eager one, a
+              replayed prefill's logits and cache (conv, ssm, k, v)
+              ``torch.equal`` to ``lm.prefill``'s, the logits within 6
+              bf16 ulps of the plain versions' (decided tokens equal);
+              the parameters' and cache bytes, ``LM.init``'s peak, the
+              memory the captured prefill and step hold, peaks, times
+              and one eager step's device time by kernel. (c)
+              ``--emulate``, 4 tokens: 360 ``logmatmul`` a prefill and a
+              step (6 a Mamba2 layer, 6 a shared-block invocation; the
+              head exact), captured == eager.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -643,6 +676,27 @@ SQRT_OPS_PER_LANE = 14
 # exact. Phase 4's bound, ulp_logit_tol over TIED_LOGIT_RANGE, holds as
 # it is.
 
+# phase 14: zamba2-2.7b (src/repro_torch/configs/zamba2_2_7b.py) served
+# whole: its shared attention block's shape (arch, q heads, kv heads,
+# d_head, window), d_head 80 in both attention kernels
+ZAMBA2 = "zamba2-2.7b"
+HYBRID_ATTENTION = ((ZAMBA2, 32, 32, 80, 0),)
+# its linears through dense(), (name, K, N): a Mamba2 layer's six (the
+# in-projections z | x | B | C | dt and out_proj) and the shared block's
+# six (q with its merged LoRA, k, v, o, the gelu MLP's two)
+ZAMBA2_MAMBA_LINEARS = (("wz", 2560, 5120), ("wx", 2560, 5120),
+                        ("wb", 2560, 64), ("wc", 2560, 64),
+                        ("wdt", 2560, 80), ("out_proj", 5120, 2560))
+ZAMBA2_SHARED_LINEARS = (("wq", 2560, 2560), ("wk", 2560, 2560),
+                         ("wv", 2560, 2560), ("wo", 2560, 2560),
+                         ("w1", 2560, 10240), ("w2", 10240, 2560))
+# phase 3 holds logmatmul bit-equal at its linears' (K, N) at a step's 4
+# rows and a prefill's 2,048
+ZAMBA2_CHECK_ROWS = (4, 2048)
+# (c) --emulate: 4 tokens; 6 x 54 Mamba2 linears + 6 x 6 shared-block
+# linears = 360 logmatmul a prefill and a step
+ZAMBA2_EMULATE_GEN = 4
+
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
            ("wo", 960, 960), ("w1", 960, 2560), ("w3", 960, 2560),
@@ -669,7 +723,7 @@ MODALITY_ATTENTION = (("qwen2-vl-2b", 12, 2, 128, 0),
                       ("musicgen-medium", 24, 24, 64, 0))
 # every configuration phase 3 holds the attention kernels at, window last
 ARCH_ATTENTION = (tuple((*a, 0) for a in DENSE_ATTENTION) + MOE_ATTENTION
-                  + MODALITY_ATTENTION)
+                  + MODALITY_ATTENTION + HYBRID_ATTENTION)
 # qwen3-4b's linears per layer: (name, K, N)
 QWEN3_LINEARS = (("wq", 2560, 4096), ("wk", 2560, 1024),
                  ("wv", 2560, 1024), ("wo", 4096, 2560),
@@ -685,8 +739,8 @@ QWEN3_EMULATE_GEN = 4
 # layer's seven linears takes ~46 s)
 QWEN3_CHECK_ROWS = (4, 64)
 # 8-bit magnitudes: a product is at most 255^2 = 65,025, so the int32 sum of
-# the longest dot product, K = 9,728 (w2), stays under 2^31
-INT32_SUM_BOUND = 255 * 255 * 9728
+# the longest dot product, K = 10,240 (zamba2-2.7b's w2), stays under 2^31
+INT32_SUM_BOUND = 255 * 255 * 10240
 # (d) qwen2.5-14b's depth cut: its 48 layers are 59 GB of f32 parameters;
 # 8 layers and the two untied 152,064 x 5,120 tables are ~15 GB
 QWEN25_LAYERS = 8
@@ -1130,7 +1184,7 @@ def check_attention(dev):
 
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
-        for dh in (64, 128):
+        for dh in (64, 80, 128):
             for approx in (False, True):
                 t = f"{tag} dh{dh} {'simdive' if approx else 'exact'}"
                 run(f"{t} causal", 6, 256, 256, dh, dtype, causal=True,
@@ -1147,7 +1201,7 @@ def check_attention(dev):
     # single q row at a q_offset, and scores of large magnitude (q . k
     # ~ 64 after the scale, where it is ~ 1 above), whose running maximum
     # moves from tile to tile
-    for dh in (64, 128):
+    for dh in (64, 80, 128):
         for approx in (False, True):
             t = f"bf16 dh{dh} {'simdive' if approx else 'exact'}"
             run(f"{t} fragment edges Sq 37 Skv 45", 3, 37, 45, dh, bf16,
@@ -1189,6 +1243,13 @@ def check_attention(dev):
             dh, bf16, kv_group=H // KV, causal=True, window=window,
             approx_div=True, frac_out=15,
             spec=SimdiveSpec(width=16, coeff_bits=6), arch=arch)
+    # the hybrid family's shared block in f32 too (every ring depth fits
+    # f32 at d_head 80)
+    for arch, H, KV, dh, window in HYBRID_ATTENTION:
+        run(f"f32 dh{dh} kv_group{H // KV}, {arch}'s prefill shape and "
+            "serving divider", BATCH * H, PROMPT, PROMPT, dh, f32,
+            kv_group=H // KV, causal=True, window=window, approx_div=True,
+            frac_out=15, spec=SimdiveSpec(width=16, coeff_bits=6))
     run("f32 dh64 single decode-style row", 4, 1, 300, 64, f32, causal=True,
         q_offset=299, approx_div=True)
     run("f32 dh64 width-8 divider", 4, 128, 128, 64, f32, causal=True,
@@ -1363,7 +1424,7 @@ def check_decode_attention(dev):
     spread = [0, 1, 9, 31, 32, 50, 62, 63]           # 0 and Smax - 1
     ring = [5, 63, 64, 65, 127, 200, 10, 64]         # before and after wrap
     for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
-        for dh in (64, 128):
+        for dh in (64, 80, 128):
             for approx in (False, True):
                 t = f"{tag} dh{dh} {'simdive' if approx else 'exact'}"
                 base = (8, 64, 8, 3, dh, dtype)
@@ -1435,6 +1496,15 @@ def check_decode_attention(dev):
             run(f"{arch}'s step shape, ring_full, per-row pos {wrap} (past "
                 "the wrap)", BATCH, PROMPT + GEN, KV, H // KV, dh, bf16, wrap,
                 ring_full=True, approx=True)
+    # the hybrid family's step without the divider and over a 2,048-slot
+    # cache, both at d_head 80
+    for arch, H, KV, dh, _ in HYBRID_ATTENTION:
+        run(f"{arch}'s step shape ({BATCH}, {PROMPT + GEN}, {KV}, "
+            f"{H // KV}, {dh}) bf16 exact divide pos {PROMPT + 15}, two "
+            "draws", BATCH, PROMPT + GEN, KV, H // KV, dh, bf16, PROMPT + 15,
+            approx=False, draws=2)
+        run(f"{arch}'s step over 2048 slots, bf16 simdive pos 2047",
+            BATCH, 2048, KV, H // KV, dh, bf16, 2047, approx=True)
     # the scheduler drill's shape: per-row positions with idle rows at 0,
     # at the shed rung's Mitchell divider and the recovery rung's exact
     # divide
@@ -1571,21 +1641,26 @@ def check_logmatmul(dev):
     # qwen3-4b's seven linears (phase 10) and rwkv6-1.6b's eight (phase
     # 13): a decode step's 4 rows, and 64 standing for the prefill's 2,048
     # (the int64 plain version of a full prefill layer's seven linears
-    # takes ~46 s). 8-bit magnitudes: the int32 sum of the longest dot
-    # product, K = 9,728 (qwen3-4b's w2), stays under 2^31
-    require(max(k for _, k, _ in QWEN3_LINEARS + RWKV6_LINEARS) * 255 * 255
-            == INT32_SUM_BOUND < 2 ** 31, "int32 headroom at the configs' K")
+    # takes ~46 s); zamba2-2.7b's seven (K, N) (phase 14) at 4 and the
+    # prefill's own 2,048 rows. 8-bit magnitudes: the int32 sum of the
+    # longest dot product, K = 10,240 (zamba2-2.7b's w2), stays under 2^31
+    zamba2 = ZAMBA2_MAMBA_LINEARS + ZAMBA2_SHARED_LINEARS
+    require(max(k for _, k, _ in QWEN3_LINEARS + RWKV6_LINEARS + zamba2)
+            * 255 * 255 == INT32_SUM_BOUND < 2 ** 31,
+            "int32 headroom at the configs' K")
     arch_runs = {}
-    for arch, linears in (("qwen3-4b", QWEN3_LINEARS),
-                          (RWKV6, RWKV6_LINEARS)):
+    for arch, linears, rows in (("qwen3-4b", QWEN3_LINEARS, QWEN3_CHECK_ROWS),
+                                (RWKV6, RWKV6_LINEARS, QWEN3_CHECK_ROWS),
+                                (ZAMBA2, zamba2, ZAMBA2_CHECK_ROWS)):
         arch_runs[arch] = 0
-        for M in QWEN3_CHECK_ROWS:
+        for M in rows:
             for K, N in sorted({(k, n) for _, k, n in linears}):
                 run(f"{arch} ({M},{K})@({K},{N}) w8 cb6", ints((M, K), 256),
                     ints((K, N), 256), serving, depths=M == 4)
                 arch_runs[arch] += len(blocks)
-    log(f"  logmatmul at qwen3-4b's seven linears and rwkv6-1.6b's eight: "
-        f"int32 sums bounded by 255^2 x 9,728 = {INT32_SUM_BOUND:,} < 2^31")
+    log(f"  logmatmul at qwen3-4b's seven linears, rwkv6-1.6b's eight and "
+        f"zamba2-2.7b's seven (K, N): int32 sums bounded by 255^2 x 10,240 "
+        f"= {INT32_SUM_BOUND:,} < 2^31")
     # decode edges: rows around the skinny tiles' 4 and 8; N = 388 takes
     # the 16-byte weight loads, N = 131 the scalar ones; K = 777 and 1001
     # are multiples of no split; zeros and INT32_MIN in both operands
@@ -4368,6 +4443,18 @@ def judge_logits(what, logits, tokens, ref_all, tol) -> dict:
                 tokens_decided=int(decided.sum()))
 
 
+def attention_layers(cfg) -> int:
+    """Attention blocks a prefill or a decode step runs: one a layer, none
+    in an attention-free stack (rwkv6), one a shared-block invocation in
+    the hybrid stack (zamba2: one after every ``hybrid_period`` Mamba2
+    layers)."""
+    if cfg.attn_free:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    return cfg.n_layers
+
+
 def policy_generate(dev, lm, params, prompts, what, *, linears=0,
                     norms=0, gen=GEN) -> dict:
     """The captured generate of a policy's ``lm``: the first call captures
@@ -4384,8 +4471,7 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
-    # an attention-free stack (rwkv6) launches no attention kernel
-    n = 0 if lm.cfg.attn_free else lm.cfg.n_layers
+    n = attention_layers(lm.cfg)
     max_seq = PROMPT + gen
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     t0 = time.perf_counter()
@@ -5004,7 +5090,8 @@ def attention_times(dev, gen, arch, H, KV, dh, int_rate) -> dict:
     return out
 
 
-def linear_times(dev, gen, arch, linears, int_rate, exact_dtype) -> dict:
+def linear_times(dev, gen, arch, linears, int_rate, exact_dtype,
+                 check_rows=QWEN3_CHECK_ROWS) -> dict:
     """``logmatmul`` at one layer's ``linears`` ((name, K, N)) of ``arch``,
     w8 cb6, timed at a step's 4 rows and a prefill's 2,048, the fastest
     registered block each, summed over the layer beside its bound and an
@@ -5060,7 +5147,7 @@ def linear_times(dev, gen, arch, linears, int_rate, exact_dtype) -> dict:
     return {"shape": f"one layer's {len(linears)} linears, (K, N) = "
                      + " ".join(f"({k},{n})" for _, k, n in linears)
                      + ", w8 cb6",
-            "check_rows": list(QWEN3_CHECK_ROWS),
+            "check_rows": list(check_rows),
             "int32_sum_bound": INT32_SUM_BOUND,
             "step": layer[4], "prefill": layer[2048]}
 
@@ -5117,10 +5204,11 @@ def _drop_served_graphs() -> None:
     torch.cuda.empty_cache()
 
 
-def served_generate(dev, arch, *, n_layers=None) -> dict:
-    """Phases 10 (a), (c), (d), 11 (a), (b), 12 (a), (b) and 13 (a): ``arch`` at
-    its published widths (depth cut to ``n_layers`` when given), random
-    weights from SEED, batch 4, prompt 512 (a codebook config's prompts
+def served_generate(dev, arch, *, n_layers=None, prepare=None) -> dict:
+    """Phases 10 (a), (c), (d), 11 (a), (b), 12 (a), (b), 13 (a) and 14
+    (a): ``arch`` at its published widths (depth cut to ``n_layers`` when
+    given), random weights from SEED (then ``prepare(params)``, in place,
+    where given), batch 4, prompt 512 (a codebook config's prompts
     (4, 512, C)), 32 greedy tokens, ``--approx simdive``: the
     parameters' bytes and ``LM.init``'s peak (under INIT_PEAK_RATIO of
     them); the served prefill and decode step captured first, each alone
@@ -5154,6 +5242,8 @@ def served_generate(dev, arch, *, n_layers=None) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev) - base
+    if prepare is not None:
+        prepare(params)
     param_bytes = sum(t.numel() * t.element_size()
                       for t in serve._leaves(params))
     C = cfg.n_codebooks
@@ -5835,6 +5925,107 @@ def rwkv6_phase(dev, int_rate) -> dict:
     return out
 
 
+# ---------------------------------------- phase 14: the hybrid stack --
+def seeded_lora_b(params) -> None:
+    """zamba2's ``lora_b`` (zeros at init, so the merge adds nothing to
+    ``wq``) given a normal draw of std r^-0.5 from SEED + 14, in place,
+    before any graph is captured."""
+    import torch
+
+    lb = params["stack"]["lora_b"]
+    gen = torch.Generator(device=lb.device).manual_seed(SEED + 14)
+    lb.copy_(torch.randn(lb.shape, generator=gen, device=lb.device)
+             * lb.shape[1] ** -0.5)
+
+
+def lora_merge_ms(params) -> float:
+    """One shared-block LoRA merge as the stack makes it on every call
+    (``hybrid_shared``: ``wq + la @ lb``, the pair in bf16, the sum in
+    f32), graph-replayed."""
+    import torch
+    from repro_torch.models.transformer import hybrid_shared
+
+    return gpu_graph_time_ms(lambda: hybrid_shared(
+        params["stack"], 0, torch.bfloat16)["wq"], iters=20)
+
+
+def zamba2_phase(dev, int_rate) -> dict:
+    """Phase 14: zamba2-2.7b whole, after every earlier model's graphs are
+    dropped. (k) the attention kernels at its shapes (:func:`attention_times`
+    at d_head 80, and the step over 2,048 slots) and ``logmatmul`` at its
+    Mamba2 layer's and shared block's linears, each beside its bound; (a)
+    divider-only (:func:`served_generate`, ``lora_b`` seeded first): 6
+    attention a prefill, 6 decode_attention a step, nothing else, captured
+    == eager, within 6 bf16 ulps of the plain versions; the cache's bytes
+    and one LoRA merge's time; (c) ``--emulate``, ZAMBA2_EMULATE_GEN
+    tokens: 360 ``logmatmul`` a prefill and a step, captured == eager."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.model import LM
+
+    _drop_served_graphs()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    kernels = {}
+    for arch, H, KV, dh, _ in HYBRID_ATTENTION:
+        kernels.update(attention_times(dev, gen, arch, H, KV, dh, int_rate))
+        t = time_decode_attention(dev, gen, BATCH, 2048, KV, H // KV, dh,
+                                  2047, SimdiveSpec(width=16, coeff_bits=6),
+                                  15, int_rate)
+        row = kernels[f"decode_attention {arch} cache 2048"] = {
+            key: t[key] for key in ("ms", "library_ms", "bound_ms",
+                                    "bound_by", "cluster")}
+        log(f"  decode attention, {arch}'s step over 2048 slots, pos 2047: "
+            f"{row['ms']:.5f} ms (graph, cluster {row['cluster']}), "
+            f"scaled_dot_product_attention {row['library_ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        del t
+    for part, linears in (("mamba2", ZAMBA2_MAMBA_LINEARS),
+                          ("shared", ZAMBA2_SHARED_LINEARS)):
+        kernels[f"logmatmul {ZAMBA2} {part}"] = linear_times(
+            dev, gen, f"{ZAMBA2} {part}", linears, int_rate, torch.bfloat16,
+            check_rows=ZAMBA2_CHECK_ROWS)
+    out = {"kernels": kernels}
+    cfg = serve.serving_config(ZAMBA2, approx="simdive")
+    cache_bytes = {"/".join(p): t.numel() * t.element_size()
+                   for p, t in serve.cache_leaves(LM(
+                       cfg, torch.device("meta")).empty_cache(
+                           BATCH, PROMPT + GEN))}
+    n_inv = cfg.n_layers // cfg.hybrid_period
+    log(f"  (a) {ZAMBA2} whole ({cfg.n_layers} Mamba2 layers, the shared "
+        f"block {n_inv} times), --approx simdive, lora_b seeded; its "
+        f"serving cache {cache_bytes} bytes")
+    a = served_generate(dev, ZAMBA2, prepare=seeded_lora_b)
+    a["cache_bytes"] = cache_bytes
+    params, prompts = a.pop("params"), a.pop("prompts")
+    a["lora_merge_ms"] = lora_merge_ms(params)
+    log(f"  {ZAMBA2}: one LoRA merge (wq + la @ lb, made on every call: "
+        f"{n_inv} a prefill and a step) {a['lora_merge_ms']:.5f} ms")
+    out[ZAMBA2] = a
+    _drop_served_graphs()
+    log(f"  (c) {ZAMBA2} --emulate, {ZAMBA2_EMULATE_GEN} tokens")
+    ecfg = serve.serving_config(ZAMBA2, approx="simdive", emulate=True)
+    require(ecfg.approx.emulate and ecfg.approx.width == 8,
+            "not the --emulate serving config")
+    linears = (len(ZAMBA2_MAMBA_LINEARS) * ecfg.n_layers
+               + len(ZAMBA2_SHARED_LINEARS) * n_inv)
+    require(linears == 360, f"{ZAMBA2}: {linears} linears a prefill")
+    run = policy_generate(dev, build(ecfg), params, prompts,
+                          f"{ZAMBA2} --emulate", linears=linears,
+                          gen=ZAMBA2_EMULATE_GEN)
+    log(f"  {ZAMBA2} --emulate: first generate (autotune, captures) "
+        f"{run['first_generate_s']:.1f}s, captured generate of "
+        f"{ZAMBA2_EMULATE_GEN} tokens {run['generate_s'] * 1e3:.1f} ms")
+    out[f"{ZAMBA2} --emulate"] = dict(
+        counts=run["counts"], gen=ZAMBA2_EMULATE_GEN,
+        first_generate_s=run["first_generate_s"],
+        generate_captured_ms=run["generate_s"] * 1e3)
+    del params, prompts, run
+    _drop_served_graphs()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5856,13 +6047,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/13] device: {card} | torch {torch.__version__} "
+    log(f"[1/14] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/13] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/14] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -5879,7 +6070,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/13] kernels vs plain versions")
+    log("[3/14] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -5888,7 +6079,7 @@ def main(argv=None) -> int:
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/13] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/14] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -5901,7 +6092,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/13] times")
+    log("[5/14] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -5922,24 +6113,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/13] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/14] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/13] faults: every kernel under each armed site, captured graphs, "
+    log("[7/14] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/13] policy: build_policy / select_config on the card, a "
+    log("[8/14] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/13] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/14] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -5953,29 +6144,36 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/13] the dense family at full width: (k) the kernels' times "
+    log("[10/14] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/13] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
+    log("[11/14] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
         "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/13] the modality-stub families at full width, nothing cut: (k) "
+    log("[12/14] the modality-stub families at full width, nothing cut: (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
 
     starts[13] = time.perf_counter() - t_start
-    log("[13/13] rwkv6-1.6b whole at full width: (k) logmatmul at its "
+    log("[13/14] rwkv6-1.6b whole at full width: (k) logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
         "the recurrent cache through both graphs), (c) --emulate")
     rwkv6 = rwkv6_phase(dev, int_rate)
+
+    starts[14] = time.perf_counter() - t_start
+    log("[14/14] zamba2-2.7b whole at full width: (k) the attention "
+        "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
+        "simdive (54 Mamba2 layers, the shared block 6 times with its "
+        "LoRA merged each call), (c) --emulate")
+    zamba2 = zamba2_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -6137,6 +6335,35 @@ def main(argv=None) -> int:
                                      for n in names)
         for key in keys:
             kern[key] = rwkv6_rows[key]
+    # phase 14: the launches of (a) and (c) together, zeroed just before
+    # each counted generate and read just after; the kernels at zamba2's
+    # shapes: phase 3's errors and phase 14's times
+    zamba2_counts = [zamba2[r]["counts"]
+                     for r in (ZAMBA2, f"{ZAMBA2} --emulate")]
+    zamba2_rows = dict(zamba2["kernels"])
+    zamba2_rows[f"logmatmul {ZAMBA2} mamba2"]["bit_equal_runs"] = \
+        mm_arch_runs[ZAMBA2]
+    for key, errs in ((f"attention {ZAMBA2}", att_errs),
+                      (f"decode_attention {ZAMBA2}", da_errs)):
+        zamba2_rows[key] = {**errs["archs"][ZAMBA2], **zamba2_rows[key]}
+    for kern, names, keys in (
+            (by_name["flash_attention"], ("attention",),
+             [f"attention {ZAMBA2}"]),
+            (by_name["flash_attention_pipelined"], ("attention_pipelined",),
+             []),
+            (by_name["decode_attention"], ("decode_attention",),
+             [f"decode_attention {ZAMBA2}",
+              f"decode_attention {ZAMBA2} cache 2048"]),
+            (by_name["logmatmul"], ("matmul",),
+             [f"logmatmul {ZAMBA2} mamba2", f"logmatmul {ZAMBA2} shared"]),
+            (by_name["logmatmul_pipelined"], ("matmul_pipelined",), []),
+            (by_name["elemwise"], ("elemwise",), []),
+            (by_name["packed"], ("packed",), []),
+            (by_name["sqrt"], ("sqrt",), [])):
+        kern["launches_zamba2"] = sum(c[n] for c in zamba2_counts
+                                      for n in names)
+        for key in keys:
+            kern[key] = zamba2_rows[key]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -6148,14 +6375,15 @@ def main(argv=None) -> int:
         log(f"  {key}: {val:.4f}")
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
                      *arith.items(), *dense.items(), *moe.items(),
-                     *modality.items(), *rwkv6.items()):
+                     *modality.items(), *rwkv6.items(),
+                     *zamba2.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-13) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-14) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6173,6 +6401,7 @@ def main(argv=None) -> int:
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
+            "zamba2": zamba2,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

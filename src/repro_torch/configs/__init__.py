@@ -6,9 +6,10 @@ partial rotary); and the MoE family: ``mixtral-8x7b`` (top-2 of 8,
 sliding window) and ``llama4-scout-17b-a16e`` (top-1 of 16 and a shared
 expert); and the two modality-stub families: ``qwen2-vl-2b`` (M-RoPE and
 a vision stub of precomputed patch embeddings) and ``musicgen-medium``
-(gelu MLP, sinusoidal positions, 4 EnCodec codebooks); and the first
-recurrent family: ``rwkv6-1.6b`` (RWKV6 blocks, a recurrent state cache).
-The hybrid ``zamba2-2.7b`` needs the Mamba2 blocks, which wait.
+(gelu MLP, sinusoidal positions, 4 EnCodec codebooks); and the two
+recurrent families: ``rwkv6-1.6b`` (RWKV6 blocks, a recurrent state cache)
+and the hybrid ``zamba2-2.7b`` (Mamba2 blocks with a shared attention
+block every 9th layer: a recurrent state and a K/V cache).
 """
 from importlib import import_module
 
@@ -24,6 +25,7 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "musicgen-medium": "musicgen_medium",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCHS = tuple(_MODULES)

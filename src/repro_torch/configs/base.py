@@ -2,9 +2,7 @@
 
 Counterpart of ``repro.configs.base`` (``ModelConfig``; the shape and mesh
 tables of the reference are not ported yet). All of the reference's fields
-are kept so configs compare field by field, but the port so far builds
-the attention stacks (the dense, MoE, vlm and audio families) and the
-rwkv6 stack (family ``ssm``), not the hybrid one.
+are kept so configs compare field by field.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@
 //
 // Contract: q (B, KVH, G, dh); caches (B, Smax, KVH, dh), contiguous and
 // 16-byte aligned; k_new / v_new (B, 1, KVH, dh); all f32 or all bf16 ->
-// o (B, KVH, G, dh) in the same type. dh 64 or 128, G <= kMaxG. pos / slot
+// o (B, KVH, G, dh) in the same type. dh 64, 80 or 128, G <= kMaxG. pos / slot
 // are each a scalar argument or a (B,) int32 / int64 device array read by
 // every block of its batch row, so neither costs a launch or a host sync.
 //
@@ -40,13 +40,15 @@
 // the first round the loads of q, k_new, v_new and the div table go ahead
 // of them, so that the block's setup lands while its rows fly; (2)
 // scores (q . k) * scale into shared memory (-inf at a masked slot), a
-// cache row read as 16-byte vectors by DH / VEC lanes, each lane holding
-// its slice of the G q rows in registers, the lanes of a row meeting by
-// shuffles (taken for all GM heads: a shuffle under a G test compiles to
-// a divergence check each), UNR row steps interleaved; the block's max a
-// head; (3) cluster barrier, then every block
-// reads all C ranks' maxima through distributed shared memory and forms
-// the round's cluster-wide max m, so p = exp(s - m) is rounded to the
+// cache row read as 16-byte vectors by DH / VEC lanes (a power of two of
+// lanes a row: at d_head 80 the row's 10 or 20 pieces take 16 or 32
+// lanes, the rest idle, and the finalize's third output a lane is
+// guarded), each lane holding its slice of the G q rows in registers, the
+// lanes of a row meeting by shuffles (taken for all GM heads: a shuffle
+// under a G test compiles to a divergence check each), UNR row steps
+// interleaved; the block's max a head; (3) cluster barrier, then every
+// block reads all C ranks' maxima through distributed shared memory and
+// forms the round's cluster-wide max m, so p = exp(s - m) is rounded to the
 // cache's type relative to the same max as in the plain version (one
 // round) — per-split maxima with a rescaling combine would round p against
 // a local max instead; (4) p . V into registers, rescaled by
@@ -179,6 +181,13 @@ __device__ __forceinline__ int clamp_ll(long long x, long long lo,
   return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
 }
 
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 // GM: the register arrays' size, G <= GM (1, 2, 4 or 8).
 template <typename T, int DH, int GM>
 __global__ void __launch_bounds__(NT)
@@ -188,11 +197,19 @@ __global__ void __launch_bounds__(NT)
                             const int* __restrict__ tab, int tab_len,
                             DecodeParams p) {
   constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = DH / VEC;   // lanes a cache row = its 16-byte pieces
-  constexpr int RPW = 32 / LPR;   // rows a warp step
+  constexpr int LPR = DH / VEC;   // a cache row's 16-byte pieces
+  // lanes a row takes in a warp: LPR, rounded up to a power of two so that
+  // a row's lanes meet by xor shuffles. At d_head 64 / 128 that is LPR
+  // itself; at 80 (10 pieces in bf16, 20 in f32) lanes LPR..LP-1 of a row
+  // idle: they hold zeros, load nothing and store nothing
+  constexpr int LP = pow2_ceil(LPR);
+  constexpr int RPW = 32 / LP;    // rows a warp step
   constexpr int RPB = NW * RPW;   // rows a block step
-  constexpr int DPL = DH / 32;    // finalize: outputs a lane
-  static_assert(LPR <= 32 && 32 % LPR == 0, "a row is a power-of-two lanes");
+  // finalize: outputs a lane, the last of them guarded where 32 does not
+  // divide DH (80: 3 a lane, lanes 16..31 idle in the third)
+  constexpr int DPL = (DH + 31) / 32;
+  constexpr bool kWholeLanes = DH % 32 == 0;
+  static_assert(DH % VEC == 0 && LP <= 32, "a row is at most a warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float sQ[GM * DH];
@@ -334,7 +351,8 @@ __global__ void __launch_bounds__(NT)
   }
   // (sSelf / sM / sL are first read after the barriers below)
 
-  const int rl = lane % LPR, rp = lane / LPR;
+  const int rl = lane % LP, rp = lane / LP;
+  const bool live = rl < LPR;  // the lane holds a piece of the row
   const int d0 = rl * VEC;
   float acc[GM][VEC];
 #pragma unroll
@@ -352,7 +370,7 @@ __global__ void __launch_bounds__(NT)
       mx[g] = -INFINITY;
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
-        qr[g][j] = g < G ? sQ[g * DH + d0 + j] : 0.0f;
+        qr[g][j] = g < G && live ? sQ[g * DH + d0 + j] : 0.0f;
     }
     for (int t = 0; t < nt; ++t) {
       land(t);
@@ -364,7 +382,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int u = 0; u < UNR; ++u) {
           const int r = rb + u * RPB + rp;
-          if (r < rows) {
+          if (r < rows && live) {
             Vec<T>::load(tb + r * DH + d0, kv[u]);
           } else {
 #pragma unroll
@@ -381,7 +399,7 @@ __global__ void __launch_bounds__(NT)
               s[u][g] = fmaf(qr[g][j], kv[u][j], s[u][g]);
           }
 #pragma unroll
-        for (int off = LPR / 2; off > 0; off >>= 1)
+        for (int off = LP / 2; off > 0; off >>= 1)
 #pragma unroll
           for (int u = 0; u < UNR; ++u)
 #pragma unroll
@@ -478,7 +496,12 @@ __global__ void __launch_bounds__(NT)
         for (int u = 0; u < UNR; ++u) {
           const int r = rb + u * RPB;
           if (r < rows) {
-            Vec<T>::load(tb + r * DH + d0, vv[u]);
+            if (live) {
+              Vec<T>::load(tb + r * DH + d0, vv[u]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) vv[u][j] = 0.0f;
+            }
 #pragma unroll
             for (int g = 0; g < GM; ++g)
               pg[u][g] = g < G ? sS[g * CH + r0 + r] : 0.0f;
@@ -505,14 +528,14 @@ __global__ void __launch_bounds__(NT)
   // the row positions of a warp meet by shuffles, the warps in shared
   // memory (the stage, free now), then the block's partial acc in sAcc
 #pragma unroll
-  for (int off = LPR; off < 32; off <<= 1)
+  for (int off = LP; off < 32; off <<= 1)
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
         acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
   float* const sRed = reinterpret_cast<float*>(smem);
-  if (rp == 0)
+  if (rp == 0 && live)
 #pragma unroll
     for (int g = 0; g < GM; ++g)
       if (g < G)
@@ -537,7 +560,10 @@ __global__ void __launch_bounds__(NT)
       if (r < C) {
         const float* ra = cluster.map_shared_rank(sAcc, r);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) xr[r][i] = ra[g * DH + lane + 32 * i];
+        for (int i = 0; i < DPL; ++i)
+          xr[r][i] = kWholeLanes || lane + 32 * i < DH
+                         ? ra[g * DH + lane + 32 * i]
+                         : 0.0f;
         lr[r] = cluster.map_shared_rank(sL, r)[g];
       }
     }
@@ -554,7 +580,8 @@ __global__ void __launch_bounds__(NT)
     }
     const float ps = expf(sSelf[g] - sM[g]);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) x[i] += ps * sVn[lane + 32 * i];
+    for (int i = 0; i < DPL; ++i)
+      if (kWholeLanes || lane + 32 * i < DH) x[i] += ps * sVn[lane + 32 * i];
     l += ps;
     T* orow = o + (bk * G + g) * DH;
     if (p.approx_div) {
@@ -566,17 +593,22 @@ __global__ void __launch_bounds__(NT)
       if (faults) {
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem<true>(
-              x[i], rq, s_tab, p.cfg, p.lim, nullptr));
+          if (kWholeLanes || lane + 32 * i < DH)
+            orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem<true>(
+                x[i], rq, s_tab, p.cfg, p.lim, nullptr));
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          orow[lane + 32 * i] = from_f32<T>(simdive::softmax_div_elem<false>(
-              x[i], rq, s_tab, p.cfg, p.lim, nullptr));
+          if (kWholeLanes || lane + 32 * i < DH)
+            orow[lane + 32 * i] = from_f32<T>(
+                simdive::softmax_div_elem<false>(x[i], rq, s_tab, p.cfg,
+                                                 p.lim, nullptr));
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = from_f32<T>(x[i] / l);
+      for (int i = 0; i < DPL; ++i)
+        if (kWholeLanes || lane + 32 * i < DH)
+          orow[lane + 32 * i] = from_f32<T>(x[i] / l);
     }
   }
   cluster.sync();  // no block leaves while another reads its shared memory
@@ -600,8 +632,10 @@ int by_group(int G, F& f) {
 template <typename F>
 int dispatch(int dtype, int dh, int G, F&& f) {
   if (dtype == 0 && dh == 64) return by_group<float, 64>(G, f);
+  if (dtype == 0 && dh == 80) return by_group<float, 80>(G, f);
   if (dtype == 0 && dh == 128) return by_group<float, 128>(G, f);
   if (dtype == 1 && dh == 64) return by_group<bf16, 64>(G, f);
+  if (dtype == 1 && dh == 80) return by_group<bf16, 80>(G, f);
   if (dtype == 1 && dh == 128) return by_group<bf16, 128>(G, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -660,7 +694,7 @@ cudaLaunchConfig_t cluster_config(unsigned blocks, int C, size_t smem,
 // This source's copy of the fault register (simdive_datapath.cuh).
 SIMDIVE_FAULT_SETTER(simdive_faults_decode_attention)
 
-// dtype: 0 = float32, 1 = bfloat16; dh 64 or 128; 1 <= G <= 8; 1 <= cluster
+// dtype: 0 = float32, 1 = bfloat16; dh 64, 80 or 128; 1 <= G <= 8; 1 <= cluster
 // <= 8 blocks per (b, kv head). q, k_new, v_new and o contiguous; the caches
 // contiguous and 16-byte aligned. pos / slot: the scalar, or a (B,) int32
 // (is64 = 0) / int64 (is64 = 1) device array read at b * stride when its

@@ -74,8 +74,19 @@
 // (64, 64) or (64, 64, D) with D <= 4 (cp.async.wait_group takes an
 // immediate); shared memory grows with D, dtype and d_head
 // (kernels/flash_attention.py smem_bytes mirrors smem_bytes_mma /
-// smem_bytes / smem_bytes_pipe below): every depth fits for bf16, f32 at
-// d_head 128 fits D <= 2 only.
+// smem_bytes / smem_bytes_pipe below): every depth fits for bf16, and for
+// f32 at d_head 64 and 80 (203,264 bytes at 80, depth 4); f32 at d_head
+// 128 fits D <= 2 only.
+//
+// Head sizes: 64, 80 (zamba2) and 128, each an instantiation. Every loop
+// holds at 80: the bf16 body's KSTEPS = DH / 16 = 5 k-steps of Q K^T and NO
+// = DH / 8 = 10 n8 tiles of acc (NO / 2 = 5 ldmatrix.x4.trans a k-step of
+// P V); its tile loads move CPR = DH / 8 = 10 16-byte chunks a row, 640 a
+// 64-row tile, 5 a thread of 128; mma_stride = 88 bf16 = 176-byte rows,
+// 44 words, so the eight rows an ldmatrix reads start in banks 0, 12, 24,
+// 4, 16, 28, 8, 20 and their 16-byte reads hit distinct banks; global
+// rows are 160 bytes, 16-byte aligned. The f32 body's DPT = DH / 16 = 5
+// output columns a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -798,8 +809,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && dh == 128)
     return launch_flash<float, 128, PIPE>(q, k, v, o, tab, tab_len, BH, p,
                                           depth, s);
+  if (dtype == 0 && dh == 80)
+    return launch_flash<float, 80, PIPE>(q, k, v, o, tab, tab_len, BH, p,
+                                         depth, s);
   if (dtype == 1 && dh == 64)
     return launch_flash<__nv_bfloat16, 64, PIPE>(q, k, v, o, tab, tab_len,
+                                                 BH, p, depth, s);
+  if (dtype == 1 && dh == 80)
+    return launch_flash<__nv_bfloat16, 80, PIPE>(q, k, v, o, tab, tab_len,
                                                  BH, p, depth, s);
   if (dtype == 1 && dh == 128)
     return launch_flash<__nv_bfloat16, 128, PIPE>(q, k, v, o, tab, tab_len,
@@ -878,7 +895,7 @@ int attention(const void* q, const void* k, const void* v, void* o,
 // This source's copy of the fault register (simdive_datapath.cuh).
 SIMDIVE_FAULT_SETTER(simdive_faults_flash_attention)
 
-// dtype: 0 = float32, 1 = bfloat16. dh must be 64 or 128. All tensors
+// dtype: 0 = float32, 1 = bfloat16. dh must be 64, 80 or 128. All tensors
 // contiguous; bf16 q, k and v 16-byte aligned. Returns cudaGetLastError()
 // of the launch (or the error of the shared-memory opt-in). The depth-0
 // schedule.

@@ -26,8 +26,10 @@ int32 / int64 tensor on q's device (read by the kernel through its
 pointer): neither costs a launch or a host sync, so a captured step can
 advance them in place. :func:`check_args` holds every condition the kernel
 needs and refuses anything else before a launch: all tensors f32 or all
-bf16, d_head 64 or 128, ``1 <= G <=`` :data:`MAX_G`, caches contiguous and
-16-byte aligned (the kernel reads their rows as 16-byte vectors).
+bf16, d_head 64, 80 or 128, ``1 <= G <=`` :data:`MAX_G`, caches contiguous
+and 16-byte aligned (the kernel reads their rows as 16-byte vectors; at
+d_head 80 a row is 10 or 20 of them, read by 16 or 32 lanes of a warp,
+the rest idle).
 
 Float order: with one round of history (up to ``C`` x
 :func:`chunk_slots` valid slots: ``C x 2,730`` at G = 3) the blocks of a
@@ -63,7 +65,7 @@ MAX_G = 8
 MAX_CLUSTER = 8
 _SCORE_FLOATS = 8192           # a block's scores a round (kScoreFloats)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128)
 _INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
 _ALIGN = 16
 _MAX_INDEX_BITS = 4            # a 256-entry div table (kDivTable)

@@ -34,12 +34,14 @@ kernel is compiled for one tile, 64 q rows x 64 kv rows (:data:`TILES`).
 The reference's TPU blocks (256..1024 rows) are not carried over: one
 512 x 512 f32 score tile alone is 1 MB, against the 227 KB of shared
 memory an H100 block may have. Shared memory grows with the depth, the
-dtype and d_head (:func:`smem_bytes`): every depth fits for bf16, f32 at
-d_head 128 takes depth <= 2. A block is checked against the compiled tile,
-the depth limit and that memory for the call's dtype and d_head before any
-launch (:func:`check_block`), and the registry's candidates are checked
-for the worst case, f32 at d_head 128. bf16 q, k and v must start 16-byte
-aligned (both schedules load 16 bytes at a time; :func:`check_aligned`).
+dtype and d_head (:func:`smem_bytes`): every depth fits for bf16 and for
+f32 at d_head 64 and 80, f32 at d_head 128 takes depth <= 2. The kernel is
+compiled for d_head 64, 80 (zamba2's) and 128. A block is checked against
+the compiled tile, the depth limit and that memory for the call's dtype
+and d_head before any launch (:func:`check_block`), and the registry's
+candidates are checked for the worst case, f32 at d_head 128. bf16 q, k
+and v must start 16-byte aligned (both schedules load 16 bytes at a time;
+:func:`check_aligned`).
 
 Each schedule's wrapper counts its own launches
 (``flash_attention_cuda`` for depth 0, ``flash_attention_pipelined_cuda``
@@ -69,7 +71,7 @@ __all__ = ["DEFAULT_DIV_SPEC", "DEFAULT_FRAC_OUT", "TILES", "DEFAULT_BLOCK",
 DEFAULT_DIV_SPEC = SimdiveSpec(width=16, coeff_bits=8, index_bits=3)
 DEFAULT_FRAC_OUT = 15
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128)
 
 #: (q_chunk, kv_chunk) tiles compiled into csrc/flash_attention.cu (its BQ,
 #: BK): for bf16 4 warps of 16 q rows on the tensor cores, for f32 256
@@ -137,9 +139,9 @@ def check_block(block, dtype=torch.float32, dh: int = 128):
 def check_aligned(q, k, v) -> None:
     """Raise ``ValueError`` unless bf16 q, k and v start 16-byte aligned, as
     the kernel's 16-byte loads and copies need (rows are whole multiples of
-    16 bytes at d_head 64 / 128, so only the start can be off). f32 needs
-    nothing more than its elements' own 4-byte alignment, which is all its
-    ring's copies take."""
+    16 bytes at d_head 64 / 80 / 128, so only the start can be off). f32
+    needs nothing more than its elements' own 4-byte alignment, which is all
+    its ring's copies take."""
     if q.dtype != torch.bfloat16:
         return
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -319,7 +321,7 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
     accumulation), f32 on the CUDA cores (FMA, no TF32). Launches on the
     current stream and does not synchronise; the ragged edges of Sq and Skv
     are masked in the kernel. Raises on CPU tensors, on what the kernel does
-    not take (dtype other than f32 / bf16, d_head other than 64 / 128,
+    not take (dtype other than f32 / bf16, d_head other than 64 / 80 / 128,
     width 32, a block that is not compiled or whose ring does not fit for
     this dtype and d_head, bf16 q / k / v not 16-byte aligned) and on a
     failed build or launch — it never gives way to another schedule or to

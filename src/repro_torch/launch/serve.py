@@ -15,6 +15,14 @@ rwkv6-1.6b (family ``ssm``) has no attention: divider-only it runs no
 SIMDive kernel, ``--emulate`` sends its eight linears a layer through
 ``logmatmul``, and its serving cache is the recurrent carry (a nested
 dict, :func:`cache_leaves`) that both graphs update in place.
+zamba2-2.7b (family ``hybrid``) serves 54 Mamba2 layers and six
+invocations of one shared attention block: divider-only it runs six
+``flash_attention`` launches a prefill and six ``decode_attention`` a
+step, ``--emulate`` its six linears a Mamba2 layer and six a shared block
+on ``logmatmul``; its cache holds both the recurrent carry and the K/V
+slabs. ``--quantize`` is refused for it: the shared block merges a LoRA
+delta into ``wq`` on every call, which an int8 weight cannot take (the
+reference's prefill raises ``TypeError`` there).
 
 The prompt is served through one prefill (:func:`make_prefill`, the
 reference's jitted ``LM.prefill``) and every token through one step
@@ -89,11 +97,24 @@ _MATMUL_WEIGHTS = frozenset(
     "out_proj".split())
 
 
+_HYBRID_QUANTIZE = (
+    "--quantize on a hybrid stack: the shared block merges a per-invocation "
+    "LoRA delta into wq on every call, which an int8 wq cannot take (the "
+    "reference's prefill raises TypeError)")
+
+
 def quantize_params(params: dict) -> dict:
     """Swap every linear weight for an int8 QuantizedWeight (per-out-channel
     scale). Stacked per-layer weights keep their leading L axis, so the
     layer loop still indexes them. Weights narrower than 64 on either of
-    their last two axes stay float, as in the reference."""
+    their last two axes stay float, as in the reference. A hybrid tree
+    (``stack.lora_a``) raises ``NotImplementedError``: its shared block
+    adds a LoRA delta to ``wq`` on every call, which the reference cannot
+    serve on an int8 ``wq`` either (its prefill raises ``TypeError``, its
+    decode step would drop the delta)."""
+    if "lora_a" in params.get("stack", {}):
+        raise NotImplementedError(_HYBRID_QUANTIZE)
+
     def q(path, leaf):
         name = path[-1] if path else ""
         if "moe" in path:
@@ -329,12 +350,12 @@ class _Slot(_Captured):
         self.pos = torch.zeros(batch_size, dtype=torch.int64, device=lm.device)
 
     def advanced(self) -> list:
-        """A recurrent cache's leaves (the rwkv6 token shifts and state):
-        a step moves them on from what it read, where a K/V step rewrites
-        its slot with the same values."""
-        if not _recurrent(self.cache):
-            return []
-        return [buf for _, buf in cache_leaves(self.cache)]
+        """A recurrent cache's carry leaves (under ``['ssm']``: the rwkv6
+        token shifts and state, the Mamba2 conv window and state): a step
+        moves them on from what it read, where a K/V step rewrites its
+        slot with the same values."""
+        return [buf for path, buf in cache_leaves(self.cache)
+                if len(path) > 1]
 
     def owns(self, cache: dict) -> bool:
         """Whether every leaf of ``cache`` is this slot's own buffer."""
@@ -891,6 +912,9 @@ def main(argv=None):
         raise NotImplementedError(
             f"{cfg.name}: the serve CLI draws (B, P) prompts; a codebook "
             "config takes (B, P, C) — call generate with them")
+    if args.quantize and cfg.family == "hybrid":
+        # before any parameter or launch: the reference cannot serve it
+        raise NotImplementedError(f"{cfg.name}: {_HYBRID_QUANTIZE}")
     lm = build(cfg, device=args.device)
     print(render_plan(resolve_serving_plan(cfg), cfg))
     params = lm.init(args.seed)

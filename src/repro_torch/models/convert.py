@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from .layers import QuantizedWeight
 from .model import _dt
-from .transformer import _layer_leaves
+from .transformer import _layer_leaves, hybrid_leaves
 
 __all__ = ["params_from_reference"]
 
@@ -25,8 +25,10 @@ __all__ = ["params_from_reference"]
 def _expected_shapes(cfg: ModelConfig) -> dict:
     """Every leaf's path and shape: the tree ``LM.init`` makes for ``cfg``
     (an MoE config has ``moe/*`` leaves in place of ``mlp/*``, a gelu MLP
-    no ``w3``, an rwkv6 config the RWKV6 layer's leaves;
-    ``C = max(n_codebooks, 1)`` embedding tables and heads)."""
+    no ``w3``, an rwkv6 config the RWKV6 layer's leaves, a hybrid config
+    the Mamba2 layer's and ``stack/shared/*``, ``stack/lora_a``,
+    ``stack/lora_b``; ``C = max(n_codebooks, 1)`` embedding tables and
+    heads)."""
     D, C = cfg.d_model, max(cfg.n_codebooks, 1)
     norm = (("w",), ("b",)) if cfg.norm == "layernorm" else (("w",),)
     shapes = {("embed",): (C, cfg.vocab_size, D)}
@@ -34,6 +36,9 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     if cfg.n_layers:
         shapes.update({("stack", "layers") + path: (cfg.n_layers,) + shape
                        for path, shape, _ in _layer_leaves(cfg)})
+        if cfg.family == "hybrid":
+            shapes.update({("stack",) + path: shape
+                           for path, shape, _ in hybrid_leaves(cfg)})
     if not cfg.tie_embeddings:
         shapes[("head",)] = (C, D, cfg.vocab_size)
     return shapes

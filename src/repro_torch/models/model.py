@@ -5,9 +5,13 @@ Counterpart of ``repro.models.model`` for serving (``train_loss`` and
 dict of tensors with the reference's tree: ``embed (C,V,D)``,
 ``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w`` (and ``.b``
 under LayerNorm), ``head (C,D,V)`` when the embeddings are not tied, where
-``C = max(n_codebooks, 1)``. The decode cache is an attention stack's
-stacked K/V (``{"k", "v"}``, ``(L,B,S,KV,dh)``) or the rwkv6 stack's
-recurrent carry (``{"ssm": {"att_x", "ffn_x", "state"}}``, no seq axis).
+``C = max(n_codebooks, 1)``; the hybrid stack adds ``stack.shared.*``
+(one attention block), ``stack.lora_a`` and ``stack.lora_b``. The decode
+cache is an attention stack's stacked K/V (``{"k", "v"}``,
+``(L,B,S,KV,dh)``), the rwkv6 stack's recurrent carry (``{"ssm": {"att_x",
+"ffn_x", "state"}}``, no seq axis) or the hybrid stack's both
+(``{"ssm": {"conv", "ssm"}, "k", "v"}``, K/V one slab a shared-block
+invocation).
 
 Batch dict convention (fields past ``tokens`` optional):
   tokens       (B,S) int64               [(B,S,C) for codebooks]
@@ -161,8 +165,8 @@ class LM:
         drives all three coordinates, as in the reference.
 
         Returns (logits (B,V) [(B,C,V)], cache): the cache is updated **in
-        place** (one token per layer; the rwkv6 stack's token shifts and
-        state overwritten in their buffers) and returned.
+        place** (one token per layer; a recurrent layer's carry
+        overwritten in its buffers) and returned.
         """
         cfg = self.cfg
         B = tokens.shape[0]

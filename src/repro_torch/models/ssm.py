@@ -1,13 +1,12 @@
-"""Attention-free sequence mixer: RWKV6 (Finch).
+"""Attention-free sequence mixers: RWKV6 (Finch) and Mamba2 (SSD).
 
-Counterpart of the rwkv6 half of ``repro.models.ssm`` (the Mamba2 half,
-which the hybrid zamba2 stack needs, is not ported). The WKV recurrence is
-chunked as in the reference: the sequence is cut into chunks of ``Tc``
-tokens, each chunk a small dense ``O(Tc^2)`` problem, and the ``(B, H, dk,
-dk)`` float32 state carries from one chunk to the next, here in a Python
-loop where the reference runs ``lax.scan`` (``jax.checkpoint`` has no
-counterpart: serving takes no gradient). A decode step is a chunk of one
-token through the same arithmetic.
+Counterpart of ``repro.models.ssm``. Both recurrences are chunked as in the
+reference: the sequence is cut into chunks of ``Tc`` tokens, each chunk a
+small dense ``O(Tc^2)`` problem, and the float32 state (RWKV6's ``(B, H,
+dk, dk)``, Mamba2's ``(B, H, N, P)``) carries from one chunk to the next,
+here in a Python loop where the reference runs ``lax.scan``
+(``jax.checkpoint`` has no counterpart: serving takes no gradient). A
+decode step is a chunk of one token through the same arithmetic.
 
 The r / k / v / g / output projections and the channel mix's three linears
 go through :func:`~repro_torch.models.layers.dense`, so ``--emulate`` runs
@@ -19,6 +18,14 @@ where a log-domain error would compound across the recurrence. No softmax
 and no divider: ``--approx simdive`` alone runs no SIMDive kernel here
 (the channel mix's gate is a plain sigmoid, whatever the reference's module
 docstring says).
+
+Mamba2 (the hybrid zamba2 stack's backbone): the in-projections ``wz | wx
+| wb | wc | wdt`` and ``out_proj`` go through ``dense`` in the block's
+activation dtype (bf16 when served), their outputs cast to float32; the
+depthwise causal conv, the SSD recurrence, ``softplus(dt + dt_bias)``,
+``A = -exp(A_log)`` and the gated ``rmsnorm(y * silu(z))`` stay exact
+float32, as in the reference. Its gated norm is the plain ``rmsnorm``, not
+``apply_norm``, so ``use_in_norm`` does not reach it (nor the block norm).
 
 Every function takes its device from its inputs and reads nothing on the
 host, so a prefill and a decode step run inside captured CUDA graphs.
@@ -203,4 +210,171 @@ def rwkv6_empty_carry(batch, d_model, n_heads, dtype, device):
         "ffn_x": torch.zeros((batch, d_model), dtype=dtype, device=device),
         "state": torch.zeros((batch, n_heads, dk, dk), dtype=torch.float32,
                              device=device),
+    }
+
+
+# ================================================================== Mamba2 =
+CONV_K = 4
+
+
+def mamba2_leaves(d_model, d_state, head_dim):
+    """One Mamba2 layer's leaves ``(path, shape, init)`` in the order of the
+    reference's ``init_mamba2`` (``d_inner = 2 * d_model``, ``H = d_inner /
+    head_dim`` heads): the in-projections z | x | B | C | dt at fan-in
+    ``d_model`` and ``out_proj`` at ``d_inner``, the conv taps at
+    uniform(+-CONV_K^-0.5), a zero conv bias and ``dt_bias``, unit norms and
+    skip ``D``, and ``A_log = log(linspace(1, 16, H))``
+    (``("loglinspace", (1.0, 16.0))``). The reference draws ``wb`` and
+    ``out_proj`` from one key; the port's streams differ anyway (see
+    ``init_stack``), so each is its own draw at its distribution."""
+    D, N = d_model, d_state
+    d_inner = 2 * D
+    H = d_inner // head_dim
+    return [
+        (("norm", "w"), (D,), "ones"),
+        (("wz",), (D, d_inner), D),
+        (("wx",), (D, d_inner), D),
+        (("wb",), (D, N), D),
+        (("wc",), (D, N), D),
+        (("wdt",), (D, H), D),
+        (("conv_x",), (CONV_K, d_inner), CONV_K),
+        (("conv_b",), (CONV_K, N), CONV_K),
+        (("conv_c",), (CONV_K, N), CONV_K),
+        (("conv_bias",), (d_inner + 2 * N,), "zeros"),
+        (("A_log",), (H,), ("loglinspace", (1.0, 16.0))),
+        (("D",), (H,), "ones"),
+        (("dt_bias",), (H,), "zeros"),
+        (("out_norm", "w"), (d_inner,), "ones"),
+        (("out_proj",), (d_inner, D), d_inner),
+    ]
+
+
+def _ssd_chunk(state, x, B_m, C_m, dt, A):
+    """One chunk of the SSD recurrence, in float32 (float64 when the state
+    is float64: a reference for its round-off).
+
+    state: (B,H,N,P); x: (B,Tc,H,P); B_m / C_m: (B,Tc,N); dt: (B,Tc,H); A:
+    (H,) negative. With the log decay ``c_t`` = the inclusive cumsum of
+    ``dt * A``:
+      y_t = exp(c_t) C_t . S_0 + sum_{s<=t} exp(c_t - c_s) (C_t . B_s) dt_s x_s
+      S'  = exp(c_T) S_0 + sum_s exp(c_T - c_s) dt_s B_s x_s^T
+    Returns ``(state', y (B,Tc,H,P))``.
+    """
+    ft = torch.promote_types(state.dtype, torch.float32)
+    x, B_m, C_m, dt, A = (t.to(ft) for t in (x, B_m, C_m, dt, A))
+    c = torch.cumsum(dt * A, dim=1)                  # (B,Tc,H), inclusive
+    # inter-chunk: S_0's coefficient at step t is prod_{tau<=t} a = exp(c_t)
+    y_inter = torch.einsum("btn,bhnp->bthp", C_m, state) \
+        * torch.exp(c)[..., None]
+    # intra-chunk: dec[t,s] = exp(c_t - c_s) for s <= t. The difference is
+    # clamped at 0 before the exp, as the reference does, and only then
+    # masked: above the diagonal it is positive and its exp may be inf,
+    # and inf * 0 is NaN
+    Tc = x.shape[1]
+    t = torch.arange(Tc, device=x.device)
+    mask = t[:, None] >= t[None, :]
+    dec = torch.exp(torch.clamp(c[:, :, None] - c[:, None], max=0.0)) \
+        * mask[None, :, :, None]                     # (B,Tc,Tc,H)
+    cb = torch.einsum("btn,bsn->bts", C_m, B_m)
+    # the reference's 4-operand einsum bts,btsh,bsh,bshp->bthp: the (b, t,
+    # s, h) weight first, then one contraction with x over s (materialised
+    # as written it is (B,Tc,Tc,H,P), 1.34 GB a chunk at zamba2's width)
+    w = cb[..., None] * dec * dt[:, None]
+    y_intra = torch.einsum("btsh,bshp->bthp", w, x)
+    # state update
+    tot = c[:, -1]                                   # (B,H)
+    k_dec = torch.exp(tot[:, None] - c) * dt         # (B,Tc,H)
+    state_new = torch.exp(tot)[:, :, None, None] * state + torch.einsum(
+        "bsn,bshp->bhnp", B_m, k_dec[..., None] * x)
+    return state_new, y_inter + y_intra
+
+
+def _causal_conv(seq, w, bias):
+    """Depthwise causal conv of float32 ``seq`` (B, CONV_K-1+T, C), which
+    already has CONV_K-1 left context rows, with taps ``w`` (CONV_K, C):
+    the terms summed in float32 from tap 0 on, as the reference's Python
+    ``sum`` (whose ``0 + term 0`` is term 0), then ``silu(out + bias)``."""
+    T = seq.shape[1] - (CONV_K - 1)
+    wf = w.to(torch.float32)
+    out = seq[:, :T] * wf[0]
+    for i in range(1, CONV_K):
+        out = out + seq[:, i:i + T] * wf[i]
+    return F.silu(out + bias)
+
+
+def mamba2_mix(p, x, conv_state, ssm_state, d_state, head_dim, chunk=128,
+               approx: ApproxConfig = EXACT):
+    """x: (B,T,D). conv_state: (B,CONV_K-1,d_inner+2N) in the cache dtype;
+    ssm_state: (B,H,N,P) float32. Returns ``(y (B,T,D) in x's dtype, new
+    conv_state in x's dtype, new ssm_state)``.
+
+    The projections multiply in x's dtype; a tail that does not fill the
+    last chunk is padded with identity steps (``dt = 0``: decay 1, no
+    input), as in the reference. ``softplus`` is ``logaddexp(v, 0)``, the
+    reference's form.
+    """
+    B, T, D = x.shape
+    d_inner = 2 * D
+    H = d_inner // head_dim
+    N = d_state
+    f32 = torch.float32
+    z = dense(x, p["wz"], approx).to(f32)
+    xbc = torch.cat([dense(x, p["wx"], approx).to(f32),
+                     dense(x, p["wb"], approx).to(f32),
+                     dense(x, p["wc"], approx).to(f32)], dim=-1)
+    dt_raw = dense(x, p["wdt"], approx).to(f32)
+    seq = torch.cat([conv_state.to(f32), xbc], dim=1)
+    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
+    xbc_c = _causal_conv(seq, conv_w, p["conv_bias"].to(f32))
+    xs, B_m, C_m = torch.split(xbc_c, [d_inner, N, N], dim=-1)
+    xs = xs.reshape(B, T, H, head_dim)
+    v = dt_raw + p["dt_bias"].to(f32)
+    dt = torch.logaddexp(v, v.new_zeros(()))                 # (B,T,H)
+    A = -torch.exp(p["A_log"].to(f32))
+
+    Tc = min(chunk, T)
+    pad = (-T) % Tc
+    xp, Bp, Cp, dtp = xs, B_m, C_m, dt
+    if pad:
+        # identity-padded tail: dt=0 => decay 1 and zero input contribution
+        xp = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        Bp, Cp, dtp = (F.pad(t, (0, 0, 0, pad)) for t in (B_m, C_m, dt))
+    s = ssm_state.to(f32)
+    ys = []
+    for lo in range(0, T + pad, Tc):
+        hi = lo + Tc
+        s, y = _ssd_chunk(s, xp[:, lo:hi], Bp[:, lo:hi], Cp[:, lo:hi],
+                          dtp[:, lo:hi], A)
+        ys.append(y)
+    y = torch.cat(ys, 1).reshape(B, T + pad, d_inner)[:, :T]
+    # the skip term: D repeated over each head's head_dim channels (a
+    # broadcast; the elementwise products are the reference's)
+    y = y + (xs * p["D"].to(f32)[:, None]).reshape(B, T, d_inner)
+    y = rmsnorm(y * F.silu(z), p["out_norm"]["w"])
+    out = dense(y.to(x.dtype), p["out_proj"], approx)
+    new_conv = seq[:, -(CONV_K - 1):].to(x.dtype)
+    return out, new_conv, s
+
+
+def mamba2_block(p, x, carry, d_state, head_dim, chunk=128,
+                 approx: ApproxConfig = EXACT):
+    """carry = dict(conv, ssm). x: (B,T,D). Returns ``(x', new carry)``;
+    the carry's tensors are new, never ``carry``'s own. The block norm is
+    the exact ``rmsnorm`` (eps 1e-6) under any ``use_in_norm``, as in the
+    reference."""
+    h = rmsnorm(x, p["norm"]["w"])
+    y, conv, ssm = mamba2_mix(p, h, carry["conv"], carry["ssm"], d_state,
+                              head_dim, chunk, approx)
+    return x + y, {"conv": conv, "ssm": ssm}
+
+
+def mamba2_empty_carry(batch, d_model, d_state, head_dim, dtype, device):
+    """A zero conv window in ``dtype`` and a zero float32 state."""
+    d_inner = 2 * d_model
+    H = d_inner // head_dim
+    return {
+        "conv": torch.zeros((batch, CONV_K - 1, d_inner + 2 * d_state),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, H, d_state, head_dim),
+                           dtype=torch.float32, device=device),
     }

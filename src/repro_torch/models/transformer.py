@@ -1,13 +1,15 @@
 """Decoder assembly: blocks, the layer loop, decode caches.
 
-Counterpart of ``repro.models.transformer`` for attention stacks and the
-rwkv6 stack. Per-layer parameters stay stacked with a leading L axis, as
-the reference keeps them (``params["layers"]["wq"]`` is ``(L, D, H*dh)``);
-the reference's ``lax.scan`` over that axis is a Python loop here, indexing
-views. An attention stack's decode cache is a dict of stacked ``(L, B, S,
-KV, dh)`` tensors; the rwkv6 stack's is the recurrent carry stacked over
-layers, ``{"ssm": {"att_x" (L,B,D), "ffn_x" (L,B,D), "state" (L,B,H,dk,dk)
-float32}}``, with no seq axis.
+Counterpart of ``repro.models.transformer``. Per-layer parameters stay
+stacked with a leading L axis, as the reference keeps them
+(``params["layers"]["wq"]`` is ``(L, D, H*dh)``); the reference's
+``lax.scan`` over that axis is a Python loop here, indexing views. An
+attention stack's decode cache is a dict of stacked ``(L, B, S, KV, dh)``
+tensors; the rwkv6 stack's is the recurrent carry stacked over layers,
+``{"ssm": {"att_x" (L,B,D), "ffn_x" (L,B,D), "state" (L,B,H,dk,dk)
+float32}}``, with no seq axis; the hybrid stack's both, ``{"ssm": {"conv"
+(L,B,3,d_inner+2N), "ssm" (L,B,H,N,P) float32}, "k" / "v" (n_inv,B,S,KV,
+dh)}``, one K/V slab a shared-block invocation.
 
 The dense family's features are built: qk-norm (qwen3), qkv biases
 (qwen2.5, stablelm), LayerNorm and partial rotary (stablelm); the MoE
@@ -15,9 +17,10 @@ family's block (:mod:`repro_torch.models.moe`, mixtral and llama4-scout),
 which takes the MLP's place; and the modality-stub families' (qwen2-vl's
 M-RoPE, musicgen's gelu MLP; their sinusoidal positions, codebooks and
 vision stub live in :mod:`repro_torch.models.model`); and the family
-``ssm`` stack of RWKV6 blocks (:mod:`repro_torch.models.ssm`, rwkv6-1.6b).
-The hybrid stack (zamba2: Mamba2 blocks and a shared attention block) is
-not ported yet.
+``ssm`` stack of RWKV6 blocks (:mod:`repro_torch.models.ssm`, rwkv6-1.6b);
+and the hybrid stack (zamba2-2.7b): groups of ``hybrid_period`` Mamba2
+blocks, each group followed by one *shared* attention + MLP block whose q
+projection takes a per-invocation LoRA delta, merged on every call.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import serving_segments
 from .layers import (
+    QuantizedWeight,
     apply_norm,
     apply_rope,
     decode_attention_append,
@@ -40,16 +44,34 @@ from .layers import (
     uniform_,
 )
 from .moe import moe_ffn, moe_leaves
-from .ssm import rwkv6_block, rwkv6_empty_carry, rwkv6_leaves
+from .ssm import (
+    mamba2_block,
+    mamba2_empty_carry,
+    mamba2_leaves,
+    rwkv6_block,
+    rwkv6_empty_carry,
+    rwkv6_leaves,
+)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for architecture features the port does not build yet: the
-    hybrid family, experts outside an MoE stack, and activations or
-    position embeddings the reference does not have either."""
+    """Raise for architecture features the port does not build: a family
+    other than the reference's, a hybrid stack that is not Mamba2 groups
+    of ``hybrid_period > 0`` layers with a whole number of groups (the
+    reference's stack would drop the remainder), experts outside an MoE
+    stack, and activations or position embeddings the reference does not
+    have either."""
+    hybrid = cfg.family == "hybrid"
     missing = [name for name, on in (
         ("family " + cfg.family,
-         cfg.family not in ("dense", "moe", "vlm", "audio", "ssm")),
+         cfg.family not in ("dense", "moe", "vlm", "audio", "ssm",
+                            "hybrid")),
+        (f"hybrid ssm {cfg.ssm!r}", hybrid and cfg.ssm != "mamba2"),
+        (f"hybrid_period {cfg.hybrid_period}",
+         hybrid and cfg.hybrid_period <= 0),
+        (f"n_layers {cfg.n_layers} not a multiple of hybrid_period "
+         f"{cfg.hybrid_period}", hybrid and cfg.hybrid_period > 0
+         and cfg.n_layers % cfg.hybrid_period != 0),
         ("n_experts", bool(cfg.n_experts) and cfg.family != "moe"),
         ("act " + cfg.act, cfg.act not in ("swiglu", "gelu")),
         ("pos_emb " + cfg.pos_emb, cfg.pos_emb not in ("rope", "sin")),
@@ -69,11 +91,20 @@ def _layer_leaves(cfg: ModelConfig):
     """One layer's leaves ``(path, shape, init)`` in the reference's tree
     and in the order their random draws are made; ``init`` is a fan-in
     (uniform(+-fan_in^-0.5)), ``"ones"`` (norm gains), ``"zeros"``
-    (biases), or for the rwkv6 layer ``("limit", lim)`` (uniform(+-lim))
-    and ``("full", value)`` (a constant)."""
-    H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    (biases), or for the recurrent layers ``("limit", lim)``
+    (uniform(+-lim)), ``("full", value)`` (a constant) and
+    ``("loglinspace", (lo, hi))`` (Mamba2's ``A_log``)."""
     if cfg.family == "ssm":
-        return rwkv6_leaves(D, _rwkv6_heads(cfg), cfg.d_ff)
+        return rwkv6_leaves(cfg.d_model, _rwkv6_heads(cfg), cfg.d_ff)
+    if cfg.family == "hybrid":
+        return mamba2_leaves(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim)
+    return _attn_leaves(cfg)
+
+
+def _attn_leaves(cfg: ModelConfig):
+    """An attention block's leaves (:func:`_layer_leaves`' form): the
+    attention stacks' layer and the hybrid stack's shared block."""
+    H, KV, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     norm = [("w", "ones")] + ([("b", "zeros")] if cfg.norm == "layernorm"
                               else [])
     leaves = [(("ln_attn", k), (D,), how) for k, how in norm]
@@ -107,20 +138,50 @@ def _fill(t: torch.Tensor, init, gen: torch.Generator) -> torch.Tensor:
         return t.zero_()
     if isinstance(init, tuple):
         how, val = init
+        if how == "full":
+            return t.fill_(val)
+        if how == "loglinspace":
+            # the reference's log(linspace(lo, hi, n).astype(float32))
+            lo, hi = val
+            return t.copy_(torch.linspace(lo, hi, t.shape[-1],
+                                          dtype=torch.float64,
+                                          device=t.device)
+                           .to(torch.float32).log_())
         # ("limit", lim) is uniform(+-lim): the fan-in lim^-2
-        return t.fill_(val) if how == "full" else uniform_(t, val ** -2, gen)
+        return uniform_(t, val ** -2, gen)
     return uniform_(t, init, gen)
+
+
+def n_invocations(cfg: ModelConfig) -> int:
+    """How many times the hybrid stack runs its shared block: once after
+    each group of ``hybrid_period`` Mamba2 layers."""
+    return cfg.n_layers // cfg.hybrid_period
+
+
+def hybrid_leaves(cfg: ModelConfig):
+    """The hybrid stack's leaves beside its layers, :func:`_layer_leaves`'
+    form: the shared block's (unstacked; ``init_attn_layer``'s), then
+    ``lora_a`` ``(n_inv, D, r)`` at fan-in D and ``lora_b`` ``(n_inv, r,
+    H*dh)`` of zeros, one pair an invocation."""
+    r, D = cfg.hybrid_lora_rank, cfg.d_model
+    n_inv = n_invocations(cfg)
+    return ([(("shared",) + path, shape, init)
+             for path, shape, init in _attn_leaves(cfg)]
+            + [(("lora_a",), (n_inv, D, r), D),
+               (("lora_b",), (n_inv, r, cfg.n_heads * cfg.d_head),
+                "zeros")])
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     """Stacked per-layer params (leading L axis): uniform(+-fan_in^-0.5)
     linears (an MoE block's experts and router too), unit norms, zero
-    biases, and the rwkv6 layer's own limits and constants — the
+    biases, and the recurrent layers' own limits and constants — the
     reference's distributions and tree; the random streams
     differ. Each stacked leaf is allocated once and filled layer by layer
     in :func:`_layer_leaves`' order: the values a ``torch.stack`` of
     whole per-layer draws gives, without a second copy of the
-    parameters."""
+    parameters. The hybrid stack adds its shared block and LoRA pairs
+    (:func:`hybrid_leaves`), drawn after the layers."""
     _check_ported(cfg)
     L = cfg.n_layers
     if L == 0:
@@ -131,7 +192,13 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     for i in range(L):
         for path, _, init in leaves:
             _fill(flat[path][i], init, gen)
-    return {"layers": nest(flat)}
+    out = {"layers": nest(flat)}
+    if cfg.family == "hybrid":
+        extra = {path: _fill(torch.empty(shape, dtype=dtype, device=device),
+                             init, gen)
+                 for path, shape, init in hybrid_leaves(cfg)}
+        out.update(nest(extra))
+    return out
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -282,15 +349,63 @@ def _write_token(buf, i, at, new):
     return buf
 
 
+def hybrid_shared(params, g: int, dtype):
+    """The shared block's parameters for invocation ``g``: its own, with
+    ``wq + lora_a[g] @ lora_b[g]`` in place of ``wq``, the LoRA pair cast
+    to the activation ``dtype`` first, as in the reference. The merge is
+    made on every call, as the reference makes it (a ``(D, r) @ (r, H*dh)``
+    product and a ``(D, H*dh)`` float32 sum each time). An int8 ``wq``
+    (``--quantize``) raises: the reference's prefill cannot add the delta
+    to a ``QuantizedWeight`` (a ``TypeError``), and its decode step would
+    skip the LoRA."""
+    sp = dict(params["shared"])
+    if isinstance(sp["wq"], QuantizedWeight):
+        raise NotImplementedError(
+            "the hybrid stack's shared block merges a per-invocation LoRA "
+            "delta into wq on every call; an int8 wq (--quantize) cannot "
+            "take it (the reference's prefill raises TypeError there)")
+    la = params["lora_a"][g].to(dtype)
+    lb = params["lora_b"][g].to(dtype)
+    sp["wq"] = sp["wq"] + la @ lb
+    return sp
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """``(g, range of g's Mamba2 layers)`` for each shared-block
+    invocation."""
+    P = cfg.hybrid_period
+    return ((g, range(g * P, (g + 1) * P)) for g in range(n_invocations(cfg)))
+
+
 def stack_prefill(params, x, cfg: ModelConfig, positions):
     """Full-sequence forward that also returns the decode cache: per-layer
     K/V stacked (L,B,S,KV,dh), cache seq length == S; for the rwkv6 stack
     each layer's final recurrent carry, stacked (each layer starts from a
     zero carry, and runs ``cfg.approx`` whole: no policy segments, as in
-    the reference)."""
+    the reference); for the hybrid stack each Mamba2 layer's final carry
+    (each from a zero carry) and each shared-block invocation's K/V, the
+    whole stack at ``cfg.approx``, as in the reference."""
     _check_ported(cfg)
     if cfg.n_layers == 0:
         return x, empty_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
+    if cfg.family == "hybrid":
+        carry0 = mamba2_empty_carry(x.shape[0], cfg.d_model, cfg.ssm_state,
+                                    cfg.ssm_head_dim, x.dtype, x.device)
+        carries, ks, vs = [], [], []
+        for g, layers in _hybrid_groups(cfg):
+            for i in layers:
+                x, c = mamba2_block(layer_params(params["layers"], i), x,
+                                    carry0, cfg.ssm_state, cfg.ssm_head_dim,
+                                    cfg.ssm_chunk, cfg.approx)
+                carries.append(c)
+            x, (k, v) = attn_block_train(hybrid_shared(params, g, x.dtype),
+                                         x, cfg, positions)
+            ks.append(k)
+            vs.append(v)
+        return x, {"ssm": {name: torch.stack([c[name] for c in carries])
+                           for name in carry0},
+                   "k": torch.stack(ks).to(x.dtype),
+                   "v": torch.stack(vs).to(x.dtype)}
     if cfg.family == "ssm":
         H = _rwkv6_heads(cfg)
         carry0 = rwkv6_empty_carry(x.shape[0], cfg.d_model, H, x.dtype,
@@ -324,17 +439,26 @@ def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
                               device)
         return {"ssm": {k: a.new_zeros((L,) + a.shape) for k, a in c.items()}}
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    return {
-        "k": torch.zeros((L, batch, S, KV, dh), dtype=dtype, device=device),
-        "v": torch.zeros((L, batch, S, KV, dh), dtype=dtype, device=device),
-    }
+    n_kv = L
+    out = {}
+    if cfg.family == "hybrid":
+        c = mamba2_empty_carry(batch, cfg.d_model, cfg.ssm_state,
+                               cfg.ssm_head_dim, dtype, device)
+        out["ssm"] = {k: a.new_zeros((L,) + a.shape) for k, a in c.items()}
+        n_kv = n_invocations(cfg)
+    for name in ("k", "v"):
+        out[name] = torch.zeros((n_kv, batch, S, KV, dh), dtype=dtype,
+                                device=device)
+    return out
 
 
 def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
     """One-token decode through the stack. x: (B,1,D). Writes one token
     per layer into ``cache`` in place and returns it: a K/V slot, or the
-    rwkv6 layer's new carry (a chunk of one token, as the reference's
-    step), copied over the old one after the layer has read it."""
+    recurrent layer's new carry (a chunk of one token, as the reference's
+    step), copied over the old one after the layer has read it; the
+    hybrid stack does both, a carry a Mamba2 layer and a K/V slot a
+    shared-block invocation."""
     _check_ported(cfg)
     if cfg.n_layers == 0:
         return x, cache
@@ -350,6 +474,22 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
     kc, vc = cache["k"], cache["v"]
     at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
                       kc.device)
+    if cfg.family == "hybrid":
+        st = cache["ssm"]
+        for g, layers in _hybrid_groups(cfg):
+            for i in layers:
+                x, c = mamba2_block(layer_params(params["layers"], i), x,
+                                    {k: a[i] for k, a in st.items()},
+                                    cfg.ssm_state, cfg.ssm_head_dim, 1,
+                                    cfg.approx)
+                for k, a in st.items():
+                    a[i].copy_(c[k])
+            x, (k_new, v_new) = attn_block_decode(
+                hybrid_shared(params, g, x.dtype), x, cfg,
+                {"k": kc[g], "v": vc[g]}, pos, positions)
+            _write_token(kc, g, at, k_new)
+            _write_token(vc, g, at, v_new)
+        return x, cache
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
             x, (k_new, v_new) = attn_block_decode(

@@ -65,6 +65,9 @@ CASES = [
     ("G8 per-row", 2, 16, 1, 8, 32, "f32", [15, 1], False, 0),
     ("bf16 caches per-row", 3, 16, 2, 3, 64, "bf16", [0, 9, 15], False, 0),
     ("bf16 caches ring wrapped", 2, 16, 2, 2, 64, "bf16", 21, True, 0),
+    # zamba2-2.7b's d_head 80 (G 1): the kernel's row is 10 / 20 lanes
+    ("dh80 G1 per-row", 2, 16, 3, 1, 80, "f32", [0, 11], False, 0),
+    ("dh80 bf16 caches", 2, 16, 2, 1, 80, "bf16", 13, False, 0),
 ]
 
 
@@ -138,6 +141,9 @@ def _call(args, **kw):
 
 def test_check_args_takes_what_the_kernel_takes():
     assert _call(_valid()) == (2, 8, 2, 3, 64)
+    # d_head 80 (zamba2-2.7b), f32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _call(_valid(G=1, dh=80, dtype=dtype)) == (2, 8, 2, 1, 80)
     assert _call(_valid(G=8, dh=128, dtype=torch.bfloat16),
                  ring_full=True) == (2, 8, 2, 8, 128)
     assert _call(_valid(G=1)) == (2, 8, 2, 1, 64)

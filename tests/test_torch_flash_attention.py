@@ -287,6 +287,45 @@ def test_attention_op_registers_blocks_and_check_block_refuses():
     assert t_fa.smem_bytes((64, 64, 4), torch.bfloat16, 128) == 156672
 
 
+# d_head 80 (zamba2-2.7b): every depth fits both dtypes. bf16: a q tile and
+# max(depth, 1) (k, v) slots of 64 rows of 88 bf16 (80 + 16 bytes of pad);
+# f32 depth 0: q, k (rows + 1 word), v and p tiles; depth D: q and p
+# tiles and D slots of (k, v) rows of 81 words
+DH80_SMEM = {(torch.bfloat16, 0): 33792, (torch.bfloat16, 1): 33792,
+             (torch.bfloat16, 2): 56320, (torch.bfloat16, 3): 78848,
+             (torch.bfloat16, 4): 101376, (torch.float32, 0): 78592,
+             (torch.float32, 1): 78848, (torch.float32, 2): 120320,
+             (torch.float32, 3): 161792, (torch.float32, 4): 203264}
+
+
+@pytest.mark.parametrize("dtype,depth", list(DH80_SMEM),
+                         ids=[f"{str(d).split('.')[-1]}-depth{n}"
+                              for d, n in DH80_SMEM])
+def test_smem_and_check_block_at_d_head_80(dtype, depth):
+    block = (64, 64, depth) if depth else (64, 64)
+    assert t_fa.smem_bytes(block, dtype, 80) == DH80_SMEM[dtype, depth]
+    assert t_fa.check_block(block, dtype, 80) == ((64, 64), depth)
+    assert 80 in t_fa._HEAD_DIMS
+
+
+@pytest.mark.parametrize("approx_div", [False, True])
+def test_flash_attention_ref_at_d_head_80_matches_reference(approx_div):
+    """zamba2-2.7b's head size through the plain version and the layer's
+    GQA path (G 1), against the reference's plain version and its Pallas
+    kernel in interpret mode."""
+    q, k, v = _qkv(2, 40, 40, 80, seed=21)
+    tol = APPROX_TOL if approx_div else EXACT_TOL
+    got = t_fa.flash_attention_ref(*_t(q, k, v), approx_div=approx_div
+                                   ).numpy()
+    want = np.asarray(r_fa.flash_attention_ref(*_j(q, k, v),
+                                               approx_div=approx_div))
+    np.testing.assert_allclose(got, want, **tol)
+    kern = np.asarray(r_get_op("attention", r_fa.DEFAULT_DIV_SPEC, "pallas",
+                               block=(32, 32))(
+        *_j(q, k, v), approx_div=approx_div))
+    np.testing.assert_allclose(got, kern, **tol)
+
+
 def test_check_aligned_refuses_bf16_views_off_16_bytes():
     """Both bf16 schedules load q / k / v 16 bytes at a time: a bf16 k that
     is 4-byte but not 16-byte aligned is refused by the check ``_launch``

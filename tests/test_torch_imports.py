@@ -59,7 +59,8 @@ def test_every_package_module_is_covered():
                    "faults/inject.py", "faults/scrub.py",
                    "faults/campaign.py", "launch/scheduler.py",
                    "core/lod.py", "core/baselines.py", "metrics/image.py",
-                   "models/ssm.py", "configs/rwkv6_1_6b.py"):
+                   "models/ssm.py", "configs/rwkv6_1_6b.py",
+                   "configs/zamba2_2_7b.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",

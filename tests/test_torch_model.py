@@ -526,7 +526,7 @@ def test_unported_paths_raise_instead_of_serving_something_else():
         dense(x.requires_grad_(), w,
               TApprox(mode="simdive", backward="approx")).sum().backward()
     with pytest.raises(KeyError, match="ported so far"):
-        t_get_config("zamba2-2.7b")
+        t_get_config("zamba3-7b")
     # M-RoPE and the gelu MLP are ported (the modality-stub families):
     # those configs build, with the tree their features need
     for kw in (dict(mrope=True), dict(act="gelu")):
@@ -534,11 +534,12 @@ def test_unported_paths_raise_instead_of_serving_something_else():
         params = t_build(cfg, device="cpu").init(0)
         assert ("w3" in params["stack"]["layers"]["mlp"]) == \
             (cfg.act == "swiglu")
-    # a feature still unported raises before any parameter is made: the
-    # hybrid family, experts outside the MoE family (the rwkv6 stack's
-    # too), and an activation or position embedding the reference does
-    # not have
-    for kw, name in ((dict(family="hybrid"), "family hybrid"),
+    # a feature still unported raises before any parameter is made: a
+    # hybrid family that is not the reference's Mamba2 stack (here no ssm
+    # and no hybrid_period), experts outside the MoE family (the rwkv6
+    # stack's too), and an activation or position embedding the reference
+    # does not have
+    for kw, name in ((dict(family="hybrid"), "hybrid ssm ''"),
                      (dict(family="ssm", n_experts=4), "n_experts"),
                      (dict(act="relu"), "act relu"),
                      (dict(pos_emb="alibi"), "pos_emb alibi")):
@@ -547,18 +548,25 @@ def test_unported_paths_raise_instead_of_serving_something_else():
             t_build(cfg, device="cpu").init(0)
 
 
-@pytest.mark.parametrize("arch", ARCHS[1:])
+@pytest.mark.parametrize("arch", ARCHS[1:] + ("zamba2-2.7b",))
 def test_serve_cli_new_archs_on_cpu(arch, capsys):
     """``serve --arch <arch> --smoke --device cpu``, a batched generate and
-    the ``--scheduler`` drill, for each architecture this slice added."""
+    the ``--scheduler`` drill, for each architecture a later slice added;
+    the hybrid zamba2-2.7b's drill is refused with the reference's
+    ``ValueError`` (its recurrent cache has no per-slot seq axis)."""
     t_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--approx",
                   "simdive", "--batch", "2", "--prompt-len", "8", "--gen",
                   "3"])
     assert "generated (2, 3) on cpu" in capsys.readouterr().out
-    t_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--approx",
-                  "simdive", "--batch", "2", "--prompt-len", "8", "--gen",
-                  "3", "--scheduler", "--requests", "5", "--shed-depth",
-                  "3"])
+    drill = ["--arch", arch, "--smoke", "--device", "cpu", "--approx",
+             "simdive", "--batch", "2", "--prompt-len", "8", "--gen", "3",
+             "--scheduler", "--requests", "5", "--shed-depth", "3"]
+    if t_get_config(arch).family == "hybrid":
+        with pytest.raises(ValueError, match="family 'hybrid'"):
+            t_serve.main(drill)
+        assert not any(launch_counts().values())
+        return
+    t_serve.main(drill)
     out = capsys.readouterr().out
     assert "# scheduler: warmed 6 executable(s) across 3 level(s)" in out
     assert "# drill: 5 request(s) in" in out
