@@ -448,6 +448,31 @@ any phase fails. Phases:
               ``--emulate``, 4 tokens: 360 ``logmatmul`` a prefill and a
               step (6 a Mamba2 layer, 6 a shared-block invocation; the
               head exact), captured == eager.
+15. training — the training path (``repro_torch.launch.train``) on
+              smollm-360m at full width, after every served graph is
+              dropped. (a) ``logmatmul`` at the gradient products'
+              shapes, gx (2048, N_out) x (N_out, K_in) and gw (K_in,
+              2048) x (2048, N_out) of ``wq`` and ``w2``, every
+              registered block ``torch.equal`` to its plain version on
+              256 rows, timed beside its bound; ``elemwise`` at the
+              training finalize's (4, 5, 3, 512, 64) lanes
+              ``torch.equal`` to its plain version. (b)-(d) under
+              ``torch.use_deterministic_algorithms``: (b) one
+              ``make_train_step`` step at 2 of 32 layers, batch 2 x 128,
+              ``--approx simdive --backward approx``, on the kernels and
+              on the plain versions: loss, gradients and updated
+              parameters ``torch.equal``; (c) ``train`` with all 32
+              layers, batch 4 x 512, remat on, ``--approx simdive
+              --backward approx``, 6 steps, a checkpoint every 3 and a
+              rung change at step 3: a step's 704 ``logmatmul`` (22 a
+              layer: R-8 leaves wq / wk / wv without gradient products)
+              and 64 ``elemwise`` launches, its time, peak memory and device
+              time by kernel, every loss finite, a run killed after 4
+              steps and resumed equal to the uninterrupted run from the
+              checkpoint on; (d) ``train_twin`` at full width, 4 steps,
+              exact against ``--approx simdive``, R-8 (no gradient for
+              the approximate model's wq / wk / wv), and an exact-base
+              twin at 2 layers with zero divergence.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -696,6 +721,36 @@ ZAMBA2_CHECK_ROWS = (4, 2048)
 # (c) --emulate: 4 tokens; 6 x 54 Mamba2 linears + 6 x 6 shared-block
 # linears = 360 logmatmul a prefill and a step
 ZAMBA2_EMULATE_GEN = 4
+# phase 15: training (launch/train.py) at smollm-360m's full width, batch 4
+# x seq 512, --approx simdive --backward approx, remat on. A step runs each
+# linear's forward and its re-run in the remat backward (7 a layer each),
+# and both gradient products of the linears the loss reaches: not wq, wk
+# and wv, upstream of the attention finalize's SIMDive divider, whose
+# quotient carries no gradient (ROADMAP R-8), so autograd runs neither of
+# their products: 4 x 2 a layer. The finalize's divider runs once a layer
+# in the forward and once in the re-run
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_LR = 3e-4
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_STOP_AFTER, TRAIN_RUNG_AT = 6, 3, 4, 3
+TRAIN_LOGMATMUL_A_LAYER = 7 + 7 + 4 * 2
+TRAIN_LOGMATMUL_A_STEP = 32 * TRAIN_LOGMATMUL_A_LAYER
+TRAIN_ELEMWISE_A_STEP = 2 * 32
+# the twin (train_twin): exact against --approx simdive (straight-through
+# backward): 7 x 32 x 2 logmatmul and 64 elemwise a step, all the
+# approximate twin's
+TWIN_STEPS, TWIN_LR = 4, 1e-3
+TWIN_LOGMATMUL_A_STEP = 7 * 32 * 2
+# (b): one make_train_step step on the kernels against one on the plain
+# versions, at full width but 2 of 32 layers and batch 2 x seq 128 (the
+# plain versions' int64 emulation of a full-size step would take minutes)
+STEP_CHECK_LAYERS, STEP_CHECK_BATCH, STEP_CHECK_SEQ = 2, 2, 128
+# (a): logmatmul at the gradient products' shapes, held against its plain
+# version on the first TRAIN_CHECK_ROWS rows (a full (2048, 960) x (960,
+# 2560) product in int64 takes seconds), every registered block; the
+# (name, K_in, N_out) of the linears whose products are held: gx is
+# (2048, N_out) x (N_out, K_in), gw (K_in, 2048) x (2048, N_out)
+TRAIN_CHECK_ROWS = 256
+TRAIN_GRAD_LINEARS = (("wq", 960, 960), ("w2", 2560, 960))
 
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
@@ -2336,7 +2391,7 @@ def check_prefill_replay(lm, params, prompts, what: str) -> dict:
 
 
 def _matmul_launches(counts) -> int:
-    return counts["matmul"] + counts["matmul_pipelined"]
+    return counts.get("matmul", 0) + counts.get("matmul_pipelined", 0)
 
 
 def _attention_launches(counts) -> int:
@@ -6026,6 +6081,465 @@ def zamba2_phase(dev, int_rate) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 15 --
+def _tree_equal(a, b) -> tuple[bool, float, list]:
+    """Whether two trees of tensors are equal leaf for leaf (a ``None``
+    gradient leaf equal only to ``None``): ``(equal, largest absolute
+    difference, the paths that differ)``."""
+    from repro_torch.core.tree import tree_leaves
+
+    def paths(t, p=()):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from paths(t[k], p + (k,))
+        else:
+            yield "/".join(p)
+
+    worst, bad = 0.0, []
+    for path, x, y in zip(paths(a), tree_leaves(a), tree_leaves(b)):
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                bad.append(path)
+            continue
+        if not torch_equal(x, y):
+            bad.append(path)
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return not bad, worst, bad
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def train_kernel_checks(dev, int_rate) -> dict:
+    """Phase 15 (a): the kernels at the training path's new shapes.
+    ``logmatmul`` at smollm-360m's gradient products — gx (2048, N_out) x
+    (N_out, K_in) and gw (K_in, 2048) x (2048, N_out) of ``wq`` and
+    ``w2`` — every registered block ``torch.equal`` to its plain version on
+    the first TRAIN_CHECK_ROWS rows, each timed (graph replay) beside its
+    bound; ``elemwise`` at the training finalize's (4, 5, 3, 512, 64)
+    lanes (the divider of ``attention_div``, w16 cb6 fo15) ``torch.equal``
+    to its plain version, and ``attention_div`` on the card equal to it on
+    the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig, attention_div
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import logmatmul as lmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    spec8 = SimdiveSpec(width=8, coeff_bits=6)
+    blocks = get_op("matmul_int", spec8).entry.block_candidates
+    M = TRAIN_BATCH * TRAIN_SEQ
+    products = {}
+    for name, k_in, n_out in TRAIN_GRAD_LINEARS:
+        for prod, (m, k, n) in (("gx", (M, n_out, k_in)),
+                                ("gw", (k_in, M, n_out))):
+            x = torch.randint(-255, 256, (m, k), generator=gen, device=dev,
+                              dtype=torch.int32)
+            w = torch.randint(-255, 256, (k, n), generator=gen, device=dev,
+                              dtype=torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = lmm.logmatmul_ref(x[:TRAIN_CHECK_ROWS], w, spec8)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            by_block = {}
+            for b in blocks:
+                got = lmm.logmatmul_cuda(x, w, spec8, b)
+                require(torch_equal(got[:TRAIN_CHECK_ROWS], want),
+                        f"logmatmul {name} {prod} ({m}, {k}) x ({k}, {n}) "
+                        f"block {b}: not bit-equal to its plain version")
+                by_block[b] = gpu_graph_time_ms(
+                    lambda b=b: lmm.logmatmul_cuda(x, w, spec8, b), iters=3)
+            best = min(blocks, key=by_block.get)
+            ops_ms = logmatmul_ops_ms(m, k, n, int_rate)
+            bytes_ms = (m * k + k * n + m * n) * 4 / HBM_BYTES_PER_S * 1e3
+            row = products[f"{name} {prod}"] = {
+                "shape": [m, k, n], "ms": by_block[best],
+                "block": list(best),
+                "ms_by_block": {str(list(b)): t for b, t in by_block.items()},
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "plain_ms_rows": plain_ms, "plain_rows": TRAIN_CHECK_ROWS,
+                "max_abs_err": 0, "library_ms": None}
+            log(f"  logmatmul {name} {prod} ({m}, {k}) x ({k}, {n}): "
+                f"{row['ms']:.4f} ms (block {row['block']}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                f"{row['ms'] / row['bound_ms']:.2f}x); every block "
+                f"bit-equal on {TRAIN_CHECK_ROWS} rows (plain "
+                f"{plain_ms:.1f} ms)")
+            del x, w, want, got
+    cfg = get_config(ARCH)
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    shape = (TRAIN_BATCH, KV, G, TRAIN_SEQ, dh)
+    acc = torch.randn(shape, generator=gen, device=dev) * 3
+    l = torch.rand(shape[:-1], generator=gen, device=dev) * 60 + 1
+    spec16 = SimdiveSpec(width=16, coeff_bits=6)
+    qn, qd = fa.softmax_div_quantize(acc, l, spec16.width)
+    a = qn.to(torch.int32).view(torch.uint32)
+    b = qd.expand_as(qn).to(torch.int32).view(torch.uint32)
+    kern = lambda: get_op("elemwise", spec16, "cuda")(a, b, op="div",
+                                                      frac_out=15)
+    plain = lambda: get_op("elemwise", spec16, "ref")(a, b, op="div",
+                                                      frac_out=15)
+    require(torch_equal(kern(), plain()),
+            f"elemwise at the training finalize's {shape}: not bit-equal")
+    approx = ApproxConfig(mode="simdive")
+    require(torch_equal(attention_div(acc, l, approx),
+                        attention_div(acc, l, replace(approx,
+                                                      backend="ref"))),
+            "attention_div on the card differs from its plain version")
+    lanes = a.numel()
+    ops_ms = ELEMWISE_OPS_PER_LANE * lanes / int_rate * 1e3
+    bytes_ms = 12 * lanes / HBM_BYTES_PER_S * 1e3
+    finalize = {"shape": list(shape), "lanes": lanes,
+                "ms": gpu_graph_time_ms(kern, iters=50),
+                "eager_ms": gpu_time_ms(kern, iters=50),
+                "plain_ms": gpu_time_ms(plain, iters=5),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "max_abs_err": 0, "library_ms": None}
+    log(f"  elemwise at the training finalize's {shape} ({lanes} lanes, "
+        f"w16 cb6 fo15): {finalize['ms']:.5f} ms (graph), bound "
+        f"{finalize['bound_ms']:.5f} ms ({finalize['bound_by']}), plain "
+        f"{finalize['plain_ms']:.3f} ms; bit-equal")
+    return {"products": products, "finalize": finalize}
+
+
+def _matmuls(counts) -> int:
+    return counts.get("matmul", 0) + counts.get("matmul_pipelined", 0)
+
+
+def train_step_check(dev) -> dict:
+    """Phase 15 (b): one training step of smollm-360m at full width, 2 of
+    32 layers, batch 2 x seq 128, ``--approx simdive --backward approx``,
+    on the kernels and with every op on its plain version (``backend=
+    'ref'`` on the card), from the same parameters and batch: the loss,
+    every gradient leaf (``None`` where R-8 leaves none) and the AdamW
+    update ``torch.equal``, and ``make_train_step``'s step equal to the
+    gradient and update taken apart. The kernels' gradient run launches
+    2 x TRAIN_LOGMATMUL_A_LAYER ``logmatmul`` and 2 x 2 ``elemwise``."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.core.tree import value_and_grad
+    from repro_torch.data import make_source, torch_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, cosine_schedule
+
+    approx = ApproxConfig(mode="simdive", backward="approx")
+    cfg = replace(get_config(ARCH), n_layers=STEP_CHECK_LAYERS
+                  ).with_approx(approx)
+    lm = build(cfg, dev)
+    lm_ref = build(cfg.with_approx(replace(approx, backend="ref")), dev)
+    params = lm.init(SEED)
+    opt = adamw(cosine_schedule(TRAIN_LR, warmup=1, total=TRAIN_STEPS))
+    state = opt.init(params)
+    batch = torch_batch(make_source(cfg, ShapeConfig(
+        "check", STEP_CHECK_SEQ, STEP_CHECK_BATCH, "train"), seed=SEED
+    ).batch(0), dev)
+    value_and_grad(lm.train_loss)(params, batch)     # the autotune, warm
+    reset_launch_counts()
+    loss, grads = value_and_grad(lm.train_loss)(params, batch)
+    counts = launch_counts()
+    new_p, new_s, _ = opt.update(grads, state, params)
+    step_p, step_s, step_m = make_train_step(lm, opt)(params, state, batch)
+    require(torch_equal(step_m["loss"], loss)
+            and _tree_equal(step_p, new_p)[0]
+            and _tree_equal(step_s, new_s)[0],
+            "make_train_step differs from value_and_grad + opt.update")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_r, grads_r = value_and_grad(lm_ref.train_loss)(params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    new_pr, new_sr, _ = opt.update(grads_r, state, params)
+    out = {"loss": float(loss), "loss_plain": float(loss_r),
+           "plain_grad_s": plain_s,
+           "logmatmul_launches": _matmuls(counts),
+           "elemwise_launches": counts["elemwise"]}
+    for what, x, y in (("grads", grads, grads_r), ("params", new_p, new_pr),
+                       ("opt_state", new_s, new_sr)):
+        eq, worst, bad = _tree_equal(x, y)
+        out[f"{what}_equal"], out[f"{what}_max_abs_diff"] = eq, worst
+        out[f"{what}_differing"] = bad
+    log(f"  (b) one step, kernels vs plain versions ({STEP_CHECK_LAYERS} "
+        f"layers, batch {STEP_CHECK_BATCH} x {STEP_CHECK_SEQ}): loss "
+        f"{out['loss']!r} / {out['loss_plain']!r}; grads equal "
+        f"{out['grads_equal']} (max {out['grads_max_abs_diff']:.3g}), "
+        f"params {out['params_equal']}, opt state {out['opt_state_equal']}; "
+        f"{out['logmatmul_launches']} logmatmul, "
+        f"{out['elemwise_launches']} elemwise; plain gradients "
+        f"{plain_s:.1f}s")
+    layers = [grads["stack"]["layers"][n] for n in ("wq", "wk", "wv")]
+    require(all(g is None for g in layers),
+            "R-8: the divider should leave wq / wk / wv without gradient")
+    require(torch_equal(loss, loss_r) and out["grads_equal"]
+            and out["params_equal"] and out["opt_state_equal"],
+            f"one step on the kernels differs from the plain versions: {out}")
+    require(out["logmatmul_launches"]
+            == STEP_CHECK_LAYERS * TRAIN_LOGMATMUL_A_LAYER
+            and out["elemwise_launches"] == 2 * STEP_CHECK_LAYERS,
+            f"(b) launches {counts}")
+    return out
+
+
+def train_full_width(dev, int_rate) -> dict:
+    """Phase 15 (c): ``launch.train.train`` on smollm-360m whole, batch 4 x
+    seq 512, remat on, ``--approx simdive --backward approx``, under a
+    schedule of two approximate rungs (w8 cb6, then w8 cb4 from step
+    TRAIN_RUNG_AT), a checkpoint every TRAIN_SAVE_EVERY steps: one step
+    warm, then one timed and counted (TRAIN_LOGMATMUL_A_STEP ``logmatmul``
+    and TRAIN_ELEMWISE_A_STEP ``elemwise``), its peak memory, one step's
+    device time by kernel beside its ``logmatmul`` work's operations
+    bound; then the uninterrupted TRAIN_STEPS-step run
+    (every loss finite, its launches TRAIN_STEPS times a step's), a run
+    killed after TRAIN_STOP_AFTER steps and its ``resume='auto'``: the
+    resumed losses ``==`` the uninterrupted run's from the checkpoint on.
+    Runs under ``torch.use_deterministic_algorithms``."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.approx import ApproxConfig
+    from repro_torch.data import make_source, torch_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import PrecisionSchedule, ScheduleRung
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    approx = ApproxConfig(mode="simdive", backward="approx")
+    cfg = get_config(ARCH).with_approx(approx)
+    require(cfg.remat, "smollm-360m's config has remat off")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rungs = [TuningPolicy(entries=(PolicyEntry(op="matmul", width=8,
+                                               coeff_bits=cb),))
+             for cb in (6, 4)]
+    schedule = PrecisionSchedule(rungs=(
+        ScheduleRung(0, rungs[0], "w8 cb6"),
+        ScheduleRung(TRAIN_RUNG_AT, rungs[1], "w8 cb4")))
+    lm = build(cfg.with_approx(schedule.config_at(0, approx)), dev)
+    params = lm.init(SEED)
+    opt = adamw(cosine_schedule(TRAIN_LR, warmup=min(
+        100, TRAIN_STEPS // 10 + 1), total=TRAIN_STEPS))
+    state = opt.init(params)
+    batch = torch_batch(make_source(cfg, shape, seed=SEED).batch(0), dev)
+    step = make_train_step(lm, opt)
+    t0 = time.perf_counter()
+    first = step(params, state, batch)
+    first_loss = float(first[2]["loss"])
+    first_s = time.perf_counter() - t0
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(params, state, batch)
+    loss = float(out[2]["loss"])
+    step_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    require(loss == first_loss, f"two steps from the same state: {loss!r} "
+                                f"then {first_loss!r}")
+    require(_matmuls(counts) == TRAIN_LOGMATMUL_A_STEP
+            and counts["elemwise"] == TRAIN_ELEMWISE_A_STEP,
+            f"a training step's launches: {counts}")
+    prof = device_time_by_kernel(lambda: step(params, state, batch))
+    res = {"first_step_s": first_s, "step_ms": step_s * 1e3,
+           "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_bytes": peak, "state_bytes": base,
+           "step_counts": {k: v for k, v in counts.items() if v}}
+    log(f"  (c) a training step: {res['step_ms']:.1f} ms "
+        f"({res['tok_per_s']:.1f} tok/s; the first, autotune included, "
+        f"{first_s:.1f}s), peak {peak / 1e9:.2f} GB over "
+        f"{base / 1e9:.2f} GB of parameters and optimizer state; launches "
+        f"{res['step_counts']}")
+    # the step's logmatmul work at its operations bound: each linear's
+    # forward twice (the remat re-run), and gx (M, N) x (N, K) and gw
+    # (K, M) x (M, N) of every linear but wq / wk / wv (R-8)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    res["logmatmul_bound_ms"] = cfg.n_layers * sum(
+        2 * logmatmul_ops_ms(M, k, n, int_rate)
+        + (0 if name in ("wq", "wk", "wv") else
+           logmatmul_ops_ms(M, n, k, int_rate)
+           + logmatmul_ops_ms(k, M, n, int_rate))
+        for name, k, n in LINEARS)
+    if prof is not None:
+        busy, by = prof
+        top = sorted(by.items(), key=lambda kv: -kv[1][1])[:10]
+        res["device_ms"] = busy
+        res["device_top"] = {n[:80]: [c, ms] for n, (c, ms) in top}
+        mm = sum(ms for n, (c, ms) in by.items() if "logmatmul" in n)
+        res["device_logmatmul_ms"] = mm
+        res["device_fill_ms"] = sum(ms for n, (c, ms) in by.items()
+                                    if "FillFunctor" in n)
+        log(f"  one step's device time {busy:.1f} ms: logmatmul "
+            f"{mm:.1f} ms ({mm / res['logmatmul_bound_ms']:.2f}x its "
+            f"operations bound {res['logmatmul_bound_ms']:.1f} ms), fills "
+            f"{res['device_fill_ms']:.1f} ms; the top kernels: "
+            + "; ".join(f"{n[:50]} x{c} {ms:.1f} ms" for n, (c, ms) in top))
+    del params, state, step, lm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    kw = dict(steps=TRAIN_STEPS, save_every=TRAIN_SAVE_EVERY, seed=SEED,
+              lr=TRAIN_LR, log_every=1, keep=2, schedule=schedule,
+              device=dev)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, full = train(cfg, shape, ckpt_dir=str(Path(root) / "full"), **kw)
+        res["run_s"] = time.perf_counter() - t0
+        res["run_counts"] = {k: v for k, v in launch_counts().items() if v}
+        t0 = time.perf_counter()
+        _, head = train(cfg, shape, ckpt_dir=str(Path(root) / "killed"),
+                        stop_after=TRAIN_STOP_AFTER, **kw)
+        _, tail = train(cfg, shape, ckpt_dir=str(Path(root) / "killed"),
+                        **kw)
+        res["kill_resume_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res.update(losses=full, losses_killed=head, losses_resumed=tail)
+    log(f"  (c) {TRAIN_STEPS} steps in {res['run_s']:.1f}s (checkpoints "
+        f"included): losses {full}; killed after {TRAIN_STOP_AFTER}: "
+        f"{head}; resumed: {tail} ({res['kill_resume_s']:.1f}s); launches "
+        f"{res['run_counts']}")
+    require(all(math.isfinite(x) for x in full + head + tail),
+            "a non-finite loss")
+    require(head == full[:TRAIN_STOP_AFTER],
+            "the killed run's losses differ from the uninterrupted run's")
+    require(tail == full[TRAIN_SAVE_EVERY:],
+            "resumed losses differ from the uninterrupted run's")
+    run = res["run_counts"]
+    require(run.get("matmul", 0) + run.get("matmul_pipelined", 0)
+            == TRAIN_STEPS * TRAIN_LOGMATMUL_A_STEP
+            and run.get("elemwise", 0) == TRAIN_STEPS
+            * TRAIN_ELEMWISE_A_STEP, f"the run's launches: {run}")
+    return res
+
+
+def twin_phase(dev) -> dict:
+    """Phase 15 (d): ``train_twin`` at smollm-360m's full width, TWIN_STEPS
+    steps, exact against ``--approx simdive``: every loss finite, the
+    approximate twin's launches (TWIN_LOGMATMUL_A_STEP ``logmatmul`` and
+    TRAIN_ELEMWISE_A_STEP ``elemwise`` a step); R-8 on the card (the
+    approximate model's wq / wk / wv get no gradient, the exact model's
+    nonzero ones); on the 2-layer cut, a twin whose approximate side
+    dispatches but resolves exact tracks the exact one bit for bit."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.approx import EXACT, ApproxConfig
+    from repro_torch.core.tree import value_and_grad
+    from repro_torch.data import make_source, torch_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build
+    from repro_torch.train import train_twin
+    from repro_torch.tuning import TuningPolicy
+
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("twin", TRAIN_SEQ, TRAIN_BATCH, "train")
+    approx = ApproxConfig(mode="simdive")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, trace = train_twin(cfg, shape, steps=TWIN_STEPS, approx=approx,
+                          seed=SEED, lr=TWIN_LR, log_every=1, device=dev)
+    res = {"twin_s": time.perf_counter() - t0,
+           "counts": {k: v for k, v in launch_counts().items() if v},
+           "records": trace.records, "summary": trace.summary()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(math.isfinite(r[k]) for r in trace.records
+                for k in ("loss_exact", "loss_approx", "grad_cosine",
+                          "param_drift")), "a non-finite twin record")
+    require(_matmuls(res["counts"]) == TWIN_STEPS * TWIN_LOGMATMUL_A_STEP
+            and res["counts"].get("elemwise", 0)
+            == TWIN_STEPS * TRAIN_ELEMWISE_A_STEP,
+            f"the twin's launches: {res['counts']}")
+    log(f"  (d) twin, {TWIN_STEPS} steps in {res['twin_s']:.1f}s: "
+        + "; ".join(f"step {r['step']} loss {r['loss_exact']:.4f} / "
+                    f"{r['loss_approx']:.4f} (delta {r['loss_delta']:.4g}),"
+                    f" grad cosine {r['grad_cosine']:.4f}, drift "
+                    f"{r['param_drift']:.3g}" for r in trace.records))
+    lm_e = build(cfg.with_approx(EXACT), dev)
+    lm_a = build(cfg.with_approx(approx), dev)
+    params = lm_e.init(SEED)
+    batch = torch_batch(make_source(cfg, shape, seed=SEED).batch(0), dev)
+    _, g = value_and_grad(lm_a.train_loss)(params, batch)
+    layers = g["stack"]["layers"]
+    r8_approx = {n: layers[n] is None for n in ("wq", "wk", "wv")}
+    wo_ok = layers["wo"] is not None and bool(torch.any(layers["wo"] != 0))
+    del g, layers
+    _, g = value_and_grad(lm_e.train_loss)(params, batch)
+    r8_exact = {n: int(torch.count_nonzero(g["stack"]["layers"][n]))
+                for n in ("wq", "wk", "wv")}
+    del g, params
+    res["r8"] = {"approx_no_grad": r8_approx, "exact_nonzero": r8_exact}
+    log(f"  R-8 on the card: the approximate model's wq / wk / wv without "
+        f"gradient {r8_approx}, wo's nonzero {wo_ok}; the exact model's "
+        f"nonzero entries {r8_exact}")
+    require(all(r8_approx.values()) and wo_ok
+            and all(v > 0 for v in r8_exact.values()), f"R-8: {res['r8']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact_base = ApproxConfig(mode="simdive", policy=TuningPolicy(),
+                              policy_only=True)
+    _, flat = train_twin(replace(cfg, n_layers=STEP_CHECK_LAYERS), shape,
+                         steps=2, approx=exact_base, seed=SEED, lr=TWIN_LR,
+                         device=dev)
+    res["exact_base"] = {"max_abs_loss_delta": flat.max_abs_loss_delta(),
+                         "max_param_drift": flat.max_param_drift()}
+    log(f"  exact-base twin ({STEP_CHECK_LAYERS} layers): "
+        f"{res['exact_base']}")
+    require(flat.max_abs_loss_delta() == 0.0
+            and flat.max_param_drift() == 0.0,
+            f"an exact-base twin diverged: {res['exact_base']}")
+    return res
+
+
+def training_phase(dev, int_rate) -> dict:
+    """Phase 15: the training path (:mod:`repro_torch.launch.train`), (a)
+    to (d) as their functions say, (b) to (d) under
+    ``torch.use_deterministic_algorithms`` (``launch.train.deterministic``,
+    as ``python -m repro_torch.launch.train`` runs on the card), turned off
+    again at the end."""
+    import gc
+
+    import torch
+    from repro_torch.launch.train import deterministic
+
+    _drop_served_graphs()
+    out = {"kernels": train_kernel_checks(dev, int_rate)}
+    deterministic()
+    try:
+        out["step_check"] = train_step_check(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["trainer"] = train_full_width(dev, int_rate)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["twin"] = twin_phase(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6047,13 +6561,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/14] device: {card} | torch {torch.__version__} "
+    log(f"[1/15] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/14] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/15] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -6070,7 +6584,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/14] kernels vs plain versions")
+    log("[3/15] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -6079,7 +6593,7 @@ def main(argv=None) -> int:
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/14] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/15] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -6092,7 +6606,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/14] times")
+    log("[5/15] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -6113,24 +6627,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/14] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/15] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/14] faults: every kernel under each armed site, captured graphs, "
+    log("[7/15] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/14] policy: build_policy / select_config on the card, a "
+    log("[8/15] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/14] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/15] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -6144,36 +6658,45 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/14] the dense family at full width: (k) the kernels' times "
+    log("[10/15] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/14] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
+    log("[11/15] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
         "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/14] the modality-stub families at full width, nothing cut: (k) "
+    log("[12/15] the modality-stub families at full width, nothing cut: (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
 
     starts[13] = time.perf_counter() - t_start
-    log("[13/14] rwkv6-1.6b whole at full width: (k) logmatmul at its "
+    log("[13/15] rwkv6-1.6b whole at full width: (k) logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
         "the recurrent cache through both graphs), (c) --emulate")
     rwkv6 = rwkv6_phase(dev, int_rate)
 
     starts[14] = time.perf_counter() - t_start
-    log("[14/14] zamba2-2.7b whole at full width: (k) the attention "
+    log("[14/15] zamba2-2.7b whole at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
         "simdive (54 Mamba2 layers, the shared block 6 times with its "
         "LoRA merged each call), (c) --emulate")
     zamba2 = zamba2_phase(dev, int_rate)
+
+    starts[15] = time.perf_counter() - t_start
+    log("[15/15] training: (a) logmatmul at smollm-360m's gradient "
+        "products and elemwise at the training finalize, against their "
+        "plain versions; (b) one step on the kernels == on the plain "
+        "versions (2 layers); (c) launch.train.train at full width, "
+        "--approx simdive --backward approx, a rung change, killed and "
+        "resumed; (d) the exact-vs-approximate twin")
+    training = training_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -6364,6 +6887,20 @@ def main(argv=None) -> int:
                                       for n in names)
         for key in keys:
             kern[key] = zamba2_rows[key]
+    # phase 15: the training path's launches, each window zeroed just
+    # before and read just after: one counted step and the uninterrupted
+    # run of (c), the twin of (d); the kernels at the training shapes (a)
+    for kern, name in ((by_name["logmatmul"], "matmul"),
+                       (by_name["logmatmul_pipelined"], "matmul_pipelined"),
+                       (by_name["elemwise"], "elemwise")):
+        kern["launches_train_step"] = \
+            training["trainer"]["step_counts"].get(name, 0)
+        kern["launches_train"] = training["trainer"]["run_counts"].get(name,
+                                                                       0)
+        kern["launches_twin"] = training["twin"]["counts"].get(name, 0)
+    by_name["logmatmul"]["train_grad_products"] = \
+        training["kernels"]["products"]
+    by_name["elemwise"]["train_finalize"] = training["kernels"]["finalize"]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -6376,14 +6913,14 @@ def main(argv=None) -> int:
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
                      *arith.items(), *dense.items(), *moe.items(),
                      *modality.items(), *rwkv6.items(),
-                     *zamba2.items()):
+                     *zamba2.items(), *training.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-14) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-15) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6401,7 +6938,7 @@ def main(argv=None) -> int:
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
-            "zamba2": zamba2,
+            "zamba2": zamba2, "training": training,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -1,0 +1,5 @@
+from .checkpoint import (save, save_async, restore, latest_step,
+                         gc_keep_last, wait_pending)
+
+__all__ = ["save", "save_async", "restore", "latest_step", "gc_keep_last",
+           "wait_pending"]

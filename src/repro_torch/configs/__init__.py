@@ -13,7 +13,7 @@ block every 9th layer: a recurrent state and a K/V cache).
 """
 from importlib import import_module
 
-from .base import ModelConfig  # noqa: F401
+from .base import ModelConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "smollm-360m": "smollm_360m",

@@ -1,8 +1,9 @@
 """Config schema: model architecture and run settings.
 
-Counterpart of ``repro.configs.base`` (``ModelConfig``; the shape and mesh
-tables of the reference are not ported yet). All of the reference's fields
-are kept so configs compare field by field.
+Counterpart of ``repro.configs.base``: ``ModelConfig`` and
+``ShapeConfig`` (a training run's batch and sequence length); the
+reference's shape and mesh tables are not ported. All of the reference's fields are kept so configs compare
+field by field.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ class ModelConfig:
     # numerics / schedule
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    remat: bool = True             # training only; unused by the port so far
+    remat: bool = True             # training: recompute each layer
     unroll_scans: bool = False     # the reference's analysis mode; unused
     attn_q_chunk: int = 1024
     attn_kv_chunk: int = 1024
@@ -68,3 +69,12 @@ class ModelConfig:
 
     def with_approx(self, approx: ApproxConfig) -> "ModelConfig":
         return replace(self, approx=approx)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+

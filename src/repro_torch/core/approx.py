@@ -7,8 +7,9 @@ emulated approximate linears — :func:`quantize_sign_magnitude`,
 :func:`approx_matmul` (straight-through exact gradients) and
 :func:`approx_matmul_int8` (pre-quantized int8 weights) — and the
 divider's other uses, :func:`approx_softmax` and :func:`approx_rmsnorm`
-(straight-through exact gradients). The approximate backward
-(``backward='approx'``, training) is not ported yet.
+(straight-through exact gradients). With ``backward='approx'`` (training)
+both gradient products of an emulated linear run the forward's quantize +
+SIMDive matmul too.
 
 Every approximate op dispatches through the kernel registry
 (:func:`repro_torch.kernels.registry.get_op`). ``ApproxConfig.backend``
@@ -73,7 +74,8 @@ class ApproxConfig:
     # approximate ONLY where the policy carries a matching entry; call
     # sites whose lookup misses run exact
     policy_only: bool = False
-    backward: str = "exact"        # exact | approx (training; not ported)
+    backward: str = "exact"        # exact (STE) | approx: the linears'
+    #                                gradient products on SIMDive too
     # guarded dispatch: every get_op of this config checks its outputs
     # and raises registry.GuardTripped on a violation. Off by default: a
     # guard reads outputs back to the host, and a CUDA graph's replays are
@@ -388,8 +390,10 @@ def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig):
 
 
 class _ApproxMatmul(torch.autograd.Function):
-    """SIMDive forward, straight-through exact backward (the reference's
-    ``custom_vjp`` pair ``_approx_matmul_fwd`` / ``_approx_matmul_bwd``)."""
+    """SIMDive forward; straight-through exact backward, or with
+    ``backward='approx'`` both gradient products on the SIMDive matmul (the
+    reference's ``custom_vjp`` pair ``_approx_matmul_fwd`` /
+    ``_approx_matmul_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, w, cfg):
@@ -402,9 +406,15 @@ class _ApproxMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         cfg = ctx.cfg
         if cfg.backward == "approx" and _matmul_active(cfg):
-            raise NotImplementedError(
-                "backward='approx' (approximate backward matmuls, training) "
-                "is not ported yet")
+            # both products through the forward's own quantize + matmul_emul
+            # dispatch, in float32: gx = g @ w^T (g one global scale, w^T
+            # per column), gw = x^T @ g (x^T one global scale, g per column)
+            gf = g.to(torch.float32)
+            gx = _approx_matmul_fwd_impl(gf, w.to(torch.float32).T, cfg)
+            x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            gw = _approx_matmul_fwd_impl(x2.T, gf.reshape(-1, gf.shape[-1]),
+                                         cfg)
+            return gx.to(x.dtype), gw.to(w.dtype), None
         dt = torch.promote_types(g.dtype, w.dtype)
         gx = torch.einsum("...n,kn->...k", g.to(dt), w.to(dt)).to(x.dtype)
         dt = torch.promote_types(x.dtype, g.dtype)
@@ -414,11 +424,15 @@ class _ApproxMatmul(torch.autograd.Function):
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
                   cfg: ApproxConfig) -> torch.Tensor:
-    """Float-in/out matmul with SIMDive products; exact grads (STE).
+    """Float-in/out matmul with SIMDive products; exact grads (STE), or
+    with ``cfg.backward == 'approx'`` SIMDive gradient products.
 
     ``x`` (..., K) and ``w`` (K, N) are quantized per call (``x`` with one
     global scale, ``w`` per output channel), multiplied on the
-    ``matmul_emul`` op and rescaled, as in the reference.
+    ``matmul_emul`` op and rescaled, as in the reference. The approximate
+    backward makes two more such products a call, at new shapes: ``gx``
+    (M, N) x (N, K) and ``gw`` (K, M) x (M, N), M the rows of ``x`` — on
+    the card two more ``logmatmul`` launches.
     """
     return _ApproxMatmul.apply(x, w, cfg)
 

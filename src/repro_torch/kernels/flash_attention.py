@@ -262,6 +262,12 @@ def _check_cuda(name: str, **tensors) -> None:
 
 def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
             q_offset, kv_len, kv_group, block) -> torch.Tensor:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention CUDA kernel: q / k / v require grad, and the "
+            "kernel has no backward (nor has the reference's Pallas "
+            "kernel); training attention runs the chunked path "
+            "(models.layers.chunked_attention, taken by stack_train)")
     _check_cuda("flash_attention", q=q, k=k, v=v)
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
         raise ValueError(f"expected q (BH,Sq,dh), k/v (BH/G,Skv,dh); got "
@@ -323,8 +329,9 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
     are masked in the kernel. Raises on CPU tensors, on what the kernel does
     not take (dtype other than f32 / bf16, d_head other than 64 / 80 / 128,
     width 32, a block that is not compiled or whose ring does not fit for
-    this dtype and d_head, bf16 q / k / v not 16-byte aligned) and on a
-    failed build or launch — it never gives way to another schedule or to
+    this dtype and d_head, bf16 q / k / v not 16-byte aligned, q / k / v
+    that require grad with grad mode on: the kernel has no backward) and on
+    a failed build or launch — it never gives way to another schedule or to
     the plain version.
     """
     if split_block(block)[1]:

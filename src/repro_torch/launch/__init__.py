@@ -1,1 +1,1 @@
-"""repro_torch.launch — entry points (serving so far)."""
+"""repro_torch.launch — entry points: serving and training."""

@@ -12,11 +12,24 @@ Counterpart of ``repro.metrics`` for what the port uses so far:
   time_callable / TimingStats  warmup + device-synchronised timing
   trajectory                 the BENCH document's schema + migration +
                              the regression gate (diff_runs); pure stdlib
+  divergence                 the exact-vs-approximate twin's loss delta,
+                             gradient cosine and parameter drift
+                             (tree_dot / tree_norm / grad_cosine /
+                             param_drift on nested dicts of tensors) and
+                             DivergenceTrace, its JSON report
 
 ``errors``, ``image`` and ``operands`` are pure numpy and ``trajectory``
 pure stdlib, copied rather than imported (the port imports nothing of
-``repro``). The training-divergence metrics are not ported yet.
+``repro``).
 """
+from .divergence import (
+    DIVERGENCE_SCHEMA,
+    DivergenceTrace,
+    grad_cosine,
+    param_drift,
+    tree_dot,
+    tree_norm,
+)
 from .errors import (
     ErrorStats,
     classification_accuracy,
@@ -41,6 +54,12 @@ from .trajectory import (
 )
 
 __all__ = [
+    "DIVERGENCE_SCHEMA",
+    "DivergenceTrace",
+    "grad_cosine",
+    "param_drift",
+    "tree_dot",
+    "tree_norm",
     "ErrorStats",
     "error_stats",
     "relative_error",

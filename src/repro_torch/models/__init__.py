@@ -1,4 +1,4 @@
-"""repro_torch.models — the decoder: attention stacks and the rwkv6 stack."""
+"""repro_torch.models — the decoder: every family's stack, served and trained."""
 from .model import LM, build
 
 __all__ = ["LM", "build"]

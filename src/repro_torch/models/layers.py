@@ -10,7 +10,9 @@ launch of a kernel, divider included: the flash kernel for the prefill,
 the ``decode_attention`` kernel for a decode step. Otherwise plain tensor
 ops run (chunked online softmax for the prefill), with only the final
 ``acc / l`` — the paper's division use-case — routed through
-:func:`repro_torch.core.approx.attention_div`.
+:func:`repro_torch.core.approx.attention_div`. Training always takes the
+chunked path (:func:`chunked_attention`): the kernels are forward-only,
+as the reference's Pallas kernel is.
 
 Every matmul goes through :func:`dense`, which understands plain float
 weights, :class:`QuantizedWeight` (int8 + per-output-channel scale) and
@@ -228,14 +230,32 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
     Backend routing: ``approx.resolve('attention')`` (policy entry first,
     then ``approx.backend``) decides who serves the whole attention — when
     it resolves to ``cuda`` for these tensors the flash kernel does;
-    otherwise the chunked path below, with only the finalize divider
-    approximated.
+    otherwise :func:`chunked_attention`, with only the finalize divider
+    approximated. The kernel has no backward: it refuses q / k / v that
+    require grad (with grad mode on).
     """
     spec, backend = approx.resolve("attention", approx.div_width)
     if resolve_backend(backend, q, k, v) == "cuda":
         return _flash_attention_kernel(
             q, k, v, causal=causal, window=window, approx=approx,
             q_offset=q_offset, spec=spec, backend=backend)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=q_chunk, kv_chunk=kv_chunk,
+                             approx=approx, q_offset=q_offset)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
+                      kv_chunk=1024, approx: ApproxConfig = EXACT,
+                      q_offset=0):
+    """The differentiable online-softmax attention of
+    :func:`flash_attention` (same arguments and layouts): plain tensor ops
+    over (q chunk, kv chunk) tiles, with only the finalize ``acc / l`` on
+    the SIMDive divider (:func:`attention_div`, on the card one
+    ``elemwise`` launch a q chunk). Training takes this path whatever
+    backend the config resolves, as the reference's ``stack_train`` takes
+    its jnp scan. The divider's quotient comes out of integer lanes, so no
+    gradient flows through an approximated finalize, as none does in the
+    reference (ROADMAP R-8)."""
     B, Sq, KVH, G, dh = q.shape
     Skv = k.shape[1]
     qc, kc = min(q_chunk, Sq), min(kv_chunk, Skv)

@@ -1,7 +1,10 @@
-"""Public model API: build(cfg, device) -> LM with init / prefill / decode.
+"""Public model API: build(cfg, device) -> LM with init / loss / prefill /
+decode.
 
-Counterpart of ``repro.models.model`` for serving (``train_loss`` and
-``logits`` wait for the training slice). Parameters are a plain nested
+Counterpart of ``repro.models.model``: ``train_loss`` and ``logits`` (the
+training path, :func:`repro_torch.models.transformer.stack_train`,
+differentiable, never under ``no_grad``), ``prefill`` and ``decode_step``
+(serving, under ``no_grad``). Parameters are a plain nested
 dict of tensors with the reference's tree: ``embed (C,V,D)``,
 ``stack.layers.*`` stacked ``(L, ...)``, ``final_norm.w`` (and ``.b``
 under LayerNorm), ``head (C,D,V)`` when the embeddings are not tied, where
@@ -15,6 +18,8 @@ invocation).
 
 Batch dict convention (fields past ``tokens`` optional):
   tokens       (B,S) int64               [(B,S,C) for codebooks]
+  labels       same shape as tokens      (train_loss)
+  loss_mask    (B,S), optional           (train_loss)
   positions    (B,S) int, or (B,S,3) for M-RoPE; defaults to arange
   patch_embeds (B,Np,D)                  vision stub: patch embeddings
   patch_mask   (B,S) bool                True where a slot is a patch
@@ -29,11 +34,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import require_device
 from .layers import apply_norm, dense
+from .loss import mean_xent
 from .transformer import (
     empty_cache,
     init_stack,
     stack_decode,
     stack_prefill,
+    stack_train,
 )
 
 
@@ -131,6 +138,38 @@ class LM:
             else params["head"]
         outs = [dense(x, w[c]) for c in range(max(cfg.n_codebooks, 1))]
         return torch.stack(outs, dim=-2) if cfg.n_codebooks else outs[0]
+
+    # --------------------------------------------------------------- loss --
+    def train_loss(self, params, batch):
+        """Mean token cross-entropy of ``batch["labels"]`` (masked by
+        ``batch["loss_mask"]`` when given), averaged over the codebooks,
+        plus ``0.01 *`` the summed MoE load-balance losses: a float32
+        scalar, differentiable in ``params``."""
+        cfg = self.cfg
+        logits, aux = self._forward(params, batch)
+        labels, mask = batch["labels"], batch.get("loss_mask")
+        if cfg.n_codebooks:
+            loss = mean_xent(logits[..., 0, :], labels[..., 0], mask)
+            for c in range(1, cfg.n_codebooks):
+                loss = loss + mean_xent(logits[..., c, :], labels[..., c],
+                                        mask)
+            loss = loss / cfg.n_codebooks
+        else:
+            loss = mean_xent(logits, labels, mask)
+        return loss + 0.01 * aux
+
+    def logits(self, params, batch):
+        """Every position's logits (B,S,V) [(B,S,C,V)] through the
+        training stack."""
+        return self._forward(params, batch)[0]
+
+    def _forward(self, params, batch):
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = self._positions(batch, x.shape[1])
+        x, aux = stack_train(params["stack"], x, cfg, positions)
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return self._head(params, x), aux
 
     # -------------------------------------------------------------- serve --
     def empty_cache(self, batch_size: int, max_seq: int):

@@ -21,6 +21,9 @@ vision stub live in :mod:`repro_torch.models.model`); and the family
 and the hybrid stack (zamba2-2.7b): groups of ``hybrid_period`` Mamba2
 blocks, each group followed by one *shared* attention + MLP block whose q
 projection takes a per-invocation LoRA delta, merged on every call.
+:func:`stack_train` runs every family's stack for training: no cache,
+nothing written in place, each layer recomputed in the backward under
+``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from .layers import (
     QuantizedWeight,
     apply_norm,
     apply_rope,
+    chunked_attention,
     decode_attention_append,
     dense,
     flash_attention,
@@ -246,32 +250,41 @@ def _qkv(p, h, cfg: ModelConfig, rope, rot):
     return q, k, v
 
 
-def attn_block_train(p, x, cfg: ModelConfig, positions):
-    """Full-sequence block (prefill). Returns (x', (k, v)); an MoE block
-    dispatches at ``cfg.moe_capacity_factor``."""
+def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
+    """Full-sequence block (train / prefill). Returns (x', (k, v), aux):
+    ``aux`` is an MoE block's load-balance loss (float32 zero for an MLP);
+    an MoE block dispatches at ``cfg.moe_capacity_factor``. ``train``
+    takes the differentiable :func:`chunked_attention` whatever backend
+    the config resolves (the attention kernels are forward-only)."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // KV
     rope, rot = _rope_for(cfg, positions)
     h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
     q, k, v = _qkv(p, h, cfg, rope, rot)
-    o = flash_attention(
+    attend = chunked_attention if train else flash_attention
+    o = attend(
         q.reshape(B, S, KV, G, dh), k, v, causal=True,
         window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
         kv_chunk=cfg.attn_kv_chunk, approx=cfg.approx,
     ).reshape(B, S, H * dh)
     x = x + dense(o, p["wo"], cfg.approx)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
-    return x + _ffn(p, h, cfg, cfg.moe_capacity_factor), (k, v)
+    y, aux = _ffn(p, h, cfg, cfg.moe_capacity_factor)
+    return x + y, (k, v), aux
 
 
 def _ffn(p, h, cfg: ModelConfig, capacity_factor: float):
-    """The block's MLP, or its MoE (the aux loss dropped, as the
-    reference's serving drops it)."""
+    """The block's MLP, or its MoE, and the MoE's aux loss (a float32
+    zero for an MLP; serving drops it, as the reference's does)."""
     if "moe" in p:
         return moe_ffn(h, p["moe"], top_k=cfg.n_experts_active,
-                       capacity_factor=capacity_factor, approx=cfg.approx)[0]
-    return mlp(h, p["mlp"], cfg.act, cfg.approx)
+                       capacity_factor=capacity_factor, approx=cfg.approx)
+    return mlp(h, p["mlp"], cfg.act, cfg.approx), _zero_aux(h.device)
+
+
+def _zero_aux(device):
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def decode_slot(cfg: ModelConfig, Smax: int, pos):
@@ -305,7 +318,7 @@ def attn_block_decode(p, x, cfg: ModelConfig, cache, pos, positions):
     x = x + dense(o, p["wo"], cfg.approx)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
     # the reference's decode step fixes the MoE capacity factor at 4.0
-    y = _ffn(p, h, cfg, 4.0)
+    y, _ = _ffn(p, h, cfg, 4.0)
     return x + y, (k.to(cache["k"].dtype), v.to(cache["v"].dtype))
 
 
@@ -377,6 +390,86 @@ def _hybrid_groups(cfg: ModelConfig):
     return ((g, range(g * P, (g + 1) * P)) for g in range(n_invocations(cfg)))
 
 
+def unbind_layers(layers: dict, n: int) -> list:
+    """The stacked parameter tree as ``n`` per-layer trees, each leaf
+    ``unbind``-ed once: the backward stacks the layers' gradients into one
+    tensor a leaf, where indexing layer by layer (:func:`layer_params`)
+    would add a full-size zero-padded gradient a layer."""
+    if not layers:
+        return [{} for _ in range(n)]
+    flat = {k: (unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in layers.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``cfg.remat`` recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint`` a layer). The numbers do not change; the layer's
+    forward kernels launch once more in the backward."""
+    if cfg.remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def stack_train(params, x, cfg: ModelConfig, positions):
+    """The layer stack over (B,S,D) with nothing cached: returns (x, aux),
+    ``aux`` the summed MoE load-balance losses (float32; zero without
+    experts). The attention stacks run one pass per policy segment
+    (:func:`_approx_segments`), attention on :func:`chunked_attention`;
+    the rwkv6 stack runs every layer from a zero carry; the hybrid stack
+    each group of ``hybrid_period`` Mamba2 layers (each from a zero
+    carry), then the shared block with the group's LoRA merged into
+    ``wq``. Under ``cfg.remat`` each layer (a Mamba2 or rwkv6 layer, an
+    attention block; not the hybrid's shared block) is recomputed in the
+    backward, as in the reference. Nothing is written in place."""
+    _check_ported(cfg)
+    aux = _zero_aux(x.device)
+    if cfg.n_layers == 0:
+        return x, aux
+    layers = unbind_layers(params["layers"], cfg.n_layers)
+    if cfg.family == "ssm":
+        H = _rwkv6_heads(cfg)
+        carry0 = rwkv6_empty_carry(x.shape[0], cfg.d_model, H, x.dtype,
+                                   x.device)
+
+        def rwkv6_layer(p, xc):
+            return rwkv6_block(p, xc, carry0, H, cfg.ssm_chunk,
+                               cfg.approx)[0]
+
+        for p in layers:
+            x = _remat(cfg, rwkv6_layer, p, x)
+        return x, aux
+    if cfg.family == "hybrid":
+        carry0 = mamba2_empty_carry(x.shape[0], cfg.d_model, cfg.ssm_state,
+                                    cfg.ssm_head_dim, x.dtype, x.device)
+
+        def mamba2_layer(p, xc):
+            return mamba2_block(p, xc, carry0, cfg.ssm_state,
+                                cfg.ssm_head_dim, cfg.ssm_chunk,
+                                cfg.approx)[0]
+
+        for g, group in _hybrid_groups(cfg):
+            for i in group:
+                x = _remat(cfg, mamba2_layer, layers[i], x)
+            x, _, a = attn_block_train(hybrid_shared(params, g, x.dtype), x,
+                                       cfg, positions, train=True)
+            aux = aux + a
+        return x, aux
+    for lo, hi, seg_cfg in _approx_segments(cfg):
+        def attn_layer(p, xc, seg_cfg=seg_cfg):
+            y, _, a = attn_block_train(p, xc, seg_cfg, positions, train=True)
+            return y, a
+
+        for i in range(lo, hi):
+            x, a = _remat(cfg, attn_layer, layers[i], x)
+            aux = aux + a
+    return x, aux
+
+
 def stack_prefill(params, x, cfg: ModelConfig, positions):
     """Full-sequence forward that also returns the decode cache: per-layer
     K/V stacked (L,B,S,KV,dh), cache seq length == S; for the rwkv6 stack
@@ -398,8 +491,8 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
                                     carry0, cfg.ssm_state, cfg.ssm_head_dim,
                                     cfg.ssm_chunk, cfg.approx)
                 carries.append(c)
-            x, (k, v) = attn_block_train(hybrid_shared(params, g, x.dtype),
-                                         x, cfg, positions)
+            x, (k, v), _ = attn_block_train(
+                hybrid_shared(params, g, x.dtype), x, cfg, positions)
             ks.append(k)
             vs.append(v)
         return x, {"ssm": {name: torch.stack([c[name] for c in carries])
@@ -420,8 +513,8 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
     ks, vs = [], []
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
-            x, (k, v) = attn_block_train(layer_params(params["layers"], i),
-                                         x, seg_cfg, positions)
+            x, (k, v), _ = attn_block_train(
+                layer_params(params["layers"], i), x, seg_cfg, positions)
             ks.append(k)
             vs.append(v)
     return x, {"k": torch.stack(ks).to(x.dtype),

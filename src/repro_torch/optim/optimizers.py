@@ -1,0 +1,184 @@
+"""Optimizers (AdamW, Lion, SGD-momentum), the cosine schedule and global
+norm clipping.
+
+Counterpart of ``repro.optim.optimizers``: ``(init, update)`` pairs over
+the port's nested dicts of tensors (:mod:`repro_torch.core.tree`). The
+moments are float32 and ``step`` an int32 scalar, as the reference keeps
+them; the learning rate, the bias corrections and every update are
+float32. ``update`` is functional: it returns new parameter and state
+trees and leaves its inputs alone.
+
+A ``None`` gradient leaf (autograd found no path to it) counts as a zero
+gradient everywhere, as the reference's zero arrays do (ROADMAP R-8): its
+moments decay, it adds nothing to the global norm, and AdamW's and Lion's
+weight decay still reach it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.tree import tree_leaves, tree_map
+
+__all__ = ["Optimizer", "adamw", "lion", "momentum", "cosine_schedule",
+           "global_norm", "clip_by_global_norm"]
+
+_F32 = torch.float32
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable   # (grads, state, params) -> (params, state, metrics)
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    final_frac: float = 0.1):
+    """``lr(step)``: linear warmup over ``warmup`` steps, then a cosine to
+    ``final_frac * base_lr`` at ``total``; a float32 scalar tensor."""
+    def lr(step):
+        step = torch.as_tensor(step).to(_F32)
+        warm = base_lr * (step + 1.0) / max(warmup, 1)
+        t = ((step - warmup) / max(total - warmup, 1)).clamp(0.0, 1.0)
+        cos = final_frac + (1 - final_frac) * 0.5 * (1 + torch.cos(math.pi
+                                                                   * t))
+        return torch.where(step < warmup, warm, base_lr * cos)
+    return lr
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares, leaves in
+    sorted key order; ``None`` leaves add nothing."""
+    sq = [g.to(_F32).square().sum() for g in tree_leaves(tree)
+          if g is not None]
+    if not sq:
+        return torch.zeros((), dtype=_F32)
+    total = sq[0]
+    for s in sq[1:]:
+        total = total + s
+    return total.sqrt()
+
+
+def clip_by_global_norm(tree, max_norm):
+    """``(tree scaled by min(1, max_norm / norm), norm)``; each leaf scaled
+    in float32 and cast back to its dtype."""
+    n = global_norm(tree)
+    scale = torch.clamp(max_norm / n.clamp(min=1e-9), max=1.0)
+    return tree_map(lambda g: None if g is None
+                    else (g.to(_F32) * scale).to(g.dtype), tree), n
+
+
+def _zeros32(p):
+    return torch.zeros(p.shape, dtype=_F32, device=p.device)
+
+
+def _grad32(g, p):
+    return _zeros32(p) if g is None else g.to(_F32)
+
+
+def _lr_fn(lr):
+    return lr if callable(lr) else (
+        lambda step: torch.tensor(lr, dtype=_F32, device=step.device))
+
+
+def _unzip(out, n):
+    """A tree of n-tuples -> n trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], out) for i in range(n))
+
+
+def _step0(params):
+    leaf = next((p for p in tree_leaves(params) if torch.is_tensor(p)), None)
+    device = leaf.device if leaf is not None else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          clip_norm: float | None = 1.0) -> Optimizer:
+    """AdamW; ``lr`` a float or a schedule ``fn(step) -> lr``. Weight decay
+    reaches every leaf of two or more dims (not norms or biases)."""
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        return {"mu": tree_map(_zeros32, params),
+                "nu": tree_map(_zeros32, params),
+                "step": _step0(params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        gnorm = torch.zeros((), dtype=_F32, device=step.device)
+        if clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        lr_t = lr_fn(step)
+        stepf = step.to(_F32)
+        b1c = 1 - b1 ** stepf
+        b2c = 1 - b2 ** stepf
+
+        def upd(p, g, m, v):
+            g = _grad32(g, p)
+            m2 = b1 * m + (1 - b1) * g
+            v2 = b2 * v + (1 - b2) * g.square()
+            delta = (m2 / b1c) / ((v2 / b2c).sqrt() + eps)
+            if weight_decay and p.ndim >= 2:
+                delta = delta + weight_decay * p.to(_F32)
+            return (p.to(_F32) - lr_t * delta).to(p.dtype), m2, v2
+
+        new_params, mu, nu = _unzip(
+            tree_map(upd, params, grads, state["mu"], state["nu"]), 3)
+        return new_params, {"mu": mu, "nu": nu, "step": step}, \
+            {"grad_norm": gnorm, "lr": lr_t}
+
+    return Optimizer(init, update)
+
+
+def lion(lr, *, b1=0.9, b2=0.99, weight_decay=0.1,
+         clip_norm=1.0) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        return {"mu": tree_map(_zeros32, params), "step": _step0(params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        lr_t = lr_fn(step)
+
+        def upd(p, g, m):
+            g = _grad32(g, p)
+            d = torch.sign(b1 * m + (1 - b1) * g)
+            if weight_decay and p.ndim >= 2:
+                d = d + weight_decay * p.to(_F32)
+            m2 = b2 * m + (1 - b2) * g
+            return (p.to(_F32) - lr_t * d).to(p.dtype), m2
+
+        new_params, mu = _unzip(tree_map(upd, params, grads, state["mu"]),
+                                2)
+        return new_params, {"mu": mu, "step": step}, \
+            {"grad_norm": gnorm, "lr": lr_t}
+
+    return Optimizer(init, update)
+
+
+def momentum(lr, *, beta=0.9, clip_norm=None) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        return {"mu": tree_map(_zeros32, params), "step": _step0(params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        gnorm = torch.zeros((), dtype=_F32, device=step.device)
+        if clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        lr_t = lr_fn(step)
+
+        def upd(p, g, m):
+            m2 = beta * m + _grad32(g, p)
+            return (p.to(_F32) - lr_t * m2).to(p.dtype), m2
+
+        new_params, mu = _unzip(tree_map(upd, params, grads, state["mu"]),
+                                2)
+        return new_params, {"mu": mu, "step": step}, \
+            {"grad_norm": gnorm, "lr": lr_t}
+
+    return Optimizer(init, update)

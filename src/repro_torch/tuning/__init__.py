@@ -15,9 +15,15 @@ Counterpart of ``repro.tuning`` for what is ported so far:
                   ``launch.serve --policy``), read and written alike by
                   both packages
 
-Not ported yet: ``sensitivity.py`` (per-layer end-metric profiling and the
-greedy assignment), and the reference's ``benchmarks/tune.py`` CLI, which
-stays with the reference's benchmark folder.
+  sensitivity.py  per-layer end-metric profiling (profile_layers, with a
+                  twin-training metric: profile_train) and the greedy
+                  budget assignment (greedy_assign[_verified]) -> a
+                  layer-scoped TuningPolicy (assignment_policy)
+
+Not ported yet: sensitivity's ANN glue (it waits for the campaign's
+``--ann``) and its imaging glue (the reference's JAX benchmark pipeline),
+and the reference's ``benchmarks/tune.py`` CLI, which stays with the
+reference's benchmark folder.
 """
 from .frontier import (
     FrontierPoint,
@@ -27,6 +33,16 @@ from .frontier import (
     frontier_table,
     measure_error,
     pareto,
+)
+from .sensitivity import (
+    SensitivityProfile,
+    assignment_policy,
+    default_candidates,
+    greedy_assign,
+    greedy_assign_verified,
+    profile_layers,
+    profile_train,
+    train_run_metric,
 )
 from .select import (
     POLICY_SCHEMA,
@@ -51,4 +67,12 @@ __all__ = [
     "TuningPolicy",
     "build_policy",
     "select_config",
+    "SensitivityProfile",
+    "assignment_policy",
+    "default_candidates",
+    "greedy_assign",
+    "greedy_assign_verified",
+    "profile_layers",
+    "profile_train",
+    "train_run_metric",
 ]

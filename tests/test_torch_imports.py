@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
-imports ``jax`` or anything of ``repro``; importing the package needs no
+imports ``jax``, ``ml_dtypes`` or anything of ``repro``; importing the package needs no
 compiler and no GPU; and entry points asked for ``device='cuda'`` on a host
 without one raise instead of carrying on on the CPU.
 """
@@ -15,7 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -60,7 +60,12 @@ def test_every_package_module_is_covered():
                    "faults/campaign.py", "launch/scheduler.py",
                    "core/lod.py", "core/baselines.py", "metrics/image.py",
                    "models/ssm.py", "configs/rwkv6_1_6b.py",
-                   "configs/zamba2_2_7b.py"):
+                   "configs/zamba2_2_7b.py", "models/loss.py",
+                   "core/tree.py", "optim/optimizers.py",
+                   "optim/grad_compress.py", "data/pipeline.py",
+                   "checkpoint/checkpoint.py", "metrics/divergence.py",
+                   "tuning/sensitivity.py", "train/schedule.py",
+                   "train/loop.py", "launch/train.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",

@@ -267,15 +267,42 @@ def test_approx_matmul_forward_and_grads_match_reference(mode, width):
 
 
 def test_approx_matmul_inactive_and_approx_backward():
+    """Inactive: the plain matmul. ``backward='approx'``: both gradient
+    products run the forward's quantize + ``matmul_emul`` (gx = g @ w^T,
+    gw = x^T @ g), equal to the reference's ``_approx_matmul_bwd`` to one
+    float32 ulp of the largest gradient (the integer cores are bit-equal
+    on the shared operands, held below; both sides rescale in float32)."""
     x = torch.randn(3, 8, generator=torch.Generator().manual_seed(0))
     w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
     assert torch.equal(t_approx.approx_matmul(x, w, t_approx.ApproxConfig()),
                        x @ w)
-    cfg = t_approx.ApproxConfig(mode="simdive", backward="approx",
-                                backend="ref")
-    out = t_approx.approx_matmul(x.requires_grad_(), w, cfg)
-    with pytest.raises(NotImplementedError, match="approx"):
-        out.sum().backward()
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 5, 37)).astype(np.float32)
+    w = rng.normal(size=(37, 11)).astype(np.float32)
+    g = rng.normal(size=(2, 5, 11)).astype(np.float32)
+    r_cfg, t_cfg = _cfgs(backward="approx", k_chunk=16)
+    r_gx, r_gw = jax.grad(
+        lambda a, b: jnp.sum(r_approx.approx_matmul(a, b, r_cfg) * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    (t_approx.approx_matmul(tx, tw, t_cfg) * torch.from_numpy(g)).sum() \
+        .backward()
+    for got, want in ((tx.grad, r_gx), (tw.grad, r_gw)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=FWD_RTOL * np.abs(want).max())
+    # not the straight-through gradients: the products are approximate
+    assert not np.allclose(tx.grad.numpy(), g @ w.T, rtol=1e-6, atol=0)
+    # the integer core of gw is matmul_emul on x^T (one scale) and g (a
+    # scale a column)
+    tg = torch.from_numpy(g).reshape(10, 11)
+    qa, sa, sca = t_approx.quantize_sign_magnitude(
+        torch.from_numpy(x).reshape(10, 37).T, 8)
+    qb, sb, scb = t_approx.quantize_sign_magnitude(tg, 8, axis=0)
+    acc = get_op("matmul_emul", t_cfg.spec(), "ref")(qa, sa, qb, sb,
+                                                     k_chunk=16)
+    assert torch.equal(tw.grad, acc.to(torch.float32) * (sca * scb))
 
 
 def test_approx_config_guard_raises(monkeypatch):

@@ -474,7 +474,13 @@ def test_attention_frac_out_zero_means_unset(frac_out):
 def test_tuning_exports_match_reference_selection_layer():
     from repro import tuning as r_tuning
     from repro.tuning import sensitivity as r_sensitivity
-    assert set(t_tuning.__all__) == \
-        set(r_tuning.__all__) - set(r_sensitivity.__all__)
+    from repro_torch.tuning import sensitivity as t_sensitivity
+    # sensitivity's ANN and imaging glue are not ported (ROADMAP item 5;
+    # the imaging glue drives the reference's JAX benchmark pipeline)
+    unported = {"ann_run_metric", "profile_ann", "ann_policy_metric",
+                "imaging_run_metric", "profile_imaging"}
+    assert set(t_sensitivity.__all__) == \
+        set(r_sensitivity.__all__) - unported
+    assert set(t_tuning.__all__) == set(r_tuning.__all__) - unported
     assert t_select.POLICY_SCHEMA == r_select.POLICY_SCHEMA
     assert t_frontier.DEFAULT_COEFF_SWEEP == r_frontier.DEFAULT_COEFF_SWEEP
