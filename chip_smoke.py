@@ -324,37 +324,40 @@ any phase fails. Phases:
               replays against the same process's use_in_norm-free path, in
               turns (the kernels line's ``sqrt`` row; ``elemwise``'s
               ``launches_use_in_norm``).
-10. dense family — the three other dense configurations at full width
-              (random weights from seed 0, batch 4, prompt 512,
-              ``--approx simdive``), each model's graphs dropped before
-              the next. (k) The kernels' times at qwen3-4b's shapes
-              beside their bounds and ``scaled_dot_product_attention``
-              (attention at its prefill, decode attention at its step),
+10. dense family — the three other dense configurations at full width,
+              depth cut (SERVED_LAYERS: qwen3-4b 12 of 36 layers,
+              stablelm-1.6b 8 of 24, qwen2.5-14b 4 of 48; random weights
+              from seed 0, batch 4, prompt 512, ``--approx simdive``),
+              each model's graphs dropped before the next. (k) The
+              kernels' times at qwen3-4b's shapes beside their bounds and
+              ``scaled_dot_product_attention`` (attention at its prefill,
+              decode attention at its step),
               the seven linears at M = 4 and 2048, and the sqrt kernel at
               16.8 M lanes; phase 3 holds the kernels at the three
               configurations' shapes against their plain versions. (a)
               qwen3-4b (qk-norm, d_head 128, G 4, untied), 32 tokens: the
               captured prefill and step alone (memory each holds), then
               the captured generate ``torch.equal`` to the eager one with
-              36 attention launches a prefill and 36 decode_attention a
-              step (31 steps), a replayed prefill equal to the eager one;
+              one attention launch a layer a prefill and one
+              decode_attention a layer a step (31 steps), a replayed
+              prefill equal to the eager one;
               logits within 6 bf16 ulps of the largest logit (which must
               lie in [2, 4)) of the plain versions, decided tokens equal;
               peak memory and times. (b)
-              qwen3-4b ``--emulate``, 4 tokens: 252 ``logmatmul`` a
-              prefill and a step, captured == eager. (c) stablelm-1.6b
+              qwen3-4b ``--emulate``, 4 tokens: 7 ``logmatmul`` a layer
+              a prefill and a step, captured == eager. (c) stablelm-1.6b
               (LayerNorm, qkv bias, rotary on 16 of 64 features, G 1) and
-              (d) qwen2.5-14b (qkv bias, G 5) at 8 of its 48 layers, each
-              as (a). Each model also: ``LM.init``'s peak under
-              INIT_PEAK_RATIO of its parameters' bytes and one eager
+              (d) qwen2.5-14b (qkv bias, G 5), each as (a). Each model
+              also: ``LM.init``'s peak under INIT_PEAK_RATIO of its
+              parameters' bytes and one eager
               step's device time by kernel, as phase 11 has them.
 11. MoE family — after phase 10's graphs are dropped, random weights
               from seed 0, batch 4, prompt 512, 32 tokens, ``--approx
               simdive``, each model dropped before the next: (a)
               mixtral-8x7b (top-2 of 8 experts, window 4096: a 544-slot
-              ring cache, every decode step ``ring_full``) at 8 of its
+              ring cache, every decode step ``ring_full``) at 4 of its
               32 layers and (b) llama4-scout-17b-a16e (top-1 of 16 and a
-              shared expert, vocab 202,048) at 4 of its 48 (MOE_LAYERS):
+              shared expert, vocab 202,048) at 2 of its 48 (SERVED_LAYERS):
               the parameters' bytes and ``LM.init``'s peak, under
               INIT_PEAK_RATIO of them; the captured prefill and step
               alone (memory each holds); the captured generate
@@ -374,10 +377,11 @@ any phase fails. Phases:
               tokens: 7 ``logmatmul`` a layer a prefill and a step (the
               attention's four linears and the shared expert's three),
               captured == eager.
-12. modality-stub families — after phase 11's models are dropped, whole
-              (nothing cut), random weights from seed 0, batch 4, prompt
-              512, 32 tokens, ``--approx simdive``, each model dropped
-              before the next. (k) The attention kernels' times at both
+12. modality-stub families — after phase 11's models are dropped,
+              qwen2-vl-2b whole and musicgen-medium at 16 of its 48
+              layers (SERVED_LAYERS), random weights from seed 0, batch
+              4, prompt 512, 32 tokens, ``--approx simdive``, each model
+              dropped before the next. (k) The attention kernels' times at both
               configurations' shapes beside their bounds and
               ``scaled_dot_product_attention``. (a) qwen2-vl-2b (M-RoPE
               sections (16, 24, 24), qkv bias, G 6, vocab 151,936), as
@@ -391,22 +395,24 @@ any phase fails. Phases:
               the same prefill with (B, P) positions moving the logits
               past twice that bound. (b) musicgen-medium (gelu, LayerNorm,
               sinusoidal positions, 4 codebooks of 2,048), prompts (4,
-              512, 4): 48 attention a prefill and 48 decode_attention a
-              step, ``(B, C, V)`` logits as (a). (c) musicgen-medium
-              ``--emulate``, 4 tokens: 6 ``logmatmul`` a layer a prefill
-              and a step (q, k, v, o, w1, w2; the heads exact), captured
-              == eager. Each model also: parameters' bytes and
-              ``LM.init``'s peak, peak and held memory, the prefill and
-              step replays, one eager step's device time by kernel.
-13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b whole (24
-              layers, d_model 2,048, 32 heads of 64, d_ff 7,168, vocab
-              65,536, untied), random weights from seed 0, batch 4, prompt
-              512, 32 tokens, ``--approx simdive``; float32 matmuls at
-              full precision (no TF32). (k) ``logmatmul`` at its eight
-              linears' (K, N) — (2048, 2048) x 6, (2048, 7168), (7168,
-              2048) — timed at M 4 and 2048 beside their bound and an
-              exact float32 ``torch.matmul`` (phase 3 holds them bit for
-              bit at M 4 and 64, every block, both schedules). (a)
+              512, 4): one attention a layer a prefill and one
+              decode_attention a layer a step, ``(B, C, V)`` logits as
+              (a). (c) musicgen-medium ``--emulate``, 4 tokens: 6
+              ``logmatmul`` a layer a prefill and a step (q, k, v, o, w1,
+              w2; the heads exact), captured == eager. Each model also:
+              parameters' bytes and ``LM.init``'s peak, peak and held
+              memory, the prefill and step replays, one eager step's
+              device time by kernel.
+13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b at 8 of its
+              24 layers (SERVED_LAYERS; d_model 2,048, 32 heads of 64,
+              d_ff 7,168, vocab 65,536, untied), random weights from
+              seed 0, batch 4, prompt 512, 32 tokens, ``--approx
+              simdive``; float32 matmuls at full precision (no TF32).
+              (k) ``logmatmul`` at its eight linears' (K, N) — (2048,
+              2048) x 6, (2048, 7168), (7168, 2048) — timed at M 4 and
+              2048 beside their bound and an exact float32
+              ``torch.matmul`` (phase 3 holds them bit for bit at M 4 and
+              64, every block, both schedules). (a)
               divider-only: no SIMDive kernel launches (no softmax), the
               captured prefill and step alone (memory each holds, the
               recurrent cache included), the captured generate
@@ -420,14 +426,15 @@ any phase fails. Phases:
               and
               ``_wkv_chunk`` at (B 4, Tc 64, H 32, dk 64) against itself
               in float64 (WKV_F64_REL_TOL). (c) ``--emulate``, 4 tokens:
-              8 ``logmatmul`` a layer a prefill and a step (192 a
-              prefill; the head exact), captured == eager.
-14. zamba2 — after phase 13's models are dropped, zamba2-2.7b whole (54
-              Mamba2 layers, d_model 2,560, d_inner 5,120 in 80 heads of
-              64, state 64, and a shared attention + gelu MLP block after
-              every 9th layer: 6 invocations, 32 heads of d_head 80, each
-              with its own rank-64 LoRA on ``wq``, merged every call;
-              vocab 32,000, untied; 9.59 GB of f32 parameters), random
+              8 ``logmatmul`` a layer a prefill and a step (the head
+              exact), captured == eager.
+14. zamba2 — after phase 13's models are dropped, zamba2-2.7b at 18 of
+              its 54 Mamba2 layers (SERVED_LAYERS; d_model 2,560,
+              d_inner 5,120 in 80 heads of 64, state 64, and a shared
+              attention + gelu MLP block after every 9th layer: 2 of its
+              6 invocations, 32 heads of d_head 80, each with its own
+              rank-64 LoRA on ``wq``, merged every call; vocab 32,000,
+              untied), random
               weights from seed 0 and ``lora_b`` a seeded non-zero draw
               (the init's zeros would add nothing to ``wq``), batch 4,
               prompt 512, 32 tokens, ``--approx simdive``. (k) The
@@ -436,8 +443,9 @@ any phase fails. Phases:
               their bounds, their plain versions and
               ``scaled_dot_product_attention``, ``logmatmul`` at its
               linears at M 4 and 2048 beside an exact bf16 matmul, and
-              one LoRA merge. (a) divider-only: 6 attention a prefill
-              and 6 ``decode_attention`` a step and nothing else, the
+              one LoRA merge. (a) divider-only: one attention a prefill
+              and one ``decode_attention`` a step an invocation and
+              nothing else, the
               captured generate ``torch.equal`` to the eager one, a
               replayed prefill's logits and cache (conv, ssm, k, v)
               ``torch.equal`` to ``lm.prefill``'s, the logits within 6
@@ -445,9 +453,9 @@ any phase fails. Phases:
               the parameters' and cache bytes, ``LM.init``'s peak, the
               memory the captured prefill and step hold, peaks, times
               and one eager step's device time by kernel. (c)
-              ``--emulate``, 4 tokens: 360 ``logmatmul`` a prefill and a
-              step (6 a Mamba2 layer, 6 a shared-block invocation; the
-              head exact), captured == eager.
+              ``--emulate``, 4 tokens: 6 ``logmatmul`` a Mamba2 layer and
+              6 a shared-block invocation a prefill and a step (the head
+              exact), captured == eager.
 15. training — the training path (``repro_torch.launch.train``) on
               smollm-360m at full width, after every served graph is
               dropped. (a) ``logmatmul`` at the gradient products'
@@ -473,6 +481,38 @@ any phase fails. Phases:
               exact against ``--approx simdive``, R-8 (no gradient for
               the approximate model's wq / wk / wv), and an exact-base
               twin at 2 layers with zero divergence.
+16. applications — the paper's two application studies at the
+              reference's own size, after every served graph is dropped.
+              (a) ``logmatmul`` at Table 4's layer shapes, (1000, 784) x
+              (784, 100), (1000, 100) x (100, 100), (1000, 100) x (100,
+              10), every rung of ``default_candidates("matmul")`` and the
+              Mitchell rung, every registered block and two square ones,
+              bit-equal to ``logmatmul_ref`` (int32) and, in its wide
+              form, to ``logmatmul_wide_ref`` (int64), and
+              ``matmul_emul``'s kernel path (the wide form at width 16)
+              to its int64 plain version; the wide form timed against the
+              int32 one there and at smollm-360m's wq at the prefill;
+              ``elemwise`` at Fig. 3/4's lanes (the blend's 65,536, the
+              Gaussian's 63,504 multiplies and its divider's window sums
+              past a 16-bit lane) at every rung of the mul ladder,
+              bit-equal, timed. Then, every count zeroed just before and
+              read just after: (b) Table 4's 784-100-10 and
+              784-100-100-10 MLPs trained on the card (6,000 images, 600
+              steps, float32, TF32 off) and run on the 1,000 test images
+              in 8-bit fixed point — accurate, SIMDive w8 cb6 and
+              Mitchell w8 on ``matmul_int``, logits on the kernel
+              ``torch.equal`` to the plain version's, float accuracy over
+              TABLE4_FLOAT_FLOOR; (c) the campaign's ``--ann``:
+              ``ann_accuracy_drop`` on the kernel equal to the plain
+              version on the same weights, the drop positive, nothing
+              left armed, and ``python -m repro_torch.faults.campaign
+              --ann --widths 8`` exiting 0 with an ``ann`` entry; (d)
+              ``profile_ann`` on the 784-100-100-10 MLP, ``greedy_assign``
+              at ANN_BUDGET points, ``assignment_policy`` and
+              ``ann_policy_metric``, and ``profile_imaging`` for psnr and
+              ssim, every value on the kernels equal to the same run on
+              the plain versions. The launches join the kernels line
+              (``launches_apps``).
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -751,6 +791,33 @@ STEP_CHECK_LAYERS, STEP_CHECK_BATCH, STEP_CHECK_SEQ = 2, 2, 128
 # (2048, N_out) x (N_out, K_in), gw (K_in, 2048) x (2048, N_out)
 TRAIN_CHECK_ROWS = 256
 TRAIN_GRAD_LINEARS = (("wq", 960, 960), ("w2", 2560, 960))
+# phase 16: the paper's two application studies at the reference's own
+# size (benchmarks/table4_ann.py, benchmarks/fig34_imaging.py). Table 4:
+# the 784-100-10 and 784-100-100-10 MLPs trained in float on 6,000 images
+# for 600 steps, run in 8-bit fixed point on the 1,000 test images; its
+# layers' (M, K, N) at the test set's 1,000 rows
+TABLE4_HIDDEN = ((100,), (100, 100))
+TABLE4_STEPS = 600
+TABLE4_SHAPES = ((1000, 784, 100), (1000, 100, 100), (1000, 100, 10))
+# the float MLP must learn: ten classes, chance is 10 %
+TABLE4_FLOAT_FLOOR = 50.0
+# the campaign's --ann fault (a stuck-1 at bit 20 of the width-8 mul
+# table) and its 200-step classifier
+ANN_FAULT = dict(site="table", bit=20, kind="stuck1", op="mul", width=8)
+ANN_QUICK_STEPS = 200
+# the tuner's greedy budget over the ANN profile, in accuracy points
+ANN_BUDGET = 1.0
+# Fig. 3/4: the blend's 256 x 256 lanes and the Gaussian's 252 x 252
+IMAGING_HW = 256
+# the wide (int64) logmatmul form timed against the int32 one at Table 4's
+# first layer and at a served shape: smollm-360m's wq at the prefill
+WIDE_SERVED_SHAPE = (2048, 960, 960)
+# one elemwise mul lane (the blend's and the window's multiplies),
+# counted as ELEMWISE_OPS_PER_LANE is: two LOD + log conversions 2 x 6,
+# region index 5, zero tests 2, coefficient select 1, ternary add 1, clip
+# at 0 1, ls >> F 1, mantissa 1, saturation test 1, the anti-log shift
+# (direction test, shift amount, shift) 3, zero select 1
+ELEMWISE_MUL_OPS_PER_LANE = 29
 
 # smollm-360m's linears per layer: (name, K, N)
 LINEARS = (("wq", 960, 960), ("wk", 960, 320), ("wv", 960, 320),
@@ -796,9 +863,18 @@ QWEN3_CHECK_ROWS = (4, 64)
 # 8-bit magnitudes: a product is at most 255^2 = 65,025, so the int32 sum of
 # the longest dot product, K = 10,240 (zamba2-2.7b's w2), stays under 2^31
 INT32_SUM_BOUND = 255 * 255 * 10240
-# (d) qwen2.5-14b's depth cut: its 48 layers are 59 GB of f32 parameters;
-# 8 layers and the two untied 152,064 x 5,120 tables are ~15 GB
-QWEN25_LAYERS = 8
+# the served configurations' depth (widths are never cut): cut to fit one
+# card in float32 — qwen2.5-14b's 48 layers are 59 GB, mixtral-8x7b's 32 are
+# 186 GB, llama4-scout's 48 ~431 GB — and, as the script grows, to keep
+# it inside its time limit (their time goes to init, capture and serving,
+# which scale with depth; phase 3 holds the kernels at their shapes
+# whatever the depth). A configuration not named here is served whole:
+# qwen2-vl-2b keeps its 28 layers, where the vision stub's M-RoPE gate was
+# measured with little margin (PERF.md, PR 30).
+SERVED_LAYERS = {"qwen3-4b": 12, "stablelm-1.6b": 8, "qwen2.5-14b": 4,
+                 "mixtral-8x7b": 4, "llama4-scout-17b-a16e": 2,
+                 "musicgen-medium": 16,
+                 "rwkv6-1.6b": 8, "zamba2-2.7b": 18}
 # the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
 # 16.8 M lanes, where it is no longer launch-bound
 SQRT_WORK_LANES = 1 << 24
@@ -829,11 +905,6 @@ WKV_F64_REL_TOL = 1e-5
 # (24 layers), bound ~5x
 CHUNK_VS_STEP_F32_REL_TOL = 1e-4
 
-# phase 11: the MoE family at full width, depth cut to fit one card in
-# float32: mixtral-8x7b's 32 layers are 186 GB (8 layers and its two
-# 32,000 x 4,096 tables ~47.5 GB), llama4-scout's 48 are ~431 GB (4 layers
-# and its two 202,048 x 5,120 tables ~43.5 GB). Widths are never cut.
-MOE_LAYERS = {"mixtral-8x7b": 8, "llama4-scout-17b-a16e": 4}
 # LM.init allocates each leaf once: its peak is the parameters' bytes and
 # at most one layer's leaf filled in place; a stack-then-copy init would
 # be 2x
@@ -1030,15 +1101,17 @@ def skinny_ptxas(text: str) -> list:
     import re
 
     entry = re.compile(r"Compiling entry function '\S*logmatmul_skinny_kernel"
-                       r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])")
+                       r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E([jy])")
     found, cur = [], None
     for line in text.splitlines():
         m = entry.search(line)
         if m:
-            w, mr, ku, pipe, vec = (int(g) for g in m.groups())
+            w, mr, ku, pipe, vec = (int(g) for g in m.groups()[:5])
+            # the accumulator: j = uint32 (the int32 form), y = uint64 (wide)
             cur = {"tile": f"w{w} MR {mr} k_unroll {ku} "
                            f"{'ring' if pipe else 'depth 0'} "
-                           f"{'16-byte' if vec else 'scalar'} loads"}
+                           f"{'16-byte' if vec else 'scalar'} loads"
+                           f"{' wide' if m.group(6) == 'y' else ''}"}
             continue
         if cur is None:
             continue
@@ -1624,7 +1697,9 @@ def check_decode_attention(dev):
 
 def check_logmatmul(dev):
     """Every registered block vs ``logmatmul_ref``, bit for bit; at decode
-    shapes also every ring depth of each skinny tile against its depth 0.
+    shapes also every ring depth of each skinny tile against its depth 0;
+    at the edge cases also the wide (int64) form of every block and ring
+    depth against ``logmatmul_wide_ref``.
     Returns (worst abs difference, {(M, K, N): plain-version ms},
     {arch: bit-equal (shape, block) runs} at qwen3-4b's seven linears and
     rwkv6-1.6b's eight)."""
@@ -1648,7 +1723,7 @@ def check_logmatmul(dev):
         return torch.randint(-hi + 1, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def run(name, x, w, spec, timed=False, depths=False):
+    def run(name, x, w, spec, timed=False, depths=False, wide=False):
         nonlocal worst, ring_runs
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1682,10 +1757,23 @@ def check_logmatmul(dev):
                             f"logmatmul {name}: skinny ring {ring} differs "
                             f"from its depth 0 {b0}")
                     ring_runs += 1
+        if wide:
+            want = lm.logmatmul_wide_ref(x, w, spec)
+            rings = [(*b0[:4], d) for b0 in skinny0
+                     for d in range(1, lm._MAX_DEPTH + 1)] if depths else []
+            for block in (*blocks, *rings):
+                got = lm.logmatmul_cuda(x, w, spec, block, wide=True)
+                torch.cuda.synchronize()
+                require(got.dtype == torch.int64 and torch.equal(got, want),
+                        f"logmatmul {name} block {block}, wide form: "
+                        f"{int((got != want).sum())} of {want.numel()} "
+                        "outputs differ from logmatmul_wide_ref")
         log(f"  logmatmul {name}: bit-equal for all {len(blocks)} blocks "
             "(registered and square)"
             + (f"; skinny rings at depths 1..{lm._MAX_DEPTH} equal to "
-               "depth 0" if depths else ""))
+               "depth 0" if depths else "")
+            + ("; the wide form of each equal to logmatmul_wide_ref"
+               if wide else ""))
 
     serving = SimdiveSpec(width=8, coeff_bits=6)
     for M in (2048, 4):
@@ -1727,11 +1815,11 @@ def check_logmatmul(dev):
             x[-1, 9] = -(1 << 31)
             w[5, :3] = -(1 << 31)
             run(f"decode edge ({M},{K})@({K},{N}), zeros, INT32_MIN", x, w,
-                serving, depths=True)
+                serving, depths=True, wide=True)
     # 47,360 bytes of dynamic shared memory for the 8-row tile: with the
     # static table over the 48 KB a launch gets without opting in
     run("decode edge (9,2560)@(2560,960)", ints((9, 2560), 256),
-        ints((2560, 960), 256), serving, depths=True)
+        ints((2560, 960), 256), serving, depths=True, wide=True)
     # operands 4 bytes off a 16-byte boundary (contiguous views into a
     # larger buffer): the skinny tile must take its scalar loads
     for M, K, N in ((4, 960, 960), (5, 960, 388)):
@@ -1743,28 +1831,33 @@ def check_logmatmul(dev):
         require(w.data_ptr() % 16 == 4 and w.is_contiguous(),
                 "the offset view is not 4 bytes off a 16-byte boundary")
         run(f"4-byte-offset views ({M},{K})@({K},{N})", x, w, serving,
-            depths=True)
+            depths=True, wide=True)
     x, w = ints((37, 50), 256), ints((50, 17), 256)
     x[0] = 0
     w[:, 3] = 0
     x[1, :5] = -(1 << 31)                       # INT32_MIN clamps to 255
     w[2, :4] = (1 << 31) - 1
-    run("ragged (37,50)@(50,17), zeros, INT32_MIN", x, w, serving)
+    run("ragged (37,50)@(50,17), zeros, INT32_MIN", x, w, serving,
+        wide=True)
     run("ragged (100,130)@(130,70) mitchell", ints((100, 130), 256),
         ints((130, 70), 256),
-        SimdiveSpec(width=8, coeff_bits=0, round_output=False))
+        SimdiveSpec(width=8, coeff_bits=0, round_output=False), wide=True)
     for M in (64, 4):
         x, w = ints((M, 960), 1 << 16), ints((960, 96), 1 << 16)
         x[:, :200], w[:200] = 65535, 65535      # sums past 2^31: they wrap
         run(f"w16 cb8 ib4 ({M},960)@(960,96), wrapping sums", x, w,
             SimdiveSpec(width=16, coeff_bits=8, index_bits=4),
-            depths=M == 4)
+            depths=M == 4, wide=True)
 
     # matmul_emul: the kernel path vs the int64 plain version (width 8 at
-    # K <= 2560 cannot overflow int32: 2560 * 255^2 < 2^31)
-    for M, K, N in ((4, 2560, 960), (64, 960, 320)):
-        qx = torch.randint(0, 256, (M, K), generator=gen, device=dev)
-        qw = torch.randint(0, 256, (K, N), generator=gen, device=dev)
+    # K <= 2560 cannot overflow int32: 2560 * 255^2 < 2^31; width 16 takes
+    # the wide form, whose sums pass 2^31)
+    for M, K, N, width in ((4, 2560, 960, 8), (64, 960, 320, 8),
+                           (4, 2560, 960, 16), (64, 960, 320, 16)):
+        serving = SimdiveSpec(width=width, coeff_bits=6)
+        hi = 1 << width
+        qx = torch.randint(0, hi, (M, K), generator=gen, device=dev)
+        qw = torch.randint(0, hi, (K, N), generator=gen, device=dev)
         sx = torch.randint(0, 2, (M, K), generator=gen, device=dev) * 2 - 1
         sw = torch.randint(0, 2, (K, N), generator=gen, device=dev) * 2 - 1
         args = (qx.to(torch.int32), sx.to(torch.int32),
@@ -1774,9 +1867,12 @@ def check_logmatmul(dev):
         torch.cuda.synchronize()
         worst = max(worst, int((got - want).abs().max()))
         require(got.dtype == torch.int64 and torch.equal(got, want),
-                f"matmul_emul ({M},{K})@({K},{N}): kernel path differs from "
-                "the int64 plain version")
-    log("  matmul_emul: kernel path bit-equal to the int64 plain version")
+                f"matmul_emul ({M},{K})@({K},{N}) w{width}: kernel path "
+                "differs from the int64 plain version")
+        require(width == 8 or float(want.abs().max()) >= 2 ** 31,
+                f"matmul_emul ({M},{K})@({K},{N}) w16: no sum past 2^31")
+    log("  matmul_emul: kernel path bit-equal to the int64 plain version "
+        "at widths 8 and 16 (the wide form, sums past 2^31)")
     log(f"  logmatmul skinny rings: {ring_runs} (case, tile, depth) runs "
         "equal to their depth 0")
     return float(worst), plain_ms, arch_runs
@@ -3780,7 +3876,8 @@ def fault_kernels(dev) -> dict:
     ``packed`` (against ``packed_word_op``, the kernel body as a plain
     function, which fires the pack hook) run every site at its op and
     width; ``logmatmul`` (the three registered blocks, both schedules, and
-    the 64 x 64 square tile) every site listed under mul; the attention
+    the 64 x 64 square tile, each in its int32 and its wide int64 form)
+    every site listed under mul; the attention
     kernels (``flash_attention`` depth 0 and ring, ``decode_attention``,
     the finalize alone) every width-16 site listed under div, at the
     divider's serving spec. Integers ``torch.equal``; attention within
@@ -3823,13 +3920,15 @@ def fault_kernels(dev) -> dict:
                 ps.packed_word_op(o["aw"], o["bw"], tab, spec=spec, op=op,
                                   frac_out=fo))
 
-    def run_matmul(w, block):
+    def run_matmul(w, block, wide=False):
         spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops["mm", w]
-        return lm_k.logmatmul_cuda(o["x"], o["w"], spec, block=block)
+        return lm_k.logmatmul_cuda(o["x"], o["w"], spec, block=block,
+                                   wide=wide)
 
-    def matmul_ref(w):
+    def matmul_ref(w, wide=False):
         spec, o = SimdiveSpec(width=w, coeff_bits=cb(w)), ops["mm", w]
-        return lm_k.logmatmul_ref(o["x"], o["w"], spec)
+        ref = lm_k.logmatmul_wide_ref if wide else lm_k.logmatmul_ref
+        return ref(o["x"], o["w"], spec)
 
     def run_attention():
         f, d, z = ops["flash"], ops["decode"], ops["finalize"]
@@ -3862,9 +3961,10 @@ def fault_kernels(dev) -> dict:
             base["elemwise", op, w] = run_elemwise(op, w)
             base["packed", op, w] = run_packed(op, w)
     for w in (8, 16):
-        base["matmul_ref", w] = matmul_ref(w)
-        for block in (*lm_k.BLOCK_CANDIDATES, square):
-            base["matmul", w, block] = run_matmul(w, block)
+        for wide in (False, True):
+            base["matmul_ref", w, wide] = matmul_ref(w, wide)
+            for block in (*lm_k.BLOCK_CANDIDATES, square):
+                base["matmul", w, block, wide] = run_matmul(w, block, wide)
     base["attention"] = run_attention()
     torch.cuda.synchronize()
 
@@ -3893,11 +3993,11 @@ def fault_kernels(dev) -> dict:
             held("elemwise", got, want, *base["elemwise", op, w])
             got, want = run_packed(op, w)
             held("packed", got, want, *base["packed", op, w])
-            if op == "mul":
-                want = matmul_ref(w)
+            for wide in ((False, True) if op == "mul" else ()):
+                want = matmul_ref(w, wide)
                 for block in (*lm_k.BLOCK_CANDIDATES, square):
                     try:
-                        got = run_matmul(w, block)
+                        got = run_matmul(w, block, wide)
                     except ValueError:
                         require(block == square and spec.site == "log"
                                 and spec.bit >= 20,
@@ -3908,8 +4008,10 @@ def fault_kernels(dev) -> dict:
                             else "logmatmul_pipelined")
                     if block == square:
                         name = "logmatmul_square"
-                    held(name, got, want, base["matmul", w, block],
-                         base["matmul_ref", w])
+                    if wide:
+                        name += "_wide"
+                    held(name, got, want, base["matmul", w, block, wide],
+                         base["matmul_ref", w, wide])
             if op == "div" and w == 16:
                 got, want = run_attention()
                 got0, want0 = base["attention"]
@@ -5259,10 +5361,20 @@ def _drop_served_graphs() -> None:
     torch.cuda.empty_cache()
 
 
-def served_generate(dev, arch, *, n_layers=None, prepare=None) -> dict:
+def served_config(arch, **kw):
+    """``serve.serving_config(arch, approx="simdive", **kw)`` at the depth
+    SERVED_LAYERS gives ``arch`` (whole when it names none)."""
+    from repro_torch.launch import serve
+
+    cfg = serve.serving_config(arch, approx="simdive", **kw)
+    n = SERVED_LAYERS.get(arch)
+    return cfg if n is None else replace(cfg, n_layers=n)
+
+
+def served_generate(dev, arch, *, prepare=None) -> dict:
     """Phases 10 (a), (c), (d), 11 (a), (b), 12 (a), (b), 13 (a) and 14
-    (a): ``arch`` at its published widths (depth cut to ``n_layers`` when
-    given), random weights from SEED (then ``prepare(params)``, in place,
+    (a): ``arch`` at its published widths (depth cut to SERVED_LAYERS'),
+    random weights from SEED (then ``prepare(params)``, in place,
     where given), batch 4, prompt 512 (a codebook config's prompts
     (4, 512, C)), 32 greedy tokens, ``--approx simdive``: the
     parameters' bytes and ``LM.init``'s peak (under INIT_PEAK_RATIO of
@@ -5284,10 +5396,8 @@ def served_generate(dev, arch, *, n_layers=None, prepare=None) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import build
 
-    cfg = serve.serving_config(arch, approx="simdive")
-    full_layers = cfg.n_layers
-    if n_layers is not None:
-        cfg = replace(cfg, n_layers=n_layers)
+    full_layers = serve.serving_config(arch, approx="simdive").n_layers
+    cfg = served_config(arch)
     lm = build(cfg)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
@@ -5407,13 +5517,12 @@ def peaks_and_times(dev, lm, params, prompts) -> dict:
 
 def qwen3_emulate(dev, params, prompts) -> dict:
     """Phase 10 (b): qwen3-4b at full width with ``--emulate``, QWEN3_EMULATE_GEN
-    tokens, (a)'s params and prompts: 7 x 36 logmatmul launches a prefill
-    and a step besides (a)'s, captured ``torch.equal`` to eager, a replayed
-    prefill equal to the eager one (:func:`policy_generate`)."""
-    from repro_torch.launch import serve
+    tokens, (a)'s params and prompts: 7 logmatmul launches a layer a
+    prefill and a step besides (a)'s, captured ``torch.equal`` to eager, a
+    replayed prefill equal to the eager one (:func:`policy_generate`)."""
     from repro_torch.models import build
 
-    cfg = serve.serving_config("qwen3-4b", approx="simdive", emulate=True)
+    cfg = served_config("qwen3-4b", emulate=True)
     require(cfg.approx.emulate and cfg.approx.width == 8,
             "not the --emulate serving config")
     run = policy_generate(dev, build(cfg), params, prompts,
@@ -5431,11 +5540,12 @@ def qwen3_emulate(dev, params, prompts) -> dict:
 def dense_family_phase(dev, int_rate) -> dict:
     """Phase 10: (k) the kernels' times at qwen3-4b's shapes, then (a) qwen3-4b
     divider-only, (b) qwen3-4b --emulate, (c) stablelm-1.6b, (d)
-    qwen2.5-14b cut to QWEN25_LAYERS layers, each at full width; every
+    qwen2.5-14b, each at full width, depth cut to SERVED_LAYERS; every
     earlier model's graphs are dropped first and each model's after it."""
     _drop_served_graphs()
     out = {"kernels": dense_kernel_times(dev, int_rate)}
-    log("  (a) qwen3-4b at full width, --approx simdive")
+    log(f"  (a) qwen3-4b at full width, {SERVED_LAYERS['qwen3-4b']} of 36 "
+        "layers, --approx simdive")
     a = served_generate(dev, "qwen3-4b")
     log(f"  (b) qwen3-4b at full width, --approx simdive --emulate, "
         f"{QWEN3_EMULATE_GEN} tokens")
@@ -5443,14 +5553,15 @@ def dense_family_phase(dev, int_rate) -> dict:
                                               a.pop("prompts"))
     out["qwen3-4b"] = a
     _drop_served_graphs()
-    log("  (c) stablelm-1.6b at full width, --approx simdive")
+    log(f"  (c) stablelm-1.6b at full width, "
+        f"{SERVED_LAYERS['stablelm-1.6b']} of 24 layers, --approx simdive")
     c = served_generate(dev, "stablelm-1.6b")
     del c["params"], c["prompts"]
     out["stablelm-1.6b"] = c
     _drop_served_graphs()
-    log(f"  (d) qwen2.5-14b at full widths, {QWEN25_LAYERS} of 48 layers, "
-        "--approx simdive")
-    d = served_generate(dev, "qwen2.5-14b", n_layers=QWEN25_LAYERS)
+    log(f"  (d) qwen2.5-14b at full widths, {SERVED_LAYERS['qwen2.5-14b']} "
+        "of 48 layers, --approx simdive")
+    d = served_generate(dev, "qwen2.5-14b")
     del d["params"], d["prompts"]
     out["qwen2.5-14b"] = d
     _drop_served_graphs()
@@ -5626,17 +5737,15 @@ def routed_logits(lm, ref_lm, params, prompts, run) -> dict:
 
 
 def llama4_emulate(dev, params, prompts) -> dict:
-    """Phase 11 (c): llama4-scout (MOE_LAYERS) with ``--emulate``,
+    """Phase 11 (c): llama4-scout (SERVED_LAYERS) with ``--emulate``,
     LLAMA4_EMULATE_GEN tokens, (b)'s params and prompts: 7 logmatmul
     launches a layer a prefill and a step (the attention's four linears
     and the shared expert's three) besides (b)'s, captured ``torch.equal``
     to eager, a replayed prefill equal to the eager one."""
-    from repro_torch.launch import serve
     from repro_torch.models import build
 
     arch = "llama4-scout-17b-a16e"
-    cfg = replace(serve.serving_config(arch, approx="simdive", emulate=True),
-                  n_layers=MOE_LAYERS[arch])
+    cfg = served_config(arch, emulate=True)
     require(cfg.approx.emulate and cfg.approx.width == 8,
             "not the --emulate serving config")
     run = policy_generate(dev, build(cfg), params, prompts,
@@ -5653,21 +5762,20 @@ def llama4_emulate(dev, params, prompts) -> dict:
 
 def moe_family_phase(dev) -> dict:
     """Phase 11: (a) mixtral-8x7b, (b) llama4-scout and (c) llama4-scout
-    ``--emulate`` at full width, depth cut to MOE_LAYERS; every earlier
+    ``--emulate`` at full width, depth cut to SERVED_LAYERS; every earlier
     model's graphs are dropped first and each model's after it."""
     _drop_served_graphs()
     out = {}
     log("  (a) mixtral-8x7b at full width, "
-        f"{MOE_LAYERS['mixtral-8x7b']} of 32 layers, --approx simdive")
-    a = served_generate(dev, "mixtral-8x7b",
-                        n_layers=MOE_LAYERS["mixtral-8x7b"])
+        f"{SERVED_LAYERS['mixtral-8x7b']} of 32 layers, --approx simdive")
+    a = served_generate(dev, "mixtral-8x7b")
     del a["params"], a["prompts"]
     out["mixtral-8x7b"] = a
     _drop_served_graphs()
     arch = "llama4-scout-17b-a16e"
-    log(f"  (b) {arch} at full width, {MOE_LAYERS[arch]} of 48 layers, "
+    log(f"  (b) {arch} at full width, {SERVED_LAYERS[arch]} of 48 layers, "
         "--approx simdive")
-    b = served_generate(dev, arch, n_layers=MOE_LAYERS[arch])
+    b = served_generate(dev, arch)
     params, prompts = b.pop("params"), b.pop("prompts")
     out[arch] = b
     _drop_served_graphs()
@@ -5737,7 +5845,7 @@ def vision_generate(dev, params, prompts) -> dict:
     from repro_torch.models import build
 
     arch = "qwen2-vl-2b"
-    cfg = serve.serving_config(arch, approx="simdive")
+    cfg = served_config(arch)
     lm = build(cfg)
     ref_lm = build(replace(cfg, approx=replace(cfg.approx, backend="ref")))
     extra = vision_batch(dev, cfg.d_model)
@@ -5790,7 +5898,7 @@ def musicgen_emulate(dev, params, prompts) -> dict:
     from repro_torch.models import build
 
     arch = "musicgen-medium"
-    cfg = serve.serving_config(arch, approx="simdive", emulate=True)
+    cfg = served_config(arch, emulate=True)
     require(cfg.approx.emulate and cfg.approx.width == 8,
             "not the --emulate serving config")
     run = policy_generate(dev, build(cfg), params, prompts,
@@ -5808,8 +5916,9 @@ def musicgen_emulate(dev, params, prompts) -> dict:
 def modality_family_phase(dev, int_rate) -> dict:
     """Phase 12: (k) the attention kernels' times at both configurations'
     shapes, then (a) qwen2-vl-2b whole (text, then the vision stub), (b)
-    musicgen-medium whole and (c) musicgen-medium ``--emulate``; every
-    earlier model's graphs are dropped first and each model's after it."""
+    musicgen-medium and (c) musicgen-medium ``--emulate``, its depth cut to
+    SERVED_LAYERS; every earlier model's graphs are dropped first and each
+    model's after it."""
     _drop_served_graphs()
     out = {"kernels": modality_kernel_times(dev, int_rate)}
     log("  (a) qwen2-vl-2b whole (28 layers), --approx simdive")
@@ -5819,8 +5928,9 @@ def modality_family_phase(dev, int_rate) -> dict:
     a["vision"] = vision_generate(dev, a.pop("params"), a.pop("prompts"))
     out["qwen2-vl-2b"] = a
     _drop_served_graphs()
-    log("  (b) musicgen-medium whole (48 layers, 4 codebooks), --approx "
-        "simdive")
+    log(f"  (b) musicgen-medium at full width, "
+        f"{SERVED_LAYERS['musicgen-medium']} of 48 layers, 4 codebooks, "
+        "--approx simdive")
     b = served_generate(dev, "musicgen-medium")
     params, prompts = b.pop("params"), b.pop("prompts")
     out["musicgen-medium"] = b
@@ -5885,8 +5995,7 @@ def chunk_vs_step(dev, params, prompts) -> dict:
     toks = prompts[:, :RWKV6_PREFIX]
     runs = {}
     for dtype in ("float32", "bfloat16"):
-        lm = build(replace(serve.serving_config(RWKV6, approx="simdive"),
-                           dtype=dtype))
+        lm = build(replace(served_config(RWKV6), dtype=dtype))
         logits, cache = lm.prefill(params, {"tokens": toks})
         stepped = lm.empty_cache(BATCH, RWKV6_PREFIX)
         for i in range(RWKV6_PREFIX):
@@ -5922,12 +6031,12 @@ def chunk_vs_step(dev, params, prompts) -> dict:
 
 
 def rwkv6_phase(dev, int_rate) -> dict:
-    """Phase 13: rwkv6-1.6b whole, after every earlier model's graphs are
-    dropped. (k) ``logmatmul`` at its eight linears' shapes beside their
-    bound and an exact float32 ``torch.matmul`` (phase 3 holds them bit
-    for bit); (a) divider-only (:func:`served_generate`: no SIMDive kernel
-    launches), the chunked prefill against the stepwise decode
-    (:func:`chunk_vs_step`) and the WKV chunk against float64
+    """Phase 13: rwkv6-1.6b (SERVED_LAYERS), after every earlier model's
+    graphs are dropped. (k) ``logmatmul`` at its eight linears' shapes
+    beside their bound and an exact float32 ``torch.matmul`` (phase 3
+    holds them bit for bit); (a) divider-only (:func:`served_generate`:
+    no SIMDive kernel launches), the chunked prefill against the stepwise
+    decode (:func:`chunk_vs_step`) and the WKV chunk against float64
     (:func:`wkv_against_f64`); (c) ``--emulate``, RWKV6_EMULATE_GEN
     tokens: 8 ``logmatmul`` a layer a prefill and a step, the head exact,
     captured == eager. Float32 matmuls must run at full precision (no
@@ -5944,11 +6053,12 @@ def rwkv6_phase(dev, int_rate) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     out = {"kernels": {f"logmatmul {RWKV6}": linear_times(
         dev, gen, RWKV6, RWKV6_LINEARS, int_rate, torch.float32)}}
-    cfg = serve.serving_config(RWKV6, approx="simdive")
+    cfg = served_config(RWKV6)
     cache_bytes = {"/".join(p): t.numel() * t.element_size()
                    for p, t in serve.cache_leaves(LM(
                        cfg, torch.device("meta")).empty_cache(BATCH, 1))}
-    log(f"  (a) {RWKV6} whole ({cfg.n_layers} layers), --approx simdive; "
+    log(f"  (a) {RWKV6} at full width, {cfg.n_layers} of 24 layers, "
+        "--approx simdive; "
         f"its serving cache {cache_bytes} bytes, no seq axis")
     a = served_generate(dev, RWKV6)
     require(not any(a["counts"].values()),
@@ -5961,7 +6071,7 @@ def rwkv6_phase(dev, int_rate) -> dict:
     out[RWKV6] = a
     _drop_served_graphs()
     log(f"  (c) {RWKV6} --emulate, {RWKV6_EMULATE_GEN} tokens")
-    ecfg = serve.serving_config(RWKV6, approx="simdive", emulate=True)
+    ecfg = served_config(RWKV6, emulate=True)
     require(ecfg.approx.emulate and ecfg.approx.width == 8,
             "not the --emulate serving config")
     run = policy_generate(dev, build(ecfg), params, prompts,
@@ -6005,15 +6115,17 @@ def lora_merge_ms(params) -> float:
 
 
 def zamba2_phase(dev, int_rate) -> dict:
-    """Phase 14: zamba2-2.7b whole, after every earlier model's graphs are
-    dropped. (k) the attention kernels at its shapes (:func:`attention_times`
-    at d_head 80, and the step over 2,048 slots) and ``logmatmul`` at its
-    Mamba2 layer's and shared block's linears, each beside its bound; (a)
-    divider-only (:func:`served_generate`, ``lora_b`` seeded first): 6
-    attention a prefill, 6 decode_attention a step, nothing else, captured
+    """Phase 14: zamba2-2.7b (SERVED_LAYERS), after every earlier model's
+    graphs are dropped. (k) the attention kernels at its shapes
+    (:func:`attention_times` at d_head 80, and the step over 2,048 slots)
+    and ``logmatmul`` at its Mamba2 layer's and shared block's linears,
+    each beside its bound; (a) divider-only (:func:`served_generate`,
+    ``lora_b`` seeded first): one attention a prefill and one
+    decode_attention a step an invocation, nothing else, captured
     == eager, within 6 bf16 ulps of the plain versions; the cache's bytes
     and one LoRA merge's time; (c) ``--emulate``, ZAMBA2_EMULATE_GEN
-    tokens: 360 ``logmatmul`` a prefill and a step, captured == eager."""
+    tokens: 6 ``logmatmul`` a Mamba2 layer and 6 a shared-block
+    invocation a prefill and a step, captured == eager."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.launch import serve
@@ -6042,13 +6154,14 @@ def zamba2_phase(dev, int_rate) -> dict:
             dev, gen, f"{ZAMBA2} {part}", linears, int_rate, torch.bfloat16,
             check_rows=ZAMBA2_CHECK_ROWS)
     out = {"kernels": kernels}
-    cfg = serve.serving_config(ZAMBA2, approx="simdive")
+    cfg = served_config(ZAMBA2)
     cache_bytes = {"/".join(p): t.numel() * t.element_size()
                    for p, t in serve.cache_leaves(LM(
                        cfg, torch.device("meta")).empty_cache(
                            BATCH, PROMPT + GEN))}
     n_inv = cfg.n_layers // cfg.hybrid_period
-    log(f"  (a) {ZAMBA2} whole ({cfg.n_layers} Mamba2 layers, the shared "
+    log(f"  (a) {ZAMBA2} at full width, {cfg.n_layers} of 54 Mamba2 "
+        "layers (the shared "
         f"block {n_inv} times), --approx simdive, lora_b seeded; its "
         f"serving cache {cache_bytes} bytes")
     a = served_generate(dev, ZAMBA2, prepare=seeded_lora_b)
@@ -6060,12 +6173,13 @@ def zamba2_phase(dev, int_rate) -> dict:
     out[ZAMBA2] = a
     _drop_served_graphs()
     log(f"  (c) {ZAMBA2} --emulate, {ZAMBA2_EMULATE_GEN} tokens")
-    ecfg = serve.serving_config(ZAMBA2, approx="simdive", emulate=True)
+    ecfg = served_config(ZAMBA2, emulate=True)
     require(ecfg.approx.emulate and ecfg.approx.width == 8,
             "not the --emulate serving config")
     linears = (len(ZAMBA2_MAMBA_LINEARS) * ecfg.n_layers
                + len(ZAMBA2_SHARED_LINEARS) * n_inv)
-    require(linears == 360, f"{ZAMBA2}: {linears} linears a prefill")
+    require(linears == 6 * cfg.n_layers + 6 * n_inv,
+            f"{ZAMBA2}: {linears} linears a prefill")
     run = policy_generate(dev, build(ecfg), params, prompts,
                           f"{ZAMBA2} --emulate", linears=linears,
                           gen=ZAMBA2_EMULATE_GEN)
@@ -6540,6 +6654,421 @@ def training_phase(dev, int_rate) -> dict:
     return out
 
 
+# ------------------------------------------- phase 16: the applications --
+def _table4_operands(dev, gen, M, K, N, width):
+    """Magnitudes in the lane, signs, zeros: ``quantize_sign_magnitude``'s
+    outputs at (M, K) @ (K, N), and the re-signed int32 operands."""
+    import torch
+
+    hi = 1 << width
+    qx = torch.randint(0, hi, (M, K), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qw = torch.randint(0, hi, (K, N), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qx[:, :3], qw[:2] = 0, 0
+    qx[0, 3:9], qw[2, :5] = hi - 1, hi - 1      # saturating products
+    sx = torch.randint(0, 2, (M, K), generator=gen, device=dev,
+                       dtype=torch.int32) * 2 - 1
+    sw = torch.randint(0, 2, (K, N), generator=gen, device=dev,
+                       dtype=torch.int32) * 2 - 1
+    return qx, sx, qw, sw
+
+
+def app_matmul_checks(dev, int_rate) -> dict:
+    """Phase 16 (a), the matmuls: at Table 4's three layer shapes, every
+    rung of ``default_candidates("matmul")`` and the Mitchell rung,
+    ``logmatmul`` bit-equal to its plain version for every registered
+    block and two square ones, in its int32 form (``matmul_int``'s
+    wrap-around contract) and its wide form (``logmatmul_wide_ref``), and
+    ``matmul_emul``'s kernel path (the wide form where int32 could wrap:
+    every width-16 call) bit-equal to its int64 plain version; then the
+    wide form timed against the int32 one at Table 4's first layer and at
+    smollm-360m's wq at the prefill (graph replays, the autotune's default
+    block and the ring's): the repair's cost."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import logmatmul as lmm
+    from repro_torch.tuning import default_candidates
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    specs = [(f"w{c.width} cb{c.coeff_bits}", c.spec())
+             for c in default_candidates("matmul")]
+    specs.append(("mitchell w8", SimdiveSpec(width=8, coeff_bits=0,
+                                             round_output=False)))
+    blocks = (*get_op("matmul_int", SimdiveSpec()).entry.block_candidates,
+              SQUARE_BLOCKS[0], SQUARE_BLOCKS[1])
+    runs = 0
+    plain_ms = {}
+    for M, K, N in TABLE4_SHAPES:
+        for name, spec in specs:
+            qx, sx, qw, sw = _table4_operands(dev, gen, M, K, N, spec.width)
+            x, w = qx * sx, qw * sw
+            t0 = time.perf_counter()
+            want = lmm.logmatmul_ref(x, w, spec)
+            torch.cuda.synchronize()
+            plain_ms[f"{M},{K},{N} {name}"] = (time.perf_counter() - t0) * 1e3
+            want_wide = lmm.logmatmul_wide_ref(x, w, spec)
+            for b in blocks:
+                got = lmm.logmatmul_cuda(x, w, spec, b)
+                require(torch_equal(got, want),
+                        f"logmatmul ({M},{K})@({K},{N}) {name} block {b}: "
+                        "not bit-equal to logmatmul_ref")
+                got = lmm.logmatmul_cuda(x, w, spec, b, wide=True)
+                require(torch_equal(got, want_wide),
+                        f"logmatmul ({M},{K})@({K},{N}) {name} block {b}, "
+                        "wide form: not bit-equal to logmatmul_wide_ref")
+                runs += 2
+            emul = get_op("matmul_emul", spec, "ref")(qx, sx, qw, sw)
+            require(torch_equal(emul, want_wide),
+                    f"({M},{K})@({K},{N}) {name}: logmatmul_wide_ref is not "
+                    "matmul_emul's plain version")
+            for b in get_op("matmul_emul", spec).entry.block_candidates:
+                got = get_op("matmul_emul", spec, "cuda", block=b)(
+                    qx, sx, qw, sw)
+                require(torch_equal(got, emul),
+                        f"matmul_emul ({M},{K})@({K},{N}) {name} block {b}: "
+                        "the kernel path differs from the int64 plain "
+                        "version")
+                runs += 1
+            if spec.width == 16 and K == 784:
+                narrow = want.to(torch.int64)
+                wrong = float((narrow != want_wide).float().mean())
+                log(f"  ({M},{K})@({K},{N}) {name}: the int32 form differs "
+                    f"from the int64 sum on {wrong:.1%} of the outputs "
+                    f"(largest |sum| {float(want_wide.abs().max()):.4g})")
+    log(f"  logmatmul / matmul_emul at Table 4's shapes, {len(specs)} rungs:"
+        f" {runs} kernel runs bit-equal to their plain versions (int32 and "
+        "wide forms, both schedules, square tiles)")
+    timed = {}
+    for M, K, N in (TABLE4_SHAPES[0], WIDE_SERVED_SHAPE):
+        for width in (8, 16):
+            spec = SimdiveSpec(width=width, coeff_bits=6)
+            qx, sx, qw, sw = _table4_operands(dev, gen, M, K, N, width)
+            x, w = qx * sx, qw * sw
+            row = {}
+            for sched, block in (("", lmm.DEFAULT_BLOCK),
+                                 ("ring_", MATMUL_RING_BLOCK)):
+                for form, wide in (("int32", False), ("wide", True)):
+                    row[f"{sched}{form}_ms"] = gpu_graph_time_ms(
+                        lambda block=block, wide=wide: lmm.logmatmul_cuda(
+                            x, w, spec, block, wide=wide), iters=5)
+            # the wide form's bound: int32 operands in, int64 sums out
+            ops_ms = logmatmul_ops_ms(M, K, N, int_rate)
+            bytes_ms = ((M * K + K * N) * 4 + M * N * 8) \
+                / HBM_BYTES_PER_S * 1e3
+            row.update(bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms
+                       else "bytes",
+                       wide_over_int32=row["wide_ms"] / row["int32_ms"])
+            timed[f"{M},{K},{N} w{width}"] = row
+            log(f"  logmatmul ({M},{K})@({K},{N}) w{width}, block "
+                f"{lmm.DEFAULT_BLOCK}: int32 form {row['int32_ms']:.4f} ms, "
+                f"wide form {row['wide_ms']:.4f} ms "
+                f"({row['wide_over_int32']:.3f}x); ring {MATMUL_RING_BLOCK}"
+                f": {row['ring_int32_ms']:.4f} / {row['ring_wide_ms']:.4f} "
+                f"ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {"bit_equal_runs": runs, "plain_ms": plain_ms, "wide_vs_int32":
+            timed, "max_abs_err": 0}
+
+
+def _imaging_lanes(dev) -> dict:
+    """The lanes Fig. 3/4's pipeline hands ``elemwise`` (seed 3's images):
+    the blend's 65,536 pixel pairs, the Gaussian's 63,504 (pixel, weight)
+    pairs of its centre tap (weight 41) and its divider's window sums over
+    273, with the window sums' edges spliced in (0, 1, 255, 65,535, and
+    past a 16-bit lane 65,536 and 255 x 273 = 69,615, the largest a window
+    can sum)."""
+    import numpy as np
+    import torch
+    from repro_torch.apps import fig34_imaging as f34
+    from repro_torch.core.mitchell import to_lanes
+
+    img1, img2 = f34.synth_image(3), f34.synth_image(4)
+    blended = (img1.astype(np.int64) * img2) // 255
+    H = IMAGING_HW
+    acc = np.zeros((H - 4, H - 4), np.int64)
+    for dy in range(5):
+        for dx in range(5):
+            acc += (blended[dy:dy + H - 4, dx:dx + H - 4]
+                    * int(f34.GAUSS[dy, dx]))
+
+    def lanes(a):                  # uint32 lanes, as the kernel takes them
+        return to_lanes(torch.from_numpy(
+            np.ascontiguousarray(a, np.int64).ravel())).to(dev)
+
+    centre = blended[2:H - 2, 2:H - 2]
+    acc = acc.ravel()
+    acc[:6] = (0, 1, 255, 65535, 65536, 255 * 273)
+    return {"blend mul": (lanes(img1), lanes(img2), {"op": "mul"}),
+            "gauss mul": (lanes(centre), lanes(np.full(centre.shape, 41)),
+                          {"op": "mul"}),
+            "gauss div": (lanes(acc), lanes(np.full(acc.shape, 273)),
+                          {"op": "div", "frac_out": f34.FO})}
+
+
+def app_elemwise_checks(dev, int_rate) -> dict:
+    """Phase 16 (a), the imaging kernel: ``elemwise`` at Fig. 3/4's lanes
+    (:func:`_imaging_lanes`) at every rung of the mul ladder bit-equal to
+    its plain version, each timed (graph replay) beside its bound and the
+    plain version."""
+    import torch
+    from repro_torch.kernels import get_op
+    from repro_torch.tuning import default_candidates
+
+    cases = _imaging_lanes(dev)
+    rows = {}
+    for cand in default_candidates("mul"):
+        spec = cand.spec()
+        for case, (a, b, kw) in cases.items():
+            op_k = get_op("elemwise", spec, "cuda")
+            op_p = get_op("elemwise", spec, "ref")
+            kern = lambda: op_k(a, b, **kw)
+            plain = lambda: op_p(a, b, **kw)
+            require(torch_equal(kern(), plain()),
+                    f"elemwise {case} w{spec.width} cb{spec.coeff_bits}: "
+                    "not bit-equal to its plain version")
+            if (spec.width, spec.coeff_bits) != (16, 6):
+                continue
+            lanes = a.numel()
+            ops = (ELEMWISE_OPS_PER_LANE if kw["op"] == "div"
+                   else ELEMWISE_MUL_OPS_PER_LANE)
+            ops_ms = ops * lanes / int_rate * 1e3
+            bytes_ms = 12 * lanes / HBM_BYTES_PER_S * 1e3
+            rows[case] = {
+                "lanes": lanes, "spec": "w16 cb6",
+                "ms": gpu_graph_time_ms(kern, iters=50),
+                "eager_ms": gpu_time_ms(kern, iters=50),
+                "plain_ms": gpu_time_ms(plain, iters=5),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "max_abs_err": 0, "library_ms": None}
+    for case, row in rows.items():
+        log(f"  elemwise {case} ({row['lanes']} lanes, w16 cb6): "
+            f"{row['ms']:.5f} ms (graph), eager {row['eager_ms']:.5f}, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.3f} ms")
+    log("  elemwise at Fig. 3/4's lanes: bit-equal at every rung of the mul "
+        "ladder (window sums past a 16-bit lane included)")
+    return rows
+
+
+def table4_rows(dev, data) -> dict:
+    """Phase 16 (b): Table 4's rows. Each MLP trained on the card
+    (``apps.table4_ann.train_float``, float32, TF32 off), then run in 8-bit
+    fixed point with the accurate baseline (``exact_matmul``), SIMDive
+    w8 cb6 and Mitchell w8 on ``matmul_int`` — on the kernel, and on the
+    plain version with the same weights: logits ``torch.equal``, so the
+    accuracies equal. The float accuracy over TABLE4_FLOAT_FLOOR. Returns
+    the rows and the 784-100-100-10 weights (for (d))."""
+    import torch
+    from repro_torch.apps import table4_ann as t4
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.metrics import classification_accuracy
+
+    require(torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "float32 matmuls are not at full precision (TF32 is on)")
+    (xtr, ytr), (xte, yte) = data
+    specs = {"simdive": SimdiveSpec(width=8, coeff_bits=6),
+             "mitchell": SimdiveSpec(width=8, coeff_bits=0,
+                                     round_output=False)}
+    rows, weights = {}, None
+    for hidden in TABLE4_HIDDEN:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ws, fwd = t4.train_float(xtr, ytr, hidden=hidden, steps=TABLE4_STEPS,
+                                 seed=0, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        xt = torch.from_numpy(xte).to(dev)
+        row = {"float": classification_accuracy(fwd(ws, xt).cpu().numpy(),
+                                                yte),
+               "train_s": train_s}
+        row["accurate8"] = classification_accuracy(
+            t4.quantized_infer(ws, xte, t4.exact_matmul).cpu().numpy(), yte)
+        for name, spec in specs.items():
+            got = t4.quantized_infer(ws, xte,
+                                     get_op("matmul_int", spec, "auto"))
+            want = t4.quantized_infer(ws, xte,
+                                      get_op("matmul_int", spec, "ref"))
+            require(torch_equal(got, want),
+                    f"Table 4 {hidden} {name}: logits on the kernel differ "
+                    "from the plain version's")
+            row[name] = classification_accuracy(got.cpu().numpy(), yte)
+        row["delta_simdive_pct_points"] = abs(row["simdive"]
+                                              - row["accurate8"])
+        tag = "-".join(str(h) for h in (784, *hidden, 10))
+        require(row["float"] > TABLE4_FLOAT_FLOOR,
+                f"Table 4 {tag}: float accuracy {row['float']:.1f} % (the "
+                "MLP did not learn)")
+        rows[tag] = row
+        log(f"  Table 4 {tag} ({TABLE4_STEPS} steps in {train_s:.2f}s): "
+            f"float {row['float']:.1f} %, accurate-8 {row['accurate8']:.1f}"
+            f" %, SIMDive-8 {row['simdive']:.1f} %, Mitchell-8 "
+            f"{row['mitchell']:.1f} %; SIMDive - accurate "
+            f"{row['simdive'] - row['accurate8']:+.1f} points; logits on "
+            "the kernel == on the plain version")
+        weights = ws
+    return rows, weights
+
+
+def ann_phase(dev, data) -> dict:
+    """Phase 16 (c): the campaign's ``--ann``. ``ann_accuracy_drop`` on the
+    kernel and on the plain version with the same trained weights (its own
+    200-step classifier, trained once): clean and faulted accuracies equal,
+    the drop positive, nothing left armed; then the CLI ``python -m
+    repro_torch.faults.campaign --ann --widths 8 --out ...`` in its own
+    process (it trains its own classifier): exit 0 and an ``ann`` entry."""
+    import os
+    import tempfile
+
+    from repro_torch.apps import table4_ann as t4
+    from repro_torch.faults.campaign import ann_accuracy_drop
+    from repro_torch.faults.inject import FaultSpec, active_faults
+
+    (xtr, ytr), _ = data
+    spec = FaultSpec(**ANN_FAULT)
+    ws, _ = t4.train_float(xtr, ytr, hidden=(100,), steps=ANN_QUICK_STEPS,
+                           seed=0, device=dev)
+    kern = ann_accuracy_drop(spec, device=dev, ws=ws)
+    plain = ann_accuracy_drop(spec, device=dev, backend="ref", ws=ws)
+    require(kern == plain, f"--ann on the kernel {kern} differs from the "
+                           f"plain version {plain}")
+    require(kern["acc_drop_pct_points"] > 0,
+            f"--ann: the fault moved nothing ({kern})")
+    require(active_faults() == (), f"--ann left {active_faults()} armed")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "campaign.json"
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "repro_torch.faults.campaign", "--ann",
+             "--widths", "8", "--out", str(out)], cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        require(done.returncode == 0,
+                f"campaign --ann exited {done.returncode}: "
+                f"{done.stderr[-2000:]}")
+        cli = json.loads(out.read_text())["ann"]
+    log(f"  --ann: {ANN_FAULT}, clean {kern['acc_clean_pct']:.1f} %, "
+        f"faulted {kern['acc_fault_pct']:.1f} %, drop "
+        f"{kern['acc_drop_pct_points']:.1f} points, == on the plain "
+        f"version; the CLI in {cli_s:.1f}s: {cli}")
+    return {"kernel": kern, "cli": cli, "cli_s": cli_s}
+
+
+def tuner_phase(dev, data, ws) -> dict:
+    """Phase 16 (d): the tuner's application glue on the card.
+    ``profile_ann`` on the 784-100-100-10 MLP over the 1,000 test images
+    at every rung of ``default_candidates("matmul")`` (its (16, 6) rung on
+    the wide form), ``greedy_assign`` at ANN_BUDGET points,
+    ``assignment_policy`` and ``ann_policy_metric``; ``profile_imaging``
+    for psnr and ssim. Each run again with the candidates' backend
+    ``'ref'`` (the plain versions on the same card): every value equal."""
+    from repro_torch.tuning import (BudgetError, ann_policy_metric,
+                                    assignment_policy, default_candidates,
+                                    greedy_assign, profile_ann,
+                                    profile_imaging)
+
+    _, (xte, yte) = data
+
+    def plain(cands):
+        return tuple(replace(c, backend="ref") for c in cands)
+
+    def values(prof):
+        return [(layer, [m for _, m in row]) for layer, row in prof.table]
+
+    out = {}
+    t0 = time.perf_counter()
+    prof = profile_ann(ws, xte, yte, device=dev)
+    prof_s = time.perf_counter() - t0
+    ref = profile_ann(ws, xte, yte, candidates=plain(prof.candidates),
+                      device=dev)
+    require(prof.baseline == ref.baseline and values(prof) == values(ref),
+            f"profile_ann on the kernels {values(prof)} differs from the "
+            f"plain versions {values(ref)}")
+    try:
+        assignment = greedy_assign(prof, ANN_BUDGET)
+        feasible = True
+    except BudgetError:
+        assignment = {layer: prof.candidates[-1] for layer in prof.layers}
+        feasible = False
+    policy = assignment_policy(assignment, op="matmul")
+    acc = ann_policy_metric(ws, xte, yte, policy, device=dev)
+    acc_plain = ann_policy_metric(
+        ws, xte, yte, assignment_policy(
+            {k: replace(c, backend="ref") for k, c in assignment.items()},
+            op="matmul"), device=dev)
+    require(acc == acc_plain, f"ann_policy_metric on the kernels {acc} "
+                              f"differs from the plain versions {acc_plain}")
+    out["ann"] = {"baseline": prof.baseline, "table": values(prof),
+                  "candidates": [(c.width, c.coeff_bits)
+                                 for c in prof.candidates],
+                  "budget": ANN_BUDGET, "feasible": feasible,
+                  "assignment": {k: (c.width, c.coeff_bits)
+                                 for k, c in assignment.items()},
+                  "policy_accuracy": acc, "profile_s": prof_s}
+    log(f"  profile_ann (784-100-100-10, 1,000 images; {prof_s:.1f}s on the "
+        f"kernels): {prof.render()}")
+    how = ("feasible" if feasible
+           else "infeasible: every layer at the best rung")
+    log(f"  greedy_assign at {ANN_BUDGET} point(s) ({how}): "
+        f"{out['ann']['assignment']}; ann_policy_metric {acc:.1f} % == on "
+        "the plain versions")
+    for metric in ("psnr", "ssim"):
+        t0 = time.perf_counter()
+        prof = profile_imaging(metric=metric, device=dev)
+        prof_s = time.perf_counter() - t0
+        ref = profile_imaging(metric=metric, device=dev,
+                              candidates=plain(prof.candidates))
+        require(prof.baseline == ref.baseline
+                and values(prof) == values(ref),
+                f"profile_imaging {metric} on the kernels differs from the "
+                "plain versions")
+        out[f"imaging {metric}"] = {"baseline": prof.baseline,
+                                    "table": values(prof),
+                                    "profile_s": prof_s}
+        log(f"  profile_imaging {metric} ({prof_s:.1f}s on the kernels): "
+            f"{prof.render()}")
+    return out
+
+
+def applications_phase(dev, int_rate) -> dict:
+    """Phase 16: (a) the kernels at the application studies' shapes
+    (:func:`app_matmul_checks`, :func:`app_elemwise_checks`), then, with
+    every launch count zeroed just before and read just after, (b)
+    :func:`table4_rows`, (c) :func:`ann_phase` and (d)
+    :func:`tuner_phase`: their launches per kernel, of which the wide
+    form's, must include both matmul forms and the elemwise kernel."""
+    import torch
+    from repro_torch.apps import table4_ann as t4
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import logmatmul as lmm
+
+    _drop_served_graphs()
+    out = {"kernels": {"matmul": app_matmul_checks(dev, int_rate),
+                       "elemwise": app_elemwise_checks(dev, int_rate)}}
+    data = t4.make_dataset(seed=0)
+    reset_launch_counts()
+    lmm.logmatmul_cuda.wide_launches = 0
+    out["table4"], ws = table4_rows(dev, data)
+    out["ann"] = ann_phase(dev, data)
+    out["tuner"] = tuner_phase(dev, data, ws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out["counts"] = counts
+    out["wide_launches"] = lmm.logmatmul_cuda.wide_launches
+    require(_matmul_launches(counts) > 0 and counts["elemwise"] > 0
+            and out["wide_launches"] > 0,
+            f"applications: launches {counts}, wide "
+            f"{out['wide_launches']}: a kernel of the path never ran")
+    log(f"  applications: launches {counts}, of which the wide logmatmul "
+        f"form {out['wide_launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6561,13 +7090,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/15] device: {card} | torch {torch.__version__} "
+    log(f"[1/16] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/15] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/16] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs = []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -6584,7 +7113,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/15] kernels vs plain versions")
+    log("[3/16] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -6593,7 +7122,7 @@ def main(argv=None) -> int:
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/15] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/16] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -6606,7 +7135,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/15] times")
+    log("[5/16] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -6627,24 +7156,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/15] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/16] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/15] faults: every kernel under each armed site, captured graphs, "
+    log("[7/16] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/15] policy: build_policy / select_config on the card, a "
+    log("[8/16] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/15] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/16] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -6658,45 +7187,56 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/15] the dense family at full width: (k) the kernels' times "
+    log("[10/16] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
-        "stablelm-1.6b, (d) qwen2.5-14b (8 of 48 layers)")
+        "stablelm-1.6b, (d) qwen2.5-14b; depths cut to SERVED_LAYERS")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/15] the MoE family at full width: (a) mixtral-8x7b (8 of 32 "
-        "layers), (b) llama4-scout-17b-a16e (4 of 48 layers), (c) "
+    log("[11/16] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
+        "layers), (b) llama4-scout-17b-a16e (2 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/15] the modality-stub families at full width, nothing cut: (k) "
+    log("[12/16] the modality-stub families at full width (musicgen-medium "
+        "at 16 of 48 layers): (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
 
     starts[13] = time.perf_counter() - t_start
-    log("[13/15] rwkv6-1.6b whole at full width: (k) logmatmul at its "
+    log("[13/16] rwkv6-1.6b at full width, 8 of 24 layers: (k) "
+        "logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
         "the recurrent cache through both graphs), (c) --emulate")
     rwkv6 = rwkv6_phase(dev, int_rate)
 
     starts[14] = time.perf_counter() - t_start
-    log("[14/15] zamba2-2.7b whole at full width: (k) the attention "
+    log("[14/16] zamba2-2.7b at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
-        "simdive (54 Mamba2 layers, the shared block 6 times with its "
-        "LoRA merged each call), (c) --emulate")
+        "simdive (18 of 54 Mamba2 layers, the shared block 2 times with "
+        "its LoRA merged each call), (c) --emulate")
     zamba2 = zamba2_phase(dev, int_rate)
 
     starts[15] = time.perf_counter() - t_start
-    log("[15/15] training: (a) logmatmul at smollm-360m's gradient "
+    log("[15/16] training: (a) logmatmul at smollm-360m's gradient "
         "products and elemwise at the training finalize, against their "
         "plain versions; (b) one step on the kernels == on the plain "
         "versions (2 layers); (c) launch.train.train at full width, "
         "--approx simdive --backward approx, a rung change, killed and "
         "resumed; (d) the exact-vs-approximate twin")
     training = training_phase(dev, int_rate)
+
+    starts[16] = time.perf_counter() - t_start
+    log("[16/16] applications at the reference's size: (a) logmatmul and "
+        "matmul_emul at Table 4's layer shapes (int32 and wide forms) and "
+        "elemwise at Fig. 3/4's lanes, every rung, against their plain "
+        "versions; (b) Table 4's two MLPs trained on the card and run in "
+        "8-bit fixed point; (c) the campaign's --ann; (d) profile_ann, "
+        "greedy_assign, ann_policy_metric and profile_imaging")
+    apps = applications_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -6901,6 +7441,16 @@ def main(argv=None) -> int:
     by_name["logmatmul"]["train_grad_products"] = \
         training["kernels"]["products"]
     by_name["elemwise"]["train_finalize"] = training["kernels"]["finalize"]
+    # phase 16: the application studies' launches, zeroed just before (b)
+    # and read just after (d), of which the wide logmatmul form's; the
+    # kernels at the studies' shapes (a)
+    for kern, name in ((by_name["logmatmul"], "matmul"),
+                       (by_name["logmatmul_pipelined"], "matmul_pipelined"),
+                       (by_name["elemwise"], "elemwise")):
+        kern["launches_apps"] = apps["counts"].get(name, 0)
+    by_name["logmatmul"]["launches_apps_wide"] = apps["wide_launches"]
+    by_name["logmatmul"]["table4"] = apps["kernels"]["matmul"]
+    by_name["elemwise"]["imaging"] = apps["kernels"]["elemwise"]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -6913,14 +7463,14 @@ def main(argv=None) -> int:
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
                      *arith.items(), *dense.items(), *moe.items(),
                      *modality.items(), *rwkv6.items(),
-                     *zamba2.items(), *training.items()):
+                     *zamba2.items(), *training.items(), *apps.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-15) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-16) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6938,7 +7488,7 @@ def main(argv=None) -> int:
             "arithmetic": {**arith, "sqrt_times": sqrt_times},
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
-            "zamba2": zamba2, "training": training,
+            "zamba2": zamba2, "training": training, "applications": apps,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -22,14 +22,18 @@ function, the counterpart of the reference's ``pallas-interpret``
 backend: ``packed_ref`` repacks without the pack hook, as the
 reference's does). A CUDA device on a host without one raises.
 
-The reference's ``--ann`` (Table 4's classifier accuracy under a fault)
-needs that benchmark's glue (``benchmarks/table4_ann.py``), which the
-port does not have until ROADMAP A-2; the CLI refuses it.
+``--ann`` (:func:`ann_accuracy_drop`) adds Table 4's classifier: the
+784-100-10 MLP of :mod:`repro_torch.apps.table4_ann`, trained in float on
+``device`` and run in 8-bit fixed point on ``matmul_int`` (on the card the
+``logmatmul`` kernel, which reads the armed table and fault register),
+clean and under a stuck-1 at bit 20 of the width-8 mul table.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.faults.campaign --smoke [--device cpu]
     PYTHONPATH=src python -m repro_torch.faults.campaign --out report.json
+    PYTHONPATH=src python -m repro_torch.faults.campaign --ann [--widths 8] \
+        [--device cpu]
 
 ``--smoke`` flips one correction-table bit per op, requires the campaign
 to detect it (scrub + changed outputs) and disarming to restore
@@ -60,6 +64,7 @@ from repro_torch.metrics import DIV_FRAC_OUT, error_stats, grid8, sample_uints
 
 __all__ = [
     "SiteResult",
+    "ann_accuracy_drop",
     "default_sites",
     "measure_pack_site",
     "measure_site",
@@ -252,8 +257,52 @@ def measure_pack_site(spec: FaultSpec, *, coeff_bits: int = 6,
     )
 
 
+def ann_accuracy_drop(spec: FaultSpec, *, quick: bool = True,
+                      device: torch.device | str = "cuda",
+                      backend: str = "auto", ws=None) -> dict:
+    """Table 4 ANN inference accuracy, clean vs under ``spec``.
+
+    The 784-100-10 MLP of :mod:`repro_torch.apps.table4_ann` trained on
+    ``device`` (200 steps, or 600 when not ``quick``), or the float weights
+    ``ws`` when given; its 8-bit inference runs on ``get_op("matmul_int",
+    SimdiveSpec(8, 6), backend)``: under ``'auto'`` the ``logmatmul``
+    kernel on the card, under ``'ref'`` the plain version wherever the
+    tensors lie."""
+    from repro_torch.apps.table4_ann import (
+        make_dataset, quantized_infer, to_torch, train_float)
+    from repro_torch.metrics import classification_accuracy
+
+    dev = require_device(device)
+    (xtr, ytr), (xte, yte) = make_dataset(seed=0)
+    if ws is None:
+        ws, _ = train_float(xtr, ytr, hidden=(100,),
+                            steps=200 if quick else 600, seed=0, device=dev)
+    ws = to_torch(ws, dev)
+    mul = get_op("matmul_int", SimdiveSpec(width=8, coeff_bits=6),
+                 backend=backend)
+
+    def accuracy():
+        return classification_accuracy(
+            quantized_infer(ws, xte, mul).cpu().numpy(), yte)
+
+    acc_clean = accuracy()
+    with fault_injection(spec):
+        acc_fault = accuracy()
+    return {"spec": _spec_dict(spec), "acc_clean_pct": acc_clean,
+            "acc_fault_pct": acc_fault,
+            "acc_drop_pct_points": acc_clean - acc_fault}
+
+
+def _spec_dict(spec: FaultSpec) -> dict:
+    return {"site": spec.site, "bit": spec.bit, "kind": spec.kind,
+            "persistence": spec.persistence, "op": spec.op,
+            "width": spec.width, "index": spec.index, "rate": spec.rate,
+            "seed": spec.seed}
+
+
 def run_campaign(*, widths=(8, 16), coeff_bits: int = 6, full: bool = False,
-                 seed: int = 0, device: torch.device | str = "cuda",
+                 seed: int = 0, ann: bool = False,
+                 device: torch.device | str = "cuda",
                  report=print) -> dict:
     """The full sweep: every default site for every (op, width), plus a
     pack-boundary strike, summarized into a plain-JSON report."""
@@ -285,6 +334,11 @@ def run_campaign(*, widths=(8, 16), coeff_bits: int = 6, full: bool = False,
             "max_nonfinite_rate": max(r.nonfinite_rate for r in results),
         },
     }
+    if ann:
+        doc["ann"] = ann_accuracy_drop(
+            FaultSpec(site="table", bit=20, kind="stuck1", op="mul",
+                      width=8), device=device)
+        report(f"fault-campaign,ann,{doc['ann']}")
     # the scrub is the deterministic detector for persistent table upsets
     # — a miss here is a campaign bug, fail loudly rather than report it.
     # (stuck-at faults matching the bit's existing value alter nothing —
@@ -346,21 +400,16 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="widen the per-op table-bit sweep")
     ap.add_argument("--ann", action="store_true",
-                    help="Table 4 ANN accuracy drop: not ported (ROADMAP "
-                         "A-2); refused")
+                    help="also measure Table 4 ANN accuracy drop")
     ap.add_argument("--widths", type=int, nargs="+", default=[8, 16])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; an error without a GPU) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.ann:
-        ap.error("--ann needs Table 4's classifier glue "
-                 "(benchmarks/table4_ann.py), which the port gains with "
-                 "its benchmark, ROADMAP A-2")
     if args.smoke:
         return 0 if smoke(device=args.device) else 1
     doc = run_campaign(widths=tuple(args.widths), full=args.full,
-                       seed=args.seed, device=args.device)
+                       seed=args.seed, ann=args.ann, device=args.device)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

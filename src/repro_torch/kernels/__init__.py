@@ -25,7 +25,8 @@ Layering:
                       version (kernel: csrc/decode_attention.cu)
   logmatmul.py        signed int32 matmul with SIMDive products, depth-0
                       and cp.async-ring schedules: wrappers + plain version
-                      (kernel: csrc/logmatmul.cu)
+                      (kernel: csrc/logmatmul.cu; the int64-sum form in
+                      csrc/logmatmul_wide.cu, both from csrc/logmatmul.cuh)
   build.py            nvcc build at first launch + ctypes loader
   registry.py         get_op()/register_op() — backend resolution and the
                       measure-and-cache block autotune

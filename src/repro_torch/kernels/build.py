@@ -147,7 +147,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_decode_attention.restype = i
     lib.simdive_decode_attention_max_clusters.argtypes = [i] * 5
     lib.simdive_decode_attention_max_clusters.restype = i
-    lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 9 + [p]
+    lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 10 + [p]
     lib.simdive_logmatmul.restype = i
     for name in _fault_setters():
         setter = getattr(lib, name)

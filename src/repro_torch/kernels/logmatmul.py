@@ -5,14 +5,24 @@
 Counterpart of ``repro.kernels.logmatmul`` (``logmatmul_pallas``, its
 depth-0 ``_kernel`` and pipelined ``_kernel_pipelined`` schedules over the
 tile math of ``_tile_partial``) and of ``repro.kernels.ref.logmatmul_ref``.
-The CUDA kernel is ``csrc/logmatmul.cu``; its plain PyTorch version is
-:func:`logmatmul_ref`.
+The CUDA kernel is ``csrc/logmatmul.cu`` (its templates in
+``csrc/logmatmul.cuh``, the wide form instantiated in
+``csrc/logmatmul_wide.cu``); its plain PyTorch versions are
+:func:`logmatmul_ref` and :func:`logmatmul_wide_ref`.
 
 Contract (the reference's): signed int32 ``(M, K) @ (K, N)``, operands
 clamped to the lane by ``sign_split`` (``|INT32_MIN|`` included), a product
 with a zero magnitude adds 0, every signed product is the int32 that
 ``sign_join`` makes of it, and the sum wraps around in int32. Width 8 is
 exact while ``K * 255^2 < 2^31``; width 16 wraps like the reference.
+
+**The wide form** (``wide=True``; plain version :func:`logmatmul_wide_ref`)
+keeps everything but the sum's width: each unsigned SIMDive product is
+widened to int64 before its sign is applied, and the sum is the exact int64
+that the reference's ``_matmul_emul_ref`` computes. The emulated matmul
+(``ops._matmul_emul_cuda``) takes it wherever the int32 sum could wrap
+(:func:`needs_wide`): every width-16 call and, at width 8, K of 32,769 and
+more. ``matmul_int`` keeps the int32 contract.
 
 **Blocks.** A launch shape is ``(bm, bn, bk)``, ``(bm, bn, bk, k_unroll)``
 or ``(bm, bn, bk, k_unroll, depth)`` as in the reference: ``bm x bn`` is
@@ -51,8 +61,9 @@ from . import datapath as dp
 
 __all__ = ["TILES", "SKINNY_BN", "DEFAULT_K_UNROLL", "DEFAULT_BLOCK",
            "BLOCK_CANDIDATES", "split_block", "is_skinny", "smem_bytes",
-           "check_block", "check_faults", "logmatmul_ref",
-           "logmatmul_cuda", "logmatmul_pipelined_cuda"]
+           "check_block", "check_faults", "needs_wide", "logmatmul_ref",
+           "logmatmul_wide_ref", "logmatmul_cuda",
+           "logmatmul_pipelined_cuda"]
 
 #: columns of a skinny tile: 32 lanes x 4 adjacent columns
 SKINNY_BN = 128
@@ -103,25 +114,37 @@ def is_skinny(block) -> bool:
     return split_block(block)[0][1] == SKINNY_BN
 
 
-def smem_bytes(block) -> int:
+def smem_bytes(block, wide: bool = False) -> int:
     """Dynamic shared memory of one CUDA block, at most.
 
     Square tiles: ``max(depth, 1)`` slab slots of an x slab (bm rows of
     bk + 1 words: the pad keeps the column reads conflict-free) and a w
     slab (bk x bn words). Skinny tiles: three words per x element of the
     block's K range (bm x bk), the 8 warps' partial sums (8 x bm x 128
-    words) and, at depth ``D >= 1``, the weight ring (8 warps x D slots x
-    k_unroll rows x 128 words); no w slab at depth 0.
+    words, two words each in the ``wide`` form) and, at depth ``D >= 1``,
+    the weight ring (8 warps x D slots x k_unroll rows x 128 words); no w
+    slab at depth 0.
     """
     (bm, bn, bk), ku, depth = split_block(block)
     if bn == SKINNY_BN:
-        return (3 * bm * bk + _SKINNY_WARPS * bm * bn
+        return (3 * bm * bk + _SKINNY_WARPS * bm * bn * (2 if wide else 1)
                 + _SKINNY_WARPS * depth * ku * bn) * 4
     return max(depth, 1) * (bm * (bk + 1) + bk * bn) * 4
 
 
-def check_block(block) -> tuple[tuple[int, int, int], int, int]:
-    """Raise ``ValueError`` unless the kernel can run ``block``."""
+def needs_wide(K: int, width: int) -> bool:
+    """Whether a sum of ``K`` signed products at ``width`` can leave int32:
+    each product is at most the bus maximum ``2^(2 width) - 1`` (a
+    saturated one), so the int32 sum is exact only below
+    ``K * (2^(2 width) - 1) < 2^31`` — K <= 32,768 at width 8, never at
+    width 16."""
+    return K * ((1 << (2 * width)) - 1) >= 1 << 31
+
+
+def check_block(block, wide: bool = False
+                ) -> tuple[tuple[int, int, int], int, int]:
+    """Raise ``ValueError`` unless the kernel can run ``block`` (in the
+    ``wide`` form, when asked)."""
     (bm, bn, bk), ku, depth = split_block(block)
     if (bm, bn, ku) not in TILES:
         raise ValueError(f"matmul block {tuple(block)}: (bm, bn, k_unroll) = "
@@ -133,19 +156,22 @@ def check_block(block) -> tuple[tuple[int, int, int], int, int]:
     if not 0 <= depth <= _MAX_DEPTH:
         raise ValueError(f"matmul block {tuple(block)}: depth must be in "
                          f"[0, {_MAX_DEPTH}]")
-    if smem_bytes(block) > _SMEM_LIMIT:
+    if smem_bytes(block, wide) > _SMEM_LIMIT:
         raise ValueError(f"matmul block {tuple(block)} needs "
-                         f"{smem_bytes(block)} bytes of shared memory, more "
-                         f"than the {_SMEM_LIMIT} an H100 block can have")
+                         f"{smem_bytes(block, wide)} bytes of shared memory, "
+                         f"more than the {_SMEM_LIMIT} an H100 block can "
+                         "have")
     return (bm, bn, bk), ku, depth
 
 
 # ---------------------------------------------------------- plain version --
 def _partial(xk: torch.Tensor, wk: torch.Tensor, tab: torch.Tensor,
-             spec: SimdiveSpec) -> torch.Tensor:
+             spec: SimdiveSpec, wide: bool = False) -> torch.Tensor:
     """int64 sum over one K chunk — the tile math of the reference's
     ``_tile_partial``: sign split and LOD/log once per operand chunk, then
-    the fused correct + anti-log stage over the (m, kc, n) products."""
+    the fused correct + anti-log stage over the (m, kc, n) products, each
+    signed as ``sign_join`` does (int32) or, ``wide``, as the int64 of the
+    unsigned product times its sign."""
     width = spec.width
     xm, sx = dp.sign_split(xk, width)
     wm, sw = dp.sign_split(wk, width)
@@ -155,18 +181,14 @@ def _partial(xk: torch.Tensor, wk: torch.Tensor, tab: torch.Tensor,
     p = dp.log_mul(lx, lw, tab, width, spec.index_bits,
                    round_out=spec.round_output, zero=zero)
     s = sx[:, :, None] * sw[None]
-    return dp.sign_join(p, s).sum(dim=1)
+    return (p * s if wide else dp.sign_join(p, s)).sum(dim=1)
 
 
-def logmatmul_ref(x: torch.Tensor, w: torch.Tensor,
-                  spec: SimdiveSpec) -> torch.Tensor:
-    """Plain PyTorch version: signed (M, K) @ (K, N) -> int32 (M, N).
-
-    Chunked over rows and K so that one (rows, chunk, N) product slab stays
-    under ``_REF_BUDGET`` elements; the chunk sums are added in int64 and
-    wrapped to int32 once at the end, which is the reference's int32
-    wrap-around sum (addition mod 2^32 does not depend on the order).
-    """
+def _ref_sum(x: torch.Tensor, w: torch.Tensor, spec: SimdiveSpec,
+             wide: bool) -> torch.Tensor:
+    """The int64 sum of both plain versions, chunked over rows and K so
+    that one (rows, chunk, N) product slab stays under ``_REF_BUDGET``
+    elements."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"expected (M,K) @ (K,N), got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
@@ -181,8 +203,28 @@ def logmatmul_ref(x: torch.Tensor, w: torch.Tensor,
     for m0 in range(0, M, mb):
         for k0 in range(0, K, kc):
             acc[m0:m0 + mb] += _partial(x[m0:m0 + mb, k0:k0 + kc],
-                                        w[k0:k0 + kc], tab, spec)
-    return dp.wrap_int32(acc).to(torch.int32)
+                                        w[k0:k0 + kc], tab, spec, wide)
+    return acc
+
+
+def logmatmul_ref(x: torch.Tensor, w: torch.Tensor,
+                  spec: SimdiveSpec) -> torch.Tensor:
+    """Plain PyTorch version: signed (M, K) @ (K, N) -> int32 (M, N).
+
+    The chunk sums are added in int64 and wrapped to int32 once at the end,
+    which is the reference's int32 wrap-around sum (addition mod 2^32 does
+    not depend on the order).
+    """
+    return dp.wrap_int32(_ref_sum(x, w, spec, False)).to(torch.int32)
+
+
+def logmatmul_wide_ref(x: torch.Tensor, w: torch.Tensor,
+                       spec: SimdiveSpec) -> torch.Tensor:
+    """Plain version of the wide form: signed (M, K) @ (K, N) -> the exact
+    int64 (M, N) sum of the unsigned products times their signs — on
+    magnitudes and signs from ``quantize_sign_magnitude``, the reference's
+    ``_matmul_emul_ref`` at every width the port takes."""
+    return _ref_sum(x, w, spec, True)
 
 
 # ---------------------------------------------------------------- kernels --
@@ -215,8 +257,8 @@ def _operand(t: torch.Tensor, name: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(x, w, spec: SimdiveSpec, block) -> torch.Tensor:
-    (bm, bn, bk), ku, depth = check_block(block)
+def _launch(x, w, spec: SimdiveSpec, block, wide: bool) -> torch.Tensor:
+    (bm, bn, bk), ku, depth = check_block(block, wide)
     check_width(spec.width)
     check_faults(block, spec.width)
     if not 1 <= spec.index_bits <= _MAX_INDEX_BITS:
@@ -228,7 +270,8 @@ def _launch(x, w, spec: SimdiveSpec, block) -> torch.Tensor:
                          f"w {tuple(w.shape)} on {w.device} do not multiply")
     M, K = x.shape
     N = w.shape[1]
-    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.int64 if wide else torch.int32,
+                      device=x.device)
     tab = dp.op_table("mul", spec.width, spec.coeff_bits, spec.index_bits,
                       device=x.device, dtype=torch.int32)
     lib = build.load(x.device)
@@ -236,15 +279,19 @@ def _launch(x, w, spec: SimdiveSpec, block) -> torch.Tensor:
         code = lib.simdive_logmatmul(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
             tab.data_ptr(), tab.numel(), spec.width, spec.index_bits,
-            int(spec.round_output), bm, bn, bk, ku, depth,
+            int(spec.round_output), bm, bn, bk, ku, depth, int(wide),
             build.current_stream())
     build.check(code, "simdive_logmatmul")
+    if wide:
+        logmatmul_cuda.wide_launches += 1
     return out
 
 
 def logmatmul_cuda(x: torch.Tensor, w: torch.Tensor, spec: SimdiveSpec,
-                   block=DEFAULT_BLOCK) -> torch.Tensor:
-    """Launch the kernel on int32 ``x (M, K)``, ``w (K, N)`` -> int32.
+                   block=DEFAULT_BLOCK, *, wide: bool = False
+                   ) -> torch.Tensor:
+    """Launch the kernel on int32 ``x (M, K)``, ``w (K, N)`` -> int32, or
+    with ``wide`` the exact int64 sum (:func:`logmatmul_wide_ref`).
 
     ``block``'s depth picks the schedule: 0 runs (and counts) here, ``>= 1``
     goes to :func:`logmatmul_pipelined_cuda`. Launches on the current
@@ -254,20 +301,21 @@ def logmatmul_cuda(x: torch.Tensor, w: torch.Tensor, spec: SimdiveSpec,
     refuses an armed log fault it cannot hold (:func:`check_faults`).
     """
     if split_block(block)[2]:
-        return logmatmul_pipelined_cuda(x, w, spec, block)
-    out = _launch(x, w, spec, block)
+        return logmatmul_pipelined_cuda(x, w, spec, block, wide=wide)
+    out = _launch(x, w, spec, block, wide)
     logmatmul_cuda.launches += 1
     return out
 
 
 def logmatmul_pipelined_cuda(x: torch.Tensor, w: torch.Tensor,
-                             spec: SimdiveSpec, block) -> torch.Tensor:
+                             spec: SimdiveSpec, block, *,
+                             wide: bool = False) -> torch.Tensor:
     """The ``cp.async`` ring schedule (``block`` depth >= 1); bit-identical
     to the depth-0 schedule at every depth and unroll."""
     if not split_block(block)[2]:
         raise ValueError(f"block {tuple(block)} has depth 0: that is "
                          "logmatmul_cuda's schedule")
-    out = _launch(x, w, spec, block)
+    out = _launch(x, w, spec, block, wide)
     logmatmul_pipelined_cuda.launches += 1
     return out
 
@@ -275,3 +323,5 @@ def logmatmul_pipelined_cuda(x: torch.Tensor, w: torch.Tensor,
 #: kernel launches made through each schedule's wrapper
 logmatmul_cuda.launches = 0
 logmatmul_pipelined_cuda.launches = 0
+#: of those, the launches of the wide form (either schedule)
+logmatmul_cuda.wide_launches = 0

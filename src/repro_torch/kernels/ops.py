@@ -111,12 +111,15 @@ def _matmul_emul_ref(qx, sx, qw, sw, *, spec, k_chunk=128):
 
 
 def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
-    """The kernel path of the emulated matmul: re-join the signs, run
-    ``logmatmul`` (int32 accumulation: exact for width 8 at K < 2^15, the
-    int64 plain version is the accuracy oracle), widen to int64."""
+    """The kernel path of the emulated matmul: re-join the signs and run
+    ``logmatmul`` — its int32 sum where that is exact (width 8 at K <=
+    32,768: every served linear), widened to int64, else its wide form,
+    whose int64 sum is the plain version's (``logmatmul.needs_wide``)."""
     del k_chunk  # the kernel's K slabs replace the host-side chunking
     x = qx.to(torch.int32) * sx.to(torch.int32)
     w = qw.to(torch.int32) * sw.to(torch.int32)
+    if _lm.needs_wide(x.shape[1], spec.width):
+        return _lm.logmatmul_cuda(x, w, spec, block, wide=True)
     return _matmul_int_cuda(x, w, spec=spec, block=block).to(torch.int64)
 
 

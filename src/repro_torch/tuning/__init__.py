@@ -15,15 +15,15 @@ Counterpart of ``repro.tuning`` for what is ported so far:
                   ``launch.serve --policy``), read and written alike by
                   both packages
 
-  sensitivity.py  per-layer end-metric profiling (profile_layers, with a
-                  twin-training metric: profile_train) and the greedy
-                  budget assignment (greedy_assign[_verified]) -> a
-                  layer-scoped TuningPolicy (assignment_policy)
+  sensitivity.py  per-layer end-metric profiling (profile_layers; ANN
+                  accuracy: profile_ann, imaging PSNR/SSIM:
+                  profile_imaging, a twin-training metric: profile_train)
+                  and the greedy budget assignment
+                  (greedy_assign[_verified]) -> a layer-scoped
+                  TuningPolicy (assignment_policy)
 
-Not ported yet: sensitivity's ANN glue (it waits for the campaign's
-``--ann``) and its imaging glue (the reference's JAX benchmark pipeline),
-and the reference's ``benchmarks/tune.py`` CLI, which stays with the
-reference's benchmark folder.
+Not ported: the reference's ``benchmarks/tune.py`` CLI, which stays with
+the reference's benchmark folder.
 """
 from .frontier import (
     FrontierPoint,
@@ -36,10 +36,15 @@ from .frontier import (
 )
 from .sensitivity import (
     SensitivityProfile,
+    ann_policy_metric,
+    ann_run_metric,
     assignment_policy,
     default_candidates,
     greedy_assign,
     greedy_assign_verified,
+    imaging_run_metric,
+    profile_ann,
+    profile_imaging,
     profile_layers,
     profile_train,
     train_run_metric,
@@ -68,10 +73,15 @@ __all__ = [
     "build_policy",
     "select_config",
     "SensitivityProfile",
+    "ann_policy_metric",
+    "ann_run_metric",
     "assignment_policy",
     "default_candidates",
     "greedy_assign",
     "greedy_assign_verified",
+    "imaging_run_metric",
+    "profile_ann",
+    "profile_imaging",
     "profile_layers",
     "profile_train",
     "train_run_metric",

@@ -1,23 +1,29 @@
 """Per-layer sensitivity profiling: a *global* quality budget, spent
 where it buys the least.
 
-Counterpart of ``repro.tuning.sensitivity`` for what training needs:
-perturb one layer at a time, record the end-metric degradation, then
-assign per-layer configs greedily, cheapest-first — every layer starts at
-the cheapest candidate and the worst-degrading layer is upgraded until the
+Counterpart of ``repro.tuning.sensitivity``: perturb one layer at a
+time, record the end-metric degradation (classification accuracy for the
+ANN path, PSNR/SSIM via :mod:`repro_torch.metrics.image` for the imaging
+pipeline, the loss divergence of a twin run for training), then assign
+per-layer configs greedily, cheapest-first — every layer starts at the
+cheapest candidate and the worst-degrading layer is upgraded until the
 summed predicted degradation fits the global budget. The result is a
 :class:`~repro_torch.tuning.select.TuningPolicy` with one layer-scoped
-entry per layer, runnable via ``ApproxConfig(policy=...)``, and a
-:func:`repro_torch.train.ramp_schedule`'s input.
+entry per layer, runnable via ``ApproxConfig(policy=..., layer=...)``, and
+a :func:`repro_torch.train.ramp_schedule`'s input.
 
 The machinery is generic: :func:`profile_layers` / :func:`greedy_assign`
-take any ``run_metric(assignment) -> float`` (higher is better);
-:func:`train_run_metric` / :func:`profile_train` build it from a short
-exact-vs-approximate twin run on ``device`` (default the card).
-Candidates are :class:`PolicyEntry`s with the port's default backend
-``'auto'`` (the reference's: ``'ref'``). The reference's ANN glue waits
-for the campaign's ``--ann`` (ROADMAP Queue A item 5) and its imaging
-glue, which drives the reference's JAX benchmark pipeline, is not ported.
+take any ``run_metric(assignment) -> float`` (higher is better). The glue
+builds that closure on ``device`` (default the card): the ANN glue
+(:func:`profile_ann` / :func:`ann_policy_metric`) from float MLP weights
+through the same quantize + ``approx_matmul`` path the models use (the
+``matmul_emul`` op: the ``logmatmul`` kernel on the card); the imaging
+glue (:func:`profile_imaging`) over the Fig. 3/4 blend / Gaussian pipeline
+of :mod:`repro_torch.apps.fig34_imaging` (each stage an ``elemwise`` op);
+the training glue (:func:`profile_train`) from a short
+exact-vs-approximate twin run. Candidates are :class:`PolicyEntry`s with
+the port's default backend ``'auto'`` (the reference's: ``'ref'``);
+``'ref'`` entries run the plain versions wherever the tensors lie.
 """
 from __future__ import annotations
 
@@ -32,6 +38,11 @@ __all__ = [
     "greedy_assign",
     "greedy_assign_verified",
     "assignment_policy",
+    "ann_run_metric",
+    "profile_ann",
+    "ann_policy_metric",
+    "imaging_run_metric",
+    "profile_imaging",
     "train_run_metric",
     "profile_train",
 ]
@@ -235,6 +246,184 @@ def assignment_policy(assignment: dict, *, op: str,
                     for layer, cand in sorted(assignment.items()))
     return TuningPolicy(entries=entries,
                         meta=tuple(sorted((meta or {}).items())))
+
+
+# ---------------------------------------------------------------- ANN ----
+def _ann_layer_names(ws) -> tuple:
+    return tuple(f"fc{i}" for i in range(len(ws)))
+
+
+def _ann_forward(ws, x, cfg_for_layer):
+    """Float-weight MLP forward with per-layer ApproxConfig dispatch."""
+    import torch
+
+    from repro_torch.core.approx import approx_matmul
+
+    act = x
+    for i, w in enumerate(ws):
+        act = approx_matmul(act, w, cfg_for_layer(i))
+        if i < len(ws) - 1:
+            act = torch.relu(act)
+    return act
+
+
+def _ann_inputs(ws, x, device):
+    """The weights (float32) and inputs on ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.table4_ann import to_torch
+
+    ws = to_torch(ws, device)
+    x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                        else x, dtype=torch.float32).to(ws[0].device)
+    return ws, x
+
+
+def _accuracy(logits, y) -> float:
+    from repro_torch.metrics import classification_accuracy
+
+    return classification_accuracy(logits.cpu().numpy(), y)
+
+
+def ann_run_metric(ws, x, y, *, device="cuda"):
+    """``run_metric(assignment) -> accuracy %`` closure over one float MLP
+    (a ``train_float``-style weight list, numpy or tensors): layers named
+    in the assignment run the real quantize + SIMDive emulated matmul of
+    :func:`repro_torch.core.approx.approx_matmul` on ``device``, the rest
+    stay exact float."""
+    from repro_torch.core.approx import EXACT, ApproxConfig
+    from .select import port_backend
+
+    ws, x = _ann_inputs(ws, x, device)
+    names = _ann_layer_names(ws)
+
+    def run_metric(assignment):
+        def cfg_for_layer(i):
+            cand = assignment.get(names[i])
+            if cand is None:
+                return EXACT
+            return ApproxConfig(mode="simdive", width=cand.width,
+                                coeff_bits=cand.coeff_bits,
+                                index_bits=cand.index_bits,
+                                backend=port_backend(cand.backend))
+        return _accuracy(_ann_forward(ws, x, cfg_for_layer), y)
+
+    return run_metric
+
+
+def profile_ann(ws, x, y, *, candidates=None,
+                baseline: float | None = None,
+                device="cuda") -> SensitivityProfile:
+    """Sensitivity of one float MLP to per-layer approximate matmuls,
+    end metric = test accuracy (%), one perturbed layer at a time."""
+    candidates = tuple(candidates) if candidates is not None \
+        else default_candidates("matmul")
+    return profile_layers(ann_run_metric(ws, x, y, device=device),
+                          _ann_layer_names(ws), candidates,
+                          baseline=baseline)
+
+
+def ann_policy_metric(ws, x, y, policy: TuningPolicy, *,
+                      op: str = "matmul", device="cuda") -> float:
+    """End-to-end accuracy (%) of the MLP under ``policy`` — the
+    verification run of a greedy assignment. Dispatch goes through
+    ``ApproxConfig(policy=..., layer=...)``: each layer resolves its own
+    entry, proving the policy path the deployment will use."""
+    from repro_torch.core.approx import EXACT, ApproxConfig
+
+    ws, x = _ann_inputs(ws, x, device)
+    names = _ann_layer_names(ws)
+
+    def cfg_for_layer(i):
+        if policy.lookup(op, names[i]) is None:
+            return EXACT
+        return ApproxConfig(mode="simdive", policy=policy, layer=names[i])
+
+    return _accuracy(_ann_forward(ws, x, cfg_for_layer), y)
+
+
+# ------------------------------------------------------------ imaging ----
+#: the imaging pipeline's approximable stages and the op each one runs
+IMAGING_STAGES = (("blend-mul", "mul"), ("gauss-mul", "mul"),
+                  ("gauss-div", "div"))
+
+
+def imaging_run_metric(*, metric: str = "psnr", seed: int = 3,
+                       device="cuda"):
+    """``run_metric(assignment) -> PSNR dB | SSIM x100`` closure over the
+    Fig. 3/4 blend + Gaussian pipeline
+    (:mod:`repro_torch.apps.fig34_imaging`) on ``device``, measured
+    against the accurate-arithmetic pipeline output via
+    :mod:`repro_torch.metrics.image`.
+
+    Stage names are :data:`IMAGING_STAGES`; stages absent from the
+    assignment run accurate."""
+    import numpy as np
+
+    from repro_torch.apps.fig34_imaging import (
+        FO, blend, exact_div, exact_mul, gaussian, synth_image)
+    from repro_torch.core.device import require_device
+    from repro_torch.metrics import psnr, ssim
+
+    if metric not in ("psnr", "ssim"):
+        raise ValueError(f"metric must be 'psnr' or 'ssim', got {metric!r}")
+    dev = require_device(device)
+    img1, img2 = synth_image(seed), synth_image(seed + 1)
+
+    def stage_op(cand, op):
+        bound = cand.bind()
+        if op == "mul":
+            return lambda a, b: bound(a, b, op="mul")
+        return lambda a, b: bound(a, b, op="div", frac_out=FO)
+
+    def pipeline(ops):
+        blended = np.asarray(blend(img1, img2, ops["blend-mul"], dev),
+                             np.uint32)
+        return gaussian(blended, ops["gauss-mul"], ops["gauss-div"], dev)
+
+    ref_out = pipeline({"blend-mul": exact_mul, "gauss-mul": exact_mul,
+                        "gauss-div": exact_div})
+
+    def run_metric(assignment):
+        out = pipeline({name: (stage_op(assignment[name], op)
+                               if name in assignment
+                               else (exact_mul if op == "mul"
+                                     else exact_div))
+                        for name, op in IMAGING_STAGES})
+        if metric == "psnr":
+            return psnr(ref_out, out)
+        return 100.0 * ssim(ref_out, out)
+
+    return run_metric
+
+
+def profile_imaging(*, candidates=None, metric: str = "psnr",
+                    seed: int = 3, device="cuda") -> SensitivityProfile:
+    """Sensitivity of the Fig. 3/4 pipeline stages, end metric = PSNR (dB)
+    or SSIM (x100, so budgets share the 'points' scale) against the
+    accurate-arithmetic pipeline (:func:`imaging_run_metric`).
+
+    Stages: the blend multiplier, the Gaussian window multiplier and the
+    Gaussian normalization divider (the paper's division use-case).
+
+    Baseline convention: the reference is the accurate pipeline's own
+    output, so the unperturbed baseline is the identity — 99 dB (the
+    :func:`repro_torch.metrics.psnr` sentinel) or SSIM 100. State budgets
+    against that cap (``budget = 99 - floor_db``), and prefer
+    :func:`greedy_assign_verified` with :func:`imaging_run_metric`:
+    per-stage PSNR degradations against an identity reference are *not*
+    additive, so only the measured loop places assignments tightly. The
+    profile also exposes infeasible stage configs outright — e.g. an
+    8-bit divider lane cannot hold the Gaussian accumulator (values up
+    to 255·273), a ~77 dB degradation pruned off the upgrade ladder
+    automatically.
+    """
+    candidates = tuple(candidates) if candidates is not None \
+        else tuple(replace(c, op="mul") for c in default_candidates("mul"))
+    return profile_layers(
+        imaging_run_metric(metric=metric, seed=seed, device=device),
+        [s for s, _ in IMAGING_STAGES], candidates)
 
 
 # ----------------------------------------------------------- training ----

@@ -15,6 +15,7 @@ each other (ROADMAP R-6): there the port equals the faithful form, and
 ``test_r6_*`` pins where and by how much. Elsewhere the port is held to
 the default form (which then equals the faithful one).
 """
+import json
 from dataclasses import asdict
 
 import numpy as np
@@ -624,13 +625,26 @@ def test_measure_site_quantifies_amplification():
             campaign.measure_site(spec, "mul")
 
 
-def test_campaign_smoke_passes():
+def test_campaign_smoke_passes(tmp_path):
     lines = []
     assert campaign.smoke(report=lines.append, device="cpu")
     assert any("PASS" in ln for ln in lines)
     assert campaign.main(["--smoke", "--device", "cpu"]) == 0
-    with pytest.raises(SystemExit):
-        campaign.main(["--ann", "--device", "cpu"])
+    # --ann runs: Table 4's classifier, clean and under the campaign's
+    # stuck-1 at bit 20 of the width-8 mul table, beside the sweep
+    out = tmp_path / "report.json"
+    assert campaign.main(["--ann", "--widths", "8", "--device", "cpu",
+                          "--out", str(out)]) == 0
+    ann = json.loads(out.read_text())["ann"]
+    assert set(ann) == {"spec", "acc_clean_pct", "acc_fault_pct",
+                        "acc_drop_pct_points"}
+    assert ann["spec"] == r_campaign._spec_dict(r_inject.FaultSpec(
+        site="table", bit=20, kind="stuck1", op="mul", width=8))
+    assert ann["acc_drop_pct_points"] > 0
+    assert active_faults() == ()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            campaign.main(["--ann", "--widths", "8"])
 
 
 # ====================================================== the kernels' side ==

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
-imports ``jax``, ``ml_dtypes`` or anything of ``repro``; importing the package needs no
+"""The port stands alone: no module of ``repro_torch`` (``apps/`` included)
+nor ``chip_smoke.py`` imports ``jax``, ``ml_dtypes``, anything of ``repro``
+or the reference's ``benchmarks``; importing the package needs no
 compiler and no GPU; and entry points asked for ``device='cuda'`` on a host
 without one raise instead of carrying on on the CPU.
 """
@@ -15,7 +16,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes",
+             "benchmarks")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -65,7 +67,9 @@ def test_every_package_module_is_covered():
                    "optim/grad_compress.py", "data/pipeline.py",
                    "checkpoint/checkpoint.py", "metrics/divergence.py",
                    "tuning/sensitivity.py", "train/schedule.py",
-                   "train/loop.py", "launch/train.py"):
+                   "train/loop.py", "launch/train.py",
+                   "apps/__init__.py", "apps/table4_ann.py",
+                   "apps/fig34_imaging.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",
