@@ -513,6 +513,43 @@ any phase fails. Phases:
               ssim, every value on the kernels equal to the same run on
               the plain versions. The launches join the kernels line
               (``launches_apps``).
+17. width 32 — the 64-bit bus (the reference's uint64 lanes). (a) The
+              width-32 forms against their plain versions, disarmed and
+              under a log flip at bits 0, 20 and 31 and a flipped width-32
+              div-table entry: ``elemwise`` mul / div / mixed at frac_out
+              0 / 8 / 16 and ``sqrt`` at 0 / 8 on 16.8 M stratified lanes
+              plus the edge words, and the attention finalize alone
+              (``softmax_div_kernel``), ``torch.equal``, each arming moving
+              the kernel's output where it moves the plain version's;
+              ``flash_attention`` at smollm-360m's and qwen3-4b's prefill
+              shapes within ``judge_attention``'s tolerances, every ring
+              depth ``torch.equal`` to depth 0; ``decode_attention`` at
+              their step shapes at every cluster size (under the bit-31
+              log flip, k's low bit, at most 0.3 % of the outputs outside
+              the tight bound, each the plain version's times a quotient
+              step of 4^n: W32_KFLIP_OUTLIER_SHARE). (b)
+              ``measure_error('mul' / 'div', 32, 8)`` on the card equal to
+              the plain versions' to 1e-12 relative, and
+              ``select_config(width=None)`` sweeping width 32. (c)
+              smollm-360m at full width, batch 4, prompt 512, 32 tokens,
+              under a policy file whose attention entry is width 32 cb 8
+              frac_out 15 and whose div entry width 32 cb 8, then with
+              ``use_in_norm``: captured == eager, one width-32 attention a
+              layer a prefill and one width-32 ``decode_attention`` a step
+              (with use_in_norm one width-32 ``sqrt`` and ``elemwise`` a
+              block norm). Without use_in_norm the logits lie within
+              ``ulp_logit_tol`` of the same file on the plain versions.
+              With it that gate is replaced (w32_serve): the norms'
+              kernels leave the logits ``torch.equal`` to their plain
+              versions', with attention on its kernels and on its plain
+              version, and the all-kernel vs all-plain logit gap (4.23 on
+              the H100) is recorded only; its witness, the all-plain run
+              against itself with every attention output one bf16 ulp off,
+              must part by more than ``ulp_logit_tol`` too. Both attention
+              schedules pinned in turn; the served path timed in turns
+              with the width-16 one.
+              The kernels line's ``*_w32`` rows carry the forms' times,
+              bounds and registers / spills from the build.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -520,6 +557,7 @@ Output: progress lines, then the card line, one JSON line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -4554,11 +4592,13 @@ def policy_kernels(dev, cfg) -> dict:
     return errs
 
 
-def plain_logits(ref_lm, params, prompts, tokens, extra=None):
+def plain_logits(ref_lm, params, prompts, tokens, extra=None, *,
+                 kernels=False):
     """``ref_lm`` (every op on its plain version) fed ``tokens``: the
     prefill's (its batch ``prompts`` and ``extra``'s fields) and each
     decode step's logits, float32 (batch, gen, [codebooks,] vocab); no
-    kernel may launch."""
+    kernel may launch (``kernels=True``: a model that mixes kernels and
+    plain versions, eager, fed the same way)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
@@ -4576,7 +4616,7 @@ def plain_logits(ref_lm, params, prompts, tokens, extra=None):
         out.append(logits)
     out = torch.stack(out, dim=1).to(torch.float32)
     torch.cuda.synchronize()
-    require(not any(launch_counts().values()),
+    require(kernels or not any(launch_counts().values()),
             "the plain-version run launched a kernel")
     return out
 
@@ -4679,11 +4719,12 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
                 first_generate_s=first_s, generate_s=generate_s)
 
 
-def policy_times(dev, lm, params, prompts, prefix="policy_") -> dict:
+def policy_times(dev, lm, params, prompts, prefix="policy_", *,
+                 eager=True) -> dict:
     """The generate of ``lm`` (a policy's; phase 9: with and without
-    use_in_norm), captured and eager (``time_callable``, best of 3 / 2),
-    and its prefill and decode step replayed back to back (the card's
-    pace)."""
+    use_in_norm), captured and (``eager``) eager (``time_callable``, best
+    of 3 / 2), and its prefill and decode step replayed back to back (the
+    card's pace)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.metrics.timing import time_callable
@@ -4693,19 +4734,22 @@ def policy_times(dev, lm, params, prompts, prefix="policy_") -> dict:
     batch = {"tokens": prompts}
     captured = time_callable(lambda: serve.generate(
         lm, params, prompts, max_seq, GEN), iters=3, device=dev)
-    eager = time_callable(lambda: serve.generate(
-        lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
-        decode_fn=lm.decode_step), iters=2, device=dev)
+    if eager:
+        eager = time_callable(lambda: serve.generate(
+            lm, params, prompts, max_seq, GEN, prefill_fn=lm.prefill,
+            decode_fn=lm.decode_step), iters=2, device=dev)
     prefill_ms = gpu_time_ms(lambda: pstep(params, batch), iters=10)
     lg, pre = pstep(params, batch)
     own = serve.merge_cache(step.empty_cache(BATCH, max_seq), pre)
     tok = lg.argmax(-1)
     step_ms = gpu_time_ms(lambda: step(params, own, tok, PROMPT), iters=20)
     torch.cuda.synchronize()
-    return {f"{prefix}generate_captured_ms": captured.best_s * 1e3,
-            f"{prefix}generate_eager_ms": eager.best_s * 1e3,
-            f"{prefix}prefill_replay_ms": prefill_ms,
-            f"{prefix}decode_step_replay_ms": step_ms}
+    out = {f"{prefix}generate_captured_ms": captured.best_s * 1e3,
+           f"{prefix}prefill_replay_ms": prefill_ms,
+           f"{prefix}decode_step_replay_ms": step_ms}
+    if eager:
+        out[f"{prefix}generate_eager_ms"] = eager.best_s * 1e3
+    return out
 
 
 def policy_serve(dev, params, prompts) -> dict:
@@ -7069,6 +7113,788 @@ def applications_phase(dev, int_rate) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 17: width 32 --
+#: the width-32 divider of the served policy file (the reference's shipped
+#: width-32 configuration: cb 8, 64 regions) and its attention frac_out
+W32_SPEC = dict(width=32, coeff_bits=8, index_bits=3)
+W32_ATTENTION_FRAC_OUT = 15
+W32_DIV_FRAC_OUT = 16
+#: stratified width-32 lanes phase 17 (a) holds the lane kernels to: every
+#: (k1, k2) leading-one pair 16,384 times (16.8 M pairs), plus the edges
+W32_PER_STRATUM = 1 << 14
+W32_EDGES = (0, 1, 2, 3, (1 << 31) - 1, 1 << 31, (1 << 31) + 1,
+             (1 << 32) - 2, (1 << 32) - 1, 255, 256, 257, 65535, 65536,
+             65537, (1 << 24) - 1, 1 << 24, (1 << 24) + 1)
+#: the armings of phase 17 (a): log-site bits 0, 20 and 31 (31 is the low
+#: bit of k at width 32) and one flipped entry of the width-32 div table
+W32_FAULTS = (dict(site="log", bit=0, kind="flip", width=32),
+              dict(site="log", bit=20, kind="flip", width=32),
+              dict(site="log", bit=31, kind="flip", width=32),
+              dict(site="table", bit=20, kind="flip", op="div", width=32,
+                   index=27))
+#: a log flip at bit 31 is a flip of the leading-one position's low bit at
+#: width 32 (F = 31): every operand's log moves by +-1 in k, so the
+#: divider jumps by a factor of 2 to 4 wherever an operand crosses a power
+#: of two. bf16 attention's acc differs from the dense plain version's by
+#: p's bf16 rounding (relative to the running max, not the row's), ~2^-8,
+#: so the outputs whose operands lie that close to a power of two land on
+#: the other side: ~0.1 % of them (1.0e-3 at smollm-360m's prefill on an
+#: H100). Under that arming the attention kernels are
+#: held to at most this share outside judge_attention's tight bound, every
+#: output outside it explained by such a step (kflip_unexplained), the
+#: ring bit-equal to depth 0 and the finalize alone bit for bit
+W32_KFLIP_OUTLIER_SHARE = 3e-3
+#: an outside output is explained when it is the plain version's times
+#: 4^n, 0 < |n| <= 3, to the tight bound scaled by the step plus this share
+#: of the stepped value (the correction table's error differs on the two
+#: sides of a power of two, ~1 %). A lane whose word lies on the other
+#: side of a power of two moves by 2x one way in one run and the other way
+#: in the other: its quotient by 4x. A row's l on the other side moves the
+#: row's shared exponent, so every lane of the row by one in k: the
+#: quotients whose two lanes' k differ in parity by 16x; with a lane of
+#: its own across too, 64x
+W32_KFLIP_STEP_RTOL = 0.1
+#: the attention shapes of phase 17 (a): smollm-360m's prefill (the main
+#: path's) and qwen3-4b's (d_head 128, the largest instantiation)
+W32_ATTENTION = (("smollm-360m", 15, 5, 64), ("qwen3-4b", 32, 8, 128))
+#: integer operations of one width-32 lane op: every 64-bit add, shift or
+#: compare of the 32-bit one issues as two 32-bit instructions
+W32_ELEMWISE_OPS_PER_LANE = 2 * ELEMWISE_OPS_PER_LANE
+W32_SQRT_OPS_PER_LANE = 2 * SQRT_OPS_PER_LANE
+
+
+def kflip_unexplained(got, want, *, atol, rtol) -> tuple[int, float]:
+    """(outputs outside ``atol + rtol |want|`` that no quotient step of
+    4^n explains (W32_KFLIP_STEP_RTOL), the largest |got / want| among
+    the outside ones)."""
+    import torch
+
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    bad = (g - w).abs() > atol + rtol * w.abs()
+    explained = torch.zeros_like(bad)
+    for n in (-3, -2, -1, 1, 2, 3):
+        step = 4.0 ** n
+        explained |= ((g - step * w).abs()
+                      <= max(1.0, step) * atol
+                      + (rtol + W32_KFLIP_STEP_RTOL) * step * w.abs())
+    ratio = (g[bad] / w[bad]).abs()
+    ratio = ratio[torch.isfinite(ratio)]
+    return (int((bad & ~explained).sum()),
+            float(ratio.max()) if ratio.numel() else 0.0)
+
+
+def w32_spec():
+    from repro_torch.core.simdive import SimdiveSpec
+
+    return SimdiveSpec(**W32_SPEC)
+
+
+def w32_ptxas(text: str) -> list:
+    """Registers and spill bytes of every width-32 instantiation in the
+    ``nvcc -Xptxas -v`` log: each entry compiled from a ``*_w32.cu``
+    source, and the uint64 (``m``) lane forms of ``elemwise.cu``."""
+    import re
+
+    found, src, cur = [], None, None
+    for line in text.splitlines():
+        if line.startswith("$ "):
+            m = re.search(r"csrc/(\w+)\.cu ", line)
+            src = m.group(1) if m else None
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            # elemwise.cu's uint64 forms: elemwise_kernel<OP, unsigned
+            # long> and sqrt_kernel<unsigned long> (m in the mangled name)
+            w32 = (src or "").endswith("_w32") or (
+                src == "elemwise" and re.search(
+                    r"elemwise_kernelILi\dEmE|sqrt_kernelImE", name))
+            cur = {"source": f"{src}.cu", "entry": name} if w32 else None
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            cur["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            cur["registers"] = int(used.group(1))
+            found.append(cur)
+            cur = None
+    return found
+
+
+def w32_lanes(dev):
+    """Phase 17 (a)'s operands: 16.8 M stratified width-32 pairs and every
+    pair of W32_EDGES, on the card as the int64 carrier, and a mode word a
+    lane."""
+    import numpy as np
+    import torch
+    from repro_torch.metrics import stratified_pairs
+
+    a, b = stratified_pairs(32, SEED + 170, per_stratum=W32_PER_STRATUM)
+    e = np.array(W32_EDGES, np.uint64)
+    ea, eb = (x.ravel() for x in np.meshgrid(e, e, indexing="ij"))
+    a = np.concatenate([a.astype(np.uint64), ea])
+    b = np.concatenate([b.astype(np.uint64), eb])
+    lanes = [torch.from_numpy(x.view(np.int64)).to(dev) for x in (a, b)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 171)
+    mode = torch.randint(0, 2, lanes[0].shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+    return lanes[0], lanes[1], mode
+
+
+def w32_lane_kernels(dev) -> dict:
+    """Phase 17 (a), the lane kernels: ``elemwise`` mul / div / mixed at
+    frac_out 0 / 8 / 16, ``sqrt`` at 0 / 8 and the attention finalize
+    alone (``softmax_div_kernel``, at smollm-360m's prefill rows) at
+    width 32, ``torch.equal`` to their plain versions disarmed and under
+    each of W32_FAULTS; every arming must move the kernel's output exactly
+    where it moves the plain version's."""
+    import torch
+    from repro_torch.core.error_lut import table_for
+    from repro_torch.faults.inject import FaultSpec, fault_injection
+    from repro_torch.kernels import elemwise as ew
+    from repro_torch.kernels import flash_attention as fa
+
+    a, b, mode = w32_lanes(dev)
+    spec = w32_spec()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 172)
+    rows, dh = BATCH * 15 * PROMPT, 64
+    acc = torch.randn(rows, dh, generator=gen, device=dev) * 4.0
+    l = torch.rand(rows, generator=gen, device=dev) * 300.0 + 1e-3
+    l[:64] = 1.0                       # a causal first row: l = 1 exactly
+    acc[64] = 0.0
+    acc[65] *= 1e-20
+    acc[66] *= 1e20
+    l[67] = 0.0                        # clamps to 1e-30
+    acc[68, 0], l[68] = 2.0, 2.0
+    cases = [(f"elemwise {op} fo{fo}",
+              lambda op=op, fo=fo: ew.elemwise_cuda(
+                  a, b, spec, op=op, frac_out=fo,
+                  mode=mode if op == "mixed" else None),
+              lambda op=op, fo=fo: ew.elemwise_ref(
+                  a, b, spec, op=op, frac_out=fo,
+                  mode=mode if op == "mixed" else None))
+             for op, fo in (("mul", 0), ("div", 0), ("div", 8), ("div", 16),
+                            ("mixed", 0), ("mixed", 8), ("mixed", 16))]
+    cases += [(f"sqrt fo{fo}",
+               lambda fo=fo: ew.sqrt_cuda(a, spec, frac_out=fo),
+               lambda fo=fo: ew.sqrt_ref(a, spec, frac_out=fo))
+              for fo in (0, 8)]
+    tab = table_for("div", 32, spec.coeff_bits, spec.index_bits, device=dev)
+    fkw = dict(width=32, index_bits=spec.index_bits,
+               frac_out=W32_ATTENTION_FRAC_OUT, round_out=spec.round_output)
+
+    def finalize():
+        out, quot = fa.softmax_div_cuda(acc, l, spec=spec,
+                                        frac_out=W32_ATTENTION_FRAC_OUT)
+        return torch.cat([out.view(torch.int32).to(torch.int64).flatten(),
+                          quot.view(torch.int64).flatten()])
+
+    def finalize_ref():
+        out = fa.softmax_div(acc, l, tab, **fkw)
+        quot = fa.softmax_div_lanes(acc, l, tab, **fkw)
+        return torch.cat([out.view(torch.int32).to(torch.int64).flatten(),
+                          quot.flatten()])
+
+    cases.append(("finalize (softmax_div_kernel) fo15", finalize,
+                  finalize_ref))
+    clean, runs = {}, 0
+    for armed in (None, *W32_FAULTS):
+        specs = () if armed is None else (FaultSpec(**armed),)
+        tag = "disarmed" if armed is None else \
+            f"{armed['site']} bit {armed['bit']}"
+        with fault_injection(*specs):
+            for name, kern, ref in cases:
+                got, want = kern(), ref()
+                torch.cuda.synchronize()
+                if got.dtype == torch.uint64:
+                    got, want = got.view(torch.int64), want.view(torch.int64)
+                nbad = int((got != want).sum())
+                require(nbad == 0, f"width 32 {name} {tag}: {nbad} of "
+                                   f"{got.numel()} lanes differ from the "
+                                   "plain version")
+                if armed is None:
+                    clean[name] = (got, want)
+                else:
+                    moved_k = got != clean[name][0]
+                    moved_p = want != clean[name][1]
+                    require(torch.equal(moved_k, moved_p),
+                            f"width 32 {name} {tag}: the kernel's output "
+                            "moved elsewhere than the plain version's")
+                runs += 1
+        log(f"  (a) width 32, {tag}: elemwise mul / div / mixed, sqrt and "
+            f"the finalize alone bit-equal to their plain versions on "
+            f"{a.numel()} lanes / {rows} rows")
+    return {"lane_runs": runs, "lanes": a.numel(),
+            "finalize_rows": rows}
+
+
+def w32_attention_kernels(dev) -> dict:
+    """Phase 17 (a), the attention kernels at a width-32 divider:
+    ``flash_attention`` at smollm-360m's and qwen3-4b's prefill shapes
+    (bf16, causal, GQA) within ``judge_attention``'s tolerances of the
+    plain version, every ring depth that fits ``torch.equal`` to depth 0;
+    ``decode_attention`` at their step shapes (a 544-slot cache, pos 527)
+    at the planner's cluster and pinned at every size 1..8, each within
+    the tolerances, two calls bit-identical. Under each of W32_FAULTS the
+    depth-0 kernel, the 2-slot ring and the planner's decode launch at the
+    main path's shapes are held the same way, but for the log flip at bit
+    31: see W32_KFLIP_OUTLIER_SHARE."""
+    import torch
+    from repro_torch.faults.inject import FaultSpec, fault_injection
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 173)
+    spec, bf16 = w32_spec(), torch.bfloat16
+    fo = W32_ATTENTION_FRAC_OUT
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"archs": {}, "main": 0.0, "all": 0.0, "decode_main": 0.0,
+           "decode_all": 0.0, "ring_runs": 0, "decode_runs": 0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    for arch, H, KV, dh in W32_ATTENTION:
+        main = arch == ARCH
+        G = H // KV
+        q, k, v = randn(BATCH * H, PROMPT, dh), randn(BATCH * KV, PROMPT,
+                                                      dh), \
+            randn(BATCH * KV, PROMPT, dh)
+        kw = dict(spec=spec, causal=True, approx_div=True, frac_out=fo,
+                  kv_group=G)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        got = fa.flash_attention_cuda(q, k, v, block=fa.DEFAULT_BLOCK, **kw)
+        torch.cuda.synchronize()
+        err, share = judge_attention(f"w32 {arch} prefill", got, want, bf16,
+                                     True)
+        depths = []
+        for depth in range(1, fa._MAX_DEPTH + 1):
+            block = (*fa.DEFAULT_BLOCK, depth)
+            try:
+                fa.check_block(block, bf16, dh)
+            except ValueError:
+                continue
+            ring = fa.flash_attention_pipelined_cuda(q, k, v, block=block,
+                                                     **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(ring, got),
+                    f"w32 attention {arch}: ring depth {depth} differs from "
+                    f"depth 0 on {int((ring != got).sum())} outputs")
+            depths.append(depth)
+            out["ring_runs"] += 1
+        # the decode step: a 544-slot cache, pos 527, every cluster size
+        Smax, pos = PROMPT + GEN, PROMPT + 15
+        dq, kc, vc = randn(BATCH, KV, G, dh), randn(BATCH, Smax, KV, dh), \
+            randn(BATCH, Smax, KV, dh)
+        kn, vn = randn(BATCH, 1, KV, dh), randn(BATCH, 1, KV, dh)
+        dkw = dict(pos=pos, slot=pos, spec=spec, approx_div=True,
+                   frac_out=fo)
+        dwant = da.decode_attention_ref(dq, kc, vc, kn, vn, **dkw)
+        planned = da.cluster_size(BATCH, KV, sm_count)
+        derr = 0.0
+        for c in (None, *range(1, da.MAX_CLUSTER + 1)):
+            dgot = da.decode_attention_cuda(dq, kc, vc, kn, vn, cluster=c,
+                                            **dkw)
+            again = da.decode_attention_cuda(dq, kc, vc, kn, vn, cluster=c,
+                                             **dkw)
+            torch.cuda.synchronize()
+            require(torch.equal(dgot, again),
+                    f"w32 decode attention {arch} cluster {c}: two calls "
+                    "differ")
+            e, _ = judge_attention(f"w32 {arch} decode cluster {c}", dgot,
+                                   dwant, bf16, True)
+            derr = max(derr, e)
+            out["decode_runs"] += 1
+        out["archs"][arch] = {
+            "prefill_shape": f"q ({BATCH * H},{PROMPT},{dh}) kv "
+                             f"({BATCH * KV},{PROMPT},{dh}) G {G}",
+            "max_abs_err": err, "outside_tight_share": share,
+            "ring_depths": depths,
+            "step_shape": f"q ({BATCH},{KV},{G},{dh}) caches ({BATCH},"
+                          f"{Smax},{KV},{dh}) pos {pos}",
+            "cluster": planned, "decode_max_abs_err": derr}
+        out["all"] = max(out["all"], err)
+        out["decode_all"] = max(out["decode_all"], derr)
+        if main:
+            out["main"], out["decode_main"] = err, derr
+        log(f"  (a) width-32 attention at {arch}'s shapes: prefill "
+            f"max_abs_err {err:.3e} (outside-tight share {share:.2e}), ring "
+            f"depths {depths} bit-equal to depth 0; decode at every cluster "
+            f"size (planner's {planned}) max_abs_err {derr:.3e}")
+        if not main:
+            continue
+        for armed in W32_FAULTS:
+            tag = f"{armed['site']} bit {armed['bit']}"
+            kflip = armed["site"] == "log" and armed["bit"] == 31
+            with fault_injection(FaultSpec(**armed)):
+                want = fa.flash_attention_ref(q, k, v, **kw)
+                got = fa.flash_attention_cuda(q, k, v,
+                                              block=fa.DEFAULT_BLOCK, **kw)
+                ring = fa.flash_attention_pipelined_cuda(
+                    q, k, v, block=ATTENTION_RING_BLOCK, **kw)
+                dwant = da.decode_attention_ref(dq, kc, vc, kn, vn, **dkw)
+                dgot = da.decode_attention_cuda(dq, kc, vc, kn, vn, **dkw)
+                torch.cuda.synchronize()
+                require(torch.equal(ring, got),
+                        f"w32 attention {tag}: the ring differs from depth 0")
+                for what, g, w in (("prefill", got, want),
+                                   ("decode", dgot, dwant)):
+                    if not kflip:
+                        judge_attention(f"w32 {arch} {what} {tag}", g, w,
+                                        bf16, True)
+                        continue
+                    tol = dict(TOL_BF16)
+                    tol["atol"] += TOL_APPROX_EXTRA
+                    _, err, share = close(g, w, **tol)
+                    lost, ratio = kflip_unexplained(g, w, **tol)
+                    out[f"kflip_{what}_outside_share"] = share
+                    out[f"kflip_{what}_max_abs_err"] = err
+                    out[f"kflip_{what}_unexplained"] = lost
+                    require(bool(torch.isfinite(g.float()).all())
+                            and share <= W32_KFLIP_OUTLIER_SHARE
+                            and lost == 0,
+                            f"w32 {arch} {what} {tag}: {share:.3e} of the "
+                            f"outputs outside {tol} (at most "
+                            f"{W32_KFLIP_OUTLIER_SHARE}), {lost} of them "
+                            "not a quotient step of 4^n")
+                    log(f"  (a) {what} under {tag} (k's low bit): "
+                        f"{share:.3e} of the outputs outside the tight "
+                        f"bound, each a quotient step of 4^n (largest "
+                        f"|got/want| {ratio:.3f}), max_abs_err {err:.3e}")
+        log(f"  (a) width-32 attention at {arch}'s shapes under each of "
+            f"{len(W32_FAULTS)} armings: within the tolerances, the ring "
+            "bit-equal to depth 0")
+    return out
+
+
+def w32_tuning(dev) -> dict:
+    """Phase 17 (b): ``measure_error('mul' / 'div', 32, 8)`` through the
+    width-32 elemwise kernel, each statistic equal to the same sweep on
+    the plain versions (on the CPU) to BENCH_REL_TOL relative, with one
+    ``elemwise_w32`` launch each; ``select_config(width=None)`` on the card
+    sweeps width 32 too (its elemwise_w32 launches) and selects what the
+    plain versions select."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tuning import frontier, measure_error, select_config
+    from repro_torch.tuning.select import _available_widths
+
+    out = {}
+    for op in ("mul", "div"):
+        reset_launch_counts()
+        card, source = measure_error(op, 32, W32_SPEC["coeff_bits"],
+                                     device=dev)
+        n = launch_counts()["elemwise_w32"]
+        cpu, _ = measure_error(op, 32, W32_SPEC["coeff_bits"], device="cpu")
+        require(n == 1, f"measure_error({op!r}, 32) launched {n} width-32 "
+                        "elemwise kernels, expected 1")
+        for (k, got), (_, want) in zip(card, cpu):
+            require(abs(got - want) <= BENCH_REL_TOL * max(abs(want), 1e-300),
+                    f"measure_error({op!r}, 32) {k}: card {got} vs plain "
+                    f"{want}")
+        out[f"measure_error_{op}_w32"] = dict(card)
+        log(f"  (b) measure_error({op!r}, 32, 8) on the card ({source}): "
+            f"{dict(card)} — equal to the plain versions'")
+    require(32 in _available_widths(), "select_config omits width 32")
+    kw = dict(error_budget=1.0, coeff_sweep=(8,), bench=None)
+    frontier._ERROR_CACHE.clear()           # measure each width anew
+    reset_launch_counts()
+    card = select_config("mul", width=None, device=dev, **kw)
+    n32 = launch_counts()["elemwise_w32"]
+    cpu = select_config("mul", width=None, device="cpu", **kw)
+    require(n32 == 1, f"select_config(width=None) launched {n32} width-32 "
+                      "elemwise kernels, expected 1 (one sweep)")
+    require(card.as_dict() == cpu.as_dict(),
+            f"select_config on the card {card.as_dict()} vs plain "
+            f"{cpu.as_dict()}")
+    out["select_config"] = card.as_dict()
+    log(f"  (b) select_config('mul', width=None) on the card swept widths "
+        f"{_available_widths()}: {card.label()}, equal to the plain versions'")
+    return out
+
+
+def w32_policy(attention: str = "auto", div: str = "auto"):
+    """The width-32 divider policy file of phase 17 (c): the attention
+    entry at width 32 cb 8 frac_out 15, the div entry at width 32 cb 8,
+    each with the given backend name ('ref': the plain versions)."""
+    from repro_torch.tuning import PolicyEntry, TuningPolicy
+
+    return _saved_and_loaded(TuningPolicy(entries=(
+        PolicyEntry(op="attention", frac_out=W32_ATTENTION_FRAC_OUT,
+                    backend=attention, **W32_SPEC),
+        PolicyEntry(op="div", backend=div, **W32_SPEC))))
+
+
+@contextlib.contextmanager
+def ulp_nudged_attention():
+    """Every attention output of a model (prefill and decode step) moved by
+    one bf16 ulp, its lowest mantissa bit flipped: a plain-version run's
+    stand-in for the kernels' last-place differences (phase 17 (c)'s
+    witness). Patches the stack's two attention entries."""
+    import torch
+    from repro_torch.models import transformer
+
+    saved = transformer.flash_attention, transformer.decode_attention_append
+
+    def nudged(fn):
+        def call(*args, **kw):
+            o = fn(*args, **kw)
+            require(o.dtype == torch.bfloat16, "ulp nudge: attention "
+                    f"output is {o.dtype}, not bfloat16")
+            return (o.view(torch.int16) ^ 1).view(torch.bfloat16)
+        return call
+
+    transformer.flash_attention, transformer.decode_attention_append = (
+        nudged(f) for f in saved)
+    try:
+        yield
+    finally:
+        (transformer.flash_attention,
+         transformer.decode_attention_append) = saved
+
+
+def w32_serve(dev, served) -> dict:
+    """Phase 17 (c): smollm-360m at full width served under the width-32
+    policy file (``--approx simdive --policy``), then the same with
+    ``use_in_norm``: each through ``policy_generate`` (captured ==
+    eager, one attention launch a layer a prefill and one decode_attention
+    a step, and with use_in_norm one sqrt and one elemwise a block norm —
+    every one of them on its width-32 form). Divider only, the logits lie
+    within ``ulp_logit_tol`` of the same file on the plain versions. With
+    use_in_norm they cannot (the note in the body), and that gate is
+    replaced: every norm's kernels are held to their plain versions on the
+    served path itself — the run ``torch.equal`` to the same file with the
+    div entry on 'ref' (the norms' plain versions on the card, attention
+    on its kernels), and the all-plain run ``torch.equal`` to the file
+    with the attention entry on 'ref' (the norms on their kernels), both
+    fed the served tokens — and the all-kernel against all-plain logit
+    difference is recorded, not gated. The witness for the replacement,
+    in both runs: the all-plain run against itself with every attention
+    output moved by one bf16 ulp (ulp_nudged_attention), recorded, and
+    with use_in_norm required to part by more than ``ulp_logit_tol``
+    too. Both attention schedules pinned in turn (each a generate, counted
+    apart). Then the served path in turns with the same process's width-16
+    one (w16, w32, w32, w16), best of each."""
+    import torch
+    from repro_torch.kernels import (clear_autotune_cache,
+                                     export_autotune_cache, launch_counts,
+                                     preload_autotune_cache,
+                                     reset_launch_counts)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+
+    params, prompts = served["params"], served["prompts"]
+    out, lms = {}, {}
+
+    def lm_of(attention, div, norm, backend="auto"):
+        cfg = serve.serving_config(ARCH, backend=backend,
+                                   policy=w32_policy(attention, div))
+        return build(cfg.with_approx(replace(cfg.approx, use_in_norm=norm)))
+
+    for what, norm in (("w32 policy", False), ("w32 policy use_in_norm",
+                                               True)):
+        policy = w32_policy()
+        cfg = serve.serving_config(ARCH, policy=policy)
+        if norm:
+            cfg = cfg.with_approx(replace(cfg.approx, use_in_norm=True))
+        spec, _, frac = cfg.approx.resolve_attention()
+        require(spec.width == 32 and frac == W32_ATTENTION_FRAC_OUT
+                and cfg.approx.resolve("div", cfg.approx.div_width)[0].width
+                == 32, f"{what}: the plan does not resolve to width 32")
+        if not norm:
+            log(serve.render_plan(serve.resolve_serving_plan(cfg), cfg))
+        lm = build(cfg)
+        n = cfg.n_layers
+        norms = 2 * n if norm else 0
+        run = policy_generate(dev, lm, params, prompts, what, norms=norms)
+        c = run["counts"]
+        require(c["attention_w32"] + c["attention_pipelined_w32"] == n
+                and c["decode_attention_w32"] == n * (GEN - 1)
+                and c["sqrt_w32"] == c["elemwise_w32"] == norms * GEN,
+                f"{what}: not every launch ran its width-32 form: {c}")
+        plain_lm = lm_of("ref", "ref", norm, "ref")
+        ref_all = plain_logits(plain_lm, params, prompts, run["tokens"])
+        tol, top = ulp_logit_tol(what, ref_all, TIED_LOGIT_RANGE)
+        # the witness: the all-plain run moved by one ulp of attention
+        with ulp_nudged_attention():
+            nudged = plain_logits(plain_lm, params, prompts, run["tokens"])
+        witness = float((nudged - ref_all).abs().max())
+        log(f"  {what}: witness, the all-plain run with every attention "
+            f"output one bf16 ulp off vs itself: logits max_abs_err "
+            f"{witness:.4f} (6-ulp bound {tol:g}), tokens equal "
+            f"{int((nudged.argmax(-1) == ref_all.argmax(-1)).sum())}/"
+            f"{run['tokens'].numel()}")
+        del nudged, plain_lm
+        if not norm:
+            judged = judge_logits(what, run["logits"], run["tokens"],
+                                  ref_all, tol)
+        else:
+            # use_in_norm at width 32: every block norm's rsqrt runs the
+            # divider's correction table on a row scale that follows the
+            # row (at width 16 R-4 makes it a constant), so a row whose
+            # operand crosses a region boundary moves by the table's step
+            # (~1 %). The bf16 attention kernels differ from their plain
+            # versions within TOL_BF16, and over 64 norms of 32 layers the
+            # two runs' rows cross different boundaries: all-kernel and
+            # all-plain logits part by far more than 6 bf16 ulps. So the
+            # norms' kernels are held to their plain versions, each in the
+            # other's company, on the served tokens: bit for bit
+            require(witness > tol,
+                    f"{what}: one bf16 ulp of attention moves the all-plain "
+                    f"logits by only {witness:.4f} <= {tol:g}, so the "
+                    "amplification that excuses this run from the logit "
+                    "gate does not show")
+            mixed = {m: plain_logits(lm_of(*m, norm), params, prompts,
+                                     run["tokens"], kernels=True)
+                     for m in (("auto", "ref"), ("ref", "auto"))}
+            require(torch.equal(mixed["auto", "ref"], run["logits"]),
+                    f"{what}: the norms on their plain versions change the "
+                    "all-kernel logits")
+            require(torch.equal(mixed["ref", "auto"], ref_all),
+                    f"{what}: the norms on their kernels change the "
+                    "all-plain logits")
+            err = float((run["logits"] - ref_all).abs().max())
+            agree = run["tokens"] == ref_all.argmax(-1)
+            judged = dict(logit_err=err, tokens_equal=int(agree.sum()),
+                          norms_bit_equal_in_both=True)
+            log(f"  {what}: the norms' width-32 sqrt and elemwise kernels "
+                "leave the logits torch.equal to their plain versions', "
+                "with attention on its kernels and on its plain version; "
+                f"all-kernel vs all-plain logits max_abs_err {err:.4f} "
+                f"(not gated: see w32_serve), tokens equal "
+                f"{int(agree.sum())}/{agree.numel()}")
+            del mixed
+        del ref_all
+        key = "w32_norm" if norm else "w32"
+        out[key] = dict(counts=c, first_generate_s=run["first_generate_s"],
+                        logit_max=top, logit_tol=tol,
+                        ulp_nudge_logit_err=witness, **judged)
+        lms[key] = lm
+    # both attention schedules on the width-32 path: each pinned, one
+    # counted generate each (the autotune served one of them above)
+    lm = lms["w32"]
+    tuned = export_autotune_cache()
+    pinned = {}
+    for block, own in ((fa.DEFAULT_BLOCK, "attention_w32"),
+                       (ATTENTION_RING_BLOCK, "attention_pipelined_w32")):
+        require(_pin_blocks("attention", block) > 0, "nothing to pin")
+        serve.generate(lm, params, prompts, PROMPT + GEN, GEN)  # captures
+        reset_launch_counts()
+        serve.generate(lm, params, prompts, PROMPT + GEN, GEN)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        require(c[own] == lm.cfg.n_layers,
+                f"w32 pinned to {block}: launches {c}")
+        pinned[own] = c[own]
+    clear_autotune_cache()
+    preload_autotune_cache(tuned)
+    out["pinned_counts"] = pinned
+    # in turns with the width-16 path of phase 4: w16, w32, w32, w16 (the
+    # served graphs only: phase 9 times the eager path)
+    times = {}
+    for name, this in (("w16", served["lm"]), ("w32", lm), ("w32", lm),
+                       ("w16", served["lm"])):
+        t = policy_times(dev, this, params, prompts, prefix=f"{name}_",
+                         eager=False)
+        for k, v in t.items():
+            times[k] = min(times.get(k, v), v)
+    out["times"] = times
+    log("  (c) width-32 policy generate, captured: "
+        f"{times['w32_generate_captured_ms']:.2f} ms (width 16: "
+        f"{times['w16_generate_captured_ms']:.2f}); prefill replay "
+        f"{times['w32_prefill_replay_ms']:.3f} "
+        f"({times['w16_prefill_replay_ms']:.3f}), step replay "
+        f"{times['w32_decode_step_replay_ms']:.3f} "
+        f"({times['w16_decode_step_replay_ms']:.3f}) ms")
+    return out
+
+
+def w32_kernel_rows(dev, served, int_rate) -> list:
+    """The width-32 forms' rows of the kernels line, timed at the served
+    path's shapes: the attention kernels at smollm-360m's prefill and step
+    (beside the same kernels at width 16, in turns, and
+    ``scaled_dot_product_attention``), ``elemwise`` at the use_in_norm
+    prefill's divide ((BATCH, PROMPT, 1) lanes, fo 16) and at 16.8 M lanes
+    (memory bound), ``sqrt`` at the norm's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = served["lm"].cfg
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    spec, fo = w32_spec(), W32_ATTENTION_FRAC_OUT
+    spec16 = SimdiveSpec(width=16, coeff_bits=6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 174)
+    bf16 = torch.bfloat16
+    q = torch.randn(BATCH * H, PROMPT, dh, generator=gen, device=dev).to(bf16)
+    k, v = (torch.randn(BATCH * KV, PROMPT, dh, generator=gen, device=dev
+                        ).to(bf16) for _ in range(2))
+    kw = dict(causal=True, approx_div=True, frac_out=fo, kv_group=G)
+    att = {}
+    for s, w in ((spec16, 16), (spec, 32), (spec, 32), (spec16, 16)):
+        for block in (fa.DEFAULT_BLOCK, ATTENTION_RING_BLOCK):
+            t = gpu_graph_time_ms(lambda s=s, b=block: get_op(
+                "attention", s, "cuda", block=b)(q, k, v, **kw), iters=50)
+            att[w, block] = min(att.get((w, block), t), t)
+    plain_ms = gpu_time_ms(lambda: get_op("attention", spec, "ref")(
+        q, k, v, **kw), iters=10)
+    q4 = q.reshape(BATCH, H, PROMPT, dh)
+    k4 = k.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    v4 = v.reshape(BATCH, KV, PROMPT, dh).repeat_interleave(G, dim=1)
+    lib_ms = gpu_graph_time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=50)
+    pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2
+    ops_ms = 4 * pairs * dh / BF16_FLOPS * 1e3
+    bytes_ms = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    shape = (f"q ({BATCH * H},{PROMPT},{dh}) kv ({BATCH * KV},{PROMPT},{dh})"
+             f" bf16 causal simdive w32 cb{spec.coeff_bits} fo{fo}")
+    rows = []
+    for name, block, line in (
+            ("flash_attention_w32", fa.DEFAULT_BLOCK, 145),
+            ("flash_attention_pipelined_w32", ATTENTION_RING_BLOCK, 175)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_w32.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "shape": shape, "block": list(block), "ms": att[32, block],
+            "w16_ms": att[16, block], "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms})
+        log(f"  {name} {block}: {att[32, block]:.5f} ms (graph; width 16 "
+            f"{att[16, block]:.5f}), plain {plain_ms:.3f}, sdpa "
+            f"{lib_ms:.5f}, bound {max(ops_ms, bytes_ms):.5f} ms")
+    # the decode step: cache PROMPT + GEN, pos PROMPT + 15, every cluster
+    Smax, pos = PROMPT + GEN, PROMPT + 15
+    sizes = tuple(range(1, 9))
+    t16 = time_decode_attention(dev, gen, BATCH, Smax, KV, G, dh, pos,
+                                spec16, fo, int_rate)
+    t32 = time_decode_attention(dev, gen, BATCH, Smax, KV, G, dh, pos, spec,
+                                fo, int_rate, clusters=sizes)
+    dq, kc, vc, kn, vn = t32["inputs"]
+    dplain = gpu_time_ms(lambda: get_op("decode_attention", spec, "ref")(
+        dq, kc, vc, kn, vn, pos=pos, slot=pos, approx_div=True,
+        frac_out=fo), iters=50)
+    rows.append({
+        "name": "decode_attention_w32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention_w32.cu",
+        "replaces": "src/repro/models/layers.py:351",
+        "note": "no TPU kernel: the reference's jnp decode_attention_append "
+                "around elemwise_pallas (src/repro/kernels/elemwise.py:67)",
+        "shape": f"q ({BATCH},{KV},{G},{dh}) caches ({BATCH},{Smax},{KV},"
+                 f"{dh}) bf16 pos {pos} simdive w32 cb{spec.coeff_bits} "
+                 f"fo{fo}",
+        "cluster": t32["cluster"], "ms": t32["ms"], "w16_ms": t16["ms"],
+        "plain_ms": dplain, "bound_ms": t32["bound_ms"],
+        "bound_by": t32["bound_by"], "library_ms": t32["library_ms"],
+        "ms_by_cluster": {str(c): t for c, t in t32["ms_by_cluster"].items()}})
+    log(f"  decode_attention_w32: {t32['ms']:.5f} ms (graph, cluster "
+        f"{t32['cluster']}; width 16 {t16['ms']:.5f}), plain {dplain:.4f}, "
+        f"sdpa {t32['library_ms']:.5f}, bound {t32['bound_ms']:.6f} ms")
+    # elemwise: the use_in_norm prefill's divide (2^31 / r at fo 16, one
+    # lane a row) and 16.8 M lanes
+    ew = []
+    for n in (BATCH * PROMPT, 1 << 24):
+        a = torch.full((n,), 1 << 31, device=dev, dtype=torch.int64)
+        b = torch.randint(1 << 10, 1 << 32, (n,), generator=gen, device=dev,
+                          dtype=torch.int64)
+        kern = lambda a=a, b=b: get_op("elemwise", spec, "cuda")(
+            a, b, op="div", frac_out=W32_DIV_FRAC_OUT)
+        ms = gpu_graph_time_ms(kern, iters=200 if n < 1 << 20 else 20)
+        plain = gpu_time_ms(lambda a=a, b=b: get_op("elemwise", spec, "ref")(
+            a, b, op="div", frac_out=W32_DIV_FRAC_OUT), iters=20)
+        b_ms = 24 * n / HBM_BYTES_PER_S * 1e3
+        o_ms = W32_ELEMWISE_OPS_PER_LANE * n / int_rate * 1e3
+        ew.append(dict(lanes=n, ms=ms, plain_ms=plain,
+                       bound_ms=max(b_ms, o_ms),
+                       bound_by="bytes" if b_ms >= o_ms else "operations"))
+        log(f"  elemwise_w32 div fo16, {n} lanes: {ms:.5f} ms (graph), plain "
+            f"{plain:.4f} ms, bound {max(b_ms, o_ms):.6f} ms")
+    rows.append({
+        "name": "elemwise_w32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/elemwise.cu",
+        "replaces": "src/repro/kernels/elemwise.py:33",
+        "shape": f"({BATCH},{PROMPT},1) uint64 lanes, div w32 cb8 fo16 (the "
+                 "use_in_norm prefill's rsqrt divide)",
+        "ms": ew[0]["ms"], "plain_ms": ew[0]["plain_ms"],
+        "bound_ms": ew[0]["bound_ms"], "bound_by": ew[0]["bound_by"],
+        "library_ms": None, "lanes_16M": ew[1]})
+    n = BATCH * PROMPT
+    a = torch.randint(1, 1 << 32, (BATCH, PROMPT, 1), generator=gen,
+                      device=dev, dtype=torch.int64)
+    ms = gpu_graph_time_ms(lambda: get_op("sqrt", spec, "cuda")(a), iters=200)
+    plain = gpu_time_ms(lambda: get_op("sqrt", spec, "ref")(a), iters=50)
+    b_ms = 16 * n / HBM_BYTES_PER_S * 1e3
+    o_ms = W32_SQRT_OPS_PER_LANE * n / int_rate * 1e3
+    rows.append({
+        "name": "sqrt_w32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/elemwise.cu",
+        "replaces": "src/repro/core/simdive.py:68",
+        "note": "no TPU kernel: the reference's jnp simdive_sqrt, registered "
+                "for its oracle alone (src/repro/kernels/ops.py:472)",
+        "shape": f"({BATCH},{PROMPT},1) uint64 lanes, w32 fo0 (a prefill's "
+                 "block norm)",
+        "ms": ms, "plain_ms": plain, "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": None})
+    log(f"  sqrt_w32, {n} lanes: {ms:.5f} ms (graph), plain {plain:.4f} ms, "
+        f"bound {max(b_ms, o_ms):.6f} ms")
+    return rows
+
+
+def width32_phase(dev, served, int_rate, ptxas) -> dict:
+    """Phase 17: (a) the width-32 kernels against their plain versions,
+    (b) the error sweep and the selection at width 32, (c) smollm-360m
+    served under the width-32 divider policy, with and without
+    use_in_norm; the width-32 rows of the kernels line, with each form's
+    registers and spills from the build."""
+    lanes = w32_lane_kernels(dev)
+    att = w32_attention_kernels(dev)
+    tuning = w32_tuning(dev)
+    served32 = w32_serve(dev, served)
+    rows = w32_kernel_rows(dev, served, int_rate)
+    regs = {}
+    for r in ptxas:
+        regs.setdefault(r["source"], []).append(
+            {k: r[k] for k in ("entry", "registers", "spill_bytes")
+             if k in r})
+    c, cn = served32["w32"]["counts"], served32["w32_norm"]["counts"]
+    pinned = served32["pinned_counts"]
+    for row in rows:
+        name = row["name"]
+        if name.startswith("flash_attention"):
+            own = ("attention_pipelined_w32" if "pipelined" in name
+                   else "attention_w32")
+            row["launches_autotuned"] = c[own]
+            row["launches_pinned"] = pinned[own]
+            row["launches"] = c[own] + pinned[own]
+            row["launches_use_in_norm"] = cn[own]
+            row["max_abs_err"] = att["main"]
+            row["max_abs_err_all_cases"] = att["all"]
+            row["ptxas"] = [r for r in regs.get("flash_attention_w32.cu", [])]
+        elif name == "decode_attention_w32":
+            row["launches"] = c["decode_attention_w32"]
+            row["launches_use_in_norm"] = cn["decode_attention_w32"]
+            row["max_abs_err"] = att["decode_main"]
+            row["max_abs_err_all_cases"] = att["decode_all"]
+            row["ptxas"] = regs.get("decode_attention_w32.cu", [])
+        else:
+            own = name
+            row["launches"] = cn[own]
+            row["max_abs_err"] = 0.0
+            row["ptxas"] = regs.get("elemwise.cu", [])
+    return dict(lanes=lanes, attention=att, tuning=tuning, serve=served32,
+                kernels=rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -7090,14 +7916,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/16] device: {card} | torch {torch.__version__} "
+    log(f"[1/17] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/16] build: kernels compiled and loaded in {build_s:.1f}s")
-    skinny_regs = []
+    log(f"[2/17] build: kernels compiled and loaded in {build_s:.1f}s")
+    skinny_regs, w32_regs = [], []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
         for line in text.splitlines():
@@ -7106,14 +7932,20 @@ def main(argv=None) -> int:
                         and ("flash" in line or "decode_attention" in line))):
                 log("  ptxas: " + line.strip()[:200])
         skinny_regs += skinny_ptxas(text)
+        w32_regs += w32_ptxas(text)
     for r in skinny_regs:
         log(f"  ptxas, skinny logmatmul tile {r['tile']}: {r['registers']} "
             f"registers, {r['spill_bytes']} bytes spilled")
     require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
+    for r in w32_regs:
+        log(f"  ptxas, width-32 form {r['source']} {r['entry'][:90]}: "
+            f"{r.get('registers')} registers, {r.get('spill_bytes')} bytes "
+            "spilled")
+    require(bool(w32_regs), "no width-32 kernel form in the build log")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/16] kernels vs plain versions")
+    log("[3/17] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -7122,7 +7954,7 @@ def main(argv=None) -> int:
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/16] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/17] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -7135,7 +7967,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/16] times")
+    log("[5/17] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -7156,24 +7988,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/16] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/17] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/16] faults: every kernel under each armed site, captured graphs, "
+    log("[7/17] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/16] policy: build_policy / select_config on the card, a "
+    log("[8/17] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/16] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/17] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -7187,41 +8019,42 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/16] the dense family at full width: (k) the kernels' times "
+    log("[10/17] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b; depths cut to SERVED_LAYERS")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/16] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
+    log("[11/17] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
         "layers), (b) llama4-scout-17b-a16e (2 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/16] the modality-stub families at full width (musicgen-medium "
-        "at 16 of 48 layers): (k) "
+    log("[12/17] the modality-stub families at full width (musicgen-medium "
+        f"at {SERVED_LAYERS['musicgen-medium']} of 48 layers): (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
 
     starts[13] = time.perf_counter() - t_start
-    log("[13/16] rwkv6-1.6b at full width, 8 of 24 layers: (k) "
+    log(f"[13/17] rwkv6-1.6b at full width, {SERVED_LAYERS['rwkv6-1.6b']} "
+        "of 24 layers: (k) "
         "logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
         "the recurrent cache through both graphs), (c) --emulate")
     rwkv6 = rwkv6_phase(dev, int_rate)
 
     starts[14] = time.perf_counter() - t_start
-    log("[14/16] zamba2-2.7b at full width: (k) the attention "
+    log("[14/17] zamba2-2.7b at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
         "simdive (18 of 54 Mamba2 layers, the shared block 2 times with "
         "its LoRA merged each call), (c) --emulate")
     zamba2 = zamba2_phase(dev, int_rate)
 
     starts[15] = time.perf_counter() - t_start
-    log("[15/16] training: (a) logmatmul at smollm-360m's gradient "
+    log("[15/17] training: (a) logmatmul at smollm-360m's gradient "
         "products and elemwise at the training finalize, against their "
         "plain versions; (b) one step on the kernels == on the plain "
         "versions (2 layers); (c) launch.train.train at full width, "
@@ -7230,13 +8063,22 @@ def main(argv=None) -> int:
     training = training_phase(dev, int_rate)
 
     starts[16] = time.perf_counter() - t_start
-    log("[16/16] applications at the reference's size: (a) logmatmul and "
+    log("[16/17] applications at the reference's size: (a) logmatmul and "
         "matmul_emul at Table 4's layer shapes (int32 and wide forms) and "
         "elemwise at Fig. 3/4's lanes, every rung, against their plain "
         "versions; (b) Table 4's two MLPs trained on the card and run in "
         "8-bit fixed point; (c) the campaign's --ann; (d) profile_ann, "
         "greedy_assign, ann_policy_metric and profile_imaging")
     apps = applications_phase(dev, int_rate)
+
+    starts[17] = time.perf_counter() - t_start
+    log("[17/17] width 32: (a) elemwise, sqrt, the finalize alone and both "
+        "attention kernels at a width-32 divider against their plain "
+        "versions, disarmed and armed; (b) measure_error and select_config "
+        "at width 32; (c) smollm-360m full width under a width-32 divider "
+        "policy, with and without use_in_norm")
+    w32 = width32_phase(dev, served, int_rate, w32_regs)
+    kernels += w32.pop("kernels")
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -7463,14 +8305,15 @@ def main(argv=None) -> int:
     for key, val in (*drill.items(), *faults.items(), *policy.items(),
                      *arith.items(), *dense.items(), *moe.items(),
                      *modality.items(), *rwkv6.items(),
-                     *zamba2.items(), *training.items(), *apps.items()):
+                     *zamba2.items(), *training.items(), *apps.items(),
+                     *w32.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-16) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-17) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -7489,6 +8332,7 @@ def main(argv=None) -> int:
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
             "zamba2": zamba2, "training": training, "applications": apps,
+            "width32": w32,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -38,7 +38,13 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch.kernels.registry import get_op
-from .mitchell import check_width, from_lanes, lane_max_float
+from .mitchell import (
+    check_width,
+    from_lanes,
+    lane_max_float,
+    lanes_to_float,
+    to_lanes,
+)
 from .simdive import SimdiveSpec
 
 __all__ = [
@@ -191,23 +197,24 @@ def attention_div(acc: torch.Tensor, l: torch.Tensor,
     if not cfg.active_for("attention"):
         return acc / l.clamp(min=1e-30)[..., None]
     spec, backend, frac_out = cfg.resolve_attention()
-    check_width(spec.width)
     qn, qd = softmax_div_quantize(acc, l, spec.width)
     div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
-    # width <= 16: the operands fit int32, whose bits are the uint32 lanes
-    quot = div(qn.to(torch.int32).view(torch.uint32),
-               qd.expand_as(qn).to(torch.int32).view(torch.uint32),
+    quot = div(to_lanes(qn, spec.width),
+               to_lanes(qd.expand_as(qn), spec.width),
                op="div", frac_out=frac_out)
-    out = from_lanes(quot).to(torch.float32) * (2.0 ** -frac_out)
+    out = lanes_to_float(quot) * (2.0 ** -frac_out)
     return torch.where(acc < 0, -out, out)
 
 
 def _fixed_point_operands(num: torch.Tensor, den: torch.Tensor,
                           width: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-scale float32 ``num >= 0`` and ``den > 0`` into ``width``-bit
-    lanes: one power of two shared by the whole call,
+    lanes. Widths 8 and 16: one power of two shared by the whole call,
     ``2^(width - 2 - floor(log2 top))`` with ``top`` the larger of both
-    maxima, so the larger side fills the lane. Returns int32 ``(qn, qd)``.
+    maxima, so the larger side fills the lane. Width 32, as the
+    reference's: the fixed scale 2^16 and no shared exponent. Both clip at
+    :func:`lane_max_float`. Returns the lanes of the width's dtype
+    ``(qn, qd)``.
 
     ``floor(log2 top)`` is read from ``top``'s exponent field on the
     device, exactly (no host read: the call can be captured in a CUDA
@@ -216,14 +223,16 @@ def _fixed_point_operands(num: torch.Tensor, den: torch.Tensor,
     there the two scales differ by a factor of two.
     """
     check_width(width)
-    top = torch.maximum(num.amax(), den.amax()).clamp(min=1e-30)
-    _, e = torch.frexp(top)                      # top = m * 2^e, m in [.5, 1)
-    sc = torch.ldexp(torch.ones_like(top), (width - 1) - e)
     lim = lane_max_float(width)
-    # width <= 16: the operands fit int32, whose bits are the uint32 lanes
-    qn = torch.round(num * sc).clamp(0.0, lim).to(torch.int32)
-    qd = torch.round(den * sc).clamp(1.0, lim).to(torch.int32)
-    return qn, qd
+    if width > 16:
+        sc = 2.0 ** 16
+    else:
+        top = torch.maximum(num.amax(), den.amax()).clamp(min=1e-30)
+        _, e = torch.frexp(top)                  # top = m * 2^e, m in [.5, 1)
+        sc = torch.ldexp(torch.ones_like(top), (width - 1) - e)
+    qn = torch.round(num * sc).clamp(0.0, lim).to(torch.int64)
+    qd = torch.round(den * sc).clamp(1.0, lim).to(torch.int64)
+    return to_lanes(qn, width), to_lanes(qd, width)
 
 
 def _fixed_point_div(num: torch.Tensor, den: torch.Tensor,
@@ -232,14 +241,13 @@ def _fixed_point_div(num: torch.Tensor, den: torch.Tensor,
     SIMDive divider, resolved as the logical ``'div'`` op at ``div_width``:
     both operands block-scaled into the lane by
     :func:`_fixed_point_operands` (the scale cancels in the quotient), one
-    elemwise 'div' dispatch. Width 32 raises.
+    elemwise 'div' dispatch.
     """
     spec, backend = cfg.resolve("div", cfg.div_width)
     qn, qd = _fixed_point_operands(num, den, spec.width)
     div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
-    q = div(qn.view(torch.uint32), qd.view(torch.uint32), op="div",
-            frac_out=cfg.frac_out)
-    return from_lanes(q).to(torch.float32) / float(2 ** cfg.frac_out)
+    q = div(qn, qd, op="div", frac_out=cfg.frac_out)
+    return lanes_to_float(q) / float(2 ** cfg.frac_out)
 
 
 def _approx_softmax_impl(x, axis, cfg: ApproxConfig):
@@ -282,12 +290,13 @@ def approx_softmax(x: torch.Tensor, axis: int,
 
 
 def rsqrt_operand(ms: torch.Tensor, eps: float, width: int) -> torch.Tensor:
-    """The sqrt operand of :func:`approx_rmsnorm`'s rsqrt, as uint32 lanes:
-    ``qm = clip(round((ms + eps) * 2^32), 1, lane max)`` for the float32
-    mean squares ``ms``."""
+    """The sqrt operand of :func:`approx_rmsnorm`'s rsqrt, as lanes of the
+    width's dtype: ``qm = clip(round((ms + eps) * 2^32), 1, lane max)``
+    for the float32 mean squares ``ms``. At ``div_width`` 32 the lane
+    holds the whole range, so the norm normalizes (at 16 it clips: R-4)."""
     check_width(width)
     qm = torch.round((ms + eps) * 2.0 ** 32).clamp(1.0, lane_max_float(width))
-    return qm.to(torch.int32).view(torch.uint32)
+    return to_lanes(qm.to(torch.int64), width)
 
 
 def _approx_rmsnorm_impl(x, gamma, eps, cfg: ApproxConfig):
@@ -304,7 +313,7 @@ def _approx_rmsnorm_impl(x, gamma, eps, cfg: ApproxConfig):
         r = from_lanes(sqrt(qm)).clamp(min=1)
         div = get_op("elemwise", spec, backend=backend, guard=cfg.guard)
         q = div(torch.full_like(r, 1 << 31), r, op="div", frac_out=16)
-        inv = from_lanes(q).to(torch.float32) * 2.0 ** -31
+        inv = lanes_to_float(q) * 2.0 ** -31
     return (x.to(torch.float32) * inv * gamma.to(torch.float32)).to(x.dtype)
 
 

@@ -11,7 +11,7 @@ against, one definition each.
 
 They have no kernel in the reference either: on CUDA tensors they run as
 torch ops, on the int64 carrier of :mod:`repro_torch.core.mitchell`, and
-return it. Widths 8 and 16 (``check_width``).
+return it, at widths 8, 16 and 32 (the 64-bit bus at width 32).
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ import torch
 
 from .error_lut import ideal_correction_div, ideal_correction_mul
 from .mitchell import (
-    BUS_MASK,
     check_width,
     frac_bits,
     from_lanes,
@@ -28,6 +27,7 @@ from .mitchell import (
     mitchell_antilog_div,
     mitchell_antilog_mul,
     mitchell_log,
+    wrap_bus,
 )
 
 __all__ = ["trunc_mul", "const_corr_op"]
@@ -40,7 +40,7 @@ def trunc_mul(a: torch.Tensor, b: torch.Tensor, width: int,
     au, bu = from_lanes(a), from_lanes(b)
     sa = (leading_one(au) - (keep - 1)).clamp(min=0)
     sb = (leading_one(bu) - (keep - 1)).clamp(min=0)
-    return (((au >> sa) * (bu >> sb)) << (sa + sb)) & BUS_MASK
+    return wrap_bus(((au >> sa) * (bu >> sb)) << (sa + sb), width)
 
 
 def const_corr_op(op: str, width: int):

@@ -14,13 +14,23 @@ float-assisted fast form of every stage and proves them bit-identical; that
 duality is a matter of its compiler, so this module keeps only the integer
 form and the tests hold it equal to both.
 
-**The lane carrier.** The reference carries lanes in ``uint32``. PyTorch's
-unsigned types lack most integer operators, so everything here computes on
-an ``int64`` *carrier*: a tensor of dtype ``torch.int64`` whose values are
-the unsigned 32-bit lane values, 0 ... 2^32 - 1. Where the reference's
-``uint32`` arithmetic wraps, the carrier is masked with :data:`BUS_MASK`,
-so values stay equal bit for bit. Widths 8 and 16 are supported; width 32
-needs a 64-bit unsigned bus and is refused (see :func:`check_width`).
+**The lane carrier.** The reference carries lanes in ``uint32`` (widths 8
+and 16) and ``uint64`` (width 32). PyTorch's unsigned types lack most
+integer operators, so everything here computes on an ``int64`` *carrier*:
+a tensor of dtype ``torch.int64`` holding the lane's bits.
+
+* Widths 8 and 16: the values are the unsigned 32-bit lane values,
+  0 ... 2^32 - 1. Where the reference's ``uint32`` arithmetic wraps, the
+  carrier is masked with :data:`BUS_MASK` (:func:`wrap_bus`).
+* Width 32: the carrier *is* the 64-bit unsigned bus, read as two's
+  complement: a product of 2^64 - 1 is the carrier value -1. Add,
+  subtract, multiply, left shift, and, or and xor give the same bits in
+  int64 as in uint64, and wrap mod 2^64 as the reference's do. Comparisons,
+  right shifts and conversions to float do not, so the arithmetic here
+  takes them only on values that stay below 2^63: lane operands (< 2^32),
+  36-bit log words, shift counts, and the mantissas the anti-logs shift
+  right (< 2^33). Results are read unsigned by :func:`lanes_to_float` and
+  :func:`to_lanes` (``torch.uint64``).
 """
 from __future__ import annotations
 
@@ -28,14 +38,17 @@ import torch
 
 __all__ = [
     "SUPPORTED_WIDTHS",
-    "PORTED_WIDTHS",
     "BUS_MASK",
     "frac_bits",
     "check_width",
+    "bus_max",
+    "wrap_bus",
+    "wrap_signed",
     "lane_max_float",
     "as_carrier",
     "to_lanes",
     "from_lanes",
+    "lanes_to_float",
     "wrap_int32",
     "leading_one",
     "mitchell_log",
@@ -46,8 +59,6 @@ __all__ = [
 ]
 
 SUPPORTED_WIDTHS = (8, 16, 32)
-#: widths whose arithmetic the port computes (tables exist for all three)
-PORTED_WIDTHS = (8, 16)
 #: the 32-bit output bus of the widths <= 16 datapath
 BUS_MASK = 0xFFFFFFFF
 
@@ -60,12 +71,27 @@ def frac_bits(width: int) -> int:
 
 
 def check_width(width: int) -> None:
-    """Raise unless ``width`` is one the port's arithmetic covers."""
+    """Raise ``ValueError`` unless ``width`` is 8, 16 or 32."""
     frac_bits(width)
-    if width not in PORTED_WIDTHS:
-        raise NotImplementedError(
-            f"width {width} needs a 64-bit unsigned bus, which neither the "
-            "int64 carrier nor the CUDA kernels provide yet; use width 8 or 16")
+
+
+def bus_max(width: int) -> int:
+    """The all-ones output bus (x / 0, a saturated product) on the carrier:
+    2^32 - 1 for widths <= 16, the 64-bit all-ones word (-1) at width 32."""
+    return BUS_MASK if width <= 16 else -1
+
+
+def wrap_bus(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Carrier values reduced to the width's unsigned bus: mod 2^32 for
+    widths <= 16 (the reference's uint32); at width 32 the carrier's own
+    64 bits are the bus (the reference's uint64), so nothing changes."""
+    return x & BUS_MASK if width <= 16 else x
+
+
+def wrap_signed(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Carrier values reduced to the width's signed work type: int32 for
+    widths <= 16, int64 (the carrier itself) at width 32."""
+    return wrap_int32(x) if width <= 16 else x
 
 
 def lane_max_float(width: int) -> float:
@@ -86,25 +112,50 @@ def as_carrier(a: torch.Tensor) -> torch.Tensor:
 
 
 def from_lanes(x: torch.Tensor) -> torch.Tensor:
-    """Public lane tensor (``uint32``, or any integer dtype) -> int64 carrier.
+    """Public lane tensor (``uint32``, ``uint64`` or any integer dtype) ->
+    int64 carrier.
 
     ``uint32`` goes through its ``int32`` bit pattern, which needs only
-    operators every device implements for every dtype involved."""
+    operators every device implements for every dtype involved; ``uint64``
+    is its own bits read as int64 (the width-32 carrier)."""
     if x.dtype == torch.uint32:
         return x.view(torch.int32).to(torch.int64) & BUS_MASK
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
     return as_carrier(x)
 
 
-def to_lanes(x: torch.Tensor) -> torch.Tensor:
-    """Integer tensor of lane values in [0, 2^32) -> public ``uint32`` lanes
-    (values >= 2^31 wrap into the ``int32`` bit pattern on the way)."""
+def to_lanes(x: torch.Tensor, width: int = 16) -> torch.Tensor:
+    """Integer tensor of lane values -> public lanes of the width's dtype:
+    ``uint32`` for widths <= 16 (values in [0, 2^32); those >= 2^31 wrap
+    into the ``int32`` bit pattern on the way), ``uint64`` at width 32 (the
+    carrier's 64 bits, read unsigned)."""
+    if width > 16:
+        if x.dtype == torch.uint64:
+            return x
+        return from_lanes(x).view(torch.uint64)
     if x.dtype == torch.uint32:
         return x
     if x.dtype == torch.int32:
         return x.view(torch.uint32)
-    x = as_carrier(x)
+    x = from_lanes(x)
     half = 1 << 31
     return (((x + half) & BUS_MASK) - half).to(torch.int32).view(torch.uint32)
+
+
+def lanes_to_float(x: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Unsigned lane values (a carrier or public lanes) -> float ``dtype``,
+    rounded once to nearest even, as the reference's ``astype`` and CUDA's
+    ``__ull2float_rn`` round them.
+
+    A carrier value below zero is a 64-bit lane of 2^63 or more: it is
+    halved with its lost bit kept as a sticky bit (the rounding point of a
+    24- or 53-bit significand lies far above bit 0), converted, and
+    doubled, which is exact. No host read: a CUDA graph can capture it."""
+    x = from_lanes(x)
+    half = ((x >> 1) & ((1 << 63) - 1)) | (x & 1)
+    return torch.where(x < 0, half.to(dtype) * 2.0, x.to(dtype))
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +190,10 @@ def _antilog_floor(ls: torch.Tensor, width: int,
                    round_out: bool = False) -> torch.Tensor:
     """Anti-log ``(2^F + Xs) << I >> F`` with the barrel shifter's floor
     semantics; ``round_out`` adds the half-LSB at the truncated position.
-    Saturates to the 2*width-bit bus maximum when ``I >= 2 * width``."""
+    Saturates to the 2*width-bit bus maximum when ``I >= 2 * width``.
+    ``ls >= 0``; the mantissa it shifts right is below 2^33 at every
+    width, and a left shift of at most 32 keeps a width-32 product inside
+    the 64-bit bus."""
     F = frac_bits(width)
     I = ls >> F
     mant = (1 << F) + (ls & ((1 << F) - 1))    # 1.Xs, F+1 bits
@@ -149,8 +203,8 @@ def _antilog_floor(ls: torch.Tensor, width: int,
         half = 1 << (shr.clamp(min=1) - 1)     # 1 << (shr-1)
         mant = mant + torch.where(shr > 0, half, torch.zeros_like(half))
     # a lane that saturates below may shift far; keep the shift in range
-    out = ((mant << shl.clamp(max=32)) >> shr) & BUS_MASK
-    max_out = BUS_MASK if 2 * width == 32 else (1 << (2 * width)) - 1
+    out = wrap_bus((mant << shl.clamp(max=32)) >> shr, width)
+    max_out = bus_max(width) if 2 * width >= 32 else (1 << (2 * width)) - 1
     return torch.where(I >= 2 * width, torch.full_like(out, max_out), out)
 
 
@@ -160,15 +214,16 @@ def mitchell_antilog_mul(l1: torch.Tensor, l2: torch.Tensor, width: int,
     """Product anti-log of two log values (+ optional signed correction,
     added in the same ternary add and clipped at zero).
 
-    The sums wrap as the reference's do: ``l1 + l2`` mod 2^32 (uint32),
-    then the correction added in int32 and clipped at zero. In-range
+    The sums wrap as the reference's do: for widths <= 16, ``l1 + l2`` mod
+    2^32 (uint32), then the correction added in int32 and clipped at zero;
+    at width 32 in int64, where 36-bit log words never wrap. In-range
     operands never wrap; an upset log value or table entry
     (:mod:`repro_torch.faults`) can."""
     ls = l1 + l2
     if corr is not None:
-        ls = wrap_int32(ls + corr.to(torch.int64)).clamp_(min=0)
+        ls = wrap_signed(ls + corr.to(torch.int64), width).clamp_(min=0)
     else:
-        ls = ls & BUS_MASK
+        ls = wrap_bus(ls, width)
     return _antilog_floor(ls, width, round_out=round_out)
 
 
@@ -177,23 +232,26 @@ def mitchell_antilog_div(l1: torch.Tensor, l2: torch.Tensor, width: int,
                          frac_out: int = 0,
                          round_out: bool = False) -> torch.Tensor:
     """Quotient anti-log ``round_down(Q * 2^frac_out)``. The signed
-    subtraction realizes the borrow case, in the reference's int32, which
-    wraps (only upset operands reach that far); both shift directions are
-    clipped to 31 like the reference's 32-bit barrel shifter."""
+    subtraction realizes the borrow case, in the reference's signed work
+    type (int32 for widths <= 16, which wraps — only upset operands reach
+    that far —, int64 at width 32); both shift directions are clipped to
+    the bus like the reference's barrel shifter: 31 on the 32-bit bus, 63
+    on the 64-bit one."""
     F = frac_bits(width)
     ls = l1 - l2
     if corr is not None:
         ls = ls + corr.to(torch.int64)
-    ls = wrap_int32(ls)
+    ls = wrap_signed(ls, width)
     I = ls >> F                                # arithmetic: floors
     mant = (ls & ((1 << F) - 1)) + (1 << F)    # 1.Xs, always positive
     sh = I + (frac_out - F)                    # total shift of the mantissa
-    pos = sh.clamp(0, 31)
-    negsh = (-sh).clamp(0, 31)
+    clip = 31 if width <= 16 else 63
+    pos = sh.clamp(0, clip)
+    negsh = (-sh).clamp(0, clip)
     if round_out:
         half = 1 << (negsh.clamp(min=1) - 1)   # 1 << (negsh-1)
         mant = mant + torch.where(sh < 0, half, torch.zeros_like(half))
-    return torch.where(sh >= 0, (mant << pos) & BUS_MASK, mant >> negsh)
+    return torch.where(sh >= 0, wrap_bus(mant << pos, width), mant >> negsh)
 
 
 def mitchell_mul(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
@@ -213,5 +271,5 @@ def mitchell_div(a: torch.Tensor, b: torch.Tensor, width: int,
     a, b = as_carrier(a), as_carrier(b)
     q = mitchell_antilog_div(mitchell_log(a, width), mitchell_log(b, width),
                              width, frac_out=frac_out)
-    q = torch.where(b == 0, torch.full_like(q, BUS_MASK), q)
+    q = torch.where(b == 0, torch.full_like(q, bus_max(width)), q)
     return torch.where(a == 0, torch.zeros_like(q), q)

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .mitchell import BUS_MASK, check_width, from_lanes
+from .mitchell import check_width, from_lanes, wrap_bus
 
 __all__ = ["SimdiveSpec", "simdive_mul", "simdive_div", "simdive_sqrt"]
 
@@ -21,7 +21,7 @@ __all__ = ["SimdiveSpec", "simdive_mul", "simdive_div", "simdive_sqrt"]
 @dataclass(frozen=True)
 class SimdiveSpec:
     """Static configuration of one SIMDive lane-op."""
-    width: int = 8          # lane width: 8 / 16 (32: tables only)
+    width: int = 8          # lane width: 8 / 16 / 32
     coeff_bits: int = 6     # accuracy knob; 0 => plain Mitchell
     index_bits: int = 3     # 3 => 64 regions (paper), 4 => 256
     round_output: bool = True  # half-LSB rounding carry at the anti-log output
@@ -54,13 +54,13 @@ def simdive_sqrt(a: torch.Tensor, width: int, frac_out: int = 0) -> torch.Tensor
     """Log-domain square root ``round_down(sqrt(a) * 2^frac_out)``: halve
     the Mitchell log, then the quotient anti-log with a zero divisor log,
     no correction and no output rounding (0 -> 0). ``a`` is any integer
-    tensor of values < 2^width, taken as uint32 lanes as the reference
-    casts them; returns the int64 carrier. The log stage's fault hook
-    applies, as in the reference."""
+    tensor of values < 2^width, taken as uint32 lanes (uint64 at width 32)
+    as the reference casts them; returns the int64 carrier. The log
+    stage's fault hook applies, as in the reference."""
     from repro_torch.kernels import datapath as dp
 
     check_width(width)
-    au = from_lanes(a) & BUS_MASK
+    au = wrap_bus(from_lanes(a), width)
     half = dp.lod_log(au, width) >> 1
     return dp.antilog_div(half, torch.zeros_like(half), width,
                           frac_out=frac_out, num_zero=au == 0)

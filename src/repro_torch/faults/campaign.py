@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.core.device import require_device
 from repro_torch.core.error_lut import build_table, build_table_clean
-from repro_torch.core.mitchell import from_lanes
+from repro_torch.core.mitchell import lanes_to_float
 from repro_torch.core.simd_pack import pack
 from repro_torch.core.simdive import SimdiveSpec
 from repro_torch.faults.inject import FaultSpec, fault_injection
@@ -162,7 +162,9 @@ def _lanes(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def _values(out: torch.Tensor, scale: float = 1.0) -> np.ndarray:
-    return from_lanes(out).cpu().numpy().astype(np.float64) / scale
+    # unsigned: a width-32 lane of 2^63 or more (a saturated product under
+    # an upset) is its uint64 value, as the reference's astype reads it
+    return lanes_to_float(out, torch.float64).cpu().numpy() / scale
 
 
 def measure_site(spec: FaultSpec, op: str, *, width: int = 8,

@@ -132,19 +132,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.simdive_sqrt.restype = i
     lib.simdive_packed.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, i, i, p]
     lib.simdive_packed.restype = i
-    lib.simdive_flash_attention.argtypes = (
-        [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, p])
-    lib.simdive_flash_attention.restype = i
-    lib.simdive_flash_attention_pipelined.argtypes = (
-        [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, i, p])
-    lib.simdive_flash_attention_pipelined.restype = i
-    lib.simdive_softmax_div.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i,
-                                        f, p]
-    lib.simdive_softmax_div.restype = i
-    lib.simdive_decode_attention.argtypes = (
-        [p] * 7 + [i] * 8 + [ll, p, i, ll] * 2 + [i] * 3 + [f] + [i] * 4
-        + [f, p])
-    lib.simdive_decode_attention.restype = i
+    # the attention entries come in two forms of one signature: widths 8 /
+    # 16 and, with the suffix _w32, width 32 (a source of its own each)
+    for sfx in ("", "_w32"):
+        fn = getattr(lib, "simdive_flash_attention" + sfx)
+        fn.argtypes = [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, p]
+        fn.restype = i
+        fn = getattr(lib, "simdive_flash_attention_pipelined" + sfx)
+        fn.argtypes = [p] * 5 + [i] * 12 + [f] + [i] * 4 + [f, i, p]
+        fn.restype = i
+        fn = getattr(lib, "simdive_softmax_div" + sfx)
+        fn.argtypes = [p, p, p, p, i, i, p, i, i, i, i, i, f, p]
+        fn.restype = i
+        fn = getattr(lib, "simdive_decode_attention" + sfx)
+        fn.argtypes = ([p] * 7 + [i] * 8 + [ll, p, i, ll] * 2 + [i] * 3
+                       + [f] + [i] * 4 + [f, p])
+        fn.restype = i
     lib.simdive_decode_attention_max_clusters.argtypes = [i] * 5
     lib.simdive_decode_attention_max_clusters.restype = i
     lib.simdive_logmatmul.argtypes = [p] * 3 + [i] * 3 + [p] + [i] * 10 + [p]

@@ -7,12 +7,16 @@
 // Every function is bit-identical to its plain PyTorch version on the same
 // integer operands; the tests and chip_smoke.py hold them equal.
 //
-// Lanes are native uint32 (widths 8 and 16: every intermediate fits 32 bits;
-// width 32 would need a 64-bit bus and is refused by the wrappers). A shift
-// by >= 32 is undefined in CUDA, so every data-dependent shift is clipped
+// Lanes are native unsigned words of a template type U: uint32_t at widths 8
+// and 16 (every intermediate fits 32 bits), uint64_t at width 32 (the 64-bit
+// product bus; log words take 36 bits), as the reference computes in uint32
+// and uint64. One template serves both; LaneBits<U> gives the signed work
+// type and the barrel shifter's clip (31 or 63). A shift by the word's size
+// or more is undefined in CUDA, so every data-dependent shift is clipped
 // first, exactly where the reference clips its barrel shifter. The ternary
-// adds are taken in uint32 and read as int32: the reference's wrapping
-// uint32 / int32 sums, which only upset operands (below) ever wrap.
+// adds are taken in U and read as the signed type: the reference's wrapping
+// uint32 / int32 sums (width 32: int64, where nothing in range wraps),
+// which only upset operands (below) ever wrap.
 //
 // Fault injection (repro_torch/faults/inject.py): the armed lane faults
 // live in g_fault_register, which set_faults writes on the stream through
@@ -59,20 +63,23 @@ static __constant__ FaultRegister g_fault_register;
 
 // The armed specs of one site and width applied to x, in arming order;
 // a transient spec strikes where the reference's murmur-style hash of the
-// current lane value falls under its threshold. Out of line: the disarmed
-// callers keep only the branch on the count.
-static __device__ __noinline__ uint32_t apply_lane_faults(uint32_t x,
-                                                          uint32_t site,
-                                                          uint32_t width) {
+// current lane value falls under its threshold. A 64-bit word keeps its
+// high bits and hashes its low 32, as the reference's x.astype(uint32)
+// does. Out of line: the disarmed callers keep only the branch on the
+// count.
+template <typename U>
+static __device__ __noinline__ U apply_lane_faults(U x, uint32_t site,
+                                                   uint32_t width) {
   const uint32_t n = g_fault_register.n;
   for (uint32_t i = 0; i < n; ++i) {
     const LaneFault f = g_fault_register.f[i];
     if (f.site != site || (f.width != 0u && f.width != width)) continue;
-    const uint32_t y = f.kind == kKindFlip     ? (x ^ f.mask)
-                       : f.kind == kKindStuck1 ? (x | f.mask)
-                                               : (x & ~f.mask);
+    const U m = f.mask;
+    const U y = f.kind == kKindFlip     ? (x ^ m)
+                : f.kind == kKindStuck1 ? (x | m)
+                                        : (x & ~m);
     if (f.transient) {
-      uint32_t h = x ^ f.seed;
+      uint32_t h = static_cast<uint32_t>(x) ^ f.seed;
       h *= 0x85EBCA6Bu;
       h = (h ^ (h >> 13)) * 0xC2B2AE35u;
       h ^= h >> 16;
@@ -107,7 +114,7 @@ static inline cudaError_t write_fault_register(const void* reg,
   }
 
 struct LaneCfg {
-  int width;       // lane width: 8 or 16
+  int width;       // lane width: 8 or 16 (uint32_t lanes), 32 (uint64_t)
   int index_bits;  // MSBs of each fraction in the region index (3 or 4)
   int frac_out;    // fraction bits kept on quotients
   int round_out;   // half-LSB rounding carry at the anti-log output
@@ -119,167 +126,197 @@ constexpr int kOpMixed = 2;
 // largest table: mixed [mul | div] at index_bits 4
 constexpr int kMaxTable = 512;
 
+// The signed work type and the barrel shifter's clip of a lane word.
+template <typename U>
+struct LaneBits;
+template <>
+struct LaneBits<uint32_t> {
+  using S = int32_t;
+  static constexpr int kClip = 31;
+  __device__ static int clz(uint32_t a) { return __clz(a); }
+  __device__ static float to_float(uint32_t a) { return __uint2float_rn(a); }
+  __device__ static uint32_t from_float(float x) { return __float2uint_rn(x); }
+};
+template <>
+struct LaneBits<uint64_t> {
+  using S = long long;
+  static constexpr int kClip = 63;
+  __device__ static int clz(uint64_t a) { return __clzll(a); }
+  __device__ static float to_float(uint64_t a) { return __ull2float_rn(a); }
+  __device__ static uint64_t from_float(float x) { return __float2ull_rn(x); }
+};
+
 // Stage 1: LOD + log conversion, L = (k << F) | ((a ^ 2^k) << (F - k)).
 // a must be < 2^width. a == 0 yields the same don't-care value as the
 // plain version (k = 0); callers bypass it with their zero flags. With
 // FAULTS, the armed 'log' faults of width F + 1 strike L (false: the
 // caller found the register empty).
-template <bool FAULTS>
-__device__ __forceinline__ uint32_t lod_log(uint32_t a, int F) {
-  const int k = a ? 31 - __clz(a) : 0;
-  const uint32_t frac = a ^ (1u << k);
-  const uint32_t L = (static_cast<uint32_t>(k) << F) | (frac << (F - k));
-  if constexpr (FAULTS) return apply_lane_faults(L, kSiteLog, F + 1);
+template <bool FAULTS, typename U>
+__device__ __forceinline__ U lod_log(U a, int F) {
+  constexpr int kTop = 8 * static_cast<int>(sizeof(U)) - 1;
+  const int k = a ? kTop - LaneBits<U>::clz(a) : 0;
+  const U frac = a ^ (U(1) << k);
+  const U L = (static_cast<U>(k) << F) | (frac << (F - k));
+  if constexpr (FAULTS) return apply_lane_faults<U>(L, kSiteLog, F + 1);
   return L;
 }
 
 // Stage 2: region index from the index_bits MSBs of both fractions.
-__device__ __forceinline__ int region_index(uint32_t la, uint32_t lb, int F,
+template <typename U>
+__device__ __forceinline__ int region_index(U la, U lb, int F,
                                             int index_bits) {
-  const uint32_t m = (1u << F) - 1u;
+  const U m = (U(1) << F) - U(1);
   const int sh = F - index_bits;
   return static_cast<int>((((la & m) >> sh) << index_bits) | ((lb & m) >> sh));
 }
 
 // Stage 3a: ternary add (clipped at zero) + product anti-log with floor
 // semantics; saturates to the 2*width-bit bus maximum when I >= 2*width.
-__device__ __forceinline__ uint32_t antilog_mul(uint32_t la, uint32_t lb,
-                                                int corr, int width,
-                                                bool round_out) {
+template <typename U>
+__device__ __forceinline__ U antilog_mul(U la, U lb, int corr, int width,
+                                         bool round_out) {
+  using S = typename LaneBits<U>::S;
   const int F = width - 1;
-  int lsi = static_cast<int>(la + lb + static_cast<uint32_t>(corr));
+  S lsi = static_cast<S>(la + lb + static_cast<U>(static_cast<S>(corr)));
   if (lsi < 0) lsi = 0;
-  const uint32_t ls = static_cast<uint32_t>(lsi);
+  const U ls = static_cast<U>(lsi);
   const int I = static_cast<int>(ls >> F);
-  uint32_t mant = (1u << F) + (ls & ((1u << F) - 1u));  // 1.Xs, F+1 bits
+  U mant = (U(1) << F) + (ls & ((U(1) << F) - U(1)));  // 1.Xs, F+1 bits
   if (I >= 2 * width)
-    return (2 * width == 32) ? 0xFFFFFFFFu : ((1u << (2 * width)) - 1u);
-  if (I >= F) return mant << (I - F);  // I - F <= width <= 16
+    return (2 * width == 8 * static_cast<int>(sizeof(U)))
+               ? ~U(0)
+               : ((U(1) << (2 * width)) - U(1));
+  if (I >= F) return mant << (I - F);  // I - F <= width
   const int shr = F - I;               // 1 .. F
-  if (round_out) mant += 1u << (shr - 1);
+  if (round_out) mant += U(1) << (shr - 1);
   return mant >> shr;
 }
 
 // Stage 3b: signed ternary subtract + quotient anti-log,
-// round_down(Q * 2^frac_out); both shift directions clipped to 31.
-__device__ __forceinline__ uint32_t antilog_div(uint32_t la, uint32_t lb,
-                                                int corr, int width,
-                                                int frac_out, bool round_out) {
+// round_down(Q * 2^frac_out); both shift directions clipped to the bus
+// (31, or 63 on the 64-bit bus).
+template <typename U>
+__device__ __forceinline__ U antilog_div(U la, U lb, int corr, int width,
+                                         int frac_out, bool round_out) {
+  using S = typename LaneBits<U>::S;
+  constexpr int kClip = LaneBits<U>::kClip;
   const int F = width - 1;
-  const int ls = static_cast<int>(la - lb + static_cast<uint32_t>(corr));
-  const int I = ls >> F;  // arithmetic shift: floors
-  uint32_t mant = (static_cast<uint32_t>(ls) & ((1u << F) - 1u)) + (1u << F);
+  const S ls = static_cast<S>(la - lb + static_cast<U>(static_cast<S>(corr)));
+  const int I = static_cast<int>(ls >> F);  // arithmetic shift: floors
+  U mant = (static_cast<U>(ls) & ((U(1) << F) - U(1))) + (U(1) << F);
   const int sh = I + frac_out - F;
-  if (sh >= 0) return mant << (sh < 31 ? sh : 31);
-  const int negsh = (-sh < 31) ? -sh : 31;
-  if (round_out) mant += 1u << (negsh - 1);
+  if (sh >= 0) return mant << (sh < kClip ? sh : kClip);
+  const int negsh = (-sh < kClip) ? -sh : kClip;
+  if (round_out) mant += U(1) << (negsh - 1);
   return mant >> negsh;
 }
 
 // Whole SISD unit, multiplier half: x * 0 = 0.
-template <bool FAULTS>
-__device__ __forceinline__ uint32_t lane_mul(uint32_t a, uint32_t b,
-                                             const int* tab,
-                                             const LaneCfg& c) {
+template <bool FAULTS, typename U>
+__device__ __forceinline__ U lane_mul(U a, U b, const int* tab,
+                                      const LaneCfg& c) {
   const int F = c.width - 1;
-  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
-  const bool nz = (a != 0u) && (b != 0u);
+  const U la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
+  const bool nz = (a != U(0)) && (b != U(0));
   const int corr = nz ? tab[region_index(la, lb, F, c.index_bits)] : 0;
-  const uint32_t p = antilog_mul(la, lb, corr, c.width, c.round_out != 0);
-  return nz ? p : 0u;
+  const U p = antilog_mul(la, lb, corr, c.width, c.round_out != 0);
+  return nz ? p : U(0);
 }
 
 // Whole SISD unit, divider half: x / 0 = all-ones, then 0 / x = 0.
-template <bool FAULTS>
-__device__ __forceinline__ uint32_t lane_div(uint32_t a, uint32_t b,
-                                             const int* tab,
-                                             const LaneCfg& c) {
+template <bool FAULTS, typename U>
+__device__ __forceinline__ U lane_div(U a, U b, const int* tab,
+                                      const LaneCfg& c) {
   const int F = c.width - 1;
-  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
-  const bool nz = (a != 0u) && (b != 0u);
+  const U la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
+  const bool nz = (a != U(0)) && (b != U(0));
   const int corr = nz ? tab[region_index(la, lb, F, c.index_bits)] : 0;
-  uint32_t q = antilog_div(la, lb, corr, c.width, c.frac_out,
-                           c.round_out != 0);
-  if (b == 0u) q = 0xFFFFFFFFu;
-  if (a == 0u) q = 0u;
+  U q = antilog_div(la, lb, corr, c.width, c.frac_out, c.round_out != 0);
+  if (b == U(0)) q = ~U(0);
+  if (a == U(0)) q = U(0);
   return q;
 }
 
 // Mixed mode: tab is [mul | div]; mode != 0 selects the product. Both
 // halves share the LOD + log front end and the region index.
-template <bool FAULTS>
-__device__ __forceinline__ uint32_t lane_mixed(uint32_t a, uint32_t b,
-                                               uint32_t mode, const int* tab,
-                                               const LaneCfg& c) {
+template <bool FAULTS, typename U>
+__device__ __forceinline__ U lane_mixed(U a, U b, uint32_t mode,
+                                        const int* tab, const LaneCfg& c) {
   const int F = c.width - 1;
   const int T = 1 << (2 * c.index_bits);
-  const uint32_t la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
-  const bool nz = (a != 0u) && (b != 0u);
+  const U la = lod_log<FAULTS>(a, F), lb = lod_log<FAULTS>(b, F);
+  const bool nz = (a != U(0)) && (b != U(0));
   const int idx = region_index(la, lb, F, c.index_bits);
   if (mode != 0u) {
-    const uint32_t p = antilog_mul(la, lb, nz ? tab[idx] : 0, c.width,
-                                   c.round_out != 0);
-    return nz ? p : 0u;
+    const U p = antilog_mul(la, lb, nz ? tab[idx] : 0, c.width,
+                            c.round_out != 0);
+    return nz ? p : U(0);
   }
-  uint32_t q = antilog_div(la, lb, nz ? tab[T + idx] : 0, c.width, c.frac_out,
-                           c.round_out != 0);
-  if (b == 0u) q = 0xFFFFFFFFu;
-  if (a == 0u) q = 0u;
+  U q = antilog_div(la, lb, nz ? tab[T + idx] : 0, c.width, c.frac_out,
+                    c.round_out != 0);
+  if (b == U(0)) q = ~U(0);
+  if (a == U(0)) q = U(0);
   return q;
 }
 
 // One SISD unit of a compile-time op: the elementwise and the packed
 // kernels both run their lanes through this.
-template <int OP, bool FAULTS>
-__device__ __forceinline__ uint32_t lane_op(uint32_t a, uint32_t b,
-                                            uint32_t mode, const int* tab,
-                                            const LaneCfg& c) {
+template <int OP, bool FAULTS, typename U>
+__device__ __forceinline__ U lane_op(U a, U b, uint32_t mode, const int* tab,
+                                     const LaneCfg& c) {
   if (OP == kOpMul) return lane_mul<FAULTS>(a, b, tab, c);
   if (OP == kOpDiv) return lane_div<FAULTS>(a, b, tab, c);
   return lane_mixed<FAULTS>(a, b, mode, tab, c);
 }
 
 // ---- softmax divider: per-row shared-exponent quantization + lane_div ----
+// U = uint32_t at widths 8 / 16, uint64_t at width 32; lim is the float
+// lane_max_float(width) (2^32 - 2^8 at width 32: float(2^32 - 1) rounds
+// up past the lane).
 
+template <typename U>
 struct RowQuant {
-  float sc;     // 2^(width - 2 - floor(log2 top))
-  uint32_t qd;  // quantized denominator, in [1, lane max]
+  float sc;  // 2^(width - 2 - floor(log2 top))
+  U qd;      // quantized denominator, in [1, lane max]
 };
 
 // Round-half-even quantization of x * sc into [lo, lim].
-__device__ __forceinline__ uint32_t quantize_lane(float x, float sc, float lo,
-                                                  float lim) {
-  return __float2uint_rn(fminf(fmaxf(rintf(x * sc), lo), lim));
+template <typename U>
+__device__ __forceinline__ U quantize_lane(float x, float sc, float lo,
+                                           float lim) {
+  return LaneBits<U>::from_float(fminf(fmaxf(rintf(x * sc), lo), lim));
 }
 
 // Row scale from top = max(rowmax|acc|, l): floor(log2 top) is read from
 // the float's exponent field (top >= 1e-30 is a normal number), the same
 // way the plain version reads it with frexp, so the two cannot disagree
 // just below a power of two as two log2 implementations can.
-__device__ __forceinline__ RowQuant softmax_row_quant(float rowmax_abs,
-                                                      float l, int width,
-                                                      float lim) {
+template <typename U>
+__device__ __forceinline__ RowQuant<U> softmax_row_quant(float rowmax_abs,
+                                                         float l, int width,
+                                                         float lim) {
   const float den = fmaxf(l, 1e-30f);
   const float top = fmaxf(fmaxf(rowmax_abs, den), 1e-30f);
   const int ex = static_cast<int>((__float_as_uint(top) >> 23) & 0xFFu) - 127;
-  RowQuant rq;
+  RowQuant<U> rq;
   rq.sc = scalbnf(1.0f, width - 2 - ex);
-  rq.qd = quantize_lane(den, rq.sc, 1.0f, lim);
+  rq.qd = quantize_lane<U>(den, rq.sc, 1.0f, lim);
   return rq;
 }
 
 // One element of acc / l on the divider: quantize |acc|, divide, fold the
-// quotient back to float and re-apply the sign. *quot gets the raw lane.
-template <bool FAULTS>
+// quotient back to float (rounded once, to nearest even) and re-apply the
+// sign. *quot gets the raw lane.
+template <bool FAULTS, typename U>
 __device__ __forceinline__ float softmax_div_elem(float acc,
-                                                  const RowQuant& rq,
+                                                  const RowQuant<U>& rq,
                                                   const int* tab,
                                                   const LaneCfg& c, float lim,
-                                                  uint32_t* quot) {
-  const uint32_t qn = quantize_lane(fabsf(acc), rq.sc, 0.0f, lim);
-  const uint32_t qq = lane_div<FAULTS>(qn, rq.qd, tab, c);
+                                                  U* quot) {
+  const U qn = quantize_lane<U>(fabsf(acc), rq.sc, 0.0f, lim);
+  const U qq = lane_div<FAULTS>(qn, rq.qd, tab, c);
   if (quot) *quot = qq;
-  const float out = scalbnf(__uint2float_rn(qq), -c.frac_out);
+  const float out = scalbnf(LaneBits<U>::to_float(qq), -c.frac_out);
   return acc < 0.0f ? -out : out;
 }
 

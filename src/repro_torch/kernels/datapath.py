@@ -18,7 +18,8 @@ Stage map (FPGA block -> function):
     fused correct + anti-log        log_mul / log_div
     whole SISD unit (Fig. 2b)       lane_op
 
-All tensors are int64 carriers of unsigned 32-bit lane values (see
+All tensors are int64 carriers of the lane values (unsigned 32-bit values
+for widths 8 and 16, the 64-bit bus at width 32; see
 :mod:`repro_torch.core.mitchell`); tables are int64 tensors on the
 operands' device. The sign network (``sign_split`` / ``sign_join``) carries
 signed int32 values on the same int64 carrier, and the sub-word lane wiring
@@ -31,8 +32,8 @@ import torch
 
 from repro_torch.core.error_lut import region_index, table_for
 from repro_torch.core.mitchell import (
-    BUS_MASK,
     as_carrier,
+    bus_max,
     check_width,
     frac_bits,
     from_lanes,
@@ -144,7 +145,7 @@ def antilog_div(la: torch.Tensor, lb: torch.Tensor, width: int,
     q = mitchell_antilog_div(la, lb, width, corr=corr, frac_out=frac_out,
                              round_out=round_out)
     if den_zero is not None:
-        q = torch.where(den_zero, torch.full_like(q, BUS_MASK), q)
+        q = torch.where(den_zero, torch.full_like(q, bus_max(width)), q)
     if num_zero is not None:
         q = torch.where(num_zero, torch.zeros_like(q), q)
     return q

@@ -40,19 +40,32 @@ order, so the output is deterministic, and kernel and plain version differ
 in f32 summation order alone. A longer history is walked in rounds with an
 online-softmax rescale, which rounds ``p`` relative to each round's
 cluster-wide max.
+
+**Width 32.** A divider at width 32 runs the kernel's 64-bit-lane form
+(``csrc/decode_attention_w32.cu`` over the template in
+``csrc/decode_attention.cuh``, the ``*_w32`` C entries); only the finalize
+differs, and each such launch also counts apart, in
+``decode_attention_cuda.w32`` (``decode_attention_w32`` in
+``launch_counts()``).
 """
 from __future__ import annotations
 
 import functools
 import numbers
+from types import SimpleNamespace
 
 import torch
 
 from repro_torch.core.error_lut import table_for
-from repro_torch.core.mitchell import check_width, lane_max_float
+from repro_torch.core.mitchell import lane_max_float
 from repro_torch.core.simdive import SimdiveSpec
 from . import build
-from .flash_attention import DEFAULT_DIV_SPEC, DEFAULT_FRAC_OUT, softmax_div
+from .flash_attention import (
+    DEFAULT_DIV_SPEC,
+    DEFAULT_FRAC_OUT,
+    entry_suffix,
+    softmax_div,
+)
 
 __all__ = ["MAX_G", "MAX_CLUSTER", "decode_attention_acc",
            "decode_attention_ref", "cluster_size", "rank_range", "chunk_slots",
@@ -273,9 +286,10 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
     pins it. Otherwise the same arguments as :func:`decode_attention_ref`.
 
     Launches on the current stream and does not synchronise. Raises on CPU
-    tensors, on what :func:`check_args` refuses, on width 32 and on a
-    failed build or launch — a cluster launch that fails is never retried
-    at another size, and nothing gives way to the plain version.
+    tensors, on what :func:`check_args` refuses and on a failed build or
+    launch — a cluster launch that fails is never retried at another size,
+    and nothing gives way to the plain version. Width 32 runs the
+    kernel's 64-bit-lane form.
     """
     B, Smax, KVH, G, dh = check_args(q, k_cache, v_cache, k_new, v_new, pos,
                                      slot, ring_full=ring_full, window=window,
@@ -283,7 +297,7 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
     if not q.is_cuda:
         raise ValueError(f"decode_attention CUDA kernel: q lies on "
                          f"{q.device}, not on a CUDA device")
-    check_width(spec.width)
+    sfx = entry_suffix(spec.width)
     if not 0 <= frac_out <= 31:
         raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
     if not 1 <= spec.index_bits <= _MAX_INDEX_BITS:
@@ -305,7 +319,7 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
         return t.data_ptr(), _INDEX_DTYPES[t.dtype], t.stride(0)
 
     with torch.cuda.device(q.device):
-        code = lib.simdive_decode_attention(
+        code = getattr(lib, "simdive_decode_attention" + sfx)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
             tab.data_ptr(), tab.numel(), B, Smax, KVH, G, dh,
@@ -315,13 +329,16 @@ def decode_attention_cuda(q, k_cache, v_cache, k_new, v_new, *, pos, slot,
             dh ** -0.5, spec.width, spec.index_bits, int(frac_out),
             int(spec.round_output), lane_max_float(spec.width),
             build.current_stream())
-    build.check(code, "simdive_decode_attention")
+    build.check(code, "simdive_decode_attention" + sfx)
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.w32.launches += bool(sfx)
     return out
 
 
-#: kernel launches made through the wrapper (read by chip_smoke.py)
+#: kernel launches made through the wrapper (read by chip_smoke.py); of
+#: them, ``w32.launches`` ran the width-32 form, counted apart too
 decode_attention_cuda.launches = 0
+decode_attention_cuda.w32 = SimpleNamespace(launches=0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -46,8 +46,21 @@ and v must start 16-byte aligned (both schedules load 16 bytes at a time;
 Each schedule's wrapper counts its own launches
 (``flash_attention_cuda`` for depth 0, ``flash_attention_pipelined_cuda``
 for the ring), so a run's launch counts show which schedule served it.
+
+**Width 32.** A divider at width 32 (the reference's uint64 lanes) runs the
+kernels' 64-bit-lane forms, compiled from ``csrc/flash_attention_w32.cu``
+over the same templates (``csrc/flash_attention.cuh``) and entered through
+the ``*_w32`` C entries; each such launch also counts apart, in
+``flash_attention_cuda.w32`` / ``flash_attention_pipelined_cuda.w32``
+(``attention_w32`` / ``attention_pipelined_w32`` in ``launch_counts()``).
+Only the finalize differs: 8-byte lanes clipped at :func:`lane_max_float`
+``(32)``. Its quotients are folded back to float32 rounded once
+(:func:`repro_torch.core.mitchell.lanes_to_float`), as the kernel's
+``__ull2float_rn`` does.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -55,6 +68,7 @@ from repro_torch.core.error_lut import table_for
 from repro_torch.core.mitchell import (
     check_width,
     lane_max_float,
+    lanes_to_float,
 )
 from repro_torch.core.simdive import SimdiveSpec
 from . import build
@@ -194,7 +208,7 @@ def softmax_div(acc, l, tab, *, width: int, index_bits: int = 3,
     """
     quot = softmax_div_lanes(acc, l, tab, width=width, index_bits=index_bits,
                              frac_out=frac_out, round_out=round_out)
-    out = quot.to(torch.float32) * (2.0 ** -frac_out)
+    out = lanes_to_float(quot) * (2.0 ** -frac_out)
     return torch.where(acc < 0, -out, out)
 
 
@@ -253,6 +267,13 @@ def flash_attention_ref(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
 
 
 # ---------------------------------------------------------- kernel wrapper --
+def entry_suffix(width: int) -> str:
+    """The C entries' suffix for a divider width: ``'_w32'`` names the
+    64-bit-lane forms (``csrc/*_w32.cu``), ``''`` the uint32 ones."""
+    check_width(width)
+    return "_w32" if width == 32 else ""
+
+
 def _check_cuda(name: str, **tensors) -> None:
     for key, t in tensors.items():
         if not t.is_cuda:
@@ -285,7 +306,7 @@ def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
         raise ValueError(f"flash_attention kernel is compiled for d_head in "
                          f"{_HEAD_DIMS}, got {dh}")
     _, depth = check_block(block, q.dtype, dh)
-    check_width(spec.width)
+    sfx = entry_suffix(spec.width)
     if not 0 <= frac_out <= 31:
         raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
     if kv_len is None:
@@ -304,12 +325,11 @@ def _launch(q, k, v, *, spec, causal, window, approx_div, frac_out,
             lane_max_float(spec.width))
     with torch.cuda.device(q.device):
         if depth:
-            entry = "simdive_flash_attention_pipelined"
-            code = lib.simdive_flash_attention_pipelined(
-                *args, depth, build.current_stream())
+            entry = "simdive_flash_attention_pipelined" + sfx
+            code = getattr(lib, entry)(*args, depth, build.current_stream())
         else:
-            entry = "simdive_flash_attention"
-            code = lib.simdive_flash_attention(*args, build.current_stream())
+            entry = "simdive_flash_attention" + sfx
+            code = getattr(lib, entry)(*args, build.current_stream())
     build.check(code, entry)
     return out
 
@@ -328,7 +348,7 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
     current stream and does not synchronise; the ragged edges of Sq and Skv
     are masked in the kernel. Raises on CPU tensors, on what the kernel does
     not take (dtype other than f32 / bf16, d_head other than 64 / 80 / 128,
-    width 32, a block that is not compiled or whose ring does not fit for
+    a block that is not compiled or whose ring does not fit for
     this dtype and d_head, bf16 q / k / v not 16-byte aligned, q / k / v
     that require grad with grad mode on: the kernel has no backward) and on
     a failed build or launch — it never gives way to another schedule or to
@@ -343,6 +363,7 @@ def flash_attention_cuda(q, k, v, *, spec: SimdiveSpec = DEFAULT_DIV_SPEC,
                   approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
                   kv_len=kv_len, kv_group=kv_group, block=block)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.w32.launches += spec.width == 32
     return out
 
 
@@ -363,13 +384,17 @@ def flash_attention_pipelined_cuda(q, k, v, *, block,
                   approx_div=approx_div, frac_out=frac_out, q_offset=q_offset,
                   kv_len=kv_len, kv_group=kv_group, block=block)
     flash_attention_pipelined_cuda.launches += 1
+    flash_attention_pipelined_cuda.w32.launches += spec.width == 32
     return out
 
 
 #: kernel launches made through each schedule's wrapper (read by
-#: chip_smoke.py)
+#: chip_smoke.py); ``w32.launches`` counts those of them that ran the
+#: width-32 form, apart
 flash_attention_cuda.launches = 0
 flash_attention_pipelined_cuda.launches = 0
+flash_attention_cuda.w32 = SimpleNamespace(launches=0)
+flash_attention_pipelined_cuda.w32 = SimpleNamespace(launches=0)
 
 
 def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,
@@ -378,8 +403,9 @@ def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,
     """The attention kernel's finalize alone, on given ``(acc, l)``.
 
     Runs the same device function the flash kernel ends in. Returns
-    ``(out float32 (..., dh), quot uint32 (..., dh))`` — the hook that lets
-    the in-kernel divider be held bit-equal to :func:`softmax_div`.
+    ``(out float32 (..., dh), quot (..., dh))``, ``quot`` the raw lanes
+    (``uint32``; ``uint64`` at width 32) — the hook that lets the in-kernel
+    divider be held bit-equal to :func:`softmax_div`.
     """
     _check_cuda("softmax_div", acc=acc, l=l)
     if acc.dtype != torch.float32 or l.dtype != torch.float32 \
@@ -387,19 +413,20 @@ def softmax_div_cuda(acc: torch.Tensor, l: torch.Tensor, *,
         raise ValueError("softmax_div kernel takes float32 acc (..., dh) and "
                          f"l (...,); got {acc.dtype} {tuple(acc.shape)}, "
                          f"{l.dtype} {tuple(l.shape)}")
-    check_width(spec.width)
+    sfx = entry_suffix(spec.width)
     acc, l = acc.contiguous(), l.contiguous()
     dh = acc.shape[-1]
     tab = table_for("div", spec.width, spec.coeff_bits, spec.index_bits,
                     device=acc.device, dtype=torch.int32)
     out = torch.empty_like(acc)
-    quot = torch.empty(acc.shape, dtype=torch.uint32, device=acc.device)
+    quot = torch.empty(acc.shape, device=acc.device,
+                       dtype=torch.uint64 if sfx else torch.uint32)
     lib = build.load(acc.device)
     with torch.cuda.device(acc.device):
-        code = lib.simdive_softmax_div(
+        code = getattr(lib, "simdive_softmax_div" + sfx)(
             acc.data_ptr(), l.data_ptr(), out.data_ptr(), quot.data_ptr(),
             l.numel(), dh, tab.data_ptr(), tab.numel(), spec.width,
             spec.index_bits, int(frac_out), int(spec.round_output),
             lane_max_float(spec.width), build.current_stream())
-    build.check(code, "simdive_softmax_div")
+    build.check(code, "simdive_softmax_div" + sfx)
     return out, quot

@@ -61,7 +61,8 @@ from . import datapath as dp
 
 __all__ = ["TILES", "SKINNY_BN", "DEFAULT_K_UNROLL", "DEFAULT_BLOCK",
            "BLOCK_CANDIDATES", "split_block", "is_skinny", "smem_bytes",
-           "check_block", "check_faults", "needs_wide", "logmatmul_ref",
+           "check_block", "check_faults", "check_matmul_width",
+           "needs_wide", "logmatmul_ref",
            "logmatmul_wide_ref", "logmatmul_cuda",
            "logmatmul_pipelined_cuda"]
 
@@ -192,7 +193,7 @@ def _ref_sum(x: torch.Tensor, w: torch.Tensor, spec: SimdiveSpec,
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"expected (M,K) @ (K,N), got {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    check_width(spec.width)
+    check_matmul_width(spec.width, "matmul_emul" if wide else "matmul_int")
     M, K = x.shape
     N = w.shape[1]
     tab = dp.op_table("mul", spec.width, spec.coeff_bits, spec.index_bits,
@@ -227,6 +228,25 @@ def logmatmul_wide_ref(x: torch.Tensor, w: torch.Tensor,
     return _ref_sum(x, w, spec, True)
 
 
+#: why the reference leaves width 32 out of each matmul
+#: (repro.kernels.ops._matmul_int_analysis / _matmul_emul_analysis)
+_WIDTH32_REASONS = {
+    "matmul_int": "width-32 matmul is not shipped; the 64-bit product bus "
+                  "exceeds every accumulator the kernel offers",
+    "matmul_emul": "width-32 emulated matmul is not shipped (64-bit product "
+                   "bus exceeds the int64 accumulator)",
+}
+
+
+def check_matmul_width(width: int, kernel: str = "matmul_int") -> None:
+    """Raise ``ValueError`` on a width the datapath does not define and
+    ``NotImplementedError`` at width 32, with the reference's reason."""
+    check_width(width)
+    if width == 32:
+        raise NotImplementedError(f"{kernel} width 32: "
+                                  f"{_WIDTH32_REASONS[kernel]}")
+
+
 # ---------------------------------------------------------------- kernels --
 def check_faults(block, width: int) -> None:
     """Raise ``ValueError`` when an armed log fault could set a bit of the
@@ -259,7 +279,7 @@ def _operand(t: torch.Tensor, name: str) -> torch.Tensor:
 
 def _launch(x, w, spec: SimdiveSpec, block, wide: bool) -> torch.Tensor:
     (bm, bn, bk), ku, depth = check_block(block, wide)
-    check_width(spec.width)
+    check_matmul_width(spec.width, "matmul_emul" if wide else "matmul_int")
     check_faults(block, spec.width)
     if not 1 <= spec.index_bits <= _MAX_INDEX_BITS:
         raise ValueError(f"logmatmul kernel takes index_bits 1..4, got "

@@ -90,6 +90,7 @@ def _matmul_emul_ref(qx, sx, qw, sw, *, spec, k_chunk=128):
     chunked too, so one (rows, k_chunk, N) slab stays under
     ``_EMUL_BUDGET`` elements — every addend and so every sum is the same.
     """
+    _lm.check_matmul_width(spec.width, "matmul_emul")
     M, K = qx.shape
     N = qw.shape[1]
     fast = 2 * spec.width <= 31
@@ -116,6 +117,7 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
     32,768: every served linear), widened to int64, else its wide form,
     whose int64 sum is the plain version's (``logmatmul.needs_wide``)."""
     del k_chunk  # the kernel's K slabs replace the host-side chunking
+    _lm.check_matmul_width(spec.width, "matmul_emul")
     x = qx.to(torch.int32) * sx.to(torch.int32)
     w = qw.to(torch.int32) * sw.to(torch.int32)
     if _lm.needs_wide(x.shape[1], spec.width):
@@ -123,13 +125,17 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
     return _matmul_int_cuda(x, w, spec=spec, block=block).to(torch.int64)
 
 
+# each kernel that has a width-32 form (8-byte lanes, or the attention
+# finalizes' 64-bit lanes: csrc/*_w32.cu) counts those launches apart as
+# well, under <name>_w32
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
             default_block=_ew.DEFAULT_BLOCK,
-            kernels={"elemwise": _ew.elemwise_cuda})
-# sqrt: one launch shape, fixed in the C entry (256 threads of 4 lanes);
-# both versions take (a, spec, frac_out) as they are
+            kernels={"elemwise": _ew.elemwise_cuda,
+                     "elemwise_w32": _ew.elemwise_cuda.w32})
+# sqrt: one launch shape, fixed in the C entry (256 threads of 16 bytes of
+# lanes); both versions take (a, spec, frac_out) as they are
 register_op("sqrt", ref=_ew.sqrt_ref, cuda=_ew.sqrt_cuda,
-            kernels={"sqrt": _ew.sqrt_cuda})
+            kernels={"sqrt": _ew.sqrt_cuda, "sqrt_w32": _ew.sqrt_cuda.w32})
 # packed: both versions take any rank and return (..., 2 * Nw) words, the
 # shape the reference gets through its 2-D view and pad-to-block step (the
 # kernel's word mapping is flat and masks its tail), so they register as
@@ -147,7 +153,10 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
             block_candidates=_fa.BLOCK_CANDIDATES,
             kernels={"attention": _fa.flash_attention_cuda,
                      "attention_pipelined":
-                         _fa.flash_attention_pipelined_cuda})
+                         _fa.flash_attention_pipelined_cuda,
+                     "attention_w32": _fa.flash_attention_cuda.w32,
+                     "attention_pipelined_w32":
+                         _fa.flash_attention_pipelined_cuda.w32})
 # decode_attention: its launch shape (a cluster of C blocks of 4 warps per
 # (b, kv head)) is planned by the wrapper from the shape and the card
 # (decode_attention.cluster_size; cluster= pins it), so it registers no
@@ -155,7 +164,8 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
 # tensors), not positional tensors
 register_op("decode_attention", ref=_da.decode_attention_ref,
             cuda=_da.decode_attention_cuda,
-            kernels={"decode_attention": _da.decode_attention_cuda})
+            kernels={"decode_attention": _da.decode_attention_cuda,
+                     "decode_attention_w32": _da.decode_attention_cuda.w32})
 # matmul blocks carry k_unroll as a 4th and the pipeline depth as a 5th
 # component; each candidate is checked against the compiled tiles and the
 # shared-memory limit here, when it is registered

@@ -111,6 +111,11 @@ def packed_cuda(aw: torch.Tensor, bw: torch.Tensor, spec: SimdiveSpec,
     if op not in _OPS:
         raise ValueError(f"op must be 'mul' | 'div' | 'mixed', got {op!r}")
     check_width(spec.width)
+    if spec.width == 32:
+        # the reference's reason (repro.kernels.ops._packed_analysis)
+        raise NotImplementedError(
+            "packed width 32: packed lanes need >= 2 per 32-bit word; width "
+            "32 is the elemwise (full-word) path")
     if not 0 <= frac_out <= 31:
         raise ValueError(f"frac_out must be in [0, 31], got {frac_out}")
     if spec.width == 8 and frac_out > 8:

@@ -347,11 +347,23 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
 
 # ---------------------------------------------------------- output guard --
 def _int_values(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(``t`` as int64 values, its dtype's largest value): ``uint32`` lanes
-    through their int32 bit pattern, the one view every device has."""
+    """(``t`` as int64 values, its dtype's largest value as such a value):
+    ``uint32`` lanes through their int32 bit pattern, the one view every
+    device has; ``uint64`` lanes as their own bits, so a value of 2^63 or
+    more reads below zero and the all-ones word reads -1."""
     if t.dtype == torch.uint32:
         return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, 0xFFFFFFFF
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64), -1
     return t.to(torch.int64), int(torch.iinfo(t.dtype).max)
+
+
+def _at_most(o: torch.Tensor, lim: int) -> torch.Tensor:
+    """Unsigned ``o <= lim`` on values from :func:`_int_values`: a value
+    below zero is a 64-bit lane of 2^63 or more."""
+    if lim >= (1 << 63):
+        return (o >= 0) | (o <= lim - (1 << 64))
+    return (o >= 0) & (o <= lim)
 
 
 def _attention_vmax(name: str, tensors, kw) -> float:
@@ -409,11 +421,11 @@ def _guard_check(name: str, spec, backend: str, tensors, kw, out) -> None:
         mul_lim = (1 << (2 * w)) - 1
         div_lim = 1 << (w + frac)
         if kind == "mul":
-            ok = o <= mul_lim
+            ok = _at_most(o, mul_lim)
         elif kind == "div":
-            ok = (o <= div_lim) | (o == sat)
+            ok = _at_most(o, div_lim) | (o == sat)
         else:                            # mixed: either bound + saturation
-            ok = (o <= max(mul_lim, div_lim)) | (o == sat)
+            ok = _at_most(o, max(mul_lim, div_lim)) | (o == sat)
         nbad = total - count(ok)
         if nbad:
             trip(f"{kind} result outside the width-{w} lane range", nbad)
@@ -431,7 +443,8 @@ def _guard_check(name: str, spec, backend: str, tensors, kw, out) -> None:
                 # upset correction term collapses exactly these quotients
                 floor = 1 << (frac - 2)
                 num = _int_values(tensors[0])[0]
-                nbad = count((num >= den) & (den != 0) & (o < floor))
+                nbad = count((num >= den) & (den != 0)
+                             & _at_most(o, floor - 1))
                 if nbad:
                     trip(f"quotient below 2^{frac - 2} with ratio >= 1",
                          nbad)
@@ -444,7 +457,7 @@ def _guard_check(name: str, spec, backend: str, tensors, kw, out) -> None:
                 trip(f"|accumulator| exceeds K * (2^{w}-1)^2", nbad)
     elif name == "sqrt":
         lim = 1 << ((w + 1) // 2 + frac + 1)
-        nbad = count(_int_values(out)[0] > lim)
+        nbad = total - count(_at_most(_int_values(out)[0], lim))
         if nbad:
             trip(f"sqrt result exceeds 2^{(w + 1) // 2 + frac + 1}", nbad)
     # 'packed': output words span the full uint32 range — the range check

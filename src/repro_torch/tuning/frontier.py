@@ -22,7 +22,9 @@ with ``backend='auto'``, so CUDA tensors reach the hand-written kernels
 hard-codes its ``'ref'`` backend because it runs on a CPU). Integer
 outputs that are bit-equal give the reference's float64 statistics
 exactly. Its cache is keyed per device, so CPU and card results never mix.
-Width 32 raises ``NotImplementedError`` as everywhere in the port.
+Width 32 runs on ``uint64`` lanes (stratified samples, as at width 16);
+the matmul kernels and ``packed`` refuse it, as the reference leaves them
+out of scope there.
 
 Where the timings come from: :func:`default_bench_path` reads
 ``SIMDIVE_BENCH`` as the reference does, then looks only for
@@ -52,7 +54,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import require_device
-from repro_torch.core.mitchell import check_width
 
 __all__ = [
     "FRONTIER_SEED",
@@ -72,7 +73,7 @@ __all__ = [
 #: the BENCH grid's keys so the timing join actually hits
 DEFAULT_COEFF_SWEEP = (0, 2, 4, 6, 8)
 
-#: widths the datapath defines; the port computes 8 and 16 (32 raises)
+#: widths the datapath defines; the port computes all three
 SUPPORTED_WIDTHS = (8, 16, 32)
 
 #: the port's BENCH trajectory; the reference's BENCH_simdive.json is never
@@ -184,8 +185,8 @@ def measure_error(op: str, width: int, coeff_bits: int,
     the datapath level:
 
     * ``'elemwise'`` — per-lane stats; source is 'exhaustive' (width 8:
-      the full operand square) or 'stratified' (16: every exponent-pair
-      stratum sampled). Divider quotients are quantized at the
+      the full operand square) or 'stratified' (16 and 32: every
+      exponent-pair stratum sampled). Divider quotients are quantized at the
       evaluation-wide ``DIV_FRAC_OUT`` format, like the BENCH grid.
     * ``'packed'`` — the same per-lane stats but *through* the SIMD
       pack/unpack word path (all ``32/width`` lanes of every word at
@@ -213,7 +214,6 @@ def measure_error(op: str, width: int, coeff_bits: int,
     if width not in SUPPORTED_WIDTHS:
         raise ValueError(f"width must be one of {SUPPORTED_WIDTHS}, "
                          f"got {width}")
-    check_width(width)
     spec = SimdiveSpec(width=width, coeff_bits=coeff_bits,
                        index_bits=index_bits)
     if kernel == "elemwise":

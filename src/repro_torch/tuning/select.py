@@ -29,7 +29,8 @@ Port-specific defaults: :class:`PolicyEntry`, :func:`select_config` and
 built on the card would serve every op through the plain versions and no
 kernel would run. Selection measures on ``device`` (default the card);
 ``device='cpu'`` runs the plain versions and gives the same stats.
-``width=None`` considers widths 8 and 16: the port refuses width 32.
+``width=None`` considers widths 8, 16 and 32, as the reference does
+under x64 (the port's int64 carrier needs no such switch).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
-from .frontier import DEFAULT_COEFF_SWEEP, build_frontier
+from .frontier import DEFAULT_COEFF_SWEEP, SUPPORTED_WIDTHS, build_frontier
 
 __all__ = [
     "POLICY_SCHEMA",
@@ -259,7 +260,8 @@ def select_config(op: str, *, error_budget: float, metric: str = "are_pct",
                   device: torch.device | str = "cuda") -> PolicyEntry:
     """The cheapest config of ``op`` meeting ``error_budget`` on ``metric``.
 
-    ``width=None`` considers every lane width the port computes (8, 16); a
+    ``width=None`` considers every lane width the port computes (8, 16,
+    32); a
     concrete ``width`` restricts the candidate set to that lane. Among
     budget-meeting frontier points, ``prefer='fastest'`` picks the minimal
     measured wall-clock (``best_us`` joined from ``bench``; within one
@@ -308,9 +310,9 @@ def select_config(op: str, *, error_budget: float, metric: str = "are_pct",
 
 
 def _available_widths() -> tuple:
-    """Widths the port computes: 8 and 16 (width 32 is refused, see
-    :func:`repro_torch.core.mitchell.check_width`)."""
-    return (8, 16)
+    """Widths the port computes: all three, as the reference's under x64
+    (width 32 on the 64-bit bus of :mod:`repro_torch.core.mitchell`)."""
+    return SUPPORTED_WIDTHS
 
 
 def build_policy(ops=("mul", "div"), *, error_budget: float,

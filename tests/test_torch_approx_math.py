@@ -91,9 +91,20 @@ def test_fixed_point_div_bit_equal(name):
 
 
 def test_fixed_point_div_refuses_width_32():
-    _, tc = _cfgs("simdive", div_width=32)
-    with pytest.raises(NotImplementedError, match="width 32"):
-        ta._fixed_point_div(torch.ones(3), torch.ones(3), tc)
+    """No longer refused: at ``div_width`` 32 both operands take the
+    reference's fixed scale 2^16 into uint64 lanes (no shared exponent),
+    and the quotients equal its own, bit for bit."""
+    rng = np.random.default_rng(32)
+    num = rng.uniform(0, 3000, (6, 33)).astype(np.float32)
+    num[0, :3] = 0.0
+    den = rng.uniform(0.5, 9, (6, 33)).astype(np.float32)
+    rc, tc = _cfgs("simdive", div_width=32)
+    want = np.asarray(ra._fixed_point_div(jnp.asarray(num), jnp.asarray(den),
+                                          rc))
+    got = ta._fixed_point_div(torch.from_numpy(num), torch.from_numpy(den),
+                              tc)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_fixed_point_exponent_is_exact_at_powers_of_two():

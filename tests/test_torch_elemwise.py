@@ -100,18 +100,22 @@ def test_dispatch_auto_follows_device_and_cuda_refuses_cpu_tensors():
         get_op("elemwise", spec, "cuda")(a, a, op="mul")
     # nothing on this host launched a kernel
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
-                               "decode_attention": 0,
-                               "elemwise": 0, "matmul": 0,
+                               "attention_pipelined_w32": 0,
+                               "attention_w32": 0, "decode_attention": 0,
+                               "decode_attention_w32": 0, "elemwise": 0,
+                               "elemwise_w32": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0,
-                               "sqrt": 0}
+                               "sqrt": 0, "sqrt_w32": 0}
 
 
 def test_registry_surface():
-    # one count per kernel schedule; both matmul ops share the logmatmul ones
-    assert sorted(launch_counts()) == ["attention", "attention_pipelined",
-                                       "decode_attention", "elemwise",
-                                       "matmul", "matmul_pipelined",
-                                       "packed", "sqrt"]
+    # one count per kernel schedule; both matmul ops share the logmatmul
+    # ones; the width-32 forms count apart too
+    assert sorted(launch_counts()) == [
+        "attention", "attention_pipelined", "attention_pipelined_w32",
+        "attention_w32", "decode_attention", "decode_attention_w32",
+        "elemwise", "elemwise_w32", "matmul", "matmul_pipelined", "packed",
+        "sqrt", "sqrt_w32"]
     assert get_op("elemwise", TSpec()).entry.default_block == (256,)
     assert get_op("packed", TSpec()).entry.default_block == (256,)
     # attention takes (q_chunk, kv_chunk[, depth]) blocks
@@ -140,9 +144,20 @@ def test_registry_surface():
     assert get_op("sqrt", TSpec()).entry.default_block is None
     with pytest.raises(KeyError, match="unknown op"):
         get_op("rsqrt", TSpec())
-    with pytest.raises(NotImplementedError, match="width 32"):
-        get_op("elemwise", TSpec(width=32), "ref")(
-            torch.tensor([1]), torch.tensor([1]), op="mul")
+    # width 32: the reference's uint64 lanes, the saturated product and
+    # x / 0 both the 64-bit all-ones word
+    a = torch.tensor([1, (1 << 32) - 1, 7])
+    b = torch.tensor([1, (1 << 32) - 1, 0])
+    w32 = get_op("elemwise", TSpec(width=32, coeff_bits=8), "ref")
+    prod, quot = w32(a, b, op="mul"), w32(a, b, op="div", frac_out=16)
+    assert prod.dtype == quot.dtype == torch.uint64
+    r32 = r_get_op("elemwise", RSpec(width=32, coeff_bits=8), "ref")
+    ra, rb = jnp.asarray(a.numpy(), jnp.uint64), jnp.asarray(b.numpy(),
+                                                             jnp.uint64)
+    np.testing.assert_array_equal(prod.numpy(), np.asarray(r32(ra, rb)))
+    np.testing.assert_array_equal(
+        quot.numpy(), np.asarray(r32(ra, rb, op="div", frac_out=16)))
+    assert int(prod.numpy()[1]) == int(quot.numpy()[2]) == (1 << 64) - 1
     with pytest.raises(ValueError, match="mode"):
         get_op("elemwise", TSpec(), "ref")(
             torch.tensor([1]), torch.tensor([1]), op="mixed")

@@ -255,7 +255,8 @@ def test_attention_op_registers_blocks_and_check_block_refuses():
     entry = get_op("attention", t_fa.DEFAULT_DIV_SPEC).entry
     assert entry.default_block == t_fa.DEFAULT_BLOCK == (64, 64)
     assert entry.block_candidates == ((64, 64), (64, 64, 2))
-    assert set(entry.kernels) == {"attention", "attention_pipelined"}
+    assert set(entry.kernels) == {"attention", "attention_pipelined",
+                                  "attention_w32", "attention_pipelined_w32"}
     assert entry.kernels["attention_pipelined"] is \
         t_fa.flash_attention_pipelined_cuda
     for block in (entry.default_block, *entry.block_candidates):

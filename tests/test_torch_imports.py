@@ -78,7 +78,8 @@ def test_every_package_module_is_covered():
 
 def test_launch_counts_name_every_schedule():
     """One count per kernel schedule: both attention schedules beside the
-    elemwise, the packed and the two matmul ones."""
+    elemwise, the packed and the two matmul ones, and one for each
+    width-32 form."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.packed_simd import packed_cuda
 
@@ -86,10 +87,12 @@ def test_launch_counts_name_every_schedule():
     reset_launch_counts()
     assert packed_cuda.launches == 0
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
-                               "decode_attention": 0,
-                               "elemwise": 0, "matmul": 0,
+                               "attention_pipelined_w32": 0,
+                               "attention_w32": 0, "decode_attention": 0,
+                               "decode_attention_w32": 0, "elemwise": 0,
+                               "elemwise_w32": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0,
-                               "sqrt": 0}
+                               "sqrt": 0, "sqrt_w32": 0}
 
 
 def test_ring_kernels_share_the_cp_async_header():

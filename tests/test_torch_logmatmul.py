@@ -401,10 +401,12 @@ def test_matmul_dispatch_and_blocks_on_cpu():
     with pytest.raises(ValueError, match="not on a CUDA device"):
         lm.logmatmul_cuda(x, w, spec)
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
-                               "decode_attention": 0,
-                               "elemwise": 0, "matmul": 0,
+                               "attention_pipelined_w32": 0,
+                               "attention_w32": 0, "decode_attention": 0,
+                               "decode_attention_w32": 0, "elemwise": 0,
+                               "elemwise_w32": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0,
-                               "sqrt": 0}
+                               "sqrt": 0, "sqrt_w32": 0}
     # every registered block fits an SM's shared memory and is compiled
     entry = get_op("matmul_emul", spec).entry
     assert entry.default_block == lm.DEFAULT_BLOCK

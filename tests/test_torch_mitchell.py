@@ -208,11 +208,26 @@ def test_lane_helpers_and_limits():
 
 
 def test_width32_is_refused_not_silently_wrong():
-    a = torch.tensor([3])
-    with pytest.raises(NotImplementedError, match="width 32"):
-        t_mit.mitchell_mul(a, a, 32)
-    with pytest.raises(NotImplementedError, match="width 32"):
-        t_dp.lane_op(a, a, t_dp.op_table("mul", 32, 6), width=32, op="mul")
+    """Width 32 is computed, not refused: on the 64-bit bus it equals the
+    reference's uint64 datapath (products of 2^63 and more included); a
+    width the datapath does not define is still refused."""
+    edges = np.array([0, 1, 3, (1 << 31) - 1, 1 << 31, (1 << 32) - 1],
+                     np.uint64)
+    a, b = (x.ravel() for x in np.meshgrid(edges, edges, indexing="ij"))
+    ta, tb = (torch.from_numpy(x.view(np.int64)) for x in (a, b))
+    got = t_mit.to_lanes(t_mit.mitchell_mul(ta, tb, 32), 32)
+    assert got.dtype == torch.uint64
+    want = np.asarray(r_mit.mitchell_mul(jnp.asarray(a), jnp.asarray(b), 32))
+    assert want.dtype == np.uint64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.numpy()[-1]) >= 1 << 63          # (2^32-1)^2
+    t_tab = t_dp.op_table("mul", 32, 6)
+    r_tab = r_dp.op_table("mul", 32, 6)
+    got = t_dp.lane_op(ta, tb, t_tab, width=32, op="mul", round_out=True)
+    want = r_dp.lane_op(jnp.asarray(a), jnp.asarray(b), r_tab, width=32,
+                        op="mul", round_out=True)
+    np.testing.assert_array_equal(t_mit.to_lanes(got, 32).numpy(),
+                                  np.asarray(want))
     with pytest.raises(ValueError):
         t_mit.frac_bits(12)
 

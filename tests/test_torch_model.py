@@ -453,10 +453,12 @@ def test_serving_plan_and_cli_on_cpu(capsys, tmp_path):
                                   emulate=True).approx.emulate
     # on the CPU nothing launched a kernel
     assert launch_counts() == {"attention": 0, "attention_pipelined": 0,
-                               "decode_attention": 0,
-                               "elemwise": 0, "matmul": 0,
+                               "attention_pipelined_w32": 0,
+                               "attention_w32": 0, "decode_attention": 0,
+                               "decode_attention_w32": 0, "elemwise": 0,
+                               "elemwise_w32": 0, "matmul": 0,
                                "matmul_pipelined": 0, "packed": 0,
-                               "sqrt": 0}
+                               "sqrt": 0, "sqrt_w32": 0}
     # --scheduler runs the load-shed drill (launch.scheduler) and prints
     # the reference's drill lines; --chaos (faults/) runs it under the
     # armed table fault; --policy (tuning/select.py) serves a

@@ -368,8 +368,14 @@ def test_measure_error_refusals_match_reference():
             fn("mul", 8, 6, kernel="matmul_int", **kw)
         with pytest.raises(ValueError):
             fn("mul", 12, 6, **kw)
-    with pytest.raises(NotImplementedError, match="width 32"):
-        measure_error("mul", 32, 6, device="cpu")
+    # width 32 is measured, not refused (the elemwise sweep on uint64
+    # lanes); packed at width 32 is refused by both, as above
+    assert measure_error("mul", 32, 6, device="cpu") == \
+        r_measure_error("mul", 32, 6)
+    for fn, kw in ((measure_error, dict(device="cpu")), (r_measure_error,
+                                                         {})):
+        with pytest.raises(ValueError):
+            fn("mul", 32, 6, kernel="packed", **kw)
 
 
 def test_measure_error_cache_is_keyed_by_device():

@@ -14,9 +14,9 @@ and their JSON must be the reference's. The reference defaults to its
 default is pinned on its own.
 
 The reference's tests run with x64 on (``tests/conftest.py``), where its
-``width=None`` sweeps widths 8, 16 and 32; the port refuses width 32, so
-``width=None`` is held against the reference with the reference's widths
-restricted to (8, 16) the same way (its ``_available_widths`` patched).
+``width=None`` sweeps widths 8, 16 and 32; the port sweeps the same three
+(its int64 carrier needs no x64 switch), so ``width=None`` is held against
+the reference as it is.
 """
 import json
 import warnings
@@ -62,12 +62,6 @@ def _frontiers(op, width, **kw):
                                   device="cpu", **kw)
     r = r_frontier.build_frontier(op, width=width, **kw)
     return t, r
-
-
-@pytest.fixture
-def reference_widths_8_16(monkeypatch):
-    """The reference's width=None restricted to the port's widths."""
-    monkeypatch.setattr(r_select, "_available_widths", lambda: (8, 16))
 
 
 # ------------------------------------------------------------- frontier --
@@ -181,8 +175,7 @@ def test_selection_deterministic_given_a_frozen_bench_file(tmp_path):
 
 
 @pytest.mark.parametrize("width", [8, None])
-def test_infeasible_budget_message_equals_reference(width,
-                                                    reference_widths_8_16):
+def test_infeasible_budget_message_equals_reference(width):
     kw = dict(width=width, error_budget=0.01, **FIXTURE_KW)
     with pytest.raises(t_select.BudgetError) as t_err:
         t_select.select_config("mul", backend="ref", device="cpu", **kw)
@@ -199,17 +192,21 @@ def test_infeasible_budget_message_equals_reference(width,
     assert str(t_err.value) == str(r_err.value)
 
 
-def test_width_none_sweeps_the_port_widths(reference_widths_8_16):
-    assert t_select._available_widths() == (8, 16)
+def test_width_none_sweeps_the_port_widths():
+    assert t_select._available_widths() == (8, 16, 32) \
+        == r_select._available_widths()
     kw = dict(width=None, error_budget=2.0, **FIXTURE_KW)
     for prefer in ("fastest", "cheapest"):
         t = t_select.select_config("div", backend="ref", device="cpu",
                                    prefer=prefer, **kw)
         r = r_select.select_config("div", prefer=prefer, **kw)
         assert t.as_dict() == r.as_dict()
-    with pytest.raises(NotImplementedError, match="width 32"):
-        t_select.select_config("mul", width=32, error_budget=1.0,
-                               device="cpu", coeff_sweep=(6,))
+    # width 32, measured: the stratified uint64 sweep on the plain
+    # versions, selected and reported as the reference selects it
+    kw = dict(width=32, error_budget=1.0, coeff_sweep=(8,), bench=None)
+    t = t_select.select_config("mul", backend="ref", device="cpu", **kw)
+    r = r_select.select_config("mul", **kw)
+    assert t.width == 32 and t.as_dict() == r.as_dict()
 
 
 @pytest.mark.parametrize("bench", ["file", "none"])

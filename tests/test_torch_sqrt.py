@@ -68,11 +68,17 @@ def test_sqrt_known_words():
 
 
 def test_width_32_is_refused():
-    a = torch.tensor([1, 2, 3])
-    with pytest.raises(NotImplementedError, match="width 32"):
-        simdive_sqrt(a, 32)
-    with pytest.raises(NotImplementedError, match="width 32"):
-        get_op("sqrt", TSpec(width=32), "ref")(a)
+    """Width 32 is no longer refused: the square root of a 32-bit lane on
+    the 64-bit bus, equal to the reference's uint64 one."""
+    a = torch.tensor([0, 1, 2, 3, (1 << 31) + 5, (1 << 32) - 1])
+    for fo in (0, 8):
+        want = np.asarray(r_sqrt(jnp.asarray(a.numpy(), jnp.uint64), 32,
+                                 frac_out=fo))
+        np.testing.assert_array_equal(
+            simdive_sqrt(a, 32, frac_out=fo).numpy(), want.astype(np.int64))
+        lanes = get_op("sqrt", TSpec(width=32), "ref")(a, frac_out=fo)
+        assert lanes.dtype == torch.uint64
+        np.testing.assert_array_equal(lanes.numpy(), want)
 
 
 def test_cuda_backend_refuses_cpu_tensors():
