@@ -325,8 +325,8 @@ any phase fails. Phases:
               turns (the kernels line's ``sqrt`` row; ``elemwise``'s
               ``launches_use_in_norm``).
 10. dense family — the three other dense configurations at full width,
-              depth cut (SERVED_LAYERS: qwen3-4b 12 of 36 layers,
-              stablelm-1.6b 8 of 24, qwen2.5-14b 4 of 48; random weights
+              depth cut (SERVED_LAYERS: qwen3-4b 6 of 36 layers,
+              stablelm-1.6b 4 of 24, qwen2.5-14b 4 of 48; random weights
               from seed 0, batch 4, prompt 512, ``--approx simdive``),
               each model's graphs dropped before the next. (k) The
               kernels' times at qwen3-4b's shapes beside their bounds and
@@ -378,7 +378,7 @@ any phase fails. Phases:
               attention's four linears and the shared expert's three),
               captured == eager.
 12. modality-stub families — after phase 11's models are dropped,
-              qwen2-vl-2b whole and musicgen-medium at 16 of its 48
+              qwen2-vl-2b whole and musicgen-medium at 8 of its 48
               layers (SERVED_LAYERS), random weights from seed 0, batch
               4, prompt 512, 32 tokens, ``--approx simdive``, each model
               dropped before the next. (k) The attention kernels' times at both
@@ -403,7 +403,7 @@ any phase fails. Phases:
               parameters' bytes and ``LM.init``'s peak, peak and held
               memory, the prefill and step replays, one eager step's
               device time by kernel.
-13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b at 8 of its
+13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b at 4 of its
               24 layers (SERVED_LAYERS; d_model 2,048, 32 heads of 64,
               d_ff 7,168, vocab 65,536, untied), random weights from
               seed 0, batch 4, prompt 512, 32 tokens, ``--approx
@@ -550,6 +550,36 @@ any phase fails. Phases:
               with the width-16 one.
               The kernels line's ``*_w32`` rows carry the forms' times,
               bounds and registers / spills from the build.
+18. mesh   — the sharded training path (``launch/sharding.py``,
+              ``specs.py``, ``train --tp``): ranks spawned on the one
+              card, joined by a ``gloo`` group (NCCL refuses two ranks on
+              one device), each loading the kernels phase 2 built, every
+              input from seed 0. First a probe: gloo's ``all_reduce`` SUM
+              / MAX and ``broadcast`` on CUDA tensors of every dtype the
+              path reduces. (a) stablelm-1.6b at full width, 4 of 24
+              layers, batch 4 x 512, ``--approx simdive --backward
+              approx``: ``launch.train.train`` 2 steps at tp 2 against
+              tp 1 in this process; every SIMDive linear of layer 0 on
+              the kernels at its shard shapes ``torch.equal`` to the
+              unsplit linear (forward, both gradient products); the
+              losses and the first step's gradients (recorded inside
+              each ``train`` run, ``first_step_grads``; gathered on the
+              host) within twice a witness, the tp-1 run against itself
+              with every row's log-sum-exp one float32 ulp up
+              (``ulp_nudged_lse``); every rank's launches (each gated)
+              and ``all_reduce`` calls a step. (b) smollm-360m at full
+              width, 2 of 32 layers,
+              3 ranks (tp 3: K/V replicated and repeated, the MLP
+              replicated, the vocabulary split), 1 step, the same gates.
+              (c) mixtral-8x7b's MoE block at full width, x (4, 512,
+              4096) bf16: the SPMD block over 2 ranks against the
+              unsplit ``moe_ffn``: routes equal, the output within
+              ``MESH_MOE_ULPS`` bf16 ulps of its largest magnitude, aux
+              within 1e-6. (d) a world-1 NCCL group: one step of (a)'s
+              model under a bound (1, 1) mesh ``torch.equal`` to the same
+              step over gloo. (e) ``compress_psum`` over 2 ranks on CUDA
+              tensors equal to the plain computation on the CPU. The
+              ``logmatmul`` row carries its times at (a)'s shard shapes.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -909,10 +939,10 @@ INT32_SUM_BOUND = 255 * 255 * 10240
 # whatever the depth). A configuration not named here is served whole:
 # qwen2-vl-2b keeps its 28 layers, where the vision stub's M-RoPE gate was
 # measured with little margin (PERF.md, PR 30).
-SERVED_LAYERS = {"qwen3-4b": 12, "stablelm-1.6b": 8, "qwen2.5-14b": 4,
+SERVED_LAYERS = {"qwen3-4b": 6, "stablelm-1.6b": 4, "qwen2.5-14b": 4,
                  "mixtral-8x7b": 4, "llama4-scout-17b-a16e": 2,
-                 "musicgen-medium": 16,
-                 "rwkv6-1.6b": 8, "zamba2-2.7b": 18}
+                 "musicgen-medium": 8,
+                 "rwkv6-1.6b": 4, "zamba2-2.7b": 18}
 # the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
 # 16.8 M lanes, where it is no longer launch-bound
 SQRT_WORK_LANES = 1 << 24
@@ -7895,6 +7925,792 @@ def width32_phase(dev, served, int_rate, ptxas) -> dict:
                 kernels=rows)
 
 
+# ------------------------------------------------- phase 18: the mesh --
+# (a) stablelm-1.6b (src/repro_torch/configs/stablelm_1_6b.py): every split
+# divides at tp 2 (32 heads = 32 kv heads, d_ff 5,632, vocab 100,352), so
+# it runs the kv-head layout, the column / row MLP, the qkv biases' split
+# and the vocab-parallel embedding, head and loss; 4 of its 24 layers
+MESH_ARCH, MESH_LAYERS, MESH_TP = "stablelm-1.6b", 4, 2
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 512, 2
+# (b) smollm-360m at tp 3: K/V replicated (5 kv heads), the MLP replicated
+# (d_ff 2,560), the vocabulary split (49,152); 2 of 32 layers, 1 step
+MESH_TP3_ARCH, MESH_TP3_LAYERS = "smollm-360m", 2
+# (c) mixtral-8x7b's MoE block at full width
+MESH_MOE_ARCH, MESH_MOE_X = "mixtral-8x7b", (4, 512, 4096)
+# each output element of the SPMD block adds two bf16-rounded partial sums
+# (one a hidden-dim half) in float32 and rounds once more, where the
+# unsplit block rounds the whole sum once: three bf16 roundings of a
+# partial's magnitude apart at most, bounded by 4 bf16 ulps (2^-8 each) of
+# the output's largest magnitude
+MESH_MOE_ULPS = 4
+MESH_COMPRESS_SHAPE = (2048, 2048)
+MESH_JOIN_S = 600
+# the SIMDive linears of one attention block: (name, K, N, column-type)
+MESH_LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+
+
+# what phase 18 runs; a rehearsal on the CPU passes smaller values
+MESH_RUN = {"arch": MESH_ARCH, "layers": MESH_LAYERS, "tp": MESH_TP,
+            "arch3": MESH_TP3_ARCH, "layers3": MESH_TP3_LAYERS,
+            "batch": MESH_BATCH, "seq": MESH_SEQ, "steps": MESH_STEPS,
+            "moe_arch": MESH_MOE_ARCH, "moe_x": MESH_MOE_X,
+            "compress": MESH_COMPRESS_SHAPE, "smoke": False}
+
+
+def mesh_config(run: dict, three: bool = False):
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx import ApproxConfig
+
+    arch, layers = ((run["arch3"], run["layers3"]) if three
+                    else (run["arch"], run["layers"]))
+    cfg = get_config(arch, smoke=run["smoke"])
+    return replace(cfg, n_layers=layers).with_approx(
+        ApproxConfig(mode="simdive", backward="approx"))
+
+
+def mesh_shape(run: dict):
+    from repro_torch.configs import ShapeConfig
+
+    return ShapeConfig("mesh", run["seq"], run["batch"], "train")
+
+
+@contextlib.contextmanager
+def ulp_nudged_lse():
+    """Every row's log-sum-exp moved one float32 ulp up (``nextafter``),
+    in the loss and in its gradient, ``softmax = exp(logits - lse)``: the
+    unsplit run's stand-in for what float order alone does to the loss
+    (phase 18's witness). Patches the loss's ``xent``."""
+    import torch
+    from repro_torch.models import loss
+
+    class Nudged(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, lg, labels):
+            lse = torch.logsumexp(lg, dim=-1)
+            lse = torch.nextafter(lse, torch.full_like(lse, math.inf))
+            ctx.save_for_backward(lg, lse, labels)
+            return lse - loss._pick(lg, labels)
+
+        @staticmethod
+        def backward(ctx, g):
+            lg, lse, labels = ctx.saved_tensors
+            d = torch.exp(lg - lse[..., None])
+            flat = d.view(-1, d.shape[-1])
+            flat[torch.arange(flat.shape[0], device=d.device),
+                 labels.reshape(-1)] -= 1.0
+            return d * g[..., None], None
+
+    saved = loss.xent
+
+    def nudged(logits, labels, vocab_size=None):
+        return Nudged.apply(logits.to(torch.float32), labels)
+
+    loss.xent = nudged
+    try:
+        yield
+    finally:
+        loss.xent = saved
+
+
+@contextlib.contextmanager
+def head_gradient_in_f32():
+    """The head's input gradient ``g @ w^T`` accumulated in float32 by one
+    GEMM and rounded once to bf16, in place of the bf16 GEMM's own
+    order: the unsplit run's stand-in for what float order alone does to
+    the one bf16 product whose reduction the vocabulary split reorders
+    (phase 18's gradient witness; the split adds two float32 halves).
+    Everything else, the weight gradient included, is the unsplit
+    linear's. Patches the model's ``dense`` (the head's alone)."""
+    import torch
+    from repro_torch.models import model
+
+    class Head(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.w_dtype = w.dtype
+            w = w.to(x.dtype)
+            ctx.save_for_backward(x, w)
+            return x @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            gx = (g.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
+            gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+            return gx, gw.to(ctx.w_dtype)
+
+    saved = model.dense
+
+    def head(x, w, approx=None, split=None):
+        require(split is None, "the head witness runs unsplit")
+        return Head.apply(x, w)
+
+    model.dense = head
+    try:
+        yield
+    finally:
+        model.dense = saved
+
+
+@contextlib.contextmanager
+def first_step_grads(out: dict):
+    """Record the gradients of the first step that ``launch.train``'s
+    step takes (the data ranks' added: the output of ``sum_over_data``,
+    which the step calls once on the way to the optimizer) into
+    ``out["grads"]``, on the host. The copy is made inside that step and
+    adds to its time."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import train as t_train
+
+    saved = t_train.sum_over_data
+
+    def rec(grads):
+        grads = saved(grads)
+        if "grads" not in out:
+            out["grads"] = tree_map(
+                lambda g: None if g is None else g.detach().cpu(), grads)
+        return grads
+
+    t_train.sum_over_data = rec
+    try:
+        yield
+    finally:
+        t_train.sum_over_data = saved
+
+
+def mesh_linears(cfg, run, dev, tp):
+    """Every SIMDive linear of layer 0 at its shard shapes on the kernels
+    against the unsplit linear on this rank (forward and both gradient
+    products, ``torch.equal``); each weight's split read from
+    ``sanitize_specs``. Inputs x (M, K) bf16, w (K, N) float32 and g (M,
+    N) bf16 drawn on the card from seed 0; M the batch's tokens."""
+    import torch
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
+    from repro_torch.models.layers import dense
+
+    specs = t_train.placement(cfg, shardlib.current_mesh())[0]["params"]
+    layer = specs["stack"]["layers"]
+    shapes = {"wq": (cfg.d_model, cfg.n_heads * cfg.d_head),
+              "wk": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+              "wv": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+              "wo": (cfg.n_heads * cfg.d_head, cfg.d_model),
+              "w1": (cfg.d_model, cfg.d_ff), "w3": (cfg.d_model, cfg.d_ff),
+              "w2": (cfg.d_ff, cfg.d_model)}
+    M = run["batch"] * run["seq"]
+    r = shardlib.rank_in("heads")
+    out = {}
+    for i, name in enumerate(MESH_LINEARS):
+        K, N = shapes[name]
+        spec = (layer["mlp"][name] if name in ("w1", "w2", "w3")
+                else layer[name]).spec
+        kind = None
+        if "model" in tuple(spec):
+            kind = "row" if tuple(spec)[-1] is None else "col"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        x0 = torch.randn((M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w0 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        g0 = torch.randn((M, N), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def run(x, w, g, split):
+            x = x.clone().requires_grad_()
+            w = w.clone().requires_grad_()
+            y = dense(x, w, cfg.approx, split)
+            y.backward(g)
+            return y.detach(), x.grad, w.grad
+
+        with shardlib.use_rules(_OneRank()):
+            y, gx, gw = run(x0, w0, g0, None)
+        if kind == "col":
+            n = N // tp
+            sl = slice(r * n, (r + 1) * n)
+            got = run(x0, w0[:, sl], g0[:, sl], ("col", "heads"))
+            want = (y[:, sl], gx, gw[:, sl])
+        elif kind == "row":
+            k = K // tp
+            sl = slice(r * k, (r + 1) * k)
+            got = run(x0[:, sl], w0[sl], g0, ("row", "heads"))
+            want = (y, gx[:, sl], gw[sl])
+        else:
+            got, want = run(x0, w0, g0, None), (y, gx, gw)
+        out[name] = {"split": kind or "replicated",
+                     "equal": [torch_equal(a, b) for a, b in zip(got, want)]}
+    return out
+
+
+class _OneRank:
+    """A mesh of one rank a dim: bound, it changes nothing but the loss's
+    branch, so a rank computes the unsplit linear under it."""
+    axis_names, shape = ("data", "model"), (1, 1)
+
+
+def gloo_probe(dev) -> dict:
+    """gloo's collectives on CUDA tensors, each dtype the path reduces:
+    the result against the plain value (a rank's tensor is its rank + 1)."""
+    import torch
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("int64", torch.int64),
+                        ("int32", torch.int32)):
+        for op, rop, want in (("sum", dist.ReduceOp.SUM,
+                               world * (world + 1) // 2),
+                              ("max", dist.ReduceOp.MAX, world)):
+            t = torch.full((1024,), rank + 1, dtype=dtype, device=dev)
+            try:
+                dist.all_reduce(t, op=rop)
+                out[f"all_reduce_{op}_{name}"] = bool((t == want).all())
+            except RuntimeError as e:
+                out[f"all_reduce_{op}_{name}"] = f"refused: {e}"[:200]
+    t = torch.full((1024,), rank + 1.0, device=dev)
+    dist.broadcast(t, src=0)
+    out["broadcast_float32"] = bool((t == 1.0).all())
+    return out
+
+
+def _mesh_rank(rank, world, job, run, store, out, device_type):
+    """A spawned rank of phase 18: ``job`` (``tp2`` / ``tp3``) run under a
+    gloo group of ``world`` ranks on the one card; its results written to
+    ``out.<rank>``. A failure writes its traceback and ends the process at
+    once, so that the other ranks' collectives fail instead of waiting."""
+    import datetime
+    import os
+    import traceback
+
+    os.environ["SIMDIVE_AUTOTUNE"] = "0"   # the ranks' timings would race
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        from repro_torch.launch.train import deterministic
+
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        build.load(dev)
+        deterministic()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    try:
+        res = {"ok": True, **_MESH_JOBS[job](dev, run, out)}
+    except BaseException:
+        torch.save({"ok": False, "error": traceback.format_exc()},
+                   f"{out}.{rank}")
+        os._exit(1)
+    torch.save(res, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
+                ) -> dict:
+    """``launch.train.train`` at ``mesh_shape()`` from seed 0 (bound to a
+    mesh of its own where this process is one of several ranks): losses,
+    step seconds, this rank's launches (the run's, and a step's) and
+    collectives a step, and the first step's gradients. On a rank those
+    are gathered whole on the host over ``mesh`` and written by rank 0 to
+    ``gather_to`` with the first step's loss; unbound they come back
+    under ``"grads"``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.specs import batch_axes_for
+
+    times, first = [], {}
+    reset_launch_counts()
+    shardlib.reset_collective_counts()
+    with first_step_grads(first):
+        _, losses = t_train.train(cfg, mesh_shape(run), steps=steps,
+                                  ckpt_dir=None, tp=tp, device=dev,
+                                  log_every=steps, step_times=times)
+    counts, colls = launch_counts(), shardlib.collective_counts()
+    res = {"losses": losses, "step_s": times,
+           "launches": {k: v for k, v in counts.items() if v},
+           "launches_a_step": {k: v / steps for k, v in counts.items() if v},
+           "collectives_a_step": {k: v / steps for k, v in colls.items()}}
+    if mesh is None:
+        res["grads"] = first["grads"]
+        return res
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        psh = t_train.placement(cfg, mesh)[0]["params"]
+    full = tree_map(lambda g, sh: None if g is None
+                    else ckpt.gather_full(g, sh), first["grads"], psh)
+    if dist.get_rank() == 0:
+        torch.save({"loss": losses[0], "grads": full}, gather_to)
+    return res
+
+
+def _mesh_job_tp2(dev, run, out) -> dict:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import batch_axes_for
+
+    tp = run["tp"]
+    res = {"probe": gloo_probe(dev)}
+    cfg = mesh_config(run)
+    mesh = make_host_mesh(model=tp)
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        res["linears"] = mesh_linears(cfg, run, dev, tp)
+        res["compress"] = mesh_compress(run, dev)
+    _free(dev)
+    res["train"] = _mesh_train(cfg, run, dev, tp, run["steps"], mesh,
+                               f"{out}.grads")
+    _free(dev)
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        o, aux, routes = mesh_moe_block(run, dev)
+    if dist.get_rank() == 0:
+        torch.save({"out": o.cpu(), "aux": float(aux), "routes": routes},
+                   f"{out}.moe")
+    if dev.type == "cuda":
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mesh_job_tp3(dev, run, out) -> dict:
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import batch_axes_for
+
+    cfg = mesh_config(run, three=True)
+    mesh = make_host_mesh(model=3)
+    res = {"probe": gloo_probe(dev)}
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        res["linears"] = mesh_linears(cfg, run, dev, 3)
+    res["train"] = _mesh_train(cfg, run, dev, 3, 1, mesh, f"{out}.grads")
+    return res
+
+
+_MESH_JOBS = {"tp2": _mesh_job_tp2, "tp3": _mesh_job_tp3}
+
+
+def mesh_compress(run, dev) -> dict:
+    """(e) ``compress_psum`` over the model ranks on CUDA tensors against
+    the plain computation on the CPU from every rank's inputs."""
+    import torch
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.optim.grad_compress import compress_psum, quantize_grad
+
+    n, r = shardlib.logical_axis_size("heads"), shardlib.rank_in("heads")
+
+    def draw(i):
+        gen = torch.Generator().manual_seed(SEED + 200 + i)
+        return (torch.randn(run["compress"], generator=gen),
+                torch.randn(run["compress"], generator=gen) * 1e-3)
+
+    g, res = draw(r)
+    got, new_res = compress_psum({"g": g.to(dev)}, {"g": res.to(dev)},
+                                 "heads")
+    qs = [quantize_grad(*draw(i)) for i in range(n)]
+    want = sum(q.to(torch.int32) for q, _, _ in qs).to(torch.float32) \
+        * max(s for _, s, _ in qs)
+    return {"equal": torch_equal(got["g"].cpu(), want)
+            and torch_equal(new_res["g"].cpu(), qs[r][2])}
+
+
+@contextlib.contextmanager
+def _recorded_routes(calls: list):
+    """Record every ``moe._dispatch`` call's top-k expert indices."""
+    from repro_torch.models import moe
+
+    saved = moe._dispatch
+
+    def rec(*args, **kw):
+        out = saved(*args, **kw)
+        calls.append(out[4].detach().cpu())
+        return out
+
+    moe._dispatch = rec
+    try:
+        yield
+    finally:
+        moe._dispatch = saved
+
+
+def mesh_moe_block(run, dev):
+    """(c) mixtral-8x7b's MoE block at full width from seed 0: this rank's
+    slice of the experts' hidden dim (all of it unbound), x (4, 512, 4096)
+    bf16. Returns (out, aux, routes)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    cfg = get_config(run["moe_arch"], smoke=run["smoke"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    p = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                 cfg.n_shared_experts, torch.float32, dev)
+    x = torch.randn(run["moe_x"], generator=gen, device=dev).to(
+        torch.bfloat16)
+    n, r = shardlib.logical_axis_size("ff"), shardlib.rank_in("ff")
+    if n > 1:
+        f = cfg.d_ff // n
+        p = {"router": p["router"],
+             "w1": p["w1"][..., r * f:(r + 1) * f].contiguous(),
+             "w3": p["w3"][..., r * f:(r + 1) * f].contiguous(),
+             "w2": p["w2"][:, r * f:(r + 1) * f].contiguous()}
+    routes = []
+    with torch.no_grad(), _recorded_routes(routes):
+        out, aux = moe_ffn(x, p, top_k=cfg.n_experts_active,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           split=n > 1)
+    return out, aux, routes
+
+
+def _spawn_mesh(job: str, world: int, run: dict, tmp: Path, dev):
+    import torch.multiprocessing as mp
+
+    d = tmp / job
+    d.mkdir()
+    ctx = mp.spawn(_mesh_rank, args=(world, job, run, str(d / "store"),
+                                     str(d / "out"), dev.type),
+                   nprocs=world, join=False)
+    return ctx, d
+
+
+def _join_mesh(ctx, d: Path, world: int, what: str) -> list:
+    import torch
+
+    deadline = time.monotonic() + MESH_JOIN_S
+    done = False
+    while not done:
+        try:
+            done = ctx.join(timeout=max(deadline - time.monotonic(), 1.0))
+        except Exception as e:          # a rank exited non-zero
+            errs = []
+            for r in range(world):
+                f = d / f"out.{r}"
+                if f.exists():
+                    errs.append(torch.load(f, weights_only=False).get(
+                        "error", ""))
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise SmokeFailure(f"phase 18 {what}: a rank failed: {e}\n"
+                               + "\n".join(errs)) from None
+        if not done and time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise SmokeFailure(f"phase 18 {what}: ranks still running "
+                               f"after {MESH_JOIN_S} s")
+    res = [torch.load(d / f"out.{r}", weights_only=False)
+           for r in range(world)]
+    for r in res:
+        require(r["ok"], f"phase 18 {what}: {r.get('error')}")
+    return res
+
+
+def _grad_gate(what, loss, grads, loss0, grads0, wit_loss, witnesses):
+    """The loss within twice the lse witness's distance from the unsplit
+    run, and every gradient leaf within twice the larger of the
+    witnesses' distances (a leaf both leave equal must be equal)."""
+    from repro_torch.core.tree import tree_leaves
+
+    rows, worst = [], 0.0
+    for g, g0, *ws in zip(tree_leaves(grads), tree_leaves(grads0),
+                          *(tree_leaves(w) for w in witnesses)):
+        require(all((g is None) == (x is None) for x in (g0, *ws)),
+                f"{what}: a gradient leaf None on one side only")
+        if g is None:
+            continue
+        err = float((g.float() - g0.float()).abs().max())
+        w_err = [float((w.float() - g0.float()).abs().max()) for w in ws]
+        rows.append((err, *w_err))
+        top = max(w_err)
+        worst = max(worst, err / top if top else (0.0 if err == 0
+                                                  else math.inf))
+    loss_err, w_loss = abs(loss - loss0), abs(wit_loss - loss0)
+    require(loss_err <= 2 * w_loss, f"{what}: loss {loss!r} vs {loss0!r}, "
+            f"witness {wit_loss!r}")
+    require(worst <= 2.0, f"{what}: a gradient leaf past twice its "
+            f"witness ({worst:.3g}x): (err, lse witness, order witness) "
+            f"{rows}")
+    return {"loss_err": loss_err, "witness_loss_err": w_loss,
+            "grad_err_over_witness_max": worst,
+            "grad_errs": [r[0] for r in rows],
+            "witness_grad_errs": [r[1:] for r in rows]}
+
+
+def _unsplit_runs(cfg, run, dev, steps) -> dict:
+    """The tp-1 train runs in this process, each recording its first
+    step's gradients: as it is, under the lse witness (every step, for
+    the losses' gate), and the first step under the float-order
+    witness."""
+    out = {}
+    for tag, ctx, n in (("", contextlib.nullcontext(), steps),
+                        ("witness_", ulp_nudged_lse(), steps),
+                        ("order_", head_gradient_in_f32(), 1)):
+        with ctx:
+            r = _mesh_train(cfg, run, dev, 1, n)
+        out[tag + "first"] = (r["losses"][0], r["grads"])
+        out[tag + "losses"], out[tag + "step_s"] = r["losses"], r["step_s"]
+    return out
+
+
+def mesh_nccl_world1(run, dev, backends=("nccl", "gloo")) -> dict:
+    """(d) One step of (a)'s model under a bound (1, 1) mesh over a
+    world-1 NCCL group, ``torch.equal`` (loss and every parameter) to the
+    same step over a world-1 gloo group; an explicit ``all_reduce`` SUM /
+    MAX and ``broadcast`` on the NCCL group (identities at world 1: the
+    port's helpers skip one-rank groups)."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import make_source, torch_batch
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import batch_axes_for
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = mesh_config(run)
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, backend in enumerate(backends):
+            dist.init_process_group(
+                backend, init_method=f"file://{tmp}/{i}", rank=0,
+                world_size=1, timeout=datetime.timedelta(seconds=300))
+            try:
+                t = torch.arange(8.0, device=dev)
+                dist.all_reduce(t)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX)
+                dist.broadcast(t, src=0)
+                require(torch.equal(t, torch.arange(8.0, device=dev)),
+                        f"{backend} world 1: a collective moved a value")
+                mesh = make_host_mesh(model=1)
+                with shardlib.use_rules(mesh,
+                                        {"batch": batch_axes_for(mesh)}):
+                    shardings, split = t_train.placement(cfg, mesh)
+                    lm = build(cfg, dev)
+                    params = lm.init(SEED, shardings["params"])
+                    opt = adamw(cosine_schedule(TRAIN_LR, warmup=1,
+                                                total=run["steps"]))
+                    batch = torch_batch(make_source(
+                        cfg, mesh_shape(run), seed=SEED).batch(0), dev)
+                    step = t_train.make_train_step(lm, opt, split=split)
+                    p2, _, m = step(params, opt.init(params), batch)
+                    got[i] = (m["loss"].cpu(),
+                                    tree_map(lambda t: t.cpu(), p2))
+                    del params, p2
+            finally:
+                dist.destroy_process_group()
+    eq, worst, bad = _tree_equal(got[0][1], got[1][1])
+    require(torch_equal(got[0][0], got[1][0]) and eq,
+            f"(d) the NCCL step differs from the gloo one: {bad} ({worst})")
+    return {"loss": float(got[0][0]), "params_equal": eq}
+
+
+def mesh_kernel_rows(dev, int_rate) -> list:
+    """``logmatmul`` at (a)'s shard shapes at tp 2 (M = 4 x 512 tokens; the
+    column-parallel wq / wk / wv and w1 / w3, the row-parallel wo and w2):
+    the default block's time by graph replay, the operations bound, and
+    the exact bf16 ``torch.matmul`` of the same shape."""
+    import torch
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import logmatmul as lm
+
+    cfg = mesh_config(MESH_RUN)
+    D, F, HD = cfg.d_model, cfg.d_ff // MESH_TP, \
+        cfg.n_heads * cfg.d_head // MESH_TP
+    M = MESH_BATCH * MESH_SEQ
+    spec = SimdiveSpec(width=8, coeff_bits=6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    rows = []
+    for names, K, N in ((("wq", "wk", "wv"), D, HD), (("w1", "w3"), D, F),
+                        (("wo",), HD, D), (("w2",), F, D)):
+        x = torch.randint(-255, 256, (M, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        rows.append({
+            "linears": names, "M": M, "K": K, "N": N,
+            "block": list(lm.DEFAULT_BLOCK),
+            "ms": gpu_graph_time_ms(
+                lambda: lm.logmatmul_cuda(x, w, spec), iters=3),
+            "bound_ms": logmatmul_ops_ms(M, K, N, int_rate),
+            "bound_by": "operations",
+            "library_ms": gpu_graph_time_ms(lambda: xb @ wb, iters=20)})
+    return rows
+
+
+def mesh_phase(dev, int_rate, run=None) -> dict:
+    """Phase 18: the mesh, (a) to (e) as the module docstring says.
+    ``run``: :data:`MESH_RUN` unless a rehearsal gives smaller values (on
+    the CPU the NCCL step (d) and the kernel times are left out)."""
+    import os
+    import tempfile
+
+    import torch
+
+    run = run or MESH_RUN
+    cuda = dev.type == "cuda"
+    if cuda:
+        from repro_torch.kernels import build
+        from repro_torch.launch.train import deterministic
+
+        _drop_served_graphs()
+        require(build.load(dev) is not None, "the kernels' library")
+        deterministic()
+    _free(dev)
+    saved_autotune = os.environ.get("SIMDIVE_AUTOTUNE")
+    os.environ["SIMDIVE_AUTOTUNE"] = "0"     # as in the ranks
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp_name:
+            tmp = Path(tmp_name)
+            # (a), (c), (e): the unsplit runs here, then two ranks (one
+            # after the other, so that each step time has the card alone)
+            t0 = time.perf_counter()
+            unsplit = _unsplit_runs(mesh_config(run), run, dev,
+                                    run["steps"])
+            _free(dev)
+            with torch.no_grad():
+                moe_out0, moe_aux0, routes0 = mesh_moe_block(run, dev)
+            moe_out0 = moe_out0.cpu()
+            _free(dev)
+            ctx, d = _spawn_mesh("tp2", run["tp"], run, tmp, dev)
+            ranks = _join_mesh(ctx, d, run["tp"], "(a) tp 2")
+            out["a"] = mesh_judge("(a)", ranks, unsplit, d)
+            out["c"] = mesh_judge_moe(d, moe_out0, moe_aux0, routes0)
+            require(all(r["compress"]["equal"] for r in ranks),
+                    "(e) compress_psum on the card differs from the plain "
+                    "computation")
+            out["e"] = ranks[0]["compress"]
+            log("  (e) compress_psum over 2 ranks on CUDA tensors == the "
+                "plain computation on the CPU")
+            out["a_s"] = time.perf_counter() - t0
+            del unsplit, moe_out0
+            _free(dev)
+            # (b): three ranks
+            t0 = time.perf_counter()
+            unsplit3 = _unsplit_runs(mesh_config(run, three=True), run, dev,
+                                     1)
+            _free(dev)
+            ctx, d = _spawn_mesh("tp3", 3, run, tmp, dev)
+            ranks3 = _join_mesh(ctx, d, 3, "(b) tp 3")
+            out["b"] = mesh_judge("(b)", ranks3, unsplit3, d)
+            out["b_s"] = time.perf_counter() - t0
+            del unsplit3
+            _free(dev)
+        if cuda:
+            t0 = time.perf_counter()
+            out["d"] = mesh_nccl_world1(run, dev)
+            out["d_s"] = time.perf_counter() - t0
+            log(f"  (d) a world-1 NCCL group: one step under a bound (1, 1) "
+                f"mesh == the gloo one (loss {out['d']['loss']!r})")
+            out["kernels"] = mesh_kernel_rows(dev, int_rate)
+    finally:
+        if cuda:
+            torch.use_deterministic_algorithms(False)
+        if saved_autotune is None:
+            os.environ.pop("SIMDIVE_AUTOTUNE", None)
+        else:
+            os.environ["SIMDIVE_AUTOTUNE"] = saved_autotune
+    _free(dev)
+    return out
+
+
+def mesh_judge_moe(d: Path, out0, aux0, routes0) -> dict:
+    """(c)'s gates: the ranks' SPMD block against the unsplit one."""
+    import torch
+
+    moe = torch.load(d / "out.moe", weights_only=False)
+    tol = MESH_MOE_ULPS * 2.0 ** -8 * float(out0.abs().max())
+    err = float((moe["out"].float() - out0.float()).abs().max())
+    routes_eq = len(moe["routes"]) == len(routes0) and all(
+        torch.equal(a, b) for a, b in zip(moe["routes"], routes0))
+    res = {"routes_equal": routes_eq, "out_err": err, "out_tol": tol,
+           "aux": moe["aux"], "aux_unsplit": float(aux0)}
+    log(f"  (c) the MoE block, SPMD over 2 ranks: routes equal {routes_eq}, "
+        f"output {err:.4g} from the unsplit block (bound {tol:.4g}), aux "
+        f"{moe['aux']!r} / {float(aux0)!r}")
+    require(routes_eq and err <= tol
+            and abs(moe["aux"] - float(aux0)) <= 1e-6,
+            f"(c) the SPMD MoE block: {res}")
+    return res
+
+
+def mesh_judge(what, ranks, unsplit, d: Path) -> dict:
+    """(a) / (b)'s gates over the ranks' results and the unsplit runs."""
+    import torch
+
+    for r in ranks:
+        probe = r["probe"]
+        require(all(v is True for v in probe.values()),
+                f"{what} gloo on CUDA tensors: {probe}")
+        for name, row in r["linears"].items():
+            require(all(row["equal"]), f"{what} the {row['split']} SIMDive "
+                    f"linear {name} differs from the unsplit one "
+                    f"(forward, gx, gw): {row['equal']}")
+    gathered = torch.load(d / "out.grads", weights_only=False)
+    loss0, grads0 = unsplit["first"]
+    w_loss, w_grads = unsplit["witness_first"]
+    gate = _grad_gate(f"{what} first step", gathered["loss"],
+                      gathered["grads"], loss0, grads0, w_loss,
+                      (w_grads, unsplit["order_first"][1]))
+    trains = [r["train"] for r in ranks]
+    require(all(t["losses"] == trains[0]["losses"] for t in trains),
+            f"{what} the ranks' losses differ")
+    for i, (l, l0, lw) in enumerate(zip(trains[0]["losses"],
+                                        unsplit["losses"],
+                                        unsplit["witness_losses"])):
+        require(abs(l - l0) <= 2 * abs(lw - l0),
+                f"{what} step {i}: loss {l!r} vs {l0!r} (witness {lw!r})")
+    per_rank = [t["launches_a_step"] for t in trains]
+    for r, counts in enumerate(per_rank):
+        mm = counts.get("matmul", 0) + counts.get("matmul_pipelined", 0)
+        require(mm > 0 and counts.get("elemwise", 0) > 0,
+                f"{what} rank {r}'s launches a step: {counts}")
+    res = {"probe": ranks[0]["probe"],
+           "linears": {k: v["split"] for k, v in ranks[0]["linears"].items()},
+           "losses": trains[0]["losses"], "losses_unsplit": unsplit["losses"],
+           "losses_witness": unsplit["witness_losses"],
+           "step_s": trains[0]["step_s"],
+           "step_s_unsplit": unsplit["step_s"],
+           "launches_by_rank": [t["launches"] for t in trains],
+           "launches_a_rank_a_step": per_rank,
+           "collectives_a_rank_a_step": [t["collectives_a_step"]
+                                         for t in trains],
+           "peak_bytes": ranks[0].get("peak_bytes"), **gate}
+    each = "; ".join(
+        f"rank {r} {c.get('matmul', 0) + c.get('matmul_pipelined', 0):g} "
+        f"logmatmul, {c.get('elemwise', 0):g} elemwise, "
+        f"{res['collectives_a_rank_a_step'][r]}"
+        for r, c in enumerate(per_rank))
+    log(f"  {what} {len(ranks)} ranks: every SIMDive linear of layer 0 "
+        f"bit-equal ({res['linears']}); losses {res['losses']} vs tp 1 "
+        f"{res['losses_unsplit']} (witness {res['losses_witness']}); first "
+        f"step's gradients at most {gate['grad_err_over_witness_max']:.3g}x "
+        f"the witness; a step: {each}; step s {res['step_s']} "
+        f"(tp 1 {res['step_s_unsplit']}; the ranks share one card: this "
+        "measures nothing about scaling)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -7916,13 +8732,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/17] device: {card} | torch {torch.__version__} "
+    log(f"[1/18] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    log(f"[2/17] build: kernels compiled and loaded in {build_s:.1f}s")
+    log(f"[2/18] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs, w32_regs = [], []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -7945,7 +8761,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     starts[3] = time.perf_counter() - t_start
-    log("[3/17] kernels vs plain versions")
+    log("[3/18] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -7954,7 +8770,7 @@ def main(argv=None) -> int:
     packed_runs, packed_err = check_packed(dev)
 
     starts[4] = time.perf_counter() - t_start
-    log("[4/17] paths: (p) the packed path, tuning.frontier.measure_error("
+    log("[4/18] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -7967,7 +8783,7 @@ def main(argv=None) -> int:
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
     starts[5] = time.perf_counter() - t_start
-    log("[5/17] times")
+    log("[5/18] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -7988,24 +8804,24 @@ def main(argv=None) -> int:
     packed_row = measure_packed(packed, int_rate)
 
     starts[6] = time.perf_counter() - t_start
-    log("[6/17] drill: serve --scheduler, smollm-360m full width, batch "
+    log("[6/18] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
     starts[7] = time.perf_counter() - t_start
-    log("[7/17] faults: every kernel under each armed site, captured graphs, "
+    log("[7/18] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
     starts[8] = time.perf_counter() - t_start
-    log("[8/17] policy: build_policy / select_config on the card, a "
+    log("[8/18] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
     starts[9] = time.perf_counter() - t_start
-    log("[9/17] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    log("[9/18] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -8019,19 +8835,19 @@ def main(argv=None) -> int:
     kernels.append(sqrt_row)
 
     starts[10] = time.perf_counter() - t_start
-    log("[10/17] the dense family at full width: (k) the kernels' times "
+    log("[10/18] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b; depths cut to SERVED_LAYERS")
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = time.perf_counter() - t_start
-    log("[11/17] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
+    log("[11/18] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
         "layers), (b) llama4-scout-17b-a16e (2 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
     starts[12] = time.perf_counter() - t_start
-    log("[12/17] the modality-stub families at full width (musicgen-medium "
+    log("[12/18] the modality-stub families at full width (musicgen-medium "
         f"at {SERVED_LAYERS['musicgen-medium']} of 48 layers): (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
@@ -8039,7 +8855,7 @@ def main(argv=None) -> int:
     modality = modality_family_phase(dev, int_rate)
 
     starts[13] = time.perf_counter() - t_start
-    log(f"[13/17] rwkv6-1.6b at full width, {SERVED_LAYERS['rwkv6-1.6b']} "
+    log(f"[13/18] rwkv6-1.6b at full width, {SERVED_LAYERS['rwkv6-1.6b']} "
         "of 24 layers: (k) "
         "logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
@@ -8047,14 +8863,14 @@ def main(argv=None) -> int:
     rwkv6 = rwkv6_phase(dev, int_rate)
 
     starts[14] = time.perf_counter() - t_start
-    log("[14/17] zamba2-2.7b at full width: (k) the attention "
+    log("[14/18] zamba2-2.7b at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
         "simdive (18 of 54 Mamba2 layers, the shared block 2 times with "
         "its LoRA merged each call), (c) --emulate")
     zamba2 = zamba2_phase(dev, int_rate)
 
     starts[15] = time.perf_counter() - t_start
-    log("[15/17] training: (a) logmatmul at smollm-360m's gradient "
+    log("[15/18] training: (a) logmatmul at smollm-360m's gradient "
         "products and elemwise at the training finalize, against their "
         "plain versions; (b) one step on the kernels == on the plain "
         "versions (2 layers); (c) launch.train.train at full width, "
@@ -8063,7 +8879,7 @@ def main(argv=None) -> int:
     training = training_phase(dev, int_rate)
 
     starts[16] = time.perf_counter() - t_start
-    log("[16/17] applications at the reference's size: (a) logmatmul and "
+    log("[16/18] applications at the reference's size: (a) logmatmul and "
         "matmul_emul at Table 4's layer shapes (int32 and wide forms) and "
         "elemwise at Fig. 3/4's lanes, every rung, against their plain "
         "versions; (b) Table 4's two MLPs trained on the card and run in "
@@ -8072,13 +8888,21 @@ def main(argv=None) -> int:
     apps = applications_phase(dev, int_rate)
 
     starts[17] = time.perf_counter() - t_start
-    log("[17/17] width 32: (a) elemwise, sqrt, the finalize alone and both "
+    log("[17/18] width 32: (a) elemwise, sqrt, the finalize alone and both "
         "attention kernels at a width-32 divider against their plain "
         "versions, disarmed and armed; (b) measure_error and select_config "
         "at width 32; (c) smollm-360m full width under a width-32 divider "
         "policy, with and without use_in_norm")
     w32 = width32_phase(dev, served, int_rate, w32_regs)
     kernels += w32.pop("kernels")
+
+    starts[18] = time.perf_counter() - t_start
+    log("[18/18] mesh: ranks on the one card over gloo — (a) stablelm-1.6b "
+        f"tp {MESH_TP} ({MESH_LAYERS} of 24 layers) against tp 1, (b) "
+        f"smollm-360m tp 3 ({MESH_TP3_LAYERS} of 32 layers), (c) "
+        "mixtral-8x7b's MoE block SPMD, (d) a world-1 NCCL step == gloo, "
+        "(e) compress_psum")
+    mesh = mesh_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -8293,6 +9117,16 @@ def main(argv=None) -> int:
     by_name["logmatmul"]["launches_apps_wide"] = apps["wide_launches"]
     by_name["logmatmul"]["table4"] = apps["kernels"]["matmul"]
     by_name["elemwise"]["imaging"] = apps["kernels"]["elemwise"]
+    # phase 18: each rank's launches in (a)'s and (b)'s train runs, zeroed
+    # just before each and read just after, added over the ranks;
+    # logmatmul at (a)'s shard shapes
+    for kern, names in ((by_name["logmatmul"], ("matmul",
+                                                "matmul_pipelined")),
+                        (by_name["elemwise"], ("elemwise",))):
+        kern["launches_mesh"] = sum(
+            counts.get(n, 0) for part in ("a", "b")
+            for counts in mesh[part]["launches_by_rank"] for n in names)
+    by_name["logmatmul"]["mesh_tp2_shapes"] = mesh["kernels"]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")
@@ -8306,14 +9140,14 @@ def main(argv=None) -> int:
                      *arith.items(), *dense.items(), *moe.items(),
                      *modality.items(), *rwkv6.items(),
                      *zamba2.items(), *training.items(), *apps.items(),
-                     *w32.items()):
+                     *w32.items(), *mesh.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
     total_s = time.perf_counter() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-17) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-18) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -8332,7 +9166,7 @@ def main(argv=None) -> int:
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
             "zamba2": zamba2, "training": training, "applications": apps,
-            "width32": w32,
+            "width32": w32, "mesh": mesh,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

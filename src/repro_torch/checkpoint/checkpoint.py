@@ -20,9 +20,15 @@ tensor to the host synchronously and writes in a daemon thread.
 bfloat16 has no numpy dtype here: such a tensor is stored as its 2-byte
 patterns (``V2``, which is how the reference's ``ml_dtypes`` arrays land
 in the file too) and its manifest dtype ``bfloat16``, and restored to
-``torch.bfloat16`` from either package's file. The reference's
-``shardings=`` (an elastic re-layout onto a mesh) waits for the port's
-mesh (ROADMAP A-10).
+``torch.bfloat16`` from either package's file.
+
+Elastic, as the reference's: a checkpoint holds full arrays whatever
+topology wrote it. A sharded run saves with ``shardings=`` (a tree of
+:class:`~repro_torch.launch.specs.Sharding`): each leaf's shards are
+gathered on the host over a CPU ``gloo`` group of each mesh axis that
+splits it (:meth:`~repro_torch.launch.mesh.Mesh.cpu_group`), and rank 0
+writes. :func:`restore` with ``shardings=`` gives each rank its slice of
+the saved full arrays (:func:`~repro_torch.launch.specs.local_slice`).
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import numpy as np
 import torch
 
 __all__ = ["save", "save_async", "restore", "latest_step", "gc_keep_last",
-           "wait_pending"]
+           "wait_pending", "gather_full"]
 
 _SEP = "/"
 
@@ -86,8 +92,45 @@ def _host(v) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _snapshot(tree) -> dict:
-    return {k: _host(v) for k, v in _flatten(tree).items()}
+def gather_full(t: torch.Tensor, sharding) -> torch.Tensor:
+    """The full host tensor of this rank's shard ``t`` under ``sharding``:
+    an ``all_gather`` on the host for each split dim, over the CPU group
+    of its mesh axes (each gathered in turn, minor axis first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.sharding import axis_sizes
+
+    mesh = sharding.mesh
+    sizes = axis_sizes(mesh)
+    t = t.detach().cpu()
+    for dim, part in enumerate(sharding.spec):
+        axes = () if part is None else (
+            part if isinstance(part, tuple) else (part,))
+        for a in reversed(axes):
+            if sizes[a] == 1:
+                continue
+            wire = t.contiguous()
+            if wire.dtype in (torch.bfloat16, torch.float16):
+                wire = wire.view(torch.int16)
+            parts = [torch.empty_like(wire) for _ in range(sizes[a])]
+            dist.all_gather(parts, wire, group=mesh.cpu_group(a))
+            t = torch.cat(parts, dim=dim).view(t.dtype)
+    return t
+
+
+def _snapshot(tree, shardings=None) -> dict:
+    """Host copies of every leaf (gathered whole under ``shardings``);
+    empty on a rank other than 0 of a sharded save, which writes nothing."""
+    if shardings is None:
+        return {k: _host(v) for k, v in _flatten(tree).items()}
+    import torch.distributed as dist
+
+    from repro_torch.core.tree import tree_map
+
+    full = tree_map(gather_full, tree, shardings)
+    if dist.get_rank() != 0:
+        return {}
+    return {k: _host(v) for k, v in _flatten(full).items()}
 
 
 def _step_dir(d, step):
@@ -114,17 +157,24 @@ def _write(ckpt_dir: str, step: int, flat: dict, indent) -> str:
     return final
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
-    """Synchronous checkpoint write (atomic commit via rename)."""
-    return _write(ckpt_dir, step, _snapshot(tree), 1)
+def save(ckpt_dir: str, step: int, tree, shardings=None) -> str | None:
+    """Synchronous checkpoint write (atomic commit via rename). With
+    ``shardings``, every rank calls it, rank 0 writes the gathered full
+    arrays and returns the path, the others None."""
+    flat = _snapshot(tree, shardings)
+    return _write(ckpt_dir, step, flat, 1) if flat else None
 
 
 _PENDING: list[threading.Thread] = []
 
 
-def save_async(ckpt_dir: str, step: int, tree) -> threading.Thread:
-    """Snapshot to host now, write to disk in the background."""
-    flat = _snapshot(tree)
+def save_async(ckpt_dir: str, step: int, tree,
+               shardings=None) -> threading.Thread | None:
+    """Snapshot to host now (gathered under ``shardings``, as
+    :func:`save`), write to disk in the background."""
+    flat = _snapshot(tree, shardings)
+    if not flat:
+        return None
     t = threading.Thread(target=_write, args=(ckpt_dir, step, flat, None),
                          daemon=True)
     t.start()
@@ -158,11 +208,14 @@ def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(ckpt_dir: str, step: int | None = None, like=None,
-            device="cpu"):
+def restore(ckpt_dir: str, step: int | None = None, shardings=None,
+            like=None, device="cpu"):
     """Load a checkpoint as ``(step, tree)``, every leaf a tensor on
     ``device`` (the newest committed step when ``step`` is None).
-    ``like``: an optional tree of tensors to take target dtypes from."""
+    ``shardings``: a tree of :class:`~repro_torch.launch.specs.Sharding`
+    matching the saved tree; each leaf is this rank's slice of the saved
+    full array, whatever topology wrote it (elastic). ``like``: an
+    optional tree of tensors to take target dtypes from."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -170,9 +223,15 @@ def restore(ckpt_dir: str, step: int | None = None, like=None,
     d = _step_dir(ckpt_dir, step)
     with open(os.path.join(d, "manifest.json")) as f:
         dtypes = {k: v["dtype"] for k, v in json.load(f)["arrays"].items()}
+    on_host = "cpu" if shardings is not None else device
     with np.load(os.path.join(d, "arrays.npz")) as z:
-        flat = {k: _tensor(z[k], dtypes[k], device) for k in z.files}
+        flat = {k: _tensor(z[k], dtypes[k], on_host) for k in z.files}
     tree = _unflatten(flat)
+    if shardings is not None:
+        from repro_torch.core.tree import tree_map
+
+        tree = tree_map(lambda a, s: s.local(a).contiguous().to(device),
+                        tree, shardings)
     if like is not None:
         from repro_torch.core.tree import tree_map
 

@@ -13,7 +13,15 @@ block every 9th layer: a recurrent state and a K/V cache).
 """
 from importlib import import_module
 
-from .base import ModelConfig, ShapeConfig  # noqa: F401
+from .base import (  # noqa: F401
+    MULTI_POD,
+    SHAPES,
+    SINGLE_POD,
+    MeshConfig,
+    ModelConfig,
+    ShapeConfig,
+    shapes_for,
+)
 
 _MODULES = {
     "smollm-360m": "smollm_360m",

@@ -1,9 +1,10 @@
 """Config schema: model architecture and run settings.
 
-Counterpart of ``repro.configs.base``: ``ModelConfig`` and
-``ShapeConfig`` (a training run's batch and sequence length); the
-reference's shape and mesh tables are not ported. All of the reference's fields are kept so configs compare
-field by field.
+Counterpart of ``repro.configs.base``: ``ModelConfig``, ``ShapeConfig``
+(a run's batch and sequence length), the reference's shape table
+(``SHAPES``, :func:`shapes_for`) and its production meshes as metadata
+(``MeshConfig``, ``SINGLE_POD``, ``MULTI_POD``). All of the reference's
+fields are kept so configs compare field by field.
 """
 from __future__ import annotations
 
@@ -78,3 +79,36 @@ class ShapeConfig:
     global_batch: int
     kind: str                      # train | prefill | decode
 
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple = (16, 16)
+    axes: tuple = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+def shapes_for(cfg: ModelConfig):
+    """The assigned shape set for an arch (skips long_500k when quadratic)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        names.append("long_500k")
+    return [SHAPES[n] for n in names]

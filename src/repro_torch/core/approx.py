@@ -359,11 +359,17 @@ def approx_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
 
 
 # ---------------------------------------------------- emulated linears --
-def quantize_sign_magnitude(x: torch.Tensor, width: int, axis=None):
+def quantize_sign_magnitude(x: torch.Tensor, width: int, axis=None,
+                            over=()):
     """Symmetric sign-magnitude quantization to ``width``-bit magnitudes.
 
     Returns (mag int32 in [0, 2^width - 1], sign int32 in {-1, +1},
     scale). ``axis`` selects per-axis scales (kept dims); None = global.
+    ``over`` names the logical mesh axes over which ``x`` is one shard of
+    a larger tensor (the reduced dims split among their ranks): the
+    maxima are then the ``all_reduce`` MAX of the local ones, the scale of
+    the whole tensor, as the reference's global arrays have it (a no-op
+    unbound, :mod:`repro_torch.launch.sharding`).
     The magnitudes are int32 rather than the reference's uint32 (PyTorch's
     uint32 lacks the arithmetic; the values are the same). Dtypes follow
     the reference: the scale stays in ``x``'s dtype (the reference's
@@ -372,6 +378,10 @@ def quantize_sign_magnitude(x: torch.Tensor, width: int, axis=None):
     """
     ax = x.abs()
     amax = ax.amax() if axis is None else ax.amax(dim=axis, keepdim=True)
+    if over:
+        from repro_torch.launch.sharding import all_reduce_max
+
+        amax = all_reduce_max(amax, over)
     qmax = float(2 ** width - 1)
     scale = amax.clamp(min=1e-30) / qmax
     mag = (ax / scale).round().clamp(0, qmax).to(torch.int32)
@@ -383,56 +393,97 @@ def _matmul_active(cfg: ApproxConfig) -> bool:
     return cfg.enabled and cfg.use_in_linear and cfg.active_for("matmul")
 
 
-def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig):
+def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig, x_over=(), w_over=(),
+                            k_sum=None):
+    """The emulated product ``x @ w``: ``x`` one global scale, ``w`` one
+    scale a column, ``matmul_emul``, rescale. On a mesh, ``x_over`` /
+    ``w_over`` name the logical axes whose ranks hold the rest of ``x`` /
+    of ``w``'s columns (their scales are the whole tensor's), and
+    ``k_sum`` the axis over which K is split: its ranks' int64 partial
+    sums are added (``all_reduce``) before the one rescale, so the result
+    is the unsplit product's bit for bit."""
     if not _matmul_active(cfg):
         dt = torch.promote_types(x.dtype, w.dtype)
         return x.to(dt) @ w.to(dt)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     spec, backend = cfg.resolve("matmul")
-    qx, sx, scx = quantize_sign_magnitude(x2, spec.width)
-    qw, sw, scw = quantize_sign_magnitude(w, spec.width, axis=0)
+    qx, sx, scx = quantize_sign_magnitude(x2, spec.width, over=x_over)
+    qw, sw, scw = quantize_sign_magnitude(w, spec.width, axis=0, over=w_over)
     mm = get_op("matmul_emul", spec, backend=backend, guard=cfg.guard)
     acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
+    if k_sum is not None:
+        from repro_torch.launch.sharding import all_reduce
+
+        acc = all_reduce(acc, k_sum)
     out = acc.to(torch.float32) * (scx * scw)
     return out.reshape(*lead, w.shape[1]).to(x.dtype)
+
+
+# Which logical axes hold the rest of each operand of a split linear's
+# three products (the forward, gx = g @ w^T, gw = x^T @ g), by the
+# weight's split: None (replicated), "col" (its output dim split over the
+# axis ``a``), "row" (its input dim split over ``a``). Rows of x and g are
+# always split over "batch". Each entry: (x_over, w_over, k_sum) of one
+# _approx_matmul_fwd_impl call. gw's K (the rows) stays split over
+# "batch": the data ranks' float gradients are summed by the step.
+def _split_plan(split, a):
+    b = ("batch",)
+    if split == "col":
+        return {"fwd": (b, (), None), "gx": (b + (a,), (a,), a),
+                "gw": (b, b, None)}
+    if split == "row":
+        return {"fwd": (b + (a,), (a,), a), "gx": (b, (), None),
+                "gw": (b + (a,), b, None)}
+    return {"fwd": (b, (), None), "gx": (b, (), None), "gw": (b, b, None)}
 
 
 class _ApproxMatmul(torch.autograd.Function):
     """SIMDive forward; straight-through exact backward, or with
     ``backward='approx'`` both gradient products on the SIMDive matmul (the
     reference's ``custom_vjp`` pair ``_approx_matmul_fwd`` /
-    ``_approx_matmul_bwd``)."""
+    ``_approx_matmul_bwd``). ``split`` / ``axis``: the weight's split on a
+    mesh (:func:`_split_plan`); a column-parallel linear's input gradient
+    is summed over ``axis`` here (integer partial sums under
+    ``backward='approx'``), so no region function sums it again."""
 
     @staticmethod
-    def forward(ctx, x, w, cfg):
-        ctx.cfg = cfg
+    def forward(ctx, x, w, cfg, split, axis):
+        ctx.cfg, ctx.plan = cfg, _split_plan(split, axis)
+        ctx.split, ctx.axis = split, axis
         ctx.save_for_backward(x, w)
-        return _approx_matmul_fwd_impl(x, w, cfg)
+        return _approx_matmul_fwd_impl(x, w, cfg, *ctx.plan["fwd"])
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        cfg = ctx.cfg
+        cfg, plan = ctx.cfg, ctx.plan
         if cfg.backward == "approx" and _matmul_active(cfg):
             # both products through the forward's own quantize + matmul_emul
             # dispatch, in float32: gx = g @ w^T (g one global scale, w^T
             # per column), gw = x^T @ g (x^T one global scale, g per column)
             gf = g.to(torch.float32)
-            gx = _approx_matmul_fwd_impl(gf, w.to(torch.float32).T, cfg)
+            gx = _approx_matmul_fwd_impl(gf, w.to(torch.float32).T, cfg,
+                                         *plan["gx"])
             x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
             gw = _approx_matmul_fwd_impl(x2.T, gf.reshape(-1, gf.shape[-1]),
-                                         cfg)
-            return gx.to(x.dtype), gw.to(w.dtype), None
+                                         cfg, *plan["gw"])
+            return gx.to(x.dtype), gw.to(w.dtype), None, None, None
         dt = torch.promote_types(g.dtype, w.dtype)
-        gx = torch.einsum("...n,kn->...k", g.to(dt), w.to(dt)).to(x.dtype)
+        gx = torch.einsum("...n,kn->...k", g.to(dt), w.to(dt))
+        if ctx.split == "col":
+            from repro_torch.launch.sharding import all_reduce
+
+            gx = all_reduce(gx.contiguous(), ctx.axis)
+        gx = gx.to(x.dtype)
         dt = torch.promote_types(x.dtype, g.dtype)
         gw = torch.einsum("...k,...n->kn", x.to(dt), g.to(dt)).to(w.dtype)
-        return gx, gw, None
+        return gx, gw, None, None, None
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
-                  cfg: ApproxConfig) -> torch.Tensor:
+                  cfg: ApproxConfig, split: str | None = None,
+                  axis: str = "ff") -> torch.Tensor:
     """Float-in/out matmul with SIMDive products; exact grads (STE), or
     with ``cfg.backward == 'approx'`` SIMDive gradient products.
 
@@ -442,8 +493,17 @@ def approx_matmul(x: torch.Tensor, w: torch.Tensor,
     backward makes two more such products a call, at new shapes: ``gx``
     (M, N) x (N, K) and ``gw`` (K, M) x (M, N), M the rows of ``x`` — on
     the card two more ``logmatmul`` launches.
+
+    On a bound mesh (:mod:`repro_torch.launch.sharding`) ``x`` is this
+    rank's rows of the batch and ``w`` this rank's shard: ``split`` None
+    (replicated), ``'col'`` (output dim split over the logical ``axis``,
+    ``x`` replicated over it) or ``'row'`` (input dim split, ``x`` split
+    too). Every scale is then the whole tensor's (``all_reduce`` MAX) and
+    K-split integer sums are added before the rescale, so the forward and,
+    over the split axis, both gradient products equal the unsplit
+    linear's bit for bit.
     """
-    return _ApproxMatmul.apply(x, w, cfg)
+    return _ApproxMatmul.apply(x, w, cfg, split, axis)
 
 
 def approx_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

@@ -1,12 +1,15 @@
-"""Training driver: train step, checkpoint/restart, deterministic data.
+"""Training driver: sharded train step, checkpoint/restart, deterministic
+data.
 
-Counterpart of ``repro.launch.train`` on one device. Fault-tolerance
-contract, as the reference's:
+Counterpart of ``repro.launch.train``. Fault-tolerance contract, as the
+reference's:
   * checkpoints are atomic (tmp-dir + rename) and written async,
   * ``--resume auto`` restarts from the newest complete checkpoint,
   * data order is a pure function of (seed, step) and a precision
     schedule's rung a pure function of the step — a restart replays the
-    exact batch and policy sequence, so loss curves are bitwise continuous.
+    exact batch and policy sequence, so loss curves are bitwise continuous,
+  * restore re-lays-out onto the *current* mesh (elastic: a job
+    checkpointed on N ranks resumes on M).
 On the card that last point needs deterministic kernels: :func:`main`
 turns on :func:`deterministic` there (an op without a deterministic form
 raises); the CPU's kernels are deterministic already.
@@ -17,14 +20,28 @@ SIMDive divider (``elemwise``); ``--backward approx`` puts both gradient
 products of every linear on the multiplier too. Attention always runs the
 differentiable chunked path (:func:`repro_torch.models.layers.
 chunked_attention`): the attention kernels are forward-only, as the
-reference's Pallas kernel is. The reference's mesh (``--tp`` > 1, the
-``compress_psum`` all-reduce) waits for the port's mesh (ROADMAP A-10)
-and is refused.
+reference's Pallas kernel is.
+
+The mesh: when the default process group has more than one rank,
+:func:`train` builds ``make_host_mesh(model=tp)`` (``(world / tp, tp)``,
+dims ``("data", "model")``) and binds the logical rules to it, as the
+reference does when it sees more than one device; with one rank there is
+no mesh and ``--tp`` changes nothing. Each rank holds its slice of every
+parameter (``sanitize_specs(param_specs(...))``) and takes its data
+rank's rows of the same global batch; the model's sharded paths call the
+collectives (:mod:`repro_torch.launch.sharding`), the loss is the whole
+batch's, and the step adds the data ranks' gradients (each rank's
+backward carries its rows' share of the mean). Checkpoints hold full
+arrays (gathered on the host) and restore onto any mesh.
 
 Usage (CPU smoke; on the card drop ``--smoke --device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --device cpu --steps 20 --batch 8 --seq 128 \\
       --ckpt-dir /tmp/ck --save-every 10
+Sharded, one process a rank (``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``; NCCL on the card, gloo on the CPU):
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch stablelm-1.6b --tp 2 --steps 20 --batch 8 --seq 512
 """
 from __future__ import annotations
 
@@ -32,21 +49,33 @@ import argparse
 import os
 import sys
 import time
+from contextlib import ExitStack
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.approx import ApproxConfig
 from repro_torch.core.device import require_device
-from repro_torch.core.tree import tree_map, value_and_grad
+from repro_torch.core.tree import tree_leaves, tree_map, value_and_grad
 from repro_torch.data import make_source, torch_batch
+from repro_torch.launch import sharding as shardlib
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.sharding import P
+from repro_torch.launch.specs import (
+    Sharding,
+    as_shardings,
+    batch_axes_for,
+    param_shapes,
+    param_specs,
+    sanitize_specs,
+)
 from repro_torch.models import build
+from repro_torch.models.transformer import check_mesh
 from repro_torch.optim import adamw, cosine_schedule
 
-__all__ = ["make_train_step", "train", "main"]
-
-_MESH = ("needs the port's mesh, which is not built yet (ROADMAP A-10): "
-         "the port trains on one device")
+__all__ = ["make_train_step", "train", "main", "model_split",
+           "sum_over_data", "local_rows", "start_process_group",
+           "placement"]
 
 
 def _add(a, b):
@@ -54,19 +83,88 @@ def _add(a, b):
                     else x + y, a, b)
 
 
+def sum_over_data(grads):
+    """The data ranks' gradients added: every non-None leaf flattened into
+    one float32 buffer, one ``all_reduce`` SUM over ``"batch"``, the leaves
+    cut back out in their dtypes. A no-op without a data group."""
+    import torch
+
+    if shardlib.group("batch") is None:
+        return grads
+    leaves = [g for g in tree_leaves(grads) if g is not None]
+    if not leaves:
+        return grads
+    flat = shardlib.all_reduce(
+        torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]),
+        "batch")
+    summed, pos = {}, 0
+    for g in leaves:
+        summed[id(g)] = flat[pos:pos + g.numel()].view(g.shape).to(g.dtype)
+        pos += g.numel()
+    return tree_map(lambda g: None if g is None else summed[id(g)], grads)
+
+
+def model_split(pspecs, mesh):
+    """For :func:`~repro_torch.optim.optimizers.global_norm`: ``"model"``
+    where a leaf's spec splits it over the model axis (of more than one
+    rank), else None."""
+    n = shardlib.axis_sizes(mesh).get("model", 1)
+
+    def one(spec):
+        names = [a for part in spec if part is not None
+                 for a in (part if isinstance(part, tuple) else (part,))]
+        return "model" if n > 1 and "model" in names else None
+
+    return tree_map(one, pspecs)
+
+
+def placement(cfg, mesh, grad_compress: bool = False):
+    """``(shardings, split)`` of a training run on ``mesh`` (rules bound):
+    the checkpoint tree's :class:`~repro_torch.launch.specs.Sharding`s —
+    parameters by ``sanitize_specs(param_specs(...))``, the moments as
+    their parameters, the step replicated, the residual (under
+    ``grad_compress``) as its parameter — and :func:`model_split`'s tree.
+    Raises first where the model axis would split ``cfg`` in a way the
+    port does not run (:func:`~repro_torch.models.transformer.
+    check_mesh`); nothing is allocated."""
+    check_mesh(cfg)
+    shapes = param_shapes(cfg)
+    pspecs = sanitize_specs(param_specs(shapes), shapes, mesh)
+    psh = as_shardings(mesh, pspecs)
+    shardings = {"params": psh,
+                 "opt": {"mu": psh, "nu": psh, "step": Sharding(mesh, P())}}
+    if grad_compress:
+        shardings["res"] = psh
+    return shardings, model_split(pspecs, mesh)
+
+
 def make_train_step(lm, opt, microbatch: int = 1,
-                    grad_compress: bool = False):
+                    grad_compress: bool = False,
+                    compress_axis: str | None = None, split=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     ``microbatch`` > 1: gradient accumulation over that many equal row
     splits of the batch (the same math, a lower activation peak): the
     splits' gradients and losses summed in order, then divided by
     ``microbatch``. ``grad_compress``: int8 + error-feedback quantization
-    of the gradients (:func:`repro_torch.optim.compress_local`); the step
-    grows a residual tree, ``step(params, opt_state, res, batch) ->
-    (params, opt_state, res, metrics)``. The reference's mesh all-reduce
-    (``compress_axis``) waits for the port's mesh.
+    of the gradients; the step grows a residual tree, ``step(params,
+    opt_state, res, batch) -> (params, opt_state, res, metrics)``.
+
+    On a bound mesh the data ranks' gradients are added
+    (:func:`sum_over_data`), then ``compress_local`` quantizes them under
+    ``grad_compress``; with ``compress_axis`` (the data axis, ``"batch"``
+    or ``"data"``) the compressed all-reduce
+    :func:`~repro_torch.optim.compress_psum` over it takes the plain sum's
+    place, as the reference's ``compress_axis`` does. Another axis is
+    refused: over the model ranks it would add shards of different
+    parameters. ``split``: the optimizer's global-norm split tree
+    (:func:`model_split`) where the mesh splits parameters.
     """
+    if compress_axis not in (None, "batch", "data"):
+        raise ValueError(
+            f"compress_axis {compress_axis!r}: the compressed all-reduce "
+            "adds the data ranks' gradients ('batch' or 'data'); over "
+            "another axis it would add shards of different parameters")
     grad_fn = value_and_grad(lm.train_loss)
 
     def compute(params, batch):
@@ -84,19 +182,28 @@ def make_train_step(lm, opt, microbatch: int = 1,
                          grads)
         return loss / microbatch, grads
 
+    def update(grads, opt_state, params):
+        if split is None:
+            return opt.update(grads, opt_state, params)
+        return opt.update(grads, opt_state, params, split=split)
+
     if not grad_compress:
         def step(params, opt_state, batch):
             loss, grads = compute(params, batch)
-            params, opt_state, metrics = opt.update(grads, opt_state, params)
+            params, opt_state, metrics = update(sum_over_data(grads),
+                                                opt_state, params)
             return params, opt_state, {"loss": loss, **metrics}
         return step
 
-    from repro_torch.optim.grad_compress import compress_local
+    from repro_torch.optim.grad_compress import compress_local, compress_psum
 
     def step(params, opt_state, res, batch):
         loss, grads = compute(params, batch)
-        grads, res = compress_local(grads, res)
-        params, opt_state, metrics = opt.update(grads, opt_state, params)
+        if compress_axis is not None:
+            grads, res = compress_psum(grads, res, compress_axis)
+        else:
+            grads, res = compress_local(sum_over_data(grads), res)
+        params, opt_state, metrics = update(grads, opt_state, params)
         return params, opt_state, res, {"loss": loss, **metrics}
     return step
 
@@ -106,9 +213,11 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
           lr: float = 3e-4, tp: int = 1, log_every: int = 10,
           keep: int = 3, stop_after: int | None = None,
           microbatch: int = 1, schedule=None, grad_compress: bool = False,
-          device="cuda"):
+          device="cuda", step_times: list | None = None):
     """Train ``cfg`` on ``device`` for ``steps`` steps; returns ``(params,
-    losses)``, the losses of the steps this call ran, as floats.
+    losses)``, the losses of the steps this call ran, as floats (on a mesh,
+    ``params`` are this rank's shards). ``step_times``: a list to append
+    each step's host seconds to (the loss's read-back ends each step).
 
     ``stop_after``: simulate preemption — exit after that many steps
     WITHOUT the final checkpoint (only periodic commits survive), exactly
@@ -125,86 +234,131 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
 
     ``grad_compress``: int8 error-feedback gradient compression; the
     residual tree joins the checkpoint so resume carries the feedback
-    state too. ``tp`` > 1 raises: the port has no mesh yet.
+    state too.
+
+    ``tp``: the model ranks of the mesh built when the default process
+    group has more than one rank (module docstring); with one rank no
+    mesh is bound and the run is unsharded, whatever ``tp`` says.
     """
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp} {_MESH}")
     lm = build(cfg, device)
     opt = adamw(cosine_schedule(lr, warmup=min(100, steps // 10 + 1),
                                 total=steps))
+    import torch.distributed as dist
+
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_host_mesh(model=tp) if ranks > 1 else None
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is None and tp != 1:
+        print(f"# mesh: none bound (one process): --tp {tp} trains "
+              "unsharded", flush=True)
     source = make_source(cfg, shape, seed=seed)
 
-    start_step = 0
-    params = opt_state = res = None
-    if ckpt_dir and resume == "auto" and ckpt.latest_step(ckpt_dir) is not None:
-        start_step, tree = ckpt.restore(ckpt_dir, device=lm.device)
-        params, opt_state = tree["params"], tree["opt"]
-        res = tree.get("res")
-        print(f"[resume] step {start_step} from {ckpt_dir}")
+    with ExitStack() as stack:
+        shardings = split = None
+        if mesh is not None:
+            stack.enter_context(
+                shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}))
+            n_data = shardlib.logical_axis_size("batch")
+            if shape.global_batch % n_data:
+                raise ValueError(f"global batch {shape.global_batch} does "
+                                 f"not split over {n_data} data ranks")
+            shardings, split = placement(cfg, mesh, grad_compress)
+            if lead:
+                print(f"# mesh: {dict(zip(mesh.axis_names, mesh.shape))}",
+                      flush=True)
 
-    # One train step per ApproxConfig: a schedule rung boundary swaps in a
-    # model rebuilt under that rung's policy (cached, so a schedule that
-    # revisits a rung reuses its step). Key ``None`` is the unscheduled
-    # path — exactly ``cfg`` as handed in.
-    steps_by_cfg: dict = {}
+        start_step = 0
+        params = opt_state = res = None
+        if ckpt_dir and resume == "auto" \
+                and ckpt.latest_step(ckpt_dir) is not None:
+            start_step, tree = ckpt.restore(ckpt_dir, shardings=shardings,
+                                            device=lm.device)
+            params, opt_state = tree["params"], tree["opt"]
+            res = tree.get("res")
+            if lead:
+                print(f"[resume] step {start_step} from {ckpt_dir}")
 
-    def step_for(acfg):
-        fn = steps_by_cfg.get(acfg)
-        if fn is None:
-            lm_s = lm if acfg is None else build(cfg.with_approx(acfg),
-                                                 lm.device)
-            fn = make_train_step(lm_s, opt, microbatch=microbatch,
-                                 grad_compress=grad_compress)
-            steps_by_cfg[acfg] = fn
-        return fn
+        # One train step per ApproxConfig: a schedule rung boundary swaps in
+        # a model rebuilt under that rung's policy (cached, so a schedule
+        # that revisits a rung reuses its step). Key ``None`` is the
+        # unscheduled path — exactly ``cfg`` as handed in.
+        steps_by_cfg: dict = {}
 
-    if params is None:
-        params = lm.init(seed)
-        opt_state = opt.init(params)
-    if grad_compress and res is None:
-        from repro_torch.optim import zero_residual
-        res = zero_residual(params)
+        def step_for(acfg):
+            fn = steps_by_cfg.get(acfg)
+            if fn is None:
+                lm_s = lm if acfg is None else build(cfg.with_approx(acfg),
+                                                     lm.device)
+                fn = make_train_step(lm_s, opt, microbatch=microbatch,
+                                     grad_compress=grad_compress,
+                                     split=split)
+                steps_by_cfg[acfg] = fn
+            return fn
 
-    def ckpt_tree():
-        tree = {"params": params, "opt": opt_state}
-        if grad_compress:
-            tree["res"] = res
-        return tree
+        if params is None:
+            # each leaf cut to this rank's slice as it is drawn
+            params = lm.init(seed, shardings and shardings["params"])
+            opt_state = opt.init(params)
+        if grad_compress and res is None:
+            from repro_torch.optim import zero_residual
+            res = zero_residual(params)
 
-    losses = []
-    t0 = time.perf_counter()
-    for step in range(start_step, steps):
-        acfg = schedule.config_at(step, cfg.approx) \
-            if schedule is not None else None
-        fn = step_for(acfg)
-        batch = torch_batch(source.batch(step), lm.device)
-        if grad_compress:
-            params, opt_state, res, metrics = fn(params, opt_state, res,
-                                                 batch)
-        else:
-            params, opt_state, metrics = fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if step % log_every == 0 or step == steps - 1:
-            dt = time.perf_counter() - t0
-            rung = ""
-            if schedule is not None:
-                r = schedule.rung_at(step)
-                rung = f" rung={r.label or r.start_step}"
-            print(f"[step {step:5d}] loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e}{rung} ({dt:.1f}s)",
-                  flush=True)
-        if ckpt_dir and save_every and (step + 1) % save_every == 0:
-            ckpt.save_async(ckpt_dir, step + 1, ckpt_tree())
-            ckpt.gc_keep_last(ckpt_dir, keep=keep)
-        if stop_after is not None and step + 1 >= stop_after:
-            ckpt.wait_pending()   # flush committed periodic saves only
-            return params, losses
-    if ckpt_dir:
-        ckpt.wait_pending()
-        ckpt.save(ckpt_dir, steps, ckpt_tree())
+        def ckpt_tree():
+            tree = {"params": params, "opt": opt_state}
+            if grad_compress:
+                tree["res"] = res
+            return tree
+
+        losses = []
+        t0 = t_step = time.perf_counter()
+        for step in range(start_step, steps):
+            acfg = schedule.config_at(step, cfg.approx) \
+                if schedule is not None else None
+            fn = step_for(acfg)
+            batch = torch_batch(local_rows(source.batch(step)), lm.device)
+            if grad_compress:
+                params, opt_state, res, metrics = fn(params, opt_state, res,
+                                                     batch)
+            else:
+                params, opt_state, metrics = fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            if step_times is not None:
+                now = time.perf_counter()
+                step_times.append(now - t_step)
+                t_step = now
+            if lead and (step % log_every == 0 or step == steps - 1):
+                dt = time.perf_counter() - t0
+                rung = ""
+                if schedule is not None:
+                    r = schedule.rung_at(step)
+                    rung = f" rung={r.label or r.start_step}"
+                print(f"[step {step:5d}] loss={loss:.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"lr={float(metrics['lr']):.2e}{rung} ({dt:.1f}s)",
+                      flush=True)
+            if ckpt_dir and save_every and (step + 1) % save_every == 0:
+                ckpt.save_async(ckpt_dir, step + 1, ckpt_tree(), shardings)
+                if lead:
+                    ckpt.gc_keep_last(ckpt_dir, keep=keep)
+            if stop_after is not None and step + 1 >= stop_after:
+                ckpt.wait_pending()   # flush committed periodic saves only
+                return params, losses
+        if ckpt_dir:
+            ckpt.wait_pending()
+            ckpt.save(ckpt_dir, steps, ckpt_tree(), shardings)
     return params, losses
+
+
+def local_rows(batch: dict) -> dict:
+    """This data rank's rows of a global numpy batch (all of it unbound):
+    ``B / n`` rows from ``rank * B / n``, ``n`` the ranks of ``"batch"``."""
+    n = shardlib.logical_axis_size("batch")
+    if n == 1:
+        return batch
+    r = shardlib.rank_in("batch")
+    return {k: v[r * (v.shape[0] // n):(r + 1) * (v.shape[0] // n)]
+            for k, v in batch.items()}
 
 
 def deterministic():
@@ -216,6 +370,29 @@ def deterministic():
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
+
+
+def start_process_group(device) -> None:
+    """Start the default process group from ``torchrun``'s environment
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``) when it names more than one rank: NCCL on the card
+    (each rank on its ``LOCAL_RANK`` card), gloo on the CPU. Nothing
+    without one."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return
+    backend = "gloo"
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        backend = "nccl"
+    dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                            world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
 
 
 def main(argv=None):
@@ -263,10 +440,10 @@ def main(argv=None):
                          "cosine similarity falls below this")
     args = ap.parse_args(argv)
 
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp} {_MESH}")
-    if require_device(args.device).type == "cuda":
+    dev = require_device(args.device)
+    if dev.type == "cuda":
         deterministic()
+    start_process_group(dev)
     cfg = get_config(args.arch, smoke=args.smoke)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     policy = None

@@ -88,7 +88,46 @@ def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
     return QuantizedWeight(q=q, scale=scale.to(torch.float32))
 
 
-def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT) -> torch.Tensor:
+class _SplitLinear(torch.autograd.Function):
+    """A plain (float) linear whose weight a mesh splits over the logical
+    axis ``axis``: ``'col'`` (output dim; ``x`` replicated over the axis)
+    or ``'row'`` (input dim; ``x`` split too). Where the ranks' partial
+    sums are added — a row-parallel forward, a column-parallel input
+    gradient — each rank's part is a float32 product and the parts are
+    summed in float32, then rounded once to the activation dtype, as the
+    unsplit product rounds its float32 accumulator once. Everything else
+    is the activation-dtype matmul of the unsplit linear."""
+
+    @staticmethod
+    def forward(ctx, x, w, kind, axis):
+        from repro_torch.launch.sharding import all_reduce
+
+        ctx.kind, ctx.axis, ctx.w_dtype = kind, axis, w.dtype
+        w = w.to(x.dtype)               # the unsplit linear's cast weight
+        ctx.save_for_backward(x, w)
+        if kind == "col":
+            return x @ w
+        y = x.to(torch.float32) @ w.to(torch.float32)
+        return all_reduce(y, axis).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.launch.sharding import all_reduce
+
+        x, w = ctx.saved_tensors
+        if ctx.kind == "col":
+            gx = all_reduce(g.to(torch.float32) @ w.to(torch.float32).T,
+                            ctx.axis).to(x.dtype)
+        else:
+            gx = g @ w.T
+        # the weight gradient as autograd takes the unsplit one: the rows
+        # folded, one mm
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw.to(ctx.w_dtype), None, None
+
+
+def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT,
+          split: tuple | None = None) -> torch.Tensor:
     """Matmul with quantized-weight and SIMDive-emulation support.
 
     A :class:`QuantizedWeight` under active emulation feeds its int8
@@ -96,15 +135,31 @@ def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT) -> torch.Tensor:
     (:func:`approx_matmul_int8`); inactive, it is dequantized. A float
     weight under active emulation runs :func:`approx_matmul`; otherwise
     the plain matmul in the activation dtype.
+
+    ``split``: on a bound mesh, ``(kind, axis)`` — ``w`` is this rank's
+    shard of a weight split over the logical ``axis``, by output columns
+    (``'col'``: ``x`` replicated over the axis, the output split) or by
+    input rows (``'row'``: ``x`` split, the output replicated). The result
+    is this rank's part of the unsplit linear's (:class:`_SplitLinear`,
+    :func:`approx_matmul`).
     """
     active = approx.enabled and approx.use_in_linear and approx.emulate \
         and approx.active_for("matmul")
     if isinstance(w, QuantizedWeight):
+        if split is not None:
+            raise NotImplementedError("a split int8 QuantizedWeight: the "
+                                      "port's mesh trains float weights")
         if active:
             return approx_matmul_int8(x, w.q, w.scale, approx)
         return x @ (w.q.to(x.dtype) * w.scale.to(x.dtype))
     if active:
-        return approx_matmul(x, w.to(torch.float32), approx).to(x.dtype)
+        return approx_matmul(x, w.to(torch.float32), approx,
+                             *(split or ())).to(x.dtype)
+    if split is not None:
+        from repro_torch.launch.sharding import group
+
+        if group(split[1]) is not None:
+            return _SplitLinear.apply(x, w, *split)
     return x @ w.to(x.dtype)
 
 
@@ -337,7 +392,7 @@ def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
 
 
 # -------------------------------------------------------------------- mlp --
-def mlp(x, p, act, approx: ApproxConfig = EXACT):
+def mlp(x, p, act, approx: ApproxConfig = EXACT, split: bool = False):
     """Gated (swiglu) or plain-gelu MLP; weights may be QuantizedWeight.
 
     gelu is the tanh form, as ``jax.nn.gelu``'s default
@@ -353,11 +408,18 @@ def mlp(x, p, act, approx: ApproxConfig = EXACT):
     0.0156, is one ulp at x = 2.08), by up to 0.003 in the negative tail
     below it, where ``1 + tanh`` cancels, and where the result is
     subnormal.
+
+    ``split``: on a bound mesh, the hidden dim is split over the logical
+    axis ``"ff"`` — ``w1`` / ``w3`` are this rank's columns, ``w2`` its
+    rows; the hidden activation stays split and ``w2``'s partial sums are
+    added (:func:`dense`).
     """
+    col, row = (("col", "ff"), ("row", "ff")) if split else (None, None)
     if act == "swiglu":
-        h = F.silu(dense(x, p["w1"], approx)) * dense(x, p["w3"], approx)
+        h = F.silu(dense(x, p["w1"], approx, col)) * dense(x, p["w3"],
+                                                           approx, col)
     elif act == "gelu":
-        h = F.gelu(dense(x, p["w1"], approx), approximate="tanh")
+        h = F.gelu(dense(x, p["w1"], approx, col), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return dense(h, p["w2"], approx)
+    return dense(h, p["w2"], approx, row)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import require_device
+from repro_torch.launch import sharding as shardlib
 from .layers import apply_norm, dense
 from .loss import mean_xent
 from .transformer import (
@@ -54,23 +55,43 @@ class LM:
     device: torch.device
 
     # ------------------------------------------------------------- params --
-    def init(self, seed_or_generator: int | torch.Generator = 0) -> dict:
+    def init(self, seed_or_generator: int | torch.Generator = 0,
+             shardings=None) -> dict:
         """Random parameters on ``self.device``: embed normal * d^-0.5,
         linears uniform(+-fan_in^-0.5), unit norms, zero biases; one
         embedding table and one head a codebook. Each leaf is allocated
         once, so the peak memory of a call is the parameters' bytes and
-        one layer's leaf at most."""
+        one layer's leaf at most. On the ``meta`` device the tree holds
+        shapes and dtypes alone (the sharding specs' input).
+
+        ``shardings``: a tree of this rank's
+        :class:`~repro_torch.launch.specs.Sharding`s for the parameters
+        (:func:`repro_torch.launch.train.placement`). Each leaf (a stacked
+        one a layer at a time) is drawn whole, in the unsplit order, and
+        cut to this rank's slice at once: the unsplit tree's values
+        sliced, at a peak of this rank's shards and one whole leaf of a
+        layer (or the embedding, or the head)."""
         cfg = self.cfg
         gen = seed_or_generator
-        if not isinstance(gen, torch.Generator):
+        if self.device.type == "meta":
+            gen = None                  # shapes and dtypes only: no draws
+        elif not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(gen))
+
+        def cut(name, whole):
+            if shardings is None:
+                return whole
+            return shardings[name].local(whole).clone()
+
         pdt = _dt(cfg.param_dtype)
         n_emb = max(cfg.n_codebooks, 1)
         params: dict[str, Any] = {}
-        params["embed"] = torch.randn(
+        params["embed"] = cut("embed", torch.randn(
             (n_emb, cfg.vocab_size, cfg.d_model), generator=gen, dtype=pdt,
-            device=self.device).mul_(cfg.d_model ** -0.5)
-        params["stack"] = init_stack(gen, cfg, pdt, self.device)
+            device=self.device).mul_(cfg.d_model ** -0.5))
+        params["stack"] = init_stack(
+            gen, cfg, pdt, self.device,
+            None if shardings is None else shardings["stack"])
         params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
                                                 device=self.device)}
         if cfg.norm == "layernorm":
@@ -78,9 +99,9 @@ class LM:
                 (cfg.d_model,), dtype=pdt, device=self.device)
         if not cfg.tie_embeddings:
             lim = cfg.d_model ** -0.5
-            params["head"] = torch.rand(
+            params["head"] = cut("head", torch.rand(
                 (n_emb, cfg.d_model, cfg.vocab_size), generator=gen,
-                dtype=pdt, device=self.device).mul_(2).sub_(1).mul_(lim)
+                dtype=pdt, device=self.device).mul_(2).sub_(1).mul_(lim))
         return params
 
     # -------------------------------------------------------------- embed --
@@ -99,12 +120,31 @@ class LM:
         cfg = self.cfg
         adt = _dt(cfg.dtype)
         tokens, emb = batch["tokens"], params["embed"]
-        if cfg.n_codebooks:
-            x = emb[0][tokens[..., 0]].to(adt)
-            for c in range(1, cfg.n_codebooks):
-                x = x + emb[c][tokens[..., c]].to(adt)
+        split = emb.shape[1] < cfg.vocab_size
+        if split:
+            # this rank's vocabulary rows: look up the tokens inside them,
+            # zeros elsewhere, and add over the model ranks
+            v_loc = emb.shape[1]
+            local = tokens - shardlib.rank_in("vocab") * v_loc
+            inside = ((local >= 0) & (local < v_loc))[..., None]
+            tokens = local.clamp(0, v_loc - 1)
+
+            def look(c, t):
+                e = emb[c][t].to(adt)
+                return torch.where(inside if t.ndim == tokens.ndim
+                                   else inside[..., c, :], e,
+                                   torch.zeros_like(e))
         else:
-            x = emb[0][tokens].to(adt)
+            def look(c, t):
+                return emb[c][t].to(adt)
+        if cfg.n_codebooks:
+            x = look(0, tokens[..., 0])
+            for c in range(1, cfg.n_codebooks):
+                x = x + look(c, tokens[..., c])
+        else:
+            x = look(0, tokens)
+        if split:
+            x = shardlib.reduce_from(x, "vocab")
         if cfg.vision_stub and "patch_embeds" in batch:
             B, S, D = x.shape
             pe = batch["patch_embeds"].to(adt)
@@ -136,7 +176,11 @@ class LM:
         cfg = self.cfg
         w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
             else params["head"]
-        outs = [dense(x, w[c]) for c in range(max(cfg.n_codebooks, 1))]
+        # a head the placement split over the vocabulary (a tied head
+        # takes the embedding's shard) keeps its logits split into the loss
+        split = ("col", "vocab") if w.shape[-1] < cfg.vocab_size else None
+        outs = [dense(x, w[c], split=split)
+                for c in range(max(cfg.n_codebooks, 1))]
         return torch.stack(outs, dim=-2) if cfg.n_codebooks else outs[0]
 
     # --------------------------------------------------------------- loss --
@@ -144,18 +188,23 @@ class LM:
         """Mean token cross-entropy of ``batch["labels"]`` (masked by
         ``batch["loss_mask"]`` when given), averaged over the codebooks,
         plus ``0.01 *`` the summed MoE load-balance losses: a float32
-        scalar, differentiable in ``params``."""
+        scalar, differentiable in ``params``. On a bound mesh
+        (:mod:`repro_torch.launch.sharding`) ``params`` are this rank's
+        shards and ``batch`` its rows: the loss is the whole batch's, and
+        the backward carries this rank's share of its gradient (the step
+        adds the data ranks')."""
         cfg = self.cfg
         logits, aux = self._forward(params, batch)
         labels, mask = batch["labels"], batch.get("loss_mask")
+        V = cfg.vocab_size
         if cfg.n_codebooks:
-            loss = mean_xent(logits[..., 0, :], labels[..., 0], mask)
+            loss = mean_xent(logits[..., 0, :], labels[..., 0], mask, V)
             for c in range(1, cfg.n_codebooks):
                 loss = loss + mean_xent(logits[..., c, :], labels[..., c],
-                                        mask)
+                                        mask, V)
             loss = loss / cfg.n_codebooks
         else:
-            loss = mean_xent(logits, labels, mask)
+            loss = mean_xent(logits, labels, mask, V)
         return loss + 0.01 * aux
 
     def logits(self, params, batch):

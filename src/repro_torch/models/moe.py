@@ -16,8 +16,14 @@ stable descending sort, so ties go to the lower expert index as in
 The routed experts are exact batched matmuls in the activation dtype, even
 under ``ApproxConfig.emulate``; only the shared expert goes through
 :func:`~repro_torch.models.layers.dense` (the SIMDive ``logmatmul`` kernel
-when emulated), as in the reference. The reference's ``shard_map`` path
-(``_moe_ffn_spmd``) needs a device mesh and is not ported.
+when emulated), as in the reference.
+
+On a bound mesh (:mod:`repro_torch.launch.sharding`) :func:`moe_ffn` takes
+:func:`_moe_ffn_spmd`, the reference's ``shard_map`` path: dispatch local
+to each data shard, the experts' hidden dim split over the model ranks,
+one ``all_reduce`` of the token-space output, the load-balance statistics
+averaged over the data ranks; its shared expert runs as plain matmuls, as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.approx import ApproxConfig
-from .layers import EXACT, dense, nest, uniform_
+from repro_torch.launch import sharding as shardlib
+from .layers import EXACT, QuantizedWeight, dense, nest, uniform_
 
 
 def moe_leaves(d_model, d_ff, n_experts, n_shared):
@@ -99,13 +106,74 @@ def _aux_terms(probs, gate_idx):
     return me, ce
 
 
+def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split):
+    """The sharded block: ``x`` (B_loc,S,D) is this data rank's rows;
+    under ``split`` ``w1`` / ``w3`` (E,D,F_loc) and ``w2`` (E,F_loc,D) are
+    this model rank's slice of the experts' hidden dim (and the shared
+    expert's), else the whole block, which every model rank computes. Dispatch is
+    local (one group a sequence); each rank's expert outputs are partial
+    sums over its hidden slice, combined back to token space (and the
+    shared expert's partial product added) before ONE ``all_reduce`` of
+    (B_loc,S,D). The router's statistics ``me`` / ``ce`` are averaged over
+    the data ranks, so every rank holds the whole batch's aux loss.
+
+    Autograd: ``x`` and the gates enter the split region through
+    :func:`~repro_torch.launch.sharding.copy_to` (their gradients from the
+    ranks' partial outputs are summed), the output leaves it through
+    :func:`~repro_torch.launch.sharding.reduce_from`; ``me`` leaves the
+    data region the same way, so each data rank's backward carries its
+    rows' share of the aux loss's gradient."""
+    G, Tg, D = x.shape
+    E = p["router"].shape[1]
+    dt = x.dtype
+    logits = (x.reshape(-1, D) @ p["router"].to(dt)).to(
+        torch.float32).reshape(G, Tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    xc = shardlib.copy_to(x, "ff") if split else x
+    buf, dst, gates, gi, gate_idx = _dispatch(xc, probs, top_k,
+                                              capacity_factor)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w1"].to(dt))) \
+        * torch.einsum("gecd,edf->gecf", buf, p["w3"].to(dt))
+    C = buf.shape[2]
+    y = torch.einsum("gecf,efd->gecd", h, p["w2"].to(dt)).reshape(
+        G, E * C, D)                      # partial over the F shards
+    # combine back to token space BEFORE the all_reduce: one (G,Tg,D)
+    # reduction instead of a slot-space one
+    y = torch.cat([y, torch.zeros((G, 1, D), dtype=dt, device=y.device)],
+                  dim=1)
+    g = (shardlib.copy_to(gates, "ff") if split else gates).to(dt)
+    out_k = y.gather(1, dst[..., None].expand(G, Tg * top_k, D)) * g
+    out = out_k.reshape(G, Tg, top_k, D).sum(dim=2)
+    if "shared" in p:
+        sh = p["shared"]
+        hs = F.silu(xc @ sh["w1"].to(dt)) * (xc @ sh["w3"].to(dt))
+        out = out + hs @ sh["w2"].to(dt)         # also partial: one sum
+    if split:
+        out = shardlib.reduce_from(out, "ff")
+    me, ce = _aux_terms(probs, gate_idx)
+    n_b = shardlib.logical_axis_size("batch")
+    me = shardlib.reduce_from(me, "batch") / n_b
+    ce = shardlib.all_reduce(ce.detach().clone(), "batch") / n_b
+    return out, E * torch.sum(me * ce)
+
+
 def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
-            approx: ApproxConfig = EXACT, grouped: bool = True):
+            approx: ApproxConfig = EXACT, grouped: bool = True,
+            split: bool = False):
     """x: (B,S,D) -> (B,S,D), plus the load-balancing aux loss (a 0-d
-    float32 tensor): the reference's ``_moe_ffn_jnp``, which its
-    ``moe_ffn`` takes without a mesh. ``grouped`` dispatches one group a
-    sequence, else one group for the batch; a decode step's one token a
-    row is always one group, so its rows compete for slots."""
+    float32 tensor). Without a mesh, the reference's ``_moe_ffn_jnp``.
+    ``grouped`` dispatches one group a sequence, else one group for the
+    batch; a decode step's one token a row is always one group, so its
+    rows compete for slots. On a bound mesh a grouped multi-token call
+    with float experts takes :func:`_moe_ffn_spmd`, as the reference's
+    ``moe_ffn`` takes its ``shard_map`` path (its shared expert then runs
+    plain, whatever ``approx`` says). ``split``: the experts' weights are
+    this rank's slice of their hidden dim over the logical axis ``"ff"``
+    (the caller reads it from their width)."""
+    if (grouped and shardlib.active() and x.shape[1] > 1
+            and not isinstance(p["w1"], QuantizedWeight)):
+        return _moe_ffn_spmd(x, p, top_k=top_k,
+                             capacity_factor=capacity_factor, split=split)
     B, S, D = x.shape
     E = p["router"].shape[1]
     if not grouped or S == 1:

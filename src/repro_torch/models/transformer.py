@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import serving_segments
+from repro_torch.launch.sharding import logical_axis_size, scatter_to
 from .layers import (
     QuantizedWeight,
     apply_norm,
@@ -176,7 +177,8 @@ def hybrid_leaves(cfg: ModelConfig):
                 "zeros")])
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               shardings=None):
     """Stacked per-layer params (leading L axis): uniform(+-fan_in^-0.5)
     linears (an MoE block's experts and router too), unit norms, zero
     biases, and the recurrent layers' own limits and constants — the
@@ -185,24 +187,55 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
     in :func:`_layer_leaves`' order: the values a ``torch.stack`` of
     whole per-layer draws gives, without a second copy of the
     parameters. The hybrid stack adds its shared block and LoRA pairs
-    (:func:`hybrid_leaves`), drawn after the layers."""
+    (:func:`hybrid_leaves`), drawn after the layers.
+
+    ``shardings``: the stack's subtree of this rank's
+    :class:`~repro_torch.launch.specs.Sharding`s (the layer axis never
+    split). A split leaf is allocated at this rank's shape, and each
+    layer's draw is made whole, as unsplit, and cut to its slice at once:
+    the unsplit tree's values sliced, with one whole layer leaf beside
+    the shards at most."""
     _check_ported(cfg)
     L = cfg.n_layers
     if L == 0:
         return {"layers": {}}
     leaves = _layer_leaves(cfg)
-    flat = {path: torch.empty((L,) + shape, dtype=dtype, device=device)
+    shard = {path: _at(shardings["layers"], path) if shardings else None
+             for path, _, _ in leaves}
+    flat = {path: torch.empty(_local_shape((L,) + shape, shard[path]),
+                              dtype=dtype, device=device)
             for path, shape, _ in leaves}
     for i in range(L):
-        for path, _, init in leaves:
-            _fill(flat[path][i], init, gen)
+        for path, shape, init in leaves:
+            if flat[path].shape[1:] == shape:
+                _fill(flat[path][i], init, gen)
+            else:
+                whole = _fill(torch.empty(shape, dtype=dtype, device=device),
+                              init, gen)
+                flat[path][i].copy_(shard[path].local(whole[None])[0])
+                del whole
     out = {"layers": nest(flat)}
     if cfg.family == "hybrid":
-        extra = {path: _fill(torch.empty(shape, dtype=dtype, device=device),
-                             init, gen)
-                 for path, shape, init in hybrid_leaves(cfg)}
+        extra = {}
+        for path, shape, init in hybrid_leaves(cfg):
+            whole = _fill(torch.empty(shape, dtype=dtype, device=device),
+                          init, gen)
+            extra[path] = (whole if not shardings
+                           else _at(shardings, path).local(whole).clone())
         out.update(nest(extra))
     return out
+
+
+def _at(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _local_shape(shape: tuple, sharding) -> tuple:
+    if sharding is None:
+        return shape
+    return tuple(sharding.local(torch.empty(shape, device="meta")).shape)
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -224,15 +257,69 @@ def _rope_for(cfg: ModelConfig, positions):
                        cfg.mrope_sections if cfg.mrope else None), rot
 
 
+def check_mesh(cfg: ModelConfig) -> None:
+    """Raise, with the reason, where the bound mesh's model axis would
+    split ``cfg`` in a way the port does not run: the recurrent and
+    hybrid stacks (data-parallel only), and a split of ``wq`` or ``wk`` /
+    ``wv`` that :func:`~repro_torch.launch.specs.sanitize_specs` keeps
+    (the width divides the axis) but that cuts a head (the head count
+    does not). The reference's GSPMD pads such splits. Everything else
+    runs on what the placement gives: the model reads each weight's split
+    from its width (:func:`_qkv`, :func:`_ffn`)."""
+    tp = logical_axis_size("heads")
+    if tp == 1:
+        return
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    reasons = []
+    if cfg.family in ("ssm", "hybrid"):
+        reasons.append(f"the {cfg.family} stack runs data-parallel only "
+                       "(--tp 1; ROADMAP A-10d)")
+    else:
+        if H % tp and (H * dh) % tp == 0:
+            reasons.append(
+                f"wq's {H * dh} outputs split over {tp} model ranks would "
+                f"give each rank {H / tp:g} of {H} query heads of {dh} (a "
+                "cut head; GSPMD pads, the port does not)")
+        if KV % tp and (KV * dh) % tp == 0:
+            reasons.append(
+                f"wk / wv's {KV * dh} outputs split over {tp} ranks would "
+                f"cut one of {KV} kv heads")
+    if reasons:
+        raise NotImplementedError(f"{cfg.name} at tp {tp}: "
+                                  + "; ".join(reasons))
+
+
+def _width(w) -> int:
+    """A linear's output width as this rank holds it (an int8
+    :class:`QuantizedWeight`'s too)."""
+    return (w.q if isinstance(w, QuantizedWeight) else w).shape[-1]
+
+
+def _col(w, full: int, axis: str):
+    """``dense``'s ``split`` for a column-parallel linear: ``("col",
+    axis)`` where the placement gave this rank fewer than the ``full``
+    output columns, else None (the weight is whole)."""
+    return ("col", axis) if _width(w) < full else None
+
+
 def _qkv(p, h, cfg: ModelConfig, rope, rot):
     """q, k, v of one block: the linears, the biases (in the activation
     dtype), then qk-norm over d_head — always the exact ``rmsnorm``, as in
-    the reference, whatever ``use_in_norm`` says —, then RoPE."""
+    the reference, whatever ``use_in_norm`` says —, then RoPE.
+
+    On a bound mesh each weight's split is read from its own width: a
+    ``wq`` narrower than ``H * dh`` is this rank's columns (its heads), a
+    ``wk`` / ``wv`` narrower than ``KV * dh`` its kv heads; a whole one is
+    replicated (:func:`check_mesh` refuses splits that would cut a
+    head)."""
     B, S, _ = h.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = dense(h, p["wq"], cfg.approx)
-    k = dense(h, p["wk"], cfg.approx)
-    v = dense(h, p["wv"], cfg.approx)
+    dh = cfg.d_head
+    H, KV = _width(p["wq"]) // dh, _width(p["wk"]) // dh
+    q = dense(h, p["wq"], cfg.approx, _col(p["wq"], cfg.n_heads * dh,
+                                           "heads"))
+    kv_col = _col(p["wk"], cfg.n_kv_heads * dh, "kv")
+    k = dense(h, p["wk"], cfg.approx, kv_col)
+    v = dense(h, p["wv"], cfg.approx, kv_col)
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -262,13 +349,29 @@ def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
     rope, rot = _rope_for(cfg, positions)
     h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
     q, k, v = _qkv(p, h, cfg, rope, rot)
+    h_loc, kv_loc = q.shape[2], k.shape[2]
+    if h_loc == kv_loc * G:
+        # whole, or this rank's kv heads and their query groups
+        qs, ks, vs = q.reshape(B, S, kv_loc, G, dh), k, v
+    else:
+        # wq split, K/V whole: the reference's other tensor-parallel
+        # layout, query heads flattened, K/V repeated G-fold and this
+        # rank's heads taken
+        qs = q.reshape(B, S, h_loc, 1, dh)
+        ks = scatter_to(k.repeat_interleave(G, dim=2), 2, "heads")
+        vs = scatter_to(v.repeat_interleave(G, dim=2), 2, "heads")
     attend = chunked_attention if train else flash_attention
     o = attend(
-        q.reshape(B, S, KV, G, dh), k, v, causal=True,
+        qs, ks, vs, causal=True,
         window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
         kv_chunk=cfg.attn_kv_chunk, approx=cfg.approx,
-    ).reshape(B, S, H * dh)
-    x = x + dense(o, p["wo"], cfg.approx)
+    ).reshape(B, S, h_loc * dh)
+    # a split wo is row-parallel: the residual stream stays replicated
+    # over the model ranks
+    wo_rows = (p["wo"].q if isinstance(p["wo"], QuantizedWeight)
+               else p["wo"]).shape[-2]
+    x = x + dense(o, p["wo"], cfg.approx,
+                  ("row", "heads") if wo_rows < H * dh else None)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
     y, aux = _ffn(p, h, cfg, cfg.moe_capacity_factor)
     return x + y, (k, v), aux
@@ -279,8 +382,11 @@ def _ffn(p, h, cfg: ModelConfig, capacity_factor: float):
     zero for an MLP; serving drops it, as the reference's does)."""
     if "moe" in p:
         return moe_ffn(h, p["moe"], top_k=cfg.n_experts_active,
-                       capacity_factor=capacity_factor, approx=cfg.approx)
-    return mlp(h, p["mlp"], cfg.act, cfg.approx), _zero_aux(h.device)
+                       capacity_factor=capacity_factor, approx=cfg.approx,
+                       split=_width(p["moe"]["w1"]) < cfg.d_ff)
+    return (mlp(h, p["mlp"], cfg.act, cfg.approx,
+                split=_width(p["mlp"]["w1"]) < cfg.d_ff),
+            _zero_aux(h.device))
 
 
 def _zero_aux(device):
@@ -427,6 +533,7 @@ def stack_train(params, x, cfg: ModelConfig, positions):
     attention block; not the hybrid's shared block) is recomputed in the
     backward, as in the reference. Nothing is written in place."""
     _check_ported(cfg)
+    check_mesh(cfg)
     aux = _zero_aux(x.device)
     if cfg.n_layers == 0:
         return x, aux

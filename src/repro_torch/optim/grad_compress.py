@@ -1,13 +1,14 @@
 """Gradient compression: int8 payload + error feedback.
 
-Counterpart of ``repro.optim.grad_compress`` for one host:
-:func:`compress_local` applies the wire quantization a compressed
-all-reduce would (per-tensor int8 with a float32 scale) and carries the
-quantization residual into the next step (error feedback). The
-reference's ``compress_psum`` needs a named mesh axis and waits for the
-port's mesh (ROADMAP A-10). ``torch.round`` rounds half to even, as
-``jnp.round`` does, so the int8 payload is the reference's bit for bit.
-A ``None`` gradient leaf counts as zero (ROADMAP R-8).
+Counterpart of ``repro.optim.grad_compress``: :func:`compress_psum` is
+the compressed all-reduce over a logical mesh axis (the int8 payloads
+summed in int32, times the largest of the ranks' scales), and
+:func:`compress_local` its one-host twin, which applies the same wire
+quantization (per-tensor int8 with a float32 scale) with no reduction.
+Both carry the quantization residual into the next step (error feedback).
+``torch.round`` rounds half to even, as ``jnp.round`` does, so the int8
+payload is the reference's bit for bit. A ``None`` gradient leaf counts
+as zero (ROADMAP R-8).
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import torch
 
 from repro_torch.core.tree import tree_map
 
-__all__ = ["quantize_grad", "dequantize_grad", "compress_local",
-           "zero_residual"]
+__all__ = ["quantize_grad", "dequantize_grad", "compress_psum",
+           "compress_local", "zero_residual"]
 
 
 def zero_residual(grads):
@@ -38,6 +39,30 @@ def dequantize_grad(q, scale):
     return q.to(torch.float32) * scale
 
 
+def _unzip2(out):
+    return (tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out))
+
+
+def compress_psum(grads, residuals, axis: str):
+    """The sum over the logical mesh axis ``axis`` (a bound mesh,
+    :mod:`repro_torch.launch.sharding`) with an int8 payload and error
+    feedback: returns ``(grads, residuals)``. Each rank quantizes its
+    gradient plus residual; the int8 payloads are summed in int32 (exact)
+    and multiplied by the largest of the ranks' scales — not by the sum
+    of each payload times its own scale — as the reference's
+    ``compress_psum`` does. Two ``all_reduce`` a leaf: the payload's SUM,
+    the scale's MAX."""
+    from repro_torch.launch.sharding import all_reduce
+
+    def one(r, g):
+        q, scale, new_r = quantize_grad(g, r)
+        summed = all_reduce(q.to(torch.int32), axis)
+        scale_max = all_reduce(scale.clone(), axis, "max")
+        return summed.to(torch.float32) * scale_max, new_r
+
+    return _unzip2(tree_map(one, residuals, grads))
+
+
 def compress_local(grads, residuals):
     """Quantize -> dequantize every leaf with error feedback: returns
     ``(grads, residuals)``, the gradients as float32, the single-host
@@ -46,5 +71,4 @@ def compress_local(grads, residuals):
         q, scale, new_r = quantize_grad(g, r)
         return dequantize_grad(q, scale), new_r
 
-    out = tree_map(one, residuals, grads)
-    return (tree_map(lambda t: t[0], out), tree_map(lambda t: t[1], out))
+    return _unzip2(tree_map(one, residuals, grads))

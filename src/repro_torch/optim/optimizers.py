@@ -30,7 +30,9 @@ _F32 = torch.float32
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable   # (grads, state, params) -> (params, state, metrics)
+    # (grads, state, params[, split]) -> (params, state, metrics); split:
+    # global_norm's, on a mesh that splits some leaves
+    update: Callable
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -47,23 +49,39 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, leaves in
-    sorted key order; ``None`` leaves add nothing."""
-    sq = [g.to(_F32).square().sum() for g in tree_leaves(tree)
+    sorted key order; ``None`` leaves add nothing.
+
+    ``split``: on a bound mesh, a tree of ``tree``'s structure naming for
+    each leaf the logical axis whose ranks hold the rest of it (None: the
+    leaf is whole here). Those leaves' sums are added over their axis
+    (one ``all_reduce`` an axis), so every rank gets the whole tree's
+    norm."""
+    leaves = tree_leaves(tree)
+    axes = tree_leaves(split) if split is not None else [None] * len(leaves)
+    sq = [(g.to(_F32).square().sum(), ax) for g, ax in zip(leaves, axes)
           if g is not None]
     if not sq:
         return torch.zeros((), dtype=_F32)
-    total = sq[0]
-    for s in sq[1:]:
+    if split is not None:
+        from repro_torch.launch.sharding import all_reduce
+
+        for ax in sorted({ax for _, ax in sq if ax is not None}):
+            idx = [i for i, (_, a) in enumerate(sq) if a == ax]
+            summed = all_reduce(torch.stack([sq[i][0] for i in idx]), ax)
+            for j, i in enumerate(idx):
+                sq[i] = (summed[j], ax)
+    total = sq[0][0]
+    for s, _ in sq[1:]:
         total = total + s
     return total.sqrt()
 
 
-def clip_by_global_norm(tree, max_norm):
+def clip_by_global_norm(tree, max_norm, split=None):
     """``(tree scaled by min(1, max_norm / norm), norm)``; each leaf scaled
-    in float32 and cast back to its dtype."""
-    n = global_norm(tree)
+    in float32 and cast back to its dtype. ``split``: :func:`global_norm`'s."""
+    n = global_norm(tree, split)
     scale = torch.clamp(max_norm / n.clamp(min=1e-9), max=1.0)
     return tree_map(lambda g: None if g is None
                     else (g.to(_F32) * scale).to(g.dtype), tree), n
@@ -104,11 +122,11 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 "nu": tree_map(_zeros32, params),
                 "step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, split=None):
         step = state["step"] + 1
         gnorm = torch.zeros((), dtype=_F32, device=step.device)
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, split)
         lr_t = lr_fn(step)
         stepf = step.to(_F32)
         b1c = 1 - b1 ** stepf
@@ -138,9 +156,9 @@ def lion(lr, *, b1=0.9, b2=0.99, weight_decay=0.1,
     def init(params):
         return {"mu": tree_map(_zeros32, params), "step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, split=None):
         step = state["step"] + 1
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, split)
         lr_t = lr_fn(step)
 
         def upd(p, g, m):
@@ -165,11 +183,11 @@ def momentum(lr, *, beta=0.9, clip_norm=None) -> Optimizer:
     def init(params):
         return {"mu": tree_map(_zeros32, params), "step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, split=None):
         step = state["step"] + 1
         gnorm = torch.zeros((), dtype=_F32, device=step.device)
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, split)
         lr_t = lr_fn(step)
 
         def upd(p, g, m):

@@ -69,7 +69,8 @@ def test_every_package_module_is_covered():
                    "tuning/sensitivity.py", "train/schedule.py",
                    "train/loop.py", "launch/train.py",
                    "apps/__init__.py", "apps/table4_ann.py",
-                   "apps/fig34_imaging.py"):
+                   "apps/fig34_imaging.py", "launch/sharding.py",
+                   "launch/mesh.py", "launch/specs.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",

@@ -521,12 +521,17 @@ def test_cli_on_cpu_and_tp_refused(tmp_path, capsys):
         t_train.main(args + ["--twin", "--assert-grad-cosine", "1.5"])
     assert e.value.code == 1
     assert "DIVERGED" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A-10"):
-        t_train.main(args + ["--tp", "2"])
-    with pytest.raises(NotImplementedError, match="A-10"):
-        t_train.train(t_get_config(ARCH, smoke=True),
-                      TShape("t", 16, 2, "train"), steps=1, ckpt_dir=None,
-                      tp=2, device="cpu")
+    # one process: no mesh is bound, and --tp trains unsharded, as the
+    # reference does with one device (its mesh needs more than one)
+    t_train.main(args + ["--tp", "2", "--steps", "1"])
+    out = capsys.readouterr().out
+    assert "# mesh: none bound (one process): --tp 2 trains unsharded" \
+        in out and "[step     0] loss=" in out
+    cfg, shape = t_get_config(ARCH, smoke=True), TShape("t", 16, 2, "train")
+    _, tp2 = t_train.train(cfg, shape, steps=1, ckpt_dir=None, tp=2,
+                           device="cpu")
+    _, tp1 = t_train.train(cfg, shape, steps=1, ckpt_dir=None, device="cpu")
+    assert tp2 == tp1
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         t_train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
     assert not torch.are_deterministic_algorithms_enabled()
