@@ -471,13 +471,13 @@ any phase fails. Phases:
               on the plain versions: loss, gradients and updated
               parameters ``torch.equal``; (c) ``train`` with all 32
               layers, batch 4 x 512, remat on, ``--approx simdive
-              --backward approx``, 6 steps, a checkpoint every 3 and a
-              rung change at step 3: a step's 704 ``logmatmul`` (22 a
+              --backward approx``, 4 steps, a checkpoint every 2 and a
+              rung change at step 2: a step's 704 ``logmatmul`` (22 a
               layer: R-8 leaves wq / wk / wv without gradient products)
               and 64 ``elemwise`` launches, its time, peak memory and device
-              time by kernel, every loss finite, a run killed after 4
+              time by kernel, every loss finite, a run killed after 3
               steps and resumed equal to the uninterrupted run from the
-              checkpoint on; (d) ``train_twin`` at full width, 4 steps,
+              checkpoint on; (d) ``train_twin`` at full width, 2 steps,
               exact against ``--approx simdive``, R-8 (no gradient for
               the approximate model's wq / wk / wv), and an exact-base
               twin at 2 layers with zero divergence.
@@ -578,8 +578,34 @@ any phase fails. Phases:
               within 1e-6. (d) a world-1 NCCL group: one step of (a)'s
               model under a bound (1, 1) mesh ``torch.equal`` to the same
               step over gloo. (e) ``compress_psum`` over 2 ranks on CUDA
-              tensors equal to the plain computation on the CPU. The
-              ``logmatmul`` row carries its times at (a)'s shard shapes.
+              tensors equal to the plain computation on the CPU. (f)-(h)
+              in (a)'s spawn, one step each at (a)'s batch with its
+              gates (layer 0's SIMDive linears ``torch.equal`` at their
+              shard shapes, the loss within twice the lse witness, the
+              first step's gradients within twice the larger witness,
+              every rank's launches): (f) smollm-360m, 2 of 32 layers,
+              15 query and 5 kv heads over 2 ranks (a cut head: q / k / v
+              gathered once a block, each rank's whole GQA groups
+              attended, the output gathered once); (g) rwkv6-1.6b, 2 of
+              24 layers (its heads split); (h) zamba2-2.7b, 9 of 54
+              layers (one group of Mamba2 layers, their heads split, and
+              the shared block). (i) the served forward at tp 2,
+              divider-only: stablelm-1.6b (4 layers; the cache split by
+              kv head) and smollm-360m (2 layers; by sequence), one
+              prefill of 4 x 512 and 8 decode steps: the gathered logits
+              within 6 bf16 ulps of the unsplit run's largest logit, one
+              ``flash_attention`` a layer a prefill, and a step one
+              ``decode_attention`` a layer (stablelm) or one
+              ``elemwise`` a layer, the divider after the ranks' sums
+              (smollm), on every rank. (j) the dry run
+              (``launch/dryrun.py``) on the host under the fake process
+              group at world 2 / 3, cells (a), (b), (f)-(h): collectives
+              a step (calls and bytes by mesh axes) and parameter and
+              optimizer bytes equal to the ranks'; (a)'s traced peak
+              within 25 % of rank 0's ``max_memory_allocated`` over its
+              run. (k) one FULL ``train_4k`` single-pod dry-run cell a
+              family, ``ok``. The ``logmatmul`` row carries its times at
+              (a)'s, rwkv6's and zamba2's shard shapes.
 
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -839,14 +865,14 @@ ZAMBA2_EMULATE_GEN = 4
 # in the forward and once in the re-run
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_LR = 3e-4
-TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_STOP_AFTER, TRAIN_RUNG_AT = 6, 3, 4, 3
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_STOP_AFTER, TRAIN_RUNG_AT = 4, 2, 3, 2
 TRAIN_LOGMATMUL_A_LAYER = 7 + 7 + 4 * 2
 TRAIN_LOGMATMUL_A_STEP = 32 * TRAIN_LOGMATMUL_A_LAYER
 TRAIN_ELEMWISE_A_STEP = 2 * 32
 # the twin (train_twin): exact against --approx simdive (straight-through
 # backward): 7 x 32 x 2 logmatmul and 64 elemwise a step, all the
 # approximate twin's
-TWIN_STEPS, TWIN_LR = 4, 1e-3
+TWIN_STEPS, TWIN_LR = 2, 1e-3
 TWIN_LOGMATMUL_A_STEP = 7 * 32 * 2
 # (b): one make_train_step step on the kernels against one on the plain
 # versions, at full width but 2 of 32 layers and batch 2 x seq 128 (the
@@ -3447,7 +3473,7 @@ def time_prefill(lm, params, prompts, served, *, prefix="", iters=5):
 
 
 def time_decode_step(lm, params, prompts, served, *, prefix="",
-                     step_iters=10, graph_iters=3, gen_iters=3):
+                     step_iters=10, graph_iters=3, gen_iters=2):
     """The decode step and generate of one path, eager (``*_eager_*``,
     ``lm.decode_step`` / ``prefill_fn=lm.prefill, decode_fn=
     lm.decode_step``) and captured (``*_captured_*``, the served step, one
@@ -3515,24 +3541,23 @@ def time_decode_step(lm, params, prompts, served, *, prefix="",
     def generate_run(**kw):
         return lambda: serve.generate(lm, params, prompts, max_seq, GEN, **kw)
 
-    def peak_bytes(fn):
+    def timed_peak(fn):
+        """``time_callable``'s timing of ``fn`` and the peak memory over
+        its calls (warm: every graph is captured by now), one window."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fn()
+        t = time_callable(fn, iters=gen_iters, items=BATCH * GEN,
+                          device=lm.device)
         torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated()
+        return t, torch.cuda.max_memory_allocated()
 
     eager = dict(prefill_fn=lm.prefill, decode_fn=lm.decode_step)
-    gen_captured = time_callable(generate_run(), iters=gen_iters,
-                                 items=BATCH * GEN, device=lm.device)
-    gen_eager = time_callable(generate_run(**eager), iters=gen_iters,
-                              items=BATCH * GEN, device=lm.device)
+    gen_captured, peak_captured = timed_peak(generate_run())
+    gen_eager, peak_eager = timed_peak(generate_run(**eager))
     # the captured step behind the eager prefill: PR 21's served generate
     gen_prefill_eager = time_callable(generate_run(prefill_fn=lm.prefill),
                                       iters=gen_iters, items=BATCH * GEN,
                                       device=lm.device)
-    peak_captured = peak_bytes(generate_run())
-    peak_eager = peak_bytes(generate_run(**eager))
     eager_ms, captured_ms = eager_t.best_s * 1e3, captured_t.best_s * 1e3
     return {
         f"{prefix}decode_step_eager_ms": eager_ms,
@@ -3571,7 +3596,7 @@ def measure_emulate(served_e, params, prompts):
                        iters=2),
         **time_decode_step(lm_e, params, prompts, served_e,
                            prefix="emulate_", step_iters=5, graph_iters=2,
-                           gen_iters=2),
+                           gen_iters=1),
         "emulate_first_generate_s": served_e["first_run_s"],
         "emulate_autotune_generate_s": served_e["tune_s"],
     }
@@ -7945,8 +7970,35 @@ MESH_MOE_ARCH, MESH_MOE_X = "mixtral-8x7b", (4, 512, 4096)
 MESH_MOE_ULPS = 4
 MESH_COMPRESS_SHAPE = (2048, 2048)
 MESH_JOIN_S = 600
-# the SIMDive linears of one attention block: (name, K, N, column-type)
+# the SIMDive linears of layer 0, by family: an attention block's, an
+# rwkv6 layer's (time mix and channel mix), a Mamba2 layer's
 MESH_LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+MESH_FAMILY_LINEARS = {
+    "ssm": ("wr", "wk", "wv", "wg", "wo", "cm_wk", "cm_wv", "cm_wr"),
+    "hybrid": ("wz", "wx", "wb", "wc", "wdt", "out_proj")}
+# (f)-(h): the mesh's remaining cases at tp 2, inside (a)'s spawn, one step
+# each at (a)'s batch: smollm-360m cuts a query and a kv head (15 and 5
+# heads over 2 ranks: transformer.head_plan), rwkv6-1.6b splits its 32
+# heads, zamba2-2.7b its 80 Mamba2 heads (one group of 9 layers and the
+# shared block with its LoRA)
+MESH_CASES = {"f": ("smollm-360m", 2), "g": ("rwkv6-1.6b", 2),
+              "h": ("zamba2-2.7b", 9)}
+# (i): the served forward at tp 2, divider-only: a prefill at (a)'s batch
+# and MESH_SERVE_STEPS decode steps (stablelm's cache split by kv head,
+# smollm's by sequence: specs.cache_specs)
+MESH_SERVE = (("stablelm-1.6b", 4), ("smollm-360m", 2))
+MESH_SERVE_STEPS = 8
+MESH_SERVE_LOGITS = (2.0 ** -4, 2.0 ** 8)   # where the ulp bound holds
+# (j)-(k): the dry run on the host (launch/dryrun.py), in subprocesses
+# started with the phase: (j) cells (a), (b), (f)-(h) as the ranks run them
+# (their collectives and their parameter and optimizer bytes equal what
+# the ranks measured, (a)'s peak within MESH_PEAK_TOL of rank 0's
+# max_memory_allocated over its run); (k) one FULL train_4k single-pod
+# cell a family
+MESH_DRYRUN_ARCHS = ("smollm-360m", "mixtral-8x7b", "qwen2-vl-2b",
+                     "musicgen-medium", "rwkv6-1.6b", "zamba2-2.7b")
+MESH_PEAK_TOL = 0.25
+MESH_DRYRUN_BUDGET_S = 60
 
 
 # what phase 18 runs; a rehearsal on the CPU passes smaller values
@@ -7954,14 +8006,17 @@ MESH_RUN = {"arch": MESH_ARCH, "layers": MESH_LAYERS, "tp": MESH_TP,
             "arch3": MESH_TP3_ARCH, "layers3": MESH_TP3_LAYERS,
             "batch": MESH_BATCH, "seq": MESH_SEQ, "steps": MESH_STEPS,
             "moe_arch": MESH_MOE_ARCH, "moe_x": MESH_MOE_X,
-            "compress": MESH_COMPRESS_SHAPE, "smoke": False}
+            "compress": MESH_COMPRESS_SHAPE, "cases": MESH_CASES,
+            "serve": MESH_SERVE, "serve_steps": MESH_SERVE_STEPS,
+            "dryrun_archs": MESH_DRYRUN_ARCHS, "smoke": False}
 
 
-def mesh_config(run: dict, three: bool = False):
+def mesh_config(run: dict, three: bool = False, case: str | None = None):
     from repro_torch.configs import get_config
     from repro_torch.core.approx import ApproxConfig
 
     arch, layers = ((run["arch3"], run["layers3"]) if three
+                    else tuple(run["cases"][case]) if case
                     else (run["arch"], run["layers"]))
     cfg = get_config(arch, smoke=run["smoke"])
     return replace(cfg, n_layers=layers).with_approx(
@@ -8078,6 +8133,36 @@ def first_step_grads(out: dict):
         t_train.sum_over_data = saved
 
 
+@contextlib.contextmanager
+def first_step_state(out: dict):
+    """Record the bytes of the parameters and of the optimizer state that
+    ``launch.train``'s step first takes (this rank's leaves) into
+    ``out``. Patches ``launch.train.make_train_step``."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train as t_train
+
+    saved = t_train.make_train_step
+
+    def held(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if t is not None)
+
+    def make(*args, **kw):
+        step = saved(*args, **kw)
+
+        def rec(params, opt_state, *rest):
+            if "params" not in out:
+                out.update(params=held(params), optimizer=held(opt_state))
+            return step(params, opt_state, *rest)
+        return rec
+
+    t_train.make_train_step = make
+    try:
+        yield
+    finally:
+        t_train.make_train_step = saved
+
+
 def mesh_linears(cfg, run, dev, tp):
     """Every SIMDive linear of layer 0 at its shard shapes on the kernels
     against the unsplit linear on this rank (forward and both gradient
@@ -8089,24 +8174,25 @@ def mesh_linears(cfg, run, dev, tp):
     from repro_torch.launch import train as t_train
     from repro_torch.models.layers import dense
 
+    from repro_torch.launch.specs import param_shapes
+
     specs = t_train.placement(cfg, shardlib.current_mesh())[0]["params"]
     layer = specs["stack"]["layers"]
-    shapes = {"wq": (cfg.d_model, cfg.n_heads * cfg.d_head),
-              "wk": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-              "wv": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
-              "wo": (cfg.n_heads * cfg.d_head, cfg.d_model),
-              "w1": (cfg.d_model, cfg.d_ff), "w3": (cfg.d_model, cfg.d_ff),
-              "w2": (cfg.d_ff, cfg.d_model)}
+    whole = param_shapes(cfg)["stack"]["layers"]
     M = run["batch"] * run["seq"]
     r = shardlib.rank_in("heads")
     out = {}
-    for i, name in enumerate(MESH_LINEARS):
-        K, N = shapes[name]
-        spec = (layer["mlp"][name] if name in ("w1", "w2", "w3")
-                else layer[name]).spec
+    for i, name in enumerate(MESH_FAMILY_LINEARS.get(cfg.family,
+                                                     MESH_LINEARS)):
+        path = ("mlp", name) if name in ("w1", "w2", "w3") else (name,)
+        spec, leaf = layer, whole
+        for key in path:
+            spec, leaf = spec[key], leaf[key]
+        K, N = leaf.shape[-2:]
+        spec = tuple(spec.spec)
         kind = None
-        if "model" in tuple(spec):
-            kind = "row" if tuple(spec)[-1] is None else "col"
+        if "model" in spec:
+            kind = "row" if spec[-1] is None else "col"
         gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
         x0 = torch.randn((M, K), generator=gen, device=dev).to(
             torch.bfloat16)
@@ -8224,18 +8310,27 @@ def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
     from repro_torch.launch import train as t_train
     from repro_torch.launch.specs import batch_axes_for
 
-    times, first = [], {}
+    times, first, state = [], {}, {}
     reset_launch_counts()
     shardlib.reset_collective_counts()
-    with first_step_grads(first):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with first_step_grads(first), first_step_state(state):
         _, losses = t_train.train(cfg, mesh_shape(run), steps=steps,
                                   ckpt_dir=None, tp=tp, device=dev,
                                   log_every=steps, step_times=times)
     counts, colls = launch_counts(), shardlib.collective_counts()
+    by_axis = shardlib.collective_counts(by_axis=True)
     res = {"losses": losses, "step_s": times,
            "launches": {k: v for k, v in counts.items() if v},
            "launches_a_step": {k: v / steps for k, v in counts.items() if v},
-           "collectives_a_step": {k: v / steps for k, v in colls.items()}}
+           "collectives_a_step": {k: v / steps for k, v in colls.items()},
+           "collectives_by_axis_a_step": {
+               k: [c / steps, b / steps] for k, (c, b) in by_axis.items()},
+           "state_bytes": state}
+    if dev.type == "cuda":
+        res["peak_bytes_run"] = torch.cuda.max_memory_allocated(dev)
     if mesh is None:
         res["grads"] = first["grads"]
         return res
@@ -8271,9 +8366,212 @@ def _mesh_job_tp2(dev, run, out) -> dict:
     if dist.get_rank() == 0:
         torch.save({"out": o.cpu(), "aux": float(aux), "routes": routes},
                    f"{out}.moe")
+    del o
+    _free(dev)
     if dev.type == "cuda":
         res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # (f)-(h): the remaining cases, one step each
+    for case in run["cases"]:
+        cfg = mesh_config(run, case=case)
+        with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+            res["linears_" + case] = mesh_linears(cfg, run, dev, tp)
+        _free(dev)
+        res["train_" + case] = _mesh_train(cfg, run, dev, tp, 1, mesh,
+                                           f"{out}.grads_{case}")
+        _free(dev)
+    # (i): the served forward under the mesh
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        res["serve"] = {arch: mesh_serve(arch, layers, run, dev,
+                                         f"{out}.serve_{arch}")
+                        for arch, layers in run["serve"]}
+    _free(dev)
     return res
+
+
+def mesh_serve_config(arch: str, layers: int, run: dict):
+    """(i)'s config: ``serve --approx simdive`` (divider-only) at
+    ``layers``."""
+    from repro_torch.launch import serve
+
+    return replace(serve.serving_config(arch, smoke=run["smoke"],
+                                        approx="simdive"), n_layers=layers)
+
+
+def _decode_cache(lm, cache, B: int, P: int, max_seq: int):
+    """A decode cache of ``max_seq`` slots, laid out as ``lm.empty_cache``
+    lays it on this rank, holding a prefill's K/V of ``P`` slots: where
+    the mesh splits the sequence the prefill's slots are gathered first,
+    then this rank's slots of the new layout copied in."""
+    import torch
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.models.transformer import _seq_split
+
+    new = lm.empty_cache(B, max_seq)
+    with torch.no_grad():
+        for name in ("k", "v"):
+            t = cache[name]
+            if _seq_split(lm.cfg, P) is not None:
+                t = shardlib.all_gather(t.contiguous(), "kv", 2)
+            dst = _seq_split(lm.cfg, max_seq)
+            lo = 0 if dst is None else dst[0]
+            hi = min(lo + new[name].shape[2], P)
+            if hi > lo:
+                new[name][:, :, :hi - lo].copy_(t[:, :, lo:hi])
+    return new
+
+
+def mesh_serve(arch: str, layers: int, run: dict, dev, out=None) -> dict:
+    """(i) One prefill of (a)'s batch and ``serve_steps`` decode steps of
+    ``arch`` at ``layers``, divider-only, from seed 0: unbound, the tokens
+    fed are the run's own greedy picks; bound (a rank), this rank's
+    parameters, the tokens the unsplit run fed (read from ``run``'s
+    ``serve_ref``), the logits gathered over the vocabulary. Returns the
+    logits (on the host), the tokens and the launches of the prefill and
+    of the steps."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
+    from repro_torch.models import build
+
+    cfg = mesh_serve_config(arch, layers, run)
+    lm = build(cfg, dev)
+    mesh = shardlib.current_mesh()
+    shardings = None if mesh is None else \
+        t_train.placement(cfg, mesh)[0]["params"]
+    params = lm.init(SEED, shardings)
+    B, P, n = run["batch"], run["seq"], run["serve_steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 500)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev)
+    fed = None
+    if mesh is not None:
+        fed = torch.load(run["serve_ref"], weights_only=False)[arch][
+            "tokens"]
+
+    def whole(lg):
+        if lg.shape[-1] < cfg.vocab_size:
+            lg = shardlib.all_gather(lg.contiguous(), "vocab", -1)
+        return lg.float().cpu()
+
+    reset_launch_counts()
+    logits, cache = lm.prefill(params, {"tokens": prompts})
+    res = {"prefill": whole(logits), "steps": [], "tokens": []}
+    res["prefill_launches"] = {k: v for k, v in launch_counts().items()
+                               if v}
+    cache = _decode_cache(lm, cache, B, P, P + n)
+    tok = res["prefill"].argmax(-1) if fed is None else fed[0]
+    reset_launch_counts()
+    for i in range(n):
+        res["tokens"].append(tok)
+        lg, cache = lm.decode_step(params, cache, tok.to(dev), P + i,
+                                   max_seq=P + n)
+        res["steps"].append(whole(lg))
+        if i + 1 < n:
+            tok = res["steps"][-1].argmax(-1) if fed is None else fed[i + 1]
+    res["step_launches"] = {k: v for k, v in launch_counts().items() if v}
+    if out is not None and shardlib.rank_in("heads") == 0:
+        torch.save({"prefill": res["prefill"], "steps": res["steps"]}, out)
+    return res
+
+
+def mesh_dryrun_witness(run_path: str, out_path: str, archs=(),
+                        cells_dir: str | None = None) -> None:
+    """(j), in a subprocess: cells (a), (b) and (f)-(h) traced by the dry
+    run (``launch/dryrun.py``) as rank 0 of their meshes, under the fake
+    process group at world 2 / 3 — their configs, batch and depth, no
+    ZeRO-1, as ``launch.train`` runs them —; written as JSON. Then (k)'s
+    ``train_4k`` single-pod cells of ``archs``, one after the other, into
+    ``cells_dir`` (the CLI's records)."""
+    from repro_torch.launch import dryrun
+
+    run = json.loads(Path(run_path).read_text())
+    cells = {"a": (mesh_config(run), run["tp"]),
+             "b": (mesh_config(run, three=True), 3)}
+    cells.update({c: (mesh_config(run, case=c), run["tp"])
+                  for c in run["cases"]})
+    out = {}
+    for tag, (cfg, tp) in cells.items():
+        out[tag] = dryrun.trace_cell(cfg, mesh_shape(run), (1, tp),
+                                     ("data", "model"), zero1=False)
+    Path(out_path).write_text(json.dumps(out))
+    for arch in archs:
+        res = dryrun.run_cell(arch, "train_4k", False, out_dir=cells_dir)
+        require(res["status"] == "ok", f"(k) {arch}: {res.get('error')}")
+
+
+def start_dryruns(run: dict, tmp: Path) -> dict:
+    """(j) and (k)'s subprocesses, started together (the host's cores
+    trace while the card trains): the witness and one FULL ``train_4k``
+    single-pod cell a family (the dry run's records); a thread stamps
+    each one's exit."""
+    import os
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    d = tmp / "dryrun"
+    d.mkdir()
+    (d / "run.json").write_text(json.dumps(run))
+    from repro_torch.configs import get_config
+
+    # the recurrent families' cells trace longest: each its own process;
+    # the witness and the other families' cells one after the other in
+    # one more, so that few processes share the host with the ranks
+    heavy = [a for a in run["dryrun_archs"]
+             if get_config(a).family in ("ssm", "hybrid")]
+    light = [a for a in run["dryrun_archs"] if a not in heavy]
+    cmds = {"j": [sys.executable, "-c", "import chip_smoke; chip_smoke."
+                  f"mesh_dryrun_witness({str(d / 'run.json')!r}, "
+                  f"{str(d / 'witness.json')!r}, {light!r}, "
+                  f"{str(d / 'cells')!r})"]}
+    for arch in heavy:
+        cmds[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", "train_4k", "--mesh",
+                      "single", "--out", str(d / "cells")]
+    t0 = time.perf_counter()
+    procs, done_at = {}, {}
+    for name, cmd in cmds.items():
+        with open(d / f"{name}.log", "w") as log_file:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                           stdout=log_file,
+                                           stderr=subprocess.STDOUT)
+
+    def stamp(name, proc):
+        proc.wait()
+        done_at[name] = time.perf_counter() - t0
+
+    for name, proc in procs.items():
+        threading.Thread(target=stamp, args=(name, proc),
+                         daemon=True).start()
+    return {"dir": d, "procs": procs, "done_at": done_at}
+
+
+def join_dryruns(started: dict) -> dict:
+    """Wait for :func:`start_dryruns`' subprocesses (each must exit 0) and
+    read their records; the wall time from their start to the last
+    exit."""
+    d = started["dir"]
+    for name, proc in started["procs"].items():
+        try:
+            proc.wait(timeout=MESH_JOIN_S)
+        except subprocess.TimeoutExpired:
+            for p in started["procs"].values():
+                p.kill()
+            raise SmokeFailure(f"phase 18 dry run {name}: still running "
+                               f"after {MESH_JOIN_S} s") from None
+        require(proc.returncode == 0, f"phase 18 dry run {name} exited "
+                f"{proc.returncode}: "
+                f"{(d / f'{name}.log').read_text()[-3000:]}")
+    deadline = time.monotonic() + 10
+    while (len(started["done_at"]) < len(started["procs"])
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    cells = {f.stem: json.loads(f.read_text())
+             for f in sorted((d / "cells").glob("*.json"))}
+    done_at = dict(started["done_at"])
+    return {"witness": json.loads((d / "witness.json").read_text()),
+            "cells": cells, "wall_s": max(done_at.values()),
+            "done_at_s": done_at}
 
 
 def _free(dev) -> None:
@@ -8524,10 +8822,13 @@ def mesh_nccl_world1(run, dev, backends=("nccl", "gloo")) -> dict:
 
 
 def mesh_kernel_rows(dev, int_rate) -> list:
-    """``logmatmul`` at (a)'s shard shapes at tp 2 (M = 4 x 512 tokens; the
-    column-parallel wq / wk / wv and w1 / w3, the row-parallel wo and w2):
-    the default block's time by graph replay, the operations bound, and
-    the exact bf16 ``torch.matmul`` of the same shape."""
+    """``logmatmul`` at tp 2's shard shapes (M = 4 x 512 tokens): (a)'s
+    (the column-parallel wq / wk / wv and w1 / w3, the row-parallel wo and
+    w2), (g)'s rwkv6-1.6b (the column-parallel r / k / v / g, cm_wk,
+    cm_wr and cm_wv, the row-parallel wo) and (h)'s zamba2-2.7b Mamba2
+    layer (the column-parallel wz / wx and wdt, the row-parallel
+    out_proj): the default block's time by graph replay, the operations
+    bound, and the exact bf16 ``torch.matmul`` of the same shape."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import logmatmul as lm
@@ -8535,12 +8836,25 @@ def mesh_kernel_rows(dev, int_rate) -> list:
     cfg = mesh_config(MESH_RUN)
     D, F, HD = cfg.d_model, cfg.d_ff // MESH_TP, \
         cfg.n_heads * cfg.d_head // MESH_TP
+    rw = mesh_config(MESH_RUN, case="g")
+    zb = mesh_config(MESH_RUN, case="h")
+    RD, RF = rw.d_model, rw.d_ff
+    ZD, ZI = zb.d_model, 2 * zb.d_model
+    ZH = ZI // zb.ssm_head_dim
     M = MESH_BATCH * MESH_SEQ
     spec = SimdiveSpec(width=8, coeff_bits=6)
     gen = torch.Generator(device=dev).manual_seed(SEED + 400)
     rows = []
-    for names, K, N in ((("wq", "wk", "wv"), D, HD), (("w1", "w3"), D, F),
-                        (("wo",), HD, D), (("w2",), F, D)):
+    for names, K, N in (
+            (("wq", "wk", "wv"), D, HD), (("w1", "w3"), D, F),
+            (("wo",), HD, D), (("w2",), F, D),
+            (("rwkv6 wr", "wk", "wv", "wg", "cm_wr"), RD, RD // MESH_TP),
+            (("rwkv6 cm_wk",), RD, RF // MESH_TP),
+            (("rwkv6 cm_wv",), RF, RD // MESH_TP),
+            (("rwkv6 wo",), RD // MESH_TP, RD),
+            (("zamba2 wz", "wx"), ZD, ZI // MESH_TP),
+            (("zamba2 wdt",), ZD, ZH // MESH_TP),
+            (("zamba2 out_proj",), ZI // MESH_TP, ZD)):
         x = torch.randint(-255, 256, (M, K), generator=gen, device=dev,
                           dtype=torch.int32)
         w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
@@ -8558,9 +8872,10 @@ def mesh_kernel_rows(dev, int_rate) -> list:
 
 
 def mesh_phase(dev, int_rate, run=None) -> dict:
-    """Phase 18: the mesh, (a) to (e) as the module docstring says.
+    """Phase 18: the mesh, (a) to (k) as the module docstring says.
     ``run``: :data:`MESH_RUN` unless a rehearsal gives smaller values (on
-    the CPU the NCCL step (d) and the kernel times are left out)."""
+    the CPU the NCCL step (d) and the kernel times are left out). The dry
+    run's subprocesses are ended whatever happens."""
     import os
     import tempfile
 
@@ -8578,12 +8893,16 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
     _free(dev)
     saved_autotune = os.environ.get("SIMDIVE_AUTOTUNE")
     os.environ["SIMDIVE_AUTOTUNE"] = "0"     # as in the ranks
-    out = {}
+    out, dry = {}, None
     try:
         with tempfile.TemporaryDirectory() as tmp_name:
             tmp = Path(tmp_name)
-            # (a), (c), (e): the unsplit runs here, then two ranks (one
-            # after the other, so that each step time has the card alone)
+            # (j), (k): the dry run's subprocesses, on the host's cores
+            # while the card trains
+            dry = start_dryruns(run, tmp)
+            # (a), (c), (e), (f)-(i): the unsplit runs here, then two ranks
+            # (one after the other, so that each step time has the card
+            # alone)
             t0 = time.perf_counter()
             unsplit = _unsplit_runs(mesh_config(run), run, dev,
                                     run["steps"])
@@ -8591,6 +8910,17 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
             with torch.no_grad():
                 moe_out0, moe_aux0, routes0 = mesh_moe_block(run, dev)
             moe_out0 = moe_out0.cpu()
+            _free(dev)
+            cases0 = {}
+            for case in run["cases"]:
+                cases0[case] = _unsplit_runs(mesh_config(run, case=case),
+                                             run, dev, 1)
+                _free(dev)
+            serve0 = {arch: mesh_serve(arch, layers, run, dev)
+                      for arch, layers in run["serve"]}
+            torch.save({a: {"tokens": r["tokens"]} for a, r in serve0.items()},
+                       tmp / "serve_ref.pt")
+            run = dict(run, serve_ref=str(tmp / "serve_ref.pt"))
             _free(dev)
             ctx, d = _spawn_mesh("tp2", run["tp"], run, tmp, dev)
             ranks = _join_mesh(ctx, d, run["tp"], "(a) tp 2")
@@ -8602,8 +8932,15 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
             out["e"] = ranks[0]["compress"]
             log("  (e) compress_psum over 2 ranks on CUDA tensors == the "
                 "plain computation on the CPU")
+            for case in run["cases"]:
+                cfg = mesh_config(run, case=case)
+                out[case] = mesh_judge(
+                    f"({case}) {cfg.name} {cfg.n_layers} layers", ranks,
+                    cases0[case], d, tag="_" + case,
+                    attention=cfg.family != "ssm")
+            out["i"] = mesh_judge_serve(ranks, serve0, d, run)
             out["a_s"] = time.perf_counter() - t0
-            del unsplit, moe_out0
+            del unsplit, moe_out0, cases0, serve0
             _free(dev)
             # (b): three ranks
             t0 = time.perf_counter()
@@ -8616,6 +8953,16 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
             out["b_s"] = time.perf_counter() - t0
             del unsplit3
             _free(dev)
+            # (j), (k): the dry run against what the ranks measured
+            t0 = time.perf_counter()
+            dry = join_dryruns(dry)
+            trains = {"a": [r["train"] for r in ranks],
+                      "b": [r["train"] for r in ranks3]}
+            trains.update({c: [r["train_" + c] for r in ranks]
+                           for c in run["cases"]})
+            out["j"] = mesh_judge_dryrun(dry["witness"], trains)
+            out["k"] = mesh_judge_cells(dry, run)
+            out["jk_wait_s"] = time.perf_counter() - t0
         if cuda:
             t0 = time.perf_counter()
             out["d"] = mesh_nccl_world1(run, dev)
@@ -8624,6 +8971,10 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
                 f"mesh == the gloo one (loss {out['d']['loss']!r})")
             out["kernels"] = mesh_kernel_rows(dev, int_rate)
     finally:
+        for proc in (dry or {}).get("procs", {}).values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if cuda:
             torch.use_deterministic_algorithms(False)
         if saved_autotune is None:
@@ -8654,25 +9005,28 @@ def mesh_judge_moe(d: Path, out0, aux0, routes0) -> dict:
     return res
 
 
-def mesh_judge(what, ranks, unsplit, d: Path) -> dict:
-    """(a) / (b)'s gates over the ranks' results and the unsplit runs."""
+def mesh_judge(what, ranks, unsplit, d: Path, tag: str = "",
+               attention: bool = True) -> dict:
+    """(a), (b), (f)-(h)'s gates over the ranks' results (``tag`` names
+    the case's keys) and the unsplit runs; ``attention``: the model has a
+    softmax, whose finalize launches ``elemwise``."""
     import torch
 
     for r in ranks:
         probe = r["probe"]
         require(all(v is True for v in probe.values()),
                 f"{what} gloo on CUDA tensors: {probe}")
-        for name, row in r["linears"].items():
+        for name, row in r["linears" + tag].items():
             require(all(row["equal"]), f"{what} the {row['split']} SIMDive "
                     f"linear {name} differs from the unsplit one "
                     f"(forward, gx, gw): {row['equal']}")
-    gathered = torch.load(d / "out.grads", weights_only=False)
+    gathered = torch.load(d / f"out.grads{tag}", weights_only=False)
     loss0, grads0 = unsplit["first"]
     w_loss, w_grads = unsplit["witness_first"]
     gate = _grad_gate(f"{what} first step", gathered["loss"],
                       gathered["grads"], loss0, grads0, w_loss,
                       (w_grads, unsplit["order_first"][1]))
-    trains = [r["train"] for r in ranks]
+    trains = [r["train" + tag] for r in ranks]
     require(all(t["losses"] == trains[0]["losses"] for t in trains),
             f"{what} the ranks' losses differ")
     for i, (l, l0, lw) in enumerate(zip(trains[0]["losses"],
@@ -8683,10 +9037,11 @@ def mesh_judge(what, ranks, unsplit, d: Path) -> dict:
     per_rank = [t["launches_a_step"] for t in trains]
     for r, counts in enumerate(per_rank):
         mm = counts.get("matmul", 0) + counts.get("matmul_pipelined", 0)
-        require(mm > 0 and counts.get("elemwise", 0) > 0,
+        require(mm > 0 and (counts.get("elemwise", 0) > 0) == attention,
                 f"{what} rank {r}'s launches a step: {counts}")
     res = {"probe": ranks[0]["probe"],
-           "linears": {k: v["split"] for k, v in ranks[0]["linears"].items()},
+           "linears": {k: v["split"]
+                       for k, v in ranks[0]["linears" + tag].items()},
            "losses": trains[0]["losses"], "losses_unsplit": unsplit["losses"],
            "losses_witness": unsplit["witness_losses"],
            "step_s": trains[0]["step_s"],
@@ -8695,7 +9050,8 @@ def mesh_judge(what, ranks, unsplit, d: Path) -> dict:
            "launches_a_rank_a_step": per_rank,
            "collectives_a_rank_a_step": [t["collectives_a_step"]
                                          for t in trains],
-           "peak_bytes": ranks[0].get("peak_bytes"), **gate}
+           "peak_bytes": ranks[0].get("peak_bytes"),
+           "peak_bytes_run": trains[0].get("peak_bytes_run"), **gate}
     each = "; ".join(
         f"rank {r} {c.get('matmul', 0) + c.get('matmul_pipelined', 0):g} "
         f"logmatmul, {c.get('elemwise', 0):g} elemwise, "
@@ -8709,6 +9065,111 @@ def mesh_judge(what, ranks, unsplit, d: Path) -> dict:
         f"(tp 1 {res['step_s_unsplit']}; the ranks share one card: this "
         "measures nothing about scaling)")
     return res
+
+
+def mesh_judge_serve(ranks, serve0, d: Path, run: dict) -> dict:
+    """(i)'s gates: each rank's gathered logits within LOGIT_ULPS bf16
+    ulps of the unsplit run's largest logit, at the prefill and every
+    decode step; on every rank one ``flash_attention`` a layer a prefill,
+    and a step one ``decode_attention`` a layer where the cache is split
+    by kv head, one ``elemwise`` (the divider after the ranks' partial
+    sums) a layer where it is split by sequence."""
+    import torch
+
+    out = {}
+    for arch, layers in run["serve"]:
+        ref = serve0[arch]
+        got = torch.load(d / f"out.serve_{arch}", weights_only=False)
+        ref_all = torch.stack([ref["prefill"], *ref["steps"]])
+        tol, top = ulp_logit_tol(f"(i) {arch}", ref_all, MESH_SERVE_LOGITS)
+        errs = [float((g - w).abs().max()) for g, w in
+                zip([got["prefill"], *got["steps"]],
+                    [ref["prefill"], *ref["steps"]])]
+        require(max(errs) <= tol, f"(i) {arch}: gathered logits {errs} "
+                f"past {tol:g} of the unsplit run's")
+        cfg = mesh_serve_config(arch, layers, run)
+        by_heads = cfg.n_kv_heads % run["tp"] == 0
+        steps = run["serve_steps"]
+        for r, rank in enumerate(ranks):
+            pre = rank["serve"][arch]["prefill_launches"]
+            step = rank["serve"][arch]["step_launches"]
+            att = pre.get("attention", 0) + pre.get("attention_pipelined", 0)
+            require(att == layers, f"(i) {arch} rank {r}: prefill "
+                    f"launches {pre}")
+            if by_heads:
+                require(step.get("decode_attention", 0) == layers * steps,
+                        f"(i) {arch} rank {r}: step launches {step}")
+            else:
+                require(step.get("elemwise", 0) == layers * steps
+                        and "decode_attention" not in step,
+                        f"(i) {arch} rank {r}: step launches {step}")
+        out[arch] = {"logit_errs": errs, "tol": tol, "top": top,
+                     "cache": "kv heads" if by_heads else "sequence",
+                     "launches_by_rank": [
+                         {"prefill": rank["serve"][arch]["prefill_launches"],
+                          "steps": rank["serve"][arch]["step_launches"]}
+                         for rank in ranks]}
+        log(f"  (i) {arch} {layers} layers at tp {run['tp']}: prefill and "
+            f"{steps} steps within {max(errs):.4g} of the unsplit logits "
+            f"(bound {tol:g}); cache split by {out[arch]['cache']}; "
+            f"launches {out[arch]['launches_by_rank'][0]}")
+    return out
+
+
+def mesh_judge_dryrun(witness: dict, trains: dict) -> dict:
+    """(j)'s gates: each traced cell's collectives (calls and bytes by
+    kind and mesh axes) equal to a step's on every rank; its parameter and
+    optimizer bytes equal to rank 0's leaves; (a)'s peak within
+    MESH_PEAK_TOL of rank 0's ``max_memory_allocated`` over its run."""
+    out = {}
+    for tag, rec in witness.items():
+        per = rec["per_device"]
+        want = {k: [float(c), float(b)] for k, (c, b)
+                in per["collectives"].items()}
+        for r, t in enumerate(trains[tag]):
+            got = {k: [float(c), float(b)] for k, (c, b)
+                   in t["collectives_by_axis_a_step"].items()}
+            require(got == want, f"(j) cell {tag} rank {r}: measured "
+                    f"collectives a step {got}, the dry run's {want}")
+        state = trains[tag][0]["state_bytes"]
+        parts = per["argument_parts"]
+        require(state == {"params": parts["params"],
+                          "optimizer": parts["optimizer"]},
+                f"(j) cell {tag}: rank 0's leaves {state}, the dry run's "
+                f"{parts}")
+        out[tag] = {"collectives": want, "state_bytes": state,
+                    "peak_bytes": per["peak_bytes"],
+                    "trace_s": rec["trace_seconds"]}
+    peak = trains["a"][0].get("peak_bytes_run")
+    if peak:
+        dry = witness["a"]["per_device"]["peak_bytes"]
+        out["a"]["measured_peak_bytes"] = peak
+        out["a"]["peak_ratio"] = dry / peak
+        require(abs(dry - peak) <= MESH_PEAK_TOL * peak,
+                f"(j) (a)'s dry-run peak {dry / 1e9:.3f} GB against rank "
+                f"0's {peak / 1e9:.3f} GB")
+    log(f"  (j) the dry run at world 2 / 3: collectives and state bytes "
+        f"== the ranks' for cells {sorted(witness)}; (a)'s peak "
+        f"{witness['a']['per_device']['peak_bytes'] / 1e9:.3f} GB traced, "
+        f"{(peak or 0) / 1e9:.3f} GB measured")
+    return out
+
+
+def mesh_judge_cells(dry: dict, run: dict) -> dict:
+    """(k)'s gates: every family's FULL train_4k single-pod cell ``ok``."""
+    out = {}
+    for arch in run["dryrun_archs"]:
+        rec = dry["cells"].get(f"{arch}__train_4k__singlepod")
+        require(rec is not None and rec.get("status") == "ok",
+                f"(k) {arch} train_4k: {rec and rec.get('error')}")
+        out[arch] = {"peak_gb": rec["per_device"]["peak_bytes"] / 1e9,
+                     "bottleneck": rec["roofline"]["bottleneck"],
+                     "trace_s": rec["trace_seconds"]}
+    log(f"  (k) train_4k single-pod, rank 0 of 256: {out}; the dry run's "
+        f"subprocesses took {dry['wall_s']:.1f} s (budget "
+        f"{MESH_DRYRUN_BUDGET_S} s): {dry['done_at_s']}")
+    return {"cells": out, "wall_s": dry["wall_s"],
+            "done_at_s": dry["done_at_s"]}
 
 
 def main(argv=None) -> int:
@@ -8901,7 +9362,9 @@ def main(argv=None) -> int:
         f"tp {MESH_TP} ({MESH_LAYERS} of 24 layers) against tp 1, (b) "
         f"smollm-360m tp 3 ({MESH_TP3_LAYERS} of 32 layers), (c) "
         "mixtral-8x7b's MoE block SPMD, (d) a world-1 NCCL step == gloo, "
-        "(e) compress_psum")
+        "(e) compress_psum, (f)-(h) cut heads, rwkv6-1.6b and zamba2-2.7b "
+        "at tp 2, (i) the served forward at tp 2, (j) the dry run against "
+        "the ranks, (k) a FULL train_4k dry-run cell a family")
     mesh = mesh_phase(dev, int_rate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
@@ -9117,15 +9580,25 @@ def main(argv=None) -> int:
     by_name["logmatmul"]["launches_apps_wide"] = apps["wide_launches"]
     by_name["logmatmul"]["table4"] = apps["kernels"]["matmul"]
     by_name["elemwise"]["imaging"] = apps["kernels"]["elemwise"]
-    # phase 18: each rank's launches in (a)'s and (b)'s train runs, zeroed
-    # just before each and read just after, added over the ranks;
-    # logmatmul at (a)'s shard shapes
+    # phase 18: each rank's launches in the train runs of (a), (b) and
+    # (f)-(h) and in (i)'s prefills and steps, each zeroed just before and
+    # read just after, added over the ranks; logmatmul at (a)'s, rwkv6's
+    # and zamba2's shard shapes
+    mesh_counts = [c for part in ("a", "b", *MESH_CASES)
+                   for c in mesh[part]["launches_by_rank"]]
+    mesh_counts += [c for arch, _ in MESH_SERVE
+                    for row in mesh["i"][arch]["launches_by_rank"]
+                    for c in row.values()]
     for kern, names in ((by_name["logmatmul"], ("matmul",
                                                 "matmul_pipelined")),
-                        (by_name["elemwise"], ("elemwise",))):
-        kern["launches_mesh"] = sum(
-            counts.get(n, 0) for part in ("a", "b")
-            for counts in mesh[part]["launches_by_rank"] for n in names)
+                        (by_name["elemwise"], ("elemwise",)),
+                        (by_name["flash_attention"], ("attention",)),
+                        (by_name["flash_attention_pipelined"],
+                         ("attention_pipelined",)),
+                        (by_name["decode_attention"],
+                         ("decode_attention",))):
+        kern["launches_mesh"] = sum(counts.get(n, 0) for counts in mesh_counts
+                                    for n in names)
     by_name["logmatmul"]["mesh_tp2_shapes"] = mesh["kernels"]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "

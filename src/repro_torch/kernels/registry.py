@@ -83,6 +83,9 @@ __all__ = [
     "reset_launch_counts",
     "launches_between",
     "add_launches",
+    "all_ops",
+    "op_default_block",
+    "dry_dispatch",
     "autotune_cache",
     "autotune_generation",
     "clear_autotune_cache",
@@ -159,12 +162,55 @@ def _ensure_builtin_ops() -> None:
     from . import ops  # noqa: F401  (registers the built-in ops on import)
 
 
+def all_ops() -> tuple[OpImpl, ...]:
+    """Every registered :class:`OpImpl`, name-sorted (the reference's
+    enumeration of the registry)."""
+    _ensure_builtin_ops()
+    return tuple(_REGISTRY[k] for k in sorted(_REGISTRY))
+
+
+def op_default_block(name: str) -> tuple | None:
+    """The registered default block of op ``name`` (None for an op that
+    takes no ``block=``, or an unknown op); autotuned winners override it
+    at dispatch time, per shape bucket."""
+    _ensure_builtin_ops()
+    entry = _REGISTRY.get(name)
+    return None if entry is None else entry.default_block
+
+
+# the dry run's handler (launch/dryrun.py): while one is installed, tensors
+# on the ``meta`` device stand for the card's and every call that would
+# reach a CUDA kernel goes to the handler instead, which checks the
+# kernel's shape contract and counts its launch, operations and bytes
+_DRY: list = []
+
+
+class dry_dispatch:
+    """Within the block, ``meta`` tensors resolve ``auto`` to ``'cuda'``
+    and every call bound to ``'cuda'`` returns ``handler(entry, spec,
+    block, tensors, kw)`` (the output's shape and dtype, nothing
+    launched), as the dry run traces a step on the card."""
+
+    def __init__(self, handler):
+        self.handler = handler
+
+    def __enter__(self):
+        _DRY.append(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        _DRY.remove(self.handler)
+
+
 def resolve_backend(backend: str, *tensors: torch.Tensor) -> str:
-    """Collapse 'auto' onto 'cuda' or 'ref' by where ``tensors`` lie."""
+    """Collapse 'auto' onto 'cuda' or 'ref' by where ``tensors`` lie (under
+    :class:`dry_dispatch`, ``meta`` tensors stand for the card's)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
+    if _DRY and any(t.is_meta for t in tensors):
+        return "cuda"
     return "cuda" if any(t.is_cuda for t in tensors) else "ref"
 
 
@@ -475,6 +521,8 @@ class BoundOp:
 
     def __call__(self, *tensors, **kw):
         backend = resolve_backend(self.backend, *tensors)
+        if _DRY and backend == "cuda":
+            return _DRY[-1](self.entry, self.spec, self.block, tensors, kw)
         out = self._run(backend, tensors, kw)
         if self.guard:
             _guard_check(self.entry.name, self.spec, backend, tensors, kw,

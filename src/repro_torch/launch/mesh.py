@@ -5,7 +5,8 @@ Counterpart of ``repro.launch.mesh``. A :class:`Mesh` wraps a
 ``torch.distributed.device_mesh.DeviceMesh`` (named dims, one process
 group a dim) with the reference's ``axis_names`` and the shape, and
 answers the two questions the sharded paths ask: the process group of an
-axis and this rank's coordinate along it. Functions, not module
+axis (or of several axes flattened into one: the multi-pod batch
+``("pod", "data")``) and this rank's coordinate along it. Functions, not module
 constants: building a mesh needs the default process group
 (``torch.distributed.init_process_group``), which the caller starts.
 """
@@ -22,6 +23,7 @@ __all__ = ["Mesh", "make_production_mesh", "make_host_mesh"]
 class Mesh:
     device_mesh: object                     # torch DeviceMesh
     _cpu_groups: dict = field(default_factory=dict, repr=False)
+    _groups: dict = field(default_factory=dict, repr=False)
 
     @property
     def axis_names(self) -> tuple:
@@ -31,8 +33,37 @@ class Mesh:
     def shape(self) -> tuple:
         return tuple(self.device_mesh.shape)
 
-    def group(self, axis: str):
-        return self.device_mesh.get_group(axis)
+    def group(self, axis):
+        """The process group of the mesh axis ``axis``, or of the axes
+        ``axis`` (a tuple) flattened into one, major axis first: made on
+        first use by every rank for every group of those axes
+        (:meth:`_rows`), as ``new_group`` requires, over the default
+        group's backend (gloo, NCCL or the fake process group)."""
+        if isinstance(axis, str) or len(axis) == 1:
+            return self.device_mesh.get_group(
+                axis if isinstance(axis, str) else axis[0])
+        axis = tuple(axis)
+        if axis not in self._groups:
+            import torch.distributed as dist
+
+            me = dist.get_rank()
+            for row in self._rows(axis):
+                g = dist.new_group(ranks=row)
+                if me in row:
+                    self._groups[axis] = g
+        return self._groups[axis]
+
+    def _rows(self, axes: tuple) -> list:
+        """The global ranks of every group that spans ``axes`` (the other
+        axes fixed), each in the order of its coordinates along ``axes``,
+        major axis first."""
+        idx = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.shape)) if i not in idx]
+        n = 1
+        for i in idx:
+            n *= self.shape[i]
+        ranks = self.device_mesh.mesh.permute(*rest, *idx).reshape(-1, n)
+        return ranks.tolist()
 
     def coord(self, axis: str) -> int:
         return self.device_mesh.get_local_rank(axis)

@@ -15,10 +15,12 @@ Default binding, the reference's:
 Where the reference hands its global arrays to GSPMD, the port computes on
 local shards: every rank holds its slice of each tensor the mesh splits,
 and the sharded paths call ``torch.distributed`` collectives where GSPMD
-or ``shard_map`` put them. Only ``all_reduce`` (SUM and MAX) is used on
-the device, so the same code runs over NCCL and over a ``gloo`` group
-(two processes on one card). A group of one rank is an identity, and
-its collectives are skipped.
+or ``shard_map`` put them. Only ``all_reduce`` (SUM and MAX) and
+``all_gather`` are used on the device, so the same code runs over NCCL,
+over a ``gloo`` group (two processes on one card) and under the fake
+process group (the dry run). A group of one rank is an identity, and
+its collectives are skipped. A logical axis over two mesh axes (the
+multi-pod batch) runs over their flattened group.
 
 Autograd crosses a collective through Megatron's pair of functions:
 :func:`copy_to` (identity forward, ``all_reduce`` SUM backward) where a
@@ -26,7 +28,8 @@ replicated tensor enters a model-parallel region, :func:`reduce_from`
 (``all_reduce`` SUM forward, identity backward) where partial sums leave
 it; :func:`scatter_to` takes a rank's slice of a replicated tensor
 (backward: the slice's gradient padded with zeros, summed over the
-group). ``torch.distributed.all_reduce`` itself has no gradient.
+group); :func:`all_gather` joins the ranks' slices (backward: this
+rank's slice of the gradient, or of its sum over the group). ``torch.distributed.all_reduce`` itself has no gradient.
 """
 from __future__ import annotations
 
@@ -35,10 +38,11 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["P", "use_rules", "shard", "current_mesh", "active",
+__all__ = ["P", "use_rules", "unbound", "shard", "current_mesh", "active",
            "logical_spec", "logical_axis_size", "DEFAULT_RULES",
            "axis_sizes", "group", "rank_in", "all_reduce",
-           "all_reduce_max", "copy_to", "reduce_from", "scatter_to",
+           "all_reduce_max", "all_gather", "copy_to", "reduce_from",
+           "scatter_to",
            "collective_counts", "reset_collective_counts"]
 
 
@@ -51,6 +55,9 @@ class P(tuple):
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
+
+    def __getnewargs__(self):          # pickles entry for entry
+        return tuple(self)
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
@@ -98,11 +105,30 @@ def use_rules(mesh, overrides: dict | None = None):
         name: tuple(a for a in val if a in axes)
         for name, val in rules.items()
     }
+    # a rule over two mesh axes of more than one rank gets its flattened
+    # group here, made by every rank in one order (new_group's contract)
+    sizes = axis_sizes(mesh)
+    for val in bound.values():
+        real = tuple(a for a in val if sizes[a] > 1)
+        if len(real) > 1:
+            mesh.group(real)
     _state().append((mesh, bound))
     try:
         yield
     finally:
         _state().pop()
+
+
+@contextmanager
+def unbound():
+    """No rules bound within the block (the whole model's shapes, e.g. a
+    decode cache's for its specs), whatever is bound outside it."""
+    saved = _STACK[:]
+    _STACK.clear()
+    try:
+        yield
+    finally:
+        _STACK[:] = saved
 
 
 def active() -> bool:
@@ -164,42 +190,65 @@ def _bound_axes(name: str) -> tuple:
 
 def group(name: str):
     """The process group the logical axis (or mesh axis) ``name`` shards
-    over, or None
-    when unbound or over one rank. A logical axis over two mesh axes of
-    more than one rank each (the multi-pod mesh's batch) has no group
-    here: the production meshes are metadata."""
+    over, or None when unbound or over one rank. A logical axis over two
+    mesh axes of more than one rank each (the multi-pod batch, ``("pod",
+    "data")``) takes their flattened group, ranks in
+    :func:`rank_in`'s order."""
     axes = _bound_axes(name)
     if not axes:
         return None
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"logical axis {name!r} spans mesh axes {axes}: the port runs "
-            "collectives over one mesh axis a logical axis")
-    return current_mesh().group(axes[0])
+    return current_mesh().group(axes if len(axes) > 1 else axes[0])
 
 
 def rank_in(name: str) -> int:
-    """This rank's index along the logical axis ``name`` (0 when unbound)."""
+    """This rank's index along the logical axis ``name`` (0 when unbound):
+    over several mesh axes, their coordinates major axis first, as
+    :func:`~repro_torch.launch.specs.local_slice` lays a dim out."""
     axes = _bound_axes(name)
     if not axes:
         return 0
-    if len(axes) > 1:
-        group(name)                                   # raises
-    return current_mesh().coord(axes[0])
+    mesh = current_mesh()
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + mesh.coord(a)
+    return idx
 
 
 # ------------------------------------------------------------ collectives --
 _COUNTS: Counter = Counter()
 
 
-def collective_counts() -> dict:
+def collective_counts(by_axis: bool = False) -> dict:
     """Collectives issued since :func:`reset_collective_counts`:
-    ``{"all_reduce": n, "bytes": payload bytes}``."""
-    return dict(_COUNTS)
+    ``{"all_reduce": calls, "all_reduce_bytes": payload bytes,
+    "all_gather": calls, "all_gather_bytes": gathered bytes, "bytes":
+    both byte counts added}`` (an ``all_reduce``'s payload is its tensor,
+    an ``all_gather``'s the tensor it returns, every rank's part).
+    ``by_axis``: the same counts keyed ``"<kind>@<mesh axes>"`` (e.g.
+    ``"all_reduce@model"``, ``"all_gather@pod+data"``), ``[calls,
+    bytes]`` each."""
+    if by_axis:
+        return {k[1]: [v, _COUNTS[("bytes",) + k[1:]]]
+                for k, v in sorted(_COUNTS.items()) if k[0] == "calls"}
+    out = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
+           "all_gather_bytes": 0}
+    for (what, key), v in _COUNTS.items():
+        kind = key.split("@")[0]
+        out[kind if what == "calls" else kind + "_bytes"] += v
+    out["bytes"] = out["all_reduce_bytes"] + out["all_gather_bytes"]
+    return {k: v for k, v in out.items() if v or k in ("all_reduce",
+                                                       "bytes")}
 
 
 def reset_collective_counts() -> None:
     _COUNTS.clear()
+
+
+def _count(kind: str, name: str, nbytes: int) -> None:
+    key = f"{kind}@{'+'.join(_bound_axes(name))}"
+    _COUNTS[("calls", key)] += 1
+    _COUNTS[("bytes", key)] += nbytes
 
 
 def all_reduce(t: torch.Tensor, name: str, op: str = "sum") -> torch.Tensor:
@@ -210,11 +259,56 @@ def all_reduce(t: torch.Tensor, name: str, op: str = "sum") -> torch.Tensor:
     g = group(name)
     if g is None:
         return t
-    _COUNTS["all_reduce"] += 1
-    _COUNTS["bytes"] += t.numel() * t.element_size()
+    _count("all_reduce", name, t.numel() * t.element_size())
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     dist.all_reduce(t, op=rop, group=g)
     return t
+
+
+def _gather(x: torch.Tensor, name: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all) concatenated along ``dim`` in
+    :func:`rank_in`'s order: one ``all_gather``, counted."""
+    import torch.distributed as dist
+
+    n = logical_axis_size(name)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    _count("all_gather", name, n * x.numel() * x.element_size())
+    dist.all_gather(parts, x, group=group(name))
+    return torch.cat(parts, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, name, dim, grad):
+        ctx.name, ctx.dim, ctx.grad = name, dim, grad
+        ctx.size = x.shape[dim]
+        return _gather(x, name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            g = all_reduce(g.contiguous().clone(), ctx.name)
+        lo = rank_in(ctx.name) * ctx.size
+        return g.narrow(ctx.dim, lo, ctx.size).contiguous(), None, None, \
+            None
+
+
+def all_gather(x: torch.Tensor, name: str, dim: int = -1,
+               grad: str = "slice") -> torch.Tensor:
+    """Every rank's ``x`` along the logical axis ``name`` concatenated
+    along ``dim``, rank 0's first (``x`` itself without a group). Its
+    autograd pair: backward, this rank's slice of the gradient — right
+    where every rank goes on with the same whole tensor (``grad="slice"``,
+    Megatron's gather) — or, with ``grad="sum"``, of the gradient summed
+    over the ranks first (``all_reduce``), where each rank goes on with a
+    part of its own (the gradient of a gather is then a reduce-scatter)."""
+    if group(name) is None:
+        return x
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"all_gather: grad must be 'slice' or 'sum', got "
+                         f"{grad!r}")
+    return _AllGather.apply(x, name, dim % x.ndim, grad)
 
 
 def all_reduce_max(t: torch.Tensor, names) -> torch.Tensor:

@@ -117,7 +117,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
     shape and dtype, nothing allocated."""
     from repro_torch.models import build
 
-    return build(cfg, "meta").init()
+    from .sharding import unbound
+
+    with unbound():
+        return build(cfg, "meta").init()
 
 
 def param_specs(params_shape) -> dict:
@@ -231,10 +234,13 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     sequence (context-parallel decode)."""
     from repro_torch.models import build
 
+    from .sharding import unbound
+
     ba = batch_axes_for(mesh)
     b = ba if len(ba) > 1 else (ba[0] if ba else None)
     B, S = shape.global_batch, shape.seq_len
-    cache = build(cfg, "meta").empty_cache(B, S)
+    with unbound():                     # the whole cache's shapes
+        cache = build(cfg, "meta").empty_cache(B, S)
     model_size = axis_sizes(mesh)["model"]
     specs = {}
     for path, leaf in _walk(cache):

@@ -65,6 +65,7 @@ from repro_torch.launch.specs import (
     Sharding,
     as_shardings,
     batch_axes_for,
+    opt_specs,
     param_shapes,
     param_specs,
     sanitize_specs,
@@ -75,7 +76,7 @@ from repro_torch.optim import adamw, cosine_schedule
 
 __all__ = ["make_train_step", "train", "main", "model_split",
            "sum_over_data", "local_rows", "start_process_group",
-           "placement"]
+           "placement", "zero1_layout"]
 
 
 def _add(a, b):
@@ -118,11 +119,12 @@ def model_split(pspecs, mesh):
     return tree_map(one, pspecs)
 
 
-def placement(cfg, mesh, grad_compress: bool = False):
+def placement(cfg, mesh, grad_compress: bool = False, zero1: bool = False):
     """``(shardings, split)`` of a training run on ``mesh`` (rules bound):
     the checkpoint tree's :class:`~repro_torch.launch.specs.Sharding`s —
     parameters by ``sanitize_specs(param_specs(...))``, the moments as
-    their parameters, the step replicated, the residual (under
+    their parameters (with ``zero1``, by ``opt_specs``: a data-axis slice
+    more, ZeRO-1), the step replicated, the residual (under
     ``grad_compress``) as its parameter — and :func:`model_split`'s tree.
     Raises first where the model axis would split ``cfg`` in a way the
     port does not run (:func:`~repro_torch.models.transformer.
@@ -131,16 +133,55 @@ def placement(cfg, mesh, grad_compress: bool = False):
     shapes = param_shapes(cfg)
     pspecs = sanitize_specs(param_specs(shapes), shapes, mesh)
     psh = as_shardings(mesh, pspecs)
+    msh = psh
+    if zero1:
+        msh = as_shardings(mesh, sanitize_specs(
+            opt_specs(pspecs, batch_axes_for(mesh)), shapes, mesh))
     shardings = {"params": psh,
-                 "opt": {"mu": psh, "nu": psh, "step": Sharding(mesh, P())}}
+                 "opt": {"mu": msh, "nu": msh, "step": Sharding(mesh, P())}}
     if grad_compress:
         shardings["res"] = psh
     return shardings, model_split(pspecs, mesh)
 
 
+class _Zero1:
+    """One leaf's ZeRO-1 slice: dim ``dim`` of the rank's parameter cut
+    over ``"batch"`` (:func:`zero1_layout`)."""
+
+    def __init__(self, dim: int | None):
+        self.dim = dim
+
+    def cut(self, t):
+        if self.dim is None or shardlib.group("batch") is None:
+            return t
+        n = t.shape[self.dim] // shardlib.logical_axis_size("batch")
+        return t.narrow(self.dim, shardlib.rank_in("batch") * n, n)
+
+    def join(self, t):
+        if self.dim is None:
+            return t
+        return shardlib.all_gather(t, "batch", self.dim)
+
+
+def zero1_layout(shardings) -> dict:
+    """For ``make_train_step(..., zero1=)``: each leaf's ZeRO-1 slice from
+    :func:`placement` ``(..., zero1=True)``'s shardings, the dim its
+    moment spec splits over the data axes and its parameter spec does
+    not (None: the moments are whole, as the parameter)."""
+    def one(psh, msh):
+        for i, (a, b) in enumerate(zip(tuple(psh.spec) + (None,) * 8,
+                                       msh.spec)):
+            if b is not None and a != b:
+                return _Zero1(i)
+        return _Zero1(None)
+
+    return tree_map(one, shardings["params"], shardings["opt"]["mu"])
+
+
 def make_train_step(lm, opt, microbatch: int = 1,
                     grad_compress: bool = False,
-                    compress_axis: str | None = None, split=None):
+                    compress_axis: str | None = None, split=None,
+                    zero1=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     ``microbatch`` > 1: gradient accumulation over that many equal row
@@ -183,9 +224,12 @@ def make_train_step(lm, opt, microbatch: int = 1,
         return loss / microbatch, grads
 
     def update(grads, opt_state, params):
-        if split is None:
-            return opt.update(grads, opt_state, params)
-        return opt.update(grads, opt_state, params, split=split)
+        kw = {}
+        if split is not None:
+            kw["split"] = split
+        if zero1 is not None:
+            kw["shard"] = zero1
+        return opt.update(grads, opt_state, params, **kw)
 
     if not grad_compress:
         def step(params, opt_state, batch):

@@ -146,12 +146,17 @@ def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT,
     active = approx.enabled and approx.use_in_linear and approx.emulate \
         and approx.active_for("matmul")
     if isinstance(w, QuantizedWeight):
-        if split is not None:
-            raise NotImplementedError("a split int8 QuantizedWeight: the "
-                                      "port's mesh trains float weights")
+        if split is None:
+            if active:
+                return approx_matmul_int8(x, w.q, w.scale, approx)
+            return x @ (w.q.to(x.dtype) * w.scale.to(x.dtype))
         if active:
-            return approx_matmul_int8(x, w.q, w.scale, approx)
-        return x @ (w.q.to(x.dtype) * w.scale.to(x.dtype))
+            raise NotImplementedError(
+                "a split int8 QuantizedWeight under --emulate: its SIMDive "
+                "product has no K-split form (the served int8 weights on a "
+                "mesh run dequantized)")
+        # this rank's dequantized shard, then the float split linear
+        w = w.q.to(x.dtype) * w.scale.to(x.dtype)
     if active:
         return approx_matmul(x, w.to(torch.float32), approx,
                              *(split or ())).to(x.dtype)
@@ -356,6 +361,37 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_chunk=1024,
         out = _finalize(acc, l.clamp(min=1e-30), approx)  # (B,KVH,G,nq,dh)
         outs.append(out.permute(0, 3, 1, 2, 4))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=0,
+                     approx: ApproxConfig = EXACT):
+    """Single-token attention against a cache that already holds the token
+    (the reference's write-then-attend form, the oracle
+    :func:`decode_attention_append` is held to).
+
+    q: (B,KVH,G,dh); caches: (B,Smax,KVH,dh); ``pos``: an int, or a (B,)
+    tensor of per-row positions — the index of the token being generated
+    (cache entries past ``pos`` are masked; for ring caches Smax ==
+    window and everything is valid). Plain tensor ops in float32, the
+    finalize on :func:`attention_div` (its SIMDive divider where
+    ``approx`` asks for it)."""
+    B, Smax, KVH, dh = k_cache.shape
+    f32 = torch.float32
+    s = torch.einsum("bkgd,btkd->bkgt", q.to(f32), k_cache.to(f32)) \
+        * dh ** -0.5
+    idx = torch.arange(Smax, device=q.device)[None, None, None, :]
+    p4 = pos.reshape(-1, 1, 1, 1) if torch.is_tensor(pos) and pos.ndim \
+        else int(pos)
+    valid = idx <= p4
+    if window and Smax > window:
+        valid = valid & (idx > p4 - window)
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).to(f32),
+                       v_cache.to(f32))
+    return _finalize(acc, l, approx).to(q.dtype)
 
 
 def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,

@@ -230,7 +230,10 @@ class LM:
         """Prompt forward pass; returns (last-token logits, decode cache).
 
         The cache covers exactly the prompt length S; launch/serve.py embeds
-        it into a larger cache before decoding continues. Nothing here reads
+        it into a larger cache before decoding continues. On a bound mesh
+        the cache is laid out as :meth:`empty_cache` lays it for ``S`` and
+        the logits are this rank's shard of the vocabulary where the head
+        is split. Nothing here reads
         a tensor on the host, which is what lets the served prefill
         (:func:`repro_torch.launch.serve.make_prefill`) capture this call
         into a CUDA graph per prompt shape; called directly it runs eagerly.
@@ -243,7 +246,7 @@ class LM:
         return self._head(params, x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos, max_seq=None):
         """tokens: (B,) int64 [(B,C) for codebooks]; pos: the 0-based
         position of the token being decoded — an int, or a (B,) tensor for
         per-row positions. A (B,) tensor on the card is read there and
@@ -255,6 +258,15 @@ class LM:
         Returns (logits (B,V) [(B,C,V)], cache): the cache is updated **in
         place** (one token per layer; a recurrent layer's carry
         overwritten in its buffers) and returned.
+
+        On a bound mesh (:mod:`repro_torch.launch.sharding`) ``params`` are
+        this rank's shards, ``tokens`` its rows and ``cache`` as
+        :meth:`empty_cache` / :meth:`prefill` lay it out on this rank;
+        ``max_seq``, the ``max_seq`` the cache was built for, tells a
+        cache split by sequence from a whole one (required where the
+        model ranks do not divide the kv heads). The logits are this
+        rank's shard of the vocabulary where the head is split, as the
+        reference's ``shard(logits, "batch", None, "vocab")``.
         """
         cfg = self.cfg
         B = tokens.shape[0]
@@ -269,7 +281,7 @@ class LM:
         x = self._embed(params, {"tokens": tokens[:, None],
                                  "positions": positions})
         x, cache = stack_decode(params["stack"], x, cfg, cache, pos,
-                                positions)
+                                positions, max_seq)
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         return self._head(params, x)[:, 0], cache
 

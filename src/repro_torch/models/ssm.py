@@ -36,7 +36,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.approx import ApproxConfig
-from .layers import EXACT, dense, rmsnorm
+from repro_torch.launch.sharding import (
+    all_gather,
+    copy_to,
+    rank_in,
+    scatter_to,
+)
+from .layers import EXACT, QuantizedWeight, dense, rmsnorm
 
 LORA_R = 32          # token-shift ddlerp low-rank
 DECAY_LORA_R = 64    # data-dependent decay low-rank
@@ -73,6 +79,40 @@ def rwkv6_leaves(d_model, n_heads, d_ff):
         (("cm_wv",), (d_ff, D), d_ff),
         (("cm_wr",), (D, D), D),
     ]
+
+
+def _cols(w, full: int, axis: str):
+    """``(split, lo, n)`` of a column-parallel linear on a bound mesh:
+    ``dense``'s ``split`` (None where the weight is whole), this rank's
+    first output column and its count, read from the weight's width."""
+    n = (w.q if isinstance(w, QuantizedWeight) else w).shape[-1]
+    if n == full:
+        return None, 0, full
+    return ("col", axis), rank_in(axis) * n, n
+
+
+def _mine(t, split):
+    """This rank's slice of the last dim of ``t``, whole on every rank (a
+    replicated parameter or activation) — with the gradient summed over
+    the ranks, which each use a slice of their own (``scatter_to``) —,
+    or ``t`` unsplit."""
+    return t if split is None else scatter_to(t, t.ndim - 1, split[1])
+
+
+def _row(split):
+    """The row-parallel ``split`` that pairs with a column ``split``."""
+    return None if split is None else ("row", split[1])
+
+
+def _norm(y, w, split, eps=1e-6):
+    """``rmsnorm`` over all channels of ``y`` (``w`` its whole gains): on a
+    bound mesh where ``y`` holds this rank's channels (``split``), over
+    the whole ``y`` gathered, then this rank's channels — the unsplit
+    norm bit for bit, as the SIMDive linear after it needs (one float32
+    ulp there can move an operand across a quantization level)."""
+    if split is None:
+        return rmsnorm(y, w, eps)
+    return _mine(rmsnorm(all_gather(y, split[1], -1), w, eps), split)
 
 
 def _wkv_chunk(state, r, k, v, w, u):
@@ -134,10 +174,18 @@ def rwkv6_time_mix(p, x, x_prev, state, n_heads, chunk=64,
     output projection ``x``'s dtype. A tail that does not fill the last
     chunk is padded with identity steps (w = 1, k = 0), as in the
     reference.
+
+    On a bound mesh whose model ranks split ``wr`` / ``wk`` / ``wv`` /
+    ``wg`` by columns (their heads; ``u_bonus`` and ``state`` are this
+    rank's heads too) the WKV runs on this rank's heads, the decay is
+    computed whole (its LoRA is replicated) and cut to them, the norm
+    runs over all D channels (:func:`_norm`) and ``wo`` is row-parallel.
+    ``x`` and ``x_prev`` are whole on every rank.
     """
     B, T, D = x.shape
-    H = n_heads
-    dk = D // H
+    dk = D // n_heads
+    split, _, n = _cols(p["wr"], D, "heads")
+    H = n // dk
     f32 = torch.float32
     xf, sx = _token_shift(x, x_prev)
     # ddlerp: 5 mixed inputs (r,k,v,w,g)
@@ -146,13 +194,14 @@ def rwkv6_time_mix(p, x, x_prev, state, n_heads, chunk=64,
     off = torch.einsum("btnr,nrd->nbtd", ts, p["ts_b"].to(f32))
     mix = xf[None] + sx[None] * (p["mu"].to(f32)[:, None, None] + off)
     xr, xk, xv, xw, xg = mix
-    r = dense(xr, p["wr"], approx).reshape(B, T, H, dk)
-    k = dense(xk, p["wk"], approx).reshape(B, T, H, dk)
-    v = dense(xv, p["wv"], approx).reshape(B, T, H, dk)
-    g = dense(xg, p["wg"], approx)
+    r = dense(xr, p["wr"], approx, split).reshape(B, T, H, dk)
+    k = dense(xk, p["wk"], approx, split).reshape(B, T, H, dk)
+    v = dense(xv, p["wv"], approx, split).reshape(B, T, H, dk)
+    g = dense(xg, p["wg"], approx, split)
     dec_raw = p["w0"].to(f32) + torch.tanh(
         xw @ p["wd_a"].to(f32)) @ p["wd_b"].to(f32)
-    w = torch.exp(-torch.exp(dec_raw)).reshape(B, T, H, dk)   # (0,1)
+    w = _mine(torch.exp(-torch.exp(dec_raw)), split).reshape(
+        B, T, H, dk)                                         # (0,1)
 
     Tc = min(chunk, T)
     pad = (-T) % Tc
@@ -167,49 +216,68 @@ def rwkv6_time_mix(p, x, x_prev, state, n_heads, chunk=64,
         s, y = _wkv_chunk(s, r[:, lo:lo + Tc], k[:, lo:lo + Tc],
                           v[:, lo:lo + Tc], w[:, lo:lo + Tc], p["u_bonus"])
         ys.append(y)
-    y = torch.cat(ys, 1).reshape(B, T + pad, D)[:, :T]
-    y = rmsnorm(y, p["ln_x"]["w"])                       # per-channel norm
+    y = torch.cat(ys, 1).reshape(B, T + pad, n)[:, :T]
+    y = _norm(y, p["ln_x"]["w"], split)                  # per-channel norm
     y = y * F.silu(g)
-    out = dense(y.to(x.dtype), p["wo"], approx)
+    out = dense(y.to(x.dtype), p["wo"], approx, _row(split))
     return out, xf[:, -1].to(x.dtype), s
 
 
-def rwkv6_channel_mix(p, x, x_prev, approx: ApproxConfig = EXACT):
+def rwkv6_channel_mix(p, x, x_prev, approx: ApproxConfig = EXACT,
+                      d_ff: int | None = None):
     """x: (B,T,D), x_prev: (B,D). Returns ``(y (B,T,D), new x_prev)``, both
-    in x's dtype; the three linears take float32 inputs."""
+    in x's dtype; the three linears take float32 inputs.
+
+    On a bound mesh (``d_ff`` the whole hidden width) all three linears
+    are column-parallel, as the reference's specs place them (``cm_wv``'s
+    name matches the ``wv`` rule): the hidden activation is gathered
+    before ``cm_wv`` (whose input gradient the column-parallel linear
+    already sums over the ranks), and the output, this rank's channels of
+    ``rr * (kk @ cm_wv)``, after it."""
+    D = x.shape[-1]
     xf, sx = _token_shift(x, x_prev)
     mu = p["cm_mu"].to(torch.float32)
     xk = xf + sx * mu[0]
     xr = xf + sx * mu[1]
-    kk = torch.square(torch.relu(dense(xk, p["cm_wk"], approx)))
-    rr = torch.sigmoid(dense(xr, p["cm_wr"], approx))
-    out = rr * dense(kk, p["cm_wv"], approx)
+    ff = _cols(p["cm_wk"], d_ff or p["cm_wk"].shape[-1], "ff")[0]
+    kk = torch.square(torch.relu(dense(xk, p["cm_wk"], approx, ff)))
+    if ff is not None:
+        kk = all_gather(kk, "ff", -1)
+    rsplit = _cols(p["cm_wr"], D, "ff")[0]
+    rr = torch.sigmoid(dense(xr, p["cm_wr"], approx, rsplit))
+    out = rr * dense(kk, p["cm_wv"], approx, rsplit)
+    if rsplit is not None:
+        out = all_gather(out, "ff", -1)
     return out.to(x.dtype), xf[:, -1].to(x.dtype)
 
 
-def rwkv6_block(p, x, carry, n_heads, chunk=64, approx: ApproxConfig = EXACT):
+def rwkv6_block(p, x, carry, n_heads, chunk=64, approx: ApproxConfig = EXACT,
+                d_ff: int | None = None):
     """carry = dict(att_x, ffn_x, state). x: (B,T,D). Returns ``(x', new
     carry)``; the carry's tensors are new, never ``carry``'s own. Both
     norms are the exact ``rmsnorm`` (eps 1e-6) under any ``use_in_norm``,
-    as in the reference."""
+    as in the reference. On a bound mesh ``state`` is this rank's heads
+    and ``d_ff`` the channel mix's whole hidden width."""
     h = rmsnorm(x, p["ln1"]["w"])
     att, ax, st = rwkv6_time_mix(p, h, carry["att_x"], carry["state"],
                                  n_heads, chunk, approx)
     x = x + att
     h = rmsnorm(x, p["ln2"]["w"])
-    ffn, fx = rwkv6_channel_mix(p, h, carry["ffn_x"], approx)
+    ffn, fx = rwkv6_channel_mix(p, h, carry["ffn_x"], approx, d_ff)
     x = x + ffn
     return x, {"att_x": ax, "ffn_x": fx, "state": st}
 
 
-def rwkv6_empty_carry(batch, d_model, n_heads, dtype, device):
-    """Zero token shifts in ``dtype`` and a zero float32 state."""
+def rwkv6_empty_carry(batch, d_model, n_heads, dtype, device,
+                      local_heads: int | None = None):
+    """Zero token shifts in ``dtype`` and a zero float32 state
+    (``local_heads`` of its heads: a rank's on a mesh)."""
     dk = d_model // n_heads
     return {
         "att_x": torch.zeros((batch, d_model), dtype=dtype, device=device),
         "ffn_x": torch.zeros((batch, d_model), dtype=dtype, device=device),
-        "state": torch.zeros((batch, n_heads, dk, dk), dtype=torch.float32,
-                             device=device),
+        "state": torch.zeros((batch, local_heads or n_heads, dk, dk),
+                             dtype=torch.float32, device=device),
     }
 
 
@@ -312,25 +380,39 @@ def mamba2_mix(p, x, conv_state, ssm_state, d_state, head_dim, chunk=128,
     last chunk is padded with identity steps (``dt = 0``: decay 1, no
     input), as in the reference. ``softplus`` is ``logaddexp(v, 0)``, the
     reference's form.
+
+    On a bound mesh whose model ranks split ``wz`` / ``wx`` / ``wdt`` by
+    columns (and ``conv_x`` by channel): the SSD runs on this rank's
+    heads, ``B`` / ``C`` (replicated) whole, the conv state holds this
+    rank's x channels and all of B and C (``(B, CONV_K-1, d_inner / tp +
+    2N)``), the gated norm's sum of squares is added over the ranks and
+    ``out_proj`` is row-parallel.
     """
     B, T, D = x.shape
     d_inner = 2 * D
-    H = d_inner // head_dim
     N = d_state
+    split, _, n = _cols(p["wz"], d_inner, "ssm_heads")
+    H = n // head_dim
     f32 = torch.float32
-    z = dense(x, p["wz"], approx).to(f32)
-    xbc = torch.cat([dense(x, p["wx"], approx).to(f32),
+    z = dense(x, p["wz"], approx, split).to(f32)
+    xbc = torch.cat([dense(x, p["wx"], approx, split).to(f32),
                      dense(x, p["wb"], approx).to(f32),
                      dense(x, p["wc"], approx).to(f32)], dim=-1)
-    dt_raw = dense(x, p["wdt"], approx).to(f32)
+    dt_raw = dense(x, p["wdt"], approx, split).to(f32)
     seq = torch.cat([conv_state.to(f32), xbc], dim=1)
     conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
-    xbc_c = _causal_conv(seq, conv_w, p["conv_bias"].to(f32))
-    xs, B_m, C_m = torch.split(xbc_c, [d_inner, N, N], dim=-1)
+    bias = p["conv_bias"]
+    if split is not None:
+        bias = torch.cat([_mine(bias[:d_inner], split), bias[d_inner:]])
+    xbc_c = _causal_conv(seq, conv_w, bias.to(f32))
+    xs, B_m, C_m = torch.split(xbc_c, [n, N, N], dim=-1)
+    if split is not None:
+        # B and C, whole on every rank, meet this rank's heads alone
+        B_m, C_m = copy_to(B_m, split[1]), copy_to(C_m, split[1])
     xs = xs.reshape(B, T, H, head_dim)
-    v = dt_raw + p["dt_bias"].to(f32)
+    v = dt_raw + _mine(p["dt_bias"], split).to(f32)
     dt = torch.logaddexp(v, v.new_zeros(()))                 # (B,T,H)
-    A = -torch.exp(p["A_log"].to(f32))
+    A = -torch.exp(_mine(p["A_log"], split).to(f32))
 
     Tc = min(chunk, T)
     pad = (-T) % Tc
@@ -346,12 +428,12 @@ def mamba2_mix(p, x, conv_state, ssm_state, d_state, head_dim, chunk=128,
         s, y = _ssd_chunk(s, xp[:, lo:hi], Bp[:, lo:hi], Cp[:, lo:hi],
                           dtp[:, lo:hi], A)
         ys.append(y)
-    y = torch.cat(ys, 1).reshape(B, T + pad, d_inner)[:, :T]
+    y = torch.cat(ys, 1).reshape(B, T + pad, n)[:, :T]
     # the skip term: D repeated over each head's head_dim channels (a
     # broadcast; the elementwise products are the reference's)
-    y = y + (xs * p["D"].to(f32)[:, None]).reshape(B, T, d_inner)
-    y = rmsnorm(y * F.silu(z), p["out_norm"]["w"])
-    out = dense(y.to(x.dtype), p["out_proj"], approx)
+    y = y + (xs * _mine(p["D"], split).to(f32)[:, None]).reshape(B, T, n)
+    y = _norm(y * F.silu(z), p["out_norm"]["w"], split)
+    out = dense(y.to(x.dtype), p["out_proj"], approx, _row(split))
     new_conv = seq[:, -(CONV_K - 1):].to(x.dtype)
     return out, new_conv, s
 
@@ -368,9 +450,12 @@ def mamba2_block(p, x, carry, d_state, head_dim, chunk=128,
     return x + y, {"conv": conv, "ssm": ssm}
 
 
-def mamba2_empty_carry(batch, d_model, d_state, head_dim, dtype, device):
-    """A zero conv window in ``dtype`` and a zero float32 state."""
-    d_inner = 2 * d_model
+def mamba2_empty_carry(batch, d_model, d_state, head_dim, dtype, device,
+                       local_inner: int | None = None):
+    """A zero conv window in ``dtype`` and a zero float32 state
+    (``local_inner`` of the inner channels and their heads: a rank's on a
+    mesh)."""
+    d_inner = local_inner or 2 * d_model
     H = d_inner // head_dim
     return {
         "conv": torch.zeros((batch, CONV_K - 1, d_inner + 2 * d_state),

@@ -33,7 +33,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import serving_segments
-from repro_torch.launch.sharding import logical_axis_size, scatter_to
+from repro_torch.launch.sharding import (
+    all_gather,
+    all_reduce,
+    logical_axis_size,
+    rank_in,
+    scatter_to,
+)
 from .layers import (
     QuantizedWeight,
     apply_norm,
@@ -259,40 +265,65 @@ def _rope_for(cfg: ModelConfig, positions):
 
 def check_mesh(cfg: ModelConfig) -> None:
     """Raise, with the reason, where the bound mesh's model axis would
-    split ``cfg`` in a way the port does not run: the recurrent and
-    hybrid stacks (data-parallel only), and a split of ``wq`` or ``wk`` /
-    ``wv`` that :func:`~repro_torch.launch.specs.sanitize_specs` keeps
-    (the width divides the axis) but that cuts a head (the head count
-    does not). The reference's GSPMD pads such splits. Everything else
-    runs on what the placement gives: the model reads each weight's split
-    from its width (:func:`_qkv`, :func:`_ffn`)."""
+    split ``cfg`` in a way the port does not run: a recurrent stack
+    (rwkv6, or the hybrid's Mamba2 layers) whose heads the axis does not
+    divide while their projections' widths split, which would cut a
+    recurrent head. Every attention split runs, a cut head included
+    (:func:`head_plan`): the model reads each weight's split from its
+    width (:func:`_qkv`, :func:`_ffn`)."""
     tp = logical_axis_size("heads")
     if tp == 1:
         return
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    reasons = []
-    if cfg.family in ("ssm", "hybrid"):
-        reasons.append(f"the {cfg.family} stack runs data-parallel only "
-                       "(--tp 1; ROADMAP A-10d)")
+    if cfg.family == "ssm":
+        H, width = _rwkv6_heads(cfg), cfg.d_model
+    elif cfg.family == "hybrid":
+        width = 2 * cfg.d_model
+        H = width // cfg.ssm_head_dim
     else:
-        if H % tp and (H * dh) % tp == 0:
-            reasons.append(
-                f"wq's {H * dh} outputs split over {tp} model ranks would "
-                f"give each rank {H / tp:g} of {H} query heads of {dh} (a "
-                "cut head; GSPMD pads, the port does not)")
-        if KV % tp and (KV * dh) % tp == 0:
-            reasons.append(
-                f"wk / wv's {KV * dh} outputs split over {tp} ranks would "
-                f"cut one of {KV} kv heads")
-    if reasons:
-        raise NotImplementedError(f"{cfg.name} at tp {tp}: "
-                                  + "; ".join(reasons))
+        return
+    if H % tp and width % tp == 0:
+        raise NotImplementedError(
+            f"{cfg.name} at tp {tp}: the {cfg.family} stack's {width} "
+            f"channels split over {tp} model ranks would cut one of its {H} "
+            "recurrent heads")
+
+
+def head_plan(H: int, KV: int, tp: int, r: int) -> tuple:
+    """Which heads model rank ``r`` of ``tp`` attends with where the
+    placement cuts a head: ``(q0, q1, kv0, kv1, per_head)``, query heads
+    ``[q0, q1)`` over kv heads ``[kv0, kv1)``. With at least as many kv
+    heads as ranks a rank takes whole GQA groups, ``KV / tp`` of them
+    rounded up or down (every rank some, the first ranks the larger
+    parts, as GSPMD's padded shards run); with fewer, ``H / tp`` query
+    heads rounded likewise, a kv head held by every rank whose query
+    heads it serves. Where those query heads span two kv heads without
+    filling either (``per_head``), each query head attends alone with its
+    kv head (G 1). The last ranks hold no head (``q0 == q1``) when
+    ``H < tp``."""
+    G = H // KV
+
+    def cut(n: int, i: int) -> int:              # ceil(i * n / tp)
+        return -(-i * n // tp)
+
+    if KV >= tp:
+        k0, k1 = cut(KV, r), cut(KV, r + 1)
+        return k0 * G, k1 * G, k0, k1, False
+    q0, q1 = cut(H, r), cut(H, r + 1)
+    if q1 == q0:
+        return q0, q1, 0, 0, False
+    k0, k1 = q0 // G, (q1 - 1) // G + 1
+    return q0, q1, k0, k1, k1 - k0 > 1
 
 
 def _width(w) -> int:
     """A linear's output width as this rank holds it (an int8
     :class:`QuantizedWeight`'s too)."""
     return (w.q if isinstance(w, QuantizedWeight) else w).shape[-1]
+
+
+def _rows(w) -> int:
+    """A linear's input width as this rank holds it."""
+    return (w.q if isinstance(w, QuantizedWeight) else w).shape[-2]
 
 
 def _col(w, full: int, axis: str):
@@ -302,19 +333,52 @@ def _col(w, full: int, axis: str):
     return ("col", axis) if _width(w) < full else None
 
 
-def _qkv(p, h, cfg: ModelConfig, rope, rot):
-    """q, k, v of one block: the linears, the biases (in the activation
-    dtype), then qk-norm over d_head — always the exact ``rmsnorm``, as in
-    the reference, whatever ``use_in_norm`` says —, then RoPE.
+def _cut(p, cfg: ModelConfig) -> bool:
+    """Whether the placement cut a head: ``wq`` split though the model
+    ranks do not divide the query heads, or ``wk`` / ``wv`` split though
+    they do not divide the kv heads."""
+    tp = logical_axis_size("heads")
+    dh = cfg.d_head
+    return (_width(p["wq"]) < cfg.n_heads * dh and cfg.n_heads % tp != 0) \
+        or (_width(p["wk"]) < cfg.n_kv_heads * dh
+            and cfg.n_kv_heads % tp != 0)
+
+
+def _whole(flat: list, fulls: list) -> list:
+    """The whole of each (B,S,width) projection in ``flat`` that this
+    rank holds a column split of (``fulls``: their whole widths): the
+    split ones joined in one ``all_gather`` over the model ranks (its
+    gradient summed over them: each rank goes on with heads of its
+    own)."""
+    split = [i for i, (t, n) in enumerate(zip(flat, fulls))
+             if t.shape[-1] < n]
+    if not split:
+        return flat
+    tp = logical_axis_size("heads")
+    widths = [flat[i].shape[-1] for i in split]
+    g = all_gather(torch.cat([flat[i] for i in split], -1), "heads", -1,
+                   grad="sum")
+    g = g.reshape(*g.shape[:-1], tp, sum(widths))
+    out = list(flat)
+    for i, piece in zip(split, g.split(widths, -1)):
+        out[i] = piece.reshape(*piece.shape[:-2], tp * piece.shape[-1])
+    return out
+
+
+def _qkv(p, h, cfg: ModelConfig, rope, rot, whole: bool = False):
+    """q, k, v of one block in heads: the linears, the biases (in the
+    activation dtype), then qk-norm over d_head — always the exact
+    ``rmsnorm``, as in the reference, whatever ``use_in_norm`` says —,
+    then RoPE.
 
     On a bound mesh each weight's split is read from its own width: a
-    ``wq`` narrower than ``H * dh`` is this rank's columns (its heads), a
-    ``wk`` / ``wv`` narrower than ``KV * dh`` its kv heads; a whole one is
-    replicated (:func:`check_mesh` refuses splits that would cut a
-    head)."""
+    ``wq`` narrower than ``H * dh`` is this rank's columns, a ``wk`` /
+    ``wv`` narrower than ``KV * dh`` its kv columns; a whole one is
+    replicated. Where the columns cut a head (:func:`_cut`), or with
+    ``whole``, the split ones are gathered first (:func:`_whole`): then
+    every head comes back."""
     B, S, _ = h.shape
     dh = cfg.d_head
-    H, KV = _width(p["wq"]) // dh, _width(p["wk"]) // dh
     q = dense(h, p["wq"], cfg.approx, _col(p["wq"], cfg.n_heads * dh,
                                            "heads"))
     kv_col = _col(p["wk"], cfg.n_kv_heads * dh, "kv")
@@ -324,9 +388,13 @@ def _qkv(p, h, cfg: ModelConfig, rope, rot):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, KV, dh)
-    v = v.reshape(B, S, KV, dh)
+    if whole or _cut(p, cfg):
+        q, k, v = _whole([q, k, v], [cfg.n_heads * dh,
+                                     cfg.n_kv_heads * dh,
+                                     cfg.n_kv_heads * dh])
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"]["w"], cfg.norm_eps)
@@ -337,20 +405,79 @@ def _qkv(p, h, cfg: ModelConfig, rope, rot):
     return q, k, v
 
 
+def _plan_heads(q, k, v, cfg: ModelConfig):
+    """This rank's heads of the whole q / k / v (:func:`head_plan`) in
+    the attention layout: ``(qs (B,S,KVloc,Gloc,dh), ks, vs, plan)``."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    plan = head_plan(H, KV, logical_axis_size("heads"), rank_in("heads"))
+    q0, q1, k0, k1, per_head = plan
+    B, S = q.shape[:2]
+    if per_head:
+        idx = torch.arange(q0, q1, device=k.device) // G
+        return (q[:, :, q0:q1, None], k.index_select(2, idx),
+                v.index_select(2, idx), plan)
+    n_kv = max(k1 - k0, 1)
+    return (q[:, :, q0:q1].reshape(B, S, k1 - k0, (q1 - q0) // n_kv,
+                                   cfg.d_head),
+            k[:, :, k0:k1], v[:, :, k0:k1], plan)
+
+
+def _join_heads(o, cfg: ModelConfig):
+    """The whole (B,S,H*dh) attention output from every rank's heads
+    (:func:`head_plan`): each rank's part padded to the largest, one
+    ``all_gather`` over the model ranks (its gradient summed over them),
+    the padding dropped."""
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    tp = logical_axis_size("heads")
+    sizes = [(q1 - q0) * dh for q0, q1, *_ in
+             (head_plan(H, KV, tp, r) for r in range(tp))]
+    top = max(sizes)
+    g = all_gather(torch.nn.functional.pad(o, (0, top - o.shape[-1])),
+                   "heads", -1, grad="sum")
+    return torch.cat([g[..., r * top:r * top + n]
+                      for r, n in enumerate(sizes)], -1)
+
+
+def _wo(p, o, x, cfg: ModelConfig):
+    """``x + o @ wo``: a split ``wo`` is row-parallel — its rows of the
+    whole ``o`` (this rank's slice where ``o`` is whole here), the partial
+    sums added —, so the residual stream stays replicated over the model
+    ranks."""
+    full = cfg.n_heads * cfg.d_head
+    rows = _rows(p["wo"])
+    if rows == full:
+        return x + dense(o, p["wo"], cfg.approx)
+    if o.shape[-1] == full:
+        o = o.narrow(-1, rank_in("heads") * rows, rows)
+    return x + dense(o, p["wo"], cfg.approx, ("row", "heads"))
+
+
 def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
     """Full-sequence block (train / prefill). Returns (x', (k, v), aux):
     ``aux`` is an MoE block's load-balance loss (float32 zero for an MLP);
     an MoE block dispatches at ``cfg.moe_capacity_factor``. ``train``
     takes the differentiable :func:`chunked_attention` whatever backend
-    the config resolves (the attention kernels are forward-only)."""
+    the config resolves (the attention kernels are forward-only).
+
+    On a bound mesh the K/V returned are laid out as the decode cache
+    holds them (:func:`cache_kv`). Three layouts: this rank's kv heads and
+    their query groups (the model ranks divide the kv heads); its query
+    heads over K/V whole and repeated (they divide the query heads, the
+    K/V columns stay whole); and, where a split cuts a head, every head
+    gathered, this rank's heads attended (:func:`head_plan`) and the
+    output gathered back before ``wo``."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // KV
     rope, rot = _rope_for(cfg, positions)
     h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
+    cut = _cut(p, cfg)
     q, k, v = _qkv(p, h, cfg, rope, rot)
     h_loc, kv_loc = q.shape[2], k.shape[2]
-    if h_loc == kv_loc * G:
+    if cut:
+        qs, ks, vs, _ = _plan_heads(q, k, v, cfg)
+    elif h_loc == kv_loc * G:
         # whole, or this rank's kv heads and their query groups
         qs, ks, vs = q.reshape(B, S, kv_loc, G, dh), k, v
     else:
@@ -360,21 +487,40 @@ def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
         qs = q.reshape(B, S, h_loc, 1, dh)
         ks = scatter_to(k.repeat_interleave(G, dim=2), 2, "heads")
         vs = scatter_to(v.repeat_interleave(G, dim=2), 2, "heads")
-    attend = chunked_attention if train else flash_attention
-    o = attend(
-        qs, ks, vs, causal=True,
-        window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
-        kv_chunk=cfg.attn_kv_chunk, approx=cfg.approx,
-    ).reshape(B, S, h_loc * dh)
-    # a split wo is row-parallel: the residual stream stays replicated
-    # over the model ranks
-    wo_rows = (p["wo"].q if isinstance(p["wo"], QuantizedWeight)
-               else p["wo"]).shape[-2]
-    x = x + dense(o, p["wo"], cfg.approx,
-                  ("row", "heads") if wo_rows < H * dh else None)
+    n_loc = qs.shape[2] * qs.shape[3]
+    if n_loc:
+        attend = chunked_attention if train else flash_attention
+        o = attend(
+            qs, ks, vs, causal=True,
+            window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk,
+            kv_chunk=cfg.attn_kv_chunk, approx=cfg.approx,
+        ).reshape(B, S, n_loc * dh)
+    else:
+        o = qs.new_zeros((B, S, 0))
+    if cut:
+        o = _join_heads(o, cfg)
+    x = _wo(p, o, x, cfg)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
     y, aux = _ffn(p, h, cfg, cfg.moe_capacity_factor)
-    return x + y, (k, v), aux
+    return x + y, (cache_kv(k, cfg), cache_kv(v, cfg)), aux
+
+
+def cache_kv(t, cfg: ModelConfig):
+    """A block's (B,S,kv,dh) K or V as the decode cache holds it on this
+    rank (``specs.cache_specs``, sanitized): its kv heads where the model
+    ranks divide them, else its slice of the sequence where they divide
+    that, else whole. ``t`` is this rank's kv heads in the first case
+    (or whole), whole in the others."""
+    tp = logical_axis_size("kv")
+    if tp == 1:
+        return t
+    r, KV, S = rank_in("kv"), cfg.n_kv_heads, t.shape[1]
+    if KV % tp == 0:
+        n = KV // tp
+        return t if t.shape[2] == n else t.narrow(2, r * n, n)
+    if S % tp == 0:
+        return t.narrow(1, r * (S // tp), S // tp)
+    return t
 
 
 def _ffn(p, h, cfg: ModelConfig, capacity_factor: float):
@@ -400,32 +546,94 @@ def decode_slot(cfg: ModelConfig, Smax: int, pos):
     return pos
 
 
-def attn_block_decode(p, x, cfg: ModelConfig, cache, pos, positions):
+def attn_block_decode(p, x, cfg: ModelConfig, cache, pos, positions,
+                      seq=None):
     """Single-token block against a *read-only* cache.
 
     x: (B,1,D); cache {k,v}: (B,Smax,KV,dh). Returns (x', (k_new, v_new))
     where k_new/v_new are the (B,1,KV,dh) slabs the caller writes into the
     stacked cache buffer.
-    """
+
+    On a bound mesh the cache is laid out as :func:`cache_kv` lays it: this
+    rank's kv heads (where the model ranks divide them: its query groups
+    attend over them, one kernel call), else — every head of q, k and v
+    gathered — its slice of the sequence, ``seq = (first slot, whole
+    cache's slots)``, combined over the ranks (:func:`_decode_seq_split`),
+    or the whole cache. ``k_new`` / ``v_new`` are then whole too."""
     B = x.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // KV
-    Smax = cache["k"].shape[1]
+    Smax = cache["k"].shape[1] if seq is None else seq[1]
     rope, rot = _rope_for(cfg, positions)
     h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
-    q, k, v = _qkv(p, h, cfg, rope, rot)
+    tp = logical_axis_size("kv")
+    by_heads = KV % tp == 0
+    q, k, v = _qkv(p, h, cfg, rope, rot, whole=not by_heads)
+    if by_heads and tp > 1 and k.shape[2] == KV:
+        n, r = KV // tp, rank_in("kv")
+        k, v = k.narrow(2, r * n, n), v.narrow(2, r * n, n)
+        q = q.narrow(2, r * n * G, n * G)
     ring_full = bool(cfg.sliding_window and Smax <= cfg.sliding_window)
     slot = decode_slot(cfg, Smax, pos)
-    o = decode_attention_append(
-        q.reshape(B, KV, G, dh), cache["k"], cache["v"], k, v, pos, slot,
-        ring_full=ring_full, window=0 if ring_full else cfg.sliding_window,
-        approx=cfg.approx,
-    ).reshape(B, 1, H * dh)
-    x = x + dense(o, p["wo"], cfg.approx)
+    window = 0 if ring_full else cfg.sliding_window
+    q = q.reshape(B, k.shape[2], G, dh)
+    if seq is None:
+        o = decode_attention_append(
+            q, cache["k"], cache["v"], k, v, pos, slot, ring_full=ring_full,
+            window=window, approx=cfg.approx)
+    else:
+        o = _decode_seq_split(q, cache["k"], cache["v"], k, v, pos, slot,
+                              seq, ring_full=ring_full, window=window,
+                              approx=cfg.approx)
+    x = _wo(p, o.reshape(B, 1, -1), x, cfg)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
     # the reference's decode step fixes the MoE capacity factor at 4.0
     y, _ = _ffn(p, h, cfg, 4.0)
     return x + y, (k.to(cache["k"].dtype), v.to(cache["v"].dtype))
+
+
+def _decode_seq_split(q, k_cache, v_cache, k_new, v_new, pos, slot, seq, *,
+                      ring_full, window, approx):
+    """:func:`~repro_torch.models.layers.decode_attention_append` over a
+    cache whose sequence the model ranks split (``seq = (this rank's
+    first slot, the whole cache's slots)``), every head on every rank:
+    each rank's scores over its slots, the row maxima's ``all_reduce``
+    MAX, each rank's ``exp`` sums and ``p . V`` (the new token's term on
+    model rank 0 alone), one ``all_reduce`` SUM of both, then the
+    finalize ``acc / l`` (the SIMDive divider where the config asks for
+    it). The whole cache's arithmetic, the sums over ranks in another
+    order. A scalar ``pos`` only."""
+    if torch.is_tensor(pos) and pos.ndim:
+        raise NotImplementedError(
+            "a decode cache split over the sequence takes one position for "
+            "the batch; per-row positions need the whole cache on a rank")
+    from repro_torch.kernels.decode_attention import history_valid
+    from repro_torch.launch.sharding import all_reduce_max
+    from .layers import _finalize
+
+    lo, Smax = seq
+    B, n, KVH, dh = k_cache.shape
+    f32 = torch.float32
+    scale = dh ** -0.5
+    qf = q.to(f32)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k_cache.to(f32)) * scale
+    valid = history_valid(Smax, pos, slot, ring_full=ring_full,
+                          window=window, device=q.device)[..., lo:lo + n]
+    s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+    s_self = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].to(f32)) * scale
+    if rank_in("kv"):
+        s_self = torch.full_like(s_self, float("-inf"))
+    m = all_reduce_max(torch.maximum(s.amax(dim=-1), s_self), ["kv"])
+    p = torch.exp(s - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p.sum(dim=-1) + p_self
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).to(f32),
+                       v_cache.to(f32))
+    acc = acc + p_self[..., None] * v_new[:, 0].to(f32)[:, :, None, :]
+    both = all_reduce(torch.cat([acc.reshape(-1), l.reshape(-1)]), "kv")
+    acc = both[:acc.numel()].view(acc.shape)
+    l = both[acc.numel():].view(l.shape)
+    return _finalize(acc, l, approx).to(q.dtype)
 
 
 # ------------------------------------------------------------ layer stack --
@@ -458,8 +666,11 @@ def _write_token(buf, i, at, new):
     """Write one decoded token's (B,1,KV,dh) slab into the stacked
     (L,B,Smax,KV,dh) cache at layer ``i``, at ``at`` (:func:`_token_index`)
     — **in place** (where the reference updates a donated buffer): a seq
-    slot, or each row at its own depth. Returns ``buf``.
+    slot, or each row at its own depth; nothing where ``at`` is None.
+    Returns ``buf``.
     """
+    if at is None:                     # another rank holds the slot
+        return buf
     if isinstance(at, tuple):
         rows, slot = at
         buf[i, rows, slot] = new[:, 0]
@@ -468,7 +679,7 @@ def _write_token(buf, i, at, new):
     return buf
 
 
-def hybrid_shared(params, g: int, dtype):
+def hybrid_shared(params, g: int, dtype, width: int | None = None):
     """The shared block's parameters for invocation ``g``: its own, with
     ``wq + lora_a[g] @ lora_b[g]`` in place of ``wq``, the LoRA pair cast
     to the activation ``dtype`` first, as in the reference. The merge is
@@ -476,7 +687,14 @@ def hybrid_shared(params, g: int, dtype):
     product and a ``(D, H*dh)`` float32 sum each time). An int8 ``wq``
     (``--quantize``) raises: the reference's prefill cannot add the delta
     to a ``QuantizedWeight`` (a ``TypeError``), and its decode step would
-    skip the LoRA."""
+    skip the LoRA.
+
+    ``width``: ``H * dh``, the whole ``wq``'s columns. On a bound mesh
+    whose model ranks split ``wq`` and ``lora_b`` by columns, ``lora_b``
+    is gathered and the whole product made, then this rank's columns
+    taken: the unsplit merge's values bit for bit (the product of a
+    column slice may round differently), which the SIMDive ``wq`` after
+    it quantizes."""
     sp = dict(params["shared"])
     if isinstance(sp["wq"], QuantizedWeight):
         raise NotImplementedError(
@@ -485,8 +703,16 @@ def hybrid_shared(params, g: int, dtype):
             "take it (the reference's prefill raises TypeError there)")
     la = params["lora_a"][g].to(dtype)
     lb = params["lora_b"][g].to(dtype)
-    sp["wq"] = sp["wq"] + la @ lb
+    if width is not None and lb.shape[-1] < width:
+        delta = scatter_to(la @ all_gather(lb, "heads", -1), 1, "heads")
+    else:
+        delta = la @ lb
+    sp["wq"] = sp["wq"] + delta
     return sp
+
+
+def _q_width(cfg: ModelConfig) -> int:
+    return cfg.n_heads * cfg.d_head
 
 
 def _hybrid_groups(cfg: ModelConfig):
@@ -521,6 +747,81 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
+def _carry0(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """A zero recurrent carry as a layer computes on it: on a bound mesh
+    this rank's heads of the state (and, for Mamba2, its x channels of
+    the conv window), the token shifts whole."""
+    tp = logical_axis_size("heads")
+    if cfg.family == "ssm":
+        H = _rwkv6_heads(cfg)
+        split = tp > 1 and cfg.d_model % tp == 0
+        return rwkv6_empty_carry(batch, cfg.d_model, H, dtype, device,
+                                 H // tp if split else None)
+    inner = 2 * cfg.d_model
+    split = tp > 1 and inner % tp == 0
+    return mamba2_empty_carry(batch, cfg.d_model, cfg.ssm_state,
+                              cfg.ssm_head_dim, dtype, device,
+                              inner // tp if split else None)
+
+
+def _whole_dim(t, full: int):
+    """``t`` whole along its last dim (``full`` wide): gathered over the
+    model ranks where this rank holds a slice."""
+    if t.shape[-1] == full:
+        return t
+    return all_gather(t.contiguous(), "heads", -1)
+
+
+def _cut_dim(t, full: int):
+    """This rank's slice of the last dim of a whole ``t`` where the decode
+    cache splits it over the model ranks (``specs.cache_specs``:
+    ``full`` divides), else ``t``."""
+    tp = logical_axis_size("heads")
+    if tp == 1 or full % tp:
+        return t
+    n = full // tp
+    return t.narrow(-1, rank_in("heads") * n, n)
+
+
+def _carry_in(cfg: ModelConfig, c: dict) -> dict:
+    """One layer's recurrent carry from the decode cache's layout
+    (:func:`_carry_out`) into the one the layer computes on
+    (:func:`_carry0`)."""
+    if logical_axis_size("heads") == 1:
+        return c
+    D = cfg.d_model
+    if cfg.family == "ssm":
+        return {"att_x": _whole_dim(c["att_x"], D),
+                "ffn_x": _whole_dim(c["ffn_x"], D), "state": c["state"]}
+    inner, N = 2 * D, cfg.ssm_state
+    conv = _whole_dim(c["conv"], inner + 2 * N)
+    n = c["ssm"].shape[1] * cfg.ssm_head_dim
+    if n < inner:
+        lo = rank_in("heads") * n
+        conv = torch.cat([conv[..., lo:lo + n], conv[..., inner:]], -1)
+    return {"conv": conv, "ssm": c["ssm"]}
+
+
+def _carry_out(cfg: ModelConfig, c: dict) -> dict:
+    """A layer's new carry as the decode cache holds it on this rank
+    (``specs.cache_specs``, sanitized): the token shifts' and the conv
+    window's channels split where the model ranks divide them, the states
+    by head (as computed)."""
+    if logical_axis_size("heads") == 1:
+        return c
+    D = cfg.d_model
+    if cfg.family == "ssm":
+        return {"att_x": _cut_dim(c["att_x"], D),
+                "ffn_x": _cut_dim(c["ffn_x"], D), "state": c["state"]}
+    inner, N = 2 * D, cfg.ssm_state
+    conv = c["conv"]
+    n = conv.shape[-1] - 2 * N
+    if n < inner:
+        conv = torch.cat([_whole_dim(conv[..., :n], inner),
+                          conv[..., n:]], -1)
+    return {"conv": _cut_dim(conv, inner + 2 * N), "ssm": c["ssm"]}
+
+
 def stack_train(params, x, cfg: ModelConfig, positions):
     """The layer stack over (B,S,D) with nothing cached: returns (x, aux),
     ``aux`` the summed MoE load-balance losses (float32; zero without
@@ -540,19 +841,17 @@ def stack_train(params, x, cfg: ModelConfig, positions):
     layers = unbind_layers(params["layers"], cfg.n_layers)
     if cfg.family == "ssm":
         H = _rwkv6_heads(cfg)
-        carry0 = rwkv6_empty_carry(x.shape[0], cfg.d_model, H, x.dtype,
-                                   x.device)
+        carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
 
         def rwkv6_layer(p, xc):
             return rwkv6_block(p, xc, carry0, H, cfg.ssm_chunk,
-                               cfg.approx)[0]
+                               cfg.approx, cfg.d_ff)[0]
 
         for p in layers:
             x = _remat(cfg, rwkv6_layer, p, x)
         return x, aux
     if cfg.family == "hybrid":
-        carry0 = mamba2_empty_carry(x.shape[0], cfg.d_model, cfg.ssm_state,
-                                    cfg.ssm_head_dim, x.dtype, x.device)
+        carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
 
         def mamba2_layer(p, xc):
             return mamba2_block(p, xc, carry0, cfg.ssm_state,
@@ -562,7 +861,8 @@ def stack_train(params, x, cfg: ModelConfig, positions):
         for g, group in _hybrid_groups(cfg):
             for i in group:
                 x = _remat(cfg, mamba2_layer, layers[i], x)
-            x, _, a = attn_block_train(hybrid_shared(params, g, x.dtype), x,
+            x, _, a = attn_block_train(hybrid_shared(params, g, x.dtype,
+                                                     _q_width(cfg)), x,
                                        cfg, positions, train=True)
             aux = aux + a
         return x, aux
@@ -584,22 +884,25 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
     zero carry, and runs ``cfg.approx`` whole: no policy segments, as in
     the reference); for the hybrid stack each Mamba2 layer's final carry
     (each from a zero carry) and each shared-block invocation's K/V, the
-    whole stack at ``cfg.approx``, as in the reference."""
+    whole stack at ``cfg.approx``, as in the reference. On a bound mesh
+    the cache comes back as this rank holds it (:func:`cache_kv`,
+    :func:`_carry_out`)."""
     _check_ported(cfg)
+    check_mesh(cfg)
     if cfg.n_layers == 0:
         return x, empty_cache(cfg, x.shape[0], x.shape[1], x.dtype, x.device)
     if cfg.family == "hybrid":
-        carry0 = mamba2_empty_carry(x.shape[0], cfg.d_model, cfg.ssm_state,
-                                    cfg.ssm_head_dim, x.dtype, x.device)
+        carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
         carries, ks, vs = [], [], []
         for g, layers in _hybrid_groups(cfg):
             for i in layers:
                 x, c = mamba2_block(layer_params(params["layers"], i), x,
                                     carry0, cfg.ssm_state, cfg.ssm_head_dim,
                                     cfg.ssm_chunk, cfg.approx)
-                carries.append(c)
+                carries.append(_carry_out(cfg, c))
             x, (k, v), _ = attn_block_train(
-                hybrid_shared(params, g, x.dtype), x, cfg, positions)
+                hybrid_shared(params, g, x.dtype, _q_width(cfg)), x, cfg,
+                positions)
             ks.append(k)
             vs.append(v)
         return x, {"ssm": {name: torch.stack([c[name] for c in carries])
@@ -608,13 +911,12 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
                    "v": torch.stack(vs).to(x.dtype)}
     if cfg.family == "ssm":
         H = _rwkv6_heads(cfg)
-        carry0 = rwkv6_empty_carry(x.shape[0], cfg.d_model, H, x.dtype,
-                                   x.device)
+        carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
         carries = []
         for i in range(cfg.n_layers):
             x, c = rwkv6_block(layer_params(params["layers"], i), x, carry0,
-                               H, cfg.ssm_chunk, cfg.approx)
-            carries.append(c)
+                               H, cfg.ssm_chunk, cfg.approx, cfg.d_ff)
+            carries.append(_carry_out(cfg, c))
         return x, {"ssm": {k: torch.stack([c[k] for c in carries])
                            for k in carry0}}
     ks, vs = [], []
@@ -631,62 +933,118 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
 # ----------------------------------------------------------------- caches --
 def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device):
     """Decode cache dict (stacked over layers); zeros, each leaf its own
-    buffer (the decode step writes them in place)."""
+    buffer (the decode step writes them in place). On a bound mesh each
+    leaf has this rank's shape (``specs.cache_specs``, sanitized: K/V by
+    kv head, else by sequence; the recurrent states by head, the token
+    shifts and the conv window by channel; a dim the model ranks do not
+    divide whole); ``batch`` is this rank's rows."""
     _check_ported(cfg)
     KV, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
-    if cfg.family == "ssm":
-        c = rwkv6_empty_carry(batch, cfg.d_model, _rwkv6_heads(cfg), dtype,
-                              device)
-        return {"ssm": {k: a.new_zeros((L,) + a.shape) for k, a in c.items()}}
+    tp = logical_axis_size("heads")
+
+    def local(shape: tuple, dim: int) -> tuple:
+        if tp == 1 or shape[dim] % tp:
+            return shape
+        return shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "ssm":
+            c = rwkv6_empty_carry(batch, cfg.d_model, _rwkv6_heads(cfg),
+                                  dtype, "meta")
+        else:
+            c = mamba2_empty_carry(batch, cfg.d_model, cfg.ssm_state,
+                                   cfg.ssm_head_dim, dtype, "meta")
+        # (L,B,D) token shifts and (L,B,K-1,C) conv split their last dim,
+        # the (L,B,H,...) states their heads
+        ssm = {k: zeros(local((L,) + tuple(a.shape),
+                              2 if a.ndim >= 3 and k != "conv"
+                              else a.ndim), a.dtype)
+               for k, a in c.items()}
+        if cfg.family == "ssm":
+            return {"ssm": ssm}
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     n_kv = L
     out = {}
     if cfg.family == "hybrid":
-        c = mamba2_empty_carry(batch, cfg.d_model, cfg.ssm_state,
-                               cfg.ssm_head_dim, dtype, device)
-        out["ssm"] = {k: a.new_zeros((L,) + a.shape) for k, a in c.items()}
+        out["ssm"] = ssm
         n_kv = n_invocations(cfg)
+    shape = (n_kv, batch, S, KV, dh)
+    shape = local(shape, 3) if tp == 1 or KV % tp == 0 else local(shape, 2)
     for name in ("k", "v"):
-        out[name] = torch.zeros((n_kv, batch, S, KV, dh), dtype=dtype,
-                                device=device)
+        out[name] = zeros(shape)
     return out
 
 
-def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
+def _seq_split(cfg: ModelConfig, max_seq):
+    """``(this rank's first slot, the whole cache's slots)`` where the
+    decode cache built for ``max_seq`` holds a slice of the sequence on a
+    bound mesh (:func:`cache_kv`, :func:`empty_cache`), else None. Raises
+    where only ``max_seq`` can tell (the model ranks do not divide the kv
+    heads) and it is not given."""
+    tp = logical_axis_size("kv")
+    if tp == 1 or cfg.n_kv_heads % tp == 0:
+        return None
+    if max_seq is None:
+        raise ValueError(
+            f"{cfg.name} at tp {tp}: the decode cache splits its sequence "
+            "where the model ranks divide it; pass the cache's max_seq")
+    S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    if S % tp:
+        return None
+    return rank_in("kv") * (S // tp), S
+
+
+def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions,
+                 max_seq=None):
     """One-token decode through the stack. x: (B,1,D). Writes one token
     per layer into ``cache`` in place and returns it: a K/V slot, or the
     recurrent layer's new carry (a chunk of one token, as the reference's
     step), copied over the old one after the layer has read it; the
     hybrid stack does both, a carry a Mamba2 layer and a K/V slot a
-    shared-block invocation."""
+    shared-block invocation.
+
+    ``max_seq``: the whole cache's slots, where a bound mesh may split its
+    sequence (:func:`_seq_split`; ``LM.decode_step`` asks for it); a rank
+    writes the new token only where it holds the slot."""
     _check_ported(cfg)
+    check_mesh(cfg)
     if cfg.n_layers == 0:
         return x, cache
     if cfg.family == "ssm":
         H, st = _rwkv6_heads(cfg), cache["ssm"]
         for i in range(cfg.n_layers):
             x, c = rwkv6_block(layer_params(params["layers"], i), x,
-                               {k: a[i] for k, a in st.items()}, H, 1,
-                               cfg.approx)
-            for k, a in st.items():
-                a[i].copy_(c[k])
+                               _carry_in(cfg, {k: a[i] for k, a in
+                                               st.items()}), H, 1,
+                               cfg.approx, cfg.d_ff)
+            for k, a in _carry_out(cfg, c).items():
+                st[k][i].copy_(a)
         return x, cache
     kc, vc = cache["k"], cache["v"]
-    at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
-                      kc.device)
+    seq = _seq_split(cfg, max_seq)
+    if seq is None:
+        at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
+                          kc.device)
+    else:
+        at = decode_slot(cfg, seq[1], int(pos)) - seq[0]
+        at = at if 0 <= at < kc.shape[2] else None
     if cfg.family == "hybrid":
         st = cache["ssm"]
         for g, layers in _hybrid_groups(cfg):
             for i in layers:
                 x, c = mamba2_block(layer_params(params["layers"], i), x,
-                                    {k: a[i] for k, a in st.items()},
+                                    _carry_in(cfg, {k: a[i] for k, a in
+                                                    st.items()}),
                                     cfg.ssm_state, cfg.ssm_head_dim, 1,
                                     cfg.approx)
-                for k, a in st.items():
-                    a[i].copy_(c[k])
+                for k, a in _carry_out(cfg, c).items():
+                    st[k][i].copy_(a)
             x, (k_new, v_new) = attn_block_decode(
-                hybrid_shared(params, g, x.dtype), x, cfg,
-                {"k": kc[g], "v": vc[g]}, pos, positions)
+                hybrid_shared(params, g, x.dtype, _q_width(cfg)), x, cfg,
+                {"k": kc[g], "v": vc[g]}, pos, positions, seq)
             _write_token(kc, g, at, k_new)
             _write_token(vc, g, at, v_new)
         return x, cache
@@ -694,7 +1052,7 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions):
         for i in range(lo, hi):
             x, (k_new, v_new) = attn_block_decode(
                 layer_params(params["layers"], i), x, seg_cfg,
-                {"k": kc[i], "v": vc[i]}, pos, positions)
+                {"k": kc[i], "v": vc[i]}, pos, positions, seq)
             _write_token(kc, i, at, k_new)
             _write_token(vc, i, at, v_new)
     return x, cache

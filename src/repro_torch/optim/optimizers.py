@@ -122,7 +122,13 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 "nu": tree_map(_zeros32, params),
                 "step": _step0(params)}
 
-    def update(grads, state, params, split=None):
+    def update(grads, state, params, split=None, shard=None):
+        """``shard``: ZeRO-1, a tree of ``params``' structure whose leaves
+        ``cut`` a whole leaf to the slice this rank's moments hold and
+        ``join`` the ranks' updated slices back into the whole leaf
+        (``repro_torch.launch.train.zero1_layout``). The clip's norm is the
+        whole gradients'; each leaf's update is elementwise, so a sliced
+        update is the whole one's slice."""
         step = state["step"] + 1
         gnorm = torch.zeros((), dtype=_F32, device=step.device)
         if clip_norm is not None:
@@ -132,17 +138,21 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         b1c = 1 - b1 ** stepf
         b2c = 1 - b2 ** stepf
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, sh=None):
             g = _grad32(g, p)
+            if sh is not None:
+                p, g = sh.cut(p), sh.cut(g)
             m2 = b1 * m + (1 - b1) * g
             v2 = b2 * v + (1 - b2) * g.square()
             delta = (m2 / b1c) / ((v2 / b2c).sqrt() + eps)
             if weight_decay and p.ndim >= 2:
                 delta = delta + weight_decay * p.to(_F32)
-            return (p.to(_F32) - lr_t * delta).to(p.dtype), m2, v2
+            new = (p.to(_F32) - lr_t * delta).to(p.dtype)
+            return (new if sh is None else sh.join(new)), m2, v2
 
         new_params, mu, nu = _unzip(
-            tree_map(upd, params, grads, state["mu"], state["nu"]), 3)
+            tree_map(upd, params, grads, state["mu"], state["nu"],
+                     *(() if shard is None else (shard,))), 3)
         return new_params, {"mu": mu, "nu": nu, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}
 

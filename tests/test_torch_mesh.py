@@ -268,16 +268,17 @@ def _tp2_cases(a: dict, ckpt_dir: str) -> dict:
     cfg = _config("stablelm")
     shardings = t_train.placement(cfg, shardlib.current_mesh())[0]
     out["restored"] = t_ckpt.restore(ckpt_dir, shardings=shardings)[1]
-    refusals = {}
-    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError) as e:
-            t_train.placement(get_config(arch, smoke=True),
-                              shardlib.current_mesh())
-        refusals[arch] = str(e.value)
-    with pytest.raises(NotImplementedError) as e:
-        t_train.placement(get_config("smollm-360m"), shardlib.current_mesh())
-    refusals["smollm-360m"] = str(e.value)
-    out["refusals"] = refusals
+    # splits once refused: the recurrent stacks at tp 2 and a cut
+    # head (smollm-360m's 15 query heads over 2 ranks) now place
+    placed = {}
+    for arch, smoke in (("rwkv6-1.6b", True), ("zamba2-2.7b", True),
+                        ("smollm-360m", False)):
+        sh = t_train.placement(get_config(arch, smoke=smoke),
+                               shardlib.current_mesh())[0]["params"]
+        layer = sh["stack"]["layers"]
+        name = {"rwkv6-1.6b": "wr", "zamba2-2.7b": "wz"}.get(arch, "wq")
+        placed[arch] = tuple(layer[name].spec)
+    out["refusals"] = placed
     return out
 
 
@@ -626,11 +627,19 @@ def _assert_equal(a, b):
 
 
 def test_refusals_name_their_reason(mesh_runs):
-    refusals = mesh_runs["ranks"]["tp2"][0]["refusals"]
-    assert "data-parallel only" in refusals["rwkv6-1.6b"]
-    assert "data-parallel only" in refusals["zamba2-2.7b"]
-    assert "cut head" in refusals["smollm-360m"]
-    assert "15 query heads" in refusals["smollm-360m"]
+    """Splits once refused now place, their projections split over
+    the model axis (rwkv6's and Mamba2's heads, smollm-360m's 15 query
+    heads cut over 2 ranks); the dry run's flags of the next slice
+    (ROADMAP A-10e) raise, naming it."""
+    placed = mesh_runs["ranks"]["tp2"][0]["refusals"]
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b", "smollm-360m"):
+        assert placed[arch] == (None, None, "model"), arch
+    from repro_torch.launch import dryrun
+
+    for flag in ("sp", "pure_dp", "fsdp"):
+        with pytest.raises(NotImplementedError, match="A-10e"):
+            dryrun.lower_cell("stablelm-1.6b", "train_4k", False,
+                              **{flag: True})
 
 
 if __name__ == "__main__":
