@@ -607,6 +607,24 @@ any phase fails. Phases:
               family, ``ok``. The ``logmatmul`` row carries its times at
               (a)'s, rwkv6's and zamba2's shard shapes.
 
+19. analysis — the static analyzer (``repro_torch.analysis``): (a)
+              ``python -m repro_torch.analysis --gate --json`` as a
+              subprocess on this machine's host and torch build, started
+              after the build and run on one CPU thread beside phases
+              3-18 (stopped at exit whatever happens): exit 0,
+              every case proved, no coverage gap, the lint clean; its
+              case count and seconds printed. (b) each proved case of an
+              op with a CUDA kernel run disarmed at its operands'
+              corners (lo, hi and every 2^j - 1, 2^j, 2^j + 1 inside the
+              interval): ``elemwise`` mul / div / mixed and ``sqrt`` at
+              widths 8 / 16 / 32 with the case's coeff_bits and
+              frac_out over every corner pair, ``packed`` on corner and
+              alternating lane words, ``logmatmul`` width 8 at K 32 /
+              128 / 512 with every operand +-255 (the int32
+              accumulator's worst case, K times the largest product)
+              and the attention finalize alone (``softmax_div_cuda``) on
+              corner rows, each ``torch.equal`` to its plain version.
+
 Output: progress lines, then the card line, one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -625,6 +643,14 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+
+def wall_clock() -> float:
+    """The host clock every phase time here is read from: the port's one
+    clock helper (``repro_torch.metrics.timing.wall_clock``)."""
+    from repro_torch.metrics.timing import wall_clock as clock
+
+    return clock()
 
 SEED = 0
 ARCH = "smollm-360m"
@@ -1139,9 +1165,9 @@ def host_ms(fn, iters: int) -> float:
     best = float("inf")
     for _ in range(iters):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         fn()
-        best = min(best, time.perf_counter() - t0)
+        best = min(best, wall_clock() - t0)
     torch.cuda.synchronize()
     return best * 1e3
 
@@ -2370,14 +2396,14 @@ def serve_main_path(dev):
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
     clear_autotune_cache()
     reserved = reserved_bytes()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     pstep(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_held_bytes = reserved_bytes() - reserved
     reserved = reserved_bytes()
     serve.generate(lm, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
-    first_run_s = time.perf_counter() - t0
+    first_run_s = wall_clock() - t0
     held_bytes = reserved_bytes() - reserved
     first_capture_s = step.capture_s
     prefill_first_capture_s = pstep.capture_s
@@ -2395,11 +2421,11 @@ def serve_main_path(dev):
     # the main path: the second generate replays the captured prefill and
     # step (launch counts through the replay accounting)
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     tokens, logits = serve.generate(lm, params, prompts, max_seq, GEN,
                                     return_logits=True)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    run_s = wall_clock() - t0
     counts = launch_counts()
     log(f"  main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
         f"launches {counts}")
@@ -2628,14 +2654,14 @@ def serve_emulate_path(dev, params, prompts):
     step, pstep = serve.make_decode_step(lm_e), serve.make_prefill(lm_e)
     clear_autotune_cache()
     reserved = reserved_bytes()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     pstep(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_held_bytes = reserved_bytes() - reserved
     reserved = reserved_bytes()
     serve.generate(lm_e, params, prompts, max_seq, GEN)
     torch.cuda.synchronize()
-    tune_s = time.perf_counter() - t0
+    tune_s = wall_clock() - t0
     held_bytes = reserved_bytes() - reserved
     first_capture_s = step.capture_s
     prefill_first_capture_s = pstep.capture_s
@@ -2652,11 +2678,11 @@ def serve_emulate_path(dev, params, prompts):
 
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     tokens, logits = serve.generate(lm_e, params, prompts, max_seq, GEN,
                                     return_logits=True)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    run_s = wall_clock() - t0
     counts = launch_counts()
     log(f"  emulate main path: {tuple(tokens.shape)} tokens in {run_s:.2f}s; "
         f"launches {counts}")
@@ -2739,7 +2765,7 @@ def serve_emulate_path(dev, params, prompts):
         ref_lm = build(ref_cfg.with_approx(
             replace(ref_cfg.approx, policy=policy)))
         before = launch_counts()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         ref_logits, cache = ref_lm.prefill(params, {"tokens": short})
         cache = serve.merge_cache(ref_lm.empty_cache(BATCH, short_seq), cache)
         ref_all = [ref_logits]
@@ -2751,7 +2777,7 @@ def serve_emulate_path(dev, params, prompts):
         torch.cuda.synchronize()
         after = launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        return ref_all, time.perf_counter() - t0, launched
+        return ref_all, wall_clock() - t0, launched
 
     # (1) plain matmuls, the attention op (prefill and decode attention
     # kernels) on its kernels: bit-equal rows
@@ -3639,9 +3665,9 @@ def run_drill(name, sched, requests):
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     warmed = sched.warmup()
-    warm_s = time.perf_counter() - t0
+    warm_s = wall_clock() - t0
     levels = [lv.name for lv in sched.levels]
     require(levels == ["fine", "shed", "recovery"],
             f"drill {name}: ladder {levels}")
@@ -3660,10 +3686,10 @@ def run_drill(name, sched, requests):
                 "scheduler's cache buffers")
     reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     stats = sched.run()
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_s = wall_clock() - t0
     counts = launch_counts()
     require(_captures(sched) == caps,
             f"drill {name}: captures {caps} -> {_captures(sched)} during "
@@ -4264,7 +4290,7 @@ def run_chaos(name, sched, requests) -> dict:
     caps = _captures(sched)
     reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     sched.step()
     set_faults([FaultSpec(**CHAOS_SPEC)])
     try:
@@ -4272,7 +4298,7 @@ def run_chaos(name, sched, requests) -> dict:
     finally:
         set_faults([])
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_s = wall_clock() - t0
     counts = launch_counts()
     require(_captures(sched) == caps,
             f"chaos {name}: captures {caps} -> {_captures(sched)} during "
@@ -4343,21 +4369,21 @@ def chaos_drill(dev, params) -> dict:
         if not emulate:
             scrub_tables(idents)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             for _ in range(20):
                 scrub_tables(idents)
-            out["scrub_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            out["scrub_ms"] = (wall_clock() - t0) / 20 * 1e3
             spec = FaultSpec(**serve.CHAOS_SPEC)
             arm, disarm = [], []
             for _ in range(5):
-                t0 = time.perf_counter()
+                t0 = wall_clock()
                 set_faults([spec])
                 torch.cuda.synchronize()
-                t1 = time.perf_counter()
+                t1 = wall_clock()
                 set_faults([])
                 torch.cuda.synchronize()
                 arm.append(t1 - t0)
-                disarm.append(time.perf_counter() - t1)
+                disarm.append(wall_clock() - t1)
             out["set_faults_arm_ms"] = min(arm) * 1e3
             out["set_faults_disarm_ms"] = min(disarm) * 1e3
             log(f"  one scrub of the ladder's {len(idents)} table "
@@ -4504,13 +4530,13 @@ def policy_build(dev) -> dict:
     sweep = frontier.DEFAULT_COEFF_SWEEP
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     pol = build_policy(("mul", "div"), error_budget=POLICY_BUDGET, width=8,
                        device=dev)
     e16 = select_config("div", error_budget=POLICY_BUDGET, width=16,
                         device=dev)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    build_s = wall_clock() - t0
     counts = launch_counts()
     measured = 3 * len(sweep)                # mul w8, div w8, div w16
     require(counts["elemwise"] == measured
@@ -4726,19 +4752,19 @@ def policy_generate(dev, lm, params, prompts, what, *, linears=0,
     n = attention_layers(lm.cfg)
     max_seq = PROMPT + gen
     step, pstep = serve.make_decode_step(lm), serve.make_prefill(lm)
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     serve.generate(lm, params, prompts, max_seq, gen)
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    first_s = wall_clock() - t0
     require(step.captures == 1 and pstep.captures == 1,
             f"{what}: the first generate captured {pstep.captures} prefills "
             f"and {step.captures} steps, expected one each")
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     tokens, logits = serve.generate(lm, params, prompts, max_seq, gen,
                                     return_logits=True)
     torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
+    generate_s = wall_clock() - t0
     counts = launch_counts()
     require(step.captures == 1 and pstep.captures == 1,
             f"{what}: the second generate captured again")
@@ -5501,10 +5527,10 @@ def served_generate(dev, arch, *, prepare=None) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     params = lm.init(SEED)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = wall_clock() - t0
     init_peak = torch.cuda.max_memory_allocated(dev) - base
     if prepare is not None:
         prepare(params)
@@ -6357,10 +6383,10 @@ def train_kernel_checks(dev, int_rate) -> dict:
             w = torch.randint(-255, 256, (k, n), generator=gen, device=dev,
                               dtype=torch.int32)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             want = lmm.logmatmul_ref(x[:TRAIN_CHECK_ROWS], w, spec8)
             torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_ms = (wall_clock() - t0) * 1e3
             by_block = {}
             for b in blocks:
                 got = lmm.logmatmul_cuda(x, w, spec8, b)
@@ -6469,10 +6495,10 @@ def train_step_check(dev) -> dict:
             and _tree_equal(step_s, new_s)[0],
             "make_train_step differs from value_and_grad + opt.update")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     loss_r, grads_r = value_and_grad(lm_ref.train_loss)(params, batch)
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    plain_s = wall_clock() - t0
     new_pr, new_sr, _ = opt.update(grads_r, state, params)
     out = {"loss": float(loss), "loss_plain": float(loss_r),
            "plain_grad_s": plain_s,
@@ -6549,19 +6575,19 @@ def train_full_width(dev, int_rate) -> dict:
     state = opt.init(params)
     batch = torch_batch(make_source(cfg, shape, seed=SEED).batch(0), dev)
     step = make_train_step(lm, opt)
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     first = step(params, state, batch)
     first_loss = float(first[2]["loss"])
-    first_s = time.perf_counter() - t0
+    first_s = wall_clock() - t0
     del first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     out = step(params, state, batch)
     loss = float(out[2]["loss"])
-    step_s = time.perf_counter() - t0
+    step_s = wall_clock() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del out
@@ -6613,16 +6639,16 @@ def train_full_width(dev, int_rate) -> dict:
               device=dev)
     try:
         reset_launch_counts()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         _, full = train(cfg, shape, ckpt_dir=str(Path(root) / "full"), **kw)
-        res["run_s"] = time.perf_counter() - t0
+        res["run_s"] = wall_clock() - t0
         res["run_counts"] = {k: v for k, v in launch_counts().items() if v}
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         _, head = train(cfg, shape, ckpt_dir=str(Path(root) / "killed"),
                         stop_after=TRAIN_STOP_AFTER, **kw)
         _, tail = train(cfg, shape, ckpt_dir=str(Path(root) / "killed"),
                         **kw)
-        res["kill_resume_s"] = time.perf_counter() - t0
+        res["kill_resume_s"] = wall_clock() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res.update(losses=full, losses_killed=head, losses_resumed=tail)
@@ -6668,10 +6694,10 @@ def twin_phase(dev) -> dict:
     shape = ShapeConfig("twin", TRAIN_SEQ, TRAIN_BATCH, "train")
     approx = ApproxConfig(mode="simdive")
     reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     _, trace = train_twin(cfg, shape, steps=TWIN_STEPS, approx=approx,
                           seed=SEED, lr=TWIN_LR, log_every=1, device=dev)
-    res = {"twin_s": time.perf_counter() - t0,
+    res = {"twin_s": wall_clock() - t0,
            "counts": {k: v for k, v in launch_counts().items() if v},
            "records": trace.records, "summary": trace.summary()}
     gc.collect()
@@ -6803,10 +6829,10 @@ def app_matmul_checks(dev, int_rate) -> dict:
         for name, spec in specs:
             qx, sx, qw, sw = _table4_operands(dev, gen, M, K, N, spec.width)
             x, w = qx * sx, qw * sw
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             want = lmm.logmatmul_ref(x, w, spec)
             torch.cuda.synchronize()
-            plain_ms[f"{M},{K},{N} {name}"] = (time.perf_counter() - t0) * 1e3
+            plain_ms[f"{M},{K},{N} {name}"] = (wall_clock() - t0) * 1e3
             want_wide = lmm.logmatmul_wide_ref(x, w, spec)
             for b in blocks:
                 got = lmm.logmatmul_cuda(x, w, spec, b)
@@ -6976,11 +7002,11 @@ def table4_rows(dev, data) -> dict:
     rows, weights = {}, None
     for hidden in TABLE4_HIDDEN:
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         ws, fwd = t4.train_float(xtr, ytr, hidden=hidden, steps=TABLE4_STEPS,
                                  seed=0, device=dev)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
+        train_s = wall_clock() - t0
         xt = torch.from_numpy(xte).to(dev)
         row = {"float": classification_accuracy(fwd(ws, xt).cpu().numpy(),
                                                 yte),
@@ -7040,13 +7066,13 @@ def ann_phase(dev, data) -> dict:
     require(active_faults() == (), f"--ann left {active_faults()} armed")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "campaign.json"
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         done = subprocess.run(
             [sys.executable, "-m", "repro_torch.faults.campaign", "--ann",
              "--widths", "8", "--out", str(out)], cwd=str(ROOT),
             env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
             capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
+        cli_s = wall_clock() - t0
         require(done.returncode == 0,
                 f"campaign --ann exited {done.returncode}: "
                 f"{done.stderr[-2000:]}")
@@ -7080,9 +7106,9 @@ def tuner_phase(dev, data, ws) -> dict:
         return [(layer, [m for _, m in row]) for layer, row in prof.table]
 
     out = {}
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     prof = profile_ann(ws, xte, yte, device=dev)
-    prof_s = time.perf_counter() - t0
+    prof_s = wall_clock() - t0
     ref = profile_ann(ws, xte, yte, candidates=plain(prof.candidates),
                       device=dev)
     require(prof.baseline == ref.baseline and values(prof) == values(ref),
@@ -7117,9 +7143,9 @@ def tuner_phase(dev, data, ws) -> dict:
         f"{out['ann']['assignment']}; ann_policy_metric {acc:.1f} % == on "
         "the plain versions")
     for metric in ("psnr", "ssim"):
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         prof = profile_imaging(metric=metric, device=dev)
-        prof_s = time.perf_counter() - t0
+        prof_s = wall_clock() - t0
         ref = profile_imaging(metric=metric, device=dev,
                               candidates=plain(prof.candidates))
         require(prof.baseline == ref.baseline
@@ -7309,6 +7335,7 @@ def w32_lane_kernels(dev) -> dict:
     where it moves the plain version's."""
     import torch
     from repro_torch.core.error_lut import table_for
+    from repro_torch.core.mitchell import from_lanes
     from repro_torch.faults.inject import FaultSpec, fault_injection
     from repro_torch.kernels import elemwise as ew
     from repro_torch.kernels import flash_attention as fa
@@ -7365,8 +7392,7 @@ def w32_lane_kernels(dev) -> dict:
             for name, kern, ref in cases:
                 got, want = kern(), ref()
                 torch.cuda.synchronize()
-                if got.dtype == torch.uint64:
-                    got, want = got.view(torch.int64), want.view(torch.int64)
+                got, want = from_lanes(got), from_lanes(want)
                 nbad = int((got != want).sum())
                 require(nbad == 0, f"width 32 {name} {tag}: {nbad} of "
                                    f"{got.numel()} lanes differ from the "
@@ -8284,6 +8310,7 @@ def _mesh_rank(rank, world, job, run, store, out, device_type):
         timeout=datetime.timedelta(seconds=MESH_JOIN_S))
     try:
         res = {"ok": True, **_MESH_JOBS[job](dev, run, out)}
+    # simdive-lint: allow(swallowed-exception): whatever a rank raises is written with its traceback for the parent to raise, and the rank exits non-zero
     except BaseException:
         torch.save({"ok": False, "error": traceback.format_exc()},
                    f"{out}.{rank}")
@@ -8528,7 +8555,7 @@ def start_dryruns(run: dict, tmp: Path) -> dict:
         cmds[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
                       "--arch", arch, "--shape", "train_4k", "--mesh",
                       "single", "--out", str(d / "cells")]
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     procs, done_at = {}, {}
     for name, cmd in cmds.items():
         with open(d / f"{name}.log", "w") as log_file:
@@ -8538,7 +8565,7 @@ def start_dryruns(run: dict, tmp: Path) -> dict:
 
     def stamp(name, proc):
         proc.wait()
-        done_at[name] = time.perf_counter() - t0
+        done_at[name] = wall_clock() - t0
 
     for name, proc in procs.items():
         threading.Thread(target=stamp, args=(name, proc),
@@ -8562,9 +8589,9 @@ def join_dryruns(started: dict) -> dict:
         require(proc.returncode == 0, f"phase 18 dry run {name} exited "
                 f"{proc.returncode}: "
                 f"{(d / f'{name}.log').read_text()[-3000:]}")
-    deadline = time.monotonic() + 10
+    deadline = wall_clock() + 10
     while (len(started["done_at"]) < len(started["procs"])
-           and time.monotonic() < deadline):
+           and wall_clock() < deadline):
         time.sleep(0.05)
     cells = {f.stem: json.loads(f.read_text())
              for f in sorted((d / "cells").glob("*.json"))}
@@ -8688,12 +8715,14 @@ def _spawn_mesh(job: str, world: int, run: dict, tmp: Path, dev):
 def _join_mesh(ctx, d: Path, world: int, what: str) -> list:
     import torch
 
-    deadline = time.monotonic() + MESH_JOIN_S
+    deadline = wall_clock() + MESH_JOIN_S
     done = False
     while not done:
         try:
-            done = ctx.join(timeout=max(deadline - time.monotonic(), 1.0))
-        except Exception as e:          # a rank exited non-zero
+            done = ctx.join(timeout=max(deadline - wall_clock(), 1.0))
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            # a rank raised or exited non-zero
             errs = []
             for r in range(world):
                 f = d / f"out.{r}"
@@ -8705,7 +8734,7 @@ def _join_mesh(ctx, d: Path, world: int, what: str) -> list:
                     p.kill()
             raise SmokeFailure(f"phase 18 {what}: a rank failed: {e}\n"
                                + "\n".join(errs)) from None
-        if not done and time.monotonic() > deadline:
+        if not done and wall_clock() > deadline:
             for p in ctx.processes:
                 p.kill()
             raise SmokeFailure(f"phase 18 {what}: ranks still running "
@@ -8903,7 +8932,7 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
             # (a), (c), (e), (f)-(i): the unsplit runs here, then two ranks
             # (one after the other, so that each step time has the card
             # alone)
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             unsplit = _unsplit_runs(mesh_config(run), run, dev,
                                     run["steps"])
             _free(dev)
@@ -8939,22 +8968,22 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
                     cases0[case], d, tag="_" + case,
                     attention=cfg.family != "ssm")
             out["i"] = mesh_judge_serve(ranks, serve0, d, run)
-            out["a_s"] = time.perf_counter() - t0
+            out["a_s"] = wall_clock() - t0
             del unsplit, moe_out0, cases0, serve0
             _free(dev)
             # (b): three ranks
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             unsplit3 = _unsplit_runs(mesh_config(run, three=True), run, dev,
                                      1)
             _free(dev)
             ctx, d = _spawn_mesh("tp3", 3, run, tmp, dev)
             ranks3 = _join_mesh(ctx, d, 3, "(b) tp 3")
             out["b"] = mesh_judge("(b)", ranks3, unsplit3, d)
-            out["b_s"] = time.perf_counter() - t0
+            out["b_s"] = wall_clock() - t0
             del unsplit3
             _free(dev)
             # (j), (k): the dry run against what the ranks measured
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             dry = join_dryruns(dry)
             trains = {"a": [r["train"] for r in ranks],
                       "b": [r["train"] for r in ranks3]}
@@ -8962,11 +8991,11 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
                            for c in run["cases"]})
             out["j"] = mesh_judge_dryrun(dry["witness"], trains)
             out["k"] = mesh_judge_cells(dry, run)
-            out["jk_wait_s"] = time.perf_counter() - t0
+            out["jk_wait_s"] = wall_clock() - t0
         if cuda:
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             out["d"] = mesh_nccl_world1(run, dev)
-            out["d_s"] = time.perf_counter() - t0
+            out["d_s"] = wall_clock() - t0
             log(f"  (d) a world-1 NCCL group: one step under a bound (1, 1) "
                 f"mesh == the gloo one (loss {out['d']['loss']!r})")
             out["kernels"] = mesh_kernel_rows(dev, int_rate)
@@ -9172,6 +9201,245 @@ def mesh_judge_cells(dry: dict, run: dict) -> dict:
             "done_at_s": dry["done_at_s"]}
 
 
+# ----------------------------------------- phase 19: the static analyzer --
+#: the gate's own time limit on the card machine's host, seconds
+GATE_TIMEOUT_S = 600
+#: lane words of phase 19 (b)'s packed corners: all ones, alternating
+#: bits, alternating lanes at widths 8 and 16, and their complements
+PACKED_CORNER_WORDS = (0xFFFFFFFF, 0xAAAAAAAA, 0x55555555, 0xFF00FF00,
+                       0x00FF00FF, 0xFFFF0000, 0x0000FFFF, 0x80808080,
+                       0x7F7F7F7F, 0x80008000, 0x7FFF7FFF)
+
+
+def corner_values(lo, hi) -> list:
+    """An analyzer operand's corners: ``lo``, ``hi`` and every 2^j - 1,
+    2^j and 2^j + 1 inside ``[lo, hi]`` (negated too, where the interval
+    reaches below zero)."""
+    vals = {lo, hi}
+    top = max(abs(lo), abs(hi))
+    j = 0
+    while (1 << j) - 1 <= top:
+        for v in ((1 << j) - 1, 1 << j, (1 << j) + 1):
+            for sv in (v, -v):
+                if lo <= sv <= hi:
+                    vals.add(sv)
+        j += 1
+    return sorted(vals)
+
+
+def start_analysis_gate() -> SimpleNamespace:
+    """Phase 19 (a), started right after the build: ``python -m
+    repro_torch.analysis --gate --json`` as a subprocess on this
+    machine's host and torch build, on one CPU thread beside the card's
+    phases (the analyzer is host-only work, about 40 s here). Stopped at
+    exit, whatever happens in between."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.metrics.timing import epoch_time
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gate_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--gate", "--json",
+         "--out", str(tmp / "gate.json")], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return SimpleNamespace(proc=proc, tmp=tmp, started=epoch_time(),
+                           t0=wall_clock())
+
+
+def analysis_gate(gate: SimpleNamespace) -> dict:
+    """Phase 19 (a)'s verdict: exit 0, every case proved, no coverage gap,
+    the lint clean; its case count and its own seconds (start to the
+    report's write)."""
+    import shutil
+
+    left = GATE_TIMEOUT_S - (wall_clock() - gate.t0)
+    try:
+        _, err = gate.proc.communicate(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        gate.proc.kill()
+        gate.proc.wait()
+        raise SmokeFailure(f"phase 19 (a): the gate ran over "
+                           f"{GATE_TIMEOUT_S} s") from None
+    require(gate.proc.returncode == 0,
+            f"phase 19 (a): the gate exited {gate.proc.returncode}: "
+            f"{err[-3000:]}")
+    report = gate.tmp / "gate.json"
+    seconds = report.stat().st_mtime - gate.started
+    rep = json.loads(report.read_text())
+    shutil.rmtree(gate.tmp, ignore_errors=True)
+    unsafe = [c["label"] for c in rep["cases"] if not c["ok"]]
+    require(bool(rep["cases"]) and not unsafe,
+            f"phase 19 (a): unsafe cases {unsafe}")
+    require(not rep["coverage_gaps"],
+            f"phase 19 (a): coverage gaps {rep['coverage_gaps']}")
+    require(not rep["lint"], f"phase 19 (a): lint {rep['lint']}")
+    widened = sorted({u for c in rep["cases"]
+                      for u in c["unknown_primitives"]})
+    log(f"  (a) gate: {len(rep['cases'])} cases proved, "
+        f"{len(rep['skips'])} declared skips, no gap, lint clean, "
+        f"{seconds:.1f}s on the host beside phases 3 on (ops widened: "
+        f"{widened or 'none'})")
+    return {"cases": len(rep["cases"]), "skips": len(rep["skips"]),
+            "seconds": seconds, "widened": widened}
+
+
+def _pairs(vals_a, vals_b, dev, dtype):
+    """Every (a, b) of two corner lists as two flat tensors."""
+    import torch
+
+    a = torch.tensor(vals_a, dtype=dtype, device=dev)
+    b = torch.tensor(vals_b, dtype=dtype, device=dev)
+    return (a[:, None].expand(len(vals_a), len(vals_b)).reshape(-1),
+            b[None, :].expand(len(vals_a), len(vals_b)).reshape(-1))
+
+
+def analysis_corners(dev) -> dict:
+    """Phase 19 (b): each proved case of an op with a CUDA kernel, run
+    disarmed at its operands' corners through the kernel and its plain
+    version, ``torch.equal``: elemwise and sqrt at every lane corner
+    pair, packed on corner words, matmul_int w8 at K 32 / 128 / 512 with
+    every operand +-255 (the int32 accumulator's worst case the analyzer
+    proves fits), and the attention finalize alone (``softmax_div_cuda``)
+    on corner rows."""
+    import torch
+    from repro_torch.core.error_lut import table_for
+    from repro_torch.core.mitchell import from_lanes, to_lanes
+    from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import elemwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import logmatmul as lm
+    from repro_torch.kernels import packed_simd as ps
+    from repro_torch.kernels import registry
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        got, want = from_lanes(got) if not got.is_floating_point() else got, \
+            from_lanes(want) if not want.is_floating_point() else want
+        nbad = int((got != want).sum())
+        require(got.shape == want.shape and nbad == 0,
+                f"phase 19 (b) {name}: {nbad} of {want.numel()} elements "
+                "differ from the plain version")
+
+    runs, elements = 0, 0
+    ops = {impl.name: impl for impl in registry.all_ops()}
+    for w in (8, 16, 32):
+        for case in ops["elemwise"].analysis(w) + ops["sqrt"].analysis(w):
+            pr = case.params
+            lane = case.args[0]
+            corners = corner_values(int(lane.lo), int(lane.hi))
+            if case.label.startswith("sqrt"):
+                spec = SimdiveSpec(width=w)
+                a = to_lanes(torch.tensor(corners, dtype=torch.int64,
+                                          device=dev), w)
+                same(case.label, ew.sqrt_cuda(a, spec, pr["frac_out"]),
+                     ew.sqrt_ref(a, spec, pr["frac_out"]))
+                runs, elements = runs + 1, elements + a.numel()
+                continue
+            spec = SimdiveSpec(width=w, coeff_bits=pr["coeff_bits"])
+            a, b = _pairs(corners, corners, dev, torch.int64)
+            mode = None
+            if pr["op"] == "mixed":
+                a, b = a.repeat(2), b.repeat(2)
+                mode = torch.arange(a.numel(), device=dev) // (
+                    a.numel() // 2)
+                mode = to_lanes(mode, w)
+            a, b = to_lanes(a, w), to_lanes(b, w)
+            kw = dict(op=pr["op"], mode=mode, frac_out=pr["frac_out"])
+            same(case.label, ew.elemwise_cuda(a, b, spec, **kw),
+                 ew.elemwise_ref(a, b, spec, **kw))
+            runs, elements = runs + 1, elements + a.numel()
+    for w in (8, 16):
+        for case in ops["packed"].analysis(w):
+            pr = case.params
+            spec = SimdiveSpec(width=w, coeff_bits=pr["coeff_bits"])
+            word = case.args[0]
+            words = sorted(set(PACKED_CORNER_WORDS) | {
+                v for v in corner_values(int(word.lo), int(word.hi))})
+            a, b = _pairs(words, words, dev, torch.int64)
+            mode = to_lanes(b.flip(0), 16) if pr["op"] == "mixed" else None
+            a, b = to_lanes(a, 16), to_lanes(b, 16)
+            kw = dict(op=pr["op"], mode=mode, frac_out=pr["frac_out"])
+            same(case.label, ps.packed_cuda(a, b, spec, **kw),
+                 ps.packed_ref(a, b, spec, **kw))
+            runs, elements = runs + 1, elements + a.numel()
+    for case in ops["matmul_int"].analysis(8):
+        pr = case.params
+        spec = SimdiveSpec(width=8, coeff_bits=pr["coeff_bits"])
+        K, N = pr["K"], case.args[1].shape[1]
+        lane = int(case.args[0].hi)
+        signs = torch.ones(8, K, dtype=torch.int32, device=dev)
+        signs[1] = -1                                  # all negative
+        signs[2, ::2] = -1                             # alternating
+        signs[3, : K // 2] = -1                        # half and half
+        x = signs * lane
+        wt = torch.full((K, N), lane, dtype=torch.int32, device=dev)
+        wt[:, 1::2] = -lane
+        got = lm.logmatmul_cuda(x, wt, spec)
+        want = lm.logmatmul_ref(x, wt, spec)
+        same(case.label, got, want)
+        require(int(want.abs().max()) == K * int(
+            lm.logmatmul_ref(x[:1, :1], wt[:1, :1], spec).abs().max()),
+            f"phase 19 (b) {case.label}: the worst-case sum is not K "
+            "times the largest product")
+        runs, elements = runs + 1, elements + got.numel()
+    for w in (8, 16, 32):
+        for case in ops["attention"].analysis(w):
+            pr = case.params
+            spec = SimdiveSpec(width=w, coeff_bits=pr["coeff_bits"])
+            acc_c = [float(v) for v in corner_values(
+                int(case.args[0].lo), int(case.args[0].hi))]
+            l_c = [float(v) for v in corner_values(
+                int(case.args[1].lo), int(case.args[1].hi))]
+            dh = case.args[0].shape[-1]
+            rows = len(l_c)
+            acc = torch.tensor(acc_c, device=dev).repeat(
+                rows * dh // len(acc_c) + 1)[: rows * dh].reshape(rows, dh)
+            acc = acc.roll(1, 0) * torch.where(
+                torch.arange(rows, device=dev) % 2 == 0, 1.0, -1.0)[:, None]
+            l = torch.tensor(l_c, device=dev)
+            tab = table_for("div", w, spec.coeff_bits, spec.index_bits,
+                            device=dev)
+            out, quot = fa.softmax_div_cuda(acc, l, spec=spec,
+                                            frac_out=pr["frac_out"])
+            fkw = dict(width=w, index_bits=spec.index_bits,
+                       frac_out=pr["frac_out"], round_out=spec.round_output)
+            same(case.label + " out", out.view(torch.int32),
+                 fa.softmax_div(acc, l, tab, **fkw).view(torch.int32))
+            same(case.label + " lanes", quot,
+                 fa.softmax_div_lanes(acc, l, tab, **fkw))
+            runs, elements = runs + 1, elements + acc.numel()
+    log(f"  (b) corners: {runs} proved cases through elemwise, sqrt, "
+        f"packed, logmatmul and softmax_div_cuda, {elements} elements, "
+        "each torch.equal to its plain version")
+    return {"corner_runs": runs, "corner_elements": elements}
+
+
+def analysis_phase(dev, gate: SimpleNamespace) -> dict:
+    """Phase 19: the static analyzer — (a) its gate on this machine's
+    host (started by :func:`start_analysis_gate`), (b) its proved cases'
+    corners through the kernels."""
+    t0 = wall_clock()
+    gate = analysis_gate(gate)
+    gate["wait_seconds"] = wall_clock() - t0
+    t0 = wall_clock()
+    corners = analysis_corners(dev)
+    return {"gate": gate, **corners,
+            "corners_seconds": wall_clock() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -9186,20 +9454,20 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.kernels import build        # fails outside the checkout
 
-    t_start = time.perf_counter()
+    t_start = wall_clock()
     starts = {}              # phase -> seconds since the start, when it began
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    log(f"[1/18] device: {card} | torch {torch.__version__} "
+    log(f"[1/19] device: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     build.load()
-    build_s = time.perf_counter() - t0
-    log(f"[2/18] build: kernels compiled and loaded in {build_s:.1f}s")
+    build_s = wall_clock() - t0
+    log(f"[2/19] build: kernels compiled and loaded in {build_s:.1f}s")
     skinny_regs, w32_regs = [], []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
@@ -9219,10 +9487,11 @@ def main(argv=None) -> int:
             f"{r.get('registers')} registers, {r.get('spill_bytes')} bytes "
             "spilled")
     require(bool(w32_regs), "no width-32 kernel form in the build log")
+    gate = start_analysis_gate()     # phase 19 (a), on the host meanwhile
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    starts[3] = time.perf_counter() - t_start
-    log("[3/18] kernels vs plain versions")
+    starts[3] = wall_clock() - t_start
+    log("[3/19] kernels vs plain versions")
     ew_err = check_elemwise(dev)
     log("  elemwise: bit-equal on every case")
     att_errs = check_attention(dev)
@@ -9230,8 +9499,8 @@ def main(argv=None) -> int:
     mm_err, mm_plain_ms, mm_arch_runs = check_logmatmul(dev)
     packed_runs, packed_err = check_packed(dev)
 
-    starts[4] = time.perf_counter() - t_start
-    log("[4/18] paths: (p) the packed path, tuning.frontier.measure_error("
+    starts[4] = wall_clock() - t_start
+    log("[4/19] paths: (p) the packed path, tuning.frontier.measure_error("
         "kernel='packed') and simdive_packed")
     packed = packed_path(dev)
     log("  (e) the elemwise kernel's path: tuning.frontier.measure_error("
@@ -9243,8 +9512,8 @@ def main(argv=None) -> int:
     log("  (b) --approx simdive --emulate")
     served_e = serve_emulate_path(dev, served["params"], served["prompts"])
 
-    starts[5] = time.perf_counter() - t_start
-    log("[5/18] times")
+    starts[5] = wall_clock() - t_start
+    log("[5/19] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
         f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
@@ -9264,25 +9533,25 @@ def main(argv=None) -> int:
                                  served["prompts"]))
     packed_row = measure_packed(packed, int_rate)
 
-    starts[6] = time.perf_counter() - t_start
-    log("[6/18] drill: serve --scheduler, smollm-360m full width, batch "
+    starts[6] = wall_clock() - t_start
+    log("[6/19] drill: serve --scheduler, smollm-360m full width, batch "
         f"{BATCH}, prompt {PROMPT}, gen {GEN}, {DRILL_REQUESTS} requests, "
         f"shed_depth {DRILL_SHED}, recover_depth {DRILL_RECOVER}")
     drill = scheduler_drill(dev)
 
-    starts[7] = time.perf_counter() - t_start
-    log("[7/18] faults: every kernel under each armed site, captured graphs, "
+    starts[7] = wall_clock() - t_start
+    log("[7/19] faults: every kernel under each armed site, captured graphs, "
         "the campaign on the card, serve --chaos at full width")
     faults = fault_phase(dev, served["params"])
 
-    starts[8] = time.perf_counter() - t_start
-    log("[8/18] policy: build_policy / select_config on the card, a "
+    starts[8] = wall_clock() - t_start
+    log("[8/19] policy: build_policy / select_config on the card, a "
         "layer-segmented policy file served at full width (captured, "
         "--emulate, --scheduler, --chaos)")
     policy = policy_phase(dev, served["params"], served["prompts"])
 
-    starts[9] = time.perf_counter() - t_start
-    log("[9/18] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
+    starts[9] = wall_clock() - t_start
+    log("[9/19] arithmetic: the sqrt kernel, approx_softmax, approx_rmsnorm "
         "on the card; smollm-360m full width with use_in_norm (captured, "
         "eager, plain versions)")
     arith = arithmetic_phase(dev, served)
@@ -9295,43 +9564,43 @@ def main(argv=None) -> int:
             f"use_in_norm generate: launches {norm_counts}")
     kernels.append(sqrt_row)
 
-    starts[10] = time.perf_counter() - t_start
-    log("[10/18] the dense family at full width: (k) the kernels' times "
+    starts[10] = wall_clock() - t_start
+    log("[10/19] the dense family at full width: (k) the kernels' times "
         "at qwen3-4b's shapes, (a) qwen3-4b, (b) qwen3-4b --emulate, (c) "
         "stablelm-1.6b, (d) qwen2.5-14b; depths cut to SERVED_LAYERS")
     dense = dense_family_phase(dev, int_rate)
 
-    starts[11] = time.perf_counter() - t_start
-    log("[11/18] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
+    starts[11] = wall_clock() - t_start
+    log("[11/19] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
         "layers), (b) llama4-scout-17b-a16e (2 of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
-    starts[12] = time.perf_counter() - t_start
-    log("[12/18] the modality-stub families at full width (musicgen-medium "
+    starts[12] = wall_clock() - t_start
+    log("[12/19] the modality-stub families at full width (musicgen-medium "
         f"at {SERVED_LAYERS['musicgen-medium']} of 48 layers): (k) "
         "the attention kernels' times at their shapes, (a) qwen2-vl-2b "
         "(text and the vision stub), (b) musicgen-medium, (c) "
         "musicgen-medium --emulate")
     modality = modality_family_phase(dev, int_rate)
 
-    starts[13] = time.perf_counter() - t_start
-    log(f"[13/18] rwkv6-1.6b at full width, {SERVED_LAYERS['rwkv6-1.6b']} "
+    starts[13] = wall_clock() - t_start
+    log(f"[13/19] rwkv6-1.6b at full width, {SERVED_LAYERS['rwkv6-1.6b']} "
         "of 24 layers: (k) "
         "logmatmul at its "
         "eight linears' shapes, (a) --approx simdive (no SIMDive kernel; "
         "the recurrent cache through both graphs), (c) --emulate")
     rwkv6 = rwkv6_phase(dev, int_rate)
 
-    starts[14] = time.perf_counter() - t_start
-    log("[14/18] zamba2-2.7b at full width: (k) the attention "
+    starts[14] = wall_clock() - t_start
+    log("[14/19] zamba2-2.7b at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
         "simdive (18 of 54 Mamba2 layers, the shared block 2 times with "
         "its LoRA merged each call), (c) --emulate")
     zamba2 = zamba2_phase(dev, int_rate)
 
-    starts[15] = time.perf_counter() - t_start
-    log("[15/18] training: (a) logmatmul at smollm-360m's gradient "
+    starts[15] = wall_clock() - t_start
+    log("[15/19] training: (a) logmatmul at smollm-360m's gradient "
         "products and elemwise at the training finalize, against their "
         "plain versions; (b) one step on the kernels == on the plain "
         "versions (2 layers); (c) launch.train.train at full width, "
@@ -9339,8 +9608,8 @@ def main(argv=None) -> int:
         "resumed; (d) the exact-vs-approximate twin")
     training = training_phase(dev, int_rate)
 
-    starts[16] = time.perf_counter() - t_start
-    log("[16/18] applications at the reference's size: (a) logmatmul and "
+    starts[16] = wall_clock() - t_start
+    log("[16/19] applications at the reference's size: (a) logmatmul and "
         "matmul_emul at Table 4's layer shapes (int32 and wide forms) and "
         "elemwise at Fig. 3/4's lanes, every rung, against their plain "
         "versions; (b) Table 4's two MLPs trained on the card and run in "
@@ -9348,8 +9617,8 @@ def main(argv=None) -> int:
         "greedy_assign, ann_policy_metric and profile_imaging")
     apps = applications_phase(dev, int_rate)
 
-    starts[17] = time.perf_counter() - t_start
-    log("[17/18] width 32: (a) elemwise, sqrt, the finalize alone and both "
+    starts[17] = wall_clock() - t_start
+    log("[17/19] width 32: (a) elemwise, sqrt, the finalize alone and both "
         "attention kernels at a width-32 divider against their plain "
         "versions, disarmed and armed; (b) measure_error and select_config "
         "at width 32; (c) smollm-360m full width under a width-32 divider "
@@ -9357,8 +9626,8 @@ def main(argv=None) -> int:
     w32 = width32_phase(dev, served, int_rate, w32_regs)
     kernels += w32.pop("kernels")
 
-    starts[18] = time.perf_counter() - t_start
-    log("[18/18] mesh: ranks on the one card over gloo — (a) stablelm-1.6b "
+    starts[18] = wall_clock() - t_start
+    log("[18/19] mesh: ranks on the one card over gloo — (a) stablelm-1.6b "
         f"tp {MESH_TP} ({MESH_LAYERS} of 24 layers) against tp 1, (b) "
         f"smollm-360m tp 3 ({MESH_TP3_LAYERS} of 32 layers), (c) "
         "mixtral-8x7b's MoE block SPMD, (d) a world-1 NCCL step == gloo, "
@@ -9366,6 +9635,12 @@ def main(argv=None) -> int:
         "at tp 2, (i) the served forward at tp 2, (j) the dry run against "
         "the ranks, (k) a FULL train_4k dry-run cell a family")
     mesh = mesh_phase(dev, int_rate)
+
+    starts[19] = wall_clock() - t_start
+    log("[19/19] the static analyzer: (a) python -m repro_torch.analysis "
+        "--gate on this host, (b) its proved cases' corners through the "
+        "kernels against their plain versions")
+    analysis = analysis_phase(dev, gate)
     # launches: the error sweeps and the simdive_packed calls of phase 4,
     # each window zeroed just before and read just after; max_abs_err is
     # the largest lane error over phase 4's outputs at both sizes, the
@@ -9613,14 +9888,14 @@ def main(argv=None) -> int:
                      *arith.items(), *dense.items(), *moe.items(),
                      *modality.items(), *rwkv6.items(),
                      *zamba2.items(), *training.items(), *apps.items(),
-                     *w32.items(), *mesh.items()):
+                     *w32.items(), *mesh.items(), *analysis.items()):
         log(f"  {key}: "
             f"{val if isinstance(val, (dict, list)) else f'{val:.4f}'}")
-    total_s = time.perf_counter() - t_start
+    total_s = wall_clock() - t_start
     ends = [*list(starts.values())[1:], total_s]
     phase_s = {k: round(end - begin, 1)
                for (k, begin), end in zip(starts.items(), ends)}
-    log(f"  total {total_s:.1f}s; seconds by phase (3-18) {phase_s}")
+    log(f"  total {total_s:.1f}s; seconds by phase (3-19) {phase_s}")
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -9639,7 +9914,7 @@ def main(argv=None) -> int:
             "dense_family": dense, "moe_family": moe,
             "modality_family": modality, "rwkv6": rwkv6,
             "zamba2": zamba2, "training": training, "applications": apps,
-            "width32": w32, "mesh": mesh,
+            "width32": w32, "mesh": mesh, "analysis": analysis,
             "packed_errors": packed["errors"],
             "device": device}, indent=1))
     print(card, flush=True)

@@ -37,10 +37,11 @@ import os
 import re
 import shutil
 import threading
-import time
 
 import numpy as np
 import torch
+
+from repro_torch.metrics.timing import epoch_time
 
 __all__ = ["save", "save_async", "restore", "latest_step", "gc_keep_last",
            "wait_pending", "gather_full"]
@@ -145,7 +146,7 @@ def _write(ckpt_dir: str, step: int, flat: dict, indent) -> str:
              **{k: a for k, (a, _) in flat.items()})
     manifest = {
         "step": step,
-        "time": time.time(),
+        "time": epoch_time(),
         "arrays": {k: {"shape": list(a.shape), "dtype": dt}
                    for k, (a, dt) in flat.items()},
     }
@@ -249,7 +250,7 @@ def gc_keep_last(ckpt_dir: str, keep: int = 3, tmp_grace_s: float = 300.0):
     if not os.path.isdir(ckpt_dir):
         return
     steps = []
-    now = time.time()
+    now = epoch_time()
     for name in os.listdir(ckpt_dir):
         path = os.path.join(ckpt_dir, name)
         if name.endswith(".tmp"):

@@ -36,6 +36,9 @@ from __future__ import annotations
 
 import torch
 
+from .annotations import (carrier_cast, ensure_range, require_range,
+                          tracing_active)
+
 __all__ = [
     "SUPPORTED_WIDTHS",
     "BUS_MASK",
@@ -85,12 +88,16 @@ def wrap_bus(x: torch.Tensor, width: int) -> torch.Tensor:
     """Carrier values reduced to the width's unsigned bus: mod 2^32 for
     widths <= 16 (the reference's uint32); at width 32 the carrier's own
     64 bits are the bus (the reference's uint64), so nothing changes."""
+    if tracing_active():
+        return carrier_cast(x, "uint32" if width <= 16 else "uint64")
     return x & BUS_MASK if width <= 16 else x
 
 
 def wrap_signed(x: torch.Tensor, width: int) -> torch.Tensor:
     """Carrier values reduced to the width's signed work type: int32 for
     widths <= 16, int64 (the carrier itself) at width 32."""
+    if width > 16 and tracing_active():
+        return carrier_cast(x, "int64")
     return wrap_int32(x) if width <= 16 else x
 
 
@@ -133,11 +140,15 @@ def to_lanes(x: torch.Tensor, width: int = 16) -> torch.Tensor:
     if width > 16:
         if x.dtype == torch.uint64:
             return x
+        if tracing_active():
+            return carrier_cast(from_lanes(x), "lanes64")
         return from_lanes(x).view(torch.uint64)
     if x.dtype == torch.uint32:
         return x
     if x.dtype == torch.int32:
         return x.view(torch.uint32)
+    if tracing_active():
+        return carrier_cast(from_lanes(x), "lanes32")
     x = from_lanes(x)
     half = 1 << 31
     return (((x + half) & BUS_MASK) - half).to(torch.int32).view(torch.uint32)
@@ -154,6 +165,8 @@ def lanes_to_float(x: torch.Tensor,
     24- or 53-bit significand lies far above bit 0), converted, and
     doubled, which is exact. No host read: a CUDA graph can capture it."""
     x = from_lanes(x)
+    if tracing_active():
+        return carrier_cast(x, str(dtype).removeprefix("torch."))
     half = ((x >> 1) & ((1 << 63) - 1)) | (x & 1)
     return torch.where(x < 0, half.to(dtype) * 2.0, x.to(dtype))
 
@@ -161,6 +174,8 @@ def lanes_to_float(x: torch.Tensor,
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """Carrier values reduced to the int32 they wrap to (two's complement):
     the reference's int32 arithmetic, which wraps mod 2^32."""
+    if tracing_active():
+        return carrier_cast(x, "int32")
     half = 1 << 31
     return ((x + half) & BUS_MASK) - half
 
@@ -181,9 +196,20 @@ def mitchell_log(a: torch.Tensor, width: int) -> torch.Tensor:
     ``a`` is a carrier tensor with values < 2^width.
     """
     F = frac_bits(width)
+    # analyzer contract (the reference's): the packing below is disjoint
+    # only relationally (frac < 2^(k+1) left-aligned by F - k). The
+    # precondition is checked; the postcondition is backed by the
+    # bit-parity tests against the reference.
+    a = require_range(
+        a, hi=(1 << width) - 1, what=f"mitchell_log/{width} lane operand",
+        assume=("lane-overlap",))
     k = leading_one(a)
     frac = a ^ (1 << k)                        # strip the leading one
-    return (k << F) | (frac << (F - k))        # left-align into F bits
+    L = (k << F) | (frac << (F - k))           # left-align into F bits
+    return ensure_range(
+        L, hi=width * (1 << F) - 1,
+        bits=(1 << (F + max((width - 1).bit_length(), 1))) - 1,
+        what=f"mitchell_log/{width} log value")
 
 
 def _antilog_floor(ls: torch.Tensor, width: int,
@@ -193,8 +219,15 @@ def _antilog_floor(ls: torch.Tensor, width: int,
     Saturates to the 2*width-bit bus maximum when ``I >= 2 * width``.
     ``ls >= 0``; the mantissa it shifts right is below 2^33 at every
     width, and a left shift of at most 32 keeps a width-32 product inside
-    the 64-bit bus."""
+    the 64-bit bus. Each lane shifts one way only, so the right shift never
+    sees a left-shifted (at width 32, possibly >= 2^63) mantissa."""
     F = frac_bits(width)
+    # analyzer contract (the reference's): the saturation below caps the
+    # result at the 2*width-bit bus maximum, but the interval domain loses
+    # the mant * 2^shl correlation. Precondition: a summed pair of in-range
+    # log values plus a sub-2^F correction; postcondition: the bus.
+    ls = require_range(ls, hi=(1 << (F + 7)) - 1,
+                       what=f"antilog/{width} summed log")
     I = ls >> F
     mant = (1 << F) + (ls & ((1 << F) - 1))    # 1.Xs, F+1 bits
     shl = (I - F).clamp_(min=0)
@@ -203,9 +236,12 @@ def _antilog_floor(ls: torch.Tensor, width: int,
         half = 1 << (shr.clamp(min=1) - 1)     # 1 << (shr-1)
         mant = mant + torch.where(shr > 0, half, torch.zeros_like(half))
     # a lane that saturates below may shift far; keep the shift in range
-    out = wrap_bus((mant << shl.clamp(max=32)) >> shr, width)
+    out = wrap_bus(torch.where(I >= F, mant << shl.clamp(max=32),
+                               mant >> shr), width)
     max_out = bus_max(width) if 2 * width >= 32 else (1 << (2 * width)) - 1
-    return torch.where(I >= 2 * width, torch.full_like(out, max_out), out)
+    return ensure_range(
+        torch.where(I >= 2 * width, torch.full_like(out, max_out), out),
+        hi=(1 << (2 * width)) - 1, what=f"antilog/{width} product bus")
 
 
 def mitchell_antilog_mul(l1: torch.Tensor, l2: torch.Tensor, width: int,
@@ -238,10 +274,9 @@ def mitchell_antilog_div(l1: torch.Tensor, l2: torch.Tensor, width: int,
     the bus like the reference's barrel shifter: 31 on the 32-bit bus, 63
     on the 64-bit one."""
     F = frac_bits(width)
-    ls = l1 - l2
+    ls = wrap_signed(l1 - l2, width)           # the signed work type
     if corr is not None:
-        ls = ls + corr.to(torch.int64)
-    ls = wrap_signed(ls, width)
+        ls = wrap_signed(ls + corr.to(torch.int64), width)
     I = ls >> F                                # arithmetic: floors
     mant = (ls & ((1 << F) - 1)) + (1 << F)    # 1.Xs, always positive
     sh = I + (frac_out - F)                    # total shift of the mantissa

@@ -233,7 +233,7 @@ def lane_repack(lanes: list[torch.Tensor], owidth: int) -> torch.Tensor:
     for j in range(len(lanes) // olpw):
         w = torch.zeros_like(lanes[0])
         for i in range(olpw):
-            w |= (lanes[j * olpw + i] & omask) << (owidth * i)
+            w = w | ((lanes[j * olpw + i] & omask) << (owidth * i))
         words.append(w)
     lead = lanes[0].shape[:-1]
     out = torch.stack(words, dim=-1).reshape(*lead, -1)

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.simdive import SimdiveSpec, simdive_mul
+from repro_torch.core.error_lut import table_for
+from repro_torch.core.simdive import SimdiveSpec, simdive_mul, simdive_sqrt
+from . import datapath as dp
 from . import decode_attention as _da
 from . import elemwise as _ew
 from . import flash_attention as _fa
@@ -125,24 +127,221 @@ def _matmul_emul_cuda(qx, sx, qw, sw, *, spec, block, k_chunk=128):
     return _matmul_int_cuda(x, w, spec=spec, block=block).to(torch.int64)
 
 
+# ------------------------------------------------------- widthcheck meta --
+# Analysis metadata for repro_torch.analysis.widthcheck (the reference's,
+# case for case): per op and width, the pure traceable functions + abstract
+# operand domains that *are* the arithmetic the kernels execute (the plain
+# integer stages each kernel mirrors, not the launch wrappers). The port
+# has one integer form, so each reference pair "... kernel" / "... ref" is
+# one case here. A returned string is a declared, auditable skip; None
+# means the width is out of the op's domain. Each case names its bus: the
+# lane word the CUDA kernel computes on.
+
+_AN_IB = 3                                   # 64-region tables everywhere
+#: coeff_bits exercised per width: the shipped BENCH/serve configs
+#: (8b/cb6, 16b/cb8, 16b/cb0 zero-table, 32b/cb8)
+_AN_COEFF = {8: (6,), 16: (8, 0), 32: (8,)}
+_AN_DIV_FO = {8: 8, 16: 15, 32: 16}          # shipped div frac_out per width
+
+
+def _bus(width):
+    # simdive-lint: allow(unguarded-uint64): a case's declared bus, a dtype tag only
+    return torch.uint64 if width > 16 else torch.uint32
+
+
+def _lane_arg(width, shape=(8, 128)):
+    from repro_torch.analysis.domain import ArgSpec
+
+    return ArgSpec(tuple(shape), torch.int64, 0, (1 << width) - 1)
+
+
+def _elemwise_analysis(width):
+    from repro_torch.analysis.domain import ArgSpec, TraceCase
+
+    if width not in (8, 16, 32):
+        return None
+    cases = []
+    fo_div = _AN_DIV_FO[width]
+    for cb in _AN_COEFF[width]:
+        for op, fo in (("mul", 0), ("div", fo_div), ("mixed", min(fo_div, 8))):
+            tab = dp.op_table(op, width, cb, _AN_IB)
+            la = _lane_arg(width)
+            args = (la, la)
+            if op == "mixed":
+                args += (ArgSpec(la.shape, torch.int64, 0, 1),)
+
+            def fn(a, b, m=None, *, _t=tab, _o=op, _f=fo):
+                return dp.lane_op(a, b, _t, width=width, index_bits=_AN_IB,
+                                  op=_o, frac_out=_f, mode=m, round_out=True)
+
+            cases.append(TraceCase(
+                label=f"elemwise/{op} w{width} cb{cb} fo{fo}",
+                fn=fn, args=args, bus=_bus(width),
+                params=dict(op=op, width=width, coeff_bits=cb,
+                            frac_out=fo)))
+    return cases
+
+
+def _packed_analysis(width):
+    from repro_torch.analysis.domain import ArgSpec, TraceCase
+
+    if width not in (8, 16):
+        return ("packed lanes need >= 2 per 32-bit word; width 32 is the "
+                "elemwise (full-word) path")
+    cases = []
+    cb = _AN_COEFF[width][0]
+    word = ArgSpec((8, 64), torch.int64, 0, (1 << 32) - 1)
+    for op, fo in (("mul", 0), ("div", 8), ("mixed", 8)):
+        tab = dp.op_table(op, width, cb, _AN_IB)
+        spec = SimdiveSpec(width=width, coeff_bits=cb, index_bits=_AN_IB)
+        args = (word, word) + ((word,) if op == "mixed" else ())
+
+        def fn(aw, bw, mw=None, *, _t=tab, _s=spec, _o=op, _f=fo):
+            return _ps.packed_word_op(aw, bw, _t, mw, spec=_s, op=_o,
+                                      frac_out=_f)
+
+        cases.append(TraceCase(
+            label=f"packed/{op} w{width} cb{cb} fo{fo}", fn=fn, args=args,
+            bus=torch.uint32,
+            note="ref path shares dp.lane_op (proved under elemwise)",
+            params=dict(op=op, width=width, coeff_bits=cb, frac_out=fo)))
+    return cases
+
+
+def _matmul_int_analysis(width):
+    from repro_torch.analysis.domain import ArgSpec, TraceCase
+
+    if width == 8:
+        cases = []
+        cb = _AN_COEFF[8][0]
+        tab = dp.op_table("mul", 8, cb, _AN_IB)
+        spec = SimdiveSpec(width=8, coeff_bits=cb, index_bits=_AN_IB)
+        lane = (1 << 8) - 1
+        for K in (32, 128, 512):             # the BENCH K sweep
+            x = ArgSpec((8, K), torch.int32, -lane, lane)
+            w = ArgSpec((K, 128), torch.int32, -lane, lane)
+
+            def fn(xt, wt, *, _t=tab, _s=spec):
+                return dp.wrap_int32(_lm._partial(xt, wt, _t, _s)).to(
+                    torch.int32)
+
+            cases.append(TraceCase(
+                label=f"matmul_int w8 cb{cb} K{K}", fn=fn, args=(x, w),
+                bus=torch.int32,
+                note="int32 accumulator; operands are lane-width "
+                     "magnitudes with sign (sign_split clamps)",
+                params=dict(width=8, coeff_bits=cb, K=K)))
+        return cases
+    if width == 16:
+        return ("int32 accumulator is exact only while K * max_product < "
+                "2^31; callers scale operands per the logmatmul.py "
+                "contract — not provable width-generically")
+    if width == 32:
+        return ("width-32 matmul is not shipped; the 64-bit product bus "
+                "exceeds every accumulator the kernel offers")
+    return None
+
+
+def _matmul_emul_analysis(width):
+    from repro_torch.analysis.domain import ArgSpec, TraceCase
+
+    if width not in (8, 16):
+        if width == 32:
+            return ("width-32 emulated matmul is not shipped (64-bit "
+                    "product bus exceeds the int64 accumulator)")
+        return None
+    lane = (1 << width) - 1
+    spec = SimdiveSpec(width=width, coeff_bits=_AN_COEFF[width][0],
+                       index_bits=_AN_IB)
+    M, K, N = 8, 256, 16
+    qx = ArgSpec((M, K), torch.int64, 0, lane)
+    sx = ArgSpec((M, K), torch.int32, -1, 1)
+    qw = ArgSpec((K, N), torch.int64, 0, lane)
+    sw = ArgSpec((K, N), torch.int32, -1, 1)
+
+    def fn(a, b, c, d, *, _s=spec):
+        return _matmul_emul_ref(a, b, c, d, spec=_s)
+
+    return [TraceCase(
+        label=f"matmul_emul w{width} K{K}", fn=fn, args=(qx, sx, qw, sw),
+        bus=torch.int64,
+        note="cuda path recombines signs into matmul_int (proved there)",
+        params=dict(width=width, coeff_bits=spec.coeff_bits, K=K))]
+
+
+def _softmax_div_cases(prefix, width, acc_shape, note):
+    from repro_torch.analysis.domain import ArgSpec, TraceCase
+
+    if width not in (8, 16, 32):
+        return None
+    cb = _AN_COEFF[width][0]
+    tab = table_for("div", width, cb, _AN_IB)
+    fo = min(_AN_DIV_FO[width], 15)
+    acc = ArgSpec(acc_shape, torch.float32, -1e30, 1e30)
+    l = ArgSpec(acc_shape[:-1], torch.float32, 0.0, 1e30)
+
+    def fn(a, d, *, _t=tab):
+        return _fa.softmax_div(a, d, _t, width=width, index_bits=_AN_IB,
+                               frac_out=fo, round_out=True)
+
+    return [TraceCase(
+        label=f"{prefix}/softmax_div w{width} cb{cb} fo{fo}",
+        fn=fn, args=(acc, l), bus=_bus(width), note=note,
+        params=dict(width=width, coeff_bits=cb, frac_out=fo))]
+
+
+def _attention_analysis(width):
+    return _softmax_div_cases(
+        "attention", width, (8, 64),
+        "float accumulator stages are out of integer scope; the "
+        "quantize-clip-divide ladder is what is proved")
+
+
+def _decode_attention_analysis(width):
+    return _softmax_div_cases(
+        "decode_attention", width, (2, 2, 4, 64),
+        "the decode step's finalize over (B, KVH, G, dh) rows; its float "
+        "stages are out of integer scope")
+
+
+def _sqrt_analysis(width):
+    from repro_torch.analysis.domain import TraceCase
+
+    if width not in (8, 16, 32):
+        return None
+    cases = []
+    for fo in (0, 8):
+        def fn(a, *, _f=fo):
+            return simdive_sqrt(a, width, frac_out=_f)
+
+        cases.append(TraceCase(
+            label=f"sqrt w{width} fo{fo}", fn=fn,
+            args=(_lane_arg(width),), bus=_bus(width),
+            params=dict(width=width, frac_out=fo)))
+    return cases
+
+
 # each kernel that has a width-32 form (8-byte lanes, or the attention
 # finalizes' 64-bit lanes: csrc/*_w32.cu) counts those launches apart as
 # well, under <name>_w32
 register_op("elemwise", ref=_elemwise_ref, cuda=_elemwise_cuda,
             default_block=_ew.DEFAULT_BLOCK,
             kernels={"elemwise": _ew.elemwise_cuda,
-                     "elemwise_w32": _ew.elemwise_cuda.w32})
+                     "elemwise_w32": _ew.elemwise_cuda.w32},
+            analysis=_elemwise_analysis)
 # sqrt: one launch shape, fixed in the C entry (256 threads of 16 bytes of
 # lanes); both versions take (a, spec, frac_out) as they are
 register_op("sqrt", ref=_ew.sqrt_ref, cuda=_ew.sqrt_cuda,
-            kernels={"sqrt": _ew.sqrt_cuda, "sqrt_w32": _ew.sqrt_cuda.w32})
+            kernels={"sqrt": _ew.sqrt_cuda, "sqrt_w32": _ew.sqrt_cuda.w32},
+            analysis=_sqrt_analysis)
 # packed: both versions take any rank and return (..., 2 * Nw) words, the
 # shape the reference gets through its 2-D view and pad-to-block step (the
 # kernel's word mapping is flat and masks its tail), so they register as
 # they are
 register_op("packed", ref=_ps.packed_ref, cuda=_ps.packed_cuda,
             default_block=_ps.DEFAULT_BLOCK,
-            kernels={"packed": _ps.packed_cuda})
+            kernels={"packed": _ps.packed_cuda},
+            analysis=_packed_analysis)
 # attention blocks are (q_chunk, kv_chunk[, depth]); depth >= 1 runs the
 # cp.async kv ring (bit-identical output). Each candidate is checked for the
 # worst case the kernel takes (f32, d_head 128) when it is registered.
@@ -156,7 +355,8 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
                          _fa.flash_attention_pipelined_cuda,
                      "attention_w32": _fa.flash_attention_cuda.w32,
                      "attention_pipelined_w32":
-                         _fa.flash_attention_pipelined_cuda.w32})
+                         _fa.flash_attention_pipelined_cuda.w32},
+            analysis=_attention_analysis)
 # decode_attention: its launch shape (a cluster of C blocks of 4 warps per
 # (b, kv head)) is planned by the wrapper from the shape and the card
 # (decode_attention.cluster_size; cluster= pins it), so it registers no
@@ -165,7 +365,8 @@ register_op("attention", ref=_attention_ref, cuda=_attention_cuda,
 register_op("decode_attention", ref=_da.decode_attention_ref,
             cuda=_da.decode_attention_cuda,
             kernels={"decode_attention": _da.decode_attention_cuda,
-                     "decode_attention_w32": _da.decode_attention_cuda.w32})
+                     "decode_attention_w32": _da.decode_attention_cuda.w32},
+            analysis=_decode_attention_analysis)
 # matmul blocks carry k_unroll as a 4th and the pipeline depth as a 5th
 # component; each candidate is checked against the compiled tiles and the
 # shared-memory limit here, when it is registered
@@ -175,10 +376,12 @@ for _block in (_lm.DEFAULT_BLOCK, *_lm.BLOCK_CANDIDATES):
     _lm.check_block(_block)
 register_op("matmul_int", ref=_matmul_int_ref, cuda=_matmul_int_cuda,
             default_block=_lm.DEFAULT_BLOCK,
-            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS)
+            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS,
+            analysis=_matmul_int_analysis)
 register_op("matmul_emul", ref=_matmul_emul_ref, cuda=_matmul_emul_cuda,
             default_block=_lm.DEFAULT_BLOCK,
-            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS)
+            block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS,
+            analysis=_matmul_emul_analysis)
 
 
 # ------------------------------------------------------------- public API --

@@ -126,7 +126,10 @@ class OpImpl:
     ``cuda(*tensors, spec=..., **kw)`` launches the kernel and is also
     handed ``block=`` when the op registered a ``default_block``.
     ``kernels`` maps a count's name to the wrapper that carries its
-    ``launches`` count (one per schedule).
+    ``launches`` count (one per schedule). ``analysis`` is the static
+    analyzer's metadata hook (:mod:`repro_torch.analysis.widthcheck`):
+    ``analysis(width)`` returns the op's trace cases at that width, a
+    declared skip reason (a string), or None for a width outside the op.
     """
     name: str
     ref: Callable[..., Any]
@@ -134,6 +137,7 @@ class OpImpl:
     default_block: tuple | None = None
     block_candidates: tuple = ()
     kernels: dict = field(default_factory=dict)
+    analysis: Callable | None = None
 
 
 _REGISTRY: dict[str, OpImpl] = {}
@@ -144,8 +148,10 @@ _AUTOTUNE_GENERATION = 0
 def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
                 default_block: tuple | None = None,
                 block_candidates: tuple = (),
-                kernels: dict | None = None) -> OpImpl:
-    """Register a new op under ``name``."""
+                kernels: dict | None = None,
+                analysis: Callable | None = None) -> OpImpl:
+    """Register a new op under ``name``; ``analysis`` is the widthcheck
+    metadata hook (see :class:`OpImpl`)."""
     if name in _REGISTRY:
         raise ValueError(f"op {name!r} already registered")
     if block_candidates and default_block is None:
@@ -153,7 +159,7 @@ def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
     entry = OpImpl(name=name, ref=ref, cuda=cuda,
                    default_block=default_block,
                    block_candidates=tuple(tuple(b) for b in block_candidates),
-                   kernels=dict(kernels or {}))
+                   kernels=dict(kernels or {}), analysis=analysis)
     _REGISTRY[name] = entry
     return entry
 
@@ -399,6 +405,7 @@ def _int_values(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     more reads below zero and the all-ones word reads -1."""
     if t.dtype == torch.uint32:
         return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, 0xFFFFFFFF
+    # simdive-lint: allow(unguarded-uint64): the guard reads uint64 lanes through their int64 bits, as from_lanes does
     if t.dtype == torch.uint64:
         return t.view(torch.int64), -1
     return t.to(torch.int64), int(torch.iinfo(t.dtype).max)

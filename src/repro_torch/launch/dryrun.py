@@ -67,7 +67,6 @@ import argparse
 import json
 import math
 import os
-import time
 import traceback
 import warnings
 import weakref
@@ -657,6 +656,7 @@ def trace_cell(cfg, shape, mesh_shape: tuple, axes: tuple, *, rank: int = 0,
     and ``trace_seconds``; module docstring)."""
     from repro_torch.kernels.registry import dry_dispatch
     from repro_torch.launch import sharding as shardlib
+    from repro_torch.metrics.timing import wall_clock
 
     mesh, rules = _bound(mesh_shape, axes, rank)
     meter = _Meter()
@@ -678,14 +678,14 @@ def trace_cell(cfg, shape, mesh_shape: tuple, axes: tuple, *, rank: int = 0,
         parts = {name: meter.held(_leaves(a))
                  for name, a in zip(_PARTS[shape.kind], args)}
         shardlib.reset_collective_counts()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         stack.enter_context(_dispatch_mode(meter))
         stack.enter_context(dry_dispatch(meter.kernel))
         out = run()
         in_ids = {t.untyped_storage()._cdata for t in _leaves(args)}
         out_bytes = meter.held(t for t in _leaves(out)
                                if t.untyped_storage()._cdata not in in_ids)
-    seconds = time.perf_counter() - t0
+    seconds = wall_clock() - t0
     coll = shardlib.collective_counts(by_axis=True)
     per = {
         "argument_bytes": arg_bytes,

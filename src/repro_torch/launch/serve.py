@@ -75,7 +75,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -86,7 +85,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.approx import ApproxConfig, serving_segments
 from repro_torch.kernels.registry import (add_launches, autotune_generation,
                                           launch_counts, launches_between)
-from repro_torch.metrics.timing import TimingStats, time_callable
+from repro_torch.metrics.timing import (TimingStats, time_callable,
+                                        wall_clock)
 from repro_torch.models import build
 from repro_torch.models.layers import QuantizedWeight, quantize_weight
 
@@ -379,10 +379,10 @@ class _GraphFn:
         """Replay ``slot``'s graph, capturing ``body`` into it first when it
         holds none or one stale for ``params``."""
         if not slot.captured_for(params):
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             slot.capture(body, params, self.lm.device)
             self.captures += 1
-            self.capture_s = time.perf_counter() - t0
+            self.capture_s = wall_clock() - t0
         return slot.replay()
 
 
@@ -677,9 +677,9 @@ def measure_prefill(lm, params, prompts, *, iters: int = 3) -> PrefillTimes:
     host_s = float("inf")
     for _ in range(max(iters, 1)):
         sync()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         prefill(params, batch)
-        host_s = min(host_s, time.perf_counter() - t0)
+        host_s = min(host_s, wall_clock() - t0)
     sync()
     return PrefillTimes(stats, host_s, prefill.capture_s)
 
@@ -810,7 +810,7 @@ def run_drill(cfg, params, args, rng) -> dict:
     for _ in range(args.requests):
         sched.submit(rng.integers(0, cfg.vocab_size, args.prompt_len,
                                   dtype=np.int64), max_new=args.gen)
-    t0 = time.perf_counter()
+    t0 = wall_clock()
     if args.chaos:
         from repro_torch.faults.inject import FaultSpec, set_faults
 
@@ -826,7 +826,7 @@ def run_drill(cfg, params, args, rng) -> dict:
             set_faults([])
     else:
         stats = sched.run()
-    wall_s = time.perf_counter() - t0
+    wall_s = wall_clock() - t0
     during = sum(f.captures for f in sched.prefills + sched.steps) - captured
     step_t = sched.measure_decode()
     print(f"# drill: {stats['completed']} request(s) in "

@@ -48,7 +48,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 from contextlib import ExitStack
 
 from repro_torch import checkpoint as ckpt
@@ -70,6 +69,7 @@ from repro_torch.launch.specs import (
     param_specs,
     sanitize_specs,
 )
+from repro_torch.metrics.timing import wall_clock
 from repro_torch.models import build
 from repro_torch.models.transformer import check_mesh
 from repro_torch.optim import adamw, cosine_schedule
@@ -354,7 +354,7 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
             return tree
 
         losses = []
-        t0 = t_step = time.perf_counter()
+        t0 = t_step = wall_clock()
         for step in range(start_step, steps):
             acfg = schedule.config_at(step, cfg.approx) \
                 if schedule is not None else None
@@ -368,11 +368,11 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
             loss = float(metrics["loss"])
             losses.append(loss)
             if step_times is not None:
-                now = time.perf_counter()
+                now = wall_clock()
                 step_times.append(now - t_step)
                 t_step = now
             if lead and (step % log_every == 0 or step == steps - 1):
-                dt = time.perf_counter() - t0
+                dt = wall_clock() - t0
                 rung = ""
                 if schedule is not None:
                     r = schedule.rung_at(step)

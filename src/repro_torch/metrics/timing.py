@@ -6,6 +6,12 @@ with the device** — CUDA events around each repetition when the work runs
 on a GPU (PyTorch returns before the device finishes, so a bare host clock
 would time the enqueue), ``time.perf_counter`` on the CPU. Results carry
 the device they were taken on; a CPU number never stands in for a GPU one.
+
+Host clocks are read here and nowhere else (the repo lint's
+``timing-outside-harness`` rule): :func:`wall_clock` for intervals (a
+phase's seconds, a request's latency on the host — never a device time
+on its own) and :func:`epoch_time` for timestamps compared with file
+modification times.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.kernels.registry import shape_bucket
 
-__all__ = ["TimingStats", "time_callable"]
+__all__ = ["TimingStats", "time_callable", "wall_clock", "epoch_time"]
 
 
 @dataclass(frozen=True)
@@ -35,6 +41,19 @@ class TimingStats:
         if self.items is None or self.mean_s == 0:
             return None
         return self.items / self.mean_s
+
+
+def wall_clock() -> float:
+    """Seconds on the host's monotonic high-resolution clock
+    (``time.perf_counter``): differences are intervals; the work they
+    span is the caller's to synchronise."""
+    return time.perf_counter()
+
+
+def epoch_time() -> float:
+    """Seconds since the epoch (``time.time``), comparable with file
+    modification times."""
+    return time.time()
 
 
 def _tensors(x):

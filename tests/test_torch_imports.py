@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (``apps/`` included)
-nor ``chip_smoke.py`` imports ``jax``, ``ml_dtypes``, anything of ``repro``
+"""The port stands alone: no module of ``repro_torch`` (``apps/`` and
+``analysis/`` included) nor ``chip_smoke.py`` nor a script under
+``scripts/`` imports ``jax``, ``ml_dtypes``, anything of ``repro``
 or the reference's ``benchmarks``; importing the package needs no
 compiler and no GPU; and entry points asked for ``device='cuda'`` on a host
 without one raise instead of carrying on on the CPU.
@@ -41,6 +42,13 @@ def test_source_imports_neither_jax_nor_reference(path):
             assert word not in text, f"{path.name} mentions {word}"
 
 
+@pytest.mark.parametrize("path", sorted((ROOT / "scripts").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_script_imports_neither_jax_nor_reference(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
 def test_every_package_module_is_covered():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES[:-1]}
     for needed in ("core/mitchell.py", "core/error_lut.py", "core/simdive.py",
@@ -70,7 +78,11 @@ def test_every_package_module_is_covered():
                    "train/loop.py", "launch/train.py",
                    "apps/__init__.py", "apps/table4_ann.py",
                    "apps/fig34_imaging.py", "launch/sharding.py",
-                   "launch/mesh.py", "launch/specs.py"):
+                   "launch/mesh.py", "launch/specs.py",
+                   "core/annotations.py", "analysis/__init__.py",
+                   "analysis/__main__.py", "analysis/domain.py",
+                   "analysis/widthcheck.py", "analysis/lint.py",
+                   "analysis/diff.py"):
         assert needed in names, needed
     csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
     assert {"simdive_datapath.cuh", "elemwise.cu", "decode_attention.cu",

@@ -425,8 +425,9 @@ CHAOS = dict(site="table", bit=20, kind="stuck1", op="div")
 
 def _both_chaos(requests, *, gen=4, **kw):
     """The reference's scheduler and the port's on the same parameters
-    and prompts (float32, no policy), table scrub every tick: returns both
-    after warmup and one tick (the first admission in flight)."""
+    and prompts (float32, no policy), table scrub every tick unless
+    ``scrub_every`` says otherwise: returns both after warmup and one tick
+    (the first admission in flight)."""
     r_approx = RApprox(mode="simdive", use_in_softmax=True)
     t_approx = TApprox(mode="simdive", use_in_softmax=True)
     r_cfg = replace(r_get_config(ARCH, smoke=True),
@@ -434,7 +435,7 @@ def _both_chaos(requests, *, gen=4, **kw):
     t_cfg = replace(t_get_config(ARCH, smoke=True),
                     dtype="float32").with_approx(t_approx)
     args = dict(batch=2, prompt_len=P, max_seq=P + gen + 2, shed_depth=100,
-                recover_depth=1, scrub_every=1, **kw)
+                recover_depth=1, **{"scrub_every": 1, **kw})
     rs = r_sched.Scheduler(r_cfg, levels=r_sched.default_ladder(r_approx),
                            seed=0, **args)
     params = params_from_reference(jax.tree.map(np.asarray, rs.params),
@@ -530,6 +531,46 @@ def test_scheduler_exhausted_retries_fail_loudly():
         assert req.failed and req.fail_reason.startswith("table scrub: ")
         assert req.tokens == []
     assert [k for _, k, _ in t_stats["events"]].count("fail") == 2
+
+
+# ------------------------------------------------ R-6 in served tokens --
+R6_FLIP = dict(site="table", bit=31, kind="flip", op="div")
+
+
+def _arm_r6(on: bool):
+    r_inject.set_faults([r_inject.FaultSpec(**R6_FLIP)] if on else [])
+    set_faults([FaultSpec(**R6_FLIP)] if on else [])
+
+
+def _r6_drill(faithful: bool):
+    """The chaos drill's schedulers (2 requests, 4 tokens each) under a
+    bit-31 div table flip armed after warmup, scrubbed only every 4
+    ticks, so both requests retire before the first scrub sees it: the
+    reference in its faithful (``faithful``) or default form."""
+    from repro.core.fastpath import faithful_mode
+
+    with faithful_mode(faithful):
+        rs, ts = _both_chaos(2, scrub_every=4)
+        _arm_r6(True)
+        try:
+            return rs, rs.run(), ts, ts.run()
+        finally:
+            _arm_r6(False)
+
+
+def test_r6_reaches_served_tokens_and_the_port_is_faithful():
+    """ROADMAP R-6 in served tokens: under a bit-31 div table flip the
+    reference's default and faithful datapath forms serve different
+    tokens; the port serves the faithful form's, event for event and
+    token for token."""
+    rs, r_stats, ts, t_stats = _r6_drill(faithful=True)
+    _same_drill(rs, r_stats, ts, t_stats)
+    assert t_stats["completed"] == 2 and t_stats["quarantines"] == 0
+    port = {r.rid: r.tokens for r in ts.done}
+    d_rs, _, d_ts, _ = _r6_drill(faithful=False)
+    default = {r.rid: r.tokens for r in d_rs.done}
+    assert {r.rid: r.tokens for r in d_ts.done} == port
+    assert default != port, "the reference's forms no longer split"
 
 
 # -------------------------------------------------------- one cache --
