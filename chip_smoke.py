@@ -325,8 +325,8 @@ any phase fails. Phases:
               turns (the kernels line's ``sqrt`` row; ``elemwise``'s
               ``launches_use_in_norm``).
 10. dense family — the three other dense configurations at full width,
-              depth cut (SERVED_LAYERS: qwen3-4b 6 of 36 layers,
-              stablelm-1.6b 4 of 24, qwen2.5-14b 4 of 48; random weights
+              depth cut (SERVED_LAYERS: qwen3-4b 3 of 36 layers,
+              stablelm-1.6b 2 of 24, qwen2.5-14b 2 of 48; random weights
               from seed 0, batch 4, prompt 512, ``--approx simdive``),
               each model's graphs dropped before the next. (k) The
               kernels' times at qwen3-4b's shapes beside their bounds and
@@ -355,7 +355,7 @@ any phase fails. Phases:
               from seed 0, batch 4, prompt 512, 32 tokens, ``--approx
               simdive``, each model dropped before the next: (a)
               mixtral-8x7b (top-2 of 8 experts, window 4096: a 544-slot
-              ring cache, every decode step ``ring_full``) at 4 of its
+              ring cache, every decode step ``ring_full``) at 2 of its
               32 layers and (b) llama4-scout-17b-a16e (top-1 of 16 and a
               shared expert, vocab 202,048) at 2 of its 48 (SERVED_LAYERS):
               the parameters' bytes and ``LM.init``'s peak, under
@@ -378,7 +378,7 @@ any phase fails. Phases:
               attention's four linears and the shared expert's three),
               captured == eager.
 12. modality-stub families — after phase 11's models are dropped,
-              qwen2-vl-2b whole and musicgen-medium at 8 of its 48
+              qwen2-vl-2b whole and musicgen-medium at 4 of its 48
               layers (SERVED_LAYERS), random weights from seed 0, batch
               4, prompt 512, 32 tokens, ``--approx simdive``, each model
               dropped before the next. (k) The attention kernels' times at both
@@ -403,7 +403,7 @@ any phase fails. Phases:
               parameters' bytes and ``LM.init``'s peak, peak and held
               memory, the prefill and step replays, one eager step's
               device time by kernel.
-13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b at 4 of its
+13. rwkv6 — after phase 12's models are dropped, rwkv6-1.6b at 2 of its
               24 layers (SERVED_LAYERS; d_model 2,048, 32 heads of 64,
               d_ff 7,168, vocab 65,536, untied), random weights from
               seed 0, batch 4, prompt 512, 32 tokens, ``--approx
@@ -428,10 +428,10 @@ any phase fails. Phases:
               in float64 (WKV_F64_REL_TOL). (c) ``--emulate``, 4 tokens:
               8 ``logmatmul`` a layer a prefill and a step (the head
               exact), captured == eager.
-14. zamba2 — after phase 13's models are dropped, zamba2-2.7b at 18 of
+14. zamba2 — after phase 13's models are dropped, zamba2-2.7b at 9 of
               its 54 Mamba2 layers (SERVED_LAYERS; d_model 2,560,
               d_inner 5,120 in 80 heads of 64, state 64, and a shared
-              attention + gelu MLP block after every 9th layer: 2 of its
+              attention + gelu MLP block after every 9th layer: 1 of its
               6 invocations, 32 heads of d_head 80, each with its own
               rank-64 LoRA on ``wq``, merged every call; vocab 32,000,
               untied), random
@@ -471,13 +471,13 @@ any phase fails. Phases:
               on the plain versions: loss, gradients and updated
               parameters ``torch.equal``; (c) ``train`` with all 32
               layers, batch 4 x 512, remat on, ``--approx simdive
-              --backward approx``, 4 steps, a checkpoint every 2 and a
+              --backward approx``, 3 steps, a checkpoint every 2 and a
               rung change at step 2: a step's 704 ``logmatmul`` (22 a
               layer: R-8 leaves wq / wk / wv without gradient products)
               and 64 ``elemwise`` launches, its time, peak memory and device
-              time by kernel, every loss finite, a run killed after 3
-              steps and resumed equal to the uninterrupted run from the
-              checkpoint on; (d) ``train_twin`` at full width, 2 steps,
+              time by kernel, every loss finite, a run killed after 2
+              steps (in the first rung) and resumed (in the second) equal
+              to the uninterrupted run from the checkpoint on; (d) ``train_twin`` at full width, 2 steps,
               exact against ``--approx simdive``, R-8 (no gradient for
               the approximate model's wq / wk / wv), and an exact-base
               twin at 2 layers with zero divergence.
@@ -599,13 +599,30 @@ any phase fails. Phases:
               ``elemwise`` a layer, the divider after the ranks' sums
               (smollm), on every rank. (j) the dry run
               (``launch/dryrun.py``) on the host under the fake process
-              group at world 2 / 3, cells (a), (b), (f)-(h): collectives
-              a step (calls and bytes by mesh axes) and parameter and
-              optimizer bytes equal to the ranks'; (a)'s traced peak
-              within 25 % of rank 0's ``max_memory_allocated`` over its
-              run. (k) one FULL ``train_4k`` single-pod dry-run cell a
-              family, ``ok``. The ``logmatmul`` row carries its times at
-              (a)'s, rwkv6's and zamba2's shard shapes.
+              group at world 2 / 3 / 4, cells (a), (b), (f)-(h), (l),
+              (m): collectives a step (calls and bytes by mesh axes) and
+              parameter and optimizer bytes equal to the ranks'; (a)'s
+              traced peak within 25 % of rank 0's
+              ``max_memory_allocated`` over its run. (k) one FULL
+              ``train_4k`` single-pod dry-run cell a family, ``ok``. The
+              mesh's options, each with (a)'s gates: (l) (a)'s
+              model, one step under ``--sp`` in (a)'s spawn, every
+              SIMDive linear of layer 0 ``torch.equal`` at its
+              sequence-parallel shard shapes; (m) smollm-360m (2 layers),
+              one step under ``--pure-dp`` over (a)'s two ranks and one
+              under ``--fsdp`` over four (data 2 x model 2, spawned
+              beside (b)'s), the loss and gradients also allowed the data
+              ranks' float order (8 float32 ulps, one bf16 ulp of a
+              leaf's largest, the CPU tests'); (n) mixtral-8x7b (2
+              layers) served at tp 2 in (i) — every decode step's
+              ``all_reduce`` calls one a layer more than the attention's
+              (the MoE's sum), the logits under phase 11's routing-aware
+              gate — and its MoE block under the experts override,
+              ``torch.equal`` to the unsplit block with one
+              ``all_gather``; (o) (i)'s served forward 4 steps more with
+              per-row positions (smollm's cache split by sequence). The
+              ``logmatmul`` row carries its times at (a)'s (also
+              ``--sp``'s), rwkv6's, zamba2's and (m)'s shard shapes.
 
 19. analysis — the static analyzer (``repro_torch.analysis``): (a)
               ``python -m repro_torch.analysis --gate --json`` as a
@@ -891,7 +908,7 @@ ZAMBA2_EMULATE_GEN = 4
 # in the forward and once in the re-run
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_LR = 3e-4
-TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_STOP_AFTER, TRAIN_RUNG_AT = 4, 2, 3, 2
+TRAIN_STEPS, TRAIN_SAVE_EVERY, TRAIN_STOP_AFTER, TRAIN_RUNG_AT = 3, 2, 2, 2
 TRAIN_LOGMATMUL_A_LAYER = 7 + 7 + 4 * 2
 TRAIN_LOGMATMUL_A_STEP = 32 * TRAIN_LOGMATMUL_A_LAYER
 TRAIN_ELEMWISE_A_STEP = 2 * 32
@@ -988,13 +1005,14 @@ INT32_SUM_BOUND = 255 * 255 * 10240
 # 186 GB, llama4-scout's 48 ~431 GB — and, as the script grows, to keep
 # it inside its time limit (their time goes to init, capture and serving,
 # which scale with depth; phase 3 holds the kernels at their shapes
-# whatever the depth). A configuration not named here is served whole:
-# qwen2-vl-2b keeps its 28 layers, where the vision stub's M-RoPE gate was
-# measured with little margin (PERF.md, PR 30).
-SERVED_LAYERS = {"qwen3-4b": 6, "stablelm-1.6b": 4, "qwen2.5-14b": 4,
-                 "mixtral-8x7b": 4, "llama4-scout-17b-a16e": 2,
-                 "musicgen-medium": 8,
-                 "rwkv6-1.6b": 4, "zamba2-2.7b": 18}
+# whatever the depth; halved once more to make room for phase 18's
+# options). A configuration not named here is served whole: qwen2-vl-2b
+# keeps its 28 layers, where the vision stub's M-RoPE gate was measured
+# with little margin (PERF.md).
+SERVED_LAYERS = {"qwen3-4b": 3, "stablelm-1.6b": 2, "qwen2.5-14b": 2,
+                 "mixtral-8x7b": 2, "llama4-scout-17b-a16e": 2,
+                 "musicgen-medium": 4,
+                 "rwkv6-1.6b": 2, "zamba2-2.7b": 9}
 # the sqrt kernel (ROADMAP rule 2's check of row 8) at a working size:
 # 16.8 M lanes, where it is no longer launch-bound
 SQRT_WORK_LANES = 1 << 24
@@ -5726,11 +5744,12 @@ class _RecordedRoutes:
 
 
 def judge_routed_logits(what, n_layers, kern_calls, plain_calls, logits,
-                        tokens, ref_all, tol) -> dict:
+                        tokens, ref_all, tol,
+                        against: str = "the plain-version run") -> dict:
     """The routing-aware gate (ROUTE_AGREE_FLOOR, ROUTE_CHECKED_FLOOR):
     ``*_calls`` are one generate's dispatch calls in order — the prefill's
     one a layer (G = B groups of the prompt), then each step's one a layer
-    (one group of the B rows)."""
+    (one group of the B rows); ``against``: what the reference run is."""
     import torch
 
     gen = tokens.shape[1]
@@ -5762,7 +5781,7 @@ def judge_routed_logits(what, n_layers, kern_calls, plain_calls, logits,
     top2 = ref_all.topk(2, dim=-1).values
     decided = ((top2[..., 0] - top2[..., 1]) > 2 * tol) & row_ok
     token_ok = (tokens == ref_all.argmax(-1)) | ~decided
-    log(f"  {what} vs plain versions: routes agreeing by layer "
+    log(f"  {what} vs {against}: routes agreeing by layer "
         + ", ".join(f"{x:.5f}" for x in shares)
         + f" (floor {ROUTE_AGREE_FLOOR}); tokens whose routes first part "
         f"there {fresh}; {int(row_ok.sum())} of {B * gen} "
@@ -5776,11 +5795,11 @@ def judge_routed_logits(what, n_layers, kern_calls, plain_calls, logits,
     require(checked >= ROUTE_CHECKED_FLOOR,
             f"{what}: only {checked:.3f} of the logit rows have every own "
             f"route equal, under {ROUTE_CHECKED_FLOOR}")
-    require(err <= tol, f"{what}: logits differ from the plain-version run "
-                        f"by {err:.4f} > {tol} on a row whose routes agree")
+    require(err <= tol, f"{what}: logits differ from {against} by "
+                        f"{err:.4f} > {tol} on a row whose routes agree")
     require(bool(token_ok.all()),
             f"{what}: a greedy token decided by more than twice the logit "
-            "tolerance differs from the plain-version run")
+            f"tolerance differs from {against}")
     flips = [n - a for a, n in agree]
     return dict(route_agree_by_layer=shares, route_flips_by_layer=flips,
                 first_parting_tokens_by_layer=fresh,
@@ -8012,8 +8031,23 @@ MESH_CASES = {"f": ("smollm-360m", 2), "g": ("rwkv6-1.6b", 2),
 # (i): the served forward at tp 2, divider-only: a prefill at (a)'s batch
 # and MESH_SERVE_STEPS decode steps (stablelm's cache split by kv head,
 # smollm's by sequence: specs.cache_specs)
-MESH_SERVE = (("stablelm-1.6b", 4), ("smollm-360m", 2))
+MESH_SERVE = (("stablelm-1.6b", 4), ("smollm-360m", 2),
+              ("mixtral-8x7b", 2))
 MESH_SERVE_STEPS = 8
+# (o): after the served steps, MESH_ROW_STEPS more with per-row positions
+# (row b one slot deeper than row b - 1; a cache of 512 + 8 + 4 + 4 slots,
+# smollm's split by sequence over the two ranks)
+MESH_ROW_STEPS = 4
+# (l): (a)'s config, one step under --sp inside (a)'s spawn; (m): (f)'s
+# config (smollm-360m, 2 layers), one step under --pure-dp over (a)'s two
+# ranks and one under --fsdp over a spawn of MESH_FSDP_WORLD ranks (data 2
+# x model 2), run beside (b)'s
+MESH_FSDP_WORLD = 4
+# (m) splits the batch over data ranks: their partial sums add in another
+# order than the unsplit run's, so beside the witnesses the loss may move
+# by 8 float32 ulps of itself and a gradient leaf by one bf16 ulp of its
+# largest magnitude (tests/test_torch_mesh_cases.py's tolerances)
+MESH_DATA_LOSS_RTOL, MESH_DATA_GRAD_ULP = 8 * 2.0 ** -23, 2.0 ** -8
 MESH_SERVE_LOGITS = (2.0 ** -4, 2.0 ** 8)   # where the ulp bound holds
 # (j)-(k): the dry run on the host (launch/dryrun.py), in subprocesses
 # started with the phase: (j) cells (a), (b), (f)-(h) as the ranks run them
@@ -8034,6 +8068,7 @@ MESH_RUN = {"arch": MESH_ARCH, "layers": MESH_LAYERS, "tp": MESH_TP,
             "moe_arch": MESH_MOE_ARCH, "moe_x": MESH_MOE_X,
             "compress": MESH_COMPRESS_SHAPE, "cases": MESH_CASES,
             "serve": MESH_SERVE, "serve_steps": MESH_SERVE_STEPS,
+            "row_steps": MESH_ROW_STEPS,
             "dryrun_archs": MESH_DRYRUN_ARCHS, "smoke": False}
 
 
@@ -8145,8 +8180,8 @@ def first_step_grads(out: dict):
 
     saved = t_train.sum_over_data
 
-    def rec(grads):
-        grads = saved(grads)
+    def rec(grads, *rest):
+        grads = saved(grads, *rest)
         if "grads" not in out:
             out["grads"] = tree_map(
                 lambda g: None if g is None else g.detach().cpu(), grads)
@@ -8189,12 +8224,14 @@ def first_step_state(out: dict):
         t_train.make_train_step = saved
 
 
-def mesh_linears(cfg, run, dev, tp):
+def mesh_linears(cfg, run, dev, tp, zero3: str | None = None):
     """Every SIMDive linear of layer 0 at its shard shapes on the kernels
     against the unsplit linear on this rank (forward and both gradient
     products, ``torch.equal``); each weight's split read from
     ``sanitize_specs``. Inputs x (M, K) bf16, w (K, N) float32 and g (M,
-    N) bf16 drawn on the card from seed 0; M the batch's tokens."""
+    N) bf16 drawn on the card from seed 0; M the batch's tokens.
+    ``zero3``: the run's parameter placement (``"pure_dp"``: every linear
+    whole once gathered)."""
     import torch
     from repro_torch.launch import sharding as shardlib
     from repro_torch.launch import train as t_train
@@ -8202,7 +8239,8 @@ def mesh_linears(cfg, run, dev, tp):
 
     from repro_torch.launch.specs import param_shapes
 
-    specs = t_train.placement(cfg, shardlib.current_mesh())[0]["params"]
+    specs = t_train.placement(cfg, shardlib.current_mesh(),
+                              zero3=zero3)[0]["params"]
     layer = specs["stack"]["layers"]
     whole = param_shapes(cfg)["stack"]["layers"]
     M = run["batch"] * run["seq"]
@@ -8252,6 +8290,65 @@ def mesh_linears(cfg, run, dev, tp):
     return out
 
 
+def mesh_linears_sp(cfg, run, dev, tp):
+    """(l) Every SIMDive linear of layer 0 under ``--sp`` at its shard
+    shapes on the kernels against the unsplit linear on this rank: x
+    (B, S, K) bf16 from (a)'s batch, w (K, N) float32, g bf16 drawn on the
+    card from seed 0; a column-parallel linear takes this rank's slice of
+    the sequence (gathered inside) and its columns, a row-parallel one
+    its rows of K and gives this rank's slice of the sequence; forward
+    and both gradient products ``torch.equal`` to the unsplit's."""
+    import torch
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.specs import param_shapes
+    from repro_torch.models.layers import dense
+
+    specs = t_train.placement(cfg, shardlib.current_mesh())[0]["params"]
+    layer = specs["stack"]["layers"]
+    whole = param_shapes(cfg)["stack"]["layers"]
+    B, S = run["batch"], run["seq"]
+    r = shardlib.rank_in("heads")
+    rows = slice(r * S // tp, (r + 1) * S // tp)
+    out = {}
+    for i, name in enumerate(MESH_LINEARS):
+        path = ("mlp", name) if name in ("w1", "w2", "w3") else (name,)
+        spec, leaf = layer, whole
+        for key in path:
+            spec, leaf = spec[key], leaf[key]
+        K, N = leaf.shape[-2:]
+        kind = "row" if tuple(spec.spec)[-1] is None else "col"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        x0 = torch.randn((B, S, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w0 = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        g0 = torch.randn((B, S, N), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def run_linear(x, w, g, split):
+            x = x.clone().requires_grad_()
+            w = w.clone().requires_grad_()
+            y = dense(x, w, cfg.approx, split)
+            y.backward(g)
+            return y.detach(), x.grad, w.grad
+
+        with shardlib.use_rules(_OneRank()):
+            y, gx, gw = run_linear(x0, w0, g0, None)
+        if kind == "col":
+            c = slice(r * N // tp, (r + 1) * N // tp)
+            got = run_linear(x0[:, rows], w0[:, c], g0[..., c],
+                             ("col", "heads", "seq"))
+            want = (y[..., c], gx[:, rows], gw[:, c])
+        else:
+            c = slice(r * K // tp, (r + 1) * K // tp)
+            got = run_linear(x0[..., c], w0[c], g0[:, rows],
+                             ("row", "heads", "seq"))
+            want = (y[:, rows], gx[..., c], gw[c])
+        out[name] = {"split": kind + " (sequence-parallel)",
+                     "equal": [torch_equal(a, b) for a, b in zip(got, want)]}
+    return out
+
+
 class _OneRank:
     """A mesh of one rank a dim: bound, it changes nothing but the loss's
     branch, so a rank computes the unsplit linear under it."""
@@ -8280,6 +8377,18 @@ def gloo_probe(dev) -> dict:
     t = torch.full((1024,), rank + 1.0, device=dev)
     dist.broadcast(t, src=0)
     out["broadcast_float32"] = bool((t == 1.0).all())
+    # sequence parallelism's reduce_scatter: rank r's part of every rank's
+    # arange, summed
+    for name, dtype in (("float32", torch.float32), ("int64", torch.int64)):
+        src = torch.arange(world * 256, dtype=dtype, device=dev) * (rank + 1)
+        part = torch.empty(256, dtype=dtype, device=dev)
+        try:
+            dist.reduce_scatter_tensor(part, src)
+            want = torch.arange(rank * 256, (rank + 1) * 256, dtype=dtype,
+                                device=dev) * (world * (world + 1) // 2)
+            out[f"reduce_scatter_{name}"] = bool(torch.equal(part, want))
+        except RuntimeError as e:
+            out[f"reduce_scatter_{name}"] = f"refused: {e}"[:200]
     return out
 
 
@@ -8319,15 +8428,16 @@ def _mesh_rank(rank, world, job, run, store, out, device_type):
     dist.destroy_process_group()
 
 
-def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
-                ) -> dict:
+def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None,
+                sp: bool = False, zero3: str | None = None) -> dict:
     """``launch.train.train`` at ``mesh_shape()`` from seed 0 (bound to a
     mesh of its own where this process is one of several ranks): losses,
     step seconds, this rank's launches (the run's, and a step's) and
     collectives a step, and the first step's gradients. On a rank those
     are gathered whole on the host over ``mesh`` and written by rank 0 to
     ``gather_to`` with the first step's loss; unbound they come back
-    under ``"grads"``."""
+    under ``"grads"``. ``sp`` / ``zero3``: the mesh's options
+    (``launch.train.train``'s)."""
     import torch
     import torch.distributed as dist
     from repro_torch import checkpoint as ckpt
@@ -8335,7 +8445,6 @@ def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import sharding as shardlib
     from repro_torch.launch import train as t_train
-    from repro_torch.launch.specs import batch_axes_for
 
     times, first, state = [], {}, {}
     reset_launch_counts()
@@ -8346,7 +8455,8 @@ def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
     with first_step_grads(first), first_step_state(state):
         _, losses = t_train.train(cfg, mesh_shape(run), steps=steps,
                                   ckpt_dir=None, tp=tp, device=dev,
-                                  log_every=steps, step_times=times)
+                                  log_every=steps, step_times=times, sp=sp,
+                                  zero3=zero3)
     counts, colls = launch_counts(), shardlib.collective_counts()
     by_axis = shardlib.collective_counts(by_axis=True)
     res = {"losses": losses, "step_s": times,
@@ -8361,8 +8471,9 @@ def _mesh_train(cfg, run, dev, tp, steps, mesh=None, gather_to=None
     if mesh is None:
         res["grads"] = first["grads"]
         return res
-    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
-        psh = t_train.placement(cfg, mesh)[0]["params"]
+    with shardlib.use_rules(mesh, t_train.rules_for(mesh, sp,
+                                                    zero3 == "pure_dp")):
+        psh = t_train.placement(cfg, mesh, zero3=zero3)[0]["params"]
     full = tree_map(lambda g, sh: None if g is None
                     else ckpt.gather_full(g, sh), first["grads"], psh)
     if dist.get_rank() == 0:
@@ -8374,6 +8485,7 @@ def _mesh_job_tp2(dev, run, out) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch import train as t_train
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.specs import batch_axes_for
 
@@ -8388,11 +8500,28 @@ def _mesh_job_tp2(dev, run, out) -> dict:
     res["train"] = _mesh_train(cfg, run, dev, tp, run["steps"], mesh,
                                f"{out}.grads")
     _free(dev)
+    # (l): (a)'s config, one step under --sp
+    with shardlib.use_rules(mesh, t_train.rules_for(mesh, sp=True)):
+        res["linears_l"] = mesh_linears_sp(cfg, run, dev, tp)
+    _free(dev)
+    res["train_l"] = _mesh_train(cfg, run, dev, tp, 1, mesh,
+                                 f"{out}.grads_l", sp=True)
+    _free(dev)
     with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
         o, aux, routes = mesh_moe_block(run, dev)
     if dist.get_rank() == 0:
         torch.save({"out": o.cpu(), "aux": float(aux), "routes": routes},
                    f"{out}.moe")
+    del o
+    # (n): the block under the experts override, each rank its experts
+    with shardlib.use_rules(mesh, t_train.rules_for(mesh, experts=True)):
+        shardlib.reset_collective_counts()
+        o, aux, routes = mesh_moe_block(run, dev)
+        res["moe_experts_collectives"] = shardlib.collective_counts(
+            by_axis=True)
+    if dist.get_rank() == 0:
+        torch.save({"out": o.cpu(), "aux": float(aux), "routes": routes},
+                   f"{out}.moe_experts")
     del o
     _free(dev)
     if dev.type == "cuda":
@@ -8406,7 +8535,14 @@ def _mesh_job_tp2(dev, run, out) -> dict:
         res["train_" + case] = _mesh_train(cfg, run, dev, tp, 1, mesh,
                                            f"{out}.grads_{case}")
         _free(dev)
-    # (i): the served forward under the mesh
+    # (m): (f)'s config, one step under --pure-dp over the two ranks
+    cfg = mesh_config(run, case="f")
+    with shardlib.use_rules(mesh, t_train.rules_for(mesh, pure_dp=True)):
+        res["linears_m"] = mesh_linears(cfg, run, dev, tp, "pure_dp")
+    res["train_m"] = _mesh_train(cfg, run, dev, tp, 1, mesh,
+                                 f"{out}.grads_m", zero3="pure_dp")
+    _free(dev)
+    # (i), (n), (o): the served forward under the mesh
     with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
         res["serve"] = {arch: mesh_serve(arch, layers, run, dev,
                                          f"{out}.serve_{arch}")
@@ -8449,14 +8585,16 @@ def _decode_cache(lm, cache, B: int, P: int, max_seq: int):
 
 def mesh_serve(arch: str, layers: int, run: dict, dev, out=None) -> dict:
     """(i) One prefill of (a)'s batch and ``serve_steps`` decode steps of
-    ``arch`` at ``layers``, divider-only, from seed 0: unbound, the tokens
-    fed are the run's own greedy picks; bound (a rank), this rank's
-    parameters, the tokens the unsplit run fed (read from ``run``'s
-    ``serve_ref``), the logits gathered over the vocabulary. Returns the
-    logits (on the host), the tokens and the launches of the prefill and
-    of the steps."""
+    ``arch`` at ``layers``, divider-only, from seed 0, then (o)
+    ``row_steps`` more with per-row positions (row b at ``b`` slots past
+    the step's; a cache deep enough for the last row's): unbound, the
+    tokens fed are the run's own greedy picks; bound (a rank), this
+    rank's parameters, the tokens the unsplit run fed (read from
+    ``run``'s ``serve_ref``), the logits gathered over the vocabulary.
+    Returns the logits (on the host), the tokens, the launches of the
+    prefill and of the steps, each step's collectives and, for an MoE
+    config, every dispatch's routes (:class:`_RecordedRoutes`)."""
     import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import sharding as shardlib
     from repro_torch.launch import train as t_train
     from repro_torch.models import build
@@ -8467,7 +8605,7 @@ def mesh_serve(arch: str, layers: int, run: dict, dev, out=None) -> dict:
     shardings = None if mesh is None else \
         t_train.placement(cfg, mesh)[0]["params"]
     params = lm.init(SEED, shardings)
-    B, P, n = run["batch"], run["seq"], run["serve_steps"]
+    B, P = run["batch"], run["seq"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 500)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=dev)
@@ -8481,46 +8619,77 @@ def mesh_serve(arch: str, layers: int, run: dict, dev, out=None) -> dict:
             lg = shardlib.all_gather(lg.contiguous(), "vocab", -1)
         return lg.float().cpu()
 
+    routes = _RecordedRoutes() if cfg.n_experts else \
+        contextlib.nullcontext()
+    with routes:
+        res = _mesh_serve_steps(lm, params, prompts, fed, whole, run, dev)
+    if cfg.n_experts:
+        res["routes"] = [(g.cpu(), k.cpu()) for g, k in routes.calls]
+    if out is not None and shardlib.rank_in("heads") == 0:
+        torch.save({"prefill": res["prefill"], "steps": res["steps"],
+                    "routes": res.get("routes")}, out)
+    return res
+
+
+def _mesh_serve_steps(lm, params, prompts, fed, whole, run, dev) -> dict:
+    """:func:`mesh_serve`'s prefill and decode steps."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding as shardlib
+
+    B, P, n = run["batch"], run["seq"], run["serve_steps"]
     reset_launch_counts()
     logits, cache = lm.prefill(params, {"tokens": prompts})
     res = {"prefill": whole(logits), "steps": [], "tokens": []}
     res["prefill_launches"] = {k: v for k, v in launch_counts().items()
                                if v}
-    cache = _decode_cache(lm, cache, B, P, P + n)
+    m = run["row_steps"]
+    max_seq = P + n + m + B          # the deepest row's last slot inside
+    cache = _decode_cache(lm, cache, B, P, max_seq)
     tok = res["prefill"].argmax(-1) if fed is None else fed[0]
     reset_launch_counts()
-    for i in range(n):
+    res["collectives"] = []
+    for i in range(n + m):
         res["tokens"].append(tok)
-        lg, cache = lm.decode_step(params, cache, tok.to(dev), P + i,
-                                   max_seq=P + n)
+        # (o): per-row positions, row b at b slots past the step's
+        pos = P + i if i < n else \
+            P + i + torch.arange(B, device=dev, dtype=torch.int64)
+        shardlib.reset_collective_counts()
+        lg, cache = lm.decode_step(params, cache, tok.to(dev), pos,
+                                   max_seq=max_seq)
+        res["collectives"].append(shardlib.collective_counts(by_axis=True))
         res["steps"].append(whole(lg))
-        if i + 1 < n:
+        if i + 1 < n + m:
             tok = res["steps"][-1].argmax(-1) if fed is None else fed[i + 1]
     res["step_launches"] = {k: v for k, v in launch_counts().items() if v}
-    if out is not None and shardlib.rank_in("heads") == 0:
-        torch.save({"prefill": res["prefill"], "steps": res["steps"]}, out)
     return res
 
 
 def mesh_dryrun_witness(run_path: str, out_path: str, archs=(),
                         cells_dir: str | None = None) -> None:
-    """(j), in a subprocess: cells (a), (b) and (f)-(h) traced by the dry
-    run (``launch/dryrun.py``) as rank 0 of their meshes, under the fake
-    process group at world 2 / 3 — their configs, batch and depth, no
-    ZeRO-1, as ``launch.train`` runs them —; written as JSON. Then (k)'s
+    """(j), in a subprocess: cells (a), (b), (f)-(h), (l) and (m) traced
+    by the dry run (``launch/dryrun.py``) as rank 0 of their meshes,
+    under the fake process group at world 2 / 3 / 4 — their configs,
+    batch, depth and options, no ZeRO-1, as ``launch.train`` runs them
+    —; written as JSON. Then (k)'s
     ``train_4k`` single-pod cells of ``archs``, one after the other, into
     ``cells_dir`` (the CLI's records)."""
     from repro_torch.launch import dryrun
 
     run = json.loads(Path(run_path).read_text())
-    cells = {"a": (mesh_config(run), run["tp"]),
-             "b": (mesh_config(run, three=True), 3)}
-    cells.update({c: (mesh_config(run, case=c), run["tp"])
+    tp = run["tp"]
+    cells = {"a": (mesh_config(run), (1, tp), {}),
+             "b": (mesh_config(run, three=True), (1, 3), {}),
+             "l": (mesh_config(run), (1, tp), {"sp": True}),
+             "m": (mesh_config(run, case="f"), (1, tp),
+                   {"zero3": "pure_dp"}),
+             "m4": (mesh_config(run, case="f"), (2, 2), {"zero3": "fsdp"})}
+    cells.update({c: (mesh_config(run, case=c), (1, tp), {})
                   for c in run["cases"]})
     out = {}
-    for tag, (cfg, tp) in cells.items():
-        out[tag] = dryrun.trace_cell(cfg, mesh_shape(run), (1, tp),
-                                     ("data", "model"), zero1=False)
+    for tag, (cfg, shape, kw) in cells.items():
+        out[tag] = dryrun.trace_cell(cfg, mesh_shape(run), shape,
+                                     ("data", "model"), zero1=False, **kw)
     Path(out_path).write_text(json.dumps(out))
     for arch in archs:
         res = dryrun.run_cell(arch, "train_4k", False, out_dir=cells_dir)
@@ -8625,7 +8794,24 @@ def _mesh_job_tp3(dev, run, out) -> dict:
     return res
 
 
-_MESH_JOBS = {"tp2": _mesh_job_tp2, "tp3": _mesh_job_tp3}
+def _mesh_job_dp4(dev, run, out) -> dict:
+    """(m) --fsdp: (f)'s config at data 2 x model 2, one step."""
+    from repro_torch.launch import sharding as shardlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import batch_axes_for
+
+    cfg = mesh_config(run, case="f")
+    mesh = make_host_mesh(model=2)
+    res = {"probe": gloo_probe(dev)}
+    with shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}):
+        res["linears"] = mesh_linears(cfg, run, dev, 2, "fsdp")
+    res["train"] = _mesh_train(cfg, run, dev, 2, 1, mesh, f"{out}.grads",
+                               zero3="fsdp")
+    return res
+
+
+_MESH_JOBS = {"tp2": _mesh_job_tp2, "tp3": _mesh_job_tp3,
+              "dp4": _mesh_job_dp4}
 
 
 def mesh_compress(run, dev) -> dict:
@@ -8673,8 +8859,9 @@ def _recorded_routes(calls: list):
 
 def mesh_moe_block(run, dev):
     """(c) mixtral-8x7b's MoE block at full width from seed 0: this rank's
-    slice of the experts' hidden dim (all of it unbound), x (4, 512, 4096)
-    bf16. Returns (out, aux, routes)."""
+    slice of the experts' hidden dim (all of it unbound; (n) under the
+    experts override, its experts whole), x (4, 512, 4096) bf16. Returns
+    (out, aux, routes)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as shardlib
@@ -8693,6 +8880,14 @@ def mesh_moe_block(run, dev):
              "w1": p["w1"][..., r * f:(r + 1) * f].contiguous(),
              "w3": p["w3"][..., r * f:(r + 1) * f].contiguous(),
              "w2": p["w2"][:, r * f:(r + 1) * f].contiguous()}
+    n_e, r_e = shardlib.logical_axis_size("experts"), \
+        shardlib.rank_in("experts")
+    if n_e > 1:
+        # the experts override: this rank's experts, whole
+        e = cfg.n_experts // n_e
+        p = {"router": p["router"],
+             **{k: p[k][r_e * e:(r_e + 1) * e].contiguous()
+                for k in ("w1", "w3", "w2")}}
     routes = []
     with torch.no_grad(), _recorded_routes(routes):
         out, aux = moe_ffn(x, p, top_k=cfg.n_experts_active,
@@ -8746,10 +8941,16 @@ def _join_mesh(ctx, d: Path, world: int, what: str) -> list:
     return res
 
 
-def _grad_gate(what, loss, grads, loss0, grads0, wit_loss, witnesses):
+def _grad_gate(what, loss, grads, loss0, grads0, wit_loss, witnesses,
+               data_order: bool = False):
     """The loss within twice the lse witness's distance from the unsplit
     run, and every gradient leaf within twice the larger of the
-    witnesses' distances (a leaf both leave equal must be equal)."""
+    witnesses' distances (a leaf both leave equal must be equal).
+    ``data_order``: the batch is split over data ranks, whose partial
+    sums (the loss's, every gradient's) add in another order: the loss
+    may also move by MESH_DATA_LOSS_RTOL of itself and a leaf by
+    MESH_DATA_GRAD_ULP of its largest magnitude, the CPU tests'
+    tolerances (``tests/test_torch_mesh_cases.py``)."""
     from repro_torch.core.tree import tree_leaves
 
     rows, worst = [], 0.0
@@ -8763,10 +8964,16 @@ def _grad_gate(what, loss, grads, loss0, grads0, wit_loss, witnesses):
         w_err = [float((w.float() - g0.float()).abs().max()) for w in ws]
         rows.append((err, *w_err))
         top = max(w_err)
+        if data_order:
+            top = max(top, MESH_DATA_GRAD_ULP / 2
+                      * float(g0.float().abs().max()))
         worst = max(worst, err / top if top else (0.0 if err == 0
                                                   else math.inf))
     loss_err, w_loss = abs(loss - loss0), abs(wit_loss - loss0)
-    require(loss_err <= 2 * w_loss, f"{what}: loss {loss!r} vs {loss0!r}, "
+    loss_tol = 2 * w_loss
+    if data_order:
+        loss_tol = max(loss_tol, MESH_DATA_LOSS_RTOL * abs(loss0))
+    require(loss_err <= loss_tol, f"{what}: loss {loss!r} vs {loss0!r}, "
             f"witness {wit_loss!r}")
     require(worst <= 2.0, f"{what}: a gradient leaf past twice its "
             f"witness ({worst:.3g}x): (err, lse witness, order witness) "
@@ -8856,8 +9063,13 @@ def mesh_kernel_rows(dev, int_rate) -> list:
     w2), (g)'s rwkv6-1.6b (the column-parallel r / k / v / g, cm_wk,
     cm_wr and cm_wv, the row-parallel wo) and (h)'s zamba2-2.7b Mamba2
     layer (the column-parallel wz / wx and wdt, the row-parallel
-    out_proj): the default block's time by graph replay, the operations
-    bound, and the exact bf16 ``torch.matmul`` of the same shape."""
+    out_proj); under ``--sp`` (l) the column-parallel products run on the
+    gathered sequence and the row-parallel ones before their
+    reduce-scatter, (a)'s shapes; (m)'s smollm-360m under ``--pure-dp``
+    (this rank's 2 x 512 rows, every weight whole) and ``--fsdp`` (the
+    same rows, tp 2's columns and rows): the default block's time by
+    graph replay, the operations bound, and the exact bf16
+    ``torch.matmul`` of the same shape."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
     from repro_torch.kernels import logmatmul as lm
@@ -8870,11 +9082,14 @@ def mesh_kernel_rows(dev, int_rate) -> list:
     RD, RF = rw.d_model, rw.d_ff
     ZD, ZI = zb.d_model, 2 * zb.d_model
     ZH = ZI // zb.ssm_head_dim
-    M = MESH_BATCH * MESH_SEQ
+    sm = mesh_config(MESH_RUN, case="f")
+    SD, SF = sm.d_model, sm.d_ff
+    SQ, SK = sm.n_heads * sm.d_head, sm.n_kv_heads * sm.d_head
+    half = MESH_BATCH * MESH_SEQ // 2
     spec = SimdiveSpec(width=8, coeff_bits=6)
     gen = torch.Generator(device=dev).manual_seed(SEED + 400)
     rows = []
-    for names, K, N in (
+    for names, K, N, *m in (
             (("wq", "wk", "wv"), D, HD), (("w1", "w3"), D, F),
             (("wo",), HD, D), (("w2",), F, D),
             (("rwkv6 wr", "wk", "wv", "wg", "cm_wr"), RD, RD // MESH_TP),
@@ -8883,7 +9098,17 @@ def mesh_kernel_rows(dev, int_rate) -> list:
             (("rwkv6 wo",), RD // MESH_TP, RD),
             (("zamba2 wz", "wx"), ZD, ZI // MESH_TP),
             (("zamba2 wdt",), ZD, ZH // MESH_TP),
-            (("zamba2 out_proj",), ZI // MESH_TP, ZD)):
+            (("zamba2 out_proj",), ZI // MESH_TP, ZD),
+            (("pure-dp smollm wq", "wo"), SD, SQ, half),
+            (("pure-dp smollm wk", "wv"), SD, SK, half),
+            (("pure-dp smollm w1", "w3"), SD, SF, half),
+            (("pure-dp smollm w2",), SF, SD, half),
+            (("fsdp smollm wq",), SD, SQ // 2, half),
+            (("fsdp smollm wk", "wv"), SD, SK // 2, half),
+            (("fsdp smollm wo",), SQ // 2, SD, half),
+            (("fsdp smollm w1", "w3"), SD, SF // 2, half),
+            (("fsdp smollm w2",), SF // 2, SD, half)):
+        M = m[0] if m else MESH_BATCH * MESH_SEQ
         x = torch.randint(-255, 256, (M, K), generator=gen, device=dev,
                           dtype=torch.int32)
         w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
@@ -8967,26 +9192,37 @@ def mesh_phase(dev, int_rate, run=None) -> dict:
                     f"({case}) {cfg.name} {cfg.n_layers} layers", ranks,
                     cases0[case], d, tag="_" + case,
                     attention=cfg.family != "ssm")
+            out["l"] = mesh_judge("(l) --sp", ranks, unsplit, d, tag="_l")
+            out["m"] = mesh_judge("(m) --pure-dp", ranks, cases0["f"], d,
+                                  tag="_m", data_order=True)
+            out["n"] = mesh_judge_experts(ranks, d, moe_out0)
             out["i"] = mesh_judge_serve(ranks, serve0, d, run)
             out["a_s"] = wall_clock() - t0
-            del unsplit, moe_out0, cases0, serve0
+            del unsplit, moe_out0, serve0
             _free(dev)
-            # (b): three ranks
+            # (b): three ranks, and (m)'s --fsdp over four beside them
             t0 = wall_clock()
             unsplit3 = _unsplit_runs(mesh_config(run, three=True), run, dev,
                                      1)
             _free(dev)
             ctx, d = _spawn_mesh("tp3", 3, run, tmp, dev)
+            ctx4, d4 = _spawn_mesh("dp4", MESH_FSDP_WORLD, run, tmp, dev)
             ranks3 = _join_mesh(ctx, d, 3, "(b) tp 3")
+            ranks4 = _join_mesh(ctx4, d4, MESH_FSDP_WORLD, "(m) --fsdp")
             out["b"] = mesh_judge("(b)", ranks3, unsplit3, d)
+            out["m4"] = mesh_judge("(m) --fsdp", ranks4, cases0["f"], d4,
+                                   data_order=True)
             out["b_s"] = wall_clock() - t0
-            del unsplit3
+            del unsplit3, cases0
             _free(dev)
             # (j), (k): the dry run against what the ranks measured
             t0 = wall_clock()
             dry = join_dryruns(dry)
             trains = {"a": [r["train"] for r in ranks],
-                      "b": [r["train"] for r in ranks3]}
+                      "b": [r["train"] for r in ranks3],
+                      "l": [r["train_l"] for r in ranks],
+                      "m": [r["train_m"] for r in ranks],
+                      "m4": [r["train"] for r in ranks4]}
             trains.update({c: [r["train_" + c] for r in ranks]
                            for c in run["cases"]})
             out["j"] = mesh_judge_dryrun(dry["witness"], trains)
@@ -9034,11 +9270,34 @@ def mesh_judge_moe(d: Path, out0, aux0, routes0) -> dict:
     return res
 
 
+def mesh_judge_experts(ranks, d: Path, out0) -> dict:
+    """(n)'s gate on the MoE block: under the experts override (each rank
+    its experts whole, the slot-space outputs gathered before the
+    combine) the output ``torch.equal`` to the unsplit block's, with one
+    ``all_gather`` over the model ranks on every rank."""
+    import torch
+
+    got = torch.load(d / "out.moe_experts", weights_only=False)
+    eq = torch_equal(got["out"], out0)
+    err = float((got["out"].float() - out0.float()).abs().max())
+    colls = [r["moe_experts_collectives"] for r in ranks]
+    res = {"equal": eq, "max_abs_err": err, "collectives": colls[0]}
+    log(f"  (n) the MoE block under the experts override over 2 ranks: "
+        f"torch.equal to the unsplit block {eq} (max |err| {err:.3g}); "
+        f"collectives {colls}")
+    require(eq, f"(n) the experts override's output differs from the "
+            f"unsplit block's by {err:.3g}")
+    require(all(c.get("all_gather@model", [0])[0] == 1 for c in colls),
+            f"(n) collectives {colls}")
+    return res
+
+
 def mesh_judge(what, ranks, unsplit, d: Path, tag: str = "",
-               attention: bool = True) -> dict:
+               attention: bool = True, data_order: bool = False) -> dict:
     """(a), (b), (f)-(h)'s gates over the ranks' results (``tag`` names
     the case's keys) and the unsplit runs; ``attention``: the model has a
-    softmax, whose finalize launches ``elemwise``."""
+    softmax, whose finalize launches ``elemwise``; ``data_order``: the
+    batch is split over data ranks (:func:`_grad_gate`)."""
     import torch
 
     for r in ranks:
@@ -9054,14 +9313,17 @@ def mesh_judge(what, ranks, unsplit, d: Path, tag: str = "",
     w_loss, w_grads = unsplit["witness_first"]
     gate = _grad_gate(f"{what} first step", gathered["loss"],
                       gathered["grads"], loss0, grads0, w_loss,
-                      (w_grads, unsplit["order_first"][1]))
+                      (w_grads, unsplit["order_first"][1]), data_order)
     trains = [r["train" + tag] for r in ranks]
     require(all(t["losses"] == trains[0]["losses"] for t in trains),
             f"{what} the ranks' losses differ")
     for i, (l, l0, lw) in enumerate(zip(trains[0]["losses"],
                                         unsplit["losses"],
                                         unsplit["witness_losses"])):
-        require(abs(l - l0) <= 2 * abs(lw - l0),
+        tol = 2 * abs(lw - l0)
+        if data_order:
+            tol = max(tol, MESH_DATA_LOSS_RTOL * abs(l0))
+        require(abs(l - l0) <= tol,
                 f"{what} step {i}: loss {l!r} vs {l0!r} (witness {lw!r})")
     per_rank = [t["launches_a_step"] for t in trains]
     for r, counts in enumerate(per_rank):
@@ -9114,11 +9376,32 @@ def mesh_judge_serve(ranks, serve0, d: Path, run: dict) -> dict:
         errs = [float((g - w).abs().max()) for g, w in
                 zip([got["prefill"], *got["steps"]],
                     [ref["prefill"], *ref["steps"]])]
-        require(max(errs) <= tol, f"(i) {arch}: gathered logits {errs} "
-                f"past {tol:g} of the unsplit run's")
         cfg = mesh_serve_config(arch, layers, run)
+        routed = None
+        if cfg.n_experts:
+            # (n): a route that flips between the split and the unsplit
+            # run (a near tie in the router) moves its row's logits past
+            # any ulp bound: phase 11's routing-aware gate
+            got_all = torch.stack([got["prefill"], *got["steps"]])
+            routed = judge_routed_logits(
+                f"(n) {arch} at tp {run['tp']}", layers, got["routes"],
+                ref["routes"], got_all.transpose(0, 1),
+                got_all.argmax(-1).transpose(0, 1),
+                ref_all.transpose(0, 1), tol, against="the unsplit run")
+        else:
+            require(max(errs) <= tol, f"(i) {arch}: gathered logits "
+                    f"{errs} past {tol:g} of the unsplit run's")
         by_heads = cfg.n_kv_heads % run["tp"] == 0
-        steps = run["serve_steps"]
+        steps = run["serve_steps"] + run["row_steps"]
+        if cfg.n_experts:
+            # each layer's MoE sums its split experts, beside wo's sum and
+            # the vocabulary-parallel embedding's
+            for r, rank in enumerate(ranks):
+                sums = [c.get("all_reduce@model", [0])[0]
+                        for c in rank["serve"][arch]["collectives"]]
+                require(sums == [2 * layers + 1] * steps,
+                        f"(n) {arch} rank {r}: all_reduce calls a step "
+                        f"{sums}")
         for r, rank in enumerate(ranks):
             pre = rank["serve"][arch]["prefill_launches"]
             step = rank["serve"][arch]["step_launches"]
@@ -9134,12 +9417,15 @@ def mesh_judge_serve(ranks, serve0, d: Path, run: dict) -> dict:
                         f"(i) {arch} rank {r}: step launches {step}")
         out[arch] = {"logit_errs": errs, "tol": tol, "top": top,
                      "cache": "kv heads" if by_heads else "sequence",
+                     "step_collectives": ranks[0]["serve"][arch][
+                         "collectives"][0], "routed": routed,
                      "launches_by_rank": [
                          {"prefill": rank["serve"][arch]["prefill_launches"],
                           "steps": rank["serve"][arch]["step_launches"]}
                          for rank in ranks]}
         log(f"  (i) {arch} {layers} layers at tp {run['tp']}: prefill and "
-            f"{steps} steps within {max(errs):.4g} of the unsplit logits "
+            f"{run['serve_steps']} steps and (o) {run['row_steps']} with "
+            f"per-row positions within {max(errs):.4g} of the unsplit logits "
             f"(bound {tol:g}); cache split by {out[arch]['cache']}; "
             f"launches {out[arch]['launches_by_rank'][0]}")
     return out
@@ -9177,7 +9463,7 @@ def mesh_judge_dryrun(witness: dict, trains: dict) -> dict:
         require(abs(dry - peak) <= MESH_PEAK_TOL * peak,
                 f"(j) (a)'s dry-run peak {dry / 1e9:.3f} GB against rank "
                 f"0's {peak / 1e9:.3f} GB")
-    log(f"  (j) the dry run at world 2 / 3: collectives and state bytes "
+    log(f"  (j) the dry run at world 2 / 3 / 4: collectives and state bytes "
         f"== the ranks' for cells {sorted(witness)}; (a)'s peak "
         f"{witness['a']['per_device']['peak_bytes'] / 1e9:.3f} GB traced, "
         f"{(peak or 0) / 1e9:.3f} GB measured")
@@ -9571,8 +9857,10 @@ def main(argv=None) -> int:
     dense = dense_family_phase(dev, int_rate)
 
     starts[11] = wall_clock() - t_start
-    log("[11/19] the MoE family at full width: (a) mixtral-8x7b (4 of 32 "
-        "layers), (b) llama4-scout-17b-a16e (2 of 48 layers), (c) "
+    log("[11/19] the MoE family at full width: (a) mixtral-8x7b "
+        f"({SERVED_LAYERS['mixtral-8x7b']} of 32 layers), (b) "
+        "llama4-scout-17b-a16e "
+        f"({SERVED_LAYERS['llama4-scout-17b-a16e']} of 48 layers), (c) "
         "llama4-scout --emulate")
     moe = moe_family_phase(dev)
 
@@ -9593,10 +9881,12 @@ def main(argv=None) -> int:
     rwkv6 = rwkv6_phase(dev, int_rate)
 
     starts[14] = wall_clock() - t_start
+    n_zamba2 = SERVED_LAYERS["zamba2-2.7b"]
     log("[14/19] zamba2-2.7b at full width: (k) the attention "
         "kernels at d_head 80 and logmatmul at its linears, (a) --approx "
-        "simdive (18 of 54 Mamba2 layers, the shared block 2 times with "
-        "its LoRA merged each call), (c) --emulate")
+        f"simdive ({n_zamba2} of 54 Mamba2 layers, the shared block "
+        f"{n_zamba2 // 9} time(s) with its LoRA merged each call), (c) "
+        "--emulate")
     zamba2 = zamba2_phase(dev, int_rate)
 
     starts[15] = wall_clock() - t_start
@@ -9859,7 +10149,7 @@ def main(argv=None) -> int:
     # (f)-(h) and in (i)'s prefills and steps, each zeroed just before and
     # read just after, added over the ranks; logmatmul at (a)'s, rwkv6's
     # and zamba2's shard shapes
-    mesh_counts = [c for part in ("a", "b", *MESH_CASES)
+    mesh_counts = [c for part in ("a", "b", *MESH_CASES, "l", "m", "m4")
                    for c in mesh[part]["launches_by_rank"]]
     mesh_counts += [c for arch, _ in MESH_SERVE
                     for row in mesh["i"][arch]["launches_by_rank"]

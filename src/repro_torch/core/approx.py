@@ -394,14 +394,16 @@ def _matmul_active(cfg: ApproxConfig) -> bool:
 
 
 def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig, x_over=(), w_over=(),
-                            k_sum=None):
+                            k_sum=None, scatter=False):
     """The emulated product ``x @ w``: ``x`` one global scale, ``w`` one
     scale a column, ``matmul_emul``, rescale. On a mesh, ``x_over`` /
     ``w_over`` name the logical axes whose ranks hold the rest of ``x`` /
     of ``w``'s columns (their scales are the whole tensor's), and
     ``k_sum`` the axis over which K is split: its ranks' int64 partial
     sums are added (``all_reduce``) before the one rescale, so the result
-    is the unsplit product's bit for bit."""
+    is the unsplit product's bit for bit. ``scatter`` (sequence
+    parallelism, ``x`` (B,S,K)): the partial sums are reduce-scattered
+    over dim 1 instead, the result this rank's rows of the sequence."""
     if not _matmul_active(cfg):
         dt = torch.promote_types(x.dtype, w.dtype)
         return x.to(dt) @ w.to(dt)
@@ -413,9 +415,13 @@ def _approx_matmul_fwd_impl(x, w, cfg: ApproxConfig, x_over=(), w_over=(),
     mm = get_op("matmul_emul", spec, backend=backend, guard=cfg.guard)
     acc = mm(qx, sx, qw, sw, k_chunk=cfg.k_chunk)
     if k_sum is not None:
-        from repro_torch.launch.sharding import all_reduce
+        from repro_torch.launch.sharding import all_reduce, reduce_scatter
 
-        acc = all_reduce(acc, k_sum)
+        if scatter:
+            acc = reduce_scatter(acc.view(*lead, acc.shape[-1]), k_sum, 1)
+            lead = acc.shape[:-1]
+        else:
+            acc = all_reduce(acc, k_sum)
     out = acc.to(torch.float32) * (scx * scw)
     return out.reshape(*lead, w.shape[1]).to(x.dtype)
 
@@ -438,6 +444,19 @@ def _split_plan(split, a):
     return {"fwd": (b, (), None), "gx": (b, (), None), "gw": (b, b, None)}
 
 
+def _seq_whole(x, axis: str, seq: bool, full=None):
+    """Sequence parallelism's whole-sequence operand: ``full`` where the
+    caller gathered it, else ``x`` (B,S_loc,...) gathered over ``axis``'s
+    ranks along dim 1 (counted, no gradient); ``x`` without ``seq``."""
+    if not seq:
+        return x
+    if full is not None:
+        return full
+    from repro_torch.launch.sharding import _gather
+
+    return _gather(x, axis, 1)
+
+
 class _ApproxMatmul(torch.autograd.Function):
     """SIMDive forward; straight-through exact backward, or with
     ``backward='approx'`` both gradient products on the SIMDive matmul (the
@@ -445,45 +464,64 @@ class _ApproxMatmul(torch.autograd.Function):
     ``_approx_matmul_bwd``). ``split`` / ``axis``: the weight's split on a
     mesh (:func:`_split_plan`); a column-parallel linear's input gradient
     is summed over ``axis`` here (integer partial sums under
-    ``backward='approx'``), so no region function sums it again."""
+    ``backward='approx'``), so no region function sums it again.
+
+    ``seq`` (sequence parallelism; ``x`` (B,S,K), the model ranks of
+    ``axis`` holding the sequence's slices): a column-parallel linear
+    takes the whole sequence (``full``, or gathered here) and
+    reduce-scatters its input gradient's partial sums to this rank's
+    rows; a row-parallel one reduce-scatters its output's partial sums
+    and gathers its output gradient. Integer partial sums are
+    reduce-scattered before the one rescale, so each product stays the
+    unsplit one's rows bit for bit."""
 
     @staticmethod
-    def forward(ctx, x, w, cfg, split, axis):
+    def forward(ctx, x, w, cfg, split, axis, seq=False, full=None):
         ctx.cfg, ctx.plan = cfg, _split_plan(split, axis)
         ctx.split, ctx.axis = split, axis
+        ctx.seq = seq and split in ("col", "row")
+        if ctx.seq and split == "col":
+            x = _seq_whole(x, axis, True, full)
         ctx.save_for_backward(x, w)
-        return _approx_matmul_fwd_impl(x, w, cfg, *ctx.plan["fwd"])
+        return _approx_matmul_fwd_impl(x, w, cfg, *ctx.plan["fwd"],
+                                       scatter=ctx.seq and split == "row")
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         cfg, plan = ctx.cfg, ctx.plan
+        col_seq = ctx.seq and ctx.split == "col"
+        if ctx.seq and ctx.split == "row":
+            g = _seq_whole(g.contiguous(), ctx.axis, True)
         if cfg.backward == "approx" and _matmul_active(cfg):
             # both products through the forward's own quantize + matmul_emul
             # dispatch, in float32: gx = g @ w^T (g one global scale, w^T
             # per column), gw = x^T @ g (x^T one global scale, g per column)
             gf = g.to(torch.float32)
             gx = _approx_matmul_fwd_impl(gf, w.to(torch.float32).T, cfg,
-                                         *plan["gx"])
+                                         *plan["gx"], scatter=col_seq)
             x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
             gw = _approx_matmul_fwd_impl(x2.T, gf.reshape(-1, gf.shape[-1]),
                                          cfg, *plan["gw"])
-            return gx.to(x.dtype), gw.to(w.dtype), None, None, None
+            return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None, \
+                None
         dt = torch.promote_types(g.dtype, w.dtype)
         gx = torch.einsum("...n,kn->...k", g.to(dt), w.to(dt))
         if ctx.split == "col":
-            from repro_torch.launch.sharding import all_reduce
+            from repro_torch.launch.sharding import all_reduce, reduce_scatter
 
-            gx = all_reduce(gx.contiguous(), ctx.axis)
+            gx = reduce_scatter(gx, ctx.axis, 1) if col_seq \
+                else all_reduce(gx.contiguous(), ctx.axis)
         gx = gx.to(x.dtype)
         dt = torch.promote_types(x.dtype, g.dtype)
         gw = torch.einsum("...k,...n->kn", x.to(dt), g.to(dt)).to(w.dtype)
-        return gx, gw, None, None, None
+        return gx, gw, None, None, None, None, None
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
                   cfg: ApproxConfig, split: str | None = None,
-                  axis: str = "ff") -> torch.Tensor:
+                  axis: str = "ff", seq: bool = False,
+                  full: torch.Tensor | None = None) -> torch.Tensor:
     """Float-in/out matmul with SIMDive products; exact grads (STE), or
     with ``cfg.backward == 'approx'`` SIMDive gradient products.
 
@@ -501,9 +539,11 @@ def approx_matmul(x: torch.Tensor, w: torch.Tensor,
     too). Every scale is then the whole tensor's (``all_reduce`` MAX) and
     K-split integer sums are added before the rescale, so the forward and,
     over the split axis, both gradient products equal the unsplit
-    linear's bit for bit.
+    linear's bit for bit. ``seq`` / ``full``: sequence parallelism
+    (:class:`_ApproxMatmul`), ``x`` this rank's slice of the sequence
+    (``full`` the whole, gathered by the caller for several linears).
     """
-    return _ApproxMatmul.apply(x, w, cfg, split, axis)
+    return _ApproxMatmul.apply(x, w, cfg, split, axis, seq, full)
 
 
 def approx_matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

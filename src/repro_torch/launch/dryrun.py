@@ -52,9 +52,15 @@ Left out on purpose (ROADMAP): the reference's HLO parsers
 extrapolation exists because XLA costs a scan body once, where the
 port's eager trace runs every layer. ``approx`` is honoured (the
 reference accepts it and never reads it, ROADMAP R-12): ``None`` runs
-the config's own mode (exact for every FULL config). Sequence
-parallelism (``--sp``), ``--pure-dp`` and ``--fsdp`` raise
-``NotImplementedError`` (ROADMAP A-10e).
+the config's own mode (exact for every FULL config). The mesh's options
+are the reference's: ``--sp`` binds ``"seq"`` to the model axis (a
+train or prefill cell's residual stream split along the sequence; a
+decode step's one token stays whole, where the reference's GSPMD pads
+it); ``--fsdp`` places a train cell's parameters by ``opt_specs`` over
+the data axes (ZeRO-3; another cell's as without it, as the
+reference's); ``--pure-dp`` places every cell's by ``fsdp_specs`` over
+both axes, the batch (and a decode cache) over both, no tensor
+parallelism (``launch.train.rules_for``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun          # all cells
@@ -540,19 +546,24 @@ def _leaves(tree):
 
 
 def _arguments(cfg, shape, mesh, *, zero1: bool, microbatch: int,
-               quantized: bool, serve_f32: bool, pos: int | None):
+               quantized: bool, serve_f32: bool, pos: int | None,
+               zero3: str | None = None):
     """``(args, run)``: the ``meta`` tensors this rank holds going into the
     cell (rules bound) — parameters; moments and step; the batch rows;
     the decode cache and tokens — and the call that runs the cell on
-    them."""
+    them. ``zero3``: ``"fsdp"`` (a train cell's parameters) or
+    ``"pure_dp"`` (every cell's), ``launch.train.placement``'s; the batch,
+    the tokens and the cache follow the bound ``"batch"`` rule."""
     from repro_torch.core.tree import tree_map
+    from repro_torch.launch import sharding as shardlib
     from repro_torch.launch import train as t_train
     from repro_torch.launch.sharding import P
     from repro_torch.launch.specs import (
         TensorShape,
-        batch_axes_for,
+        as_shardings,
         batch_specs,
         cache_specs,
+        fsdp_specs,
         param_shapes,
         param_specs,
         sanitize_specs,
@@ -561,6 +572,7 @@ def _arguments(cfg, shape, mesh, *, zero1: bool, microbatch: int,
     from repro_torch.optim import adamw
 
     serve = shape.kind in ("prefill", "decode")
+    b = shardlib.logical_spec("batch")[0]      # the rules' batch axes
     shapes = param_shapes(cfg)
     if serve and not serve_f32:
         # serving carries bf16 weights, as the reference's dry run
@@ -569,14 +581,26 @@ def _arguments(cfg, shape, mesh, *, zero1: bool, microbatch: int,
             else t.dtype, device="meta"), shapes)
     if serve and quantized:
         shapes = _quantized_shapes(shapes)
-    pspecs = sanitize_specs(param_specs(shapes), shapes, mesh)
+    if shape.kind == "train":
+        shardings, split = t_train.placement(cfg, mesh, zero1=zero1,
+                                             zero3=zero3)
+        pspecs = _unflat({k: s.spec for k, s in
+                          _paths(shardings["params"])}, shapes)
+    elif zero3 == "pure_dp":
+        pspecs = sanitize_specs(fsdp_specs(shapes, tuple(
+            shardlib._bound_axes("batch")), mesh), shapes, mesh)
+    else:
+        pspecs = sanitize_specs(param_specs(shapes), shapes, mesh)
+    layout = None
+    if zero3 == "pure_dp" or (zero3 and shape.kind == "train"):
+        layout = t_train.zero3_layout(
+            {"params": as_shardings(mesh, pspecs)})
     lm = build(cfg, "meta")
     params = _local(shapes, pspecs, mesh, lambda t: t.dtype)
     bsds, bspec = batch_specs(cfg, shape, mesh)
-    bspec = sanitize_specs(bspec, bsds, mesh)
+    bspec = sanitize_specs({k: P(b) for k in bspec}, bsds, mesh)
     if shape.kind == "train":
         opt = adamw(3e-4)
-        shardings, split = t_train.placement(cfg, mesh, zero1=zero1)
         mom = _unflat({k: s.spec for k, s in _paths(shardings["opt"]["mu"])},
                       shapes)
         opt_state = {
@@ -586,24 +610,28 @@ def _arguments(cfg, shape, mesh, *, zero1: bool, microbatch: int,
         batch = _local(bsds, bspec, mesh, lambda t: t.dtype)
         step = t_train.make_train_step(
             lm, opt, microbatch=microbatch, split=split,
-            zero1=t_train.zero1_layout(shardings) if zero1 else None)
+            zero1=t_train.zero1_layout(shardings) if zero1 else None,
+            zero3=layout)
         return ([params, opt_state, batch],
                 lambda: step(params, opt_state, batch))
+    held = shardlib.data_split(params, layout)   # ZeRO-3: gathered at use
     if shape.kind == "prefill":
         batch = _local(bsds, bspec, mesh, lambda t: t.dtype)
-        return [params, batch], lambda: lm.prefill(params, batch)
+        return [params, batch], lambda: lm.prefill(held, batch)
     csds, cspec = cache_specs(cfg, shape, mesh)
+    if zero3 == "pure_dp":
+        # no tensor parallelism: each rank's rows of the whole cache
+        cspec = tree_map(lambda _: P(None, b), cspec)
     cache = _local(csds, sanitize_specs(cspec, csds, mesh), mesh,
                    lambda t: t.dtype)
-    b = tuple(batch_axes_for(mesh))
     tok = TensorShape((shape.global_batch, cfg.n_codebooks)
                       if cfg.n_codebooks else (shape.global_batch,),
                       torch.int32)
-    tokens = _local(tok, sanitize_specs(P(b if len(b) > 1 else b[0]), tok,
-                                        mesh), mesh, lambda t: t.dtype)
+    tokens = _local(tok, sanitize_specs(P(b), tok, mesh), mesh,
+                    lambda t: t.dtype)
     at = shape.seq_len - 1 if pos is None else pos
     return ([params, cache, tokens],
-            lambda: lm.decode_step(params, cache, tokens, at,
+            lambda: lm.decode_step(held, cache, tokens, at,
                                    max_seq=shape.seq_len))
 
 
@@ -613,27 +641,31 @@ _PARTS = {"train": ("params", "optimizer", "batch"),
           "decode": ("params", "cache", "tokens")}
 
 
-def _bound(mesh_shape, axes, rank: int):
-    """The fake world, the mesh and its rules for one cell (a context)."""
+def _bound(mesh_shape, axes, rank: int, sp: bool = False,
+           zero3: str | None = None):
+    """The fake world, the mesh and its rules for one cell (a context):
+    ``launch.train.rules_for``'s, with ``sp`` and ``zero3 == "pure_dp"``."""
     from repro_torch.launch import sharding as shardlib
     from repro_torch.launch.mesh import _make_mesh
-    from repro_torch.launch.specs import batch_axes_for
+    from repro_torch.launch.train import rules_for
 
     fake_world(math.prod(mesh_shape), rank)
     mesh = _make_mesh(tuple(mesh_shape), tuple(axes))
-    return mesh, shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)})
+    return mesh, shardlib.use_rules(mesh, rules_for(mesh, sp,
+                                                    zero3 == "pure_dp"))
 
 
 def argument_bytes(cfg, shape, mesh_shape: tuple, axes: tuple, *,
                    rank: int = 0, zero1: bool = True,
-                   quantized: bool = False, serve_f32: bool = False) -> int:
+                   quantized: bool = False, serve_f32: bool = False,
+                   sp: bool = False, zero3: str | None = None) -> int:
     """The bytes rank ``rank`` holds going into the cell (:func:`trace_cell`'s
     ``argument_bytes``), with nothing traced."""
-    mesh, rules = _bound(mesh_shape, axes, rank)
+    mesh, rules = _bound(mesh_shape, axes, rank, sp, zero3)
     with rules:
         args, _ = _arguments(cfg, shape, mesh, zero1=zero1, microbatch=1,
                              quantized=quantized, serve_f32=serve_f32,
-                             pos=None)
+                             pos=None, zero3=zero3)
     return _Meter().held(_leaves(args))
 
 
@@ -647,18 +679,21 @@ def _restore_env(name: str, value) -> None:
 def trace_cell(cfg, shape, mesh_shape: tuple, axes: tuple, *, rank: int = 0,
                zero1: bool = True, microbatch: int = 1,
                quantized: bool = False, serve_f32: bool = False,
-               pos: int | None = None) -> dict:
+               pos: int | None = None, sp: bool = False,
+               zero3: str | None = None) -> dict:
     """Run one cell as rank ``rank`` of a mesh of ``mesh_shape`` over
     ``axes`` under the fake process group, on ``meta`` tensors: ``cfg``'s
     train step (``shape.kind`` "train"; ZeRO-1 moments with ``zero1``),
     prefill or decode step (at ``pos``, the last slot by default) at
-    ``shape``. Returns the measured record (``per_device``, ``roofline``
-    and ``trace_seconds``; module docstring)."""
+    ``shape``; ``sp`` / ``zero3`` (``"fsdp"``, ``"pure_dp"``): the mesh's
+    options (module docstring). Returns the measured record
+    (``per_device``, ``roofline`` and ``trace_seconds``; module
+    docstring)."""
     from repro_torch.kernels.registry import dry_dispatch
     from repro_torch.launch import sharding as shardlib
     from repro_torch.metrics.timing import wall_clock
 
-    mesh, rules = _bound(mesh_shape, axes, rank)
+    mesh, rules = _bound(mesh_shape, axes, rank, sp, zero3)
     meter = _Meter()
     with ExitStack() as stack:
         stack.callback(_restore_env, "SIMDIVE_AUTOTUNE",
@@ -671,7 +706,7 @@ def trace_cell(cfg, shape, mesh_shape: tuple, axes: tuple, *, rank: int = 0,
         # (their specs read the whole model's shapes) and counted live
         args, run = _arguments(cfg, shape, mesh, zero1=zero1,
                                microbatch=microbatch, quantized=quantized,
-                               serve_f32=serve_f32, pos=pos)
+                               serve_f32=serve_f32, pos=pos, zero3=zero3)
         for t in _leaves(args):
             meter.track(t)
         arg_bytes = meter.held(_leaves(args))
@@ -740,7 +775,8 @@ def roofline(per: dict, mesh) -> dict:
     float32 flops at their peaks, INT32 operations at the INT32 rate),
     memory (bytes accessed over HBM) and collectives (a ring all-reduce
     moves ``2 (n-1) / n`` of its payload a rank, an all-gather ``(n-1) /
-    n`` of its result), and the largest of the three."""
+    n`` of its result, a reduce-scatter ``(n-1) / n`` of its input), and
+    the largest of the three."""
     from repro_torch.launch.sharding import axis_sizes
 
     fl = per["flops_by_dtype"]
@@ -764,16 +800,6 @@ def roofline(per: dict, mesh) -> dict:
     return out
 
 
-def _refuse(**flags) -> None:
-    """Raise for the placements of the next slice, named by their flag."""
-    for flag, on in flags.items():
-        if on:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: sequence parallelism, the "
-                "experts override and ZeRO-3 placements are the next slice "
-                "(ROADMAP A-10e)")
-
-
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                sp: bool = False, zero1: bool = True,
                approx: str | None = None,
@@ -784,11 +810,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     """The reference's ``lower_cell``, for the port: ``(cfg, shape,
     mesh_shape, axes, meta)``, what :func:`analyze` traces. ``approx``
     (``"exact"``, ``"mitchell"``, ``"simdive"``) sets the config's mode;
-    None keeps its own. ``sp`` / ``fsdp`` / ``pure_dp`` raise (A-10e)."""
+    None keeps its own. ``sp`` / ``fsdp`` / ``pure_dp``: the mesh's
+    options (module docstring)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core.approx import ApproxConfig
 
-    _refuse(sp=sp, fsdp=fsdp, pure_dp=pure_dp)
+    if fsdp and pure_dp:
+        raise ValueError("fsdp and pure_dp are two placements: take one")
     cfg = get_config(arch)
     if layers_override is not None:
         cfg = replace(cfg, n_layers=layers_override)
@@ -802,15 +830,18 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "sp": sp, "zero1": zero1, "approx": cfg.approx.mode,
         "microbatch": microbatch, "quantized": quantized,
-        "serve_f32": serve_f32}
+        "serve_f32": serve_f32, "fsdp": fsdp, "pure_dp": pure_dp}
 
 
 def analyze(cfg, shape, mesh_shape, axes, meta) -> dict:
+    zero3 = "pure_dp" if meta.get("pure_dp") else \
+        "fsdp" if meta.get("fsdp") and shape.kind == "train" else None
     res = trace_cell(cfg, shape, mesh_shape, axes,
                      zero1=meta["zero1"] and shape.kind == "train",
                      microbatch=meta["microbatch"],
                      quantized=meta["quantized"],
-                     serve_f32=meta["serve_f32"])
+                     serve_f32=meta["serve_f32"], sp=meta.get("sp", False),
+                     zero3=zero3)
     return {**meta, "n_params": n_params(cfg), **res,
             "constants": CONSTANTS}
 
@@ -855,13 +886,11 @@ def main(argv=None):
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--sp", action="store_true",
-                    help="sequence-parallel activations (ROADMAP A-10e)")
+                    help="sequence-parallel activations")
     ap.add_argument("--pure-dp", action="store_true",
-                    help="no TP: batch over both mesh axes + ZeRO-3 params "
-                         "(ROADMAP A-10e)")
+                    help="no TP: batch over both mesh axes + ZeRO-3 params")
     ap.add_argument("--fsdp", action="store_true",
-                    help="params sharded over the data axes (train; "
-                         "ROADMAP A-10e)")
+                    help="params sharded over the data axes (train)")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="gradient-accumulation microbatches (train)")
     ap.add_argument("--quantized", action="store_true",
@@ -871,7 +900,8 @@ def main(argv=None):
                     help="the arithmetic's mode (default: each config's)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    _refuse(sp=args.sp, pure_dp=args.pure_dp, fsdp=args.fsdp)
+    if args.fsdp and args.pure_dp:
+        ap.error("--fsdp and --pure-dp are two placements: take one")
 
     archs = [args.arch] if args.arch else list(ARCHS)
     meshes = {"single": [False], "multi": [True],

@@ -15,10 +15,10 @@ Default binding, the reference's:
 Where the reference hands its global arrays to GSPMD, the port computes on
 local shards: every rank holds its slice of each tensor the mesh splits,
 and the sharded paths call ``torch.distributed`` collectives where GSPMD
-or ``shard_map`` put them. Only ``all_reduce`` (SUM and MAX) and
-``all_gather`` are used on the device, so the same code runs over NCCL,
-over a ``gloo`` group (two processes on one card) and under the fake
-process group (the dry run). A group of one rank is an identity, and
+or ``shard_map`` put them. Only ``all_reduce`` (SUM and MAX),
+``all_gather`` and ``reduce_scatter`` (SUM) are used on the device, so the
+same code runs over NCCL, over a ``gloo`` group (two processes on one
+card) and under the fake process group (the dry run). A group of one rank is an identity, and
 its collectives are skipped. A logical axis over two mesh axes (the
 multi-pod batch) runs over their flattened group.
 
@@ -29,7 +29,15 @@ replicated tensor enters a model-parallel region, :func:`reduce_from`
 it; :func:`scatter_to` takes a rank's slice of a replicated tensor
 (backward: the slice's gradient padded with zeros, summed over the
 group); :func:`all_gather` joins the ranks' slices (backward: this
-rank's slice of the gradient, or of its sum over the group). ``torch.distributed.all_reduce`` itself has no gradient.
+rank's slice of the gradient, or of its sum over the group);
+:func:`reduce_scatter_from` is :func:`reduce_from` that keeps this rank's
+slice of one dim (sequence parallelism; backward: the slices' gradients
+gathered). ``torch.distributed.all_reduce`` itself has no gradient.
+
+ZeRO-3 (``--fsdp``, ``--pure-dp``): a parameter leaf of which a rank holds
+a slice over the data ranks is handed to the model as a
+:class:`DataSplit`, gathered whole at its use (:func:`gathered`), a layer
+at a time for a stacked leaf.
 """
 from __future__ import annotations
 
@@ -41,9 +49,10 @@ import torch
 __all__ = ["P", "use_rules", "unbound", "shard", "current_mesh", "active",
            "logical_spec", "logical_axis_size", "DEFAULT_RULES",
            "axis_sizes", "group", "rank_in", "all_reduce",
-           "all_reduce_max", "all_gather", "copy_to", "reduce_from",
-           "scatter_to",
-           "collective_counts", "reset_collective_counts"]
+           "all_reduce_max", "all_gather", "reduce_scatter", "copy_to",
+           "reduce_from", "reduce_scatter_from", "scatter_to",
+           "seq_split", "seq_part", "seq_params", "DataSplit", "data_split", "gathered",
+           "whole", "collective_counts", "reset_collective_counts"]
 
 
 class P(tuple):
@@ -155,12 +164,23 @@ def logical_spec(*dims) -> P:
 def shard(x, *dims):
     """Name ``x``'s logical dims; a no-op when unbound. When bound it moves
     nothing (``x`` is already this rank's shard) and checks that every dim
-    is named."""
+    is named and that no mesh axis splits two dims (where the reference's
+    ``PartitionSpec`` raises ``DuplicateSpecError``)."""
     if not _state():
         return x
     if len(dims) != x.ndim:
         raise ValueError(f"shard: {len(dims)} logical dims {dims} for a "
                          f"tensor of shape {tuple(x.shape)}")
+    seen: dict = {}
+    for d, part in zip(dims, logical_spec(*dims)):
+        for a in (part if isinstance(part, tuple) else (part,)):
+            if a is None:
+                continue
+            if a in seen:
+                raise ValueError(
+                    f"shard: mesh axis {a!r} would split two dims, logical "
+                    f"{seen[a]!r} and {d!r} (the rules bind both to it)")
+            seen[a] = d
     return x
 
 
@@ -222,21 +242,24 @@ _COUNTS: Counter = Counter()
 def collective_counts(by_axis: bool = False) -> dict:
     """Collectives issued since :func:`reset_collective_counts`:
     ``{"all_reduce": calls, "all_reduce_bytes": payload bytes,
-    "all_gather": calls, "all_gather_bytes": gathered bytes, "bytes":
-    both byte counts added}`` (an ``all_reduce``'s payload is its tensor,
-    an ``all_gather``'s the tensor it returns, every rank's part).
+    "all_gather": calls, "all_gather_bytes": gathered bytes,
+    "reduce_scatter": calls, "reduce_scatter_bytes": reduced bytes,
+    "bytes": the byte counts added}`` (an ``all_reduce``'s payload is its
+    tensor, an ``all_gather``'s the tensor it returns, every rank's part,
+    a ``reduce_scatter``'s the tensor it reduces, every rank's part).
+    Kinds never issued are left out, but ``all_reduce`` and ``bytes``.
     ``by_axis``: the same counts keyed ``"<kind>@<mesh axes>"`` (e.g.
     ``"all_reduce@model"``, ``"all_gather@pod+data"``), ``[calls,
     bytes]`` each."""
     if by_axis:
         return {k[1]: [v, _COUNTS[("bytes",) + k[1:]]]
                 for k, v in sorted(_COUNTS.items()) if k[0] == "calls"}
-    out = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
-           "all_gather_bytes": 0}
+    kinds = ("all_reduce", "all_gather", "reduce_scatter")
+    out = {k: 0 for kind in kinds for k in (kind, kind + "_bytes")}
     for (what, key), v in _COUNTS.items():
         kind = key.split("@")[0]
         out[kind if what == "calls" else kind + "_bytes"] += v
-    out["bytes"] = out["all_reduce_bytes"] + out["all_gather_bytes"]
+    out["bytes"] = sum(out[kind + "_bytes"] for kind in kinds)
     return {k: v for k, v in out.items() if v or k in ("all_reduce",
                                                        "bytes")}
 
@@ -276,6 +299,28 @@ def _gather(x: torch.Tensor, name: str, dim: int) -> torch.Tensor:
     _count("all_gather", name, n * x.numel() * x.element_size())
     dist.all_gather(parts, x, group=group(name))
     return torch.cat(parts, dim)
+
+
+def reduce_scatter(t: torch.Tensor, name: str, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on all) summed over the logical axis
+    ``name`` and cut along ``dim`` into equal parts: this rank's part, in
+    :func:`rank_in`'s order (``t`` itself without a group). One
+    ``reduce_scatter``, counted; no gradient (:func:`reduce_scatter_from`
+    has one)."""
+    import torch.distributed as dist
+
+    g = group(name)
+    if g is None:
+        return t
+    n = logical_axis_size(name)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not split over {n} ranks")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _count("reduce_scatter", name, src.numel() * src.element_size())
+    dist.reduce_scatter_tensor(out, src, group=g)
+    return out.movedim(0, dim)
 
 
 class _AllGather(torch.autograd.Function):
@@ -349,6 +394,20 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, name, dim):
+        ctx.name, ctx.dim = name, dim
+        # 16-bit partial sums are added in float32 and rounded once
+        wide = x.to(torch.float32) if x.element_size() < 4 \
+            and x.is_floating_point() else x
+        return reduce_scatter(wide, name, dim).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.name, ctx.dim), None, None
+
+
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, name):
@@ -377,6 +436,44 @@ def reduce_from(x: torch.Tensor, name: str = "model") -> torch.Tensor:
     return x if group(name) is None else _ReduceFrom.apply(x, name)
 
 
+def reduce_scatter_from(x: torch.Tensor, name: str, dim: int
+                        ) -> torch.Tensor:
+    """Partial sums leaving the region split over ``name``, this rank's
+    slice of ``dim`` kept (sequence parallelism's row-parallel output):
+    ``reduce_scatter`` SUM forward (16-bit parts added in float32, rounded
+    once), ``all_gather`` of the slices' gradients backward."""
+    return x if group(name) is None else _ReduceScatterFrom.apply(x, name,
+                                                                  dim)
+
+
+def seq_split(S: int) -> bool:
+    """Whether a stream of ``S`` tokens runs as the model ranks' slices of
+    its sequence (sequence parallelism): the logical ``"seq"`` axis bound
+    over more than one rank and dividing ``S``. A decode step's one token
+    stays whole."""
+    n = logical_axis_size("seq")
+    return n > 1 and S % n == 0
+
+
+def seq_part(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's slice of dim ``dim`` of a tensor every model rank holds
+    whole (positions, masks, inputs: no gradient crosses it) where
+    :func:`seq_split` holds for it, else ``t``."""
+    if not seq_split(t.shape[dim]):
+        return t
+    n = t.shape[dim] // logical_axis_size("seq")
+    return t.narrow(dim, rank_in("seq") * n, n)
+
+
+def seq_params(tree):
+    """A replicated parameter subtree (a norm's) used on this rank's slice
+    of the sequence: each leaf through :func:`copy_to` over ``"seq"``, so
+    its gradient is summed over the slices."""
+    if isinstance(tree, dict):
+        return {k: seq_params(v) for k, v in tree.items()}
+    return copy_to(tree, "seq")
+
+
 def scatter_to(x: torch.Tensor, dim: int, name: str = "model"
                ) -> torch.Tensor:
     """This rank's slice of a replicated ``x`` along ``dim`` (split over
@@ -388,3 +485,94 @@ def scatter_to(x: torch.Tensor, dim: int, name: str = "model"
         raise ValueError(f"scatter_to: dim {dim} of {tuple(x.shape)} does "
                          f"not split over {logical_axis_size(name)} ranks")
     return _ScatterTo.apply(x, dim, name)
+
+
+# ----------------------------------------------------------------- ZeRO-3 --
+class _FromOwner(torch.autograd.Function):
+    """A stacked leaf's layer that one rank of ``name`` holds whole (the
+    leaf split over the layers): the owner's copy, zeros elsewhere, one
+    ``all_reduce`` SUM (adding zeros is exact). Backward: the layer's
+    gradient summed over the ranks, kept by the owner (zeros elsewhere).
+    ``piece`` is a layer of this rank's own, so that every rank's backward
+    runs and joins the collective."""
+
+    @staticmethod
+    def forward(ctx, piece, owner, name):
+        ctx.owner, ctx.name = owner, name
+        t = piece.clone() if owner else torch.zeros_like(piece)
+        return all_reduce(t, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.name)
+        return (g if ctx.owner else torch.zeros_like(g)), None, None
+
+
+class DataSplit:
+    """A parameter leaf of which this rank holds a slice over the logical
+    axis ``name`` (ZeRO-3: the data ranks): ``local``, cut along ``dim``.
+    :meth:`whole` gathers it at its use (``all_gather``; backward, this
+    rank's slice of the gradient summed over the ranks, so the data ranks'
+    gradients are added there and nowhere else). Indexing or unbinding a
+    stacked leaf's layer axis gives a layer's handle: its slice, or where
+    the leaf is split over the layers, the layer from the rank that holds
+    it (:class:`_FromOwner`). A handle holds no gathered data: a layer
+    recomputed in the backward (``cfg.remat``) gathers again."""
+
+    def __init__(self, local: torch.Tensor, dim: int, name: str = "batch",
+                 owner: bool | None = None):
+        self.local, self.dim, self.name, self.owner = local, dim, name, owner
+
+    def _layer(self, piece, i: int) -> "DataSplit":
+        if self.dim > 0:
+            return DataSplit(piece, self.dim - 1, self.name)
+        n = self.local.shape[0]
+        return DataSplit(piece, -1, self.name,
+                         owner=rank_in(self.name) == i // n)
+
+    def __getitem__(self, i: int) -> "DataSplit":
+        if self.dim > 0:
+            return self._layer(self.local[i], i)
+        return self._layer(self.local[i % self.local.shape[0]], i)
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a DataSplit unbinds its layer axis only")
+        pieces = self.local.unbind(0)
+        if self.dim > 0:
+            return [self._layer(p, i) for i, p in enumerate(pieces)]
+        n = len(pieces) * logical_axis_size(self.name)
+        return [self._layer(pieces[i % len(pieces)], i) for i in range(n)]
+
+    def whole(self) -> torch.Tensor:
+        if self.owner is not None:
+            return _FromOwner.apply(self.local, self.owner, self.name)
+        return all_gather(self.local, self.name, self.dim, grad="sum")
+
+
+def whole(t):
+    """``t`` itself, or a :class:`DataSplit`'s gathered leaf."""
+    return t.whole() if isinstance(t, DataSplit) else t
+
+
+def gathered(tree):
+    """A parameter tree (a layer's, or a subtree) with every
+    :class:`DataSplit` leaf gathered (:func:`whole`); the same tree where
+    there is none."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    return whole(tree)
+
+
+def data_split(params, layout):
+    """``params`` with each leaf whose ``layout`` entry names a dim (the
+    dim its spec splits over the data ranks: ``launch.train.
+    zero3_layout``) handed to the model as a :class:`DataSplit`; the
+    same tree without a layout."""
+    if layout is None:
+        return params
+    if isinstance(params, dict):
+        return {k: data_split(v, layout[k]) for k, v in params.items()}
+    if layout is None or params is None:
+        return params
+    return DataSplit(params, layout)

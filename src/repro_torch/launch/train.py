@@ -34,6 +34,20 @@ batch's, and the step adds the data ranks' gradients (each rank's
 backward carries its rows' share of the mean). Checkpoints hold full
 arrays (gathered on the host) and restore onto any mesh.
 
+The mesh's options, the reference dry run's (:func:`rules_for`):
+``--sp`` binds the logical ``"seq"`` axis to the model ranks (sequence
+parallelism: the residual stream between blocks is each model rank's
+slice of the sequence); ``--fsdp`` places each parameter by ``opt_specs``
+(the tensor-parallel split plus a slice over the data ranks, ZeRO-3) and
+``--pure-dp`` by ``fsdp_specs`` over both mesh axes, with the batch over
+both and no tensor parallelism. A leaf split over the data ranks is
+gathered at its use, a layer at a time
+(:class:`~repro_torch.launch.sharding.DataSplit`; under ``cfg.remat``
+gathered again in the backward), its gradient comes back as this rank's
+slice of the data ranks' sum, and the optimizer updates the slice.
+:func:`placement` also reads the experts override (``{"experts":
+("model",), "ff": ()}``): each model rank holds its experts whole.
+
 Usage (CPU smoke; on the card drop ``--smoke --device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --smoke --device cpu --steps 20 --batch 8 --seq 128 \\
@@ -64,6 +78,7 @@ from repro_torch.launch.specs import (
     Sharding,
     as_shardings,
     batch_axes_for,
+    fsdp_specs,
     opt_specs,
     param_shapes,
     param_specs,
@@ -76,7 +91,7 @@ from repro_torch.optim import adamw, cosine_schedule
 
 __all__ = ["make_train_step", "train", "main", "model_split",
            "sum_over_data", "local_rows", "start_process_group",
-           "placement", "zero1_layout"]
+           "placement", "zero1_layout", "zero3_layout", "rules_for"]
 
 
 def _add(a, b):
@@ -84,15 +99,22 @@ def _add(a, b):
                     else x + y, a, b)
 
 
-def sum_over_data(grads):
+def sum_over_data(grads, zero3=None):
     """The data ranks' gradients added: every non-None leaf flattened into
     one float32 buffer, one ``all_reduce`` SUM over ``"batch"``, the leaves
-    cut back out in their dtypes. A no-op without a data group."""
+    cut back out in their dtypes. A no-op without a data group.
+    ``zero3``: :func:`zero3_layout`'s tree; a leaf split over the data
+    ranks is left as it is (its gather's backward summed it already)."""
     import torch
 
     if shardlib.group("batch") is None:
         return grads
-    leaves = [g for g in tree_leaves(grads) if g is not None]
+    skip = set()
+    if zero3 is not None:
+        skip = {id(g) for g, d in zip(tree_leaves(grads), tree_leaves(zero3))
+                if d is not None and g is not None}
+    leaves = [g for g in tree_leaves(grads)
+              if g is not None and id(g) not in skip]
     if not leaves:
         return grads
     flat = shardlib.all_reduce(
@@ -102,41 +124,111 @@ def sum_over_data(grads):
     for g in leaves:
         summed[id(g)] = flat[pos:pos + g.numel()].view(g.shape).to(g.dtype)
         pos += g.numel()
-    return tree_map(lambda g: None if g is None else summed[id(g)], grads)
+    return tree_map(lambda g: None if g is None else summed.get(id(g), g),
+                    grads)
 
 
 def model_split(pspecs, mesh):
-    """For :func:`~repro_torch.optim.optimizers.global_norm`: ``"model"``
-    where a leaf's spec splits it over the model axis (of more than one
-    rank), else None."""
-    n = shardlib.axis_sizes(mesh).get("model", 1)
+    """For :func:`~repro_torch.optim.optimizers.global_norm`: the logical
+    axes whose ranks hold the rest of each leaf — ``"model"`` where its
+    spec splits it over the model axis (of more than one rank) outside
+    the batch, ``"batch"`` where it splits it over the data ranks
+    (ZeRO-3), both as a tuple —, else None. Rules bound."""
+    sizes = shardlib.axis_sizes(mesh)
+    data = set(shardlib._bound_axes("batch"))
 
     def one(spec):
-        names = [a for part in spec if part is not None
-                 for a in (part if isinstance(part, tuple) else (part,))]
-        return "model" if n > 1 and "model" in names else None
+        names = {a for part in spec if part is not None
+                 for a in (part if isinstance(part, tuple) else (part,))
+                 if sizes[a] > 1}
+        axes = tuple(n for n, on in (("model", "model" in names - data),
+                                     ("batch", bool(names & data))) if on)
+        return axes[0] if len(axes) == 1 else (axes or None)
 
     return tree_map(one, pspecs)
 
 
-def placement(cfg, mesh, grad_compress: bool = False, zero1: bool = False):
+def rules_for(mesh, sp: bool = False, pure_dp: bool = False,
+              experts: bool = False) -> dict:
+    """The logical rules' overrides of a run on ``mesh``, the reference
+    dry run's: the batch over the data axes; ``sp`` binds ``"seq"`` to
+    the model ranks; ``pure_dp`` runs no tensor parallelism — the batch
+    over both mesh axes, ``heads`` / ``kv`` / ``ff`` / ``vocab`` /
+    ``experts`` / ``dmodel_tp`` / ``ssm_heads`` unbound (and ``seq``);
+    ``experts``: the experts override, the routed experts split over the
+    model ranks by expert and ``"ff"`` unbound."""
+    ba = batch_axes_for(mesh)
+    out = {"batch": ba}
+    if sp:
+        out["seq"] = ("model",)
+    if experts:
+        out.update({"experts": ("model",), "ff": ()})
+    if pure_dp:
+        out = {"batch": ba + ("model",), "heads": (), "kv": (), "ff": (),
+               "vocab": (), "experts": (), "dmodel_tp": (),
+               "ssm_heads": (), "seq": ()}
+    return out
+
+
+def _expert_specs(pspecs):
+    """The experts override's placement (rules bound, ``"experts"`` over
+    more than one rank): each routed expert's ``w1`` / ``w3`` / ``w2``
+    whole on the model rank that computes it — the ``(L, E, ...)``
+    leaves split over their experts, ``E / tp`` a rank, the same bytes as
+    the hidden-dim split — and the shared expert, whose ``"ff"`` rule is
+    unbound, whole on every rank."""
+    if shardlib.group("experts") is None:
+        return pspecs
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if "moe" not in path or path[-1] == "router":
+            return tree
+        if "shared" in path:
+            return P()
+        return P(None, "model", None, None)
+
+    return walk(pspecs)
+
+
+def placement(cfg, mesh, grad_compress: bool = False, zero1: bool = False,
+              zero3: str | None = None):
     """``(shardings, split)`` of a training run on ``mesh`` (rules bound):
     the checkpoint tree's :class:`~repro_torch.launch.specs.Sharding`s —
     parameters by ``sanitize_specs(param_specs(...))``, the moments as
     their parameters (with ``zero1``, by ``opt_specs``: a data-axis slice
     more, ZeRO-1), the step replicated, the residual (under
     ``grad_compress``) as its parameter — and :func:`model_split`'s tree.
-    Raises first where the model axis would split ``cfg`` in a way the
-    port does not run (:func:`~repro_torch.models.transformer.
-    check_mesh`); nothing is allocated."""
+    ``zero3``: ``"fsdp"`` places the parameters by ``opt_specs`` over the
+    data axes, ``"pure_dp"`` by ``fsdp_specs`` over the data axes and the
+    model axis (the reference dry run's ``--fsdp`` / ``--pure-dp``). Under
+    the experts override the routed experts split by expert
+    (:func:`_expert_specs`). Raises first where the model axis would
+    split ``cfg`` in a way the port does not run (:func:`~repro_torch.
+    models.transformer.check_mesh`); nothing is allocated."""
+    if zero3 not in (None, "fsdp", "pure_dp"):
+        raise ValueError(f"zero3 {zero3!r}: 'fsdp' or 'pure_dp'")
     check_mesh(cfg)
     shapes = param_shapes(cfg)
-    pspecs = sanitize_specs(param_specs(shapes), shapes, mesh)
+    ba = batch_axes_for(mesh)
+    if shardlib.active():
+        # the bound batch rule's axes (under --pure-dp the model axis too)
+        part = shardlib.logical_spec("batch")[0]
+        ba = () if part is None else part if isinstance(part, tuple) \
+            else (part,)
+    if zero3 == "pure_dp":
+        pspecs = fsdp_specs(shapes, ba, mesh)
+    else:
+        pspecs = _expert_specs(param_specs(shapes))
+        if zero3 == "fsdp":
+            pspecs = opt_specs(pspecs, ba)
+    pspecs = sanitize_specs(pspecs, shapes, mesh)
     psh = as_shardings(mesh, pspecs)
     msh = psh
     if zero1:
-        msh = as_shardings(mesh, sanitize_specs(
-            opt_specs(pspecs, batch_axes_for(mesh)), shapes, mesh))
+        msh = as_shardings(mesh, sanitize_specs(opt_specs(pspecs, ba),
+                                                shapes, mesh))
     shardings = {"params": psh,
                  "opt": {"mu": msh, "nu": msh, "step": Sharding(mesh, P())}}
     if grad_compress:
@@ -178,10 +270,27 @@ def zero1_layout(shardings) -> dict:
     return tree_map(one, shardings["params"], shardings["opt"]["mu"])
 
 
+def zero3_layout(shardings) -> dict:
+    """For ``make_train_step(..., zero3=)``: for each parameter leaf the
+    dim its spec splits over the data ranks (the logical ``"batch"``
+    axis's mesh axes), else None — the leaves handed to the model as
+    :class:`~repro_torch.launch.sharding.DataSplit` handles."""
+    data = set(shardlib._bound_axes("batch"))
+
+    def one(sh):
+        for i, part in enumerate(sh.spec):
+            axes = part if isinstance(part, tuple) else (part,)
+            if part is not None and data & set(axes):
+                return i
+        return None
+
+    return tree_map(one, shardings["params"])
+
+
 def make_train_step(lm, opt, microbatch: int = 1,
                     grad_compress: bool = False,
                     compress_axis: str | None = None, split=None,
-                    zero1=None):
+                    zero1=None, zero3=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     ``microbatch`` > 1: gradient accumulation over that many equal row
@@ -199,14 +308,25 @@ def make_train_step(lm, opt, microbatch: int = 1,
     place, as the reference's ``compress_axis`` does. Another axis is
     refused: over the model ranks it would add shards of different
     parameters. ``split``: the optimizer's global-norm split tree
-    (:func:`model_split`) where the mesh splits parameters.
+    (:func:`model_split`) where the mesh splits parameters. ``zero3``:
+    :func:`zero3_layout`'s tree (``--fsdp``, ``--pure-dp``): those leaves
+    reach the model as :class:`~repro_torch.launch.sharding.DataSplit`
+    handles, their gradients are this rank's slices of the data ranks'
+    sums (left out of :func:`sum_over_data`), and the optimizer updates
+    the slices.
     """
     if compress_axis not in (None, "batch", "data"):
         raise ValueError(
             f"compress_axis {compress_axis!r}: the compressed all-reduce "
             "adds the data ranks' gradients ('batch' or 'data'); over "
             "another axis it would add shards of different parameters")
-    grad_fn = value_and_grad(lm.train_loss)
+    if zero3 is not None and (grad_compress and compress_axis):
+        raise ValueError("the compressed all-reduce adds whole gradients; "
+                         "ZeRO-3's leaves come back summed already")
+    grad_fn = value_and_grad(
+        lm.train_loss if zero3 is None else
+        (lambda params, batch: lm.train_loss(
+            shardlib.data_split(params, zero3), batch)))
 
     def compute(params, batch):
         if microbatch == 1:
@@ -234,7 +354,7 @@ def make_train_step(lm, opt, microbatch: int = 1,
     if not grad_compress:
         def step(params, opt_state, batch):
             loss, grads = compute(params, batch)
-            params, opt_state, metrics = update(sum_over_data(grads),
+            params, opt_state, metrics = update(sum_over_data(grads, zero3),
                                                 opt_state, params)
             return params, opt_state, {"loss": loss, **metrics}
         return step
@@ -246,7 +366,7 @@ def make_train_step(lm, opt, microbatch: int = 1,
         if compress_axis is not None:
             grads, res = compress_psum(grads, res, compress_axis)
         else:
-            grads, res = compress_local(sum_over_data(grads), res)
+            grads, res = compress_local(sum_over_data(grads, zero3), res)
         params, opt_state, metrics = update(grads, opt_state, params)
         return params, opt_state, res, {"loss": loss, **metrics}
     return step
@@ -257,7 +377,8 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
           lr: float = 3e-4, tp: int = 1, log_every: int = 10,
           keep: int = 3, stop_after: int | None = None,
           microbatch: int = 1, schedule=None, grad_compress: bool = False,
-          device="cuda", step_times: list | None = None):
+          device="cuda", step_times: list | None = None, sp: bool = False,
+          zero3: str | None = None):
     """Train ``cfg`` on ``device`` for ``steps`` steps; returns ``(params,
     losses)``, the losses of the steps this call ran, as floats (on a mesh,
     ``params`` are this rank's shards). ``step_times``: a list to append
@@ -282,7 +403,9 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
 
     ``tp``: the model ranks of the mesh built when the default process
     group has more than one rank (module docstring); with one rank no
-    mesh is bound and the run is unsharded, whatever ``tp`` says.
+    mesh is bound and the run is unsharded, whatever ``tp`` says. ``sp``
+    and ``zero3`` (``"fsdp"``, ``"pure_dp"``): the mesh's options
+    (module docstring, :func:`rules_for`, :func:`placement`).
     """
     lm = build(cfg, device)
     opt = adamw(cosine_schedule(lr, warmup=min(100, steps // 10 + 1),
@@ -292,21 +415,24 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
     ranks = dist.get_world_size() if dist.is_initialized() else 1
     mesh = make_host_mesh(model=tp) if ranks > 1 else None
     lead = mesh is None or dist.get_rank() == 0
-    if mesh is None and tp != 1:
+    if mesh is None and (tp != 1 or sp or zero3):
         print(f"# mesh: none bound (one process): --tp {tp} trains "
               "unsharded", flush=True)
     source = make_source(cfg, shape, seed=seed)
 
     with ExitStack() as stack:
-        shardings = split = None
+        shardings = split = layout = None
         if mesh is not None:
-            stack.enter_context(
-                shardlib.use_rules(mesh, {"batch": batch_axes_for(mesh)}))
+            stack.enter_context(shardlib.use_rules(
+                mesh, rules_for(mesh, sp, zero3 == "pure_dp")))
             n_data = shardlib.logical_axis_size("batch")
             if shape.global_batch % n_data:
                 raise ValueError(f"global batch {shape.global_batch} does "
                                  f"not split over {n_data} data ranks")
-            shardings, split = placement(cfg, mesh, grad_compress)
+            shardings, split = placement(cfg, mesh, grad_compress,
+                                         zero3=zero3)
+            if zero3:
+                layout = zero3_layout(shardings)
             if lead:
                 print(f"# mesh: {dict(zip(mesh.axis_names, mesh.shape))}",
                       flush=True)
@@ -335,7 +461,7 @@ def train(cfg, shape: ShapeConfig, *, steps: int, ckpt_dir: str | None,
                                                      lm.device)
                 fn = make_train_step(lm_s, opt, microbatch=microbatch,
                                      grad_compress=grad_compress,
-                                     split=split)
+                                     split=split, zero3=layout)
                 steps_by_cfg[acfg] = fn
             return fn
 
@@ -452,6 +578,16 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--sp", action="store_true",
+                    help="sequence parallelism: the residual stream split "
+                         "over the model ranks along the sequence")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: each parameter's tensor-parallel shard "
+                         "also split over the data ranks, gathered at use")
+    ap.add_argument("--pure-dp", action="store_true",
+                    help="no tensor parallelism: the batch over every rank "
+                         "and each parameter split over all of them "
+                         "(ZeRO-3)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--resume", default="auto", choices=["auto", "none"])
@@ -483,6 +619,8 @@ def main(argv=None):
                     help="with --twin: exit 1 if any step's gradient "
                          "cosine similarity falls below this")
     args = ap.parse_args(argv)
+    if args.fsdp and args.pure_dp:
+        ap.error("--fsdp and --pure-dp are two placements: take one")
 
     dev = require_device(args.device)
     if dev.type == "cuda":
@@ -540,7 +678,9 @@ def main(argv=None):
           save_every=args.save_every, resume=args.resume, seed=args.seed,
           lr=args.lr, tp=args.tp, microbatch=args.microbatch,
           schedule=schedule, grad_compress=args.grad_compress,
-          device=args.device)
+          device=args.device, sp=args.sp,
+          zero3="fsdp" if args.fsdp else "pure_dp" if args.pure_dp
+          else None)
 
 
 if __name__ == "__main__":

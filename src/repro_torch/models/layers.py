@@ -96,38 +96,53 @@ class _SplitLinear(torch.autograd.Function):
     gradient — each rank's part is a float32 product and the parts are
     summed in float32, then rounded once to the activation dtype, as the
     unsplit product rounds its float32 accumulator once. Everything else
-    is the activation-dtype matmul of the unsplit linear."""
+    is the activation-dtype matmul of the unsplit linear.
+
+    ``seq`` (sequence parallelism; ``x`` (B,S,K)): a column-parallel
+    linear takes the whole sequence (``full``, or gathered here) and
+    reduce-scatters its input gradient's partial sums to this rank's
+    rows; a row-parallel one reduce-scatters its output's and gathers its
+    output gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, kind, axis):
-        from repro_torch.launch.sharding import all_reduce
+    def forward(ctx, x, w, kind, axis, seq=False, full=None):
+        from repro_torch.core.approx import _seq_whole
+        from repro_torch.launch.sharding import all_reduce, reduce_scatter
 
-        ctx.kind, ctx.axis, ctx.w_dtype = kind, axis, w.dtype
+        ctx.kind, ctx.axis, ctx.w_dtype, ctx.seq = kind, axis, w.dtype, seq
         w = w.to(x.dtype)               # the unsplit linear's cast weight
+        if kind == "col":
+            x = _seq_whole(x, axis, seq, full)
         ctx.save_for_backward(x, w)
         if kind == "col":
             return x @ w
         y = x.to(torch.float32) @ w.to(torch.float32)
-        return all_reduce(y, axis).to(x.dtype)
+        y = reduce_scatter(y, axis, 1) if seq else all_reduce(y, axis)
+        return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.launch.sharding import all_reduce
+        from repro_torch.core.approx import _seq_whole
+        from repro_torch.launch.sharding import all_reduce, reduce_scatter
 
         x, w = ctx.saved_tensors
         if ctx.kind == "col":
-            gx = all_reduce(g.to(torch.float32) @ w.to(torch.float32).T,
-                            ctx.axis).to(x.dtype)
+            gx = g.to(torch.float32) @ w.to(torch.float32).T
+            gx = reduce_scatter(gx, ctx.axis, 1) if ctx.seq \
+                else all_reduce(gx, ctx.axis)
+            gx = gx.to(x.dtype)
         else:
+            g = _seq_whole(g.contiguous(), ctx.axis, ctx.seq)
             gx = g @ w.T
         # the weight gradient as autograd takes the unsplit one: the rows
         # folded, one mm
         gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
-        return gx, gw.to(ctx.w_dtype), None, None
+        return gx, gw.to(ctx.w_dtype), None, None, None, None
 
 
 def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT,
-          split: tuple | None = None) -> torch.Tensor:
+          split: tuple | None = None,
+          full: torch.Tensor | None = None) -> torch.Tensor:
     """Matmul with quantized-weight and SIMDive-emulation support.
 
     A :class:`QuantizedWeight` under active emulation feeds its int8
@@ -141,10 +156,16 @@ def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT,
     (``'col'``: ``x`` replicated over the axis, the output split) or by
     input rows (``'row'``: ``x`` split, the output replicated). The result
     is this rank's part of the unsplit linear's (:class:`_SplitLinear`,
-    :func:`approx_matmul`).
+    :func:`approx_matmul`). ``(kind, axis, "seq")``: sequence
+    parallelism, the axis's ranks also holding slices of the sequence
+    (dim 1 of a (B,S,K) ``x``): a column-parallel ``x`` is this rank's
+    slice (``full`` the whole sequence where the caller gathered it for
+    several linears), a row-parallel output comes back as this rank's
+    slice.
     """
     active = approx.enabled and approx.use_in_linear and approx.emulate \
         and approx.active_for("matmul")
+    seq = split is not None and len(split) > 2
     if isinstance(w, QuantizedWeight):
         if split is None:
             if active:
@@ -158,13 +179,14 @@ def dense(x: torch.Tensor, w, approx: ApproxConfig = EXACT,
         # this rank's dequantized shard, then the float split linear
         w = w.q.to(x.dtype) * w.scale.to(x.dtype)
     if active:
+        kw = {"seq": True, "full": full} if seq else {}
         return approx_matmul(x, w.to(torch.float32), approx,
-                             *(split or ())).to(x.dtype)
+                             *(split[:2] if split else ()), **kw).to(x.dtype)
     if split is not None:
         from repro_torch.launch.sharding import group
 
         if group(split[1]) is not None:
-            return _SplitLinear.apply(x, w, *split)
+            return _SplitLinear.apply(x, w, split[0], split[1], seq, full)
     return x @ w.to(x.dtype)
 
 
@@ -428,7 +450,8 @@ def decode_attention_append(q, k_cache, v_cache, k_new, v_new, pos, slot, *,
 
 
 # -------------------------------------------------------------------- mlp --
-def mlp(x, p, act, approx: ApproxConfig = EXACT, split: bool = False):
+def mlp(x, p, act, approx: ApproxConfig = EXACT, split: bool = False,
+        seq: bool = False):
     """Gated (swiglu) or plain-gelu MLP; weights may be QuantizedWeight.
 
     gelu is the tanh form, as ``jax.nn.gelu``'s default
@@ -448,14 +471,23 @@ def mlp(x, p, act, approx: ApproxConfig = EXACT, split: bool = False):
     ``split``: on a bound mesh, the hidden dim is split over the logical
     axis ``"ff"`` — ``w1`` / ``w3`` are this rank's columns, ``w2`` its
     rows; the hidden activation stays split and ``w2``'s partial sums are
-    added (:func:`dense`).
+    added (:func:`dense`). ``seq``: sequence parallelism, ``x`` this
+    rank's slice of the sequence: gathered once for ``w1`` and ``w3``,
+    ``w2``'s sums reduce-scattered back to the slice (a whole MLP runs on
+    the slice as it is).
     """
     col, row = (("col", "ff"), ("row", "ff")) if split else (None, None)
+    full = None
+    if split and seq:
+        from repro_torch.launch.sharding import _gather
+
+        col, row = col + ("seq",), row + ("seq",)
+        full = _gather(x, "ff", 1)
     if act == "swiglu":
-        h = F.silu(dense(x, p["w1"], approx, col)) * dense(x, p["w3"],
-                                                           approx, col)
+        h = F.silu(dense(x, p["w1"], approx, col, full)) \
+            * dense(x, p["w3"], approx, col, full)
     elif act == "gelu":
-        h = F.gelu(dense(x, p["w1"], approx, col), approximate="tanh")
+        h = F.gelu(dense(x, p["w1"], approx, col, full), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
     return dense(h, p["w2"], approx, row)

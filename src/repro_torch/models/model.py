@@ -92,11 +92,14 @@ class LM:
         params["stack"] = init_stack(
             gen, cfg, pdt, self.device,
             None if shardings is None else shardings["stack"])
-        params["final_norm"] = {"w": torch.ones((cfg.d_model,), dtype=pdt,
-                                                device=self.device)}
+        norm = {"w": torch.ones((cfg.d_model,), dtype=pdt,
+                                device=self.device)}
         if cfg.norm == "layernorm":
-            params["final_norm"]["b"] = torch.zeros(
-                (cfg.d_model,), dtype=pdt, device=self.device)
+            norm["b"] = torch.zeros((cfg.d_model,), dtype=pdt,
+                                    device=self.device)
+        params["final_norm"] = {k: v if shardings is None else
+                                shardings["final_norm"][k].local(v).clone()
+                                for k, v in norm.items()}
         if not cfg.tie_embeddings:
             lim = cfg.d_model ** -0.5
             params["head"] = cut("head", torch.rand(
@@ -116,10 +119,17 @@ class LM:
         slots past the patches take zeros where the mask is set. The
         sinusoidal table is ``concat(sin, cos)`` over ``d_model/2``
         frequencies of the positions, in float32, cast before it is
-        added."""
+        added.
+
+        Sequence parallelism (:meth:`_seq`): the output is this model
+        rank's slice of the sequence — the vocabulary-parallel lookup's
+        partial sums reduce-scattered to it, a whole table's lookup cut
+        to it, the patches and the sinusoidal table taken at its rows."""
         cfg = self.cfg
         adt = _dt(cfg.dtype)
-        tokens, emb = batch["tokens"], params["embed"]
+        tokens = batch["tokens"]
+        emb = shardlib.whole(params["embed"])
+        seq = self._seq(tokens.shape[1])
         split = emb.shape[1] < cfg.vocab_size
         if split:
             # this rank's vocabulary rows: look up the tokens inside them,
@@ -143,24 +153,40 @@ class LM:
                 x = x + look(c, tokens[..., c])
         else:
             x = look(0, tokens)
-        if split:
+        if split and seq:
+            x = shardlib.reduce_scatter_from(x, "vocab", 1)
+        elif split:
             x = shardlib.reduce_from(x, "vocab")
+        elif seq:
+            x = shardlib.scatter_to(x, 1, "seq")
+        part = shardlib.seq_part if seq else (lambda t: t)
         if cfg.vision_stub and "patch_embeds" in batch:
-            B, S, D = x.shape
+            B, S, D = batch["patch_mask"].shape + (x.shape[-1],)
             pe = batch["patch_embeds"].to(adt)
             pe_full = torch.cat([pe, pe.new_zeros((B, S - pe.shape[1], D))],
                                 dim=1)
-            x = torch.where(batch["patch_mask"][..., None], pe_full, x)
+            x = torch.where(part(batch["patch_mask"])[..., None],
+                            part(pe_full), x)
         if cfg.pos_emb == "sin":
             pos = batch.get("positions")
             if pos is None:
-                pos = torch.arange(x.shape[1], device=x.device)[None]
+                pos = torch.arange(tokens.shape[1], device=x.device)[None]
+            pos = part(pos)
             half = cfg.d_model // 2
             inv = 10000.0 ** (-torch.arange(half, dtype=torch.float32,
                                             device=x.device) / half)
             ang = pos.to(torch.float32)[..., None] * inv
             x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(adt)
         return x
+
+    def _seq(self, S: int) -> bool:
+        """Whether a stream of ``S`` tokens runs as the model ranks'
+        slices of its sequence (:func:`~repro_torch.launch.sharding.
+        seq_split`). The rwkv6 and hybrid stacks, which the reference
+        does not annotate, take the whole sequence at their first layer:
+        their embedding's output stays whole."""
+        return shardlib.seq_split(S) and self.cfg.family not in ("ssm",
+                                                                "hybrid")
 
     def _positions(self, batch, S, offset=0):
         pos = batch.get("positions")
@@ -170,16 +196,26 @@ class LM:
                    ).expand(B, S)
         return pos
 
-    def _head(self, params, x):
+    def _head(self, params, x, S: int | None = None):
         """Logits (B,S,V), or (B,S,C,V) for codebooks: one exact
-        ``dense`` a codebook, stacked at axis -2."""
+        ``dense`` a codebook, stacked at axis -2. ``S``: the sequence's
+        length, where ``x`` may be this rank's slice of it (sequence
+        parallelism): the head gathers the sequence first."""
         cfg = self.cfg
-        w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
-            else params["head"]
+        w = shardlib.whole(params["embed"]).transpose(1, 2) \
+            if cfg.tie_embeddings else shardlib.whole(params["head"])
         # a head the placement split over the vocabulary (a tied head
         # takes the embedding's shard) keeps its logits split into the loss
         split = ("col", "vocab") if w.shape[-1] < cfg.vocab_size else None
-        outs = [dense(x, w[c], split=split)
+        kw = {}
+        if S is not None and x.shape[1] < S:
+            if split:
+                split = split + ("seq",)
+                kw["full"] = shardlib._gather(x, "vocab", 1)
+            else:
+                # every rank goes on with the same whole logits
+                x = shardlib.all_gather(x, "seq", 1)
+        outs = [dense(x, w[c], split=split, **kw)
                 for c in range(max(cfg.n_codebooks, 1))]
         return torch.stack(outs, dim=-2) if cfg.n_codebooks else outs[0]
 
@@ -215,10 +251,15 @@ class LM:
     def _forward(self, params, batch):
         cfg = self.cfg
         x = self._embed(params, batch)
-        positions = self._positions(batch, x.shape[1])
+        S = batch["tokens"].shape[1]
+        positions = self._positions(batch, S)
         x, aux = stack_train(params["stack"], x, cfg, positions)
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-        return self._head(params, x), aux
+        norm = shardlib.gathered(params["final_norm"])
+        if x.shape[1] < S:
+            # sequence parallelism: the norm runs on this rank's rows
+            norm = shardlib.seq_params(norm)
+        x = apply_norm(x, norm, cfg.norm, cfg.norm_eps)
+        return self._head(params, x, S), aux
 
     # -------------------------------------------------------------- serve --
     def empty_cache(self, batch_size: int, max_seq: int):
@@ -240,9 +281,14 @@ class LM:
         """
         cfg = self.cfg
         x = self._embed(params, batch)
-        positions = self._positions(batch, x.shape[1])
+        S = batch["tokens"].shape[1]
+        positions = self._positions(batch, S)
         x, cache = stack_prefill(params["stack"], x, cfg, positions)
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        if x.shape[1] < S:
+            # sequence parallelism: the last token is the last rank's
+            x = shardlib.all_gather(x[:, -1:], "seq", 1)[:, -1:]
+        x = apply_norm(x, shardlib.gathered(params["final_norm"]), cfg.norm,
+                       cfg.norm_eps)
         return self._head(params, x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
@@ -282,7 +328,8 @@ class LM:
                                  "positions": positions})
         x, cache = stack_decode(params["stack"], x, cfg, cache, pos,
                                 positions, max_seq)
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        x = apply_norm(x, shardlib.gathered(params["final_norm"]), cfg.norm,
+                       cfg.norm_eps)
         return self._head(params, x)[:, 0], cache
 
 

@@ -23,7 +23,15 @@ On a bound mesh (:mod:`repro_torch.launch.sharding`) :func:`moe_ffn` takes
 to each data shard, the experts' hidden dim split over the model ranks,
 one ``all_reduce`` of the token-space output, the load-balance statistics
 averaged over the data ranks; its shared expert runs as plain matmuls, as
-the reference's does.
+the reference's does. A call that takes the plain form with split weights
+(a decode step's one token) sums the routed experts' partial output and
+the shared expert's over ``"ff"`` as that path does. Under the experts
+override (``{"experts": ("model",), "ff": ()}``) each model rank computes
+its ``E / tp`` experts whole and the slot-space outputs are gathered
+before the combine (:func:`_routed_by_expert`); with ``"ff"`` still on the
+model axis the plain form raises, as the reference's ``shard`` does.
+Under sequence parallelism the block gathers the sequence first (the
+dispatch is a sequence's) and reduce-scatters its output.
 """
 from __future__ import annotations
 
@@ -106,7 +114,23 @@ def _aux_terms(probs, gate_idx):
     return me, ce
 
 
-def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split):
+def _routed_by_expert(buf, p, dt):
+    """The routed experts' slot-space output ``(G,E,C,D)`` where the
+    experts override splits them over the model ranks: this rank's
+    ``E / tp`` experts (``w1`` / ``w3`` ``(E_loc,D,F)``, ``w2``
+    ``(E_loc,F,D)``, whole) on its slots of ``buf``, the ranks' outputs
+    gathered along the experts (backward: this rank's slice of the
+    gradient)."""
+    e = p["w1"].shape[0]
+    mine = buf.narrow(1, shardlib.rank_in("experts") * e, e)
+    h = F.silu(torch.einsum("gecd,edf->gecf", mine, p["w1"].to(dt))) \
+        * torch.einsum("gecd,edf->gecf", mine, p["w3"].to(dt))
+    h = shardlib.shard(h, "batch", "experts", None, "ff")
+    y = torch.einsum("gecf,efd->gecd", h, p["w2"].to(dt))
+    return shardlib.all_gather(y, "experts", 1)
+
+
+def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split, seq=False):
     """The sharded block: ``x`` (B_loc,S,D) is this data rank's rows;
     under ``split`` ``w1`` / ``w3`` (E,D,F_loc) and ``w2`` (E,F_loc,D) are
     this model rank's slice of the experts' hidden dim (and the shared
@@ -116,6 +140,9 @@ def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split):
     shared expert's partial product added) before ONE ``all_reduce`` of
     (B_loc,S,D). The router's statistics ``me`` / ``ce`` are averaged over
     the data ranks, so every rank holds the whole batch's aux loss.
+    ``seq``: ``x`` is already the whole sequence gathered from the
+    ranks' slices (the experts split, ``split``); the output is
+    reduce-scattered back to them.
 
     Autograd: ``x`` and the gates enter the split region through
     :func:`~repro_torch.launch.sharding.copy_to` (their gradients from the
@@ -149,7 +176,8 @@ def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split):
         hs = F.silu(xc @ sh["w1"].to(dt)) * (xc @ sh["w3"].to(dt))
         out = out + hs @ sh["w2"].to(dt)         # also partial: one sum
     if split:
-        out = shardlib.reduce_from(out, "ff")
+        out = shardlib.reduce_scatter_from(out, "ff", 1) if seq \
+            else shardlib.reduce_from(out, "ff")
     me, ce = _aux_terms(probs, gate_idx)
     n_b = shardlib.logical_axis_size("batch")
     me = shardlib.reduce_from(me, "batch") / n_b
@@ -159,7 +187,7 @@ def _moe_ffn_spmd(x, p, *, top_k, capacity_factor, split):
 
 def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
             approx: ApproxConfig = EXACT, grouped: bool = True,
-            split: bool = False):
+            split: bool = False, seq: bool = False):
     """x: (B,S,D) -> (B,S,D), plus the load-balancing aux loss (a 0-d
     float32 tensor). Without a mesh, the reference's ``_moe_ffn_jnp``.
     ``grouped`` dispatches one group a sequence, else one group for the
@@ -167,13 +195,34 @@ def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
     rows compete for slots. On a bound mesh a grouped multi-token call
     with float experts takes :func:`_moe_ffn_spmd`, as the reference's
     ``moe_ffn`` takes its ``shard_map`` path (its shared expert then runs
-    plain, whatever ``approx`` says). ``split``: the experts' weights are
-    this rank's slice of their hidden dim over the logical axis ``"ff"``
-    (the caller reads it from their width)."""
-    if (grouped and shardlib.active() and x.shape[1] > 1
+    plain, whatever ``approx`` says), unless the experts override splits
+    the experts (the reference's ``shard_map`` path needs ``"ff"`` bound).
+    ``split``: the experts' weights are this rank's slice of their hidden
+    dim over the logical axis ``"ff"`` (the caller reads it from their
+    width).
+
+    Sequence parallelism: an ``x`` that is this rank's slice of the
+    sequence (:func:`~repro_torch.launch.sharding.seq_split` of the whole
+    length; the caller says so with ``seq``, the experts split over
+    ``"ff"``) is gathered whole first and the output reduce-scattered
+    back."""
+    experts = shardlib.group("experts") is not None
+    if seq:
+        if experts:
+            raise NotImplementedError(
+                "sequence parallelism with the experts override: the "
+                "block would gather a sequence split over the ranks that "
+                "split its experts; bind one of 'seq' and 'experts'")
+        # every rank goes on with the whole sequence, its own partial
+        # products summed by the reduce-scatter
+        x = shardlib.all_gather(x, "seq", 1)
+    ff_bound = shardlib.active() and shardlib.logical_spec("ff")[0] \
+        is not None
+    if (grouped and ff_bound and x.shape[1] > 1
             and not isinstance(p["w1"], QuantizedWeight)):
         return _moe_ffn_spmd(x, p, top_k=top_k,
-                             capacity_factor=capacity_factor, split=split)
+                             capacity_factor=capacity_factor, split=split,
+                             seq=seq)
     B, S, D = x.shape
     E = p["router"].shape[1]
     if not grouped or S == 1:
@@ -184,29 +233,79 @@ def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
 
     logits = (xt @ p["router"].to(x.dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    buf, dst, gates, gi, gate_idx = _dispatch(xt, probs, top_k,
+    # the routed experts' partial products (split over "ff") or this
+    # rank's experts (the override): x's gradient from them is summed
+    # over the ranks
+    by_expert = experts and p["w1"].shape[0] < E
+    xc = xt
+    if split or by_expert:
+        xc = shardlib.copy_to(xt, "ff" if split else "experts")
+    buf, dst, gates, gi, gate_idx = _dispatch(xc, probs, top_k,
                                               capacity_factor)
     me, ce = _aux_terms(probs, gate_idx)
+    if torch.is_grad_enabled() and shardlib.group("batch") is not None:
+        # the whole batch's statistics where a loss takes the aux (the
+        # experts override's training); serving drops it, as the
+        # reference's decode step does, so no collective is spent on it
+        n_b = shardlib.logical_axis_size("batch")
+        me = shardlib.reduce_from(me, "batch") / n_b
+        ce = shardlib.all_reduce(ce.detach().clone(), "batch") / n_b
     aux = E * torch.sum(me * ce)
 
-    w1 = p["w1"].to(x.dtype)
-    w3 = p["w3"].to(x.dtype)
-    w2 = p["w2"].to(x.dtype)
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * torch.einsum(
-        "gecd,edf->gecf", buf, w3)
+    dt = x.dtype
+    buf = shardlib.shard(buf, "batch", "experts", None, None)
     C = buf.shape[2]
-    y = torch.einsum("gecf,efd->gecd", h, w2).reshape(G, E * C, D)
+    if by_expert:
+        y = _routed_by_expert(buf, p, dt)
+    else:
+        h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w1"].to(dt))) \
+            * torch.einsum("gecd,edf->gecf", buf, p["w3"].to(dt))
+        h = shardlib.shard(h, "batch", "experts", None, "ff")
+        y = torch.einsum("gecf,efd->gecd", h, p["w2"].to(dt))
+    y = y.reshape(G, E * C, D)
     y = torch.cat([y, torch.zeros((G, 1, D), dtype=y.dtype,
                                   device=y.device)], dim=1)
 
-    out_k = y.gather(1, dst[..., None].expand(G, Tg * top_k, D)) \
-        * gates.to(y.dtype)
-    out = out_k.reshape(G, Tg, top_k, D).sum(dim=2)
+    g = (shardlib.copy_to(gates, "ff") if split else gates).to(dt)
+    out_k = y.gather(1, dst[..., None].expand(G, Tg * top_k, D)) * g
+    out = out_k.reshape(G, Tg, top_k, D).sum(dim=2).reshape(B * S, D)
 
+    shared = whole = None
     if "shared" in p:
-        sh = p["shared"]
-        xf = x.reshape(B * S, D)
-        hs = F.silu(dense(xf, sh["w1"], approx)) * dense(xf, sh["w3"],
-                                                         approx)
-        out = out.reshape(B * S, D) + dense(hs, sh["w2"], approx)
-    return out.reshape(B, S, D), aux
+        shared, whole = _shared(x.reshape(B * S, D), p["shared"], approx,
+                                split)
+        if not whole:
+            out = out + shared
+    out = out.reshape(B, S, D)
+    if split:
+        # the routed partials (and a plain shared expert's) summed once
+        out = shardlib.reduce_from(out, "ff")
+    if whole:
+        out = out + shared.reshape(B, S, D)
+    return out, aux
+
+
+def _shared(xf, sh, approx: ApproxConfig, split: bool):
+    """``(out, whole)``: the shared expert on (T, D) tokens through
+    :func:`dense`. Split over ``"ff"`` (``w1`` / ``w3`` this rank's
+    columns, ``w2`` its rows), ``w2``'s partial product comes back
+    unsummed (``whole`` False), for the caller's one sum with the routed
+    experts'; but where ``w2`` runs the SIMDive emulation, whose integer
+    partial sums must be added before its one rescale (bit-equal to the
+    unsplit linear), ``w2`` sums its own (:func:`dense`'s row split) and
+    the output comes back whole, added after the routed experts' sum."""
+    col = ("col", "ff") if split else None
+    hs = F.silu(dense(xf, sh["w1"], approx, col)) * dense(xf, sh["w3"],
+                                                          approx, col)
+    if not split:
+        return dense(hs, sh["w2"], approx), False
+    if _emulated(approx):
+        return dense(hs, sh["w2"], approx, ("row", "ff")), True
+    return hs @ sh["w2"].to(hs.dtype), False
+
+
+def _emulated(approx: ApproxConfig) -> bool:
+    """Whether :func:`dense` runs a float weight's product on the SIMDive
+    emulation under ``approx``."""
+    return (approx.enabled and approx.use_in_linear and approx.emulate
+            and approx.active_for("matmul"))

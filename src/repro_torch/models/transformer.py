@@ -24,6 +24,16 @@ projection takes a per-invocation LoRA delta, merged on every call.
 :func:`stack_train` runs every family's stack for training: no cache,
 nothing written in place, each layer recomputed in the backward under
 ``cfg.remat``.
+
+Sequence parallelism (the logical ``"seq"`` axis bound to the model
+ranks, ``--sp``): an attention block whose residual stream ``x`` is this
+rank's slice of the sequence (fewer rows than ``positions``) norms the
+slice, gathers it once for its column-parallel projections and
+reduce-scatters its row-parallel outputs back to the slice
+(:func:`attn_block_train`). ZeRO-3: a layer's parameters may arrive as
+:class:`~repro_torch.launch.sharding.DataSplit` handles, gathered at the
+layer's start (:func:`~repro_torch.launch.sharding.gathered`), inside the
+recomputed region under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -34,11 +44,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.approx import serving_segments
 from repro_torch.launch.sharding import (
+    P,
+    _gather,
     all_gather,
     all_reduce,
+    gathered,
     logical_axis_size,
     rank_in,
     scatter_to,
+    seq_params,
+    whole,
 )
 from .layers import (
     QuantizedWeight,
@@ -200,7 +215,8 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     split). A split leaf is allocated at this rank's shape, and each
     layer's draw is made whole, as unsplit, and cut to its slice at once:
     the unsplit tree's values sliced, with one whole layer leaf beside
-    the shards at most."""
+    the shards at most. A leaf split over the layers (ZeRO-3) holds this
+    rank's layers; every layer's draw is still made, in order."""
     _check_ported(cfg)
     L = cfg.n_layers
     if L == 0:
@@ -211,15 +227,22 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     flat = {path: torch.empty(_local_shape((L,) + shape, shard[path]),
                               dtype=dtype, device=device)
             for path, shape, _ in leaves}
+    # the layers each leaf holds here, and its cut within a layer
+    held = {path: _held_layers(flat[path].shape[0], L, shard[path])
+            for path, _, _ in leaves}
+    inner = {path: _inner(shard[path]) for path, _, _ in leaves}
     for i in range(L):
         for path, shape, init in leaves:
-            if flat[path].shape[1:] == shape:
-                _fill(flat[path][i], init, gen)
-            else:
-                whole = _fill(torch.empty(shape, dtype=dtype, device=device),
-                              init, gen)
-                flat[path][i].copy_(shard[path].local(whole[None])[0])
-                del whole
+            lo = held[path]
+            mine = lo <= i < lo + flat[path].shape[0]
+            if mine and flat[path].shape[1:] == shape:
+                _fill(flat[path][i - lo], init, gen)
+                continue
+            whole = _fill(torch.empty(shape, dtype=dtype, device=device),
+                          init, gen)
+            if mine:
+                flat[path][i - lo].copy_(inner[path].local(whole[None])[0])
+            del whole
     out = {"layers": nest(flat)}
     if cfg.family == "hybrid":
         extra = {}
@@ -230,6 +253,27 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
                            else _at(shardings, path).local(whole).clone())
         out.update(nest(extra))
     return out
+
+
+def _held_layers(n: int, L: int, sharding) -> int:
+    """The first layer of a stacked leaf that holds ``n`` of ``L`` layers
+    on this rank (its spec splits the layer axis where ``n < L``)."""
+    if n == L:
+        return 0
+    from repro_torch.launch.specs import local_slice
+
+    return int(local_slice(torch.arange(L), P(sharding.spec[0]),
+                           sharding.mesh)[0])
+
+
+def _inner(sharding):
+    """A stacked leaf's sharding within a layer: its spec without the
+    layer axis's entry (None unsplit)."""
+    if sharding is None:
+        return None
+    from repro_torch.launch.specs import Sharding
+
+    return Sharding(sharding.mesh, P(None, *tuple(sharding.spec)[1:]))
 
 
 def _at(tree: dict, path: tuple):
@@ -248,6 +292,11 @@ def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s view of the stacked parameter tree."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
+
+
+def _layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters of a stack, ZeRO-3 slices gathered."""
+    return gathered(layer_params(params["layers"], i))
 
 
 # -------------------------------------------------------------- attention --
@@ -365,7 +414,8 @@ def _whole(flat: list, fulls: list) -> list:
     return out
 
 
-def _qkv(p, h, cfg: ModelConfig, rope, rot, whole: bool = False):
+def _qkv(p, h, cfg: ModelConfig, rope, rot, whole: bool = False,
+         seq: bool = False):
     """q, k, v of one block in heads: the linears, the biases (in the
     activation dtype), then qk-norm over d_head — always the exact
     ``rmsnorm``, as in the reference, whatever ``use_in_norm`` says —,
@@ -376,14 +426,22 @@ def _qkv(p, h, cfg: ModelConfig, rope, rot, whole: bool = False):
     ``wv`` narrower than ``KV * dh`` its kv columns; a whole one is
     replicated. Where the columns cut a head (:func:`_cut`), or with
     ``whole``, the split ones are gathered first (:func:`_whole`): then
-    every head comes back."""
-    B, S, _ = h.shape
+    every head comes back.
+
+    ``seq``: ``h`` is this rank's slice of the sequence, gathered once
+    for the three column-parallel projections (each reduce-scatters its
+    input gradient); q, k and v come back whole along the sequence."""
     dh = cfg.d_head
-    q = dense(h, p["wq"], cfg.approx, _col(p["wq"], cfg.n_heads * dh,
-                                           "heads"))
-    kv_col = _col(p["wk"], cfg.n_kv_heads * dh, "kv")
-    k = dense(h, p["wk"], cfg.approx, kv_col)
-    v = dense(h, p["wv"], cfg.approx, kv_col)
+    cols = [_col(p["wq"], cfg.n_heads * dh, "heads")] \
+        + [_col(p["wk"], cfg.n_kv_heads * dh, "kv")] * 2
+    full = None
+    if seq:
+        _sp_split(cfg, all(cols), "wq / wk / wv")
+        full = _gather(h, "heads", 1)
+        cols = [c + ("seq",) for c in cols]
+    q, k, v = (dense(h, p[name], cfg.approx, c, full)
+               for name, c in zip(("wq", "wk", "wv"), cols))
+    B, S = q.shape[:2]
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -439,18 +497,32 @@ def _join_heads(o, cfg: ModelConfig):
                       for r, n in enumerate(sizes)], -1)
 
 
-def _wo(p, o, x, cfg: ModelConfig):
+def _sp_split(cfg: ModelConfig, split: bool, what: str) -> None:
+    """Raise where sequence parallelism meets a linear the model ranks do
+    not split: its weight's gradient would come from this rank's rows
+    alone."""
+    if not split:
+        raise NotImplementedError(
+            f"{cfg.name}: sequence parallelism over "
+            f"{logical_axis_size('seq')} model ranks with {what} whole "
+            "(its width does not divide): every linear of an attention "
+            "block must split")
+
+
+def _wo(p, o, x, cfg: ModelConfig, seq: bool = False):
     """``x + o @ wo``: a split ``wo`` is row-parallel — its rows of the
     whole ``o`` (this rank's slice where ``o`` is whole here), the partial
     sums added —, so the residual stream stays replicated over the model
-    ranks."""
+    ranks. ``seq``: ``x`` is this rank's slice of the sequence (``o``
+    whole along it): the partial sums are reduce-scattered to the slice."""
     full = cfg.n_heads * cfg.d_head
     rows = _rows(p["wo"])
     if rows == full:
         return x + dense(o, p["wo"], cfg.approx)
     if o.shape[-1] == full:
         o = o.narrow(-1, rank_in("heads") * rows, rows)
-    return x + dense(o, p["wo"], cfg.approx, ("row", "heads"))
+    return x + dense(o, p["wo"], cfg.approx,
+                     ("row", "heads") + (("seq",) if seq else ()))
 
 
 def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
@@ -466,14 +538,27 @@ def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
     heads over K/V whole and repeated (they divide the query heads, the
     K/V columns stay whole); and, where a split cuts a head, every head
     gathered, this rank's heads attended (:func:`head_plan`) and the
-    output gathered back before ``wo``."""
-    B, S, _ = x.shape
+    output gathered back before ``wo``.
+
+    Sequence parallelism: where ``x`` has fewer rows than ``positions``
+    it is this rank's slice of the sequence (the reference's
+    ``shard(x, "batch", "seq", None)``): the norms run on the slice, the
+    projections and the attention on the whole sequence (:func:`_qkv`),
+    ``wo`` and the MLP's ``w2`` reduce-scatter back to the slice; the
+    norms' weights, used on this rank's rows alone, have their gradients
+    summed over the ranks (:func:`~repro_torch.launch.sharding.copy_to`
+    over ``"seq"``)."""
+    B, S = x.shape[0], positions.shape[1]
+    seq = x.shape[1] < S
+    if seq:
+        p = dict(p, ln_attn=seq_params(p["ln_attn"]),
+                 ln_mlp=seq_params(p["ln_mlp"]))
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     G = H // KV
     rope, rot = _rope_for(cfg, positions)
     h = apply_norm(x, p["ln_attn"], cfg.norm, cfg.norm_eps, cfg.approx)
     cut = _cut(p, cfg)
-    q, k, v = _qkv(p, h, cfg, rope, rot)
+    q, k, v = _qkv(p, h, cfg, rope, rot, seq=seq)
     h_loc, kv_loc = q.shape[2], k.shape[2]
     if cut:
         qs, ks, vs, _ = _plan_heads(q, k, v, cfg)
@@ -499,9 +584,9 @@ def attn_block_train(p, x, cfg: ModelConfig, positions, train=False):
         o = qs.new_zeros((B, S, 0))
     if cut:
         o = _join_heads(o, cfg)
-    x = _wo(p, o, x, cfg)
+    x = _wo(p, o, x, cfg, seq)
     h = apply_norm(x, p["ln_mlp"], cfg.norm, cfg.norm_eps, cfg.approx)
-    y, aux = _ffn(p, h, cfg, cfg.moe_capacity_factor)
+    y, aux = _ffn(p, h, cfg, cfg.moe_capacity_factor, seq)
     return x + y, (cache_kv(k, cfg), cache_kv(v, cfg)), aux
 
 
@@ -523,15 +608,20 @@ def cache_kv(t, cfg: ModelConfig):
     return t
 
 
-def _ffn(p, h, cfg: ModelConfig, capacity_factor: float):
+def _ffn(p, h, cfg: ModelConfig, capacity_factor: float,
+         seq: bool = False):
     """The block's MLP, or its MoE, and the MoE's aux loss (a float32
-    zero for an MLP; serving drops it, as the reference's does)."""
+    zero for an MLP; serving drops it, as the reference's does). ``seq``:
+    ``h`` is this rank's slice of the sequence."""
+    if seq:
+        w1 = p["moe"]["w1"] if "moe" in p else p["mlp"]["w1"]
+        _sp_split(cfg, _width(w1) < cfg.d_ff, "the MLP")
     if "moe" in p:
         return moe_ffn(h, p["moe"], top_k=cfg.n_experts_active,
                        capacity_factor=capacity_factor, approx=cfg.approx,
-                       split=_width(p["moe"]["w1"]) < cfg.d_ff)
+                       split=_width(p["moe"]["w1"]) < cfg.d_ff, seq=seq)
     return (mlp(h, p["mlp"], cfg.act, cfg.approx,
-                split=_width(p["mlp"]["w1"]) < cfg.d_ff),
+                split=_width(p["mlp"]["w1"]) < cfg.d_ff, seq=seq),
             _zero_aux(h.device))
 
 
@@ -602,11 +692,8 @@ def _decode_seq_split(q, k_cache, v_cache, k_new, v_new, pos, slot, seq, *,
     model rank 0 alone), one ``all_reduce`` SUM of both, then the
     finalize ``acc / l`` (the SIMDive divider where the config asks for
     it). The whole cache's arithmetic, the sums over ranks in another
-    order. A scalar ``pos`` only."""
-    if torch.is_tensor(pos) and pos.ndim:
-        raise NotImplementedError(
-            "a decode cache split over the sequence takes one position for "
-            "the batch; per-row positions need the whole cache on a rank")
+    order. ``pos`` / ``slot``: ints, or (B,) tensors (per-row positions:
+    each row's valid slots counted against its own position)."""
     from repro_torch.kernels.decode_attention import history_valid
     from repro_torch.launch.sharding import all_reduce_max
     from .layers import _finalize
@@ -662,6 +749,17 @@ def _token_index(slot, batch: int, device):
     return int(slot)
 
 
+def _owned_rows(local, n: int):
+    """Where :func:`_write_token` writes per-row slots ``local`` (B,)
+    (relative to this rank's first slot) on a rank holding ``n`` slots of
+    the sequence: ``(rows, slots, owned)``, a row's slot clamped into the
+    rank's range and written only where ``owned`` (read on the card:
+    nothing reaches the host)."""
+    owned = (local >= 0) & (local < n)
+    rows = torch.arange(local.shape[0], device=local.device)
+    return rows, local.clamp(0, n - 1), owned
+
+
 def _write_token(buf, i, at, new):
     """Write one decoded token's (B,1,KV,dh) slab into the stacked
     (L,B,Smax,KV,dh) cache at layer ``i``, at ``at`` (:func:`_token_index`)
@@ -671,7 +769,12 @@ def _write_token(buf, i, at, new):
     """
     if at is None:                     # another rank holds the slot
         return buf
-    if isinstance(at, tuple):
+    if isinstance(at, tuple) and len(at) == 3:
+        rows, slot, owned = at          # this rank's rows of the slots
+        old = buf[i, rows, slot]
+        buf[i, rows, slot] = torch.where(owned[:, None, None], new[:, 0],
+                                         old)
+    elif isinstance(at, tuple):
         rows, slot = at
         buf[i, rows, slot] = new[:, 0]
     else:
@@ -695,14 +798,14 @@ def hybrid_shared(params, g: int, dtype, width: int | None = None):
     taken: the unsplit merge's values bit for bit (the product of a
     column slice may round differently), which the SIMDive ``wq`` after
     it quantizes."""
-    sp = dict(params["shared"])
+    sp = gathered(dict(params["shared"]))
     if isinstance(sp["wq"], QuantizedWeight):
         raise NotImplementedError(
             "the hybrid stack's shared block merges a per-invocation LoRA "
             "delta into wq on every call; an int8 wq (--quantize) cannot "
             "take it (the reference's prefill raises TypeError there)")
-    la = params["lora_a"][g].to(dtype)
-    lb = params["lora_b"][g].to(dtype)
+    la = whole(params["lora_a"][g]).to(dtype)
+    lb = whole(params["lora_b"][g]).to(dtype)
     if width is not None and lb.shape[-1] < width:
         delta = scatter_to(la @ all_gather(lb, "heads", -1), 1, "heads")
     else:
@@ -844,7 +947,7 @@ def stack_train(params, x, cfg: ModelConfig, positions):
         carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
 
         def rwkv6_layer(p, xc):
-            return rwkv6_block(p, xc, carry0, H, cfg.ssm_chunk,
+            return rwkv6_block(gathered(p), xc, carry0, H, cfg.ssm_chunk,
                                cfg.approx, cfg.d_ff)[0]
 
         for p in layers:
@@ -854,7 +957,7 @@ def stack_train(params, x, cfg: ModelConfig, positions):
         carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
 
         def mamba2_layer(p, xc):
-            return mamba2_block(p, xc, carry0, cfg.ssm_state,
+            return mamba2_block(gathered(p), xc, carry0, cfg.ssm_state,
                                 cfg.ssm_head_dim, cfg.ssm_chunk,
                                 cfg.approx)[0]
 
@@ -868,7 +971,8 @@ def stack_train(params, x, cfg: ModelConfig, positions):
         return x, aux
     for lo, hi, seg_cfg in _approx_segments(cfg):
         def attn_layer(p, xc, seg_cfg=seg_cfg):
-            y, _, a = attn_block_train(p, xc, seg_cfg, positions, train=True)
+            y, _, a = attn_block_train(gathered(p), xc, seg_cfg, positions,
+                                       train=True)
             return y, a
 
         for i in range(lo, hi):
@@ -896,7 +1000,7 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
         carries, ks, vs = [], [], []
         for g, layers in _hybrid_groups(cfg):
             for i in layers:
-                x, c = mamba2_block(layer_params(params["layers"], i), x,
+                x, c = mamba2_block(_layer(params, i), x,
                                     carry0, cfg.ssm_state, cfg.ssm_head_dim,
                                     cfg.ssm_chunk, cfg.approx)
                 carries.append(_carry_out(cfg, c))
@@ -914,7 +1018,7 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
         carry0 = _carry0(cfg, x.shape[0], x.dtype, x.device)
         carries = []
         for i in range(cfg.n_layers):
-            x, c = rwkv6_block(layer_params(params["layers"], i), x, carry0,
+            x, c = rwkv6_block(_layer(params, i), x, carry0,
                                H, cfg.ssm_chunk, cfg.approx, cfg.d_ff)
             carries.append(_carry_out(cfg, c))
         return x, {"ssm": {k: torch.stack([c[k] for c in carries])
@@ -923,7 +1027,7 @@ def stack_prefill(params, x, cfg: ModelConfig, positions):
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
             x, (k, v), _ = attn_block_train(
-                layer_params(params["layers"], i), x, seg_cfg, positions)
+                _layer(params, i), x, seg_cfg, positions)
             ks.append(k)
             vs.append(v)
     return x, {"k": torch.stack(ks).to(x.dtype),
@@ -1016,7 +1120,7 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions,
     if cfg.family == "ssm":
         H, st = _rwkv6_heads(cfg), cache["ssm"]
         for i in range(cfg.n_layers):
-            x, c = rwkv6_block(layer_params(params["layers"], i), x,
+            x, c = rwkv6_block(_layer(params, i), x,
                                _carry_in(cfg, {k: a[i] for k, a in
                                                st.items()}), H, 1,
                                cfg.approx, cfg.d_ff)
@@ -1028,6 +1132,10 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions,
     if seq is None:
         at = _token_index(decode_slot(cfg, kc.shape[2], pos), x.shape[0],
                           kc.device)
+    elif torch.is_tensor(pos) and pos.ndim:
+        # each row's slot, written by the rank that holds it
+        at = _owned_rows(decode_slot(cfg, seq[1], pos) - seq[0],
+                         kc.shape[2])
     else:
         at = decode_slot(cfg, seq[1], int(pos)) - seq[0]
         at = at if 0 <= at < kc.shape[2] else None
@@ -1035,7 +1143,7 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions,
         st = cache["ssm"]
         for g, layers in _hybrid_groups(cfg):
             for i in layers:
-                x, c = mamba2_block(layer_params(params["layers"], i), x,
+                x, c = mamba2_block(_layer(params, i), x,
                                     _carry_in(cfg, {k: a[i] for k, a in
                                                     st.items()}),
                                     cfg.ssm_state, cfg.ssm_head_dim, 1,
@@ -1051,7 +1159,7 @@ def stack_decode(params, x, cfg: ModelConfig, cache, pos, positions,
     for lo, hi, seg_cfg in _approx_segments(cfg):
         for i in range(lo, hi):
             x, (k_new, v_new) = attn_block_decode(
-                layer_params(params["layers"], i), x, seg_cfg,
+                _layer(params, i), x, seg_cfg,
                 {"k": kc[i], "v": vc[i]}, pos, positions, seq)
             _write_token(kc, i, at, k_new)
             _write_token(vc, i, at, v_new)

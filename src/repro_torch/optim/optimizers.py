@@ -54,14 +54,15 @@ def global_norm(tree, split=None) -> torch.Tensor:
     sorted key order; ``None`` leaves add nothing.
 
     ``split``: on a bound mesh, a tree of ``tree``'s structure naming for
-    each leaf the logical axis whose ranks hold the rest of it (None: the
-    leaf is whole here). Those leaves' sums are added over their axis
-    (one ``all_reduce`` an axis), so every rank gets the whole tree's
-    norm."""
+    each leaf the logical axis whose ranks hold the rest of it, or a tuple
+    of such axes (None: the leaf is whole here). Those leaves' sums are
+    added over their axes (one ``all_reduce`` an axis and group of
+    leaves), so every rank gets the whole tree's norm."""
     leaves = tree_leaves(tree)
     axes = tree_leaves(split) if split is not None else [None] * len(leaves)
-    sq = [(g.to(_F32).square().sum(), ax) for g, ax in zip(leaves, axes)
-          if g is not None]
+    sq = [(g.to(_F32).square().sum(),
+           ax if ax is None or isinstance(ax, tuple) else (ax,))
+          for g, ax in zip(leaves, axes) if g is not None]
     if not sq:
         return torch.zeros((), dtype=_F32)
     if split is not None:
@@ -69,7 +70,9 @@ def global_norm(tree, split=None) -> torch.Tensor:
 
         for ax in sorted({ax for _, ax in sq if ax is not None}):
             idx = [i for i, (_, a) in enumerate(sq) if a == ax]
-            summed = all_reduce(torch.stack([sq[i][0] for i in idx]), ax)
+            summed = torch.stack([sq[i][0] for i in idx])
+            for name in ax:
+                summed = all_reduce(summed, name)
             for j, i in enumerate(idx):
                 sq[i] = (summed[j], ax)
     total = sq[0][0]

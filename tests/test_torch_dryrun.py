@@ -17,6 +17,7 @@ error.
 from __future__ import annotations
 
 import datetime
+import json
 import math
 import resource
 import time
@@ -267,10 +268,25 @@ def test_one_full_cell_per_family_traces(family):
 
 
 @pytest.mark.parametrize("flag", ["--sp", "--pure-dp", "--fsdp"])
-def test_flags_of_the_next_slice_name_their_reason(flag):
-    with pytest.raises(NotImplementedError, match="A-10e"):
+def test_flags_of_the_next_slice_name_their_reason(flag, tmp_path):
+    """The flags once refused (``--sp``, ``--pure-dp``, ``--fsdp``) run:
+    smollm-360m's train_4k single-pod cell (at one layer) records ``ok``
+    with the flag, under the CLI's record name; beside both placements
+    of the parameters (``--fsdp --pure-dp``) the CLI refuses it."""
+    key = flag[2:].replace("-", "_")
+    rec = dryrun.run_cell("smollm-360m", "train_4k", False,
+                          out_dir=str(tmp_path), layers_override=1,
+                          **{key: True})
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec[key] is True
+    (path,) = tmp_path.glob("*.json")
+    assert json.loads(path.read_text())["status"] == "ok"
+    assert path.stem.endswith(f"__{key}")
+    with pytest.raises(SystemExit) as refused:
         dryrun.main(["--arch", "smollm-360m", "--shape", "train_4k",
-                     "--mesh", "single", flag])
+                     "--mesh", "single", flag, "--fsdp", "--pure-dp",
+                     "--out", str(tmp_path)])
+    assert refused.value.code == 2
 
 
 def test_simdive_kernels_counted_only_where_the_config_runs_them():

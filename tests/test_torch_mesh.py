@@ -629,17 +629,23 @@ def _assert_equal(a, b):
 def test_refusals_name_their_reason(mesh_runs):
     """Splits once refused now place, their projections split over
     the model axis (rwkv6's and Mamba2's heads, smollm-360m's 15 query
-    heads cut over 2 ranks); the dry run's flags of the next slice
-    (ROADMAP A-10e) raise, naming it."""
+    heads cut over 2 ranks); the dry run's flags once refused (``--sp``,
+    ``--pure-dp``, ``--fsdp``) now lower, each named in the cell's
+    record, and the one combination left refused, ``--fsdp`` with
+    ``--pure-dp`` (two placements of the parameters), raises naming
+    it."""
     placed = mesh_runs["ranks"]["tp2"][0]["refusals"]
     for arch in ("rwkv6-1.6b", "zamba2-2.7b", "smollm-360m"):
         assert placed[arch] == (None, None, "model"), arch
     from repro_torch.launch import dryrun
 
     for flag in ("sp", "pure_dp", "fsdp"):
-        with pytest.raises(NotImplementedError, match="A-10e"):
-            dryrun.lower_cell("stablelm-1.6b", "train_4k", False,
-                              **{flag: True})
+        meta = dryrun.lower_cell("stablelm-1.6b", "train_4k", False,
+                                 **{flag: True})[-1]
+        assert meta[flag] is True, (flag, meta)
+    with pytest.raises(ValueError, match="two placements"):
+        dryrun.lower_cell("stablelm-1.6b", "train_4k", False, fsdp=True,
+                          pure_dp=True)
 
 
 if __name__ == "__main__":
