@@ -13,7 +13,12 @@ any phase fails. Phases:
 1. device   — require CUDA; print the card's name and power limit as
               ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. build    — compile every kernel under ``src/repro_torch/kernels/csrc``
-              with ``nvcc`` (one process per source, in parallel).
+              with ``nvcc`` (one process per source, in parallel); print
+              each ``logmatmul`` instantiation's registers and spills (the
+              large tile's must spill nothing) and, where ``cuobjdump``
+              exists, the large tile's product loops in SASS as opcode
+              counts a product: the width-8 FLOAT form and the GENERAL
+              form.
 3. kernels  — call each kernel's wrapper on GPU tensors and hold the result
               against its plain PyTorch version on the same inputs:
               ``elemwise`` bit-equal (exhaustive width-8 square, > 1 M
@@ -68,10 +73,15 @@ any phase fails. Phases:
               (``cudaOccupancyMaxActiveClusters``), and G 9, a position
               tensor left on the CPU and clusters of 0, 9 and 2.5 blocks
               refused before any launch; ``logmatmul`` bit-equal
-              for every registered block (the skinny tiles, depth 0 and the
-              cp.async ring) and every square block (compiled, no longer
-              registered) at the four (K, N) of smollm-360m's linears at
-              M = 2048 and 4 and qwen3-4b's seven at M = 4 and 64, plus
+              for every registered block (the skinny and the large-M
+              tiles, depth 0 and the cp.async ring) at the four (K, N) of
+              smollm-360m's linears at M = 2048 and 4 (every ring depth
+              1..4 of each tile equal to its depth 0), the training
+              step's weight-gradient products, Table 4's first layer and
+              qwen3-4b's seven at M = 4 and 64, plus the large tile's
+              edges (M 63 / 65 / 127 / 129 / 2047, K off the slab and
+              around each float partial sum's flush, N odd or under 128,
+              every product saturated at both signs, views off 16 bytes),
               ragged shapes, zeros, INT32_MIN,
               width-16 wrapping sums and Mitchell, and decode edges around
               the skinny tile's rows (M = 1, 3, 4, 5, 8, 9; N not a
@@ -190,7 +200,10 @@ any phase fails. Phases:
               schedule and ring depth; decode_attention at the decode
               step's shape at the planner's and every cluster size, and
               at cache 2048 / pos 2047, its SDPA over the cache plus the
-              new token with a boolean mask —, and the number of kernels one
+              new token with a boolean mask; ``logmatmul``: every
+              registered block, skinny and large, at M = 2048 and 4,
+              beside its bound over the SM's pipes (LOGMATMUL_PIPES) and
+              the bound that superseded it —, and the number of kernels one
               decode step puts on the card. A kernel's ``ms`` (and
               ``library_ms``) is device time with the host taken out (many
               launches replayed from one CUDA graph); the eager per-call
@@ -230,10 +243,10 @@ any phase fails. Phases:
               flip at bit 31 for each, and the pack site
               ``FaultSpec(site="pack", bit=7, width=16)``: ``elemwise``,
               ``packed`` (against ``packed_word_op``) and ``logmatmul``
-              (the three registered blocks, both schedules, and a square
-              tile, which must refuse a log fault above bit 19 before
-              launching) ``torch.equal``; ``flash_attention`` (depth 0 and
-              ring), ``decode_attention`` and the finalize (bit for bit)
+              (every registered block, both schedules, each taking a
+              log fault above bit 19) ``torch.equal``;
+              ``flash_attention`` (depth 0 and ring),
+              ``decode_attention`` and the finalize (bit for bit)
               at the divider's serving spec within ``judge_attention``'s
               tolerances, on inputs whose softmax sums are exact; every
               output moved from its disarmed one exactly where the plain
@@ -461,9 +474,9 @@ any phase fails. Phases:
               dropped. (a) ``logmatmul`` at the gradient products'
               shapes, gx (2048, N_out) x (N_out, K_in) and gw (K_in,
               2048) x (2048, N_out) of ``wq`` and ``w2``, every
-              registered block ``torch.equal`` to its plain version on
-              256 rows, timed beside its bound; ``elemwise`` at the
-              training finalize's (4, 5, 3, 512, 64) lanes
+              registered block (skinny and large) ``torch.equal`` to its
+              plain version on 256 rows, timed beside its bound;
+              ``elemwise`` at the training finalize's (4, 5, 3, 512, 64) lanes
               ``torch.equal`` to its plain version. (b)-(d) under
               ``torch.use_deterministic_algorithms``: (b) one
               ``make_train_step`` step at 2 of 32 layers, batch 2 x 128,
@@ -486,8 +499,8 @@ any phase fails. Phases:
               (a) ``logmatmul`` at Table 4's layer shapes, (1000, 784) x
               (784, 100), (1000, 100) x (100, 100), (1000, 100) x (100,
               10), every rung of ``default_candidates("matmul")`` and the
-              Mitchell rung, every registered block and two square ones,
-              bit-equal to ``logmatmul_ref`` (int32) and, in its wide
+              Mitchell rung, every registered block, bit-equal to
+              ``logmatmul_ref`` (int32) and, in its wide
               form, to ``logmatmul_wide_ref`` (int64), and
               ``matmul_emul``'s kernel path (the wide form at width 16)
               to its int64 plain version; the wide form timed against the
@@ -678,40 +691,46 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 # 32-bit integer operations: 64 INT32 lanes per SM per clock on Hopper; the
 # rate is SM count x 64 x the maximum SM clock, both read on the card
-# (int32_ops_per_s). The work is the least number of integer operations the
-# function needs, counted from the datapath (csrc/simdive_datapath.cuh and
-# its plain version kernels/datapath.py), not the instructions a kernel
-# happens to issue. Table reads are shared-memory loads and not counted.
-# Integer multiply-adds (IMAD, which also gives an add or a constant left
-# shift) issue on the FMA pipe, 64 lanes an SM a clock beside the INT32
-# lanes; an SM issues at most 4 warp instructions a clock, 128 lanes. So
-# logmatmul's bound is the larger of its operations over 128 lanes and the
-# operations that only the INT32 lanes take over 64 (logmatmul_ops_ms); the
-# elemwise and packed counts are all taken on the INT32 lanes.
-# One signed SIMDive product at width 8 with rounding, its operands already
-# converted (log value, region-index half as a table byte offset, sign as
-# -1 / 0 / +1, a zero magnitude having sign 0), one instruction each
-# (three-input forms such as IADD3 and LOP3 count once):
-#   INT32 lanes only: ternary add la + lb + corr 1, clip at 0 1, integer
-#   part ls >> F 1, mantissa (ls & (2^F - 1)) | 2^F 1, anti-log mant << I 1,
-#   >> F 1 (the two shifts give the reference's round-half-up right shift
-#   and its exact left shift alike), saturate to 2^16 - 1 1: 7;
-#   either pipe: table offset hx + hw (the OR of the index halves) 1,
-#   rounding add 2^(F-1) 1, product sign sx * sw 1, signed accumulate
-#   acc + p * (sx * sw) 1 (the zero select, sign join and accumulate in one
-#   multiply-add): 4.
-LOGMATMUL_OPS_PER_PRODUCT = 11
-LOGMATMUL_INT_ONLY_PER_PRODUCT = 7
-# Converting one operand element, once: INT32 lanes only: sign test 1, |v|
-# 1, clamp to the lane 1, leading one (FLO) 1, 1 << k 1, fraction
-# v ^ (1 << k) 1, align frac << (F - k) 1, zero flag 1: 8; either pipe:
-# F - k 1, log value (k << F) + frac 1: 2.
-LOGMATMUL_OPS_PER_OPERAND = 10
-LOGMATMUL_INT_ONLY_PER_OPERAND = 8
-# the earlier count, all on the INT32 lanes — 14 a product, 11 an operand —
-# which the skinny tile beats at M = 2048; reported beside the new bound
-# as superseded
-LOGMATMUL_SUPERSEDED_OPS = (14, 11)
+# (int32_ops_per_s). The elemwise, packed and sqrt counts below are the
+# least number of integer operations each function needs, counted from the
+# datapath (csrc/simdive_datapath.cuh and its plain version
+# kernels/datapath.py), all taken on the INT32 lanes.
+#
+# logmatmul's bound is the least work of its products and operand
+# conversions over the pipes an SM has, each over its own rate a clock
+# (LOGMATMUL_PIPES: scaled to the card by int32_ops_per_s / 64): the INT32
+# lanes 64 (adds, shifts, logic, min / max), the FP32 lanes 128, shared-
+# memory loads 32 (128 bytes a clock: one 4-byte table read a lane) and
+# the issue of 4 warp instructions (128 lanes); the busiest pipe gives the
+# time (logmatmul_ops_ms). One signed SIMDive product at width 8 with
+# rounding, its operands converted once, needs at least:
+#   a table read, the coefficient of its region (a shared-memory load) 1;
+#   on the INT32 lanes: the table offset hx + hw 1 and the ternary sum
+#   la + lb + corr 1 — in the float route (csrc/logmatmul.cuh, the FLOAT
+#   form) that same IADD3 of pre-shifted words builds the product's float
+#   bits, the anti-log's exponent and mantissa;
+#   on the FP32 lanes: one add that rounds the anti-log half up and
+#   accumulates it with its sign, into a partial sum held where the float
+#   grid is the integers 1;
+#   4 issue slots. The clamp at the bus maximum is left out: only products
+#   whose ternary sum reaches 16 x 2^7 saturate, and a kernel that knows
+#   none can could skip it.
+# Each pipe takes 1/32 of an SM clock a product (INT32 2/64, LDS 1/32,
+# issue 4/128). Converting one operand element, once: 10 integer
+# operations (sign test, |v|, clamp to the lane, leading one, 1 << k,
+# fraction, alignment, zero flag, F - k, (k << F) + frac), on the INT32
+# lanes and 10 issue slots. A kernel timed under this bound means the bound
+# is wrong, never that the kernel is right.
+LOGMATMUL_PIPES = {"int32": 64, "fp32": 128, "lds": 32, "issue": 128}
+LOGMATMUL_PRODUCT_WORK = {"int32": 2, "fp32": 1, "lds": 1, "issue": 4}
+LOGMATMUL_OPERAND_WORK = {"int32": 10, "issue": 10}
+# the bound this one supersedes (reported beside it): all of it integer
+# work, 11 operations a product of which 7 only the INT32 lanes take (the
+# clip, integer part, mantissa, the two anti-log shifts, the saturation, the
+# ternary add) and 4 that also issue as IMAD on the FMA pipe (offset,
+# rounding add, sign product, signed accumulate); 10 an operand, 8 of them
+# INT32-only — over 128 lanes all, or 64 the INT32-only, the longer
+LOGMATMUL_SUPERSEDED_OPS = (11, 7, 10, 8)
 # One elemwise div lane (width 16, rounding; the quotient of the decode
 # finalize is below one, so the right-shift path): two LOD + log
 # conversions 2 x 6 (FLO, 1 << k, xor, F - k, shift, (k << F) | frac),
@@ -828,11 +847,9 @@ ATTENTION_RING_BLOCK = (64, 64, 2)
 # the registered logmatmul ring block the full-size --emulate run is pinned
 # to (the depth-0 pin is the default block)
 MATMUL_RING_BLOCK = (4, 128, 256, 4, 2)
-# the square logmatmul blocks: compiled and callable with block=, no longer
-# registered; held against the plain version and timed beside the
-# registered blocks
-SQUARE_BLOCKS = ((64, 64, 32, 4, 0), (64, 64, 32, 4, 2), (64, 64, 32, 4, 4),
-                 (16, 64, 64, 4, 0), (16, 64, 64, 4, 3))
+# the registered large-M logmatmul blocks phase 16 times beside the
+# skinny ones at the studies' shapes: depth 0 and its ring
+LARGE_BLOCK, LARGE_RING_BLOCK = (64, 128, 32, 2, 0), (64, 128, 32, 2, 2)
 # phase 8: the served policy's layer segments [lo, hi) of smollm-360m's 32
 # layers, each with its attention divider entry and, on --emulate, its
 # matmul entry. The first is the config's own divider written out with
@@ -1124,15 +1141,27 @@ def int32_ops_per_s(dev) -> float:
 
 
 def logmatmul_ops_ms(M: int, K: int, N: int, int_rate: float) -> float:
-    """Least time of (M, K) @ (K, N)'s integer operations: all of them over
-    the INT32 lanes and the FMA pipe together (2 x ``int_rate``), or those
-    only the INT32 lanes take over ``int_rate``, whichever is longer."""
+    """Least time of (M, K) @ (K, N)'s products and operand conversions:
+    the busiest of LOGMATMUL_PIPES, each pipe's work over its rate
+    (``int_rate`` / 64 SM clocks a second, times its lanes)."""
     products, operands = M * K * N, M * K + K * N
-    total = (products * LOGMATMUL_OPS_PER_PRODUCT
-             + operands * LOGMATMUL_OPS_PER_OPERAND)
-    int_only = (products * LOGMATMUL_INT_ONLY_PER_PRODUCT
-                + operands * LOGMATMUL_INT_ONLY_PER_OPERAND)
-    return max(total / (2 * int_rate), int_only / int_rate) * 1e3
+    clocks = int_rate / 64
+    return max((products * LOGMATMUL_PRODUCT_WORK.get(p, 0)
+                + operands * LOGMATMUL_OPERAND_WORK.get(p, 0))
+               / (lanes * clocks)
+               for p, lanes in LOGMATMUL_PIPES.items()) * 1e3
+
+
+def logmatmul_ops_ms_superseded(M: int, K: int, N: int,
+                                int_rate: float) -> float:
+    """The bound :func:`logmatmul_ops_ms` supersedes
+    (LOGMATMUL_SUPERSEDED_OPS): every operation over the INT32 lanes and
+    the FMA pipe together (2 x ``int_rate``), or the INT32-only ones over
+    ``int_rate``, the longer."""
+    per_p, int_p, per_o, int_o = LOGMATMUL_SUPERSEDED_OPS
+    products, operands = M * K * N, M * K + K * N
+    return max((products * per_p + operands * per_o) / (2 * int_rate),
+               (products * int_p + operands * int_o) / int_rate) * 1e3
 
 
 def gpu_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1233,23 +1262,34 @@ def count_device_kernels(fn):
     return None if prof is None else sum(n for n, _ in prof[1].values())
 
 
-def skinny_ptxas(text: str) -> list:
-    """Registers and spill bytes of each skinny logmatmul instantiation,
-    from ``nvcc -Xptxas -v`` output."""
+def logmatmul_ptxas(text: str) -> list:
+    """Registers and spill bytes of each logmatmul instantiation, the
+    skinny tiles' and the large tiles', from ``nvcc -Xptxas -v`` output."""
     import re
 
-    entry = re.compile(r"Compiling entry function '\S*logmatmul_skinny_kernel"
-                       r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E([jy])")
+    skinny = re.compile(r"Compiling entry function '\S*logmatmul_skinny_kernel"
+                        r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E([jy])")
+    large = re.compile(r"Compiling entry function '\S*logmatmul_large_kernel"
+                       r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E([jy])")
     found, cur = [], None
     for line in text.splitlines():
-        m = entry.search(line)
+        m = skinny.search(line)
         if m:
             w, mr, ku, pipe, vec = (int(g) for g in m.groups()[:5])
             # the accumulator: j = uint32 (the int32 form), y = uint64 (wide)
-            cur = {"tile": f"w{w} MR {mr} k_unroll {ku} "
+            cur = {"family": "skinny",
+                   "tile": f"w{w} MR {mr} k_unroll {ku} "
                            f"{'ring' if pipe else 'depth 0'} "
                            f"{'16-byte' if vec else 'scalar'} loads"
                            f"{' wide' if m.group(6) == 'y' else ''}"}
+            continue
+        m = large.search(line)
+        if m:
+            w, bm, ku, pipe = (int(g) for g in m.groups()[:4])
+            cur = {"family": "large",
+                   "tile": f"w{w} {bm} x 128 k_unroll {ku} "
+                           f"{'ring' if pipe else 'depth 0'}"
+                           f"{' wide' if m.group(5) == 'y' else ''}"}
             continue
         if cur is None:
             continue
@@ -1263,6 +1303,121 @@ def skinny_ptxas(text: str) -> list:
             found.append(cur)
             cur = None
     return found
+
+
+def start_logmatmul_sass(build):
+    """Start ``cuobjdump -sass`` on the built library in the background
+    (its text lands in a temporary file; :func:`logmatmul_sass` reads it),
+    where the toolkit has cuobjdump; None where it has not."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    exe = shutil.which("cuobjdump") or next(
+        (str(p) for p in (Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+                          / "bin" / "cuobjdump",) if p.exists()), None)
+    lib = next(build.build_dir().rglob("libsimdive_kernels.so"), None)
+    if exe is None or lib is None:
+        log("  SASS: cuobjdump or the library not found; not read")
+        return None
+    out = tempfile.NamedTemporaryFile(prefix="chip_smoke_sass_",
+                                      suffix=".txt", delete=False)
+    proc = subprocess.Popen([exe, "-sass", str(lib)], stdout=out,
+                            stderr=subprocess.DEVNULL)
+    path = Path(out.name)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        path.unlink(missing_ok=True)
+
+    atexit.register(stop)
+    return SimpleNamespace(proc=proc, path=path, file=out)
+
+
+def logmatmul_sass(started) -> dict | None:
+    """The large tile's product loops in SASS, from
+    :func:`start_logmatmul_sass`'s dump: the int32 form's 64-row depth-0
+    kernel (the untimed default from 64 rows), at width 8 its FLOAT
+    form's loop (the one holding FMNMX) and at width 16 its GENERAL
+    form's, each as opcode counts a product (a thread's register tile is
+    BM / 8 x 4: the FLOAT loop holds k_unroll such tiles, the GENERAL loop
+    one)."""
+    import re
+
+    if started is None:
+        return None
+    try:
+        started.proc.wait(timeout=600)
+    finally:
+        started.file.close()
+    funcs, cur = {}, None
+    with started.path.open() as f:
+        for line in f:
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = m.group(1) if ("logmatmul_large_cu" in m.group(1)
+                                     and "Li64ELi2ELb0EjE" in m.group(1)) \
+                    else None
+                if cur:
+                    funcs[cur] = []
+                continue
+            if cur:
+                funcs[cur].append(line)
+    started.path.unlink(missing_ok=True)
+    out = {}
+    for name, lines in funcs.items():
+        width, bm, ku = (int(g) for g in re.search(
+            r"large_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name).groups())
+        tile = bm // 8 * 4
+        # a branch names its target by label (.L_x_N) or by address (0x..)
+        targets, ins = {}, []
+        for line in lines:
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                targets[m.group(1)] = len(ins)
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+            if m:
+                targets[int(m.group(1), 16)] = len(ins)
+                ins.append((m.group(2).split(".")[0], m.group(3)))
+        loops = []
+        for i, (op, args) in enumerate(ins):
+            if op != "BRA":
+                continue
+            t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", args)
+            start = None if t is None else targets.get(
+                t.group(1) or int(t.group(2), 16))
+            if start is not None and start <= i:
+                hist = {}
+                for o, _ in ins[start:i + 1]:
+                    hist[o] = hist.get(o, 0) + 1
+                loops.append(hist)
+        if width == 8:
+            form, products = "w8 FLOAT", ku * tile
+            found = [h for h in loops if h.get("FMNMX", 0) >= 2 * products]
+        else:
+            form, products = "w16 GENERAL", tile
+            found = [h for h in loops if h.get("LDS", 0) >= products]
+        if not found:
+            log(f"  SASS {form}: no product loop found ({len(ins)} "
+                f"instructions, {len(loops)} loops)")
+            continue
+        # the innermost such loop: the slab loop around it holds it all
+        hist = min(found, key=lambda h: sum(h.values()))
+        per = {o: n / products for o, n in sorted(hist.items(),
+                                                  key=lambda t: -t[1])}
+        out[form] = {"per_product": per,
+                     "loop_instructions": sum(hist.values()),
+                     "products": products}
+        log(f"  SASS {form} product loop: {sum(hist.values())} "
+            f"instructions for {products} products, a product: "
+            + ", ".join(f"{o} {n:.3g}" for o, n in per.items() if n >= 0.05))
+    return out
 
 
 def close(got, want, *, atol, rtol):
@@ -1834,10 +1989,11 @@ def check_decode_attention(dev):
 
 
 def check_logmatmul(dev):
-    """Every registered block vs ``logmatmul_ref``, bit for bit; at decode
-    shapes also every ring depth of each skinny tile against its depth 0;
-    at the edge cases also the wide (int64) form of every block and ring
-    depth against ``logmatmul_wide_ref``.
+    """Every registered block vs ``logmatmul_ref``, bit for bit; at the
+    main path's shapes and the edges also every ring depth of each tile
+    (skinny and large) against its depth 0; at the edge cases also the
+    wide (int64) form of every block and ring depth against
+    ``logmatmul_wide_ref``.
     Returns (worst abs difference, {(M, K, N): plain-version ms},
     {arch: bit-equal (shape, block) runs} at qwen3-4b's seven linears and
     rwkv6-1.6b's eight)."""
@@ -1848,11 +2004,11 @@ def check_logmatmul(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     blocks = get_op("matmul_int", SimdiveSpec()).entry.block_candidates
-    # each skinny tile's registered depth-0 block, to be held against its
-    # ring at every depth the kernel takes
-    skinny0 = [b for b in blocks if lm.is_skinny(b) and b[4] == 0]
-    blocks = (*blocks, *SQUARE_BLOCKS)
-    require(bool(skinny0), "no skinny depth-0 block is registered")
+    # each tile's registered depth-0 block, to be held against its ring at
+    # every depth the kernel takes
+    depth0 = [b for b in blocks if b[4] == 0]
+    require({lm.is_skinny(b) for b in depth0} == {True, False},
+            "no skinny or no large depth-0 block is registered")
     plain_ms = {}
     worst = 0
     ring_runs = 0
@@ -1886,18 +2042,18 @@ def check_logmatmul(dev):
                     f"logmatmul {name} block {block}: {nbad} of "
                     f"{want.numel()} outputs differ from the plain version")
         if depths:
-            for b0 in skinny0:
+            for b0 in depth0:
                 for depth in range(1, lm._MAX_DEPTH + 1):
                     ring = (*b0[:4], depth)
                     got = lm.logmatmul_cuda(x, w, spec, ring)
                     torch.cuda.synchronize()
                     require(torch.equal(got, got_by[b0]),
-                            f"logmatmul {name}: skinny ring {ring} differs "
+                            f"logmatmul {name}: ring {ring} differs "
                             f"from its depth 0 {b0}")
                     ring_runs += 1
         if wide:
             want = lm.logmatmul_wide_ref(x, w, spec)
-            rings = [(*b0[:4], d) for b0 in skinny0
+            rings = [(*b0[:4], d) for b0 in depth0
                      for d in range(1, lm._MAX_DEPTH + 1)] if depths else []
             for block in (*blocks, *rings):
                 got = lm.logmatmul_cuda(x, w, spec, block, wide=True)
@@ -1906,10 +2062,10 @@ def check_logmatmul(dev):
                         f"logmatmul {name} block {block}, wide form: "
                         f"{int((got != want).sum())} of {want.numel()} "
                         "outputs differ from logmatmul_wide_ref")
-        log(f"  logmatmul {name}: bit-equal for all {len(blocks)} blocks "
-            "(registered and square)"
-            + (f"; skinny rings at depths 1..{lm._MAX_DEPTH} equal to "
-               "depth 0" if depths else "")
+        log(f"  logmatmul {name}: bit-equal for all {len(blocks)} "
+            "registered blocks"
+            + (f"; skinny and large rings at depths 1..{lm._MAX_DEPTH} "
+               "equal to depth 0" if depths else "")
             + ("; the wide form of each equal to logmatmul_wide_ref"
                if wide else ""))
 
@@ -1918,7 +2074,36 @@ def check_logmatmul(dev):
         for K, N in sorted({(k, n) for _, k, n in LINEARS}):
             x, w = ints((M, K), 256), ints((K, N), 256)
             run(f"({M},{K})@({K},{N}) w8 cb6", x, w, serving, timed=True,
-                depths=M == 4)
+                depths=True)
+    # the training step's weight-gradient products (phase 15; its input
+    # gradients run the shapes above) and Table 4's first layer (phase 16),
+    # every row
+    for name, k_in, n_out in TRAIN_GRAD_LINEARS:
+        M = TRAIN_BATCH * TRAIN_SEQ
+        run(f"{name} gw ({k_in},{M})@({M},{n_out})", ints((k_in, M), 256),
+            ints((M, n_out), 256), serving)
+    run("Table 4 (1000,784)@(784,100)", ints((1000, 784), 256),
+        ints((784, 100), 256), serving, depths=True, wide=True)
+    # the large tile's edges: rows around its 64 and 128 and the prefill's
+    # 2,048; K off the 32-k slab and around the float partial sums' flush
+    # (every slab); N odd and under the 128 columns; every operand +-255
+    # (saturating products at both signs) and INT32_MIN
+    for M, K, N in ((63, 100, 130), (65, 33, 7), (2047, 96, 131),
+                    (129, 65, 128), (127, 513, 255)):
+        x, w = ints((M, K), 256), ints((K, N), 256)
+        x[0, :] = 255
+        x[1, :] = -255
+        w[:, 0] = 255
+        w[:, -1] = -(1 << 31)
+        x[-1, ::2] = -(1 << 31)
+        run(f"large edge ({M},{K})@({K},{N}), +-255, INT32_MIN", x, w,
+            serving, depths=True, wide=True)
+    for K in (31, 32, 64, 65, 257):
+        sat = torch.full((65, K), 255, dtype=torch.int32, device=dev)
+        sat[1::2] = -255
+        run(f"flush (65,{K})@({K},130), every product saturated",
+            sat, torch.full((K, 130), 255, dtype=torch.int32, device=dev),
+            serving, depths=True, wide=True)
     # qwen3-4b's seven linears (phase 10) and rwkv6-1.6b's eight (phase
     # 13): a decode step's 4 rows, and 64 standing for the prefill's 2,048
     # (the int64 plain version of a full prefill layer's seven linears
@@ -1959,8 +2144,8 @@ def check_logmatmul(dev):
     run("decode edge (9,2560)@(2560,960)", ints((9, 2560), 256),
         ints((2560, 960), 256), serving, depths=True, wide=True)
     # operands 4 bytes off a 16-byte boundary (contiguous views into a
-    # larger buffer): the skinny tile must take its scalar loads
-    for M, K, N in ((4, 960, 960), (5, 960, 388)):
+    # larger buffer): both tiles must take their scalar loads
+    for M, K, N in ((4, 960, 960), (5, 960, 388), (130, 960, 388)):
         xb = torch.empty(M * K + 1, dtype=torch.int32, device=dev)
         wb = torch.empty(K * N + 1, dtype=torch.int32, device=dev)
         x, w = xb[1:].view(M, K), wb[1:].view(K, N)
@@ -2011,8 +2196,8 @@ def check_logmatmul(dev):
                 f"matmul_emul ({M},{K})@({K},{N}) w16: no sum past 2^31")
     log("  matmul_emul: kernel path bit-equal to the int64 plain version "
         "at widths 8 and 16 (the wide form, sums past 2^31)")
-    log(f"  logmatmul skinny rings: {ring_runs} (case, tile, depth) runs "
-        "equal to their depth 0")
+    log(f"  logmatmul rings: {ring_runs} (case, tile, depth) runs equal to "
+        "their depth 0")
     return float(worst), plain_ms, arch_runs
 
 
@@ -3251,8 +3436,8 @@ def measure(dev, served, int_rate):
 
 def measure_logmatmul(dev, plain_ms, int_rate):
     """Both schedules at the main path's shapes. Per (M, K, N): every
-    registered block and every square block by graph replay, the fastest
-    registered block of each schedule kept,
+    registered block (the skinny tiles and the large ones) by graph
+    replay, the fastest of each schedule kept,
     its eager per-call time, the plain version's time (phase 3), the bound
     and the exact bf16 ``torch.matmul`` of the same shape as context. The
     kernel lines sum the seven linears of one layer at M = 2048."""
@@ -3262,8 +3447,7 @@ def measure_logmatmul(dev, plain_ms, int_rate):
     from repro_torch.kernels import logmatmul as lm
 
     spec = SimdiveSpec(width=8, coeff_bits=6)
-    registered = get_op("matmul_int", spec).entry.block_candidates
-    blocks = (*registered, *SQUARE_BLOCKS)
+    registered = blocks = get_op("matmul_int", spec).entry.block_candidates
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     shapes = {}
     for M in (2048, 4):
@@ -3295,10 +3479,8 @@ def measure_logmatmul(dev, plain_ms, int_rate):
             zeros = torch.empty((M, N), dtype=torch.int32, device=dev)
             row["zero_out_ms"] = gpu_graph_time_ms(zeros.zero_, iters=50)
             row["ops_ms"] = logmatmul_ops_ms(M, K, N, int_rate)
-            per_product, per_operand = LOGMATMUL_SUPERSEDED_OPS
-            row["ops_ms_superseded"] = (M * K * N * per_product
-                                        + (M * K + K * N) * per_operand
-                                        ) / int_rate * 1e3
+            row["ops_ms_superseded"] = logmatmul_ops_ms_superseded(
+                M, K, N, int_rate)
             row["bytes_ms"] = (M * K + K * N + M * N) * 4 \
                 / HBM_BYTES_PER_S * 1e3
             row["plain_ms"] = plain_ms[(M, K, N)]
@@ -4012,16 +4194,16 @@ def fault_kernels(dev) -> dict:
     :func:`fault_sites`, the same arming for both. ``elemwise`` and
     ``packed`` (against ``packed_word_op``, the kernel body as a plain
     function, which fires the pack hook) run every site at its op and
-    width; ``logmatmul`` (the three registered blocks, both schedules, and
-    the 64 x 64 square tile, each in its int32 and its wide int64 form)
-    every site listed under mul; the attention
+    width; ``logmatmul`` (every registered block — the skinny and the
+    large tiles, both schedules — each in its int32 and its wide int64
+    form) every site listed under mul; the attention
     kernels (``flash_attention`` depth 0 and ring, ``decode_attention``,
     the finalize alone) every width-16 site listed under div, at the
     divider's serving spec. Integers ``torch.equal``; attention within
     ``judge_attention``'s tolerances, the finalize bit for bit. Each
     kernel's output must have moved from its disarmed output exactly
-    where the plain version's did. A square tile under a log fault above
-    its operand word's bits must refuse before launching. Returns the
+    where the plain version's did. Every block takes every arming, a log
+    fault above bit 19 included (whole 32-bit log words). Returns the
     counts."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
@@ -4036,7 +4218,6 @@ def fault_kernels(dev) -> dict:
 
     ops = _fault_operands(dev)
     serving = SimdiveSpec(width=16, coeff_bits=6)
-    square = SQUARE_BLOCKS[0]
 
     def cb(w):
         return 6 if w == 8 else 8
@@ -4100,12 +4281,12 @@ def fault_kernels(dev) -> dict:
     for w in (8, 16):
         for wide in (False, True):
             base["matmul_ref", w, wide] = matmul_ref(w, wide)
-            for block in (*lm_k.BLOCK_CANDIDATES, square):
+            for block in lm_k.BLOCK_CANDIDATES:
                 base["matmul", w, block, wide] = run_matmul(w, block, wide)
     base["attention"] = run_attention()
     torch.cuda.synchronize()
 
-    stats = {"sites": 0, "checks": 0, "changed": {}, "refused": 0}
+    stats = {"sites": 0, "checks": 0, "changed": {}, "high_log": 0}
 
     def held(name, got, want, got0, want0, *, approx=False):
         if approx:
@@ -4132,23 +4313,17 @@ def fault_kernels(dev) -> dict:
             held("packed", got, want, *base["packed", op, w])
             for wide in ((False, True) if op == "mul" else ()):
                 want = matmul_ref(w, wide)
-                for block in (*lm_k.BLOCK_CANDIDATES, square):
-                    try:
-                        got = run_matmul(w, block, wide)
-                    except ValueError:
-                        require(block == square and spec.site == "log"
-                                and spec.bit >= 20,
-                                f"logmatmul {block} refused {spec}")
-                        stats["refused"] += 1
-                        continue
+                for block in lm_k.BLOCK_CANDIDATES:
+                    got = run_matmul(w, block, wide)
                     name = ("logmatmul" if not lm_k.split_block(block)[2]
                             else "logmatmul_pipelined")
-                    if block == square:
-                        name = "logmatmul_square"
+                    if lm_k.is_large(block):
+                        name += "_large"
                     if wide:
                         name += "_wide"
                     held(name, got, want, base["matmul", w, block, wide],
                          base["matmul_ref", w, wide])
+                    stats["high_log"] += spec.site == "log" and spec.bit >= 20
             if op == "div" and w == 16:
                 got, want = run_attention()
                 got0, want0 = base["attention"]
@@ -4156,12 +4331,12 @@ def fault_kernels(dev) -> dict:
                     held(name, got[name], want[name], got0[name],
                          want0[name], approx=name != "finalize")
         torch.cuda.synchronize()
-    require(stats["refused"] > 0, "no square logmatmul tile refused a log "
-                                  "fault above bit 19")
+    require(stats["high_log"] > 0, "no logmatmul block ran under a log "
+                                   "fault above bit 19")
     log(f"  (a) {stats['sites']} sites, {stats['checks']} kernel-vs-plain "
         f"checks under the same arming, all held; outputs moved at "
-        f"{stats['changed']} sites; the square tile refused "
-        f"{stats['refused']} log fault(s) above its 20-bit log field")
+        f"{stats['changed']} sites; every block took every arming, "
+        f"{stats['high_log']} runs under a log fault above bit 19")
     return stats
 
 
@@ -6629,12 +6804,14 @@ def train_full_width(dev, int_rate) -> dict:
     # forward twice (the remat re-run), and gx (M, N) x (N, K) and gw
     # (K, M) x (M, N) of every linear but wq / wk / wv (R-8)
     M = TRAIN_BATCH * TRAIN_SEQ
-    res["logmatmul_bound_ms"] = cfg.n_layers * sum(
-        2 * logmatmul_ops_ms(M, k, n, int_rate)
-        + (0 if name in ("wq", "wk", "wv") else
-           logmatmul_ops_ms(M, n, k, int_rate)
-           + logmatmul_ops_ms(k, M, n, int_rate))
-        for name, k, n in LINEARS)
+    for key, bound in (("logmatmul_bound_ms", logmatmul_ops_ms),
+                       ("logmatmul_bound_ms_superseded",
+                        logmatmul_ops_ms_superseded)):
+        res[key] = cfg.n_layers * sum(
+            2 * bound(M, k, n, int_rate)
+            + (0 if name in ("wq", "wk", "wv") else
+               bound(M, n, k, int_rate) + bound(k, M, n, int_rate))
+            for name, k, n in LINEARS)
     if prof is not None:
         busy, by = prof
         top = sorted(by.items(), key=lambda kv: -kv[1][1])[:10]
@@ -6646,7 +6823,9 @@ def train_full_width(dev, int_rate) -> dict:
                                     if "FillFunctor" in n)
         log(f"  one step's device time {busy:.1f} ms: logmatmul "
             f"{mm:.1f} ms ({mm / res['logmatmul_bound_ms']:.2f}x its "
-            f"operations bound {res['logmatmul_bound_ms']:.1f} ms), fills "
+            f"operations bound {res['logmatmul_bound_ms']:.1f} ms; the "
+            f"superseded one {res['logmatmul_bound_ms_superseded']:.1f} "
+            f"ms), fills "
             f"{res['device_fill_ms']:.1f} ms; the top kernels: "
             + "; ".join(f"{n[:50]} x{c} {ms:.1f} ms" for n, (c, ms) in top))
     del params, state, step, lm, batch
@@ -6822,7 +7001,7 @@ def app_matmul_checks(dev, int_rate) -> dict:
     """Phase 16 (a), the matmuls: at Table 4's three layer shapes, every
     rung of ``default_candidates("matmul")`` and the Mitchell rung,
     ``logmatmul`` bit-equal to its plain version for every registered
-    block and two square ones, in its int32 form (``matmul_int``'s
+    block, in its int32 form (``matmul_int``'s
     wrap-around contract) and its wide form (``logmatmul_wide_ref``), and
     ``matmul_emul``'s kernel path (the wide form where int32 could wrap:
     every width-16 call) bit-equal to its int64 plain version; then the
@@ -6840,8 +7019,7 @@ def app_matmul_checks(dev, int_rate) -> dict:
              for c in default_candidates("matmul")]
     specs.append(("mitchell w8", SimdiveSpec(width=8, coeff_bits=0,
                                              round_output=False)))
-    blocks = (*get_op("matmul_int", SimdiveSpec()).entry.block_candidates,
-              SQUARE_BLOCKS[0], SQUARE_BLOCKS[1])
+    blocks = get_op("matmul_int", SimdiveSpec()).entry.block_candidates
     runs = 0
     plain_ms = {}
     for M, K, N in TABLE4_SHAPES:
@@ -6883,7 +7061,7 @@ def app_matmul_checks(dev, int_rate) -> dict:
                     f"(largest |sum| {float(want_wide.abs().max()):.4g})")
     log(f"  logmatmul / matmul_emul at Table 4's shapes, {len(specs)} rungs:"
         f" {runs} kernel runs bit-equal to their plain versions (int32 and "
-        "wide forms, both schedules, square tiles)")
+        "wide forms, both schedules, skinny and large tiles)")
     timed = {}
     for M, K, N in (TABLE4_SHAPES[0], WIDE_SERVED_SHAPE):
         for width in (8, 16):
@@ -6892,7 +7070,9 @@ def app_matmul_checks(dev, int_rate) -> dict:
             x, w = qx * sx, qw * sw
             row = {}
             for sched, block in (("", lmm.DEFAULT_BLOCK),
-                                 ("ring_", MATMUL_RING_BLOCK)):
+                                 ("ring_", MATMUL_RING_BLOCK),
+                                 ("large_", LARGE_BLOCK),
+                                 ("large_ring_", LARGE_RING_BLOCK)):
                 for form, wide in (("int32", False), ("wide", True)):
                     row[f"{sched}{form}_ms"] = gpu_graph_time_ms(
                         lambda block=block, wide=wide: lmm.logmatmul_cuda(
@@ -6911,7 +7091,11 @@ def app_matmul_checks(dev, int_rate) -> dict:
                 f"wide form {row['wide_ms']:.4f} ms "
                 f"({row['wide_over_int32']:.3f}x); ring {MATMUL_RING_BLOCK}"
                 f": {row['ring_int32_ms']:.4f} / {row['ring_wide_ms']:.4f} "
-                f"ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"ms; large {LARGE_BLOCK}: {row['large_int32_ms']:.4f} / "
+                f"{row['large_wide_ms']:.4f} ms, its ring "
+                f"{row['large_ring_int32_ms']:.4f} / "
+                f"{row['large_ring_wide_ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return {"bit_equal_runs": runs, "plain_ms": plain_ms, "wide_vs_int32":
             timed, "max_abs_err": 0}
 
@@ -9067,11 +9251,14 @@ def mesh_kernel_rows(dev, int_rate) -> list:
     gathered sequence and the row-parallel ones before their
     reduce-scatter, (a)'s shapes; (m)'s smollm-360m under ``--pure-dp``
     (this rank's 2 x 512 rows, every weight whole) and ``--fsdp`` (the
-    same rows, tp 2's columns and rows): the default block's time by
-    graph replay, the operations bound, and the exact bf16
-    ``torch.matmul`` of the same shape."""
+    same rows, tp 2's columns and rows): by graph replay, the time of the
+    block the ranks launch (the autotune off: the registry's untimed
+    default for M, ``logmatmul.default_block``), the fastest registered
+    block's beside it and the skinny default's, the operations bound, and
+    the exact bf16 ``torch.matmul`` of the same shape."""
     import torch
     from repro_torch.core.simdive import SimdiveSpec
+    from repro_torch.kernels import get_op
     from repro_torch.kernels import logmatmul as lm
 
     cfg = mesh_config(MESH_RUN)
@@ -9114,11 +9301,16 @@ def mesh_kernel_rows(dev, int_rate) -> list:
         w = torch.randint(-255, 256, (K, N), generator=gen, device=dev,
                           dtype=torch.int32)
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        by_block = {b: gpu_graph_time_ms(
+            lambda b=b: lm.logmatmul_cuda(x, w, spec, b), iters=3)
+            for b in get_op("matmul_int", spec).entry.block_candidates}
+        best = min(by_block, key=by_block.get)
+        ran = lm.default_block(M)
         rows.append({
             "linears": names, "M": M, "K": K, "N": N,
-            "block": list(lm.DEFAULT_BLOCK),
-            "ms": gpu_graph_time_ms(
-                lambda: lm.logmatmul_cuda(x, w, spec), iters=3),
+            "block": list(ran), "ms": by_block[ran],
+            "fastest_block": list(best), "fastest_ms": by_block[best],
+            "skinny_ms": by_block[lm.DEFAULT_BLOCK],
             "bound_ms": logmatmul_ops_ms(M, K, N, int_rate),
             "bound_by": "operations",
             "library_ms": gpu_graph_time_ms(lambda: xb @ wb, iters=20)})
@@ -9754,7 +9946,7 @@ def main(argv=None) -> int:
     build.load()
     build_s = wall_clock() - t0
     log(f"[2/19] build: kernels compiled and loaded in {build_s:.1f}s")
-    skinny_regs, w32_regs = [], []
+    mm_regs, w32_regs = [], []
     for logf in sorted(build.build_dir().rglob("build.*.log")):
         text = logf.read_text()
         for line in text.splitlines():
@@ -9762,12 +9954,17 @@ def main(argv=None) -> int:
                     or ("Compiling entry" in line
                         and ("flash" in line or "decode_attention" in line))):
                 log("  ptxas: " + line.strip()[:200])
-        skinny_regs += skinny_ptxas(text)
+        mm_regs += logmatmul_ptxas(text)
         w32_regs += w32_ptxas(text)
-    for r in skinny_regs:
-        log(f"  ptxas, skinny logmatmul tile {r['tile']}: {r['registers']} "
-            f"registers, {r['spill_bytes']} bytes spilled")
-    require(bool(skinny_regs), "no skinny logmatmul tile in the build log")
+    for r in mm_regs:
+        log(f"  ptxas, {r['family']} logmatmul tile {r['tile']}: "
+            f"{r['registers']} registers, {r['spill_bytes']} bytes spilled")
+    require({r["family"] for r in mm_regs} == {"skinny", "large"},
+            "no skinny or no large logmatmul tile in the build log")
+    spilled = [r["tile"] for r in mm_regs
+               if r["family"] == "large" and r["spill_bytes"]]
+    require(not spilled, f"large logmatmul tiles spilled: {spilled}")
+    sass_dump = start_logmatmul_sass(build)   # read after phase 5
     for r in w32_regs:
         log(f"  ptxas, width-32 form {r['source']} {r['entry'][:90]}: "
             f"{r.get('registers')} registers, {r.get('spill_bytes')} bytes "
@@ -9802,17 +9999,16 @@ def main(argv=None) -> int:
     log("[5/19] times")
     int_rate = int32_ops_per_s(dev)
     log(f"  INT32 peak: {int_rate:.4g} ops/s (SM count x 64 x max SM "
-        f"clock; with the FMA pipe's IMAD lanes {2 * int_rate:.4g}); "
-        f"integer operations the functions need: "
-        f"{LOGMATMUL_OPS_PER_PRODUCT} per logmatmul product "
-        f"({LOGMATMUL_INT_ONLY_PER_PRODUCT} on the INT32 lanes only) + "
-        f"{LOGMATMUL_OPS_PER_OPERAND} per operand element "
-        f"({LOGMATMUL_INT_ONLY_PER_OPERAND}), "
+        f"clock); logmatmul's least work a product {LOGMATMUL_PRODUCT_WORK}"
+        f" and an operand element {LOGMATMUL_OPERAND_WORK} over the pipes "
+        f"{LOGMATMUL_PIPES} (lanes an SM a clock; superseded: "
+        f"{LOGMATMUL_SUPERSEDED_OPS}); integer operations: "
         f"{ELEMWISE_OPS_PER_LANE} per elemwise div lane, "
         f"{PACKED_OPS_PER_LANE} per packed width-8 lane")
     kernels, times = measure(dev, served, int_rate)
     mm_kernels, mm_times, mm_shapes = measure_logmatmul(
         dev, mm_plain_ms, int_rate)
+    sass = logmatmul_sass(sass_dump)
     kernels += mm_kernels
     times.update(mm_times)
     times.update(measure_emulate(served_e, served["params"],
@@ -10165,6 +10361,11 @@ def main(argv=None) -> int:
         kern["launches_mesh"] = sum(counts.get(n, 0) for counts in mesh_counts
                                     for n in names)
     by_name["logmatmul"]["mesh_tp2_shapes"] = mesh["kernels"]
+    # the large tile as built: registers and spills of each instantiation,
+    # its product loops' SASS a product (phase 2)
+    by_name["logmatmul"]["large_tile_ptxas"] = [
+        r for r in mm_regs if r["family"] == "large"]
+    by_name["logmatmul"]["large_tile_sass"] = sass
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on "
                                       "the path")

@@ -9,7 +9,8 @@ and div, (17280, 960) words), ``decode_attention`` (q (4, 5, 3, 64), caches
 (4, 544, 5, 64), pos 527), ``flash_attention`` depth 0 and the (64, 64, 2)
 ring (q (60, 512, 64), kv (20, 512, 64), bf16, causal) and ``logmatmul``
 ((4, 960) @ (960, 2560) at the 4-row tile, depth 0 and ring; (2048, 960) @
-(960, 2560) at the 8-row tile). To compare two checkouts, run it once a
+(960, 2560) at the 8-row tile and at the 64-row large tile's ring). To
+compare two checkouts, run it once a
 checkout in one call, in turns (parent, change, change, parent):
 
     python3 scripts/kernel_times.py [--root DIR] [--out FILE]
@@ -117,6 +118,9 @@ def main(argv=None) -> int:
         # simdive-lint: allow(hardcoded-block): each schedule is timed by name, apart from the autotune
         "logmatmul_M2048_depth0": (lambda: lm.logmatmul_cuda(
             x2k, w, w8, block=(8, 128, 256, 4, 0)), 10),
+        # simdive-lint: allow(hardcoded-block): each schedule is timed by name, apart from the autotune
+        "logmatmul_M2048_large_ring": (lambda: lm.logmatmul_cuda(
+            x2k, w, w8, block=(64, 128, 32, 2, 2)), 10),
     }
     times = {}
     for _ in range(2):

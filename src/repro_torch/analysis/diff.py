@@ -39,9 +39,12 @@ OP_SOURCES: dict[str, tuple] = {
     "packed": (_K + "packed_simd.py", _C + "packed_simd.cu",
                "src/repro_torch/core/simd_pack.py"),
     "matmul_int": (_K + "logmatmul.py", _C + "logmatmul.cu",
-                   _C + "logmatmul.cuh", _C + "logmatmul_wide.cu"),
+                   _C + "logmatmul.cuh", _C + "logmatmul_wide.cu",
+                   _C + "logmatmul_large.cu", _C + "logmatmul_large_wide.cu"),
     "matmul_emul": (_K + "logmatmul.py", _C + "logmatmul.cu",
-                    _C + "logmatmul.cuh", _C + "logmatmul_wide.cu"),
+                    _C + "logmatmul.cuh", _C + "logmatmul_wide.cu",
+                    _C + "logmatmul_large.cu",
+                    _C + "logmatmul_large_wide.cu"),
     "attention": (_K + "flash_attention.py", _C + "flash_attention.cu",
                   _C + "flash_attention_w32.cu", _C + "flash_attention.cuh"),
     "decode_attention": (_K + "decode_attention.py", _K + "flash_attention.py",

@@ -20,57 +20,60 @@
 // which the int32 form cannot give once K * (2^(2w) - 1) >= 2^31 (every
 // width-16 call). Every tile, both schedules and the split of K take it;
 // only the accumulators, the warps' partial sums in shared memory and the
-// output are twice as wide. The templates live in logmatmul.cuh; this
-// source instantiates the int32 form and holds the C entry, and
-// logmatmul_wide.cu the wide one, so that two nvcc processes build them
-// side by side.
+// output are twice as wide (the large tile's width-8 sums stay 32-bit:
+// see logmatmul.cuh). The templates live in logmatmul.cuh; this source
+// instantiates the skinny tiles' int32 form and holds the C entry, which
+// hands the wide form to logmatmul_wide.cu and the large tiles to
+// logmatmul_large.cu / logmatmul_large_wide.cu, so that four nvcc
+// processes build them side by side.
 //
-// Bound on an H100: integer operations at the prefill (M = 2048: 644 G
-// products for smollm-360m's 224 linears; the function needs at least 11
-// integer operations per signed product at width 8, 7 of them ones that
-// only the 64 INT32 lanes of an SM take and 4 that also issue as IMAD on
-// the FMA pipe — listed with the operand conversion in chip_smoke.py,
-// LOGMATMUL_OPS_PER_PRODUCT), and operations ahead of the weight bytes at
-// the decode step too (M = 4: each int32 weight is read once and converted
-// once, 4 products per weight). The products are shifts and adds with a
-// data-dependent table gather, not multiplies, so there is no tensor-core
-// part: this is a CUDA-core integer kernel.
+// Bound on an H100 (chip_smoke.py, LOGMATMUL_PIPES): the products. A signed
+// width-8 product needs at least one table read (a shared-memory load:
+// 32 lanes an SM a clock), two integer adds (table offset, ternary sum:
+// the INT32 lanes, 64) and one rounding accumulate (the FP32 lanes, 128),
+// four issue slots of the SM's 128 lanes a clock: 1/32 of an SM clock a
+// product, whichever of the three binds. The products are shifts, adds
+// and a data-dependent table gather, not multiplies, so there is no
+// tensor-core part: this is a CUDA-core kernel.
 //
-// Two tile families, both for both schedules. The registry's autotune
-// picks among the skinny blocks per shape bucket; the square tiles are
-// still compiled and callable, but a skinny block beat them at every shape
-// of the serving path on an H100, so none is registered.
+// Two tile families, both for both schedules; the registry's autotune
+// picks among their registered blocks per shape bucket.
 //
-// The square tiles (64 x 64, 16 x 64), against the operations bound:
-// * each element is converted ONCE per slab to one packed word (log value,
-//   its half of the region index, zero flag, sign: encode()), the "sign
-//   split + LOD/log once per tile" of _tile_partial, so the inner loop does
-//   only the fused correct + anti-log of simdive_datapath.cuh per product;
-//   OR-ing an x word with a w word yields the region index and the zero
-//   flag in one instruction;
-// * one CUDA block per bm x bn output tile, 256 threads, each holding a
-//   TM x TN register tile of uint32 accumulators; slabs of bk along K in
-//   shared memory (x slab padded to bk + 1 words a row: conflict-free column
-//   reads), the coefficient table in shared memory;
-// * depth 0: load slab (global -> encode -> shared), __syncthreads, compute.
-//   depth D >= 1: a D-slot ring filled by 4-byte cp.async with zero fill;
-//   warm-up issues slabs 0..D-2, step c issues slab c+D-1 into the slot
-//   slab c-1 vacated, waits for slab c, encodes it in place, computes — the
-//   reference's semaphore order;
-// * when the output tiles alone cannot fill the card (the decode step's
-//   M = 4, or the prefill's narrow wk / wv), K is split across blocks
-//   (grid z) and the partial sums meet by atomicAdd on uint32 — exact and
-//   order-free, as above;
-// * the ragged edges of M, N and K are masked in the kernel by loading 0:
-//   a zero magnitude adds 0, so there is no pad-to-block copy.
-// k_unroll is the unroll factor of the in-slab K loop (template KU); only 4
-// is compiled (an unroll of 8 never won the autotune on an H100), and the
-// reference's 4- and 5-tuple block encodings are kept.
+// The large-M tile (64 rows x 128 columns, 8 warps; the prefill's
+// and the training step's M = 2048, the studies' 1,000 rows, the mesh's
+// shards). What held the skinny tile back there, and what this one does:
+// * every weight was converted again by each 8-row group and served 8
+//   products; here each K slab of both operands is converted ONCE per
+//   block into shared memory (the "sign split + LOD/log once per tile" of
+//   _tile_partial) and a thread's (BM/8) x 4 register tile reads each
+//   staged word for 4 or BM/8 products: x as warp-uniform broadcasts, w
+//   one 16-byte load a lane, the table reads of a warp in one row of the
+//   table (consecutive words: no bank conflicts);
+// * the width-8 product ran ~12 integer instructions, most on the 64
+//   INT32 lanes; here (rounding, clean table, nothing armed: the served
+//   and trained paths) the operand words are float-ready, one IADD3 of
+//   x, w and the staged table entry gives the product's float bits, and
+//   one round-to-nearest FADD into a partial sum held in [2^23, 2^24)
+//   both rounds it half up and accumulates it (logmatmul.cuh: the FLOAT
+//   form; the clamp to the bus maximum is two FMNMX): 6 instructions, two
+//   of them on the INT32 lanes;
+// * K was split at every large-M call (memset + one atomic an output a
+//   range); here a block owns its tile over the whole of K and writes it
+//   once, splitting K only where the tiles leave the card's resident
+//   blocks unfilled (the narrow wk / wv);
+// * depth 0 loads each raw slab synchronously; depth D >= 1 keeps a
+//   D-slot ring of 16-byte cp.async copies (4-byte where K or N is not a
+//   multiple of 4), converted after they land — the reference's semaphore
+//   order; both give the same bits, as every form, split and unroll does;
+// * ragged M, N and K are masked by loading 0 (a zero magnitude adds 0).
+// Width 16, width 8 without rounding, an armed lane fault (whole 32-bit
+// log words) and a table entry outside the clean tables' range take the
+// datapath's own anti-log on staged (log value, index half, sign) words
+// (the GENERAL form).
 //
 // The skinny-M tiles (MR = 4 or 8 rows x 128 columns, 8 warps), made for
-// the decode step, where a square tile computes mostly dead rows and
-// stages every weight through shared memory for 4 products; the 8-row tile
-// also serves the prefill faster than the 64 x 64 tile:
+// the decode step, where a large tile computes mostly dead rows and
+// stages every weight through shared memory for 4 products:
 // * all MR rows of a row group are in registers, uint32 acc[MR][4]: each
 //   lane owns 4 adjacent columns; rows past M are neither computed nor
 //   stored (grid y walks row groups, so every M is served);
@@ -91,7 +94,7 @@
 //   x is converted. Both then run the same product code: bit-identical;
 // * the 8 warps split the block's K range and meet in shared memory;
 //   blocks split K (grid z) until there are two blocks an SM, and meet by
-//   atomicAdd after a memset, as the square tiles do.
+//   atomicAdd after a memset.
 #include <cstdint>
 
 #include "cp_async.cuh"
@@ -100,13 +103,11 @@
 // This source's copy of the fault register (simdive_datapath.cuh).
 SIMDIVE_FAULT_SETTER(simdive_faults_logmatmul)
 
-// The wide form, compiled in logmatmul_wide.cu.
-extern "C" int simdive_logmatmul_wide(const void* x, const void* w,
-                                      void* out, int M, int K, int N,
-                                      const void* tab, int tab_len,
-                                      int width, int index_bits,
-                                      int round_out, int bm, int bn, int bk,
-                                      int k_unroll, int depth, void* stream);
+// The skinny tiles' wide form (logmatmul_wide.cu) and the large tiles'
+// two forms (logmatmul_large.cu, logmatmul_large_wide.cu).
+LOGMATMUL_ENTRY(simdive_logmatmul_wide);
+LOGMATMUL_ENTRY(simdive_logmatmul_large);
+LOGMATMUL_ENTRY(simdive_logmatmul_large_wide);
 
 // x (M, K), w (K, N): contiguous int32; out (M, N): int32 (wide = 0, the
 // wrap-around sum) or int64 (wide = 1, the exact sum); tab: tab_len int32
@@ -119,11 +120,14 @@ extern "C" int simdive_logmatmul(const void* x, const void* w, void* out,
                                  int k_unroll, int depth, int wide,
                                  void* stream) {
   if (wide != 0 && wide != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide)
-    return simdive_logmatmul_wide(x, w, out, M, K, N, tab, tab_len, width,
-                                  index_bits, round_out, bm, bn, bk, k_unroll,
-                                  depth, stream);
-  return logmatmul_entry<uint32_t>(x, w, out, M, K, N, tab, tab_len, width,
-                                   index_bits, round_out, bm, bn, bk,
-                                   k_unroll, depth, stream);
+  auto* entry = is_large_tile(bm, bn)
+                    ? (wide ? simdive_logmatmul_large_wide
+                            : simdive_logmatmul_large)
+                    : (wide ? simdive_logmatmul_wide : nullptr);
+  if (entry)
+    return entry(x, w, out, M, K, N, tab, tab_len, width, index_bits,
+                 round_out, bm, bn, bk, k_unroll, depth, stream);
+  return logmatmul_entry<uint32_t, false>(x, w, out, M, K, N, tab, tab_len,
+                                          width, index_bits, round_out, bm,
+                                          bn, bk, k_unroll, depth, stream);
 }

@@ -1,8 +1,10 @@
 // The SIMDive log-domain matmul's tiles, schedules and launchers, for both
-// accumulator widths: logmatmul.cu instantiates them with uint32 sums (the
-// int32 form), logmatmul_wide.cu with 64-bit ones (the wide form). Two
-// sources, each compiled by its own nvcc, so that the build compiles the
-// two forms side by side; each holds its own copy of the fault register
+// accumulator widths and both tile families, instantiated by four sources,
+// each compiled by its own nvcc so that the build compiles them side by
+// side: logmatmul.cu (the skinny tiles, uint32 sums: the int32 form; it
+// holds the C entry), logmatmul_wide.cu (the skinny tiles, 64-bit sums:
+// the wide form), logmatmul_large.cu and logmatmul_large_wide.cu (the
+// large-M tiles, each form). Each holds its own copy of the fault register
 // (simdive_datapath.cuh). The design note is in logmatmul.cu.
 #pragma once
 
@@ -11,6 +13,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "simdive_datapath.cuh"
@@ -20,214 +23,6 @@ namespace {
 using simdive::cp_async4;
 using simdive::cp_async_commit;
 using simdive::cp_async_wait;
-
-// Encoded operand word:
-//   bits  0..19  log value L = (k << F) | frac  (< 2^19 at width 16)
-//   bits 20..27  this operand's half of the region index: x's fraction MSBs
-//                shifted up by index_bits, w's MSBs as they are — the OR of
-//                an x word and a w word is the whole index
-//   bit  30      zero magnitude
-//   bit  31      sign
-constexpr uint32_t kLogMask = 0xFFFFFu;
-constexpr int kIdxShift = 20;
-constexpr uint32_t kZero = 1u << 30;
-
-// sign_split (|INT32_MIN| included, clamped to the lane) + LOD/log. The
-// square tiles read the fault register for each element (they serve no
-// path; the wrapper refuses a log fault above the 20-bit field).
-template <int W, bool IS_X>
-__device__ __forceinline__ uint32_t encode(int32_t v, int ib) {
-  constexpr int F = W - 1;
-  const uint32_t neg = v < 0 ? 1u : 0u;
-  uint32_t mag = neg ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
-  mag = min(mag, (1u << W) - 1u);
-  if (mag == 0u) return kZero;
-  const uint32_t L = simdive::lane_faults_armed()
-                         ? simdive::lod_log<true>(mag, F)
-                         : simdive::lod_log<false>(mag, F);
-  uint32_t half = (L & ((1u << F) - 1u)) >> (F - ib);
-  if (IS_X) half <<= ib;
-  return (neg << 31) | (half << kIdxShift) | L;
-}
-
-// One signed product, as sign_join(log_mul(...), sign) makes it: the uint32
-// product (2^32 - 1 when a width-16 product saturates), widened to Acc and
-// negated mod 2^(8 sizeof(Acc)).
-template <int W, typename Acc>
-__device__ __forceinline__ Acc signed_product(uint32_t ex, uint32_t ew,
-                                              const int* tab, bool round_out) {
-  const uint32_t o = ex | ew;
-  const int corr = tab[(o >> kIdxShift) & 0xFFu];
-  uint32_t p = simdive::antilog_mul(ex & kLogMask, ew & kLogMask, corr, W,
-                                    round_out);
-  const Acc wp = (o & kZero) ? Acc(0) : static_cast<Acc>(p);
-  return ((ex ^ ew) >> 31) ? Acc(0) - wp : wp;
-}
-
-template <int W, int BM, int BN, int TM, int TN, int KU, typename Acc>
-__device__ __forceinline__ void slab_products(const uint32_t* xs,
-                                              const uint32_t* ws, int bk,
-                                              int tx, int ty, const int* tab,
-                                              bool round_out,
-                                              Acc (&acc)[TM][TN]) {
-  constexpr int TX = BN / TN, TY = BM / TM;
-  const int xs_ld = bk + 1;
-  for (int k0 = 0; k0 < bk; k0 += KU) {
-#pragma unroll
-    for (int u = 0; u < KU; ++u) {
-      const int k = k0 + u;
-      uint32_t a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[(ty + i * TY) * xs_ld + k];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[k * BN + tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] += signed_product<W, Acc>(a[i], b[j], tab, round_out);
-    }
-  }
-}
-
-// Issue one slab's raw int32 words into a ring slot (zero outside M, N, K).
-template <int BM, int BN, int NT>
-__device__ __forceinline__ void issue_slab(uint32_t* slot,
-                                           const int32_t* __restrict__ x,
-                                           const int32_t* __restrict__ w,
-                                           int M, int K, int N, int m0, int n0,
-                                           int k0, int bk, int tid) {
-  const int xs_ld = bk + 1;
-  uint32_t* xs = slot;
-  uint32_t* ws = slot + BM * xs_ld;
-  for (int i = tid; i < BM * bk; i += NT) {
-    const int r = i / bk, c = i - r * bk;
-    const int gm = m0 + r, gk = k0 + c;
-    const bool ok = gm < M && gk < K;
-    cp_async4(xs + r * xs_ld + c,
-              ok ? x + static_cast<size_t>(gm) * K + gk : x, ok ? 4 : 0);
-  }
-  for (int i = tid; i < bk * BN; i += NT) {
-    const int r = i / BN, c = i - r * BN;
-    const int gk = k0 + r, gn = n0 + c;
-    const bool ok = gk < K && gn < N;
-    cp_async4(ws + r * BN + c,
-              ok ? w + static_cast<size_t>(gk) * N + gn : w, ok ? 4 : 0);
-  }
-}
-
-// Encode an arrived slab in place.
-template <int W, int BM, int BN, int NT>
-__device__ __forceinline__ void encode_slab(uint32_t* slot, int bk, int ib,
-                                            int tid) {
-  const int xs_ld = bk + 1;
-  uint32_t* xs = slot;
-  uint32_t* ws = slot + BM * xs_ld;
-  for (int i = tid; i < BM * bk; i += NT) {
-    const int r = i / bk, c = i - r * bk;
-    uint32_t* p = xs + r * xs_ld + c;
-    *p = encode<W, true>(static_cast<int32_t>(*p), ib);
-  }
-  for (int i = tid; i < bk * BN; i += NT)
-    ws[i] = encode<W, false>(static_cast<int32_t>(ws[i]), ib);
-}
-
-template <int W, int BM, int BN, int TM, int TN, int KU, bool PIPE,
-          typename Acc>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    logmatmul_kernel(const int32_t* __restrict__ x,
-                     const int32_t* __restrict__ w, Acc* __restrict__ out,
-                     int M, int K, int N, const int* __restrict__ tab,
-                     int tab_len, int ib, int round_out, int bk, int depth,
-                     int slabs_per_split, int accumulate) {
-  constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
-  extern __shared__ uint32_t ring[];
-  __shared__ int s_tab[simdive::kMaxTable];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (K + bk - 1) / bk;
-  const int kt0 = blockIdx.z * slabs_per_split;
-  const int kt1 = min(nk, kt0 + slabs_per_split);
-  const int xs_ld = bk + 1;
-  const bool rnd = round_out != 0;
-  for (int i = tid; i < tab_len; i += NT) s_tab[i] = tab[i];
-
-  Acc acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-
-  if (!PIPE) {
-    uint32_t* xs = ring;
-    uint32_t* ws = ring + BM * xs_ld;
-    for (int kt = kt0; kt < kt1; ++kt) {
-      const int k0 = kt * bk;
-      for (int i = tid; i < BM * bk; i += NT) {
-        const int r = i / bk, c = i - r * bk;
-        const int gm = m0 + r, gk = k0 + c;
-        const int32_t v =
-            (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk] : 0;
-        xs[r * xs_ld + c] = encode<W, true>(v, ib);
-      }
-      for (int i = tid; i < bk * BN; i += NT) {
-        const int r = i / BN, c = i - r * BN;
-        const int gk = k0 + r, gn = n0 + c;
-        const int32_t v =
-            (gk < K && gn < N) ? w[static_cast<size_t>(gk) * N + gn] : 0;
-        ws[r * BN + c] = encode<W, false>(v, ib);
-      }
-      __syncthreads();  // slab (and, first time, the table) in place
-      slab_products<W, BM, BN, TM, TN, KU, Acc>(xs, ws, bk, tx, ty, s_tab,
-                                                rnd, acc);
-      __syncthreads();  // slab consumed before the next one overwrites it
-    }
-  } else {
-    const int slot_words = BM * xs_ld + bk * BN;
-    const int n = kt1 - kt0;
-    // warm-up: slabs 0..D-2, one commit group each (empty past the end, so
-    // that slab c is always group c)
-    for (int c = 0; c < depth - 1; ++c) {
-      if (c < n)
-        issue_slab<BM, BN, NT>(ring + (c % depth) * slot_words, x, w, M, K, N,
-                               m0, n0, (kt0 + c) * bk, bk, tid);
-      cp_async_commit();
-    }
-    for (int c = 0; c < n; ++c) {
-      const int nxt = c + depth - 1;  // into the slot slab c-1 vacated
-      if (nxt < n)
-        issue_slab<BM, BN, NT>(ring + (nxt % depth) * slot_words, x, w, M, K,
-                               N, m0, n0, (kt0 + nxt) * bk, bk, tid);
-      cp_async_commit();
-      cp_async_wait(depth - 1);  // every group up to slab c has landed
-      __syncthreads();
-      uint32_t* slot = ring + (c % depth) * slot_words;
-      encode_slab<W, BM, BN, NT>(slot, bk, ib, tid);
-      __syncthreads();
-      slab_products<W, BM, BN, TM, TN, KU, Acc>(slot, slot + BM * xs_ld, bk,
-                                                tx, ty, s_tab, rnd, acc);
-      __syncthreads();  // slot free for the prefetch of the next step
-    }
-    cp_async_wait(0);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty + i * TY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx + j * TX;
-      if (r < M && c < N) {
-        Acc* o = out + static_cast<size_t>(r) * N + c;
-        if (accumulate)
-          atomicAdd(o, acc[i][j]);
-        else
-          *o = acc[i][j];
-      }
-    }
-  }
-}
 
 // ---- skinny-M tile: the decode step (M = 4 at batch 4) ----------------
 //
@@ -244,8 +39,8 @@ constexpr int kSkinnyBN = 32 * kSkinnyTN;     // columns a block owns
 
 // One operand split into what the products read: log value, this
 // operand's half of the region index as a byte offset into the table (x's
-// half shifted up by index_bits, as encode() does), and sign / zero as
-// -1, 0 or +1.
+// half shifted up by index_bits, so that the two halves add to the whole
+// index), and sign / zero as -1, 0 or +1.
 template <int W, bool IS_X, bool FAULTS>
 __device__ __forceinline__ void split_operand(int32_t v, int ib, int& l,
                                               int& h4, int& c) {
@@ -564,49 +359,6 @@ int sm_count() {
   return n;
 }
 
-template <int W, int BM, int BN, int TM, int TN, int KU, bool PIPE,
-          typename Acc>
-cudaError_t launch(const Args& a, cudaStream_t s) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  static_assert(BM % TM == 0 && BN % TN == 0 && NT <= 1024, "tile");
-  auto kern = logmatmul_kernel<W, BM, BN, TM, TN, KU, PIPE, Acc>;
-  const int slots = PIPE ? a.depth : 1;
-  const size_t smem =
-      static_cast<size_t>(slots) * (BM * (a.bk + 1) + a.bk * BN) * 4;
-  static size_t opted_in = kDefaultDynSmem;
-  if (smem > opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted_in = smem;
-  }
-  const long long gm = (a.M + BM - 1) / BM, gn = (a.N + BN - 1) / BN;
-  const int nk = (a.K + a.bk - 1) / a.bk;
-  if (gm > 65535) return cudaErrorInvalidValue;
-  // fill the card: split K when the output tiles are fewer than two
-  // blocks per SM
-  const long long tiles = gm * gn, target = 2LL * sm_count();
-  int splits = 1;
-  if (tiles < target)
-    splits = static_cast<int>(
-        std::min<long long>(nk, (target + tiles - 1) / tiles));
-  const int per = (nk + splits - 1) / splits;
-  splits = (nk + per - 1) / per;
-  if (splits > 1) {
-    const cudaError_t e = cudaMemsetAsync(
-        a.out, 0, static_cast<size_t>(a.M) * a.N * sizeof(Acc), s);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(static_cast<unsigned>(gn), static_cast<unsigned>(gm),
-                  static_cast<unsigned>(splits));
-  kern<<<grid, NT, smem, s>>>(a.x, a.w, static_cast<Acc*>(a.out), a.M, a.K,
-                              a.N, a.tab,
-                              a.tab_len, a.ib, a.round_out, a.bk, a.depth, per,
-                              splits > 1 ? 1 : 0);
-  return cudaGetLastError();
-}
-
 // The skinny tile's split of K: blocks (grid z) split it until the row
 // groups x column blocks x splits reach two blocks an SM, in ranges of a
 // multiple of the 8 warps and at most bk rows (the x words the block
@@ -660,52 +412,568 @@ cudaError_t dispatch_skinny(const Args& a, cudaStream_t s) {
              : launch_skinny<W, MR, KU, false, false, Acc>(a, s);
 }
 
-}  // namespace
 
+// ---- large-M tile: the prefill, the training products, the studies ----
+//
+// A block owns a BM x 128 output tile over its whole K range (one range
+// unless the tiles leave the card's resident blocks unfilled): 8 warps of
+// BM / 8 rows each, a lane 4 adjacent columns, so a thread holds a
+// (BM / 8) x 4 register tile. Each K slab of bk is converted ONCE per
+// block into shared memory, both operands, two words an element: x as
+// [k][row] (warp-uniform broadcasts: a warp's rows are its own), w as
+// [k][col] (one 16-byte load a lane). The raw int32 slabs come straight
+// from global memory (depth 0) or through a depth-slot ring of cp.async
+// copies (depth >= 1), converted after they land.
+//
+// Two product forms, one uniform choice a block:
+// * FLOAT (width 8, rounding, a clean table, no lane fault): the operand
+//   words are float-ready — x: sign << 31 | ((la << 16) + kKeyBias), w:
+//   sign << 31 | lb << 16 — and the table is staged as (corr + 64) << 16
+//   with a zero row and column for zero magnitudes, so one IADD3 of x, w
+//   and table words gives the bits of the signed float s * 2^I * (1 +
+//   f / 2^7), one ulp larger in magnitude (2^I = 1/2 where the ternary
+//   sum is negative, which rounds to the clip's 1): the exponent
+//   construction is exact, the sign bits XOR (nothing carries into bit 31)
+//   and the extra ulp breaks the round-half-up ties away from zero. Clamped to +-65535
+//   (the bus maximum: I = 16), each is added in round-to-nearest to a
+//   float partial sum kept in [2^23, 2^24) (1.5 * 2^23 plus the sum), where
+//   the add rounds to the integer grid, so it IS floor(v + 0.5) with the
+//   sign applied: one IADD, one LDS, one IADD3, two FMNMX and one FADD a
+//   product. The partial sum holds 64 products (64 * 65535 < 2^22) and is
+//   flushed into the uint32 sum at the end of each slab (bk <= 64).
+// * GENERAL (width 16, width 8 without rounding, an armed lane fault, or
+//   an entry outside the clean tables' |c| < 2^(F-1)): the datapath's own
+//   anti-log on (log value, index half | sign << 16) words, one x word
+//   pair read a row at a time.
+// Width 8 products never exceed 2^16 - 1, so the width-8 sums are uint32
+// in both forms; the wide form sign-extends them at the store and keeps a
+// block's K range under 2^15 (kMaxK32), where that sum is exact.
+constexpr int kLargeWarps = 8;
+constexpr int kLargeThreads = kLargeWarps * 32;
+constexpr int kLargeTN = 4;                    // columns a lane owns
+constexpr int kLargeBN = 32 * kLargeTN;        // columns a block owns
+constexpr int kLargeXPad = 4;   // x words a k row: BM + 4 (conflict-free)
+constexpr int kLargeRawPad = 8; // raw x words a row: bk + 8 (16-byte rows)
+constexpr int kMaxK32 = 32768;  // width 8: K a block sums in 32 bits
+// FLOAT form: 0x3F800000 (1.0f) + the tie-breaking ulp, less the table's
+// 64 << 16 bias
+constexpr uint32_t kKeyBias = 0x3F800001u - (64u << 16);
+constexpr float kPartialBase = 12582912.0f;     // 1.5 * 2^23
+constexpr uint32_t kPartialBaseBits = 0x4B400000u;
+constexpr float kBusMax8 = 65535.0f;
 
-// The compiled tiles: (BM, BN, TM, TN, k_unroll). Keep in step with
-// TILES in kernels/logmatmul.py.
-#define LOGMATMUL_TILES(X) \
-  X(64, 64, 4, 4, 4)       \
-  X(16, 64, 1, 4, 4)
-// The skinny-M tiles: (MR, k_unroll), each MR rows x 128 columns; blocks
-// (MR, 128, bk, k_unroll, depth).
-#define LOGMATMUL_SKINNY_TILES(X) \
-  X(4, 4)                         \
-  X(8, 4)
-
-namespace {
-
-// One accumulator width over every tile, width and schedule.
-template <typename Acc>
-cudaError_t dispatch(const Args& a, int width, int bm, int bn, int k_unroll,
-                     cudaStream_t s) {
-#define X(BM_, BN_, TM_, TN_, KU_)                                          \
-  if (bm == BM_ && bn == BN_ && k_unroll == KU_) {                          \
-    if (width == 8)                                                         \
-      return a.depth ? launch<8, BM_, BN_, TM_, TN_, KU_, true, Acc>(a, s)  \
-                     : launch<8, BM_, BN_, TM_, TN_, KU_, false, Acc>(a, s); \
-    return a.depth ? launch<16, BM_, BN_, TM_, TN_, KU_, true, Acc>(a, s)   \
-                   : launch<16, BM_, BN_, TM_, TN_, KU_, false, Acc>(a, s); \
+// One raw element of either operand staged as the form's two words: FLOAT
+// (key word above, byte offset into the extended table: row stride S =
+// 2^ib + 1 words, the zero row / column at index S - 1) or GENERAL (log
+// value, index half as a byte offset | sign << 16; the armed lane faults
+// applied to the log value where ``faults``).
+template <int W, bool FLOAT, bool IS_X>
+__device__ __forceinline__ void large_stage(int32_t v, int ib, bool faults,
+                                            uint32_t& key, int& h) {
+  if constexpr (FLOAT) {
+    const int S = (1 << ib) + 1;
+    const bool neg = v < 0;
+    uint32_t mag =
+        neg ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
+    mag = min(mag, 255u);
+    if (mag == 0u) {
+      key = 0u;
+      h = (IS_X ? (S - 1) * S : S - 1) * 4;
+      return;
+    }
+    const uint32_t L = simdive::lod_log<false>(mag, 7);
+    const int half = static_cast<int>((L & 127u) >> (7 - ib));
+    key = (static_cast<uint32_t>(neg) << 31) |
+          ((L << 16) + (IS_X ? kKeyBias : 0u));
+    h = (IS_X ? half * S : half) * 4;
+  } else {
+    int l, h4, c;
+    if (faults)
+      split_operand<W, IS_X, true>(v, ib, l, h4, c);
+    else
+      split_operand<W, IS_X, false>(v, ib, l, h4, c);
+    key = static_cast<uint32_t>(l);
+    h = h4 | static_cast<int>(static_cast<uint32_t>(c) << 16);
   }
-  LOGMATMUL_TILES(X)
-#undef X
-#define X(MR_, KU_)                                                 \
-  if (bm == MR_ && bn == kSkinnyBN && k_unroll == KU_)              \
-    return width == 8 ? dispatch_skinny<8, MR_, KU_, Acc>(a, s)     \
-                      : dispatch_skinny<16, MR_, KU_, Acc>(a, s);
-  LOGMATMUL_SKINNY_TILES(X)
-#undef X
-  return cudaErrorInvalidValue;
+}
+
+// Issue one slab's raw int32 words into a ring slot: x (BM rows of bk,
+// row stride bk + kLargeRawPad), then w (bk rows of 128); zero outside M,
+// K and N. 16-byte copies where the rows allow them (vec_x / vec_w), the
+// K and N tails zero-filled by the copy itself.
+template <int BM>
+__device__ __forceinline__ void large_issue(uint32_t* slot,
+                                            const int32_t* __restrict__ x,
+                                            const int32_t* __restrict__ w,
+                                            int M, int K, int N, int m0,
+                                            int n0, int k0, int bk, int tid,
+                                            bool vec_x, bool vec_w) {
+  constexpr int NT = kLargeThreads, BN = kLargeBN;
+  const int xld = bk + kLargeRawPad;
+  uint32_t* xr = slot;
+  uint32_t* wr = slot + BM * xld;
+  if (vec_x) {
+    const int cpr = bk / 4;
+    for (int i = tid; i < BM * cpr; i += NT) {
+      const int r = i / cpr, q = i - r * cpr;
+      const int gm = m0 + r, gk = k0 + q * 4;
+      const int n = gm < M ? 4 * max(0, min(4, K - gk)) : 0;
+      simdive::cp_async16(xr + r * xld + q * 4,
+                          n ? x + static_cast<size_t>(gm) * K + gk : x, n);
+    }
+  } else {
+    for (int i = tid; i < BM * bk; i += NT) {
+      const int r = i / bk, c = i - r * bk;
+      const int gm = m0 + r, gk = k0 + c;
+      const bool ok = gm < M && gk < K;
+      cp_async4(xr + r * xld + c,
+                ok ? x + static_cast<size_t>(gm) * K + gk : x, ok ? 4 : 0);
+    }
+  }
+  if (vec_w) {
+    for (int i = tid; i < bk * (BN / 4); i += NT) {
+      const int r = i / (BN / 4), q = i - r * (BN / 4);
+      const int gk = k0 + r, gn = n0 + q * 4;
+      const int n = gk < K ? 4 * max(0, min(4, N - gn)) : 0;
+      simdive::cp_async16(wr + r * BN + q * 4,
+                          n ? w + static_cast<size_t>(gk) * N + gn : w, n);
+    }
+  } else {
+    for (int i = tid; i < bk * BN; i += NT) {
+      const int r = i / BN, c = i - r * BN;
+      const int gk = k0 + r, gn = n0 + c;
+      const bool ok = gk < K && gn < N;
+      cp_async4(wr + r * BN + c,
+                ok ? w + static_cast<size_t>(gk) * N + gn : w, ok ? 4 : 0);
+    }
+  }
+}
+
+// Convert one slab into the staged words: from a landed ring slot (RAW)
+// or straight from global memory. A warp takes x in blocks of 4 rows x 8
+// k, which reads the raw rows (stride bk + 8) and writes the [k][row]
+// words (stride BM + 4) without bank conflicts.
+template <int W, int BM, bool FLOAT, bool RAW>
+__device__ __forceinline__ void large_convert(
+    const uint32_t* slot, const int32_t* __restrict__ x,
+    const int32_t* __restrict__ w, int M, int K, int N, int m0, int n0,
+    int k0, int bk, int ib, bool faults, int tid, uint32_t* xk, int* xh,
+    uint32_t* wk, int* wh) {
+  constexpr int NT = kLargeThreads, BN = kLargeBN, XLD = BM + kLargeXPad;
+  const int rld = bk + kLargeRawPad;
+  const int cblocks = bk / 8;
+  for (int e = tid; e < BM * bk; e += NT) {
+    const int blk = e >> 5, l = e & 31;
+    const int cb = blk % cblocks, rb = blk / cblocks;
+    const int r = rb * 4 + (l >> 3), c = cb * 8 + (l & 7);
+    int32_t v;
+    if (RAW) {
+      v = static_cast<int32_t>(slot[r * rld + c]);
+    } else {
+      const int gm = m0 + r, gk = k0 + c;
+      v = gm < M && gk < K ? __ldg(x + static_cast<size_t>(gm) * K + gk) : 0;
+    }
+    large_stage<W, FLOAT, true>(v, ib, faults, xk[c * XLD + r],
+                                xh[c * XLD + r]);
+  }
+  const uint32_t* wr = slot + BM * rld;
+  for (int e = tid; e < bk * BN; e += NT) {
+    const int r = e / BN, c = e - r * BN;
+    int32_t v;
+    if (RAW) {
+      v = static_cast<int32_t>(wr[e]);
+    } else {
+      const int gk = k0 + r, gn = n0 + c;
+      v = gk < K && gn < N ? __ldg(w + static_cast<size_t>(gk) * N + gn) : 0;
+    }
+    large_stage<W, FLOAT, false>(v, ib, faults, wk[e], wh[e]);
+  }
+}
+
+// The products of one converted slab into this thread's TM x 4 tile.
+template <int W, int BM, int KU, bool FLOAT, typename AccT>
+__device__ __forceinline__ void large_products(
+    const uint32_t* xk, const int* xh, const uint32_t* wk, const int* wh,
+    int bk, int warp, int lane, const int* tab, uint32_t bias, bool rnd,
+    float (&part)[BM / kLargeWarps][kLargeTN],
+    AccT (&acc)[BM / kLargeWarps][kLargeTN]) {
+  constexpr int TM = BM / kLargeWarps, TN = kLargeTN, BN = kLargeBN;
+  constexpr int XLD = BM + kLargeXPad;
+  const uint32_t* xk0 = xk + warp * TM;
+  const int* xh0 = xh + warp * TM;
+  const uint32_t* wk0 = wk + lane * TN;
+  const int* wh0 = wh + lane * TN;
+  if constexpr (FLOAT) {
+    for (int k0 = 0; k0 < bk; k0 += KU) {
+#pragma unroll
+      for (int u = 0; u < KU; ++u) {
+        const int k = k0 + u;
+        uint32_t a[TM];
+        int ah[TM];
+#pragma unroll
+        for (int q = 0; q < TM / 4; ++q) {
+          const uint4 t =
+              *reinterpret_cast<const uint4*>(xk0 + k * XLD + 4 * q);
+          const int4 th =
+              *reinterpret_cast<const int4*>(xh0 + k * XLD + 4 * q);
+          a[4 * q] = t.x, a[4 * q + 1] = t.y, a[4 * q + 2] = t.z,
+          a[4 * q + 3] = t.w;
+          ah[4 * q] = th.x, ah[4 * q + 1] = th.y, ah[4 * q + 2] = th.z,
+          ah[4 * q + 3] = th.w;
+        }
+        const uint4 bt = *reinterpret_cast<const uint4*>(wk0 + k * BN);
+        const int4 bth = *reinterpret_cast<const int4*>(wh0 + k * BN);
+        const uint32_t b[TN] = {bt.x, bt.y, bt.z, bt.w};
+        const int bh[TN] = {bth.x, bth.y, bth.z, bth.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int corr = *reinterpret_cast<const int*>(
+                reinterpret_cast<const char*>(tab) + (ah[i] + bh[j]));
+            const float v =
+                __uint_as_float(a[i] + b[j] + static_cast<uint32_t>(corr));
+            part[i][j] += fminf(fmaxf(v, -kBusMax8), kBusMax8);
+          }
+      }
+    }
+    // the float partial sums into the 32-bit ones; both in one binade
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] += __float_as_uint(part[i][j]) - kPartialBaseBits;
+        part[i][j] = kPartialBase;
+      }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < bk; ++k) {
+      const uint4 bt = *reinterpret_cast<const uint4*>(wk0 + k * BN);
+      const int4 bth = *reinterpret_cast<const int4*>(wh0 + k * BN);
+      const int b[TN] = {static_cast<int>(bt.x), static_cast<int>(bt.y),
+                         static_cast<int>(bt.z), static_cast<int>(bt.w)};
+      const int bh[TN] = {bth.x, bth.y, bth.z, bth.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        // 64-bit sums leave no registers for the x words of later rows:
+        // keep their loads in the row that reads them
+        if constexpr (sizeof(AccT) == 8) asm volatile("" ::: "memory");
+        const int a = static_cast<int>(xk0[k * XLD + i]);
+        const int ah = xh0[k * XLD + i];
+        const int hx4 = ah & 0xFFFF, sx = ah >> 16;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const uint32_t p = split_product<W, true>(
+              a, hx4, b[j], bh[j] & 0xFFFF, tab, bias, rnd);
+          acc[i][j] += static_cast<AccT>(p) *
+                       static_cast<AccT>(static_cast<long long>(
+                           sx * (bh[j] >> 16)));
+        }
+      }
+    }
+  }
+}
+
+// The block's slabs in one form and schedule, then its tile written once
+// (or added, where K is split across blocks).
+template <int W, int BM, int KU, bool PIPE, bool FLOAT, typename Acc>
+__device__ __forceinline__ void large_run(
+    const int32_t* __restrict__ x, const int32_t* __restrict__ w,
+    Acc* __restrict__ out, int M, int K, int N, int ib, bool rnd,
+    bool faults, int bk, int depth, int kt0, int n, int accumulate,
+    bool vec_x, bool vec_w, uint32_t* smem, const int* tab) {
+  constexpr int TM = BM / kLargeWarps, TN = kLargeTN, BN = kLargeBN;
+  constexpr int XLD = BM + kLargeXPad;
+  // width-8 sums are uint32 in either form (products < 2^16)
+  using AccT = std::conditional_t<W == 8, uint32_t, Acc>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  uint32_t* xk = smem;
+  int* xh = reinterpret_cast<int*>(smem + bk * XLD);
+  uint32_t* wk = smem + 2 * bk * XLD;
+  int* wh = reinterpret_cast<int*>(wk + bk * BN);
+  uint32_t* ring = smem + 2 * bk * XLD + 2 * bk * BN;
+  const int slot_words = BM * (bk + kLargeRawPad) + bk * BN;
+  const uint32_t bias = rnd ? 1u << (W - 2) : 0u;
+
+  AccT acc[TM][TN];
+  float part[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = AccT(0);
+      part[i][j] = kPartialBase;
+    }
+
+  for (int c = 0; c < n; ++c) {
+    const int k0 = (kt0 + c) * bk;
+    if (PIPE) {
+      const int nxt = c + depth - 1;  // into the slot slab c-1 vacated
+      if (nxt < n)
+        large_issue<BM>(ring + (nxt % depth) * slot_words, x, w, M, K, N, m0,
+                        n0, (kt0 + nxt) * bk, bk, tid, vec_x, vec_w);
+      cp_async_commit();
+      cp_async_wait(depth - 1);  // every group up to slab c has landed
+    }
+    // slab c's copies landed; slab c-1's products done (staged words free)
+    __syncthreads();
+    large_convert<W, BM, FLOAT, PIPE>(
+        ring + (PIPE ? (c % depth) * slot_words : 0), x, w, M, K, N, m0, n0,
+        k0, bk, ib, faults, tid, xk, xh, wk, wh);
+    __syncthreads();
+    large_products<W, BM, KU, FLOAT, AccT>(xk, xh, wk, wh, bk, warp, lane,
+                                           tab, bias, rnd, part, acc);
+  }
+  if (PIPE) cp_async_wait(0);
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + warp * TM + i;
+    if (r >= M) continue;
+    const int c = n0 + lane * TN;
+    Acc v[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if constexpr (W == 8 && sizeof(Acc) == 8)
+        v[j] = static_cast<Acc>(static_cast<long long>(
+            static_cast<int32_t>(acc[i][j])));
+      else
+        v[j] = static_cast<Acc>(acc[i][j]);
+    }
+    Acc* o = out + static_cast<size_t>(r) * N + c;
+    if (!accumulate && c + TN <= N && N % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+      if constexpr (sizeof(Acc) == 4) {
+        *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+        *reinterpret_cast<ulonglong2*>(o) = make_ulonglong2(v[0], v[1]);
+        *reinterpret_cast<ulonglong2*>(o + 2) = make_ulonglong2(v[2], v[3]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (c + j >= N) continue;
+      if (accumulate)
+        atomicAdd(o + j, v[j]);
+      else
+        o[j] = v[j];
+    }
+  }
+}
+
+// Two resident blocks an SM, one for width 16's 64-bit sums (twice the
+// accumulator registers).
+template <int W, int BM, int KU, bool PIPE, typename Acc>
+__global__ void __launch_bounds__(
+    kLargeThreads, W == 16 && sizeof(Acc) == 8 ? 1 : 2)
+    logmatmul_large_kernel(const int32_t* __restrict__ x,
+                           const int32_t* __restrict__ w,
+                           Acc* __restrict__ out, int M, int K, int N,
+                           const int* __restrict__ tab, int tab_len, int ib,
+                           int round_out, int bk, int depth,
+                           int slabs_per_split, int accumulate, int vec_x,
+                           int vec_w) {
+  constexpr int NT = kLargeThreads, BN = kLargeBN;
+  constexpr int XLD = BM + kLargeXPad;
+  extern __shared__ __align__(16) uint32_t large_smem[];
+  __shared__ int s_tab[simdive::kMaxTable];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + bk - 1) / bk;
+  const int kt0 = blockIdx.z * slabs_per_split;
+  const int n = max(0, min(nk, kt0 + slabs_per_split) - kt0);
+  const bool rnd = round_out != 0;
+  uint32_t* ring = large_smem + 2 * bk * XLD + 2 * bk * BN;
+  const int slot_words = BM * (bk + kLargeRawPad) + bk * BN;
+
+  // ring warm-up first: its copies fly while the table is staged
+  if (PIPE) {
+    for (int c = 0; c < depth - 1; ++c) {
+      if (c < n)
+        large_issue<BM>(ring + (c % depth) * slot_words, x, w, M, K, N, m0,
+                        n0, (kt0 + c) * bk, bk, tid, vec_x != 0,
+                        vec_w != 0);
+      cp_async_commit();
+    }
+  }
+  // the form, one uniform choice: FLOAT at width 8 with rounding, a clean
+  // table and nothing armed; else GENERAL
+  const bool faults = simdive::lane_faults_armed();
+  bool odd = false;
+  for (int i = tid; i < tab_len; i += NT) {
+    const int v = tab[i];
+    odd |= W == 8 && (v <= -(1 << (W - 2)) || v >= (1 << (W - 2)));
+  }
+  const bool general = __syncthreads_or(odd) != 0 || faults || W == 16;
+  const bool flt = !general && rnd;
+  if (flt) {
+    // (corr + 64) << 16, a zero row (x = 0: the word sum is w's alone)
+    // and a zero column (w = 0: cancels x's bias), row stride 2^ib + 1
+    const int S = (1 << ib) + 1;
+    for (int i = tid; i < S * S; i += NT) {
+      const int hx = i / S, hw = i - hx * S;
+      int v = 0;
+      if (hx < S - 1)
+        v = hw == S - 1 ? -static_cast<int>(kKeyBias)
+                        : (tab[(hx << ib) | hw] + 64) * 65536;
+      s_tab[i] = v;
+    }
+  } else {
+    for (int i = tid; i < tab_len; i += NT) s_tab[i] = tab[i];
+  }
+  // (the first slab's barrier puts the table in place)
+
+  const bool vx = vec_x != 0, vw = vec_w != 0;
+  if constexpr (W == 8) {
+    if (flt) {
+      large_run<W, BM, KU, PIPE, true, Acc>(
+          x, w, out, M, K, N, ib, rnd, false, bk, depth, kt0, n, accumulate,
+          vx, vw, large_smem, s_tab);
+      return;
+    }
+  }
+  large_run<W, BM, KU, PIPE, false, Acc>(
+      x, w, out, M, K, N, ib, rnd, faults, bk, depth, kt0, n, accumulate, vx,
+      vw, large_smem, s_tab);
+}
+
+// Dynamic shared memory of a large-M block: the staged words (two a
+// element: x bk x (BM + 4), w bk x 128) and, at depth >= 1, the ring's
+// raw slabs (x BM x (bk + 8), w bk x 128 words a slot). Kept in step with
+// smem_bytes in kernels/logmatmul.py.
+template <int BM>
+size_t large_smem_bytes(int bk, int depth) {
+  return 4 * (static_cast<size_t>(2 * bk * (BM + kLargeXPad) +
+                                  2 * bk * kLargeBN) +
+              static_cast<size_t>(depth) *
+                  (BM * (bk + kLargeRawPad) + bk * kLargeBN));
+}
+
+// The large tile's split of K: none while the output tiles fill the
+// blocks the card holds at once (SMs x resident blocks an SM); below
+// that, the count of ranges that gives the fewest slab-steps on the
+// busiest SM (waves x slabs a range), the smaller on a tie. The wide
+// form's width-8 sums also cap a range at kMaxK32.
+template <int W, int BM, int KU, bool PIPE, typename Acc>
+cudaError_t launch_large(const Args& a, cudaStream_t s) {
+  auto kern = logmatmul_large_kernel<W, BM, KU, PIPE, Acc>;
+  if (a.bk % 16 || a.bk > 64) return cudaErrorInvalidValue;
+  const int depth = PIPE ? a.depth : 0;
+  const size_t smem = large_smem_bytes<BM>(a.bk, depth);
+  static size_t opted_in = kDefaultDynSmem;
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  static size_t occ_smem = 0;
+  static int occ = 1;
+  if (occ_smem != smem) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kern, kLargeThreads, smem);
+    if (e != cudaSuccess) return e;
+    occ = std::max(n, 1);
+    occ_smem = smem;
+  }
+  const long long gm = (a.M + BM - 1) / BM;
+  const long long gn = (a.N + kLargeBN - 1) / kLargeBN;
+  if (gm > 65535) return cudaErrorInvalidValue;
+  const int nk = (a.K + a.bk - 1) / a.bk;
+  const long long tiles = gm * gn, target = 1LL * occ * sm_count();
+  int splits = 1;
+  if (tiles < target) {
+    long long best = -1;
+    for (int sp = 1; sp <= std::min(nk, 64); ++sp) {
+      const long long cost = (tiles * sp + target - 1) / target *
+                             ((nk + sp - 1) / sp);
+      if (best < 0 || cost < best) best = cost, splits = sp;
+    }
+  }
+  if (W == 8 && sizeof(Acc) == 8) {
+    const int cap = std::max(1, kMaxK32 / a.bk);
+    splits = std::max(splits, (nk + cap - 1) / cap);
+  }
+  const int per = (nk + splits - 1) / splits;
+  splits = (nk + per - 1) / per;
+  if (splits > 1) {
+    const cudaError_t e = cudaMemsetAsync(
+        a.out, 0, static_cast<size_t>(a.M) * a.N * sizeof(Acc), s);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec_x =
+      a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  const int vec_w =
+      a.N % 4 == 0 && reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>(gn), static_cast<unsigned>(gm),
+                  static_cast<unsigned>(splits));
+  kern<<<grid, kLargeThreads, smem, s>>>(
+      a.x, a.w, static_cast<Acc*>(a.out), a.M, a.K, a.N, a.tab, a.tab_len,
+      a.ib, a.round_out, a.bk, depth, per, splits > 1 ? 1 : 0, vec_x, vec_w);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+
+// The skinny-M tiles: (MR, k_unroll), each MR rows x 128 columns; blocks
+// (MR, 128, bk, k_unroll, depth). Keep in step with TILES in
+// kernels/logmatmul.py.
+#define LOGMATMUL_SKINNY_TILES(X) \
+  X(4, 4)                         \
+  X(8, 4)
+// The large-M tile: (BM, k_unroll), BM rows x 128 columns; blocks
+// (BM, 128, bk, k_unroll, depth), bk a multiple of 16 up to 64. Keep in
+// step with TILES in kernels/logmatmul.py.
+#define LOGMATMUL_LARGE_TILES(X) \
+  X(64, 2)
+
 namespace {
 
-// The C entry's argument checks and dispatch, at one accumulator width:
-// out (M, N) holds sizeof(Acc)-byte sums.
-template <typename Acc>
+// Whether (bm, bn) names a large tile: its blocks go to the sources that
+// instantiate it (logmatmul_large.cu, logmatmul_large_wide.cu).
+inline bool is_large_tile(int bm, int bn) {
+#define X(BM_, KU_) \
+  if (bm == BM_ && bn == kLargeBN) return true;
+  LOGMATMUL_LARGE_TILES(X)
+#undef X
+  return false;
+}
+
+// One accumulator width over one tile family's tiles, widths and
+// schedules.
+template <typename Acc, bool LARGE>
+cudaError_t dispatch(const Args& a, int width, int bm, int bn, int k_unroll,
+                     cudaStream_t s) {
+  if constexpr (LARGE) {
+#define X(BM_, KU_)                                                         \
+  if (bm == BM_ && bn == kLargeBN && k_unroll == KU_) {                     \
+    if (width == 8)                                                         \
+      return a.depth ? launch_large<8, BM_, KU_, true, Acc>(a, s)           \
+                     : launch_large<8, BM_, KU_, false, Acc>(a, s);         \
+    return a.depth ? launch_large<16, BM_, KU_, true, Acc>(a, s)            \
+                   : launch_large<16, BM_, KU_, false, Acc>(a, s);          \
+  }
+    LOGMATMUL_LARGE_TILES(X)
+#undef X
+  } else {
+#define X(MR_, KU_)                                                 \
+  if (bm == MR_ && bn == kSkinnyBN && k_unroll == KU_)              \
+    return width == 8 ? dispatch_skinny<8, MR_, KU_, Acc>(a, s)     \
+                      : dispatch_skinny<16, MR_, KU_, Acc>(a, s);
+    LOGMATMUL_SKINNY_TILES(X)
+#undef X
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The C entries' argument checks and dispatch, at one accumulator width
+// and tile family: out (M, N) holds sizeof(Acc)-byte sums.
+template <typename Acc, bool LARGE>
 int logmatmul_entry(const void* x, const void* w, void* out, int M, int K,
                     int N, const void* tab, int tab_len, int width,
                     int index_bits, int round_out, int bm, int bn, int bk,
@@ -723,7 +991,17 @@ int logmatmul_entry(const void* x, const void* w, void* out, int M, int K,
   const Args a{static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
                out, M, K, N, static_cast<const int*>(tab), tab_len,
                index_bits, round_out, bk, depth};
-  return static_cast<int>(dispatch<Acc>(a, width, bm, bn, k_unroll, s));
+  return static_cast<int>(
+      dispatch<Acc, LARGE>(a, width, bm, bn, k_unroll, s));
 }
 
 }  // namespace
+
+// The C entries of the four sources, one signature: x (M, K), w (K, N)
+// contiguous int32; out (M, N); tab: tab_len int32 mul coefficients;
+// depth 0 = synchronous slabs, 1..4 = cp.async ring.
+#define LOGMATMUL_ENTRY(name)                                               \
+  extern "C" int name(const void* x, const void* w, void* out, int M,       \
+                      int K, int N, const void* tab, int tab_len, int width, \
+                      int index_bits, int round_out, int bm, int bn, int bk, \
+                      int k_unroll, int depth, void* stream)

@@ -374,14 +374,22 @@ _MATMUL_KERNELS = {"matmul": _lm.logmatmul_cuda,
                    "matmul_pipelined": _lm.logmatmul_pipelined_cuda}
 for _block in (_lm.DEFAULT_BLOCK, *_lm.BLOCK_CANDIDATES):
     _lm.check_block(_block)
+
+
+def _matmul_blocks(x, *_):
+    """The candidates for x's rows, the untimed one first
+    (:func:`logmatmul.blocks_for`)."""
+    return _lm.blocks_for(x.numel() // max(x.shape[-1], 1))
+
+
 register_op("matmul_int", ref=_matmul_int_ref, cuda=_matmul_int_cuda,
             default_block=_lm.DEFAULT_BLOCK,
             block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS,
-            analysis=_matmul_int_analysis)
+            analysis=_matmul_int_analysis, blocks_for=_matmul_blocks)
 register_op("matmul_emul", ref=_matmul_emul_ref, cuda=_matmul_emul_cuda,
             default_block=_lm.DEFAULT_BLOCK,
             block_candidates=_lm.BLOCK_CANDIDATES, kernels=_MATMUL_KERNELS,
-            analysis=_matmul_emul_analysis)
+            analysis=_matmul_emul_analysis, blocks_for=_matmul_blocks)
 
 
 # ------------------------------------------------------------- public API --

@@ -23,7 +23,10 @@ whose block is still to be timed raises, so a graph never holds a block
 the eager call would not have picked (run the call once eagerly first, as
 the captured decode step of :mod:`repro_torch.launch.serve` does).
 ``SIMDIVE_AUTOTUNE=0`` (or ``off``) caches the registered default untimed,
-as in the reference. :func:`export_autotune_cache` /
+as in the reference. An op that registers ``blocks_for`` (the matmul
+ops) has its candidates chosen by the call's tensors: it times only
+those, and untimed it takes the first of them (a large tile from 64
+rows, only skinny ones below). :func:`export_autotune_cache` /
 :func:`preload_autotune_cache` round-trip the cache through JSON
 (``chip_smoke.py`` pins a schedule that way); they and
 :func:`clear_autotune_cache` advance :func:`autotune_generation`, and a
@@ -125,6 +128,9 @@ class OpImpl:
     ``ref(*tensors, spec=..., **kw)`` is the plain PyTorch entry;
     ``cuda(*tensors, spec=..., **kw)`` launches the kernel and is also
     handed ``block=`` when the op registered a ``default_block``.
+    ``blocks_for(*tensors)``, where given, is the candidates for a call's
+    tensors, its untimed block first (else ``block_candidates`` and
+    ``default_block``).
     ``kernels`` maps a count's name to the wrapper that carries its
     ``launches`` count (one per schedule). ``analysis`` is the static
     analyzer's metadata hook (:mod:`repro_torch.analysis.widthcheck`):
@@ -138,6 +144,7 @@ class OpImpl:
     block_candidates: tuple = ()
     kernels: dict = field(default_factory=dict)
     analysis: Callable | None = None
+    blocks_for: Callable | None = None
 
 
 _REGISTRY: dict[str, OpImpl] = {}
@@ -149,7 +156,8 @@ def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
                 default_block: tuple | None = None,
                 block_candidates: tuple = (),
                 kernels: dict | None = None,
-                analysis: Callable | None = None) -> OpImpl:
+                analysis: Callable | None = None,
+                blocks_for: Callable | None = None) -> OpImpl:
     """Register a new op under ``name``; ``analysis`` is the widthcheck
     metadata hook (see :class:`OpImpl`)."""
     if name in _REGISTRY:
@@ -159,7 +167,8 @@ def register_op(name: str, *, ref: Callable, cuda: Callable | None = None,
     entry = OpImpl(name=name, ref=ref, cuda=cuda,
                    default_block=default_block,
                    block_candidates=tuple(tuple(b) for b in block_candidates),
-                   kernels=dict(kernels or {}), analysis=analysis)
+                   kernels=dict(kernels or {}), analysis=analysis,
+                   blocks_for=blocks_for)
     _REGISTRY[name] = entry
     return entry
 
@@ -374,12 +383,17 @@ def _pick_block(entry: OpImpl, spec, backend: str, tensors, kw) -> tuple:
     cached = _AUTOTUNE_CACHE.get(key)
     if cached is not None:
         return cached
-    candidates = entry.block_candidates or (entry.default_block,)
+    if entry.blocks_for is None:
+        candidates = entry.block_candidates or (entry.default_block,)
+        default = entry.default_block
+    else:
+        candidates = tuple(tuple(b) for b in entry.blocks_for(*tensors))
+        default = candidates[0]
     capturing = _capturing()
     if len(candidates) < 2 or _autotune_mode() == "off":
         if not capturing:
-            _AUTOTUNE_CACHE[key] = entry.default_block
-        return entry.default_block
+            _AUTOTUNE_CACHE[key] = default
+        return default
     if capturing:
         raise RuntimeError(
             f"op {entry.name!r}: no block is settled for {key} and a CUDA "

@@ -115,8 +115,11 @@ CONSTANTS = {
                         "INT32 lanes x max SM clock, read on the H100"],
 }
 
-# the SIMDive kernels' operation counts, chip_smoke.py's (PERF.md §6)
-LOGMATMUL_OPS_PER_PRODUCT = 11
+# the SIMDive kernels' operation counts, chip_smoke.py's (PERF.md §6), in
+# INT32-lane operations: a logmatmul product's least work takes 1/32 of an
+# SM clock on its busiest pipe (chip_smoke.LOGMATMUL_PIPES), two INT32
+# lanes' worth; an operand's conversion 10 INT32 operations
+LOGMATMUL_OPS_PER_PRODUCT = 2
 LOGMATMUL_OPS_PER_OPERAND = 10
 ELEMWISE_OPS_PER_LANE = 32
 SQRT_OPS_PER_LANE = 14
@@ -630,9 +633,14 @@ def _arguments(cfg, shape, mesh, *, zero1: bool, microbatch: int,
     tokens = _local(tok, sanitize_specs(P(b), tok, mesh), mesh,
                     lambda t: t.dtype)
     at = shape.seq_len - 1 if pos is None else pos
-    return ([params, cache, tokens],
-            lambda: lm.decode_step(held, cache, tokens, at,
-                                   max_seq=shape.seq_len))
+
+    def decode():
+        # the tokens are the rank's rows of the batch where it divides
+        with shardlib.global_batch(shape.global_batch):
+            return lm.decode_step(held, cache, tokens, at,
+                                  max_seq=shape.seq_len)
+
+    return [params, cache, tokens], decode
 
 
 # what :func:`_arguments` returns, by the cell's kind

@@ -38,6 +38,12 @@ ZeRO-3 (``--fsdp``, ``--pure-dp``): a parameter leaf of which a rank holds
 a slice over the data ranks is handed to the model as a
 :class:`DataSplit`, gathered whole at its use (:func:`gathered`), a layer
 at a time for a stacked leaf.
+
+A computation that couples a batch's rows (the MoE's one-group dispatch
+of a decode step) needs to know whether a call's rows are this rank's
+share of the batch or the whole of it (a batch the data ranks do not
+divide is held whole by each): the caller that splits the rows says so
+with :func:`global_batch`, and :func:`rows_split` reads it.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ __all__ = ["P", "use_rules", "unbound", "shard", "current_mesh", "active",
            "all_reduce_max", "all_gather", "reduce_scatter", "copy_to",
            "reduce_from", "reduce_scatter_from", "scatter_to",
            "seq_split", "seq_part", "seq_params", "DataSplit", "data_split", "gathered",
-           "whole", "collective_counts", "reset_collective_counts"]
+           "whole", "global_batch", "rows_split", "collective_counts", "reset_collective_counts"]
 
 
 class P(tuple):
@@ -138,6 +144,39 @@ def unbound():
         yield
     finally:
         _STACK[:] = saved
+
+
+# the whole batch's row count where a call's rows may be a data rank's
+# share of it (:func:`global_batch`)
+_BATCH: list = []
+
+
+@contextmanager
+def global_batch(rows: int):
+    """Within the block, a call with fewer than ``rows`` rows holds this
+    rank's share of a batch of ``rows`` split over the ``"batch"`` ranks;
+    one with all ``rows`` (a batch the ranks do not divide, held whole by
+    each) holds the whole batch, as does every call outside such a
+    block."""
+    _BATCH.append(int(rows))
+    try:
+        yield
+    finally:
+        _BATCH.pop()
+
+
+def rows_split(local: int) -> bool:
+    """Whether a call's ``local`` rows are this rank's share of the batch
+    :func:`global_batch` declares (False with no ``"batch"`` ranks or no
+    declaration)."""
+    if not _BATCH or group("batch") is None or local >= _BATCH[-1]:
+        return False
+    n = logical_axis_size("batch")
+    if local * n != _BATCH[-1]:
+        raise ValueError(
+            f"{local} row(s) on each of {n} data ranks are not a share of "
+            f"a batch of {_BATCH[-1]}")
+    return True
 
 
 def active() -> bool:

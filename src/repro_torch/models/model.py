@@ -312,7 +312,11 @@ class LM:
         cache split by sequence from a whole one (required where the
         model ranks do not divide the kv heads). The logits are this
         rank's shard of the vocabulary where the head is split, as the
-        reference's ``shard(logits, "batch", None, "vocab")``.
+        reference's ``shard(logits, "batch", None, "vocab")``. Rows that
+        are this rank's share of a batch split over the data ranks are
+        declared so by the caller
+        (:func:`~repro_torch.launch.sharding.global_batch`): an MoE
+        layer's dispatch then takes the whole batch's capacity and slots.
         """
         cfg = self.cfg
         B = tokens.shape[0]

@@ -30,6 +30,11 @@ override (``{"experts": ("model",), "ff": ()}``) each model rank computes
 its ``E / tp`` experts whole and the slot-space outputs are gathered
 before the combine (:func:`_routed_by_expert`); with ``"ff"`` still on the
 model axis the plain form raises, as the reference's ``shard`` does.
+A call that makes one group of the batch (a decode step) whose rows the
+data ranks split (:func:`~repro_torch.launch.sharding.global_batch`)
+gathers every rank's expert choices first, so capacity and drops are the
+whole batch's, as the reference's one group makes them; rows each rank
+holds whole dispatch as they are.
 Under sequence parallelism the block gathers the sequence first (the
 dispatch is a sequence's) and reduce-scatters its output.
 """
@@ -67,14 +72,21 @@ def init_moe(gen: torch.Generator, d_model, d_ff, n_experts, n_shared,
                      d_model, d_ff, n_experts, n_shared)})
 
 
-def _dispatch(xt, probs, top_k: int, capacity_factor: float):
+def _dispatch(xt, probs, top_k: int, capacity_factor: float,
+              over: str | None = None):
     """Grouped capacity dispatch. xt: (G,Tg,D); probs: (G,Tg,E).
 
     Returns ``(buf (G,E,C,D), dst (G,Tg*K), gates (G,Tg*K,1), gi (G,1),
     gate_idx (G,Tg,K))``. Slots are numbered token-major, then k; an
     entry's slot in its expert is its cumsum position, kept while
     ``0 <= pos < C``, else sent to the overflow slot ``E*C`` (cut off) with
-    its gate zeroed."""
+    its gate zeroed.
+
+    ``over``: the logical axis whose ranks hold the rest of the one group
+    (G == 1; rank 0's tokens first). Every rank's expert choices are
+    gathered (one small ``all_gather``), so the capacity and the positions
+    are the whole group's, as one process dispatching it would make them;
+    this rank's tokens take their slots in that buffer."""
     G, Tg, D = xt.shape
     E = probs.shape[-1]
     # stable descending sort: ties to the lower index, as lax.top_k
@@ -84,11 +96,15 @@ def _dispatch(xt, probs, top_k: int, capacity_factor: float):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 
-    C = max(int(capacity_factor * Tg * top_k / E), 1)
     flat_e = gate_idx.reshape(G, Tg * top_k)                   # (G,TgK)
-    oh = (flat_e[..., None] == torch.arange(E, device=xt.device)
+    every = flat_e if over is None else \
+        shardlib.all_gather(flat_e, over, 1)                   # whole group
+    C = max(int(capacity_factor * (every.shape[1] // top_k) * top_k / E), 1)
+    oh = (every[..., None] == torch.arange(E, device=xt.device)
           ).to(torch.int32)                                    # (G,TgK,E)
     pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1           # slot in expert
+    if every is not flat_e:
+        pos = pos.narrow(1, shardlib.rank_in(over) * Tg * top_k, Tg * top_k)
     keep = (pos < C) & (pos >= 0)
     dst = torch.where(keep, flat_e * C + pos,
                       torch.full_like(flat_e, E * C))          # overflow slot
@@ -192,7 +208,10 @@ def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
     float32 tensor). Without a mesh, the reference's ``_moe_ffn_jnp``.
     ``grouped`` dispatches one group a sequence, else one group for the
     batch; a decode step's one token a row is always one group, so its
-    rows compete for slots. On a bound mesh a grouped multi-token call
+    rows compete for slots — across the data ranks too, where the caller
+    declares the rows their shares of a batch
+    (:func:`~repro_torch.launch.sharding.global_batch`; :func:`_dispatch`'s
+    ``over``). On a bound mesh a grouped multi-token call
     with float experts takes :func:`_moe_ffn_spmd`, as the reference's
     ``moe_ffn`` takes its ``shard_map`` path (its shared expert then runs
     plain, whatever ``approx`` says), unless the experts override splits
@@ -240,8 +259,13 @@ def moe_ffn(x, p, *, top_k: int, capacity_factor: float = 1.25,
     xc = xt
     if split or by_expert:
         xc = shardlib.copy_to(xt, "ff" if split else "experts")
-    buf, dst, gates, gi, gate_idx = _dispatch(xc, probs, top_k,
-                                              capacity_factor)
+    if G == 1 and shardlib.rows_split(B):
+        # one group over the batch (a decode step) whose rows the data
+        # ranks split: they dispatch as the one group they are
+        out = _dispatch(xc, probs, top_k, capacity_factor, "batch")
+    else:
+        out = _dispatch(xc, probs, top_k, capacity_factor)
+    buf, dst, gates, gi, gate_idx = out
     me, ce = _aux_terms(probs, gate_idx)
     if torch.is_grad_enabled() and shardlib.group("batch") is not None:
         # the whole batch's statistics where a loss takes the aux (the

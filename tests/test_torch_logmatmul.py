@@ -419,11 +419,15 @@ def test_matmul_dispatch_and_blocks_on_cpu():
     with pytest.raises(ValueError, match="not a compiled tile"):
         lm.check_block((128, 128, 128, 8, 2))
     with pytest.raises(ValueError, match="multiple of k_unroll"):
-        lm.check_block((64, 64, 30, 4, 0))
+        lm.check_block((64, 128, 31, 2, 0))
     with pytest.raises(ValueError, match="shared memory"):
-        lm.check_block((64, 64, 1024, 4, 4))
-    assert lm.split_block((64, 64, 32)) == ((64, 64, 32), 4, 0)
-    assert lm.split_block((64, 64, 32, 8)) == ((64, 64, 32), 8, 0)
+        lm.check_block((8, 128, 2048, 4, 4))
+    # the square tiles are gone: neither compiled nor registered
+    for square in ((64, 64, 32, 4, 0), (16, 64, 64, 4, 3)):
+        with pytest.raises(ValueError, match="not a compiled tile"):
+            lm.check_block(square)
+    assert lm.split_block((128, 128, 32)) == ((128, 128, 32), 4, 0)
+    assert lm.split_block((128, 128, 32, 2)) == ((128, 128, 32), 2, 0)
 
 
 SKINNY = [b for b in lm.BLOCK_CANDIDATES if lm.is_skinny(b)]
@@ -466,18 +470,25 @@ def test_skinny_smem_formula_and_refusals():
 
 
 def test_block_candidates_hold_skinny_blocks_of_both_schedules():
-    """The autotune can pick the skinny tile in either schedule, and only
-    the skinny tile; the square tiles stay compiled and callable."""
+    """The autotune can pick the skinny tile in either schedule, and the
+    large-M tile (64 rows) in either; nothing else — the square
+    tiles are gone (refused as not compiled)."""
     depths = {b[4] > 0 for b in SKINNY}
     assert depths == {False, True}
-    assert {(b[0], b[1]) for b in lm.BLOCK_CANDIDATES} == {(4, 128), (8, 128)}
-    assert SKINNY == list(lm.BLOCK_CANDIDATES)
+    large = [b for b in lm.BLOCK_CANDIDATES if lm.is_large(b)]
+    assert {b[4] > 0 for b in large} == {False, True}
+    assert {b[0] for b in large} == set(lm.LARGE_ROWS)
+    assert len(large) <= 4
+    assert {(b[0], b[1]) for b in lm.BLOCK_CANDIDATES} \
+        == {(4, 128), (8, 128), (64, 128)}
+    assert SKINNY + large == list(lm.BLOCK_CANDIDATES)
     entry = get_op("matmul_emul", TSpec(width=8, coeff_bits=6)).entry
-    assert set(SKINNY) == set(entry.block_candidates)
+    assert set(lm.BLOCK_CANDIDATES) == set(entry.block_candidates)
     assert entry.default_block == lm.DEFAULT_BLOCK == (8, 128, 256, 4, 0)
     for square in ((64, 64, 32, 4, 0), (64, 64, 32, 4, 2), (64, 64, 32, 4, 4),
                    (16, 64, 64, 4, 0), (16, 64, 64, 4, 3)):
-        lm.check_block(square)
+        with pytest.raises(ValueError, match="not a compiled tile"):
+            lm.check_block(square)
 
 
 def test_autotune_measures_once_caches_and_round_trips(monkeypatch):

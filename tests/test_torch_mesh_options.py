@@ -19,7 +19,13 @@ each under its own time limit (``JOIN_S``):
 - ``fsdp``: four ranks, mesh (data 2, model 2): smollm's first step under
   ``--fsdp``, with and without ``cfg.remat``;
 - ``dry``: one process tracing the same steps with the dry run
-  (``launch/dryrun.py``) under the fake process group.
+  (``launch/dryrun.py``) under the fake process group;
+- and, in the ``tp2`` group's two processes on a mesh of (data 2, model
+  1): llama4-scout's served forward and its MoE block, each rank its half
+  of the rows, the decode step's MoE at a capacity its experts overflow:
+  one group over the batch, as the reference's ``_moe_ffn_jnp`` makes it;
+  and the same on a batch the two ranks do not divide, held whole by
+  each.
 
 Everything is held against the unsplit port in this process (which the
 other ``test_torch_*`` files hold to the reference), and the specs and
@@ -67,6 +73,10 @@ MAX_SEQ, ROW_STEPS = 8, 4            # per-row positions: cache, steps
 ROW_START = (0, MAX_SEQ - ROW_STEPS)  # row 1 ends at max_seq - 1
 GROUPS = {"tp2": 2, "fsdp": 4, "dry": 1}
 MOE = {"mixtral": "mixtral-8x7b", "llama4": "llama4-scout-17b-a16e"}
+# the MoE decode step over data ranks: rows, and a capacity factor at
+# which 4 experts of top-1 overflow (C = 2 of 8 rows; 1 of a rank's 4);
+# a batch two ranks do not divide (each holds it whole)
+DP_ROWS, DP_CAPACITY, DP_WHOLE = 8, 1.0, 3
 
 
 def _train_config(arch: str, remat: bool = False):
@@ -180,20 +190,76 @@ def witness_once(cfg) -> dict:
 
 
 # ------------------------------------------------------------ serving ----
-def served_moe(cfg) -> dict:
+@contextmanager
+def _recorded_dispatch(capacity=None):
+    """Record each decode step's MoE dispatch (a call of one token a
+    row) as ``(dst, C)``: every entry's slot, or the overflow slot
+    ``E * C``, and the capacity. ``capacity``: the decode step's MoE
+    dispatches at that factor, not at the reference's fixed 4.0."""
+    from repro_torch.models import moe, transformer
+
+    calls, decode = [], []
+    saved_dispatch, saved_ffn = moe._dispatch, transformer.moe_ffn
+
+    def dispatch(*args, **kw):
+        out = saved_dispatch(*args, **kw)
+        if decode:
+            calls.append((out[1].clone(), out[0].shape[2]))
+        return out
+
+    def ffn(x, p, **kw):
+        if x.shape[1] != 1:
+            return saved_ffn(x, p, **kw)
+        if capacity is not None:
+            kw["capacity_factor"] = capacity
+        decode.append(True)
+        try:
+            return saved_ffn(x, p, **kw)
+        finally:
+            decode.pop()
+
+    moe._dispatch, transformer.moe_ffn = dispatch, ffn
+    try:
+        yield calls
+    finally:
+        moe._dispatch, transformer.moe_ffn = saved_dispatch, saved_ffn
+
+
+def served_moe(cfg, rows: int = 2, capacity=None) -> dict:
     """A prefill of PROMPT tokens and STEPS decode steps (a cache of
-    PROMPT + STEPS slots holding the prefill's): the logits gathered over
-    the vocabulary, each step's collectives."""
+    PROMPT + STEPS slots holding the prefill's) on ``rows`` prompts, this
+    data rank's share of them: the logits gathered over the vocabulary,
+    each step's collectives and each decode step's MoE dispatches
+    (:func:`_recorded_dispatch`, at ``capacity``)."""
     from repro_torch.models import build
 
     lm = build(cfg, "cpu")
     params = _placed(lm, cfg)
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, PROMPT), generator=gen)
+    tokens = _share(torch.randint(0, cfg.vocab_size, (rows, PROMPT),
+                                  generator=gen))
+    with _recorded_dispatch(capacity) as calls, \
+            shardlib.global_batch(rows):
+        out = _served_steps(lm, cfg, params, tokens)
+    out["dispatch"] = calls
+    return out
+
+
+def _share(t):
+    """This data rank's share of the batch ``t``, or the whole of it where
+    the ranks do not divide it (as ``sanitize_specs`` lays it)."""
+    n, rows = shardlib.logical_axis_size("batch"), t.shape[0]
+    if rows % n:
+        return t
+    return t.narrow(0, shardlib.rank_in("batch") * rows // n, rows // n)
+
+
+def _served_steps(lm, cfg, params, tokens) -> dict:
+    """:func:`served_moe`'s prefill and decode steps on ``tokens``."""
     logits, cache = lm.prefill(params, {"tokens": tokens})
     out = {"prefill": _whole_vocab(logits, cfg), "steps": [],
            "collectives": []}
-    dcache = lm.empty_cache(2, PROMPT + STEPS)
+    dcache = lm.empty_cache(tokens.shape[0], PROMPT + STEPS)
     for name in ("k", "v"):
         dcache[name][:, :, :PROMPT].copy_(cache[name])
     for i in range(STEPS):
@@ -250,8 +316,9 @@ def _whole_vocab(lg, cfg):
 
 
 # ------------------------------------------------- the experts override --
-def moe_inputs(arch: str, S: int):
-    """The MoE block's float32 weights and x (2, S, D), from numpy seed 3."""
+def moe_inputs(arch: str, S: int, B: int = 2):
+    """The MoE block's float32 weights and x (B, S, D), from numpy seed
+    3."""
     cfg = get_config(arch, smoke=True)
     rng = np.random.default_rng(3)
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -264,7 +331,7 @@ def moe_inputs(arch: str, S: int):
     if cfg.n_shared_experts:
         p["shared"] = {"w1": u(D, Fd, fan=D), "w3": u(D, Fd, fan=D),
                        "w2": u(Fd, D, fan=Fd)}
-    x = rng.standard_normal((2, S, D)).astype(np.float32)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
     return cfg, p, x
 
 
@@ -284,6 +351,39 @@ def moe_block(arch: str, S: int, by_expert: bool):
     with torch.no_grad():
         return moe_ffn(torch.from_numpy(x), p, top_k=cfg.n_experts_active,
                        capacity_factor=4.0)
+
+
+def moe_block_dp(rows: int = DP_ROWS) -> dict:
+    """llama4-scout's block on one token of each of ``rows`` rows at
+    DP_CAPACITY (this data rank's share of them): output and dispatch."""
+    from repro_torch.models import transformer
+
+    cfg, p, x = moe_inputs(MOE["llama4"], 1, rows)
+    x = _share(torch.from_numpy(x))
+    with torch.no_grad(), _recorded_dispatch() as calls, \
+            shardlib.global_batch(rows):
+        # through the module's name, which the recorder wraps
+        out, _ = transformer.moe_ffn(x, tree_map(torch.from_numpy, p),
+                                     top_k=cfg.n_experts_active,
+                                     capacity_factor=DP_CAPACITY)
+    return {"out": out, "dispatch": calls}
+
+
+def _dp_cases() -> dict:
+    """The MoE decode step over two data ranks (mesh (data 2, model 1)):
+    llama4-scout served, and its block."""
+    mesh = t_train.make_host_mesh(model=1)
+    with shardlib.use_rules(mesh, t_train.rules_for(mesh)):
+        return _dp_runs()
+
+
+def _dp_runs() -> dict:
+    """:func:`_dp_cases`' runs, on a split batch and on a whole one."""
+    cfg = _serve_config(MOE["llama4"])
+    return {"serve": served_moe(cfg, DP_ROWS, DP_CAPACITY),
+            "block": moe_block_dp(),
+            "serve_whole": served_moe(cfg, DP_WHOLE, DP_CAPACITY),
+            "block_whole": moe_block_dp(DP_WHOLE)}
 
 
 def _experts_cases(mesh) -> dict:
@@ -395,6 +495,7 @@ def _tp2_cases() -> dict:
             res["serve"][run] = served_moe(_serve_config(arch))
         res["rows"] = per_row_steps(_serve_config("smollm-360m"))
     res["experts"] = _experts_cases(mesh)
+    res["dp"] = _dp_cases()
     with shardlib.use_rules(mesh, t_train.rules_for(mesh, sp=True)):
         res["sp_linears"] = sp_linears(_train_config("stablelm-1.6b"))
         res["sp_prefill"] = {a: sp_prefill(_serve_config(a))
@@ -432,6 +533,13 @@ def _dry_cases() -> dict:
         out["decode_" + run] = dryrun.trace_cell(
             full, ShapeConfig("d", PROMPT + STEPS, 2, "decode"), (1, 2),
             ("data", "model"), pos=PROMPT)
+    full = replace(get_config(MOE["llama4"]), n_layers=2).with_approx(
+        _serve_config(MOE["llama4"]).approx)
+    for tag, rows in (("decode_dp", DP_ROWS),
+                      ("decode_dp_whole", DP_WHOLE)):
+        out[tag] = dryrun.trace_cell(
+            full, ShapeConfig("d", PROMPT + STEPS, rows, "decode"), (2, 1),
+            ("data", "model"), pos=PROMPT)
     return out
 
 
@@ -468,7 +576,8 @@ def reference_main(out: str) -> None:
     from repro.launch.sharding import use_rules
     from repro.launch.specs import fsdp_specs, opt_specs, param_specs
     from repro.models.model import build as ref_build
-    from repro.models.moe import moe_ffn
+    from repro.models.layers import EXACT
+    from repro.models.moe import _dispatch, _moe_ffn_jnp, moe_ffn
 
     assert len(jax.devices()) == 2, jax.devices()
     mesh = make_host_mesh(model=2)
@@ -485,6 +594,17 @@ def reference_main(out: str) -> None:
             res[f"{arch}/{S}/unbound"] = np.asarray(run())
             with mesh, use_rules(mesh, {"experts": ("model",), "ff": ()}):
                 res[f"{arch}/{S}/override"] = np.asarray(run())
+    for tag, rows in (("dp", DP_ROWS), ("dp_whole", DP_WHOLE)):
+        cfg, p, x = moe_inputs(MOE["llama4"], 1, rows)
+        p = jax.tree.map(jnp.asarray, p)
+        res[f"{tag}/out"] = np.asarray(_moe_ffn_jnp(
+            jnp.asarray(x), p, top_k=cfg.n_experts_active,
+            capacity_factor=DP_CAPACITY, approx=EXACT, grouped=True)[0])
+        xt = jnp.asarray(x).reshape(1, rows, -1)
+        probs = jax.nn.softmax((xt @ p["router"]).astype(jnp.float32),
+                               axis=-1)
+        res[f"{tag}/dst"] = np.asarray(_dispatch(
+            xt, probs, cfg.n_experts_active, DP_CAPACITY)[1])
     try:
         with mesh, use_rules(mesh, {"experts": ("model",)}):
             moe_block_ref = moe_inputs("mixtral-8x7b", 1)
@@ -523,6 +643,7 @@ def runs(tmp_path_factory):
     spawned = {g: _spawn(g, tmp) for g in GROUPS}
     unsplit = {"serve": {r: served_moe(_serve_config(a))
                          for r, a in MOE.items()},
+               "dp": _dp_runs(),
                "rows": per_row_steps(_serve_config("smollm-360m")),
                "sp_prefill": {a: sp_prefill(_serve_config(a))
                               for a in ("stablelm-1.6b", "mixtral-8x7b")}}
@@ -595,6 +716,82 @@ def test_moe_decode_dry_run_counts_the_moe_reduction(runs, run):
     got = runs["ranks"]["tp2"][0]["serve"][run]["collectives"][0]
     assert dry["collectives"]["all_reduce@model"][0] \
         == got["all_reduce@model"][0]
+
+
+def test_moe_decode_over_data_ranks_dispatches_one_group(runs):
+    """A decode step's MoE on two data ranks (mesh (data 2, model 1))
+    dispatches the batch as one group, as the reference's single-token
+    ``_moe_ffn_jnp`` does: llama4-scout served on DP_ROWS rows at
+    DP_CAPACITY, where its experts overflow, takes the unsplit run's
+    capacity, slots and drops at every step and layer, and its logits;
+    its block on one token a row equals the unsplit block and the
+    reference's slots and output. Each step gathers the ranks' expert
+    choices once a layer, and the dry run counts those gathers."""
+    want = runs["unsplit"]["dp"]
+    ref = runs["reference"]
+    cfg = _serve_config(MOE["llama4"])
+    E, k = cfg.n_experts, cfg.n_experts_active
+    n = len(runs["ranks"]["tp2"])
+    b = DP_ROWS // n
+    assert len(want["serve"]["dispatch"]) == STEPS * cfg.n_layers
+    assert any(bool((dst == E * C).any())
+               for dst, C in want["serve"]["dispatch"]), "nothing dropped"
+    (dst0, C0), = want["block"]["dispatch"]
+    assert bool((dst0 == E * C0).any()), "the block dropped nothing"
+    assert np.array_equal(dst0.numpy(), ref["dp/dst"])
+    np.testing.assert_allclose(want["block"]["out"].numpy(), ref["dp/out"],
+                               rtol=1e-5, atol=1e-5)
+    for r, res in enumerate(runs["ranks"]["tp2"]):
+        rows, ent = slice(r * b, (r + 1) * b), slice(r * b * k,
+                                                     (r + 1) * b * k)
+        got = res["dp"]["serve"]
+        assert len(got["dispatch"]) == len(want["serve"]["dispatch"])
+        for (dst, C), (dst_w, C_w) in zip(got["dispatch"],
+                                          want["serve"]["dispatch"]):
+            assert C == C_w and torch.equal(dst, dst_w[:, ent])
+        assert torch.equal(got["prefill"], want["serve"]["prefill"][rows])
+        for g, w in zip(got["steps"], want["serve"]["steps"]):
+            assert torch.equal(g, w[rows])
+        for c in got["collectives"]:
+            assert c["all_gather@data"][0] == cfg.n_layers, c
+        (dst, C), = res["dp"]["block"]["dispatch"]
+        assert C == C0 and torch.equal(dst, dst0[:, ent])
+        assert np.array_equal(dst.numpy(), ref["dp/dst"][:, ent])
+        assert torch.equal(res["dp"]["block"]["out"],
+                           want["block"]["out"][rows])
+    dry = runs["ranks"]["dry"][0]["decode_dp"]["per_device"]
+    assert dry["collectives"]["all_gather@data"][0] == cfg.n_layers
+
+
+def test_moe_decode_over_data_ranks_on_a_whole_batch(runs):
+    """A batch the two data ranks do not divide (DP_WHOLE rows) is held
+    whole by each: its decode step's MoE dispatches the rows as they are,
+    gathering nothing, so each rank's slots, drops and logits equal the
+    unsplit run's and its block the reference's ``_moe_ffn_jnp``; the dry
+    run counts no gather for it."""
+    want = runs["unsplit"]["dp"]
+    ref = runs["reference"]
+    (dst0, C0), = want["block_whole"]["dispatch"]
+    assert np.array_equal(dst0.numpy(), ref["dp_whole/dst"])
+    np.testing.assert_allclose(want["block_whole"]["out"].numpy(),
+                               ref["dp_whole/out"], rtol=1e-5, atol=1e-5)
+    for res in runs["ranks"]["tp2"]:
+        got = res["dp"]["serve_whole"]
+        assert len(got["dispatch"]) == len(want["serve_whole"]["dispatch"])
+        for (dst, C), (dst_w, C_w) in zip(got["dispatch"],
+                                          want["serve_whole"]["dispatch"]):
+            assert C == C_w and torch.equal(dst, dst_w)
+        assert torch.equal(got["prefill"], want["serve_whole"]["prefill"])
+        for g, w in zip(got["steps"], want["serve_whole"]["steps"]):
+            assert torch.equal(g, w)
+        for c in got["collectives"]:
+            assert c.get("all_gather@data", (0, 0))[0] == 0, c
+        (dst, C), = res["dp"]["block_whole"]["dispatch"]
+        assert C == C0 and torch.equal(dst, dst0)
+        assert torch.equal(res["dp"]["block_whole"]["out"],
+                           want["block_whole"]["out"])
+    dry = runs["ranks"]["dry"][0]["decode_dp_whole"]["per_device"]
+    assert dry["collectives"].get("all_gather@data", (0, 0))[0] == 0
 
 
 @pytest.mark.parametrize("arch", list(MOE.values()))
